@@ -1,0 +1,67 @@
+"""basic_iterative_solvers_tpu_torch — the PyTorch/CUDA port of
+basic_iterative_solvers_tpu, for NVIDIA Hopper.
+
+This slice runs unpreconditioned CG on the matrix-free stencil operators
+(HPCG 27-point, FDM, Anderson): operator build, setup, the host and fused
+harnesses, and a hand-written CUDA SpMV kernel (csrc/stencil_spmv.cu)
+that every SpMV on a CUDA tensor goes through.  CPU tensors take the
+kernel's plain PyTorch version.  The package imports torch and numpy only.
+
+    import torch
+    import basic_iterative_solvers_tpu_torch as bis
+    A = bis.stencil_op.from_source_operator("hpcg:128x128x128",
+                                            torch.float32, device="cuda")
+    cfg = bis.SolverConfig(dtype=torch.float32, harness="fused",
+                           tolerance=1e-6)
+    res = bis.solve(bis.preprocessing_device(A, cfg))
+"""
+import torch
+
+from . import convert, stencil_op  # noqa: F401
+from .config import SolverConfig
+from .solvers import SolverSetup, SolveResult, preprocessing_device, solve
+from .stencil_op import DeviceStencil
+from .types import PRECOND_CLI_NAMES, SOLVER_CLI_FLAGS, PrecondType, SolverType
+
+__version__ = "0.1.0"
+
+__all__ = ["SolverConfig", "SolverType", "PrecondType", "SolverSetup",
+           "SolveResult", "DeviceStencil", "stencil_op", "convert",
+           "preprocessing_device", "solve", "solve_system"]
+
+
+def solve_system(matrix_source, method="cg", preconditioner=None, b=None,
+                 x0=None, *, device="cpu", **config_kwargs) -> SolveResult:
+    """One-call API: build the operator for a stencil generator spec
+    ("hpcg:64x64x64", "fdm:16", "anderson:Lx=8,...",
+    "scamac:Anderson,...") or take a DeviceStencil, set up, and solve.
+
+    `method` and `preconditioner` take the CLI short names ("cg"; "none")
+    or the enums.  Other keyword arguments go to SolverConfig; the dtype
+    defaults to float32 on a card and float64 on the CPU, the harness to
+    "fused" on a card and "host" on the CPU."""
+    if isinstance(method, str):
+        method = (SOLVER_CLI_FLAGS.get("-" + method.lstrip("-"))
+                  or SolverType(method))
+    if preconditioner is None:
+        preconditioner = PrecondType.NONE
+    elif isinstance(preconditioner, str):
+        preconditioner = (PRECOND_CLI_NAMES.get(preconditioner)
+                          or PrecondType(preconditioner))
+    on_card = torch.device(device).type == "cuda"
+    config_kwargs.setdefault("dtype",
+                             torch.float32 if on_card else torch.float64)
+    config_kwargs.setdefault("harness", "fused" if on_card else "host")
+    config = SolverConfig(method=method, preconditioner=preconditioner,
+                          **config_kwargs)
+    A = matrix_source
+    if isinstance(A, str):
+        A = stencil_op.from_source_operator(A, dtype=config.mat_dtype(),
+                                            device=device)
+    if not isinstance(A, DeviceStencil):
+        raise TypeError(
+            f"unsupported matrix source {type(matrix_source).__name__}: this "
+            "slice solves stencil generator specs and DeviceStencil "
+            "operators; .mtx files and CSR matrices arrive with ROADMAP "
+            "Queue 1 slice 5")
+    return solve(preprocessing_device(A, config, b=b, x0=x0))

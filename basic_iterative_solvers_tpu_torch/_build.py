@@ -1,0 +1,107 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under `csrc/` are compiled by `nvcc` for Hopper (sm_90a) into
+one shared library with a plain C interface, loaded with ctypes.  The
+library is built at first use into `build/kernels/` beside the package,
+keyed by a hash of the sources and flags, so a checkout needs nothing
+prebuilt.  Import this module only on the path that launches a kernel: the
+CPU tests import everything else on machines with no `nvcc`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+SOURCES = (_PKG / "csrc" / "stencil_spmv.cu",)
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+MAX_LEGS = 27
+MAX_DOTS = 3
+
+
+class StencilArgs(ctypes.Structure):
+    """ctypes mirror of `BisStencilArgs` in csrc/stencil_spmv.cu."""
+
+    _fields_ = [
+        ("off", ctypes.c_longlong * MAX_LEGS),
+        ("group_coeff", ctypes.c_double * MAX_LEGS),
+        ("dx", ctypes.c_int * MAX_LEGS),
+        ("dy", ctypes.c_int * MAX_LEGS),
+        ("dz", ctypes.c_int * MAX_LEGS),
+        ("group_begin", ctypes.c_int * (MAX_LEGS + 1)),
+        ("n_groups", ctypes.c_int),
+        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
+        ("block_x", ctypes.c_int), ("block_y", ctypes.c_int),
+        ("grid_x", ctypes.c_int), ("grid_y", ctypes.c_int),
+        ("n_dots", ctypes.c_int),
+        ("dot_kind", ctypes.c_int * MAX_DOTS),
+    ]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    candidates = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    candidates.append(shutil.which("nvcc"))
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (looked under CUDA_HOME and on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libbis_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernel library unless a build of these sources exists;
+    returns its path.  Raises, naming the command, if the build fails."""
+    lib = _library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"kernel build failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)      # atomic: concurrent builders both succeed
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argument and result types declared."""
+    lib = ctypes.CDLL(str(build()))
+    ptr = ctypes.c_void_p
+    for name in ("bis_stencil_spmv_f32", "bis_stencil_spmv_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(StencilArgs), ptr, ptr,
+                       ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+    lib.bis_stencil_args_size.argtypes = []
+    lib.bis_stencil_args_size.restype = ctypes.c_int
+    if lib.bis_stencil_args_size() != ctypes.sizeof(StencilArgs):
+        raise RuntimeError("StencilArgs does not match BisStencilArgs in "
+                           "csrc/stencil_spmv.cu")
+    return lib

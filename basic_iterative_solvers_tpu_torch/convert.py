@@ -1,0 +1,67 @@
+"""Carry operators and vectors across from the JAX package.
+
+The JAX package's `DeviceStencil` exposes `legs`, `coeff_values`, `dims`
+and `diag`; with those fields (and its vectors) as numpy arrays, these
+functions build the port's counterparts, so both packages compute on
+identical inputs.  The JAX package stores a diagonal or vector either flat
+(n,), possibly zero-padded to a tile multiple, or in its planar halo layout
+(rows_pad, L); the planar layout is decoded here with the JAX package's
+geometry rule (basic_iterative_solvers_tpu/stencil_op.py:152-185),
+reimplemented in numpy.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .stencil_op import DeviceStencil, make_stencil
+
+#: the JAX package's planar row tile (stencil_op._ROW_TILE_2D)
+_PLANAR_ROW_TILE = 1024
+
+
+def _planar_geometry(legs, dims):
+    """(L, rows_plane, rows_pad) of the single-device planar layout."""
+    nx, ny, nz = dims
+    L = max(128, -(-nx // 128) * 128)
+    rows_plane = ny + 2
+    rows_total = (nz + 2) * rows_plane
+    drmax = max([rows_plane + 1]
+                + [abs(dz) * rows_plane + abs(dy) for (dx, dy, dz) in legs])
+    TR = max(_PLANAR_ROW_TILE,
+             -(-2 * drmax // _PLANAR_ROW_TILE) * _PLANAR_ROW_TILE)
+    rows_pad = -(-rows_total // TR) * TR
+    return L, rows_plane, rows_pad
+
+
+def _flat(v, legs, dims) -> np.ndarray:
+    """Flat (n,) numpy copy of a flat, tile-padded flat or planar vector."""
+    v = np.asarray(v)
+    nx, ny, nz = dims
+    n = nx * ny * nz
+    if v.ndim == 2:
+        L, rows_plane, rows_pad = _planar_geometry(legs, dims)
+        if v.shape != (rows_pad, L):
+            raise ValueError(f"planar vector has shape {v.shape}, expected "
+                             f"{(rows_pad, L)}")
+        y3 = v[:(nz + 2) * rows_plane].reshape(nz + 2, rows_plane, L)
+        return y3[1:nz + 1, 1:ny + 1, :nx].reshape(n)
+    if v.ndim != 1 or v.shape[0] < n:
+        raise ValueError(f"flat vector has shape {v.shape}, grid has {n} rows")
+    return v[:n]
+
+
+def stencil_from_numpy(legs, coeff_values, dims, diag=None, *, dtype,
+                       device) -> DeviceStencil:
+    """The port's operator from a JAX DeviceStencil's fields."""
+    legs = tuple(tuple(int(d) for d in leg) for leg in legs)
+    d = None if diag is None else _flat(diag, legs, dims)
+    return make_stencil(zip(legs, coeff_values), *dims, dtype=dtype,
+                        diag=d, device=device)
+
+
+def vector_from_numpy(v, A: DeviceStencil, dtype=None) -> torch.Tensor:
+    """A JAX-package vector (flat or planar) as a flat tensor on A's device,
+    in `dtype` (default: A's)."""
+    return torch.as_tensor(_flat(v, A.legs, A.dims).copy(),
+                           dtype=dtype or A.dtype, device=A.device)
