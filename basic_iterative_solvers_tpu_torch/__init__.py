@@ -1,11 +1,14 @@
 """basic_iterative_solvers_tpu_torch — the PyTorch/CUDA port of
 basic_iterative_solvers_tpu, for NVIDIA Hopper.
 
-This slice runs unpreconditioned CG on the matrix-free stencil operators
-(HPCG 27-point, FDM, Anderson): operator build, setup, the host and fused
-harnesses, and a hand-written CUDA SpMV kernel (csrc/stencil_spmv.cu)
-that every SpMV on a CUDA tensor goes through.  CPU tensors take the
-kernel's plain PyTorch version.  The package imports torch and numpy only.
+It runs CG, Jacobi, BiCGSTAB and GMRES(m), unpreconditioned or with the
+Jacobi preconditioner, on the matrix-free stencil operators (HPCG 27-point,
+FDM, Anderson): operator build, setup, the host and fused harnesses (with
+GMRES's restart cycles), and hand-written CUDA kernels: the stencil SpMV
+(csrc/stencil_spmv.cu) that every SpMV on a CUDA tensor goes through, and
+the two basis passes of fused-mode GMRES (csrc/gmres_basis.cu).  CPU
+tensors take the kernels' plain PyTorch versions.  The package imports
+torch and numpy only.
 
     import torch
     import basic_iterative_solvers_tpu_torch as bis
@@ -14,6 +17,9 @@ kernel's plain PyTorch version.  The package imports torch and numpy only.
     cfg = bis.SolverConfig(dtype=torch.float32, harness="fused",
                            tolerance=1e-6)
     res = bis.solve(bis.preprocessing_device(A, cfg))
+    res = bis.solve_system(A, "gm", restart_length=50, orthog_mode="fused",
+                           gmres_basis_dtype="bfloat16", tolerance=1e-5,
+                           device="cuda")
 """
 import torch
 
@@ -36,10 +42,10 @@ def solve_system(matrix_source, method="cg", preconditioner=None, b=None,
     ("hpcg:64x64x64", "fdm:16", "anderson:Lx=8,...",
     "scamac:Anderson,...") or take a DeviceStencil, set up, and solve.
 
-    `method` and `preconditioner` take the CLI short names ("cg"; "none")
-    or the enums.  Other keyword arguments go to SolverConfig; the dtype
-    defaults to float32 on a card and float64 on the CPU, the harness to
-    "fused" on a card and "host" on the CPU."""
+    `method` and `preconditioner` take the CLI short names ("cg", "j",
+    "bi", "gm"; "none", "j") or the enums.  Other keyword arguments go to
+    SolverConfig; the dtype defaults to float32 on a card and float64 on
+    the CPU, the harness to "fused" on a card and "host" on the CPU."""
     if isinstance(method, str):
         method = (SOLVER_CLI_FLAGS.get("-" + method.lstrip("-"))
                   or SolverType(method))

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under `csrc/` are compiled by `nvcc` for Hopper (sm_90a) into
-one shared library with a plain C interface, loaded with ctypes.  The
-library is built at first use into `build/kernels/` beside the package,
-keyed by a hash of the sources and flags, so a checkout needs nothing
-prebuilt.  Import this module only on the path that launches a kernel: the
-CPU tests import everything else on machines with no `nvcc`.
+The sources under `csrc/` are compiled by `nvcc` for Hopper (sm_90a), one
+`nvcc` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes.  The library is built
+at first use into `build/kernels/` beside the package, keyed by a hash of
+the sources and flags, so a checkout needs nothing prebuilt.  Import this
+module only on the path that launches a kernel: the CPU tests import
+everything else on machines with no `nvcc`.
 """
 from __future__ import annotations
 
@@ -19,10 +20,11 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "stencil_spmv.cu",)
+SOURCES = tuple(_PKG / "csrc" / name
+                for name in ("stencil_spmv.cu", "gmres_basis.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 MAX_LEGS = 27
 MAX_DOTS = 3
@@ -65,6 +67,19 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libbis_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands concurrently; raise, naming the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"kernel build failed ({rc}): "
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernel library unless a build of these sources exists;
     returns its path.  Raises, naming the command, if the build fails."""
@@ -72,19 +87,14 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"kernel build failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)      # atomic: concurrent builders both succeed
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+              for obj, src in zip(objs, SOURCES)])
+        out = os.path.join(tmp, lib.name)
+        _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs]])
+        os.replace(out, lib)      # atomic: concurrent builders both succeed
     return lib
 
 
@@ -99,6 +109,14 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(StencilArgs), ptr, ptr,
                        ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+    i64, i32 = ctypes.c_longlong, ctypes.c_int
+    for suffix in ("f32", "bf16"):
+        fn = getattr(lib, f"bis_gmres_project_gram_{suffix}")
+        fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, i32, ptr, i32, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"bis_gmres_correct_write_{suffix}")
+        fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, ptr, ptr, i32, ptr]
+        fn.restype = i32
     lib.bis_stencil_args_size.argtypes = []
     lib.bis_stencil_args_size.restype = ctypes.c_int
     if lib.bis_stencil_args_size() != ctypes.sizeof(StencilArgs):

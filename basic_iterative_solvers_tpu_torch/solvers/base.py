@@ -6,7 +6,8 @@ The reference's solver core (solver.hpp:9-193) and harness
 * `SolverSetup`  — what preprocessing produces (device operator,
                    preconditioner, b, x0); preprocessing.hpp:26-100.
 * method objects — per-method `iterate(state) -> state` plus state init
-                   and residual accessors (solvers/cg.py).
+                   and residual accessors (solvers/{cg,jacobi,bicgstab,
+                   gmres}.py).
 * `solve()`      — the do{iterate; sample; check}while loop, in two modes:
                    "host" reads the sampled norm on the host every
                    iteration, like the reference; "fused" keeps the loop
@@ -103,7 +104,8 @@ def preprocessing_device(A_dev, config: SolverConfig, b: Optional[Any] = None,
     x0_dev = _vector(x0, n, config.init_x_val, dtype, device)
     with timers.time("preprocessing_device"):
         M = setup_preconditioner(A_dev, config)
-        A_D = stencil_diag_vec(A_dev).to(dtype)
+        A_D = (M.A_D if M.A_D is not None
+               else stencil_diag_vec(A_dev).to(dtype))
         return SolverSetup(config=config, A=A_dev, M=M, b=b_dev, x0=x0_dev,
                            n=n, A_D=A_D)
 
@@ -205,11 +207,17 @@ def _solve_host(setup: SolverSetup, method, timers: Timers,
     restart_count = 0
     residual_norm = r0_norm
     res_milestones = {1e-3: False, 1e-6: False}
+    # the reference's SanityChecker hooks (IF_DEBUG_MODE), where the
+    # method defines one (GMRES)
+    debug_check = (getattr(method, "debug_check", None)
+                   if config.debug_checks else None)
     t_solve0 = time.perf_counter()
     while True:
         t0 = time.perf_counter()
         state = method.iterate(state)
         iter_count += 1
+        if debug_check is not None:
+            debug_check(state, iter_count)
         if iter_count % config.res_check_len == 0:
             residual_norm = float(method.sample_norm(state))
             norms[hist_count] = residual_norm

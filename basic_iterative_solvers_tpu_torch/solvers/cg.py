@@ -16,20 +16,12 @@ recorded norm is ||r||₂ of the recurrence residual (cg.hpp:162-166).
 """
 from __future__ import annotations
 
-import torch
-
 from ..ops.blas1 import dot, euclidean_vec_norm, subtract_vectors, sum_vectors
 from ..ops.spmv import spmv, spmv_dot
 from ..precond import apply_preconditioner
 from ..types import PrecondType
 from .base import SolverSetup
-from .fused import fused_solve
-
-
-def _gate(s, active):
-    """The step scalar, or 0 where the fused loop has stopped (a where, so
-    a NaN scalar past the stop cannot leak into the state)."""
-    return s if active is None else torch.where(active, s, 0.0)
+from .fused import finite_or_zero, fused_solve, gate
 
 
 class ConjugateGradientMethod:
@@ -65,11 +57,11 @@ class ConjugateGradientMethod:
             rn = state["residual_norm"]
             t, tp = spmv_dot(self.A, p)
             rz = rn * rn                      # ρ = (r, r) = ||r||²
-            alpha = _gate(rz / tp, active)
+            alpha = gate(rz / tp, active)
             x = sum_vectors(x, p, alpha)
             r_new = subtract_vectors(r, t, alpha)
             rn_new = euclidean_vec_norm(r_new)
-            beta = _gate((rn_new * rn_new) / rz, active)
+            beta = gate((rn_new * rn_new) / rz, active)
             p_new = sum_vectors(r_new, p, beta)
             return {"x": x, "r": r_new, "p": p_new, "residual_norm": rn_new}
         x, r, z, p = state["x"], state["r"], state["z"], state["p"]
@@ -77,22 +69,18 @@ class ConjugateGradientMethod:
         rz = dot(r, z)
         alpha = rz / tp
         if self._stall:
-            alpha = self._finite_or_zero(alpha)
-        alpha = _gate(alpha, active)
+            alpha = finite_or_zero(alpha)
+        alpha = gate(alpha, active)
         x = sum_vectors(x, p, alpha)
         r_new = subtract_vectors(r, t, alpha)
         z_new = apply_preconditioner(self.M, r_new)
         beta = dot(r_new, z_new) / rz
         if self._stall:
-            beta = self._finite_or_zero(beta)
-        beta = _gate(beta, active)
+            beta = finite_or_zero(beta)
+        beta = gate(beta, active)
         p_new = sum_vectors(z_new, p, beta)
         return {"x": x, "r": r_new, "z": z_new, "p": p_new,
                 "residual_norm": euclidean_vec_norm(r_new)}
-
-    @staticmethod
-    def _finite_or_zero(s):
-        return torch.where(torch.isfinite(s), s, torch.zeros_like(s))
 
     def sample_norm(self, state):
         return state["residual_norm"]

@@ -3,24 +3,26 @@ from __future__ import annotations
 
 from ..types import SolverType
 from .base import SolverSetup
+from .bicgstab import BiCGSTABMethod
 from .cg import ConjugateGradientMethod
+from .gmres import GMRESMethod
+from .jacobi import JacobiMethod
 
-#: ROADMAP Queue 1 slice that ports each method
-_SLICE = {
-    SolverType.JACOBI: "slice 2 (the other unpreconditioned rows)",
-    SolverType.BICGSTAB: "slice 2 (the other unpreconditioned rows)",
-    SolverType.GMRES: "slice 2 (the other unpreconditioned rows)",
-    SolverType.GAUSS_SEIDEL: "slice 3 (the GS family on stencils)",
-    SolverType.SYMMETRIC_GAUSS_SEIDEL: "slice 3 (the GS family on stencils)",
+_METHODS = {
+    SolverType.JACOBI: JacobiMethod,
+    SolverType.BICGSTAB: BiCGSTABMethod,
+    SolverType.GMRES: GMRESMethod,
 }
 
 
 def make_method(setup: SolverSetup):
     cfg = setup.config
+    if cfg.method in _METHODS:
+        return _METHODS[cfg.method](setup)
     if cfg.method != SolverType.CONJUGATE_GRADIENT:
         raise NotImplementedError(
             f"solver {cfg.method.value!r} is not ported yet: it arrives with "
-            f"ROADMAP Queue 1 {_SLICE[cfg.method]}")
+            "ROADMAP Queue 1 slice 3 (the GS family on stencils)")
     if cfg.cg_flavor == "pipelined":
         raise NotImplementedError(
             "pipelined CG arrives with ROADMAP Queue 1 slice 6")

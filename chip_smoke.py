@@ -7,13 +7,21 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
   1. device: the card's name and power limit;
   2. build: compile the CUDA kernels from this checkout;
-  3. kernel against its plain PyTorch version on the card, at the main
-     path's shapes, both timed;
-  4. the same CG solve on the CPU (plain path) and on the card (kernel);
-  5. the main path: CG on HPCG 128^3 in float32 through the public entry
+  3. the stencil SpMV kernel against its plain PyTorch version on the card,
+     at the main path's shapes, both timed;
+  4. the GMRES basis kernels (project_gram, correct_write) against their
+     plain versions at the 128^3 GMRES(50) shape, both basis dtypes, both
+     timed;
+  5. the same CG solve on the CPU (plain path) and on the card (kernel);
+  6. the same BiCGSTAB and GMRES solves on the CPU and on the card;
+  7. the main path: CG on HPCG 128^3 in float32 through the public entry
      points, 2500 iterations, counting the kernel's launches; then a
      float64 solve of the same operator to convergence;
-  6. capacity: CG on HPCG 384^3 in float32.
+  8. the second slice's path: Jacobi, BiCGSTAB and fused-mode GMRES(50)
+     with a bfloat16 basis on HPCG 128^3 in float32, the bench's
+     iteration counts, counting every kernel's launches; then float64
+     GMRES(50) and BiCGSTAB solves of the same operator to convergence;
+  9. capacity: CG on HPCG 384^3 in float32.
 The second-to-last line is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
 """
@@ -67,8 +75,8 @@ def phase_build():
     from basic_iterative_solvers_tpu_torch import _build
     t0 = time.perf_counter()
     _build.load_library()
-    print(f"[build] stencil_spmv.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[build] {', '.join(src.name for src in _build.SOURCES)} built "
+          f"and loaded in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel_vs_plain(torch, so):
@@ -117,6 +125,88 @@ def phase_kernel_vs_plain(torch, so):
     return record
 
 
+#: the 128^3 GMRES(50) basis: rows of n entries, and the rows it checks
+BASIS_N, BASIS_M, BASIS_JS = 2097152, 50, (0, 7, 49)
+#: bound on a basis kernel's Pw/Pv against plain, relative to
+#: Σ|V_i·w| of its row (float32 sums in different orders)
+BASIS_TOL = 1e-5
+
+
+def phase_basis_vs_plain(torch, gb):
+    """project_gram and correct_write against their plain versions on the
+    same CUDA tensors: Pw/Pv within BASIS_TOL, the written row and vnext
+    bit for bit (both round each product and difference alone), nrm2
+    within 1e-5 relative; both timed at j = 49.  Returns the bf16 records
+    (the main path's basis)."""
+    records = {}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n, m = BASIS_N, BASIS_M
+    for dt in (torch.float32, torch.bfloat16):
+        V = torch.randn(m + 1, n, device="cuda", generator=g).to(dt)
+        w = torch.randn(n, device="cuda", generator=g)
+        vc = torch.randn(n, device="cuda", generator=g)
+        ht = torch.randn(m + 1, device="cuda", generator=g)
+        for j in BASIS_JS:
+            before = (gb.project_gram.launches, gb.correct_write.launches)
+            Pk = gb.project_gram(V, w, vc, j)
+            Pp = gb.project_gram_plain(V, w, vc, j)
+            Vk, Vp = V.clone(), V.clone()
+            vk, nk = gb.correct_write(Vk, w, ht, j)
+            vp, np_ = gb.correct_write_plain(Vp, w, ht, j)
+            torch.cuda.synchronize()
+            if (gb.project_gram.launches, gb.correct_write.launches) != (
+                    before[0] + 1, before[1] + 1):
+                raise RuntimeError("a basis kernel's launch count did not "
+                                   "grow")
+            Vf = V[:j + 1].float()
+            pg_err = max(float(((k[:j + 1] - p[:j + 1]).abs()
+                                / (Vf * v).abs().sum(1)).max())
+                         for k, p, v in zip(Pk, Pp, (w, vc)))
+            pg_abs = max(float((k - p).abs().max()) for k, p in zip(Pk, Pp))
+            tail = max(float(k[j + 1:].abs().max()) for k in Pk)  # j < m
+            rows_equal = torch.equal(Vk, Vp) and torch.equal(vk, vp)
+            nrm_rel = abs(float(nk) - float(np_)) / float(np_)
+            line = (f"[basis] n={n} m={m} {str(dt)[6:]} j={j} "
+                    f"project_gram_rel_err={pg_err:.3e} "
+                    f"tail={tail:.1e} correct_write_rows_equal={rows_equal} "
+                    f"nrm2_rel_err={nrm_rel:.3e}")
+            if not (pg_err <= BASIS_TOL and tail == 0.0 and rows_equal
+                    and nrm_rel <= 1e-5):
+                raise RuntimeError(f"basis kernels disagree with plain: "
+                                   f"{line}")
+            if j == BASIS_JS[-1]:
+                # bytes each must move: rows 0..j, plus w and vc, or plus
+                # w, vnext and the written row
+                row = n * V.element_size()
+                pg_bytes = (j + 1) * row + 2 * 4 * n
+                cw_bytes = (j + 2) * row + 2 * 4 * n
+                t = {}
+                for name, fn in (
+                        ("pg", lambda: gb.project_gram(V, w, vc, j)),
+                        ("pg_plain", lambda: gb.project_gram_plain(V, w, vc,
+                                                                   j)),
+                        ("cw", lambda: gb.correct_write(Vk, w, ht, j)),
+                        ("cw_plain", lambda: gb.correct_write_plain(
+                            Vp, w, ht, j))):
+                    t[name] = _median_ms(fn, torch)
+                line += (f" project_gram_ms={t['pg']:.4f} "
+                         f"plain_ms={t['pg_plain']:.4f} "
+                         f"GB/s={pg_bytes / (t['pg'] * 1e6):.0f} "
+                         f"correct_write_ms={t['cw']:.4f} "
+                         f"plain_ms={t['cw_plain']:.4f} "
+                         f"GB/s={cw_bytes / (t['cw'] * 1e6):.0f}")
+                if dt == torch.bfloat16:
+                    records["project_gram"] = {
+                        "max_abs_err": pg_abs, "ms": t["pg"],
+                        "plain_ms": t["pg_plain"]}
+                    records["correct_write"] = {
+                        "max_abs_err": float((vk - vp).abs().max()),
+                        "ms": t["cw"], "plain_ms": t["cw_plain"]}
+            print(line)
+        del V, Vk, Vp
+    return records
+
+
 def phase_cpu_vs_card(torch, bt):
     """The same f64 solve with CPU tensors (plain path) and CUDA tensors
     (kernel): the same iterations, histories to rtol 1e-8."""
@@ -142,16 +232,20 @@ def phase_cpu_vs_card(torch, bt):
                                rtol=1e-8)
 
 
-def _hpcg_cg(torch, bt, spec, dtype, **cfg_kw):
-    A = bt.stencil_op.from_source_operator(spec, dtype, device="cuda")
+def _setup(torch, bt, spec, dtype, device, method, **cfg_kw):
+    A = bt.stencil_op.from_source_operator(spec, dtype, device=device)
     n = A.n_rows
-    cfg = bt.SolverConfig(method=bt.SolverType.CONJUGATE_GRADIENT,
-                          preconditioner=bt.PrecondType.NONE, dtype=dtype,
-                          harness="fused", **cfg_kw)
+    cfg = bt.SolverConfig(method=method, dtype=dtype, harness="fused",
+                          **cfg_kw)
     # the bench's reference setup: b = 2, x0 = 1
     return bt.preprocessing_device(
-        A, cfg, b=torch.full((n,), 2.0, dtype=dtype, device="cuda"),
-        x0=torch.full((n,), 1.0, dtype=dtype, device="cuda"))
+        A, cfg, b=torch.full((n,), 2.0, dtype=dtype, device=device),
+        x0=torch.full((n,), 1.0, dtype=dtype, device=device))
+
+
+def _hpcg_cg(torch, bt, spec, dtype, **cfg_kw):
+    return _setup(torch, bt, spec, dtype, "cuda",
+                  bt.SolverType.CONJUGATE_GRADIENT, **cfg_kw)
 
 
 def phase_main_path(torch, bt):
@@ -188,6 +282,118 @@ def phase_main_path(torch, bt):
     return launches, ms
 
 
+def _check_history(got, ref):
+    """got's history against ref's: rtol 1e-8 while ref is above
+    1e-3·||r0||, then rtol 1e-2 down to 1e-7·||r0||, below which the
+    float64 norms are rounding noise.  BiCGSTAB and restarted GMRES amplify
+    the rounding of reduction order as they go: on the CPU the JAX package
+    and the port part the same way (HPCG 32^3 BiCGSTAB: 6e-9 at
+    2.5e-3·||r0||, 1e-6 at 8e-5·||r0||, 2e-3 at the end)."""
+    import numpy as np
+    g, h = got.residual_norms[:-1], ref.residual_norms[:-1]
+    for above, rtol in ((1e-3, 1e-8), (1e-7, 1e-2)):
+        keep = h >= above * h[0]
+        np.testing.assert_allclose(g[keep], h[keep], rtol=rtol)
+
+
+def phase_cpu_vs_card_slice2(torch, bt):
+    """f64 BiCGSTAB and GMRES(50) lowsync on HPCG 32^3 on the CPU and on the
+    card: the same iteration and restart counts, histories as
+    _check_history says; f32 fused GMRES(50) with a bf16 basis: iteration
+    counts within 2 (float32 reductions in other orders)."""
+    S = bt.SolverType
+    cases = [("f64 BiCGSTAB", torch.float64, S.BICGSTAB,
+              dict(tolerance=1e-10, max_iters=1000)),
+             ("f64 GMRES(50) lowsync", torch.float64, S.GMRES,
+              dict(tolerance=1e-10, max_iters=1000, restart_length=50,
+                   orthog_mode="lowsync")),
+             ("f32 GMRES(50) fused bf16", torch.float32, S.GMRES,
+              dict(tolerance=1e-5, max_iters=1000, restart_length=50,
+                   orthog_mode="fused", gmres_basis_dtype="bfloat16"))]
+    for label, dt, method, kw in cases:
+        c, g = (bt.solve(_setup(torch, bt, "hpcg:32x32x32", dt, dev, method,
+                                **kw)) for dev in ("cpu", "cuda"))
+        print(f"[cpu-vs-card] hpcg:32x32x32 {label}: iters cpu="
+              f"{c.iter_count} card={g.iter_count} restarts cpu="
+              f"{c.gmres_restart_count} card={g.gmres_restart_count} "
+              f"final cpu={c.final_residual_norm:.6e} "
+              f"card={g.final_residual_norm:.6e}")
+        if not (c.converged and g.converged):
+            raise RuntimeError(f"{label}: a solve did not converge")
+        if dt == torch.float32:
+            if abs(c.iter_count - g.iter_count) > 2:
+                raise RuntimeError(f"{label}: iteration counts differ by "
+                                   "more than 2")
+            continue
+        if (c.iter_count, c.gmres_restart_count) != (
+                g.iter_count, g.gmres_restart_count):
+            raise RuntimeError(f"{label}: CPU and card counts differ")
+        _check_history(g, c)
+
+
+def phase_slice_path(torch, bt):
+    """The bench's rows for Jacobi (2500 iterations), BiCGSTAB (1500) and
+    fused-mode GMRES(50) with a bf16 basis (1500 steps, restarts counted)
+    on HPCG 128^3, f32, tolerance 0; each after a warm-up solve, with every
+    kernel counter set to 0 just before the timed solve and read just
+    after.  Returns the GMRES run's launch counts."""
+    import math
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    so = bt.stencil_op
+    S = bt.SolverType
+    rows = [("jacobi", S.JACOBI, dict(max_iters=2500)),
+            ("bicgstab", S.BICGSTAB, dict(max_iters=1500)),
+            ("gmres", S.GMRES, dict(max_iters=1500, restart_length=50,
+                                    orthog_mode="fused",
+                                    gmres_basis_dtype="bfloat16"))]
+    counts = {}
+    for name, method, kw in rows:
+        setup = _setup(torch, bt, MAIN_SPEC, torch.float32, "cuda", method,
+                       tolerance=0.0, breakdown_stall=True, **kw)
+        solver = make_method(setup)
+        bt.solve(setup, method=solver)                # warm-up solve
+        so.stencil_spmv.launches = 0
+        gb.project_gram.launches = gb.correct_write.launches = 0
+        res = bt.solve(setup, method=solver)
+        counts = {"stencil_spmv": so.stencil_spmv.launches,
+                  "project_gram": gb.project_gram.launches,
+                  "correct_write": gb.correct_write.launches}
+        ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
+        print(f"[slice2] {MAIN_SPEC} f32 {name} fused: iters={res.iter_count} "
+              f"restarts={res.gmres_restart_count} ms/iter={ms:.5f} "
+              f"r0={res.residual_norms[0]:.6e} "
+              f"final_explicit_f64={res.final_residual_norm:.6e} "
+              f"launches={counts}")
+        steps = res.iter_count + res.gmres_restart_count
+        ok = (steps == kw["max_iters"]
+              and math.isfinite(res.final_residual_norm)
+              and bool(torch.isfinite(res.x_star).all())
+              and counts["stencil_spmv"] >= res.iter_count)
+        if method == S.GMRES:
+            ok = ok and min(counts["project_gram"],
+                            counts["correct_write"]) >= res.iter_count
+        if not ok:
+            raise RuntimeError(f"slice-2 {name} run failed its checks")
+    gmres_counts = counts
+
+    for name, method, kw in (
+            ("GMRES(50) lowsync", S.GMRES,
+             dict(restart_length=50, orthog_mode="lowsync")),
+            ("BiCGSTAB", S.BICGSTAB, {})):
+        res = bt.solve(_setup(torch, bt, MAIN_SPEC, torch.float64, "cuda",
+                              method, tolerance=1e-8, max_iters=3000, **kw))
+        r0 = res.residual_norms[0]
+        print(f"[slice2] {MAIN_SPEC} f64 {name} to tol 1e-8: "
+              f"iters={res.iter_count} restarts={res.gmres_restart_count} "
+              f"converged={res.converged} "
+              f"final_explicit/r0={res.final_residual_norm / r0:.3e} "
+              f"ms/iter={1e3 * res.solve_seconds / res.iter_count:.5f}")
+        if not (res.converged and res.final_residual_norm <= 10 * 1e-8 * r0):
+            raise RuntimeError(f"f64 {name} solve did not converge")
+    return gmres_counts
+
+
 def phase_capacity(torch, bt):
     setup = _hpcg_cg(torch, bt, "hpcg:384x384x384", torch.float32,
                      max_iters=150, tolerance=0.0, breakdown_stall=True)
@@ -208,16 +414,26 @@ def main():
     name = phase_device(torch)
     import basic_iterative_solvers_tpu_torch as bt
     phase_build()
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis
     record = phase_kernel_vs_plain(torch, bt.stencil_op)
+    basis_records = phase_basis_vs_plain(torch, gmres_basis)
     phase_cpu_vs_card(torch, bt)
+    phase_cpu_vs_card_slice2(torch, bt)
     launches, _ = phase_main_path(torch, bt)
+    slice2_launches = phase_slice_path(torch, bt)
     phase_capacity(torch, bt)
-    kernel = {"name": "stencil_spmv", "route": "cuda",
-              "source": ("basic_iterative_solvers_tpu_torch/csrc/"
-                         "stencil_spmv.cu"),
-              "replaces": "basic_iterative_solvers_tpu/stencil_op.py:538",
-              "launches": launches, **record}
-    print(json.dumps({"kernels": [kernel]}))
+    src = "basic_iterative_solvers_tpu_torch/csrc/"
+    kernels = [{"name": "stencil_spmv", "route": "cuda",
+                "source": src + "stencil_spmv.cu",
+                "replaces": "basic_iterative_solvers_tpu/stencil_op.py:538",
+                "launches": launches, **record}]
+    for kernel, line in (("project_gram", 135), ("correct_write", 203)):
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": src + "gmres_basis.cu",
+            "replaces": ("basic_iterative_solvers_tpu/ops/gmres_basis.py:"
+                         f"{line}"),
+            "launches": slice2_launches[kernel], **basis_records[kernel]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

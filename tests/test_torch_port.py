@@ -130,12 +130,16 @@ def test_spmv_rejects_bad_operands(case):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"method": bt.SolverType.GMRES},
-    {"preconditioner": bt.PrecondType.JACOBI},
+    {"method": bt.SolverType.GMRES,
+     "preconditioner": bt.PrecondType.GAUSS_SEIDEL},
+    {"method": bt.SolverType.JACOBI, "kernel_timers": True},
     {"cg_flavor": "pipelined"},
     {"refine_outer": 2},
     {"dtype": torch.float32, "matrix_dtype": "bfloat16"},
-], ids=["gmres", "jacobi", "pipelined", "refine", "matrix_dtype"])
+    {"method": bt.SolverType.SYMMETRIC_GAUSS_SEIDEL},
+    {"preconditioner": bt.PrecondType.ILU0},
+], ids=["gmres", "jacobi", "pipelined", "refine", "matrix_dtype", "sgs",
+        "ilu0"])
 def test_unported_features_name_their_slice(kwargs):
     A = tso.from_source_operator("hpcg:8x6x4", torch.float64)
     with pytest.raises(NotImplementedError, match="slice"):
