@@ -1,14 +1,16 @@
 """basic_iterative_solvers_tpu_torch — the PyTorch/CUDA port of
 basic_iterative_solvers_tpu, for NVIDIA Hopper.
 
-It runs CG, Jacobi, BiCGSTAB and GMRES(m), unpreconditioned or with the
-Jacobi preconditioner, on the matrix-free stencil operators (HPCG 27-point,
-FDM, Anderson): operator build, setup, the host and fused harnesses (with
-GMRES's restart cycles), and hand-written CUDA kernels: the stencil SpMV
-(csrc/stencil_spmv.cu) that every SpMV on a CUDA tensor goes through, and
-the two basis passes of fused-mode GMRES (csrc/gmres_basis.cu).  CPU
-tensors take the kernels' plain PyTorch versions.  The package imports
-torch and numpy only.
+It runs CG, Jacobi, Gauss-Seidel, symmetric Gauss-Seidel, BiCGSTAB and
+GMRES(m), unpreconditioned or with the Jacobi, GS, backward GS, symmetric
+GS and (symmetric) two-stage GS preconditioners, on the matrix-free
+stencil operators (HPCG 27-point, FDM, Anderson): operator build, setup,
+the host and fused harnesses (with GMRES's restart cycles), and
+hand-written CUDA kernels: the stencil SpMV and the multicolour GS step
+(csrc/stencil_spmv.cu), the two basis passes of fused-mode GMRES
+(csrc/gmres_basis.cu) and one level of the const-mode superblock
+triangular solve (csrc/block_trisolve.cu).  CPU tensors take the kernels'
+plain PyTorch versions.  The package imports torch and numpy only.
 
     import torch
     import basic_iterative_solvers_tpu_torch as bis
@@ -23,7 +25,7 @@ torch and numpy only.
 """
 import torch
 
-from . import convert, stencil_op  # noqa: F401
+from . import coloring, convert, stencil_op  # noqa: F401
 from .config import SolverConfig
 from .solvers import SolverSetup, SolveResult, preprocessing_device, solve
 from .stencil_op import DeviceStencil
@@ -43,7 +45,8 @@ def solve_system(matrix_source, method="cg", preconditioner=None, b=None,
     "scamac:Anderson,...") or take a DeviceStencil, set up, and solve.
 
     `method` and `preconditioner` take the CLI short names ("cg", "j",
-    "bi", "gm"; "none", "j") or the enums.  Other keyword arguments go to
+    "gs", "sgs", "bi", "gm"; "none", "j", "gs", "bgs", "sgs", "2st",
+    "s2st") or the enums.  Other keyword arguments go to
     SolverConfig; the dtype defaults to float32 on a card and float64 on
     the CPU, the harness to "fused" on a card and "host" on the CPU."""
     if isinstance(method, str):

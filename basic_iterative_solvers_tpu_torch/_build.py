@@ -21,7 +21,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(_PKG / "csrc" / name
-                for name in ("stencil_spmv.cu", "gmres_basis.cu"))
+                for name in ("stencil_spmv.cu", "gmres_basis.cu",
+                             "block_trisolve.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -46,6 +47,29 @@ class StencilArgs(ctypes.Structure):
         ("grid_x", ctypes.c_int), ("grid_y", ctypes.c_int),
         ("n_dots", ctypes.c_int),
         ("dot_kind", ctypes.c_int * MAX_DOTS),
+    ]
+
+
+class SuperLevelArgs(ctypes.Structure):
+    """ctypes mirror of `BisSuperLevelArgs` in csrc/block_trisolve.cu."""
+
+    _fields_ = [
+        ("cross_off", ctypes.c_longlong * MAX_LEGS),
+        ("cross_coeff", ctypes.c_double * MAX_LEGS),
+        ("self_coeff", ctypes.c_double * MAX_LEGS),
+        ("dinv", ctypes.c_double),
+        ("cross_dx", ctypes.c_int * MAX_LEGS),
+        ("cross_dy", ctypes.c_int * MAX_LEGS),
+        ("cross_dz", ctypes.c_int * MAX_LEGS),
+        ("self_dx", ctypes.c_int * MAX_LEGS),
+        ("n_cross", ctypes.c_int), ("n_self", ctypes.c_int),
+        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
+        ("sx", ctypes.c_int), ("sy", ctypes.c_int), ("sz", ctypes.c_int),
+        ("py", ctypes.c_int), ("pz", ctypes.c_int),
+        ("my", ctypes.c_int), ("lines", ctypes.c_int),
+        ("upper", ctypes.c_int),
+        ("block_x", ctypes.c_int), ("block_y", ctypes.c_int),
+        ("grid_x", ctypes.c_int),
     ]
 
 
@@ -117,9 +141,21 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"bis_gmres_correct_write_{suffix}")
         fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, ptr, ptr, i32, ptr]
         fn.restype = i32
-    lib.bis_stencil_args_size.argtypes = []
-    lib.bis_stencil_args_size.restype = ctypes.c_int
-    if lib.bis_stencil_args_size() != ctypes.sizeof(StencilArgs):
-        raise RuntimeError("StencilArgs does not match BisStencilArgs in "
-                           "csrc/stencil_spmv.cu")
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"bis_stencil_gs_color_step_{dt}")
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs), i32, i32, i32, i32,
+                       i32, ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"bis_super_level_{dt}")
+        fn.argtypes = [i32, ctypes.POINTER(SuperLevelArgs), ptr, ptr, ptr]
+        fn.restype = i32
+    for size_fn, mirror, source in (
+            (lib.bis_stencil_args_size, StencilArgs,
+             "BisStencilArgs in csrc/stencil_spmv.cu"),
+            (lib.bis_super_level_args_size, SuperLevelArgs,
+             "BisSuperLevelArgs in csrc/block_trisolve.cu")):
+        size_fn.argtypes = []
+        size_fn.restype = ctypes.c_int
+        if size_fn() != ctypes.sizeof(mirror):
+            raise RuntimeError(f"{mirror.__name__} does not match {source}")
     return lib

@@ -29,6 +29,21 @@
 // Dot partials go to a (n_blocks, n_dots) buffer that the caller sums, so
 // the result is deterministic without atomics.
 //
+// The multicolour Gauss-Seidel step (replaces the Pallas kernel
+// basic_iterative_solvers_tpu/stencil_op.py: stencil_gs_color_step, which
+// shares _resident_kernel's body) is the same row sum with an epilogue:
+//
+//     x'[i] = colour(i) == c ? x[i] + (rhs[i] - (A x)[i]) * dinv[i] : x[i]
+//
+// with the colour computed from (x, y, z) as coloring.color_ids does:
+// parity (x+y+z) mod 2, grid (x mod sx) + sx*((y mod sy) + sy*(z mod sz)),
+// or mod (i mod k).  Only rows of colour c sum their legs; the others copy
+// x through, so the step reads x (rhs, dinv on colour c) and writes x'.
+// It is out of place: x' never aliases x.  The epilogue rounds the
+// difference, the product and the sum one at a time, as the plain
+// version's separate PyTorch operations do.  Same bound as the SpMV: the
+// leg loop, at 1/n_colours of the rows.
+//
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after its launch.
 
@@ -84,9 +99,33 @@ __device__ void block_sums(T (&v)[BIS_MAX_DOTS], int n, T* out) {
     }
 }
 
+// y[i] for the row i = (gx, gy, gz): each coefficient group's in-bounds
+// legs summed, times the group's coefficient, plus diag[i]*x[i].
+template <typename T>
+__device__ __forceinline__ T stencil_row(const BisStencilArgs& a,
+                                         const T* __restrict__ x,
+                                         const T* __restrict__ diag,
+                                         long long i, int gx, int gy,
+                                         int gz) {
+    T acc = T(0);
+    for (int g = 0; g < a.n_groups; ++g) {
+        T s = T(0);
+        for (int l = a.group_begin[g]; l < a.group_begin[g + 1]; ++l) {
+            const int px = gx + a.dx[l], py = gy + a.dy[l], pz = gz + a.dz[l];
+            if (px >= 0 && px < a.nx && py >= 0 && py < a.ny &&
+                pz >= 0 && pz < a.nz)
+                s += x[i + a.off[l]];
+        }
+        acc += T(a.group_coeff[g]) * s;
+    }
+    if (diag != nullptr) acc += diag[i] * x[i];
+    return acc;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(256)
-stencil_spmv_kernel(const BisStencilArgs a, const T* __restrict__ x,
+stencil_spmv_kernel(const __grid_constant__ BisStencilArgs a,
+                    const T* __restrict__ x,
                     const T* __restrict__ diag, const T* __restrict__ aux,
                     T* __restrict__ y, T* __restrict__ partials) {
     const int gy = blockIdx.x * a.block_y + threadIdx.y;
@@ -96,19 +135,7 @@ stencil_spmv_kernel(const BisStencilArgs a, const T* __restrict__ x,
         const long long row = (long long)a.nx * (gy + (long long)a.ny * gz);
         for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
             const long long i = row + gx;
-            T acc = T(0);
-            for (int g = 0; g < a.n_groups; ++g) {
-                T s = T(0);
-                for (int l = a.group_begin[g]; l < a.group_begin[g + 1]; ++l) {
-                    const int px = gx + a.dx[l], py = gy + a.dy[l],
-                              pz = gz + a.dz[l];
-                    if (px >= 0 && px < a.nx && py >= 0 && py < a.ny &&
-                        pz >= 0 && pz < a.nz)
-                        s += x[i + a.off[l]];
-                }
-                acc += T(a.group_coeff[g]) * s;
-            }
-            if (diag != nullptr) acc += diag[i] * x[i];
+            const T acc = stencil_row(a, x, diag, i, gx, gy, gz);
             y[i] = acc;
             for (int k = 0; k < a.n_dots; ++k) {
                 const int kind = a.dot_kind[k];
@@ -123,6 +150,52 @@ stencil_spmv_kernel(const BisStencilArgs a, const T* __restrict__ x,
                                   a.n_dots);
 }
 
+// Colouring of the GS step: kind 0 parity, 1 grid (p = sx, sy, sz),
+// 2 mod (p[0] = k); `color` is the colour the step updates.
+struct BisColorStep {
+    int kind;
+    int p[3];
+    int color;
+};
+
+__device__ __forceinline__ int color_of(const BisColorStep& c, long long i,
+                                        int gx, int gy, int gz) {
+    if (c.kind == 0) return (gx + gy + gz) & 1;
+    if (c.kind == 1)
+        return gx % c.p[0] + c.p[0] * (gy % c.p[1] + c.p[1] * (gz % c.p[2]));
+    return (int)(i % c.p[0]);
+}
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+stencil_gs_color_step_kernel(const __grid_constant__ BisStencilArgs a,
+                             const BisColorStep c, const T* __restrict__ x,
+                             const T* __restrict__ diag,
+                             const T* __restrict__ rhs,
+                             const T* __restrict__ dinv,
+                             T* __restrict__ out) {
+    const int gy = blockIdx.x * a.block_y + threadIdx.y;
+    const int gz = blockIdx.y;
+    if (gy >= a.ny) return;
+    const long long row = (long long)a.nx * (gy + (long long)a.ny * gz);
+    for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
+        const long long i = row + gx;
+        T xi = x[i];
+        if (color_of(c, i, gx, gy, gz) == c.color) {
+            const T ax = stencil_row(a, x, diag, i, gx, gy, gz);
+            xi = add_rn(xi, mul_rn(sub_rn(rhs[i], ax), dinv[i]));
+        }
+        out[i] = xi;
+    }
+}
+
 template <typename T>
 static int launch(int device, const BisStencilArgs* a, const T* x,
                   const T* diag, const T* aux, T* y, T* partials,
@@ -133,6 +206,21 @@ static int launch(int device, const BisStencilArgs* a, const T* x,
     const dim3 grid(a->grid_x, a->grid_y);
     stencil_spmv_kernel<T><<<grid, block, 0, stream>>>(*a, x, diag, aux, y,
                                                         partials);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_gs(int device, const BisStencilArgs* a, int kind, int p0,
+                     int p1, int p2, int color, const T* x, const T* diag,
+                     const T* rhs, const T* dinv, T* out,
+                     cudaStream_t stream) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    const BisColorStep c = {kind, {p0, p1, p2}, color};
+    const dim3 block(a->block_x, a->block_y);
+    const dim3 grid(a->grid_x, a->grid_y);
+    stencil_gs_color_step_kernel<T><<<grid, block, 0, stream>>>(
+        *a, c, x, diag, rhs, dinv, out);
     return (int)cudaGetLastError();
 }
 
@@ -150,6 +238,26 @@ int bis_stencil_spmv_f64(int device, const BisStencilArgs* a,
                          const double* diag, const double* aux, double* y,
                          double* partials, void* stream) {
     return launch<double>(device, a, x, diag, aux, y, partials, (cudaStream_t)stream);
+}
+
+int bis_stencil_gs_color_step_f32(int device, const BisStencilArgs* a,
+                                  int kind, int p0, int p1, int p2,
+                                  int color, const float* x,
+                                  const float* diag, const float* rhs,
+                                  const float* dinv, float* out,
+                                  void* stream) {
+    return launch_gs<float>(device, a, kind, p0, p1, p2, color, x, diag, rhs,
+                            dinv, out, (cudaStream_t)stream);
+}
+
+int bis_stencil_gs_color_step_f64(int device, const BisStencilArgs* a,
+                                  int kind, int p0, int p1, int p2,
+                                  int color, const double* x,
+                                  const double* diag, const double* rhs,
+                                  const double* dinv, double* out,
+                                  void* stream) {
+    return launch_gs<double>(device, a, kind, p0, p1, p2, color, x, diag,
+                             rhs, dinv, out, (cudaStream_t)stream);
 }
 
 int bis_stencil_args_size(void) { return (int)sizeof(BisStencilArgs); }

@@ -6,8 +6,8 @@ The reference's solver core (solver.hpp:9-193) and harness
 * `SolverSetup`  — what preprocessing produces (device operator,
                    preconditioner, b, x0); preprocessing.hpp:26-100.
 * method objects — per-method `iterate(state) -> state` plus state init
-                   and residual accessors (solvers/{cg,jacobi,bicgstab,
-                   gmres}.py).
+                   and residual accessors (solvers/{cg,jacobi,
+                   gauss_seidel,bicgstab,gmres}.py).
 * `solve()`      — the do{iterate; sample; check}while loop, in two modes:
                    "host" reads the sampled norm on the host every
                    iteration, like the reference; "fused" keeps the loop
@@ -24,7 +24,8 @@ import torch
 
 from ..config import SolverConfig
 from ..ops.blas1 import euclidean_vec_norm
-from ..precond import Preconditioner, setup_preconditioner
+from ..precond import (Preconditioner, resolve_gs_mode,
+                       setup_preconditioner)
 from ..stencil_op import (DeviceStencil, stencil_astype, stencil_diag_vec,
                           stencil_spmv)
 from ..types import PrecondType, SolverType
@@ -34,9 +35,11 @@ from ..utils.timers import Timers
 @dataclasses.dataclass
 class SolverSetup:
     """Outputs of preprocessing (the reference's preprocessing.hpp:26-100),
-    with the JAX package's fields.  This slice fills config, A, M, b, x0,
-    n and A_D; the rest belong to the host-CSR, permutation and GS-family
-    paths of later slices and stay at their defaults."""
+    with the JAX package's fields.  The device-native path fills config,
+    A, M, b, x0, n and A_D, and for the GS and SGS methods color_spec,
+    n_colors and (on the superblock route) gs_L_block/gs_U_block; the rest
+    belong to the host-CSR and permutation paths of later slices and stay
+    at their defaults."""
 
     config: SolverConfig
     A: Any                       # device operator (DeviceStencil)
@@ -79,8 +82,10 @@ def preprocessing_device(A_dev, config: SolverConfig, b: Optional[Any] = None,
                          timers: Optional[Timers] = None) -> SolverSetup:
     """Device-native preprocessing for a matrix-free stencil operator: cast
     it to the configured storage dtype, make b and x0 (config.b_val and
-    config.init_x_val unless given) on the operator's device, and set up
-    the preconditioner."""
+    config.init_x_val unless given) on the operator's device, set up the
+    preconditioner and, for the GS and SGS methods, the colouring and,
+    where the operator allows it, the const-mode superblock pair
+    (ops/block_trisolve.py; else the masked colour sweeps)."""
     if not isinstance(A_dev, DeviceStencil):
         raise TypeError(
             f"unsupported operator type {type(A_dev).__name__}: the DIA and "
@@ -98,6 +103,13 @@ def preprocessing_device(A_dev, config: SolverConfig, b: Optional[Any] = None,
         raise NotImplementedError(
             "an operator dtype other than the vector dtype (matrix_dtype) "
             "arrives with ROADMAP Queue 1 slice 6")
+    gs_method = config.method in (SolverType.GAUSS_SEIDEL,
+                                  SolverType.SYMMETRIC_GAUSS_SEIDEL)
+    if gs_method and resolve_gs_mode(config, device_native=True) != "colored":
+        raise ValueError(
+            f"method {config.method} with gs_mode={config.gs_mode!r} needs "
+            "exact triangular solves in the natural ordering: the host CSR "
+            "path, which arrives with ROADMAP Queue 1 slice 5")
     A_dev = stencil_astype(A_dev, dtype)
     device = A_dev.device
     b_dev = _vector(b, n, config.b_val, dtype, device)
@@ -106,8 +118,24 @@ def preprocessing_device(A_dev, config: SolverConfig, b: Optional[Any] = None,
         M = setup_preconditioner(A_dev, config)
         A_D = (M.A_D if M.A_D is not None
                else stencil_diag_vec(A_dev).to(dtype))
-        return SolverSetup(config=config, A=A_dev, M=M, b=b_dev, x0=x0_dev,
-                           n=n, A_D=A_D)
+        setup = SolverSetup(config=config, A=A_dev, M=M, b=b_dev, x0=x0_dev,
+                            n=n, A_D=A_D)
+        if gs_method:
+            from ..coloring import spec_for_device
+            from ..ops.block_trisolve import (
+                build_superblock_gs_pair_stencil, stencil_blocked_eligible)
+            setup.color_spec = spec_for_device(A_dev)
+            setup.n_colors = setup.color_spec.n_colors
+            if stencil_blocked_eligible(A_dev, setup.color_spec):
+                # residual-form sweeps through the const-mode superblock
+                # solves: x ← x + M⁻¹(b − A·x), M the exact GS/SGS operator
+                # of the coloured ordering
+                sym = config.method == SolverType.SYMMETRIC_GAUSS_SEIDEL
+                L_blk, U_blk = build_superblock_gs_pair_stencil(
+                    A_dev, setup.color_spec, dtype=dtype, need_d=sym)
+                setup.gs_L_block = L_blk
+                setup.gs_U_block = U_blk if sym else None
+        return setup
 
 
 def _f64_operands(setup: SolverSetup):

@@ -5,6 +5,7 @@ from ..types import SolverType
 from .base import SolverSetup
 from .bicgstab import BiCGSTABMethod
 from .cg import ConjugateGradientMethod
+from .gauss_seidel import GaussSeidelMethod, SymmetricGaussSeidelMethod
 from .gmres import GMRESMethod
 from .jacobi import JacobiMethod
 
@@ -12,6 +13,8 @@ _METHODS = {
     SolverType.JACOBI: JacobiMethod,
     SolverType.BICGSTAB: BiCGSTABMethod,
     SolverType.GMRES: GMRESMethod,
+    SolverType.GAUSS_SEIDEL: GaussSeidelMethod,
+    SolverType.SYMMETRIC_GAUSS_SEIDEL: SymmetricGaussSeidelMethod,
 }
 
 
@@ -19,10 +22,6 @@ def make_method(setup: SolverSetup):
     cfg = setup.config
     if cfg.method in _METHODS:
         return _METHODS[cfg.method](setup)
-    if cfg.method != SolverType.CONJUGATE_GRADIENT:
-        raise NotImplementedError(
-            f"solver {cfg.method.value!r} is not ported yet: it arrives with "
-            "ROADMAP Queue 1 slice 3 (the GS family on stencils)")
     if cfg.cg_flavor == "pipelined":
         raise NotImplementedError(
             "pipelined CG arrives with ROADMAP Queue 1 slice 6")

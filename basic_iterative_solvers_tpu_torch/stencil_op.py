@@ -12,9 +12,11 @@ writes y.
 from coordinates, so the TPU package's planar halo layout has no
 counterpart here.
 
-`stencil_spmv` is the one entry point: on a CUDA tensor it launches the
-hand-written kernel (csrc/stencil_spmv.cu) or raises; on a CPU tensor it
-runs the plain version, `stencil_spmv_plain`.
+`stencil_spmv` is the SpMV's one entry point, and `stencil_gs_color_step`
+the multicolour Gauss-Seidel step's: on a CUDA tensor each launches its
+hand-written kernel (csrc/stencil_spmv.cu) or raises; on a CPU tensor each
+runs its plain version (`stencil_spmv_plain`,
+`stencil_gs_color_step_plain`).
 """
 from __future__ import annotations
 
@@ -277,6 +279,99 @@ def stencil_spmv(A: DeviceStencil, x: torch.Tensor, dots=(),
 stencil_spmv.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Multicolour Gauss-Seidel step
+# ---------------------------------------------------------------------------
+
+def _colors(color) -> Tuple[int, ...]:
+    return tuple(int(c) for c in color) if isinstance(color, (tuple, list)) \
+        else (int(color),)
+
+
+def _check_gs_operands(A: DeviceStencil, x, rhs, dinv, spec):
+    _check_operands(A, x, (), None)
+    for name, v in (("rhs", rhs), ("dinv", dinv)):
+        if not isinstance(v, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if (v.shape != x.shape or v.dtype != x.dtype
+                or v.device != x.device):
+            raise ValueError(f"{name} must match x in shape, dtype and "
+                             "device")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if spec.kind in ("grid", "parity") and tuple(spec.params[:3]) != A.dims:
+        raise ValueError(f"colour spec dims {spec.params[:3]} do not match "
+                         f"the operator's {A.dims}")
+
+
+def stencil_gs_color_step_plain(A: DeviceStencil, x: torch.Tensor,
+                                rhs: torch.Tensor, dinv: torch.Tensor, spec,
+                                color) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: per colour c (in the given
+    order), the full plain SpMV then
+    x = where(colour == c, x + (rhs − A·x)·dinv, x)."""
+    from .coloring import color_ids
+    _check_gs_operands(A, x, rhs, dinv, spec)
+    ids = color_ids(spec, A)
+    for c in _colors(color):
+        Ax = stencil_spmv_plain(A, x)
+        x = torch.where(ids == c, x + (rhs - Ax) * dinv, x)
+    return x
+
+
+_COLOR_KINDS = {"parity": 0, "grid": 1, "mod": 2}
+
+
+def _stencil_gs_color_step_cuda(A: DeviceStencil, x, rhs, dinv, spec, color):
+    from ._build import load_library
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the GS colour-step kernel takes float32 or "
+                        f"float64, not {x.dtype}")
+    use_diag = A.diag is not None and (0, 0, 0) in A.legs
+    args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag, ())
+    kind = _COLOR_KINDS[spec.kind]
+    p = (tuple(spec.params[3:6]) if spec.kind == "grid"
+         else (spec.params[0], 1, 1) if spec.kind == "mod" else (1, 1, 1))
+    lib = load_library()
+    fn = (lib.bis_stencil_gs_color_step_f32 if x.dtype == torch.float32
+          else lib.bis_stencil_gs_color_step_f64)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    diag = A.diag.data_ptr() if use_diag else None
+    for c in _colors(color):
+        out = torch.empty_like(x)
+        err = fn(x.device.index, ctypes.byref(args), kind, *p, c,
+                 x.data_ptr(), diag, rhs.data_ptr(), dinv.data_ptr(),
+                 out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"stencil_gs_color_step kernel launch failed "
+                               f"with CUDA error {err}")
+        stencil_gs_color_step.launches += 1
+        x = out
+    return x
+
+
+def stencil_gs_color_step(A: DeviceStencil, x: torch.Tensor,
+                          rhs: torch.Tensor, dinv: torch.Tensor, spec,
+                          color) -> torch.Tensor:
+    """One multicolour Gauss-Seidel step, out of place:
+    x' = where(colour == c, x + (rhs − A·x)·D⁻¹, x), the colour ids from
+    the ColorSpec `spec` (coloring.py).  `color` may be a tuple of colours,
+    run in order (the JAX package's superstep).
+
+    A CUDA tensor goes through the hand-written kernel, one launch per
+    colour, counted in `stencil_gs_color_step.launches`; a CPU tensor takes
+    the plain version."""
+    _check_gs_operands(A, x, rhs, dinv, spec)
+    if x.device.type == "cuda":
+        return _stencil_gs_color_step_cuda(A, x, rhs, dinv, spec, color)
+    if x.device.type == "cpu":
+        return stencil_gs_color_step_plain(A, x, rhs, dinv, spec, color)
+    raise ValueError(f"no GS colour step for device {x.device}")
+
+
+stencil_gs_color_step.launches = 0
+
+
 def stencil_diag(A: DeviceStencil) -> torch.Tensor:
     """Dense main diagonal (n,)."""
     if A.diag is not None:
@@ -291,6 +386,27 @@ def stencil_diag(A: DeviceStencil) -> torch.Tensor:
 def stencil_diag_vec(A: DeviceStencil) -> torch.Tensor:
     """The diagonal in A's vector layout, which here is always flat."""
     return stencil_diag(A)
+
+
+def stencil_split(A: DeviceStencil):
+    """(L_strict, U_strict, D, D_inv) by the linear-offset sign of each
+    leg; D and D_inv are flat vectors in A's dtype."""
+    nx, ny, nz = A.dims
+    if A.diag is None and (0, 0, 0) not in A.legs:
+        raise ValueError("matrix has no stored main diagonal")
+    lower, upper = [], []
+    for leg, c in zip(A.legs, A.coeff_values):
+        lin = leg[0] + nx * (leg[1] + ny * leg[2])
+        if lin < 0:
+            lower.append((leg, c))
+        elif lin > 0:
+            upper.append((leg, c))
+    L = make_stencil(lower, nx, ny, nz, dtype=A.dtype, device=A.device)
+    U = make_stencil(upper, nx, ny, nz, dtype=A.dtype, device=A.device)
+    D = stencil_diag_vec(A)
+    if bool((D == 0).any()):
+        raise ValueError("zero on the matrix diagonal")
+    return L, U, D, 1.0 / D
 
 
 # ---------------------------------------------------------------------------

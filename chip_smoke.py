@@ -21,7 +21,19 @@ exits non-zero:
      with a bfloat16 basis on HPCG 128^3 in float32, the bench's
      iteration counts, counting every kernel's launches; then float64
      GMRES(50) and BiCGSTAB solves of the same operator to convergence;
-  9. capacity: CG on HPCG 384^3 in float32.
+  9. capacity: CG on HPCG 384^3 in float32;
+ 10. the multicolour GS step kernel against its plain version, every
+     colour, on the three operators of phase 3, both dtypes, timed;
+ 11. the superblock level kernel against its plain version on every level
+     of the L and U solves of HPCG 128^3, and a whole symmetric apply, both
+     dtypes, timed;
+ 12. the same GS-family solves on the CPU and on the card (SGS and CG + SGS
+     on HPCG 32^3, the superblock route; SGS on fdm:256, the masked
+     colour sweeps);
+ 13. the third slice's path: the bench's gs, sgs, pcg, pgmres and
+     pbicgstab rows on HPCG 128^3 in float32, counting every kernel's
+     launches; then a float64 CG + SGS solve to convergence; and SGS on
+     fdm:2048 through the GS colour-step kernel.
 The second-to-last line is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
 """
@@ -409,6 +421,239 @@ def phase_capacity(torch, bt):
         raise RuntimeError("capacity run stopped early")
 
 
+def phase_gs_step_vs_plain(torch, bt):
+    """stencil_gs_color_step against its plain version on every colour of
+    the three operators, f32 and f64, within TOL of max|x'|; colour 0
+    timed.  Returns the record of fdm:2048 f32 (the masked route that
+    phase 13 drives)."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    so = bt.stencil_op
+    record = None
+    for spec in KERNEL_SPECS:
+        for dt in (torch.float32, torch.float64):
+            A = so.from_source_operator(spec, dt, device="cuda")
+            cs = spec_for_device(A)
+            g = torch.Generator(device="cuda").manual_seed(2)
+            x = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+            rhs = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+            dinv = 1.0 / so.stencil_diag(A)
+            tol = TOL[str(dt).split(".")[1]]
+            worst_rel, worst_abs = 0.0, 0.0
+            for c in range(cs.n_colors):
+                before = so.stencil_gs_color_step.launches
+                k = so.stencil_gs_color_step(A, x, rhs, dinv, cs, c)
+                p = so.stencil_gs_color_step_plain(A, x, rhs, dinv, cs, c)
+                torch.cuda.synchronize()
+                if so.stencil_gs_color_step.launches != before + 1:
+                    raise RuntimeError("the GS step's launch count did not "
+                                       "grow")
+                abs_err = float((k - p).abs().max())
+                worst_abs = max(worst_abs, abs_err)
+                worst_rel = max(worst_rel, abs_err / float(p.abs().max()))
+            ms = _median_ms(lambda: so.stencil_gs_color_step(
+                A, x, rhs, dinv, cs, 0), torch)
+            plain_ms = _median_ms(lambda: so.stencil_gs_color_step_plain(
+                A, x, rhs, dinv, cs, 0), torch, reps=5)
+            print(f"[gs-step] {spec} {str(dt)[6:]} {cs.kind} "
+                  f"colors={cs.n_colors} max_rel_err={worst_rel:.3e} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            if not worst_rel <= tol:
+                raise RuntimeError(f"GS step kernel disagrees with plain "
+                                   f"beyond {tol}: {spec} {dt}")
+            if (spec, dt) == ("fdm:2048", torch.float32):
+                record = {"max_abs_err": worst_abs, "ms": ms,
+                          "plain_ms": plain_ms}
+    return record
+
+
+def phase_super_level_vs_plain(torch, bt):
+    """super_level against its plain version on every level of the L and U
+    solves of HPCG 128^3 (x random, so every source superblock holds
+    values), and blocked_sgs whole, f32 and f64, within TOL; every level
+    timed.  Returns the f32 record (ms: the mean level)."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    record = None
+    for dt in (torch.float32, torch.float64):
+        A = bt.stencil_op.from_source_operator(MAIN_SPEC, dt, device="cuda")
+        L, U = bk.build_superblock_gs_pair_stencil(
+            A, spec_for_device(A), dtype=dt, need_d=True)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        x = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        tol = TOL[str(dt).split(".")[1]]
+        worst_rel, worst_abs, ms, plain_ms = 0.0, 0.0, [], []
+        for name, B in (("L", L), ("U", U)):
+            for li in range(len(B.levels)):
+                before = bk.super_level.launches
+                xk, xp = x.clone(), x.clone()
+                bk.super_level(B, li, y, xk)
+                bk.super_level_plain(B, li, y, xp)
+                torch.cuda.synchronize()
+                if bk.super_level.launches != before + 1:
+                    raise RuntimeError("the super-level launch count did "
+                                       "not grow")
+                abs_err = float((xk - xp).abs().max())
+                rel = abs_err / float(xp.abs().max())
+                worst_abs, worst_rel = max(worst_abs, abs_err), max(
+                    worst_rel, rel)
+                ms.append(_median_ms(lambda: bk.super_level(B, li, y, xk),
+                                     torch))
+                plain_ms.append(_median_ms(
+                    lambda: bk.super_level_plain(B, li, y, xp), torch,
+                    reps=5))
+                print(f"[super-level] {MAIN_SPEC} {str(dt)[6:]} {name} "
+                      f"level {li} (superblock {B.levels[li][0]}, "
+                      f"{len(B.const_cross[li])} cross legs) "
+                      f"max_rel_err={rel:.3e} kernel_ms={ms[-1]:.4f} "
+                      f"plain_ms={plain_ms[-1]:.4f}")
+        zk = bk.blocked_sgs(L, U, y)
+        before = bk.super_level.launches
+        zp = bk.blocked_sgs(L, U, y.cpu()).to("cuda")
+        if bk.super_level.launches != before:
+            raise RuntimeError("a CPU solve launched a kernel")
+        sgs_rel = float((zk - zp).abs().max()) / float(zp.abs().max())
+        sgs_ms = _median_ms(lambda: bk.blocked_sgs(L, U, y), torch)
+        print(f"[super-level] {MAIN_SPEC} {str(dt)[6:]} blocked_sgs "
+              f"(2x{L.S} levels) against the CPU's plain solve: "
+              f"max_rel_err={sgs_rel:.3e} ms={sgs_ms:.4f}")
+        if not (worst_rel <= tol and sgs_rel <= tol):
+            raise RuntimeError(f"super-level kernel disagrees with plain "
+                               f"beyond {tol}: {dt}")
+        if dt == torch.float32:
+            record = {"max_abs_err": worst_abs,
+                      "ms": statistics.mean(ms),
+                      "plain_ms": statistics.mean(plain_ms)}
+    return record
+
+
+def phase_cpu_vs_card_slice3(torch, bt):
+    """f64 SGS and CG + SGS on HPCG 32^3 (the superblock route) and SGS on
+    fdm:256 (the masked sweeps, 300 iterations: it needs ~10^5 to reach
+    the tolerance) on the CPU and on the card: the same iteration counts,
+    histories as _check_history says."""
+    S, P = bt.SolverType, bt.PrecondType
+    cases = [("hpcg:32x32x32", "SGS", S.SYMMETRIC_GAUSS_SEIDEL, P.NONE,
+              dict(tolerance=1e-10, max_iters=2000), True),
+             ("hpcg:32x32x32", "CG + SGS", S.CONJUGATE_GRADIENT,
+              P.SYMMETRIC_GAUSS_SEIDEL,
+              dict(tolerance=1e-10, max_iters=1000), True),
+             ("fdm:256", "SGS", S.SYMMETRIC_GAUSS_SEIDEL, P.NONE,
+              dict(tolerance=1e-10, max_iters=300), False)]
+    for spec, label, method, precond, kw, converges in cases:
+        c, g = (bt.solve(_setup(torch, bt, spec, torch.float64, dev, method,
+                                preconditioner=precond, **kw))
+                for dev in ("cpu", "cuda"))
+        print(f"[cpu-vs-card] {spec} f64 {label}: iters cpu={c.iter_count} "
+              f"card={g.iter_count} final cpu={c.final_residual_norm:.6e} "
+              f"card={g.final_residual_norm:.6e}")
+        if c.iter_count != g.iter_count or (
+                converges and not (c.converged and g.converged)):
+            raise RuntimeError(f"{spec} {label}: CPU and card solves differ")
+        _check_history(g, c)
+
+
+#: the bench's GS-family rows (bench.py:50-60, 83-86): name, method,
+#: preconditioner, iterations, extra config
+SLICE3_ROWS = (("gs", "GAUSS_SEIDEL", "NONE", 1200, {}),
+               ("sgs", "SYMMETRIC_GAUSS_SEIDEL", "NONE", 1200, {}),
+               ("pcg", "CONJUGATE_GRADIENT", "SYMMETRIC_GAUSS_SEIDEL", 1200,
+                {}),
+               ("pgmres", "GMRES", "SYMMETRIC_GAUSS_SEIDEL", 800,
+                dict(restart_length=50, orthog_mode="fused",
+                     gmres_basis_dtype="bfloat16")),
+               ("pbicgstab", "BICGSTAB", "SYMMETRIC_GAUSS_SEIDEL", 800, {}))
+
+
+def _counters(so, gb, bk, reset=False):
+    kernels = {"stencil_spmv": so.stencil_spmv,
+               "stencil_gs_color_step": so.stencil_gs_color_step,
+               "project_gram": gb.project_gram,
+               "correct_write": gb.correct_write,
+               "super_level": bk.super_level}
+    if reset:
+        for fn in kernels.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def phase_slice3_path(torch, bt):
+    """The bench's gs, sgs, pcg, pgmres and pbicgstab rows on HPCG 128^3,
+    f32, tolerance 0, b = 2, x0 = 1, each after a warm-up solve, with every
+    kernel counter set to 0 just before the timed solve and read just
+    after; a float64 CG + SGS solve to 1e-8; then SGS on fdm:2048, f32, 200
+    iterations through the GS colour-step kernel.  Returns the launches of
+    super_level summed over the five rows, and of stencil_gs_color_step in
+    the fdm:2048 run."""
+    import math
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    so = bt.stencil_op
+    S, P = bt.SolverType, bt.PrecondType
+    super_launches = 0
+    for name, method, precond, iters, kw in SLICE3_ROWS:
+        setup = _setup(torch, bt, MAIN_SPEC, torch.float32, "cuda",
+                       S[method], preconditioner=P[precond],
+                       max_iters=iters, tolerance=0.0, breakdown_stall=True,
+                       precond_inner_iters=1, **kw)
+        if setup.gs_L_block is None and setup.M.L_block is None:
+            raise RuntimeError(f"{name} did not take the superblock route")
+        solver = make_method(setup)
+        bt.solve(setup, method=solver)                # warm-up solve
+        _counters(so, gb, bk, reset=True)
+        res = bt.solve(setup, method=solver)
+        counts = _counters(so, gb, bk)
+        super_launches += counts["super_level"]
+        ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
+        print(f"[slice3] {MAIN_SPEC} f32 {name} fused: "
+              f"iters={res.iter_count} restarts={res.gmres_restart_count} "
+              f"ms/iter={ms:.5f} r0={res.residual_norms[0]:.6e} "
+              f"final_explicit_f64={res.final_residual_norm:.6e} "
+              f"launches={counts}")
+        if not (res.iter_count + res.gmres_restart_count == iters
+                and math.isfinite(res.final_residual_norm)
+                and bool(torch.isfinite(res.x_star).all())
+                and counts["super_level"] >= res.iter_count
+                and counts["stencil_spmv"] >= res.iter_count
+                and counts["stencil_gs_color_step"] == 0):
+            raise RuntimeError(f"slice-3 {name} run failed its checks")
+
+    res = bt.solve(_setup(torch, bt, MAIN_SPEC, torch.float64, "cuda",
+                          S.CONJUGATE_GRADIENT,
+                          preconditioner=P.SYMMETRIC_GAUSS_SEIDEL,
+                          tolerance=1e-8, max_iters=1000))
+    r0 = res.residual_norms[0]
+    print(f"[slice3] {MAIN_SPEC} f64 CG + SGS to tol 1e-8: "
+          f"iters={res.iter_count} converged={res.converged} "
+          f"final_explicit/r0={res.final_residual_norm / r0:.3e} "
+          f"ms/iter={1e3 * res.solve_seconds / res.iter_count:.5f}")
+    if not (res.converged and res.final_residual_norm <= 10 * 1e-8 * r0):
+        raise RuntimeError("f64 CG + SGS solve did not converge")
+
+    setup = _setup(torch, bt, "fdm:2048", torch.float32, "cuda",
+                   S.SYMMETRIC_GAUSS_SEIDEL, max_iters=200, tolerance=0.0)
+    if setup.gs_L_block is not None:
+        raise RuntimeError("fdm:2048 SGS took the superblock route")
+    solver = make_method(setup)
+    bt.solve(setup, method=solver)                    # warm-up solve
+    _counters(so, gb, bk, reset=True)
+    res = bt.solve(setup, method=solver)
+    counts = _counters(so, gb, bk)
+    ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
+    print(f"[slice3] fdm:2048 f32 SGS fused (masked sweeps): "
+          f"iters={res.iter_count} ms/iter={ms:.5f} "
+          f"r0={res.residual_norms[0]:.6e} "
+          f"final_explicit_f64={res.final_residual_norm:.6e} "
+          f"launches={counts}")
+    if not (res.iter_count == 200 and math.isfinite(res.final_residual_norm)
+            and bool(torch.isfinite(res.x_star).all())
+            and counts["stencil_gs_color_step"] >= 4 * res.iter_count
+            and counts["super_level"] == 0):
+        raise RuntimeError("fdm:2048 SGS run failed its checks")
+    return super_launches, counts["stencil_gs_color_step"]
+
+
 def main():
     import torch
     name = phase_device(torch)
@@ -422,6 +667,10 @@ def main():
     launches, _ = phase_main_path(torch, bt)
     slice2_launches = phase_slice_path(torch, bt)
     phase_capacity(torch, bt)
+    gs_record = phase_gs_step_vs_plain(torch, bt)
+    level_record = phase_super_level_vs_plain(torch, bt)
+    phase_cpu_vs_card_slice3(torch, bt)
+    super_launches, gs_launches = phase_slice3_path(torch, bt)
     src = "basic_iterative_solvers_tpu_torch/csrc/"
     kernels = [{"name": "stencil_spmv", "route": "cuda",
                 "source": src + "stencil_spmv.cu",
@@ -433,6 +682,16 @@ def main():
             "replaces": ("basic_iterative_solvers_tpu/ops/gmres_basis.py:"
                          f"{line}"),
             "launches": slice2_launches[kernel], **basis_records[kernel]})
+    kernels.append({
+        "name": "stencil_gs_color_step", "route": "cuda",
+        "source": src + "stencil_spmv.cu",
+        "replaces": "basic_iterative_solvers_tpu/stencil_op.py:660",
+        "launches": gs_launches, **gs_record})
+    kernels.append({
+        "name": "super_level", "route": "cuda",
+        "source": src + "block_trisolve.cu",
+        "replaces": "basic_iterative_solvers_tpu/ops/block_trisolve.py:1611",
+        "launches": super_launches, **level_record})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
 """The port's Jacobi, BiCGSTAB and Jacobi-preconditioned CG against the JAX
-package's, and against the reference's golden histories.
+package's, and the port against the reference's golden histories (these
+methods, GMRES and the two-stage preconditioners).
 
 Each parity case builds the same generator spec in both packages and hands
 both the same b = 2 and x0 = 1 (the bench's).  On the CPU the port's SpMV
@@ -37,13 +38,13 @@ def _solve_both(spec, harness, method, precond="NONE", **cfg):
     return rj, rt
 
 
-def _check_parity(rj, rt):
+def _check_parity(rj, rt, final_rtol=1e-4):
     """Same iteration and restart counts, histories to rtol 1e-8 above the
     float64 noise floor (atol 1e-15·‖r0‖: the two differ in reduction order
     only, and BiCGSTAB's last norms, ~1e-10·‖r0‖, move by ~1e-18·‖r0‖), and
-    the explicit final residual to rtol 1e-4: it sits at the rounding floor
-    of b − A·x, where x* that differ in their last bits move it by
-    ~1e-5."""
+    the explicit final residual to rtol `final_rtol` (1e-4): it sits at the
+    rounding floor of b − A·x, where x* that differ in their last bits move
+    it by ~1e-5."""
     assert rt.iter_count == rj.iter_count
     assert rt.gmres_restart_count == rj.gmres_restart_count
     assert rt.converged == rj.converged
@@ -52,7 +53,7 @@ def _check_parity(rj, rt):
                                rj.residual_norms[:-1], rtol=1e-8,
                                atol=1e-15 * rj.residual_norms[0])
     np.testing.assert_allclose(rt.final_residual_norm,
-                               rj.final_residual_norm, rtol=1e-4)
+                               rj.final_residual_norm, rtol=final_rtol)
 
 
 @pytest.mark.parametrize("harness", HARNESSES)
@@ -99,6 +100,11 @@ GOLDEN_CASES = [
     ("fdm16_bi_j_outer2", 1e-4, None, True),
     ("fdm16_gm_j_rl50", 1e-4, 32, False),
     ("fdm16_gm_j_rl10", 1e-6, 90, True),
+    ("fdm16_cg_2st", 1e-5, None, True),
+    ("fdm16_cg_s2st", 1e-5, None, True),
+    ("fdm16_cg_2st_inner2", 1e-7, 200, True),
+    ("fdm16_cg_s2st_inner2", 1e-5, None, True),
+    ("fdm16_bi_s2st_inner2", 1e-4, None, True),
 ]
 
 
@@ -107,7 +113,8 @@ GOLDEN_CASES = [
                          ids=[c[0] for c in GOLDEN_CASES])
 def test_golden_history(case, rtol, limit, check_iters, harness):
     """The reference binary's history with its defaults (b = 1, x0 = 0.1,
-    tol = 1e-14), the port's fdm:16 standing in for FDM-2d-16.mtx: the
+    tol = 1e-14; the two-stage cases' Richardson sweeps as the golden
+    names them), the port's fdm:16 standing in for FDM-2d-16.mtx: the
     convergence flag, the iteration count with GMRES restarts counted
     (±1), the recurrence prefix golden[:-1] (the reference overwrites its
     last entry with the explicit residual) at the case's rtol and atol
@@ -125,7 +132,8 @@ def test_golden_history(case, rtol, limit, check_iters, harness):
         "fdm:16", g["method"], harness=harness, tolerance=d["tol"],
         max_iters=d["max_iters"], b_val=d["b_val"],
         init_x_val=d["init_x_val"], res_check_len=d["res_check_len"],
-        precond_outer_iters=g.get("precond_outer_iters", 1), **kw)
+        precond_outer_iters=g.get("precond_outer_iters", 1),
+        precond_inner_iters=g.get("precond_inner_iters", 0), **kw)
     assert res.converged == g["converged"]
     if check_iters:
         assert abs(res.iter_count + res.gmres_restart_count

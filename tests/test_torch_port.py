@@ -131,12 +131,13 @@ def test_spmv_rejects_bad_operands(case):
 
 @pytest.mark.parametrize("kwargs", [
     {"method": bt.SolverType.GMRES,
-     "preconditioner": bt.PrecondType.GAUSS_SEIDEL},
+     "preconditioner": bt.PrecondType.CHEBYSHEV},
     {"method": bt.SolverType.JACOBI, "kernel_timers": True},
     {"cg_flavor": "pipelined"},
     {"refine_outer": 2},
     {"dtype": torch.float32, "matrix_dtype": "bfloat16"},
-    {"method": bt.SolverType.SYMMETRIC_GAUSS_SEIDEL},
+    {"method": bt.SolverType.SYMMETRIC_GAUSS_SEIDEL,
+     "preconditioner": bt.PrecondType.MULTIGRID},
     {"preconditioner": bt.PrecondType.ILU0},
 ], ids=["gmres", "jacobi", "pipelined", "refine", "matrix_dtype", "sgs",
         "ilu0"])
