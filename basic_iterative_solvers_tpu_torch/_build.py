@@ -70,6 +70,11 @@ class SuperLevelArgs(ctypes.Structure):
         ("upper", ctypes.c_int),
         ("block_x", ctypes.c_int), ("block_y", ctypes.c_int),
         ("grid_x", ctypes.c_int),
+        ("cross_kd", ctypes.c_int * MAX_LEGS),
+        ("self_kd", ctypes.c_int * MAX_LEGS),
+        ("proto_x", ctypes.c_int), ("proto_y", ctypes.c_int),
+        ("proto_z", ctypes.c_int),
+        ("radius", ctypes.c_int), ("n_proto", ctypes.c_int),
     ]
 
 
@@ -146,9 +151,13 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs), i32, i32, i32, i32,
                        i32, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
-        fn = getattr(lib, f"bis_super_level_{dt}")
-        fn.argtypes = [i32, ctypes.POINTER(SuperLevelArgs), ptr, ptr, ptr]
-        fn.restype = i32
+        level = ctypes.POINTER(SuperLevelArgs)
+        for name, args in (("super_level", [ptr] * 5),
+                           ("super_acc", [ptr] * 5),
+                           ("super_parity", [i32] + [ptr] * 6)):
+            fn = getattr(lib, f"bis_{name}_{dt}")
+            fn.argtypes = [i32, level] + args
+            fn.restype = i32
     for size_fn, mirror, source in (
             (lib.bis_stencil_args_size, StencilArgs,
              "BisStencilArgs in csrc/stencil_spmv.cu"),

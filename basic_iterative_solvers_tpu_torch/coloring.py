@@ -31,6 +31,7 @@ import dataclasses
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -99,6 +100,37 @@ def color_ids(spec: ColorSpec, A) -> torch.Tensor:
     """int64 colour id per row of A, in its flat vector layout (cached per
     spec, size and device)."""
     return _color_ids_cached(spec, A.n_rows, str(A.device))
+
+
+def _grid_coords(idx, nx: int, ny: int):
+    """(x, y, z) grid coordinates of flat x-fastest row indices (NumPy)."""
+    q, x = np.divmod(idx, nx)
+    z, y = np.divmod(q, ny)
+    return x, y, z
+
+
+def spec_colors_np(spec: ColorSpec, n: int) -> np.ndarray:
+    """int32 colour id per row, the NumPy twin of color_ids for host
+    set-up work."""
+    i = np.arange(n, dtype=np.int32 if n < 2**31 else np.int64)
+    if spec.kind == "mod":
+        return (i % spec.params[0]).astype(np.int32)
+    if spec.kind not in ("parity", "grid"):
+        raise ValueError(f"unknown color spec kind: {spec.kind}")
+    x, y, z = _grid_coords(i, spec.params[0], spec.params[1])
+    if spec.kind == "parity":
+        return ((x + y + z) % 2).astype(np.int32)
+    sx, sy, sz = spec.params[3:6]
+    return ((x % sx) + sx * ((y % sy) + sy * (z % sz))).astype(np.int32)
+
+
+def colors_to_perm(colors: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(perm, inv_perm) sorting rows by colour, stable within a colour
+    (perm[new] = old)."""
+    perm = np.argsort(colors, kind="stable").astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size, dtype=np.int32)
+    return perm, inv
 
 
 def spec_for_device(A) -> ColorSpec:

@@ -8,6 +8,10 @@ identical inputs.  The JAX package stores a diagonal or vector either flat
 (rows_pad, L); the planar layout is decoded here with the JAX package's
 geometry rule (basic_iterative_solvers_tpu/stencil_op.py:152-185),
 reimplemented in numpy.
+
+`ilu0_pair_from_numpy` carries the JAX package's exact ILU(0) factors
+across: the translation tables of its `_ilu0_translation_tables` become
+the port's factor-table superblock pair.
 """
 from __future__ import annotations
 
@@ -65,3 +69,23 @@ def vector_from_numpy(v, A: DeviceStencil, dtype=None) -> torch.Tensor:
     in `dtype` (default: A's)."""
     return torch.as_tensor(_flat(v, A.legs, A.dims).copy(),
                            dtype=dtype or A.dtype, device=A.device)
+
+
+def ilu0_pair_from_numpy(op: DeviceStencil, tables, *, dtype):
+    """The port's (L, U) ILU(0) pair for `op` from the JAX package's
+    translation tables (T, Tdiag, (Px, Py, Pz), R, h), NumPy float64, as
+    its ops/block_trisolve._ilu0_translation_tables returns them."""
+    from .coloring import spec_for_device
+    from .ops.block_trisolve import ilu0_pair_from_tables
+    T, Tdiag, proto, R, h = tables
+    proto = tuple(int(p) for p in proto)
+    T = np.asarray(T, dtype=np.float64)
+    Tdiag = np.asarray(Tdiag, dtype=np.float64)
+    w = 2 * int(h) + 1
+    if (T.shape != (w ** 3,) + proto[::-1]
+            or Tdiag.shape != proto[::-1]):
+        raise ValueError(f"tables of shape {T.shape} and {Tdiag.shape} do "
+                         f"not match the prototype {proto} and reach {h}")
+    return ilu0_pair_from_tables(op, spec_for_device(op),
+                                 (T, Tdiag, proto, int(R), int(h)),
+                                 dtype=dtype)

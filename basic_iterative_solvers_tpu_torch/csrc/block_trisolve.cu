@@ -1,18 +1,35 @@
-// One superblock level of a const-mode coloured triangular solve, for
-// Hopper (sm_90a).
+// Superblock levels of a coloured triangular solve on a stencil, for
+// Hopper (sm_90a): const mode (exact GS) and factor-table mode (exact
+// ILU(0)), fused in one launch a level or split into an acc step and one
+// step per x-parity.
 //
-// Replaces the Pallas kernel basic_iterative_solvers_tpu/ops/
-// block_trisolve.py: _super_level_pallas in its const mode (the plain form
-// there is _super_level_xla).  A grid colouring with strides (sx, sy, sz)
-// of an open-boundary nx*ny*nz constant stencil groups the rows into
-// S = sy*sz superblocks, superblock sb holding the rows with
-// (y mod sy, z mod sz) = (sb mod sy, sb / sy); inside one, the colours are
-// the sx x-parities.  A level solves one superblock of (T + D) x = y, T the
-// strict triangle of the colour-sorted ordering:
+// Replaces the Pallas kernels of basic_iterative_solvers_tpu/ops/
+// block_trisolve.py: _super_level_pallas in its const, plane, packed and
+// flat-IO modes (super_level_kernel), and the split-mode pair
+// _super_acc_pallas (super_acc_kernel) and _super_parity_pallas
+// (super_parity_kernel).  The plain forms are ops/block_trisolve.py's
+// super_level_plain, super_acc_plain and super_parity_plain.
 //
-//     acc[i] = y[i] - sum_cross c * x[i + dx + nx*(dy + ny*dz)]
+// A grid colouring with strides (sx, sy, sz) of an open-boundary
+// nx*ny*nz constant stencil groups the rows into S = sy*sz superblocks,
+// superblock sb holding the rows with (y mod sy, z mod sz) =
+// (sb mod sy, sb / sy); inside one, the colours are the sx x-parities.  A
+// level solves one superblock of (T + D) x = y, T the strict triangle of
+// the colour-sorted ordering:
+//
+//     acc[i] = y[i] - sum_cross f * x[i + dx + nx*(dy + ny*dz)]
 //     for each x-parity p in order (reversed for the upper triangle):
-//         x[i] = (acc[i] - sum_self c * x[i + dx]) * dinv   on parity p rows
+//         x[i] = (acc[i] - sum_self f * x[i + dx]) * dinv   on parity p rows
+//
+// Const mode: f is the leg's coefficient and dinv the constant 1/D.
+// Factor-table mode: f = table[kd * n_proto + base(i)], the coloured
+// ILU(0) factor value of leg kd at row i's class, and dinv = 1 (L, unit
+// diagonal, no multiply) or tdinv[base(i)] (U).  base(i) maps (x, y, z)
+// per axis to the prototype grid: exact within `radius` of either edge,
+// the phase (i - radius) mod s inside.  The table is 27 x 5,832 values for
+// HPCG at any grid size (~630 KB in float32): it stays in L2, where the
+// TPU kernel streams per-row factor planes (plane mode) or folds the
+// x-classes into 16 lane slots (packed mode).
 //
 // Cross legs reach only superblocks already solved (lower ones for L,
 // higher ones for U); a self leg (dy = dz = 0) counts only where its
@@ -21,19 +38,24 @@
 // rank-space permute, planes and lane rolls have no counterpart here.
 // Every difference and product is rounded alone (no fused multiply-add),
 // cross legs in their given order, then self legs, as the plain version's
-// separate PyTorch operations and the JAX package's XLA form round them.
+// separate PyTorch operations and the JAX package's XLA form round them,
+// so the fused and split routes and the plain version agree bit for bit.
 //
-// One launch per level.  A block owns whole x-lines of the superblock (a
-// self leg never leaves its line), so the parities chain inside the block
-// with __syncthreads() between them.  acc is kept in x itself: the level's
-// own rows are not read by anyone else during the launch, so y may alias x
-// (the U solve of symmetric GS runs in place).
+// Fused: one launch per level.  A block owns whole x-lines of the
+// superblock (a self leg never leaves its line), so the parities chain
+// inside the block with __syncthreads() between them.  acc is kept in x
+// itself: the level's own rows are not read by anyone else during the
+// launch, so y may alias x (the U solve of symmetric GS and of ILU(0) runs
+// in place).  Split (the JAX package's BIS_SB_ALIGNED=0 route): acc goes
+// to a scratch of the level's rows, then one launch per parity.
 //
 // What bounds it on the card: like the SpMV, the per-row leg loop with a
-// bounds check per leg, here over 1/S of the rows per launch; each level
-// reads its rows of y and the solved neighbours of x (mostly from L2 at
-// 128^3) and writes its rows of x twice (acc, then the solution).  Only
-// 1/sx of a block's threads work in each parity step.
+// bounds check per leg, here over 1/S of the rows per launch, plus in
+// factor-table mode the class computation and one table load (from L2)
+// per leg; each level reads its rows of y and the solved neighbours of x
+// (from L2 at 128^3, from HBM at 384^3) and writes its rows of x twice
+// (acc, then the solution).  Only 1/sx of a block's threads work in each
+// parity step.
 //
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after its launch.
@@ -47,9 +69,9 @@
 // ctypes mirror in _build.py (8-byte fields first: no padding).
 struct BisSuperLevelArgs {
     long long cross_off[BIS_SL_MAX_LEGS];   // dx + nx*(dy + ny*dz)
-    double cross_coeff[BIS_SL_MAX_LEGS];
-    double self_coeff[BIS_SL_MAX_LEGS];
-    double dinv;                            // 1 / D, rounded to the dtype
+    double cross_coeff[BIS_SL_MAX_LEGS];    // const mode
+    double self_coeff[BIS_SL_MAX_LEGS];     // const mode
+    double dinv;                            // const mode: 1 / D, rounded
     int cross_dx[BIS_SL_MAX_LEGS];
     int cross_dy[BIS_SL_MAX_LEGS];
     int cross_dz[BIS_SL_MAX_LEGS];
@@ -60,6 +82,10 @@ struct BisSuperLevelArgs {
     int my, lines;                          // ny / sy, lines of the superblock
     int upper;
     int block_x, block_y, grid_x;
+    int cross_kd[BIS_SL_MAX_LEGS];          // factor-table mode: table rows
+    int self_kd[BIS_SL_MAX_LEGS];
+    int proto_x, proto_y, proto_z;          // prototype grid
+    int radius, n_proto;                    // class radius, proto_x*y*z
 };
 
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
@@ -67,73 +93,223 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
-template <typename T>
+// Prototype coordinate of grid coordinate i on an axis of n points.
+__device__ __forceinline__ int proto_class(int i, int n, int P, int s, int R) {
+    if (P == n) return i;
+    const int c = i < R ? i : (n - 1 - i < R ? P - 1 - (n - 1 - i)
+                                             : R + (i - R) % s);
+    return min(max(c, 0), P - 1);
+}
+
+__device__ __forceinline__ int class_base(const BisSuperLevelArgs& a, int gx,
+                                          int gy, int gz) {
+    return proto_class(gx, a.nx, a.proto_x, a.sx, a.radius)
+        + a.proto_x * (proto_class(gy, a.ny, a.proto_y, a.sy, a.radius)
+                       + a.proto_y * proto_class(gz, a.nz, a.proto_z, a.sz,
+                                                 a.radius));
+}
+
+// acc = y[i] - sum_cross f * x[i + off], legs in order.
+template <typename T, bool TABLE>
+__device__ __forceinline__ T cross_sum(const BisSuperLevelArgs& a,
+                                       const T* y, const T* x, const T* table,
+                                       long long i, int gx, int gy, int gz,
+                                       int base) {
+    T acc = y[i];
+    for (int l = 0; l < a.n_cross; ++l) {
+        const int px = gx + a.cross_dx[l], py = gy + a.cross_dy[l],
+                  pz = gz + a.cross_dz[l];
+        if (px >= 0 && px < a.nx && py >= 0 && py < a.ny && pz >= 0 &&
+            pz < a.nz) {
+            const T f = TABLE ? table[(long long)a.cross_kd[l] * a.n_proto + base]
+                              : T(a.cross_coeff[l]);
+            acc = sub_rn(acc, mul_rn(f, x[i + a.cross_off[l]]));
+        }
+    }
+    return acc;
+}
+
+// (v - sum_self f * x[i + dx]) * dinv on a parity-p row.
+template <typename T, bool TABLE>
+__device__ __forceinline__ T parity_update(const BisSuperLevelArgs& a, int p,
+                                           T v, const T* x, const T* table,
+                                           const T* tdinv, long long i, int gx,
+                                           int base) {
+    for (int l = 0; l < a.n_self; ++l) {
+        const int px = gx + a.self_dx[l];
+        if (px < 0 || px >= a.nx) continue;
+        const int ps = px % a.sx;
+        if (a.upper ? ps <= p : ps >= p) continue;
+        const T f = TABLE ? table[(long long)a.self_kd[l] * a.n_proto + base]
+                          : T(a.self_coeff[l]);
+        v = sub_rn(v, mul_rn(f, x[i + a.self_dx[l]]));
+    }
+    if (!TABLE) return mul_rn(v, T(a.dinv));
+    return tdinv ? mul_rn(v, tdinv[base]) : v;
+}
+
+struct LevelRow {
+    bool live;
+    int line, gy, gz;
+    long long row;                          // flat index of the line's x = 0
+};
+
+__device__ __forceinline__ LevelRow level_row(const BisSuperLevelArgs& a) {
+    LevelRow r;
+    r.line = blockIdx.x * a.block_y + threadIdx.y;
+    r.live = r.line < a.lines;
+    r.gy = a.sy * (r.line % a.my) + a.py;
+    r.gz = a.sz * (r.line / a.my) + a.pz;
+    r.row = (long long)a.nx * (r.gy + (long long)a.ny * r.gz);
+    return r;
+}
+
+template <typename T, bool TABLE>
 __global__ void __launch_bounds__(256)
 super_level_kernel(const __grid_constant__ BisSuperLevelArgs a, const T* y,
-                   T* x) {
-    const int line = blockIdx.x * a.block_y + threadIdx.y;
-    const bool live = line < a.lines;
-    const int gy = a.sy * (line % a.my) + a.py;
-    const int gz = a.sz * (line / a.my) + a.pz;
-    const long long row = (long long)a.nx * (gy + (long long)a.ny * gz);
-    if (live) {
+                   T* x, const T* table, const T* tdinv) {
+    const LevelRow r = level_row(a);
+    if (r.live) {
         for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
-            const long long i = row + gx;
-            T acc = y[i];
-            for (int l = 0; l < a.n_cross; ++l) {
-                const int px = gx + a.cross_dx[l], py = gy + a.cross_dy[l],
-                          pz = gz + a.cross_dz[l];
-                if (px >= 0 && px < a.nx && py >= 0 && py < a.ny &&
-                    pz >= 0 && pz < a.nz)
-                    acc = sub_rn(acc, mul_rn(T(a.cross_coeff[l]),
-                                             x[i + a.cross_off[l]]));
-            }
-            x[i] = acc;
+            const int base = TABLE ? class_base(a, gx, r.gy, r.gz) : 0;
+            x[r.row + gx] = cross_sum<T, TABLE>(a, y, x, table, r.row + gx,
+                                                gx, r.gy, r.gz, base);
         }
     }
     __syncthreads();
     for (int step = 0; step < a.sx; ++step) {
         const int p = a.upper ? a.sx - 1 - step : step;
-        if (live) {
+        if (r.live) {
             for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
                 if (gx % a.sx != p) continue;
-                const long long i = row + gx;
-                T v = x[i];
-                for (int l = 0; l < a.n_self; ++l) {
-                    const int px = gx + a.self_dx[l];
-                    if (px < 0 || px >= a.nx) continue;
-                    const int ps = px % a.sx;
-                    if (a.upper ? ps <= p : ps >= p) continue;
-                    v = sub_rn(v, mul_rn(T(a.self_coeff[l]),
-                                         x[i + a.self_dx[l]]));
-                }
-                x[i] = mul_rn(v, T(a.dinv));
+                const long long i = r.row + gx;
+                const int base = TABLE ? class_base(a, gx, r.gy, r.gz) : 0;
+                x[i] = parity_update<T, TABLE>(a, p, x[i], x, table, tdinv, i,
+                                               gx, base);
             }
         }
         __syncthreads();
     }
 }
 
+// Split route, step 1: acc[line * nx + x] = y - sum_cross f * x.
 template <typename T>
-static int launch(int device, const BisSuperLevelArgs* a, const T* y, T* x,
-                  cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
+__global__ void __launch_bounds__(256)
+super_acc_kernel(const __grid_constant__ BisSuperLevelArgs a, const T* y,
+                 const T* x, T* acc, const T* table) {
+    const LevelRow r = level_row(a);
+    if (!r.live) return;
+    for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
+        const int base = class_base(a, gx, r.gy, r.gz);
+        acc[(long long)r.line * a.nx + gx] = cross_sum<T, true>(
+            a, y, x, table, r.row + gx, gx, r.gy, r.gz, base);
+    }
+}
+
+// Split route, step 2: parity p's rows from acc (or y) and the self legs.
+template <typename T>
+__global__ void __launch_bounds__(256)
+super_parity_kernel(const __grid_constant__ BisSuperLevelArgs a, int p,
+                    const T* y, const T* acc, T* x, const T* table,
+                    const T* tdinv) {
+    const LevelRow r = level_row(a);
+    if (!r.live) return;
+    for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
+        if (gx % a.sx != p) continue;
+        const long long i = r.row + gx;
+        const int base = class_base(a, gx, r.gy, r.gz);
+        const T v = acc ? acc[(long long)r.line * a.nx + gx] : y[i];
+        x[i] = parity_update<T, true>(a, p, v, x, table, tdinv, i, gx, base);
+    }
+}
+
+static cudaError_t set_device(int device) { return cudaSetDevice(device); }
+
+template <typename T>
+static int launch_level(int device, const BisSuperLevelArgs* a, const T* y,
+                        T* x, const T* table, const T* tdinv,
+                        cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
     if (set != cudaSuccess) return (int)set;
     const dim3 block(a->block_x, a->block_y);
-    super_level_kernel<T><<<a->grid_x, block, 0, stream>>>(*a, y, x);
+    if (table)
+        super_level_kernel<T, true><<<a->grid_x, block, 0, stream>>>(
+            *a, y, x, table, tdinv);
+    else
+        super_level_kernel<T, false><<<a->grid_x, block, 0, stream>>>(
+            *a, y, x, nullptr, nullptr);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_acc(int device, const BisSuperLevelArgs* a, const T* y,
+                      const T* x, T* acc, const T* table,
+                      cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    const dim3 block(a->block_x, a->block_y);
+    super_acc_kernel<T><<<a->grid_x, block, 0, stream>>>(*a, y, x, acc, table);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_parity(int device, const BisSuperLevelArgs* a, int p,
+                         const T* y, const T* acc, T* x, const T* table,
+                         const T* tdinv, cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    const dim3 block(a->block_x, a->block_y);
+    super_parity_kernel<T><<<a->grid_x, block, 0, stream>>>(*a, p, y, acc, x,
+                                                            table, tdinv);
     return (int)cudaGetLastError();
 }
 
 extern "C" {
 
+// table == NULL: const mode; else factor-table mode (tdinv NULL for L).
 int bis_super_level_f32(int device, const BisSuperLevelArgs* a,
-                        const float* y, float* x, void* stream) {
-    return launch<float>(device, a, y, x, (cudaStream_t)stream);
+                        const float* y, float* x, const float* table,
+                        const float* tdinv, void* stream) {
+    return launch_level<float>(device, a, y, x, table, tdinv,
+                               (cudaStream_t)stream);
 }
 
 int bis_super_level_f64(int device, const BisSuperLevelArgs* a,
-                        const double* y, double* x, void* stream) {
-    return launch<double>(device, a, y, x, (cudaStream_t)stream);
+                        const double* y, double* x, const double* table,
+                        const double* tdinv, void* stream) {
+    return launch_level<double>(device, a, y, x, table, tdinv,
+                                (cudaStream_t)stream);
+}
+
+int bis_super_acc_f32(int device, const BisSuperLevelArgs* a, const float* y,
+                      const float* x, float* acc, const float* table,
+                      void* stream) {
+    return launch_acc<float>(device, a, y, x, acc, table,
+                             (cudaStream_t)stream);
+}
+
+int bis_super_acc_f64(int device, const BisSuperLevelArgs* a,
+                      const double* y, const double* x, double* acc,
+                      const double* table, void* stream) {
+    return launch_acc<double>(device, a, y, x, acc, table,
+                              (cudaStream_t)stream);
+}
+
+// acc == NULL: the level has no cross legs and reads y.
+int bis_super_parity_f32(int device, const BisSuperLevelArgs* a, int p,
+                         const float* y, const float* acc, float* x,
+                         const float* table, const float* tdinv,
+                         void* stream) {
+    return launch_parity<float>(device, a, p, y, acc, x, table, tdinv,
+                                (cudaStream_t)stream);
+}
+
+int bis_super_parity_f64(int device, const BisSuperLevelArgs* a, int p,
+                         const double* y, const double* acc, double* x,
+                         const double* table, const double* tdinv,
+                         void* stream) {
+    return launch_parity<double>(device, a, p, y, acc, x, table, tdinv,
+                                 (cudaStream_t)stream);
 }
 
 int bis_super_level_args_size(void) { return (int)sizeof(BisSuperLevelArgs); }

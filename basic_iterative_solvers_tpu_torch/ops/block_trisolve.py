@@ -1,37 +1,61 @@
-"""Const-mode superblock triangular solves: exact coloured GS on stencils.
+"""Superblock triangular solves on stencils: exact coloured GS (const mode)
+and exact coloured ILU(0) (factor-table mode).
 
-The const-mode subset of the JAX package's ops/block_trisolve.py.  A grid
-colouring with strides (sx, sy, sz) of a constant-coefficient stencil
-groups the rows into S = sy·sz superblocks: superblock sb holds the rows
-with (y mod sy, z mod sz) = (sb mod sy, sb // sy), and its colours are the
-sx x-parities.  In the colour-sorted ordering the strict lower triangle L
-couples a superblock only to lower ones (cross legs) and, inside it, a
-parity only to lower parities along x (self legs); U mirrors that.  So
-(L + D)⁻¹y is S levels, one per superblock, each a parallel update with
-the x-parities chained:
+The const and translation-table subset of the JAX package's
+ops/block_trisolve.py.  A grid colouring with strides (sx, sy, sz) of a
+constant-coefficient stencil groups the rows into S = sy·sz superblocks:
+superblock sb holds the rows with (y mod sy, z mod sz) = (sb mod sy,
+sb // sy), and its colours are the sx x-parities.  In the colour-sorted
+ordering the strict lower triangle L couples a superblock only to lower
+ones (cross legs) and, inside it, a parity only to lower parities along x
+(self legs); U mirrors that.  So a triangular solve is S levels, one per
+superblock, each a parallel update with the x-parities chained:
 
-    acc = y − Σ_cross c·mask·x(src, Δ)
-    for each parity p:  x = (acc − Σ_self c·mask·x(dx))·D⁻¹  on parity p
+    acc = y − Σ_cross f·mask·x(src, Δ)
+    for each parity p:  x = (acc − Σ_self f·mask·x(dx))·D⁻¹  on parity p
 
-and the factors are the operator's legs themselves (`const_cross`,
-`const_self`): nothing is stored but metadata and the constant diagonal.
-`blocked_trisolve` and `blocked_sgs` are the same actions as the masked
-colour sweeps of coloring.py with the same colouring.
+Const mode (GS, SGS): f is the operator's leg coefficient (`const_cross`,
+`const_self`) and D⁻¹ the constant diagonal's inverse: nothing is stored
+but metadata.  `blocked_trisolve` and `blocked_sgs` are the same actions as
+the masked colour sweeps of coloring.py with the same colouring.
+
+Factor-table mode (ILU(0)): f is the coloured ILU(0) factor value of the
+row and leg, and D⁻¹ is 1 for L (unit diagonal) and the row's inverse U
+pivot for U.  Under a proper grid colouring a row's factor values depend
+only on its in-bounds masks within R = h·n_colours of it, so a prototype
+grid of at most 2R + s points per axis holds every distinct row
+(`_ilu0_translation_tables`); a row reads its values from that class table
+at the class of its (x, y, z).  The table is (2h+1)³ × (Px·Py·Pz) values
+(27 × 5,832 for HPCG at any size, ~630 KB in float32), so no factor plane
+is ever stored: the JAX package's plane mode (per-row values in (R_b, 128)
+planes) and packed mode (x-classes folded into 16 lane slots, bit-checked)
+are both this one mode here.
 
 Vectors stay in the natural flat order: the JAX package's rank-space
-permute, (R_b, 128) planes, TB tiles and fused/aligned/split layouts are
-TPU geometry with no counterpart here.  `super_level` is one level's entry
-point: on a CUDA tensor it launches the hand-written kernel
-(csrc/block_trisolve.cu) or raises; on a CPU tensor it runs the plain
-version, `super_level_plain`.
+permute, (R_b, 128) planes, TB tiles and fused/aligned layouts are TPU
+geometry with no counterpart here.  Its flat-IO apply (`_ilu0_flat_apply`,
+`_flat_io_eligible`) exists to skip the permute and unpermute passes
+around an ILU(0) apply; the port has no such passes, so `blocked_ilu0`
+needs no switch of its own.  The one layout switch kept is
+`BIS_SB_ALIGNED=0`, read as the JAX package reads it: a factor-table solve
+whose x-lines do not tile the TPU's 128 lanes (128 % nx != 0) then runs
+the split route, each level as `super_acc` (acc for the whole level) and
+one `super_parity` per x-parity.
+
+`super_level`, `super_acc` and `super_parity` are the kernels' entry
+points: on a CUDA tensor each launches its hand-written kernel
+(csrc/block_trisolve.cu) or raises; on a CPU tensor each runs its plain
+version (`super_level_plain`, `super_acc_plain`, `super_parity_plain`).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 import types
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -40,6 +64,11 @@ from ..stencil_op import _rounded
 
 #: threads per kernel block (csrc/block_trisolve.cu: __launch_bounds__)
 _BLOCK_THREADS = 256
+
+#: BIS_SB_ALIGNED=0: factor-table solves with 128 % nx != 0 take the split
+#: route (the JAX package's kill-switch of its aligned-fused layout, read
+#: the same way, at import)
+NO_ALIGNED = os.environ.get("BIS_SB_ALIGNED", "1") == "0"
 
 
 class BlockIneligibleError(ValueError):
@@ -52,15 +81,23 @@ class ImproperColoringError(BlockIneligibleError):
 
 @dataclasses.dataclass(eq=False)
 class SuperBlockTriSolve:
-    """Const-mode superblock form of a coloured triangular solve.
+    """Superblock form of a coloured triangular solve.
 
     levels[li] = (sb, cross, selfs): the superblock solved at level li, its
     cross groups ((src, Δ), …) sorted by (src, Δ), its self legs (dx, …)
-    sorted; const_cross[li] = ((c, dx, dy, dz), …) aligned with cross,
-    const_self[li] = ((c, dx), …) aligned with selfs (the JAX package's
-    fields, as Python tuples).  `dinv` and `d` are the constant diagonal's
-    inverse and value rounded to `dtype` (`d` only where a symmetric apply
-    multiplies by D between the two solves)."""
+    sorted (the JAX package's fields, as Python tuples).
+
+    Const mode: const_cross[li] = ((c, dx, dy, dz), …) aligned with cross,
+    const_self[li] = ((c, dx), …) aligned with selfs; `dinv` and `d` are
+    the constant diagonal's inverse and value rounded to `dtype` (`d` only
+    where a symmetric apply multiplies by D between the two solves).
+
+    Factor-table mode (`table` set): table_cross[li] = ((kd, dx, dy, dz),
+    …) and table_self[li] = ((kd, dx), …), kd the leg's row of `table`
+    ((2h+1)³, Np) at `dtype`; `table_dinv` (Np,) is U's inverse pivot per
+    class (None: L's unit diagonal); a row's class comes from its (x, y, z)
+    through the prototype dims `proto` and the radius `radius`.  `fused`
+    False sends the solve down the split route."""
 
     n_rows: int
     S: int
@@ -69,23 +106,33 @@ class SuperBlockTriSolve:
     levels: Tuple
     upper: bool
     spec_params: Tuple[int, ...]
-    const_cross: Tuple
-    const_self: Tuple
-    dinv: float
-    d: Optional[float]
     dtype: torch.dtype
     #: max |d| per axis over the legs (the plain version's zero padding)
     reach: Tuple[int, int, int]
-    #: the kernel's launch table per level, built at first launch
+    const_cross: Tuple = ()
+    const_self: Tuple = ()
+    dinv: Optional[float] = None
+    d: Optional[float] = None
+    table: Optional[torch.Tensor] = None
+    table_dinv: Optional[torch.Tensor] = None
+    proto: Tuple[int, int, int] = (0, 0, 0)
+    radius: int = 0
+    table_cross: Tuple = ()
+    table_self: Tuple = ()
+    fused: bool = True
+    #: the kernels' launch tables per level, built at first launch
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def is_table(self) -> bool:
+        return self.table is not None
 
 
 def _stencil_pair_plan(op, spec):
     """Eligibility and geometry of the analytic stencil pair: the constant
     diagonal, the self legs [(dx, c)], and per target superblock its cross
     legs [(src, Δ, c, leg)].  Raises BlockIneligibleError (or
-    ImproperColoringError) where the const superblock form does not
-    apply."""
+    ImproperColoringError) where the superblock form does not apply."""
     if spec.kind != "grid":
         raise BlockIneligibleError("superblock path needs a grid coloring")
     nx, ny, nz, sx, sy, sz = spec.params
@@ -135,9 +182,25 @@ def _stencil_pair_plan(op, spec):
             delta = dx + nx * (dRy + my * dRz)
             rows.append((src, delta, c, (dx, dy, dz)))
         per_sb.append(rows)
+    reach = tuple(max([0] + [abs(leg[a]) for leg in op.legs])
+                  for a in range(3))
     return types.SimpleNamespace(
         diag_c=diag_c, self_legs=sorted(self_legs), per_sb=per_sb, S=S,
-        m=nx * my * mz, spec_params=tuple(int(p) for p in spec.params))
+        m=nx * my * mz, spec_params=tuple(int(p) for p in spec.params),
+        reach=reach)
+
+
+def _levels_for(plan, upper: bool):
+    """[(sb, cross rows sorted by (src, Δ))] in solve order: the cross legs
+    from lower superblocks (L) or higher ones (U)."""
+    order = range(plan.S - 1, -1, -1) if upper else range(plan.S)
+    out = []
+    for sb in order:
+        rows = [r for r in plan.per_sb[sb]
+                if (r[0] > sb if upper else r[0] < sb)]
+        rows.sort(key=lambda r: (r[0], r[1]))
+        out.append((sb, rows))
+    return out
 
 
 def stencil_blocked_eligible(op, spec) -> bool:
@@ -148,6 +211,10 @@ def stencil_blocked_eligible(op, spec) -> bool:
         return True
     except BlockIneligibleError:
         return False
+
+
+#: exact ILU(0) has the const GS pair's eligibility (the same plan)
+stencil_ilu0_eligible = stencil_blocked_eligible
 
 
 def build_superblock_gs_pair_stencil(op, spec, *, dtype=torch.float32,
@@ -161,30 +228,147 @@ def build_superblock_gs_pair_stencil(op, spec, *, dtype=torch.float32,
     plan = _stencil_pair_plan(op, spec)
     dtype = torch_dtype(dtype)
     nx, ny, nz, sx, sy, sz = plan.spec_params
-    S = plan.S
     dinv, d = _rounded([1.0 / plan.diag_c, plan.diag_c], dtype)
     selfs = tuple(dx for dx, _c in plan.self_legs)
     self_consts = tuple((c, dx) for dx, c in plan.self_legs)
-    reach = tuple(max([0] + [abs(leg[a]) for leg in op.legs])
-                  for a in range(3))
 
     def one(upper: bool):
-        order = range(S - 1, -1, -1) if upper else range(S)
-        levels, cc = [], []
-        for sb in order:
-            rows = [(src, delta, c, leg) for src, delta, c, leg
-                    in plan.per_sb[sb]
-                    if (src > sb if upper else src < sb)]
-            rows.sort(key=lambda r: (r[0], r[1]))
-            levels.append((sb, tuple((src, delta) for src, delta, _, _
-                                     in rows), selfs))
-            cc.append(tuple((c,) + leg for _, _, c, leg in rows))
+        levels = _levels_for(plan, upper)
         return SuperBlockTriSolve(
-            n_rows=nx * ny * nz, S=S, m=plan.m, sx=sx, levels=tuple(levels),
-            upper=upper, spec_params=plan.spec_params, const_cross=tuple(cc),
+            n_rows=nx * ny * nz, S=plan.S, m=plan.m, sx=sx,
+            levels=tuple((sb, tuple((src, delta) for src, delta, _, _
+                                    in rows), selfs)
+                         for sb, rows in levels),
+            upper=upper, spec_params=plan.spec_params, dtype=dtype,
+            reach=plan.reach,
+            const_cross=tuple(tuple((c,) + leg for _, _, c, leg in rows)
+                              for _, rows in levels),
             const_self=(self_consts,) * len(levels), dinv=dinv,
-            d=(d if (need_d and not upper) else None), dtype=dtype,
-            reach=reach)
+            d=(d if (need_d and not upper) else None))
+
+    return one(False), one(True)
+
+
+# ---------------------------------------------------------------------------
+# Translation-table exact ILU(0)
+# ---------------------------------------------------------------------------
+
+def _ilu0_translation_tables(op, spec_params, n_colors, pivot_tolerance,
+                             pivot_replacement):
+    """Exact coloured ILU(0) factor values for any grid size from one small
+    prototype factorization.
+
+    Under a proper grid colouring, row i's factor values depend only on
+    the rows of strictly lower colour in its pattern, recursively: a chain
+    of at most n_colours − 1 hops of the stencil's reach h.  With constant
+    coefficients, two rows whose in-bounds masks agree on the radius
+    R = h·n_colours ball factor to identical values.  Per axis that mask is
+    fixed by the distance to each edge (up to R) and the phase i mod s, so
+    2R + s points per axis hold every class.
+
+    Returns (T, Tdiag, (Px, Py, Pz), R, h): T[kd, z, y, x] the factor value
+    of leg kd at prototype row (x, y, z) (0 where absent), Tdiag the U
+    diagonal, both float64."""
+    from ..coloring import ColorSpec, _grid_coords, spec_colors_np
+    from ..factor import factor_ilu0_colored_triplets
+    from ..matrix import MatrixCOO, convert_coo_to_csr
+    nx, ny, nz, sx, sy, sz = spec_params
+    legs = [((dx, dy, dz), float(c))
+            for (dx, dy, dz), c in zip(op.legs, op.coeff_values)
+            if float(c) != 0.0]
+    h = max(max(abs(dx), abs(dy), abs(dz)) for (dx, dy, dz), _c in legs)
+    R = h * n_colors
+
+    def proto(n_a, s_a):
+        # identity axis when the grid is too small for distinct zones
+        if n_a <= 2 * R + 2 * s_a:
+            return n_a
+        # P ≡ n (mod s) keeps the right-edge map phase-true
+        return 2 * R + s_a + (n_a - (2 * R + s_a)) % s_a
+
+    Px, Py, Pz = proto(nx, sx), proto(ny, sy), proto(nz, sz)
+    Np = Px * Py * Pz
+    idx = np.arange(Np, dtype=np.int64)
+    x, y, z = _grid_coords(idx, Px, Py)
+    rr, cc, vv = [], [], []
+    for (dx, dy, dz), c in legs:
+        mask = ((x + dx >= 0) & (x + dx < Px) & (y + dy >= 0)
+                & (y + dy < Py) & (z + dz >= 0) & (z + dz < Pz))
+        rr.append(idx[mask])
+        cc.append(idx[mask] + (dx + Px * (dy + Py * dz)))
+        vv.append(np.full(int(mask.sum()), c))
+    csr = convert_coo_to_csr(MatrixCOO.from_arrays(
+        np.concatenate(rr), np.concatenate(cc), np.concatenate(vv),
+        n_rows=Np, n_cols=Np))
+    pspec = ColorSpec(kind="grid", n_colors=n_colors,
+                      params=(Px, Py, Pz, sx, sy, sz))
+    rows_o, cols_o, lu_vals, U_D = factor_ilu0_colored_triplets(
+        csr, spec_colors_np(pspec, Np), pivot_tolerance=pivot_tolerance,
+        pivot_replacement=pivot_replacement)
+    xr, yr, zr = _grid_coords(np.asarray(rows_o), Px, Py)
+    xc, yc, zc = _grid_coords(np.asarray(cols_o), Px, Py)
+    w = 2 * h + 1
+    kd = (xc - xr + h) + w * ((yc - yr + h) + w * (zc - zr + h))
+    T = np.zeros((w * w * w, Pz, Py, Px), dtype=np.float64)
+    T[kd, zr, yr, xr] = lu_vals
+    Tdiag = np.asarray(U_D, dtype=np.float64).reshape(Pz, Py, Px)
+    return T, Tdiag, (Px, Py, Pz), R, h
+
+
+def build_superblock_ilu0_pair_stencil(op, spec, *, dtype=torch.float32,
+                                       pivot_tolerance: float = 1e-8,
+                                       pivot_replacement: float = 1e-4):
+    """(L, U) coloured ILU(0) superblock pair for a constant-coefficient
+    DeviceStencil: the host factors only the prototype grid
+    (`_ilu0_translation_tables`), and the solves read each row's factor
+    values from the resulting class table on the device.  L solves with a
+    unit diagonal, U with its pivots.  Raises BlockIneligibleError (or
+    ImproperColoringError) like the const-mode builder."""
+    plan = _stencil_pair_plan(op, spec)
+    tables = _ilu0_translation_tables(
+        op, plan.spec_params, plan.S * plan.spec_params[3],
+        pivot_tolerance, pivot_replacement)
+    return ilu0_pair_from_tables(op, spec, tables, dtype=dtype)
+
+
+def ilu0_pair_from_tables(op, spec, tables, *, dtype=torch.float32):
+    """The (L, U) factor-table pair from translation tables (T, Tdiag,
+    (Px, Py, Pz), R, h) as _ilu0_translation_tables gives them, NumPy
+    float64: the table is cast to the solve dtype on op's device, and U's
+    inverse pivots are computed in float64, then cast."""
+    plan = _stencil_pair_plan(op, spec)
+    dtype = torch_dtype(dtype)
+    T, Tdiag, proto, R, h = tables
+    w = 2 * h + 1
+    Np = int(np.prod(proto))
+    nx, ny, nz, sx, sy, sz = plan.spec_params
+    table = torch.from_numpy(np.ascontiguousarray(
+        T, dtype=np.float64).reshape(w ** 3, Np)).to(dtype=dtype,
+                                                    device=op.device)
+    table_dinv = torch.from_numpy(
+        (1.0 / np.asarray(Tdiag, dtype=np.float64)).reshape(Np)).to(
+            dtype=dtype, device=op.device)
+    kd = lambda dx, dy, dz: (dx + h) + w * ((dy + h) + w * (dz + h))  # noqa
+    selfs = tuple(dx for dx, _c in plan.self_legs)
+    fused = not (NO_ALIGNED and not (nx <= 128 and 128 % nx == 0))
+
+    def one(upper: bool):
+        levels = _levels_for(plan, upper)
+        return SuperBlockTriSolve(
+            n_rows=nx * ny * nz, S=plan.S, m=plan.m, sx=sx,
+            levels=tuple((sb, tuple((src, delta) for src, delta, _, _
+                                    in rows), selfs)
+                         for sb, rows in levels),
+            upper=upper, spec_params=plan.spec_params, dtype=dtype,
+            reach=plan.reach, table=table,
+            table_dinv=table_dinv if upper else None,
+            proto=tuple(int(p) for p in proto), radius=int(R),
+            table_cross=tuple(tuple((kd(*leg),) + leg
+                                    for _, _, _, leg in rows)
+                              for _, rows in levels),
+            table_self=(tuple((kd(dx, 0, 0), dx) for dx in selfs),)
+            * len(levels),
+            fused=fused)
 
     return one(False), one(True)
 
@@ -194,87 +378,198 @@ def _parity_order(B: SuperBlockTriSolve):
 
 
 # ---------------------------------------------------------------------------
-# One level
+# One level: plain versions
 # ---------------------------------------------------------------------------
 
-def _check_level(B: SuperBlockTriSolve, li: int, y, x):
+def _check_vectors(B: SuperBlockTriSolve, li: int, **vecs):
     if not 0 <= li < len(B.levels):
         raise IndexError(f"level {li} of {len(B.levels)}")
-    for name, v in (("y", y), ("x", x)):
+    device = None
+    for name, (v, size) in vecs.items():
         if not isinstance(v, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
-        if v.shape != (B.n_rows,):
+        if v.shape != (size,):
             raise ValueError(f"{name} has shape {tuple(v.shape)}, expected "
-                             f"({B.n_rows},)")
+                             f"({size},)")
         if v.dtype != B.dtype:
             raise TypeError(f"{name} is {v.dtype}, the solve {B.dtype}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if y.device != x.device:
-        raise ValueError("y and x lie on different devices")
+        if device is not None and v.device != device:
+            raise ValueError("the vectors lie on different devices")
+        device = v.device
+    return device
+
+
+def _check_level(B: SuperBlockTriSolve, li: int, y, x):
+    _check_vectors(B, li, y=(y, B.n_rows), x=(x, B.n_rows))
+
+
+def _rows(B: SuperBlockTriSolve, li: int):
+    """(sb, py, pz, my, mz, (z, y) slices of the superblock's rows)."""
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    sb = B.levels[li][0]
+    py, pz = sb % sy, sb // sy
+    return (sb, py, pz, ny // sy, nz // sz,
+            (slice(pz, None, sz), slice(py, None, sy)))
+
+
+def _axis_classes(B: SuperBlockTriSolve, li: int, device):
+    """(cx (nx,), cy (my,), cz (mz,)): the prototype coordinate of each
+    coordinate of level li's superblock, per axis: the JAX package's class
+    map (exact near each edge, the phase inside), clamped to the
+    prototype."""
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    Px, Py, Pz = B.proto
+    R = B.radius
+    _sb, py, pz, my, mz, _ = _rows(B, li)
+
+    def cls(i, n_a, P_a, s_a):
+        if P_a == n_a:
+            return i
+        c = torch.where(i < R, i, torch.where(n_a - 1 - i < R,
+                                              P_a - 1 - (n_a - 1 - i),
+                                              R + (i - R) % s_a))
+        return c.clamp(0, P_a - 1)
+
+    ar = lambda k: torch.arange(k, device=device)  # noqa: E731
+    return (cls(ar(nx), nx, Px, sx), cls(sy * ar(my) + py, ny, Py, sy),
+            cls(sz * ar(mz) + pz, nz, Pz, sz))
+
+
+def _class_base(B: SuperBlockTriSolve, li: int, device) -> torch.Tensor:
+    """(mz, my, nx) prototype row of each row of level li's superblock."""
+    Px, Py = B.proto[:2]
+    cx, cy, cz = _axis_classes(B, li, device)
+    return cx[None, None, :] + Px * (cy[None, :, None]
+                                     + Py * cz[:, None, None])
+
+
+def _cross_acc(B: SuperBlockTriSolve, li: int, y, x, base):
+    """acc = y − Σ_cross f·x(src, Δ) on level li's rows, (mz, my, nx):
+    cross legs in (src, Δ) order, each product and difference rounded
+    alone.  Out-of-grid neighbours read the zero padding: f·0 leaves acc
+    as the JAX package's masked plane does."""
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    _sb, py, pz, my, mz, rows = _rows(B, li)
+    hx, hy, hz = B.reach
+    Xp = F.pad(x.view(nz, ny, nx), (hx, hx, hy, hy, hz, hz))
+    acc = y.view(nz, ny, nx)[rows]
+    legs = (B.table_cross[li] if B.is_table else B.const_cross[li])
+    table = B.table.to(x.device) if B.is_table else None
+    for f, dx, dy, dz in legs:
+        if table is not None:
+            f = table[f][base]
+        z0, y0, x0 = hz + pz + dz, hy + py + dy, hx + dx
+        nb = Xp[z0:z0 + sz * (mz - 1) + 1:sz, y0:y0 + sy * (my - 1) + 1:sy,
+                x0:x0 + nx]
+        acc = acc - f * nb
+    return acc
+
+
+def _parity_step(B: SuperBlockTriSolve, li: int, p: int, a, xt, base):
+    """xt with parity p's rows set to (a − Σ_self f·x(dx))·D⁻¹, the self
+    legs reading xt where their source parity is already solved."""
+    nx = B.spec_params[0]
+    hx = B.reach[0]
+    gx = torch.arange(nx, device=xt.device)
+    parity = gx % B.sx
+    xtp = F.pad(xt, (hx, hx))
+    legs = B.table_self[li] if B.is_table else B.const_self[li]
+    table = B.table.to(xt.device) if B.is_table else None
+    for f, dx in legs:
+        if table is not None:
+            f = table[f][base]
+        src = gx + dx
+        ok = (src >= 0) & (src < nx)
+        ps = src % B.sx
+        ok &= (ps > parity) if B.upper else (ps < parity)
+        a = a - f * torch.where(ok, xtp[..., hx + dx:hx + dx + nx], 0.0)
+    if not B.is_table:
+        a = a * B.dinv
+    elif B.table_dinv is not None:
+        a = a * B.table_dinv.to(xt.device)[base]
+    return torch.where(parity == p, a, xt)
 
 
 def super_level_plain(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (the JAX package's
+    """Plain PyTorch version of the level kernel (the JAX package's
     _super_level_xla in the flat order): writes the rows of level li's
     superblock of x and returns x.  Reads y on those rows and x on the
     superblocks already solved; y may be x itself."""
     _check_level(B, li, y, x)
-    nx, ny, nz, sx, sy, sz = B.spec_params
-    sb = B.levels[li][0]
-    py, pz = sb % sy, sb // sy
-    my, mz = ny // sy, nz // sz
-    hx, hy, hz = B.reach
-    X = x.view(nz, ny, nx)
-    rows = (slice(pz, None, sz), slice(py, None, sy))
-    # out-of-grid neighbours read the zero padding: c·0 leaves acc as the
-    # JAX package's masked plane does
-    Xp = F.pad(X, (hx, hx, hy, hy, hz, hz))
-    acc = y.view(nz, ny, nx)[rows]
-    for c, dx, dy, dz in B.const_cross[li]:
-        z0, y0, x0 = hz + pz + dz, hy + py + dy, hx + dx
-        nb = Xp[z0:z0 + sz * (mz - 1) + 1:sz, y0:y0 + sy * (my - 1) + 1:sy,
-                x0:x0 + nx]
-        acc = acc - c * nb
-    gx = torch.arange(nx, device=x.device)
-    parity = gx % sx
+    nx, ny, nz = B.spec_params[:3]
+    base = _class_base(B, li, x.device) if B.is_table else None
+    acc = _cross_acc(B, li, y, x, base)
     xt = torch.zeros_like(acc)
     for p in _parity_order(B):
-        a = acc
-        xtp = F.pad(xt, (hx, hx))
-        for c, dx in B.const_self[li]:
-            src = gx + dx
-            ok = (src >= 0) & (src < nx)
-            ps = src % sx
-            ok &= (ps > parity) if B.upper else (ps < parity)
-            a = a - c * torch.where(ok, xtp[..., hx + dx:hx + dx + nx], 0.0)
-        xt = torch.where(parity == p, a * B.dinv, xt)
-    X[rows] = xt
+        xt = _parity_step(B, li, p, acc, xt, base)
+    x.view(nz, ny, nx)[_rows(B, li)[5]] = xt
     return x
 
 
+def super_acc_plain(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
+                    x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split route's acc kernel (the JAX package's
+    _super_acc_pallas): acc (m,), level li's rows in line order, gets
+    y − Σ_cross f·x; returns acc."""
+    _check_split(B, li, y=(y, B.n_rows), x=(x, B.n_rows), acc=(acc, B.m))
+    base = _class_base(B, li, x.device)
+    acc.copy_(_cross_acc(B, li, y, x, base).reshape(-1))
+    return acc
+
+
+def super_parity_plain(B: SuperBlockTriSolve, li: int, p: int,
+                       y: torch.Tensor, acc: Optional[torch.Tensor],
+                       x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split route's parity kernel (the JAX package's
+    _super_parity_pallas): parity p's rows of level li's superblock of x
+    from acc (or from y when the level has no cross legs and acc is None)
+    and the self legs; the level's other rows keep their values."""
+    _check_parity_args(B, li, p, y, acc, x)
+    nx, ny, nz = B.spec_params[:3]
+    _sb, _py, _pz, my, mz, rows = _rows(B, li)
+    base = _class_base(B, li, x.device)
+    a = (y.view(nz, ny, nx)[rows] if acc is None
+         else acc.view(mz, my, nx))
+    X = x.view(nz, ny, nx)
+    X[rows] = _parity_step(B, li, p, a, X[rows], base)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# One level: the kernels' wrappers
+# ---------------------------------------------------------------------------
+
 def _level_args(B: SuperBlockTriSolve, li: int):
-    """The kernel's launch table for level li (cached on B)."""
+    """The kernels' launch table for level li (cached on B)."""
     from .._build import MAX_LEGS, SuperLevelArgs
     if li in B._args:
         return B._args[li]
     nx, ny, nz, sx, sy, sz = B.spec_params
     sb = B.levels[li][0]
-    cross, selfs = B.const_cross[li], B.const_self[li]
+    cross = B.table_cross[li] if B.is_table else B.const_cross[li]
+    selfs = B.table_self[li] if B.is_table else B.const_self[li]
     if len(cross) > MAX_LEGS or len(selfs) > MAX_LEGS:
         raise ValueError(f"the kernel takes at most {MAX_LEGS} cross and "
                          f"{MAX_LEGS} self legs a level")
     a = SuperLevelArgs()
-    for j, (c, dx, dy, dz) in enumerate(cross):
+    for j, (f, dx, dy, dz) in enumerate(cross):
         a.cross_off[j] = dx + nx * (dy + ny * dz)
-        a.cross_coeff[j] = c
+        if B.is_table:
+            a.cross_kd[j] = f
+        else:
+            a.cross_coeff[j] = f
         a.cross_dx[j], a.cross_dy[j], a.cross_dz[j] = dx, dy, dz
-    for j, (c, dx) in enumerate(selfs):
-        a.self_coeff[j] = c
+    for j, (f, dx) in enumerate(selfs):
+        if B.is_table:
+            a.self_kd[j] = f
+        else:
+            a.self_coeff[j] = f
         a.self_dx[j] = dx
     a.n_cross, a.n_self = len(cross), len(selfs)
-    a.dinv = B.dinv
+    a.dinv = 1.0 if B.is_table else B.dinv
     a.nx, a.ny, a.nz, a.sx, a.sy, a.sz = nx, ny, nz, sx, sy, sz
     a.py, a.pz = sb % sy, sb // sy
     a.my = ny // sy
@@ -283,6 +578,9 @@ def _level_args(B: SuperBlockTriSolve, li: int):
     a.block_x = min(128, -(-nx // 32) * 32)
     a.block_y = _BLOCK_THREADS // a.block_x
     a.grid_x = -(-a.lines // a.block_y)
+    a.proto_x, a.proto_y, a.proto_z = B.proto
+    a.radius = B.radius
+    a.n_proto = B.proto[0] * B.proto[1] * B.proto[2]
     if B.n_rows >= 2 ** 62:
         raise ValueError(f"grid {B.spec_params[:3]} exceeds the kernel's "
                          "launch limits")
@@ -290,22 +588,28 @@ def _level_args(B: SuperBlockTriSolve, li: int):
     return a
 
 
-def _super_level_cuda(B: SuperBlockTriSolve, li: int, y, x):
+def _cuda_call(B: SuperBlockTriSolve, name: str, x: torch.Tensor, *args):
+    """Launch `bis_<name>_<dtype>` with level args `args` on x's device and
+    stream; raises on a CUDA error."""
     from .._build import load_library
     if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the super-level kernel takes float32 or float64, "
+        raise TypeError(f"the superblock kernels take float32 or float64, "
                         f"not {x.dtype}")
-    args = _level_args(B, li)
+    if B.is_table and B.table.device != x.device:
+        raise ValueError(f"the factor table is on {B.table.device}, the "
+                         f"vectors on {x.device}")
     lib = load_library()
-    fn = (lib.bis_super_level_f32 if x.dtype == torch.float32
-          else lib.bis_super_level_f64)
-    err = fn(x.device.index, ctypes.byref(args), y.data_ptr(), x.data_ptr(),
+    dt = "f32" if x.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"bis_{name}_{dt}")
+    err = fn(x.device.index, *args,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"super_level kernel launch failed with CUDA "
-                           f"error {err}")
-    super_level.launches += 1
-    return x
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def super_level(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
@@ -315,17 +619,93 @@ def super_level(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
     itself.
 
     A CUDA tensor goes through the hand-written kernel, which counts its
-    launches in `super_level.launches`; a CPU tensor takes the plain
-    version."""
+    launches in `super_level.launches` (const mode) or
+    `super_level.table_launches` (factor-table mode); a CPU tensor takes
+    the plain version."""
     _check_level(B, li, y, x)
     if x.device.type == "cuda":
-        return _super_level_cuda(B, li, y, x)
+        _cuda_call(B, "super_level", x, ctypes.byref(_level_args(B, li)),
+                   y.data_ptr(), x.data_ptr(), _ptr(B.table),
+                   _ptr(B.table_dinv))
+        if B.is_table:
+            super_level.table_launches += 1
+        else:
+            super_level.launches += 1
+        return x
     if x.device.type == "cpu":
         return super_level_plain(B, li, y, x)
     raise ValueError(f"no super-level solve for device {x.device}")
 
 
 super_level.launches = 0
+super_level.table_launches = 0
+
+
+def _check_split(B: SuperBlockTriSolve, li: int, **vecs):
+    if not B.is_table:
+        raise ValueError("the split route runs factor-table solves only")
+    return _check_vectors(B, li, **vecs)
+
+
+def _check_parity_args(B, li, p, y, acc, x):
+    vecs = dict(y=(y, B.n_rows), x=(x, B.n_rows))
+    if acc is not None:
+        vecs["acc"] = (acc, B.m)
+    elif B.levels[li][1]:
+        raise ValueError(f"level {li} has cross legs: its parity steps "
+                         "read acc")
+    _check_split(B, li, **vecs)
+    if not 0 <= p < B.sx:
+        raise IndexError(f"parity {p} of {B.sx}")
+
+
+def super_acc(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
+              x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Split route, step 1 of level li: acc (m,) gets y − Σ_cross f·x on
+    the level's rows, in line order; returns acc.
+
+    A CUDA tensor goes through the hand-written kernel, which counts its
+    launches in `super_acc.launches`; a CPU tensor takes the plain
+    version."""
+    device = _check_split(B, li, y=(y, B.n_rows), x=(x, B.n_rows),
+                          acc=(acc, B.m))
+    if device.type == "cuda":
+        _cuda_call(B, "super_acc", x, ctypes.byref(_level_args(B, li)),
+                   y.data_ptr(), x.data_ptr(), acc.data_ptr(),
+                   B.table.data_ptr())
+        super_acc.launches += 1
+        return acc
+    if device.type == "cpu":
+        return super_acc_plain(B, li, y, x, acc)
+    raise ValueError(f"no super-acc step for device {device}")
+
+
+super_acc.launches = 0
+
+
+def super_parity(B: SuperBlockTriSolve, li: int, p: int, y: torch.Tensor,
+                 acc: Optional[torch.Tensor],
+                 x: torch.Tensor) -> torch.Tensor:
+    """Split route, step 2 of level li: parity p's rows of the level's
+    superblock of x from acc (y where the level has no cross legs and acc
+    is None) and the self legs, in place; returns x.
+
+    A CUDA tensor goes through the hand-written kernel, which counts its
+    launches in `super_parity.launches`; a CPU tensor takes the plain
+    version."""
+    _check_parity_args(B, li, p, y, acc, x)
+    if x.device.type == "cuda":
+        _cuda_call(B, "super_parity", x, ctypes.byref(_level_args(B, li)),
+                   p, y.data_ptr(), _ptr(acc), x.data_ptr(),
+                   B.table.data_ptr(), _ptr(B.table_dinv))
+        super_parity.launches += 1
+        return x
+    if x.device.type == "cpu":
+        return super_parity_plain(B, li, p, y, acc, x)
+    raise ValueError(f"no super-parity step for device {x.device}")
+
+
+super_parity.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +714,19 @@ super_level.launches = 0
 
 def _solve_super(B: SuperBlockTriSolve, y: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
-    """All levels in order, into x (which may be y)."""
-    for li in range(len(B.levels)):
-        super_level(B, li, y, x)
+    """All levels in order, into x (which may be y): one fused launch a
+    level, or on the split route an acc step (where the level has cross
+    legs) and one step per x-parity."""
+    if B.fused:
+        for li in range(len(B.levels)):
+            super_level(B, li, y, x)
+        return x
+    acc = torch.empty(B.m, dtype=x.dtype, device=x.device)
+    for li, (_sb, cross, _s) in enumerate(B.levels):
+        if cross:
+            super_acc(B, li, y, x, acc)
+        for p in _parity_order(B):
+            super_parity(B, li, p, y, acc if cross else None, x)
     return x
 
 
@@ -355,3 +745,14 @@ def blocked_sgs(L: SuperBlockTriSolve, U: SuperBlockTriSolve,
         raise ValueError("blocked_sgs needs L built with need_d=True")
     t = blocked_trisolve(L, y) * L.d
     return _solve_super(U, t, t)
+
+
+def blocked_ilu0(L: SuperBlockTriSolve, U: SuperBlockTriSolve,
+                 y: torch.Tensor) -> torch.Tensor:
+    """U⁻¹L⁻¹y with unit-diagonal L, the coloured ILU(0) apply: the S
+    levels of L, then the S levels of U in place on the same vector."""
+    if not (L.is_table and U.is_table):
+        raise ValueError("blocked_ilu0 needs a factor-table pair "
+                         "(build_superblock_ilu0_pair_stencil)")
+    x = blocked_trisolve(L, y)
+    return _solve_super(U, x, x)

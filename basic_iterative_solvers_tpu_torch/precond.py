@@ -10,12 +10,15 @@ Type → action:
   sgs    : z = (U_c + D)⁻¹ D (L_c + D)⁻¹ y
   2st    : Richardson approximation of (L + D)⁻¹ (kernels.hpp:312-333)
   s2st   : Richardson (L), multiply by D, Richardson (U)
+  ilu0   : z = U⁻¹ L⁻¹ y, the coloured ILU(0) factors (unit-diagonal L)
 
 gs/bgs/sgs take the const-mode superblock solves (ops/block_trisolve.py)
 where the operator and its grid colouring allow, else the masked colour
 sweeps (coloring.py); both are the exact solves of the same colour-sorted
-ordering.  ILU(0), Chebyshev and multigrid name the ROADMAP slice (Queue
-1) that ports them.
+ordering.  ilu0 takes the factor-table superblock solves, which need a
+constant-coefficient stencil under a grid colouring; elsewhere it needs
+the host-CSR path of ROADMAP Queue 1 slice 5.  Chebyshev and multigrid
+name the ROADMAP slice (Queue 1) that ports them.
 """
 from __future__ import annotations
 
@@ -30,7 +33,6 @@ from .types import PrecondType
 
 #: ROADMAP Queue 1 slice that ports each preconditioner still missing
 _SLICE = {
-    PrecondType.ILU0: "slice 4 (exact ILU(0))",
     PrecondType.CHEBYSHEV: "slice 6 (precision and the extra preconditioners)",
     PrecondType.MULTIGRID: "slice 6 (precision and the extra preconditioners)",
 }
@@ -71,7 +73,8 @@ class Preconditioner:
     A_full_dev: Any = None
     color_spec: Any = None
     n_colors: int = 0
-    #: const-mode superblock solves (ops/block_trisolve.SuperBlockTriSolve)
+    #: superblock solves (ops/block_trisolve.SuperBlockTriSolve): const mode
+    #: for the GS family, factor-table mode for ILU(0)
     L_block: Any = None
     U_block: Any = None
 
@@ -99,6 +102,9 @@ def setup_preconditioner(A, config: SolverConfig) -> Preconditioner:
             f"with ROADMAP Queue 1 {_SLICE[pt]}")
     if not isinstance(A, DeviceStencil):
         raise TypeError(f"unsupported operator type {type(A).__name__}")
+    dtype = config.spec_dtype()
+    if pt == PrecondType.ILU0:
+        return Preconditioner(**kw, **_ilu0_blocks(A, config, dtype))
     if pt not in DEVICE_NATIVE_PRECONDS and not (
             pt in COLORED_PRECONDS
             and resolve_gs_mode(config, device_native=True) == "colored"):
@@ -106,7 +112,6 @@ def setup_preconditioner(A, config: SolverConfig) -> Preconditioner:
             f"preconditioner {pt} needs exact triangular solves in the "
             "natural ordering (gs_mode='levels'): the host CSR path, which "
             "arrives with ROADMAP Queue 1 slice 5")
-    dtype = config.spec_dtype()
     if pt in COLORED_PRECONDS:
         from .coloring import spec_for_device
         from .ops.block_trisolve import (BlockIneligibleError,
@@ -145,6 +150,36 @@ def setup_preconditioner(A, config: SolverConfig) -> Preconditioner:
     raise ValueError(f"unsupported preconditioner: {pt}")
 
 
+def ilu0_device_eligible(A, config: SolverConfig) -> bool:
+    """Does exact ILU(0) run on the device path for A: a constant-
+    coefficient stencil under a grid colouring, gs_mode "auto" or
+    "colored"?"""
+    from .coloring import spec_for_device
+    from .ops.block_trisolve import stencil_ilu0_eligible
+    return (isinstance(A, DeviceStencil)
+            and resolve_gs_mode(config, device_native=True) == "colored"
+            and stencil_ilu0_eligible(A, spec_for_device(A)))
+
+
+def _ilu0_blocks(A: DeviceStencil, config: SolverConfig, dtype) -> dict:
+    """The factor-table (L, U) pair of exact coloured ILU(0) (the JAX
+    package's setup_preconditioner_dia, precond.py:475-507)."""
+    from .coloring import spec_for_device
+    from .ops.block_trisolve import build_superblock_ilu0_pair_stencil
+    if not ilu0_device_eligible(A, config):
+        raise ValueError(
+            f"preconditioner {PrecondType.ILU0} requires the host CSR path "
+            "(exact triangular solves), which arrives with ROADMAP Queue 1 "
+            "slice 5: the device path's ILU(0) needs a constant-coefficient "
+            "stencil under a grid colouring")
+    spec = spec_for_device(A)
+    L, U = build_superblock_ilu0_pair_stencil(
+        A, spec, dtype=dtype, pivot_tolerance=config.ilu0_pivot_tolerance,
+        pivot_replacement=config.ilu0_pivot_replacement)
+    return dict(L_block=L, U_block=U, color_spec=spec,
+                n_colors=spec.n_colors)
+
+
 def _colored_solve(M: Preconditioner, y: torch.Tensor,
                    reverse: bool) -> torch.Tensor:
     """(L_c+D)⁻¹y or (U_c+D)⁻¹y as a multicolour sweep from zero."""
@@ -161,7 +196,10 @@ def _apply_once(M: Preconditioner, y: torch.Tensor) -> torch.Tensor:
         # reference: elemwise_div_vectors(output, input, A_D), kernels.hpp:357
         return y / M.A_D
     if M.L_block is not None or M.U_block is not None:
-        from .ops.block_trisolve import blocked_sgs, blocked_trisolve
+        from .ops.block_trisolve import (blocked_ilu0, blocked_sgs,
+                                         blocked_trisolve)
+        if pt == PrecondType.ILU0:
+            return blocked_ilu0(M.L_block, M.U_block, y)
         if pt == PrecondType.GAUSS_SEIDEL:
             return blocked_trisolve(M.L_block, y)
         if pt == PrecondType.BACKWARDS_GAUSS_SEIDEL:

@@ -80,12 +80,26 @@ def _rounded(values, dtype: torch.dtype) -> Tuple[float, ...]:
                  .to(torch.float64).tolist())
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device with no card raises,
+    naming it (the entry points never fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was asked for, but no CUDA device is "
+            "available; pass device='cpu' to run on the CPU")
+    return device
+
+
 def make_stencil(legs_coeffs, nx: int, ny: int, nz: int,
                  dtype=torch.float32, diag=None, *,
-                 device="cpu") -> DeviceStencil:
+                 device="cuda") -> DeviceStencil:
     """legs_coeffs: iterable of ((dx, dy, dz), coefficient).  Legs that
-    cannot reach inside the grid are dropped; legs are sorted z, y, x."""
+    cannot reach inside the grid are dropped; legs are sorted z, y, x.
+    The operator lives on `device`, the card unless the caller asks for
+    the CPU."""
     dtype = torch_dtype(dtype)
+    device = resolve_device(device)
     legs_coeffs = [(tuple(l), float(c)) for (l, c) in legs_coeffs
                    if (nx - abs(l[0])) > 0 and (ny - abs(l[1])) > 0
                    and (nz - abs(l[2])) > 0]
@@ -416,7 +430,7 @@ def stencil_split(A: DeviceStencil):
 def stencil_27pt_operator(nx: int, ny: int = None, nz: int = None,
                           diag: float = 26.0, off: float = -1.0,
                           dtype=torch.float32, *,
-                          device="cpu") -> DeviceStencil:
+                          device="cuda") -> DeviceStencil:
     ny = nx if ny is None else ny
     nz = nx if nz is None else nz
     legs = [((dx, dy, dz), diag if (dx, dy, dz) == (0, 0, 0) else off)
@@ -425,7 +439,7 @@ def stencil_27pt_operator(nx: int, ny: int = None, nz: int = None,
 
 
 def fdm_2d_operator(nx: int, diag: float = -4.0, off: float = 1.0,
-                    dtype=torch.float32, *, device="cpu") -> DeviceStencil:
+                    dtype=torch.float32, *, device="cuda") -> DeviceStencil:
     legs = [((0, 0, 0), diag)]
     legs += [((dx, dy, 0), off)
              for (dx, dy) in ((-1, 0), (1, 0), (0, -1), (0, 1))]
@@ -435,7 +449,7 @@ def fdm_2d_operator(nx: int, diag: float = -4.0, off: float = 1.0,
 def anderson_operator(Lx: int, Ly: int = None, Lz: int = None,
                       t: float = 1.0, ranpot: float = 0.0, seed: int = 1,
                       boundary: str = "open", dtype=torch.float32, *,
-                      device="cpu") -> DeviceStencil:
+                      device="cuda") -> DeviceStencil:
     if boundary != "open":
         raise ValueError("stencil operator supports open boundary only")
     Ly = Lx if Ly is None else Ly
@@ -456,7 +470,7 @@ _GEN_RE = re.compile(r"^(scamac|hpcg|fdm|anderson):(.*)$", re.IGNORECASE)
 
 
 def from_source_operator(source: str, dtype=torch.float32, *,
-                         device="cpu") -> DeviceStencil:
+                         device="cuda") -> DeviceStencil:
     """Matrix-free operator for a generator spec: `hpcg:NXxNYxNZ`,
     `fdm:N`, `anderson:Lx=..,...` or `scamac:Anderson,...`."""
     m = _GEN_RE.match(source)

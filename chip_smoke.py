@@ -33,10 +33,29 @@ exits non-zero:
  13. the third slice's path: the bench's gs, sgs, pcg, pgmres and
      pbicgstab rows on HPCG 128^3 in float32, counting every kernel's
      launches; then a float64 CG + SGS solve to convergence; and SGS on
-     fdm:2048 through the GS colour-step kernel.
-The second-to-last line is a JSON object describing each kernel; the last
-is {"ok": true, "device": {...}}.
+     fdm:2048 through the GS colour-step kernel;
+ 14. the superblock level kernel in factor-table mode (exact ILU(0))
+     against its plain version on every level of the L and U solves of
+     HPCG 128^3 and on a whole ILU(0) apply, both dtypes, bit for bit; at
+     384^3 one L and one U level and a whole apply; and one whole L solve
+     through torch.triangular_solve on the sparse lower triangle, the
+     library's nearest call;
+ 15. the split route's kernels (super_acc, super_parity) against their
+     plain versions on every level at 384^3, then the split and the fused
+     route on whole 384^3 applies, in turns (fused, split, split, fused);
+ 16. the same CG + ILU(0) solve on the CPU and on the card (HPCG 32^3);
+ 17. the fourth slice's path: the bench's pcg_ilu0 rows, HPCG 128^3 (1200
+     iterations) and 384^3 (100), fused and, at 384^3, split
+     (BIS_SB_ALIGNED=0), counting every kernel's launches, with set-up
+     seconds and peak memory; then a float64 CG + ILU(0) solve to
+     convergence.
+The second-to-last line is a JSON object describing each kernel: launches
+on the main paths, error against plain, kernel, plain and library times,
+and the bound (the larger of the bytes it must move over the card's
+memory rate and its operations over the float32 rate); the last is
+{"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,6 +68,19 @@ KERNEL_SPECS = (MAIN_SPEC, "fdm:2048",
 #: difference relative to Σ|y_i·v_i| (a dot of random vectors may cancel,
 #: its rounding scales with that sum): reduction order differs
 TOL = {"float32": 1e-5, "float64": 1e-12}
+#: one H100 SXM's published peaks at 700 W (NVIDIA's data sheet): HBM
+#: bytes/s, and float32 operations/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
+ILU_384 = "hpcg:384x384x384"
+
+
+def _bound(nbytes, ops):
+    """{bound_ms, bound_by}: the least time the card could take, the larger
+    of `nbytes` over its memory rate and `ops` float32 operations over its
+    peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _median_ms(fn, torch, reps=20, batch=10):
@@ -134,7 +166,49 @@ def phase_kernel_vs_plain(torch, so):
                 if (spec, dt, dots) == (MAIN_SPEC, torch.float32, ("x",)):
                     record = {"max_abs_err": abs_err, "ms": ms,
                               "plain_ms": plain_ms}
+    # the main path's call: y = A·x and y·x, f32; the library's nearest
+    # call is one cuSPARSE SpMV of the assembled matrix (no dot)
+    A = so.from_source_operator(MAIN_SPEC, torch.float32, device="cuda")
+    n = A.n_rows
+    x = torch.randn(n, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    M = _stencil_csr(torch, A)
+    y_lib = M @ x
+    lib_rel = float((y_lib - so.stencil_spmv_plain(A, x)).abs().max()
+                    / so.stencil_spmv_plain(A, x).abs().max())
+    record["library_ms"] = _median_ms(lambda: M @ x, torch)
+    nnz = int(M.values().numel())
+    record.update(_bound(2 * n * 4, 2 * nnz - n + 2 * n))
+    print(f"[library] {MAIN_SPEC} f32 torch.sparse_csr_tensor @ x "
+          f"(nnz={nnz}, SpMV only): ms={record['library_ms']:.4f} "
+          f"max_rel_err={lib_rel:.3e}; kernel bound_ms="
+          f"{record['bound_ms']:.4f} ({record['bound_by']})")
+    if not lib_rel <= TOL["float32"]:
+        raise RuntimeError("the library SpMV disagrees with plain")
     return record
+
+
+def _stencil_csr(torch, A):
+    """A DeviceStencil on the card assembled as a torch.sparse_csr_tensor
+    (rows in order, columns ascending: legs sorted by flat offset)."""
+    nx, ny, nz = A.dims
+    i = torch.arange(A.n_rows, device="cuda")
+    gx, gy, gz = i % nx, (i // nx) % ny, i // (nx * ny)
+    legs = sorted(zip(A.legs, A.coeff_values),
+                  key=lambda lc: lc[0][0] + nx * (lc[0][1] + ny * lc[0][2]))
+    cols, ok = [], []
+    for (dx, dy, dz), _c in legs:
+        ok.append((gx + dx >= 0) & (gx + dx < nx) & (gy + dy >= 0)
+                  & (gy + dy < ny) & (gz + dz >= 0) & (gz + dz < nz))
+        cols.append(i + (dx + nx * (dy + ny * dz)))
+    ok = torch.stack(ok, 1)
+    col = torch.stack(cols, 1)[ok]
+    del cols
+    val = torch.tensor([c for _l, c in legs], dtype=A.dtype,
+                       device="cuda").expand(A.n_rows, -1)[ok]
+    crow = torch.zeros(A.n_rows + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = ok.sum(1).cumsum(0)
+    return torch.sparse_csr_tensor(crow, col, val, (A.n_rows, A.n_rows))
 
 
 #: the 128^3 GMRES(50) basis: rows of n entries, and the rows it checks
@@ -208,12 +282,27 @@ def phase_basis_vs_plain(torch, gb):
                          f"plain_ms={t['cw_plain']:.4f} "
                          f"GB/s={cw_bytes / (t['cw'] * 1e6):.0f}")
                 if dt == torch.bfloat16:
+                    # the library's nearest calls, in the basis dtype: one
+                    # matmul of rows 0..j with [w, vc]; one addmv w − Vᵀh,
+                    # which leaves out the row write, the float32 vnext and
+                    # the norm
+                    W = torch.stack([w, vc], 1).to(dt)
+                    hb, wb = ht[:j + 1].to(dt), w.to(dt)
+                    lib_pg = _median_ms(lambda: torch.matmul(V[:j + 1], W),
+                                        torch)
+                    lib_cw = _median_ms(lambda: torch.addmv(
+                        wb, V[:j + 1].t(), hb, alpha=-1), torch)
+                    line += (f" library: matmul_ms={lib_pg:.4f} "
+                             f"addmv_ms={lib_cw:.4f}")
                     records["project_gram"] = {
                         "max_abs_err": pg_abs, "ms": t["pg"],
-                        "plain_ms": t["pg_plain"]}
+                        "plain_ms": t["pg_plain"], "library_ms": lib_pg,
+                        **_bound(pg_bytes, 4 * (j + 1) * n)}
                     records["correct_write"] = {
                         "max_abs_err": float((vk - vp).abs().max()),
-                        "ms": t["cw"], "plain_ms": t["cw_plain"]}
+                        "ms": t["cw"], "plain_ms": t["cw_plain"],
+                        "library_ms": lib_cw,
+                        **_bound(cw_bytes, 2 * (j + 1) * n + 2 * n)}
             print(line)
         del V, Vk, Vp
     return records
@@ -461,8 +550,14 @@ def phase_gs_step_vs_plain(torch, bt):
                 raise RuntimeError(f"GS step kernel disagrees with plain "
                                    f"beyond {tol}: {spec} {dt}")
             if (spec, dt) == ("fdm:2048", torch.float32):
+                # out of place: x and x' whole, rhs and dinv on colour 0's
+                # rows; per such row its legs' products and sums, then
+                # rhs − s, ·dinv and + x
+                n, n_c = A.n_rows, A.n_rows // cs.n_colors
                 record = {"max_abs_err": worst_abs, "ms": ms,
-                          "plain_ms": plain_ms}
+                          "plain_ms": plain_ms, "library_ms": None,
+                          **_bound(4 * (2 * n + 2 * n_c),
+                                   n_c * (2 * len(A.legs) + 2))}
     return record
 
 
@@ -523,8 +618,102 @@ def phase_super_level_vs_plain(torch, bt):
         if dt == torch.float32:
             record = {"max_abs_err": worst_abs,
                       "ms": statistics.mean(ms),
-                      "plain_ms": statistics.mean(plain_ms)}
+                      "plain_ms": statistics.mean(plain_ms),
+                      "library_ms": None,
+                      **_mean_bound([_level_work(B, li, 4) for B in (L, U)
+                                     for li in range(len(B.levels))])}
     return record
+
+
+def _axis_count(n, s, p, d):
+    """Rows a ≡ p (mod s) of an axis of n points whose neighbour a + d lies
+    inside."""
+    return sum(1 for a in range(p, n, s) if 0 <= a + d < n)
+
+
+def _level_work(B, li, itemsize, part="level", p=None):
+    """(bytes, operations) that one level of B must move and do: `part`
+    "level" (the fused kernel), "acc" (the split route's acc step) or
+    "parity" (its step for x-parity p).  Bytes: each input read once (y or
+    acc on the level's rows, x on the source superblocks' rows or the self
+    legs' source columns, the factor-table values of _table_values) and
+    each output written once; operations: a product and a difference per
+    in-grid leg, and the pivot multiply."""
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    sb, cross, selfs = B.levels[li]
+    py, pz = sb % sy, sb // sy
+    lines = (ny // sy) * (nz // sz)
+    legs = B.table_cross[li] if B.is_table else B.const_cross[li]
+    cross_terms = sum((nx - abs(dx)) * _axis_count(ny, sy, py, dy)
+                      * _axis_count(nz, sz, pz, dz)
+                      for _f, dx, dy, dz in legs)
+    n_src = len({src for src, _d in cross})
+    scaled = not B.is_table or B.table_dinv is not None
+    parities = range(sx) if part == "level" else (() if part == "acc"
+                                                  else (p,))
+    self_terms, src_cols, rows = 0, set(), 0
+    self_rows = {dx: [] for dx in selfs}
+    for x in range(nx):
+        if x % sx not in parities:
+            continue
+        rows += lines
+        for dx in selfs:
+            ps = (x + dx) % sx
+            if 0 <= x + dx < nx and (ps > x % sx if B.upper
+                                     else ps < x % sx):
+                self_terms += lines
+                src_cols.add(x + dx)
+                self_rows[dx].append(x)
+    table = (_table_values(B, li, self_rows, parities, part != "parity")
+             if B.is_table else 0)
+    if part == "acc":
+        nbytes = B.m * (2 + n_src) + table
+        ops = 2 * cross_terms
+    elif part == "parity":
+        nbytes = 2 * rows + lines * len(src_cols) + table
+        ops = 2 * self_terms + (rows if scaled else 0)
+    else:
+        nbytes = B.m * (2 + n_src) + table
+        ops = 2 * (cross_terms + self_terms) + (B.m if scaled else 0)
+    return nbytes * itemsize, ops
+
+
+def _table_values(B, li, self_rows, parities, cross):
+    """The factor-table values one part of level li reads: for each self
+    leg dx, its table row at the distinct classes of self_rows[dx] (the x
+    of the rows it updates); with `cross`, each cross leg's row at the
+    distinct classes of the level's rows whose neighbour lies in the grid;
+    and U's inverse pivot at the classes of the rows of `parities`.  Class
+    and grid test both factor per axis, so each count is a product of
+    three axis counts."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    sb = B.levels[li][0]
+    cx, cy, cz = (c.tolist() for c in
+                  block_trisolve._axis_classes(B, li, "cpu"))
+
+    def distinct(cls, coords, n, d):
+        return len({cls[i] for i, a in enumerate(coords) if 0 <= a + d < n})
+
+    yz = len(set(cy)) * len(set(cz))
+    values = yz * sum(len({cx[x] for x in xs}) for xs in self_rows.values())
+    if B.table_dinv is not None:
+        values += yz * len({cx[x] for x in range(nx) if x % sx in parities})
+    if cross:
+        ys, zs = range(sb % sy, ny, sy), range(sb // sy, nz, sz)
+        values += sum(distinct(cx, range(nx), nx, dx)
+                      * distinct(cy, ys, ny, dy) * distinct(cz, zs, nz, dz)
+                      for _f, dx, dy, dz in B.table_cross[li])
+    return values
+
+
+def _mean_bound(works):
+    """The mean bound of several calls' (bytes, operations), bound by what
+    bounds most of them."""
+    bounds = [_bound(b, o) for b, o in works]
+    by = [b["bound_by"] for b in bounds]
+    return {"bound_ms": statistics.mean(b["bound_ms"] for b in bounds),
+            "bound_by": max(set(by), key=by.count)}
 
 
 def phase_cpu_vs_card_slice3(torch, bt):
@@ -566,15 +755,21 @@ SLICE3_ROWS = (("gs", "GAUSS_SEIDEL", "NONE", 1200, {}),
 
 
 def _counters(so, gb, bk, reset=False):
-    kernels = {"stencil_spmv": so.stencil_spmv,
-               "stencil_gs_color_step": so.stencil_gs_color_step,
-               "project_gram": gb.project_gram,
-               "correct_write": gb.correct_write,
-               "super_level": bk.super_level}
+    """Every kernel's launch count (the factor-table level's is
+    super_level.table_launches); `reset` sets them all to 0 first."""
+    kernels = {"stencil_spmv": (so.stencil_spmv, "launches"),
+               "stencil_gs_color_step": (so.stencil_gs_color_step,
+                                         "launches"),
+               "project_gram": (gb.project_gram, "launches"),
+               "correct_write": (gb.correct_write, "launches"),
+               "super_level": (bk.super_level, "launches"),
+               "super_level_table": (bk.super_level, "table_launches"),
+               "super_acc": (bk.super_acc, "launches"),
+               "super_parity": (bk.super_parity, "launches")}
     if reset:
-        for fn in kernels.values():
-            fn.launches = 0
-    return {name: fn.launches for name, fn in kernels.items()}
+        for fn, attr in kernels.values():
+            setattr(fn, attr, 0)
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
 
 
 def phase_slice3_path(torch, bt):
@@ -654,6 +849,361 @@ def phase_slice3_path(torch, bt):
     return super_launches, counts["stencil_gs_color_step"]
 
 
+def _ilu0_pair(torch, bt, spec, dt):
+    """(A, L, U, set-up seconds) of the factor-table ILU(0) pair on the
+    card."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    A = bt.stencil_op.from_source_operator(spec, dt, device="cuda")
+    t0 = time.perf_counter()
+    L, U = bk.build_superblock_ilu0_pair_stencil(A, spec_for_device(A),
+                                                 dtype=dt)
+    torch.cuda.synchronize()
+    return A, L, U, time.perf_counter() - t0
+
+
+def _plain_ilu0(bk, L, U, y):
+    """A whole ILU(0) apply through the plain level, on y's device."""
+    x = y.new_empty(y.shape)
+    for li in range(len(L.levels)):
+        bk.super_level_plain(L, li, y, x)
+    for li in range(len(U.levels)):
+        bk.super_level_plain(U, li, x, x)
+    return x
+
+
+def _split_pair(L, U):
+    """The same pair on the split route (what BIS_SB_ALIGNED=0 builds where
+    128 % nx != 0)."""
+    return (dataclasses.replace(L, fused=False, _args={}),
+            dataclasses.replace(U, fused=False, _args={}))
+
+
+def _check_levels(torch, bk, label, B, y, x, levels, timed=True):
+    """super_level against super_level_plain on the given levels of B, bit
+    for bit; returns ([kernel ms], [plain ms], worst abs error)."""
+    ms, plain_ms, worst = [], [], 0.0
+    for li in levels:
+        before = bk.super_level.table_launches
+        xk, xp = x.clone(), x.clone()
+        bk.super_level(B, li, y, xk)
+        bk.super_level_plain(B, li, y, xp)
+        torch.cuda.synchronize()
+        if bk.super_level.table_launches != before + 1:
+            raise RuntimeError("the factor-table launch count did not grow")
+        equal = torch.equal(xk, xp)
+        worst = max(worst, float((xk - xp).abs().max()))
+        line = (f"[ilu0-level] {label} {'U' if B.upper else 'L'} level {li} "
+                f"(superblock {B.levels[li][0]}, {len(B.levels[li][1])} "
+                f"cross legs) bit_equal={equal}")
+        if timed:
+            ms.append(_median_ms(lambda: bk.super_level(B, li, y, xk),
+                                 torch))
+            plain_ms.append(_median_ms(
+                lambda: bk.super_level_plain(B, li, y, xp), torch, reps=3,
+                batch=3))
+            line += f" kernel_ms={ms[-1]:.4f} plain_ms={plain_ms[-1]:.4f}"
+        print(line)
+        if not equal:
+            raise RuntimeError(f"factor-table level disagrees with plain: "
+                               f"{line}")
+    return ms, plain_ms, worst
+
+
+def _ilu_lower_csr(torch, bk, A, L):
+    """L's unit lower triangle in the colour-sorted ordering as a
+    torch.sparse_csr_tensor, and the permutation (new → old): entry (i, j)
+    of a leg whose source colour is lower, valued from the class table."""
+    nx, ny, nz, sx, sy, sz = L.spec_params
+    n = A.n_rows
+    i = torch.arange(n, device="cuda")
+    gx, gy, gz = i % nx, (i // nx) % ny, i // (nx * ny)
+    color = gx % sx + sx * (gy % sy + sy * (gz % sz))
+    perm = torch.sort(color, stable=True).indices
+    inv = torch.empty_like(perm)
+    inv[perm] = i
+    base = torch.empty(n, dtype=torch.int64, device="cuda")
+    for li in range(len(L.levels)):
+        rows = i.view(nz, ny, nx)[bk._rows(L, li)[5]]
+        base[rows.reshape(-1)] = bk._class_base(L, li, "cuda").reshape(-1)
+    h = L.radius // (L.S * sx)
+    w = 2 * h + 1
+    r_all, c_all, v_all = [inv], [inv], [torch.ones(n, dtype=L.dtype,
+                                                    device="cuda")]
+    for (dx, dy, dz) in A.legs:
+        ok = ((gx + dx >= 0) & (gx + dx < nx) & (gy + dy >= 0)
+              & (gy + dy < ny) & (gz + dz >= 0) & (gz + dz < nz))
+        j = (i + (dx + nx * (dy + ny * dz))).clamp(0, n - 1)
+        ok &= color[j] < color
+        kd = (dx + h) + w * ((dy + h) + w * (dz + h))
+        r_all.append(inv[ok])
+        c_all.append(inv[j[ok]])
+        v_all.append(L.table[kd][base[ok]])
+    r, c, v = torch.cat(r_all), torch.cat(c_all), torch.cat(v_all)
+    order = torch.argsort(r * n + c)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.bincount(r, minlength=n).cumsum(0)
+    return torch.sparse_csr_tensor(crow, c[order], v[order], (n, n)), perm
+
+
+def phase_ilu0_level_vs_plain(torch, bt):
+    """The factor-table level kernel against its plain version, bit for
+    bit: every level of the L and U solves of HPCG 128^3 and a whole
+    blocked_ilu0, f32 and f64, every level timed; at 384^3 f32 the last L
+    and the last U level (the most cross legs) and a whole apply, timed.
+    Then one whole L solve of 128^3 through torch.triangular_solve (the
+    library's sparse triangular solve) against blocked_trisolve.  Returns
+    the 128^3 f32 record (ms: the mean level) and the two L solves' ms."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    record = whole_l = None
+    for spec, dt in ((MAIN_SPEC, torch.float32), (MAIN_SPEC, torch.float64),
+                     (ILU_384, torch.float32)):
+        A, L, U, setup_s = _ilu0_pair(torch, bt, spec, dt)
+        g = torch.Generator(device="cuda").manual_seed(4)
+        y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        x = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        label = f"{spec} {str(dt)[6:]}"
+        print(f"[ilu0-level] {label}: pair built in {setup_s:.3f} s "
+              f"(prototype {L.proto}, radius {L.radius}, table "
+              f"{tuple(L.table.shape)})")
+        ms, plain_ms, worst = [], [], 0.0
+        for B in (L, U):
+            levels = (range(len(B.levels)) if spec == MAIN_SPEC
+                      else (len(B.levels) - 1,))
+            k, p, e = _check_levels(torch, bk, label, B, y, x, levels)
+            ms += k
+            plain_ms += p
+            worst = max(worst, e)
+        zk = bk.blocked_ilu0(L, U, y)
+        zp = _plain_ilu0(bk, L, U, y)
+        torch.cuda.synchronize()
+        apply_ms = _median_ms(lambda: bk.blocked_ilu0(L, U, y), torch)
+        works = [_level_work(B, li, A.coeffs.element_size())
+                 for B in (L, U) for li in range(len(B.levels))]
+        bound = _bound(sum(b for b, _o in works), sum(o for _b, o in works))
+        print(f"[ilu0-level] {label} blocked_ilu0 (2x{L.S} levels) against "
+              f"the plain levels: bit_equal={torch.equal(zk, zp)} "
+              f"ms={apply_ms:.4f} bound_ms={bound['bound_ms']:.4f} "
+              f"({bound['bound_by']}, at the float32 rate)")
+        if not torch.equal(zk, zp):
+            raise RuntimeError(f"{label}: whole ILU(0) apply disagrees")
+        if spec == MAIN_SPEC and dt == torch.float32:
+            record = {"max_abs_err": worst, "ms": statistics.mean(ms),
+                      "plain_ms": statistics.mean(plain_ms),
+                      "library_ms": None,
+                      **_mean_bound([_level_work(B, li, 4) for B in (L, U)
+                                     for li in range(len(B.levels))])}
+            M, perm = _ilu_lower_csr(torch, bk, A, L)
+            ref = bk.blocked_trisolve(L, y)[perm]
+            yp = y[perm].unsqueeze(1).contiguous()
+            sol = torch.triangular_solve(yp, M, upper=False).solution
+            rel = float((sol[:, 0] - ref).abs().max() / ref.abs().max())
+            lib_ms = _median_ms(
+                lambda: torch.triangular_solve(yp, M, upper=False), torch,
+                reps=5, batch=2)
+            own_ms = _median_ms(lambda: bk.blocked_trisolve(L, y), torch)
+            whole_l = {"library_ms": lib_ms, "blocked_trisolve_ms": own_ms}
+            print(f"[library] {label} one whole L solve (nnz "
+                  f"{M.values().numel()}): torch.triangular_solve on the "
+                  f"colour-sorted sparse CSR triangle ms={lib_ms:.4f} "
+                  f"max_rel_err={rel:.3e}; blocked_trisolve "
+                  f"({L.S} level launches) ms={own_ms:.4f}")
+            if not rel <= TOL["float32"]:
+                raise RuntimeError("the library's L solve disagrees")
+            del M
+        del A, L, U, x, y, zk, zp
+        torch.cuda.empty_cache()
+    return record, whole_l
+
+
+def phase_split_vs_plain(torch, bt):
+    """super_acc and super_parity against their plain versions on every
+    level of the 384^3 f32 pair, bit for bit, each timed; then whole
+    applies on the fused and the split route in turns (fused, split,
+    split, fused), equal bit for bit.  Returns the two records and the
+    A/B times."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    dt = torch.float32
+    A, L, U, _s = _ilu0_pair(torch, bt, ILU_384, dt)
+    Ls, Us = _split_pair(L, U)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+    x = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+    acc_k = torch.empty(L.m, dtype=dt, device="cuda")
+    acc_p = torch.empty_like(acc_k)
+    t = {"acc": [], "acc_plain": [], "par": [], "par_plain": []}
+    work = {"acc": [], "par": []}
+    worst = {"acc": 0.0, "par": 0.0}
+    for B in (Ls, Us):
+        for li, (_sb, cross, _s2) in enumerate(B.levels):
+            if cross:
+                before = bk.super_acc.launches
+                bk.super_acc(B, li, y, x, acc_k)
+                bk.super_acc_plain(B, li, y, x, acc_p)
+                torch.cuda.synchronize()
+                if bk.super_acc.launches != before + 1:
+                    raise RuntimeError("the acc launch count did not grow")
+                if not torch.equal(acc_k, acc_p):
+                    raise RuntimeError(f"super_acc disagrees with plain on "
+                                       f"level {li}")
+                t["acc"].append(_median_ms(
+                    lambda: bk.super_acc(B, li, y, x, acc_k), torch))
+                t["acc_plain"].append(_median_ms(
+                    lambda: bk.super_acc_plain(B, li, y, x, acc_p), torch,
+                    reps=3, batch=3))
+                work["acc"].append(_level_work(B, li, 4, "acc"))
+            a = acc_k if cross else None
+            for p in bk._parity_order(B):
+                xk, xp = x.clone(), x.clone()
+                before = bk.super_parity.launches
+                bk.super_parity(B, li, p, y, a, xk)
+                bk.super_parity_plain(B, li, p, y, a, xp)
+                torch.cuda.synchronize()
+                if bk.super_parity.launches != before + 1:
+                    raise RuntimeError("the parity launch count did not "
+                                       "grow")
+                if not torch.equal(xk, xp):
+                    raise RuntimeError(f"super_parity disagrees with plain "
+                                       f"on level {li} parity {p}")
+                t["par"].append(_median_ms(
+                    lambda: bk.super_parity(B, li, p, y, a, xk), torch))
+                t["par_plain"].append(_median_ms(
+                    lambda: bk.super_parity_plain(B, li, p, y, a, xp),
+                    torch, reps=3, batch=3))
+                work["par"].append(_level_work(B, li, 4, "parity", p))
+            print(f"[ilu0-split] {ILU_384} f32 {'U' if B.upper else 'L'} "
+                  f"level {li}: super_acc and super_parity bit_equal=True "
+                  f"acc_ms={t['acc'][-1] if cross else 0:.4f} "
+                  f"parity_ms={t['par'][-2]:.4f},{t['par'][-1]:.4f}")
+    ab = {"fused": [], "split": []}
+    out = {}
+    for route in ("fused", "split", "split", "fused"):
+        pair = (L, U) if route == "fused" else (Ls, Us)
+        out[route] = bk.blocked_ilu0(*pair, y)
+        ab[route].append(_median_ms(lambda: bk.blocked_ilu0(*pair, y),
+                                    torch))
+    equal = torch.equal(out["fused"], out["split"])
+    print(f"[ilu0-split] {ILU_384} f32 whole apply A/B in turns: fused_ms="
+          f"{ab['fused']} split_ms={ab['split']} bit_equal={equal}")
+    if not equal:
+        raise RuntimeError("split and fused 384^3 applies differ")
+    records = {}
+    for name, key in (("super_acc", "acc"), ("super_parity", "par")):
+        records[name] = {"max_abs_err": 0.0,
+                         "ms": statistics.mean(t[key]),
+                         "plain_ms": statistics.mean(t[key + "_plain"]),
+                         "library_ms": None, **_mean_bound(work[key])}
+    del A, L, U, Ls, Us, x, y, acc_k, acc_p, out
+    torch.cuda.empty_cache()
+    return records, ab
+
+
+def phase_cpu_vs_card_ilu0(torch, bt):
+    """f64 CG + ILU(0) on HPCG 32^3 on the CPU and on the card: the same
+    iteration count, histories to rtol 1e-8."""
+    import numpy as np
+    S, P = bt.SolverType, bt.PrecondType
+    c, g = (bt.solve(_setup(torch, bt, "hpcg:32x32x32", torch.float64, dev,
+                            S.CONJUGATE_GRADIENT, preconditioner=P.ILU0,
+                            tolerance=1e-10, max_iters=1000))
+            for dev in ("cpu", "cuda"))
+    print(f"[cpu-vs-card] hpcg:32x32x32 f64 CG + ILU(0): iters cpu="
+          f"{c.iter_count} card={g.iter_count} final cpu="
+          f"{c.final_residual_norm:.6e} card={g.final_residual_norm:.6e}")
+    if c.iter_count != g.iter_count or not (c.converged and g.converged):
+        raise RuntimeError("CG + ILU(0): CPU and card solves differ")
+    np.testing.assert_allclose(g.residual_norms[:-1], c.residual_norms[:-1],
+                               rtol=1e-8)
+
+
+#: the bench's exact-ILU(0) rows (bench.py:554-559, 591-595; iterations
+#: DEFAULT_ITERS["pcg"], bench.py:83-86): name, spec, iterations
+SLICE4_ROWS = (("pcg_ilu0", MAIN_SPEC, 1200),
+               ("pcg_ilu0@384", ILU_384, 100))
+
+
+def phase_slice4_path(torch, bt):
+    """The bench's pcg_ilu0 rows, f32, fused harness, tolerance 0, b = 2,
+    x0 = 1, each after a warm-up solve with every counter set to 0 just
+    before the timed solve and read just after: 8 factor-table level
+    launches per preconditioner apply (one per iteration and the initial
+    one); the 384^3 row again on the split route (BIS_SB_ALIGNED=0, which
+    the package reads at import: set here on the module).  Set-up seconds
+    and peak memory per row.  Then float64 CG + ILU(0) on 128^3 to 1e-8.
+    Returns each row's launches of the factor-table level and of the split
+    pair, by row name."""
+    import math
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    so = bt.stencil_op
+    S, P = bt.SolverType, bt.PrecondType
+    launches = {}
+    rows = [(name, spec, iters, False) for name, spec, iters in SLICE4_ROWS]
+    rows.append(("pcg_ilu0@384 split", ILU_384, 100, True))
+    for name, spec, iters, split in rows:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bk.NO_ALIGNED = split
+        try:
+            t0 = time.perf_counter()
+            setup = _setup(torch, bt, spec, torch.float32, "cuda",
+                           S.CONJUGATE_GRADIENT, preconditioner=P.ILU0,
+                           max_iters=iters, tolerance=0.0,
+                           breakdown_stall=True)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+        finally:
+            bk.NO_ALIGNED = False
+        L, U = setup.M.L_block, setup.M.U_block
+        if not (L.is_table and L.fused != split and U.fused != split):
+            raise RuntimeError(f"{name} did not take the factor-table "
+                               f"{'split' if split else 'fused'} route")
+        solver = make_method(setup)
+        bt.solve(setup, method=solver)                # warm-up solve
+        _counters(so, gb, bk, reset=True)
+        res = bt.solve(setup, method=solver)
+        counts = _counters(so, gb, bk)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
+        applies = res.iter_count + 1
+        print(f"[slice4] {spec} f32 {name} fused harness: "
+              f"iters={res.iter_count} ms/iter={ms:.5f} setup_s={setup_s:.3f} "
+              f"peak_GB={peak_gb:.3f} r0={res.residual_norms[0]:.6e} "
+              f"final_explicit_f64={res.final_residual_norm:.6e} "
+              f"launches={counts}")
+        ok = (res.iter_count == iters
+              and math.isfinite(res.final_residual_norm)
+              and bool(torch.isfinite(res.x_star).all())
+              and counts["stencil_spmv"] >= res.iter_count
+              and counts["super_level"] == 0)
+        if split:
+            n_acc = sum(1 for B in (L, U) for lv in B.levels if lv[1])
+            ok = ok and counts["super_level_table"] == 0 and (
+                counts["super_acc"], counts["super_parity"]) == (
+                n_acc * applies, 2 * L.S * L.sx * applies)
+        else:
+            ok = ok and counts["super_level_table"] == 2 * L.S * applies and (
+                counts["super_acc"] == counts["super_parity"] == 0)
+        if not ok:
+            raise RuntimeError(f"slice-4 {name} run failed its checks")
+        launches[name] = {k: counts[k] for k in
+                          ("super_level_table", "super_acc", "super_parity")}
+        del setup, solver, res, L, U
+
+    res = bt.solve(_setup(torch, bt, MAIN_SPEC, torch.float64, "cuda",
+                          S.CONJUGATE_GRADIENT, preconditioner=P.ILU0,
+                          tolerance=1e-8, max_iters=1000))
+    r0 = res.residual_norms[0]
+    print(f"[slice4] {MAIN_SPEC} f64 CG + ILU(0) to tol 1e-8: "
+          f"iters={res.iter_count} converged={res.converged} "
+          f"final_explicit/r0={res.final_residual_norm / r0:.3e} "
+          f"ms/iter={1e3 * res.solve_seconds / res.iter_count:.5f}")
+    if not (res.converged and res.final_residual_norm <= 10 * 1e-8 * r0):
+        raise RuntimeError("f64 CG + ILU(0) solve did not converge")
+    return launches
+
+
 def main():
     import torch
     name = phase_device(torch)
@@ -671,6 +1221,15 @@ def main():
     level_record = phase_super_level_vs_plain(torch, bt)
     phase_cpu_vs_card_slice3(torch, bt)
     super_launches, gs_launches = phase_slice3_path(torch, bt)
+    table_record, whole_l = phase_ilu0_level_vs_plain(torch, bt)
+    split_records, ab = phase_split_vs_plain(torch, bt)
+    phase_cpu_vs_card_ilu0(torch, bt)
+    slice4_launches = phase_slice4_path(torch, bt)
+    print(f"[summary] whole L solve at {MAIN_SPEC} f32: "
+          f"torch.triangular_solve {whole_l['library_ms']:.4f} ms, "
+          f"blocked_trisolve {whole_l['blocked_trisolve_ms']:.4f} ms; "
+          f"{ILU_384} f32 ILU(0) apply: fused {ab['fused']} ms, split "
+          f"{ab['split']} ms (in turns)")
     src = "basic_iterative_solvers_tpu_torch/csrc/"
     kernels = [{"name": "stencil_spmv", "route": "cuda",
                 "source": src + "stencil_spmv.cu",
@@ -692,7 +1251,33 @@ def main():
         "source": src + "block_trisolve.cu",
         "replaces": "basic_iterative_solvers_tpu/ops/block_trisolve.py:1611",
         "launches": super_launches, **level_record})
-    print(json.dumps({"kernels": kernels}))
+    # slice 4's kernels: `launches` is the count of the row that is the
+    # kernel's main path (pcg_ilu0 at 128^3; the split 384^3 row for the
+    # split pair), and `launches_by_row` each row's own count
+    for kernel, line, main_row, record in (
+            ("super_level_table", 1611, "pcg_ilu0", table_record),
+            ("super_acc", 1999, "pcg_ilu0@384 split",
+             split_records["super_acc"]),
+            ("super_parity", 2069, "pcg_ilu0@384 split",
+             split_records["super_parity"])):
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": src + "block_trisolve.cu",
+            "replaces": ("basic_iterative_solvers_tpu/ops/block_trisolve.py:"
+                         f"{line}"),
+            "launches": slice4_launches[main_row][kernel],
+            "launches_by_row": {row: counts[kernel] for row, counts
+                                in slice4_launches.items() if counts[kernel]},
+            **record})
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for k in kernels:
+        if not set(keys) <= set(k) or not k["launches"]:
+            raise RuntimeError(f"kernel record incomplete or never launched "
+                               f"on a main path: {k}")
+    print(json.dumps({"kernels": [
+        {key: k[key] for key in keys + ("launches_by_row",) if key in k}
+        for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

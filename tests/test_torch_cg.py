@@ -16,6 +16,10 @@ import basic_iterative_solvers_tpu as bis
 import basic_iterative_solvers_tpu_torch as bt
 from basic_iterative_solvers_tpu_torch.solvers import make_method
 
+#: the port's entry points run on the card unless asked; these tests
+#: run on the CPU
+CPU = "cpu"
+
 HARNESSES = ["host", "fused"]
 TORCH_DTYPE = {np.float64: torch.float64, np.float32: torch.float32}
 
@@ -27,7 +31,8 @@ def _solve_both(spec, harness, dtype=np.float64, b=2.0, x0=1.0, **cfg):
     rj = bis.solve(bis.preprocessing_device(
         Aj, bis.SolverConfig(dtype=dtype, harness=harness, **cfg),
         b=bv, x0=xv))
-    At = bt.stencil_op.from_source_operator(spec, TORCH_DTYPE[dtype])
+    At = bt.stencil_op.from_source_operator(spec, TORCH_DTYPE[dtype],
+                                            device=CPU)
     rt = bt.solve(bt.preprocessing_device(
         At, bt.SolverConfig(dtype=dtype, harness=harness, **cfg),
         b=torch.from_numpy(bv), x0=torch.from_numpy(xv)))
@@ -109,7 +114,7 @@ def test_cg_fdm16_golden(harness):
     res = bt.solve_system("fdm:16", "cg", harness=harness,
                           tolerance=d["tol"], max_iters=d["max_iters"],
                           b_val=d["b_val"], init_x_val=d["init_x_val"],
-                          res_check_len=d["res_check_len"])
+                          res_check_len=d["res_check_len"], device=CPU)
     assert res.iter_count == g["iterations"] == 34
     assert res.converged
     golden = np.asarray(g["norms"])
@@ -122,7 +127,8 @@ def test_cg_general_branch_matches_identity(harness):
     """The preconditioned branch (ρ = (r, z), breakdown guard on) with
     M = I takes the same steps as the identity specialization; ρ comes from
     a dot instead of the carried norm, so rounding differs: rtol 1e-8."""
-    A = bt.stencil_op.from_source_operator("hpcg:16x16x16", torch.float64)
+    A = bt.stencil_op.from_source_operator("hpcg:16x16x16", torch.float64,
+                                           device=CPU)
     cfg = bt.SolverConfig(harness=harness, tolerance=1e-10,
                           breakdown_stall=True)
     setup = bt.preprocessing_device(A, cfg)
@@ -141,7 +147,7 @@ def test_fused_stop_leaves_state_unchanged():
     """A fused solve that converges inside a check chunk returns the
     iterate of its stopping iteration: the gated steps after it change
     nothing (the host harness stops exactly there)."""
-    A = bt.stencil_op.from_source_operator("fdm:16", torch.float64)
+    A = bt.stencil_op.from_source_operator("fdm:16", torch.float64, device=CPU)
     results = [bt.solve(bt.preprocessing_device(
         A, bt.SolverConfig(harness=h, tolerance=1e-10))) for h in HARNESSES]
     assert results[0].iter_count == results[1].iter_count == 31

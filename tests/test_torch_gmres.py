@@ -20,6 +20,10 @@ from basic_iterative_solvers_tpu_torch.ops import gmres_basis
 from basic_iterative_solvers_tpu_torch.solvers import make_method
 from basic_iterative_solvers_tpu_torch.solvers.gmres import GMRESMethod
 
+#: the port's entry points run on the card unless asked; these tests
+#: run on the CPU
+CPU = "cpu"
+
 HARNESSES = ["host", "fused"]
 #: fused mode's convergence cases (tests/test_pallas_interpret.py's)
 FUSED_KW = dict(method="gm", tolerance=1e-5, max_iters=300, restart_length=8)
@@ -33,7 +37,7 @@ def _solve_both(spec, harness, dtype=np.float64, **cfg):
         method=bis.SolverType.GMRES, dtype=dtype, harness=harness, **cfg),
         b=bv, x0=xv))
     tdt = torch.float64 if dtype == np.float64 else torch.float32
-    At = bt.stencil_op.from_source_operator(spec, tdt)
+    At = bt.stencil_op.from_source_operator(spec, tdt, device=CPU)
     rt = bt.solve(bt.preprocessing_device(At, bt.SolverConfig(
         method=bt.SolverType.GMRES, dtype=tdt, harness=harness, **cfg),
         b=torch.from_numpy(bv), x0=torch.from_numpy(xv)))
@@ -97,7 +101,8 @@ def test_fused_mode_f64_warns_and_runs_lowsync():
 
 @pytest.mark.parametrize("basis", ["float64", "float16"])
 def test_fused_mode_refuses_other_basis_dtypes(basis):
-    A = bt.stencil_op.from_source_operator("hpcg:8x8x8", torch.float32)
+    A = bt.stencil_op.from_source_operator("hpcg:8x8x8", torch.float32,
+                                           device=CPU)
     setup = bt.preprocessing_device(A, bt.SolverConfig(
         method=bt.SolverType.GMRES, dtype=torch.float32,
         orthog_mode="fused", gmres_basis_dtype=basis))
@@ -115,9 +120,11 @@ def test_fused_mode_matches_lowsync():
     gmres_basis.project_gram.launches = 0
     gmres_basis.correct_write.launches = 0
     rf = bt.solve_system("hpcg:16x16x16", orthog_mode="fused",
-                         dtype=torch.float32, harness="fused", **FUSED_KW)
+                         dtype=torch.float32, harness="fused", **FUSED_KW,
+                         device=CPU)
     rl = bt.solve_system("hpcg:16x16x16", orthog_mode="lowsync",
-                         dtype=torch.float32, harness="fused", **FUSED_KW)
+                         dtype=torch.float32, harness="fused", **FUSED_KW,
+                         device=CPU)
     rj = bis.solve_system("hpcg:16x16x16", orthog_mode="lowsync",
                           dtype=np.float32, harness="fused", **FUSED_KW)
     assert rf.converged and rl.converged and rj.converged
@@ -140,7 +147,8 @@ def test_fused_mode_matches_jax_fused_kernels():
     finally:
         pallas_env.INTERPRET = False
     rt = bt.solve_system("hpcg:16x16x16", orthog_mode="fused",
-                         dtype=torch.float32, harness="fused", **FUSED_KW)
+                         dtype=torch.float32, harness="fused", **FUSED_KW,
+                         device=CPU)
     assert rj.converged and rt.converged
     assert abs(rt.iter_count - rj.iter_count) <= 1
     assert rt.gmres_restart_count == rj.gmres_restart_count
@@ -151,12 +159,12 @@ def test_fused_mode_bf16_basis():
     the per-iteration orthonormality and triangularity checks pass on the
     host harness (diag(s)·V is unit to storage precision)."""
     kw = dict(orthog_mode="fused", dtype=torch.float32, **FUSED_KW)
-    r32 = bt.solve_system("hpcg:16x16x16", harness="fused", **kw)
+    r32 = bt.solve_system("hpcg:16x16x16", harness="fused", **kw, device=CPU)
     rbf = bt.solve_system("hpcg:16x16x16", harness="fused",
-                          gmres_basis_dtype="bfloat16", **kw)
+                          gmres_basis_dtype="bfloat16", **kw, device=CPU)
     rdbg = bt.solve_system("hpcg:16x16x16", harness="host",
                            gmres_basis_dtype="bfloat16", debug_checks=True,
-                           **kw)
+                           **kw, device=CPU)
     assert r32.converged and rbf.converged and rdbg.converged
     assert abs(rbf.iter_count - r32.iter_count) <= 3
     assert rdbg.iter_count == rbf.iter_count
@@ -169,7 +177,7 @@ def test_gated_steps_change_nothing_explicit_x_reads(mode, dtype, basis):
     """Steps past the stop leave x, H, Q, g, G, s and the rows 0..n_it of V
     unchanged and the step counter where it was; rows beyond n_it stay
     finite, since explicit_x multiplies them by 0."""
-    A = bt.stencil_op.from_source_operator("hpcg:8x8x8", dtype)
+    A = bt.stencil_op.from_source_operator("hpcg:8x8x8", dtype, device=CPU)
     method = make_method(bt.preprocessing_device(A, bt.SolverConfig(
         method=bt.SolverType.GMRES, dtype=dtype, orthog_mode=mode,
         gmres_basis_dtype=basis, restart_length=10)))
@@ -206,7 +214,8 @@ def test_fused_stop_matches_host(case):
     harness keeps its history in the solve dtype, as the JAX package's
     does, so the appended float64 final residual is compared on its own.)"""
     spec = "hpcg:16x16x16" if case["dtype"] == torch.float32 else "fdm:16"
-    rh, rf = (bt.solve_system(spec, harness=h, **case) for h in HARNESSES)
+    rh, rf = (bt.solve_system(spec, harness=h, **case,
+                              device=CPU) for h in HARNESSES)
     assert rh.converged and rf.converged
     assert rh.iter_count == rf.iter_count and rh.iter_count % 64
     assert rh.gmres_restart_count == rf.gmres_restart_count
@@ -232,7 +241,8 @@ def test_host_harness_calls_debug_check(monkeypatch, debug_checks):
 
     monkeypatch.setattr(GMRESMethod, "debug_check", failing_check)
     run = lambda: bt.solve_system("hpcg:8x8x8", "gm",  # noqa: E731
-                                  debug_checks=debug_checks, tolerance=1e-8)
+                                  debug_checks=debug_checks, tolerance=1e-8,
+                                  device=CPU)
     if debug_checks:
         with pytest.raises(AssertionError, match="debug check fired"):
             run()
@@ -245,12 +255,13 @@ def test_host_harness_calls_debug_check(monkeypatch, debug_checks):
 def test_debug_checks_pass(mode):
     """The real checks pass on a float64 solve with restarts."""
     res = bt.solve_system("fdm:16", "gm", restart_length=10, orthog_mode=mode,
-                          debug_checks=True, tolerance=1e-8)
+                          debug_checks=True, tolerance=1e-8, device=CPU)
     assert res.converged and res.gmres_restart_count > 0
 
 
 def test_debug_check_catches_lost_orthogonality():
-    A = bt.stencil_op.from_source_operator("hpcg:8x8x8", torch.float64)
+    A = bt.stencil_op.from_source_operator("hpcg:8x8x8", torch.float64,
+                                           device=CPU)
     method = make_method(bt.preprocessing_device(A, bt.SolverConfig(
         method=bt.SolverType.GMRES)))
     state = method.init_state()
@@ -269,7 +280,7 @@ def test_debug_check_catches_lost_orthogonality():
 def test_basis_layout_values(layout, spec, ok):
     """gmres_basis_layout takes the JAX package's values and checks them as
     it does; every value stores V flat."""
-    A = bt.stencil_op.from_source_operator(spec, torch.float64)
+    A = bt.stencil_op.from_source_operator(spec, torch.float64, device=CPU)
     setup = bt.preprocessing_device(A, bt.SolverConfig(
         method=bt.SolverType.GMRES, gmres_basis_layout=layout))
     if ok:

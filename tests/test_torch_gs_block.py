@@ -22,6 +22,10 @@ from basic_iterative_solvers_tpu_torch import coloring as tcol
 from basic_iterative_solvers_tpu_torch import stencil_op as tso
 from basic_iterative_solvers_tpu_torch.ops import block_trisolve as tbt
 
+#: the port's entry points run on the card unless asked; these tests
+#: run on the CPU
+CPU = "cpu"
+
 SPECS = ["hpcg:16x16x16", "hpcg:16x12x8"]
 SOLVES = ["L", "U", "sgs"]
 
@@ -37,7 +41,7 @@ def interpret():
 
 def _pairs(spec, np_dt, t_dt):
     Aj = jso.from_source_operator(spec, dtype=np_dt)
-    At = tso.from_source_operator(spec, t_dt)
+    At = tso.from_source_operator(spec, t_dt, device=CPU)
     pj = jbt.build_superblock_gs_pair_stencil(
         Aj, jcol.spec_for_device(Aj), dtype=np_dt, need_d=True)
     pt = tbt.build_superblock_gs_pair_stencil(
@@ -97,7 +101,7 @@ def test_plain_solves_f32_match_pallas_kernel(interpret, spec, solve):
 def test_blocked_solves_equal_colored_sweeps(spec):
     """The superblock solves are the masked sweeps' action from zero, with
     the same colouring (exact solves of one ordering: rtol 1e-12)."""
-    At = tso.from_source_operator(spec, torch.float64)
+    At = tso.from_source_operator(spec, torch.float64, device=CPU)
     st = tcol.spec_for_device(At)
     if st.kind != "grid":
         with pytest.raises(tbt.BlockIneligibleError):
@@ -120,7 +124,7 @@ def test_blocked_solves_equal_colored_sweeps(spec):
     ("hpcg:8x6x5", "divide"),
 ])
 def test_ineligible_operators_raise_like_jax(spec, why):
-    At = tso.from_source_operator(spec, torch.float64)
+    At = tso.from_source_operator(spec, torch.float64, device=CPU)
     Aj = jso.from_source_operator(spec, dtype=np.float64)
     st, sj = tcol.spec_for_device(At), jcol.spec_for_device(Aj)
     for pkg, A, s in ((tbt, At, st), (jbt, Aj, sj)):
@@ -134,7 +138,7 @@ def test_ineligible_operators_raise_like_jax(spec, why):
 def test_super_level_in_place_and_checks():
     """A level writes only its superblock's rows; the U solve may run in
     place (y is x) as blocked_sgs runs it; bad operands raise."""
-    At = tso.from_source_operator("hpcg:8x8x8", torch.float64)
+    At = tso.from_source_operator("hpcg:8x8x8", torch.float64, device=CPU)
     L, U = tbt.build_superblock_gs_pair_stencil(
         At, tcol.spec_for_device(At), dtype=torch.float64)
     y = torch.from_numpy(np.random.default_rng(10).standard_normal(512))

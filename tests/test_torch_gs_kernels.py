@@ -19,6 +19,10 @@ from basic_iterative_solvers_tpu.ops import pallas_env
 from basic_iterative_solvers_tpu_torch import coloring as tcol
 from basic_iterative_solvers_tpu_torch import stencil_op as tso
 
+#: the port's entry points run on the card unless asked; these tests
+#: run on the CPU
+CPU = "cpu"
+
 SPECS = ["fdm:16", "hpcg:8x8x8",
          "anderson:Lx=4,Ly=5,Lz=3,t=1.2,ranpot=4.0,seed=6"]
 
@@ -36,7 +40,7 @@ def _operands(spec, np_dt, t_dt, seed):
     """(Aj, At, x, rhs, dinv): both operators, and x, rhs and D⁻¹ as numpy
     arrays in np_dt (D⁻¹ = 1/diag of the operator)."""
     Aj = jso.from_source_operator(spec, dtype=np_dt)
-    At = tso.from_source_operator(spec, t_dt)
+    At = tso.from_source_operator(spec, t_dt, device=CPU)
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(At.n_rows).astype(np_dt)
     rhs = rng.standard_normal(At.n_rows).astype(np_dt)
@@ -47,7 +51,7 @@ def _operands(spec, np_dt, t_dt, seed):
 @pytest.mark.parametrize("spec", SPECS + ["hpcg:6x4x2"])
 def test_color_specs_and_ids_match_jax(spec):
     Aj = jso.from_source_operator(spec, dtype=np.float64)
-    At = tso.from_source_operator(spec, torch.float64)
+    At = tso.from_source_operator(spec, torch.float64, device=CPU)
     sj, st = jcol.spec_for_device(Aj), tcol.spec_for_device(At)
     assert (st.kind, st.n_colors, st.params) == (sj.kind, sj.n_colors,
                                                  sj.params)
@@ -131,7 +135,7 @@ def test_plain_color_step_f32_matches_pallas_kernel(interpret, spec):
 
 @pytest.mark.parametrize("case", ["dims", "rhs_dtype", "dinv_shape"])
 def test_color_step_rejects_bad_operands(case):
-    A = tso.from_source_operator("hpcg:8x6x4", torch.float64)
+    A = tso.from_source_operator("hpcg:8x6x4", torch.float64, device=CPU)
     x = torch.ones(A.n_rows, dtype=torch.float64)
     spec = tcol.spec_for_device(A)
     rhs, dinv = x.clone(), x.clone()
@@ -150,7 +154,7 @@ def test_stencil_split_matches_jax():
     diagonal equal to the JAX package's."""
     for spec in SPECS:
         Aj = jso.from_source_operator(spec, dtype=np.float64)
-        At = tso.from_source_operator(spec, torch.float64)
+        At = tso.from_source_operator(spec, torch.float64, device=CPU)
         Lj, Uj, Dj, Dij = jso.stencil_split(Aj)
         Lt, Ut, Dt, Dit = tso.stencil_split(At)
         for j, t in ((Lj, Lt), (Uj, Ut)):

@@ -11,6 +11,10 @@ from basic_iterative_solvers_tpu_torch import stencil_op as tso
 from basic_iterative_solvers_tpu_torch.ops import block_trisolve as tbt
 from tests.test_torch_gs_solve_hpcg import cases, route, run_parity
 
+#: the port's entry points run on the card unless asked; these tests
+#: run on the CPU
+CPU = "cpu"
+
 
 @pytest.mark.parametrize("harness", ["host", "fused"])
 @pytest.mark.parametrize("method,precond,cfg,_hpcg,iters", cases())
@@ -26,7 +30,7 @@ def test_fdm_parity(method, precond, cfg, _hpcg, iters, harness):
 def test_cpu_gs_family_launches_no_kernel():
     tso.stencil_gs_color_step.launches = tbt.super_level.launches = 0
     for spec in ("hpcg:8x8x8", "fdm:8"):
-        res = bt.solve_system(spec, "cg", "sgs", tolerance=1e-8)
+        res = bt.solve_system(spec, "cg", "sgs", tolerance=1e-8, device=CPU)
         assert res.converged
     assert tso.stencil_gs_color_step.launches == 0
     assert tbt.super_level.launches == 0
@@ -38,7 +42,7 @@ def test_cpu_gs_family_launches_no_kernel():
      "gs_mode": "levels"},
 ], ids=["gs_method", "sgs_precond"])
 def test_levels_mode_needs_the_host_csr_path(kwargs):
-    A = tso.from_source_operator("hpcg:8x6x4", torch.float64)
+    A = tso.from_source_operator("hpcg:8x6x4", torch.float64, device=CPU)
     with pytest.raises(ValueError, match="slice 5"):
         bt.preprocessing_device(A, bt.SolverConfig(**kwargs))
 
@@ -47,7 +51,7 @@ def test_levels_mode_needs_the_host_csr_path(kwargs):
 def test_gs_preconditioners_take_one_triangle_or_both(precond):
     """-p gs keeps L, -p bgs keeps U, -p sgs both (L with D), as the JAX
     package's setup does; Anderson's dense diagonal takes the sweeps."""
-    A = tso.from_source_operator("hpcg:8x8x8", torch.float64)
+    A = tso.from_source_operator("hpcg:8x8x8", torch.float64, device=CPU)
     pt = bt.PRECOND_CLI_NAMES[precond]
     M = bt.preprocessing_device(A, bt.SolverConfig(preconditioner=pt)).M
     assert (M.L_block is not None) == (precond != "bgs")
@@ -56,7 +60,7 @@ def test_gs_preconditioners_take_one_triangle_or_both(precond):
     if precond == "sgs":
         assert M.L_block.d == 26.0
     An = tso.from_source_operator("anderson:Lx=4,Ly=4,Lz=4,ranpot=1.0",
-                                  torch.float64)
+                                  torch.float64, device=CPU)
     Mn = bt.preprocessing_device(An, bt.SolverConfig(preconditioner=pt)).M
     assert Mn.L_block is None and Mn.U_block is None
     assert Mn.A_full_dev is An and Mn.color_spec.kind == "parity"

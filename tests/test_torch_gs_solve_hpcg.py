@@ -12,6 +12,10 @@ import pytest
 
 from tests.test_torch_methods import _check_parity, _solve_both
 
+#: the port's entry points run on the card unless asked; these tests
+#: run on the CPU
+CPU = "cpu"
+
 #: (id, method, preconditioner, config, iterations on HPCG 16³, on fdm:16)
 SOLVES = [
     ("gs", "GAUSS_SEIDEL", "NONE", {}, 304, 674),
@@ -46,7 +50,7 @@ def route(spec, method, precond, cfg):
     port's setup for this case."""
     import torch
     import basic_iterative_solvers_tpu_torch as bt
-    A = bt.stencil_op.from_source_operator(spec, torch.float64)
+    A = bt.stencil_op.from_source_operator(spec, torch.float64, device=CPU)
     s = bt.preprocessing_device(A, bt.SolverConfig(
         method=bt.SolverType[method], preconditioner=bt.PrecondType[precond],
         dtype=torch.float64, **cfg))

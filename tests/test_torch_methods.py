@@ -16,6 +16,10 @@ import torch
 import basic_iterative_solvers_tpu as bis
 import basic_iterative_solvers_tpu_torch as bt
 
+#: the port's entry points run on the card unless asked; these tests
+#: run on the CPU
+CPU = "cpu"
+
 HARNESSES = ["host", "fused"]
 GOLDENS = json.loads((pathlib.Path(__file__).parent / "goldens" /
                       "reference_histories.json").read_text())
@@ -30,7 +34,7 @@ def _solve_both(spec, harness, method, precond="NONE", **cfg):
     rj = bis.solve(bis.preprocessing_device(Aj, bis.SolverConfig(
         method=bis.SolverType[method], preconditioner=bis.PrecondType[precond],
         dtype=np.float64, harness=harness, **cfg), b=bv, x0=xv))
-    At = bt.stencil_op.from_source_operator(spec, torch.float64)
+    At = bt.stencil_op.from_source_operator(spec, torch.float64, device=CPU)
     rt = bt.solve(bt.preprocessing_device(At, bt.SolverConfig(
         method=bt.SolverType[method], preconditioner=bt.PrecondType[precond],
         dtype=torch.float64, harness=harness, **cfg),
@@ -133,7 +137,7 @@ def test_golden_history(case, rtol, limit, check_iters, harness):
         max_iters=d["max_iters"], b_val=d["b_val"],
         init_x_val=d["init_x_val"], res_check_len=d["res_check_len"],
         precond_outer_iters=g.get("precond_outer_iters", 1),
-        precond_inner_iters=g.get("precond_inner_iters", 0), **kw)
+        precond_inner_iters=g.get("precond_inner_iters", 0), **kw, device=CPU)
     assert res.converged == g["converged"]
     if check_iters:
         assert abs(res.iter_count + res.gmres_restart_count
@@ -151,7 +155,8 @@ def test_gmres_rl10_golden_counts_restarts():
     """fdm16_gm_j_rl10: 192 iterations and 19 restarts, 211 steps in all,
     as the reference counts them."""
     res = bt.solve_system("fdm:16", "gm", "j", harness="fused",
-                          tolerance=1e-14, b_val=1.0, init_x_val=0.1)
+                          tolerance=1e-14, b_val=1.0, init_x_val=0.1,
+                          device=CPU)
     assert res.converged
     assert res.iter_count + res.gmres_restart_count == 211
     assert res.gmres_restart_count == 19
@@ -162,7 +167,7 @@ def test_fused_stop_leaves_state_unchanged(method, iters):
     """A fused solve that converges inside a check chunk returns the iterate
     of its stopping iteration: the gated steps after it change nothing, so
     iteration count, history and x* equal the host harness's."""
-    A = bt.stencil_op.from_source_operator("fdm:16", torch.float64)
+    A = bt.stencil_op.from_source_operator("fdm:16", torch.float64, device=CPU)
     tol = 1e-6 if method == "JACOBI" else 1e-10
     results = [bt.solve(bt.preprocessing_device(A, bt.SolverConfig(
         method=bt.SolverType[method], harness=h, tolerance=tol)))
@@ -179,7 +184,8 @@ def test_jacobi_preconditioner_setup():
     divides by the diagonal, composed precond_outer_iters times."""
     from basic_iterative_solvers_tpu_torch.precond import (
         apply_preconditioner, setup_preconditioner)
-    A = bt.stencil_op.from_source_operator("hpcg:8x6x4", torch.float32)
+    A = bt.stencil_op.from_source_operator("hpcg:8x6x4", torch.float32,
+                                           device=CPU)
     cfg = bt.SolverConfig(preconditioner=bt.PrecondType.JACOBI,
                           dtype=torch.float64, precond_outer_iters=2)
     M = setup_preconditioner(A, cfg)
@@ -188,6 +194,7 @@ def test_jacobi_preconditioner_setup():
                                          dtype=torch.float64))
     y = torch.arange(A.n_rows, dtype=torch.float64)
     assert torch.equal(apply_preconditioner(M, y), y / 26.0 / 26.0)
-    Z = bt.stencil_op.anderson_operator(3, ranpot=0.0, dtype=torch.float64)
+    Z = bt.stencil_op.anderson_operator(3, ranpot=0.0, dtype=torch.float64,
+                                        device=CPU)
     with pytest.raises(ValueError, match="zero on the matrix diagonal"):
         setup_preconditioner(Z, cfg)

@@ -15,23 +15,40 @@ import basic_iterative_solvers_tpu_torch as bt
 from basic_iterative_solvers_tpu_torch import convert
 from basic_iterative_solvers_tpu_torch import stencil_op as tso
 
+#: the port's entry points run on the card unless asked; these tests
+#: run on the CPU
+CPU = "cpu"
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ANDERSON = "anderson:Lx=4,Ly=5,Lz=3,t=1.2,ranpot=4.0,seed=6"
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, basic_iterative_solvers_tpu_torch\n"
+    """Importing every module of the port loads no jax module and nothing
+    of the JAX package."""
+    code = ("import pkgutil, sys, importlib\n"
+            "import basic_iterative_solvers_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "need = {'matrix', 'permute', 'factor', 'ops.block_trisolve', "
+            "'_build'}\n"
+            "assert {pkg.__name__ + '.' + n for n in need} <= set(names)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.')]\n"
-            "assert not bad, bad\n")
+            "m.startswith('jax.') or m == 'basic_iterative_solvers_tpu' or "
+            "m.startswith('basic_iterative_solvers_tpu.')]\n"
+            "assert not bad, bad\n"
+            "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout) >= 25
 
 
 def test_cpu_tensors_launch_no_kernel():
     tso.stencil_spmv.launches = 0
-    res = bt.solve_system("hpcg:8x6x4", tolerance=1e-8)
+    res = bt.solve_system("hpcg:8x6x4", tolerance=1e-8, device=CPU)
     assert res.converged
     assert tso.stencil_spmv.launches == 0
 
@@ -48,14 +65,14 @@ def test_planar_diag_decode_matches_jax():
                                     device="cpu")
     np.testing.assert_array_equal(At.diag.numpy(),
                                   np.asarray(jso.from_planar_vec(Ap, Ap.diag)))
-    direct = tso.from_source_operator(ANDERSON, torch.float64)
+    direct = tso.from_source_operator(ANDERSON, torch.float64, device=CPU)
     assert At.legs == direct.legs and At.coeff_values == direct.coeff_values
     assert torch.equal(At.diag, direct.diag)
 
 
 def test_vector_from_numpy_flat_padded_and_planar(rng):
     Aj = jso.from_source_operator("hpcg:16x16x16", dtype=np.float64)
-    At = tso.from_source_operator("hpcg:16x16x16", torch.float64)
+    At = tso.from_source_operator("hpcg:16x16x16", torch.float64, device=CPU)
     v = rng.standard_normal(Aj.n_rows)
     planar = np.asarray(jso.to_planar_vec(jso.to_planar_matrix(Aj), v))
     padded = np.concatenate([v, np.zeros(7)])
@@ -93,7 +110,7 @@ def test_launch_table_reproduces_plain_spmv(spec, groups, rng):
     """Legs grouped by coefficient (HPCG: 26 × −1 and 1 × 26; Anderson's
     (0,0,0) leg left to the dense diagonal); the kernel's arithmetic on
     that table equals the plain version to float64 rounding (rtol 1e-12)."""
-    A = tso.from_source_operator(spec, torch.float64)
+    A = tso.from_source_operator(spec, torch.float64, device=CPU)
     use_diag = A.diag is not None
     args, n_blocks = tso._launch_table(A.legs, A.coeff_values, A.dims,
                                        use_diag, ("x", "aux"))
@@ -113,7 +130,7 @@ def test_launch_table_reproduces_plain_spmv(spec, groups, rng):
 @pytest.mark.parametrize("case", ["dtype", "shape", "aux", "kind",
                                   "operator", "noncontig"])
 def test_spmv_rejects_bad_operands(case):
-    A = tso.from_source_operator("hpcg:8x6x4", torch.float64)
+    A = tso.from_source_operator("hpcg:8x6x4", torch.float64, device=CPU)
     x = torch.ones(A.n_rows, dtype=torch.float64)
     call, err = {
         "dtype": (lambda: tso.stencil_spmv(A, x.float()), TypeError),
@@ -138,20 +155,40 @@ def test_spmv_rejects_bad_operands(case):
     {"dtype": torch.float32, "matrix_dtype": "bfloat16"},
     {"method": bt.SolverType.SYMMETRIC_GAUSS_SEIDEL,
      "preconditioner": bt.PrecondType.MULTIGRID},
-    {"preconditioner": bt.PrecondType.ILU0},
+    {"preconditioner": bt.PrecondType.ILU0, "refine_outer": 2},
 ], ids=["gmres", "jacobi", "pipelined", "refine", "matrix_dtype", "sgs",
         "ilu0"])
 def test_unported_features_name_their_slice(kwargs):
-    A = tso.from_source_operator("hpcg:8x6x4", torch.float64)
+    A = tso.from_source_operator("hpcg:8x6x4", torch.float64, device=CPU)
     with pytest.raises(NotImplementedError, match="slice"):
         bt.solve(bt.preprocessing_device(A, bt.SolverConfig(**kwargs)))
+
+
+@pytest.mark.parametrize("entry", [
+    bt.solve_system, tso.make_stencil, tso.stencil_27pt_operator,
+    tso.fdm_2d_operator, tso.anderson_operator, tso.from_source_operator],
+    ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """The entry points put the operator on the card unless the caller
+    asks for the CPU; with no card a call that names no device raises,
+    naming the device, and builds nothing on the CPU."""
+    import inspect
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = {"solve_system": ("hpcg:4x4x4",),
+            "make_stencil": ([((0, 0, 0), 2.0)], 4, 4, 4),
+            "from_source_operator": ("hpcg:4x4x4",)}.get(entry.__name__,
+                                                         (4,))
+    with pytest.raises(RuntimeError, match="'cuda'.*device='cpu'"):
+        entry(*args)
+    assert entry(*args, device=CPU) is not None
 
 
 def test_spmv_entry_points_match_plain(rng):
     """spmv_dots returns (y, y·aux, y·y) in that order, and
     compute_residual is b − A·x, all from the one SpMV call."""
     from basic_iterative_solvers_tpu_torch.ops import spmv as ops
-    A = tso.from_source_operator(ANDERSON, torch.float64)
+    A = tso.from_source_operator(ANDERSON, torch.float64, device=CPU)
     x, aux, b = (torch.from_numpy(rng.standard_normal(A.n_rows))
                  for _ in range(3))
     y = tso.stencil_spmv_plain(A, x)

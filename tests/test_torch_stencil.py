@@ -15,6 +15,10 @@ from basic_iterative_solvers_tpu.ops import pallas_env
 
 from basic_iterative_solvers_tpu_torch import stencil_op as tso
 
+#: the port's entry points run on the card unless asked; these tests
+#: run on the CPU
+CPU = "cpu"
+
 SPECS = ["hpcg:8x6x4", "hpcg:16x16x16", "fdm:16",
          "anderson:Lx=4,Ly=5,Lz=3,t=1.2,ranpot=4.0,seed=6"]
 DOTS = [(), ("x",), ("self",), ("aux",)]
@@ -39,7 +43,7 @@ def test_builders_match_jax(spec):
     for np_dt, t_dt in ((np.float64, torch.float64),
                         (np.float32, torch.float32)):
         Aj = jso.from_source_operator(spec, dtype=np_dt)
-        At = tso.from_source_operator(spec, t_dt)
+        At = tso.from_source_operator(spec, t_dt, device=CPU)
         assert At.legs == Aj.legs
         assert At.dims == Aj.dims
         assert (At.n_rows, At.n_cols) == (Aj.n_rows, Aj.n_cols)
@@ -59,7 +63,7 @@ def test_plain_spmv_f64_matches_jax(spec, dots):
     """Same leg order in both, so only summation rounding differs: rtol
     1e-12 (and 1e-12·max|y| absolute for entries that cancel to ~0)."""
     Aj = jso.from_source_operator(spec, dtype=np.float64)
-    At = tso.from_source_operator(spec, torch.float64)
+    At = tso.from_source_operator(spec, torch.float64, device=CPU)
     x, aux = _inputs(At.n_rows, 1)
     yj = np.asarray(jso.stencil_spmv_xla(Aj, np.asarray(x)))
     out = tso.stencil_spmv_plain(At, torch.from_numpy(x), dots,
@@ -82,7 +86,7 @@ def test_plain_spmv_f32_matches_pallas_kernel(interpret, spec, dots):
     rtol 2e-6 / atol 1e-5, the dots to rtol 1e-5."""
     Ap = jso.to_planar_matrix(jso.from_source_operator(spec,
                                                        dtype=np.float32))
-    At = tso.from_source_operator(spec, torch.float32)
+    At = tso.from_source_operator(spec, torch.float32, device=CPU)
     x, aux = (v.astype(np.float32) for v in _inputs(At.n_rows, 2))
     outs = jso.stencil_spmv_resident(Ap, jso.to_planar_vec(Ap, x), dots=dots,
                                      aux=jso.to_planar_vec(Ap, aux))
