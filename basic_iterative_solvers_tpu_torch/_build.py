@@ -22,13 +22,16 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("stencil_spmv.cu", "gmres_basis.cu",
-                             "block_trisolve.cu"))
+                             "block_trisolve.cu", "sparse_spmv.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 MAX_LEGS = 27
 MAX_DOTS = 3
+#: the most DIA offsets the kernel takes by value (the JAX package's
+#: SolverConfig.dia_max_diags default)
+MAX_DIAGS = 96
 
 
 class StencilArgs(ctypes.Structure):
@@ -76,6 +79,14 @@ class SuperLevelArgs(ctypes.Structure):
         ("proto_z", ctypes.c_int),
         ("radius", ctypes.c_int), ("n_proto", ctypes.c_int),
     ]
+
+
+class DiaArgs(ctypes.Structure):
+    """ctypes mirror of `BisDiaArgs` in csrc/sparse_spmv.cu."""
+
+    _fields_ = [("off", ctypes.c_longlong * MAX_DIAGS),
+                ("n", ctypes.c_longlong),
+                ("n_diags", ctypes.c_int)]
 
 
 def _nvcc() -> str:
@@ -158,11 +169,22 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, f"bis_{name}_{dt}")
             fn.argtypes = [i32, level] + args
             fn.restype = i32
+        fn = getattr(lib, f"bis_dia_spmv_{dt}")
+        fn.argtypes = [i32, ctypes.POINTER(DiaArgs), ptr, ptr, ptr, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"bis_lane_ell_spmv_{dt}")
+        fn.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"bis_rank_level_{dt}")
+        fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr]
+        fn.restype = i32
     for size_fn, mirror, source in (
             (lib.bis_stencil_args_size, StencilArgs,
              "BisStencilArgs in csrc/stencil_spmv.cu"),
             (lib.bis_super_level_args_size, SuperLevelArgs,
-             "BisSuperLevelArgs in csrc/block_trisolve.cu")):
+             "BisSuperLevelArgs in csrc/block_trisolve.cu"),
+            (lib.bis_dia_args_size, DiaArgs,
+             "BisDiaArgs in csrc/sparse_spmv.cu")):
         size_fn.argtypes = []
         size_fn.restype = ctypes.c_int
         if size_fn() != ctypes.sizeof(mirror):

@@ -17,13 +17,19 @@ Colourings of a stencil come from index arithmetic, never from stored ids:
            (2×2×2 = 8 colours for HPCG's 27-point stencil);
 * parity — red-black, (x + y + z) mod 2, when every leg has odd
            |dx|+|dy|+|dz| (FDM 5-point, Anderson 7-point);
-* mod    — colour = row mod k (a diagonal-only stencil: k = 1).
+* mod    — colour = row mod k for the smallest k ≥ 2 dividing no stored
+           offset (DIA matrices; a diagonal-only stencil: k = 1);
+* greedy — general host CSR: sequential first-fit, or balanced (the
+           least-loaded admissible colour), carried as a colour-id array.
 
 Colouring changes the sweep order, so coloured GS/SGS is a different
 (equally valid) iteration from the reference's natural-order GS.
 
-`colored_sweep` runs each colour step through `stencil_gs_color_step`:
-the hand-written kernel on a CUDA tensor, the plain version on a CPU one.
+`colored_sweep` runs each colour step of a stencil with a structural
+colouring through `stencil_gs_color_step` (the hand-written kernel on a
+CUDA tensor, the plain version on a CPU one); any other operator or a
+colour-id array takes one SpMV of the full operator and a masked update
+per colour, as the JAX package's generic branch does.
 """
 from __future__ import annotations
 
@@ -124,6 +130,41 @@ def spec_colors_np(spec: ColorSpec, n: int) -> np.ndarray:
     return ((x % sx) + sx * ((y % sy) + sy * (z % sz))).astype(np.int32)
 
 
+def greedy_coloring(A, balanced: bool = False) -> np.ndarray:
+    """Sequential greedy colouring of the (structurally symmetric) host CSR
+    graph, int32 ids; `balanced` picks the least-loaded admissible colour
+    instead of the first."""
+    n = A.n_rows
+    row_ptr, col = A.row_ptr, A.col
+    colors = np.full(n, -1, dtype=np.int32)
+    loads = []
+    for i in range(n):
+        nbr = colors[col[row_ptr[i]:row_ptr[i + 1]]]
+        used = set(int(c) for c in nbr if c >= 0)
+        if balanced:
+            best, best_load = None, None
+            for c, ld in enumerate(loads):
+                if c not in used and (best is None or ld < best_load):
+                    best, best_load = c, ld
+            c = best if best is not None else len(loads)
+        else:
+            c = 0
+            while c in used:
+                c += 1
+        if c == len(loads):
+            loads.append(0)
+        loads[c] += 1
+        colors[i] = c
+    return colors
+
+
+def check_coloring(A, colors: np.ndarray) -> bool:
+    """True iff no off-diagonal entry couples two rows of one colour."""
+    rows = A.rows()
+    off = A.col != rows
+    return not np.any(colors[rows[off]] == colors[A.col[off]])
+
+
 def colors_to_perm(colors: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """(perm, inv_perm) sorting rows by colour, stable within a colour
     (perm[new] = old)."""
@@ -134,19 +175,23 @@ def colors_to_perm(colors: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def spec_for_device(A) -> ColorSpec:
-    """The natural zero-cost colouring of a device operator."""
+    """The natural zero-cost colouring of a device operator: a grid or
+    parity colouring of a stencil, a mod colouring of a DIA matrix."""
+    from .device_matrix import DeviceDIA
     from .stencil_op import DeviceStencil
     if isinstance(A, DeviceStencil):
         return grid_color_spec(A.legs, A.dims)
+    if isinstance(A, DeviceDIA):
+        return mod_color_spec(A.offsets, A.n_rows)
     raise TypeError(
-        f"no structural coloring for {type(A).__name__}: the DIA format and "
-        "greedy colourings of general sparsity arrive with ROADMAP Queue 1 "
-        "slice 5")
+        f"no structural coloring for {type(A).__name__}; use "
+        "greedy_coloring on the host CSR")
 
 
-def colored_sweep(A, D_inv: torch.Tensor, y: torch.Tensor,
-                  x: Optional[torch.Tensor], spec: ColorSpec, n_colors: int,
-                  reverse: bool = False) -> torch.Tensor:
+def colored_sweep(A, D_inv, y: torch.Tensor, x: Optional[torch.Tensor],
+                  spec: Optional[ColorSpec], n_colors: int,
+                  reverse: bool = False,
+                  color_arr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One exact Gauss-Seidel sweep over the colours.
 
     x given:  the GS iteration update x ← (L_c+D)⁻¹(y − U_c·x) in residual
@@ -154,13 +199,20 @@ def colored_sweep(A, D_inv: torch.Tensor, y: torch.Tensor,
     x = None: the triangular solve (L_c+D)⁻¹y (forward) or (U_c+D)⁻¹y
               (reverse) from a zero initial guess, the preconditioner
               apply: the first colour's step is y·D⁻¹ on its rows (A·0 = 0).
+
+    Colour ids come from `color_arr` (greedy colourings) or from `spec`.
+    D_inv may be the number 1.0 (the unit-diagonal L of coloured ILU(0)).
     """
-    from .stencil_op import stencil_gs_color_step
+    from .ops.spmv import spmv
+    from .stencil_op import DeviceStencil, stencil_gs_color_step
+    step_kernel = isinstance(A, DeviceStencil) and color_arr is None
+    ids = color_arr if color_arr is not None else color_ids(spec, A)
     order = range(n_colors - 1, -1, -1) if reverse else range(n_colors)
     for step, c in enumerate(order):
         if x is None and step == 0:
-            mask = color_ids(spec, A) == c
-            x = torch.where(mask, y * D_inv, torch.zeros_like(y))
-            continue
-        x = stencil_gs_color_step(A, x, y, D_inv, spec, c)
+            x = torch.where(ids == c, y * D_inv, torch.zeros_like(y))
+        elif step_kernel:
+            x = stencil_gs_color_step(A, x, y, D_inv, spec, c)
+        else:
+            x = torch.where(ids == c, x + (y - spmv(A, x)) * D_inv, x)
     return x

@@ -3,10 +3,9 @@
 `SolverConfig` has the field names and defaults of the JAX package's
 (basic_iterative_solvers_tpu/config.py), so one set of keyword arguments
 configures either package.  Defaults replicate the reference's CMake cache
-defaults (CMakeLists.txt:20-29).  This slice reads the fields of the
-unpreconditioned CG path; the others are carried for the slices that port
-their features (ROADMAP.md, Queue 1) and are rejected where a path would
-silently ignore them.
+defaults (CMakeLists.txt:20-29).  Fields of features not ported yet are
+carried for the slices that port them (ROADMAP.md, Queue 1) and are
+rejected where a path would silently ignore them.
 """
 from __future__ import annotations
 

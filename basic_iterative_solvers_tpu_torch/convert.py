@@ -11,14 +11,18 @@ reimplemented in numpy.
 
 `ilu0_pair_from_numpy` carries the JAX package's exact ILU(0) factors
 across: the translation tables of its `_ilu0_translation_tables` become
-the port's factor-table superblock pair.
+the port's factor-table superblock pair.  The host-CSR path's objects come
+across the same way, from their fields as numpy arrays: `csr_from_numpy`,
+`dia_from_numpy` (the TPU row-tile padding cropped), `lane_ell_from_numpy`,
+`trisolve_levels_from_numpy` and `blocked_trisolve_from_numpy`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .stencil_op import DeviceStencil, make_stencil
+from .config import torch_dtype
+from .stencil_op import DeviceStencil, make_stencil, resolve_device
 
 #: the JAX package's planar row tile (stencil_op._ROW_TILE_2D)
 _PLANAR_ROW_TILE = 1024
@@ -89,3 +93,72 @@ def ilu0_pair_from_numpy(op: DeviceStencil, tables, *, dtype):
     return ilu0_pair_from_tables(op, spec_for_device(op),
                                  (T, Tdiag, proto, int(R), int(h)),
                                  dtype=dtype)
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(
+        dtype=torch_dtype(dtype), device=resolve_device(device))
+
+
+def csr_from_numpy(n_rows, n_cols, row_ptr, col, val):
+    """The port's MatrixCSR from a JAX MatrixCSR's fields."""
+    from .matrix import MatrixCSR
+    val = np.asarray(val, dtype=np.float64).copy()
+    return MatrixCSR(int(n_rows), int(n_cols), int(val.size),
+                     np.asarray(row_ptr, dtype=np.int64).copy(),
+                     np.asarray(col, dtype=np.int32).copy(), val)
+
+
+def dia_from_numpy(data, offsets, n_rows, n_cols, *, dtype, device):
+    """The port's DeviceDIA from a JAX DeviceDIA's fields: the data rows of
+    the stored offsets, cropped to n_rows columns (the JAX package pads
+    them to its Pallas row tile)."""
+    from .device_matrix import DeviceDIA
+    offsets = tuple(int(o) for o in offsets)
+    data = np.asarray(data)[:len(offsets), :int(n_rows)]
+    return DeviceDIA(data=_tensor(data, dtype, device), offsets=offsets,
+                     n_rows=int(n_rows), n_cols=int(n_cols))
+
+
+def lane_ell_from_numpy(vals, idx, n_rows, K, S, R, *, dtype, device):
+    """The port's DeviceLaneELL from a JAX DeviceLaneELL's fields."""
+    from .ops.lane_ell import DeviceLaneELL
+    return DeviceLaneELL(
+        vals=_tensor(vals, dtype, device),
+        idx=_tensor(np.asarray(idx, dtype=np.int32), torch.int32, device),
+        n_rows=int(n_rows), n_cols=int(n_rows), K=int(K), S=int(S),
+        R=int(R))
+
+
+def trisolve_levels_from_numpy(rows, cols, vals, dinv, n_rows, *, dtype,
+                               device):
+    """The port's TriSolveLevels from a JAX TriSolveLevels' fields."""
+    from .ops.trisolve import TriSolveLevels
+    rows = np.asarray(rows)
+    return TriSolveLevels(
+        rows=_tensor(rows, torch.int64, device),
+        cols=_tensor(cols, torch.int64, device),
+        vals=_tensor(vals, dtype, device), dinv=_tensor(dinv, dtype, device),
+        n_rows=int(n_rows), n_levels=int(rows.shape[0]),
+        max_width=int(rows.shape[1]))
+
+
+def blocked_trisolve_from_numpy(vals, dinv, d, n_rows, n_colors, m, R_b,
+                                levels, spec_kind, spec_params, *, dtype,
+                                device):
+    """The port's BlockedTriSolve from a JAX BlockedTriSolve's fields: its
+    tuples of (R_b, 128) planes and blocks stacked into (G, M) and (C, M)
+    tensors."""
+    from .ops.block_trisolve import BlockedTriSolve
+    stack = lambda blocks: _tensor(  # noqa: E731
+        np.stack([np.asarray(b).reshape(-1) for b in blocks]), dtype, device)
+    levels = tuple((int(c), tuple((int(s), int(dl), int(g))
+                                  for s, dl, g in groups))
+                   for c, groups in levels)
+    return BlockedTriSolve(
+        vals=(stack(vals) if len(vals) else
+              _tensor(np.zeros((0, int(R_b) * 128)), dtype, device)),
+        dinv=stack(dinv), d=None if d is None else stack(d),
+        n_rows=int(n_rows), n_colors=int(n_colors), m=int(m), R_b=int(R_b),
+        levels=levels, spec_kind=spec_kind,
+        spec_params=tuple(int(p) for p in spec_params))

@@ -1,7 +1,8 @@
-// Superblock levels of a coloured triangular solve on a stencil, for
-// Hopper (sm_90a): const mode (exact GS) and factor-table mode (exact
-// ILU(0)), fused in one launch a level or split into an acc step and one
-// step per x-parity.
+// Levels of the coloured triangular solves, for Hopper (sm_90a): the
+// superblock levels on a stencil, const mode (exact GS) and factor-table
+// mode (exact ILU(0)), fused in one launch a level or split into an acc
+// step and one step per x-parity; and the rank-space level of host-CSR
+// factors under a mod colouring (rank_level_kernel, below).
 //
 // Replaces the Pallas kernels of basic_iterative_solvers_tpu/ops/
 // block_trisolve.py: _super_level_pallas in its const, plane, packed and
@@ -223,6 +224,43 @@ super_parity_kernel(const __grid_constant__ BisSuperLevelArgs a, int p,
     }
 }
 
+// Rank-space level (replaces _level_pallas of basic_iterative_solvers_tpu/
+// ops/block_trisolve.py; plain form ops/block_trisolve.rank_level_plain).
+// Host-CSR factors under a mod colouring: the colour blocks are one (C, M)
+// state, slot t of colour c the rank-t row of that colour, and level c is
+//
+//     x[c, t] = (y[c, t] - sum_g vals[g, t] * x[src_g, t + delta_g])
+//               * dinv[c, t]
+//
+// over the level's groups (src, delta, plane), a small int64 table on the
+// card, in the order the builder sorted them.  One thread per slot; a
+// source slot outside [0, M) reads 0 where the plain version's roll wraps
+// (a wrapped slot always meets a zero value, so for finite x the two
+// agree bit for bit).  The TPU kernel reads three (TB, 128) windows per
+// source colour and rotates lanes; here neighbouring threads read
+// neighbouring slots of every plane and of x, so the loads coalesce and
+// the windows' reuse comes from L1/L2.  What bounds it: bytes (a value
+// plane and an x window per group, y, dinv, x out), each product and
+// difference rounded alone.  y may alias x: a level reads y only at its
+// own colour's slot and x only at other colours'.
+template <typename T>
+__global__ void __launch_bounds__(256)
+rank_level_kernel(const T* y, T* x, const T* vals, const T* dinv,
+                  const long long* groups, int n_groups, long long M, int c) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= M) return;
+    const long long row = (long long)c * M + t;
+    T acc = y[row];
+    for (int g = 0; g < n_groups; ++g) {
+        const long long src = groups[3 * g], delta = groups[3 * g + 1],
+                        plane = groups[3 * g + 2];
+        const long long s = t + delta;
+        const T xv = (s >= 0 && s < M) ? x[src * M + s] : T(0);
+        acc = sub_rn(acc, mul_rn(vals[plane * M + t], xv));
+    }
+    x[row] = mul_rn(acc, dinv[row]);
+}
+
 static cudaError_t set_device(int device) { return cudaSetDevice(device); }
 
 template <typename T>
@@ -261,6 +299,18 @@ static int launch_parity(int device, const BisSuperLevelArgs* a, int p,
     const dim3 block(a->block_x, a->block_y);
     super_parity_kernel<T><<<a->grid_x, block, 0, stream>>>(*a, p, y, acc, x,
                                                             table, tdinv);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_rank_level(int device, const T* y, T* x, const T* vals,
+                             const T* dinv, const long long* groups,
+                             int n_groups, long long M, int c,
+                             cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    rank_level_kernel<T><<<(unsigned)((M + 255) / 256), 256, 0, stream>>>(
+        y, x, vals, dinv, groups, n_groups, M, c);
     return (int)cudaGetLastError();
 }
 
@@ -310,6 +360,22 @@ int bis_super_parity_f64(int device, const BisSuperLevelArgs* a, int p,
                          void* stream) {
     return launch_parity<double>(device, a, p, y, acc, x, table, tdinv,
                                  (cudaStream_t)stream);
+}
+
+int bis_rank_level_f32(int device, const float* y, float* x,
+                       const float* vals, const float* dinv,
+                       const long long* groups, int n_groups, long long M,
+                       int c, void* stream) {
+    return launch_rank_level<float>(device, y, x, vals, dinv, groups,
+                                    n_groups, M, c, (cudaStream_t)stream);
+}
+
+int bis_rank_level_f64(int device, const double* y, double* x,
+                       const double* vals, const double* dinv,
+                       const long long* groups, int n_groups, long long M,
+                       int c, void* stream) {
+    return launch_rank_level<double>(device, y, x, vals, dinv, groups,
+                                     n_groups, M, c, (cudaStream_t)stream);
 }
 
 int bis_super_level_args_size(void) { return (int)sizeof(BisSuperLevelArgs); }

@@ -1,5 +1,6 @@
-"""Superblock triangular solves on stencils: exact coloured GS (const mode)
-and exact coloured ILU(0) (factor-table mode).
+"""Blocked coloured triangular solves: the superblock solves on stencils
+(exact coloured GS in const mode, exact coloured ILU(0) in factor-table
+mode) and the rank-space solves of host-CSR factors under a mod colouring.
 
 The const and translation-table subset of the JAX package's
 ops/block_trisolve.py.  A grid colouring with strides (sx, sy, sz) of a
@@ -42,10 +43,26 @@ whose x-lines do not tile the TPU's 128 lanes (128 % nx != 0) then runs
 the split route, each level as `super_acc` (acc for the whole level) and
 one `super_parity` per x-parity.
 
-`super_level`, `super_acc` and `super_parity` are the kernels' entry
-points: on a CUDA tensor each launches its hand-written kernel
-(csrc/block_trisolve.cu) or raises; on a CPU tensor each runs its plain
-version (`super_level_plain`, `super_acc_plain`, `super_parity_plain`).
+Rank-space solves (`BlockedTriSolve`, the JAX package's rank-space
+layout, for a mod colouring of host-CSR factors): in the colour-sorted
+ordering row j being a pattern neighbour of row i becomes rank(j) =
+rank(i) + Δ with Δ constant per (target colour, source colour, leg), so a
+strict triangle splits into groups (source colour, Δ), each a plane of
+values aligned to the target's rank slots.  The colour blocks are one
+(C, M) state tensor (M = R_b·128 slots, the JAX package's padded block),
+and level c solves
+
+    x_c = (y_c − Σ_groups vals_g ⊙ shift(x_src(g), Δ_g)) · D_c⁻¹
+
+in one launch (`rank_level`).  Grid colourings of host CSR take the JAX
+package's superblock form built from CSR, which needs a plane mode of the
+superblock kernel: ROADMAP Queue 1 slice 5b.
+
+`super_level`, `super_acc`, `super_parity` and `rank_level` are the
+kernels' entry points: on a CUDA tensor each launches its hand-written
+kernel (csrc/block_trisolve.cu) or raises; on a CPU tensor each runs its
+plain version (`super_level_plain`, `super_acc_plain`,
+`super_parity_plain`, `rank_level_plain`).
 """
 from __future__ import annotations
 
@@ -708,6 +725,278 @@ def super_parity(B: SuperBlockTriSolve, li: int, p: int, y: torch.Tensor,
 super_parity.launches = 0
 
 
+
+
+# ---------------------------------------------------------------------------
+# Rank-space solves (host-CSR factors under a mod colouring)
+# ---------------------------------------------------------------------------
+
+LANES = 128
+#: the JAX package's default row tile; it sizes the padded block R_b
+_TB = 256
+#: the JAX package's refusal of irregular patterns: more (colour, colour,
+#: Δ) groups than this and the planes would be mostly padding
+_MAX_GROUPS = 512
+
+
+@dataclasses.dataclass(eq=False)
+class BlockedTriSolve:
+    """One rank-space triangular solve.
+
+    vals: (G, M) planes, one per (target colour, source colour, Δ) group;
+    dinv: (C, M), 1/D at real slots and 0 at pads; d: (C, M) or None, D
+    itself (the symmetric apply's middle multiply); M = R_b·128.  levels:
+    ((colour, ((src, Δ, group), …)), …) in solve order, groups sorted."""
+
+    vals: torch.Tensor
+    dinv: torch.Tensor
+    d: Optional[torch.Tensor]
+    n_rows: int
+    n_colors: int
+    m: int
+    R_b: int
+    levels: Tuple
+    spec_kind: str
+    spec_params: Tuple[int, ...]
+    #: each level's group table on the card, built at first launch
+    _tables: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.dinv.dtype
+
+    @property
+    def M(self) -> int:
+        return self.R_b * LANES
+
+
+def _entries_of(T):
+    """(rows, cols, vals, n) of a MatrixCSR or of (rows, cols, vals, n)
+    triplets."""
+    from ..matrix import MatrixCSR
+    if isinstance(T, MatrixCSR):
+        return T.rows(), T.col.astype(np.int64), T.val, T.n_rows
+    rows, cols, vals, n = T
+    return np.asarray(rows), np.asarray(cols), np.asarray(vals), int(n)
+
+
+def _group_inverse(key, key_range):
+    """np.unique(key, return_inverse=True), through a dense table where the
+    key range is small."""
+    if key_range <= (1 << 27):
+        present = np.zeros(key_range, dtype=bool)
+        present[key] = True
+        uniq = np.flatnonzero(present)
+        lut = np.zeros(key_range, dtype=np.int32)
+        lut[uniq] = np.arange(uniq.size, dtype=np.int32)
+        return uniq, lut[key]
+    return np.unique(key, return_inverse=True)
+
+
+def _check_spec(spec, n: int) -> int:
+    """The slots per colour block, m; a spec without the rank-space form
+    raises."""
+    if spec.kind == "mod":
+        return -(-n // spec.params[0])
+    if spec.kind == "grid":
+        raise NotImplementedError(
+            "coloured triangular solves of a host CSR matrix under a grid "
+            "colouring take the superblock form built from CSR, which "
+            "arrives with ROADMAP Queue 1 slice 5b")
+    raise BlockIneligibleError(
+        f"blocked trisolve needs a grid/mod coloring, got {spec.kind!r}")
+
+
+def spec_colors_valid(colors, spec, n: int) -> bool:
+    """True iff `colors` is exactly the spec's structural colouring."""
+    from ..coloring import spec_colors_np
+    try:
+        return np.array_equal(np.asarray(colors), spec_colors_np(spec, n))
+    except ValueError:
+        return False
+
+
+def build_blocked_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
+                           spec, *, upper: bool, dtype=torch.float32,
+                           need_d: bool = False,
+                           device="cuda") -> BlockedTriSolve:
+    """Pack the colour-lower (colour-upper) part of T, the entries with
+    colour(j) < colour(i) (>), for the rank-space solve on `device`; D is
+    the diagonal to divide by (None: unit).  T is a MatrixCSR or
+    (rows, cols, vals, n) triplets.  An improper colouring raises
+    ImproperColoringError; a structure without the blocked form raises
+    BlockIneligibleError.  The JAX package's NumPy builder, step for step."""
+    from ..stencil_op import resolve_device
+    device = resolve_device(device)
+    rows, cols, vals, n = _entries_of(T)
+    C = spec.n_colors
+    ci = colors[rows].astype(np.int64)
+    cj = colors[cols].astype(np.int64)
+    if np.any((ci == cj) & (rows != cols)):
+        raise ImproperColoringError("coloring is not proper for this "
+                                    "pattern")
+    m = _check_spec(spec, n)
+    if n and C != int(colors.max()) + 1:
+        raise BlockIneligibleError("colors/spec mismatch")
+    rank = np.arange(n, dtype=np.int64) // spec.params[0]
+    keep = (cj > ci) if upper else (cj < ci)
+    rows, cols, ci, cj = rows[keep], cols[keep], ci[keep], cj[keep]
+    v = vals[keep]
+    delta = rank[cols] - rank[rows]
+    span = 2 * m + 1
+    ukey, ginv = _group_inverse((ci * C + cj) * span + (delta + m),
+                                C * C * span)
+    G = ukey.size
+    if G > _MAX_GROUPS:
+        raise BlockIneligibleError(
+            f"{G} (color,color,Δ) groups — pattern too irregular")
+    g_tc, g_sc = (ukey // span) // C, (ukey // span) % C
+    g_dl = (ukey % span) - m
+    qmax = int(np.abs(g_dl).max()) // LANES + 1 if G else 0
+    R_rows = -(-m // LANES)
+    TB = max(8 * -(-(qmax + 1) // 8), min(_TB, 8 * -(-R_rows // 8)), 8)
+    R_b = max(TB, -(-R_rows // TB) * TB)
+    M = R_b * LANES
+    vals_np = np.zeros((G, M), dtype=np.float64)
+    vals_np[ginv, rank[rows]] = v
+    dv = np.ones(n) if D is None else np.asarray(D, dtype=np.float64)
+    if np.any(dv == 0):
+        raise ValueError("zero diagonal in blocked trisolve")
+    dinv_np = np.zeros((C, M), dtype=np.float64)
+    dinv_np[colors, rank] = 1.0 / dv
+    d_np = None
+    if need_d:
+        d_np = np.zeros((C, M), dtype=np.float64)
+        d_np[colors, rank] = dv
+    levels = []
+    for c in (range(C - 1, -1, -1) if upper else range(C)):
+        sel = np.nonzero(g_tc == c)[0]
+        levels.append((int(c), tuple(sorted(
+            (int(g_sc[g]), int(g_dl[g]), int(g)) for g in sel))))
+    dtype = torch_dtype(dtype)
+    as_t = lambda a: torch.from_numpy(a).to(dtype=dtype,  # noqa: E731
+                                            device=device)
+    return BlockedTriSolve(
+        vals=as_t(vals_np), dinv=as_t(dinv_np),
+        d=None if d_np is None else as_t(d_np), n_rows=n, n_colors=C, m=m,
+        R_b=R_b, levels=tuple(levels), spec_kind=spec.kind,
+        spec_params=tuple(int(p) for p in spec.params))
+
+
+def build_best_trisolve_pair(T, D_L, D_U, colors, spec, *,
+                             dtype=torch.float32, need_d: bool = False,
+                             device="cuda"):
+    """The (lower, upper) pair in one layout, the entries expanded once."""
+    trip = _entries_of(T)
+    return (build_blocked_trisolve(trip, D_L, colors, spec, upper=False,
+                                   dtype=dtype, need_d=need_d,
+                                   device=device),
+            build_blocked_trisolve(trip, D_U, colors, spec, upper=True,
+                                   dtype=dtype, device=device))
+
+
+def permute_blocks(B: BlockedTriSolve, y: torch.Tensor) -> torch.Tensor:
+    """Flat (n,) → the (C, M) colour blocks, rank-ordered, zero-padded."""
+    k, m = B.spec_params[0], B.m
+    arr = torch.nn.functional.pad(y, (0, k * m - B.n_rows)).view(m, k).t()
+    return torch.nn.functional.pad(arr, (0, B.M - m)).contiguous()
+
+
+def unpermute_blocks(B: BlockedTriSolve, X: torch.Tensor) -> torch.Tensor:
+    """The (C, M) colour blocks → flat (n,)."""
+    k, m = B.spec_params[0], B.m
+    return X[:, :m].t().reshape(k * m)[:B.n_rows]
+
+
+def _check_rank_level(B: BlockedTriSolve, li: int, Y, X):
+    if not 0 <= li < len(B.levels):
+        raise IndexError(f"level {li} of {len(B.levels)}")
+    for name, v in (("y", Y), ("x", X)):
+        if not isinstance(v, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if v.shape != (B.n_colors, B.M):
+            raise ValueError(f"{name} has shape {tuple(v.shape)}, expected "
+                             f"{(B.n_colors, B.M)}")
+        if v.dtype != B.dtype:
+            raise TypeError(f"{name} is {v.dtype}, the solve {B.dtype}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if v.device != B.dinv.device:
+            raise ValueError(f"{name} is on {v.device}, the solve on "
+                             f"{B.dinv.device}")
+
+
+def rank_level_plain(B: BlockedTriSolve, li: int, Y: torch.Tensor,
+                     X: torch.Tensor) -> torch.Tensor:
+    """Plain version of the level kernel (the JAX package's _level_xla):
+    X[c] = (Y[c] − Σ_g vals_g·roll(X[src], −Δ))·dinv[c] for level li's
+    colour c, in place; returns X.  roll wraps, but a wrapped slot always
+    multiplies a zero value."""
+    _check_rank_level(B, li, Y, X)
+    c, groups = B.levels[li]
+    acc = Y[c]
+    for sc, delta, g in groups:
+        acc = acc - B.vals[g] * torch.roll(X[sc], -delta)
+    X[c] = acc * B.dinv[c]
+    return X
+
+
+def _rank_table(B: BlockedTriSolve, li: int, device) -> torch.Tensor:
+    key = (li, str(device))
+    if key not in B._tables:
+        B._tables[key] = torch.tensor(
+            [list(g) for g in B.levels[li][1]], dtype=torch.int64,
+            device=device).reshape(-1).contiguous()
+    return B._tables[key]
+
+
+def rank_level(B: BlockedTriSolve, li: int, Y: torch.Tensor,
+               X: torch.Tensor) -> torch.Tensor:
+    """Solve level li of B in place: X[c] for its colour c from Y[c] and
+    the colours of X already solved; returns X.  Y may be X itself.
+
+    A CUDA tensor goes through the hand-written kernel, one launch per
+    level with groups, counted in `rank_level.launches`; a CPU tensor takes
+    the plain version."""
+    _check_rank_level(B, li, Y, X)
+    if X.device.type == "cpu":
+        return rank_level_plain(B, li, Y, X)
+    if X.device.type != "cuda":
+        raise ValueError(f"no rank-space level for device {X.device}")
+    from .._build import load_library
+    if X.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the rank-space kernel takes float32 or float64, "
+                        f"not {X.dtype}")
+    c, groups = B.levels[li]
+    table = _rank_table(B, li, X.device)
+    lib = load_library()
+    fn = lib.bis_rank_level_f32 if X.dtype == torch.float32 \
+        else lib.bis_rank_level_f64
+    err = fn(X.device.index, Y.data_ptr(), X.data_ptr(), B.vals.data_ptr(),
+             B.dinv.data_ptr(), table.data_ptr(), len(groups), B.M, c,
+             torch.cuda.current_stream(X.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rank_level kernel launch failed with CUDA "
+                           f"error {err}")
+    rank_level.launches += 1
+    return X
+
+
+rank_level.launches = 0
+
+
+def solve_blocks(B: BlockedTriSolve, Y: torch.Tensor,
+                 X: torch.Tensor) -> torch.Tensor:
+    """All levels in order into X (which may be Y): a colour with no groups
+    is Y·dinv in torch, the others one `rank_level` each."""
+    for li, (c, groups) in enumerate(B.levels):
+        if groups:
+            rank_level(B, li, Y, X)
+        else:
+            X[c] = Y[c] * B.dinv[c]
+    return X
+
+
 # ---------------------------------------------------------------------------
 # Whole solves
 # ---------------------------------------------------------------------------
@@ -730,27 +1019,36 @@ def _solve_super(B: SuperBlockTriSolve, y: torch.Tensor,
     return x
 
 
-def blocked_trisolve(B: SuperBlockTriSolve, y: torch.Tensor) -> torch.Tensor:
+def blocked_trisolve(B, y: torch.Tensor) -> torch.Tensor:
     """x = (T_c + D)⁻¹y: the exact GS solve of the colour-sorted ordering,
     the same action as coloring.colored_sweep from zero."""
+    if isinstance(B, BlockedTriSolve):
+        Y = permute_blocks(B, y)
+        return unpermute_blocks(B, solve_blocks(B, Y, Y))
     return _solve_super(B, y, torch.empty_like(y))
 
 
-def blocked_sgs(L: SuperBlockTriSolve, U: SuperBlockTriSolve,
-                y: torch.Tensor) -> torch.Tensor:
-    """(U_c+D)⁻¹ D (L_c+D)⁻¹ y, the exact coloured symmetric GS apply: S
-    levels of L, the multiply by D, S levels of U in place (L must be
+def blocked_sgs(L, U, y: torch.Tensor) -> torch.Tensor:
+    """(U_c+D)⁻¹ D (L_c+D)⁻¹ y, the exact coloured symmetric GS apply: the
+    levels of L, the multiply by D, the levels of U in place (L must be
     built with need_d=True)."""
     if L.d is None:
         raise ValueError("blocked_sgs needs L built with need_d=True")
+    if isinstance(L, BlockedTriSolve):
+        T = solve_blocks(L, permute_blocks(L, y), torch.empty(
+            (L.n_colors, L.M), dtype=y.dtype, device=y.device)) * L.d
+        return unpermute_blocks(U, solve_blocks(U, T, T))
     t = blocked_trisolve(L, y) * L.d
     return _solve_super(U, t, t)
 
 
-def blocked_ilu0(L: SuperBlockTriSolve, U: SuperBlockTriSolve,
-                 y: torch.Tensor) -> torch.Tensor:
-    """U⁻¹L⁻¹y with unit-diagonal L, the coloured ILU(0) apply: the S
-    levels of L, then the S levels of U in place on the same vector."""
+def blocked_ilu0(L, U, y: torch.Tensor) -> torch.Tensor:
+    """U⁻¹L⁻¹y with unit-diagonal L, the coloured ILU(0) apply: the levels
+    of L, then the levels of U in place on the same state."""
+    if isinstance(L, BlockedTriSolve):
+        X = solve_blocks(L, permute_blocks(L, y), torch.empty(
+            (L.n_colors, L.M), dtype=y.dtype, device=y.device))
+        return unpermute_blocks(U, solve_blocks(U, X, X))
     if not (L.is_table and U.is_table):
         raise ValueError("blocked_ilu0 needs a factor-table pair "
                          "(build_superblock_ilu0_pair_stencil)")

@@ -469,6 +469,18 @@ def anderson_operator(Lx: int, Ly: int = None, Lz: int = None,
 _GEN_RE = re.compile(r"^(scamac|hpcg|fdm|anderson):(.*)$", re.IGNORECASE)
 
 
+def stencil_buildable(source: str) -> bool:
+    """True when from_source_operator can build this spec."""
+    m = _GEN_RE.match(source)
+    if not m:
+        return False
+    kind = m.group(1).lower()
+    if kind == "scamac":
+        from .generators import _split_scamac_spec
+        return _split_scamac_spec(m.group(2))[0] == "anderson"
+    return True
+
+
 def from_source_operator(source: str, dtype=torch.float32, *,
                          device="cuda") -> DeviceStencil:
     """Matrix-free operator for a generator spec: `hpcg:NXxNYxNZ`,

@@ -48,7 +48,23 @@ exits non-zero:
      iterations) and 384^3 (100), fused and, at 384^3, split
      (BIS_SB_ALIGNED=0), counting every kernel's launches, with set-up
      seconds and peak memory; then a float64 CG + ILU(0) solve to
-     convergence.
+     convergence;
+ 18. the DIA SpMV kernel against its plain version on the DIA operators of
+     HPCG 128^3 (f32, f64) and 384^3 (f32) built on the card, with the
+     library's CSR SpMV of the same matrix;
+ 19. the lane-ELL SpMV kernel against its plain version on
+     sband:500000,8,400 (f32, f64), with the library's CSR SpMV;
+ 20. the rank-space level kernel against its plain version on every level
+     with groups of the SGS pair of band:8388608,2 (f32, f64), whole
+     applies against the CPU's, and torch.triangular_solve's whole L
+     solve;
+ 21. the same DIA, lane-ELL and rank-space solves on the CPU and on the
+     card (f64, small sizes);
+ 22. the fifth slice's paths: DIA CG at 128^3 (2500 iterations) and 384^3
+     (150), cg@sband on lane-ELL (400) and the gather ELL (40),
+     pbicgstab@band (800), counting every kernel's launches, with set-up
+     seconds; then natural-order f64 CG + SGS and CG + ILU(0) on fdm:256
+     on the CPU and on the card, equal iteration counts.
 The second-to-last line is a JSON object describing each kernel: launches
 on the main paths, error against plain, kernel, plain and library times,
 and the bound (the larger of the bytes it must move over the card's
@@ -1204,6 +1220,453 @@ def phase_slice4_path(torch, bt):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 5: DIA, lane-ELL, rank-space levels, natural-order level solves
+# ---------------------------------------------------------------------------
+
+DIA_384 = "hpcg:384x384x384"
+#: the JAX bench's cg@sband matrix (bench.py:295-331) and the rank-space
+#: row's band (bench pbicgstab's budget, bench.py:83-86)
+SBAND = "sband:500000,8,400"
+BAND = "band:8388608,2"
+
+
+def _sparse_counters(bt, reset=False):
+    """The launch counts of the slice-5 kernels (`reset`: set to 0
+    first)."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.ops import dia_spmv, lane_ell
+    fns = {"dia_spmv": dia_spmv.dia_spmv,
+           "lane_ell_spmv": lane_ell.lane_ell_spmv,
+           "rank_level": bk.rank_level,
+           "stencil_spmv": bt.stencil_op.stencil_spmv}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def _csr_on_card(torch, A, dtype):
+    """A host MatrixCSR as a torch.sparse_csr_tensor on the card."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.row_ptr).cuda(),
+        torch.from_numpy(A.col.astype("int64")).cuda(),
+        torch.from_numpy(A.val).to(dtype=dtype, device="cuda"),
+        (A.n_rows, A.n_cols))
+
+
+def _kernel_vs_plain(torch, tag, label, kernel, plain, counter, x,
+                     plain_reps=20):
+    """kernel(x) against plain(x) on the card, bit for bit, both timed;
+    one launch counted per kernel call.  Returns (max_abs_err, ms,
+    plain_ms)."""
+    before = counter.launches
+    yk, yp = kernel(x), plain(x)
+    torch.cuda.synchronize()
+    if counter.launches != before + 1:
+        raise RuntimeError(f"{tag}: the launch count did not grow")
+    err = float((yk - yp).abs().max())
+    equal = torch.equal(yk, yp)
+    ms = _median_ms(lambda: kernel(x), torch)
+    plain_ms = _median_ms(lambda: plain(x), torch, reps=plain_reps,
+                          batch=max(1, plain_reps // 2))
+    print(f"[{tag}] {label}: bit_equal={equal} max_abs_err={err:.3e} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    if not equal:
+        raise RuntimeError(f"{tag} {label}: kernel disagrees with plain")
+    return err, ms, plain_ms
+
+
+def phase_dia_vs_plain(torch, bt):
+    """Kernel #4 against its plain version, bit for bit, on the DIA
+    operators of HPCG 128^3 (f32, f64) and 384^3 (f32) built on the card;
+    the library's CSR SpMV of the same matrix beside it.  Returns the
+    128^3 f32 record."""
+    from basic_iterative_solvers_tpu_torch.ops import dia_spmv as ds
+    record = None
+    for spec, dt in ((MAIN_SPEC, torch.float32), (MAIN_SPEC, torch.float64),
+                     (DIA_384, torch.float32)):
+        t0 = time.perf_counter()
+        A = bt.dia.from_source_device(spec, dt, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        x = torch.randn(A.n_rows, dtype=dt, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6))
+        label = (f"{spec} {str(dt)[6:]} ({len(A.offsets)} diagonals, built "
+                 f"on the card in {build_s:.3f} s)")
+        err, ms, plain_ms = _kernel_vs_plain(
+            torch, "dia", label, lambda v: ds.dia_spmv(A, v),
+            lambda v: ds.dia_spmv_plain(A, v), ds.dia_spmv, x,
+            plain_reps=20 if spec == MAIN_SPEC else 4)
+        k, n, item = len(A.offsets), A.n_rows, x.element_size()
+        bound = _bound(bt.device_matrix.device_matrix_nnz_bytes(A)
+                       + 2 * n * item, 2 * k * n)
+        print(f"[dia] {spec} {str(dt)[6:]} bound_ms={bound['bound_ms']:.4f} "
+              f"({bound['bound_by']}: {k} diagonals + x + y, "
+              f"{item * (k + 2) * n / 1e6:.1f} MB) kernel_GB/s="
+              f"{item * (k + 2) * n / (ms * 1e6):.0f}")
+        if (spec, dt) == (MAIN_SPEC, torch.float32):
+            So = bt.stencil_op.from_source_operator(spec, dt, device="cuda")
+            M = _stencil_csr(torch, So)
+            del So
+            lib_ms = _median_ms(lambda: M @ x, torch)
+            lib_rel = float((M @ x - ds.dia_spmv(A, x)).abs().max()
+                            / ds.dia_spmv(A, x).abs().max())
+            print(f"[library] {spec} f32 torch.sparse_csr_tensor @ x of the "
+                  f"same matrix: ms={lib_ms:.4f} max_rel_err={lib_rel:.3e}")
+            if not lib_rel <= TOL["float32"]:
+                raise RuntimeError("the library SpMV disagrees")
+            del M
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, **bound}
+        del A, x
+        torch.cuda.empty_cache()
+    return record
+
+
+def phase_lane_ell_vs_plain(torch, bt):
+    """Kernel #5 against its plain version, bit for bit, on the lane-ELL
+    planes of sband:500000,8,400 (f32, f64), with the library's CSR SpMV
+    of the same matrix.  Returns the f32 record and the host matrix."""
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell as le
+    t0 = time.perf_counter()
+    A = bt.generators.from_source(SBAND)
+    gen_s = time.perf_counter() - t0
+    record = None
+    for dt in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        M = bt.from_csr(A, dt, "lane_ell", device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        x = torch.randn(A.n_rows, dtype=dt, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(7))
+        label = (f"{SBAND} {str(dt)[6:]} (nnz {A.nnz}, K={M.K}, S={M.S}, "
+                 f"R={M.R}; host CSR {gen_s:.2f} s, planes {build_s:.2f} s)")
+        err, ms, plain_ms = _kernel_vs_plain(
+            torch, "lane-ell", label, lambda v: le.lane_ell_spmv(M, v),
+            lambda v: le.lane_ell_spmv_plain(M, v), le.lane_ell_spmv, x)
+        n, item = A.n_rows, x.element_size()
+        nbytes = M.K * n * (item + 4) + 2 * n * item
+        bound = _bound(nbytes, 2 * M.K * n)
+        csr_bytes = A.nnz * (item + 4) + 2 * n * item
+        print(f"[lane-ell] {SBAND} {str(dt)[6:]} bound_ms="
+              f"{bound['bound_ms']:.4f} ({bound['bound_by']}: {M.K} slots x "
+              f"{n} rows x {item + 4} B + x + y = {nbytes / 1e6:.1f} MB; the "
+              f"CSR itself {csr_bytes / 1e6:.1f} MB, padding "
+              f"{nbytes / csr_bytes:.2f}x) kernel_GB/s="
+              f"{nbytes / (ms * 1e6):.0f}")
+        if dt == torch.float32:
+            C = _csr_on_card(torch, A, dt)
+            lib_ms = _median_ms(lambda: C @ x, torch)
+            y = le.lane_ell_spmv(M, x)
+            lib_rel = float((C @ x - y).abs().max() / y.abs().max())
+            print(f"[library] {SBAND} f32 torch.sparse_csr_tensor @ x: "
+                  f"ms={lib_ms:.4f} max_rel_err={lib_rel:.3e}")
+            if not lib_rel <= TOL["float32"]:
+                raise RuntimeError("the library SpMV disagrees")
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, **bound}
+            del C
+        del M, x
+    torch.cuda.empty_cache()
+    return record, A
+
+
+def _rank_level_work(B, li, itemsize):
+    """(bytes, operations) of one rank-space level over the m real slots:
+    y, dinv and each group's value plane read once, each source colour's
+    x once, x written once; a product and a difference per group and
+    slot, and the pivot multiply."""
+    _c, groups = B.levels[li]
+    n_src = len({sc for sc, _d, _g in groups})
+    return (itemsize * B.m * (3 + len(groups) + n_src),
+            B.m * (2 * len(groups) + 1))
+
+
+def _band_lower_csr(torch, A, colors):
+    """(L_c + D) of the colour-sorted ordering as a torch.sparse_csr_tensor
+    on the card, and the permutation (new → old)."""
+    import numpy as np
+    from basic_iterative_solvers_tpu_torch.coloring import colors_to_perm
+    perm, inv = colors_to_perm(colors)
+    rows, cols = A.rows(), A.col.astype(np.int64)
+    keep = (colors[cols] < colors[rows]) | (rows == cols)
+    r, c = inv[rows[keep]].astype(np.int64), inv[cols[keep]].astype(np.int64)
+    order = np.lexsort((c, r))
+    crow = np.zeros(A.n_rows + 1, dtype=np.int64)
+    np.cumsum(np.bincount(r, minlength=A.n_rows), out=crow[1:])
+    M = torch.sparse_csr_tensor(
+        torch.from_numpy(crow).cuda(), torch.from_numpy(c[order]).cuda(),
+        torch.from_numpy(A.val[keep][order]).float().cuda(),
+        (A.n_rows, A.n_rows))
+    return M, torch.from_numpy(perm.astype(np.int64)).cuda()
+
+
+def phase_rankspace_vs_plain(torch, bt):
+    """Kernel #8 against its plain version, bit for bit, on every level
+    with groups of the SGS pair of band:8388608,2 under its mod-3
+    colouring (f32, f64), each timed, and whole blocked_sgs applies on the
+    card against the plain solve on the CPU; one whole L solve through
+    torch.triangular_solve on the sparse colour-sorted triangle beside
+    blocked_trisolve.  Returns the f32 record (ms: the mean level) and the
+    host matrix."""
+    import numpy as np
+    from basic_iterative_solvers_tpu_torch.coloring import spec_colors_np
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    t0 = time.perf_counter()
+    A = bt.generators.from_source(BAND)
+    spec = bt.generators.color_spec_for_source(BAND)
+    colors = spec_colors_np(spec, A.n_rows)
+    D = A.diagonal()
+    gen_s = time.perf_counter() - t0
+    record = None
+    for dt in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        L, U = bk.build_best_trisolve_pair(A, D, D, colors, spec, dtype=dt,
+                                           need_d=True, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        g = torch.Generator(device="cuda").manual_seed(8)
+        Y = torch.randn((L.n_colors, L.M), dtype=dt, device="cuda",
+                        generator=g)
+        X = torch.randn((L.n_colors, L.M), dtype=dt, device="cuda",
+                        generator=g)
+        ms, plain_ms, worst, works = [], [], 0.0, []
+        for B in (L, U):
+            for li, (c, groups) in enumerate(B.levels):
+                if not groups:
+                    continue
+                label = (f"{BAND} {str(dt)[6:]} {'U' if B is U else 'L'} "
+                         f"level {li} (colour {c}, {len(groups)} groups; "
+                         f"host CSR {gen_s:.2f} s, pair {build_s:.2f} s)")
+                e, k, p = _kernel_vs_plain(
+                    torch, "rankspace", label,
+                    lambda v: bk.rank_level(B, li, Y, v.clone()),
+                    lambda v: bk.rank_level_plain(B, li, Y, v.clone()),
+                    bk.rank_level, X, plain_reps=6)
+                worst, ms, plain_ms = max(worst, e), ms + [k], plain_ms + [p]
+                works.append(_rank_level_work(B, li, X.element_size()))
+        y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        before = bk.rank_level.launches
+        zk = bk.blocked_sgs(L, U, y)
+        launches = bk.rank_level.launches - before
+        Lc, Uc = (dataclasses.replace(B, vals=B.vals.cpu(), dinv=B.dinv.cpu(),
+                                      d=None if B.d is None else B.d.cpu(),
+                                      _tables={}) for B in (L, U))
+        zp = bk.blocked_sgs(Lc, Uc, y.cpu()).cuda()
+        apply_ms = _median_ms(lambda: bk.blocked_sgs(L, U, y), torch)
+        print(f"[rankspace] {BAND} {str(dt)[6:]} blocked_sgs ({launches} "
+              f"level launches) against the CPU's plain solve: "
+              f"bit_equal={torch.equal(zk, zp)} ms={apply_ms:.4f}")
+        if not torch.equal(zk, zp) or launches != 4:
+            raise RuntimeError(f"{BAND} {dt}: blocked_sgs disagrees or took "
+                               f"{launches} level launches, not 4")
+        if dt == torch.float32:
+            record = {"max_abs_err": worst, "ms": statistics.mean(ms),
+                      "plain_ms": statistics.mean(plain_ms),
+                      **_mean_bound(works)}
+            Mlib, perm = _band_lower_csr(torch, A, colors)
+            ref = bk.blocked_trisolve(L, y)[perm]
+            yp = y[perm].unsqueeze(1).contiguous()
+            sol = torch.triangular_solve(yp, Mlib, upper=False).solution
+            rel = float((sol[:, 0] - ref).abs().max() / ref.abs().max())
+            lib_ms = _median_ms(
+                lambda: torch.triangular_solve(yp, Mlib, upper=False),
+                torch, reps=5, batch=2)
+            own_ms = _median_ms(lambda: bk.blocked_trisolve(L, y), torch)
+            # a level has no one-call library counterpart (as #9): the
+            # whole L solve is printed beside blocked_trisolve instead
+            record["library_ms"] = None
+            print(f"[library] {BAND} f32 one whole L solve (nnz "
+                  f"{Mlib.values().numel()}): torch.triangular_solve on the "
+                  f"colour-sorted sparse CSR triangle ms={lib_ms:.4f} "
+                  f"max_rel_err={rel:.3e}; blocked_trisolve (2 level "
+                  f"launches, permutes) ms={own_ms:.4f}")
+            if not rel <= TOL["float32"]:
+                raise RuntimeError("the library's L solve disagrees")
+            del Mlib
+        del L, U, Lc, Uc, X, Y, y, zk, zp
+        torch.cuda.empty_cache()
+    return record, A
+
+
+def _host_solve(torch, bt, A, device, dt, method, precond="NONE", **kw):
+    """preprocessing(A) and solve on `device`, b = 2, x0 = 1, fused;
+    returns (result, setup, set-up seconds)."""
+    cfg = bt.SolverConfig(method=bt.SolverType[method],
+                          preconditioner=bt.PrecondType[precond], dtype=dt,
+                          harness="fused", **kw)
+    n = A.n_rows
+    t0 = time.perf_counter()
+    setup = bt.preprocessing(
+        A, cfg, b=torch.full((n,), 2.0, dtype=dt, device=device),
+        x0=torch.full((n,), 1.0, dtype=dt, device=device), device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return setup, time.perf_counter() - t0
+
+
+def phase_cpu_vs_card_slice5(torch, bt):
+    """f64 solves on the CPU and on the card at small sizes, one per new
+    path: DIA CG on HPCG 32^3 (device builder), lane-ELL CG on
+    sband:20000,8,400, rank-space BiCGSTAB + SGS on band:30000,2: the
+    same iteration counts, histories as _check_history says."""
+    cases = [("DIA CG", "hpcg:32x32x32", None),
+             ("lane-ELL CG", "sband:20000,8,400",
+              dict(method="CONJUGATE_GRADIENT", matrix_format="lane_ell")),
+             ("rank-space BiCGSTAB + SGS", "band:30000,2",
+              dict(method="BICGSTAB", precond="SYMMETRIC_GAUSS_SEIDEL",
+                   gs_mode="colored"))]
+    for label, spec, kw in cases:
+        res = {}
+        for dev in ("cpu", "cuda"):
+            if kw is None:
+                A = bt.dia.from_source_device(spec, torch.float64,
+                                              device=dev)
+                n = A.n_rows
+                res[dev] = bt.solve(bt.preprocessing_device(
+                    A, bt.SolverConfig(dtype=torch.float64, harness="fused",
+                                       tolerance=1e-10),
+                    b=torch.full((n,), 2.0, dtype=torch.float64, device=dev),
+                    x0=torch.full((n,), 1.0, dtype=torch.float64,
+                                  device=dev)))
+                continue
+            k = dict(kw)
+            if k.get("gs_mode") == "colored":
+                k["color_spec"] = bt.generators.color_spec_for_source(spec)
+            setup, _s = _host_solve(torch, bt, bt.generators.from_source(spec),
+                                    dev, torch.float64, tolerance=1e-10,
+                                    **k)
+            res[dev] = bt.solve(setup)
+        c, g = res["cpu"], res["cuda"]
+        print(f"[cpu-vs-card-slice5] {spec} f64 {label}: iters "
+              f"cpu={c.iter_count} card={g.iter_count} final "
+              f"cpu={c.final_residual_norm:.6e} "
+              f"card={g.final_residual_norm:.6e}")
+        if c.iter_count != g.iter_count or not (c.converged and g.converged):
+            raise RuntimeError(f"{label}: CPU and card solves differ")
+        _check_history(g, c)
+
+
+def _timed_row(torch, bt, tag, label, setup, setup_s, expect):
+    """Warm-up solve, every counter to 0, the timed solve, the counters
+    read; prints the row and checks `expect(res, counts)`.  Returns the
+    counts."""
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    import math
+    solver = make_method(setup)
+    bt.solve(setup, method=solver)                    # warm-up solve
+    _sparse_counters(bt, reset=True)
+    res = bt.solve(setup, method=solver)
+    counts = _sparse_counters(bt)
+    ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
+    per_iter = {k: round(v / max(1, res.iter_count), 3)
+                for k, v in counts.items() if v}
+    print(f"[{tag}] {label}: iters={res.iter_count} ms/iter={ms:.5f} "
+          f"setup_s={setup_s:.3f} r0={res.residual_norms[0]:.6e} "
+          f"final_explicit_f64={res.final_residual_norm:.6e} "
+          f"launches={counts} launches/iter={per_iter}")
+    if not (math.isfinite(res.final_residual_norm)
+            and bool(torch.isfinite(res.x_star).all())
+            and expect(res, counts)):
+        raise RuntimeError(f"{tag} {label} failed its checks")
+    return counts
+
+
+def phase_slice5_path(torch, bt, sband, band):
+    """The slice's paths on the card, f32, fused harness, tolerance 0,
+    b = 2, x0 = 1, each after a warm-up solve with every counter set to 0
+    just before the timed solve and read just after:
+      DIA CG on HPCG 128^3 (2500 iterations) and 384^3 (150), built on the
+      card (dia.from_source_device → preprocessing_device);
+      cg@sband: preprocessing(matrix_format="lane_ell"), 400 iterations,
+      then the gather ELL ("ell"), 40;
+      pbicgstab@band: BiCGSTAB + SGS, gs_mode="colored", the band's mod-3
+      colour spec (preprocessing → build_best_trisolve_pair), 800;
+    then natural-order f64 CG + SGS and CG + ILU(0) on fdm:256 to 1e-8 on
+    the CPU and on the card, equal iteration counts.  Returns the launches
+    of each kernel in its row."""
+    P = bt.PrecondType
+    launches = {}
+    for spec, iters in ((MAIN_SPEC, 2500), (DIA_384, 150)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        A = bt.dia.from_source_device(spec, torch.float32, device="cuda")
+        n = A.n_rows
+        setup = bt.preprocessing_device(
+            A, bt.SolverConfig(dtype=torch.float32, harness="fused",
+                               tolerance=0.0, max_iters=iters,
+                               breakdown_stall=True),
+            b=torch.full((n,), 2.0, device="cuda"),
+            x0=torch.full((n,), 1.0, device="cuda"))
+        torch.cuda.synchronize()
+        counts = _timed_row(
+            torch, bt, "slice5", f"{spec} f32 DIA CG fused", setup,
+            time.perf_counter() - t0,
+            lambda r, c: (r.iter_count == iters and c["dia_spmv"] >= iters
+                          and c["stencil_spmv"] == 0))
+        if spec == MAIN_SPEC:
+            launches["dia_spmv"] = counts["dia_spmv"]
+        del A, setup
+    for fmt, iters in (("lane_ell", 400), ("ell", 40)):
+        setup, setup_s = _host_solve(
+            torch, bt, sband, "cuda", torch.float32, "CONJUGATE_GRADIENT",
+            matrix_format=fmt, tolerance=0.0, max_iters=iters,
+            breakdown_stall=True)
+        kind = type(setup.A).__name__
+        counts = _timed_row(
+            torch, bt, "slice5", f"{SBAND} f32 cg@sband {fmt} ({kind})",
+            setup, setup_s,
+            lambda r, c: (r.iter_count == iters and (
+                c["lane_ell_spmv"] >= iters if fmt == "lane_ell"
+                else c["lane_ell_spmv"] == 0)))
+        if fmt == "lane_ell":
+            launches["lane_ell_spmv"] = counts["lane_ell_spmv"]
+        del setup
+    setup, setup_s = _host_solve(
+        torch, bt, band, "cuda", torch.float32, "BICGSTAB",
+        "SYMMETRIC_GAUSS_SEIDEL", gs_mode="colored",
+        color_spec=bt.generators.color_spec_for_source(BAND), tolerance=0.0,
+        max_iters=800, breakdown_stall=True)
+    if type(setup.M.L_block).__name__ != "BlockedTriSolve":
+        raise RuntimeError("pbicgstab@band did not take the rank-space "
+                           "route")
+    counts = _timed_row(
+        torch, bt, "slice5", f"{BAND} f32 pbicgstab@band (rank-space SGS, "
+        f"{type(setup.A).__name__})", setup, setup_s,
+        lambda r, c: (r.iter_count == 800
+                      and c["rank_level"] == 4 * (2 * 800 + 1)
+                      and c["dia_spmv"] >= 2 * 800))
+    launches["rank_level"] = counts["rank_level"]
+    del setup
+    torch.cuda.empty_cache()
+
+    A = bt.generators.from_source("fdm:256")
+    for precond in ("SYMMETRIC_GAUSS_SEIDEL", "ILU0"):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            setup, setup_s = _host_solve(torch, bt, A, dev, torch.float64,
+                                         "CONJUGATE_GRADIENT", precond,
+                                         tolerance=1e-8, max_iters=2000)
+            res[dev] = (bt.solve(setup), setup_s, setup.M.L_solve.n_levels)
+        (c, cs, lv), (g, gs, _lv) = res["cpu"], res["cuda"]
+        r0 = g.residual_norms[0]
+        print(f"[slice5] fdm:256 f64 CG + {P[precond].value} natural order "
+              f"({lv} levels per triangular solve) to tol 1e-8: iters "
+              f"cpu={c.iter_count} card={g.iter_count} "
+              f"final_explicit/r0 card={g.final_residual_norm / r0:.3e} "
+              f"ms/iter cpu={1e3 * c.solve_seconds / c.iter_count:.3f} "
+              f"card={1e3 * g.solve_seconds / g.iter_count:.3f} setup_s "
+              f"cpu={cs:.2f} card={gs:.2f}")
+        if (c.iter_count != g.iter_count
+                or not (c.converged and g.converged)
+                or g.final_residual_norm > 10 * 1e-8 * r0):
+            raise RuntimeError(f"fdm:256 CG + {precond}: CPU and card "
+                               "differ or did not converge")
+        _check_history(g, c)
+    return launches
+
+
 def main():
     import torch
     name = phase_device(torch)
@@ -1225,6 +1688,11 @@ def main():
     split_records, ab = phase_split_vs_plain(torch, bt)
     phase_cpu_vs_card_ilu0(torch, bt)
     slice4_launches = phase_slice4_path(torch, bt)
+    dia_record = phase_dia_vs_plain(torch, bt)
+    lane_record, sband = phase_lane_ell_vs_plain(torch, bt)
+    rank_record, band = phase_rankspace_vs_plain(torch, bt)
+    phase_cpu_vs_card_slice5(torch, bt)
+    slice5_launches = phase_slice5_path(torch, bt, sband, band)
     print(f"[summary] whole L solve at {MAIN_SPEC} f32: "
           f"torch.triangular_solve {whole_l['library_ms']:.4f} ms, "
           f"blocked_trisolve {whole_l['blocked_trisolve_ms']:.4f} ms; "
@@ -1269,6 +1737,17 @@ def main():
             "launches_by_row": {row: counts[kernel] for row, counts
                                 in slice4_launches.items() if counts[kernel]},
             **record})
+    for kernel, source, line, record in (
+            ("dia_spmv", "sparse_spmv.cu", "ops/pallas_spmv.py:72",
+             dia_record),
+            ("lane_ell_spmv", "sparse_spmv.cu", "ops/lane_ell.py:189",
+             lane_record),
+            ("rank_level", "block_trisolve.cu", "ops/block_trisolve.py:357",
+             rank_record)):
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": src + source,
+            "replaces": "basic_iterative_solvers_tpu/" + line,
+            "launches": slice5_launches[kernel], **record})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

@@ -114,7 +114,8 @@ def test_cg_fdm16_golden(harness):
     res = bt.solve_system("fdm:16", "cg", harness=harness,
                           tolerance=d["tol"], max_iters=d["max_iters"],
                           b_val=d["b_val"], init_x_val=d["init_x_val"],
-                          res_check_len=d["res_check_len"], device=CPU)
+                          res_check_len=d["res_check_len"],
+                          matrix_format="stencil", device=CPU)
     assert res.iter_count == g["iterations"] == 34
     assert res.converged
     golden = np.asarray(g["norms"])

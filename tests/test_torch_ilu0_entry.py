@@ -33,9 +33,9 @@ def test_solve_system_cg_ilu0_matches_jax(spec, iters):
 def test_ilu0_refused_off_the_grid_stencils(spec):
     """Red-black FDM and Anderson (a dense diagonal) have no factor-table
     pair: preprocessing_device raises ValueError naming the host-CSR path
-    in both packages, and the port's solve_system raises
-    NotImplementedError naming ROADMAP slice 5 (the JAX package takes its
-    host-CSR route there)."""
+    in both packages, and so does solve_system on the port's stencil; from
+    the spec, solve_system takes the host-CSR route in both packages
+    (natural-order ILU(0)) and both converge in the same count."""
     Aj = bis.stencil_op.from_source_operator(spec, dtype=np.float64)
     At = bt.stencil_op.from_source_operator(spec, torch.float64, device=CPU)
     with pytest.raises(ValueError, match="host CSR path"):
@@ -45,7 +45,9 @@ def test_ilu0_refused_off_the_grid_stencils(spec):
         bt.preprocessing_device(At, bt.SolverConfig(
             preconditioner=bt.PrecondType.ILU0, dtype=torch.float64))
     assert not bt.ilu0_device_eligible(At, bt.SolverConfig())
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        bt.solve_system(spec, "cg", "ilu0", device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    rj = bis.solve_system(spec, "cg", "ilu0", dtype=np.float64,
+                          tolerance=1e-8)
+    rt = bt.solve_system(spec, "cg", "ilu0", tolerance=1e-8, device=CPU)
+    assert rt.converged and rt.iter_count == rj.iter_count
+    with pytest.raises(ValueError, match="host CSR path"):
         bt.solve_system(At, "cg", "ilu0", device=CPU)

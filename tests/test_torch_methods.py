@@ -137,7 +137,8 @@ def test_golden_history(case, rtol, limit, check_iters, harness):
         max_iters=d["max_iters"], b_val=d["b_val"],
         init_x_val=d["init_x_val"], res_check_len=d["res_check_len"],
         precond_outer_iters=g.get("precond_outer_iters", 1),
-        precond_inner_iters=g.get("precond_inner_iters", 0), **kw, device=CPU)
+        precond_inner_iters=g.get("precond_inner_iters", 0), **kw,
+        matrix_format="stencil", device=CPU)
     assert res.converged == g["converged"]
     if check_iters:
         assert abs(res.iter_count + res.gmres_restart_count
@@ -156,7 +157,7 @@ def test_gmres_rl10_golden_counts_restarts():
     as the reference counts them."""
     res = bt.solve_system("fdm:16", "gm", "j", harness="fused",
                           tolerance=1e-14, b_val=1.0, init_x_val=0.1,
-                          device=CPU)
+                          matrix_format="stencil", device=CPU)
     assert res.converged
     assert res.iter_count + res.gmres_restart_count == 211
     assert res.gmres_restart_count == 19

@@ -33,7 +33,8 @@ def test_import_loads_no_jax():
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "need = {'matrix', 'permute', 'factor', 'ops.block_trisolve', "
-            "'_build'}\n"
+            "'_build', 'device_matrix', 'dia', 'io.mmio', 'ops.dia_spmv', "
+            "'ops.lane_ell', 'ops.trisolve', 'generators', 'convert'}\n"
             "assert {pkg.__name__ + '.' + n for n in need} <= set(names)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'basic_iterative_solvers_tpu' or "
@@ -43,14 +44,25 @@ def test_import_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout) >= 25
+    assert int(proc.stdout) >= 31
 
 
 def test_cpu_tensors_launch_no_kernel():
-    tso.stencil_spmv.launches = 0
-    res = bt.solve_system("hpcg:8x6x4", tolerance=1e-8, device=CPU)
+    from basic_iterative_solvers_tpu_torch.ops import (block_trisolve,
+                                                       dia_spmv, lane_ell)
+    counters = (tso.stencil_spmv, dia_spmv.dia_spmv, lane_ell.lane_ell_spmv,
+                block_trisolve.rank_level)
+    for fn in counters:
+        fn.launches = 0
+    res = bt.solve_system("hpcg:8x6x4", tolerance=1e-8,
+                          matrix_format="stencil", device=CPU)
     assert res.converged
-    assert tso.stencil_spmv.launches == 0
+    for source, kw in (("hpcg:8x6x4", {}), ("sband:1500,6,260", {}),
+                       ("band:61,2", dict(preconditioner="sgs",
+                                          gs_mode="colored"))):
+        assert bt.solve_system(source, tolerance=1e-8, device=CPU,
+                               **kw).converged
+    assert all(fn.launches == 0 for fn in counters)
 
 
 def test_planar_diag_decode_matches_jax():
