@@ -61,6 +61,8 @@ class SuperLevelArgs(ctypes.Structure):
         ("cross_coeff", ctypes.c_double * MAX_LEGS),
         ("self_coeff", ctypes.c_double * MAX_LEGS),
         ("dinv", ctypes.c_double),
+        ("cross_delta", ctypes.c_longlong * MAX_LEGS),
+        ("m", ctypes.c_longlong),
         ("cross_dx", ctypes.c_int * MAX_LEGS),
         ("cross_dy", ctypes.c_int * MAX_LEGS),
         ("cross_dz", ctypes.c_int * MAX_LEGS),
@@ -78,6 +80,9 @@ class SuperLevelArgs(ctypes.Structure):
         ("proto_x", ctypes.c_int), ("proto_y", ctypes.c_int),
         ("proto_z", ctypes.c_int),
         ("radius", ctypes.c_int), ("n_proto", ctypes.c_int),
+        ("cross_spy", ctypes.c_int * MAX_LEGS),
+        ("cross_spz", ctypes.c_int * MAX_LEGS),
+        ("mode", ctypes.c_int),
     ]
 
 
@@ -163,11 +168,13 @@ def load_library() -> ctypes.CDLL:
                        i32, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
         level = ctypes.POINTER(SuperLevelArgs)
-        for name, args in (("super_level", [ptr] * 5),
-                           ("super_acc", [ptr] * 5),
-                           ("super_parity", [i32] + [ptr] * 6)):
+        for name, args in (("super_level", [ptr] * 8),
+                           ("super_acc", [ptr] * 6),
+                           ("super_parity", [i32] + [ptr] * 8),
+                           ("super_solve_mega", [i32] * 4 + [ptr] * 4)):
             fn = getattr(lib, f"bis_{name}_{dt}")
-            fn.argtypes = [i32, level] + args
+            fn.argtypes = [i32, level if name != "super_solve_mega"
+                           else ptr] + args
             fn.restype = i32
         fn = getattr(lib, f"bis_dia_spmv_{dt}")
         fn.argtypes = [i32, ctypes.POINTER(DiaArgs), ptr, ptr, ptr, ptr]
@@ -178,6 +185,8 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"bis_rank_level_{dt}")
         fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr]
         fn.restype = i32
+    lib.bis_super_solve_mega_grid.argtypes = [i32] * 4
+    lib.bis_super_solve_mega_grid.restype = i32
     for size_fn, mirror, source in (
             (lib.bis_stencil_args_size, StencilArgs,
              "BisStencilArgs in csrc/stencil_spmv.cu"),

@@ -14,7 +14,8 @@ across: the translation tables of its `_ilu0_translation_tables` become
 the port's factor-table superblock pair.  The host-CSR path's objects come
 across the same way, from their fields as numpy arrays: `csr_from_numpy`,
 `dia_from_numpy` (the TPU row-tile padding cropped), `lane_ell_from_numpy`,
-`trisolve_levels_from_numpy` and `blocked_trisolve_from_numpy`.
+`trisolve_levels_from_numpy`, `blocked_trisolve_from_numpy` and
+`superblock_from_numpy` (a superblock pair built from host CSR).
 """
 from __future__ import annotations
 
@@ -162,3 +163,54 @@ def blocked_trisolve_from_numpy(vals, dinv, d, n_rows, n_colors, m, R_b,
         n_rows=int(n_rows), n_colors=int(n_colors), m=int(m), R_b=int(R_b),
         levels=levels, spec_kind=spec_kind,
         spec_params=tuple(int(p) for p in spec_params))
+
+
+def superblock_from_numpy(vals_cross, vals_self, dinv, d, n_rows, S, m, sx,
+                          levels, upper, spec_params, fused=True,
+                          const_cross=None, const_self=None, *, dtype,
+                          device):
+    """The port's SuperBlockTriSolve from a JAX SuperBlockTriSolve built
+    from host CSR (plane mode, or const mode with its diagonal per row):
+    each level's (G, R_b, 128) planes cropped to the m real slots, (G, m),
+    and the per-superblock dinv and d blocks (S of R_b·128 slots) turned
+    into per-row (n,) vectors.  An L whose diagonal is 1 on every row is
+    the L of an ILU(0) pair and is marked `unit`."""
+    from .coloring import _grid_coords
+    from .ops.block_trisolve import SuperBlockTriSolve, _reach_of
+    nx, ny, nz, sx_, sy, sz = (int(p) for p in spec_params)
+    n, m = int(n_rows), int(m)
+    X, Y, Z = _grid_coords(np.arange(n, dtype=np.int64), nx, ny)
+    SB = (Y % sy) + sy * (Z % sz)
+    SLOT = X + nx * ((Y // sy) + (ny // sy) * (Z // sz))
+
+    def rows_of(blocks):
+        return np.stack([np.asarray(b).reshape(-1) for b in blocks])[SB, SLOT]
+
+    def planes(v):
+        if v is None:
+            return None
+        v = np.asarray(v)
+        return _tensor(v.reshape(v.shape[0], -1)[:, :m], dtype, device)
+
+    levels = tuple((int(sb), tuple((int(s), int(dl)) for s, dl in cross),
+                    tuple(int(dx) for dx in selfs))
+                   for sb, cross, selfs in levels)
+    const = const_cross is not None
+    if const:
+        const_cross = tuple(tuple((float(c), int(a), int(b), int(e))
+                                  for c, a, b, e in lv) for lv in const_cross)
+        const_self = tuple(tuple((float(c), int(dx)) for c, dx in lv)
+                           for lv in const_self)
+    dinv_rows = rows_of(dinv)
+    return SuperBlockTriSolve(
+        n_rows=n, S=int(S), m=m, sx=int(sx), levels=levels, upper=bool(upper),
+        spec_params=(nx, ny, nz, sx_, sy, sz), dtype=torch_dtype(dtype),
+        reach=_reach_of(levels, const_cross if const else None),
+        const_cross=const_cross if const else (),
+        const_self=const_self if const else (), fused=bool(fused),
+        vals_cross=None if const else tuple(planes(v) for v in vals_cross),
+        vals_self=None if const else tuple(planes(v) for v in vals_self),
+        dinv_rows=_tensor(dinv_rows, dtype, device),
+        d_rows=None if d is None else _tensor(rows_of(d), dtype, device),
+        unit=not upper and bool(np.all(dinv_rows == 1)))
+

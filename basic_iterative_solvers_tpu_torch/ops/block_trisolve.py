@@ -1,12 +1,12 @@
-"""Blocked coloured triangular solves: the superblock solves on stencils
-(exact coloured GS in const mode, exact coloured ILU(0) in factor-table
-mode) and the rank-space solves of host-CSR factors under a mod colouring.
+"""Blocked coloured triangular solves: the superblock solves (exact
+coloured GS in const mode, exact coloured ILU(0) in factor-table mode on
+stencils, both from host CSR in plane mode) and the rank-space solves of
+host-CSR factors under a mod or grid colouring.
 
-The const and translation-table subset of the JAX package's
-ops/block_trisolve.py.  A grid colouring with strides (sx, sy, sz) of a
-constant-coefficient stencil groups the rows into S = sy·sz superblocks:
-superblock sb holds the rows with (y mod sy, z mod sz) = (sb mod sy,
-sb // sy), and its colours are the sx x-parities.  In the colour-sorted
+The port of the JAX package's ops/block_trisolve.py.  A grid colouring
+with strides (sx, sy, sz) groups the rows of a grid into S = sy·sz
+superblocks: superblock sb holds the rows with (y mod sy, z mod sz) =
+(sb mod sy, sb // sy), and its colours are the sx x-parities.  In the colour-sorted
 ordering the strict lower triangle L couples a superblock only to lower
 ones (cross legs) and, inside it, a parity only to lower parities along x
 (self legs); U mirrors that.  So a triangular solve is S levels, one per
@@ -16,8 +16,9 @@ superblock, each a parallel update with the x-parities chained:
     for each parity p:  x = (acc − Σ_self f·mask·x(dx))·D⁻¹  on parity p
 
 Const mode (GS, SGS): f is the operator's leg coefficient (`const_cross`,
-`const_self`) and D⁻¹ the constant diagonal's inverse: nothing is stored
-but metadata.  `blocked_trisolve` and `blocked_sgs` are the same actions as
+`const_self`) and D⁻¹ the constant diagonal's inverse, or, for a pair
+built from host CSR, the diagonal's inverse per row: nothing else is
+stored but metadata.  `blocked_trisolve` and `blocked_sgs` are the same actions as
 the masked colour sweeps of coloring.py with the same colouring.
 
 Factor-table mode (ILU(0)): f is the coloured ILU(0) factor value of the
@@ -28,20 +29,35 @@ grid of at most 2R + s points per axis holds every distinct row
 (`_ilu0_translation_tables`); a row reads its values from that class table
 at the class of its (x, y, z).  The table is (2h+1)³ × (Px·Py·Pz) values
 (27 × 5,832 for HPCG at any size, ~630 KB in float32), so no factor plane
-is ever stored: the JAX package's plane mode (per-row values in (R_b, 128)
-planes) and packed mode (x-classes folded into 16 lane slots, bit-checked)
-are both this one mode here.
+is stored for a stencil: the JAX package's plane mode of its translation
+tables (per-row values in (R_b, 128) planes) and packed mode (x-classes
+folded into 16 lane slots, bit-checked) are both this one mode here.
+
+Plane mode (`build_superblock_trisolve`, from host CSR; the JAX
+package's NumPy branch): f is a plane of per-row values over the
+superblock's m slots, slot line·nx + x with line = y//sy + my·(z//sz).  A
+cross group is keyed (src, Δ) in slot space: target slot t reads slot
+t + Δ of superblock src (0 outside [0, m)); D⁻¹ is per row (`dinv_rows`).
+The builder first tries const detection on the planes rounded to the
+solve dtype: a pair whose every plane is coeff × (leg mask) is const mode,
+with the per-row D it was built with (Anderson: constant legs, random
+diagonal).
 
 Vectors stay in the natural flat order: the JAX package's rank-space
 permute, (R_b, 128) planes, TB tiles and fused/aligned layouts are TPU
-geometry with no counterpart here.  Its flat-IO apply (`_ilu0_flat_apply`,
+geometry with no counterpart here (a plane keeps the m real slots, not
+the R_b·128 padded ones).  Its flat-IO apply (`_ilu0_flat_apply`,
 `_flat_io_eligible`) exists to skip the permute and unpermute passes
 around an ILU(0) apply; the port has no such passes, so `blocked_ilu0`
-needs no switch of its own.  The one layout switch kept is
-`BIS_SB_ALIGNED=0`, read as the JAX package reads it: a factor-table solve
-whose x-lines do not tile the TPU's 128 lanes (128 % nx != 0) then runs
+needs no switch of its own.  Two switches are kept, each read at import as
+the JAX package reads it.  `BIS_SB_ALIGNED=0`: a factor-table or plane
+solve whose x-lines do not tile the TPU's 128 lanes (128 % nx != 0) runs
 the split route, each level as `super_acc` (acc for the whole level) and
-one `super_parity` per x-parity.
+one `super_parity` per x-parity.  `BIS_SB_MEGA=1` (the module attribute
+`MEGA`, which may be set in process): a fused const-mode solve runs as one
+launch (`super_solve_mega`).  The TPU's lane rule stays too: a self leg
+with |dx| ≥ min(nx, 128) refuses the superblock form, as the JAX package
+refuses it, so both packages take the same route.
 
 Rank-space solves (`BlockedTriSolve`, the JAX package's rank-space
 layout, for a mod colouring of host-CSR factors): in the colour-sorted
@@ -54,20 +70,23 @@ and level c solves
 
     x_c = (y_c − Σ_groups vals_g ⊙ shift(x_src(g), Δ_g)) · D_c⁻¹
 
-in one launch (`rank_level`).  Grid colourings of host CSR take the JAX
-package's superblock form built from CSR, which needs a plane mode of the
-superblock kernel: ROADMAP Queue 1 slice 5b.
+in one launch (`rank_level`).  A grid colouring of host CSR takes the
+superblock form; where that refuses (BlockIneligibleError other than an
+improper colouring), the rank-space form with the grid rank
+(x//sx) + mx·((y//sy) + my·(z//sz)), as the JAX package falls back.
 
-`super_level`, `super_acc`, `super_parity` and `rank_level` are the
-kernels' entry points: on a CUDA tensor each launches its hand-written
-kernel (csrc/block_trisolve.cu) or raises; on a CPU tensor each runs its
-plain version (`super_level_plain`, `super_acc_plain`,
-`super_parity_plain`, `rank_level_plain`).
+`super_level`, `super_acc`, `super_parity`, `super_solve_mega` and
+`rank_level` are the kernels' entry points: on a CUDA tensor each launches
+its hand-written kernel (csrc/block_trisolve.cu) or raises; on a CPU
+tensor each runs its plain version (`super_level_plain`,
+`super_acc_plain`, `super_parity_plain`, `super_solve_mega_plain`,
+`rank_level_plain`).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import types
 from typing import Optional, Tuple
@@ -82,10 +101,20 @@ from ..stencil_op import _rounded
 #: threads per kernel block (csrc/block_trisolve.cu: __launch_bounds__)
 _BLOCK_THREADS = 256
 
-#: BIS_SB_ALIGNED=0: factor-table solves with 128 % nx != 0 take the split
-#: route (the JAX package's kill-switch of its aligned-fused layout, read
-#: the same way, at import)
+#: the TPU's lane width: the JAX package's self-reach rule (a self leg
+#: reaches less than min(nx, 128)) and plane group keys use it
+LANES = 128
+
+#: BIS_SB_ALIGNED=0: factor-table and plane solves with 128 % nx != 0
+#: take the split route (the JAX package's kill-switch of its
+#: aligned-fused layout, read the same way, at import)
 NO_ALIGNED = os.environ.get("BIS_SB_ALIGNED", "1") == "0"
+
+#: BIS_SB_MEGA=1: a fused const-mode solve runs as one launch
+#: (super_solve_mega), the JAX package's only route to its
+#: _super_solve_pallas_mega, read the same way, at import; set the
+#: attribute to switch in process
+MEGA = os.environ.get("BIS_SB_MEGA", "0") == "1"
 
 
 class BlockIneligibleError(ValueError):
@@ -113,8 +142,16 @@ class SuperBlockTriSolve:
     …) and table_self[li] = ((kd, dx), …), kd the leg's row of `table`
     ((2h+1)³, Np) at `dtype`; `table_dinv` (Np,) is U's inverse pivot per
     class (None: L's unit diagonal); a row's class comes from its (x, y, z)
-    through the prototype dims `proto` and the radius `radius`.  `fused`
-    False sends the solve down the split route."""
+    through the prototype dims `proto` and the radius `radius`.
+
+    Plane mode (`vals_cross` set; built from host CSR): vals_cross[li]
+    (Gc, m) and vals_self[li] (Gs, m) at `dtype`, rows aligned with the
+    level's cross groups and self legs (None where it has none), indexed
+    by slot.  Pairs built from host CSR, plane or const mode, carry the
+    per-row diagonal: `dinv_rows` (n,) its rounded inverse, `d_rows` (n,)
+    D itself on L where a symmetric apply needs it; `dinv` and `d` stay
+    None there.  `unit` marks L of an ILU(0) pair, which solves with a
+    unit diagonal.  `fused` False sends the solve down the split route."""
 
     n_rows: int
     S: int
@@ -137,12 +174,25 @@ class SuperBlockTriSolve:
     table_cross: Tuple = ()
     table_self: Tuple = ()
     fused: bool = True
+    vals_cross: Optional[Tuple] = None
+    vals_self: Optional[Tuple] = None
+    dinv_rows: Optional[torch.Tensor] = None
+    d_rows: Optional[torch.Tensor] = None
+    unit: bool = False
     #: the kernels' launch tables per level, built at first launch
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def is_table(self) -> bool:
         return self.table is not None
+
+    @property
+    def is_plane(self) -> bool:
+        return self.vals_cross is not None
+
+    @property
+    def is_const(self) -> bool:
+        return not (self.is_table or self.is_plane)
 
 
 def _stencil_pair_plan(op, spec):
@@ -175,9 +225,9 @@ def _stencil_pair_plan(op, spec):
             raise ImproperColoringError(
                 f"leg {leg} couples same-colored rows under this spec")
         if dy == 0 and dz == 0:
-            if abs(dx) >= nx:
+            if abs(dx) >= min(nx, LANES):
                 raise BlockIneligibleError(
-                    "self coupling reach exceeds an x-line")
+                    "self coupling reach exceeds a lane row")
             self_legs.append((dx, float(c)))
         elif dy % sy == 0 and dz % sz == 0:
             raise BlockIneligibleError(
@@ -378,7 +428,7 @@ def ilu0_pair_from_tables(op, spec, tables, *, dtype=torch.float32):
                          for sb, rows in levels),
             upper=upper, spec_params=plan.spec_params, dtype=dtype,
             reach=plan.reach, table=table,
-            table_dinv=table_dinv if upper else None,
+            table_dinv=table_dinv if upper else None, unit=not upper,
             proto=tuple(int(p) for p in proto), radius=int(R),
             table_cross=tuple(tuple((kd(*leg),) + leg
                                     for _, _, _, leg in rows)
@@ -388,6 +438,241 @@ def ilu0_pair_from_tables(op, spec, tables, *, dtype=torch.float32):
             fused=fused)
 
     return one(False), one(True)
+
+
+# ---------------------------------------------------------------------------
+# The superblock form from host CSR (plane mode, or const mode detected)
+# ---------------------------------------------------------------------------
+
+def _np_dtype(dtype: torch.dtype):
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"superblock planes take float32 or float64, not "
+                        f"{dtype}")
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _leg_from_delta(sb_t: int, src: int, delta: int, spec_params):
+    """The (dx, dy, dz) stencil leg behind a cross group (target sb, source
+    src, slot offset Δ): the smallest-|dx| decomposition of
+    Δ = dx + nx·(dRy + my·dRz).  The caller checks it against the plane,
+    so an ambiguous decomposition fails detection instead of
+    misclassifying."""
+    nx, ny, nz, sx, sy, sz = spec_params
+    my = ny // sy
+    dx = ((delta + nx // 2) % nx) - nx // 2
+    rem = (delta - dx) // nx
+    dRy = ((rem + my // 2) % my) - my // 2
+    dRz = (rem - dRy) // my
+    dy = (src % sy - sb_t % sy) + sy * dRy
+    dz = (src // sy - sb_t // sy) + sz * dRz
+    return dx, dy, dz
+
+
+@functools.lru_cache(maxsize=8)
+def _slot_coords(spec_params, sb: int, m: int):
+    """Per-slot (x, y, z) coordinates of superblock sb's m slots
+    (read-only, shared by its groups)."""
+    nx, ny, nz, sx, sy, sz = spec_params
+    my = ny // sy
+    s = np.arange(m, dtype=np.int64)
+    t = s // nx
+    out = (s % nx, sy * (t % my) + sb % sy, sz * (t // my) + sb // sy)
+    for a in out:
+        a.flags.writeable = False
+    return out
+
+
+def _leg_mask_np(sb_t: int, leg, spec_params, m: int, self_upper=None):
+    """In-bounds mask of `leg`'s neighbour over superblock sb_t's slots:
+    the nonzero structure a constant-coefficient plane must have.  A self
+    leg (`self_upper` True or False) also keeps only the rows whose source
+    x-parity is higher (U) or lower (L): inside a superblock the x-parity
+    decides the triangle."""
+    nx, ny, nz, sx, _sy, _sz = spec_params
+    dx, dy, dz = leg
+    x, y, z = _slot_coords(spec_params, sb_t, m)
+    mask = (x + dx >= 0) & (x + dx < nx)
+    if dy:
+        mask &= (y + dy >= 0) & (y + dy < ny)
+    if dz:
+        mask &= (z + dz >= 0) & (z + dz < nz)
+    if self_upper is not None:
+        ps, pt = (x + dx) % sx, x % sx
+        mask &= (ps > pt) if self_upper else (ps < pt)
+    return mask
+
+
+def _plane_const_coeff(plane: np.ndarray, mask: np.ndarray):
+    """c if plane == c·mask exactly, else None; a subsample first, so that
+    non-constant factors (ILU(0) values) fail at once."""
+    probe = plane[:4096]
+    pnz = probe[probe != 0]
+    if pnz.size and not (pnz == pnz[0]).all():
+        return None
+    nz = np.flatnonzero(mask)
+    if nz.size == 0:
+        return None
+    c = plane[nz[0]]
+    if c == 0:
+        return None
+    ok = np.array_equal(plane != 0, mask) and (plane[nz] == c).all()
+    return float(c) if ok else None
+
+
+def _const_detect_level(sb: int, cross, selfs, vc, vs, spec_params, m: int,
+                        upper: bool):
+    """(cross consts ((c, dx, dy, dz), …), self consts ((c, dx), …)) of one
+    level, or None where a plane is not coeff × leg mask."""
+    cc = []
+    for gi, (src, delta) in enumerate(cross):
+        leg = _leg_from_delta(sb, src, delta, spec_params)
+        c = _plane_const_coeff(vc[gi], _leg_mask_np(sb, leg, spec_params, m))
+        if c is None:
+            return None
+        cc.append((c,) + leg)
+    sc = []
+    for gi, dx in enumerate(selfs):
+        c = _plane_const_coeff(vs[gi], _leg_mask_np(
+            sb, (dx, 0, 0), spec_params, m, self_upper=upper))
+        if c is None:
+            return None
+        sc.append((c, dx))
+    return tuple(cc), tuple(sc)
+
+
+def _pack_levels(raw, spec_params, m: int, fused: bool, upper: bool):
+    """Const detection on every level (fused layout only, as the JAX
+    package runs it), else the planes.  raw: [(sb, cross, selfs, vc, vs)],
+    vc/vs (G, m) NumPy at the solve dtype or None.  Returns (levels,
+    const_cross, const_self) or (levels, None, None)."""
+    levels = tuple((int(sb), cross, selfs) for sb, cross, selfs, _, _ in raw)
+    if fused:
+        consts = []
+        for sb, cross, selfs, vc, vs in raw:
+            det = _const_detect_level(
+                sb, cross, selfs,
+                vc if vc is not None else np.zeros((0, m)),
+                vs if vs is not None else np.zeros((0, m)),
+                spec_params, m, upper)
+            if det is None:
+                return levels, None, None
+            consts.append(det)
+        return (levels, tuple(c for c, _ in consts),
+                tuple(s for _, s in consts))
+    return levels, None, None
+
+
+def build_superblock_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
+                              spec, *, upper: bool, dtype=torch.float32,
+                              need_d: bool = False,
+                              device="cuda") -> SuperBlockTriSolve:
+    """The colour-lower (colour-upper) part of T, the entries with
+    colour(j) < colour(i) (>), in superblock form on `device`; D is the
+    diagonal to divide by (None: unit).  T is a MatrixCSR or (rows, cols,
+    vals, n) triplets.  The JAX package's NumPy branch step for step, its
+    refusals in its order: a spec that is no grid, dims, strides
+    (BlockIneligibleError), an improper colouring (ImproperColoringError),
+    a same-superblock coupling beyond x, a self leg reaching min(nx, 128)
+    or more, more than _MAX_GROUPS groups (BlockIneligibleError).  The
+    planes are filled at `dtype`, and const detection runs on those values,
+    so a float32 and a float64 build may choose different modes, as they do
+    in the JAX package."""
+    from ..coloring import _grid_coords
+    from ..stencil_op import resolve_device
+    device = resolve_device(device)
+    if spec.kind != "grid":
+        raise BlockIneligibleError("superblock path needs a grid coloring")
+    rows, cols, vals, n = _entries_of(T)
+    nx, ny, nz, sx, sy, sz = (int(p) for p in spec.params)
+    if nx * ny * nz != n:
+        raise BlockIneligibleError("grid spec dims do not match n_rows")
+    if ny % sy or nz % sz:
+        raise BlockIneligibleError("grid strides must divide the dims")
+    dtype = torch_dtype(dtype)
+    np_dt = _np_dtype(dtype)
+    fused = not (NO_ALIGNED and not (nx <= LANES and LANES % nx == 0))
+    S = sy * sz
+    my, mz = ny // sy, nz // sz
+    m = nx * my * mz
+    X, Y, Z = _grid_coords(np.arange(n, dtype=np.int64), nx, ny)
+    SB = (Y % sy) + sy * (Z % sz)
+    SLOT = X + nx * ((Y // sy) + my * (Z // sz))
+
+    ci = colors[rows].astype(np.int64)
+    cj = colors[cols].astype(np.int64)
+    keep = (cj > ci) if upper else (cj < ci)
+    if np.any((ci == cj) & (rows != cols)):
+        raise ImproperColoringError("coloring is not proper for this "
+                                    "pattern")
+    rows, cols = rows[keep], cols[keep]
+    v = vals[keep]
+    sb_i, sb_j = SB[rows], SB[cols]
+    is_self = sb_i == sb_j
+    if np.any(is_self & ((Y[rows] != Y[cols]) | (Z[rows] != Z[cols]))):
+        raise BlockIneligibleError("same-superblock coupling beyond x axis")
+    dx_self = X[cols[is_self]] - X[rows[is_self]]
+    if is_self.any() and np.abs(dx_self).max() >= min(nx, LANES):
+        raise BlockIneligibleError("self coupling reach exceeds a lane row")
+
+    delta = SLOT[cols] - SLOT[rows]
+    span = 2 * m + 1
+    # cross groups keyed (sb_i, sb_j, Δ), self groups (sb_i, dx)
+    ukc, ginvc = _group_inverse(
+        ((sb_i * S + sb_j) * span + (delta + m))[~is_self], S * S * span)
+    uks, ginvs = _group_inverse(
+        sb_i[is_self] * (2 * LANES + 1) + (dx_self + LANES),
+        S * (2 * LANES + 1))
+    Gc, Gs = ukc.size, uks.size
+    if Gc + Gs > _MAX_GROUPS:
+        raise BlockIneligibleError(
+            f"{Gc + Gs} superblock groups — pattern too irregular")
+    gc_tb, gc_sb = (ukc // span) // S, (ukc // span) % S
+    gc_dl = (ukc % span) - m
+    gs_tb = uks // (2 * LANES + 1)
+    gs_dx = (uks % (2 * LANES + 1)) - LANES
+
+    vc = np.zeros((Gc, m), dtype=np_dt)
+    vc[ginvc, SLOT[rows[~is_self]]] = v[~is_self].astype(np_dt)
+    vs = np.zeros((Gs, m), dtype=np_dt)
+    vs[ginvs, SLOT[rows[is_self]]] = v[is_self].astype(np_dt)
+    dv = np.ones(n) if D is None else np.asarray(D, dtype=np.float64)
+    if np.any(dv == 0):
+        raise ValueError("zero diagonal in blocked trisolve")
+
+    raw = []
+    for sb in (range(S - 1, -1, -1) if upper else range(S)):
+        selc = np.nonzero(gc_tb == sb)[0]
+        sels = np.nonzero(gs_tb == sb)[0]
+        cidx = sorted(selc, key=lambda g: (int(gc_sb[g]), int(gc_dl[g])))
+        sidx = sorted(sels, key=lambda g: int(gs_dx[g]))
+        raw.append((sb, tuple((int(gc_sb[g]), int(gc_dl[g])) for g in cidx),
+                    tuple(int(gs_dx[g]) for g in sidx),
+                    vc[cidx] if cidx else None, vs[sidx] if sidx else None))
+    spec_params = (nx, ny, nz, sx, sy, sz)
+    levels, cc, cs = _pack_levels(raw, spec_params, m, fused, upper)
+    as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    common = dict(
+        n_rows=n, S=S, m=m, sx=sx, levels=levels, upper=upper,
+        spec_params=spec_params, dtype=dtype, fused=fused, unit=D is None,
+        dinv_rows=as_t((1.0 / dv).astype(np_dt)),
+        d_rows=as_t(dv.astype(np_dt)) if need_d else None)
+    if cc is not None:
+        return SuperBlockTriSolve(reach=_reach_of(levels, cc),
+                                  const_cross=cc, const_self=cs, **common)
+    return SuperBlockTriSolve(
+        reach=_reach_of(levels, None),
+        vals_cross=tuple(None if r[3] is None else as_t(r[3]) for r in raw),
+        vals_self=tuple(None if r[4] is None else as_t(r[4]) for r in raw),
+        **common)
+
+
+def _reach_of(levels, const_cross) -> Tuple[int, int, int]:
+    """max |d| per axis over a pair's legs (the plain version's zero
+    padding): the const legs and self legs, or in plane mode the self legs
+    (its cross reads go through slot space)."""
+    legs = [(dx, 0, 0) for _sb, _c, selfs in levels for dx in selfs]
+    legs += [leg[1:] for lv in (const_cross or ()) for leg in lv]
+    return tuple(max([0] + [abs(leg[a]) for leg in legs]) for a in range(3))
 
 
 def _parity_order(B: SuperBlockTriSolve):
@@ -462,11 +747,39 @@ def _class_base(B: SuperBlockTriSolve, li: int, device) -> torch.Tensor:
                                      + Py * cz[:, None, None])
 
 
+def _slots(B: SuperBlockTriSolve, v: torch.Tensor, sb: int) -> torch.Tensor:
+    """Superblock sb's rows of flat v as an (mz, my, nx) view: slot order
+    when flattened."""
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    return v.view(nz, ny, nx)[sb // sy::sz, sb % sy::sy]
+
+
+def _plane_cross_acc(B: SuperBlockTriSolve, li: int, y, x):
+    """Plane mode: acc = y − Σ_g vals_g ⊙ x(src_g)[t + Δ_g] in slot space,
+    a slot outside [0, m) reading 0; every group's values multiplied, zero
+    or not, as the JAX package's XLA form does."""
+    sb, cross, _selfs = B.levels[li]
+    acc = _slots(B, y, sb)
+    if not cross:
+        return acc
+    vals = B.vals_cross[li].to(x.device)
+    P = max(abs(delta) for _src, delta in cross)
+    padded = {}
+    for g, (src, delta) in enumerate(cross):
+        if src not in padded:
+            padded[src] = F.pad(_slots(B, x, src).reshape(-1), (P, P))
+        nb = padded[src][P + delta:P + delta + B.m].view(acc.shape)
+        acc = acc - vals[g].view(acc.shape) * nb
+    return acc
+
+
 def _cross_acc(B: SuperBlockTriSolve, li: int, y, x, base):
     """acc = y − Σ_cross f·x(src, Δ) on level li's rows, (mz, my, nx):
     cross legs in (src, Δ) order, each product and difference rounded
     alone.  Out-of-grid neighbours read the zero padding: f·0 leaves acc
     as the JAX package's masked plane does."""
+    if B.is_plane:
+        return _plane_cross_acc(B, li, y, x)
     nx, ny, nz, sx, sy, sz = B.spec_params
     _sb, py, pz, my, mz, rows = _rows(B, li)
     hx, hy, hz = B.reach
@@ -486,13 +799,19 @@ def _cross_acc(B: SuperBlockTriSolve, li: int, y, x, base):
 
 def _parity_step(B: SuperBlockTriSolve, li: int, p: int, a, xt, base):
     """xt with parity p's rows set to (a − Σ_self f·x(dx))·D⁻¹, the self
-    legs reading xt where their source parity is already solved."""
+    legs reading xt where their source parity is already solved (0
+    elsewhere; plane mode multiplies that 0 by its plane's value)."""
     nx = B.spec_params[0]
     hx = B.reach[0]
     gx = torch.arange(nx, device=xt.device)
     parity = gx % B.sx
     xtp = F.pad(xt, (hx, hx))
-    legs = B.table_self[li] if B.is_table else B.const_self[li]
+    if B.is_plane:
+        legs = tuple((f.view(a.shape), dx) for f, dx in zip(
+            () if B.vals_self[li] is None else B.vals_self[li].to(xt.device),
+            B.levels[li][2]))
+    else:
+        legs = B.table_self[li] if B.is_table else B.const_self[li]
     table = B.table.to(xt.device) if B.is_table else None
     for f, dx in legs:
         if table is not None:
@@ -502,10 +821,13 @@ def _parity_step(B: SuperBlockTriSolve, li: int, p: int, a, xt, base):
         ps = src % B.sx
         ok &= (ps > parity) if B.upper else (ps < parity)
         a = a - f * torch.where(ok, xtp[..., hx + dx:hx + dx + nx], 0.0)
-    if not B.is_table:
+    if B.is_table:
+        if B.table_dinv is not None:
+            a = a * B.table_dinv.to(xt.device)[base]
+    elif B.dinv_rows is not None:
+        a = a * _slots(B, B.dinv_rows.to(xt.device), B.levels[li][0])
+    else:
         a = a * B.dinv
-    elif B.table_dinv is not None:
-        a = a * B.table_dinv.to(xt.device)[base]
     return torch.where(parity == p, a, xt)
 
 
@@ -532,7 +854,7 @@ def super_acc_plain(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
     _super_acc_pallas): acc (m,), level li's rows in line order, gets
     y − Σ_cross f·x; returns acc."""
     _check_split(B, li, y=(y, B.n_rows), x=(x, B.n_rows), acc=(acc, B.m))
-    base = _class_base(B, li, x.device)
+    base = _class_base(B, li, x.device) if B.is_table else None
     acc.copy_(_cross_acc(B, li, y, x, base).reshape(-1))
     return acc
 
@@ -547,7 +869,7 @@ def super_parity_plain(B: SuperBlockTriSolve, li: int, p: int,
     _check_parity_args(B, li, p, y, acc, x)
     nx, ny, nz = B.spec_params[:3]
     _sb, _py, _pz, my, mz, rows = _rows(B, li)
-    base = _class_base(B, li, x.device)
+    base = _class_base(B, li, x.device) if B.is_table else None
     a = (y.view(nz, ny, nx)[rows] if acc is None
          else acc.view(mz, my, nx))
     X = x.view(nz, ny, nx)
@@ -559,34 +881,53 @@ def super_parity_plain(B: SuperBlockTriSolve, li: int, p: int,
 # One level: the kernels' wrappers
 # ---------------------------------------------------------------------------
 
+#: BisSuperLevelArgs.mode (csrc/block_trisolve.cu)
+_MODE_CONST, _MODE_TABLE, _MODE_PLANE = 0, 1, 2
+
+
 def _level_args(B: SuperBlockTriSolve, li: int):
     """The kernels' launch table for level li (cached on B)."""
     from .._build import MAX_LEGS, SuperLevelArgs
     if li in B._args:
         return B._args[li]
     nx, ny, nz, sx, sy, sz = B.spec_params
-    sb = B.levels[li][0]
-    cross = B.table_cross[li] if B.is_table else B.const_cross[li]
-    selfs = B.table_self[li] if B.is_table else B.const_self[li]
+    sb, groups, self_dx = B.levels[li]
+    if B.is_plane:
+        cross, selfs = groups, self_dx
+    else:
+        cross = B.table_cross[li] if B.is_table else B.const_cross[li]
+        selfs = B.table_self[li] if B.is_table else B.const_self[li]
     if len(cross) > MAX_LEGS or len(selfs) > MAX_LEGS:
         raise ValueError(f"the kernel takes at most {MAX_LEGS} cross and "
-                         f"{MAX_LEGS} self legs a level")
+                         f"{MAX_LEGS} self legs a level; level {li} has "
+                         f"{len(cross)} and {len(selfs)}")
     a = SuperLevelArgs()
-    for j, (f, dx, dy, dz) in enumerate(cross):
-        a.cross_off[j] = dx + nx * (dy + ny * dz)
-        if B.is_table:
-            a.cross_kd[j] = f
-        else:
-            a.cross_coeff[j] = f
-        a.cross_dx[j], a.cross_dy[j], a.cross_dz[j] = dx, dy, dz
-    for j, (f, dx) in enumerate(selfs):
-        if B.is_table:
-            a.self_kd[j] = f
-        else:
-            a.self_coeff[j] = f
-        a.self_dx[j] = dx
+    if B.is_plane:
+        a.mode = _MODE_PLANE
+        for j, (src, delta) in enumerate(cross):
+            a.cross_delta[j] = delta
+            a.cross_spy[j], a.cross_spz[j] = src % sy, src // sy
+        for j, dx in enumerate(selfs):
+            a.self_dx[j] = dx
+    else:
+        a.mode = _MODE_TABLE if B.is_table else _MODE_CONST
+        for j, (f, dx, dy, dz) in enumerate(cross):
+            a.cross_off[j] = dx + nx * (dy + ny * dz)
+            if B.is_table:
+                a.cross_kd[j] = f
+            else:
+                a.cross_coeff[j] = f
+            a.cross_dx[j], a.cross_dy[j], a.cross_dz[j] = dx, dy, dz
+        for j, (f, dx) in enumerate(selfs):
+            if B.is_table:
+                a.self_kd[j] = f
+            else:
+                a.self_coeff[j] = f
+            a.self_dx[j] = dx
     a.n_cross, a.n_self = len(cross), len(selfs)
-    a.dinv = 1.0 if B.is_table else B.dinv
+    # const mode with a per-row diagonal reads dinv_rows instead
+    a.dinv = B.dinv if B.is_const and B.dinv is not None else 1.0
+    a.m = B.m
     a.nx, a.ny, a.nz, a.sx, a.sy, a.sz = nx, ny, nz, sx, sy, sz
     a.py, a.pz = sb % sy, sb // sy
     a.my = ny // sy
@@ -612,9 +953,13 @@ def _cuda_call(B: SuperBlockTriSolve, name: str, x: torch.Tensor, *args):
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the superblock kernels take float32 or float64, "
                         f"not {x.dtype}")
-    if B.is_table and B.table.device != x.device:
-        raise ValueError(f"the factor table is on {B.table.device}, the "
-                         f"vectors on {x.device}")
+    planes = [t for t in (B.vals_cross or ()) + (B.vals_self or ())
+              if t is not None]
+    for what, t in [("factor table", B.table), ("diagonal", B.dinv_rows)] + [
+            ("planes", t) for t in planes]:
+        if t is not None and t.device != x.device:
+            raise ValueError(f"the {what} is on {t.device}, the vectors on "
+                             f"{x.device}")
     lib = load_library()
     dt = "f32" if x.dtype == torch.float32 else "f64"
     fn = getattr(lib, f"bis_{name}_{dt}")
@@ -629,6 +974,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _planes(B: SuperBlockTriSolve, li: int):
+    """(cross values, self values) of level li in plane mode, else
+    (None, None)."""
+    if not B.is_plane:
+        return None, None
+    return B.vals_cross[li], B.vals_self[li]
+
+
 def super_level(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
     """Solve level li of B in place: the rows of its superblock of x from
@@ -636,16 +989,21 @@ def super_level(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
     itself.
 
     A CUDA tensor goes through the hand-written kernel, which counts its
-    launches in `super_level.launches` (const mode) or
-    `super_level.table_launches` (factor-table mode); a CPU tensor takes
-    the plain version."""
+    launches in `super_level.launches` (const mode),
+    `super_level.table_launches` (factor-table mode) or
+    `super_level.plane_launches` (plane mode); a CPU tensor takes the plain
+    version."""
     _check_level(B, li, y, x)
     if x.device.type == "cuda":
+        vc, vs = _planes(B, li)
         _cuda_call(B, "super_level", x, ctypes.byref(_level_args(B, li)),
                    y.data_ptr(), x.data_ptr(), _ptr(B.table),
-                   _ptr(B.table_dinv))
+                   _ptr(B.table_dinv), _ptr(vc), _ptr(vs),
+                   _ptr(B.dinv_rows))
         if B.is_table:
             super_level.table_launches += 1
+        elif B.is_plane:
+            super_level.plane_launches += 1
         else:
             super_level.launches += 1
         return x
@@ -656,11 +1014,79 @@ def super_level(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
 
 super_level.launches = 0
 super_level.table_launches = 0
+super_level.plane_launches = 0
+
+
+def super_solve_mega_plain(B: SuperBlockTriSolve, y: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the one-launch solve: every level of B in order
+    through super_level_plain, into x (which may be y); returns x."""
+    for li in range(len(B.levels)):
+        super_level_plain(B, li, y, x)
+    return x
+
+
+def _mega_levels(B: SuperBlockTriSolve, device) -> torch.Tensor:
+    """Every level's launch table, in solve order, as bytes on `device`
+    (cached on B)."""
+    from .._build import SuperLevelArgs
+    key = ("mega", str(device))
+    if key not in B._args:
+        tables = (SuperLevelArgs * len(B.levels))(
+            *(_level_args(B, li) for li in range(len(B.levels))))
+        B._args[key] = torch.frombuffer(bytearray(bytes(tables)),
+                                        dtype=torch.uint8).to(device)
+    return B._args[key]
+
+
+def super_solve_mega(B: SuperBlockTriSolve, y: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """A whole fused const-mode solve of B into x (which may be y), every
+    level in order; returns x.
+
+    A CUDA tensor goes through the hand-written cooperative kernel, one
+    launch for the whole solve, counted in `super_solve_mega.launches`; a
+    launch the card refuses raises.  A CPU tensor takes the plain version,
+    the per-level loop."""
+    _check_vectors(B, 0, y=(y, B.n_rows), x=(x, B.n_rows))
+    if not (B.is_const and B.fused):
+        raise ValueError("the one-launch solve runs fused const-mode solves "
+                         "only")
+    if x.device.type == "cuda":
+        levels = _mega_levels(B, x.device)
+        a = _level_args(B, 0)
+        max_blocks = max(_level_args(B, li).grid_x
+                         for li in range(len(B.levels)))
+        _cuda_call(B, "super_solve_mega", x, levels.data_ptr(),
+                   len(B.levels), a.block_x, a.block_y, max_blocks,
+                   y.data_ptr(), x.data_ptr(), _ptr(B.dinv_rows))
+        super_solve_mega.launches += 1
+        return x
+    if x.device.type == "cpu":
+        return super_solve_mega_plain(B, y, x)
+    raise ValueError(f"no one-launch solve for device {x.device}")
+
+
+super_solve_mega.launches = 0
+
+
+def mega_grid(B: SuperBlockTriSolve, device) -> int:
+    """The blocks of super_solve_mega's grid for B on the CUDA `device`:
+    those that fit on the card at once, at most the most line blocks a
+    level has."""
+    from .._build import load_library
+    device = torch.device(device)
+    a = _level_args(B, 0)
+    return load_library().bis_super_solve_mega_grid(
+        device.index or 0, a.block_x * a.block_y,
+        max(_level_args(B, li).grid_x for li in range(len(B.levels))),
+        torch.empty(0, dtype=B.dtype).element_size())
 
 
 def _check_split(B: SuperBlockTriSolve, li: int, **vecs):
-    if not B.is_table:
-        raise ValueError("the split route runs factor-table solves only")
+    if B.is_const:
+        raise ValueError("the split route runs factor-table and plane "
+                         "solves only")
     return _check_vectors(B, li, **vecs)
 
 
@@ -678,18 +1104,19 @@ def _check_parity_args(B, li, p, y, acc, x):
 
 def super_acc(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
               x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """Split route, step 1 of level li: acc (m,) gets y − Σ_cross f·x on
-    the level's rows, in line order; returns acc.
+    """Split route, step 1 of level li (factor-table or plane mode): acc
+    (m,) gets y − Σ_cross f·x on the level's rows, in slot order; returns
+    acc.
 
     A CUDA tensor goes through the hand-written kernel, which counts its
-    launches in `super_acc.launches`; a CPU tensor takes the plain
-    version."""
+    launches in `super_acc.launches`, either mode; a CPU tensor takes the
+    plain version."""
     device = _check_split(B, li, y=(y, B.n_rows), x=(x, B.n_rows),
                           acc=(acc, B.m))
     if device.type == "cuda":
         _cuda_call(B, "super_acc", x, ctypes.byref(_level_args(B, li)),
                    y.data_ptr(), x.data_ptr(), acc.data_ptr(),
-                   B.table.data_ptr())
+                   _ptr(B.table), _ptr(_planes(B, li)[0]))
         super_acc.launches += 1
         return acc
     if device.type == "cpu":
@@ -703,18 +1130,20 @@ super_acc.launches = 0
 def super_parity(B: SuperBlockTriSolve, li: int, p: int, y: torch.Tensor,
                  acc: Optional[torch.Tensor],
                  x: torch.Tensor) -> torch.Tensor:
-    """Split route, step 2 of level li: parity p's rows of the level's
-    superblock of x from acc (y where the level has no cross legs and acc
-    is None) and the self legs, in place; returns x.
+    """Split route, step 2 of level li (factor-table or plane mode):
+    parity p's rows of the level's superblock of x from acc (y where the
+    level has no cross legs and acc is None) and the self legs, in place;
+    returns x.
 
     A CUDA tensor goes through the hand-written kernel, which counts its
-    launches in `super_parity.launches`; a CPU tensor takes the plain
-    version."""
+    launches in `super_parity.launches`, either mode; a CPU tensor takes
+    the plain version."""
     _check_parity_args(B, li, p, y, acc, x)
     if x.device.type == "cuda":
         _cuda_call(B, "super_parity", x, ctypes.byref(_level_args(B, li)),
                    p, y.data_ptr(), _ptr(acc), x.data_ptr(),
-                   B.table.data_ptr(), _ptr(B.table_dinv))
+                   _ptr(B.table), _ptr(B.table_dinv),
+                   _ptr(_planes(B, li)[1]), _ptr(B.dinv_rows))
         super_parity.launches += 1
         return x
     if x.device.type == "cpu":
@@ -731,7 +1160,6 @@ super_parity.launches = 0
 # Rank-space solves (host-CSR factors under a mod colouring)
 # ---------------------------------------------------------------------------
 
-LANES = 128
 #: the JAX package's default row tile; it sizes the padded block R_b
 _TB = 256
 #: the JAX package's refusal of irregular patterns: more (colour, colour,
@@ -799,21 +1227,14 @@ def _check_spec(spec, n: int) -> int:
     if spec.kind == "mod":
         return -(-n // spec.params[0])
     if spec.kind == "grid":
-        raise NotImplementedError(
-            "coloured triangular solves of a host CSR matrix under a grid "
-            "colouring take the superblock form built from CSR, which "
-            "arrives with ROADMAP Queue 1 slice 5b")
+        nx, ny, nz, sx, sy, sz = spec.params
+        if nx * ny * nz != n:
+            raise BlockIneligibleError("grid spec dims do not match n_rows")
+        if nx % sx or ny % sy or nz % sz:
+            raise BlockIneligibleError("grid strides must divide the dims")
+        return n // (sx * sy * sz)
     raise BlockIneligibleError(
         f"blocked trisolve needs a grid/mod coloring, got {spec.kind!r}")
-
-
-def spec_colors_valid(colors, spec, n: int) -> bool:
-    """True iff `colors` is exactly the spec's structural colouring."""
-    from ..coloring import spec_colors_np
-    try:
-        return np.array_equal(np.asarray(colors), spec_colors_np(spec, n))
-    except ValueError:
-        return False
 
 
 def build_blocked_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
@@ -838,7 +1259,15 @@ def build_blocked_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
     m = _check_spec(spec, n)
     if n and C != int(colors.max()) + 1:
         raise BlockIneligibleError("colors/spec mismatch")
-    rank = np.arange(n, dtype=np.int64) // spec.params[0]
+    idx = np.arange(n, dtype=np.int64)
+    if spec.kind == "mod":
+        rank = idx // spec.params[0]
+    else:
+        from ..coloring import _grid_coords
+        nx, ny, nz, sx, sy, sz = spec.params
+        mx, my = nx // sx, ny // sy
+        X, Y, Z = _grid_coords(idx, nx, ny)
+        rank = (X // sx) + mx * ((Y // sy) + my * (Z // sz))
     keep = (cj > ci) if upper else (cj < ci)
     rows, cols, ci, cj = rows[keep], cols[keep], ci[keep], cj[keep]
     v = vals[keep]
@@ -883,11 +1312,45 @@ def build_blocked_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
         spec_params=tuple(int(p) for p in spec.params))
 
 
+def build_best_trisolve(T, D, colors, spec, *, upper: bool,
+                        dtype=torch.float32, need_d: bool = False,
+                        device="cuda"):
+    """The superblock form under a grid colouring where it applies, else
+    the rank-space form.  An improper colouring raises
+    ImproperColoringError from either."""
+    if spec.kind == "grid":
+        try:
+            return build_superblock_trisolve(T, D, colors, spec, upper=upper,
+                                             dtype=dtype, need_d=need_d,
+                                             device=device)
+        except ImproperColoringError:
+            raise
+        except BlockIneligibleError:
+            pass
+    return build_blocked_trisolve(T, D, colors, spec, upper=upper,
+                                  dtype=dtype, need_d=need_d, device=device)
+
+
 def build_best_trisolve_pair(T, D_L, D_U, colors, spec, *,
                              dtype=torch.float32, need_d: bool = False,
                              device="cuda"):
-    """The (lower, upper) pair in one layout, the entries expanded once."""
+    """The (lower, upper) pair in one layout, the entries expanded once:
+    the superblock form under a grid colouring where both triangles take
+    it, else the rank-space form as a pair (blocked_sgs and blocked_ilu0
+    feed L's output straight into U)."""
     trip = _entries_of(T)
+    if spec.kind == "grid":
+        try:
+            return (build_superblock_trisolve(trip, D_L, colors, spec,
+                                              upper=False, dtype=dtype,
+                                              need_d=need_d, device=device),
+                    build_superblock_trisolve(trip, D_U, colors, spec,
+                                              upper=True, dtype=dtype,
+                                              device=device))
+        except ImproperColoringError:
+            raise
+        except BlockIneligibleError:
+            pass
     return (build_blocked_trisolve(trip, D_L, colors, spec, upper=False,
                                    dtype=dtype, need_d=need_d,
                                    device=device),
@@ -897,15 +1360,26 @@ def build_best_trisolve_pair(T, D_L, D_U, colors, spec, *,
 
 def permute_blocks(B: BlockedTriSolve, y: torch.Tensor) -> torch.Tensor:
     """Flat (n,) → the (C, M) colour blocks, rank-ordered, zero-padded."""
-    k, m = B.spec_params[0], B.m
-    arr = torch.nn.functional.pad(y, (0, k * m - B.n_rows)).view(m, k).t()
-    return torch.nn.functional.pad(arr, (0, B.M - m)).contiguous()
+    m = B.m
+    if B.spec_kind == "mod":
+        k = B.spec_params[0]
+        arr = F.pad(y, (0, k * m - B.n_rows)).view(m, k).t()
+    else:
+        nx, ny, nz, sx, sy, sz = B.spec_params
+        arr = (y.view(nz // sz, sz, ny // sy, sy, nx // sx, sx)
+               .permute(1, 3, 5, 0, 2, 4).reshape(B.n_colors, m))
+    return F.pad(arr, (0, B.M - m)).contiguous()
 
 
 def unpermute_blocks(B: BlockedTriSolve, X: torch.Tensor) -> torch.Tensor:
     """The (C, M) colour blocks → flat (n,)."""
-    k, m = B.spec_params[0], B.m
-    return X[:, :m].t().reshape(k * m)[:B.n_rows]
+    m = B.m
+    if B.spec_kind == "mod":
+        k = B.spec_params[0]
+        return X[:, :m].t().reshape(k * m)[:B.n_rows]
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    return (X[:, :m].reshape(sz, sy, sx, nz // sz, ny // sy, nx // sx)
+            .permute(3, 0, 4, 1, 5, 2).reshape(B.n_rows))
 
 
 def _check_rank_level(B: BlockedTriSolve, li: int, Y, X):
@@ -1003,9 +1477,13 @@ def solve_blocks(B: BlockedTriSolve, Y: torch.Tensor,
 
 def _solve_super(B: SuperBlockTriSolve, y: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
-    """All levels in order, into x (which may be y): one fused launch a
-    level, or on the split route an acc step (where the level has cross
-    legs) and one step per x-parity."""
+    """All levels in order, into x (which may be y): with MEGA a fused
+    const-mode solve in one launch (the JAX package's _mega_eligible
+    without its TPU memory budget); else one fused launch a level, or on
+    the split route an acc step (where the level has cross legs) and one
+    step per x-parity."""
+    if MEGA and B.is_const and B.fused:
+        return super_solve_mega(B, y, x)
     if B.fused:
         for li in range(len(B.levels)):
             super_level(B, li, y, x)
@@ -1032,13 +1510,15 @@ def blocked_sgs(L, U, y: torch.Tensor) -> torch.Tensor:
     """(U_c+D)⁻¹ D (L_c+D)⁻¹ y, the exact coloured symmetric GS apply: the
     levels of L, the multiply by D, the levels of U in place (L must be
     built with need_d=True)."""
-    if L.d is None:
+    d = L.d if isinstance(L, BlockedTriSolve) or L.d_rows is None \
+        else L.d_rows
+    if d is None:
         raise ValueError("blocked_sgs needs L built with need_d=True")
     if isinstance(L, BlockedTriSolve):
         T = solve_blocks(L, permute_blocks(L, y), torch.empty(
             (L.n_colors, L.M), dtype=y.dtype, device=y.device)) * L.d
         return unpermute_blocks(U, solve_blocks(U, T, T))
-    t = blocked_trisolve(L, y) * L.d
+    t = blocked_trisolve(L, y) * d
     return _solve_super(U, t, t)
 
 
@@ -1049,8 +1529,10 @@ def blocked_ilu0(L, U, y: torch.Tensor) -> torch.Tensor:
         X = solve_blocks(L, permute_blocks(L, y), torch.empty(
             (L.n_colors, L.M), dtype=y.dtype, device=y.device))
         return unpermute_blocks(U, solve_blocks(U, X, X))
-    if not (L.is_table and U.is_table):
-        raise ValueError("blocked_ilu0 needs a factor-table pair "
-                         "(build_superblock_ilu0_pair_stencil)")
+    if not L.unit:
+        raise ValueError("blocked_ilu0 needs an ILU(0) pair, whose L solves "
+                         "with a unit diagonal: the factor-table pair "
+                         "(build_superblock_ilu0_pair_stencil) or one built "
+                         "from its factors with D None, not a GS pair")
     x = blocked_trisolve(L, y)
     return _solve_super(U, x, x)

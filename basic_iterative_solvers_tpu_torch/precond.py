@@ -17,12 +17,13 @@ Type → action:
 The exact solves (gs, bgs, sgs, ilu0) run in one of three forms:
 * natural order (`gs_mode` "levels", the host path's default): the
   level-scheduled scans of ops/trisolve.py, the reference's ordering;
-* coloured, blocked: the superblock solves on stencils or the rank-space
-  solves of host CSR under a mod colouring (ops/block_trisolve.py);
+* coloured, blocked: the superblock solves (on stencils, or built from
+  host CSR under a grid colouring) or the rank-space solves of host CSR
+  under a mod colouring, or a grid one the superblock form refuses
+  (ops/block_trisolve.py);
 * coloured, masked sweeps (coloring.py): any operator and colouring.
-A grid colouring of host CSR (the JAX package's superblock form from CSR)
-raises NotImplementedError naming ROADMAP Queue 1 slice 5b; Chebyshev and
-multigrid name slice 6.
+Chebyshev and multigrid raise NotImplementedError naming ROADMAP Queue 1
+slice 6.
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ class Preconditioner:
     color_arr: Optional[torch.Tensor] = None   # greedy colour ids
     n_colors: int = 0
     #: blocked coloured solves (ops/block_trisolve): SuperBlockTriSolve
-    #: (const or factor-table mode) or BlockedTriSolve (rank space)
+    #: (const, factor-table or plane mode) or BlockedTriSolve (rank space)
     L_block: Any = None
     U_block: Any = None
 
@@ -246,39 +247,37 @@ def _masked_ilu0(A: MatrixCSR, colors, rows_o, cols_o, lu_vals, U_D, kw,
 
 def _colored_ilu0(A: MatrixCSR, config: SolverConfig, kw, dtype, device,
                   A_dev) -> Preconditioner:
-    """Exact coloured ILU(0) on host CSR (precond.py:145-267): factored in
-    the colour-sorted ordering; rank-space solves under a mod colouring,
-    masked sweeps under greedy colours."""
+    """Exact coloured ILU(0) on host CSR (precond.py:145-267, its NumPy
+    branch), factored in the colour-sorted ordering.  Under a grid
+    colouring the translation-table pair where A_dev is a stencil; then the
+    triplet pipeline (superblock, or rank-space as a pair, under a grid or
+    mod colouring); an improper colouring recolours greedily, and greedy
+    colours take masked sweeps."""
     from .factor import factor_ilu0_colored_triplets
     from .ops.block_trisolve import (BlockIneligibleError,
-                                     ImproperColoringError, _check_spec,
+                                     ImproperColoringError,
                                      build_best_trisolve_pair,
                                      build_superblock_ilu0_pair_stencil)
+    tol, repl = config.ilu0_pivot_tolerance, config.ilu0_pivot_replacement
     colors, spec = _colors_for_setup(A, config)
+    done = lambda L, U: Preconditioner(  # noqa: E731
+        L_block=L, U_block=U, color_spec=spec, n_colors=spec.n_colors, **kw)
     if spec is not None and spec.kind == "grid" and isinstance(
             A_dev, DeviceStencil):
         try:
-            L, U = build_superblock_ilu0_pair_stencil(
-                A_dev, spec, dtype=dtype,
-                pivot_tolerance=config.ilu0_pivot_tolerance,
-                pivot_replacement=config.ilu0_pivot_replacement)
-            return Preconditioner(L_block=L, U_block=U, color_spec=spec,
-                                  n_colors=spec.n_colors, **kw)
+            return done(*build_superblock_ilu0_pair_stencil(
+                A_dev, spec, dtype=dtype, pivot_tolerance=tol,
+                pivot_replacement=repl))
         except BlockIneligibleError:
             pass
     factor = lambda c: factor_ilu0_colored_triplets(  # noqa: E731
-        A, c, pivot_tolerance=config.ilu0_pivot_tolerance,
-        pivot_replacement=config.ilu0_pivot_replacement)
-    if spec is not None and spec.kind == "grid":
-        _check_spec(spec, A.n_rows)     # the superblock pair from CSR: 5b
+        A, c, pivot_tolerance=tol, pivot_replacement=repl)
     rows_o, cols_o, lu_vals, U_D = factor(colors)
     if spec is not None:
         try:
-            L, U = build_best_trisolve_pair(
+            return done(*build_best_trisolve_pair(
                 (rows_o, cols_o, lu_vals, A.n_rows), None, U_D, colors, spec,
-                dtype=dtype, device=device)
-            return Preconditioner(L_block=L, U_block=U, color_spec=spec,
-                                  n_colors=spec.n_colors, **kw)
+                dtype=dtype, device=device))
         except ImproperColoringError:
             from .coloring import greedy_coloring
             colors = greedy_coloring(A)
@@ -291,14 +290,15 @@ def _colored_ilu0(A: MatrixCSR, config: SolverConfig, kw, dtype, device,
 
 def _colored_gs(A: MatrixCSR, config: SolverConfig, factors, kw, dtype,
                 device, A_dev) -> Preconditioner:
-    """The coloured GS family on host CSR (precond.py:268-337): rank-space
-    solves of A's colour-strict parts under a mod colouring, masked sweeps
-    with the full device operator under greedy colours."""
+    """The coloured GS family on host CSR (precond.py:268-337, its NumPy
+    branch): the best layout (superblock, or rank-space, under a grid or
+    mod colouring) of the triangles it needs, one layout for SGS's pair;
+    masked sweeps with the full device operator under greedy colours."""
     from .factor import peel_diag
     from .ops.block_trisolve import (BlockIneligibleError,
                                      ImproperColoringError,
-                                     build_best_trisolve_pair,
-                                     build_blocked_trisolve)
+                                     build_best_trisolve,
+                                     build_best_trisolve_pair)
     pt = config.preconditioner
     A_D_np, A_D_inv_np = ((factors.A_D, factors.A_D_inv)
                           if factors is not None else peel_diag(A))
@@ -308,18 +308,20 @@ def _colored_gs(A: MatrixCSR, config: SolverConfig, factors, kw, dtype,
     colors, spec = _colors_for_setup(A, config)
     if spec is not None:
         try:
+            L = U = None
             if pt == PrecondType.SYMMETRIC_GAUSS_SEIDEL:
-                L, U = build_best_trisolve_pair(A, A_D_np, A_D_np, colors,
-                                                spec, dtype=dtype,
-                                                need_d=True, device=device)
-            elif pt == PrecondType.GAUSS_SEIDEL:
-                L, U = build_blocked_trisolve(A, A_D_np, colors, spec,
-                                              upper=False, dtype=dtype,
-                                              device=device), None
+                L, U = build_best_trisolve_pair(
+                    A, A_D_np, A_D_np, colors, spec, dtype=dtype,
+                    need_d=True, device=device)
             else:
-                L, U = None, build_blocked_trisolve(A, A_D_np, colors, spec,
-                                                    upper=True, dtype=dtype,
-                                                    device=device)
+                B = build_best_trisolve(
+                    A, A_D_np, colors, spec,
+                    upper=pt == PrecondType.BACKWARDS_GAUSS_SEIDEL,
+                    dtype=dtype, device=device)
+                if pt == PrecondType.GAUSS_SEIDEL:
+                    L = B
+                else:
+                    U = B
             return Preconditioner(A_D=A_D, A_D_inv=A_D_inv, L_block=L,
                                   U_block=U, color_spec=spec,
                                   n_colors=spec.n_colors, **kw)

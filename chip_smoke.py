@@ -64,7 +64,25 @@ exits non-zero:
      (150), cg@sband on lane-ELL (400) and the gather ELL (40),
      pbicgstab@band (800), counting every kernel's launches, with set-up
      seconds; then natural-order f64 CG + SGS and CG + ILU(0) on fdm:256
-     on the CPU and on the card, equal iteration counts.
+     on the CPU and on the card, equal iteration counts;
+ 23. the slice-5b rows ([slice5b]): the coloured host route under the
+     source's grid colour spec, pcg_ilu0@fdm2048 (CG + ILU(0), 1200
+     iterations, the pair from host CSR: L in plane mode, U const with a
+     per-row D, the JAX CLI's route: the JAX bench's stencil injection
+     takes the factor-table pair here) and pbicgstab@anderson128
+     (BiCGSTAB + SGS, 800, the stencil injected: const mode with a per-row
+     D), with every kernel's launches, set-up seconds and peak memory; f64
+     CG + ILU(0) on fdm:256 on that route on the CPU and on the card;
+ 24. the plane mode of the superblock level kernel and the per-row D of
+     its const mode ([plane-level]) against their plain versions on every
+     level of the fdm:2048 pair, f32 and widened to f64, bit for bit, whole
+     applies, the split route's kernels in plane mode ([plane-split]) and
+     the fused/split A/B in turns, torch.triangular_solve's whole L solve,
+     and the hpcg:32x32x32 plane pair against its factor-table pair;
+ 25. the one-launch const solve ([mega]) against the per-level route and
+     the plain loop on the HPCG 128^3 SGS pair, f32 and f64, bit for bit,
+     and torch.triangular_solve's whole const L solve; then the bench's sgs and pcg rows with BIS_SB_MEGA's switch (the
+     module attribute MEGA) on and off in turns.
 The second-to-last line is a JSON object describing each kernel: launches
 on the main paths, error against plain, kernel, plain and library times,
 and the bound (the larger of the bytes it must move over the card's
@@ -780,8 +798,10 @@ def _counters(so, gb, bk, reset=False):
                "correct_write": (gb.correct_write, "launches"),
                "super_level": (bk.super_level, "launches"),
                "super_level_table": (bk.super_level, "table_launches"),
+               "super_level_plane": (bk.super_level, "plane_launches"),
                "super_acc": (bk.super_acc, "launches"),
-               "super_parity": (bk.super_parity, "launches")}
+               "super_parity": (bk.super_parity, "launches"),
+               "super_solve_mega": (bk.super_solve_mega, "launches")}
     if reset:
         for fn, attr in kernels.values():
             setattr(fn, attr, 0)
@@ -895,23 +915,27 @@ def _split_pair(L, U):
             dataclasses.replace(U, fused=False, _args={}))
 
 
-def _check_levels(torch, bk, label, B, y, x, levels, timed=True):
+def _check_levels(torch, bk, label, B, y, x, levels, timed=True,
+                  tag="ilu0-level"):
     """super_level against super_level_plain on the given levels of B, bit
-    for bit; returns ([kernel ms], [plain ms], worst abs error)."""
+    for bit, each launch counted in its mode's counter; returns ([kernel
+    ms], [plain ms], worst abs error)."""
+    attr = ("table_launches" if B.is_table else
+            "plane_launches" if B.is_plane else "launches")
     ms, plain_ms, worst = [], [], 0.0
     for li in levels:
-        before = bk.super_level.table_launches
+        before = getattr(bk.super_level, attr)
         xk, xp = x.clone(), x.clone()
         bk.super_level(B, li, y, xk)
         bk.super_level_plain(B, li, y, xp)
         torch.cuda.synchronize()
-        if bk.super_level.table_launches != before + 1:
-            raise RuntimeError("the factor-table launch count did not grow")
+        if getattr(bk.super_level, attr) != before + 1:
+            raise RuntimeError(f"the {attr} count did not grow")
         equal = torch.equal(xk, xp)
         worst = max(worst, float((xk - xp).abs().max()))
-        line = (f"[ilu0-level] {label} {'U' if B.upper else 'L'} level {li} "
-                f"(superblock {B.levels[li][0]}, {len(B.levels[li][1])} "
-                f"cross legs) bit_equal={equal}")
+        line = (f"[{tag}] {label} {'U' if B.upper else 'L'} level {li} "
+                f"({_mode(B)}, superblock {B.levels[li][0]}, "
+                f"{len(B.levels[li][1])} cross legs) bit_equal={equal}")
         if timed:
             ms.append(_median_ms(lambda: bk.super_level(B, li, y, xk),
                                  torch))
@@ -921,8 +945,7 @@ def _check_levels(torch, bk, label, B, y, x, levels, timed=True):
             line += f" kernel_ms={ms[-1]:.4f} plain_ms={plain_ms[-1]:.4f}"
         print(line)
         if not equal:
-            raise RuntimeError(f"factor-table level disagrees with plain: "
-                               f"{line}")
+            raise RuntimeError(f"level disagrees with plain: {line}")
     return ms, plain_ms, worst
 
 
@@ -930,14 +953,9 @@ def _ilu_lower_csr(torch, bk, A, L):
     """L's unit lower triangle in the colour-sorted ordering as a
     torch.sparse_csr_tensor, and the permutation (new → old): entry (i, j)
     of a leg whose source colour is lower, valued from the class table."""
-    nx, ny, nz, sx, sy, sz = L.spec_params
+    nx, ny, nz, sx = L.spec_params[:4]
     n = A.n_rows
-    i = torch.arange(n, device="cuda")
-    gx, gy, gz = i % nx, (i // nx) % ny, i // (nx * ny)
-    color = gx % sx + sx * (gy % sy + sy * (gz % sz))
-    perm = torch.sort(color, stable=True).indices
-    inv = torch.empty_like(perm)
-    inv[perm] = i
+    i, (gx, gy, gz), color, perm, inv = _colour_order(torch, L)
     base = torch.empty(n, dtype=torch.int64, device="cuda")
     for li in range(len(L.levels)):
         rows = i.view(nz, ny, nx)[bk._rows(L, li)[5]]
@@ -955,11 +973,52 @@ def _ilu_lower_csr(torch, bk, A, L):
         r_all.append(inv[ok])
         c_all.append(inv[j[ok]])
         v_all.append(L.table[kd][base[ok]])
+    return _sorted_csr(torch, r_all, c_all, v_all, n), perm
+
+
+def _colour_order(torch, L):
+    """The rows, their grid coordinates and colours under L's grid spec,
+    the colour-sorted permutation (new → old) and its inverse."""
+    nx, ny, nz, sx, sy, sz = L.spec_params
+    i = torch.arange(L.n_rows, device="cuda")
+    gx, gy, gz = i % nx, (i // nx) % ny, i // (nx * ny)
+    color = gx % sx + sx * (gy % sy + sy * (gz % sz))
+    perm = torch.sort(color, stable=True).indices
+    inv = torch.empty_like(perm)
+    inv[perm] = i
+    return i, (gx, gy, gz), color, perm, inv
+
+
+def _sorted_csr(torch, r_all, c_all, v_all, n):
+    """The (n, n) torch.sparse_csr_tensor of the triplet pieces."""
     r, c, v = torch.cat(r_all), torch.cat(c_all), torch.cat(v_all)
     order = torch.argsort(r * n + c)
     crow = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
     crow[1:] = torch.bincount(r, minlength=n).cumsum(0)
-    return torch.sparse_csr_tensor(crow, c[order], v[order], (n, n)), perm
+    return torch.sparse_csr_tensor(crow, c[order], v[order], (n, n))
+
+
+def _const_lower_csr(torch, A, L):
+    """The const pair's L, the colour-lower part of the stencil A and its
+    diagonal, in the colour-sorted ordering as a torch.sparse_csr_tensor,
+    and the permutation (new → old)."""
+    nx, ny, nz = L.spec_params[:3]
+    n = A.n_rows
+    i, (gx, gy, gz), color, perm, inv = _colour_order(torch, L)
+    r_all, c_all, v_all = [], [], []
+    for (dx, dy, dz), cv in zip(A.legs, A.coeff_values):
+        ok = ((gx + dx >= 0) & (gx + dx < nx) & (gy + dy >= 0)
+              & (gy + dy < ny) & (gz + dz >= 0) & (gz + dz < nz))
+        j = (i + (dx + nx * (dy + ny * dz))).clamp(0, n - 1)
+        if (dx, dy, dz) != (0, 0, 0):
+            if cv == 0.0:
+                continue
+            ok &= color[j] < color
+        r_all.append(inv[ok])
+        c_all.append(inv[j[ok]])
+        v_all.append(torch.full((int(ok.sum()),), cv, dtype=L.dtype,
+                                device="cuda"))
+    return _sorted_csr(torch, r_all, c_all, v_all, n), perm
 
 
 def phase_ilu0_level_vs_plain(torch, bt):
@@ -1667,6 +1726,588 @@ def phase_slice5_path(torch, bt, sband, band):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 5b: superblock solves built from host CSR (plane mode, const mode
+# with a per-row D), the one-launch const solve
+# ---------------------------------------------------------------------------
+
+FDM_5B = "fdm:2048"
+ANDERSON_128 = KERNEL_SPECS[2]
+
+
+def _colored_host_setup(torch, bt, spec, dt, method, precond, device="cuda",
+                        stencil=False, **kw):
+    """The coloured host-CSR route under the source's grid colour spec
+    (gs_mode "colored"), b = 2, x0 = 1, fused harness: the host CSR of
+    `spec` through preprocessing, with the stencil injected as the solve
+    operator (`stencil`, the JAX bench's fallback, bench.py:227-259) or the
+    operator from the CSR (the JAX CLI's host route, cli.py:290-309).
+    Returns (setup, generator seconds, preprocessing seconds)."""
+    t0 = time.perf_counter()
+    A = bt.generators.from_source(spec)
+    gen_s = time.perf_counter() - t0
+    A_dev = (bt.stencil_op.from_source_operator(spec, dt, device=device)
+             if stencil else None)
+    cfg = bt.SolverConfig(
+        method=bt.SolverType[method], preconditioner=bt.PrecondType[precond],
+        dtype=dt, harness="fused", gs_mode="colored",
+        color_spec=bt.generators.color_spec_for_source(spec), **kw)
+    n = A.n_rows
+    t0 = time.perf_counter()
+    setup = bt.preprocessing(
+        A, cfg, b=torch.full((n,), 2.0, dtype=dt, device=device),
+        x0=torch.full((n,), 1.0, dtype=dt, device=device), A_dev=A_dev,
+        device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return setup, gen_s, time.perf_counter() - t0
+
+
+def _mode(B):
+    """A superblock solve's mode as the [slice5b] lines print it."""
+    if B.is_table:
+        return "table"
+    if B.is_plane:
+        return "plane"
+    return "const, per-row D" if B.dinv_rows is not None else "const"
+
+
+def _widen(B, torch):
+    """The same solve at float64: its planes and diagonal widened (their
+    values exact), so the f64 kernel runs on the f32 pair's structure."""
+    import dataclasses
+    f64 = lambda t: None if t is None else t.double()  # noqa: E731
+    return dataclasses.replace(
+        B, dtype=torch.float64,
+        vals_cross=None if B.vals_cross is None else tuple(
+            f64(v) for v in B.vals_cross),
+        vals_self=None if B.vals_self is None else tuple(
+            f64(v) for v in B.vals_self),
+        dinv_rows=f64(B.dinv_rows), d_rows=f64(B.d_rows), _args={})
+
+
+def _as_planes(B, torch):
+    """B in plane mode on the split route: the planes a const-mode level
+    stands for (coeff × leg mask, what the builder tested them against),
+    as BIS_SB_ALIGNED=0 builds the pair for 128 % nx != 0, where no const
+    detection runs."""
+    import dataclasses
+    import numpy as np
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    if B.is_plane:
+        return dataclasses.replace(B, fused=False, _args={})
+    np_dt = bk._np_dtype(B.dtype)
+    dev = B.dinv_rows.device
+    vc, vs = [], []
+    for li, (sb, cross, selfs) in enumerate(B.levels):
+        c_planes = [c * bk._leg_mask_np(sb, (dx, dy, dz), B.spec_params, B.m)
+                    for c, dx, dy, dz in B.const_cross[li]]
+        s_planes = [c * bk._leg_mask_np(sb, (dx, 0, 0), B.spec_params, B.m,
+                                        self_upper=B.upper)
+                    for c, dx in B.const_self[li]]
+        vc.append(torch.from_numpy(np.array(c_planes, dtype=np_dt)).to(dev)
+                  if cross else None)
+        vs.append(torch.from_numpy(np.array(s_planes, dtype=np_dt)).to(dev)
+                  if selfs else None)
+    return dataclasses.replace(B, const_cross=(), const_self=(),
+                               vals_cross=tuple(vc), vals_self=tuple(vs),
+                               fused=False, _args={})
+
+
+def _plane_level_work(B, li, itemsize, part="level"):
+    """(bytes, operations) of one level of a pair built from host CSR:
+    each plane value the part reads, y or acc on the level's rows, each
+    source superblock's x once, the per-row 1/D, x written once; a product
+    and a difference per plane value (const mode: per in-grid leg, no
+    planes) and the pivot multiply.  `part` "acc" is the split route's
+    acc step (cross planes); "parity" one parity step (1/sx of the rows,
+    their self planes, and x on the level's other parities)."""
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    sb, cross, selfs = B.levels[li]
+    m = B.m
+    n_src = len({src for src, _d in cross})
+    if B.is_plane:
+        planes_c, planes_s = len(cross) * m, len(selfs) * m
+        terms_c, terms_s = planes_c, planes_s
+    else:
+        py, pz = sb % sy, sb // sy
+        planes_c = planes_s = 0
+        terms_c = sum((nx - abs(dx)) * _axis_count(ny, sy, py, dy)
+                      * _axis_count(nz, sz, pz, dz)
+                      for _c, dx, dy, dz in B.const_cross[li])
+        terms_s = (m // nx) * sum(
+            1 for _c, dx in B.const_self[li] for x in range(nx)
+            if 0 <= x + dx < nx and ((x + dx) % sx > x % sx if B.upper
+                                     else (x + dx) % sx < x % sx))
+    if part == "acc":
+        return itemsize * (planes_c + m * (2 + n_src)), 2 * terms_c
+    if part == "parity":
+        rows = m // sx
+        return (itemsize * (planes_s // sx + 3 * rows
+                            + (m - rows if selfs else 0)),
+                2 * terms_s // sx + rows)
+    return (itemsize * (planes_c + planes_s + m * (3 + n_src)),
+            2 * (terms_c + terms_s) + m)
+
+
+def _plane_lower_csr(torch, bk, L):
+    """L (unit diagonal, strict part from its planes) in the colour-sorted
+    ordering as a torch.sparse_csr_tensor on the card, and the permutation
+    (new → old)."""
+    n = L.n_rows
+    i, _coords, _color, perm, inv = _colour_order(torch, L)
+    r_all, c_all, v_all = [inv], [inv], [1.0 / L.dinv_rows]
+    for li, (sb, cross, selfs) in enumerate(L.levels):
+        rows = bk._slots(L, i, sb).reshape(-1)
+        for g, (src, delta) in enumerate(cross):
+            src_rows = bk._slots(L, i, src).reshape(-1)
+            t = torch.arange(L.m, device="cuda")
+            ok = (t + delta >= 0) & (t + delta < L.m)
+            v = L.vals_cross[li][g]
+            ok &= v != 0
+            r_all.append(inv[rows[ok]])
+            c_all.append(inv[src_rows[(t + delta)[ok]]])
+            v_all.append(v[ok])
+        for g, dx in enumerate(selfs):
+            v = L.vals_self[li][g]
+            ok = v != 0
+            r_all.append(inv[rows[ok]])
+            c_all.append(inv[rows[ok] + dx])
+            v_all.append(v[ok])
+    return _sorted_csr(torch, r_all, c_all, v_all, n), perm
+
+
+def phase_slice5b_build(torch, bt):
+    """The fdm:2048 CG + ILU(0) pair on the coloured host route, built once:
+    f32, 1200 iterations, tolerance 0, peak memory from here.  Returns
+    (setup, generator seconds, set-up seconds)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    setup, gen_s, setup_s = _colored_host_setup(
+        torch, bt, FDM_5B, torch.float32, "CONJUGATE_GRADIENT", "ILU0",
+        max_iters=1200, tolerance=0.0, breakdown_stall=True)
+    L, U = setup.M.L_block, setup.M.U_block
+    print(f"[slice5b] {FDM_5B} f32 CG + ILU(0) pair from host CSR: L "
+          f"{_mode(L)}, U {_mode(U)}, {L.S} levels a triangle, "
+          f"{type(setup.A).__name__} operator; host CSR {gen_s:.3f} s, "
+          f"preprocessing {setup_s:.3f} s")
+    if not (L.is_plane and type(L).__name__ == "SuperBlockTriSolve"):
+        raise RuntimeError(f"{FDM_5B} ILU(0) did not build a plane pair")
+    return setup, gen_s, setup_s
+
+
+def phase_plane_level_vs_plain(torch, bt, setup):
+    """K1 (plane mode of #9) and the per-row D of const mode against their
+    plain versions on every level of the fdm:2048 ILU(0) pair's L and U, f32
+    and (the pair widened) f64, bit for bit; whole applies; the split
+    route (the pair in plane form, as BIS_SB_ALIGNED=0 builds it):
+    super_acc and super_parity against plain on every level, and whole
+    applies fused and split in turns; one whole L solve through
+    torch.triangular_solve; the cross-check of the plane pair of
+    hpcg:32x32x32 from CSR against its factor-table pair, f64.  Returns the
+    plane record and the split route's."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    L32, U32 = setup.M.L_block, setup.M.U_block
+    n = L32.n_rows
+    record = None
+    for dt in (torch.float32, torch.float64):
+        L, U = (L32, U32) if dt == torch.float32 else (
+            _widen(L32, torch), _widen(U32, torch))
+        g = torch.Generator(device="cuda").manual_seed(11)
+        y = torch.randn(n, dtype=dt, device="cuda", generator=g)
+        x = torch.randn(n, dtype=dt, device="cuda", generator=g)
+        label = f"{FDM_5B} {str(dt)[6:]}"
+        res = {}
+        for B in (L, U):
+            res[B.upper] = _check_levels(torch, bk, label, B, y, x,
+                                         range(len(B.levels)),
+                                         tag="plane-level")
+        zk = bk.blocked_ilu0(L, U, y)
+        zp = _plain_ilu0(bk, L, U, y)
+        torch.cuda.synchronize()
+        apply_ms = _median_ms(lambda: bk.blocked_ilu0(L, U, y), torch)
+        works = [_plane_level_work(B, li, x.element_size()) for B in (L, U)
+                 for li in range(len(B.levels))]
+        bound = _bound(sum(b for b, _o in works), sum(o for _b, o in works))
+        print(f"[plane-level] {label} blocked_ilu0 (2x{L.S} levels) against "
+              f"the plain levels: bit_equal={torch.equal(zk, zp)} "
+              f"ms={apply_ms:.4f} bound_ms={bound['bound_ms']:.4f} "
+              f"({bound['bound_by']}, at the float32 rate)")
+        if not torch.equal(zk, zp):
+            raise RuntimeError(f"{label}: whole ILU(0) apply disagrees")
+        if dt == torch.float32:
+            ms, plain_ms, worst = res[False]
+            record = {"max_abs_err": worst, "ms": statistics.mean(ms),
+                      "plain_ms": statistics.mean(plain_ms),
+                      "library_ms": None,
+                      **_mean_bound([_plane_level_work(L, li, 4)
+                                     for li in range(len(L.levels))])}
+        del zk, zp, x, y
+    split_records, whole = _plane_split(torch, bk, L32, U32)
+    M, perm = _plane_lower_csr(torch, bk, L32)
+    y = torch.randn(n, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(12))
+    ref = bk.blocked_trisolve(L32, y)[perm]
+    yp = y[perm].unsqueeze(1).contiguous()
+    sol = torch.triangular_solve(yp, M, upper=False).solution
+    rel = float((sol[:, 0] - ref).abs().max() / ref.abs().max())
+    lib_ms = _median_ms(lambda: torch.triangular_solve(yp, M, upper=False),
+                        torch, reps=5, batch=2)
+    own_ms = _median_ms(lambda: bk.blocked_trisolve(L32, y), torch)
+    print(f"[library] {FDM_5B} f32 one whole L solve (nnz "
+          f"{M.values().numel()}): torch.triangular_solve on the "
+          f"colour-sorted sparse CSR triangle ms={lib_ms:.4f} "
+          f"max_rel_err={rel:.3e}; blocked_trisolve ({L32.S} plane level "
+          f"launches) ms={own_ms:.4f}")
+    if not rel <= TOL["float32"]:
+        raise RuntimeError("the library's L solve disagrees")
+    del M, sol, yp
+    torch.cuda.empty_cache()
+    _plane_vs_table(torch, bt, bk)
+    whole.update(library_ms=lib_ms, blocked_trisolve_ms=own_ms)
+    return record, split_records, whole
+
+
+def _plane_split(torch, bk, L32, U32):
+    """The split route's kernels in plane mode against plain on every level
+    of the pair in plane form, bit for bit, each timed; then whole applies
+    on the fused and the split route in turns (fused, split, split,
+    fused), equal bit for bit."""
+    Ls, Us = _as_planes(L32, torch), _as_planes(U32, torch)
+    n, m = L32.n_rows, L32.m
+    g = torch.Generator(device="cuda").manual_seed(13)
+    y = torch.randn(n, device="cuda", generator=g)
+    x = torch.randn(n, device="cuda", generator=g)
+    acc_k, acc_p = (torch.empty(m, device="cuda") for _ in range(2))
+    t = {"acc": [], "acc_plain": [], "par": [], "par_plain": []}
+    work = {"acc": [], "par": []}
+    for B in (Ls, Us):
+        for li, (_sb, cross, _s) in enumerate(B.levels):
+            if cross:
+                before = bk.super_acc.launches
+                bk.super_acc(B, li, y, x, acc_k)
+                bk.super_acc_plain(B, li, y, x, acc_p)
+                torch.cuda.synchronize()
+                if (bk.super_acc.launches != before + 1
+                        or not torch.equal(acc_k, acc_p)):
+                    raise RuntimeError(f"plane super_acc disagrees or was "
+                                       f"not counted on level {li}")
+                t["acc"].append(_median_ms(
+                    lambda: bk.super_acc(B, li, y, x, acc_k), torch))
+                t["acc_plain"].append(_median_ms(
+                    lambda: bk.super_acc_plain(B, li, y, x, acc_p), torch,
+                    reps=3, batch=3))
+                work["acc"].append(_plane_level_work(B, li, 4, "acc"))
+            a = acc_k if cross else None
+            for p in bk._parity_order(B):
+                xk, xp = x.clone(), x.clone()
+                before = bk.super_parity.launches
+                bk.super_parity(B, li, p, y, a, xk)
+                bk.super_parity_plain(B, li, p, y, a, xp)
+                torch.cuda.synchronize()
+                if (bk.super_parity.launches != before + 1
+                        or not torch.equal(xk, xp)):
+                    raise RuntimeError(f"plane super_parity disagrees or was "
+                                       f"not counted: level {li} parity {p}")
+                t["par"].append(_median_ms(
+                    lambda: bk.super_parity(B, li, p, y, a, xk), torch))
+                t["par_plain"].append(_median_ms(
+                    lambda: bk.super_parity_plain(B, li, p, y, a, xp), torch,
+                    reps=3, batch=3))
+                work["par"].append(_plane_level_work(B, li, 4, "parity"))
+            print(f"[plane-split] {FDM_5B} f32 {'U' if B.upper else 'L'} "
+                  f"level {li}: plane super_acc and super_parity "
+                  f"bit_equal=True acc_ms="
+                  f"{t['acc'][-1] if cross else 0:.4f} parity_ms="
+                  f"{t['par'][-2]:.4f},{t['par'][-1]:.4f}")
+    ab = {"fused": [], "split": []}
+    out = {}
+    for route in ("fused", "split", "split", "fused"):
+        pair = (L32, U32) if route == "fused" else (Ls, Us)
+        out[route] = bk.blocked_ilu0(*pair, y)
+        ab[route].append(_median_ms(lambda: bk.blocked_ilu0(*pair, y), torch))
+    equal = torch.equal(out["fused"], out["split"])
+    print(f"[plane-split] {FDM_5B} f32 whole apply A/B in turns: fused_ms="
+          f"{ab['fused']} split_ms={ab['split']} bit_equal={equal}")
+    if not equal:
+        raise RuntimeError("split and fused fdm:2048 applies differ")
+    records = {name: {"max_abs_err": 0.0, "ms": statistics.mean(t[key]),
+                      "plain_ms": statistics.mean(t[key + "_plain"]),
+                      "library_ms": None, **_mean_bound(work[key])}
+               for name, key in (("super_acc", "acc"),
+                                 ("super_parity", "par"))}
+    print(f"[plane-split] {FDM_5B} f32 plane mode, means over the levels: "
+          + "; ".join(f"{name} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                      f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
+                      for name, r in records.items()))
+    del Ls, Us, x, y, acc_k, acc_p, out
+    torch.cuda.empty_cache()
+    return records, {"fused_ms": ab["fused"], "split_ms": ab["split"]}
+
+
+#: the plane pair of hpcg:32x32x32 from CSR against its factor-table
+#: pair, f64: both are exact coloured ILU(0), factored by the same NumPy
+#: IKJ loop (the table from an 18^3 prototype): max|Δz| / max|z| bound
+PLANE_TABLE_TOL = 1e-12
+
+
+def _plane_vs_table(torch, bt, bk):
+    spec = "hpcg:32x32x32"
+    t0 = time.perf_counter()
+    setup, gen_s, setup_s = _colored_host_setup(
+        torch, bt, spec, torch.float64, "CONJUGATE_GRADIENT", "ILU0")
+    Lp, Up = setup.M.L_block, setup.M.U_block
+    A = bt.stencil_op.from_source_operator(spec, torch.float64, device="cuda")
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    Lt, Ut = bk.build_superblock_ilu0_pair_stencil(A, spec_for_device(A),
+                                                   dtype=torch.float64)
+    y = torch.randn(A.n_rows, dtype=torch.float64, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(14))
+    zp, zt = bk.blocked_ilu0(Lp, Up, y), bk.blocked_ilu0(Lt, Ut, y)
+    rel = float((zp - zt).abs().max() / zt.abs().max())
+    print(f"[plane-level] {spec} f64 plane pair from host CSR (L {_mode(Lp)}, "
+          f"U {_mode(Up)}; host CSR {gen_s:.2f} s, preprocessing "
+          f"{setup_s:.2f} s) against the factor-table pair: "
+          f"max_rel_err={rel:.3e} (bound {PLANE_TABLE_TOL:.0e}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (Lp.is_plane and rel <= PLANE_TABLE_TOL):
+        raise RuntimeError(f"{spec}: the plane pair disagrees with the "
+                           "factor-table pair")
+
+
+def phase_mega_vs_per_level(torch, bt):
+    """K2 (#12, the one-launch const solve) against the per-level route and
+    the plain per-level loop on the const SGS pair of HPCG 128^3, f32 and
+    f64, bit for bit: the L solve, the U solve and the U solve in place;
+    each route timed; and the f32 L solve through torch.triangular_solve on
+    the colour-sorted sparse triangle, the library's nearest call.  Returns
+    the f32 record (ms: one whole L solve)."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    record = None
+    for dt in (torch.float32, torch.float64):
+        A = bt.stencil_op.from_source_operator(MAIN_SPEC, dt, device="cuda")
+        L, U = bk.build_superblock_gs_pair_stencil(A, spec_for_device(A),
+                                                   dtype=dt, need_d=True)
+        g = torch.Generator(device="cuda").manual_seed(15)
+        y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        label = f"{MAIN_SPEC} {str(dt)[6:]}"
+
+        def per_level(B, yy, xx):
+            for li in range(len(B.levels)):
+                bk.super_level(B, li, yy, xx)
+            return xx
+
+        for B in (L, U):
+            before = bk.super_solve_mega.launches
+            xk = bk.super_solve_mega(B, y, torch.empty_like(y))
+            xl = per_level(B, y, torch.empty_like(y))
+            xp = bk.super_solve_mega_plain(B, y, torch.empty_like(y))
+            tk, tl = y.clone(), y.clone()
+            bk.super_solve_mega(B, tk, tk)
+            per_level(B, tl, tl)
+            torch.cuda.synchronize()
+            if bk.super_solve_mega.launches != before + 2:
+                raise RuntimeError("the one-launch count did not grow by 2")
+            equal = (torch.equal(xk, xl) and torch.equal(xk, xp)
+                     and torch.equal(tk, tl))
+            out = torch.empty_like(y)
+            ms = _median_ms(lambda: bk.super_solve_mega(B, y, out), torch)
+            lvl_ms = _median_ms(lambda: per_level(B, y, out), torch)
+            plain_ms = _median_ms(
+                lambda: bk.super_solve_mega_plain(B, y, out), torch, reps=5,
+                batch=2)
+            works = [_level_work(B, li, y.element_size())
+                     for li in range(len(B.levels))]
+            bound = _bound(sum(b for b, _o in works),
+                           sum(o for _b, o in works))
+            print(f"[mega] {label} {'U' if B.upper else 'L'} solve "
+                  f"({len(B.levels)} const levels, grid "
+                  f"{bk.mega_grid(B, 'cuda')} blocks): bit_equal={equal} "
+                  f"(per-level route, plain, in place) one_launch_ms={ms:.4f} "
+                  f"per_level_ms={lvl_ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})")
+            if not equal:
+                raise RuntimeError(f"{label}: the one-launch solve disagrees")
+            if dt == torch.float32 and not B.upper:
+                M, perm = _const_lower_csr(torch, A, B)
+                yp = y[perm].unsqueeze(1).contiguous()
+                sol = torch.triangular_solve(yp, M, upper=False).solution
+                ref = xk[perm]
+                rel = float((sol[:, 0] - ref).abs().max() / ref.abs().max())
+                lib_ms = _median_ms(
+                    lambda: torch.triangular_solve(yp, M, upper=False),
+                    torch, reps=5, batch=2)
+                print(f"[library] {label} one whole const L solve (nnz "
+                      f"{M.values().numel()}): torch.triangular_solve on "
+                      f"the colour-sorted sparse CSR triangle "
+                      f"ms={lib_ms:.4f} max_rel_err={rel:.3e} against the "
+                      f"one-launch solve")
+                if not rel <= TOL["float32"]:
+                    raise RuntimeError("the library's const L solve "
+                                       "disagrees")
+                del M, yp, sol, ref
+                record = {"max_abs_err": float((xk - xl).abs().max()),
+                          "ms": ms, "plain_ms": plain_ms,
+                          "per_level_ms": lvl_ms, "library_ms": lib_ms,
+                          **bound}
+        del A, L, U, y
+        torch.cuda.empty_cache()
+    return record
+
+
+def phase_mega_rows(torch, bt):
+    """The bench's sgs and pcg rows on HPCG 128^3 (1200 iterations, f32,
+    tolerance 0) with MEGA on and off in turns (on, off, off, on), each
+    after a warm-up solve with every counter set to 0 just before the timed
+    solve and read just after: 2 one-launch solves an apply with MEGA, 8
+    level launches without.  Returns the one-launch solve's launches over
+    the MEGA runs."""
+    import math
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    so = bt.stencil_op
+    S, P = bt.SolverType, bt.PrecondType
+    mega_launches = 0
+    rows = [r for r in SLICE3_ROWS if r[0] in ("sgs", "pcg")]
+    for name, method, precond, iters, kw in rows:
+        setup = _setup(torch, bt, MAIN_SPEC, torch.float32, "cuda",
+                       S[method], preconditioner=P[precond],
+                       max_iters=iters, tolerance=0.0, breakdown_stall=True,
+                       precond_inner_iters=1, **kw)
+        solver = make_method(setup)
+        ms, counts = {True: [], False: []}, {}
+        try:
+            for mega in (True, False, False, True):
+                bk.MEGA = mega
+                bt.solve(setup, method=solver)            # warm-up solve
+                _counters(so, gb, bk, reset=True)
+                res = bt.solve(setup, method=solver)
+                counts[mega] = _counters(so, gb, bk)
+                ms[mega].append(1e3 * res.solve_seconds / res.iter_count)
+                if mega:
+                    mega_launches += counts[mega]["super_solve_mega"]
+                if not (res.iter_count == iters
+                        and math.isfinite(res.final_residual_norm)):
+                    raise RuntimeError(f"{name} MEGA={mega} run failed")
+        finally:
+            bk.MEGA = False
+        on, off = counts[True], counts[False]
+        per = {k: {key: round(c[key] / iters, 3) for key in
+                   ("super_level", "super_solve_mega")}
+               for k, c in (("on", on), ("off", off))}
+        print(f"[mega] {MAIN_SPEC} f32 {name} fused, MEGA in turns (on, "
+              f"off, off, on): ms/iter on={[f'{v:.5f}' for v in ms[True]]} "
+              f"off={[f'{v:.5f}' for v in ms[False]]} launches/iter={per}")
+        if not (on["super_level"] == 0 and off["super_solve_mega"] == 0
+                and on["super_solve_mega"] > 0
+                and off["super_level"] == 4 * on["super_solve_mega"]):
+            raise RuntimeError(f"{name}: the routes' launch counts do not "
+                               f"match: {per}")
+    return mega_launches
+
+
+def _row_counts(bt, reset=False):
+    """Every kernel counter a slice-5b row may touch."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    counts = _counters(bt.stencil_op, gb, bk, reset=reset)
+    counts.update(_sparse_counters(bt, reset=reset))
+    return counts
+
+
+def phase_slice5b_rows(torch, bt, setup, setup_s):
+    """The slice's rows, f32, fused harness, tolerance 0, b = 2, x0 = 1,
+    each after a warm-up solve with every counter set to 0 just before the
+    timed solve and read just after: pcg_ilu0@fdm2048 (1200 iterations; L
+    in plane mode, U const with U's pivots per row; DIA operator, the JAX
+    CLI's host route) and pbicgstab@anderson128 (800; BiCGSTAB + SGS, the
+    stencil injected as the JAX bench does; const mode with a per-row D),
+    with set-up seconds and peak memory; then f64 CG + ILU(0) on fdm:256 to
+    1e-8 on the same route on the CPU and on the card, equal counts.
+    Returns the plane level's launches in the fdm:2048 row."""
+    import math
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    out = {}
+    rows = [("pcg_ilu0@fdm2048", FDM_5B, 1200, lambda: (setup, setup_s))]
+
+    def anderson():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st, gen_s, s_s = _colored_host_setup(
+            torch, bt, ANDERSON_128, torch.float32, "BICGSTAB",
+            "SYMMETRIC_GAUSS_SEIDEL", stencil=True, max_iters=800,
+            tolerance=0.0, breakdown_stall=True)
+        print(f"[slice5b] {ANDERSON_128} f32 BiCGSTAB + SGS pair from host "
+              f"CSR: L {_mode(st.M.L_block)}, U {_mode(st.M.U_block)}; host "
+              f"CSR {gen_s:.3f} s, preprocessing {s_s:.3f} s")
+        return st, s_s
+
+    rows.append(("pbicgstab@anderson128", ANDERSON_128, 800, anderson))
+    for name, spec, iters, make in rows:
+        st, s_s = make()
+        L, U = st.M.L_block, st.M.U_block
+        S = L.S
+        if name.startswith("pcg"):
+            want = {"super_level_plane": S * (iters + 1),
+                    "super_level": S * (iters + 1)}
+            if not (L.is_plane and U.is_const and U.dinv_rows is not None):
+                raise RuntimeError(f"{name}: not the plane pair")
+        else:
+            want = {"super_level": 2 * S * (2 * iters + 1)}
+            if not (L.is_const and U.is_const and L.dinv_rows is not None
+                    and len(set(L.dinv_rows[:4096].tolist())) > 1):
+                raise RuntimeError(f"{name}: not const mode with a per-row "
+                                   "D")
+        solver = make_method(st)
+        bt.solve(st, method=solver)                       # warm-up solve
+        _row_counts(bt, reset=True)
+        res = bt.solve(st, method=solver)
+        counts = _row_counts(bt)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
+        per_iter = {k: round(v / res.iter_count, 3)
+                    for k, v in counts.items() if v}
+        print(f"[slice5b] {spec} f32 {name} fused: iters={res.iter_count} "
+              f"ms/iter={ms:.5f} setup_s={s_s:.3f} peak_GB={peak_gb:.3f} "
+              f"r0={res.residual_norms[0]:.6e} "
+              f"final_explicit_f64={res.final_residual_norm:.6e} "
+              f"launches={ {k: v for k, v in counts.items() if v} } "
+              f"launches/iter={per_iter}")
+        if not (res.iter_count == iters
+                and math.isfinite(res.final_residual_norm)
+                and bool(torch.isfinite(res.x_star).all())
+                and all(counts[k] == v for k, v in want.items())
+                and counts["super_solve_mega"] == 0):
+            raise RuntimeError(f"slice-5b {name} failed its checks: "
+                               f"{counts} against {want}")
+        out[name] = counts
+        del st, solver, res, L, U
+        torch.cuda.empty_cache()
+
+    res = {}
+    for dev in ("cpu", "cuda"):
+        st, _g, s_s = _colored_host_setup(
+            torch, bt, "fdm:256", torch.float64, "CONJUGATE_GRADIENT", "ILU0",
+            device=dev, tolerance=1e-8, max_iters=2000)
+        res[dev] = (bt.solve(st), s_s, _mode(st.M.L_block))
+    (c, cs, mode), (g, gs, _m) = res["cpu"], res["cuda"]
+    r0 = g.residual_norms[0]
+    print(f"[slice5b] fdm:256 f64 CG + ILU(0) coloured host route (L {mode}) "
+          f"to tol 1e-8: iters cpu={c.iter_count} card={g.iter_count} "
+          f"final_explicit/r0 card={g.final_residual_norm / r0:.3e} "
+          f"ms/iter cpu={1e3 * c.solve_seconds / c.iter_count:.3f} "
+          f"card={1e3 * g.solve_seconds / g.iter_count:.3f} setup_s "
+          f"cpu={cs:.2f} card={gs:.2f}")
+    if (c.iter_count != g.iter_count or not (c.converged and g.converged)
+            or g.final_residual_norm > 10 * 1e-8 * r0):
+        raise RuntimeError("fdm:256 coloured CG + ILU(0): CPU and card "
+                           "differ or did not converge")
+    _check_history(g, c)
+    return out["pcg_ilu0@fdm2048"]["super_level_plane"]
+
+
 def main():
     import torch
     name = phase_device(torch)
@@ -1693,6 +2334,22 @@ def main():
     rank_record, band = phase_rankspace_vs_plain(torch, bt)
     phase_cpu_vs_card_slice5(torch, bt)
     slice5_launches = phase_slice5_path(torch, bt, sband, band)
+    del sband, band
+    setup5b, _gen5b, setup5b_s = phase_slice5b_build(torch, bt)
+    plane_launches = phase_slice5b_rows(torch, bt, setup5b, setup5b_s)
+    plane_record, _split5b, whole5b = phase_plane_level_vs_plain(
+        torch, bt, setup5b)
+    del setup5b
+    torch.cuda.empty_cache()
+    mega_record = phase_mega_vs_per_level(torch, bt)
+    mega_launches = phase_mega_rows(torch, bt)
+    print(f"[summary] {FDM_5B} f32 ILU(0): whole L solve "
+          f"torch.triangular_solve {whole5b['library_ms']:.4f} ms, "
+          f"blocked_trisolve {whole5b['blocked_trisolve_ms']:.4f} ms; "
+          f"apply fused {whole5b['fused_ms']} ms, split "
+          f"{whole5b['split_ms']} ms (in turns); {MAIN_SPEC} f32 const L "
+          f"solve: one launch {mega_record['ms']:.4f} ms, per level "
+          f"{mega_record['per_level_ms']:.4f} ms")
     print(f"[summary] whole L solve at {MAIN_SPEC} f32: "
           f"torch.triangular_solve {whole_l['library_ms']:.4f} ms, "
           f"blocked_trisolve {whole_l['blocked_trisolve_ms']:.4f} ms; "
@@ -1748,6 +2405,15 @@ def main():
             "name": kernel, "route": "cuda", "source": src + source,
             "replaces": "basic_iterative_solvers_tpu/" + line,
             "launches": slice5_launches[kernel], **record})
+    for kernel, line, launched, record in (
+            ("super_level_plane", 1611, plane_launches, plane_record),
+            ("super_solve_mega", 2171, mega_launches, mega_record)):
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": src + "block_trisolve.cu",
+            "replaces": ("basic_iterative_solvers_tpu/ops/block_trisolve.py:"
+                         f"{line}"),
+            "launches": launched, **record})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

@@ -184,10 +184,12 @@ def test_plain_matches_pallas_interpret(spec, interpret, rng):
         np.testing.assert_allclose(yt, yk, rtol=2e-5, atol=1e-5)
 
 
-def test_cpu_launches_nothing_and_refusals():
-    """CPU tensors launch no kernel; a grid colouring names slice 5b; an
-    improper colouring raises ImproperColoringError; a zero diagonal
-    raises."""
+def test_cpu_launches_nothing_and_refusals(numpy_branch):  # noqa: F811
+    """CPU tensors launch no kernel; under a grid colouring
+    build_blocked_trisolve builds the grid rank-space form and
+    build_best_trisolve_pair the superblock pair, each equal to the JAX
+    package's; an improper colouring raises ImproperColoringError; a zero
+    diagonal raises."""
     A, _Aj, st, _sj, colors = _setup("band:61,2")
     L, U = tbt.build_best_trisolve_pair(A, A.diagonal(), A.diagonal(),
                                         colors, st, dtype=torch.float64,
@@ -196,10 +198,24 @@ def test_cpu_launches_nothing_and_refusals():
     tbt.blocked_sgs(L, U, torch.ones(A.n_rows, dtype=torch.float64))
     assert tbt.rank_level.launches == 0
     H = tgen.from_source("hpcg:4x4x4")
+    Hj = bis.generators.from_source("hpcg:4x4x4")
     grid = tgen.color_spec_for_source("hpcg:4x4x4")
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        tbt.build_blocked_trisolve(H, H.diagonal(), tcol.spec_colors_np(
-            grid, H.n_rows), grid, upper=False, device=CPU)
+    gj = bis.generators.color_spec_for_source("hpcg:4x4x4")
+    gc = tcol.spec_colors_np(grid, H.n_rows)
+    Bt = tbt.build_blocked_trisolve(H, H.diagonal(), gc, grid, upper=False,
+                                    dtype=torch.float64, device=CPU)
+    Bj = jbt.build_blocked_trisolve(Hj, H.diagonal(), gc, gj, upper=False,
+                                    dtype=np.float64)
+    assert (Bt.spec_kind, Bt.m, Bt.levels) == ("grid", 8, Bj.levels)
+    np.testing.assert_array_equal(Bt.vals.numpy(), _stack(Bj.vals))
+    pt = tbt.build_best_trisolve_pair(H, H.diagonal(), H.diagonal(), gc,
+                                      grid, dtype=torch.float64, device=CPU)
+    pj = jbt.build_best_trisolve_pair(Hj, H.diagonal(), H.diagonal(), gc,
+                                      gj, dtype=np.float64)
+    for St, Sj in zip(pt, pj):
+        assert isinstance(St, tbt.SuperBlockTriSolve)
+        assert (St.levels, St.is_const) == (Sj.levels, Sj.is_const)
+        assert (St.const_cross or None) == Sj.const_cross
     two = tcol.ColorSpec("mod", 2, (2,))
     with pytest.raises(tbt.ImproperColoringError):
         tbt.build_blocked_trisolve(A, A.diagonal(), tcol.spec_colors_np(
