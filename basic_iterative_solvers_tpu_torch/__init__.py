@@ -1,9 +1,11 @@
 """basic_iterative_solvers_tpu_torch — the PyTorch/CUDA port of
 basic_iterative_solvers_tpu, for NVIDIA Hopper.
 
-It runs CG, Jacobi, Gauss-Seidel, symmetric Gauss-Seidel, BiCGSTAB and
-GMRES(m), unpreconditioned or with the Jacobi, GS, backward GS, symmetric
-GS, (symmetric) two-stage GS and exact ILU(0) preconditioners, on three
+It runs CG (classic or pipelined), Jacobi, Gauss-Seidel, symmetric
+Gauss-Seidel, BiCGSTAB and GMRES(m), unpreconditioned or with the Jacobi,
+GS, backward GS, symmetric GS, (symmetric) two-stage GS, exact ILU(0),
+Chebyshev and geometric-multigrid (stencils) preconditioners, optionally
+inside mixed-precision float64 refinement (`refine_outer`), on three
 routes, as the JAX package does:
 * matrix-free stencils (HPCG 27-point, FDM, Anderson; stencil_op);
 * DIA matrices built on the card from a generator spec (dia), the
@@ -12,8 +14,9 @@ routes, as the JAX package does:
   through `preprocessing`: DIA, lane-ELL or ELL on the card, natural-order
   level-scheduled or coloured exact triangular solves, RCM and colour
   reorderings, symmetric scaling.
-Its hand-written CUDA kernels: the stencil SpMV and the multicolour GS step
-(csrc/stencil_spmv.cu), the two basis passes of fused-mode GMRES
+Its hand-written CUDA kernels: the stencil SpMV (two forms: #1, and #2
+with x staged in shared memory, taken with BIS_STENCIL_STREAM=1) and the
+multicolour GS step (csrc/stencil_spmv.cu), the two basis passes of fused-mode GMRES
 (csrc/gmres_basis.cu), the superblock levels of the coloured triangular
 solves on stencils and the rank-space level of host-CSR factors
 (csrc/block_trisolve.cu), and the DIA and lane-ELL SpMVs
@@ -122,7 +125,7 @@ def solve_system(matrix_source, method="cg", preconditioner=None, b=None,
 
     `method` and `preconditioner` take the CLI short names ("cg", "j",
     "gs", "sgs", "bi", "gm"; "none", "j", "gs", "bgs", "sgs", "2st",
-    "s2st", "ilu0") or the enums.  Other keyword arguments go to
+    "s2st", "ilu0", "cheby", "mg") or the enums.  Other keyword arguments go to
     SolverConfig; the dtype defaults to float32 on a card and float64 on
     the CPU, the harness to "fused" on a card and "host" on the CPU."""
     import numpy as np

@@ -149,12 +149,18 @@ def load_library() -> ctypes.CDLL:
     point's argument and result types declared."""
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
+    i64, i32 = ctypes.c_longlong, ctypes.c_int
     for name in ("bis_stencil_spmv_f32", "bis_stencil_spmv_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(StencilArgs), ptr, ptr,
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs), ptr, ptr,
                        ptr, ptr, ptr, ptr]
-        fn.restype = ctypes.c_int
-    i64, i32 = ctypes.c_longlong, ctypes.c_int
+        fn.restype = i32
+        fn = getattr(lib, name.replace("spmv", "spmv_stream"))
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 4 + [
+            ptr] * 6
+        fn.restype = i32
+    lib.bis_stencil_stream_tile.argtypes = [ctypes.POINTER(i32)] * 4
+    lib.bis_stencil_stream_tile.restype = i32
     for suffix in ("f32", "bf16"):
         fn = getattr(lib, f"bis_gmres_project_gram_{suffix}")
         fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, i32, ptr, i32, ptr]
@@ -198,4 +204,10 @@ def load_library() -> ctypes.CDLL:
         size_fn.restype = ctypes.c_int
         if size_fn() != ctypes.sizeof(mirror):
             raise RuntimeError(f"{mirror.__name__} does not match {source}")
+    from .stencil_op import STREAM_HALO, STREAM_TILE
+    tile = [i32() for _ in range(4)]
+    lib.bis_stencil_stream_tile(*[ctypes.byref(v) for v in tile])
+    if tuple(v.value for v in tile) != STREAM_TILE + STREAM_HALO[:2]:
+        raise RuntimeError("stencil_op.STREAM_TILE/STREAM_HALO do not match "
+                           "BIS_STREAM_* in csrc/stencil_spmv.cu")
     return lib

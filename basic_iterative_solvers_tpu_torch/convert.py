@@ -16,6 +16,10 @@ across the same way, from their fields as numpy arrays: `csr_from_numpy`,
 `dia_from_numpy` (the TPU row-tile padding cropped), `lane_ell_from_numpy`,
 `trisolve_levels_from_numpy`, `blocked_trisolve_from_numpy` and
 `superblock_from_numpy` (a superblock pair built from host CSR).
+`mg_levels_from_numpy` carries a multigrid hierarchy across, so that a
+V-cycle is compared on the same operators, and `carry_cheby_lmax` a
+Chebyshev preconditioner's λmax, so that float32 histories are compared
+with the same interval.
 """
 from __future__ import annotations
 
@@ -214,3 +218,29 @@ def superblock_from_numpy(vals_cross, vals_self, dinv, d, n_rows, S, m, sx,
         d_rows=None if d is None else _tensor(rows_of(d), dtype, device),
         unit=not upper and bool(np.all(dinv_rows == 1)))
 
+
+
+def mg_levels_from_numpy(levels, *, dtype, device):
+    """The port's multigrid level tuple from the JAX package's: each level
+    as (legs, coeff_values, dims, D_inv, lmax), D_inv flat or planar and
+    lmax a scalar, as numpy arrays of the JAX MGLevel's fields."""
+    from .mg import MGLevel
+    out = []
+    for legs, coeff_values, dims, D_inv, lmax in levels:
+        dims = tuple(int(d) for d in dims)
+        A = stencil_from_numpy(legs, coeff_values, dims, dtype=dtype,
+                               device=device)
+        out.append(MGLevel(
+            A=A, D_inv=vector_from_numpy(D_inv, A, dtype=torch_dtype(dtype)),
+            lmax=torch.tensor(float(np.asarray(lmax)),
+                              dtype=torch_dtype(dtype), device=A.device)))
+    return tuple(out)
+
+
+def carry_cheby_lmax(M, lmax) -> None:
+    """Give a Chebyshev preconditioner the JAX package's λmax (a scalar),
+    in M's vector dtype, dropping any schedule computed from its own."""
+    M.cheby_lmax = torch.tensor(float(np.asarray(lmax)),
+                                dtype=M.A_D_inv.dtype,
+                                device=M.A_D_inv.device)
+    M._cheby_schedules.clear()

@@ -99,6 +99,15 @@ __device__ void block_sums(T (&v)[BIS_MAX_DOTS], int n, T* out) {
     }
 }
 
+// Each sum and product rounded on its own (no contraction to a fused
+// multiply-add), so that the SpMV's two kernels agree bit for bit.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
 // y[i] for the row i = (gx, gy, gz): each coefficient group's in-bounds
 // legs summed, times the group's coefficient, plus diag[i]*x[i].
 template <typename T>
@@ -114,11 +123,11 @@ __device__ __forceinline__ T stencil_row(const BisStencilArgs& a,
             const int px = gx + a.dx[l], py = gy + a.dy[l], pz = gz + a.dz[l];
             if (px >= 0 && px < a.nx && py >= 0 && py < a.ny &&
                 pz >= 0 && pz < a.nz)
-                s += x[i + a.off[l]];
+                s = add_rn(s, x[i + a.off[l]]);
         }
-        acc += T(a.group_coeff[g]) * s;
+        acc = add_rn(acc, mul_rn(T(a.group_coeff[g]), s));
     }
-    if (diag != nullptr) acc += diag[i] * x[i];
+    if (diag != nullptr) acc = add_rn(acc, mul_rn(diag[i], x[i]));
     return acc;
 }
 
@@ -150,6 +159,126 @@ stencil_spmv_kernel(const __grid_constant__ BisStencilArgs a,
                                   a.n_dots);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel #2: the same SpMV with x staged in shared memory.
+//
+// Replaces the Pallas kernel basic_iterative_solvers_tpu/stencil_op.py:
+// stencil_spmv_stream, #1's contract computed from a 3-slot VMEM ring in
+// which every x block is fetched from HBM once.  Here a block owns a
+// BIS_STREAM_TX x BIS_STREAM_TY tile of (x, y) and marches along a chunk
+// of z.  It keeps a ring of three z-planes of x in shared memory, each the
+// tile plus a halo of BIS_STREAM_HX in x and BIS_STREAM_HY in y (zeros
+// outside the grid), loads one new plane a step and computes one output
+// plane from the ring: step z loads plane z + 1 and computes plane z, the
+// CUDA form of the ring's "step j loads block j, computes tile j - 1".
+// The legs are read from shared memory with no bounds check: a leg that
+// leaves the grid reads a staged zero, and s + 0 is s, so y equals #1's
+// (same groups, same order, each sum and product rounded alone).  Legs
+// must lie within the halo: |dx| <= BIS_STREAM_HX, |dy| <= BIS_STREAM_HY,
+// |dz| <= 1; the wrapper routes any other operator to #1, and this
+// entry point refuses it.
+//
+// What bounds it: the floor is the same as #1's (x and y, plus diag and
+// aux, over HBM).  The design removes #1's per-leg bounds checks and
+// serves the 27 neighbour reads from shared memory; each x element is
+// read from L2/HBM (TX + 2)(TY + 4)/(TX TY) ~ 1.6 times per tile plus
+// (zc + 2)/zc along z.  A runtime leg loop stays; cp.async/TMA plane
+// loads, a persistent grid and a fused CG update are later work.
+// ---------------------------------------------------------------------------
+
+#define BIS_STREAM_TX 32
+#define BIS_STREAM_TY 8
+#define BIS_STREAM_HX 1
+#define BIS_STREAM_HY 2
+#define BIS_STREAM_PW (BIS_STREAM_TX + 2 * BIS_STREAM_HX)
+#define BIS_STREAM_PH (BIS_STREAM_TY + 2 * BIS_STREAM_HY)
+#define BIS_STREAM_PLANE (BIS_STREAM_PW * BIS_STREAM_PH)
+
+// Stage plane z of x (tile + halo, zeros outside the grid) at `plane`.
+template <typename T>
+__device__ __forceinline__ void stream_load_plane(const BisStencilArgs& a,
+                                                  const T* __restrict__ x,
+                                                  int x0, int y0, int z,
+                                                  T* plane) {
+    const int tid = threadIdx.x + BIS_STREAM_TX * threadIdx.y;
+    const bool z_ok = z >= 0 && z < a.nz;
+    for (int e = tid; e < BIS_STREAM_PLANE;
+         e += BIS_STREAM_TX * BIS_STREAM_TY) {
+        const int r = e / BIS_STREAM_PW, c = e - r * BIS_STREAM_PW;
+        const int px = x0 - BIS_STREAM_HX + c, py = y0 - BIS_STREAM_HY + r;
+        T v = T(0);
+        if (z_ok && px >= 0 && px < a.nx && py >= 0 && py < a.ny)
+            v = x[(long long)a.nx * (py + (long long)a.ny * z) + px];
+        plane[e] = v;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BIS_STREAM_TX * BIS_STREAM_TY)
+stencil_spmv_stream_kernel(const __grid_constant__ BisStencilArgs a, int zc,
+                           const T* __restrict__ x,
+                           const T* __restrict__ diag,
+                           const T* __restrict__ aux, T* __restrict__ y,
+                           T* __restrict__ partials) {
+    __shared__ T ring[3 * BIS_STREAM_PLANE];
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int x0 = blockIdx.x * BIS_STREAM_TX, y0 = blockIdx.y * BIS_STREAM_TY;
+    const int z0 = blockIdx.z * zc;
+    const int z1 = min(z0 + zc, a.nz);
+    const int gx = x0 + tx, gy = y0 + ty;
+    const bool own = gx < a.nx && gy < a.ny;
+    const int centre = (ty + BIS_STREAM_HY) * BIS_STREAM_PW + tx + BIS_STREAM_HX;
+    // planes below and above the chunk are staged only where a leg reads
+    // them (a 2-D operator stages one plane)
+    bool need_m = false, need_p = false;
+    for (int l = 0; l < a.group_begin[a.n_groups]; ++l) {
+        need_m |= a.dz[l] < 0;
+        need_p |= a.dz[l] > 0;
+    }
+    // ring slots (offsets into `ring`) of planes z - 1, z and z + 1
+    int om = 0, o0 = BIS_STREAM_PLANE, op = 2 * BIS_STREAM_PLANE;
+    if (need_m) stream_load_plane(a, x, x0, y0, z0 - 1, ring + om);
+    stream_load_plane(a, x, x0, y0, z0, ring + o0);
+    T dsum[BIS_MAX_DOTS] = {T(0), T(0), T(0)};
+    for (int z = z0; z < z1; ++z) {
+        if (need_p || z + 1 < z1)
+            stream_load_plane(a, x, x0, y0, z + 1, ring + op);
+        __syncthreads();
+        if (own) {
+            T acc = T(0);
+            for (int g = 0; g < a.n_groups; ++g) {
+                T s = T(0);
+                for (int l = a.group_begin[g]; l < a.group_begin[g + 1]; ++l) {
+                    const int o = a.dz[l] < 0 ? om : (a.dz[l] > 0 ? op : o0);
+                    s = add_rn(s, ring[o + centre + a.dy[l] * BIS_STREAM_PW +
+                                       a.dx[l]]);
+                }
+                acc = add_rn(acc, mul_rn(T(a.group_coeff[g]), s));
+            }
+            const long long i =
+                (long long)a.nx * (gy + (long long)a.ny * z) + gx;
+            const T xi = ring[o0 + centre];
+            if (diag != nullptr) acc = add_rn(acc, mul_rn(diag[i], xi));
+            y[i] = acc;
+            for (int k = 0; k < a.n_dots; ++k) {
+                const int kind = a.dot_kind[k];
+                const T v = kind == 0 ? xi : (kind == 1 ? acc : aux[i]);
+                dsum[k] += acc * v;
+            }
+        }
+        __syncthreads();          // plane z - 1's slot is loaded next step
+        const int t = om;
+        om = o0;
+        o0 = op;
+        op = t;
+    }
+    if (a.n_dots > 0)
+        block_sums(dsum, a.n_dots,
+                   partials + (long long)(blockIdx.x + gridDim.x *
+                                          (blockIdx.y + (long long)gridDim.y *
+                                           blockIdx.z)) * a.n_dots);
+}
+
 // Colouring of the GS step: kind 0 parity, 1 grid (p = sx, sy, sz),
 // 2 mod (p[0] = k); `color` is the colour the step updates.
 struct BisColorStep {
@@ -165,13 +294,6 @@ __device__ __forceinline__ int color_of(const BisColorStep& c, long long i,
         return gx % c.p[0] + c.p[0] * (gy % c.p[1] + c.p[1] * (gz % c.p[2]));
     return (int)(i % c.p[0]);
 }
-
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -209,6 +331,32 @@ static int launch(int device, const BisStencilArgs* a, const T* x,
     return (int)cudaGetLastError();
 }
 
+// Kernel #2's launch: grid (grid_x, grid_y, grid_z) of tiles, zc planes a
+// block.  Refuses a grid that does not cover the operator and legs beyond
+// the staged halo.
+template <typename T>
+static int launch_stream(int device, const BisStencilArgs* a, int grid_x,
+                         int grid_y, int grid_z, int zc, const T* x,
+                         const T* diag, const T* aux, T* y, T* partials,
+                         cudaStream_t stream) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    if ((long long)grid_x * BIS_STREAM_TX < a->nx ||
+        (long long)grid_y * BIS_STREAM_TY < a->ny ||
+        (long long)grid_z * zc < a->nz || zc < 1)
+        return (int)cudaErrorInvalidValue;
+    for (int l = 0; l < a->group_begin[a->n_groups]; ++l)
+        if (a->dx[l] < -BIS_STREAM_HX || a->dx[l] > BIS_STREAM_HX ||
+            a->dy[l] < -BIS_STREAM_HY || a->dy[l] > BIS_STREAM_HY ||
+            a->dz[l] < -1 || a->dz[l] > 1)
+            return (int)cudaErrorInvalidValue;
+    const dim3 block(BIS_STREAM_TX, BIS_STREAM_TY);
+    const dim3 grid(grid_x, grid_y, grid_z);
+    stencil_spmv_stream_kernel<T><<<grid, block, 0, stream>>>(
+        *a, zc, x, diag, aux, y, partials);
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_gs(int device, const BisStencilArgs* a, int kind, int p0,
                      int p1, int p2, int color, const T* x, const T* diag,
@@ -238,6 +386,33 @@ int bis_stencil_spmv_f64(int device, const BisStencilArgs* a,
                          const double* diag, const double* aux, double* y,
                          double* partials, void* stream) {
     return launch<double>(device, a, x, diag, aux, y, partials, (cudaStream_t)stream);
+}
+
+int bis_stencil_spmv_stream_f32(int device, const BisStencilArgs* a,
+                                int grid_x, int grid_y, int grid_z, int zc,
+                                const float* x, const float* diag,
+                                const float* aux, float* y, float* partials,
+                                void* stream) {
+    return launch_stream<float>(device, a, grid_x, grid_y, grid_z, zc, x,
+                                diag, aux, y, partials, (cudaStream_t)stream);
+}
+
+int bis_stencil_spmv_stream_f64(int device, const BisStencilArgs* a,
+                                int grid_x, int grid_y, int grid_z, int zc,
+                                const double* x, const double* diag,
+                                const double* aux, double* y,
+                                double* partials, void* stream) {
+    return launch_stream<double>(device, a, grid_x, grid_y, grid_z, zc, x,
+                                 diag, aux, y, partials,
+                                 (cudaStream_t)stream);
+}
+
+int bis_stencil_stream_tile(int* tx, int* ty, int* hx, int* hy) {
+    *tx = BIS_STREAM_TX;
+    *ty = BIS_STREAM_TY;
+    *hx = BIS_STREAM_HX;
+    *hy = BIS_STREAM_HY;
+    return 0;
 }
 
 int bis_stencil_gs_color_step_f32(int device, const BisStencilArgs* a,

@@ -13,6 +13,9 @@ Type → action:
   2st    : Richardson approximation of (L + D)⁻¹ (kernels.hpp:312-333)
   s2st   : Richardson (L), multiply by D, Richardson (U)
   ilu0   : z = U⁻¹ L⁻¹ y (unit-diagonal L)
+  cheby  : z = p(D⁻¹A) D⁻¹ y, a Chebyshev semi-iteration from zero over
+           [λmax/ratio, λmax], λmax from a power iteration (+10%)
+  mg     : one geometric-multigrid V-cycle (mg.py; stencils only)
 
 The exact solves (gs, bgs, sgs, ilu0) run in one of three forms:
 * natural order (`gs_mode` "levels", the host path's default): the
@@ -22,8 +25,6 @@ The exact solves (gs, bgs, sgs, ilu0) run in one of three forms:
   under a mod colouring, or a grid one the superblock form refuses
   (ops/block_trisolve.py);
 * coloured, masked sweeps (coloring.py): any operator and colouring.
-Chebyshev and multigrid raise NotImplementedError naming ROADMAP Queue 1
-slice 6.
 """
 from __future__ import annotations
 
@@ -36,12 +37,6 @@ from .config import SolverConfig
 from .matrix import MatrixCSR
 from .stencil_op import DeviceStencil, stencil_diag_vec, stencil_split
 from .types import PrecondType
-
-#: ROADMAP Queue 1 slice that ports each preconditioner still missing
-_SLICE = {
-    PrecondType.CHEBYSHEV: "slice 6 (precision and the extra preconditioners)",
-    PrecondType.MULTIGRID: "slice 6 (precision and the extra preconditioners)",
-}
 
 #: preconditioner types a multicolour ordering serves (exact sweeps in the
 #: colour-sorted ordering; coloring.py)
@@ -87,13 +82,20 @@ class Preconditioner:
     #: (const, factor-table or plane mode) or BlockedTriSolve (rank space)
     L_block: Any = None
     U_block: Any = None
-
-
-def _check_unported(pt: PrecondType):
-    if pt in _SLICE:
-        raise NotImplementedError(
-            f"preconditioner {pt.value!r} is not ported yet: it arrives "
-            f"with ROADMAP Queue 1 {_SLICE[pt]}")
+    #: Chebyshev: λmax of D⁻¹A (0-d, power iteration with headroom), the
+    #: degree and the interval's eigenvalue ratio
+    cheby_lmax: Optional[torch.Tensor] = None
+    cheby_degree: int = 0
+    cheby_ratio: float = 30.0
+    #: multigrid: the level tuple (mg.MGLevel) and the V-cycle's shape
+    mg_data: Any = None
+    mg_smooth_degree: int = 0
+    mg_coarse_degree: int = 0
+    mg_ratio: float = 4.0
+    mg_coarse_ratio: float = 200.0
+    mg_transfer: str = "linear"
+    _cheby_schedules: dict = dataclasses.field(default_factory=dict,
+                                               repr=False, compare=False)
 
 
 def _diagonal(A, dtype) -> torch.Tensor:
@@ -123,7 +125,6 @@ def setup_preconditioner_dia(A, config: SolverConfig) -> Preconditioner:
               inner_iters=config.precond_inner_iters)
     if pt == PrecondType.NONE:
         return Preconditioner(**kw)
-    _check_unported(pt)
     if not isinstance(A, (DeviceStencil, DeviceDIA)):
         raise TypeError(f"unsupported operator type {type(A).__name__}")
     dtype = config.spec_dtype()
@@ -136,6 +137,20 @@ def setup_preconditioner_dia(A, config: SolverConfig) -> Preconditioner:
             f"preconditioner {pt} needs exact triangular solves in the "
             "natural ordering (gs_mode='levels'); build through the host "
             "CSR path (preprocessing) instead")
+    if pt == PrecondType.MULTIGRID:
+        from .mg import build_mg_hierarchy
+        levels = build_mg_hierarchy(A, config)
+        return Preconditioner(
+            A_D=(1.0 / levels[0].D_inv).to(dtype), A_D_inv=levels[0].D_inv,
+            mg_data=levels, mg_smooth_degree=config.mg_smooth_degree,
+            mg_coarse_degree=config.mg_coarse_degree,
+            mg_ratio=config.mg_smooth_ratio,
+            mg_coarse_ratio=config.mg_coarse_ratio,
+            mg_transfer=config.mg_transfer, **kw)
+    if pt == PrecondType.CHEBYSHEV:
+        D = _diagonal(A, dtype)
+        D_inv = (1.0 / D).to(dtype)
+        return _cheby(A, D, D_inv, config, kw)
     if pt in COLORED_PRECONDS:
         from .coloring import spec_for_device
         from .ops.block_trisolve import (BlockIneligibleError,
@@ -360,12 +375,27 @@ def setup_preconditioner(A, config: SolverConfig, factors=None, A_dev=None,
               inner_iters=config.precond_inner_iters)
     if pt == PrecondType.NONE:
         return Preconditioner(**kw)
-    _check_unported(pt)
+    if pt == PrecondType.MULTIGRID:
+        raise ValueError(
+            "multigrid requires the matrix-free stencil operator (a "
+            "generator source with matrix_format='stencil'); explicit CSR "
+            "matrices take the host path — use '-p cheby' or '-p ilu0' "
+            "there")
     colored = resolve_gs_mode(config, device_native=False) == "colored"
     if pt == PrecondType.ILU0 and colored:
         return _colored_ilu0(A, config, kw, dtype, device, A_dev)
     if pt in COLORED_PRECONDS and colored:
         return _colored_gs(A, config, factors, kw, dtype, device, A_dev)
+    if pt == PrecondType.CHEBYSHEV:
+        from .factor import peel_diag
+        A_D_np, A_D_inv_np = peel_diag(A)
+        if A_dev is None:
+            A_dev = from_csr(A, config.mat_dtype(), config.matrix_format,
+                             config.dia_max_diags, config.dia_min_fill,
+                             device=device)
+        to_dev = lambda a: torch.from_numpy(a).to(  # noqa: E731
+            dtype=dtype, device=device)
+        return _cheby(A_dev, to_dev(A_D_np), to_dev(A_D_inv_np), config, kw)
     if factors is None:
         factors = factor_LU(A, ilu0=(pt == PrecondType.ILU0),
                             pivot_tolerance=config.ilu0_pivot_tolerance,
@@ -394,9 +424,38 @@ def setup_preconditioner(A, config: SolverConfig, factors=None, A_dev=None,
     return M
 
 
+def _power_lmax(A_dev, A_D_inv: torch.Tensor, n: int, iters: int
+                ) -> torch.Tensor:
+    """λmax of D⁻¹A by power iteration from the ones vector, +10%
+    headroom: the top of the Chebyshev interval, a 0-d tensor."""
+    from .ops.spmv import spmv
+    v = torch.ones(n, dtype=A_D_inv.dtype, device=A_D_inv.device)
+    v = v / torch.sqrt(torch.sum(v * v))
+    for _ in range(max(1, iters)):
+        w = A_D_inv * spmv(A_dev, v)
+        v = w / torch.sqrt(torch.sum(w * w))
+    w = A_D_inv * spmv(A_dev, v)
+    return 1.1 * torch.sum(v * w) / torch.sum(v * v)
+
+
+def _cheby(A_dev, D, D_inv, config: SolverConfig, kw) -> Preconditioner:
+    lmax = _power_lmax(A_dev, D_inv, A_dev.n_rows, config.cheby_power_iters)
+    return Preconditioner(A_D=D, A_D_inv=D_inv, A_full_dev=A_dev,
+                          cheby_lmax=lmax, cheby_degree=config.cheby_degree,
+                          cheby_ratio=config.cheby_eig_ratio, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
+
+def _cheby_apply(M: Preconditioner, y: torch.Tensor) -> torch.Tensor:
+    """z = p(D⁻¹A) D⁻¹ y: the Chebyshev semi-iteration on A z = y from
+    z₀ = 0 with Jacobi scaling, `cheby_degree` SpMVs and no reductions."""
+    from .mg import cached_schedule, cheby_steps
+    return cheby_steps(M.A_full_dev, M.A_D_inv, y, None, cached_schedule(
+        M._cheby_schedules, M.cheby_lmax, M.cheby_ratio, M.cheby_degree, y))
+
 
 def _colored_solve(M: Preconditioner, y: torch.Tensor,
                    reverse: bool) -> torch.Tensor:
@@ -414,6 +473,13 @@ def _apply_once(M: Preconditioner, y: torch.Tensor) -> torch.Tensor:
     if pt == PrecondType.JACOBI:
         # reference: elemwise_div_vectors(output, input, A_D), kernels.hpp:357
         return y / M.A_D
+    if pt == PrecondType.CHEBYSHEV:
+        return _cheby_apply(M, y)
+    if pt == PrecondType.MULTIGRID:
+        from .mg import mg_vcycle
+        return mg_vcycle(M.mg_data, y, M.mg_smooth_degree,
+                         M.mg_coarse_degree, M.mg_ratio, M.mg_coarse_ratio,
+                         M.mg_transfer)
     if M.L_block is not None or M.U_block is not None:
         from .ops.block_trisolve import (blocked_ilu0, blocked_sgs,
                                          blocked_trisolve)

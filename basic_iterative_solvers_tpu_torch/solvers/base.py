@@ -147,7 +147,7 @@ def preprocessing(A, config: SolverConfig, b: Optional[Any] = None,
     if config.mat_dtype() != dtype:
         raise NotImplementedError(
             "an operator dtype other than the vector dtype (matrix_dtype) "
-            "arrives with ROADMAP Queue 1 slice 6")
+            "arrives with ROADMAP Queue 1 slice 6b (bf16 matrix storage)")
     if A_dev is not None and (config.num_scale
                               or config.perm_mode != "none"):
         raise ValueError("A_dev injection requires perm_mode='none' and "
@@ -263,7 +263,7 @@ def preprocessing_device(A_dev, config: SolverConfig, b: Optional[Any] = None,
     if config.mat_dtype() != dtype:
         raise NotImplementedError(
             "an operator dtype other than the vector dtype (matrix_dtype) "
-            "arrives with ROADMAP Queue 1 slice 6")
+            "arrives with ROADMAP Queue 1 slice 6b (bf16 matrix storage)")
     gs_method = config.method in _GS_METHODS
     if gs_method and resolve_gs_mode(config, device_native=True) != "colored":
         raise ValueError(
@@ -331,12 +331,28 @@ def _f64_operands(setup: SolverSetup):
     return setup._f64_ops_cache
 
 
+def _resid64_runner(setup: SolverSetup) -> Callable:
+    """`run(x) -> b − A·x` in float64 on the operands' device, x cast
+    straight to float64 (through the solve dtype it would lose what
+    refinement accumulates); built once per setup.  On a card a stencil
+    runs its float64 kernel."""
+    cached = getattr(setup, "_resid64_cache", None)
+    if cached is not None:
+        return cached
+    from ..ops.spmv import spmv
+    A64, b64 = _f64_operands(setup)
+
+    def run(x):
+        return b64 - spmv(A64, x.to(torch.float64))
+
+    setup._resid64_cache = run
+    return run
+
+
 def residual_f64(setup: SolverSetup, x: torch.Tensor) -> torch.Tensor:
     """b − A·x in float64 on x's device, in solve coordinates; on a card
     this runs the operator's float64 kernel."""
-    from ..ops.spmv import spmv
-    A64, b64 = _f64_operands(setup)
-    return b64 - spmv(A64, x.to(torch.float64))
+    return _resid64_runner(setup)(x)
 
 
 def explicit_residual_norm(setup: SolverSetup, x_star: torch.Tensor) -> float:
@@ -385,15 +401,310 @@ def _stopping(config: SolverConfig, r0_norm):
 def solve(setup: SolverSetup, method=None, timers: Optional[Timers] = None,
           progress: Optional[Callable[[int, float], None]] = None
           ) -> SolveResult:
-    """Run the solver harness named by `setup.config.harness`."""
+    """Run the solver harness named by `setup.config.harness`, or, with
+    refine_outer > 0, mixed-precision refinement around it: the single-
+    dispatch form where `_refine_fused_eligible`, else the per-outer
+    form."""
     if setup.config.refine_outer > 0:
-        raise NotImplementedError(
-            "mixed-precision refinement arrives with ROADMAP Queue 1 slice 6")
+        if _refine_fused_eligible(setup):
+            return _solve_refined_fused(setup)
+        return _solve_refined(setup)
     from .factory import make_method
     method = method or make_method(setup)
     if setup.config.harness == "fused" and method.supports_fused:
         return method.solve_fused()
     return _solve_host(setup, method, timers or Timers(), progress)
+
+
+# ---------------------------------------------------------------------------
+# Mixed-precision iterative refinement (config.refine_outer > 0)
+#
+# Wilkinson refinement around the configured solver: the inner solves run
+# at the solve dtype to refine_inner_tol relative, on the unit-scaled
+# right-hand side r/‖r‖ (every inner solve in the same numerical regime),
+# while the outer loop computes the true float64 residual and accumulates
+# x in float64, so that tol·‖b − A·x₀‖ is reachable from float32 inners.
+# Two forms, as in the JAX package: the single-dispatch form (CG and GMRES
+# in the fused harness on a device oracle) and the per-outer form (the
+# rest: BiCGSTAB's retry ladder, the host-CSR oracle).  The JAX package
+# compiles the first into one program and re-points a compiled loop at
+# each outer's right-hand side in the second; the port runs its loops
+# again each outer, with the same results.
+# ---------------------------------------------------------------------------
+
+def _refine_device_runner(setup: SolverSetup):
+    """(start, step) of the per-outer form on the device oracle:
+
+    start(x0) -> (x64, ‖r‖, r/‖r‖ in the solve dtype)
+    step(x64, x_inner, r_scale) -> (x64 + r_scale·x_inner, ‖r'‖, r'/‖r'‖)
+
+    with r the float64 residual; ‖r‖ stays a 0-d device tensor.  Built
+    once per setup."""
+    cached = getattr(setup, "_refine_dev_cache", None)
+    if cached is not None:
+        return cached
+    resid = _resid64_runner(setup)
+    dtype = setup.config.spec_dtype()
+
+    def _norm_rhs(x64):
+        r = resid(x64)
+        rn = euclidean_vec_norm(r)
+        # rn == 0 gives a NaN right-hand side, never solved: the caller
+        # reads rn first
+        return rn, (r / rn).to(dtype)
+
+    def start(x0):
+        x64 = x0.to(torch.float64)
+        return (x64,) + _norm_rhs(x64)
+
+    def step(x64, x_inner, r_scale):
+        x_next = torch.addcmul(x64, x_inner.to(torch.float64), r_scale)
+        return (x_next,) + _norm_rhs(x_next)
+
+    setup._refine_dev_cache = (start, step)
+    return start, step
+
+
+def _refine_fused_eligible(setup: SolverSetup) -> bool:
+    """The single-dispatch form: a device oracle (no host CSR), the fused
+    harness, a classic-CG or GMRES(m) inner, solve coordinates equal to
+    the user's (no permutation, no scaling)."""
+    cfg = setup.config
+    method_ok = ((cfg.method == SolverType.CONJUGATE_GRADIENT
+                  and cfg.cg_flavor == "classic")
+                 or cfg.method == SolverType.GMRES)
+    return (setup.A_host is None and cfg.harness == "fused" and method_ok
+            and setup.inv_perm is None and setup.scale_vec is None)
+
+
+def _gated_steps(method, state, rn, stop, count: int, finite: bool):
+    """Up to `count` steps of `method` while rn > stop (and rn is finite,
+    where `finite`): gated steps, the loop condition on the device, read
+    on the host every CHECK_EVERY steps.  Returns (state, rn, active steps
+    as a 0-d tensor)."""
+    from .fused import CHECK_EVERY
+    active = rn > stop
+    if finite:
+        active = active & torch.isfinite(rn)
+    n = torch.zeros((), dtype=torch.int64, device=rn.device)
+    done = 0
+    while done < count:
+        chunk = min(CHECK_EVERY, count - done)
+        for _ in range(chunk):
+            state = method.iterate(state, active)
+            n = n + active
+            rn = torch.where(active, method.sample_norm(state), rn)
+            active = active & (rn > stop)
+            if finite:
+                active = active & torch.isfinite(rn)
+        done += chunk
+        if not bool(active):
+            break
+    return state, rn, n
+
+
+def _inner_fused(method, inner_tol: float, inner_max: int):
+    """One inner solve of the single-dispatch form, with its loop's
+    semantics (the JAX package's _build_refined_fused._inner_solve): steps
+    while it < inner_max and ‖r‖ > inner_tol·‖r₀‖; a restarted method
+    (GMRES(m)) runs cycles of at most m steps within it < inner_max −
+    restarts, and restarts after a completed cycle still above the stop
+    and finite.  Returns (x, iterations)."""
+    state = method.init_state()
+    rn = method.initial_residual_norm(state)
+    stop = inner_tol * rn
+    restart_fn = getattr(method, "_restart_state", None)
+    if restart_fn is None:
+        state, rn, it = _gated_steps(method, state, rn, stop, inner_max,
+                                     finite=False)
+        return method.final_x(state), int(it)
+    it = restarts = 0
+    while True:
+        budget = inner_max - restarts - it
+        if budget <= 0 or not bool((rn > stop) & torch.isfinite(rn)):
+            break
+        state, rn, j = _gated_steps(method, state, rn, stop,
+                                    min(method.m, budget), finite=True)
+        j = int(j)
+        it += j
+        if not (j == method.m and bool((rn > stop) & torch.isfinite(rn))):
+            break
+        state = restart_fn(state)
+        rn = state["residual_norm"]
+        restarts += 1
+    return method.final_x(state), it
+
+
+def _solve_refined_fused(setup: SolverSetup) -> SolveResult:
+    """The single-dispatch form (the JAX package's _build_refined_fused and
+    _solve_refined_fused): at most refine_outer outers with no retry
+    ladder.  An outer whose true residual regresses (or is NaN) stops the
+    loop and keeps the best x; it still counts in refine_outer_count and
+    its inner iterations in the total, and its norm goes to history index
+    refine_outer (left out of the returned history).  The loop also stops
+    at tol·‖r₀‖ and when an outer gains less than 2×.  x_star is the
+    float64 solution."""
+    from .factory import make_method
+    cfg = setup.config
+    resid64 = _resid64_runner(setup)
+    dtype = cfg.spec_dtype()
+    K = cfg.refine_outer
+    inner_cfg = dataclasses.replace(cfg, refine_outer=0,
+                                    tolerance=cfg.refine_inner_tol)
+    x0_inner = torch.zeros_like(setup.x0)
+
+    def resid(x64):
+        r = resid64(x64)
+        return r, euclidean_vec_norm(r)
+
+    t0 = time.perf_counter()
+    x = setup.x0.to(torch.float64)
+    r, rn = resid(x)
+    stopping = cfg.tolerance * rn
+    hist = np.zeros(K + 1)
+    hist[0] = float(rn)
+    b_unit, r_scale = (r / rn).to(dtype), rn
+    k, n_hist, it_tot = 0, 1, 0
+    go = bool(rn > stopping)
+    while go and k < K:
+        method = make_method(dataclasses.replace(
+            setup, config=inner_cfg, b=b_unit, x0=x0_inner))
+        xi, it = _inner_fused(method, cfg.refine_inner_tol, cfg.max_iters)
+        x_next = torch.addcmul(x, xi.to(torch.float64), r_scale)
+        r2, rn2 = resid(x_next)
+        improved = bool(rn2 <= rn)         # NaN compares False
+        k += 1
+        hist[n_hist if improved else K] = float(rn2)
+        go = improved and bool(rn2 > stopping) and bool(rn2 <= 0.5 * rn)
+        if improved:
+            x, rn = x_next, rn2
+            n_hist += 1
+        b_unit, r_scale = (r2 / rn2).to(dtype), rn2
+        it_tot += it
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    dt = time.perf_counter() - t0
+    final_norm = float(rn)
+    return SolveResult(
+        x_star=x, iter_count=it_tot,
+        converged=final_norm <= float(stopping),
+        stopping_criteria=float(stopping),
+        residual_norms=hist[:n_hist],
+        time_per_iteration=np.full(n_hist, dt / max(1, n_hist)),
+        final_residual_norm=final_norm,
+        gmres_restart_count=0, method=cfg.method,
+        preconditioner=cfg.preconditioner,
+        restart_length=cfg.restart_length, res_check_len=cfg.res_check_len,
+        solve_seconds=dt, uniform_iteration_times=True,
+        refine_outer_count=k)
+
+
+def _host_refine_runner(setup: SolverSetup):
+    """(start, step) of the per-outer form on the host-CSR oracle: the
+    float64 residual b − A·x by the host matrix's NumPy SpMV, x and ‖r‖ on
+    the host, the next right-hand side r/‖r‖ on the setup's device (None
+    when ‖r‖ = 0)."""
+    dtype, device = setup.config.spec_dtype(), setup.b.device
+    b64 = setup.b.detach().cpu().numpy().astype(np.float64)
+
+    def _norm_rhs(x64):
+        r = b64 - setup.A_host.spmv(x64)
+        rn = float(np.linalg.norm(r))
+        rhs = None if rn == 0.0 else torch.from_numpy(r / rn).to(
+            dtype=dtype, device=device)
+        return rn, rhs
+
+    def start(x0):
+        if setup.x_decode is not None:
+            x0 = setup.x_decode(x0)
+        x64 = x0.detach().cpu().numpy().astype(np.float64)
+        return (x64,) + _norm_rhs(x64)
+
+    def step(x64, x_inner, r_scale):
+        x_next = x64 + float(r_scale) * x_inner.detach().cpu().numpy(
+        ).astype(np.float64)
+        return (x_next,) + _norm_rhs(x_next)
+
+    return start, step
+
+
+def _solve_refined(setup: SolverSetup) -> SolveResult:
+    """The per-outer form (the JAX package's _solve_refined): each outer a
+    whole inner `solve` at refine_inner_tol from x = 0 on r/‖r‖.  A
+    non-finite outer residual (an inner broken down past its attainable
+    floor, as f32 BiCGSTAB does) retries that outer with the inner
+    tolerance loosened 100× up to 1e-2, then gives up; an outer that makes
+    the true residual worse stops the loop and keeps the previous x; the
+    loop stops at tol·‖r₀‖ and when an outer gains less than 2×."""
+    import math
+    cfg = setup.config
+    if setup.inv_perm is not None or setup.scale_vec is not None:
+        raise ValueError(
+            "iterative refinement requires perm_mode='none' and "
+            "num_scale=False (corrections accumulate in solve coordinates)")
+    t0 = time.perf_counter()
+    start, step = (_refine_device_runner(setup) if setup.A_host is None
+                   else _host_refine_runner(setup))
+    x, rn0, b_next = start(setup.x0)
+    r0_norm = float(rn0)
+    stopping = _stopping(cfg, r0_norm)
+    inner_cfg = dataclasses.replace(cfg, refine_outer=0,
+                                    tolerance=cfg.refine_inner_tol)
+    x0_inner = torch.zeros_like(setup.x0)
+    total_iters, restarts, outers = 0, 0, 0
+    outer_norms = [r0_norm]
+    converged = r0_norm <= stopping
+    prev_rn, r_scale = r0_norm, rn0
+
+    def inner(config):
+        nonlocal total_iters, restarts
+        res = solve(dataclasses.replace(setup, config=config, b=b_next,
+                                        x0=x0_inner))
+        total_iters += res.iter_count
+        restarts += res.gmres_restart_count
+        return res.x_star
+
+    for _ in range(cfg.refine_outer):
+        if converged or b_next is None:
+            break
+        x_inner = inner(inner_cfg)
+        outers += 1
+        x_try, rn_dev, b_try = step(x, x_inner, r_scale)
+        rn = float(rn_dev)
+        while not math.isfinite(rn):
+            tol_now = float(inner_cfg.tolerance)
+            if tol_now >= 1e-2:
+                rn = None                  # give up: keep the last good x
+                break
+            inner_cfg = dataclasses.replace(
+                inner_cfg, tolerance=min(1e-2, tol_now * 100.0))
+            x_try, rn_dev, b_try = step(x, inner(inner_cfg), r_scale)
+            rn = float(rn_dev)
+        if rn is None or rn > prev_rn:
+            break
+        x, b_next, r_scale = x_try, b_try, rn_dev
+        outer_norms.append(rn)
+        converged = rn <= stopping
+        if not converged and rn > 0.5 * prev_rn:
+            break
+        prev_rn = rn
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x).to(setup.b.device)
+    elif x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    dt = time.perf_counter() - t0
+    n_hist = len(outer_norms)
+    return SolveResult(
+        x_star=x, iter_count=total_iters, converged=converged,
+        stopping_criteria=stopping,
+        residual_norms=np.asarray(outer_norms),
+        time_per_iteration=np.full(n_hist, dt / max(1, n_hist)),
+        final_residual_norm=outer_norms[-1],
+        gmres_restart_count=restarts, method=cfg.method,
+        preconditioner=cfg.preconditioner,
+        restart_length=cfg.restart_length, res_check_len=cfg.res_check_len,
+        solve_seconds=dt, uniform_iteration_times=True,
+        refine_outer_count=outers)
 
 
 def _solve_host(setup: SolverSetup, method, timers: Timers,

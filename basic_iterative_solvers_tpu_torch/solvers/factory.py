@@ -4,7 +4,7 @@ from __future__ import annotations
 from ..types import SolverType
 from .base import SolverSetup
 from .bicgstab import BiCGSTABMethod
-from .cg import ConjugateGradientMethod
+from .cg import ConjugateGradientMethod, PipelinedCGMethod
 from .gauss_seidel import GaussSeidelMethod, SymmetricGaussSeidelMethod
 from .gmres import GMRESMethod
 from .jacobi import JacobiMethod
@@ -23,8 +23,7 @@ def make_method(setup: SolverSetup):
     if cfg.method in _METHODS:
         return _METHODS[cfg.method](setup)
     if cfg.cg_flavor == "pipelined":
-        raise NotImplementedError(
-            "pipelined CG arrives with ROADMAP Queue 1 slice 6")
+        return PipelinedCGMethod(setup)
     if cfg.cg_flavor != "classic":
         raise ValueError(f"unknown cg_flavor: {cfg.cg_flavor!r} "
                          "(expected 'classic' or 'pipelined')")

@@ -16,13 +16,18 @@ counterpart here.
 the multicolour Gauss-Seidel step's: on a CUDA tensor each launches its
 hand-written kernel (csrc/stencil_spmv.cu) or raises; on a CPU tensor each
 runs its plain version (`stencil_spmv_plain`,
-`stencil_gs_color_step_plain`).
+`stencil_gs_color_step_plain`).  The SpMV has two kernels: #1
+(`stencil_spmv_resident` in the JAX package) and #2
+(`stencil_spmv_stream`, x staged in shared memory), taken when `STREAM`
+is set (`BIS_STENCIL_STREAM=1`, as in the JAX package) for every operator
+within #2's reach (`stream_reach`).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import os
 import re
 from typing import Optional, Tuple
 
@@ -34,6 +39,20 @@ from .config import torch_dtype
 DOT_KINDS = ("x", "self", "aux")
 #: threads per kernel block (csrc/stencil_spmv.cu: __launch_bounds__)
 _BLOCK_THREADS = 256
+
+#: the JAX package's BIS_STENCIL_STREAM switch, read at import
+#: (stencil_op._stream_wanted there): set, every stencil SpMV on a card
+#: within kernel #2's reach launches #2 instead of #1.  May be set in
+#: process.
+STREAM = os.environ.get("BIS_STENCIL_STREAM", "0") == "1"
+#: kernel #2's (x, y) tile of threads and its staged halo (x, y, z):
+#: BIS_STREAM_TX/TY and BIS_STREAM_HX/HY in csrc/stencil_spmv.cu; z holds
+#: one plane a side (the ring of three)
+STREAM_TILE = (32, 8)
+STREAM_HALO = (1, 2, 1)
+#: kernel #2's target block count (the z chunk shrinks until the grid has
+#: about this many blocks: ~8 a streaming multiprocessor)
+_STREAM_BLOCKS = 1024
 
 
 @dataclasses.dataclass
@@ -167,12 +186,16 @@ def _leg_masks(g, legs, nx, ny, nz, n):
     yc = (g // nx) % ny
     zc = g // (nx * ny)
     in_n = g < n
+    axis_ok = {}                  # (axis, d) -> in-bounds mask, shared
     masks = []
     for leg in legs:
         m = in_n
-        for c, d, size in zip((xc, yc, zc), leg, (nx, ny, nz)):
+        for axis, (c, d, size) in enumerate(zip((xc, yc, zc), leg,
+                                                (nx, ny, nz))):
             if d != 0:
-                m = m & (c + d >= 0) & (c + d < size)
+                if (axis, d) not in axis_ok:
+                    axis_ok[axis, d] = (c + d >= 0) & (c + d < size)
+                m = m & axis_ok[axis, d]
         masks.append(m)
     return masks
 
@@ -273,17 +296,48 @@ def _stencil_spmv_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux):
     return (y,) + tuple(partials.sum(dim=0).unbind())
 
 
+def stream_reach(A: DeviceStencil) -> bool:
+    """Is A within kernel #2's reach: every leg inside the staged halo,
+    |dx| <= 1, |dy| <= 2, |dz| <= 1?  The JAX package's planar rule
+    (`_planar_ok`: |dz| <= 1, |dy| <= 2, |dx| below its lane width), with
+    the x reach of #2's halo.  Every stencil the repo builds (HPCG and its
+    Galerkin levels, FDM, Anderson) lies within it."""
+    return _legs_in_reach(A.legs)
+
+
+@functools.lru_cache(maxsize=256)
+def _legs_in_reach(legs) -> bool:
+    hx, hy, hz = STREAM_HALO
+    return all(abs(dx) <= hx and abs(dy) <= hy and abs(dz) <= hz
+               for (dx, dy, dz) in legs)
+
+
+def spmv_route(A: DeviceStencil) -> str:
+    """The kernel `stencil_spmv` launches for A on a card: "stream" (#2)
+    when STREAM is set and A is within #2's reach, else "resident" (#1).
+    A static rule on the legs, read at each call."""
+    return "stream" if STREAM and stream_reach(A) else "resident"
+
+
 def stencil_spmv(A: DeviceStencil, x: torch.Tensor, dots=(),
                  aux: torch.Tensor = None):
     """y = A @ x, with optional fused dots drawn from {"x", "self", "aux"}:
     dot(y, x), dot(y, y), dot(y, aux).  Returns y, or (y, *dots).
 
-    A CUDA tensor goes through the hand-written kernel, which counts its
-    launches in `stencil_spmv.launches`; a CPU tensor takes the plain
-    version."""
+    A CUDA tensor goes through a hand-written kernel: #1, counting its
+    launches in `stencil_spmv.launches`, or, where `spmv_route` says
+    "stream", #2 (`stencil_spmv_stream`).  With STREAM set, an operator
+    outside #2's reach launches #1, as the JAX package sends it to its
+    non-Pallas path, and is counted in `stencil_spmv_stream.outside_reach`;
+    a failed build or launch of either kernel raises.  A CPU tensor takes
+    the plain version."""
     dots = tuple(dots)
     _check_operands(A, x, dots, aux)
     if x.device.type == "cuda":
+        if STREAM:
+            if stream_reach(A):
+                return _stencil_spmv_stream_cuda(A, x, dots, aux)
+            stencil_spmv_stream.outside_reach += 1
         return _stencil_spmv_cuda(A, x, dots, aux)
     if x.device.type == "cpu":
         return stencil_spmv_plain(A, x, dots, aux)
@@ -291,6 +345,76 @@ def stencil_spmv(A: DeviceStencil, x: torch.Tensor, dots=(),
 
 
 stencil_spmv.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _stream_grid(dims) -> Tuple[int, int, int, int]:
+    """(grid_x, grid_y, grid_z, zc) of kernel #2: a block a tile of
+    STREAM_TILE, marching zc planes of z."""
+    nx, ny, nz = dims
+    gx = -(-nx // STREAM_TILE[0])
+    gy = -(-ny // STREAM_TILE[1])
+    chunks = min(nz, max(1, -(-_STREAM_BLOCKS // (gx * gy))))
+    zc = -(-nz // chunks)
+    gz = -(-nz // zc)
+    if gy > 65535 or gz > 65535:
+        raise ValueError(f"grid {dims} exceeds kernel #2's launch limits")
+    return gx, gy, gz, zc
+
+
+def _stencil_spmv_stream_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux):
+    from ._build import load_library
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the stencil kernel takes float32 or float64, "
+                        f"not {x.dtype}")
+    if not stream_reach(A):
+        raise ValueError(f"legs {A.legs} lie outside kernel #2's halo "
+                         f"{STREAM_HALO}")
+    use_diag = A.diag is not None and (0, 0, 0) in A.legs
+    args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag,
+                            tuple(dots))
+    gx, gy, gz, zc = _stream_grid(A.dims)
+    lib = load_library()
+    fn = (lib.bis_stencil_spmv_stream_f32 if x.dtype == torch.float32
+          else lib.bis_stencil_spmv_stream_f64)
+    y = torch.empty_like(x)
+    partials = (torch.empty((gx * gy * gz, len(dots)), dtype=x.dtype,
+                            device=x.device) if dots else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = fn(x.device.index, ctypes.byref(args), gx, gy, gz, zc, ptr(x),
+             ptr(A.diag if use_diag else None),
+             ptr(aux if "aux" in dots else None), ptr(y), ptr(partials),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stencil_spmv_stream kernel launch failed with "
+                           f"CUDA error {err}")
+    stencil_spmv_stream.launches += 1
+    if not dots:
+        return y
+    return (y,) + tuple(partials.sum(dim=0).unbind())
+
+
+def stencil_spmv_stream(A: DeviceStencil, x: torch.Tensor, dots=(),
+                        aux: torch.Tensor = None):
+    """Kernel #2: `stencil_spmv`'s function and contract (y, then the
+    requested dots y·x, y·y, y·aux; the dense diagonal), with x staged in
+    shared memory a z-plane at a time (csrc/stencil_spmv.cu).  A CUDA tensor
+    launches it, counted in `stencil_spmv_stream.launches`, and raises for
+    an operator outside its reach (`stream_reach`); a CPU tensor takes the
+    plain version.  #2 computes the same function as #1, so its plain
+    version is #1's, `stencil_spmv_plain`: y equals #1's bit for bit, the
+    dots differ only in the order of their sums."""
+    dots = tuple(dots)
+    _check_operands(A, x, dots, aux)
+    if x.device.type == "cuda":
+        return _stencil_spmv_stream_cuda(A, x, dots, aux)
+    if x.device.type == "cpu":
+        return stencil_spmv_plain(A, x, dots, aux)
+    raise ValueError(f"no stencil SpMV for device {x.device}")
+
+
+stencil_spmv_stream.launches = 0
+stencil_spmv_stream.outside_reach = 0
 
 
 # ---------------------------------------------------------------------------

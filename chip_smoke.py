@@ -82,7 +82,20 @@ exits non-zero:
  25. the one-launch const solve ([mega]) against the per-level route and
      the plain loop on the HPCG 128^3 SGS pair, f32 and f64, bit for bit,
      and torch.triangular_solve's whole const L solve; then the bench's sgs and pcg rows with BIS_SB_MEGA's switch (the
-     module attribute MEGA) on and off in turns.
+     module attribute MEGA) on and off in turns;
+ 26. kernel #2 (the SpMV with x staged in shared memory, [stream]) against
+     its plain version and bit for bit against #1 at 128^3 f32 (every dot
+     set) and f64, 384^3 f32, Anderson 128^3, fdm:2048 and the 64^3
+     Galerkin level of the 128^3 multigrid hierarchy, both kernels timed;
+ 27. CG + MG, CG + Chebyshev, pipelined CG and CG + MG with refinement on
+     HPCG 32^3 in float64 on the CPU and on the card ([cpu-vs-card-slice6]);
+ 28. slice 6's rows ([slice6]): pcg_mg at 128^3 (CG + V-cycle, 1200
+     iterations), cg (2500), cg@384 (150) and pcg_mg@384 (100), f32, with
+     BIS_STENCIL_STREAM's switch (the module attribute STREAM) off and on in
+     turns, launches of #1 and #2 an iteration, set-up seconds, peak memory;
+ 29. cg_mg_refine at 128^3 ([refine]): float32 CG + MG inners, float64
+     outers to 1e-11·||r0||, held to the explicit float64 residual;
+ 30. pipelined against classic CG at 128^3 in turns ([pipelined]).
 The second-to-last line is a JSON object describing each kernel: launches
 on the main paths, error against plain, kernel, plain and library times,
 and the bound (the larger of the bytes it must move over the card's
@@ -801,7 +814,8 @@ def _counters(so, gb, bk, reset=False):
                "super_level_plane": (bk.super_level, "plane_launches"),
                "super_acc": (bk.super_acc, "launches"),
                "super_parity": (bk.super_parity, "launches"),
-               "super_solve_mega": (bk.super_solve_mega, "launches")}
+               "super_solve_mega": (bk.super_solve_mega, "launches"),
+               "stencil_spmv_stream": (so.stencil_spmv_stream, "launches")}
     if reset:
         for fn, attr in kernels.values():
             setattr(fn, attr, 0)
@@ -2208,6 +2222,297 @@ def phase_mega_rows(torch, bt):
     return mega_launches
 
 
+STREAM_SPECS = ((MAIN_SPEC, "float32", ((), ("x",), ("self",), ("aux",))),
+                (MAIN_SPEC, "float64", (("x",),)),
+                ("hpcg:384x384x384", "float32", (("x",),)),
+                (KERNEL_SPECS[2], "float32", (("self",),)),
+                ("fdm:2048", "float32", (("x",),)),
+                ("galerkin:64", "float32", (("x",),)))
+#: kernel #2's dots against #1's, relative to sum|y_i v_i| (the order of
+#: the per-block partial sums differs)
+STREAM_DOT_RTOL = {"float32": 1e-6, "float64": 1e-13}
+
+
+def _galerkin_64(torch, bt, dtype):
+    """The 64^3 level of the 128^3 multigrid hierarchy (27 Galerkin legs)."""
+    from basic_iterative_solvers_tpu_torch import mg
+    A = bt.stencil_op.from_source_operator(MAIN_SPEC, dtype, device="cuda")
+    levels = mg.build_mg_hierarchy(A, bt.SolverConfig(
+        preconditioner=bt.PrecondType.MULTIGRID, dtype=dtype))
+    return levels[1].A
+
+
+def _raw_spmv(torch, so, A, x, dots, aux, stream):
+    """One launch of kernel #2 (`stream`) or #1 on A·x with its arguments
+    bound once: the ctypes call alone (no operand checks, no allocation,
+    no sum of the dot partials), so that a batch of launches times the
+    kernel on the card rather than the wrapper's host work."""
+    import ctypes
+    from basic_iterative_solvers_tpu_torch._build import load_library
+    lib = load_library()
+    use_diag = A.diag is not None and (0, 0, 0) in A.legs
+    args, n_blocks = so._launch_table(A.legs, A.coeff_values, A.dims,
+                                      use_diag, tuple(dots))
+    sfx = "f32" if x.dtype == torch.float32 else "f64"
+    grid = ()
+    if stream:
+        grid = so._stream_grid(A.dims)
+        n_blocks = grid[0] * grid[1] * grid[2]
+        fn = getattr(lib, f"bis_stencil_spmv_stream_{sfx}")
+    else:
+        fn = getattr(lib, f"bis_stencil_spmv_{sfx}")
+    y = torch.empty_like(x)
+    partials = torch.empty((n_blocks, max(1, len(dots))), dtype=x.dtype,
+                           device=x.device)
+    argv = (x.device.index, ctypes.byref(args), *grid, x.data_ptr(),
+            A.diag.data_ptr() if use_diag else None,
+            aux.data_ptr() if "aux" in dots else None, y.data_ptr(),
+            partials.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        err = fn(*argv)
+        if err != 0:
+            raise RuntimeError(f"raw launch failed with CUDA error {err}")
+    return launch
+
+
+def phase_stream_vs_plain(torch, bt, library_ms):
+    """Kernel #2 against its plain version (#1's) and against #1 on every
+    operator of STREAM_SPECS: y bit-equal to #1's, within TOL of plain,
+    the dots within STREAM_DOT_RTOL of #1's; #2 and #1 timed on the same
+    operands (CUDA-event median of 20 batches of 10 bound launches, in
+    turns, and through the wrappers), with the byte bound (x and y, plus
+    the diagonal and aux).  Returns the record of
+    128^3 f32 with y.x (the CG SpMV), its library time the CSR SpMV's of
+    phase 3 (the same matrix and x)."""
+    so = bt.stencil_op
+    record = None
+    for spec, dt_name, dot_sets in STREAM_SPECS:
+        dt = getattr(torch, dt_name)
+        A = (_galerkin_64(torch, bt, dt) if spec == "galerkin:64"
+             else so.from_source_operator(spec, dt, device="cuda"))
+        if not so.stream_reach(A):
+            raise RuntimeError(f"{spec} lies outside kernel #2's reach")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        aux = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        for dots in dot_sets:
+            before = so.stencil_spmv_stream.launches
+            k2 = so.stencil_spmv_stream(A, x, dots, aux)
+            k1 = so._stencil_spmv_cuda(A, x, dots, aux)
+            p = so.stencil_spmv_plain(A, x, dots, aux)
+            torch.cuda.synchronize()
+            if so.stencil_spmv_stream.launches != before + 1:
+                raise RuntimeError("kernel #2's launch count did not grow")
+            k2, k1, p = (k2, k1, p) if dots else ((k2,), (k1,), (p,))
+            bit_equal = torch.equal(k2[0], k1[0])
+            abs_err = float((k2[0] - p[0]).abs().max())
+            rel = abs_err / float(p[0].abs().max())
+            partner = {"x": x, "self": k1[0], "aux": aux}
+            dot_rel = [abs(float(d2 - d1))
+                       / float((k1[0] * partner[kind]).abs().sum())
+                       for kind, d2, d1 in zip(dots, k2[1:], k1[1:])]
+            # kernel times from bound launches, in turns (#2, #1, #1, #2);
+            # call times through the wrappers (operand checks, allocation,
+            # the partials' sum: host work that can exceed the kernel's)
+            raw2 = _raw_spmv(torch, so, A, x, dots, aux, True)
+            raw1 = _raw_spmv(torch, so, A, x, dots, aux, False)
+            t2a, t1a, t1b, t2b = (_median_ms(f, torch)
+                                  for f in (raw2, raw1, raw1, raw2))
+            ms2, ms1 = min(t2a, t2b), min(t1a, t1b)
+            call2 = _median_ms(
+                lambda: so.stencil_spmv_stream(A, x, dots, aux), torch)
+            call1 = _median_ms(
+                lambda: so._stencil_spmv_cuda(A, x, dots, aux), torch)
+            n_vec = 2 + (A.diag is not None) + ("aux" in dots)
+            bound = _bound(n_vec * A.n_rows * x.element_size(),
+                           2 * len(A.legs) * A.n_rows)
+            print(f"[stream] {spec} {dt_name} dims={A.dims} legs="
+                  f"{len(A.legs)} dots={','.join(dots) or '-'} "
+                  f"bit_equal_to_#1={bit_equal} max_rel_err_vs_plain="
+                  f"{rel:.3e} dot_rel_vs_#1={[f'{e:.3e}' for e in dot_rel]} "
+                  f"kernel_ms #2={[f'{t:.4f}' for t in (t2a, t2b)]} "
+                  f"#1={[f'{t:.4f}' for t in (t1a, t1b)]} call_ms "
+                  f"#2={call2:.4f} #1={call1:.4f} "
+                  f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})")
+            if not (bit_equal and rel <= TOL[dt_name]
+                    and all(e <= STREAM_DOT_RTOL[dt_name] for e in dot_rel)):
+                raise RuntimeError(f"kernel #2 disagrees: {spec} {dt_name} "
+                                   f"{dots}")
+            if (spec, dt_name, dots) == (MAIN_SPEC, "float32", ("x",)):
+                plain_ms = _median_ms(
+                    lambda: so.stencil_spmv_plain(A, x, dots, aux), torch)
+                record = {"max_abs_err": abs_err, "ms": ms2,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
+                          "resident_ms": ms1, "call_ms": call2, **bound}
+        del A, x, aux
+        torch.cuda.empty_cache()
+    return record
+
+
+#: slice 6's rows: (name, spec, preconditioner, iterations), f32 fused,
+#: tolerance 0, b = 2, x0 = 1 (bench.py:164-180, 568)
+SLICE6_ROWS = (("pcg_mg", MAIN_SPEC, "MULTIGRID", 1200),
+               ("cg", MAIN_SPEC, "NONE", 2500),
+               ("cg@384", "hpcg:384x384x384", "NONE", 150),
+               ("pcg_mg@384", "hpcg:384x384x384", "MULTIGRID", 100))
+
+
+def phase_slice6_rows(torch, bt):
+    """SLICE6_ROWS with STREAM (kernel #2) off and on in turns (off, on,
+    on, off), after a warm-up solve with each; every counter set to 0
+    just before each timed solve and read just after.  Prints ms/iter,
+    launches of #1 and #2 an iteration, the explicit float64 residual,
+    set-up seconds and peak memory; fails unless the STREAM runs launch #2
+    and no #1, and the others #1 and no #2.  Returns #2's launches over
+    the pcg_mg STREAM runs and each row's launches an iteration."""
+    import math
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    so = bt.stencil_op
+    stream_launches, by_row = 0, {}
+    for name, spec, precond, iters in SLICE6_ROWS:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        setup = _setup(torch, bt, spec, torch.float32, "cuda",
+                       bt.SolverType.CONJUGATE_GRADIENT,
+                       preconditioner=bt.PrecondType[precond],
+                       max_iters=iters, tolerance=0.0, breakdown_stall=True)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        solver = make_method(setup)
+        ms, per = {False: [], True: []}, {}
+        try:
+            for stream in (False, True):
+                so.STREAM = stream
+                bt.solve(setup, method=solver)            # warm-up solve
+            for stream in (False, True, True, False):
+                so.STREAM = stream
+                _counters(so, gb, bk, reset=True)
+                res = bt.solve(setup, method=solver)
+                c = _counters(so, gb, bk)
+                ms[stream].append(1e3 * res.solve_seconds / res.iter_count)
+                per[stream] = {k: round(c[k] / res.iter_count, 3) for k in
+                               ("stencil_spmv", "stencil_spmv_stream")}
+                if stream and name == "pcg_mg":
+                    stream_launches += c["stencil_spmv_stream"]
+                ok = (res.iter_count == iters
+                      and math.isfinite(res.final_residual_norm)
+                      and bool(torch.isfinite(res.x_star).all()))
+                routed = ((c["stencil_spmv_stream"] > 0
+                           and c["stencil_spmv"] == 0) if stream else
+                          (c["stencil_spmv"] > 0
+                           and c["stencil_spmv_stream"] == 0))
+                if not (ok and routed):
+                    raise RuntimeError(f"{name} STREAM={stream} run failed "
+                                       f"its checks: {c}")
+        finally:
+            so.STREAM = False
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        by_row[name] = per
+        print(f"[slice6] {spec} f32 {name} fused, {iters} iterations, STREAM "
+              f"in turns (off, on, on, off): ms/iter off="
+              f"{[f'{v:.5f}' for v in ms[False]]} on="
+              f"{[f'{v:.5f}' for v in ms[True]]} launches/iter off="
+              f"{per[False]} on={per[True]} final_explicit_f64="
+              f"{res.final_residual_norm:.6e} setup_s={setup_s:.3f} "
+              f"peak_GB={peak_gb:.3f}")
+        del setup, solver
+        torch.cuda.empty_cache()
+    return stream_launches, by_row
+
+
+def phase_pipelined_row(torch, bt):
+    """Pipelined against classic CG on HPCG 128^3, f32 fused, tolerance 0,
+    300 iterations, in turns (classic, pipelined, pipelined, classic),
+    each after a warm-up solve: the cost of reading the residual-
+    replacement trigger on the host every iteration (the pipelined solve
+    may stop early where its float32 recurrence turns non-finite)."""
+    import math
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    ms, reps = {"classic": [], "pipelined": []}, []
+    setups = {f: _setup(torch, bt, MAIN_SPEC, torch.float32, "cuda",
+                        bt.SolverType.CONJUGATE_GRADIENT, cg_flavor=f,
+                        max_iters=300, tolerance=0.0, breakdown_stall=True)
+              for f in ms}
+    for flavor in ("classic", "pipelined", "pipelined", "classic"):
+        solver = make_method(setups[flavor])
+        bt.solve(setups[flavor], method=solver)        # warm-up solve
+        solver = make_method(setups[flavor])
+        res = bt.solve(setups[flavor], method=solver)
+        ms[flavor].append(1e3 * res.solve_seconds / res.iter_count)
+        if flavor == "pipelined":
+            reps.append((res.iter_count, solver.replacements))
+        if not (res.iter_count > 0 and math.isfinite(res.residual_norms[0])):
+            raise RuntimeError(f"{flavor} CG row failed")
+    print(f"[pipelined] {MAIN_SPEC} f32 CG fused, 300 iterations, in turns: "
+          f"ms/iter classic={[f'{v:.5f}' for v in ms['classic']]} "
+          f"pipelined={[f'{v:.5f}' for v in ms['pipelined']]} "
+          f"(iterations, replacements)={reps}")
+
+
+def phase_cg_mg_refine(torch, bt):
+    """cg_mg_refine at 128^3 (bench.py:334-384, 570): CG + MG with float32
+    inners to 1e-6 and float64 outers to 1e-11·||r0||, the single-dispatch
+    form, after a warm-up solve.  The explicit float64 residual of the
+    answer, computed here, must meet the stopping criterion."""
+    from basic_iterative_solvers_tpu_torch.ops.spmv import spmv
+    from basic_iterative_solvers_tpu_torch.solvers.base import (
+        _refine_fused_eligible)
+    setup = _setup(torch, bt, MAIN_SPEC, torch.float32, "cuda",
+                   bt.SolverType.CONJUGATE_GRADIENT,
+                   preconditioner=bt.PrecondType.MULTIGRID, refine_outer=8,
+                   tolerance=1e-11, max_iters=300)
+    if not _refine_fused_eligible(setup):
+        raise RuntimeError("cg_mg_refine is not on the single-dispatch form")
+    bt.solve(setup)                                    # warm-up solve
+    res = bt.solve(setup)
+    A64 = bt.stencil_op.stencil_astype(setup.A, torch.float64)
+    r = setup.b.to(torch.float64) - spmv(A64, res.x_star)
+    explicit = float(torch.linalg.norm(r))
+    print(f"[refine] {MAIN_SPEC} cg_mg_refine (f32 CG + MG inner, f64 "
+          f"outer, tol 1e-11): seconds={res.solve_seconds:.4f} "
+          f"converged={res.converged} outers={res.refine_outer_count} "
+          f"inner_iterations={res.iter_count} outer_norms="
+          f"{[f'{v:.6e}' for v in res.residual_norms]} explicit_f64="
+          f"{explicit:.6e} stop={res.stopping_criteria:.6e}")
+    if not (res.converged and explicit <= res.stopping_criteria):
+        raise RuntimeError("cg_mg_refine did not reach 1e-11·||r0||")
+
+
+def phase_cpu_vs_card_slice6(torch, bt):
+    """CG + MG, CG + Chebyshev, pipelined CG and CG + MG with refinement
+    (float64 inners to 1e-3, outers to 1e-9) on HPCG 32^3 in float64, on
+    the CPU and on the card: equal counts (iterations, outers), histories
+    (outer norms for the refined solve) as _check_history says."""
+    S, P = bt.SolverType, bt.PrecondType
+    cases = [("CG + MG", dict(preconditioner=P.MULTIGRID, tolerance=1e-10)),
+             ("CG + Chebyshev", dict(preconditioner=P.CHEBYSHEV,
+                                     tolerance=1e-10)),
+             ("pipelined CG", dict(cg_flavor="pipelined", tolerance=1e-10)),
+             ("CG + MG + refinement", dict(
+                 preconditioner=P.MULTIGRID, refine_outer=6, tolerance=1e-9,
+                 refine_inner_tol=1e-3))]
+    for label, kw in cases:
+        c, g = (bt.solve(_setup(torch, bt, "hpcg:32x32x32", torch.float64,
+                                dev, S.CONJUGATE_GRADIENT, max_iters=500,
+                                **kw)) for dev in ("cpu", "cuda"))
+        print(f"[cpu-vs-card-slice6] hpcg:32x32x32 f64 {label}: iters cpu="
+              f"{c.iter_count} card={g.iter_count} outers cpu="
+              f"{c.refine_outer_count} card={g.refine_outer_count} "
+              f"final cpu={c.final_residual_norm:.6e} "
+              f"card={g.final_residual_norm:.6e}")
+        if not (c.converged and g.converged):
+            raise RuntimeError(f"{label}: a solve did not converge")
+        if (c.iter_count, c.refine_outer_count) != (g.iter_count,
+                                                    g.refine_outer_count):
+            raise RuntimeError(f"{label}: CPU and card counts differ")
+        # the refined solve's history is its outer norms, the last at the
+        # float64 evaluation floor (left out, as an explicit final is)
+        _check_history(g, c)
+
+
 def _row_counts(bt, reset=False):
     """Every kernel counter a slice-5b row may touch."""
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
@@ -2343,6 +2648,11 @@ def main():
     torch.cuda.empty_cache()
     mega_record = phase_mega_vs_per_level(torch, bt)
     mega_launches = phase_mega_rows(torch, bt)
+    stream_record = phase_stream_vs_plain(torch, bt, record["library_ms"])
+    phase_cpu_vs_card_slice6(torch, bt)
+    stream_launches, slice6_per_iter = phase_slice6_rows(torch, bt)
+    phase_cg_mg_refine(torch, bt)
+    phase_pipelined_row(torch, bt)
     print(f"[summary] {FDM_5B} f32 ILU(0): whole L solve "
           f"torch.triangular_solve {whole5b['library_ms']:.4f} ms, "
           f"blocked_trisolve {whole5b['blocked_trisolve_ms']:.4f} ms; "
@@ -2414,6 +2724,14 @@ def main():
             "replaces": ("basic_iterative_solvers_tpu/ops/block_trisolve.py:"
                          f"{line}"),
             "launches": launched, **record})
+    kernels.append({
+        "name": "stencil_spmv_stream", "route": "cuda",
+        "source": src + "stencil_spmv.cu",
+        "replaces": "basic_iterative_solvers_tpu/stencil_op.py:422",
+        "launches": stream_launches,
+        "launches_per_iter_by_row": {row: per[True]["stencil_spmv_stream"]
+                                     for row, per in slice6_per_iter.items()},
+        **stream_record})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
@@ -2421,7 +2739,9 @@ def main():
             raise RuntimeError(f"kernel record incomplete or never launched "
                                f"on a main path: {k}")
     print(json.dumps({"kernels": [
-        {key: k[key] for key in keys + ("launches_by_row",) if key in k}
+        {key: k[key] for key in keys + ("launches_by_row",
+                                        "launches_per_iter_by_row",
+                                        "resident_ms", "call_ms") if key in k}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

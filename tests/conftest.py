@@ -34,6 +34,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running convergence/mesh test; excluded "
         "from the default lane, run with --runslow")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (a hand-written CUDA kernel "
+        "of the PyTorch port); skips, with its reason, where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -34,7 +34,7 @@ def test_import_loads_no_jax():
             "    importlib.import_module(name)\n"
             "need = {'matrix', 'permute', 'factor', 'ops.block_trisolve', "
             "'_build', 'device_matrix', 'dia', 'io.mmio', 'ops.dia_spmv', "
-            "'ops.lane_ell', 'ops.trisolve', 'generators', 'convert'}\n"
+            "'ops.lane_ell', 'ops.trisolve', 'generators', 'convert', 'mg'}\n"
             "assert {pkg.__name__ + '.' + n for n in need} <= set(names)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'basic_iterative_solvers_tpu' or "
@@ -159,17 +159,9 @@ def test_spmv_rejects_bad_operands(case):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"method": bt.SolverType.GMRES,
-     "preconditioner": bt.PrecondType.CHEBYSHEV},
     {"method": bt.SolverType.JACOBI, "kernel_timers": True},
-    {"cg_flavor": "pipelined"},
-    {"refine_outer": 2},
     {"dtype": torch.float32, "matrix_dtype": "bfloat16"},
-    {"method": bt.SolverType.SYMMETRIC_GAUSS_SEIDEL,
-     "preconditioner": bt.PrecondType.MULTIGRID},
-    {"preconditioner": bt.PrecondType.ILU0, "refine_outer": 2},
-], ids=["gmres", "jacobi", "pipelined", "refine", "matrix_dtype", "sgs",
-        "ilu0"])
+], ids=["jacobi", "matrix_dtype"])
 def test_unported_features_name_their_slice(kwargs):
     A = tso.from_source_operator("hpcg:8x6x4", torch.float64, device=CPU)
     with pytest.raises(NotImplementedError, match="slice"):
