@@ -22,7 +22,14 @@ solves on stencils and the rank-space level of host-CSR factors
 (csrc/block_trisolve.cu), and the DIA and lane-ELL SpMVs
 (csrc/sparse_spmv.cu).  Operators and vectors live on the card unless the
 caller asks for the CPU (`device="cpu"`), where the kernels' plain PyTorch
-versions run.  The package imports torch and numpy only.
+versions run.  The package imports torch and numpy only.  Matrix data
+may be stored in bfloat16 beside float32 or float64 vectors
+(matrix_dtype="bfloat16"): DIA data, lane-ELL values, a stencil's
+coefficients and diagonal, each widened before its product.
+
+The command line (cli.py) runs as `python -m
+basic_iterative_solvers_tpu_torch <matrix> <method-flag> [options]`, on
+the card unless `--platform cpu` is given.
 
     import torch
     import basic_iterative_solvers_tpu_torch as bis
@@ -37,8 +44,9 @@ versions run.  The package imports torch and numpy only.
 import torch
 
 from . import coloring, convert, dia, generators, stencil_op  # noqa: F401
-from .config import SolverConfig
+from .config import Args, SolverConfig
 from .device_matrix import DeviceDIA, DeviceELL, from_csr
+from .io import read_mtx, write_mtx
 from .matrix import MatrixCOO, MatrixCSR
 from .precond import (COLORED_PRECONDS, DEVICE_NATIVE_PRECONDS,
                       ilu0_device_eligible, resolve_gs_mode)
@@ -49,20 +57,23 @@ from .types import PRECOND_CLI_NAMES, SOLVER_CLI_FLAGS, PrecondType, SolverType
 
 __version__ = "0.1.0"
 
-__all__ = ["SolverConfig", "SolverType", "PrecondType", "SolverSetup",
-           "SolveResult", "DeviceStencil", "DeviceDIA", "DeviceELL",
-           "MatrixCOO", "MatrixCSR", "stencil_op", "dia", "generators",
-           "convert", "from_csr", "preprocessing", "preprocessing_device",
-           "solve", "solve_system"]
+__all__ = ["Args", "SolverConfig", "SolverType", "PrecondType",
+           "SolverSetup", "SolveResult", "DeviceStencil", "DeviceDIA",
+           "DeviceELL", "MatrixCOO", "MatrixCSR", "stencil_op", "dia",
+           "generators", "convert", "from_csr", "read_mtx", "write_mtx",
+           "preprocessing", "preprocessing_device", "solve",
+           "solve_system", "device_path"]
 
 
-def _device_route(source: str, config: SolverConfig, method, precond,
-                  device):
-    """The device operator solve_system builds for a generator spec, or
-    None for the host-CSR route (the JAX package's rules,
-    basic_iterative_solvers_tpu/__init__.py:96-146).  May set
-    config.matrix_format to "stencil"."""
+def device_path(source: str, config: SolverConfig, device) -> bool:
+    """Does the generator spec `source` build on the device for this
+    config (a DeviceDIA, or the matrix-free stencil) rather than through
+    host CSR?  The JAX package's rules (basic_iterative_solvers_tpu/
+    __init__.py:96-146, cli.py:231-302).  Sets config.color_spec from the
+    source when unset, and config.matrix_format to "stencil" for -p mg
+    and for exact ILU(0) on an eligible stencil."""
     from .ops.block_trisolve import stencil_ilu0_eligible
+    precond, method = config.preconditioner, config.method
     if config.color_spec is None:
         config.color_spec = generators.color_spec_for_source(source)
     if (precond == PrecondType.MULTIGRID and config.matrix_format == "auto"
@@ -84,18 +95,23 @@ def _device_route(source: str, config: SolverConfig, method, precond,
             pass
     if ilu0_stencil and config.matrix_format == "auto":
         config.matrix_format = "stencil"
-    device_ok = (generators.device_buildable(source)
-                 and (precond in DEVICE_NATIVE_PRECONDS
-                      or (precond in COLORED_PRECONDS and colored)
-                      or ilu0_stencil)
-                 and (method not in (SolverType.GAUSS_SEIDEL,
-                                     SolverType.SYMMETRIC_GAUSS_SEIDEL)
-                      or colored)
-                 and config.perm_mode == "none"
-                 and not (config.num_scale
-                          and config.matrix_format == "stencil")
-                 and config.matrix_format in ("auto", "dia", "stencil"))
-    if not device_ok:
+    return (generators.device_buildable(source)
+            and (precond in DEVICE_NATIVE_PRECONDS
+                 or (precond in COLORED_PRECONDS and colored)
+                 or ilu0_stencil)
+            and (method not in (SolverType.GAUSS_SEIDEL,
+                                SolverType.SYMMETRIC_GAUSS_SEIDEL)
+                 or colored)
+            and config.perm_mode == "none"
+            and not (config.num_scale
+                     and config.matrix_format == "stencil")
+            and config.matrix_format in ("auto", "dia", "stencil"))
+
+
+def _device_route(source: str, config: SolverConfig, device):
+    """The device operator solve_system builds for a generator spec, or
+    None for the host-CSR route (`device_path`)."""
+    if not device_path(source, config, device):
         if config.matrix_format == "stencil":
             raise ValueError(
                 "matrix_format='stencil' needs a generator source and a "
@@ -151,7 +167,7 @@ def solve_system(matrix_source, method="cg", preconditioner=None, b=None,
                              f"asks for {device}")
         return solve(preprocessing_device(A, config, b=b, x0=x0))
     if isinstance(A, str):
-        A_dev = _device_route(A, config, method, preconditioner, device)
+        A_dev = _device_route(A, config, device)
         if A_dev is not None:
             return solve(preprocessing_device(A_dev, config, b=b, x0=x0))
         A = generators.from_source(A)

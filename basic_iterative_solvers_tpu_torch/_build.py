@@ -150,7 +150,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
     i64, i32 = ctypes.c_longlong, ctypes.c_int
-    for name in ("bis_stencil_spmv_f32", "bis_stencil_spmv_f64"):
+    # "_bf16": the form that takes bfloat16 matrix data (a stencil's
+    # diagonal, DIA data, lane-ELL values) beside vectors of the named type
+    for name in ("bis_stencil_spmv_f32", "bis_stencil_spmv_f64",
+                 "bis_stencil_spmv_f32_bf16", "bis_stencil_spmv_f64_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs), ptr, ptr,
                        ptr, ptr, ptr, ptr]
@@ -168,11 +171,18 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"bis_gmres_correct_write_{suffix}")
         fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, ptr, ptr, i32, ptr]
         fn.restype = i32
-    for dt in ("f32", "f64"):
+    for dt in ("f32", "f64", "f32_bf16", "f64_bf16"):
         fn = getattr(lib, f"bis_stencil_gs_color_step_{dt}")
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs), i32, i32, i32, i32,
                        i32, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
+        fn = getattr(lib, f"bis_dia_spmv_{dt}")
+        fn.argtypes = [i32, ctypes.POINTER(DiaArgs), ptr, ptr, ptr, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"bis_lane_ell_spmv_{dt}")
+        fn.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+        fn.restype = i32
+    for dt in ("f32", "f64"):
         level = ctypes.POINTER(SuperLevelArgs)
         for name, args in (("super_level", [ptr] * 8),
                            ("super_acc", [ptr] * 6),
@@ -182,12 +192,6 @@ def load_library() -> ctypes.CDLL:
             fn.argtypes = [i32, level if name != "super_solve_mega"
                            else ptr] + args
             fn.restype = i32
-        fn = getattr(lib, f"bis_dia_spmv_{dt}")
-        fn.argtypes = [i32, ctypes.POINTER(DiaArgs), ptr, ptr, ptr, ptr]
-        fn.restype = i32
-        fn = getattr(lib, f"bis_lane_ell_spmv_{dt}")
-        fn.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
-        fn.restype = i32
         fn = getattr(lib, f"bis_rank_level_{dt}")
         fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr]
         fn.restype = i32

@@ -27,6 +27,29 @@ def torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, np.dtype(dtype).name)
 
 
+def serves_vectors(mat_dtype: torch.dtype, vec_dtype: torch.dtype) -> bool:
+    """Can operator data stored in `mat_dtype` multiply vectors of
+    `vec_dtype`?  The same dtype, or bfloat16 data beside float32 or
+    float64 vectors (the JAX package's matrix_dtype: each product promotes
+    to the vector dtype)."""
+    return vec_dtype == mat_dtype or (
+        mat_dtype == torch.bfloat16
+        and vec_dtype in (torch.float32, torch.float64))
+
+
+def kernel_suffix(vec_dtype: torch.dtype, mat_dtype: torch.dtype) -> str:
+    """The suffix of a kernel entry point in csrc/: "f32" or "f64" for the
+    vector dtype, then "_bf16" where the matrix data is bfloat16.  Raises
+    for a pair no kernel takes."""
+    names = {torch.float32: "f32", torch.float64: "f64"}
+    if vec_dtype not in names or mat_dtype not in (vec_dtype,
+                                                   torch.bfloat16):
+        raise TypeError(f"no kernel takes {vec_dtype} vectors with "
+                        f"{mat_dtype} matrix data")
+    return names[vec_dtype] + ("_bf16" if mat_dtype == torch.bfloat16
+                               else "")
+
+
 @dataclasses.dataclass
 class SolverConfig:
     """All solver knobs (the reference's CMakeLists.txt:20-29 and
@@ -96,3 +119,50 @@ class SolverConfig:
         if self.matrix_dtype is None:
             return self.spec_dtype()
         return torch_dtype(self.matrix_dtype)
+
+
+@dataclasses.dataclass
+class Args:
+    """The parsed command line (the reference's Args, common.hpp:105-111),
+    with the JAX package's fields (basic_iterative_solvers_tpu/config.py:
+    246-300).  `cli.parse_cli` is the operational parser; this dataclass is
+    the programmatic equivalent for embedding callers.  "auto" dtype and
+    harness resolve as the CLI resolves them: float32 and the fused
+    harness on a card, float64 and the host harness on the CPU."""
+
+    matrix_source: str = ""
+    method: SolverType = SolverType.CONJUGATE_GRADIENT
+    preconditioner: PrecondType = PrecondType.NONE
+    restart_length: int = 10
+    num_scale: bool = False
+    perm_mode: str = "none"
+    gs_mode: str = "auto"
+    dtype: str = "auto"               # auto: float32 on a card, else float64
+    matrix_dtype: Optional[str] = None
+    harness: str = "auto"             # auto: fused on a card, else host
+    matrix_format: str = "auto"
+    orthog_mode: str = "mgs"
+    gmres_basis_dtype: Optional[str] = None
+    cg_flavor: str = "classic"
+    cg_rr_period: int = 25
+    cg_rr_theta: float = 0.03
+
+    def to_config(self, dtype=None, device="cuda") -> SolverConfig:
+        """The SolverConfig of these arguments for a solve on `device`
+        (the card unless the caller asks for the CPU; "auto" reads it)."""
+        on_card = torch.device(device).type == "cuda"
+        if dtype is None:
+            dtype = ((torch.float32 if on_card else torch.float64)
+                     if self.dtype == "auto" else torch_dtype(self.dtype))
+        harness = self.harness
+        if harness == "auto":
+            harness = "fused" if on_card else "host"
+        return SolverConfig(
+            method=self.method, preconditioner=self.preconditioner,
+            restart_length=self.restart_length, num_scale=self.num_scale,
+            perm_mode=self.perm_mode, gs_mode=self.gs_mode, dtype=dtype,
+            matrix_dtype=self.matrix_dtype, harness=harness,
+            matrix_format=self.matrix_format, orthog_mode=self.orthog_mode,
+            gmres_basis_dtype=self.gmres_basis_dtype,
+            cg_flavor=self.cg_flavor, cg_rr_period=self.cg_rr_period,
+            cg_rr_theta=self.cg_rr_theta)

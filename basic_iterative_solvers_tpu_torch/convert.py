@@ -7,7 +7,10 @@ identical inputs.  The JAX package stores a diagonal or vector either flat
 (n,), possibly zero-padded to a tile multiple, or in its planar halo layout
 (rows_pad, L); the planar layout is decoded here with the JAX package's
 geometry rule (basic_iterative_solvers_tpu/stencil_op.py:152-185),
-reimplemented in numpy.
+reimplemented in numpy.  A bfloat16 array (the JAX package's matrix data
+under matrix_dtype="bfloat16", numpy's ml_dtypes.bfloat16) comes across
+exactly: its bits are reinterpreted, or it is widened to float64 and
+rounded back.
 
 `ilu0_pair_from_numpy` carries the JAX package's exact ILU(0) factors
 across: the translation tables of its `_ilu0_translation_tables` become
@@ -47,9 +50,15 @@ def _planar_geometry(legs, dims):
     return L, rows_plane, rows_pad
 
 
+def _widened(v) -> np.ndarray:
+    """v as a numpy array, bfloat16 widened to float64 (exact)."""
+    v = np.asarray(v)
+    return v.astype(np.float64) if v.dtype.name == "bfloat16" else v
+
+
 def _flat(v, legs, dims) -> np.ndarray:
     """Flat (n,) numpy copy of a flat, tile-padded flat or planar vector."""
-    v = np.asarray(v)
+    v = _widened(v)
     nx, ny, nz = dims
     n = nx * ny * nz
     if v.ndim == 2:
@@ -101,8 +110,10 @@ def ilu0_pair_from_numpy(op: DeviceStencil, tables, *, dtype):
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(
-        dtype=torch_dtype(dtype), device=resolve_device(device))
+    a = np.array(a)
+    t = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+         if a.dtype.name == "bfloat16" else torch.from_numpy(a))
+    return t.to(dtype=torch_dtype(dtype), device=resolve_device(device))
 
 
 def csr_from_numpy(n_rows, n_cols, row_ptr, col, val):

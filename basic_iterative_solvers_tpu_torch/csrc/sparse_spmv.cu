@@ -31,9 +31,18 @@
 // 4-byte indices plus gathered x.  Each thread's loop is a load, a
 // multiply and an add per term.
 //
+// Matrix data in bfloat16 (the JAX package's --matrix-dtype bfloat16, its
+// products promoting to the vector dtype, ops/pallas_spmv.py:142-143): a
+// second type parameter M for data/vals.  Each bf16 value is widened
+// exactly (__bfloat162float, then to T) and the product rounded in T as
+// above, so the bf16 forms equal their plain versions, data.to(x.dtype)
+// times x in the same order, bit for bit.  They move half the value bytes
+// (DIA: 2k*n + 2*4n bytes instead of 4k*n + 2*4n in f32).
+//
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define BIS_DIA_MAX_DIAGS 96
@@ -51,9 +60,15 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
-template <typename T>
+// A stored matrix value as the vector type T: exact for every M (a bf16
+// value is a float with 8 significant bits).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T, typename M>
 __global__ void __launch_bounds__(256)
-dia_spmv_kernel(const __grid_constant__ BisDiaArgs a, const T* data,
+dia_spmv_kernel(const __grid_constant__ BisDiaArgs a, const M* data,
                 const T* x, T* y) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= a.n) return;
@@ -61,14 +76,14 @@ dia_spmv_kernel(const __grid_constant__ BisDiaArgs a, const T* data,
     for (int d = 0; d < a.n_diags; ++d) {
         const long long j = i + a.off[d];
         const T xv = (j >= 0 && j < a.n) ? x[j] : T(0);
-        acc = add_rn(acc, mul_rn(data[(long long)d * a.n + i], xv));
+        acc = add_rn(acc, mul_rn(T(widen(data[(long long)d * a.n + i])), xv));
     }
     y[i] = acc;
 }
 
-template <typename T>
+template <typename T, typename M>
 __global__ void __launch_bounds__(256)
-lane_ell_spmv_kernel(const T* vals, const int* idx, const T* x, T* y,
+lane_ell_spmv_kernel(const M* vals, const int* idx, const T* x, T* y,
                      long long n, long long plane, int K, int S) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
@@ -80,7 +95,7 @@ lane_ell_spmv_kernel(const T* vals, const int* idx, const T* x, T* y,
         long long j = (r + (p >> 7) - S) * 128 + (p & 127);
         j = j < 0 ? 0 : (j > plane - 1 ? plane - 1 : j);
         const T xv = j < n ? x[j] : T(0);
-        acc = add_rn(acc, mul_rn(vals[s], xv));
+        acc = add_rn(acc, mul_rn(T(widen(vals[s])), xv));
     }
     y[i] = acc;
 }
@@ -89,52 +104,50 @@ static unsigned blocks_for(long long n) {
     return (unsigned)((n + 255) / 256);
 }
 
-template <typename T>
-static int launch_dia(int device, const BisDiaArgs* a, const T* data,
+template <typename T, typename M>
+static int launch_dia(int device, const BisDiaArgs* a, const M* data,
                       const T* x, T* y, cudaStream_t stream) {
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return (int)set;
-    dia_spmv_kernel<T><<<blocks_for(a->n), 256, 0, stream>>>(*a, data, x, y);
+    dia_spmv_kernel<T, M><<<blocks_for(a->n), 256, 0, stream>>>(*a, data, x, y);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_lane_ell(int device, const T* vals, const int* idx,
+template <typename T, typename M>
+static int launch_lane_ell(int device, const M* vals, const int* idx,
                            const T* x, T* y, long long n, long long plane,
                            int K, int S, cudaStream_t stream) {
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return (int)set;
-    lane_ell_spmv_kernel<T><<<blocks_for(n), 256, 0, stream>>>(
+    lane_ell_spmv_kernel<T, M><<<blocks_for(n), 256, 0, stream>>>(
         vals, idx, x, y, n, plane, K, S);
     return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-int bis_dia_spmv_f32(int device, const BisDiaArgs* a, const float* data,
-                     const float* x, float* y, void* stream) {
-    return launch_dia<float>(device, a, data, x, y, (cudaStream_t)stream);
-}
-
-int bis_dia_spmv_f64(int device, const BisDiaArgs* a, const double* data,
-                     const double* x, double* y, void* stream) {
-    return launch_dia<double>(device, a, data, x, y, (cudaStream_t)stream);
-}
+// bis_dia_spmv_<vector type>[_bf16]: the suffix _bf16 takes bf16 data.
+#define BIS_DIA_ENTRY(NAME, T, M)                                            \
+    int NAME(int device, const BisDiaArgs* a, const M* data, const T* x,   \
+             T* y, void* stream) {                                          \
+        return launch_dia<T, M>(device, a, data, x, y, (cudaStream_t)stream); \
+    }
+BIS_DIA_ENTRY(bis_dia_spmv_f32, float, float)
+BIS_DIA_ENTRY(bis_dia_spmv_f64, double, double)
+BIS_DIA_ENTRY(bis_dia_spmv_f32_bf16, float, __nv_bfloat16)
+BIS_DIA_ENTRY(bis_dia_spmv_f64_bf16, double, __nv_bfloat16)
 
 // plane = R*128, the entries of one slot plane (R padded x2 rows).
-int bis_lane_ell_spmv_f32(int device, const float* vals, const int* idx,
-                          const float* x, float* y, long long n,
-                          long long plane, int K, int S, void* stream) {
-    return launch_lane_ell<float>(device, vals, idx, x, y, n, plane, K, S,
-                                  (cudaStream_t)stream);
-}
-
-int bis_lane_ell_spmv_f64(int device, const double* vals, const int* idx,
-                          const double* x, double* y, long long n,
-                          long long plane, int K, int S, void* stream) {
-    return launch_lane_ell<double>(device, vals, idx, x, y, n, plane, K, S,
-                                   (cudaStream_t)stream);
-}
+#define BIS_LANE_ELL_ENTRY(NAME, T, M)                                       \
+    int NAME(int device, const M* vals, const int* idx, const T* x, T* y,  \
+             long long n, long long plane, int K, int S, void* stream) {    \
+        return launch_lane_ell<T, M>(device, vals, idx, x, y, n, plane, K,  \
+                                     S, (cudaStream_t)stream);              \
+    }
+BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f32, float, float)
+BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f64, double, double)
+BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f32_bf16, float, __nv_bfloat16)
+BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f64_bf16, double, __nv_bfloat16)
 
 int bis_dia_args_size(void) { return (int)sizeof(BisDiaArgs); }
 

@@ -44,9 +44,19 @@
 // version's separate PyTorch operations do.  Same bound as the SpMV: the
 // leg loop, at 1/n_colours of the rows.
 //
+// A dense diagonal stored in bfloat16 (the JAX package's --matrix-dtype
+// bfloat16 on a stencil with one, e.g. Anderson's random potential): every
+// kernel here takes a second type parameter D for `diag`.  Each diag[i] is
+// widened exactly (__bfloat162float, then to T) and its product with x[i]
+// rounded in T as in the T form, so the bf16 forms equal their plain
+// versions (diag.to(x.dtype)) as the T forms do.  The coefficients of the
+// launch table are already the values rounded to the matrix dtype, carried
+// as doubles and used as T: exact.
+//
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define BIS_MAX_LEGS 27
@@ -108,12 +118,17 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
+// A stored diagonal value as the vector type T: exact for every D.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // y[i] for the row i = (gx, gy, gz): each coefficient group's in-bounds
 // legs summed, times the group's coefficient, plus diag[i]*x[i].
-template <typename T>
+template <typename T, typename D>
 __device__ __forceinline__ T stencil_row(const BisStencilArgs& a,
                                          const T* __restrict__ x,
-                                         const T* __restrict__ diag,
+                                         const D* __restrict__ diag,
                                          long long i, int gx, int gy,
                                          int gz) {
     T acc = T(0);
@@ -127,15 +142,15 @@ __device__ __forceinline__ T stencil_row(const BisStencilArgs& a,
         }
         acc = add_rn(acc, mul_rn(T(a.group_coeff[g]), s));
     }
-    if (diag != nullptr) acc = add_rn(acc, mul_rn(diag[i], x[i]));
+    if (diag != nullptr) acc = add_rn(acc, mul_rn(T(widen(diag[i])), x[i]));
     return acc;
 }
 
-template <typename T>
+template <typename T, typename D>
 __global__ void __launch_bounds__(256)
 stencil_spmv_kernel(const __grid_constant__ BisStencilArgs a,
                     const T* __restrict__ x,
-                    const T* __restrict__ diag, const T* __restrict__ aux,
+                    const D* __restrict__ diag, const T* __restrict__ aux,
                     T* __restrict__ y, T* __restrict__ partials) {
     const int gy = blockIdx.x * a.block_y + threadIdx.y;
     const int gz = blockIdx.y;
@@ -213,11 +228,11 @@ __device__ __forceinline__ void stream_load_plane(const BisStencilArgs& a,
     }
 }
 
-template <typename T>
+template <typename T, typename D>
 __global__ void __launch_bounds__(BIS_STREAM_TX * BIS_STREAM_TY)
 stencil_spmv_stream_kernel(const __grid_constant__ BisStencilArgs a, int zc,
                            const T* __restrict__ x,
-                           const T* __restrict__ diag,
+                           const D* __restrict__ diag,
                            const T* __restrict__ aux, T* __restrict__ y,
                            T* __restrict__ partials) {
     __shared__ T ring[3 * BIS_STREAM_PLANE];
@@ -258,7 +273,8 @@ stencil_spmv_stream_kernel(const __grid_constant__ BisStencilArgs a, int zc,
             const long long i =
                 (long long)a.nx * (gy + (long long)a.ny * z) + gx;
             const T xi = ring[o0 + centre];
-            if (diag != nullptr) acc = add_rn(acc, mul_rn(diag[i], xi));
+            if (diag != nullptr)
+                acc = add_rn(acc, mul_rn(T(widen(diag[i])), xi));
             y[i] = acc;
             for (int k = 0; k < a.n_dots; ++k) {
                 const int kind = a.dot_kind[k];
@@ -295,11 +311,11 @@ __device__ __forceinline__ int color_of(const BisColorStep& c, long long i,
     return (int)(i % c.p[0]);
 }
 
-template <typename T>
+template <typename T, typename D>
 __global__ void __launch_bounds__(256)
 stencil_gs_color_step_kernel(const __grid_constant__ BisStencilArgs a,
                              const BisColorStep c, const T* __restrict__ x,
-                             const T* __restrict__ diag,
+                             const D* __restrict__ diag,
                              const T* __restrict__ rhs,
                              const T* __restrict__ dinv,
                              T* __restrict__ out) {
@@ -318,15 +334,15 @@ stencil_gs_color_step_kernel(const __grid_constant__ BisStencilArgs a,
     }
 }
 
-template <typename T>
+template <typename T, typename D>
 static int launch(int device, const BisStencilArgs* a, const T* x,
-                  const T* diag, const T* aux, T* y, T* partials,
+                  const D* diag, const T* aux, T* y, T* partials,
                   cudaStream_t stream) {
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return (int)set;
     const dim3 block(a->block_x, a->block_y);
     const dim3 grid(a->grid_x, a->grid_y);
-    stencil_spmv_kernel<T><<<grid, block, 0, stream>>>(*a, x, diag, aux, y,
+    stencil_spmv_kernel<T, D><<<grid, block, 0, stream>>>(*a, x, diag, aux, y,
                                                         partials);
     return (int)cudaGetLastError();
 }
@@ -334,10 +350,10 @@ static int launch(int device, const BisStencilArgs* a, const T* x,
 // Kernel #2's launch: grid (grid_x, grid_y, grid_z) of tiles, zc planes a
 // block.  Refuses a grid that does not cover the operator and legs beyond
 // the staged halo.
-template <typename T>
+template <typename T, typename D>
 static int launch_stream(int device, const BisStencilArgs* a, int grid_x,
                          int grid_y, int grid_z, int zc, const T* x,
-                         const T* diag, const T* aux, T* y, T* partials,
+                         const D* diag, const T* aux, T* y, T* partials,
                          cudaStream_t stream) {
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return (int)set;
@@ -352,14 +368,14 @@ static int launch_stream(int device, const BisStencilArgs* a, int grid_x,
             return (int)cudaErrorInvalidValue;
     const dim3 block(BIS_STREAM_TX, BIS_STREAM_TY);
     const dim3 grid(grid_x, grid_y, grid_z);
-    stencil_spmv_stream_kernel<T><<<grid, block, 0, stream>>>(
+    stencil_spmv_stream_kernel<T, D><<<grid, block, 0, stream>>>(
         *a, zc, x, diag, aux, y, partials);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename D>
 static int launch_gs(int device, const BisStencilArgs* a, int kind, int p0,
-                     int p1, int p2, int color, const T* x, const T* diag,
+                     int p1, int p2, int color, const T* x, const D* diag,
                      const T* rhs, const T* dinv, T* out,
                      cudaStream_t stream) {
     const cudaError_t set = cudaSetDevice(device);
@@ -367,45 +383,38 @@ static int launch_gs(int device, const BisStencilArgs* a, int kind, int p0,
     const BisColorStep c = {kind, {p0, p1, p2}, color};
     const dim3 block(a->block_x, a->block_y);
     const dim3 grid(a->grid_x, a->grid_y);
-    stencil_gs_color_step_kernel<T><<<grid, block, 0, stream>>>(
+    stencil_gs_color_step_kernel<T, D><<<grid, block, 0, stream>>>(
         *a, c, x, diag, rhs, dinv, out);
     return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-int bis_stencil_spmv_f32(int device, const BisStencilArgs* a,
-                         const float* x,
-                         const float* diag, const float* aux, float* y,
-                         float* partials, void* stream) {
-    return launch<float>(device, a, x, diag, aux, y, partials, (cudaStream_t)stream);
-}
+// Entry points bis_<kernel>_<vector type>[_bf16]; the suffix _bf16 takes a
+// bf16 diagonal.
+#define BIS_SPMV_ENTRY(NAME, T, D)                                           \
+    int NAME(int device, const BisStencilArgs* a, const T* x, const D* diag,\
+             const T* aux, T* y, T* partials, void* stream) {               \
+        return launch<T, D>(device, a, x, diag, aux, y, partials,           \
+                            (cudaStream_t)stream);                          \
+    }
+BIS_SPMV_ENTRY(bis_stencil_spmv_f32, float, float)
+BIS_SPMV_ENTRY(bis_stencil_spmv_f64, double, double)
+BIS_SPMV_ENTRY(bis_stencil_spmv_f32_bf16, float, __nv_bfloat16)
+BIS_SPMV_ENTRY(bis_stencil_spmv_f64_bf16, double, __nv_bfloat16)
 
-int bis_stencil_spmv_f64(int device, const BisStencilArgs* a,
-                         const double* x,
-                         const double* diag, const double* aux, double* y,
-                         double* partials, void* stream) {
-    return launch<double>(device, a, x, diag, aux, y, partials, (cudaStream_t)stream);
-}
-
-int bis_stencil_spmv_stream_f32(int device, const BisStencilArgs* a,
-                                int grid_x, int grid_y, int grid_z, int zc,
-                                const float* x, const float* diag,
-                                const float* aux, float* y, float* partials,
-                                void* stream) {
-    return launch_stream<float>(device, a, grid_x, grid_y, grid_z, zc, x,
-                                diag, aux, y, partials, (cudaStream_t)stream);
-}
-
-int bis_stencil_spmv_stream_f64(int device, const BisStencilArgs* a,
-                                int grid_x, int grid_y, int grid_z, int zc,
-                                const double* x, const double* diag,
-                                const double* aux, double* y,
-                                double* partials, void* stream) {
-    return launch_stream<double>(device, a, grid_x, grid_y, grid_z, zc, x,
-                                 diag, aux, y, partials,
-                                 (cudaStream_t)stream);
-}
+#define BIS_STREAM_ENTRY(NAME, T, D)                                         \
+    int NAME(int device, const BisStencilArgs* a, int grid_x, int grid_y,   \
+             int grid_z, int zc, const T* x, const D* diag, const T* aux,   \
+             T* y, T* partials, void* stream) {                             \
+        return launch_stream<T, D>(device, a, grid_x, grid_y, grid_z, zc, x,\
+                                   diag, aux, y, partials,                  \
+                                   (cudaStream_t)stream);                   \
+    }
+BIS_STREAM_ENTRY(bis_stencil_spmv_stream_f32, float, float)
+BIS_STREAM_ENTRY(bis_stencil_spmv_stream_f64, double, double)
+BIS_STREAM_ENTRY(bis_stencil_spmv_stream_f32_bf16, float, __nv_bfloat16)
+BIS_STREAM_ENTRY(bis_stencil_spmv_stream_f64_bf16, double, __nv_bfloat16)
 
 int bis_stencil_stream_tile(int* tx, int* ty, int* hx, int* hy) {
     *tx = BIS_STREAM_TX;
@@ -415,25 +424,17 @@ int bis_stencil_stream_tile(int* tx, int* ty, int* hx, int* hy) {
     return 0;
 }
 
-int bis_stencil_gs_color_step_f32(int device, const BisStencilArgs* a,
-                                  int kind, int p0, int p1, int p2,
-                                  int color, const float* x,
-                                  const float* diag, const float* rhs,
-                                  const float* dinv, float* out,
-                                  void* stream) {
-    return launch_gs<float>(device, a, kind, p0, p1, p2, color, x, diag, rhs,
-                            dinv, out, (cudaStream_t)stream);
-}
-
-int bis_stencil_gs_color_step_f64(int device, const BisStencilArgs* a,
-                                  int kind, int p0, int p1, int p2,
-                                  int color, const double* x,
-                                  const double* diag, const double* rhs,
-                                  const double* dinv, double* out,
-                                  void* stream) {
-    return launch_gs<double>(device, a, kind, p0, p1, p2, color, x, diag,
-                             rhs, dinv, out, (cudaStream_t)stream);
-}
+#define BIS_GS_ENTRY(NAME, T, D)                                             \
+    int NAME(int device, const BisStencilArgs* a, int kind, int p0, int p1, \
+             int p2, int color, const T* x, const D* diag, const T* rhs,    \
+             const T* dinv, T* out, void* stream) {                         \
+        return launch_gs<T, D>(device, a, kind, p0, p1, p2, color, x, diag, \
+                               rhs, dinv, out, (cudaStream_t)stream);       \
+    }
+BIS_GS_ENTRY(bis_stencil_gs_color_step_f32, float, float)
+BIS_GS_ENTRY(bis_stencil_gs_color_step_f64, double, double)
+BIS_GS_ENTRY(bis_stencil_gs_color_step_f32_bf16, float, __nv_bfloat16)
+BIS_GS_ENTRY(bis_stencil_gs_color_step_f64_bf16, double, __nv_bfloat16)
 
 int bis_stencil_args_size(void) { return (int)sizeof(BisStencilArgs); }
 

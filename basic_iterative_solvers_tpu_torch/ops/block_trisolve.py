@@ -1499,7 +1499,13 @@ def _solve_super(B: SuperBlockTriSolve, y: torch.Tensor,
 
 def blocked_trisolve(B, y: torch.Tensor) -> torch.Tensor:
     """x = (T_c + D)⁻¹y: the exact GS solve of the colour-sorted ordering,
-    the same action as coloring.colored_sweep from zero."""
+    the same action as coloring.colored_sweep from zero.  The three applies
+    here are TIME'd as "sptrsv" in kernel-timing mode (utils/ktimers.py)."""
+    from ..utils.ktimers import ktime
+    return ktime("sptrsv", _blocked_trisolve, B, y)
+
+
+def _blocked_trisolve(B, y: torch.Tensor) -> torch.Tensor:
     if isinstance(B, BlockedTriSolve):
         Y = permute_blocks(B, y)
         return unpermute_blocks(B, solve_blocks(B, Y, Y))
@@ -1510,6 +1516,11 @@ def blocked_sgs(L, U, y: torch.Tensor) -> torch.Tensor:
     """(U_c+D)⁻¹ D (L_c+D)⁻¹ y, the exact coloured symmetric GS apply: the
     levels of L, the multiply by D, the levels of U in place (L must be
     built with need_d=True)."""
+    from ..utils.ktimers import ktime
+    return ktime("sptrsv", _blocked_sgs, L, U, y)
+
+
+def _blocked_sgs(L, U, y: torch.Tensor) -> torch.Tensor:
     d = L.d if isinstance(L, BlockedTriSolve) or L.d_rows is None \
         else L.d_rows
     if d is None:
@@ -1518,13 +1529,18 @@ def blocked_sgs(L, U, y: torch.Tensor) -> torch.Tensor:
         T = solve_blocks(L, permute_blocks(L, y), torch.empty(
             (L.n_colors, L.M), dtype=y.dtype, device=y.device)) * L.d
         return unpermute_blocks(U, solve_blocks(U, T, T))
-    t = blocked_trisolve(L, y) * d
+    t = _blocked_trisolve(L, y) * d
     return _solve_super(U, t, t)
 
 
 def blocked_ilu0(L, U, y: torch.Tensor) -> torch.Tensor:
     """U⁻¹L⁻¹y with unit-diagonal L, the coloured ILU(0) apply: the levels
     of L, then the levels of U in place on the same state."""
+    from ..utils.ktimers import ktime
+    return ktime("sptrsv", _blocked_ilu0, L, U, y)
+
+
+def _blocked_ilu0(L, U, y: torch.Tensor) -> torch.Tensor:
     if isinstance(L, BlockedTriSolve):
         X = solve_blocks(L, permute_blocks(L, y), torch.empty(
             (L.n_colors, L.M), dtype=y.dtype, device=y.device))
@@ -1534,5 +1550,5 @@ def blocked_ilu0(L, U, y: torch.Tensor) -> torch.Tensor:
                          "with a unit diagonal: the factor-table pair "
                          "(build_superblock_ilu0_pair_stencil) or one built "
                          "from its factors with D None, not a GS pair")
-    x = blocked_trisolve(L, y)
+    x = _blocked_trisolve(L, y)
     return _solve_super(U, x, x)

@@ -15,7 +15,9 @@ hand-written kernel (csrc/sparse_spmv.cu, the port of the JAX package's
 Pallas `_lane_ell_kernel_call`) or raises, counting launches in
 `lane_ell_spmv.launches`; on a CPU tensor it runs `lane_ell_spmv_plain`,
 the JAX package's XLA form (slot by slot, ascending), which the kernel
-follows bit for bit.
+follows bit for bit.  The values may be stored in bfloat16 beside float32
+or float64 vectors (matrix_dtype), widened before each product; that
+form's launches are counted in `lane_ell_spmv.bf16_launches`.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import torch_dtype
+from ..config import kernel_suffix, serves_vectors, torch_dtype
 from ..matrix import MatrixCSR
 from ..stencil_op import resolve_device
 
@@ -90,20 +92,23 @@ def csr_to_lane_ell(A: MatrixCSR, dtype=torch.float32, *,
     rows, rowoff, lane = rows[order], rowoff[order], lane[order]
     val_sorted = A.val[order]
     slot = np.arange(A.nnz, dtype=np.int64) - A.row_ptr[:-1][rows]
-    vals = np.zeros((K, R_pad, LANES), dtype=np.float64)
+    vals64 = np.zeros((K, R_pad, LANES), dtype=np.float64)
     idx = np.zeros((K, R_pad, LANES), dtype=np.int32)
     r2, l2 = rows // LANES, rows % LANES
-    vals[slot, r2, l2] = val_sorted
+    vals64[slot, r2, l2] = val_sorted
     idx[slot, r2, l2] = ((rowoff + S) * LANES + lane).astype(np.int32)
-    vals = vals.astype(np.dtype(str(torch_dtype(dtype)).split(".")[1]))
+    # rounded to the storage dtype (round to nearest even, as numpy's cast
+    # in the JAX package) before the pad test reads it
+    vals = torch.from_numpy(vals64).to(torch_dtype(dtype))
+    del vals64
     # pad slots point at their slot's lowest rowoff (0 for an empty slot)
     none = np.iinfo(np.int64).max
     lo = np.full(K, none, dtype=np.int64)
     np.minimum.at(lo, slot, rowoff)
     lo[lo == none] = 0
-    idx = np.where((vals == 0) & (idx == 0),
+    idx = np.where((vals == 0).numpy() & (idx == 0),
                    ((lo + S) * LANES).astype(np.int32)[:, None, None], idx)
-    return DeviceLaneELL(vals=torch.from_numpy(vals).to(device),
+    return DeviceLaneELL(vals=vals.to(device),
                          idx=torch.from_numpy(idx).to(device), n_rows=n,
                          n_cols=n, K=K, S=S, R=R_pad)
 
@@ -118,7 +123,7 @@ def _check(M: DeviceLaneELL, x: torch.Tensor):
     if x.shape != (M.n_rows,):
         raise ValueError(f"x has shape {tuple(x.shape)}, expected "
                          f"({M.n_rows},)")
-    if x.dtype != M.dtype:
+    if not serves_vectors(M.dtype, x.dtype):
         raise TypeError(f"x is {x.dtype}, the operator {M.dtype}")
     if x.device != M.device:
         raise ValueError(f"x is on {x.device}, the operator on {M.device}")
@@ -139,37 +144,37 @@ def lane_ell_spmv_plain(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
         p = M.idx[k].long()
         flat = ((r + p // LANES - M.S) * LANES + p % LANES).clamp(0,
                                                                   plane - 1)
-        y = y + M.vals[k] * xf[flat]
+        y = y + M.vals[k].to(x.dtype) * xf[flat]
     return y.reshape(-1)[:M.n_rows]
 
 
 def _lane_ell_spmv_cuda(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
     from .._build import load_library
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the lane-ELL kernel takes float32 or float64, not "
-                        f"{x.dtype}")
+    suffix = kernel_suffix(x.dtype, M.dtype)
     if not (M.vals.is_contiguous() and M.idx.is_contiguous()
             and M.idx.dtype == torch.int32):
         raise ValueError("the lane-ELL planes must be contiguous, the "
                          "indices int32")
     y = torch.empty_like(x)
     lib = load_library()
-    fn = lib.bis_lane_ell_spmv_f32 if x.dtype == torch.float32 \
-        else lib.bis_lane_ell_spmv_f64
-    err = fn(x.device.index, M.vals.data_ptr(), M.idx.data_ptr(),
+    err = getattr(lib, f"bis_lane_ell_spmv_{suffix}")(x.device.index, M.vals.data_ptr(), M.idx.data_ptr(),
              x.data_ptr(), y.data_ptr(), M.n_rows, M.R * LANES, M.K, M.S,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lane_ell_spmv kernel launch failed with CUDA "
                            f"error {err}")
-    lane_ell_spmv.launches += 1
+    if M.dtype == torch.bfloat16:
+        lane_ell_spmv.bf16_launches += 1
+    else:
+        lane_ell_spmv.launches += 1
     return y
 
 
 def lane_ell_spmv(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
     """y = M @ x.  A CUDA tensor goes through the hand-written kernel
-    (`lane_ell_spmv.launches` counts its launches); a CPU tensor takes the
-    plain version."""
+    (`lane_ell_spmv.launches` counts its launches, and
+    `lane_ell_spmv.bf16_launches` those of its bfloat16-data form); a CPU
+    tensor takes the plain version."""
     _check(M, x)
     if x.device.type == "cuda":
         return _lane_ell_spmv_cuda(M, x)
@@ -179,3 +184,4 @@ def lane_ell_spmv(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
 
 
 lane_ell_spmv.launches = 0
+lane_ell_spmv.bf16_launches = 0

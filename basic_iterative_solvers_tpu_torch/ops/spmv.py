@@ -11,23 +11,29 @@ ops/spmv.py.
 
 Each kernel or its plain version is chosen by the vector's device.  Fused
 dots stay stencil-only, as in the JAX package; elsewhere the dots follow
-the SpMV as `torch.dot`s.
+the SpMV as `torch.dot`s.  `spmv`, `spmv_dot` and `spmv_dots` are TIME'd
+as "spmv" in the host harness's kernel-timing mode (utils/ktimers.py).
 """
 from __future__ import annotations
 
 import torch
 
 from ..stencil_op import DeviceStencil, stencil_spmv
+from ..utils.ktimers import ktime
 
 
 def spmv_ell(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a DeviceELL: gather x at the column pattern, multiply,
     sum each row."""
-    return torch.sum(A.data * x[A.cols], dim=1)
+    return torch.sum(A.data.to(x.dtype) * x[A.cols], dim=1)
 
 
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x (dispatch on the device format)."""
+    return ktime("spmv", _spmv, A, x)
+
+
+def _spmv(A, x: torch.Tensor) -> torch.Tensor:
     from ..device_matrix import DeviceDIA, DeviceELL
     from .dia_spmv import dia_spmv
     from .lane_ell import DeviceLaneELL, lane_ell_spmv
@@ -45,20 +51,28 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
 def spmv_dot(A, x: torch.Tensor):
     """(A @ x, dot(A @ x, x)); on a stencil the dot is fused into the SpMV
     kernel (CG's α denominator costs no extra pass over the vectors)."""
+    return ktime("spmv", _spmv_dot, A, x)
+
+
+def _spmv_dot(A, x: torch.Tensor):
     if isinstance(A, DeviceStencil):
         return stencil_spmv(A, x, dots=("x",))
-    y = spmv(A, x)
+    y = _spmv(A, x)
     return y, torch.dot(y, x)
 
 
 def spmv_dots(A, x: torch.Tensor, aux: torch.Tensor = None,
               with_self: bool = False):
     """y = A @ x plus reductions: (y[, dot(y, aux)][, dot(y, y)])."""
+    return ktime("spmv", _spmv_dots, A, x, aux, with_self)
+
+
+def _spmv_dots(A, x: torch.Tensor, aux, with_self: bool):
     dots = ("aux",) * (aux is not None) + ("self",) * with_self
     if isinstance(A, DeviceStencil):
         out = stencil_spmv(A, x, dots=dots, aux=aux)
         return out if dots else (out,)
-    y = spmv(A, x)
+    y = _spmv(A, x)
     partner = {"aux": aux, "self": y}
     return (y,) + tuple(torch.dot(y, partner[k]) for k in dots)
 

@@ -94,7 +94,13 @@ def trisolve(ts: TriSolveLevels, b: torch.Tensor) -> torch.Tensor:
     """x with (T_strict + D) x = b, level by level: per level the gather
     x[cols], the row sum of vals·x, then x[rows] = (b[rows] − s)·dinv,
     pad slots written to a discarded sentinel entry (the reference's
-    native_sptrsv / native_bsptrsv arithmetic, kernels.hpp:54-117)."""
+    native_sptrsv / native_bsptrsv arithmetic, kernels.hpp:54-117).
+    TIME'd as "sptrsv" in kernel-timing mode (kernels.hpp:56)."""
+    from ..utils.ktimers import ktime
+    return ktime("sptrsv", _trisolve, ts, b)
+
+
+def _trisolve(ts: TriSolveLevels, b: torch.Tensor) -> torch.Tensor:
     n = ts.n_rows
     bp = torch.nn.functional.pad(b, (0, 1))
     x = torch.zeros(n + 1, dtype=b.dtype, device=b.device)

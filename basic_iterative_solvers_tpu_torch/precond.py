@@ -525,8 +525,74 @@ def _apply_once(M: Preconditioner, y: torch.Tensor) -> torch.Tensor:
 
 
 def apply_preconditioner(M: Preconditioner, y: torch.Tensor) -> torch.Tensor:
-    """z ← M⁻¹ y, applied `outer_iters` times (kernels.hpp:355-404)."""
+    """z ← M⁻¹ y, applied `outer_iters` times (kernels.hpp:355-404).
+    TIME'd as "precond" in kernel-timing mode (reference cg.hpp:37-41)."""
+    from .utils.ktimers import ktime
+    return ktime("precond", _apply_outer, M, y)
+
+
+def _apply_outer(M: Preconditioner, y: torch.Tensor) -> torch.Tensor:
     out = y
     for _ in range(max(1, M.outer_iters)):
         out = _apply_once(M, out)
     return out
+
+
+def estimated_precond_passes(M: Preconditioner) -> float:
+    """Estimated device-memory cost of one apply in units of one full
+    vector stream, for the roofline report (the JAX package's static
+    estimate from the apply's structure, precond.py:694-761)."""
+    k = M.inner_iters
+    outer = max(1, M.outer_iters)
+    if M.ptype == PrecondType.MULTIGRID:
+        from .mg import estimated_vcycle_passes
+        return estimated_vcycle_passes(M.mg_data, M.mg_smooth_degree,
+                                       M.mg_coarse_degree) * outer
+    if M.L_block is not None or M.U_block is not None:
+        # blocked solves: each factor plane streams once, ~3 window reads
+        # per (level, source) pair, and the permutes and vector passes
+        from .ops import block_trisolve as bk
+        per = 0.0
+        for B in (M.L_block, M.U_block):
+            if B is None:
+                continue
+            if isinstance(B, bk.SuperBlockTriSolve):
+                # const mode regenerates its planes: no factor traffic; the
+                # one-launch solve reads no window either
+                n_groups = (0 if B.is_const else
+                            sum(len(c) + len(s) for _, c, s in B.levels))
+                n_pairs = (0 if bk.MEGA and B.is_const and B.fused else
+                           sum(len({s for s, _ in c})
+                               for _, c, _s in B.levels))
+                per += (n_groups + 3.0 * n_pairs) / B.S + 5.0
+            else:
+                n_pairs = sum(len({s for s, _, _ in g}) for _, g in B.levels)
+                per += (B.vals.shape[0] + 3.0 * n_pairs) / B.n_colors + 5.0
+        if M.ptype == PrecondType.SYMMETRIC_GAUSS_SEIDEL:
+            per += 1.0
+        return per * outer
+    if M.n_colors > 0:
+        # coloured sweeps: ~(SpMV + masked update) ≈ 5 passes a step
+        n_steps = M.n_colors
+        if (M.color_spec is not None and M.color_spec.kind == "grid"
+                and M.color_spec.params[3] > 1):
+            n_steps = max(1, M.n_colors // M.color_spec.params[3])
+        per_sweep = 5.0 * n_steps
+        per = {PrecondType.GAUSS_SEIDEL: per_sweep,
+               PrecondType.BACKWARDS_GAUSS_SEIDEL: per_sweep,
+               PrecondType.SYMMETRIC_GAUSS_SEIDEL: 2 * per_sweep + 1,
+               PrecondType.ILU0: 2 * per_sweep}[M.ptype]
+        return per * outer
+    per = {
+        PrecondType.NONE: 0.0,
+        PrecondType.JACOBI: 3.0,                   # read y, read D, write z
+        PrecondType.GAUSS_SEIDEL: 8.0,             # level-scan gather+solve
+        PrecondType.BACKWARDS_GAUSS_SEIDEL: 8.0,
+        PrecondType.SYMMETRIC_GAUSS_SEIDEL: 17.0,
+        PrecondType.TWO_STAGE_GS: 3.0 + 6.0 * k,   # k Richardson sweeps
+        PrecondType.SYMMETRIC_TWO_STAGE_GS: 7.0 + 12.0 * k,
+        PrecondType.ILU0: 16.0,
+        # ~6 vector passes per inner SpMV, residual and update
+        PrecondType.CHEBYSHEV: 3.0 + 6.0 * max(0, M.cheby_degree - 1),
+    }[M.ptype]
+    return per * outer

@@ -144,10 +144,6 @@ def preprocessing(A, config: SolverConfig, b: Optional[Any] = None,
     n = A.n_rows
     if A.n_rows != A.n_cols:
         raise ValueError("Matrix must be square.")
-    if config.mat_dtype() != dtype:
-        raise NotImplementedError(
-            "an operator dtype other than the vector dtype (matrix_dtype) "
-            "arrives with ROADMAP Queue 1 slice 6b (bf16 matrix storage)")
     if A_dev is not None and (config.num_scale
                               or config.perm_mode != "none"):
         raise ValueError("A_dev injection requires perm_mode='none' and "
@@ -190,6 +186,12 @@ def preprocessing(A, config: SolverConfig, b: Optional[Any] = None,
                 A, ilu0=(pt == PrecondType.ILU0 and not gs_colored),
                 pivot_tolerance=config.ilu0_pivot_tolerance,
                 pivot_replacement=config.ilu0_pivot_replacement)
+        if config.debug_checks and pt != PrecondType.ILU0:
+            # the reference's SanityChecker::check_copied_L_U_elems
+            # (common.hpp:532-542); ILU(0)'s factors count a unit diagonal
+            from ..utils.sanity import check_lu_split_counts
+            check_lu_split_counts(A, factors.L, factors.L_strict,
+                                  factors.U, factors.U_strict)
     to_dev = lambda a, dt=dtype: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a)).to(dtype=dt, device=device)
     with timers.time("preprocessing_device"):
@@ -235,8 +237,10 @@ def preprocessing_device(A_dev, config: SolverConfig, b: Optional[Any] = None,
                          x0: Optional[Any] = None,
                          timers: Optional[Timers] = None) -> SolverSetup:
     """Device-native preprocessing for a matrix-free stencil or a DIA
-    matrix: cast it to the configured storage dtype, make b and x0
-    (config.b_val and config.init_x_val unless given) on the operator's
+    matrix: cast it to the configured storage dtype (config.mat_dtype():
+    a stencil's coefficients and diagonal, DIA data), make b and x0
+    (vector dtype, as every diagonal the preconditioner keeps)
+    from config.b_val and config.init_x_val unless given, on the operator's
     device, scale a DIA matrix symmetrically (num_scale), set up the
     preconditioner and, for the GS and SGS methods, the colouring and,
     where a stencil allows it, the const-mode superblock pair
@@ -260,18 +264,15 @@ def preprocessing_device(A_dev, config: SolverConfig, b: Optional[Any] = None,
         raise ValueError(
             "num_scale breaks the constant-coefficient structure; use the "
             "DIA format (matrix_format='dia') for scaled solves")
-    if config.mat_dtype() != dtype:
-        raise NotImplementedError(
-            "an operator dtype other than the vector dtype (matrix_dtype) "
-            "arrives with ROADMAP Queue 1 slice 6b (bf16 matrix storage)")
     gs_method = config.method in _GS_METHODS
     if gs_method and resolve_gs_mode(config, device_native=True) != "colored":
         raise ValueError(
             f"method {config.method} with gs_mode={config.gs_mode!r} needs "
             "exact triangular solves in the natural ordering: use "
             "preprocessing() (the host CSR path)")
-    A_dev = (stencil_astype(A_dev, dtype) if is_stencil else
-             dataclasses.replace(A_dev, data=A_dev.data.to(dtype)))
+    md = config.mat_dtype()
+    A_dev = (stencil_astype(A_dev, md) if is_stencil else
+             dataclasses.replace(A_dev, data=A_dev.data.to(md)))
     device = A_dev.device
     b_dev = _vector(b, n, config.b_val, dtype, device)
     x0_dev = _vector(x0, n, config.init_x_val, dtype, device)
@@ -710,11 +711,10 @@ def _solve_refined(setup: SolverSetup) -> SolveResult:
 def _solve_host(setup: SolverSetup, method, timers: Timers,
                 progress=None) -> SolveResult:
     """Host-driven loop with the semantics of solver_harness.hpp:15-51: one
-    host read of the sampled norm per sample, per-iteration wall times."""
+    host read of the sampled norm per sample, per-iteration wall times.
+    With config.kernel_timers the loop's instrumented call sites charge
+    their synchronized wall times to `timers` (utils/ktimers.py)."""
     config = setup.config
-    if config.kernel_timers:
-        raise NotImplementedError(
-            "per-kernel timers arrive with ROADMAP Queue 1 slice 7")
     state = method.init_state()
     r0_norm = float(method.initial_residual_norm(state))
     stopping = _stopping(config, r0_norm)
@@ -733,37 +733,46 @@ def _solve_host(setup: SolverSetup, method, timers: Timers,
     # method defines one (GMRES)
     debug_check = (getattr(method, "debug_check", None)
                    if config.debug_checks else None)
+    if config.kernel_timers:
+        from ..utils import ktimers
+        ktimers.activate(timers)
     t_solve0 = time.perf_counter()
-    while True:
-        t0 = time.perf_counter()
-        state = method.iterate(state)
-        iter_count += 1
-        if debug_check is not None:
-            debug_check(state, iter_count)
-        if iter_count % config.res_check_len == 0:
-            residual_norm = float(method.sample_norm(state))
-            norms[hist_count] = residual_norm
-            times[hist_count] = time.perf_counter() - t0
-            hist_count += 1
-        for thresh in res_milestones:
-            if (residual_norm / r0_norm < thresh
-                    and not res_milestones[thresh]):
-                res_milestones[thresh] = True
-                if progress:
-                    progress(iter_count, residual_norm)
-        state, restarted, restart_norm = method.check_restart(
-            state, iter_count, residual_norm, stopping)
-        if restarted:
-            restart_count += 1
-            residual_norm = restart_norm
-            norms[hist_count] = restart_norm
-            times[hist_count] = time.perf_counter() - t0
-            hist_count += 1
-        # check_stopping_criteria (solver.hpp:177-191)
-        diverged = not np.isfinite(residual_norm)
-        over_max = iter_count >= (config.max_iters - restart_count)
-        if abs(residual_norm) < stopping or over_max or diverged:
-            break
+    try:
+        while True:
+            t0 = time.perf_counter()
+            state = method.iterate(state)
+            iter_count += 1
+            if debug_check is not None:
+                debug_check(state, iter_count)
+            if iter_count % config.res_check_len == 0:
+                residual_norm = float(method.sample_norm(state))
+                norms[hist_count] = residual_norm
+                times[hist_count] = time.perf_counter() - t0
+                hist_count += 1
+            for thresh in res_milestones:
+                if (residual_norm / r0_norm < thresh
+                        and not res_milestones[thresh]):
+                    res_milestones[thresh] = True
+                    if progress:
+                        progress(iter_count, residual_norm)
+            state, restarted, restart_norm = method.check_restart(
+                state, iter_count, residual_norm, stopping)
+            if restarted:
+                restart_count += 1
+                residual_norm = restart_norm
+                norms[hist_count] = restart_norm
+                times[hist_count] = time.perf_counter() - t0
+                hist_count += 1
+            # check_stopping_criteria (solver.hpp:177-191)
+            diverged = not np.isfinite(residual_norm)
+            over_max = iter_count >= (config.max_iters - restart_count)
+            if abs(residual_norm) < stopping or over_max or diverged:
+                break
+    finally:
+        # an exception mid-solve (a debug check) must not leave the
+        # registry active for later solves
+        if config.kernel_timers:
+            ktimers.activate(None)
     x_star = method.final_x(state)
     if x_star.is_cuda:
         torch.cuda.synchronize(x_star.device)

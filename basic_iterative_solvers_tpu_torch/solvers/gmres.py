@@ -48,6 +48,7 @@ from ..ops import gmres_basis
 from ..ops.blas1 import dot, euclidean_vec_norm, subtract_vectors
 from ..ops.spmv import spmv
 from ..precond import apply_preconditioner
+from ..utils.ktimers import ktime
 from .base import SolverSetup
 from .fused import fused_solve, gate, keep_if_stopped
 
@@ -155,83 +156,95 @@ class GMRESMethod:
         w = apply_preconditioner(self.M, spmv(self.A, vj.to(self.b.dtype)))
         sdtype = w.dtype
         H_new = H.clone()
-        extra = {}
-        if self.orthog == "fused":
-            s, G = state["s"], state["G"].clone()
-            sj = s[j]
-            wf = w * sj
-            Pw, Pv = gmres_basis.project_gram(V, wf, vj, j)
-            h1 = s * Pw
-            gc = s * (sj * Pv)
-            G[:, j] = gc
-            G[j, :] = gc
-            h2 = h1 - G @ h1
-            h = h1 + h2
-            v_next, nrm2 = gmres_basis.correct_write(
-                V, wf, gate(h * s, active), j)
-            H_new[:, j] = h
-            H_new[j + 1, j] = torch.sqrt(nrm2)
-            s_new = s.clone()
-            s_new[j + 1] = torch.where(
-                nrm2 > 0, torch.rsqrt(torch.where(nrm2 > 0, nrm2, 1.0)), 0.0)
-            extra = {"G": keep_if_stopped(G, state["G"], active),
-                     "s": keep_if_stopped(s_new, s, active)}
-        else:
-            if self.orthog == "lowsync":
-                G = state["G"].clone()
-                Vb = V[:j + 1].to(sdtype)
-                rhs = torch.stack([w.to(V.dtype), vj], dim=1).to(sdtype)
-                P = torch.zeros((self.m + 1, 2), dtype=sdtype,
-                                device=w.device)
-                P[:j + 1] = Vb @ rhs
-                h1, gc = P[:, 0], P[:, 1]
-                G[:, j] = gc                   # the exact V·v_j column
+
+        def orthog(w):
+            """The Arnoldi orthogonalization of w against V (H_new's
+            column j filled in place): (v_next, extra state)."""
+            extra = {}
+            if self.orthog == "fused":
+                s, G = state["s"], state["G"].clone()
+                sj = s[j]
+                wf = w * sj
+                Pw, Pv = gmres_basis.project_gram(V, wf, vj, j)
+                h1 = s * Pw
+                gc = s * (sj * Pv)
+                G[:, j] = gc
                 G[j, :] = gc
-                h2 = h1 - G @ h1               # = V·(w − h1ᵀV), G-corrected
+                h2 = h1 - G @ h1
                 h = h1 + h2
-                w = w - h[:j + 1].to(V.dtype).to(sdtype) @ Vb
+                v_next, nrm2 = gmres_basis.correct_write(
+                    V, wf, gate(h * s, active), j)
                 H_new[:, j] = h
-                extra = {"G": keep_if_stopped(G, state["G"], active)}
-            elif self.orthog == "cgs2":
-                Vb = V[:j + 1].to(sdtype)
-
-                def proj(v):
-                    return Vb @ v.to(V.dtype).to(sdtype)
-
-                def expand(c):
-                    return c.to(V.dtype).to(sdtype) @ Vb
-
-                h1 = proj(w)
-                w1 = w - expand(h1)
-                h2 = proj(w1)
-                w = w1 - expand(h2)
-                H_new[:j + 1, j] = h1 + h2
+                H_new[j + 1, j] = torch.sqrt(nrm2)
+                s_new = s.clone()
+                s_new[j + 1] = torch.where(
+                    nrm2 > 0, torch.rsqrt(torch.where(nrm2 > 0, nrm2, 1.0)),
+                    0.0)
+                extra = {"G": keep_if_stopped(G, state["G"], active),
+                         "s": keep_if_stopped(s_new, s, active)}
             else:
-                # modified Gram-Schmidt against v_0..v_j (gmres.hpp:6-30)
-                for i in range(j + 1):
-                    vi = V[i].to(sdtype)
-                    hi = dot(w, vi)
-                    H_new[i, j] = hi
-                    w = w - hi * vi
-            h_next = euclidean_vec_norm(w)     # H[j+1, j] (gmres.hpp:36-38)
-            H_new[j + 1, j] = h_next
-            # happy breakdown (h_next == 0): a zero row instead of w/0
-            v_next = torch.where(
-                h_next > 0, w / torch.where(h_next > 0, h_next, 1.0),
-                0.0).to(V.dtype)
-            V[j + 1] = v_next                  # gmres.hpp:43-46
+                if self.orthog == "lowsync":
+                    G = state["G"].clone()
+                    Vb = V[:j + 1].to(sdtype)
+                    rhs = torch.stack([w.to(V.dtype), vj], dim=1).to(sdtype)
+                    P = torch.zeros((self.m + 1, 2), dtype=sdtype,
+                                    device=w.device)
+                    P[:j + 1] = Vb @ rhs
+                    h1, gc = P[:, 0], P[:, 1]
+                    G[:, j] = gc               # the exact V·v_j column
+                    G[j, :] = gc
+                    h2 = h1 - G @ h1           # = V·(w − h1ᵀV), G-corrected
+                    h = h1 + h2
+                    w = w - h[:j + 1].to(V.dtype).to(sdtype) @ Vb
+                    H_new[:, j] = h
+                    extra = {"G": keep_if_stopped(G, state["G"], active)}
+                elif self.orthog == "cgs2":
+                    Vb = V[:j + 1].to(sdtype)
+
+                    def proj(v):
+                        return Vb @ v.to(V.dtype).to(sdtype)
+
+                    def expand(c):
+                        return c.to(V.dtype).to(sdtype) @ Vb
+
+                    h1 = proj(w)
+                    w1 = w - expand(h1)
+                    h2 = proj(w1)
+                    w = w1 - expand(h2)
+                    H_new[:j + 1, j] = h1 + h2
+                else:
+                    # modified Gram-Schmidt against v_0..v_j (gmres.hpp:6-30)
+                    for i in range(j + 1):
+                        vi = V[i].to(sdtype)
+                        hi = dot(w, vi)
+                        H_new[i, j] = hi
+                        w = w - hi * vi
+                h_next = euclidean_vec_norm(w)  # H[j+1, j], gmres.hpp:36-38
+                H_new[j + 1, j] = h_next
+                # happy breakdown (h_next == 0): a zero row instead of w/0
+                v_next = torch.where(
+                    h_next > 0, w / torch.where(h_next > 0, h_next, 1.0),
+                    0.0).to(V.dtype)
+                V[j + 1] = v_next              # gmres.hpp:43-46
+            return v_next, extra
+
+        v_next, extra = ktime("orthog", orthog, w)
 
         # Givens least squares (gmres.hpp:55-121): rotate column j of H by
         # the accumulated Q, derive the new rotation, fold it into Q
-        h_col = Q @ H_new[:, j]
-        hjj, hj1j = h_col[j], h_col[j + 1]
-        denom = torch.sqrt(hjj * hjj + hj1j * hj1j)
-        c, sn = hjj / denom, hj1j / denom
-        Q_new = Q.clone()
-        Q_new[j] = c * Q[j] + sn * Q[j + 1]
-        Q_new[j + 1] = -sn * Q[j] + c * Q[j + 1]
+        def least_squares(Q, H_new):
+            h_col = Q @ H_new[:, j]
+            hjj, hj1j = h_col[j], h_col[j + 1]
+            denom = torch.sqrt(hjj * hjj + hj1j * hj1j)
+            c, sn = hjj / denom, hj1j / denom
+            Q_new = Q.clone()
+            Q_new[j] = c * Q[j] + sn * Q[j + 1]
+            Q_new[j + 1] = -sn * Q[j] + c * Q[j + 1]
+            return Q_new
+
+        Q_new = ktime("least_sq", least_squares, Q, H_new)
         # g = Q (β e₁); implicit ‖r‖ = |g[j+1]| (update_g, gmres.hpp:123-148)
-        g = beta * Q_new[:, 0]
+        g = ktime("update_g", lambda Q_new: beta * Q_new[:, 0], Q_new)
         return dict(state, **extra,
                     H=keep_if_stopped(H_new, H, active),
                     Q=keep_if_stopped(Q_new, Q, active),

@@ -21,6 +21,13 @@ runs its plain version (`stencil_spmv_plain`,
 (`stencil_spmv_stream`, x staged in shared memory), taken when `STREAM`
 is set (`BIS_STENCIL_STREAM=1`, as in the JAX package) for every operator
 within #2's reach (`stream_reach`).
+
+The coefficients and the diagonal may be stored in bfloat16 beside float32
+or float64 vectors (the JAX package's matrix_dtype): the coefficients are
+rounded to bfloat16 once, when the operator is made, and reach the kernels
+as exact vector-dtype values; a bfloat16 diagonal is widened before its
+product, by the kernels' bfloat16-diagonal forms, whose launches are
+counted in each wrapper's `bf16_launches`.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .config import torch_dtype
+from .config import kernel_suffix, serves_vectors, torch_dtype
 
 DOT_KINDS = ("x", "self", "aux")
 #: threads per kernel block (csrc/stencil_spmv.cu: __launch_bounds__)
@@ -171,7 +178,9 @@ def _check_operands(A: DeviceStencil, x: torch.Tensor, dots, aux):
         if v.shape != (A.n_rows,):
             raise ValueError(f"{name} has shape {tuple(v.shape)}, "
                              f"expected ({A.n_rows},)")
-        if v.dtype != A.dtype:
+        ok = (v.dtype == A.dtype if name == "diag" else
+              serves_vectors(A.dtype, v.dtype) and v.dtype == x.dtype)
+        if not ok:
             raise TypeError(f"{name} is {v.dtype}, the operator {A.dtype}")
         if v.device != A.device:
             raise ValueError(f"{name} is on {v.device}, the operator on "
@@ -204,7 +213,8 @@ def stencil_spmv_plain(A: DeviceStencil, x: torch.Tensor, dots=(),
                        aux: torch.Tensor = None):
     """Plain PyTorch version of the kernel: one masked, shifted
     multiply-add per leg in leg order, then one `torch.dot` per requested
-    dot.  Returns y, or (y, *dots) when dots are requested."""
+    dot, the coefficients and the diagonal widened to x's dtype.  Returns
+    y, or (y, *dots) when dots are requested."""
     _check_operands(A, x, dots, aux)
     n = A.n_rows
     nx, ny, nz = A.dims
@@ -220,7 +230,7 @@ def stencil_spmv_plain(A: DeviceStencil, x: torch.Tensor, dots=(),
         contrib = torch.where(masks[l], xp[hneg + lin:hneg + lin + n], 0.0)
         coeff = (A.diag if ((dx, dy, dz) == (0, 0, 0) and A.diag is not None)
                  else A.coeffs[l])
-        y = torch.addcmul(y, coeff, contrib)
+        y = torch.addcmul(y, coeff.to(x.dtype), contrib)
     if not dots:
         return y
     partner = {"x": x, "self": y, "aux": aux}
@@ -268,17 +278,22 @@ def _launch_table(legs, coeff_values, dims, use_diag: bool, dots):
     return a, a.grid_x * a.grid_y
 
 
+def _kernel_form(A: DeviceStencil, x: torch.Tensor):
+    """(use_diag, entry-point suffix): the bfloat16-diagonal form where a
+    bfloat16 diagonal takes part (the coefficients need no form of their
+    own: the launch table carries them as exact doubles)."""
+    use_diag = A.diag is not None and (0, 0, 0) in A.legs
+    return use_diag, kernel_suffix(x.dtype,
+                                   A.diag.dtype if use_diag else x.dtype)
+
+
 def _stencil_spmv_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux):
     from ._build import load_library
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the stencil kernel takes float32 or float64, "
-                        f"not {x.dtype}")
-    use_diag = A.diag is not None and (0, 0, 0) in A.legs
+    use_diag, suffix = _kernel_form(A, x)
     args, n_blocks = _launch_table(A.legs, A.coeff_values, A.dims, use_diag,
                                    tuple(dots))
     lib = load_library()
-    fn = (lib.bis_stencil_spmv_f32 if x.dtype == torch.float32
-          else lib.bis_stencil_spmv_f64)
+    fn = getattr(lib, f"bis_stencil_spmv_{suffix}")
     y = torch.empty_like(x)
     partials = (torch.empty((n_blocks, len(dots)), dtype=x.dtype,
                             device=x.device) if dots else None)
@@ -290,7 +305,10 @@ def _stencil_spmv_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux):
     if err != 0:
         raise RuntimeError(f"stencil_spmv kernel launch failed with CUDA "
                            f"error {err}")
-    stencil_spmv.launches += 1
+    if suffix.endswith("_bf16"):
+        stencil_spmv.bf16_launches += 1
+    else:
+        stencil_spmv.launches += 1
     if not dots:
         return y
     return (y,) + tuple(partials.sum(dim=0).unbind())
@@ -325,7 +343,8 @@ def stencil_spmv(A: DeviceStencil, x: torch.Tensor, dots=(),
     dot(y, x), dot(y, y), dot(y, aux).  Returns y, or (y, *dots).
 
     A CUDA tensor goes through a hand-written kernel: #1, counting its
-    launches in `stencil_spmv.launches`, or, where `spmv_route` says
+    launches in `stencil_spmv.launches` (`stencil_spmv.bf16_launches` for
+    its bfloat16-diagonal form), or, where `spmv_route` says
     "stream", #2 (`stencil_spmv_stream`).  With STREAM set, an operator
     outside #2's reach launches #1, as the JAX package sends it to its
     non-Pallas path, and is counted in `stencil_spmv_stream.outside_reach`;
@@ -345,6 +364,7 @@ def stencil_spmv(A: DeviceStencil, x: torch.Tensor, dots=(),
 
 
 stencil_spmv.launches = 0
+stencil_spmv.bf16_launches = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -364,19 +384,15 @@ def _stream_grid(dims) -> Tuple[int, int, int, int]:
 
 def _stencil_spmv_stream_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux):
     from ._build import load_library
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the stencil kernel takes float32 or float64, "
-                        f"not {x.dtype}")
+    use_diag, suffix = _kernel_form(A, x)
     if not stream_reach(A):
         raise ValueError(f"legs {A.legs} lie outside kernel #2's halo "
                          f"{STREAM_HALO}")
-    use_diag = A.diag is not None and (0, 0, 0) in A.legs
     args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag,
                             tuple(dots))
     gx, gy, gz, zc = _stream_grid(A.dims)
     lib = load_library()
-    fn = (lib.bis_stencil_spmv_stream_f32 if x.dtype == torch.float32
-          else lib.bis_stencil_spmv_stream_f64)
+    fn = getattr(lib, f"bis_stencil_spmv_stream_{suffix}")
     y = torch.empty_like(x)
     partials = (torch.empty((gx * gy * gz, len(dots)), dtype=x.dtype,
                             device=x.device) if dots else None)
@@ -388,7 +404,10 @@ def _stencil_spmv_stream_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux):
     if err != 0:
         raise RuntimeError(f"stencil_spmv_stream kernel launch failed with "
                            f"CUDA error {err}")
-    stencil_spmv_stream.launches += 1
+    if suffix.endswith("_bf16"):
+        stencil_spmv_stream.bf16_launches += 1
+    else:
+        stencil_spmv_stream.launches += 1
     if not dots:
         return y
     return (y,) + tuple(partials.sum(dim=0).unbind())
@@ -399,7 +418,9 @@ def stencil_spmv_stream(A: DeviceStencil, x: torch.Tensor, dots=(),
     """Kernel #2: `stencil_spmv`'s function and contract (y, then the
     requested dots y·x, y·y, y·aux; the dense diagonal), with x staged in
     shared memory a z-plane at a time (csrc/stencil_spmv.cu).  A CUDA tensor
-    launches it, counted in `stencil_spmv_stream.launches`, and raises for
+    launches it, counted in `stencil_spmv_stream.launches`
+    (`stencil_spmv_stream.bf16_launches` for its bfloat16-diagonal form),
+    and raises for
     an operator outside its reach (`stream_reach`); a CPU tensor takes the
     plain version.  #2 computes the same function as #1, so its plain
     version is #1's, `stencil_spmv_plain`: y equals #1's bit for bit, the
@@ -414,6 +435,7 @@ def stencil_spmv_stream(A: DeviceStencil, x: torch.Tensor, dots=(),
 
 
 stencil_spmv_stream.launches = 0
+stencil_spmv_stream.bf16_launches = 0
 stencil_spmv_stream.outside_reach = 0
 
 
@@ -462,17 +484,13 @@ _COLOR_KINDS = {"parity": 0, "grid": 1, "mod": 2}
 
 def _stencil_gs_color_step_cuda(A: DeviceStencil, x, rhs, dinv, spec, color):
     from ._build import load_library
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the GS colour-step kernel takes float32 or "
-                        f"float64, not {x.dtype}")
-    use_diag = A.diag is not None and (0, 0, 0) in A.legs
+    use_diag, suffix = _kernel_form(A, x)
     args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag, ())
     kind = _COLOR_KINDS[spec.kind]
     p = (tuple(spec.params[3:6]) if spec.kind == "grid"
          else (spec.params[0], 1, 1) if spec.kind == "mod" else (1, 1, 1))
     lib = load_library()
-    fn = (lib.bis_stencil_gs_color_step_f32 if x.dtype == torch.float32
-          else lib.bis_stencil_gs_color_step_f64)
+    fn = getattr(lib, f"bis_stencil_gs_color_step_{suffix}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     diag = A.diag.data_ptr() if use_diag else None
     for c in _colors(color):
@@ -483,7 +501,10 @@ def _stencil_gs_color_step_cuda(A: DeviceStencil, x, rhs, dinv, spec, color):
         if err != 0:
             raise RuntimeError(f"stencil_gs_color_step kernel launch failed "
                                f"with CUDA error {err}")
-        stencil_gs_color_step.launches += 1
+        if suffix.endswith("_bf16"):
+            stencil_gs_color_step.bf16_launches += 1
+        else:
+            stencil_gs_color_step.launches += 1
         x = out
     return x
 
@@ -497,8 +518,9 @@ def stencil_gs_color_step(A: DeviceStencil, x: torch.Tensor,
     run in order (the JAX package's superstep).
 
     A CUDA tensor goes through the hand-written kernel, one launch per
-    colour, counted in `stencil_gs_color_step.launches`; a CPU tensor takes
-    the plain version."""
+    colour, counted in `stencil_gs_color_step.launches`
+    (`stencil_gs_color_step.bf16_launches` for its bfloat16-diagonal form);
+    a CPU tensor takes the plain version."""
     _check_gs_operands(A, x, rhs, dinv, spec)
     if x.device.type == "cuda":
         return _stencil_gs_color_step_cuda(A, x, rhs, dinv, spec, color)
@@ -508,6 +530,7 @@ def stencil_gs_color_step(A: DeviceStencil, x: torch.Tensor,
 
 
 stencil_gs_color_step.launches = 0
+stencil_gs_color_step.bf16_launches = 0
 
 
 def stencil_diag(A: DeviceStencil) -> torch.Tensor:

@@ -53,3 +53,9 @@ PRECOND_CLI_NAMES = {
     "mg": PrecondType.MULTIGRID,
     "none": PrecondType.NONE,
 }
+
+
+def to_string(x) -> str:
+    """Human-readable name, as the reference's to_string specializations
+    give it (common.hpp:62-103)."""
+    return x.value

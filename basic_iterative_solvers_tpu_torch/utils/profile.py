@@ -1,0 +1,224 @@
+"""Device times of a fused solve from a torch.profiler trace.
+
+The port's counterpart of the JAX package's utils/xprof.py.  The fused
+harness (solvers/fused.py) launches each iteration's kernels without
+waiting for them, so host clocks cannot see where an iteration ends on the
+card.  These functions run the method's fused loop again from its initial
+state under `torch.profiler` (CPU and CUDA activities), read the CUDA
+kernels' device start times and durations from the exported trace, and:
+
+* `measure_iteration_times` / `attach_iteration_times` (--iter-times):
+  segment the kernel timeline on its period, one iteration from one start
+  of a marker kernel to the next (the marker: the earliest-starting kernel
+  name that occurs exactly once an iteration);
+* `measure_phase_table` / `print_phase_table` (--kernel-timers under the
+  fused harness): sum the kernels' device times by phase bucket
+  (`bucket_of`: the port's SpMV kernels, level kernels and basis kernels
+  by name, PyTorch's elementwise, reduction and BLAS kernels as blas1,
+  copies and fills as layout_glue).
+
+The re-run asks for exactly the iterations the solve ran, with tolerance
+0 and max_iters = iterations + restarts, so that the fused loop's gated
+no-op steps past a stop (up to CHECK_EVERY − 1 of them) do not enter the
+trace; it launches the same kernels an iteration as the solve did.  Off
+the card these return None, as the JAX module does off the TPU.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import os
+import tempfile
+from typing import Optional
+
+import numpy as np
+import torch
+
+#: trace categories of device activity (torch.profiler's chrome trace)
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+#: kernel-name fragments → phase buckets, tried in order
+PHASE_BUCKETS = (
+    ("spmv", ("stencil_spmv_kernel", "stencil_spmv_stream_kernel",
+              "stencil_gs_color_step_kernel", "dia_spmv_kernel",
+              "lane_ell_spmv_kernel")),
+    ("sptrsv", ("super_level_kernel", "super_acc_kernel",
+                "super_parity_kernel", "super_solve_mega_kernel",
+                "rank_level_kernel")),
+    ("orthog", ("project_gram_kernel", "correct_write_kernel")),
+    ("layout_glue", ("Memcpy", "Memset", "copy_kernel", "CatArrayBatchedCopy",
+                     "fill_kernel", "FillFunctor")),
+    ("blas1", ("elementwise_kernel", "reduce_kernel", "dot_kernel",
+               "reduce_1Block_kernel", "gemv", "gemm", "splitKreduce",
+               "scatter", "index")),
+)
+
+
+def bucket_of(kernel_name: str) -> str:
+    """The phase bucket of a device activity's name, "other" if none."""
+    for bucket, fragments in PHASE_BUCKETS:
+        for f in fragments:
+            if f in kernel_name:
+                return bucket
+    return "other"
+
+
+def load_device_events(path: str):
+    """The device activities (kernels, copies, fills) of a torch.profiler
+    chrome trace, sorted by start: dicts with name, ts and dur in µs."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    ops = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in _DEVICE_CATS]
+    ops.sort(key=lambda e: e["ts"])
+    return ops
+
+
+def iteration_times_from_trace(path: str, n_iters: int):
+    """Per-iteration device walls (seconds) of a trace holding exactly
+    `n_iters` iterations, or None when no kernel name occurs exactly
+    n_iters times.  Iteration k runs from the k-th start of the marker to
+    the next; the last one to the end of the last device activity."""
+    ops = load_device_events(path)
+    if not ops:
+        return None
+    counts = collections.Counter(e["name"] for e in ops)
+    cands = {n for n, c in counts.items() if c == n_iters}
+    if not cands or n_iters < 1:
+        return None
+    marker = next(e["name"] for e in ops if e["name"] in cands)
+    starts = np.array([e["ts"] for e in ops if e["name"] == marker])
+    end = max(e["ts"] + e.get("dur", 0) for e in ops)
+    return np.diff(np.append(starts, end)) * 1e-6   # trace times are µs
+
+
+def phase_table_from_trace(path: str):
+    """(table, meta): device seconds by phase bucket, and meta with
+    'device_wall' (first activity's start to the last one's end), 'n_ops'
+    and 'per_op' (seconds by name, largest first); None for a trace with
+    no device activity."""
+    ops = load_device_events(path)
+    if not ops:
+        return None
+    table = collections.defaultdict(float)
+    per_op = collections.defaultdict(float)
+    for e in ops:
+        d = e.get("dur", 0) * 1e-6
+        table[bucket_of(e["name"])] += d
+        per_op[e["name"]] += d
+    t0 = ops[0]["ts"]
+    t1 = max(e["ts"] + e.get("dur", 0) for e in ops)
+    meta = {"device_wall": (t1 - t0) * 1e-6, "n_ops": len(ops),
+            "per_op": dict(sorted(per_op.items(), key=lambda kv: -kv[1]))}
+    return dict(table), meta
+
+
+def _exact_rerun(method, n_iters: int, restarts: int):
+    """A method over the same setup whose fused loop runs exactly n_iters
+    iterations (tolerance 0, max_iters = n_iters + restarts), the setup's
+    cached operands carried over."""
+    from ..solvers.factory import make_method
+    setup = method.setup
+    cfg = dataclasses.replace(setup.config, tolerance=0.0,
+                              max_iters=n_iters + restarts)
+    rerun = dataclasses.replace(setup, config=cfg)
+    rerun.__dict__.update({k: v for k, v in setup.__dict__.items()
+                           if k.startswith("_")})
+    return make_method(rerun)
+
+
+def trace_fused(method, n_iters: int, restarts: int = 0) -> Optional[str]:
+    """Run the method's fused loop again, exactly n_iters iterations, under
+    torch.profiler, and write its chrome trace to a temporary file; returns
+    its path, or None off the card or where the method has no fused
+    loop."""
+    setup = getattr(method, "setup", None)
+    if (setup is None or not getattr(method, "supports_fused", False)
+            or setup.b.device.type != "cuda" or n_iters < 1):
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    m = _exact_rerun(method, n_iters, restarts)
+    torch.cuda.synchronize(setup.b.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m.solve_fused()
+        torch.cuda.synchronize(setup.b.device)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    prof.export_chrome_trace(path)
+    return path
+
+
+def _with_trace(method, n_iters, restarts, parse):
+    path = trace_fused(method, n_iters, restarts)
+    if path is None:
+        return None
+    try:
+        return parse(path)
+    finally:
+        os.unlink(path)
+
+
+def measure_iteration_times(method, n_iters: int, restarts: int = 0):
+    """Per-iteration device walls (seconds) of the method's fused loop,
+    re-run under the profiler; None off the card or when the trace shows
+    no kernel once an iteration."""
+    return _with_trace(method, n_iters, restarts,
+                       lambda p: iteration_times_from_trace(p, n_iters))
+
+
+def attach_iteration_times(result, method) -> bool:
+    """Fill result.time_per_iteration with measured device walls (the
+    reference's time_per_iteration[], solver.hpp:166-171); True on
+    success.  Only for res_check_len == 1 (one history row an iteration):
+    a restart's history row keeps 0, as in the JAX package."""
+    if result.res_check_len != 1:
+        return False
+    times = measure_iteration_times(method, result.iter_count,
+                                    result.gmres_restart_count)
+    if times is None or times.size == 0:
+        return False
+    tpi = np.zeros_like(np.asarray(result.time_per_iteration,
+                                   dtype=np.float64))
+    idx = np.arange(1, times.size + 1)
+    slots = idx.copy()
+    if result.gmres_restart_count > 0 and result.restart_length > 0:
+        slots = idx + (idx - 1) // result.restart_length
+    keep = slots < tpi.size - 1
+    tpi[slots[keep]] = times[keep]
+    result.time_per_iteration = tpi
+    result.uniform_iteration_times = False
+    return True
+
+
+def measure_phase_table(method, n_iters: int, restarts: int = 0):
+    """(table, meta) of phase_table_from_trace for the method's fused loop
+    re-run under the profiler; None off the card."""
+    return _with_trace(method, n_iters, restarts, phase_table_from_trace)
+
+
+def print_phase_table(table, meta, n_iters=None, out=None) -> None:
+    """The reference's hierarchical timer table filled from the kernels'
+    device times (utilities.hpp:154-324 prints host stopwatch splits; the
+    fused loop launches without waiting, so the profiler attributes)."""
+    import sys
+    out = sys.stderr if out is None else out
+    width = 44
+    dev = meta["device_wall"]
+    rows = [(0, "solve (device wall)", dev)]
+    acct = 0.0
+    for k in ("spmv", "sptrsv", "orthog", "blas1", "layout_glue", "other"):
+        if k in table:
+            rows.append((1, k, table[k]))
+            acct += table[k]
+    lines = ["+" + "-" * (width + 26) + "+"]
+    for depth, name, v in rows:
+        label = "| " * depth + name
+        per_it = f" ({v / n_iters * 1e3:8.4f} ms/iter)" if n_iters else ""
+        lines.append(f"| {label:<{width}} {v:10.6f} s{per_it:>20} |")
+    lines.append("+" + "-" * (width + 26) + "+")
+    lines.append(f"| accounted: {acct:.6f} s of {dev:.6f} s device wall"
+                 f" ({100 * acct / max(dev, 1e-12):.0f}%; the rest is the "
+                 "device idle between kernels)")
+    print("\n".join(lines), file=out)

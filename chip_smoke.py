@@ -95,7 +95,24 @@ exits non-zero:
      turns, launches of #1 and #2 an iteration, set-up seconds, peak memory;
  29. cg_mg_refine at 128^3 ([refine]): float32 CG + MG inners, float64
      outers to 1e-11·||r0||, held to the explicit float64 residual;
- 30. pipelined against classic CG at 128^3 in turns ([pipelined]).
+ 30. pipelined against classic CG at 128^3 in turns ([pipelined]);
+ 31. slice 6b's kernel forms ([bf16]): #4 with bf16 data on the DIA HPCG
+     128^3 and 384^3, #5 with bf16 values on sband:500000,8,400, #1, #2
+     and #3 with Anderson 128^3's diagonal in bf16, each against its plain
+     version and against the same kernel on the data widened to float32
+     (bit for bit), timed beside the plain version, the float32-data
+     kernel and the library's CSR SpMV (run after phase 22);
+ 32. the command line on the CPU and on the card, float64 vectors over
+     bf16 data ([cpu-vs-card-slice7]), then on the card ([slice7]) through
+     cli.run in process: DIA CG at 128^3 (2500 iterations), 384^3 (150)
+     f32 and bf16 in turns with equal histories, cg@sband with bf16
+     values (400), BiCGSTAB + Jacobi and GS on the Anderson 128^3 stencil
+     with its bf16 diagonal (the first again with STREAM set),
+     --kernel-timers fused and host, --iter-times and --profile; each
+     row's printed count and residual parsed and checked;
+ 33. the module entry point ([entry-point]): `python -m
+     basic_iterative_solvers_tpu_torch hpcg:32x32x32 -cg` in a subprocess,
+     exit 0, converged, no jax imported.
 The second-to-last line is a JSON object describing each kernel: launches
 on the main paths, error against plain, kernel, plain and library times,
 and the bound (the larger of the bytes it must move over the card's
@@ -104,6 +121,8 @@ memory rate and its operations over the float32 rate); the last is
 """
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import time
@@ -2613,6 +2632,406 @@ def phase_slice5b_rows(torch, bt, setup, setup_s):
     return out["pcg_ilu0@fdm2048"]["super_level_plane"]
 
 
+ANDERSON_128 = KERNEL_SPECS[2]
+
+
+def _bf16_counters(bt, reset=False):
+    """The launch counts of the bf16 forms (`reset`: set to 0 first)."""
+    from basic_iterative_solvers_tpu_torch.ops import dia_spmv, lane_ell
+    so = bt.stencil_op
+    fns = {"dia_spmv_bf16": dia_spmv.dia_spmv,
+           "lane_ell_spmv_bf16": lane_ell.lane_ell_spmv,
+           "stencil_spmv_bf16diag": so.stencil_spmv,
+           "stencil_spmv_stream_bf16diag": so.stencil_spmv_stream,
+           "stencil_gs_step_bf16diag": so.stencil_gs_color_step}
+    if reset:
+        for fn in fns.values():
+            fn.bf16_launches = 0
+    return {name: fn.bf16_launches for name, fn in fns.items()}
+
+
+def _library_bf16(torch, A_host_csr, x):
+    """(ms, what): one torch.sparse CSR SpMV on bf16 values and a bf16
+    x where the card's library takes them, else the float32 CSR's, named
+    either way."""
+    C = _csr_on_card(torch, A_host_csr, torch.bfloat16)
+    try:
+        xb = x.to(torch.bfloat16)
+        C @ xb
+        torch.cuda.synchronize()
+        return _median_ms(lambda: C @ xb, torch), "torch.sparse CSR, bf16"
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"[library] torch.sparse CSR refuses bf16 on the card "
+              f"({str(e).splitlines()[0][:120]}); timing float32 CSR")
+    C = _csr_on_card(torch, A_host_csr, torch.float32)
+    x32 = x.to(torch.float32)
+    return (_median_ms(lambda: C @ x32, torch),
+            "torch.sparse CSR, float32 (bf16 refused)")
+
+
+def _bf16_form(torch, tag, label, fn, kernel, plain, twin, x, launches=1,
+               exact_plain=True, plain_reps=20):
+    """A bf16 form against its plain version (bit for bit where
+    `exact_plain`, else within TOL of max|plain|) and against `twin`, the
+    same kernel on the matrix data widened to x's dtype (bit for bit: the
+    widening is exact); its launches counted in fn.bf16_launches.
+    Returns (max_abs_err against plain, ms, plain_ms)."""
+    before = fn.bf16_launches
+    yk = kernel(x)
+    yp, yt = plain(x), twin(x)
+    torch.cuda.synchronize()
+    if fn.bf16_launches != before + launches:
+        raise RuntimeError(f"{tag} {label}: the bf16 launch count did not "
+                           "grow")
+    err = float((yk - yp).abs().max())
+    rel = err / float(yp.abs().max())
+    equal, twin_equal = torch.equal(yk, yp), torch.equal(yk, yt)
+    ms = _median_ms(lambda: kernel(x), torch)
+    plain_ms = _median_ms(lambda: plain(x), torch, reps=plain_reps,
+                          batch=max(1, plain_reps // 2))
+    print(f"[bf16] {label}: bit_equal_plain={equal} max_rel_err={rel:.3e} "
+          f"bit_equal_widened_twin={twin_equal} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f}")
+    if not twin_equal or not (equal if exact_plain
+                              else rel <= TOL["float32"]):
+        raise RuntimeError(f"{tag} {label}: the bf16 form disagrees")
+    return err, ms, plain_ms
+
+
+def phase_bf16_vs_plain(torch, bt, sband):
+    """Slice 6b's kernel forms on the card, float32 vectors: #4 with bf16
+    data on the DIA HPCG 128^3 and 384^3 (y bit-equal to plain and to the
+    float32-data kernel: 26 and -1 are exact in bf16), #5 with bf16 values
+    on sband:500000,8,400 (bit-equal to plain and to the float32-value
+    kernel on the widened values), #1, #2 and #3 with Anderson 128^3's
+    diagonal in bf16 (bit-equal to the float32-diagonal kernel on the
+    widened diagonal, within TOL of plain, whose sum order differs as
+    PERF.md says); each timed (median of 20 batches of 10) beside its
+    plain version and the library's CSR SpMV.  Returns the records."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import dia_spmv as ds
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell as le
+    so = bt.stencil_op
+    g = torch.Generator(device="cuda").manual_seed(8)
+    records = {}
+    for spec in (MAIN_SPEC, DIA_384):
+        A = bt.dia.from_source_device(spec, torch.bfloat16, device="cuda")
+        A32 = bt.dia.from_source_device(spec, torch.float32, device="cuda")
+        x = torch.randn(A.n_rows, device="cuda", generator=g)
+        k, n = len(A.offsets), A.n_rows
+        err, ms, plain_ms = _bf16_form(
+            torch, "dia", f"#4 {spec} bf16 data, f32 x", ds.dia_spmv,
+            lambda v: ds.dia_spmv(A, v), lambda v: ds.dia_spmv_plain(A, v),
+            lambda v: ds.dia_spmv(A32, v), x,
+            plain_reps=20 if spec == MAIN_SPEC else 4)
+        ms32 = _median_ms(lambda: ds.dia_spmv(A32, x), torch)
+        bound = _bound(2 * k * n + 2 * 4 * n, 2 * k * n)
+        print(f"[bf16] #4 {spec} bound_ms={bound['bound_ms']:.4f} "
+              f"({bound['bound_by']}: {k} bf16 diagonals + x + y) "
+              f"kernel_GB/s={(2 * k + 8) * n / (ms * 1e6):.0f}; the "
+              f"float32-data kernel in the same call: {ms32:.4f} ms")
+        if spec == MAIN_SPEC:
+            lib_ms, lib = _library_bf16(
+                torch, bt.generators.from_source(spec), x)
+            print(f"[library] {spec} {lib}: ms={lib_ms:.4f}")
+            records["dia_spmv_bf16"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, **bound}
+        else:
+            records["dia_spmv_bf16"].update(ms_384=ms, f32_ms_384=ms32,
+                                            bound_ms_384=bound["bound_ms"])
+        del A, A32, x
+        torch.cuda.empty_cache()
+    M = bt.from_csr(sband, torch.bfloat16, "lane_ell", device="cuda")
+    M32 = dataclasses.replace(M, vals=M.vals.float())   # the widened twin
+    x = torch.randn(M.n_rows, device="cuda", generator=g)
+    err, ms, plain_ms = _bf16_form(
+        torch, "lane-ell", f"#5 {SBAND} bf16 values, f32 x",
+        le.lane_ell_spmv, lambda v: le.lane_ell_spmv(M, v),
+        lambda v: le.lane_ell_spmv_plain(M, v),
+        lambda v: le.lane_ell_spmv(M32, v), x)
+    n = M.n_rows
+    nbytes = M.K * n * (2 + 4) + 2 * 4 * n
+    bound = _bound(nbytes, 2 * M.K * n)
+    lib_ms, lib = _library_bf16(torch, sband, x)
+    print(f"[bf16] #5 {SBAND} bound_ms={bound['bound_ms']:.4f} "
+          f"({bound['bound_by']}: {M.K} slots x {n} rows x 6 B + x + y = "
+          f"{nbytes / 1e6:.1f} MB) kernel_GB/s={nbytes / (ms * 1e6):.0f}; "
+          f"[library] {lib}: ms={lib_ms:.4f}")
+    records["lane_ell_spmv_bf16"] = {"max_abs_err": err, "ms": ms,
+                                     "plain_ms": plain_ms,
+                                     "library_ms": lib_ms, **bound}
+    del M, M32, x
+    A = so.from_source_operator(ANDERSON_128, torch.bfloat16, device="cuda")
+    Aw = so.make_stencil(zip(A.legs, A.coeff_values), *A.dims,
+                         dtype=torch.float32, diag=A.diag.float(),
+                         device="cuda")
+    x = torch.randn(A.n_rows, device="cuda", generator=g)
+    n, legs = A.n_rows, len(A.legs)
+    lib_ms, lib = _library_bf16(torch, bt.generators.from_source(
+        ANDERSON_128), x)
+    print(f"[library] {ANDERSON_128} {lib}: ms={lib_ms:.4f}")
+    bound = _bound((4 + 4 + 2) * n, 2 * legs * n)
+    for name, fn in (("stencil_spmv_bf16diag", so.stencil_spmv),
+                     ("stencil_spmv_stream_bf16diag",
+                      so.stencil_spmv_stream)):
+        err, ms, plain_ms = _bf16_form(
+            torch, "stencil", f"{'#2' if 'stream' in name else '#1'} "
+            f"{ANDERSON_128} bf16 diagonal, f32 x", fn,
+            lambda v: fn(A, v), lambda v: so.stencil_spmv_plain(A, v),
+            lambda v: fn(Aw, v), x, exact_plain=False)
+        records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, **bound}
+    if not torch.equal(so.stencil_spmv(A, x), so.stencil_spmv_stream(A, x)):
+        raise RuntimeError("#2's bf16-diagonal form differs from #1's")
+    cs = spec_for_device(A)
+    rhs = torch.randn(n, device="cuda", generator=g)
+    dinv = 1.0 / so.stencil_diag(A).float()
+    worst = None
+    for c in range(cs.n_colors):
+        err, ms_c, plain_c = _bf16_form(
+            torch, "gs-step", f"#3 {ANDERSON_128} bf16 diagonal, colour {c}",
+            so.stencil_gs_color_step,
+            lambda v: so.stencil_gs_color_step(A, v, rhs, dinv, cs, c),
+            lambda v: so.stencil_gs_color_step_plain(A, v, rhs, dinv, cs, c),
+            lambda v: so.stencil_gs_color_step(Aw, v, rhs, dinv, cs, c), x,
+            exact_plain=False, plain_reps=5)
+        if c == 0:
+            worst = (err, ms_c, plain_c)
+        else:
+            worst = (max(worst[0], err),) + worst[1:]
+    n_c = n // cs.n_colors
+    records["stencil_gs_step_bf16diag"] = {
+        "max_abs_err": worst[0], "ms": worst[1], "plain_ms": worst[2],
+        "library_ms": None,
+        **_bound(4 * (2 * n + 2 * n_c) + 2 * n_c,
+                 n_c * (2 * legs + 2))}
+    print(f"[bf16] #3 {ANDERSON_128} colour 0 bound_ms="
+          f"{records['stencil_gs_step_bf16diag']['bound_ms']:.4f}; #1/#2 "
+          f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}: x + y "
+          f"f32 + diag bf16)")
+    del A, Aw, x, rhs, dinv
+    torch.cuda.empty_cache()
+    return records
+
+
+def _cli(torch, bt, argv):
+    """cli.run(argv) in this process with its standard output and error
+    captured; returns (rc, out, err, seconds).  The solve's own lines are
+    parsed by _cli_report."""
+    import contextlib
+    import io
+    from basic_iterative_solvers_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.run(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def _cli_report(out, err):
+    """(iterations, converged, final residual, history, ms/iter) parsed
+    from a run's output: the summary line, the final-residual line, the
+    residual table and the [roofline] line's ms/iter."""
+    m = re.search(r"(converged in:|did not converge after) (\d+) "
+                  r"iterations", out)
+    f = re.search(r"\|\|A\*x_star - b\|\|_2 = ([^\s]+?)\.?$", out, re.M)
+    r = re.search(r"\[roofline\] \d+ iters, ([0-9.]+) ms/iter", err)
+    if not (m and f and r):
+        raise RuntimeError("the CLI's report is incomplete:\n"
+                           + out[-1500:] + err[-1500:])
+    hist = [float(v) for v in re.findall(
+        r"^\|\|A\*x_\d+ - b\|\|_2 = ([^\s]+)", out, re.M)]
+    return (int(m.group(2)), m.group(1) == "converged in:",
+            float(f.group(1).rstrip(".")), hist, float(r.group(1)))
+
+
+SLICE7_CPU_ROWS = (
+    ["hpcg:32x32x32", "-cg", "--tol", "1e-10"],
+    ["sband:20000,8,400", "-cg", "--tol", "1e-10"],
+    ["anderson:Lx=32,Ly=32,Lz=32,t=1.0,ranpot=4.0,seed=1", "-gm", "-rl",
+     "20", "-p", "j", "--format", "stencil", "--tol", "1e-8",
+     "--max-iters", "200"])
+
+
+def phase_cpu_vs_card_slice7(torch, bt):
+    """The command line on the CPU and on the card, float64 vectors over
+    bf16 matrix data (the kernels' f64_bf16 forms on the card): DIA CG on
+    HPCG 32^3, lane-ELL CG on sband:20000,8,400, GMRES(20) + Jacobi on the
+    Anderson 32^3 stencil with its bf16 diagonal; equal iteration counts,
+    histories as _check_history says."""
+    import types
+
+    import numpy as np
+    for argv in SLICE7_CPU_ROWS:
+        got = {}
+        for dev in ("cpu", "cuda"):
+            rc, out, err, _s = _cli(torch, bt, argv + [
+                "--dtype", "float64", "--matrix-dtype", "bfloat16",
+                "--platform", dev])
+            it, conv, final, hist, _ms = _cli_report(out, err)
+            if rc != 0:
+                raise RuntimeError(f"{argv} on {dev}: rc={rc}")
+            got[dev] = types.SimpleNamespace(
+                iter_count=it, converged=conv, final=final,
+                residual_norms=np.asarray(hist))
+        c, g = got["cpu"], got["cuda"]
+        print(f"[cpu-vs-card-slice7] {' '.join(argv)} f64 x, bf16 data: "
+              f"iters cpu={c.iter_count} card={g.iter_count} final "
+              f"cpu={c.final:.6e} card={g.final:.6e}")
+        if c.iter_count != g.iter_count or c.converged != g.converged:
+            raise RuntimeError(f"{argv}: CPU and card runs differ")
+        _check_history(g, c)
+
+
+SLICE7_ROWS = (
+    # (name, argv, expected iterations or None, bf16 counter that must run)
+    ("cg 128^3 DIA f32", [MAIN_SPEC, "-cg", "--tol", "0", "--max-iters",
+                          "2500"], 2500, None),
+    ("cg@384 DIA f32", [DIA_384, "-cg", "--tol", "0", "--max-iters", "150"],
+     150, None),
+    ("cg@384 DIA bf16", [DIA_384, "-cg", "--tol", "0", "--max-iters", "150",
+                         "--matrix-dtype", "bfloat16"], 150,
+     "dia_spmv_bf16"),
+    ("cg@sband lane-ELL bf16", [SBAND, "-cg", "--matrix-dtype", "bfloat16",
+                                "--tol", "0", "--max-iters", "400"], 400,
+     "lane_ell_spmv_bf16"),
+    ("pbicgstab@anderson128 stencil bf16 diagonal",
+     [ANDERSON_128, "-bi", "-p", "j", "--format", "stencil",
+      "--matrix-dtype", "bfloat16", "--max-iters", "800"], None,
+     "stencil_spmv_bf16diag"),
+    ("gs@anderson128 masked sweeps bf16 diagonal",
+     [ANDERSON_128, "-gs", "--format", "stencil", "--matrix-dtype",
+      "bfloat16", "--tol", "0", "--max-iters", "20"], None,
+     "stencil_gs_step_bf16diag"),
+)
+
+
+def phase_slice7_cli(torch, bt):
+    """The command line on the card through cli.run, in process, each row
+    with every counter set to 0 just before it and read just after; the
+    printed iteration count, final residual and [roofline] ms/iter parsed
+    and checked.  The 384^3 rows run f32, bf16, bf16, f32 in turns, and
+    the bf16 history must equal the f32 one entry for entry (HPCG's values
+    are exact in bf16).  The Anderson BiCGSTAB row runs again with
+    STREAM set (kernel #2, its bf16-diagonal form).  Then --kernel-timers
+    (the device phase table, spmv > 0) and with --harness host (the
+    stopwatch table), --iter-times and --profile at 64^3.  Returns the
+    bf16 forms' launches on their rows and the timed rows."""
+    import math
+    import tempfile
+    so = bt.stencil_op
+    launches, rows, hist384 = {}, {}, {}
+    runs = [(row, False) for row in (SLICE7_ROWS[0], SLICE7_ROWS[1],
+                                     SLICE7_ROWS[2], SLICE7_ROWS[2],
+                                     SLICE7_ROWS[1]) + SLICE7_ROWS[3:]]
+    runs.append((SLICE7_ROWS[4], True))
+    for (name, argv, iters, form), stream in runs:
+        so.STREAM = stream
+        try:
+            _bf16_counters(bt, reset=True)
+            _sparse_counters(bt, reset=True)
+            rc, out, err, secs = _cli(torch, bt, argv)
+            c = {**_bf16_counters(bt), **_sparse_counters(bt)}
+        finally:
+            so.STREAM = False
+        it, conv, final, hist, ms = _cli_report(out, err)
+        label = name + (" STREAM" if stream else "")
+        rows.setdefault(label, []).append(ms)
+        if "384" in name:
+            hist384.setdefault(name, []).append(hist)
+        want = "stencil_spmv_stream_bf16diag" if stream else form
+        counts = {k: v for k, v in c.items() if v}
+        print(f"[slice7] {' '.join(argv)}{' (STREAM)' if stream else ''}: "
+              f"rc={rc} iters={it} converged={conv} ms/iter={ms:.5f} "
+              f"final_explicit_f64={final:.6e} command_s={secs:.2f} "
+              f"launches={counts}")
+        ok = (rc == 0 and (iters is None or it == iters) and it > 0
+              and len(hist) >= 2 and math.isfinite(hist[0])
+              and (want is None or c[want] > 0))
+        if iters is not None:
+            ok = ok and math.isfinite(final)
+        if not ok:
+            raise RuntimeError(f"[slice7] {label} failed its checks")
+        if want is not None:
+            launches[want] = c[want]
+    f32, bf16 = hist384["cg@384 DIA f32"], hist384["cg@384 DIA bf16"]
+    if not all(h[:-1] == f32[0][:-1] for h in f32 + bf16):
+        raise RuntimeError("cg@384: the bf16 history differs from the f32 "
+                           "one")
+    print(f"[slice7] cg@384 DIA: the bf16 and f32 histories are equal, "
+          f"{len(f32[0]) - 1} entries (the explicit final residual "
+          f"f32={f32[0][-1]:.6e} bf16={bf16[0][-1]:.6e}); ms/iter in turns "
+          f"f32={rows['cg@384 DIA f32']} bf16={rows['cg@384 DIA bf16']}")
+    # --kernel-timers, fused: the device phase table from the profiler
+    rc, out, err, secs = _cli(torch, bt, [MAIN_SPEC, "-cg",
+                                          "--kernel-timers"])
+    table = dict(re.findall(r"^\| \| (\w+) +([0-9.]+) s", err, re.M))
+    wall = re.search(r"solve \(device wall\) +([0-9.]+) s", err)
+    it = _cli_report(out, err)[0]
+    print(f"[slice7] {MAIN_SPEC} -cg --kernel-timers (fused), {it} "
+          f"iterations: device wall {wall and wall.group(1)} s, phase "
+          f"table (s) {table}, ms/iter "
+          f"{ {k: round(1e3 * float(v) / it, 5) for k, v in table.items()} } "
+          f"command_s={secs:.2f}")
+    if not (rc == 0 and float(table.get("spmv", 0)) > 0):
+        raise RuntimeError("--kernel-timers: no spmv time in the device "
+                           "phase table:\n" + err[-2000:])
+    rc, out, err, secs = _cli(torch, bt, [MAIN_SPEC, "-cg",
+                                          "--kernel-timers", "--harness",
+                                          "host"])
+    table = dict(re.findall(r"^\|[| ]*?(\w+) +([0-9.]+) s \|", err, re.M))
+    print(f"[slice7] {MAIN_SPEC} -cg --kernel-timers --harness host, "
+          f"{_cli_report(out, err)[0]} iterations: stopwatch table (s) "
+          f"{table} command_s={secs:.2f}")
+    # unpreconditioned CG: its p·Ap dot is fused into the SpMV's call
+    if not (rc == 0 and {"spmv", "norm", "sum"} <= set(table)):
+        raise RuntimeError("--kernel-timers --harness host: rows missing")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, out, err, secs = _cli(torch, bt, [
+            "hpcg:64x64x64", "-cg", "--iter-times", "--profile", tmp])
+        it, _c, _f, _h, ms = _cli_report(out, err)
+        walls = [float(v) for v in re.findall(
+            r"^\|\|A\*x_\d+ - b\|\|_2 = [^\s]+ +([0-9.]+)\[s\]", out, re.M)]
+        traced = os.path.exists(os.path.join(tmp, "trace.json"))
+    print(f"[slice7] hpcg:64x64x64 -cg --iter-times --profile: iters={it} "
+          f"device walls attached="
+          f"{'[iter-times] measured device walls attached' in err} median "
+          f"wall_ms={1e3 * statistics.median(walls):.4f} trace_written="
+          f"{traced} command_s={secs:.2f}")
+    if not (rc == 0 and traced and "measured device walls attached" in err):
+        raise RuntimeError("--iter-times/--profile failed:\n" + err[-2000:])
+    return launches, rows
+
+
+def phase_entry_point(torch):
+    """One `python -m basic_iterative_solvers_tpu_torch hpcg:32x32x32 -cg`
+    on the card in a subprocess: exit 0, "converged in:", and no jax in
+    its sys.modules."""
+    import sys
+    code = ("import runpy, sys; sys.argv = ['x', 'hpcg:32x32x32', '-cg']\n"
+            "try:\n"
+            "    runpy.run_module('basic_iterative_solvers_tpu_torch', "
+            "run_name='__main__')\n"
+            "finally:\n"
+            "    print('jax imported:', 'jax' in sys.modules)\n")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    m = re.search(r"converged in: (\d+) iterations", out.stdout)
+    print(f"[entry-point] python -m basic_iterative_solvers_tpu_torch "
+          f"hpcg:32x32x32 -cg: rc={out.returncode} iters="
+          f"{m.group(1) if m else None} "
+          f"{'jax imported: False' in out.stdout and 'no jax' or 'JAX'} "
+          f"seconds={time.perf_counter() - t0:.2f}")
+    if not (out.returncode == 0 and m
+            and "jax imported: False" in out.stdout):
+        raise RuntimeError("the module entry point failed:\n"
+                           + out.stdout[-1500:] + out.stderr[-1500:])
+
+
 def main():
     import torch
     name = phase_device(torch)
@@ -2639,6 +3058,7 @@ def main():
     rank_record, band = phase_rankspace_vs_plain(torch, bt)
     phase_cpu_vs_card_slice5(torch, bt)
     slice5_launches = phase_slice5_path(torch, bt, sband, band)
+    bf16_records = phase_bf16_vs_plain(torch, bt, sband)
     del sband, band
     setup5b, _gen5b, setup5b_s = phase_slice5b_build(torch, bt)
     plane_launches = phase_slice5b_rows(torch, bt, setup5b, setup5b_s)
@@ -2653,6 +3073,9 @@ def main():
     stream_launches, slice6_per_iter = phase_slice6_rows(torch, bt)
     phase_cg_mg_refine(torch, bt)
     phase_pipelined_row(torch, bt)
+    phase_cpu_vs_card_slice7(torch, bt)
+    bf16_launches, _slice7_rows = phase_slice7_cli(torch, bt)
+    phase_entry_point(torch)
     print(f"[summary] {FDM_5B} f32 ILU(0): whole L solve "
           f"torch.triangular_solve {whole5b['library_ms']:.4f} ms, "
           f"blocked_trisolve {whole5b['blocked_trisolve_ms']:.4f} ms; "
@@ -2732,6 +3155,19 @@ def main():
         "launches_per_iter_by_row": {row: per[True]["stencil_spmv_stream"]
                                      for row, per in slice6_per_iter.items()},
         **stream_record})
+    for kernel, source, line in (
+            ("dia_spmv_bf16", "sparse_spmv.cu", "ops/pallas_spmv.py:72"),
+            ("lane_ell_spmv_bf16", "sparse_spmv.cu", "ops/lane_ell.py:189"),
+            ("stencil_spmv_bf16diag", "stencil_spmv.cu", "stencil_op.py:538"),
+            ("stencil_spmv_stream_bf16diag", "stencil_spmv.cu",
+             "stencil_op.py:422"),
+            ("stencil_gs_step_bf16diag", "stencil_spmv.cu",
+             "stencil_op.py:660")):
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": src + source,
+            "replaces": "basic_iterative_solvers_tpu/" + line,
+            "launches": bf16_launches.get(kernel, 0),
+            **bf16_records[kernel]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
@@ -2741,7 +3177,9 @@ def main():
     print(json.dumps({"kernels": [
         {key: k[key] for key in keys + ("launches_by_row",
                                         "launches_per_iter_by_row",
-                                        "resident_ms", "call_ms") if key in k}
+                                        "resident_ms", "call_ms", "ms_384",
+                                        "f32_ms_384", "bound_ms_384")
+         if key in k}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

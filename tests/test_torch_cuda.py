@@ -97,3 +97,45 @@ def test_stream_refuses_legs_outside_its_reach(card):
         assert torch.equal(y, tso._stencil_spmv_cuda(A, x, (), None))
     finally:
         tso.STREAM = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["dia", "lane_ell", "stencil", "stream",
+                                  "gs_step"])
+def test_bf16_forms_equal_their_widened_twins(card, kind, dt):
+    """Each bf16 form (#4, #5 with bf16 data; #1, #2, #3 with a bf16
+    diagonal) gives the same kernel's result on the data widened to x's
+    dtype bit for bit, #4 and #5 also their plain versions', and counts
+    its launch in bf16_launches."""
+    import dataclasses
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import dia_spmv, lane_ell
+    g = torch.Generator(device="cuda").manual_seed(3)
+    if kind == "dia":
+        A = bt.dia.from_source_device(SPECS[2], torch.bfloat16, device=card)
+        W = dataclasses.replace(A, data=A.data.to(dt))
+        fn, plain = dia_spmv.dia_spmv, dia_spmv.dia_spmv_plain
+    elif kind == "lane_ell":
+        A = bt.from_csr(bt.generators.from_source("sband:3000,8,300"),
+                        torch.bfloat16, "lane_ell", device=card)
+        W = dataclasses.replace(A, vals=A.vals.to(dt))
+        fn, plain = lane_ell.lane_ell_spmv, lane_ell.lane_ell_spmv_plain
+    else:
+        A = tso.from_source_operator(SPECS[2], torch.bfloat16, device=card)
+        W = tso.make_stencil(zip(A.legs, A.coeff_values), *A.dims, dtype=dt,
+                             diag=A.diag.to(dt), device=card)
+        fn, plain = {"stencil": (tso.stencil_spmv, None),
+                     "stream": (tso.stencil_spmv_stream, None),
+                     "gs_step": (tso.stencil_gs_color_step, None)}[kind]
+    x = torch.randn(A.n_rows, dtype=dt, device=card, generator=g)
+    args = ()
+    if kind == "gs_step":
+        args = (torch.randn(A.n_rows, dtype=dt, device=card, generator=g),
+                1.0 / tso.stencil_diag(A).to(dt), spec_for_device(A), 1)
+    before = fn.bf16_launches
+    y = fn(A, x, *args)
+    assert fn.bf16_launches == before + 1
+    assert torch.equal(y, fn(W, x, *args))
+    if plain is not None:
+        assert torch.equal(y, plain(A, x))
