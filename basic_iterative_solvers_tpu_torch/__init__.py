@@ -27,6 +27,12 @@ may be stored in bfloat16 beside float32 or float64 vectors
 (matrix_dtype="bfloat16"): DIA data, lane-ELL values, a stencil's
 coefficients and diagonal, each widened before its product.
 
+The row-sharded mesh (parallel/: `make_mesh`, `shard_setup`, the JAX
+package's shard_map mode) runs every SpMV and GS colour step as one
+shard-local kernel a shard (the halo forms of the stencil, GS-step, DIA
+and lane-ELL kernels) after a halo exchange; this slice binds all the
+shards to one device.
+
 The command line (cli.py) runs as `python -m
 basic_iterative_solvers_tpu_torch <matrix> <method-flag> [options]`, on
 the card unless `--platform cpu` is given.

@@ -162,6 +162,11 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 4 + [
             ptr] * 6
         fn.restype = i32
+        # the shard-local form: row0, lines, n, hneg, then the pointers
+        fn = getattr(lib, name.replace("spmv", "spmv_halo"))
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i64] * 4 + [
+            ptr] * 6
+        fn.restype = i32
     lib.bis_stencil_stream_tile.argtypes = [ctypes.POINTER(i32)] * 4
     lib.bis_stencil_stream_tile.restype = i32
     for suffix in ("f32", "bf16"):
@@ -176,11 +181,23 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs), i32, i32, i32, i32,
                        i32, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
+        fn = getattr(lib, f"bis_stencil_gs_color_step_halo_{dt}")
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 5 + [
+            i64] * 4 + [ptr] * 6
+        fn.restype = i32
         fn = getattr(lib, f"bis_dia_spmv_{dt}")
         fn.argtypes = [i32, ctypes.POINTER(DiaArgs), ptr, ptr, ptr, ptr]
         fn.restype = i32
+        fn = getattr(lib, f"bis_dia_spmv_halo_{dt}")
+        fn.argtypes = [i32, ctypes.POINTER(DiaArgs), ptr, ptr, ptr, i64, i64,
+                       ptr]
+        fn.restype = i32
         fn = getattr(lib, f"bis_lane_ell_spmv_{dt}")
         fn.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"bis_lane_ell_spmv_halo_{dt}")
+        fn.argtypes = [i32, ptr, ptr, ptr, ptr] + [i64] * 5 + [i32, i32, i64,
+                                                              ptr]
         fn.restype = i32
     for dt in ("f32", "f64"):
         level = ctypes.POINTER(SuperLevelArgs)

@@ -87,7 +87,12 @@ def mod_color_spec(offsets, n_rows: int) -> ColorSpec:
 
 @functools.lru_cache(maxsize=16)
 def _color_ids_cached(spec: ColorSpec, n: int, device: str) -> torch.Tensor:
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    return color_ids_of(spec, torch.arange(n, dtype=torch.int64,
+                                           device=device))
+
+
+def color_ids_of(spec: ColorSpec, i: torch.Tensor) -> torch.Tensor:
+    """The colour of each global row index in `i` (a mesh shard's rows)."""
     if spec.kind == "mod":
         return i % spec.params[0]
     nx, ny = spec.params[0], spec.params[1]
@@ -104,7 +109,9 @@ def _color_ids_cached(spec: ColorSpec, n: int, device: str) -> torch.Tensor:
 
 def color_ids(spec: ColorSpec, A) -> torch.Tensor:
     """int64 colour id per row of A, in its flat vector layout (cached per
-    spec, size and device)."""
+    spec, size and device); a mesh operator's are its whole operator's."""
+    from .parallel.mesh_ops import unwrap
+    A = unwrap(A)
     return _color_ids_cached(spec, A.n_rows, str(A.device))
 
 
@@ -204,7 +211,10 @@ def colored_sweep(A, D_inv, y: torch.Tensor, x: Optional[torch.Tensor],
     D_inv may be the number 1.0 (the unit-diagonal L of coloured ILU(0)).
     """
     from .ops.spmv import spmv
+    from .parallel.mesh_ops import MeshStencil
     from .stencil_op import DeviceStencil, stencil_gs_color_step
+    if isinstance(A, MeshStencil) and color_arr is None:
+        return _mesh_sweep(A, D_inv, y, x, spec, n_colors, reverse)
     step_kernel = isinstance(A, DeviceStencil) and color_arr is None
     ids = color_arr if color_arr is not None else color_ids(spec, A)
     order = range(n_colors - 1, -1, -1) if reverse else range(n_colors)
@@ -215,4 +225,31 @@ def colored_sweep(A, D_inv, y: torch.Tensor, x: Optional[torch.Tensor],
             x = stencil_gs_color_step(A, x, y, D_inv, spec, c)
         else:
             x = torch.where(ids == c, x + (y - spmv(A, x)) * D_inv, x)
+    return x
+
+
+def _mesh_sweep(A, D_inv, y, x, spec: ColorSpec, n_colors: int,
+                reverse: bool) -> torch.Tensor:
+    """`colored_sweep` on a mesh stencil (the JAX package's mesh branch,
+    coloring.py:242-262): every colour step is one shard-local GS step
+    with one halo exchange; under a grid colouring with sx > 1 the sx
+    colours sharing (cy, cz) go as one superstep (they couple only along
+    x, inside a shard's lines), so a sweep exchanges once per group."""
+    from .parallel.mesh_ops import mesh_gs_color_step as step
+    groups = [(c,) for c in range(n_colors)]
+    if spec.kind == "grid" and spec.params[3] > 1:
+        sx = spec.params[3]
+        groups = [tuple(range(g * sx, (g + 1) * sx))
+                  for g in range(n_colors // sx)]
+    if reverse:
+        groups = [tuple(reversed(g)) for g in reversed(groups)]
+    if x is None:
+        # the first colour from zero: A·0 = 0
+        x = torch.where(color_ids(spec, A) == groups[0][0], y * D_inv,
+                        torch.zeros_like(y))
+        if len(groups[0]) > 1:
+            x = step(A, x, y, D_inv, spec, groups[0][1:])
+        groups = groups[1:]
+    for g in groups:
+        x = step(A, x, y, D_inv, spec, g)
     return x

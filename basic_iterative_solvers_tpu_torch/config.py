@@ -83,6 +83,9 @@ class SolverConfig:
     dia_min_fill: float = 0.25
     use_pallas: bool = True
     auto_rcm: bool = True
+    #: "on" sends the coloured GS family on a stencil to the masked
+    #: sweeps, as the JAX package's planar vectors do (the port's vectors
+    #: are always flat)
     planar_vectors: str = "auto"
     #: "host": one host read of the residual per iteration (the reference's
     #: harness); "fused": the device-resident loop (solvers/fused.py)

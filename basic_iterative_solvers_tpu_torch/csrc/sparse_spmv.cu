@@ -100,6 +100,72 @@ lane_ell_spmv_kernel(const M* vals, const int* idx, const T* x, T* y,
     y[i] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// Shard-local forms for a row-sharded mesh.
+//
+// dia_spmv_halo_kernel replaces dia_pallas_core fed a halo-padded window
+// (basic_iterative_solvers_tpu/ops/pallas_spmv.py:72, reached through
+// parallel/mesh_ops.mesh_dia_spmv): a shard's `rows` rows, its own data
+// (k, rows), and its x window xw = hneg rows of its left neighbour, its own
+// rows, hpos rows of its right neighbour:
+//
+//     y[t] = sum_d data[d*rows + t] * xw[hneg + t + off_d]
+//
+// The window's zeros at the global edges stand for the single-device
+// kernel's bounds test (x read as 0 outside [0, n)), so y is bit-equal to
+// it row for row.  A window index outside [0, wlen) reads 0; the mesh
+// sizes the window so that none is.
+//
+// lane_ell_spmv_halo_kernel replaces lane_ell_spmv_halo
+// (basic_iterative_solvers_tpu/ops/lane_ell.py:268, over
+// _lane_ell_kernel_call): a shard's slot planes (K, rows) for the rows
+// [128*r0, 128*r0 + rows) and the x window of H x2-rows a side (H >= S, so
+// every slot's column lies inside it).  Each slot's global column is
+// clipped into [0, plane - 1] exactly as in the single-device kernel and
+// read as 0 past n, then looked up in the window: every slot reads the
+// value the single-device kernel reads.
+//
+// Bound: bytes, as the single-device forms, plus the window's halo.
+// ---------------------------------------------------------------------------
+
+template <typename T, typename M>
+__global__ void __launch_bounds__(256)
+dia_spmv_halo_kernel(const __grid_constant__ BisDiaArgs a, const M* data,
+                     const T* xw, T* y, long long hneg, long long wlen) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= a.n) return;
+    T acc = T(0);
+    for (int d = 0; d < a.n_diags; ++d) {
+        const long long j = hneg + t + a.off[d];
+        const T xv = (j >= 0 && j < wlen) ? xw[j] : T(0);
+        acc = add_rn(acc, mul_rn(T(widen(data[(long long)d * a.n + t])), xv));
+    }
+    y[t] = acc;
+}
+
+template <typename T, typename M>
+__global__ void __launch_bounds__(256)
+lane_ell_spmv_halo_kernel(const M* vals, const int* idx, const T* xw, T* y,
+                          long long rows, long long r0, long long halo,
+                          long long n, long long plane, int K, int S,
+                          long long wlen) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= rows) return;
+    const long long r = r0 + (t >> 7);
+    const long long base = (r0 - halo) * 128;
+    T acc = T(0);
+    for (int k = 0; k < K; ++k) {
+        const long long s = (long long)k * rows + t;
+        const int p = idx[s];
+        long long j = (r + (p >> 7) - S) * 128 + (p & 127);
+        j = j < 0 ? 0 : (j > plane - 1 ? plane - 1 : j);
+        const long long jw = j - base;
+        const T xv = (j < n && jw >= 0 && jw < wlen) ? xw[jw] : T(0);
+        acc = add_rn(acc, mul_rn(T(widen(vals[s])), xv));
+    }
+    y[t] = acc;
+}
+
 static unsigned blocks_for(long long n) {
     return (unsigned)((n + 255) / 256);
 }
@@ -121,6 +187,30 @@ static int launch_lane_ell(int device, const M* vals, const int* idx,
     if (set != cudaSuccess) return (int)set;
     lane_ell_spmv_kernel<T, M><<<blocks_for(n), 256, 0, stream>>>(
         vals, idx, x, y, n, plane, K, S);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, typename M>
+static int launch_dia_halo(int device, const BisDiaArgs* a, const M* data,
+                           const T* xw, T* y, long long hneg, long long wlen,
+                           cudaStream_t stream) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    dia_spmv_halo_kernel<T, M><<<blocks_for(a->n), 256, 0, stream>>>(
+        *a, data, xw, y, hneg, wlen);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, typename M>
+static int launch_lane_ell_halo(int device, const M* vals, const int* idx,
+                                const T* xw, T* y, long long rows,
+                                long long r0, long long halo, long long n,
+                                long long plane, int K, int S, long long wlen,
+                                cudaStream_t stream) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    lane_ell_spmv_halo_kernel<T, M><<<blocks_for(rows), 256, 0, stream>>>(
+        vals, idx, xw, y, rows, r0, halo, n, plane, K, S, wlen);
     return (int)cudaGetLastError();
 }
 
@@ -148,6 +238,34 @@ BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f32, float, float)
 BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f64, double, double)
 BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f32_bf16, float, __nv_bfloat16)
 BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f64_bf16, double, __nv_bfloat16)
+
+// The shard-local forms: bis_<kernel>_halo_<vector type>[_bf16]; a->n is
+// the shard's row count.
+#define BIS_DIA_HALO_ENTRY(NAME, T, M)                                       \
+    int NAME(int device, const BisDiaArgs* a, const M* data, const T* xw,  \
+             T* y, long long hneg, long long wlen, void* stream) {          \
+        return launch_dia_halo<T, M>(device, a, data, xw, y, hneg, wlen,    \
+                                     (cudaStream_t)stream);                 \
+    }
+BIS_DIA_HALO_ENTRY(bis_dia_spmv_halo_f32, float, float)
+BIS_DIA_HALO_ENTRY(bis_dia_spmv_halo_f64, double, double)
+BIS_DIA_HALO_ENTRY(bis_dia_spmv_halo_f32_bf16, float, __nv_bfloat16)
+BIS_DIA_HALO_ENTRY(bis_dia_spmv_halo_f64_bf16, double, __nv_bfloat16)
+
+// rows = the shard's x2-rows * 128, r0 its first x2-row, halo = H x2-rows
+// a side, plane = R*128 of the whole (row-extended) planes.
+#define BIS_LANE_ELL_HALO_ENTRY(NAME, T, M)                                  \
+    int NAME(int device, const M* vals, const int* idx, const T* xw, T* y, \
+             long long rows, long long r0, long long halo, long long n,     \
+             long long plane, int K, int S, long long wlen, void* stream) { \
+        return launch_lane_ell_halo<T, M>(device, vals, idx, xw, y, rows,   \
+                                          r0, halo, n, plane, K, S, wlen,   \
+                                          (cudaStream_t)stream);            \
+    }
+BIS_LANE_ELL_HALO_ENTRY(bis_lane_ell_spmv_halo_f32, float, float)
+BIS_LANE_ELL_HALO_ENTRY(bis_lane_ell_spmv_halo_f64, double, double)
+BIS_LANE_ELL_HALO_ENTRY(bis_lane_ell_spmv_halo_f32_bf16, float, __nv_bfloat16)
+BIS_LANE_ELL_HALO_ENTRY(bis_lane_ell_spmv_halo_f64_bf16, double, __nv_bfloat16)
 
 int bis_dia_args_size(void) { return (int)sizeof(BisDiaArgs); }
 

@@ -123,14 +123,17 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// y[i] for the row i = (gx, gy, gz): each coefficient group's in-bounds
-// legs summed, times the group's coefficient, plus diag[i]*x[i].
+// y for the grid row (gx, gy, gz), whose x entry is x[ix] and whose
+// diagonal entry is diag[id]: each coefficient group's in-bounds legs
+// summed, times the group's coefficient, plus diag[id]*x[ix].  The
+// single-device kernels pass ix = id = i; a mesh shard passes its row's
+// place in its x window and in its own rows.
 template <typename T, typename D>
 __device__ __forceinline__ T stencil_row(const BisStencilArgs& a,
                                          const T* __restrict__ x,
                                          const D* __restrict__ diag,
-                                         long long i, int gx, int gy,
-                                         int gz) {
+                                         long long ix, long long id, int gx,
+                                         int gy, int gz) {
     T acc = T(0);
     for (int g = 0; g < a.n_groups; ++g) {
         T s = T(0);
@@ -138,11 +141,11 @@ __device__ __forceinline__ T stencil_row(const BisStencilArgs& a,
             const int px = gx + a.dx[l], py = gy + a.dy[l], pz = gz + a.dz[l];
             if (px >= 0 && px < a.nx && py >= 0 && py < a.ny &&
                 pz >= 0 && pz < a.nz)
-                s = add_rn(s, x[i + a.off[l]]);
+                s = add_rn(s, x[ix + a.off[l]]);
         }
         acc = add_rn(acc, mul_rn(T(a.group_coeff[g]), s));
     }
-    if (diag != nullptr) acc = add_rn(acc, mul_rn(T(widen(diag[i])), x[i]));
+    if (diag != nullptr) acc = add_rn(acc, mul_rn(T(widen(diag[id])), x[ix]));
     return acc;
 }
 
@@ -159,7 +162,7 @@ stencil_spmv_kernel(const __grid_constant__ BisStencilArgs a,
         const long long row = (long long)a.nx * (gy + (long long)a.ny * gz);
         for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
             const long long i = row + gx;
-            const T acc = stencil_row(a, x, diag, i, gx, gy, gz);
+            const T acc = stencil_row(a, x, diag, i, i, gx, gy, gz);
             y[i] = acc;
             for (int k = 0; k < a.n_dots; ++k) {
                 const int kind = a.dot_kind[k];
@@ -327,7 +330,7 @@ stencil_gs_color_step_kernel(const __grid_constant__ BisStencilArgs a,
         const long long i = row + gx;
         T xi = x[i];
         if (color_of(c, i, gx, gy, gz) == c.color) {
-            const T ax = stencil_row(a, x, diag, i, gx, gy, gz);
+            const T ax = stencil_row(a, x, diag, i, i, gx, gy, gz);
             xi = add_rn(xi, mul_rn(sub_rn(rhs[i], ax), dinv[i]));
         }
         out[i] = xi;
@@ -388,6 +391,136 @@ static int launch_gs(int device, const BisStencilArgs* a, int kind, int p0,
     return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Shard-local forms of #1 and #3 for a row-sharded mesh.
+//
+// Replace the halo/row0 forms of the Pallas kernels
+// basic_iterative_solvers_tpu/stencil_op.py: stencil_spmv_resident and
+// stencil_gs_color_step (the halo substitution of _resident_kernel),
+// reached through parallel/mesh_ops.mesh_stencil_spmv and
+// mesh_gs_color_step.  A shard owns the global rows [row0, row0 + rows),
+// rows = lines * nx (whole x-lines, so every pure-x leg stays inside the
+// shard), and reads x only from its window xw: hneg rows of its left
+// neighbour, its own rows, hpos rows of its right neighbour (zeros at the
+// global edges).  Global row i sits at xw[hneg + i - row0].  The masks and
+// colours come from the global coordinates of i, so a leg that leaves the
+// grid is masked exactly as in the single-device kernel, and an in-bounds
+// leg lands on a row in [0, n) inside the window (|offset| <= hneg, hpos).
+// Rows at or past n are inert padding (the mesh pads the row count to
+// whole shards): y = 0 there and the GS step copies x through.  The row
+// sum is the single-device kernel's (stencil_row, same groups, same
+// order, each sum and product rounded alone), so y is bit-equal to #1's
+// and x' to #3's; only the dot partials group differently.
+//
+// Grid: (line blocks of block_y lines, x blocks of block_x), one thread a
+// row, so a shard of few long lines (fdm:2048 on 8 shards: 256 lines of
+// 2048) still fills the card.  Bound: as #1 and #3, the leg loop.
+// ---------------------------------------------------------------------------
+
+template <typename T, typename D>
+__global__ void __launch_bounds__(256)
+stencil_spmv_halo_kernel(const __grid_constant__ BisStencilArgs a,
+                         long long row0, long long lines, long long n,
+                         long long hneg, const T* __restrict__ xw,
+                         const D* __restrict__ diag,
+                         const T* __restrict__ aux, T* __restrict__ y,
+                         T* __restrict__ partials) {
+    const long long line = (long long)blockIdx.x * a.block_y + threadIdx.y;
+    const int gx = blockIdx.y * a.block_x + threadIdx.x;
+    T dsum[BIS_MAX_DOTS] = {T(0), T(0), T(0)};
+    if (line < lines && gx < a.nx) {
+        const long long t = line * a.nx + gx;
+        const long long i = row0 + t;
+        T acc = T(0);
+        if (i < n) {
+            const long long gl = row0 / a.nx + line;
+            const int gy = (int)(gl % a.ny), gz = (int)(gl / a.ny);
+            acc = stencil_row(a, xw, diag, hneg + t, t, gx, gy, gz);
+            for (int k = 0; k < a.n_dots; ++k) {
+                const int kind = a.dot_kind[k];
+                const T v = kind == 0 ? xw[hneg + t]
+                                      : (kind == 1 ? acc : aux[t]);
+                dsum[k] += acc * v;
+            }
+        }
+        y[t] = acc;
+    }
+    if (a.n_dots > 0)
+        block_sums(dsum, a.n_dots,
+                   partials + (long long)(blockIdx.x + (long long)gridDim.x *
+                                          blockIdx.y) * a.n_dots);
+}
+
+template <typename T, typename D>
+__global__ void __launch_bounds__(256)
+stencil_gs_color_step_halo_kernel(const __grid_constant__ BisStencilArgs a,
+                                  const BisColorStep c, long long row0,
+                                  long long lines, long long n,
+                                  long long hneg, const T* __restrict__ xw,
+                                  const D* __restrict__ diag,
+                                  const T* __restrict__ rhs,
+                                  const T* __restrict__ dinv,
+                                  T* __restrict__ out) {
+    const long long line = (long long)blockIdx.x * a.block_y + threadIdx.y;
+    const int gx = blockIdx.y * a.block_x + threadIdx.x;
+    if (line >= lines || gx >= a.nx) return;
+    const long long t = line * a.nx + gx;
+    const long long i = row0 + t;
+    T xi = xw[hneg + t];
+    if (i < n) {
+        const long long gl = row0 / a.nx + line;
+        const int gy = (int)(gl % a.ny), gz = (int)(gl / a.ny);
+        if (color_of(c, i, gx, gy, gz) == c.color) {
+            const T ax = stencil_row(a, xw, diag, hneg + t, t, gx, gy, gz);
+            xi = add_rn(xi, mul_rn(sub_rn(rhs[t], ax), dinv[t]));
+        }
+    }
+    out[t] = xi;
+}
+
+// The shard forms' launch: refuses a shard that does not start on a line.
+static bool halo_grid(const BisStencilArgs* a, long long row0,
+                      long long lines, dim3* grid) {
+    if (row0 % a->nx != 0 || lines < 0) return false;
+    const long long gl = (lines + a->block_y - 1) / a->block_y;
+    const long long gx = (a->nx + a->block_x - 1) / a->block_x;
+    if (gl > 2147483647LL || gx > 65535) return false;
+    *grid = dim3((unsigned)(gl > 0 ? gl : 1), (unsigned)gx);
+    return true;
+}
+
+template <typename T, typename D>
+static int launch_halo(int device, const BisStencilArgs* a, long long row0,
+                       long long lines, long long n, long long hneg,
+                       const T* xw, const D* diag, const T* aux, T* y,
+                       T* partials, cudaStream_t stream) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    dim3 grid;
+    if (!halo_grid(a, row0, lines, &grid)) return (int)cudaErrorInvalidValue;
+    const dim3 block(a->block_x, a->block_y);
+    stencil_spmv_halo_kernel<T, D><<<grid, block, 0, stream>>>(
+        *a, row0, lines, n, hneg, xw, diag, aux, y, partials);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, typename D>
+static int launch_gs_halo(int device, const BisStencilArgs* a, int kind,
+                          int p0, int p1, int p2, int color, long long row0,
+                          long long lines, long long n, long long hneg,
+                          const T* xw, const D* diag, const T* rhs,
+                          const T* dinv, T* out, cudaStream_t stream) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    dim3 grid;
+    if (!halo_grid(a, row0, lines, &grid)) return (int)cudaErrorInvalidValue;
+    const BisColorStep c = {kind, {p0, p1, p2}, color};
+    const dim3 block(a->block_x, a->block_y);
+    stencil_gs_color_step_halo_kernel<T, D><<<grid, block, 0, stream>>>(
+        *a, c, row0, lines, n, hneg, xw, diag, rhs, dinv, out);
+    return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // Entry points bis_<kernel>_<vector type>[_bf16]; the suffix _bf16 takes a
@@ -435,6 +568,33 @@ BIS_GS_ENTRY(bis_stencil_gs_color_step_f32, float, float)
 BIS_GS_ENTRY(bis_stencil_gs_color_step_f64, double, double)
 BIS_GS_ENTRY(bis_stencil_gs_color_step_f32_bf16, float, __nv_bfloat16)
 BIS_GS_ENTRY(bis_stencil_gs_color_step_f64_bf16, double, __nv_bfloat16)
+
+// The shard-local forms: bis_<kernel>_halo_<vector type>[_bf16].
+#define BIS_SPMV_HALO_ENTRY(NAME, T, D)                                      \
+    int NAME(int device, const BisStencilArgs* a, long long row0,           \
+             long long lines, long long n, long long hneg, const T* xw,     \
+             const D* diag, const T* aux, T* y, T* partials, void* stream) {\
+        return launch_halo<T, D>(device, a, row0, lines, n, hneg, xw, diag, \
+                                 aux, y, partials, (cudaStream_t)stream);   \
+    }
+BIS_SPMV_HALO_ENTRY(bis_stencil_spmv_halo_f32, float, float)
+BIS_SPMV_HALO_ENTRY(bis_stencil_spmv_halo_f64, double, double)
+BIS_SPMV_HALO_ENTRY(bis_stencil_spmv_halo_f32_bf16, float, __nv_bfloat16)
+BIS_SPMV_HALO_ENTRY(bis_stencil_spmv_halo_f64_bf16, double, __nv_bfloat16)
+
+#define BIS_GS_HALO_ENTRY(NAME, T, D)                                        \
+    int NAME(int device, const BisStencilArgs* a, int kind, int p0, int p1, \
+             int p2, int color, long long row0, long long lines,            \
+             long long n, long long hneg, const T* xw, const D* diag,       \
+             const T* rhs, const T* dinv, T* out, void* stream) {           \
+        return launch_gs_halo<T, D>(device, a, kind, p0, p1, p2, color,     \
+                                    row0, lines, n, hneg, xw, diag, rhs,    \
+                                    dinv, out, (cudaStream_t)stream);       \
+    }
+BIS_GS_HALO_ENTRY(bis_stencil_gs_color_step_halo_f32, float, float)
+BIS_GS_HALO_ENTRY(bis_stencil_gs_color_step_halo_f64, double, double)
+BIS_GS_HALO_ENTRY(bis_stencil_gs_color_step_halo_f32_bf16, float, __nv_bfloat16)
+BIS_GS_HALO_ENTRY(bis_stencil_gs_color_step_halo_f64_bf16, double, __nv_bfloat16)
 
 int bis_stencil_args_size(void) { return (int)sizeof(BisStencilArgs); }
 

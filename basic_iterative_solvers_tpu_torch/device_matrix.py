@@ -165,7 +165,9 @@ def device_matrix_nnz_bytes(M) -> int:
     """Bytes of matrix data one SpMV streams: values, plus 4-byte indices
     for the ELL formats (a stencil streams only its dense diagonal)."""
     from .ops.lane_ell import DeviceLaneELL
+    from .parallel.mesh_ops import unwrap
     from .stencil_op import DeviceStencil
+    M = unwrap(M)
     if isinstance(M, DeviceStencil):
         return 0 if M.diag is None else M.diag.numel() * M.diag.element_size()
     itemsize = torch.empty((), dtype=M.dtype).element_size()

@@ -228,6 +228,9 @@ def build_mg_hierarchy(A_dev, config) -> Tuple[MGLevel, ...]:
             "multigrid needs constant coefficients to build coarse "
             "operators; this stencil carries a dense diagonal (Anderson "
             "random potential) — use '-p cheby' instead")
+    if A_dev.shards != 1:
+        raise ValueError("multigrid is not yet mesh-shardable; build the "
+                         "hierarchy before shard_setup or use '-p cheby'")
     transfer = config.mg_transfer
     if transfer not in ("linear", "injection"):
         raise ValueError(f"unknown mg_transfer: {transfer!r}")

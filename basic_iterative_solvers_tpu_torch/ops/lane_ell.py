@@ -18,6 +18,12 @@ the JAX package's XLA form (slot by slot, ascending), which the kernel
 follows bit for bit.  The values may be stored in bfloat16 beside float32
 or float64 vectors (matrix_dtype), widened before each product; that
 form's launches are counted in `lane_ell_spmv.bf16_launches`.
+
+`lane_ell_spmv_halo` is one mesh shard's SpMV (the JAX package's
+lane_ell_spmv_halo, parallel/mesh_ops.mesh_lane_ell_spmv): the shard's own
+planes and an x window of S x2-rows a side, with its plain version
+`lane_ell_spmv_halo_plain`; `lane_ell_extend_rows` pads the planes with
+inert rows so that they cut into whole shards.
 """
 from __future__ import annotations
 
@@ -61,6 +67,13 @@ class DeviceLaneELL:
         return self.vals.numel()
 
 
+def lane_ell_row_tile(n: int, S: int) -> int:
+    """The JAX package's row tile of an n-row matrix of span S: the planes'
+    x2-rows are a multiple of it, and a mesh's shards whole tiles."""
+    R = max(1, -(-n // LANES))
+    return max(8 * -(-S // 8), min(_TB, 8 * -(-R // 8)), 8)
+
+
 def lane_ell_span(A: MatrixCSR) -> int:
     """Max |j//128 − i//128| over the nonzeros: the shift radius S."""
     if A.nnz == 0:
@@ -80,7 +93,7 @@ def csr_to_lane_ell(A: MatrixCSR, dtype=torch.float32, *,
     n = A.n_rows
     R = max(1, -(-n // LANES))
     S = lane_ell_span(A)
-    TB = max(8 * -(-S // 8), min(_TB, 8 * -(-R // 8)), 8)
+    TB = lane_ell_row_tile(n, S)
     R_pad = -(-R // TB) * TB
     row_nnz = A.row_nnz()
     K = max(1, int(row_nnz.max()) if n else 1)
@@ -185,3 +198,111 @@ def lane_ell_spmv(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
 
 lane_ell_spmv.launches = 0
 lane_ell_spmv.bf16_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Shard-local form (a row-sharded mesh, parallel/mesh_ops.py)
+# ---------------------------------------------------------------------------
+
+def lane_ell_extend_rows(M: DeviceLaneELL, R_new: int) -> DeviceLaneELL:
+    """M with its planes padded to R_new x2-rows of inert rows (value 0,
+    each slot's index in range: rowoff 0, lane 0), so that they cut into a
+    mesh's shards; y is 0 on those rows."""
+    if R_new == M.R:
+        return M
+    if R_new < M.R or R_new % lane_ell_row_tile(M.n_rows, M.S):
+        raise ValueError(f"bad extension {M.R} -> {R_new}")
+    pad = R_new - M.R
+    vals = torch.cat([M.vals, M.vals.new_zeros((M.K, pad, LANES))], dim=1)
+    idx = torch.cat([M.idx, M.idx.new_full((M.K, pad, LANES),
+                                           M.S * LANES)], dim=1)
+    return dataclasses.replace(M, vals=vals, idx=idx, R=R_new)
+
+
+def _check_halo(M: DeviceLaneELL, vals, idx, xw, r0: int, halo: int,
+                out) -> int:
+    """Check a shard's operands; returns its entry count rows·128."""
+    if vals.dim() != 3 or vals.shape[0] != M.K or vals.shape[2] != LANES \
+            or idx.shape != vals.shape or idx.dtype != torch.int32:
+        raise ValueError("the shard's planes must be (K, rows, 128), the "
+                         "indices int32")
+    rows = vals.shape[1]
+    if halo < M.S or r0 < 0 or r0 + rows > M.R:
+        raise ValueError(f"shard rows [{r0}, {r0 + rows}) with halo {halo} "
+                         f"(span {M.S}) do not fit {M.R} x2-rows")
+    if not isinstance(xw, torch.Tensor) or xw.shape != (
+            (rows + 2 * halo) * LANES,):
+        raise ValueError(f"the window must be ({(rows + 2 * halo) * LANES},)")
+    if not serves_vectors(vals.dtype, xw.dtype):
+        raise TypeError(f"xw is {xw.dtype}, the values {vals.dtype}")
+    for t in (vals, idx, xw):
+        if t.device != xw.device or not t.is_contiguous():
+            raise ValueError("the planes and the window must be contiguous, "
+                             "on one device")
+    if out is not None and (out.shape != (rows * LANES,)
+                            or out.dtype != xw.dtype
+                            or out.device != xw.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({rows * LANES},) "
+                         f"{xw.dtype} tensor on {xw.device}")
+    return rows * LANES
+
+
+def lane_ell_spmv_halo_plain(M: DeviceLaneELL, vals: torch.Tensor,
+                             idx: torch.Tensor, xw: torch.Tensor, r0: int,
+                             halo: int) -> torch.Tensor:
+    """Plain PyTorch version of the shard-local kernel: the shard's x2-rows
+    [r0, r0 + rows) of M·x from its window xw (halo x2-rows a side), each
+    slot's global column clipped into the planes and read as 0 past n as
+    in the single-device plain version, then found in the window."""
+    _check_halo(M, vals, idx, xw, r0, halo, None)
+    rows = vals.shape[1]
+    plane = M.R * LANES
+    r = (r0 + torch.arange(rows, device=xw.device)).view(rows, 1)
+    p = idx.long()
+    flat = ((r + p // LANES - M.S) * LANES + p % LANES).clamp(0, plane - 1)
+    xv = torch.where(flat < M.n_rows, xw[flat - (r0 - halo) * LANES], 0.0)
+    prods = vals.to(xw.dtype) * xv            # every slot's product at once
+    y = torch.zeros((rows, LANES), dtype=xw.dtype, device=xw.device)
+    for k in range(M.K):                      # summed slot by slot
+        y = y + prods[k]
+    return y.reshape(-1)
+
+
+def lane_ell_spmv_halo(M: DeviceLaneELL, vals: torch.Tensor,
+                       idx: torch.Tensor, xw: torch.Tensor, r0: int,
+                       halo: int, out: torch.Tensor = None) -> torch.Tensor:
+    """One mesh shard's lane-ELL SpMV: `lane_ell_spmv_halo_plain`'s
+    contract (M the whole, row-extended operator; vals/idx the shard's
+    (K, rows, 128) planes starting at x2-row r0), y written to `out` when
+    given.  A CUDA tensor launches the shard-local kernel
+    (csrc/sparse_spmv.cu), counted in `lane_ell_spmv_halo.launches`
+    (`.bf16_launches` for bfloat16 values): every slot reads the value the
+    single-device kernel reads, so y is bit-equal to its rows; a CPU
+    tensor takes the plain version."""
+    n = _check_halo(M, vals, idx, xw, r0, halo, out)
+    if xw.device.type == "cpu":
+        y = lane_ell_spmv_halo_plain(M, vals, idx, xw, r0, halo)
+        return y if out is None else out.copy_(y)
+    if xw.device.type != "cuda":
+        raise ValueError(f"no lane-ELL SpMV for device {xw.device}")
+    from .._build import load_library
+    y = torch.empty(n, dtype=xw.dtype, device=xw.device) \
+        if out is None else out
+    err = getattr(load_library(), "bis_lane_ell_spmv_halo_" + kernel_suffix(
+        xw.dtype, vals.dtype))(
+            xw.device.index, vals.data_ptr(), idx.data_ptr(), xw.data_ptr(),
+            y.data_ptr(), n, r0, halo, M.n_rows, M.R * LANES, M.K, M.S,
+            xw.numel(), torch.cuda.current_stream(xw.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lane_ell_spmv_halo kernel launch failed with "
+                           f"CUDA error {err}")
+    if vals.dtype == torch.bfloat16:
+        lane_ell_spmv_halo.bf16_launches += 1
+    else:
+        lane_ell_spmv_halo.launches += 1
+    return y
+
+
+lane_ell_spmv_halo.launches = 0
+lane_ell_spmv_halo.bf16_launches = 0

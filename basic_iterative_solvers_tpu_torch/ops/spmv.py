@@ -7,7 +7,11 @@ ops/spmv.py.
 * DIA      — ops/dia_spmv.dia_spmv (kernel #4);
 * lane-ELL — ops/lane_ell.lane_ell_spmv (kernel #5);
 * ELL      — a plain torch gather and row sum (the JAX package's XLA
-             gather: no TPU kernel stands behind it).
+             gather: no TPU kernel stands behind it);
+* mesh operators (parallel/mesh_ops.py) — the shard-local forms of the
+             stencil, DIA and lane-ELL kernels, one launch a shard after a
+             halo exchange; a mesh stencil's dots fused per shard and
+             summed by psum.
 
 Each kernel or its plain version is chosen by the vector's device.  Fused
 dots stay stencil-only, as in the JAX package; elsewhere the dots follow
@@ -45,7 +49,27 @@ def _spmv(A, x: torch.Tensor) -> torch.Tensor:
         return lane_ell_spmv(A, x)
     if isinstance(A, DeviceELL):
         return spmv_ell(A, x)
+    from ..parallel.mesh_ops import (MeshDIA, MeshLaneELL, MeshStencil,
+                                     mesh_dia_spmv, mesh_lane_ell_spmv,
+                                     mesh_stencil_spmv)
+    if isinstance(A, MeshStencil):
+        return mesh_stencil_spmv(A, x)
+    if isinstance(A, MeshDIA):
+        return mesh_dia_spmv(A, x)
+    if isinstance(A, MeshLaneELL):
+        return mesh_lane_ell_spmv(A, x)
     raise TypeError(f"unsupported device matrix type: {type(A).__name__}")
+
+
+def _fused_dots(A, x, dots, aux):
+    """y and its dots from the kernel itself (a stencil, one-device or
+    mesh), else None."""
+    from ..parallel.mesh_ops import MeshStencil, mesh_stencil_spmv
+    if isinstance(A, DeviceStencil):
+        return stencil_spmv(A, x, dots=dots, aux=aux)
+    if isinstance(A, MeshStencil):
+        return mesh_stencil_spmv(A, x, dots=dots, aux=aux)
+    return None
 
 
 def spmv_dot(A, x: torch.Tensor):
@@ -55,8 +79,9 @@ def spmv_dot(A, x: torch.Tensor):
 
 
 def _spmv_dot(A, x: torch.Tensor):
-    if isinstance(A, DeviceStencil):
-        return stencil_spmv(A, x, dots=("x",))
+    fused = _fused_dots(A, x, ("x",), None)
+    if fused is not None:
+        return fused
     y = _spmv(A, x)
     return y, torch.dot(y, x)
 
@@ -69,9 +94,11 @@ def spmv_dots(A, x: torch.Tensor, aux: torch.Tensor = None,
 
 def _spmv_dots(A, x: torch.Tensor, aux, with_self: bool):
     dots = ("aux",) * (aux is not None) + ("self",) * with_self
-    if isinstance(A, DeviceStencil):
-        out = stencil_spmv(A, x, dots=dots, aux=aux)
-        return out if dots else (out,)
+    if not dots:
+        return (_spmv(A, x),)
+    fused = _fused_dots(A, x, dots, aux)
+    if fused is not None:
+        return fused
     y = _spmv(A, x)
     partner = {"aux": aux, "self": y}
     return (y,) + tuple(torch.dot(y, partner[k]) for k in dots)

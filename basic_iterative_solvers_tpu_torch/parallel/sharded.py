@@ -1,0 +1,456 @@
+"""Multi-device scale-out: row-partitioned solves over a 1-D device mesh.
+
+The JAX package's parallel/sharded.py in PyTorch.  The reference's only
+parallelism is a row-parallel loop; the mesh shards the same axis:
+
+* matrix rows (DIA data, lane-ELL slot planes, a stencil's diagonal) are
+  cut into contiguous row blocks, one per shard;
+* SpMV's off-shard x entries come by a halo exchange: each shard sends
+  its boundary slabs to its mesh neighbours (`Mesh.ppermute`), then runs
+  the same kernel on its window (its own rows and the two slabs);
+* dots are per-shard partials summed by `Mesh.psum`.
+
+The JAX package is single-controller (one process, a Mesh over
+jax.devices()), and so is this one: a `Mesh` holds one torch device per
+shard and one process drives them all.  `make_mesh(n, device=...)` binds
+all n shards to one device, the counterpart of XLA's virtual host
+devices: each shard still sees only its own rows, the halo slabs copied
+from its neighbours and its global row offset.  A solver vector stays one
+tensor, the whole operator's rows: elementwise operations and BLAS-1 run
+on it whole, as GSPMD partitions them in the JAX package, and only the
+SpMVs and GS steps run per shard, each mesh operator padding the row count
+to n_dev·R_local with inert rows where its layout needs it (shard k owns
+rows [k·R_local, (k+1)·R_local)).  This slice keeps every shard on one
+device: `shard_setup` refuses a mesh over several cards (slice 8c).
+
+Two modes in the JAX package's `shard_setup`; the port has the first:
+
+* "shard_map": the operators are wrapped as mesh operators whose SpMV and
+  GS-step kernels run shard-locally (parallel/mesh_ops.py);
+* "gspmd" (XLA's partitioner over annotated shardings) has no counterpart
+  yet: it would be torch.distributed.tensor's DTensor over one process a
+  card (slice 8c), and "auto", which falls back to it in the JAX package,
+  raises where the JAX package would fall back.
+
+`make_sharded_cg` is the standalone distributed CG of the JAX package
+(DIA, Jacobi or the symmetric two-stage preconditioner), plain torch per
+shard, as it is plain jnp there.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+AXIS = "rows"
+
+#: the JAX package's minimum DIA row tile (ops/pallas_spmv.MIN_ROW_TILE);
+#: with its halo rule it sets the padded row count shard_dia cuts, and so
+#: shard_dia's refusals
+_MIN_ROW_TILE = 8192
+
+
+def _halo(offsets) -> Tuple[int, int]:
+    """(hneg, hpos): the largest negative and positive offset."""
+    if not offsets:
+        return 0, 0
+    return max(0, -min(offsets)), max(0, max(offsets))
+
+
+class Mesh:
+    """A 1-D row mesh: one torch device per shard, with the collectives
+    the mesh operators use and a count of what they move."""
+
+    def __init__(self, devices: Sequence, axis: str = AXIS):
+        devices = tuple(torch.device(d) for d in devices)
+        if not devices:
+            raise ValueError("a mesh needs at least one device")
+        self.devices = devices
+        self.axis = axis
+        self.reset_counts()
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def reset_counts(self) -> None:
+        """Zero `counts`: the calls of each collective and the bytes they
+        move (ppermute: the slabs sent; psum: the partials summed)."""
+        self.counts = {"ppermute": 0, "ppermute_bytes": 0, "psum": 0,
+                       "psum_bytes": 0}
+
+    def ppermute(self, slabs: Sequence[torch.Tensor],
+                 shift: int) -> List[torch.Tensor]:
+        """Shard k receives slabs[k − shift] on its device, and zeros where
+        k − shift is off the mesh (lax.ppermute over the pairs
+        (i, i + shift): a shard no one sends to receives zeros)."""
+        n = self.size
+        if len(slabs) != n:
+            raise ValueError(f"{len(slabs)} slabs for {n} shards")
+        out = []
+        for k in range(n):
+            src = k - shift
+            if 0 <= src < n:
+                s = slabs[src]
+                out.append(s.to(self.devices[k]))
+                self.counts["ppermute_bytes"] += s.numel() * s.element_size()
+            else:
+                out.append(torch.zeros_like(slabs[k],
+                                            device=self.devices[k]))
+        self.counts["ppermute"] += 1
+        return out
+
+    def psum(self, partials: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of the shards' partials, in one fixed order, so that
+        results are reproducible; on the first shard's device (every shard
+        of the JAX package's psum holds the same value)."""
+        if len(partials) != self.size:
+            raise ValueError(f"{len(partials)} partials for {self.size} "
+                             "shards")
+        self.counts["psum"] += 1
+        self.counts["psum_bytes"] += sum(p.numel() * p.element_size()
+                                         for p in partials)
+        return torch.stack([p.to(self.devices[0]) for p in partials]).sum(0)
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
+              device=None) -> Mesh:
+    """The first `n_devices` CUDA cards (all of them when None), raising
+    when there are fewer; or, with `device` given, `n_devices` shards all
+    bound to that one device ("cpu", or "cuda" for the current card), the
+    counterpart of XLA's virtual host devices.  Nothing falls back to
+    another device."""
+    from ..stencil_op import resolve_device
+    if device is not None:
+        if n_devices is None or n_devices < 1:
+            raise ValueError("a mesh on one device needs n_devices >= 1")
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return Mesh([dev] * n_devices, axis)
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    devs = [torch.device("cuda", i) for i in range(count)]
+    if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(
+                f"requested {n_devices} devices, only {len(devs)} available")
+        devs = devs[:n_devices]
+    return Mesh(devs, axis)
+
+
+def shard_vector(v: torch.Tensor, npad: int, mesh: Mesh) -> torch.Tensor:
+    """v zero-padded to the padded row count, on the mesh's device."""
+    v = v.to(mesh.devices[0])
+    n = v.shape[0]
+    if n == npad:
+        return v.contiguous()
+    return torch.nn.functional.pad(v, (0, npad - n))
+
+
+def _split(v: torch.Tensor, n_dev: int, dim: int = 0) -> List[torch.Tensor]:
+    """The shards' row blocks of v along `dim` (views)."""
+    local = v.shape[dim] // n_dev
+    return [v.narrow(dim, k * local, local) for k in range(n_dev)]
+
+
+def _halo_exchange(mesh: Mesh, x_shards: Sequence[torch.Tensor], hneg: int,
+                   hpos: int) -> List[torch.Tensor]:
+    """Each shard's window: its left neighbour's last hneg entries, its
+    own, its right neighbour's first hpos entries.  Open boundary: the
+    edge shards receive zeros, the single-device path's zero padding."""
+    left = (mesh.ppermute([x[x.shape[0] - hneg:] for x in x_shards], 1)
+            if hneg else None)
+    right = mesh.ppermute([x[:hpos] for x in x_shards], -1) if hpos else None
+    windows = []
+    for k, x in enumerate(x_shards):
+        parts = ([left[k]] if hneg else []) + [x] + (
+            [right[k]] if hpos else [])
+        windows.append(torch.cat(parts) if len(parts) > 1 else x)
+    return windows
+
+
+# ---------------------------------------------------------------------------
+# The standalone distributed CG (plain torch per shard)
+# ---------------------------------------------------------------------------
+
+def _dia_padded_rows(n: int, offsets) -> int:
+    """The JAX package's padded DIA row count (device_matrix.csr_to_dia):
+    a row tile of at least the halo width and MIN_ROW_TILE, n rounded up
+    to whole tiles."""
+    hneg, hpos = _halo(offsets)
+    tile = max(_MIN_ROW_TILE,
+               -(-(hneg + hpos) // _MIN_ROW_TILE) * _MIN_ROW_TILE)
+    return max(tile, -(-n // tile) * tile)
+
+
+@dataclasses.dataclass
+class ShardedDIA:
+    """A DIA matrix cut for the mesh: data (k, npad), zero past n_rows,
+    whose column blocks are the shards' rows."""
+
+    data: torch.Tensor
+    offsets: Tuple[int, ...]
+    n_rows: int
+    n_cols: int
+
+    @property
+    def npad(self) -> int:
+        return self.data.shape[1]
+
+
+def shard_dia(A, mesh: Mesh, axis: str = AXIS) -> ShardedDIA:
+    """A DeviceDIA padded to the JAX package's row count and cut into the
+    mesh's row blocks; raises where a halo exceeds a shard."""
+    npad = _dia_padded_rows(A.n_rows, A.offsets)
+    n_dev = mesh.size
+    if npad % n_dev:
+        raise ValueError(f"padded rows {npad} not divisible by {n_dev} "
+                         "devices")
+    local = npad // n_dev
+    hneg, hpos = _halo(A.offsets)
+    if hneg > local or hpos > local:
+        raise ValueError(
+            f"halo ({hneg},{hpos}) exceeds local shard length {local}; "
+            "use fewer devices or a larger matrix")
+    data = torch.nn.functional.pad(A.data.to(mesh.devices[0]),
+                                   (0, npad - A.data.shape[1]))
+    return ShardedDIA(data=data, offsets=tuple(A.offsets), n_rows=A.n_rows,
+                      n_cols=A.n_cols)
+
+
+def sharded_spmv_dia(mesh: Mesh, data_shards: Sequence[torch.Tensor],
+                     offsets, x_shards: Sequence[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+    """Each shard's block of y = A·x: the halo exchange, then the shifted-
+    slice accumulation of the single-device plain SpMV on its window."""
+    hneg, hpos = _halo(offsets)
+    out = []
+    for data_l, xp in zip(data_shards,
+                          _halo_exchange(mesh, x_shards, hneg, hpos)):
+        local = data_l.shape[1]
+        y = torch.zeros(local, dtype=xp.dtype, device=xp.device)
+        for d, off in enumerate(offsets):
+            y = y + data_l[d].to(xp.dtype) * xp[hneg + off:hneg + off + local]
+        out.append(y)
+    return out
+
+
+def sharded_two_stage(mesh: Mesh, T_shards, offsets, dinv_shards,
+                      y_shards, inner_iters: int) -> List[torch.Tensor]:
+    """The Jacobi-Richardson triangular-solve approximation per shard (the
+    reference's two_stage_gauss_seidel, kernels.hpp:312-333): each inner
+    sweep is one halo exchange and local work."""
+    work = [d * y for d, y in zip(dinv_shards, y_shards)]
+    out = list(work)
+    for _ in range(inner_iters):
+        t = sharded_spmv_dia(mesh, T_shards, offsets, work)
+        work = [-d * ti for d, ti in zip(dinv_shards, t)]
+        out = [o + w for o, w in zip(out, work)]
+    return out
+
+
+@dataclasses.dataclass
+class ShardedCG:
+    """Distributed PCG: solvers/cg.py's recurrence (the reference's
+    cg.hpp:6-54) with per-shard dots summed by psum and the halo-exchanged
+    SpMV.  Preconditioners: none, Jacobi (D_inv), or the symmetric
+    two-stage form (L_strict, U_strict, D): each inner sweep one more
+    exchange.  Vectors are padded to npad rows."""
+
+    mesh: Mesh
+    A: ShardedDIA
+    b: torch.Tensor
+    D_inv: Optional[torch.Tensor]
+    npad: int
+    axis: str = AXIS
+    L_strict: Optional[ShardedDIA] = None
+    U_strict: Optional[ShardedDIA] = None
+    D: Optional[torch.Tensor] = None
+    inner_iters: int = 1
+
+    def _shards(self, v, dim=0):
+        return _split(v, self.mesh.size, dim)
+
+    def _spmv(self, M: ShardedDIA, v: torch.Tensor) -> torch.Tensor:
+        return torch.cat(sharded_spmv_dia(self.mesh, self._shards(M.data, 1),
+                                          M.offsets, self._shards(v)))
+
+    def _pdot(self, a, b):
+        return self.mesh.psum([torch.dot(u, v) for u, v in
+                               zip(self._shards(a), self._shards(b))])
+
+    def _two_stage(self, T: ShardedDIA, y):
+        return torch.cat(sharded_two_stage(
+            self.mesh, self._shards(T.data, 1), T.offsets,
+            self._shards(self.D_inv), self._shards(y), self.inner_iters))
+
+    def _apply_M(self, y):
+        if self.L_strict is not None:
+            z = self._two_stage(self.L_strict, y) * self.D
+            return self._two_stage(self.U_strict, z)
+        if self.D_inv is not None:
+            return y * self.D_inv
+        return y
+
+    def init_state(self, x0: torch.Tensor) -> dict:
+        r = self.b - self._spmv(self.A, x0)
+        z = self._apply_M(r)
+        rn = torch.sqrt(self._pdot(r, r))
+        return {"x": x0, "r": r, "z": z, "p": z, "residual_norm": rn}
+
+    def step_fn(self):
+        """One CG iteration as a state → state function."""
+        def step(state):
+            x, r, z, p = state["x"], state["r"], state["z"], state["p"]
+            t = self._spmv(self.A, p)
+            rz = self._pdot(r, z)
+            alpha = rz / self._pdot(t, p)
+            x = x + alpha * p
+            r_new = r - alpha * t
+            z_new = self._apply_M(r_new)
+            beta = self._pdot(r_new, z_new) / rz
+            p_new = z_new + beta * p
+            rn = torch.sqrt(self._pdot(r_new, r_new))
+            return {"x": x, "r": r_new, "z": z_new, "p": p_new,
+                    "residual_norm": rn}
+        return step
+
+
+def make_sharded_cg(A, b: torch.Tensor, mesh: Mesh,
+                    D_inv: Optional[torch.Tensor] = None,
+                    two_stage: bool = False, inner_iters: int = 1,
+                    axis: str = AXIS) -> ShardedCG:
+    """The distributed CG of a DeviceDIA; two_stage=True builds the
+    symmetric two-stage preconditioner from the DIA split (dia.dia_split),
+    which needs D_inv."""
+    from ..dia import dia_split
+    npad = _dia_padded_rows(A.n_rows, A.offsets)
+    A_sh = shard_dia(A, mesh, axis)
+    b_sh = shard_vector(b, npad, mesh)
+    dinv_sh = shard_vector(D_inv, npad, mesh) if D_inv is not None else None
+    L_sh = U_sh = D_sh = None
+    if two_stage:
+        if D_inv is None:
+            raise ValueError("two_stage needs D_inv")
+        L, U, D, _ = dia_split(A)
+        L_sh = shard_dia(L, mesh, axis)
+        U_sh = shard_dia(U, mesh, axis)
+        D_sh = shard_vector(D.to(b.dtype), npad, mesh)
+    return ShardedCG(mesh=mesh, A=A_sh, b=b_sh, D_inv=dinv_sh, npad=npad,
+                     axis=axis, L_strict=L_sh, U_strict=U_sh, D=D_sh,
+                     inner_iters=inner_iters)
+
+
+# ---------------------------------------------------------------------------
+# shard_setup
+# ---------------------------------------------------------------------------
+
+class _MeshIneligible(Exception):
+    """This setup cannot take the shard_map (mesh-kernel) path."""
+
+
+def shard_setup(setup, mesh: Mesh, axis: str = AXIS, mode: str = "auto"):
+    """Re-home a SolverSetup onto a device mesh: the shard_map mode of the
+    JAX package, the operators wrapped as mesh operators whose kernels run
+    per shard with halo exchange (parallel/mesh_ops.py); `solve` then
+    takes the setup as it is.  Vectors stay whole on the mesh's device.
+
+    "gspmd" has no counterpart yet (slice 8c), and "auto" raises where the
+    JAX package falls back to it, naming why the shard_map mode refused."""
+    if mode not in ("auto", "shard_map", "gspmd"):
+        raise ValueError(f"unknown shard_setup mode: {mode}")
+    if mode == "gspmd":
+        raise ValueError(
+            "shard_setup mode 'gspmd' is not ported yet (slice 8c: "
+            "torch.distributed.tensor over one process a card)")
+    if len(set(mesh.devices)) != 1:
+        raise ValueError(
+            "this slice runs a mesh whose shards share one device; a mesh "
+            f"over the devices {sorted(set(map(str, mesh.devices)))} needs "
+            "per-device storage (slice 8c)")
+    if setup.b.device != mesh.devices[0]:
+        raise ValueError(f"the setup lies on {setup.b.device}, the mesh on "
+                         f"{mesh.devices[0]}")
+    try:
+        return _shard_setup_mesh(setup, mesh, axis)
+    except _MeshIneligible as e:
+        if mode == "shard_map":
+            raise ValueError(f"shard_map mode unavailable: {e}") from e
+        raise ValueError(
+            f"shard_map mode unavailable: {e}; the JAX package's 'auto' "
+            "falls back to its GSPMD mode here, which is not ported yet "
+            "(slice 8c)") from e
+
+
+def _shard_setup_mesh(setup, mesh: Mesh, axis: str = AXIS):
+    """The shard_map mode: wrap every operator of the setup for the mesh;
+    raises _MeshIneligible, in the JAX package's order, for what cannot
+    take the path."""
+    from ..device_matrix import DeviceDIA
+    from ..ops.block_trisolve import SuperBlockTriSolve
+    from ..ops.lane_ell import DeviceLaneELL
+    from ..stencil_op import DeviceStencil
+    from .mesh_ops import wrap_dia, wrap_lane_ell, wrap_stencil
+
+    M = setup.M
+    blocks = [B for B in (M.L_block, M.U_block, setup.gs_L_block,
+                          setup.gs_U_block) if B is not None]
+    if not all(isinstance(B, SuperBlockTriSolve) for B in blocks):
+        raise _MeshIneligible(
+            "rank-space blocked trisolves are not mesh-sharded")
+    if M.L_solve is not None or M.U_solve is not None:
+        raise _MeshIneligible(
+            "level-scan trisolves have cross-shard recurrences")
+    if setup.L_solve is not None or setup.U_solve is not None:
+        raise _MeshIneligible(
+            "level-scan GS solver data has cross-shard recurrences")
+    n_dev = mesh.size
+    A = setup.A
+    if isinstance(A, DeviceStencil):
+        if M.mg_data is not None:
+            raise _MeshIneligible(
+                "multigrid hierarchy is not mesh-wrapped; use mode='gspmd' "
+                "(not ported yet: slice 8c)")
+        if setup.color_arr is not None or M.color_arr is not None:
+            raise _MeshIneligible(
+                "greedy color arrays don't shard with spec kernels")
+
+        def wrap(Mt):
+            if not isinstance(Mt, DeviceStencil):
+                raise _MeshIneligible("mixed matrix families in setup")
+            return wrap_stencil(dataclasses.replace(Mt, shards=n_dev), mesh,
+                                axis)
+    elif isinstance(A, DeviceDIA):
+        def wrap(Mt):
+            if not isinstance(Mt, DeviceDIA):
+                raise _MeshIneligible("mixed matrix families in setup")
+            return wrap_dia(Mt, mesh, axis)
+    elif isinstance(A, DeviceLaneELL):
+        # greedy colour arrays (exact coloured GS/SGS on general CSR) are
+        # row vectors like any other: each sweep step is one mesh SpMV and
+        # a masked update, so the masks partition with the rows
+        def wrap(Mt):
+            if isinstance(Mt, DeviceLaneELL):
+                return wrap_lane_ell(Mt, mesh, axis)
+            if isinstance(Mt, DeviceDIA):
+                return wrap_dia(Mt, mesh, axis)
+            raise _MeshIneligible("mixed matrix families in setup")
+    else:
+        raise _MeshIneligible(f"no mesh kernels for {type(A).__name__}")
+    if not isinstance(A, DeviceStencil) and setup.b.shape[0] % n_dev:
+        # the JAX package shards these vectors unpadded
+        raise _MeshIneligible(f"vector length {setup.b.shape[0]} not "
+                              f"divisible by {n_dev} devices")
+    A_new = wrap(A)
+    re_mat = lambda Mt: None if Mt is None else (  # noqa: E731
+        A_new if Mt is A else wrap(Mt))
+    M_sh = dataclasses.replace(
+        M, L_strict_dev=re_mat(M.L_strict_dev),
+        U_strict_dev=re_mat(M.U_strict_dev),
+        A_full_dev=re_mat(M.A_full_dev))
+    if blocks:
+        raise _MeshIneligible(
+            "superblock trisolves are not mesh-sharded in the port yet "
+            "(slice 8b)")
+    return dataclasses.replace(setup, A=A_new, M=M_sh)

@@ -159,7 +159,10 @@ def setup_preconditioner_dia(A, config: SolverConfig) -> Preconditioner:
         D = _diagonal(A, dtype)
         M = Preconditioner(A_D=D, A_D_inv=(1.0 / D).to(dtype),
                            color_spec=spec, n_colors=spec.n_colors, **kw)
-        if isinstance(A, DeviceStencil) and spec.kind == "grid":
+        # planar_vectors="on" keeps the masked sweeps, as in the JAX
+        # package (its planar operators take no superblock route)
+        if (isinstance(A, DeviceStencil) and spec.kind == "grid"
+                and config.planar_vectors != "on"):
             try:
                 L_blk, U_blk = build_superblock_gs_pair_stencil(
                     A, spec, dtype=dtype,
@@ -277,11 +280,13 @@ def _colored_ilu0(A: MatrixCSR, config: SolverConfig, kw, dtype, device,
     colors, spec = _colors_for_setup(A, config)
     done = lambda L, U: Preconditioner(  # noqa: E731
         L_block=L, U_block=U, color_spec=spec, n_colors=spec.n_colors, **kw)
+    from .parallel.mesh_ops import unwrap
+    op = unwrap(A_dev)
     if spec is not None and spec.kind == "grid" and isinstance(
-            A_dev, DeviceStencil):
+            op, DeviceStencil):
         try:
             return done(*build_superblock_ilu0_pair_stencil(
-                A_dev, spec, dtype=dtype, pivot_tolerance=tol,
+                op, spec, dtype=dtype, pivot_tolerance=tol,
                 pivot_replacement=repl))
         except BlockIneligibleError:
             pass

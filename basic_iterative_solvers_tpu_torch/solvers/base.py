@@ -296,8 +296,8 @@ def preprocessing_device(A_dev, config: SolverConfig, b: Optional[Any] = None,
                 build_superblock_gs_pair_stencil, stencil_blocked_eligible)
             setup.color_spec = spec_for_device(A_dev)
             setup.n_colors = setup.color_spec.n_colors
-            if is_stencil and stencil_blocked_eligible(A_dev,
-                                                       setup.color_spec):
+            if (is_stencil and config.planar_vectors != "on"
+                    and stencil_blocked_eligible(A_dev, setup.color_spec)):
                 # residual-form sweeps through the const-mode superblock
                 # solves: x ← x + M⁻¹(b − A·x), M the exact GS/SGS operator
                 # of the coloured ordering
@@ -314,12 +314,14 @@ def _f64_operands(setup: SolverSetup):
     device, cached on the setup (one-time work).  A stencil or DIA matrix
     is upcast; a host-CSR setup's operator is rebuilt from the float64
     host matrix in the same format, so the residual sees the exact
-    values."""
+    values.  A mesh setup's oracle is its single-device operator (the
+    refinement forms reach the operator only through here)."""
     cached = getattr(setup, "_f64_ops_cache", None)
     if cached is not None:
         return cached
     from ..device_matrix import DeviceDIA, DeviceELL, from_csr
-    A = setup.A
+    from ..parallel.mesh_ops import unwrap
+    A = unwrap(setup.A)
     if isinstance(A, DeviceStencil):
         A64 = stencil_astype(A, torch.float64)
     elif setup.A_host is not None:

@@ -87,7 +87,12 @@ class GMRESMethod:
 
     def _fused_unavailable(self) -> str:
         """Why the fused basis kernels cannot take this solve ("" when
-        they can): it depends on the solve and basis dtypes only."""
+        they can): a mesh operator, or the solve and basis dtypes."""
+        from ..parallel.mesh_ops import MeshDIA, MeshLaneELL, MeshStencil
+        if isinstance(self.A, (MeshDIA, MeshLaneELL, MeshStencil)):
+            # the JAX package's mesh GMRES orthogonalises with the plain
+            # global operations (gmres.py:99-104)
+            return "mesh operators run orthogonalization as plain ops"
         if self.b.dtype != torch.float32:
             return f"needs a float32 solve dtype (got {self.b.dtype})"
         vdt = self.basis_dtype or torch.float32

@@ -79,6 +79,9 @@ class DeviceStencil:
     dims: Tuple[int, int, int]
     n_rows: int
     n_cols: int
+    #: the row mesh's shard count this operator is laid out for
+    #: (parallel/mesh_ops.py); 1 = the single-device operator
+    shards: int = 1
 
     @property
     def dtype(self) -> torch.dtype:
@@ -93,6 +96,14 @@ class DeviceStencil:
         nx, ny, _ = self.dims
         return tuple(sorted({dx + nx * (dy + ny * dz)
                              for (dx, dy, dz) in self.legs}))
+
+    @property
+    def halo(self) -> Tuple[int, int]:
+        """(hneg, hpos): the rows a shard's window needs below and above
+        its own, the largest negative and positive flat leg offsets."""
+        offs = self.offsets
+        return ((max(0, -min(offs)), max(0, max(offs))) if offs
+                else (0, 0))
 
 
 def _legs_sorted(legs_coeffs):
@@ -214,26 +225,35 @@ def stencil_spmv_plain(A: DeviceStencil, x: torch.Tensor, dots=(),
     """Plain PyTorch version of the kernel: one masked, shifted
     multiply-add per leg in leg order, then one `torch.dot` per requested
     dot, the coefficients and the diagonal widened to x's dtype.  Returns
-    y, or (y, *dots) when dots are requested."""
+    y, or (y, *dots) when dots are requested.  It is the shard-local plain
+    version on the whole grid: one shard, x zero-padded by the halo."""
     _check_operands(A, x, dots, aux)
+    return _spmv_window_plain(A, torch.nn.functional.pad(x, A.halo), 0,
+                              dots, aux, A.diag)
+
+
+def _spmv_window_plain(A: DeviceStencil, xw: torch.Tensor, row0: int, dots,
+                       aux, diag):
+    """The rows [row0, row0 + rows) of A·x from the window xw of x (hneg
+    rows below them, hpos above), masked by their global coordinates;
+    rows at or past n are inert (0)."""
     n = A.n_rows
     nx, ny, nz = A.dims
-    offs = A.offsets
-    hneg = max(0, -min(offs)) if offs else 0
-    hpos = max(0, max(offs)) if offs else 0
-    xp = torch.nn.functional.pad(x, (hneg, hpos))
-    g = torch.arange(n, device=x.device)
+    hneg, hpos = A.halo
+    rows = xw.numel() - hneg - hpos
+    g = row0 + torch.arange(rows, device=xw.device)
     masks = _leg_masks(g, A.legs, nx, ny, nz, n)
-    y = torch.zeros_like(x)
+    y = torch.zeros(rows, dtype=xw.dtype, device=xw.device)
     for l, (dx, dy, dz) in enumerate(A.legs):
         lin = dx + nx * (dy + ny * dz)
-        contrib = torch.where(masks[l], xp[hneg + lin:hneg + lin + n], 0.0)
-        coeff = (A.diag if ((dx, dy, dz) == (0, 0, 0) and A.diag is not None)
+        contrib = torch.where(masks[l], xw[hneg + lin:hneg + lin + rows],
+                              0.0)
+        coeff = (diag if ((dx, dy, dz) == (0, 0, 0) and diag is not None)
                  else A.coeffs[l])
-        y = torch.addcmul(y, coeff.to(x.dtype), contrib)
+        y = torch.addcmul(y, coeff.to(xw.dtype), contrib)
     if not dots:
         return y
-    partner = {"x": x, "self": y, "aux": aux}
+    partner = {"x": xw[hneg:hneg + rows], "self": y, "aux": aux}
     return (y,) + tuple(torch.dot(y, partner[k]) for k in dots)
 
 
@@ -440,6 +460,119 @@ stencil_spmv_stream.outside_reach = 0
 
 
 # ---------------------------------------------------------------------------
+# Shard-local SpMV (the JAX package's halo/row0 form of #1)
+# ---------------------------------------------------------------------------
+
+def _check_window(A: DeviceStencil, xw: torch.Tensor, row0: int, diag,
+                  out, dots=(), aux=None) -> int:
+    """Check a shard's window and return its own row count: whole x-lines
+    from a line start, the diagonal slice (rows,) in A's dtype where A has
+    a diagonal, `out` and, for an "aux" dot, `aux` (rows,) like xw."""
+    for kind in dots:
+        if kind not in DOT_KINDS:
+            raise ValueError(f"unknown fused-dot kind: {kind!r}")
+    if "aux" in dots and aux is None:
+        raise ValueError("dots containing 'aux' require the aux vector")
+    hneg, hpos = A.halo
+    nx = A.dims[0]
+    if not isinstance(xw, torch.Tensor) or xw.dim() != 1:
+        raise TypeError("the window must be a 1-D torch.Tensor")
+    rows = xw.numel() - hneg - hpos
+    if rows <= 0 or rows % nx or row0 < 0 or row0 % nx:
+        raise ValueError(f"a shard owns whole x-lines: window of "
+                         f"{xw.numel()} with halo ({hneg}, {hpos}), row0 "
+                         f"{row0}, nx {nx}")
+    if not serves_vectors(A.dtype, xw.dtype):
+        raise TypeError(f"xw is {xw.dtype}, the operator {A.dtype}")
+    if xw.device != A.device or not xw.is_contiguous():
+        raise ValueError("the window must be contiguous, on the operator's "
+                         "device")
+    if (diag is None) != (A.diag is None):
+        raise ValueError("pass the shard's diagonal slice exactly when the "
+                         "operator has a diagonal")
+    for name, v, dt in (("diag", diag, A.dtype), ("out", out, xw.dtype),
+                        ("aux", aux if "aux" in dots else None, xw.dtype)):
+        if v is not None and (v.shape != (rows,) or v.dtype != dt
+                              or v.device != xw.device
+                              or not v.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({rows},) "
+                             f"{dt} tensor on {xw.device}")
+    return rows
+
+
+def stencil_spmv_halo_plain(A: DeviceStencil, xw: torch.Tensor, row0: int,
+                            dots=(), aux: torch.Tensor = None,
+                            diag: torch.Tensor = None):
+    """Plain PyTorch version of the shard-local kernel: the shard's rows
+    [row0, row0 + rows) of A·x, read from its window xw (its left
+    neighbour's last hneg rows, its own rows, its right neighbour's first
+    hpos rows, `A.halo`), masked by global coordinates, inert past n;
+    `diag` is the shard's slice of A's diagonal, the dots are the shard's
+    partial sums.  Returns y, or (y, *dots)."""
+    dots = tuple(dots)
+    _check_window(A, xw, row0, diag, None, dots, aux)
+    return _spmv_window_plain(A, xw, row0, dots, aux, diag)
+
+
+def _stencil_spmv_halo_cuda(A: DeviceStencil, xw, row0, rows, dots, aux,
+                            diag, out):
+    from ._build import load_library
+    use_diag, suffix = _kernel_form(A, xw)
+    args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag,
+                            tuple(dots))
+    nx = A.dims[0]
+    lines = rows // nx
+    n_blocks = -(-lines // args.block_y) * -(-nx // args.block_x)
+    y = torch.empty_like(xw[:rows]) if out is None else out
+    partials = (torch.empty((n_blocks, len(dots)), dtype=xw.dtype,
+                            device=xw.device) if dots else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = getattr(load_library(), f"bis_stencil_spmv_halo_{suffix}")
+    err = fn(xw.device.index, ctypes.byref(args), row0, lines, A.n_rows,
+             A.halo[0], ptr(xw), ptr(diag if use_diag else None),
+             ptr(aux if "aux" in dots else None), ptr(y), ptr(partials),
+             torch.cuda.current_stream(xw.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stencil_spmv_halo kernel launch failed with "
+                           f"CUDA error {err}")
+    if suffix.endswith("_bf16"):
+        stencil_spmv_halo.bf16_launches += 1
+    else:
+        stencil_spmv_halo.launches += 1
+    if not dots:
+        return y
+    return (y,) + tuple(partials.sum(dim=0).unbind())
+
+
+def stencil_spmv_halo(A: DeviceStencil, xw: torch.Tensor, row0: int,
+                      dots=(), aux: torch.Tensor = None,
+                      diag: torch.Tensor = None,
+                      out: torch.Tensor = None):
+    """One mesh shard's SpMV (the JAX package's stencil_spmv_resident with
+    halo= and row0=): `stencil_spmv_halo_plain`'s contract, y written to
+    `out` when given.  A CUDA tensor launches the shard-local kernel
+    (csrc/stencil_spmv.cu), counted in `stencil_spmv_halo.launches`
+    (`.bf16_launches` for the bfloat16-diagonal form): y bit-equal to #1's
+    rows; a CPU tensor takes the plain version."""
+    dots = tuple(dots)
+    rows = _check_window(A, xw, row0, diag, out, dots, aux)
+    if xw.device.type == "cuda":
+        return _stencil_spmv_halo_cuda(A, xw, row0, rows, dots, aux, diag,
+                                       out)
+    if xw.device.type != "cpu":
+        raise ValueError(f"no stencil SpMV for device {xw.device}")
+    res = _spmv_window_plain(A, xw, row0, dots, aux, diag)
+    if out is None:
+        return res
+    out.copy_(res[0] if dots else res)
+    return (out,) + tuple(res[1:]) if dots else out
+
+
+stencil_spmv_halo.launches = 0
+stencil_spmv_halo.bf16_launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Multicolour Gauss-Seidel step
 # ---------------------------------------------------------------------------
 
@@ -476,6 +609,53 @@ def stencil_gs_color_step_plain(A: DeviceStencil, x: torch.Tensor,
     for c in _colors(color):
         Ax = stencil_spmv_plain(A, x)
         x = torch.where(ids == c, x + (rhs - Ax) * dinv, x)
+    return x
+
+
+def _check_gs_window(A: DeviceStencil, xw, row0, rhs, dinv, spec, diag,
+                     out) -> int:
+    rows = _check_window(A, xw, row0, diag, out)
+    for name, v in (("rhs", rhs), ("dinv", dinv)):
+        if (not isinstance(v, torch.Tensor) or v.shape != (rows,)
+                or v.dtype != xw.dtype or v.device != xw.device
+                or not v.is_contiguous()):
+            raise ValueError(f"{name} must be the shard's contiguous "
+                             f"({rows},) slice, like xw")
+    if spec.kind in ("grid", "parity") and tuple(spec.params[:3]) != A.dims:
+        raise ValueError(f"colour spec dims {spec.params[:3]} do not match "
+                         f"the operator's {A.dims}")
+    return rows
+
+
+def _next_window(xw, own, hneg: int):
+    """xw with its own rows replaced by `own` (the next colour of a tuple
+    reads the shard's updated rows; the halo rows hold no colour of the
+    tuple)."""
+    return torch.cat([xw[:hneg], own, xw[hneg + own.numel():]])
+
+
+def stencil_gs_color_step_halo_plain(A: DeviceStencil, xw: torch.Tensor,
+                                     row0: int, rhs: torch.Tensor,
+                                     dinv: torch.Tensor, spec, color,
+                                     diag: torch.Tensor = None
+                                     ) -> torch.Tensor:
+    """Plain PyTorch version of the shard-local GS step: per colour c, the
+    shard's plain SpMV from its window, then its own rows
+    x = where(colour == c, x + (rhs − A·x)·dinv, x), colours and masks
+    from global coordinates, inert rows (at or past n) copied through.
+    rhs and dinv are the shard's slices; returns its own rows."""
+    from .coloring import color_ids_of
+    rows = _check_gs_window(A, xw, row0, rhs, dinv, spec, diag, None)
+    hneg = A.halo[0]
+    g = row0 + torch.arange(rows, device=xw.device)
+    ids = torch.where(g < A.n_rows, color_ids_of(spec, g), -1)
+    colors = _colors(color)
+    for j, c in enumerate(colors):
+        Ax = _spmv_window_plain(A, xw, row0, (), None, diag)
+        x = xw[hneg:hneg + rows]
+        x = torch.where(ids == c, x + (rhs - Ax) * dinv, x)
+        if j + 1 < len(colors):
+            xw = _next_window(xw, x, hneg)
     return x
 
 
@@ -533,6 +713,66 @@ stencil_gs_color_step.launches = 0
 stencil_gs_color_step.bf16_launches = 0
 
 
+def _stencil_gs_color_step_halo_cuda(A: DeviceStencil, xw, row0, rows,
+                                     rhs, dinv, spec, color, diag, out):
+    from ._build import load_library
+    use_diag, suffix = _kernel_form(A, xw)
+    args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag, ())
+    kind = _COLOR_KINDS[spec.kind]
+    p = (tuple(spec.params[3:6]) if spec.kind == "grid"
+         else (spec.params[0], 1, 1) if spec.kind == "mod" else (1, 1, 1))
+    fn = getattr(load_library(), f"bis_stencil_gs_color_step_halo_{suffix}")
+    stream = torch.cuda.current_stream(xw.device).cuda_stream
+    d = diag.data_ptr() if use_diag else None
+    hneg = A.halo[0]
+    colors = _colors(color)
+    for j, c in enumerate(colors):
+        y = out if (out is not None and j + 1 == len(colors)) else \
+            torch.empty_like(xw[:rows])
+        err = fn(xw.device.index, ctypes.byref(args), kind, *p, c, row0,
+                 rows // A.dims[0], A.n_rows, hneg, xw.data_ptr(), d,
+                 rhs.data_ptr(), dinv.data_ptr(), y.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"stencil_gs_color_step_halo kernel launch "
+                               f"failed with CUDA error {err}")
+        if suffix.endswith("_bf16"):
+            stencil_gs_color_step_halo.bf16_launches += 1
+        else:
+            stencil_gs_color_step_halo.launches += 1
+        if j + 1 < len(colors):
+            xw = _next_window(xw, y, hneg)
+    return y
+
+
+def stencil_gs_color_step_halo(A: DeviceStencil, xw: torch.Tensor,
+                               row0: int, rhs: torch.Tensor,
+                               dinv: torch.Tensor, spec, color,
+                               diag: torch.Tensor = None,
+                               out: torch.Tensor = None) -> torch.Tensor:
+    """One mesh shard's GS colour step (the JAX package's
+    stencil_gs_color_step with halo= and row0=):
+    `stencil_gs_color_step_halo_plain`'s contract, the shard's new rows
+    written to `out` when given.  A tuple of colours runs in order from
+    one window (the JAX package's superstep: its colours couple only along
+    x, inside the shard's lines).  A CUDA tensor launches the shard-local
+    kernel once per colour, counted in `stencil_gs_color_step_halo.launches`
+    (`.bf16_launches` for the bfloat16-diagonal form): bit-equal to #3's
+    rows; a CPU tensor takes the plain version."""
+    rows = _check_gs_window(A, xw, row0, rhs, dinv, spec, diag, out)
+    if xw.device.type == "cuda":
+        return _stencil_gs_color_step_halo_cuda(A, xw, row0, rows, rhs, dinv,
+                                                spec, color, diag, out)
+    if xw.device.type != "cpu":
+        raise ValueError(f"no GS colour step for device {xw.device}")
+    x = stencil_gs_color_step_halo_plain(A, xw, row0, rhs, dinv, spec, color,
+                                         diag)
+    return x if out is None else out.copy_(x)
+
+
+stencil_gs_color_step_halo.launches = 0
+stencil_gs_color_step_halo.bf16_launches = 0
+
+
 def stencil_diag(A: DeviceStencil) -> torch.Tensor:
     """Dense main diagonal (n,)."""
     if A.diag is not None:
@@ -564,6 +804,9 @@ def stencil_split(A: DeviceStencil):
             upper.append((leg, c))
     L = make_stencil(lower, nx, ny, nz, dtype=A.dtype, device=A.device)
     U = make_stencil(upper, nx, ny, nz, dtype=A.dtype, device=A.device)
+    if A.shards != 1:   # the splits share the parent's shard layout
+        L = dataclasses.replace(L, shards=A.shards)
+        U = dataclasses.replace(U, shards=A.shards)
     D = stencil_diag_vec(A)
     if bool((D == 0).any()):
         raise ValueError("zero on the matrix diagonal")

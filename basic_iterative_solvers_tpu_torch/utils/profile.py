@@ -42,7 +42,9 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PHASE_BUCKETS = (
     ("spmv", ("stencil_spmv_kernel", "stencil_spmv_stream_kernel",
               "stencil_gs_color_step_kernel", "dia_spmv_kernel",
-              "lane_ell_spmv_kernel")),
+              "lane_ell_spmv_kernel", "stencil_spmv_halo_kernel",
+              "stencil_gs_color_step_halo_kernel", "dia_spmv_halo_kernel",
+              "lane_ell_spmv_halo_kernel")),
     ("sptrsv", ("super_level_kernel", "super_acc_kernel",
                 "super_parity_kernel", "super_solve_mega_kernel",
                 "rank_level_kernel")),

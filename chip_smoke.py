@@ -112,7 +112,22 @@ exits non-zero:
      row's printed count and residual parsed and checked;
  33. the module entry point ([entry-point]): `python -m
      basic_iterative_solvers_tpu_torch hpcg:32x32x32 -cg` in a subprocess,
-     exit 0, converged, no jax imported.
+     exit 0, converged, no jax imported;
+ 34. slice 8's kernels ([mesh-kernel], run after phase 31): the shard-local
+     forms of #1, #3, #4 and #5 on an 8-shard mesh on the card, each shard
+     against its plain twin on its own window and the shards' outputs
+     concatenated against the single-device kernel, bit for bit, in every
+     type each takes (#1 at 128^3 with every dot kind, #3 on every colour
+     of fdm:2048, #4 at 128^3, #5 on sband:500000,8,400; the bf16 forms);
+     the 8 launches of one mesh call timed beside the single-device
+     kernel, the whole mesh call and the library's CSR SpMV;
+ 35. slice 8's rows ([slice8]): CG on the 128^3 stencil (2500), DIA CG at
+     128^3 (2500), cg@sband (400), SGS on fdm:2048 (200), single-device
+     and 8-shard mesh in turns, with ms/iter, launches and the mesh's
+     exchanges an iteration; f64 CG + Jacobi to 1e-8 at 128^3 on both,
+     equal counts; one step and a solve of the standalone distributed CG
+     (make_sharded_cg) on the DIA 128^3 matrix.
+Each phase's seconds are printed as a [time] line.
 The second-to-last line is a JSON object describing each kernel: launches
 on the main paths, error against plain, kernel, plain and library times,
 and the bound (the larger of the bytes it must move over the card's
@@ -163,6 +178,32 @@ def _median_ms(fn, torch, reps=20, batch=10):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
+    return statistics.median(times)
+
+
+def _device_ms(fn, torch, reps=10, batch=10, sleep_cycles=100_000_000):
+    """Median device time per call of `fn`, the host's launch cost hidden:
+    each batch is enqueued behind a sleeping kernel (~50 ms), so the events
+    around it time the device's work only.  Raises if enqueuing a batch
+    took the host longer than the sleep (the host would then show)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        torch.cuda._sleep(sleep_cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        ev[2].synchronize()
+        if host_ms >= ev[0].elapsed_time(ev[1]):
+            raise RuntimeError(f"enqueuing took {host_ms:.2f} ms, longer "
+                               "than the sleep ahead of it")
+        times.append(ev[1].elapsed_time(ev[2]) / batch)
     return statistics.median(times)
 
 
@@ -3032,50 +3073,615 @@ def phase_entry_point(torch):
                            + out.stdout[-1500:] + out.stderr[-1500:])
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: the row-sharded mesh, an 8-shard mesh on the one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8
+
+
+def _mesh_counters(bt, reset=False):
+    """The launch counts of the four shard-local kernels, f32/f64 forms
+    (`reset`: every count, bf16 forms too, set to 0 first)."""
+    from basic_iterative_solvers_tpu_torch.ops import dia_spmv, lane_ell
+    so = bt.stencil_op
+    fns = {"stencil_spmv_halo": so.stencil_spmv_halo,
+           "stencil_gs_step_halo": so.stencil_gs_color_step_halo,
+           "dia_spmv_halo": dia_spmv.dia_spmv_halo,
+           "lane_ell_spmv_halo": lane_ell.lane_ell_spmv_halo}
+    if reset:
+        for fn in fns.values():
+            fn.launches = fn.bf16_launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def _shards_vs_plain(torch, tag, label, launch, plain, counter, attr, tol,
+                     exact, timed):
+    """Every shard's kernel call launch(k) against its plain twin
+    plain(k): one launch a shard counted, the outputs (y, then its
+    dots) bit-equal where `exact`, else within tol of max|y| (a dot: of
+    Σ|terms|, given by plain's third item).  With `timed`, the 8 launches
+    of one mesh call timed together, beside the 8 plain twins.  Returns
+    (kernel outputs, max_abs_err, ms, plain_ms)."""
+    before = getattr(counter, attr)
+    outs = [launch(k) for k in range(MESH_SHARDS)]
+    torch.cuda.synchronize()
+    if getattr(counter, attr) != before + MESH_SHARDS:
+        raise RuntimeError(f"{tag} {label}: the launch count did not grow "
+                           "by one a shard")
+    err, worst = 0.0, 0.0
+    for k, out in enumerate(outs):
+        ref = plain(k)
+        out = out if isinstance(out, tuple) else (out,)
+        y_p, dot_p, scale = ref if isinstance(ref, tuple) else (ref, (), ())
+        e = float((out[0] - y_p).abs().max())
+        err = max(err, e)
+        if exact and not torch.equal(out[0], y_p):
+            raise RuntimeError(f"{tag} {label}: shard {k} differs from its "
+                               "plain twin")
+        worst = max(worst, e / (float(y_p.abs().max()) or 1.0))
+        for d_k, d_p, sc in zip(out[1:], dot_p, scale):
+            worst = max(worst, abs(float(d_k - d_p)) / (sc or 1.0))
+    if worst > tol:
+        raise RuntimeError(f"{tag} {label}: a shard disagrees with its "
+                           f"plain twin beyond {tol} ({worst:.3e})")
+    ms = plain_ms = None
+    if timed:
+        ms = _device_ms(lambda: [launch(k) for k in range(MESH_SHARDS)],
+                        torch)
+        plain_ms = _median_ms(lambda: [plain(k) for k in range(MESH_SHARDS)],
+                              torch, reps=5, batch=2)
+    return outs, err, ms, plain_ms
+
+
+def phase_mesh_kernel_vs_plain(torch, bt, sband):
+    """[mesh-kernel]: the four shard-local kernels on an 8-shard mesh on
+    the card, each shard against its plain twin on its own window (#4 and
+    #5 bit for bit, #1 and #3 within TOL: their plain versions sum leg by
+    leg), and the shards' y concatenated against the single-device kernel
+    on the whole vector, bit for bit, in every type each takes: #1 at
+    128^3 with every dot kind (f32, f64; Anderson 128^3's bf16
+    diagonal), #3 on every colour of fdm:2048 (f32, f64; Anderson bf16),
+    #4 at 128^3 (f32, f64, bf16 data), #5 on sband:500000,8,400 (f32,
+    f64, bf16 values).  Timed (f32): the 8 launches of one mesh call and
+    the single-device kernel by their device time (_device_ms: the host's
+    launch cost hidden behind a sleeping kernel), the plain twins, the
+    whole mesh call (exchange and host work included) and the library's
+    CSR SpMV by CUDA events; the bound counts the windows' halo rows.
+    Returns the four records."""
+    import dataclasses
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import dia_spmv as ds
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell as le
+    from basic_iterative_solvers_tpu_torch.parallel import make_mesh
+    from basic_iterative_solvers_tpu_torch.parallel import mesh_ops as mo
+    from basic_iterative_solvers_tpu_torch.parallel.sharded import (
+        _halo, _halo_exchange, _split)
+    so = bt.stencil_op
+    mesh = make_mesh(MESH_SHARDS, device="cuda")
+    records = {}
+
+    def pad(v, npad):
+        return torch.nn.functional.pad(v, (0, npad - v.numel()))
+
+    def windows(x, npad, hneg, hpos):
+        return _halo_exchange(mesh, _split(pad(x, npad), MESH_SHARDS), hneg,
+                              hpos)
+
+    def rnd(n, dt, seed):
+        return torch.randn(n, dtype=dt, device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(seed))
+
+    def window_bytes(wins, item):
+        return sum(w.numel() for w in wins) * item
+
+    # #1: the stencil SpMV's shard form
+    M_csr, lib_x = None, None
+    for spec, dt, md in ((MAIN_SPEC, torch.float32, torch.float32),
+                         (MAIN_SPEC, torch.float64, torch.float64),
+                         (ANDERSON_128, torch.float32, torch.bfloat16)):
+        A = so.from_source_operator(spec, md, device="cuda")
+        W = mo.wrap_stencil(dataclasses.replace(A, shards=MESH_SHARDS), mesh,
+                            "rows")
+        R, n, item = W.rows, A.n_rows, torch.empty((), dtype=dt
+                                                    ).element_size()
+        x, aux = rnd(n, dt, 21), rnd(n, dt, 22)
+        wins = windows(x, MESH_SHARDS * R, *A.halo)
+        auxs = _split(pad(aux, MESH_SHARDS * R), MESH_SHARDS)
+        diags = W.diag_shards or (None,) * MESH_SHARDS
+        attr = "bf16_launches" if md == torch.bfloat16 else "launches"
+        tol = TOL[str(dt).split(".")[1]]
+        dot_sets = (((), ("x",), ("self",), ("aux",)) if spec == MAIN_SPEC
+                    else ((), ("x",)))
+        for dots in dot_sets:
+            main = (spec, md, dots) == (MAIN_SPEC, torch.float32, ("x",))
+            ys = _split(torch.empty(MESH_SHARDS * R, dtype=dt,
+                                    device="cuda"), MESH_SHARDS)
+
+            def launch(k, dots=dots, ys=ys):
+                return so.stencil_spmv_halo(A, wins[k], k * R, dots, auxs[k],
+                                            diags[k], out=ys[k])
+
+            def plain(k, dots=dots):
+                out = so.stencil_spmv_halo_plain(A, wins[k], k * R, dots,
+                                                 auxs[k], diags[k])
+                if not dots:
+                    return out
+                partner = {"x": wins[k][A.halo[0]:A.halo[0] + R],
+                           "self": out[0], "aux": auxs[k]}
+                return (out[0], out[1:],
+                        [float((out[0] * partner[d]).abs().sum())
+                         for d in dots])
+
+            outs, err, ms, plain_ms = _shards_vs_plain(
+                torch, "mesh-kernel", f"#1 {spec} {str(dt)[6:]}"
+                f"{' bf16 diag' if md == torch.bfloat16 else ''} "
+                f"dots={','.join(dots) or '-'}", launch, plain,
+                so.stencil_spmv_halo, attr, tol, False, main)
+            single = so._stencil_spmv_cuda(A, x, dots, aux)
+            single = single if dots else (single,)
+            y8 = torch.cat([o[0] if dots else o for o in outs])[:n]
+            if not torch.equal(y8, single[0]):
+                raise RuntimeError(f"#1 halo {spec} {dt} {dots}: the shards' "
+                                   "y differs from the single-device "
+                                   "kernel's")
+            for j, kind in enumerate(dots):
+                tot = sum(float(o[1 + j]) for o in outs)
+                partner = {"x": x, "self": single[0], "aux": aux}[kind]
+                sc = float((single[0] * partner).abs().sum())
+                if abs(tot - float(single[1 + j])) > tol * sc:
+                    raise RuntimeError(f"#1 halo dot {kind} disagrees with "
+                                       "the single-device kernel's")
+            print(f"[mesh-kernel] #1 {spec} {str(dt)[6:]} "
+                  f"{'bf16-diag ' if md == torch.bfloat16 else ''}dots="
+                  f"{','.join(dots) or '-'} rows/shard={R} halo={A.halo}: "
+                  f"y bit-equal to the single-device kernel, "
+                  f"max_abs_err_vs_plain={err:.3e}")
+            if main:
+                single_ms = _device_ms(
+                    lambda: so._stencil_spmv_cuda(A, x, dots, aux), torch)
+                call_ms = _median_ms(lambda: mo.mesh_stencil_spmv(W, x, dots),
+                                     torch)
+                M_csr = _stencil_csr(torch, A)
+                lib_ms = _median_ms(lambda: M_csr @ x, torch)
+                lib_x = x
+                nnz = int(M_csr.values().numel())
+                bound = _bound(window_bytes(wins, item) + n * item,
+                               2 * nnz - n + 2 * n)
+                print(f"[mesh-kernel] #1 {spec} f32 y·x: 8 shard launches "
+                      f"ms={ms:.4f} (plain twins {plain_ms:.4f}; the "
+                      f"single-device kernel {single_ms:.4f}; the whole mesh "
+                      f"SpMV with its exchange {call_ms:.4f}; CSR SpMV "
+                      f"{lib_ms:.4f}) bound_ms={bound['bound_ms']:.5f} "
+                      f"({bound['bound_by']}, windows "
+                      f"{window_bytes(wins, item) / 1e6:.2f} MB)")
+                records["stencil_spmv_halo"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "single_ms": single_ms,
+                    "call_ms": call_ms, **bound}
+        del A, W, wins, auxs, x, aux
+    # #3: the GS colour step's shard form
+    for spec, dt, md in (("fdm:2048", torch.float32, torch.float32),
+                         ("fdm:2048", torch.float64, torch.float64),
+                         (ANDERSON_128, torch.float32, torch.bfloat16)):
+        A = so.from_source_operator(spec, md, device="cuda")
+        W = mo.wrap_stencil(dataclasses.replace(A, shards=MESH_SHARDS), mesh,
+                            "rows")
+        R, n, item = W.rows, A.n_rows, torch.empty((), dtype=dt
+                                                    ).element_size()
+        cs = spec_for_device(A)
+        x, rhs = rnd(n, dt, 23), rnd(n, dt, 24)
+        dinv = (1.0 / so.stencil_diag(A)).to(dt)
+        wins = windows(x, MESH_SHARDS * R, *A.halo)
+        rhss = _split(pad(rhs, MESH_SHARDS * R), MESH_SHARDS)
+        dinvs = _split(pad(dinv, MESH_SHARDS * R), MESH_SHARDS)
+        diags = W.diag_shards or (None,) * MESH_SHARDS
+        attr = "bf16_launches" if md == torch.bfloat16 else "launches"
+        colors = (range(cs.n_colors) if md != torch.bfloat16 else (0,))
+        for c in colors:
+            main = (dt, c) == (torch.float32, 0) and spec == "fdm:2048"
+
+            def launch(k, c=c):
+                return so.stencil_gs_color_step_halo(
+                    A, wins[k], k * R, rhss[k], dinvs[k], cs, c, diags[k])
+
+            def plain(k, c=c):
+                return so.stencil_gs_color_step_halo_plain(
+                    A, wins[k], k * R, rhss[k], dinvs[k], cs, c, diags[k])
+
+            outs, err, ms, plain_ms = _shards_vs_plain(
+                torch, "mesh-kernel", f"#3 {spec} {str(dt)[6:]} colour {c}",
+                launch, plain, so.stencil_gs_color_step_halo, attr,
+                TOL[str(dt).split(".")[1]], False, main)
+            single = so.stencil_gs_color_step(A, x, rhs, dinv, cs, c)
+            if not torch.equal(torch.cat(outs)[:n], single):
+                raise RuntimeError(f"#3 halo {spec} {dt} colour {c}: the "
+                                   "shards differ from the single-device "
+                                   "kernel")
+            print(f"[mesh-kernel] #3 {spec} {str(dt)[6:]} "
+                  f"{'bf16-diag ' if md == torch.bfloat16 else ''}{cs.kind} "
+                  f"colour {c}/{cs.n_colors} rows/shard={R}: x' bit-equal to "
+                  f"the single-device kernel, max_abs_err_vs_plain="
+                  f"{err:.3e}")
+            if main:
+                single_ms = _device_ms(lambda: so.stencil_gs_color_step(
+                    A, x, rhs, dinv, cs, 0), torch)
+                call_ms = _median_ms(lambda: mo.mesh_gs_color_step(
+                    W, x, rhs, dinv, cs, 0), torch)
+                n_c = n // cs.n_colors
+                bound = _bound(window_bytes(wins, item)
+                               + item * (n + 2 * n_c),
+                               n_c * (2 * len(A.legs) + 2))
+                print(f"[mesh-kernel] #3 {spec} f32 colour 0: 8 shard "
+                      f"launches ms={ms:.4f} (plain twins {plain_ms:.4f}; "
+                      f"single-device {single_ms:.4f}; the whole mesh step "
+                      f"{call_ms:.4f}) bound_ms={bound['bound_ms']:.5f} "
+                      f"({bound['bound_by']})")
+                records["stencil_gs_step_halo"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, "single_ms": single_ms,
+                    "call_ms": call_ms, **bound}
+        del A, W, wins, rhss, dinvs, x, rhs, dinv
+    torch.cuda.empty_cache()
+    # #4: the DIA SpMV's shard form
+    for dt, md in ((torch.float32, torch.float32),
+                   (torch.float64, torch.float64),
+                   (torch.float32, torch.bfloat16)):
+        A = bt.dia.from_source_device(MAIN_SPEC, md, device="cuda")
+        W = mo.wrap_dia(A, mesh, "rows")
+        R, n = W.rows, A.n_rows
+        item = torch.empty((), dtype=dt).element_size()
+        hneg, hpos = _halo(A.offsets)
+        x = rnd(n, dt, 25) if dt != torch.float32 or lib_x is None else lib_x
+        wins = windows(x, MESH_SHARDS * R, hneg, hpos)
+        attr = "bf16_launches" if md == torch.bfloat16 else "launches"
+        main = md == torch.float32
+        outs, err, ms, plain_ms = _shards_vs_plain(
+            torch, "mesh-kernel", f"#4 {MAIN_SPEC} {str(md)[6:]}",
+            lambda k: ds.dia_spmv_halo(W.data_shards[k], A.offsets, wins[k],
+                                       hneg),
+            lambda k: ds.dia_spmv_halo_plain(W.data_shards[k], A.offsets,
+                                             wins[k], hneg),
+            ds.dia_spmv_halo, attr, 0.0, True, main)
+        if not torch.equal(torch.cat(outs)[:n], ds.dia_spmv(A, x)):
+            raise RuntimeError(f"#4 halo {md}: the shards differ from the "
+                               "single-device kernel")
+        print(f"[mesh-kernel] #4 {MAIN_SPEC} {str(md)[6:]} data, "
+              f"{str(dt)[6:]} x, rows/shard={R}: bit-equal to plain and to "
+              f"the single-device kernel")
+        if main:
+            single_ms = _device_ms(lambda: ds.dia_spmv(A, x), torch)
+            call_ms = _median_ms(lambda: mo.mesh_dia_spmv(W, x), torch)
+            lib_ms = _median_ms(lambda: M_csr @ x, torch)
+            k = len(A.offsets)
+            bound = _bound(k * MESH_SHARDS * R * item
+                           + window_bytes(wins, item) + n * item, 2 * k * n)
+            print(f"[mesh-kernel] #4 {MAIN_SPEC} f32: 8 shard launches "
+                  f"ms={ms:.4f} (plain twins {plain_ms:.4f}; single-device "
+                  f"{single_ms:.4f}; the whole mesh SpMV {call_ms:.4f}; CSR "
+                  f"SpMV {lib_ms:.4f}) bound_ms={bound['bound_ms']:.4f} "
+                  f"({bound['bound_by']})")
+            records["dia_spmv_halo"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "single_ms": single_ms,
+                "call_ms": call_ms, **bound}
+        del A, W, wins, outs
+        torch.cuda.empty_cache()
+    del M_csr
+    # #5: the lane-ELL SpMV's shard form
+    C = _csr_on_card(torch, sband, torch.float32)
+    for dt, md in ((torch.float32, torch.float32),
+                   (torch.float64, torch.float64),
+                   (torch.float32, torch.bfloat16)):
+        M = bt.from_csr(sband, md, "lane_ell", device="cuda")
+        W = mo.wrap_lane_ell(M, mesh, "rows")
+        E, R, n = W.inner, W.rows, M.n_rows
+        item = torch.empty((), dtype=dt).element_size()
+        h = E.S * le.LANES
+        x = rnd(n, dt, 26)
+        wins = windows(x, E.R * le.LANES, h, h)
+        attr = "bf16_launches" if md == torch.bfloat16 else "launches"
+        main = md == torch.float32
+        outs, err, ms, plain_ms = _shards_vs_plain(
+            torch, "mesh-kernel", f"#5 {SBAND} {str(md)[6:]}",
+            lambda k: le.lane_ell_spmv_halo(E, W.vals_shards[k],
+                                            W.idx_shards[k], wins[k], k * R,
+                                            E.S),
+            lambda k: le.lane_ell_spmv_halo_plain(E, W.vals_shards[k],
+                                                  W.idx_shards[k], wins[k],
+                                                  k * R, E.S),
+            le.lane_ell_spmv_halo, attr, 0.0, True, main)
+        if not torch.equal(torch.cat(outs)[:n], le.lane_ell_spmv(M, x)):
+            raise RuntimeError(f"#5 halo {md}: the shards differ from the "
+                               "single-device kernel")
+        print(f"[mesh-kernel] #5 {SBAND} {str(md)[6:]} values, "
+              f"{str(dt)[6:]} x, K={E.K} S={E.S} x2-rows/shard={R}: "
+              "bit-equal to plain and to the single-device kernel")
+        if main:
+            single_ms = _device_ms(lambda: le.lane_ell_spmv(M, x), torch)
+            call_ms = _median_ms(lambda: mo.mesh_lane_ell_spmv(W, x), torch)
+            lib_ms = _median_ms(lambda: C @ x, torch)
+            rows = E.R * le.LANES
+            bound = _bound(E.K * rows * (item + 4) + window_bytes(wins, item)
+                           + rows * item, 2 * E.K * n)
+            print(f"[mesh-kernel] #5 {SBAND} f32: 8 shard launches "
+                  f"ms={ms:.4f} (plain twins {plain_ms:.4f}; single-device "
+                  f"{single_ms:.4f}; the whole mesh SpMV {call_ms:.4f}; CSR "
+                  f"SpMV {lib_ms:.4f}) bound_ms={bound['bound_ms']:.4f} "
+                  f"({bound['bound_by']})")
+            records["lane_ell_spmv_halo"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "single_ms": single_ms,
+                "call_ms": call_ms, **bound}
+        del M, W, E, wins, outs
+    del C
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_slice8(torch, bt, sband):
+    """[slice8]: the slice's rows on an 8-shard mesh on the card, f32,
+    fused, tolerance 0, b = 2, x0 = 1, single-device and mesh in turns
+    (single, mesh, mesh, single), each after a warm-up solve with every
+    count set to 0 just before the timed solve and read just after: CG on
+    the HPCG 128^3 stencil (2500 iterations), DIA CG at 128^3 (2500),
+    cg@sband on lane-ELL (400), SGS on fdm:2048 (200, the coloured sweeps
+    through #3's shard form); ms/iter, launches and the mesh's exchanges
+    and bytes an iteration.  Then f64 CG + Jacobi to 1e-8·||r0|| at 128^3,
+    mesh against single-device (equal counts, histories within rtol
+    1e-8), and one step and a solve of the standalone distributed CG
+    (make_sharded_cg, the JAX package's dryrun_multichip's first stage)
+    on the DIA 128^3 matrix.  Returns each halo kernel's launches in its
+    first mesh row and the rows' numbers."""
+    import math
+    import numpy as np
+    from basic_iterative_solvers_tpu_torch.parallel import (
+        make_mesh, make_sharded_cg, shard_setup)
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    S = bt.SolverType
+    mesh = make_mesh(MESH_SHARDS, device="cuda")
+
+    def dia_cg():
+        A = bt.dia.from_source_device(MAIN_SPEC, torch.float32,
+                                      device="cuda")
+        n = A.n_rows
+        return bt.preprocessing_device(
+            A, bt.SolverConfig(dtype=torch.float32, harness="fused",
+                               tolerance=0.0, max_iters=2500,
+                               breakdown_stall=True),
+            b=torch.full((n,), 2.0, device="cuda"),
+            x0=torch.full((n,), 1.0, device="cuda"))
+
+    rows = (("cg", f"{MAIN_SPEC} f32 CG (stencil)", 2500, "stencil_spmv_halo",
+             lambda: _hpcg_cg(torch, bt, MAIN_SPEC, torch.float32,
+                              max_iters=2500, tolerance=0.0,
+                              breakdown_stall=True)),
+            ("dia_cg", f"{MAIN_SPEC} f32 DIA CG", 2500, "dia_spmv_halo",
+             dia_cg),
+            ("cg@sband", f"{SBAND} f32 cg@sband lane_ell", 400,
+             "lane_ell_spmv_halo",
+             lambda: _host_solve(torch, bt, sband, "cuda", torch.float32,
+                                 "CONJUGATE_GRADIENT",
+                                 matrix_format="lane_ell", tolerance=0.0,
+                                 max_iters=400, breakdown_stall=True)[0]),
+            ("sgs@fdm2048", "fdm:2048 f32 SGS (masked sweeps)", 200,
+             "stencil_gs_step_halo",
+             lambda: _setup(torch, bt, "fdm:2048", torch.float32, "cuda",
+                            S.SYMMETRIC_GAUSS_SEIDEL, max_iters=200,
+                            tolerance=0.0)))
+    launches, numbers = {}, {}
+    for name, label, iters, kernel, make in rows:
+        torch.cuda.empty_cache()
+        s1 = make()
+        s8 = shard_setup(s1, mesh, mode="shard_map")   # s1 stays as it is
+        if s8.gs_L_block is not None or s1.gs_L_block is not None:
+            raise RuntimeError(f"{label} took the superblock route")
+        m1, m8 = make_method(s1), make_method(s8)
+        bt.solve(s1, method=m1)                       # warm-up solves
+        bt.solve(s8, method=m8)
+        ms = {"single": [], "mesh": []}
+        for which in ("single", "mesh", "mesh", "single"):
+            setup, method = (s8, m8) if which == "mesh" else (s1, m1)
+            _mesh_counters(bt, reset=True)
+            _sparse_counters(bt, reset=True)
+            bt.stencil_op.stencil_gs_color_step.launches = 0
+            mesh.reset_counts()
+            res = bt.solve(setup, method=method)
+            counts = _mesh_counters(bt)
+            single = _sparse_counters(bt)
+            single["stencil_gs_color_step"] = (
+                bt.stencil_op.stencil_gs_color_step.launches)
+            exch = dict(mesh.counts)
+            it = max(1, res.iter_count)
+            ms[which].append(1e3 * res.solve_seconds / it)
+            ok = (res.iter_count == iters
+                  and math.isfinite(res.final_residual_norm)
+                  and bool(torch.isfinite(res.x_star).all()))
+            if which == "mesh":
+                ok = ok and counts[kernel] >= MESH_SHARDS * iters
+                ok = ok and exch["psum_bytes"] <= 8 * 3 * 8 * exch["psum"]
+                launches.setdefault(kernel, counts[kernel])
+            else:
+                ok = ok and not any(counts.values())
+            per = {k: round(v / it, 3) for k, v in
+                   ({**counts, **single} if which == "mesh" else single)
+                   .items() if v}
+            print(f"[slice8] {label} {which}: iters={res.iter_count} "
+                  f"ms/iter={ms[which][-1]:.5f} r0={res.residual_norms[0]:.6e}"
+                  f" final_explicit_f64={res.final_residual_norm:.6e} "
+                  f"launches/iter={per}"
+                  + (f" exchanges/iter: ppermute="
+                     f"{exch['ppermute'] / it:.3f} "
+                     f"({exch['ppermute_bytes'] / it / 1e6:.4f} MB) psum="
+                     f"{exch['psum'] / it:.3f} ({exch['psum_bytes'] / it:.1f}"
+                     f" B)" if which == "mesh" else ""))
+            if not ok:
+                raise RuntimeError(f"[slice8] {label} {which} failed its "
+                                   "checks")
+        numbers[name] = ms
+        del s1, s8, m1, m8
+
+    # f64 CG + Jacobi to 1e-8 on the mesh and on one device
+    res = {}
+    for which in ("single", "mesh"):
+        setup = _hpcg_cg(torch, bt, MAIN_SPEC, torch.float64,
+                         preconditioner=bt.PrecondType.JACOBI,
+                         tolerance=1e-8, max_iters=2000)
+        if which == "mesh":
+            setup = shard_setup(setup, mesh, mode="shard_map")
+        res[which] = bt.solve(setup)
+    r1, r8 = res["single"], res["mesh"]
+    dev = float(np.max(np.abs(r8.residual_norms[:-1] - r1.residual_norms[:-1])
+                       / r1.residual_norms[:-1])) \
+        if len(r8.residual_norms) == len(r1.residual_norms) else float("inf")
+    print(f"[slice8] {MAIN_SPEC} f64 CG + Jacobi to 1e-8: iters "
+          f"single={r1.iter_count} mesh={r8.iter_count} max rel history "
+          f"difference {dev:.3e}; final explicit single="
+          f"{r1.final_residual_norm:.6e} mesh={r8.final_residual_norm:.6e}")
+    if not (r1.converged and r8.converged and r1.iter_count == r8.iter_count
+            and dev <= 1e-8):
+        raise RuntimeError("the f64 mesh solve differs from the "
+                           "single-device solve")
+
+    # the standalone distributed CG on the DIA 128^3 matrix
+    from basic_iterative_solvers_tpu_torch.dia import dia_diag
+    from basic_iterative_solvers_tpu_torch.ops.dia_spmv import dia_spmv
+    for dt in (torch.float32, torch.float64):
+        A = bt.dia.from_source_device(MAIN_SPEC, dt, device="cuda")
+        n = A.n_rows
+        x_star = torch.linspace(0.0, 1.0, n, dtype=dt, device="cuda")
+        b = dia_spmv(A, x_star)
+        cg = make_sharded_cg(A, b, mesh, D_inv=1.0 / dia_diag(A))
+        state = cg.init_state(cg.b * 0.0)
+        step = cg.step_fn()
+        r0 = float(state["residual_norm"])
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        state = step(state)
+        r1n = float(state["residual_norm"])
+        if dt == torch.float32:
+            print(f"[slice8] make_sharded_cg {MAIN_SPEC} f32 DIA + Jacobi: "
+                  f"one distributed step ||r0||={r0:.6e} ||r1||={r1n:.6e} "
+                  f"npad={cg.npad} exchanges={mesh.counts}")
+            if not (math.isfinite(r1n) and r1n > 0.0):
+                raise RuntimeError("the distributed CG step failed")
+            continue
+        it = 1
+        while r1n > 1e-8 * r0 and it < 2000:
+            state = step(state)
+            r1n = float(state["residual_norm"])
+            it += 1
+        secs = time.perf_counter() - t0
+        ref = bt.solve(bt.preprocessing_device(
+            A, bt.SolverConfig(dtype=dt, harness="host", tolerance=1e-8,
+                               preconditioner=bt.PrecondType.JACOBI,
+                               max_iters=2000),
+            b=b, x0=torch.zeros(n, dtype=dt, device="cuda")))
+        err = float((state["x"][:n] - x_star).abs().max())
+        print(f"[slice8] make_sharded_cg {MAIN_SPEC} f64 DIA + Jacobi to "
+              f"1e-8: iters={it} (single-device CG + Jacobi "
+              f"{ref.iter_count}) ms/iter={1e3 * secs / it:.3f} "
+              f"max|x - x*|={err:.3e}")
+        if it != ref.iter_count or not err < 1e-5:
+            raise RuntimeError("the distributed CG solve differs from the "
+                               "single-device solve")
+        del A, cg, state, b, x_star
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
 def main():
     import torch
+    t_last = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print(f"[time] {phase} {now - t_last[0]:.1f} s")
+        t_last[0] = now
+
     name = phase_device(torch)
+    lap("device")
     import basic_iterative_solvers_tpu_torch as bt
     phase_build()
+    lap("build")
     from basic_iterative_solvers_tpu_torch.ops import gmres_basis
     record = phase_kernel_vs_plain(torch, bt.stencil_op)
+    lap("kernel_vs_plain")
     basis_records = phase_basis_vs_plain(torch, gmres_basis)
+    lap("basis_vs_plain")
     phase_cpu_vs_card(torch, bt)
+    lap("cpu_vs_card")
     phase_cpu_vs_card_slice2(torch, bt)
+    lap("cpu_vs_card_slice2")
     launches, _ = phase_main_path(torch, bt)
+    lap("main_path")
     slice2_launches = phase_slice_path(torch, bt)
+    lap("slice_path")
     phase_capacity(torch, bt)
+    lap("capacity")
     gs_record = phase_gs_step_vs_plain(torch, bt)
+    lap("gs_step_vs_plain")
     level_record = phase_super_level_vs_plain(torch, bt)
+    lap("super_level_vs_plain")
     phase_cpu_vs_card_slice3(torch, bt)
+    lap("cpu_vs_card_slice3")
     super_launches, gs_launches = phase_slice3_path(torch, bt)
+    lap("slice3_path")
     table_record, whole_l = phase_ilu0_level_vs_plain(torch, bt)
+    lap("ilu0_level_vs_plain")
     split_records, ab = phase_split_vs_plain(torch, bt)
+    lap("split_vs_plain")
     phase_cpu_vs_card_ilu0(torch, bt)
+    lap("cpu_vs_card_ilu0")
     slice4_launches = phase_slice4_path(torch, bt)
+    lap("slice4_path")
     dia_record = phase_dia_vs_plain(torch, bt)
+    lap("dia_vs_plain")
     lane_record, sband = phase_lane_ell_vs_plain(torch, bt)
+    lap("lane_ell_vs_plain")
     rank_record, band = phase_rankspace_vs_plain(torch, bt)
+    lap("rankspace_vs_plain")
     phase_cpu_vs_card_slice5(torch, bt)
+    lap("cpu_vs_card_slice5")
     slice5_launches = phase_slice5_path(torch, bt, sband, band)
+    lap("slice5_path")
     bf16_records = phase_bf16_vs_plain(torch, bt, sband)
+    lap("bf16")
+    mesh_records = phase_mesh_kernel_vs_plain(torch, bt, sband)
+    lap("mesh-kernel")
+    mesh_launches, _slice8 = phase_slice8(torch, bt, sband)
+    lap("slice8")
     del sband, band
     setup5b, _gen5b, setup5b_s = phase_slice5b_build(torch, bt)
+    lap("slice5b_build")
     plane_launches = phase_slice5b_rows(torch, bt, setup5b, setup5b_s)
+    lap("slice5b_rows")
     plane_record, _split5b, whole5b = phase_plane_level_vs_plain(
         torch, bt, setup5b)
     del setup5b
     torch.cuda.empty_cache()
+    lap("plane_level_vs_plain")
     mega_record = phase_mega_vs_per_level(torch, bt)
+    lap("mega_vs_per_level")
     mega_launches = phase_mega_rows(torch, bt)
+    lap("mega_rows")
     stream_record = phase_stream_vs_plain(torch, bt, record["library_ms"])
+    lap("stream_vs_plain")
     phase_cpu_vs_card_slice6(torch, bt)
+    lap("cpu_vs_card_slice6")
     stream_launches, slice6_per_iter = phase_slice6_rows(torch, bt)
+    lap("slice6_rows")
     phase_cg_mg_refine(torch, bt)
+    lap("cg_mg_refine")
     phase_pipelined_row(torch, bt)
+    lap("pipelined_row")
     phase_cpu_vs_card_slice7(torch, bt)
+    lap("cpu_vs_card_slice7")
     bf16_launches, _slice7_rows = phase_slice7_cli(torch, bt)
+    lap("slice7_cli")
     phase_entry_point(torch)
+    lap("entry_point")
     print(f"[summary] {FDM_5B} f32 ILU(0): whole L solve "
           f"torch.triangular_solve {whole5b['library_ms']:.4f} ms, "
           f"blocked_trisolve {whole5b['blocked_trisolve_ms']:.4f} ms; "
@@ -3168,6 +3774,16 @@ def main():
             "replaces": "basic_iterative_solvers_tpu/" + line,
             "launches": bf16_launches.get(kernel, 0),
             **bf16_records[kernel]})
+    for kernel, source, line in (
+            ("stencil_spmv_halo", "stencil_spmv.cu", "stencil_op.py:538"),
+            ("stencil_gs_step_halo", "stencil_spmv.cu", "stencil_op.py:660"),
+            ("dia_spmv_halo", "sparse_spmv.cu", "ops/pallas_spmv.py:72"),
+            ("lane_ell_spmv_halo", "sparse_spmv.cu", "ops/lane_ell.py:268")):
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": src + source,
+            "replaces": "basic_iterative_solvers_tpu/" + line,
+            "launches": mesh_launches.get(kernel, 0),
+            **mesh_records[kernel]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
@@ -3177,7 +3793,8 @@ def main():
     print(json.dumps({"kernels": [
         {key: k[key] for key in keys + ("launches_by_row",
                                         "launches_per_iter_by_row",
-                                        "resident_ms", "call_ms", "ms_384",
+                                        "resident_ms", "call_ms",
+                                        "single_ms", "ms_384",
                                         "f32_ms_384", "bound_ms_384")
          if key in k}
         for k in kernels]}))

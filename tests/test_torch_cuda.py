@@ -139,3 +139,166 @@ def test_bf16_forms_equal_their_widened_twins(card, kind, dt):
     assert torch.equal(y, fn(W, x, *args))
     if plain is not None:
         assert torch.equal(y, plain(A, x))
+
+
+MESH_SPECS = ["hpcg:16x12x10", "hpcg:8x8x8", "fdm:70",
+              "anderson:Lx=9,Ly=7,Lz=6,t=1.0,ranpot=4.0,seed=1"]
+
+
+def _mesh_operands(card, kind, spec, dt, mat_dt):
+    """(single-device operator, mesh operator, x) on an 8-shard mesh on
+    the card."""
+    import dataclasses
+    from basic_iterative_solvers_tpu_torch.parallel import make_mesh
+    from basic_iterative_solvers_tpu_torch.parallel import mesh_ops
+    mesh = make_mesh(8, device=card)
+    if kind == "dia":
+        A = bt.dia.from_source_device(spec, mat_dt, device=card)
+        W = mesh_ops.wrap_dia(A, mesh, "rows")
+    elif kind == "lane_ell":
+        A = bt.from_csr(bt.generators.from_source("sband:5000,8,300"),
+                        mat_dt, "lane_ell", device=card)
+        W = mesh_ops.wrap_lane_ell(A, mesh, "rows")
+    else:
+        A = tso.from_source_operator(spec, mat_dt, device=card)
+        W = mesh_ops.wrap_stencil(dataclasses.replace(A, shards=8), mesh,
+                                  "rows")
+    g = np.random.default_rng(11)
+    x = torch.from_numpy(g.standard_normal(A.n_rows)).to(card, dt)
+    return A, W, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", MESH_SPECS)
+@pytest.mark.parametrize("dt,mat_dt", [(torch.float32, torch.float32),
+                                       (torch.float64, torch.float64),
+                                       (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("kind", ["stencil", "gs_step", "dia", "lane_ell"])
+def test_halo_forms_equal_single_device_and_plain(card, kind, spec, dt,
+                                                  mat_dt):
+    """Each shard-local kernel (#1, #3, #4, #5 halo forms) on an 8-shard
+    mesh on the card: y concatenated over the shards bit-equal to the
+    single-device kernel's, each shard within TOL of its plain twin (#1,
+    #3: the plain version sums leg by leg) or bit-equal (#4, #5), one
+    launch a shard counted."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import dia_spmv, lane_ell
+    from basic_iterative_solvers_tpu_torch.parallel import mesh_ops
+    from basic_iterative_solvers_tpu_torch.parallel.sharded import (
+        _halo_exchange, _split)
+    if kind in ("dia", "lane_ell") and spec != MESH_SPECS[0]:
+        pytest.skip("the sparse formats run one operator")
+    if mat_dt == torch.bfloat16 and kind in ("stencil", "gs_step") \
+            and "anderson" not in spec:
+        pytest.skip("a bf16 stencil form needs a diagonal (Anderson)")
+    A, W, x = _mesh_operands(card, kind, spec, dt, mat_dt)
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    n_dev, R = W.n_devices, W.rows
+    if kind == "gs_step":
+        cs = spec_for_device(A)
+        rhs = torch.randn_like(x)
+        dinv = 1.0 / tso.stencil_diag(A).to(dt)
+        colors = [(c,) for c in range(cs.n_colors)]
+        if cs.kind == "grid" and cs.params[3] > 1:
+            colors.append(tuple(range(cs.params[3])))
+        counter = tso.stencil_gs_color_step_halo
+        attr = "bf16_launches" if mat_dt == torch.bfloat16 else "launches"
+        for c in colors:
+            y1 = tso.stencil_gs_color_step(A, x, rhs, dinv, cs, c)
+            before = getattr(counter, attr)
+            y8 = mesh_ops.mesh_gs_color_step(W, x, rhs, dinv, cs, c)
+            assert getattr(counter, attr) == before + n_dev * len(c)
+            assert torch.equal(y1, y8), c
+            p1 = tso.stencil_gs_color_step_plain(A, x, rhs, dinv, cs, c)
+            assert float((y8 - p1).abs().max()) <= tol * float(
+                p1.abs().max())
+        return
+    if kind == "stencil":
+        y1 = tso._stencil_spmv_cuda(A, x, (), None)
+        counter = tso.stencil_spmv_halo
+        y8 = mesh_ops.mesh_stencil_spmv(W, x)
+    elif kind == "dia":
+        y1 = dia_spmv.dia_spmv(A, x)
+        counter = dia_spmv.dia_spmv_halo
+        y8 = mesh_ops.mesh_dia_spmv(W, x)
+    else:
+        y1 = lane_ell.lane_ell_spmv(A, x)
+        counter = lane_ell.lane_ell_spmv_halo
+        y8 = mesh_ops.mesh_lane_ell_spmv(W, x)
+    assert torch.equal(y1, y8)
+    # each shard against its plain twin, on the same window
+    attr = "bf16_launches" if mat_dt == torch.bfloat16 else "launches"
+    if kind == "lane_ell":
+        npad = W.inner.R * lane_ell.LANES
+        h = W.inner.S * lane_ell.LANES
+    else:
+        npad = n_dev * R
+        h = None
+    xs = _split(torch.nn.functional.pad(x, (0, npad - x.numel())), n_dev)
+    if kind == "stencil":
+        windows = _halo_exchange(W.mesh, xs, *A.halo)
+    elif kind == "dia":
+        from basic_iterative_solvers_tpu_torch.parallel.sharded import _halo
+        hneg, hpos = _halo(A.offsets)
+        windows = _halo_exchange(W.mesh, xs, hneg, hpos)
+    else:
+        windows = _halo_exchange(W.mesh, xs, h, h)
+    for k in range(n_dev):
+        before = getattr(counter, attr)
+        if kind == "stencil":
+            d = None if W.diag_shards is None else W.diag_shards[k]
+            yk = tso.stencil_spmv_halo(A, windows[k], k * R, ("x",),
+                                       diag=d)
+            pk = tso.stencil_spmv_halo_plain(A, windows[k], k * R, ("x",),
+                                             diag=d)
+            scale = float(pk[0].abs().max()) or 1.0
+            assert float((yk[0] - pk[0]).abs().max()) <= tol * scale
+            dscale = float((pk[0] * windows[k][A.halo[0]:A.halo[0] + R])
+                           .abs().sum()) or 1.0
+            assert abs(float(yk[1] - pk[1])) <= tol * dscale
+        elif kind == "dia":
+            yk = dia_spmv.dia_spmv_halo(W.data_shards[k], A.offsets,
+                                        windows[k], hneg)
+            assert torch.equal(yk, dia_spmv.dia_spmv_halo_plain(
+                W.data_shards[k], A.offsets, windows[k], hneg))
+        else:
+            M = W.inner
+            yk = lane_ell.lane_ell_spmv_halo(M, W.vals_shards[k],
+                                             W.idx_shards[k], windows[k],
+                                             k * R, M.S)
+            assert torch.equal(yk, lane_ell.lane_ell_spmv_halo_plain(
+                M, W.vals_shards[k], W.idx_shards[k], windows[k], k * R,
+                M.S))
+        assert getattr(counter, attr) == before + 1
+
+
+@pytest.mark.cuda
+def test_mesh_solve_on_the_card(card):
+    """CG + Jacobi and SGS (masked sweeps) on an 8-shard mesh on the card
+    take the single-device solve's counts, through the halo kernels."""
+    from basic_iterative_solvers_tpu_torch.parallel import (make_mesh,
+                                                            shard_setup)
+    mesh = make_mesh(8, device=card)
+    for spec, method, precond in (
+            ("hpcg:16x16x16", "CONJUGATE_GRADIENT", "JACOBI"),
+            ("fdm:32", "SYMMETRIC_GAUSS_SEIDEL", "NONE")):
+        A = tso.from_source_operator(spec, torch.float64, device=card)
+        cfg = bt.SolverConfig(method=bt.SolverType[method],
+                              preconditioner=bt.PrecondType[precond],
+                              dtype=torch.float64, tolerance=1e-6,
+                              harness="fused", max_iters=3000)
+        r1 = bt.solve(bt.preprocessing_device(A, cfg))
+        before = (tso.stencil_spmv_halo.launches,
+                  tso.stencil_gs_color_step_halo.launches)
+        r8 = bt.solve(shard_setup(bt.preprocessing_device(A, cfg), mesh,
+                                  mode="shard_map"))
+        assert r8.converged and r8.iter_count == r1.iter_count
+        # the sampled history; the explicit final residual after it sits
+        # nearer the rounding floor
+        np.testing.assert_allclose(r8.residual_norms[:-1],
+                                   r1.residual_norms[:-1], rtol=1e-8)
+        np.testing.assert_allclose(r8.residual_norms[-1],
+                                   r1.residual_norms[-1], rtol=1e-4)
+        assert tso.stencil_spmv_halo.launches > before[0]
+        if method != "CONJUGATE_GRADIENT":
+            assert tso.stencil_gs_color_step_halo.launches > before[1]

@@ -34,7 +34,8 @@ def test_import_loads_no_jax():
             "    importlib.import_module(name)\n"
             "need = {'matrix', 'permute', 'factor', 'ops.block_trisolve', "
             "'_build', 'device_matrix', 'dia', 'io.mmio', 'ops.dia_spmv', "
-            "'ops.lane_ell', 'ops.trisolve', 'generators', 'convert', 'mg'}\n"
+            "'ops.lane_ell', 'ops.trisolve', 'generators', 'convert', 'mg', "
+            "'parallel', 'parallel.sharded', 'parallel.mesh_ops'}\n"
             "assert {pkg.__name__ + '.' + n for n in need} <= set(names)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'basic_iterative_solvers_tpu' or "

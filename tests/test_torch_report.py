@@ -172,6 +172,10 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "stencil_spmv_stream_kernel": "spmv",
             "stencil_gs_color_step_kernel": "spmv",
             "dia_spmv_kernel": "spmv", "lane_ell_spmv_kernel": "spmv",
+            "stencil_spmv_halo_kernel": "spmv",
+            "stencil_gs_color_step_halo_kernel": "spmv",
+            "dia_spmv_halo_kernel": "spmv",
+            "lane_ell_spmv_halo_kernel": "spmv",
             "super_level_kernel": "sptrsv", "super_acc_kernel": "sptrsv",
             "super_parity_kernel": "sptrsv",
             "super_solve_mega_kernel": "sptrsv",
