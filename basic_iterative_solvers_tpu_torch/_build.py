@@ -63,6 +63,8 @@ class SuperLevelArgs(ctypes.Structure):
         ("dinv", ctypes.c_double),
         ("cross_delta", ctypes.c_longlong * MAX_LEGS),
         ("m", ctypes.c_longlong),
+        ("y_row0", ctypes.c_longlong), ("x_row0", ctypes.c_longlong),
+        ("slot0", ctypes.c_longlong), ("plane_m", ctypes.c_longlong),
         ("cross_dx", ctypes.c_int * MAX_LEGS),
         ("cross_dy", ctypes.c_int * MAX_LEGS),
         ("cross_dz", ctypes.c_int * MAX_LEGS),
@@ -72,6 +74,7 @@ class SuperLevelArgs(ctypes.Structure):
         ("sx", ctypes.c_int), ("sy", ctypes.c_int), ("sz", ctypes.c_int),
         ("py", ctypes.c_int), ("pz", ctypes.c_int),
         ("my", ctypes.c_int), ("lines", ctypes.c_int),
+        ("line0", ctypes.c_int),
         ("upper", ctypes.c_int),
         ("block_x", ctypes.c_int), ("block_y", ctypes.c_int),
         ("grid_x", ctypes.c_int),

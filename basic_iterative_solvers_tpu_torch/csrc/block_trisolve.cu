@@ -9,12 +9,13 @@
 //
 // Replaces the Pallas kernels of basic_iterative_solvers_tpu/ops/
 // block_trisolve.py: _super_level_pallas in its const, plane, packed and
-// flat-IO modes (super_level_kernel), the split-mode pair
-// _super_acc_pallas (super_acc_kernel) and _super_parity_pallas
-// (super_parity_kernel), and _super_solve_pallas_mega
+// flat-IO modes (super_level_kernel), and its mesh form (row0 on the
+// shards of _solve_super_mesh: the same kernel on one shard's window,
+// below), the split-mode pair _super_acc_pallas (super_acc_kernel) and
+// _super_parity_pallas (super_parity_kernel), and _super_solve_pallas_mega
 // (super_solve_mega_kernel).  The plain forms are ops/block_trisolve.py's
-// super_level_plain, super_acc_plain, super_parity_plain and
-// super_solve_mega_plain.
+// super_level_plain, super_level_halo_plain, super_acc_plain,
+// super_parity_plain and super_solve_mega_plain.
 //
 // A grid colouring with strides (sx, sy, sz) of an nx*ny*nz grid groups
 // the rows into S = sy*sz superblocks, superblock sb holding the rows with
@@ -52,6 +53,18 @@
 // plain version's separate PyTorch operations and the JAX package's XLA
 // form round them, so the fused, split and one-launch routes and the
 // plain version agree bit for bit.
+//
+// One shard of a row-sharded mesh (ops/block_trisolve.super_level_halo):
+// the shard owns a contiguous range of whole x-lines, so the superblock's
+// lines it owns are a contiguous range [line0, line0 + lines) of the
+// superblock's line index.  It passes y as its own rows (global row
+// y_row0 first), x as its window (global row x_row0 first: its left
+// neighbour's last halo rows, its own rows, its right neighbour's first),
+// the per-row 1/D on y's rows, and the plane values of its own slots
+// (global slot slot0 first, plane_m slots a group).  Masks, classes,
+// parities and a plane group's [0, m) test use global coordinates; the
+// launch writes only the shard's own rows.  The single-device launch is
+// the case line0 = 0, lines = all, every offset 0 and plane_m = m.
 //
 // Fused: one launch per level.  A block owns whole x-lines of the
 // superblock (a self leg never leaves its line), so the parities chain
@@ -100,6 +113,9 @@ struct BisSuperLevelArgs {
     double dinv;                            // const mode: 1 / D, rounded
     long long cross_delta[BIS_SL_MAX_LEGS]; // plane mode: slot offset
     long long m;                            // slots of a superblock
+    long long y_row0, x_row0;               // global row of y[0], x[0]
+    long long slot0, plane_m;               // plane mode: global slot of a
+                                            // plane's [0], slots a group
     int cross_dx[BIS_SL_MAX_LEGS];
     int cross_dy[BIS_SL_MAX_LEGS];
     int cross_dz[BIS_SL_MAX_LEGS];
@@ -107,7 +123,8 @@ struct BisSuperLevelArgs {
     int n_cross, n_self;
     int nx, ny, nz, sx, sy, sz;
     int py, pz;                             // the superblock's (y, z) phases
-    int my, lines;                          // ny / sy, lines of the superblock
+    int my, lines;                          // ny / sy, lines of the launch
+    int line0;                              // its first superblock line
     int upper;
     int block_x, block_y, grid_x;
     int cross_kd[BIS_SL_MAX_LEGS];          // factor-table mode: table rows
@@ -149,20 +166,22 @@ __device__ __forceinline__ long long slot_row(const BisSuperLevelArgs& a,
     return s - line * a.nx + a.nx * (gy + a.ny * gz);
 }
 
-// acc = y[i] - sum_cross f * x[source], legs (groups) in order; t is row
-// i's slot.
+// acc = y - sum_cross f * x[source], legs (groups) in order, for the row
+// at y[iy] and x[ix] whose global slot is t.
 template <typename T, int MODE>
 __device__ __forceinline__ T cross_sum(const BisSuperLevelArgs& a,
                                        const T* y, const T* x, const T* table,
-                                       const T* vc, long long i, long long t,
-                                       int gx, int gy, int gz, int base) {
-    T acc = y[i];
+                                       const T* vc, long long iy, long long ix,
+                                       long long t, int gx, int gy, int gz,
+                                       int base) {
+    T acc = y[iy];
     for (int l = 0; l < a.n_cross; ++l) {
         if (MODE == BIS_SL_PLANE) {
             const long long s = t + a.cross_delta[l];
             const T xv = (s >= 0 && s < a.m)
-                ? x[slot_row(a, s, a.cross_spy[l], a.cross_spz[l])] : T(0);
-            acc = sub_rn(acc, mul_rn(vc[l * a.m + t], xv));
+                ? x[slot_row(a, s, a.cross_spy[l], a.cross_spz[l]) - a.x_row0]
+                : T(0);
+            acc = sub_rn(acc, mul_rn(vc[l * a.plane_m + t - a.slot0], xv));
             continue;
         }
         const int px = gx + a.cross_dx[l], py = gy + a.cross_dy[l],
@@ -172,55 +191,61 @@ __device__ __forceinline__ T cross_sum(const BisSuperLevelArgs& a,
             const T f = MODE == BIS_SL_TABLE
                 ? table[(long long)a.cross_kd[l] * a.n_proto + base]
                 : T(a.cross_coeff[l]);
-            acc = sub_rn(acc, mul_rn(f, x[i + a.cross_off[l]]));
+            acc = sub_rn(acc, mul_rn(f, x[ix + a.cross_off[l]]));
         }
     }
     return acc;
 }
 
-// (v - sum_self f * x[i + dx]) * dinv on a parity-p row (slot t).
+// (v - sum_self f * x[ix + dx]) * dinv on a parity-p row (global slot t;
+// its 1/D at drows[iy]).
 template <typename T, int MODE>
 __device__ __forceinline__ T parity_update(const BisSuperLevelArgs& a, int p,
                                            T v, const T* x, const T* table,
                                            const T* tdinv, const T* vs,
-                                           const T* drows, long long i,
-                                           long long t, int gx, int base) {
+                                           const T* drows, long long iy,
+                                           long long ix, long long t, int gx,
+                                           int base) {
     for (int l = 0; l < a.n_self; ++l) {
         const int px = gx + a.self_dx[l];
         const bool solved = px >= 0 && px < a.nx &&
                             (a.upper ? px % a.sx > p : px % a.sx < p);
         if (MODE == BIS_SL_PLANE) {
-            v = sub_rn(v, mul_rn(vs[l * a.m + t],
-                                 solved ? x[i + a.self_dx[l]] : T(0)));
+            v = sub_rn(v, mul_rn(vs[l * a.plane_m + t - a.slot0],
+                                 solved ? x[ix + a.self_dx[l]] : T(0)));
             continue;
         }
         if (!solved) continue;
         const T f = MODE == BIS_SL_TABLE
             ? table[(long long)a.self_kd[l] * a.n_proto + base]
             : T(a.self_coeff[l]);
-        v = sub_rn(v, mul_rn(f, x[i + a.self_dx[l]]));
+        v = sub_rn(v, mul_rn(f, x[ix + a.self_dx[l]]));
     }
     if (MODE == BIS_SL_TABLE) return tdinv ? mul_rn(v, tdinv[base]) : v;
-    return mul_rn(v, drows ? drows[i] : T(a.dinv));
+    return mul_rn(v, drows ? drows[iy] : T(a.dinv));
 }
 
 struct LevelRow {
     bool live;
-    int line, gy, gz;
-    long long row;                          // flat index of the line's x = 0
-    long long slot;                         // slot of the line's x = 0
+    int gy, gz;
+    long long row;                          // global row of the line's x = 0
+    long long slot;                         // global slot of the line's x = 0
+    long long iy, ix;                       // row - y_row0, row - x_row0
 };
 
-// Line `block * block_y + threadIdx.y` of the level's superblock.
+// Line line0 + block * block_y + threadIdx.y of the level's superblock.
 __device__ __forceinline__ LevelRow level_row(const BisSuperLevelArgs& a,
                                               int block) {
     LevelRow r;
-    r.line = block * a.block_y + threadIdx.y;
-    r.live = r.line < a.lines;
-    r.gy = a.sy * (r.line % a.my) + a.py;
-    r.gz = a.sz * (r.line / a.my) + a.pz;
+    const int k = block * a.block_y + threadIdx.y;
+    const int line = a.line0 + k;
+    r.live = k < a.lines;
+    r.gy = a.sy * (line % a.my) + a.py;
+    r.gz = a.sz * (line / a.my) + a.pz;
     r.row = (long long)a.nx * (r.gy + (long long)a.ny * r.gz);
-    r.slot = (long long)r.line * a.nx;
+    r.slot = (long long)line * a.nx;
+    r.iy = r.row - a.y_row0;
+    r.ix = r.row - a.x_row0;
     return r;
 }
 
@@ -238,9 +263,9 @@ __device__ __forceinline__ void level_block(const BisSuperLevelArgs& a,
         for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
             const int base = MODE == BIS_SL_TABLE ? class_base(a, gx, r.gy, r.gz)
                                                   : 0;
-            x[r.row + gx] = cross_sum<T, MODE>(a, y, x, table, vc, r.row + gx,
-                                               r.slot + gx, gx, r.gy, r.gz,
-                                               base);
+            x[r.ix + gx] = cross_sum<T, MODE>(a, y, x, table, vc, r.iy + gx,
+                                              r.ix + gx, r.slot + gx, gx,
+                                              r.gy, r.gz, base);
         }
     }
     __syncthreads();
@@ -249,11 +274,12 @@ __device__ __forceinline__ void level_block(const BisSuperLevelArgs& a,
         if (r.live) {
             for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
                 if (gx % a.sx != p) continue;
-                const long long i = r.row + gx;
+                const long long i = r.ix + gx;
                 const int base = MODE == BIS_SL_TABLE
                     ? class_base(a, gx, r.gy, r.gz) : 0;
                 x[i] = parity_update<T, MODE>(a, p, x[i], x, table, tdinv, vs,
-                                              drows, i, r.slot + gx, gx, base);
+                                              drows, r.iy + gx, i,
+                                              r.slot + gx, gx, base);
             }
         }
         __syncthreads();
@@ -305,9 +331,9 @@ super_acc_kernel(const __grid_constant__ BisSuperLevelArgs a, const T* y,
     for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
         const int base = MODE == BIS_SL_TABLE ? class_base(a, gx, r.gy, r.gz)
                                               : 0;
-        acc[r.slot + gx] = cross_sum<T, MODE>(a, y, x, table, vc, r.row + gx,
-                                              r.slot + gx, gx, r.gy, r.gz,
-                                              base);
+        acc[r.slot + gx - a.slot0] = cross_sum<T, MODE>(
+            a, y, x, table, vc, r.iy + gx, r.ix + gx, r.slot + gx, gx, r.gy,
+            r.gz, base);
     }
 }
 
@@ -321,12 +347,12 @@ super_parity_kernel(const __grid_constant__ BisSuperLevelArgs a, int p,
     if (!r.live) return;
     for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
         if (gx % a.sx != p) continue;
-        const long long i = r.row + gx;
         const int base = MODE == BIS_SL_TABLE ? class_base(a, gx, r.gy, r.gz)
                                               : 0;
-        const T v = acc ? acc[r.slot + gx] : y[i];
-        x[i] = parity_update<T, MODE>(a, p, v, x, table, tdinv, vs, drows, i,
-                                      r.slot + gx, gx, base);
+        const T v = acc ? acc[r.slot + gx - a.slot0] : y[r.iy + gx];
+        x[r.ix + gx] = parity_update<T, MODE>(a, p, v, x, table, tdinv, vs,
+                                              drows, r.iy + gx, r.ix + gx,
+                                              r.slot + gx, gx, base);
     }
 }
 

@@ -75,12 +75,21 @@ superblock form; where that refuses (BlockIneligibleError other than an
 improper colouring), the rank-space form with the grid rank
 (x//sx) + mx·((y//sy) + my·(z//sz)), as the JAX package falls back.
 
-`super_level`, `super_acc`, `super_parity`, `super_solve_mega` and
-`rank_level` are the kernels' entry points: on a CUDA tensor each launches
-its hand-written kernel (csrc/block_trisolve.cu) or raises; on a CPU
-tensor each runs its plain version (`super_level_plain`,
-`super_acc_plain`, `super_parity_plain`, `super_solve_mega_plain`,
-`rank_level_plain`).
+On a row-sharded mesh (the JAX package's shard_superblock and
+_solve_super_mesh) a superblock solve is cut into contiguous row ranges
+of whole x-lines (`shard_superblock` → `MeshSuperBlockTriSolve`), each
+shard with its own plane values and per-row diagonals; a level runs the
+same level kernel once a shard on the shard's rows of y and its window of
+x (`super_level_halo`: line offsets, window offsets and global
+coordinates in the launch table), then each shard passes the level's
+superblock lines inside its halo rows to both neighbours (Mesh.ppermute).
+
+`super_level`, `super_level_halo`, `super_acc`, `super_parity`,
+`super_solve_mega` and `rank_level` are the kernels' entry points: on a
+CUDA tensor each launches its hand-written kernel (csrc/block_trisolve.cu)
+or raises; on a CPU tensor each runs its plain version
+(`super_level_plain`, `super_level_halo_plain`, `super_acc_plain`,
+`super_parity_plain`, `super_solve_mega_plain`, `rank_level_plain`).
 """
 from __future__ import annotations
 
@@ -96,7 +105,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import torch_dtype
-from ..stencil_op import _rounded
+from ..stencil_op import _rounded, stencil_shard_rows
 
 #: threads per kernel block (csrc/block_trisolve.cu: __launch_bounds__)
 _BLOCK_THREADS = 256
@@ -193,6 +202,34 @@ class SuperBlockTriSolve:
     @property
     def is_const(self) -> bool:
         return not (self.is_table or self.is_plane)
+
+
+@dataclasses.dataclass(eq=False)
+class SuperBlockShard:
+    """One mesh shard's part of a superblock solve B: the shard owns the
+    global rows [row0, row0 + rows), whole x-lines, and reads a window of
+    `halo` rows more on each side (x_row0 = row0 − halo).  lines[li] =
+    (l0, l1): the superblock lines of level li it owns, a contiguous range
+    of the superblock's line index ((0, 0) where it owns none).  Its own
+    tensors: in plane mode the level's planes on its slots [l0·nx, l1·nx)
+    (vals_cross[li] (Gc, (l1 − l0)·nx), vals_self[li]); the per-row 1/D
+    (`dinv_rows`) and D (`d_rows`) on its rows, zero past n."""
+
+    B: SuperBlockTriSolve
+    row0: int
+    rows: int
+    halo: int
+    lines: Tuple
+    vals_cross: Optional[Tuple] = None
+    vals_self: Optional[Tuple] = None
+    dinv_rows: Optional[torch.Tensor] = None
+    d_rows: Optional[torch.Tensor] = None
+    #: the kernel's launch tables per level, built at first launch
+    _args: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def x_row0(self) -> int:
+        return self.row0 - self.halo
 
 
 def _stencil_pair_plan(op, spec):
@@ -754,62 +791,107 @@ def _slots(B: SuperBlockTriSolve, v: torch.Tensor, sb: int) -> torch.Tensor:
     return v.view(nz, ny, nx)[sb // sy::sz, sb % sy::sy]
 
 
-def _plane_cross_acc(B: SuperBlockTriSolve, li: int, y, x):
-    """Plane mode: acc = y − Σ_g vals_g ⊙ x(src_g)[t + Δ_g] in slot space,
-    a slot outside [0, m) reading 0; every group's values multiplied, zero
-    or not, as the JAX package's XLA form does."""
-    sb, cross, _selfs = B.levels[li]
-    acc = _slots(B, y, sb)
-    if not cross:
-        return acc
-    vals = B.vals_cross[li].to(x.device)
-    P = max(abs(delta) for _src, delta in cross)
-    padded = {}
-    for g, (src, delta) in enumerate(cross):
-        if src not in padded:
-            padded[src] = F.pad(_slots(B, x, src).reshape(-1), (P, P))
-        nb = padded[src][P + delta:P + delta + B.m].view(acc.shape)
-        acc = acc - vals[g].view(acc.shape) * nb
-    return acc
+def _whole(B: SuperBlockTriSolve) -> SuperBlockShard:
+    """B as the one shard of a one-shard mesh: every row, no halo, B's own
+    planes and diagonals (cached on B).  The single-device plain level is
+    this shard's level."""
+    Bs = B._args.get("whole")
+    if Bs is None:
+        Bs = B._args["whole"] = SuperBlockShard(
+            B=B, row0=0, rows=B.n_rows, halo=0,
+            lines=((0, B.m // B.spec_params[0]),) * len(B.levels),
+            vals_cross=B.vals_cross, vals_self=B.vals_self,
+            dinv_rows=B.dinv_rows, d_rows=B.d_rows)
+    return Bs
 
 
-def _cross_acc(B: SuperBlockTriSolve, li: int, y, x, base):
-    """acc = y − Σ_cross f·x(src, Δ) on level li's rows, (mz, my, nx):
-    cross legs in (src, Δ) order, each product and difference rounded
-    alone.  Out-of-grid neighbours read the zero padding: f·0 leaves acc
-    as the JAX package's masked plane does."""
-    if B.is_plane:
-        return _plane_cross_acc(B, li, y, x)
+def _check_halo(Bs: SuperBlockShard, li: int, y, x):
+    _check_vectors(Bs.B, li, y=(y, Bs.rows), x=(x, Bs.rows + 2 * Bs.halo))
+
+
+def _level_plan(Bs: SuperBlockShard, li: int, device):
+    """What the plain level li of shard Bs reads, cached on Bs: (iy, ix,
+    base, reads, vs, drows).  iy and ix: the offsets of its rows of the
+    level's superblock (lines, nx) into y and into its window of x; base:
+    their prototype rows (factor-table mode); reads: per cross leg (plane
+    group) the factor (a float, table values or plane values), the window
+    index of its source and the in-grid mask (a plane group's slot in
+    [0, m)), all from global coordinates; vs: the self planes on those
+    rows (plane mode); drows: their per-row 1/D, where B has one."""
+    key = ("plain", li, str(device))
+    if key in Bs._args:
+        return Bs._args[key]
+    B = Bs.B
     nx, ny, nz, sx, sy, sz = B.spec_params
-    _sb, py, pz, my, mz, rows = _rows(B, li)
-    hx, hy, hz = B.reach
-    Xp = F.pad(x.view(nz, ny, nx), (hx, hx, hy, hy, hz, hz))
-    acc = y.view(nz, ny, nx)[rows]
-    legs = (B.table_cross[li] if B.is_table else B.const_cross[li])
-    table = B.table.to(x.device) if B.is_table else None
-    for f, dx, dy, dz in legs:
-        if table is not None:
-            f = table[f][base]
-        z0, y0, x0 = hz + pz + dz, hy + py + dy, hx + dx
-        nb = Xp[z0:z0 + sz * (mz - 1) + 1:sz, y0:y0 + sy * (my - 1) + 1:sy,
-                x0:x0 + nx]
-        acc = acc - f * nb
+    sb = B.levels[li][0]
+    my = ny // sy
+    line = torch.arange(*Bs.lines[li], device=device)
+    gy = sy * (line % my) + sb % sy
+    gz = sz * (line // my) + sb // sy
+    gx = torch.arange(nx, device=device)
+    rows = (nx * (gy + ny * gz))[:, None] + gx
+    xr0, top = Bs.x_row0, Bs.rows + 2 * Bs.halo - 1
+    base = (_class_base(B, li, device).view(-1, nx)[line] if B.is_table
+            else None)
+    reads = []
+    if B.is_plane:
+        t = line[:, None] * nx + gx
+        cross = B.levels[li][1]
+        vals = Bs.vals_cross[li].to(device) if cross else None
+        for g, (src, delta) in enumerate(cross):
+            s = t + delta
+            ln = s.div(nx, rounding_mode="floor")
+            srow = (s - ln * nx) + nx * (
+                sy * (ln % my) + src % sy
+                + ny * (sz * ln.div(my, rounding_mode="floor") + src // sy))
+            reads.append((vals[g].view(rows.shape),
+                          (srow - xr0).clamp(0, top), (s >= 0) & (s < B.m)))
+    else:
+        legs = B.table_cross[li] if B.is_table else B.const_cross[li]
+        table = B.table.to(device) if B.is_table else None
+        for f, dx, dy, dz in legs:
+            ok = ((gx + dx >= 0) & (gx + dx < nx))[None, :] & (
+                (gy + dy >= 0) & (gy + dy < ny) & (gz + dz >= 0)
+                & (gz + dz < nz))[:, None]
+            reads.append((table[f][base] if table is not None else f,
+                          (rows + dx + nx * (dy + ny * dz) - xr0).clamp(
+                              0, top), ok))
+    vs = (None if not B.is_plane or Bs.vals_self[li] is None else
+          [f.view(rows.shape) for f in Bs.vals_self[li].to(device)])
+    drows = (None if B.is_table or Bs.dinv_rows is None
+             else Bs.dinv_rows.to(device)[rows - Bs.row0])
+    plan = (rows - Bs.row0, rows - xr0, base, tuple(reads), vs, drows)
+    Bs._args[key] = plan
+    return plan
+
+
+def _cross_acc(Bs: SuperBlockShard, li: int, y, x):
+    """acc = y − Σ_cross f·x(src, Δ) on shard Bs's rows of level li, (lines,
+    nx): cross legs in (src, Δ) order, each product and difference rounded
+    alone.  A source outside the grid (a plane slot outside [0, m)) reads
+    0: f·0 leaves acc as the JAX package's masked plane does."""
+    iy, _ix, _base, reads, _vs, _drows = _level_plan(Bs, li, x.device)
+    acc = y[iy]
+    for f, src, ok in reads:
+        acc = acc - f * torch.where(ok, x[src], 0.0)
     return acc
 
 
-def _parity_step(B: SuperBlockTriSolve, li: int, p: int, a, xt, base):
+def _parity_step(B: SuperBlockTriSolve, li: int, p: int, a, xt, base,
+                 vs=None, drows=None):
     """xt with parity p's rows set to (a − Σ_self f·x(dx))·D⁻¹, the self
     legs reading xt where their source parity is already solved (0
-    elsewhere; plane mode multiplies that 0 by its plane's value)."""
+    elsewhere; plane mode multiplies that 0 by its plane's value).  a, xt
+    and base are (…, nx) arrays of whole x-lines; in plane mode `vs` holds
+    the self planes on those rows, and `drows` the per-row 1/D where B has
+    one."""
     nx = B.spec_params[0]
     hx = B.reach[0]
     gx = torch.arange(nx, device=xt.device)
     parity = gx % B.sx
     xtp = F.pad(xt, (hx, hx))
     if B.is_plane:
-        legs = tuple((f.view(a.shape), dx) for f, dx in zip(
-            () if B.vals_self[li] is None else B.vals_self[li].to(xt.device),
-            B.levels[li][2]))
+        legs = tuple(zip(() if vs is None else vs, B.levels[li][2]))
     else:
         legs = B.table_self[li] if B.is_table else B.const_self[li]
     table = B.table.to(xt.device) if B.is_table else None
@@ -824,11 +906,32 @@ def _parity_step(B: SuperBlockTriSolve, li: int, p: int, a, xt, base):
     if B.is_table:
         if B.table_dinv is not None:
             a = a * B.table_dinv.to(xt.device)[base]
-    elif B.dinv_rows is not None:
-        a = a * _slots(B, B.dinv_rows.to(xt.device), B.levels[li][0])
+    elif drows is not None:
+        a = a * drows
     else:
         a = a * B.dinv
     return torch.where(parity == p, a, xt)
+
+
+def super_level_halo_plain(Bs: SuperBlockShard, li: int, y: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of one shard's level (the JAX package's
+    _super_level_pallas, with row0 on a mesh shard): y holds the shard's
+    rows (Bs.rows), x its window (Bs.rows + 2·Bs.halo, global row
+    Bs.x_row0 first); writes the rows of level li's superblock the shard
+    owns into x and returns x.  Masks, classes and a plane group's
+    [0, m) test are global."""
+    _check_halo(Bs, li, y, x)
+    l0, l1 = Bs.lines[li]
+    if l1 == l0:
+        return x
+    _iy, ix, base, _reads, vs, drows = _level_plan(Bs, li, x.device)
+    acc = _cross_acc(Bs, li, y, x)
+    xt = torch.zeros_like(acc)
+    for p in _parity_order(Bs.B):
+        xt = _parity_step(Bs.B, li, p, acc, xt, base, vs, drows)
+    x[ix] = xt
+    return x
 
 
 def super_level_plain(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
@@ -836,16 +939,9 @@ def super_level_plain(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
     """Plain PyTorch version of the level kernel (the JAX package's
     _super_level_xla in the flat order): writes the rows of level li's
     superblock of x and returns x.  Reads y on those rows and x on the
-    superblocks already solved; y may be x itself."""
-    _check_level(B, li, y, x)
-    nx, ny, nz = B.spec_params[:3]
-    base = _class_base(B, li, x.device) if B.is_table else None
-    acc = _cross_acc(B, li, y, x, base)
-    xt = torch.zeros_like(acc)
-    for p in _parity_order(B):
-        xt = _parity_step(B, li, p, acc, xt, base)
-    x.view(nz, ny, nx)[_rows(B, li)[5]] = xt
-    return x
+    superblocks already solved; y may be x itself.  The one-shard case of
+    super_level_halo_plain."""
+    return super_level_halo_plain(_whole(B), li, y, x)
 
 
 def super_acc_plain(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
@@ -854,8 +950,7 @@ def super_acc_plain(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
     _super_acc_pallas): acc (m,), level li's rows in line order, gets
     y − Σ_cross f·x; returns acc."""
     _check_split(B, li, y=(y, B.n_rows), x=(x, B.n_rows), acc=(acc, B.m))
-    base = _class_base(B, li, x.device) if B.is_table else None
-    acc.copy_(_cross_acc(B, li, y, x, base).reshape(-1))
+    acc.copy_(_cross_acc(_whole(B), li, y, x).reshape(-1))
     return acc
 
 
@@ -867,13 +962,9 @@ def super_parity_plain(B: SuperBlockTriSolve, li: int, p: int,
     from acc (or from y when the level has no cross legs and acc is None)
     and the self legs; the level's other rows keep their values."""
     _check_parity_args(B, li, p, y, acc, x)
-    nx, ny, nz = B.spec_params[:3]
-    _sb, _py, _pz, my, mz, rows = _rows(B, li)
-    base = _class_base(B, li, x.device) if B.is_table else None
-    a = (y.view(nz, ny, nx)[rows] if acc is None
-         else acc.view(mz, my, nx))
-    X = x.view(nz, ny, nx)
-    X[rows] = _parity_step(B, li, p, a, X[rows], base)
+    iy, ix, base, _reads, vs, drows = _level_plan(_whole(B), li, x.device)
+    a = y[iy] if acc is None else acc.view(iy.shape)
+    x[ix] = _parity_step(B, li, p, a, x[ix], base, vs, drows)
     return x
 
 
@@ -927,7 +1018,7 @@ def _level_args(B: SuperBlockTriSolve, li: int):
     a.n_cross, a.n_self = len(cross), len(selfs)
     # const mode with a per-row diagonal reads dinv_rows instead
     a.dinv = B.dinv if B.is_const and B.dinv is not None else 1.0
-    a.m = B.m
+    a.m = a.plane_m = B.m
     a.nx, a.ny, a.nz, a.sx, a.sy, a.sz = nx, ny, nz, sx, sy, sz
     a.py, a.pz = sb % sy, sb // sy
     a.my = ny // sy
@@ -946,17 +1037,20 @@ def _level_args(B: SuperBlockTriSolve, li: int):
     return a
 
 
-def _cuda_call(B: SuperBlockTriSolve, name: str, x: torch.Tensor, *args):
+def _cuda_call(B: SuperBlockTriSolve, name: str, x: torch.Tensor, *args,
+               operands=None):
     """Launch `bis_<name>_<dtype>` with level args `args` on x's device and
-    stream; raises on a CUDA error."""
+    stream; raises on a CUDA error.  `operands`: the planes and per-row
+    diagonal the launch reads (B's own when None)."""
     from .._build import load_library
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the superblock kernels take float32 or float64, "
                         f"not {x.dtype}")
-    planes = [t for t in (B.vals_cross or ()) + (B.vals_self or ())
-              if t is not None]
-    for what, t in [("factor table", B.table), ("diagonal", B.dinv_rows)] + [
-            ("planes", t) for t in planes]:
+    if operands is None:
+        operands = (B.vals_cross or ()) + (B.vals_self or ()) + (
+            B.dinv_rows,)
+    for what, t in [("factor table", B.table)] + [
+            ("planes or diagonal", t) for t in operands]:
         if t is not None and t.device != x.device:
             raise ValueError(f"the {what} is on {t.device}, the vectors on "
                              f"{x.device}")
@@ -1472,6 +1566,259 @@ def solve_blocks(B: BlockedTriSolve, Y: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The row-sharded mesh (the JAX package's MeshSuperBlockTriSolve,
+# shard_superblock and _solve_super_mesh)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class MeshSuperBlockTriSolve:
+    """A SuperBlockTriSolve cut into a 1-D row mesh's shards: `rows` rows
+    a shard (whole x-lines; the row count padded to n_dev·rows with inert
+    rows), a halo of `halo` rows a side, each shard's tensors its own
+    (`shards`).  exchange[li][k] = (left, right, from_left, from_right):
+    the window lines of level li's superblock that shard k sends to its
+    left and right neighbours after the level, and where in its window the
+    lines its neighbours send land (line indices of the window as
+    (rows + 2·halo) / nx lines)."""
+
+    inner: SuperBlockTriSolve
+    mesh: object
+    axis: str
+    rows: int
+    halo: int
+    shards: Tuple[SuperBlockShard, ...]
+    exchange: Tuple
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.inner.dtype
+
+    @property
+    def d(self):
+        return self.inner.d
+
+    @property
+    def n_devices(self) -> int:
+        return self.mesh.size
+
+
+def _halo_lines(B: SuperBlockTriSolve) -> int:
+    """The deepest cross read of B, in whole x-lines: in const and
+    factor-table mode hy lines and hz planes (a cross leg's source lies in
+    line (y + dy, z + dz)); in plane mode the largest |Δ line| a group
+    (src, Δ) reaches from any target line through src's slot_row."""
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    if not B.is_plane:
+        return B.reach[1] + ny * B.reach[2]
+    my, mz = ny // sy, nz // sz
+    lt = np.arange(my * mz, dtype=np.int64)
+
+    def glob(line, py, pz):
+        return sy * (line % my) + py + ny * (sz * (line // my) + pz)
+
+    h = 0
+    for sb, cross, _selfs in B.levels:
+        for src, delta in cross:
+            q = delta // nx
+            for dl in ((q,) if delta % nx == 0 else (q, q + 1)):
+                ls = lt + dl
+                ok = (ls >= 0) & (ls < my * mz)
+                if ok.any():
+                    d = (glob(ls[ok], src % sy, src // sy)
+                         - glob(lt[ok], sb % sy, sb // sy))
+                    h = max(h, int(np.abs(d).max()))
+    return h
+
+
+def shard_superblock(B, mesh, axis: str = "rows") -> MeshSuperBlockTriSolve:
+    """Cut a superblock solve into the mesh's row shards (the JAX package's
+    shard_superblock), refusing as it does, with its messages, a
+    rank-space solve and the split route.  Its two other refusals, the
+    packed layout and an aligned-fused shard width that breaks x
+    alignment, come from its TPU tiles, which the port does not have: the
+    port shards those solves.  Shards are contiguous natural-order row
+    ranges of whole z-planes where nz ≥ n_dev, else whole x-lines (the
+    mesh stencil's rows, stencil_op.stencil_shard_rows), at least the
+    halo: B's deepest cross read (_halo_lines).  Each shard's planes and
+    per-row diagonals are copied out as its own tensors."""
+    if not isinstance(B, SuperBlockTriSolve):
+        raise BlockIneligibleError(
+            "only superblock trisolves shard (rank-space layout "
+            "interleaves lanes across blocks)")
+    if not B.fused:
+        raise BlockIneligibleError(
+            "split-mode superblock solves are not mesh-sharded yet")
+    n_dev = mesh.size
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    H = _halo_lines(B) * nx
+    R = stencil_shard_rows((nx, ny, nz), (H, H), n_dev)
+    my = ny // sy
+    n_lines = ny * nz
+    device = mesh.devices[0]
+    # each level's superblock lines, as global line indices (increasing)
+    g_of = []
+    for sb, _c, _s in B.levels:
+        t = np.arange(B.m // nx, dtype=np.int64)
+        g_of.append(sy * (t % my) + sb % sy + ny * (sz * (t // my)
+                                                    + sb // sy))
+
+    def rows_of(v, k):
+        if v is None:
+            return None
+        v = v.to(device)
+        lo, hi = min(k * R, v.numel()), min((k + 1) * R, v.numel())
+        return F.pad(v[lo:hi], (0, R - (hi - lo))).contiguous()
+
+    shards, exchange = [], []
+    for k in range(n_dev):
+        lines = []
+        for g in g_of:
+            l0, l1 = np.searchsorted(g, [k * R // nx, (k + 1) * R // nx])
+            lines.append((int(l0), int(l1)))
+
+        def planes(vals, lines=lines):
+            if vals is None:
+                return None
+            return tuple(None if v is None else
+                         v.to(device)[:, l0 * nx:l1 * nx].contiguous()
+                         for v, (l0, l1) in zip(vals, lines))
+
+        shards.append(SuperBlockShard(
+            B=B, row0=k * R, rows=R, halo=H, lines=tuple(lines),
+            vals_cross=planes(B.vals_cross), vals_self=planes(B.vals_self),
+            dinv_rows=rows_of(B.dinv_rows, k), d_rows=rows_of(B.d_rows, k)))
+    h, Rl = H // nx, R // nx
+    for li, (sb, _c, _s) in enumerate(B.levels):
+        def ids(k, lo, hi, sb=sb):
+            """Window lines of shard k holding superblock sb's real lines
+            among global lines [lo, hi)."""
+            g = np.arange(max(lo, 0), min(hi, n_lines), dtype=np.int64)
+            g = g[((g % ny) % sy == sb % sy) & ((g // ny) % sz == sb // sy)]
+            return g - (k * Rl - h)
+
+        per = []
+        for k in range(n_dev):
+            g0 = k * Rl
+            as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+            per.append(tuple(as_t(a) for a in (
+                ids(k, g0, g0 + h), ids(k, g0 + Rl - h, g0 + Rl),
+                ids(k, g0 - h, g0), ids(k, g0 + Rl, g0 + Rl + h))))
+        exchange.append(tuple(per))
+    return MeshSuperBlockTriSolve(inner=B, mesh=mesh, axis=axis, rows=R,
+                                  halo=H, shards=tuple(shards),
+                                  exchange=tuple(exchange))
+
+
+def _shard_args(Bs: SuperBlockShard, li: int):
+    """The kernel's launch table for shard Bs's part of level li: the
+    level's table with the shard's lines, offsets and plane slots (cached
+    on Bs)."""
+    from .._build import SuperLevelArgs
+    if li not in Bs._args:
+        a = SuperLevelArgs.from_buffer_copy(_level_args(Bs.B, li))
+        l0, l1 = Bs.lines[li]
+        nx = Bs.B.spec_params[0]
+        a.line0, a.lines = l0, l1 - l0
+        a.grid_x = -(-a.lines // a.block_y)
+        a.y_row0, a.x_row0 = Bs.row0, Bs.x_row0
+        a.slot0, a.plane_m = l0 * nx, (l1 - l0) * nx
+        Bs._args[li] = a
+    return Bs._args[li]
+
+
+def super_level_halo(Bs: SuperBlockShard, li: int, y: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """One mesh shard's part of level li (the JAX package's
+    _super_level_pallas with row0): super_level_halo_plain's contract.  A
+    CUDA tensor launches the level kernel (csrc/block_trisolve.cu) on the
+    shard's window, its planes and diagonal, counted in
+    `super_level_halo.launches` (const mode), `.table_launches` or
+    `.plane_launches`; a shard that owns none of the level's lines
+    launches nothing.  A CPU tensor takes the plain version."""
+    _check_halo(Bs, li, y, x)
+    if x.device.type == "cuda":
+        l0, l1 = Bs.lines[li]
+        if l1 == l0:
+            return x
+        B = Bs.B
+        vc = Bs.vals_cross[li] if B.is_plane else None
+        vs = Bs.vals_self[li] if B.is_plane else None
+        _cuda_call(B, "super_level", x, ctypes.byref(_shard_args(Bs, li)),
+                   y.data_ptr(), x.data_ptr(), _ptr(B.table),
+                   _ptr(B.table_dinv), _ptr(vc), _ptr(vs),
+                   _ptr(Bs.dinv_rows), operands=(vc, vs, Bs.dinv_rows))
+        if B.is_table:
+            super_level_halo.table_launches += 1
+        elif B.is_plane:
+            super_level_halo.plane_launches += 1
+        else:
+            super_level_halo.launches += 1
+        return x
+    if x.device.type == "cpu":
+        return super_level_halo_plain(Bs, li, y, x)
+    raise ValueError(f"no super-level solve for device {x.device}")
+
+
+super_level_halo.launches = 0
+super_level_halo.table_launches = 0
+super_level_halo.plane_launches = 0
+
+
+def _mesh_exchange(MB: MeshSuperBlockTriSolve, li: int, X) -> None:
+    """After level li: each shard sends the level's superblock lines among
+    its first (last) halo rows to its left (right) neighbour
+    (Mesh.ppermute), which writes them into its window's right (left)
+    halo."""
+    if not MB.halo or MB.n_devices == 1:
+        return
+    nx = MB.inner.spec_params[0]
+    views = [Xk.view(-1, nx) for Xk in X]
+    ex = MB.exchange[li]
+    to_left = MB.mesh.ppermute([v.index_select(0, e[0])
+                                for v, e in zip(views, ex)], -1)
+    to_right = MB.mesh.ppermute([v.index_select(0, e[1])
+                                 for v, e in zip(views, ex)], 1)
+    last = MB.n_devices - 1
+    for k, (v, e) in enumerate(zip(views, ex)):
+        if k > 0:
+            v.index_copy_(0, e[2], to_right[k])
+        if k < last:
+            v.index_copy_(0, e[3], to_left[k])
+
+
+def _solve_super_mesh(MB: MeshSuperBlockTriSolve,
+                      y: torch.Tensor) -> torch.Tensor:
+    """All levels in order on the mesh: each shard's part of a level
+    (super_level_halo) on its own rows of y and its window of x, then the
+    level's halo exchange; x starts at zero on every window (the JAX
+    package's _solve_super_mesh).  Returns x, n rows.  MEGA is not read:
+    the mesh route takes no one-launch solve."""
+    n_dev, R, H = MB.n_devices, MB.rows, MB.halo
+    ys = [v.contiguous() for v in
+          F.pad(y, (0, n_dev * R - y.numel())).split(R)]
+    X = [torch.zeros(R + 2 * H, dtype=y.dtype, device=y.device)
+         for _ in range(n_dev)]
+    for li in range(len(MB.inner.levels)):
+        for Bs, yk, Xk in zip(MB.shards, ys, X):
+            super_level_halo(Bs, li, yk, Xk)
+        _mesh_exchange(MB, li, X)
+    return torch.cat([Xk[H:H + R] for Xk in X])[:y.numel()]
+
+
+def _mesh_times_d(MB: MeshSuperBlockTriSolve, t: torch.Tensor):
+    """t·D for the symmetric apply's middle multiply, each shard's rows by
+    its own slice of the per-row D (or the constant D)."""
+    if MB.inner.d_rows is None:
+        if MB.inner.d is None:
+            raise ValueError("blocked_sgs needs L built with need_d=True")
+        return t * MB.inner.d
+    R = MB.rows
+    parts = F.pad(t, (0, MB.n_devices * R - t.numel())).split(R)
+    return torch.cat([p * Bs.d_rows for p, Bs in zip(parts, MB.shards)]
+                     )[:t.numel()]
+
+
+# ---------------------------------------------------------------------------
 # Whole solves
 # ---------------------------------------------------------------------------
 
@@ -1506,6 +1853,8 @@ def blocked_trisolve(B, y: torch.Tensor) -> torch.Tensor:
 
 
 def _blocked_trisolve(B, y: torch.Tensor) -> torch.Tensor:
+    if isinstance(B, MeshSuperBlockTriSolve):
+        return _solve_super_mesh(B, y)
     if isinstance(B, BlockedTriSolve):
         Y = permute_blocks(B, y)
         return unpermute_blocks(B, solve_blocks(B, Y, Y))
@@ -1521,6 +1870,8 @@ def blocked_sgs(L, U, y: torch.Tensor) -> torch.Tensor:
 
 
 def _blocked_sgs(L, U, y: torch.Tensor) -> torch.Tensor:
+    if isinstance(L, MeshSuperBlockTriSolve):
+        return _solve_super_mesh(U, _mesh_times_d(L, _solve_super_mesh(L, y)))
     d = L.d if isinstance(L, BlockedTriSolve) or L.d_rows is None \
         else L.d_rows
     if d is None:
@@ -1545,10 +1896,13 @@ def _blocked_ilu0(L, U, y: torch.Tensor) -> torch.Tensor:
         X = solve_blocks(L, permute_blocks(L, y), torch.empty(
             (L.n_colors, L.M), dtype=y.dtype, device=y.device))
         return unpermute_blocks(U, solve_blocks(U, X, X))
-    if not L.unit:
+    mesh = isinstance(L, MeshSuperBlockTriSolve)
+    if not (L.inner if mesh else L).unit:
         raise ValueError("blocked_ilu0 needs an ILU(0) pair, whose L solves "
                          "with a unit diagonal: the factor-table pair "
                          "(build_superblock_ilu0_pair_stencil) or one built "
                          "from its factors with D None, not a GS pair")
+    if mesh:
+        return _solve_super_mesh(U, _solve_super_mesh(L, y))
     x = _blocked_trisolve(L, y)
     return _solve_super(U, x, x)

@@ -38,7 +38,7 @@ from ..ops.dia_spmv import dia_spmv_halo
 from ..ops.lane_ell import (LANES, DeviceLaneELL, lane_ell_extend_rows,
                             lane_ell_row_tile, lane_ell_spmv_halo)
 from ..stencil_op import (DeviceStencil, stencil_gs_color_step_halo,
-                          stencil_spmv_halo)
+                          stencil_shard_rows, stencil_spmv_halo)
 from .sharded import Mesh, _halo, _halo_exchange, _split
 
 
@@ -109,17 +109,6 @@ def unwrap(A):
     if isinstance(A, (MeshStencil, MeshDIA, MeshLaneELL)):
         return A.inner
     return A
-
-
-def stencil_shard_rows(dims, halo, n_dev: int) -> int:
-    """R_local of a stencil on n_dev shards: whole z-planes where nz ≥
-    n_dev, else whole x-lines, enough for n rows and at least the halo
-    (HPCG 8x8x8 on 8 shards: a 73-row halo over 64-row planes takes two
-    planes a shard, four shards inert)."""
-    nx, ny, nz = dims
-    unit = nx * ny if nz >= n_dev else nx
-    need = max(-(-(nx * ny * nz) // n_dev), max(halo), 1)
-    return -(-need // unit) * unit
 
 
 def wrap_stencil(St: DeviceStencil, mesh: Mesh, axis: str) -> MeshStencil:

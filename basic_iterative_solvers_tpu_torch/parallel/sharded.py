@@ -22,6 +22,9 @@ SpMVs and GS steps run per shard, each mesh operator padding the row count
 to n_dev·R_local with inert rows where its layout needs it (shard k owns
 rows [k·R_local, (k+1)·R_local)).  This slice keeps every shard on one
 device: `shard_setup` refuses a mesh over several cards (slice 8c).
+A superblock preconditioner's L and U solves are cut into the shards too
+(ops/block_trisolve.shard_superblock): each level runs once a shard with
+one halo exchange after it.
 
 Two modes in the JAX package's `shard_setup`; the port has the first:
 
@@ -394,9 +397,8 @@ def _shard_setup_mesh(setup, mesh: Mesh, axis: str = AXIS):
     from .mesh_ops import wrap_dia, wrap_lane_ell, wrap_stencil
 
     M = setup.M
-    blocks = [B for B in (M.L_block, M.U_block, setup.gs_L_block,
-                          setup.gs_U_block) if B is not None]
-    if not all(isinstance(B, SuperBlockTriSolve) for B in blocks):
+    if not all(B is None or isinstance(B, SuperBlockTriSolve)
+               for B in (M.L_block, M.U_block)):
         raise _MeshIneligible(
             "rank-space blocked trisolves are not mesh-sharded")
     if M.L_solve is not None or M.U_solve is not None:
@@ -448,9 +450,24 @@ def _shard_setup_mesh(setup, mesh: Mesh, axis: str = AXIS):
     M_sh = dataclasses.replace(
         M, L_strict_dev=re_mat(M.L_strict_dev),
         U_strict_dev=re_mat(M.U_strict_dev),
-        A_full_dev=re_mat(M.A_full_dev))
-    if blocks:
-        raise _MeshIneligible(
-            "superblock trisolves are not mesh-sharded in the port yet "
-            "(slice 8b)")
+        A_full_dev=re_mat(M.A_full_dev),
+        L_block=_mesh_blocks(M.L_block, mesh, axis),
+        U_block=_mesh_blocks(M.U_block, mesh, axis))
+    # the GS methods' own superblock solves (setup.gs_L_block, gs_U_block)
+    # stay whole, as in the JAX package: they run on the whole solver
+    # vector, which works because every shard of this mesh lies on one
+    # device (shard_setup refuses a mesh over several cards: slice 8c)
     return dataclasses.replace(setup, A=A_new, M=M_sh)
+
+
+def _mesh_blocks(B, mesh: Mesh, axis: str):
+    """A superblock solve cut into the mesh's shards
+    (ops/block_trisolve.shard_superblock); a layout it refuses makes the
+    whole setup ineligible for the shard_map mode."""
+    if B is None:
+        return None
+    from ..ops.block_trisolve import BlockIneligibleError, shard_superblock
+    try:
+        return shard_superblock(B, mesh, axis)
+    except BlockIneligibleError as e:
+        raise _MeshIneligible(str(e)) from e

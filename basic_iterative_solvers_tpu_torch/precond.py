@@ -561,6 +561,10 @@ def estimated_precond_passes(M: Preconditioner) -> float:
         for B in (M.L_block, M.U_block):
             if B is None:
                 continue
+            if isinstance(B, bk.MeshSuperBlockTriSolve):
+                # the JAX package's estimate of the whole solve, though
+                # the mesh route takes no one-launch solve
+                B = B.inner
             if isinstance(B, bk.SuperBlockTriSolve):
                 # const mode regenerates its planes: no factor traffic; the
                 # one-launch solve reads no window either

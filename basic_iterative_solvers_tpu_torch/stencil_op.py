@@ -463,6 +463,17 @@ stencil_spmv_stream.outside_reach = 0
 # Shard-local SpMV (the JAX package's halo/row0 form of #1)
 # ---------------------------------------------------------------------------
 
+def stencil_shard_rows(dims, halo, n_dev: int) -> int:
+    """R_local of a stencil on n_dev shards: whole z-planes where nz ≥
+    n_dev, else whole x-lines, enough for n rows and at least the halo
+    (HPCG 8x8x8 on 8 shards: a 73-row halo over 64-row planes takes two
+    planes a shard, four shards inert)."""
+    nx, ny, nz = dims
+    unit = nx * ny if nz >= n_dev else nx
+    need = max(-(-(nx * ny * nz) // n_dev), max(halo), 1)
+    return -(-need // unit) * unit
+
+
 def _check_window(A: DeviceStencil, xw: torch.Tensor, row0: int, diag,
                   out, dots=(), aux=None) -> int:
     """Check a shard's window and return its own row count: whole x-lines

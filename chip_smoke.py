@@ -126,7 +126,20 @@ exits non-zero:
      and 8-shard mesh in turns, with ms/iter, launches and the mesh's
      exchanges an iteration; f64 CG + Jacobi to 1e-8 at 128^3 on both,
      equal counts; one step and a solve of the standalone distributed CG
-     (make_sharded_cg) on the DIA 128^3 matrix.
+     (make_sharded_cg) on the DIA 128^3 matrix;
+ 36. slice 8b's kernel ([mesh-super-level], run after phase 25): kernel
+     #9's mesh form on an 8-shard mesh on the card, every level of L and U
+     in const (128^3 GS pair), factor-table (128^3 ILU(0) pair) and plane
+     mode (the fdm:2048 pair of phase 23), f32 and f64, each shard
+     bit-equal to its plain twin and the shards together to the
+     single-device level; the 8 launches timed beside the single-device
+     level, the plain twins, the whole mesh level with its exchange and
+     whole L solves;
+ 37. slice 8b's rows ([slice8b]): pcg, pcg_ilu0, pbicgstab@anderson128 and
+     pcg_ilu0@fdm2048 at full size and the bench's iteration counts,
+     single-device and 8-shard mesh in turns, with ms/iter, #9's mesh
+     launches, exchanges and peak memory; f64 CG + SGS to 1e-8 at 128^3
+     on both, equal counts.
 Each phase's seconds are printed as a [time] line.
 The second-to-last line is a JSON object describing each kernel: launches
 on the main paths, error against plain, kernel, plain and library times,
@@ -3591,6 +3604,386 @@ def phase_slice8(torch, bt, sband):
     return launches, numbers
 
 
+def _mesh_level_work(MB, li, itemsize, single_work):
+    """(bytes, operations) of one level on the mesh, each shard counted as
+    _level_work and _plane_level_work count one device: y read and x
+    written on its rows of the level's superblock; x read once on each
+    line of a source superblock that one of its cross legs (plane groups)
+    reaches from those rows, its own lines and the in-grid halo lines (a
+    line near a seam counted by both shards that read it); its plane
+    values and per-row 1/D on its rows; and the factor-table values the
+    single-device level reads.  Operations: the single-device level's
+    (single_work: its (bytes, operations), whose byte count less its
+    vector rows is its table reads)."""
+    import numpy as np
+    B = MB.inner
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    sb, cross, _selfs = B.levels[li]
+    my = ny // sy
+    n_src = len({src for src, _d in cross})
+    table = (single_work[0] // itemsize - B.m * (2 + n_src)
+             if B.is_table else 0)
+    values = table
+    for Bs in MB.shards:
+        l0, l1 = Bs.lines[li]
+        if l1 == l0:
+            continue
+        t = np.arange(l0, l1)
+        src_lines = set()
+        if B.is_plane:
+            for src, delta in cross:
+                q = delta // nx
+                for dl in ((q,) if delta % nx == 0 else (q, q + 1)):
+                    ls = t + dl
+                    ls = ls[(ls >= 0) & (ls < B.m // nx)]
+                    src_lines.update((sy * (ls % my) + src % sy + ny * (
+                        sz * (ls // my) + src // sy)).tolist())
+        else:
+            gy, gz = sy * (t % my) + sb % sy, sz * (t // my) + sb // sy
+            for _f, dx, dy, dz in (B.table_cross[li] if B.is_table
+                                   else B.const_cross[li]):
+                ok = ((gy + dy >= 0) & (gy + dy < ny) & (gz + dz >= 0)
+                      & (gz + dz < nz))
+                if abs(dx) < nx:
+                    src_lines.update(((gy + dy) + ny * (gz + dz))[ok]
+                                     .tolist())
+        groups = 0
+        if B.is_plane:
+            groups = sum(v.shape[0] for v in (Bs.vals_cross[li],
+                                              Bs.vals_self[li])
+                         if v is not None)
+        per_row = 0 if B.is_table or Bs.dinv_rows is None else 1
+        values += (nx * len(src_lines)
+                   + (l1 - l0) * nx * (2 + groups + per_row))
+    return values * itemsize, single_work[1]
+
+
+def phase_mesh_super_level(torch, bt, setup5b, library):
+    """[mesh-super-level]: kernel #9's mesh form on an 8-shard mesh on the
+    card, every level of L and U in each mode: const (the 128^3 GS pair),
+    factor table (the 128^3 ILU(0) pair) and plane (the fdm:2048 ILU(0)
+    pair from host CSR: L plane, U const with a per-row D), f32 and f64 (the
+    plane pair widened); each shard's launch bit-equal to its plain twin
+    on the same window, the shards' rows together bit-equal to the
+    single-device kernel's level.  Timed (f32, the last L level of each
+    mode): the 8 launches by device time (_device_ms), the single-device
+    level, the plain twins, the whole mesh level with its exchange, and the
+    whole L solve on the mesh and on one device beside
+    torch.triangular_solve's (`library`, measured earlier in this run).
+    Returns the const mode's record (the table's and plane's beside it)."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(MESH_SHARDS, device="cuda")
+    counter = bk.super_level_halo
+    records = {}
+
+    def pairs(mode, dt):
+        if mode == "plane":
+            L, U = setup5b.M.L_block, setup5b.M.U_block
+            return (L, U) if dt == torch.float32 else (_widen(L, torch),
+                                                       _widen(U, torch))
+        A = bt.stencil_op.from_source_operator(MAIN_SPEC, dt, device="cuda")
+        if mode == "const":
+            return bk.build_superblock_gs_pair_stencil(
+                A, spec_for_device(A), dtype=dt, need_d=True)
+        return bk.build_superblock_ilu0_pair_stencil(A, spec_for_device(A),
+                                                     dtype=dt)
+
+    for mode, spec in (("const", MAIN_SPEC), ("table", MAIN_SPEC),
+                       ("plane", FDM_5B)):
+        for dt in (torch.float32, torch.float64):
+            L, U = pairs(mode, dt)
+            item = torch.empty((), dtype=dt).element_size()
+            g = torch.Generator(device="cuda").manual_seed(31)
+            for tri, B in (("L", L), ("U", U)):
+                MB = bk.shard_superblock(B, mesh)
+                n, R, H = B.n_rows, MB.rows, MB.halo
+                pad = MESH_SHARDS * R - n
+                attr = ("table_launches" if B.is_table else "plane_launches"
+                        if B.is_plane else "launches")
+                err = 0.0
+                for li in range(len(B.levels)):
+                    y = torch.randn(n, dtype=dt, device="cuda", generator=g)
+                    x = torch.randn(n, dtype=dt, device="cuda", generator=g)
+                    single = bk.super_level(B, li, y, x.clone())
+                    xw = torch.nn.functional.pad(x, (H, pad + H))
+                    ys = [v.clone() for v in torch.nn.functional.pad(
+                        y, (0, pad)).split(R)]
+                    wins = [xw[k * R:(k + 1) * R + 2 * H].clone()
+                            for k in range(MESH_SHARDS)]
+                    twins = [bk.super_level_halo_plain(
+                        Bs, li, ys[k], wins[k].clone())
+                        for k, Bs in enumerate(MB.shards)]
+                    owners = sum(1 for Bs in MB.shards
+                                 if Bs.lines[li][1] > Bs.lines[li][0])
+                    before = getattr(counter, attr)
+                    for k, Bs in enumerate(MB.shards):
+                        bk.super_level_halo(Bs, li, ys[k], wins[k])
+                    torch.cuda.synchronize()
+                    if getattr(counter, attr) != before + owners:
+                        raise RuntimeError(f"[mesh-super-level] {mode} "
+                                           "launch count did not grow by one "
+                                           "an owning shard")
+                    for k in range(MESH_SHARDS):
+                        err = max(err, float((wins[k] - twins[k]).abs()
+                                             .max()))
+                        if not torch.equal(wins[k], twins[k]):
+                            raise RuntimeError(
+                                f"[mesh-super-level] {mode} {dt} {tri} "
+                                f"level {li} shard {k} differs from its "
+                                "plain twin")
+                    own = torch.cat([w[H:H + R] for w in wins])[:n]
+                    if not torch.equal(own, single):
+                        raise RuntimeError(
+                            f"[mesh-super-level] {mode} {dt} {tri} level "
+                            f"{li}: the shards differ from the single-device "
+                            "kernel")
+                    timed = (dt == torch.float32 and tri == "L"
+                             and li == len(B.levels) - 1)
+                    if not timed:
+                        continue
+                    ms = _device_ms(lambda: [
+                        bk.super_level_halo(Bs, li, ys[k], wins[k])
+                        for k, Bs in enumerate(MB.shards)], torch)
+                    xs = x.clone()
+                    single_ms = _device_ms(
+                        lambda: bk.super_level(B, li, y, xs), torch)
+                    plain_ms = _median_ms(lambda: [
+                        bk.super_level_halo_plain(Bs, li, ys[k], wins[k])
+                        for k, Bs in enumerate(MB.shards)], torch, reps=5,
+                        batch=2)
+
+                    def mesh_level():
+                        for k, Bs in enumerate(MB.shards):
+                            bk.super_level_halo(Bs, li, ys[k], wins[k])
+                        bk._mesh_exchange(MB, li, wins)
+
+                    call_ms = _median_ms(mesh_level, torch)
+                    solve_mesh_ms = _median_ms(
+                        lambda: bk._solve_super_mesh(MB, y), torch, reps=5)
+                    out = torch.empty_like(y)
+                    solve_ms = _median_ms(
+                        lambda: bk._solve_super(B, y, out), torch, reps=5)
+                    work = (_plane_level_work(B, li, item) if mode == "plane"
+                            else _level_work(B, li, item))
+                    bound = _bound(*_mesh_level_work(MB, li, item, work))
+                    print(f"[mesh-super-level] {spec} f32 {mode} L level {li}"
+                          f" (superblock {B.levels[li][0]}, "
+                          f"{len(B.levels[li][1])} cross groups) rows/shard="
+                          f"{R} halo={H}: 8 shard launches ms={ms:.4f} "
+                          f"(single-device level {single_ms:.4f}; plain "
+                          f"twins {plain_ms:.4f}; the whole mesh level with "
+                          f"its exchange {call_ms:.4f}) bound_ms="
+                          f"{bound['bound_ms']:.5f} ({bound['bound_by']}); "
+                          f"whole L solve: mesh {solve_mesh_ms:.4f}, one "
+                          f"device {solve_ms:.4f}, torch.triangular_solve "
+                          f"{library[mode]:.4f} (measured above)")
+                    records[mode] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": None, "single_ms": single_ms,
+                        "call_ms": call_ms, "solve_mesh_ms": solve_mesh_ms,
+                        "solve_ms": solve_ms,
+                        "triangular_solve_ms": library[mode], **bound}
+                print(f"[mesh-super-level] {spec} {str(dt)[6:]} {tri} "
+                      f"({_mode(B)}, {len(B.levels)} levels) rows/shard={R} "
+                      f"halo={H}: every shard bit-equal to its plain twin "
+                      f"(max_abs_err {err:.1e}), the 8 shards bit-equal to "
+                      "the single-device kernel")
+                del MB
+            del L, U
+            torch.cuda.empty_cache()
+    rec = dict(records["const"])
+    rec["by_mode"] = {m: {k: records[m][k] for k in
+                          ("ms", "single_ms", "plain_ms", "call_ms",
+                           "bound_ms", "solve_mesh_ms", "solve_ms",
+                           "triangular_solve_ms")} for m in records}
+    return rec
+
+
+#: [slice8b]'s f64 BiCGSTAB + SGS check: steps run, residuals held (r0
+#: and the first two steps' norms), their rtol against one device
+BICG_F64_STEPS, BICG_F64_HELD, BICG_F64_RTOL = 6, 3, 1e-8
+#: [slice8b]: (row, the bench's iterations)
+SLICE8B_ROWS = (("pcg", 1200), ("pcg_ilu0", 1200),
+                ("pbicgstab@anderson128", 800), ("pcg_ilu0@fdm2048", 1200))
+
+
+def phase_slice8b(torch, bt, setup5b):
+    """[slice8b]: the superblock rows on the 8-shard mesh on the card, f32,
+    fused, tolerance 0, b = 2, x0 = 1, at full size: pcg (CG + SGS, const
+    mode), pcg_ilu0 (factor table), pbicgstab@anderson128 (const mode with
+    a per-row D from host CSR, the stencil injected) and pcg_ilu0@fdm2048
+    (L plane, U const with a per-row D; phase 23's set-up), at the bench's
+    iteration counts.  Single-device and mesh in turns (single, mesh,
+    mesh, single), each after a warm-up solve, every count set to 0 just
+    before the timed solve and read just after: ms/iter, #9's launches,
+    the mesh's exchanges and bytes an iteration, peak memory, and the
+    mesh's history against the single-device one (the CG rows' first ten
+    residuals within 1e-4: f32, the psum sums the dots per shard).  Then
+    f64 CG + SGS at 128^3 to 1e-8·||r0|| on the mesh and on one device:
+    equal counts, histories within rtol 1e-8; and f64 BiCGSTAB + SGS on
+    anderson128, six steps on each, its first three residuals within rtol
+    1e-8.  Returns each row's mesh #9 launches (by row) and the rows'
+    numbers."""
+    import math
+    import numpy as np
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.parallel import (make_mesh,
+                                                            shard_setup)
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    S, P = bt.SolverType, bt.PrecondType
+    mesh = make_mesh(MESH_SHARDS, device="cuda")
+    halo = bk.super_level_halo
+    modes = {"super_level_halo": "launches",
+             "super_level_halo_table": "table_launches",
+             "super_level_halo_plane": "plane_launches"}
+
+    def counts(reset=False):
+        out = _row_counts(bt, reset=reset)
+        out.update(_mesh_counters(bt, reset=reset))
+        for key, attr in modes.items():
+            if reset:
+                setattr(halo, attr, 0)
+            out[key] = getattr(halo, attr)
+        return out
+
+    def stencil_row(precond, iters):
+        return _setup(torch, bt, MAIN_SPEC, torch.float32, "cuda",
+                      S.CONJUGATE_GRADIENT, preconditioner=P[precond],
+                      max_iters=iters, tolerance=0.0, breakdown_stall=True)
+
+    def anderson(iters):
+        return _colored_host_setup(
+            torch, bt, ANDERSON_128, torch.float32, "BICGSTAB",
+            "SYMMETRIC_GAUSS_SEIDEL", stencil=True, max_iters=iters,
+            tolerance=0.0, breakdown_stall=True)[0]
+
+    makers = {"pcg": lambda: stencil_row("SYMMETRIC_GAUSS_SEIDEL", 1200),
+              "pcg_ilu0": lambda: stencil_row("ILU0", 1200),
+              "pbicgstab@anderson128": lambda: anderson(800),
+              "pcg_ilu0@fdm2048": lambda: setup5b}
+    launches, numbers = {}, {}
+    for name, iters in SLICE8B_ROWS:
+        torch.cuda.empty_cache()
+        s1 = makers[name]()
+        s8 = shard_setup(s1, mesh, mode="shard_map")
+        L8, U8 = s8.M.L_block, s8.M.U_block
+        if not (isinstance(L8, bk.MeshSuperBlockTriSolve)
+                and isinstance(U8, bk.MeshSuperBlockTriSolve)):
+            raise RuntimeError(f"[slice8b] {name}: the blocks did not shard")
+        per_apply = {}
+        for B8 in (L8, U8):
+            key = ("super_level_halo_table" if B8.inner.is_table else
+                   "super_level_halo_plane" if B8.inner.is_plane
+                   else "super_level_halo")
+            per_apply[key] = per_apply.get(key, 0) + sum(
+                1 for Bs in B8.shards for l0, l1 in Bs.lines if l1 > l0)
+        applies = 2 if name.startswith("pbicgstab") else 1
+        m1, m8 = make_method(s1), make_method(s8)
+        bt.solve(s1, method=m1)                              # warm-up solves
+        bt.solve(dataclasses.replace(s8, config=dataclasses.replace(
+            s8.config, max_iters=10)))
+        ms = {"single": [], "mesh": []}
+        hist = {}
+        for which in ("single", "mesh", "mesh", "single"):
+            setup, method = (s8, m8) if which == "mesh" else (s1, m1)
+            torch.cuda.reset_peak_memory_stats()
+            counts(reset=True)
+            mesh.reset_counts()
+            res = bt.solve(setup, method=method)
+            got = counts()
+            exch = dict(mesh.counts)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            it = max(1, res.iter_count)
+            ms[which].append(1e3 * res.solve_seconds / it)
+            hist[which] = np.asarray(res.residual_norms[:10])
+            ok = (res.iter_count == iters
+                  and math.isfinite(res.final_residual_norm)
+                  and bool(torch.isfinite(res.x_star).all()))
+            n_applies = applies * iters + 1
+            if which == "mesh":
+                ok = ok and all(got[k] == v * n_applies
+                                for k, v in per_apply.items())
+                ok = ok and not any(got[k] for k in ("super_level",
+                                                     "super_level_table",
+                                                     "super_level_plane"))
+                launches.setdefault(name, {k: got[k] for k in per_apply})
+            else:
+                ok = ok and not any(got[k] for k in modes)
+            per = {k: round(v / it, 3) for k, v in got.items() if v}
+            print(f"[slice8b] {name} f32 {which}: iters={res.iter_count} "
+                  f"ms/iter={ms[which][-1]:.5f} r0={res.residual_norms[0]:.6e}"
+                  f" final_explicit_f64={res.final_residual_norm:.6e} "
+                  f"peak_GB={peak_gb:.3f} launches/iter={per}"
+                  + (f" exchanges/iter: ppermute={exch['ppermute'] / it:.3f}"
+                     f" ({exch['ppermute_bytes'] / it / 1e6:.4f} MB) psum="
+                     f"{exch['psum'] / it:.3f} ({exch['psum_bytes'] / it:.1f}"
+                     " B)" if which == "mesh" else ""))
+            if not ok:
+                raise RuntimeError(f"[slice8b] {name} {which} failed its "
+                                   f"checks: {got} against {per_apply} x "
+                                   f"{n_applies}")
+        h1, h8 = hist["single"], hist["mesh"]
+        dev = float(np.max(np.abs(h8 - h1) / h1))
+        print(f"[slice8b] {name}: the mesh's first ten residuals against "
+              f"the single-device solve's: max rel difference {dev:.3e}")
+        if name.startswith("pcg") and not dev <= 1e-4:
+            raise RuntimeError(f"[slice8b] {name}: the mesh's history "
+                               "departs from the single-device one")
+        numbers[name] = ms
+        del s1, s8, m1, m8, L8, U8
+    torch.cuda.empty_cache()
+
+    # f64 CG + SGS to 1e-8 on the mesh and on one device
+    res = {}
+    for which in ("single", "mesh"):
+        setup = _hpcg_cg(torch, bt, MAIN_SPEC, torch.float64,
+                         preconditioner=P.SYMMETRIC_GAUSS_SEIDEL,
+                         tolerance=1e-8, max_iters=1000)
+        if which == "mesh":
+            setup = shard_setup(setup, mesh, mode="shard_map")
+        res[which] = bt.solve(setup)
+    r1, r8 = res["single"], res["mesh"]
+    h1, h8 = (np.asarray(r.residual_norms[:-1]) for r in (r1, r8))
+    dev = (float(np.max(np.abs(h8 - h1) / h1)) if h1.shape == h8.shape
+           else float("inf"))
+    print(f"[slice8b] {MAIN_SPEC} f64 CG + SGS to 1e-8: iters "
+          f"single={r1.iter_count} mesh={r8.iter_count} max rel history "
+          f"difference {dev:.3e}; final explicit single="
+          f"{r1.final_residual_norm:.6e} mesh={r8.final_residual_norm:.6e} "
+          f"ms/iter single={1e3 * r1.solve_seconds / r1.iter_count:.4f} "
+          f"mesh={1e3 * r8.solve_seconds / r8.iter_count:.4f}")
+    if not (r1.converged and r8.converged and r1.iter_count == r8.iter_count
+            and dev <= 1e-8):
+        raise RuntimeError("the f64 mesh CG + SGS solve differs from the "
+                           "single-device solve")
+    torch.cuda.empty_cache()
+
+    # f64 BiCGSTAB + SGS on anderson128: its first residuals on the mesh
+    # and on one device (BiCGSTAB amplifies the psum's regrouping of the
+    # dots, so only the first steps are held: ROADMAP queue 3)
+    s1 = _colored_host_setup(
+        torch, bt, ANDERSON_128, torch.float64, "BICGSTAB",
+        "SYMMETRIC_GAUSS_SEIDEL", stencil=True, max_iters=BICG_F64_STEPS,
+        tolerance=0.0, breakdown_stall=True)[0]
+    h = {which: np.asarray(bt.solve(
+        shard_setup(s1, mesh, mode="shard_map") if which == "mesh" else s1
+    ).residual_norms) for which in ("single", "mesh")}
+    rel = np.abs(h["mesh"] - h["single"]) / h["single"]
+    print(f"[slice8b] pbicgstab@anderson128 f64, {BICG_F64_STEPS} steps: "
+          "the mesh's residuals against the single-device solve's, rel "
+          f"differences {np.array2string(rel, precision=2)} (the first "
+          f"{BICG_F64_HELD} held within {BICG_F64_RTOL:.0e})")
+    if not (len(h["mesh"]) == len(h["single"])
+            and float(rel[:BICG_F64_HELD].max()) <= BICG_F64_RTOL):
+        raise RuntimeError("the f64 mesh BiCGSTAB + SGS residuals depart "
+                           "from the single-device solve's")
+    del s1
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
 def main():
     import torch
     t_last = [time.perf_counter()]
@@ -3659,13 +4052,21 @@ def main():
     lap("slice5b_rows")
     plane_record, _split5b, whole5b = phase_plane_level_vs_plain(
         torch, bt, setup5b)
-    del setup5b
     torch.cuda.empty_cache()
     lap("plane_level_vs_plain")
     mega_record = phase_mega_vs_per_level(torch, bt)
     lap("mega_vs_per_level")
     mega_launches = phase_mega_rows(torch, bt)
     lap("mega_rows")
+    mesh_level_record = phase_mesh_super_level(
+        torch, bt, setup5b, {"const": mega_record["library_ms"],
+                             "table": whole_l["library_ms"],
+                             "plane": whole5b["library_ms"]})
+    lap("mesh_super_level")
+    mesh_super_launches, _slice8b = phase_slice8b(torch, bt, setup5b)
+    del setup5b
+    torch.cuda.empty_cache()
+    lap("slice8b")
     stream_record = phase_stream_vs_plain(torch, bt, record["library_ms"])
     lap("stream_vs_plain")
     phase_cpu_vs_card_slice6(torch, bt)
@@ -3784,6 +4185,14 @@ def main():
             "replaces": "basic_iterative_solvers_tpu/" + line,
             "launches": mesh_launches.get(kernel, 0),
             **mesh_records[kernel]})
+    kernels.append({
+        "name": "super_level_halo", "route": "cuda",
+        "source": src + "block_trisolve.cu",
+        "replaces": "basic_iterative_solvers_tpu/ops/block_trisolve.py:1611",
+        "launches": mesh_super_launches["pcg"]["super_level_halo"],
+        "launches_by_row": {row: sum(c.values()) for row, c
+                            in mesh_super_launches.items()},
+        **mesh_level_record})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
@@ -3795,7 +4204,8 @@ def main():
                                         "launches_per_iter_by_row",
                                         "resident_ms", "call_ms",
                                         "single_ms", "ms_384",
-                                        "f32_ms_384", "bound_ms_384")
+                                        "f32_ms_384", "bound_ms_384",
+                                        "by_mode")
          if key in k}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -302,3 +302,104 @@ def test_mesh_solve_on_the_card(card):
         assert tso.stencil_spmv_halo.launches > before[0]
         if method != "CONJUGATE_GRADIENT":
             assert tso.stencil_gs_color_step_halo.launches > before[1]
+
+
+def _mesh_pair(card, spec, mode, dt):
+    """(L, U) of `mode` on the card: the analytic const GS pair or the
+    factor-table ILU(0) pair of a stencil, or the ILU(0) pair from host
+    CSR (L in plane mode) and the SGS pair from host CSR (const, per-row
+    D) under the source's grid spec."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    if mode in ("const", "table") and spec.startswith("hpcg"):
+        A = tso.from_source_operator(spec, dt, device=card)
+        if mode == "const":
+            return bk.build_superblock_gs_pair_stencil(
+                A, spec_for_device(A), dtype=dt, need_d=True)
+        return bk.build_superblock_ilu0_pair_stencil(A, spec_for_device(A),
+                                                     dtype=dt)
+    cfg = bt.SolverConfig(
+        preconditioner=bt.PrecondType["ILU0" if mode == "plane"
+                                      else "SYMMETRIC_GAUSS_SEIDEL"],
+        dtype=dt, gs_mode="colored",
+        color_spec=bt.generators.color_spec_for_source(spec))
+    M = bt.preprocessing(bt.generators.from_source(spec), cfg,
+                         device=card).M
+    return M.L_block, M.U_block
+
+
+MESH_SUPER = [("hpcg:16x12x8", 4, "const"), ("hpcg:16x12x8", 4, "table"),
+              ("hpcg:8x8x8", 8, "table"), ("fdm:32", 8, "const"),
+              ("fdm:32", 8, "plane"), ("hpcg:16x12x8", 4, "plane")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("spec,n_dev,mode", MESH_SUPER)
+def test_mesh_super_level_equals_twin_and_single_device(card, spec, n_dev,
+                                                        mode, dt):
+    """Kernel #9's mesh form: every shard's launch of every level of L and
+    U bit-equal to its plain twin on the same window, the shards' own
+    rows together bit-equal to the single-device kernel's level, one
+    launch a shard that owns lines of the level counted."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.parallel import make_mesh
+    L, U = _mesh_pair(card, spec, mode, dt)
+    mesh = make_mesh(n_dev, device=card)
+    g = np.random.default_rng(5)
+    for B in (L, U):
+        # a plane pair's U is const mode with a per-row D
+        attr = ("table_launches" if B.is_table else "plane_launches"
+                if B.is_plane else "launches")
+        MB = bk.shard_superblock(B, mesh)
+        n, R, H = B.n_rows, MB.rows, MB.halo
+        pad = n_dev * R - n
+        for li in range(len(B.levels)):
+            y = torch.from_numpy(g.standard_normal(n)).to(card, dt)
+            x = torch.from_numpy(g.standard_normal(n)).to(card, dt)
+            single = bk.super_level(B, li, y, x.clone())
+            xw = torch.nn.functional.pad(x, (H, pad + H))
+            yw = torch.nn.functional.pad(y, (0, pad))
+            owned = []
+            for k, Bs in enumerate(MB.shards):
+                yk = yw[k * R:(k + 1) * R].clone()
+                win = xw[k * R:(k + 1) * R + 2 * H].clone()
+                twin = bk.super_level_halo_plain(Bs, li, yk, win.clone())
+                before = getattr(bk.super_level_halo, attr)
+                bk.super_level_halo(Bs, li, yk, win)
+                torch.cuda.synchronize()
+                lines = Bs.lines[li][1] - Bs.lines[li][0]
+                assert getattr(bk.super_level_halo, attr) == before + (
+                    1 if lines else 0)
+                assert torch.equal(win, twin), (li, k)
+                owned.append(win[H:H + R])
+            assert torch.equal(torch.cat(owned)[:n], single), li
+
+
+@pytest.mark.cuda
+def test_mesh_superblock_solves_on_the_card(card):
+    """CG + SGS (const) and CG + ILU(0) (factor table) on an 8-shard mesh
+    on the card, the blocks cut into the shards: the single-device
+    solve's counts and histories (rtol 1e-8), the mesh form of #9
+    launched."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.parallel import (make_mesh,
+                                                            shard_setup)
+    mesh = make_mesh(8, device=card)
+    for precond, attr in (("SYMMETRIC_GAUSS_SEIDEL", "launches"),
+                          ("ILU0", "table_launches")):
+        A = tso.from_source_operator("hpcg:16x16x16", torch.float64,
+                                     device=card)
+        cfg = bt.SolverConfig(preconditioner=bt.PrecondType[precond],
+                              dtype=torch.float64, tolerance=1e-8,
+                              harness="fused", max_iters=500)
+        r1 = bt.solve(bt.preprocessing_device(A, cfg))
+        before = getattr(bk.super_level_halo, attr)
+        s8 = shard_setup(bt.preprocessing_device(A, cfg), mesh,
+                         mode="shard_map")
+        assert isinstance(s8.M.L_block, bk.MeshSuperBlockTriSolve)
+        r8 = bt.solve(s8)
+        assert r8.converged and r8.iter_count == r1.iter_count
+        np.testing.assert_allclose(r8.residual_norms[:-1],
+                                   r1.residual_norms[:-1], rtol=1e-8)
+        assert getattr(bk.super_level_halo, attr) > before

@@ -2,8 +2,8 @@
 standalone shard_map CG) against the JAX package's, the halo guard, the
 mesh itself (`make_mesh`, `ppermute`, `psum`) and `shard_setup`'s
 refusals: the JAX package's, in its order and with its messages, and the
-port's own (superblock solves: slice 8b; the GSPMD mode and meshes over
-several devices: slice 8c).  8 shards on the CPU; the JAX side on its 8
+port's own (the GSPMD mode and meshes over several devices: slice 8c);
+superblock solves shard (slice 8b).  8 shards on the CPU; the JAX side on its 8
 virtual devices.
 """
 import warnings
@@ -219,11 +219,14 @@ def test_shard_setup_refusals(mesh8):
 
 
 def test_shard_setup_refuses_what_later_slices_port(mesh8):
-    """The port's own refusals: superblock L/U blocks (the JAX package
-    shards them: slice 8b), whether the preconditioner's (CG + SGS on a
-    stencil, CG + ILU(0) from host CSR with the stencil injected) or the
-    GS method's; the GSPMD mode and a mesh over several devices (slice
-    8c); a setup on another device than the mesh's."""
+    """Superblock L/U blocks now shard (slice 8b): the preconditioner's
+    (CG + SGS on a stencil, CG + ILU(0) from host CSR with the stencil
+    injected) are cut into the mesh's shards, the GS method's stay whole,
+    as in the JAX package.  The port's own refusals remain: the GSPMD
+    mode and a mesh over several devices (slice 8c); a setup on another
+    device than the mesh's."""
+    from basic_iterative_solvers_tpu_torch.ops.block_trisolve import (
+        MeshSuperBlockTriSolve, SuperBlockTriSolve)
     A = _stencil()
     for setup in (
             bt.preprocessing_device(A, _cfg(precond="SYMMETRIC_GAUSS_SEIDEL")),
@@ -233,8 +236,17 @@ def test_shard_setup_refuses_what_later_slices_port(mesh8):
                 color_spec=bt.generators.color_spec_for_source("hpcg:8x8x8")),
                 A_dev=A, device=CPU)):
         assert any(B is not None for B in (setup.M.L_block, setup.gs_L_block))
-        with pytest.raises(ValueError, match="superblock.*slice 8b"):
-            shard_setup(setup, mesh8, mode="shard_map")
+        s8 = shard_setup(setup, mesh8, mode="shard_map")
+        assert isinstance(s8.A, tmo.MeshStencil)
+        for B, B8 in ((setup.M.L_block, s8.M.L_block),
+                      (setup.M.U_block, s8.M.U_block)):
+            assert B8 is None if B is None else (
+                isinstance(B8, MeshSuperBlockTriSolve) and B8.inner is B
+                and B8.n_devices == 8)
+        assert s8.gs_L_block is setup.gs_L_block
+        assert s8.gs_U_block is setup.gs_U_block
+        assert setup.gs_L_block is None or isinstance(setup.gs_L_block,
+                                                      SuperBlockTriSolve)
     setup = bt.preprocessing_device(A, _cfg())
     with pytest.raises(ValueError, match="'gspmd' is not ported.*slice 8c"):
         shard_setup(setup, mesh8, mode="gspmd")
