@@ -49,26 +49,34 @@ the card unless `--platform cpu` is given.
 """
 import torch
 
-from . import coloring, convert, dia, generators, stencil_op  # noqa: F401
+from . import (coloring, convert, dia, generators, permute,  # noqa: F401
+               stencil_op)
 from .config import Args, SolverConfig
 from .device_matrix import DeviceDIA, DeviceELL, from_csr
+from .factor import extract_scale, factor_LU, peel_diag, split_LU
 from .io import read_mtx, write_mtx
-from .matrix import MatrixCOO, MatrixCSR
+from .matrix import MatrixCOO, MatrixCSR, convert_coo_to_csr
 from .precond import (COLORED_PRECONDS, DEVICE_NATIVE_PRECONDS,
-                      ilu0_device_eligible, resolve_gs_mode)
+                      Preconditioner, apply_preconditioner,
+                      ilu0_device_eligible, resolve_gs_mode,
+                      setup_preconditioner, setup_preconditioner_dia)
 from .solvers import (SolverSetup, SolveResult, preprocessing,
                       preprocessing_device, solve)
 from .stencil_op import DeviceStencil
-from .types import PRECOND_CLI_NAMES, SOLVER_CLI_FLAGS, PrecondType, SolverType
+from .types import (PRECOND_CLI_NAMES, SOLVER_CLI_FLAGS, PrecondType,
+                    SolverType, to_string)
 
 __version__ = "0.1.0"
 
 __all__ = ["Args", "SolverConfig", "SolverType", "PrecondType",
            "SolverSetup", "SolveResult", "DeviceStencil", "DeviceDIA",
            "DeviceELL", "MatrixCOO", "MatrixCSR", "stencil_op", "dia",
-           "generators", "convert", "from_csr", "read_mtx", "write_mtx",
-           "preprocessing", "preprocessing_device", "solve",
-           "solve_system", "device_path"]
+           "generators", "convert", "permute", "from_csr", "read_mtx",
+           "write_mtx", "convert_coo_to_csr", "to_string", "factor_LU",
+           "split_LU", "peel_diag", "extract_scale", "Preconditioner",
+           "setup_preconditioner", "setup_preconditioner_dia",
+           "apply_preconditioner", "preprocessing", "preprocessing_device",
+           "solve", "solve_system", "device_path"]
 
 
 def device_path(source: str, config: SolverConfig, device) -> bool:

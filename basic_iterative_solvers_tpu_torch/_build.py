@@ -173,12 +173,25 @@ def load_library() -> ctypes.CDLL:
     lib.bis_stencil_stream_tile.argtypes = [ctypes.POINTER(i32)] * 4
     lib.bis_stencil_stream_tile.restype = i32
     for suffix in ("f32", "bf16"):
-        fn = getattr(lib, f"bis_gmres_project_gram_{suffix}")
+        fn = getattr(lib, f"bis_gmres_project_gram_strided_{suffix}")
         fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, i32, ptr, i32, ptr]
         fn.restype = i32
-        fn = getattr(lib, f"bis_gmres_correct_write_{suffix}")
+        fn = getattr(lib, f"bis_gmres_correct_write_strided_{suffix}")
         fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, ptr, ptr, i32, ptr]
         fn.restype = i32
+        # ..., partials, gp, gpart, gq, out, tickets, grid, stream
+        fn = getattr(lib, f"bis_gmres_project_gram_ring_{suffix}")
+        fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, i32, ptr, i32, ptr,
+                       i32, ptr, ptr, i32, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"bis_gmres_correct_write_ring_{suffix}")
+        fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, ptr, ptr, i32, ptr,
+                       i32, ptr, ptr, i32, ptr]
+        fn.restype = i32
+    lib.bis_gmres_ring_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.bis_gmres_ring_blocks_per_sm.restype = i32
+    lib.bis_gmres_ring_shape.argtypes = [ctypes.POINTER(i32)] * 5
+    lib.bis_gmres_ring_shape.restype = None
     for dt in ("f32", "f64", "f32_bf16", "f64_bf16"):
         fn = getattr(lib, f"bis_stencil_gs_color_step_{dt}")
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs), i32, i32, i32, i32,
@@ -228,6 +241,14 @@ def load_library() -> ctypes.CDLL:
         size_fn.restype = ctypes.c_int
         if size_fn() != ctypes.sizeof(mirror):
             raise RuntimeError(f"{mirror.__name__} does not match {source}")
+    from .ops import gmres_basis as gb
+    ring = [i32() for _ in range(5)]
+    lib.bis_gmres_ring_shape(*[ctypes.byref(v) for v in ring])
+    if tuple(v.value for v in ring) != (gb.RING_CONSUMERS, gb.RING_STAGE_VECS,
+                                        gb.RING_STAGES, gb.RING_MAX_GRID,
+                                        gb.RING_GROUP_BLOCKS):
+        raise RuntimeError("ops/gmres_basis.RING_* do not match BIS_RING_* "
+                           "in csrc/gmres_basis.cu")
     from .stencil_op import STREAM_HALO, STREAM_TILE
     tile = [i32() for _ in range(4)]
     lib.bis_stencil_stream_tile(*[ctypes.byref(v) for v in tile])

@@ -1,6 +1,6 @@
 """BLAS-1 vector operations of the solver hot path.
 
-Analogs of the reference's kernels.hpp:119-212, as plain torch ops on 1-D
+Analogs of the reference's kernels.hpp:119-220, as plain torch ops on 1-D
 tensors (the JAX package leaves them to XLA, outside any Pallas kernel).
 `scale_` may be a Python number or a 0-d tensor on the vectors' device.
 The scaled sums are one fused multiply-add per entry (`addcmul`, or `add`
@@ -9,6 +9,8 @@ launch each on a card.  Each is TIME'd in the host harness's
 kernel-timing mode (utils/ktimers.py): "sum", "dot" and "norm".
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -29,6 +31,16 @@ def sum_vectors(v1, v2, scale_=1.0):
     return ktime("sum", torch.add, v1, v2, alpha=scale_)
 
 
+def elemwise_mult_vectors(v1, v2, scale_=1.0):
+    """r = v1 * (scale*v2)  (kernels.hpp:137-144)."""
+    return v1 * (scale_ * v2)
+
+
+def elemwise_div_vectors(v1, v2, scale_=1.0):
+    """r = v1 / (scale*v2)  (kernels.hpp:146-153)."""
+    return v1 / (scale_ * v2)
+
+
 def dot(v1, v2):
     """(v1, v2)  (kernels.hpp:205-212)."""
     return ktime("dot", torch.dot, v1, v2)
@@ -37,3 +49,37 @@ def dot(v1, v2):
 def euclidean_vec_norm(v):
     """||v||_2  (kernels.hpp:194-203), as sqrt((v, v)) like the JAX package."""
     return ktime("norm", lambda a: torch.sqrt(torch.dot(a, a)), v)
+
+
+def infty_vec_norm(v):
+    """max |v_i|  (kernels.hpp:164-177)."""
+    return torch.max(torch.abs(v))
+
+
+def infty_mat_norm(A):
+    """max row sum of |A|  (kernels.hpp:179-192), for a DIA, ELL, lane-ELL
+    or stencil operator; a stencil's |A| is applied to ones by the plain
+    SpMV, its coefficients and diagonal sign-folded."""
+    from ..device_matrix import DeviceDIA, DeviceELL
+    from ..stencil_op import DeviceStencil, stencil_spmv_plain
+    from .lane_ell import DeviceLaneELL
+    if isinstance(A, DeviceDIA):
+        return torch.max(torch.sum(torch.abs(A.data), dim=0))
+    if isinstance(A, DeviceELL):
+        return torch.max(torch.sum(torch.abs(A.data), dim=1))
+    if isinstance(A, DeviceLaneELL):
+        return torch.max(torch.sum(torch.abs(A.vals), dim=0))
+    if isinstance(A, DeviceStencil):
+        A_abs = dataclasses.replace(
+            A, coeffs=torch.abs(A.coeffs),
+            coeff_values=tuple(abs(c) for c in A.coeff_values),
+            diag=None if A.diag is None else torch.abs(A.diag))
+        dtype = torch.float32 if A.dtype == torch.bfloat16 else A.dtype
+        ones = torch.ones(A.n_rows, dtype=dtype, device=A.device)
+        return torch.max(stencil_spmv_plain(A_abs, ones))
+    raise TypeError(f"unsupported matrix type: {type(A)}")
+
+
+def scale(v, scalar):
+    """r = scalar * v  (kernels.hpp:214-220)."""
+    return v * scalar

@@ -17,12 +17,19 @@ layout and have no counterpart here.  `j` is a host int: the solver knows
 each iteration's index within its restart cycle, so no launch reads the
 device.
 
-A CUDA tensor goes through the hand-written kernels (csrc/gmres_basis.cu),
-which count their launches in `project_gram.launches` and
-`correct_write.launches`; a CPU tensor takes the plain versions.
+A CUDA tensor goes through the hand-written kernels (csrc/gmres_basis.cu)
+on one of two routes, chosen by shape before the launch (`route_for`):
+"ring" (a persistent grid fed by a ring of bulk copies, 16-byte vectors)
+where every row and vector is 16-byte aligned, "strided" (scalar loads
+strided by the block width) elsewhere.  Each wrapper counts its launches in
+`launches` and each route's in `ring_launches` or `strided_launches`; a CPU
+tensor takes the plain versions.  A failed build or launch raises: no route
+gives way to another or to the plain version.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -30,11 +37,24 @@ import torch
 from ..config import torch_dtype
 
 BASIS_DTYPES = (torch.float32, torch.bfloat16)
-#: threads per block and vector entries per thread of both kernels
+#: threads per block and vector entries per thread of the strided route
 #: (csrc/gmres_basis.cu: BIS_GB_THREADS, BIS_GB_ELEMS)
 _THREADS, _ELEMS = 256, 8
-#: basis rows the kernels' shared-memory ht stage holds (48 KB of float)
+#: basis rows the strided correct_write's shared-memory ht stage holds
+#: (48 KB of float)
 MAX_ROWS = 12288
+ROUTES = ("ring", "strided")
+#: the ring route (csrc/gmres_basis.cu: BIS_RING_*): consumer threads a
+#: block, 16-byte vectors a stage holds, stages, the most blocks a launch,
+#: blocks a group of the cross-block sums
+RING_CONSUMERS, RING_STAGE_VECS, RING_STAGES = 256, 512, 6
+RING_MAX_GRID, RING_GROUP_BLOCKS = 512, 16
+#: the ring kernels by name and basis dtype, as
+#: bis_gmres_ring_blocks_per_sm numbers them
+_RING_KERNELS = {("project_gram", torch.float32): 0,
+                 ("project_gram", torch.bfloat16): 1,
+                 ("correct_write", torch.float32): 2,
+                 ("correct_write", torch.bfloat16): 3}
 
 
 def plan_for(m: int, basis_dtype, w_dtype=torch.float32) -> Optional[int]:
@@ -85,14 +105,82 @@ def _check_correct(V, w, ht, j: int):
     _check(V, j + 1, (("w", w, V.shape[-1]), ("ht", ht, n_ht)))
 
 
+def route_for(V, *vectors) -> str:
+    """The kernel route for a basis V and the float32 vectors a launch
+    reads or writes beside it: "ring" where the bulk copies and 16-byte
+    vector accesses can take them (n > 0, each row a whole number of
+    16-byte vectors, V's and every vector's first entry on a 16-byte
+    boundary), else "strided".  A shape alone decides; a sliced V or
+    vector whose first entry is off that boundary takes "strided"."""
+    n = V.shape[-1]
+    aligned = (n > 0 and n * V.element_size() % 16 == 0
+               and all(t.data_ptr() % 16 == 0 for t in (V, *vectors)))
+    return "ring" if aligned else "strided"
+
+
+def ring_grid(n_vec: int, slots: int) -> int:
+    """Blocks of a ring launch over rows of `n_vec` 16-byte vectors: the
+    card's resident blocks (`slots`, one wave of a persistent grid), but no
+    more than RING_MAX_GRID and no more than one block a stage of the
+    row."""
+    return max(1, min(slots, RING_MAX_GRID, -(-n_vec // RING_STAGE_VECS)))
+
+
+def ring_ranges(n_vec: int, grid: int):
+    """Each block's [lo, hi) of a row's 16-byte vectors, as the kernels
+    compute them: contiguous, in block order, each starting on a 128-byte
+    boundary (a multiple of 8 vectors), sizes within 8 vectors (the last
+    also takes the n_vec % 8 left over)."""
+    starts = [n_vec // 8 * b // grid * 8 for b in range(grid)] + [n_vec]
+    return list(zip(starts[:-1], starts[1:]))
+
+
+def _sum_layout(grid: int):
+    """(gp, gq): a pair's row of block partials and of group partials, in
+    floats: the blocks rounded up to whole groups, the groups to whole
+    16-byte vectors (the pads hold zeros)."""
+    groups = -(-grid // RING_GROUP_BLOCKS)
+    return groups * RING_GROUP_BLOCKS, -(-groups // 4) * 4
+
+
 def _n_blocks(n: int) -> int:
     return -(-n // (_THREADS * _ELEMS))
 
 
-def _fn(name: str, dtype: torch.dtype):
+@functools.lru_cache(maxsize=None)
+def _slots(device_index: int, name: str, dtype: torch.dtype) -> int:
+    """The card's resident blocks of a ring kernel: its blocks an SM (the
+    occupancy the compiled kernel reaches) times the SMs."""
+    blocks = ctypes.c_int()
+    _raise_on(_library().bis_gmres_ring_blocks_per_sm(
+        device_index, _RING_KERNELS[name, dtype], ctypes.byref(blocks)),
+        f"{name} occupancy query")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return blocks.value * sms
+
+
+#: the ring kernels' ticket counters per (device, stream), one for each
+#: group of blocks and one across the groups: the last block of each finds
+#: itself by its ticket and sets it back to 0
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, stream) -> torch.Tensor:
+    key = (device.index, stream.cuda_stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1 + RING_MAX_GRID // RING_GROUP_BLOCKS,
+                                    dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def _library():
     from .._build import load_library
+    return load_library()
+
+
+def _fn(name: str, route: str, dtype: torch.dtype):
     suffix = "f32" if dtype == torch.float32 else "bf16"
-    return getattr(load_library(), f"bis_gmres_{name}_{suffix}")
+    return getattr(_library(), f"bis_gmres_{name}_{route}_{suffix}")
 
 
 def _raise_on(err: int, name: str):
@@ -114,16 +202,36 @@ def project_gram_plain(V, w, vc, j: int):
     return P[:, 0], P[:, 1]
 
 
-def _project_gram_cuda(V, w, vc, j: int):
+def _project_gram_cuda(V, w, vc, j: int, route: str):
     rows, n = V.shape
+    stream = torch.cuda.current_stream(V.device)
+    if route == "ring":
+        grid = ring_grid(n * V.element_size() // 16,
+                         _slots(V.device.index, "project_gram", V.dtype))
+        gp, gq = _sum_layout(grid)
+        pairs = 2 * (j + 1)
+        # the pairs' block and group partials (16-byte aligned rows), then
+        # Pw and Pv
+        buf = torch.empty(pairs * (gp + gq) + 2 * rows, dtype=torch.float32,
+                          device=V.device)
+        P = buf[pairs * (gp + gq):].view(2, rows)
+        err = _fn("project_gram", route, V.dtype)(
+            V.device.index, V.data_ptr(), w.data_ptr(), vc.data_ptr(), n,
+            rows, j, buf.data_ptr(), gp, buf[pairs * gp:].data_ptr(), gq,
+            P.data_ptr(), _tickets(V.device, stream).data_ptr(), grid,
+            stream.cuda_stream)
+        _raise_on(err, "project_gram")
+        project_gram.ring_launches += 1
+        project_gram.launches += 1
+        return P[0], P[1]
     n_blocks = _n_blocks(n)
     partials = torch.empty((n_blocks, rows, 2), dtype=torch.float32,
                            device=V.device)
-    err = _fn("project_gram", V.dtype)(
+    err = _fn("project_gram", route, V.dtype)(
         V.device.index, V.data_ptr(), w.data_ptr(), vc.data_ptr(), n, rows,
-        j, partials.data_ptr(), n_blocks,
-        torch.cuda.current_stream(V.device).cuda_stream)
+        j, partials.data_ptr(), n_blocks, stream.cuda_stream)
     _raise_on(err, "project_gram")
+    project_gram.strided_launches += 1
     project_gram.launches += 1
     P = partials.sum(dim=0)
     return P[:, 0], P[:, 1]
@@ -134,13 +242,15 @@ def project_gram(V, w, vc, j: int):
     length V.shape[0] and zero beyond row j."""
     _check_project(V, w, vc, j)
     if V.device.type == "cuda":
-        return _project_gram_cuda(V, w, vc, j)
+        return _project_gram_cuda(V, w, vc, j, route_for(V, w, vc))
     if V.device.type == "cpu":
         return project_gram_plain(V, w, vc, j)
     raise ValueError(f"no project_gram for device {V.device}")
 
 
 project_gram.launches = 0
+project_gram.ring_launches = 0
+project_gram.strided_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -161,16 +271,35 @@ def correct_write_plain(V, w, ht, j: int):
     return vnext, torch.dot(vnext, vnext)
 
 
-def _correct_write_cuda(V, w, ht, j: int):
+def _correct_write_cuda(V, w, ht, j: int, route: str):
     rows, n = V.shape
+    stream = torch.cuda.current_stream(V.device)
+    if route == "ring":
+        grid = ring_grid(n * V.element_size() // 16,
+                         _slots(V.device.index, "correct_write", V.dtype))
+        gp, gq = _sum_layout(grid)
+        # vnext first (16-byte aligned), then the block and group partials,
+        # then nrm2
+        buf = torch.empty(n + gp + gq + 1, dtype=torch.float32,
+                          device=V.device)
+        vnext, nrm2 = buf[:n], buf[n + gp + gq]
+        err = _fn("correct_write", route, V.dtype)(
+            V.device.index, V.data_ptr(), w.data_ptr(), ht.data_ptr(), n, j,
+            vnext.data_ptr(), buf[n:].data_ptr(), gp,
+            buf[n + gp:].data_ptr(), gq, nrm2.data_ptr(),
+            _tickets(V.device, stream).data_ptr(), grid, stream.cuda_stream)
+        _raise_on(err, "correct_write")
+        correct_write.ring_launches += 1
+        correct_write.launches += 1
+        return vnext, nrm2
     n_blocks = _n_blocks(n)
     vnext = torch.empty(n, dtype=torch.float32, device=V.device)
     partials = torch.empty(n_blocks, dtype=torch.float32, device=V.device)
-    err = _fn("correct_write", V.dtype)(
+    err = _fn("correct_write", route, V.dtype)(
         V.device.index, V.data_ptr(), w.data_ptr(), ht.data_ptr(), n, j,
-        vnext.data_ptr(), partials.data_ptr(), n_blocks,
-        torch.cuda.current_stream(V.device).cuda_stream)
+        vnext.data_ptr(), partials.data_ptr(), n_blocks, stream.cuda_stream)
     _raise_on(err, "correct_write")
+    correct_write.strided_launches += 1
     correct_write.launches += 1
     return vnext, partials.sum()
 
@@ -180,10 +309,12 @@ def correct_write(V, w, ht, j: int):
     (vnext, ‖vnext‖²), vnext the float32 copy of the written row."""
     _check_correct(V, w, ht, j)
     if V.device.type == "cuda":
-        return _correct_write_cuda(V, w, ht, j)
+        return _correct_write_cuda(V, w, ht, j, route_for(V, w))
     if V.device.type == "cpu":
         return correct_write_plain(V, w, ht, j)
     raise ValueError(f"no correct_write for device {V.device}")
 
 
 correct_write.launches = 0
+correct_write.ring_launches = 0
+correct_write.strided_launches = 0

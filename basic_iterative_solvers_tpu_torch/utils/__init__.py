@@ -1,0 +1,1 @@
+from .timers import Stopwatch, Timers  # noqa: F401

@@ -9,9 +9,12 @@ exits non-zero:
   2. build: compile the CUDA kernels from this checkout;
   3. the stencil SpMV kernel against its plain PyTorch version on the card,
      at the main path's shapes, both timed;
-  4. the GMRES basis kernels (project_gram, correct_write) against their
-     plain versions at the 128^3 GMRES(50) shape, both basis dtypes, both
-     timed;
+  4. the GMRES basis kernels (project_gram, correct_write) at the 128^3
+     GMRES(50) shape, both basis dtypes, j = 0, 7, 49: the ring route the
+     shape takes and the strided route against their plain versions,
+     device-only and wrapper times, share of the bound, the library's
+     nearest calls; the build prints the kernels' registers, spills and
+     resident blocks an SM ([ptxas]);
   5. the same CG solve on the CPU (plain path) and on the card (kernel);
   6. the same BiCGSTAB and GMRES solves on the CPU and on the card;
   7. the main path: CG on HPCG 128^3 in float32 through the public entry
@@ -19,8 +22,9 @@ exits non-zero:
      float64 solve of the same operator to convergence;
   8. the second slice's path: Jacobi, BiCGSTAB and fused-mode GMRES(50)
      with a bfloat16 basis on HPCG 128^3 in float32, the bench's
-     iteration counts, counting every kernel's launches; then float64
-     GMRES(50) and BiCGSTAB solves of the same operator to convergence;
+     iteration counts, counting every kernel's launches (GMRES: every
+     step on the basis kernels' ring route); then float64 GMRES(50) and
+     BiCGSTAB solves of the same operator to convergence;
   9. capacity: CG on HPCG 384^3 in float32;
  10. the multicolour GS step kernel against its plain version, every
      colour, on the three operators of phase 3, both dtypes, timed;
@@ -139,7 +143,10 @@ exits non-zero:
      pcg_ilu0@fdm2048 at full size and the bench's iteration counts,
      single-device and 8-shard mesh in turns, with ms/iter, #9's mesh
      launches, exchanges and peak memory; f64 CG + SGS to 1e-8 at 128^3
-     on both, equal counts.
+     on both, equal counts;
+ 38. the basis kernels' device time a GMRES(50) iteration ([orthog], run
+     last): the slice-2 GMRES row with the ring and the strided route in
+     turns, ms/iter and the profiler's phase table of two restart cycles.
 Each phase's seconds are printed as a [time] line.
 The second-to-last line is a JSON object describing each kernel: launches
 on the main paths, error against plain, kernel, plain and library times,
@@ -235,12 +242,40 @@ def phase_device(torch):
     return name
 
 
-def phase_build():
+def phase_build(torch):
+    """Build and load the kernels; beside the build, compile the basis
+    kernels' source once more with -Xptxas -v and print each kernel's
+    registers, spills and shared memory, then the ring kernels' resident
+    blocks an SM (the occupancy their launches are sized to)."""
+    import tempfile
     from basic_iterative_solvers_tpu_torch import _build
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
     t0 = time.perf_counter()
-    _build.load_library()
-    print(f"[build] {', '.join(src.name for src in _build.SOURCES)} built "
+    src = _build._PKG / "csrc" / "gmres_basis.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        ptxas = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmp, "gmres_basis.o"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _build.load_library()
+        out = ptxas.communicate(timeout=600)[0]
+    print(f"[build] {', '.join(f.name for f in _build.SOURCES)} built "
           f"and loaded in {time.perf_counter() - t0:.2f} s")
+    if ptxas.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}")
+    kernel = None
+    for line in out.splitlines():
+        m = re.search(r"entry function '_Z\d+(\w+?kernel_\w+?)I(\w+?)E", line)
+        if m:
+            dt = m.group(2).lstrip("0123456789")
+            kernel = f"{m.group(1)}<{'float' if dt == 'f' else dt}>"
+        elif kernel and re.search(r"spill|registers", line):
+            print(f"[ptxas] {kernel}: {line.strip()}")
+    for (name, dt) in gb._RING_KERNELS:
+        slots = gb._slots(0, name, dt)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"[ptxas] {name}_kernel_ring<{str(dt)[6:]}>: "
+              f"{slots // sms} resident blocks an SM x {sms} SMs")
 
 
 def phase_kernel_vs_plain(torch, so):
@@ -338,13 +373,54 @@ BASIS_N, BASIS_M, BASIS_JS = 2097152, 50, (0, 7, 49)
 BASIS_TOL = 1e-5
 
 
+def _basis_check(torch, gb, V, w, vc, ht, j, route):
+    """Both basis kernels on `route` against their plain versions on the
+    same tensors (Pw/Pv within BASIS_TOL, zeros beyond row j, the written
+    row and vnext bit for bit, nrm2 within 1e-5 relative), each launch
+    counted on its route; returns (the line's fields, Pw/Pv's and vnext's
+    largest absolute errors)."""
+    counters = [(f, f.launches, getattr(f, f"{route}_launches"))
+                for f in (gb.project_gram, gb.correct_write)]
+    Pk = gb._project_gram_cuda(V, w, vc, j, route)
+    Pp = gb.project_gram_plain(V, w, vc, j)
+    Vk, Vp = V.clone(), V.clone()
+    vk, nk = gb._correct_write_cuda(Vk, w, ht, j, route)
+    vp, np_ = gb.correct_write_plain(Vp, w, ht, j)
+    torch.cuda.synchronize()
+    for f, total, on_route in counters:
+        if (f.launches, getattr(f, f"{route}_launches")) != (total + 1,
+                                                             on_route + 1):
+            raise RuntimeError(f"{f.__name__}'s {route} launch count did "
+                               "not grow by one")
+    Vf = V[:j + 1].float()
+    pg_err = max(float(((k[:j + 1] - p[:j + 1]).abs()
+                        / (Vf * v).abs().sum(1)).max())
+                 for k, p, v in zip(Pk, Pp, (w, vc)))
+    tail = max(float(k[j + 1:].abs().max()) for k in Pk)  # j < m
+    rows_equal = torch.equal(Vk, Vp) and torch.equal(vk, vp)
+    nrm_rel = abs(float(nk) - float(np_)) / float(np_)
+    fields = (f"{route}: project_gram_rel_err={pg_err:.3e} tail={tail:.1e} "
+              f"correct_write_rows_equal={rows_equal} "
+              f"nrm2_rel_err={nrm_rel:.3e}")
+    if not (pg_err <= BASIS_TOL and tail == 0.0 and rows_equal
+            and nrm_rel <= 1e-5):
+        raise RuntimeError(f"basis kernels disagree with plain: j={j} "
+                           f"{fields}")
+    return fields, (max(float((k - p).abs().max()) for k, p in zip(Pk, Pp)),
+                    float((vk - vp).abs().max()))
+
+
 def phase_basis_vs_plain(torch, gb):
-    """project_gram and correct_write against their plain versions on the
-    same CUDA tensors: Pw/Pv within BASIS_TOL, the written row and vnext
-    bit for bit (both round each product and difference alone), nrm2
-    within 1e-5 relative; both timed at j = 49.  Returns the bf16 records
-    (the main path's basis)."""
-    records = {}
+    """project_gram (#6) and correct_write (#7) at the 128^3 GMRES(50)
+    shape, both basis dtypes, every j of BASIS_JS: raises unless the shape
+    takes the ring route; each route against the plain versions
+    (_basis_check); device-only ms of each route (_device_ms; at j = 49 in
+    turns: ring, strided, strided, ring), the wrapper's ms with the host's
+    enqueue (_median_ms), GB/s and share of the bound of the ring route,
+    and the library's nearest calls on the device in the same run; the
+    plain versions timed at j = 49.  Returns the kernel records: bf16 at j = 49
+    (the main path's basis), with float32's beside."""
+    records = {"project_gram": {}, "correct_write": {}}
     g = torch.Generator(device="cuda").manual_seed(1)
     n, m = BASIS_N, BASIS_M
     for dt in (torch.float32, torch.bfloat16):
@@ -352,79 +428,88 @@ def phase_basis_vs_plain(torch, gb):
         w = torch.randn(n, device="cuda", generator=g)
         vc = torch.randn(n, device="cuda", generator=g)
         ht = torch.randn(m + 1, device="cuda", generator=g)
+        routes = (gb.route_for(V, w, vc), gb.route_for(V, w))
+        if routes != ("ring", "ring"):
+            raise RuntimeError(f"the main path's basis shape took the "
+                               f"{routes} routes, not the ring")
+        row = n * V.element_size()
+        Vk = V.clone()
         for j in BASIS_JS:
-            before = (gb.project_gram.launches, gb.correct_write.launches)
-            Pk = gb.project_gram(V, w, vc, j)
-            Pp = gb.project_gram_plain(V, w, vc, j)
-            Vk, Vp = V.clone(), V.clone()
-            vk, nk = gb.correct_write(Vk, w, ht, j)
-            vp, np_ = gb.correct_write_plain(Vp, w, ht, j)
-            torch.cuda.synchronize()
-            if (gb.project_gram.launches, gb.correct_write.launches) != (
-                    before[0] + 1, before[1] + 1):
-                raise RuntimeError("a basis kernel's launch count did not "
-                                   "grow")
-            Vf = V[:j + 1].float()
-            pg_err = max(float(((k[:j + 1] - p[:j + 1]).abs()
-                                / (Vf * v).abs().sum(1)).max())
-                         for k, p, v in zip(Pk, Pp, (w, vc)))
-            pg_abs = max(float((k - p).abs().max()) for k, p in zip(Pk, Pp))
-            tail = max(float(k[j + 1:].abs().max()) for k in Pk)  # j < m
-            rows_equal = torch.equal(Vk, Vp) and torch.equal(vk, vp)
-            nrm_rel = abs(float(nk) - float(np_)) / float(np_)
-            line = (f"[basis] n={n} m={m} {str(dt)[6:]} j={j} "
-                    f"project_gram_rel_err={pg_err:.3e} "
-                    f"tail={tail:.1e} correct_write_rows_equal={rows_equal} "
-                    f"nrm2_rel_err={nrm_rel:.3e}")
-            if not (pg_err <= BASIS_TOL and tail == 0.0 and rows_equal
-                    and nrm_rel <= 1e-5):
-                raise RuntimeError(f"basis kernels disagree with plain: "
-                                   f"{line}")
-            if j == BASIS_JS[-1]:
-                # bytes each must move: rows 0..j, plus w and vc, or plus
-                # w, vnext and the written row
-                row = n * V.element_size()
-                pg_bytes = (j + 1) * row + 2 * 4 * n
-                cw_bytes = (j + 2) * row + 2 * 4 * n
-                t = {}
+            checks = [_basis_check(torch, gb, V, w, vc, ht, j, rt)
+                      for rt in gb.ROUTES]
+            # bytes each must move: rows 0..j, plus w and vc, or plus
+            # w, vnext and the written row
+            pg_bytes = (j + 1) * row + 2 * 4 * n
+            cw_bytes = (j + 2) * row + 2 * 4 * n
+            t = {}
+            turns = (("ring", "strided", "strided", "ring")
+                     if j == BASIS_JS[-1] else ("ring", "strided"))
+            for rt in turns:
                 for name, fn in (
-                        ("pg", lambda: gb.project_gram(V, w, vc, j)),
-                        ("pg_plain", lambda: gb.project_gram_plain(V, w, vc,
-                                                                   j)),
-                        ("cw", lambda: gb.correct_write(Vk, w, ht, j)),
-                        ("cw_plain", lambda: gb.correct_write_plain(
-                            Vp, w, ht, j))):
-                    t[name] = _median_ms(fn, torch)
-                line += (f" project_gram_ms={t['pg']:.4f} "
-                         f"plain_ms={t['pg_plain']:.4f} "
-                         f"GB/s={pg_bytes / (t['pg'] * 1e6):.0f} "
-                         f"correct_write_ms={t['cw']:.4f} "
-                         f"plain_ms={t['cw_plain']:.4f} "
-                         f"GB/s={cw_bytes / (t['cw'] * 1e6):.0f}")
+                        ("pg", lambda: gb._project_gram_cuda(V, w, vc, j,
+                                                             rt)),
+                        ("cw", lambda: gb._correct_write_cuda(Vk, w, ht, j,
+                                                              rt))):
+                    t.setdefault(f"{name}_{rt}", []).append(
+                        _device_ms(fn, torch))
+            t["pg_wrapper"] = _median_ms(
+                lambda: gb.project_gram(V, w, vc, j), torch)
+            t["cw_wrapper"] = _median_ms(
+                lambda: gb.correct_write(Vk, w, ht, j), torch)
+            # the library's nearest calls, in the basis dtype: one matmul
+            # of rows 0..j with [w, vc]; one addmv w − Vᵀh, which leaves
+            # out the row write, the float32 vnext and the norm
+            W = torch.stack([w, vc], 1).to(dt)
+            hb, wb = ht[:j + 1].to(dt), w.to(dt)
+            t["matmul"] = _device_ms(lambda: torch.matmul(V[:j + 1], W),
+                                     torch)
+            t["addmv"] = _device_ms(lambda: torch.addmv(
+                wb, V[:j + 1].t(), hb, alpha=-1), torch)
+            pg_bound, cw_bound = (_bound(pg_bytes, 4 * (j + 1) * n),
+                                  _bound(cw_bytes, 2 * (j + 1) * n + 2 * n))
+            pg_ms, cw_ms = min(t["pg_ring"]), min(t["cw_ring"])
+            print(f"[basis] n={n} m={m} {str(dt)[6:]} j={j} "
+                  f"{'; '.join(c[0] for c in checks)}")
+            print(f"[basis] n={n} m={m} {str(dt)[6:]} j={j} route=ring "
+                  f"project_gram device_ms={t['pg_ring']} "
+                  f"(strided {t['pg_strided']}) "
+                  f"wrapper_ms={t['pg_wrapper']:.4f} "
+                  f"GB/s={pg_bytes / (pg_ms * 1e6):.0f} "
+                  f"bound_ms={pg_bound['bound_ms']:.4f} "
+                  f"share={pg_bound['bound_ms'] / pg_ms:.3f} "
+                  f"matmul_ms={t['matmul']:.4f}; correct_write "
+                  f"device_ms={t['cw_ring']} (strided {t['cw_strided']}) "
+                  f"wrapper_ms={t['cw_wrapper']:.4f} "
+                  f"GB/s={cw_bytes / (cw_ms * 1e6):.0f} "
+                  f"bound_ms={cw_bound['bound_ms']:.4f} "
+                  f"share={cw_bound['bound_ms'] / cw_ms:.3f} "
+                  f"addmv_ms={t['addmv']:.4f}")
+            if j != BASIS_JS[-1]:
+                continue
+            plain = {"pg": _median_ms(
+                lambda: gb.project_gram_plain(V, w, vc, j), torch),
+                "cw": _median_ms(
+                lambda: gb.correct_write_plain(Vk, w, ht, j), torch)}
+            print(f"[basis] n={n} m={m} {str(dt)[6:]} j={j} plain: "
+                  f"project_gram_ms={plain['pg']:.4f} "
+                  f"correct_write_ms={plain['cw']:.4f}")
+            ring_err = checks[gb.ROUTES.index("ring")][1]
+            for kernel, key, lib, bound, err in (
+                    ("project_gram", "pg", "matmul", pg_bound, ring_err[0]),
+                    ("correct_write", "cw", "addmv", cw_bound,
+                     ring_err[1])):
+                rec = {"max_abs_err": err, "ms": min(t[f"{key}_ring"]),
+                       "plain_ms": plain[key], "library_ms": t[lib],
+                       "wrapper_ms": t[f"{key}_wrapper"],
+                       "strided_ms": min(t[f"{key}_strided"]), **bound}
                 if dt == torch.bfloat16:
-                    # the library's nearest calls, in the basis dtype: one
-                    # matmul of rows 0..j with [w, vc]; one addmv w − Vᵀh,
-                    # which leaves out the row write, the float32 vnext and
-                    # the norm
-                    W = torch.stack([w, vc], 1).to(dt)
-                    hb, wb = ht[:j + 1].to(dt), w.to(dt)
-                    lib_pg = _median_ms(lambda: torch.matmul(V[:j + 1], W),
-                                        torch)
-                    lib_cw = _median_ms(lambda: torch.addmv(
-                        wb, V[:j + 1].t(), hb, alpha=-1), torch)
-                    line += (f" library: matmul_ms={lib_pg:.4f} "
-                             f"addmv_ms={lib_cw:.4f}")
-                    records["project_gram"] = {
-                        "max_abs_err": pg_abs, "ms": t["pg"],
-                        "plain_ms": t["pg_plain"], "library_ms": lib_pg,
-                        **_bound(pg_bytes, 4 * (j + 1) * n)}
-                    records["correct_write"] = {
-                        "max_abs_err": float((vk - vp).abs().max()),
-                        "ms": t["cw"], "plain_ms": t["cw_plain"],
-                        "library_ms": lib_cw,
-                        **_bound(cw_bytes, 2 * (j + 1) * n + 2 * n)}
-            print(line)
-        del V, Vk, Vp
+                    records[kernel].update(rec)
+                else:
+                    records[kernel].update(
+                        {f"f32_{k}": rec[k] for k in ("ms", "library_ms",
+                                                      "bound_ms",
+                                                      "strided_ms")})
+        del V, Vk
     return records
 
 
@@ -575,11 +660,15 @@ def phase_slice_path(torch, bt):
         solver = make_method(setup)
         bt.solve(setup, method=solver)                # warm-up solve
         so.stencil_spmv.launches = 0
-        gb.project_gram.launches = gb.correct_write.launches = 0
+        for f in (gb.project_gram, gb.correct_write):
+            f.launches = f.ring_launches = f.strided_launches = 0
         res = bt.solve(setup, method=solver)
         counts = {"stencil_spmv": so.stencil_spmv.launches,
-                  "project_gram": gb.project_gram.launches,
-                  "correct_write": gb.correct_write.launches}
+                  **{f"{f.__name__}{suffix}": getattr(f, attr)
+                     for f in (gb.project_gram, gb.correct_write)
+                     for suffix, attr in (("", "launches"),
+                                          ("_ring", "ring_launches"),
+                                          ("_strided", "strided_launches"))}}
         ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
         print(f"[slice2] {MAIN_SPEC} f32 {name} fused: iters={res.iter_count} "
               f"restarts={res.gmres_restart_count} ms/iter={ms:.5f} "
@@ -592,8 +681,11 @@ def phase_slice_path(torch, bt):
               and bool(torch.isfinite(res.x_star).all())
               and counts["stencil_spmv"] >= res.iter_count)
         if method == S.GMRES:
-            ok = ok and min(counts["project_gram"],
-                            counts["correct_write"]) >= res.iter_count
+            # every step through the ring route
+            ok = ok and all(
+                counts[f"{k}_ring"] == counts[k] >= res.iter_count
+                and counts[f"{k}_strided"] == 0
+                for k in ("project_gram", "correct_write"))
         if not ok:
             raise RuntimeError(f"slice-2 {name} run failed its checks")
     gmres_counts = counts
@@ -613,6 +705,56 @@ def phase_slice_path(torch, bt):
         if not (res.converged and res.final_residual_norm <= 10 * 1e-8 * r0):
             raise RuntimeError(f"f64 {name} solve did not converge")
     return gmres_counts
+
+
+def phase_orthog_share(torch, bt):
+    """The basis kernels' device time in a GMRES(50) iteration (the slice-2
+    row: 128^3, f32, fused, bf16 basis, 1500 steps), each route in turns
+    (ring, strided, strided, ring; the strided route forced by replacing
+    gmres_basis.route_for for the run): the timed solve's ms/iter, then
+    its fused loop re-run under torch.profiler for two restart cycles (100
+    iterations + 2 restarts) with its kernels summed by phase bucket
+    (utils/profile.py).  Raises unless the orthog bucket holds the route's
+    kernels only.  Run last: the profiler sessions it opens are not to
+    precede the --iter-times check of phase 32."""
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    from basic_iterative_solvers_tpu_torch.utils.profile import (
+        bucket_of, measure_phase_table)
+    setup = _setup(torch, bt, MAIN_SPEC, torch.float32, "cuda",
+                   bt.SolverType.GMRES, tolerance=0.0, breakdown_stall=True,
+                   max_iters=1500, restart_length=50, orthog_mode="fused",
+                   gmres_basis_dtype="bfloat16")
+    solver = make_method(setup)
+    bt.solve(setup, method=solver)                    # warm-up solve
+    iters, restarts = 100, 2
+    route_for = gb.route_for
+    try:
+        for route in ("ring", "strided", "strided", "ring"):
+            gb.route_for = lambda *tensors, route=route: route
+            res = bt.solve(setup, method=solver)
+            table, meta = measure_phase_table(solver, iters, restarts)
+            kernels = sum(table.values())
+            orthog = {name: t for name, t in meta["per_op"].items()
+                      if bucket_of(name) == "orthog"}
+            print(f"[orthog] {MAIN_SPEC} f32 GMRES(50) fused bf16, route "
+                  f"{route}: solve ms/iter="
+                  f"{1e3 * res.solve_seconds / res.iter_count:.5f}; "
+                  f"{iters} iterations + {restarts} restarts under "
+                  f"torch.profiler: orthog "
+                  f"{1e3 * table.get('orthog', 0.0) / iters:.5f} ms/iter of "
+                  f"{1e3 * kernels / iters:.5f} ms/iter of device activity "
+                  f"({table.get('orthog', 0.0) / kernels:.3f}); device wall "
+                  f"{1e3 * meta['device_wall'] / iters:.5f} ms/iter; by "
+                  f"bucket (ms/iter) "
+                  f"{ {k: round(1e3 * v / iters, 5) for k, v in table.items()} }"
+                  f"; orthog kernels (ms/iter) "
+                  f"{ {k[:40]: round(1e3 * v / iters, 5) for k, v in orthog.items()} }")
+            if not orthog or not all(f"_{route}<" in k for k in orthog):
+                raise RuntimeError(f"the orthog bucket is not the {route} "
+                                   f"kernels: {list(orthog)}")
+    finally:
+        gb.route_for = route_for
 
 
 def phase_capacity(torch, bt):
@@ -882,6 +1024,8 @@ def _counters(so, gb, bk, reset=False):
                                          "launches"),
                "project_gram": (gb.project_gram, "launches"),
                "correct_write": (gb.correct_write, "launches"),
+               "project_gram_ring": (gb.project_gram, "ring_launches"),
+               "correct_write_ring": (gb.correct_write, "ring_launches"),
                "super_level": (bk.super_level, "launches"),
                "super_level_table": (bk.super_level, "table_launches"),
                "super_level_plane": (bk.super_level, "plane_launches"),
@@ -934,7 +1078,10 @@ def phase_slice3_path(torch, bt):
                 and bool(torch.isfinite(res.x_star).all())
                 and counts["super_level"] >= res.iter_count
                 and counts["stencil_spmv"] >= res.iter_count
-                and counts["stencil_gs_color_step"] == 0):
+                and counts["stencil_gs_color_step"] == 0
+                and (name != "pgmres" or all(
+                    counts[f"{k}_ring"] == counts[k] >= res.iter_count
+                    for k in ("project_gram", "correct_write")))):
             raise RuntimeError(f"slice-3 {name} run failed its checks")
 
     res = bt.solve(_setup(torch, bt, MAIN_SPEC, torch.float64, "cuda",
@@ -3996,7 +4143,7 @@ def main():
     name = phase_device(torch)
     lap("device")
     import basic_iterative_solvers_tpu_torch as bt
-    phase_build()
+    phase_build(torch)
     lap("build")
     from basic_iterative_solvers_tpu_torch.ops import gmres_basis
     record = phase_kernel_vs_plain(torch, bt.stencil_op)
@@ -4083,6 +4230,8 @@ def main():
     lap("slice7_cli")
     phase_entry_point(torch)
     lap("entry_point")
+    phase_orthog_share(torch, bt)
+    lap("orthog_share")
     print(f"[summary] {FDM_5B} f32 ILU(0): whole L solve "
           f"torch.triangular_solve {whole5b['library_ms']:.4f} ms, "
           f"blocked_trisolve {whole5b['blocked_trisolve_ms']:.4f} ms; "
@@ -4105,7 +4254,11 @@ def main():
             "name": kernel, "route": "cuda", "source": src + "gmres_basis.cu",
             "replaces": ("basic_iterative_solvers_tpu/ops/gmres_basis.py:"
                          f"{line}"),
-            "launches": slice2_launches[kernel], **basis_records[kernel]})
+            "launches": slice2_launches[kernel],
+            "launches_by_route": {
+                rt: slice2_launches[f"{kernel}_{rt}"]
+                for rt in ("ring", "strided")},
+            **basis_records[kernel]})
     kernels.append({
         "name": "stencil_gs_color_step", "route": "cuda",
         "source": src + "stencil_spmv.cu",
@@ -4205,7 +4358,11 @@ def main():
                                         "resident_ms", "call_ms",
                                         "single_ms", "ms_384",
                                         "f32_ms_384", "bound_ms_384",
-                                        "by_mode")
+                                        "by_mode", "wrapper_ms",
+                                        "strided_ms", "f32_ms",
+                                        "f32_library_ms", "f32_bound_ms",
+                                        "f32_strided_ms",
+                                        "launches_by_route")
          if key in k}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

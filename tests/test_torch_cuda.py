@@ -403,3 +403,93 @@ def test_mesh_superblock_solves_on_the_card(card):
         np.testing.assert_allclose(r8.residual_norms[:-1],
                                    r1.residual_norms[:-1], rtol=1e-8)
         assert getattr(bk.super_level_halo, attr) > before
+
+
+#: a basis kernel's Pw/Pv against plain, relative to Σ|V_i·w| of the row
+#: (chip_smoke.BASIS_TOL: float32 sums in different orders)
+BASIS_TOL = 1e-5
+
+
+def _basis_operands(card, rows, n, dtype, seed):
+    g = np.random.default_rng(seed)
+    V = torch.from_numpy(g.standard_normal((rows, n)).astype(np.float32))
+    w, vc, ht = (torch.from_numpy(g.standard_normal(k).astype(np.float32))
+                 .to(card) for k in (n, n, rows))
+    return V.to(card, dtype), w, vc, ht
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [2, 51, 130])
+@pytest.mark.parametrize("n,route", [(8192 * 3, "ring"),
+                                     (8192 * 3, "strided"),
+                                     (12347, "strided")],
+                         ids=["aligned-ring", "aligned-strided",
+                              "ragged-strided"])
+def test_basis_routes_equal_plain(card, n, route, rows, dtype):
+    """#6 and #7 on each route against their plain versions, j in
+    {0, 7, rows - 2}: the written row and vnext bit for bit, nrm2 within
+    1e-5 relative, Pw/Pv within BASIS_TOL of Σ|V_i·w| and exact zeros
+    beyond row j; each call counted once on its route; the ring route's
+    results the same bits on a second call (the blocks' partials summed
+    in block order, the ticket reset)."""
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    V, w, vc, ht = _basis_operands(card, rows, n, dtype, rows)
+    for j in sorted({0, 7, rows - 2} & set(range(rows - 1))):
+        counts = [(f, f.launches, getattr(f, f"{route}_launches"))
+                  for f in (gb.project_gram, gb.correct_write)]
+        Pk = gb._project_gram_cuda(V, w, vc, j, route)
+        Pp = gb.project_gram_plain(V, w, vc, j)
+        Vk, Vp = V.clone(), V.clone()
+        vk, nk = gb._correct_write_cuda(Vk, w, ht, j, route)
+        vp, np_ = gb.correct_write_plain(Vp, w, ht, j)
+        torch.cuda.synchronize()
+        for f, total, on_route in counts:
+            assert f.launches == total + 1
+            assert getattr(f, f"{route}_launches") == on_route + 1
+        Vf = V[:j + 1].float()
+        for k, p, v in zip(Pk, Pp, (w, vc)):
+            assert k.shape == (rows,) and k.dtype == torch.float32
+            scale = (Vf * v).abs().sum(1)
+            assert bool(((k[:j + 1] - p[:j + 1]).abs()
+                         <= BASIS_TOL * scale).all())
+            assert not k[j + 1:].any()
+        assert torch.equal(Vk, Vp) and torch.equal(vk, vp)
+        assert abs(float(nk) - float(np_)) <= 1e-5 * float(np_)
+        if route == "ring":
+            again = gb._project_gram_cuda(V, w, vc, j, route)
+            assert all(torch.equal(a, b) for a, b in zip(again, Pk))
+            v2, n2 = gb._correct_write_cuda(V.clone(), w, ht, j, route)
+            assert torch.equal(v2, vk) and torch.equal(n2, nk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_basis_wrappers_take_the_shape_route(card, dtype):
+    """The public wrappers launch the ring route on aligned rows and the
+    strided route on a ragged row or an offset base, counted on each."""
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    n, rows = 8192 * 3, 6
+    V, w, vc, ht = _basis_operands(card, rows, n, dtype, 5)
+    flat = torch.zeros(rows * n + 1, dtype=dtype, device=card)
+    offset = flat[1:].view(rows, n)
+    offset.copy_(V)
+    ragged = V[:, :12347].contiguous()
+    for basis, wv, vcv, route in (
+            (V, w, vc, "ring"), (offset, w, vc, "strided"),
+            (ragged, w[:12347].clone(), vc[:12347].clone(), "strided")):
+        assert gb.route_for(basis, wv, vcv) == route
+        before = [(f.launches, getattr(f, f"{route}_launches"))
+                  for f in (gb.project_gram, gb.correct_write)]
+        Pk = gb.project_gram(basis, wv, vcv, 2)
+        Pp = gb.project_gram_plain(basis, wv, vcv, 2)
+        Bp = basis.clone()     # a clone is aligned: the kernel writes basis
+        vp, _ = gb.correct_write_plain(Bp, wv, ht, 2)
+        vk, _ = gb.correct_write(basis, wv, ht, 2)
+        torch.cuda.synchronize()
+        assert [(f.launches, getattr(f, f"{route}_launches"))
+                for f in (gb.project_gram, gb.correct_write)] == [
+            (a + 1, b + 1) for a, b in before]
+        assert torch.equal(basis, Bp) and torch.equal(vk, vp)
+        for k, p in zip(Pk, Pp):
+            assert bool(((k - p).abs() <= 1e-3 * p.abs().max()).all())

@@ -26,7 +26,7 @@ from basic_iterative_solvers_tpu_torch import device_matrix as tdm
 from basic_iterative_solvers_tpu_torch import dia as tdia
 from basic_iterative_solvers_tpu_torch import generators as tgen
 from basic_iterative_solvers_tpu_torch.ops import dia_spmv as tds
-from basic_iterative_solvers_tpu_torch.ops import spmv as tops
+from basic_iterative_solvers_tpu_torch import ops as tops
 
 CPU = "cpu"
 SPECS = ["hpcg:8x6x4", "fdm:16", "band:700,2",

@@ -162,3 +162,87 @@ def test_wrappers_reject_bad_operands(case):
     }[case]
     with pytest.raises(err):
         call()
+
+
+@pytest.mark.parametrize("dtype,n,route", [
+    (torch.bfloat16, 8192 * 3, "ring"),
+    (torch.bfloat16, 2 ** 21, "ring"),
+    (torch.bfloat16, 12347, "strided"),
+    (torch.bfloat16, 4 * 1001, "strided"),
+    (torch.float32, 4 * 1001, "ring"),
+    (torch.float32, 12347, "strided"),
+    (torch.float32, 4 * 1001 + 2, "strided"),
+], ids=["bf16-aligned", "bf16-main", "bf16-ragged", "bf16-n%8=4",
+        "f32-n%4=0", "f32-ragged", "f32-n%4=2"])
+def test_route_for_follows_row_alignment(dtype, n, route):
+    """The ring route takes rows of whole 16-byte vectors: n % 8 == 0 for
+    a bfloat16 basis, n % 4 == 0 for float32."""
+    V = torch.zeros((3, n), dtype=dtype)
+    w, vc = torch.zeros(n), torch.zeros(n)
+    assert tgb.route_for(V, w, vc) == route
+    assert tgb.route_for(V, w) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_for_follows_base_offsets(dtype):
+    """A basis or vector whose first entry is off a 16-byte boundary takes
+    the strided route; a slice of whole rows keeps the ring route."""
+    n, rows = 8192 * 3, 4
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    flat = torch.zeros(rows * n + vec, dtype=dtype)
+    w = torch.zeros(n + 4)
+    assert flat.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    whole = flat[:rows * n].view(rows, n)
+    cases = [(whole, w[:n], "ring"),
+             (whole[1:], w[:n], "ring"),                        # row slice
+             (flat[vec:vec + rows * n].view(rows, n), w[:n], "ring"),
+             (flat[1:1 + rows * n].view(rows, n), w[:n], "strided"),
+             (whole, w[1:n + 1], "strided"),                    # w off
+             (whole, w[4:n + 4], "ring")]
+    for V, wv, route in cases:
+        assert V.is_contiguous() and wv.is_contiguous()
+        assert tgb.route_for(V, wv, w[:n]) == route
+
+
+@pytest.mark.parametrize("n_vec,slots,grid", [
+    (2 ** 21 // 8, 264, 264),          # the main path, bf16: one wave
+    (2 ** 21 // 4, 264, 264),          # float32
+    (8192 * 3 // 8, 264, 6),           # small rows: a stage a block
+    (1, 264, 1),
+    (512 * 264, 264, 264),
+    (10 ** 8, 4 * 132, tgb.RING_MAX_GRID),
+    (10 ** 8, 5 * 132, tgb.RING_MAX_GRID),
+])
+def test_ring_grid_is_one_wave(n_vec, slots, grid):
+    """A persistent grid: the card's resident blocks, capped by the most
+    the last block's sum takes and by one block a row stage."""
+    assert tgb.ring_grid(n_vec, slots) == grid
+
+
+@pytest.mark.parametrize("n_vec,slots", [
+    (2 ** 21 // 8, 264), (2 ** 21 // 4, 264), (8192 * 3 // 8, 264),
+    (7, 264), (12345, 3), (10 ** 8, 528)])
+def test_ring_ranges_split_rows_evenly(n_vec, slots):
+    """The blocks' ranges cover a row once, in order, each non-empty,
+    starting on a 128-byte boundary, within 8 vectors of the others (the
+    last also takes the row's n_vec % 8 left over);
+    the two levels of partials are laid out in whole groups of blocks and
+    whole 16-byte vectors of groups."""
+    grid = tgb.ring_grid(n_vec, slots)
+    ranges = tgb.ring_ranges(n_vec, grid)
+    assert len(ranges) == grid
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_vec
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo % 8 == 0 for lo, _ in ranges)
+    sizes = [hi - lo for lo, hi in ranges]
+    assert min(sizes) >= 1 and max(sizes[:-1], default=0) - min(sizes) <= 8
+    assert sizes[-1] - min(sizes) <= 8 + n_vec % 8
+    gp, gq = tgb._sum_layout(grid)
+    groups = -(-grid // tgb.RING_GROUP_BLOCKS)
+    assert gp == groups * tgb.RING_GROUP_BLOCKS and grid <= gp
+    assert gq % 4 == 0 and groups <= gq < groups + 4
+    assert gq <= 4 * (tgb.RING_MAX_GRID // tgb.RING_GROUP_BLOCKS // 4)
+    if n_vec == 2 ** 21 // 8:
+        # the main path: 264 blocks of 992 or 1000 vectors, two stages
+        assert grid == 264 and set(sizes) == {992, 1000}
+        assert -(-max(sizes) // tgb.RING_STAGE_VECS) == 2

@@ -17,7 +17,7 @@ from basic_iterative_solvers_tpu.ops import pallas_env
 from basic_iterative_solvers_tpu_torch import convert
 from basic_iterative_solvers_tpu_torch import generators as tgen
 from basic_iterative_solvers_tpu_torch.ops import lane_ell as tle
-from basic_iterative_solvers_tpu_torch.ops import spmv as tops
+from basic_iterative_solvers_tpu_torch import ops as tops
 from tests.test_torch_ilu0_factor import numpy_branch  # noqa: F401
 
 CPU = "cpu"

@@ -150,7 +150,7 @@ def test_spmv_rejects_bad_operands(case):
         "shape": (lambda: tso.stencil_spmv(A, x[:-1]), ValueError),
         "aux": (lambda: tso.stencil_spmv(A, x, dots=("aux",)), ValueError),
         "kind": (lambda: tso.stencil_spmv(A, x, dots=("y",)), ValueError),
-        "operator": (lambda: bt.ops.spmv.spmv(object(), x), TypeError),
+        "operator": (lambda: bt.ops.spmv(object(), x), TypeError),
         "noncontig": (lambda: tso.stencil_spmv(
             A, torch.ones(2 * A.n_rows, dtype=torch.float64)[::2]),
             ValueError),
@@ -207,15 +207,16 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 def test_spmv_entry_points_match_plain(rng):
     """spmv_dots returns (y, y·aux, y·y) in that order, and
     compute_residual is b − A·x, all from the one SpMV call."""
-    from basic_iterative_solvers_tpu_torch.ops import spmv as ops
+    from basic_iterative_solvers_tpu_torch.ops.spmv import (
+        compute_residual, spmv_dot, spmv_dots)
     A = tso.from_source_operator(ANDERSON, torch.float64, device=CPU)
     x, aux, b = (torch.from_numpy(rng.standard_normal(A.n_rows))
                  for _ in range(3))
     y = tso.stencil_spmv_plain(A, x)
-    got = ops.spmv_dots(A, x, aux=aux, with_self=True)
+    got = spmv_dots(A, x, aux=aux, with_self=True)
     assert len(got) == 3 and torch.equal(got[0], y)
     torch.testing.assert_close(got[1], torch.dot(y, aux))
     torch.testing.assert_close(got[2], torch.dot(y, y))
-    assert len(ops.spmv_dots(A, x)) == 1
-    torch.testing.assert_close(ops.spmv_dot(A, x)[1], torch.dot(y, x))
-    assert torch.equal(ops.compute_residual(A, x, b), b - y)
+    assert len(spmv_dots(A, x)) == 1
+    torch.testing.assert_close(spmv_dot(A, x)[1], torch.dot(y, x))
+    assert torch.equal(compute_residual(A, x, b), b - y)

@@ -180,8 +180,10 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "super_parity_kernel": "sptrsv",
             "super_solve_mega_kernel": "sptrsv",
             "rank_level_kernel": "sptrsv",
-            "project_gram_kernel": "orthog",
-            "correct_write_kernel": "orthog"}
+            "project_gram_kernel_strided": "orthog",
+            "project_gram_kernel_ring": "orthog",
+            "correct_write_kernel_strided": "orthog",
+            "correct_write_kernel_ring": "orthog"}
     assert _kernel_names() == set(want)
     for name, bucket in want.items():
         # the trace's demangled form: "void name<float, float>(args...)"
