@@ -362,21 +362,24 @@ __device__ __forceinline__ void ring_produce(
 }
 
 // Every thread of the block: store(p, sum) for pairs p < n_pairs, the sum
-// of src[p * stride + b] over b < count in a fixed order (the entries up to
-// the next 16-byte boundary hold zeros).  L lanes take a pair, one 16-byte
-// vector each, then add across the L lanes in a fixed tree; count <= 4 * L.
+// of src[p * stride + b] over b < count in a fixed order.  L lanes take a
+// pair, one 16-byte vector each, then add across the L lanes in a fixed
+// tree; count <= 4 * L.  The entries of a vector at b >= count are read but
+// not added: nothing writes them, so they may hold anything.
 template <int L, typename Store>
 __device__ __forceinline__ void sum_rows(const float* src, int n_pairs,
                                          int stride, int count, Store store) {
     const int part = threadIdx.x % L, slots = blockDim.x / L;
+    const int rest = count - 4 * part;   // this lane's entries that count
     for (int p0 = 0; p0 < n_pairs; p0 += slots) {   // uniform: shuffles
         const int p = p0 + (int)threadIdx.x / L;
         float s = 0.0f;
-        if (p < n_pairs && 4 * part < count) {
+        if (p < n_pairs && rest > 0) {
             const float4 v = __ldcg(
                 reinterpret_cast<const float4*>(src + (long long)p * stride) +
                 part);
-            s = (v.x + v.y) + (v.z + v.w);
+            s = (v.x + (rest > 1 ? v.y : 0.0f)) +
+                ((rest > 2 ? v.z : 0.0f) + (rest > 3 ? v.w : 0.0f));
         }
 #pragma unroll
         for (int o = 1; o < L; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -391,8 +394,9 @@ __device__ __forceinline__ void sum_rows(const float* src, int n_pairs,
 // finish adds those in group order and stores each pair's sum.  Each level
 // finds its last block by a ticket (tickets[1 + group], tickets[0]), which
 // that block sets back to 0 for the next launch.  Returns true in the block
-// that stored the sums.  Pads: partials[p * gp + b] for b in [gridDim.x,
-// gp) hold zeros, and the first group writes gpart's.
+// that stored the sums.  Each level adds only the columns written in this
+// launch (the group's blocks, then the groups), never a row's pads: a group
+// synchronises with its own blocks only.
 template <typename Store>
 __device__ __forceinline__ bool finish_sums(const float* partials, int gp,
                                             float* gpart, int gq, int n_pairs,
@@ -410,14 +414,8 @@ __device__ __forceinline__ bool finish_sums(const float* partials, int gp,
     if (!is_last) return false;
     __threadfence();
     sum_rows<BIS_RING_GROUP_BLOCKS / 4>(
-        partials + group * BIS_RING_GROUP_BLOCKS, n_pairs, gp,
-        BIS_RING_GROUP_BLOCKS,
+        partials + group * BIS_RING_GROUP_BLOCKS, n_pairs, gp, in_group,
         [&](int p, float v) { gpart[(long long)p * gq + group] = v; });
-    if (group == 0)
-        for (int i = threadIdx.x; i < n_pairs * (gq - n_groups);
-             i += blockDim.x)
-            gpart[(long long)(i / (gq - n_groups)) * gq + n_groups +
-                  i % (gq - n_groups)] = 0.0f;
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -521,10 +519,7 @@ project_gram_kernel_ring(const T* __restrict__ V, const float* __restrict__ w,
                 float s = 0.0f;
 #pragma unroll
                 for (int q = 0; q < BIS_RING_WARPS; ++q) s += slot[p >> 1][q][p & 1];
-                float* prow = partials + (long long)(2 * g0 + p) * gp;
-                prow[blockIdx.x] = s;
-                if (blockIdx.x == 0)
-                    for (int b = (int)gridDim.x; b < gp; ++b) prow[b] = 0.0f;
+                partials[(long long)(2 * g0 + p) * gp + blockIdx.x] = s;
             }
             __threadfence();
             consumer_sync();
@@ -624,8 +619,6 @@ correct_write_kernel_ring(T* __restrict__ V, const float* __restrict__ w,
 #pragma unroll
             for (int q = 0; q < BIS_RING_WARPS; ++q) s += part[q];
             partials[blockIdx.x] = s;
-            if (blockIdx.x == 0)
-                for (int b = (int)gridDim.x; b < gp; ++b) partials[b] = 0.0f;
             __threadfence();
         }
     }
@@ -757,7 +750,8 @@ int bis_gmres_correct_write_strided_bf16(int device, __nv_bfloat16* V,
 
 // ..., partials, gp, gpart, gq, out, tickets, grid, stream: the blocks'
 // and the groups' partials (rows of gp and gq floats a pair, 16-byte
-// aligned), the sums, 1 + BIS_RING_MAX_GRID / BIS_RING_GROUP_BLOCKS zeroed
+// aligned, left as the caller gave them past the grid's blocks and
+// groups), the sums, 1 + BIS_RING_MAX_GRID / BIS_RING_GROUP_BLOCKS zeroed
 // tickets (left zeroed), the grid
 int bis_gmres_project_gram_ring_f32(int device, const float* V,
                                     const float* w, const float* vc,

@@ -138,9 +138,20 @@ def ring_ranges(n_vec: int, grid: int):
 def _sum_layout(grid: int):
     """(gp, gq): a pair's row of block partials and of group partials, in
     floats: the blocks rounded up to whole groups, the groups to whole
-    16-byte vectors (the pads hold zeros)."""
+    16-byte vectors (the kernels never add the pads)."""
     groups = -(-grid // RING_GROUP_BLOCKS)
     return groups * RING_GROUP_BLOCKS, -(-groups // 4) * 4
+
+
+def ring_scratch(name: str, rows: int, n: int, j: int, grid: int) -> int:
+    """Float32 entries of a ring launch's one buffer, each part 16-byte
+    aligned: project_gram's pairs' block and group partials, then Pw and
+    Pv (rows each); correct_write's vnext (n), then its block and group
+    partials, then nrm2."""
+    gp, gq = _sum_layout(grid)
+    if name == "project_gram":
+        return 2 * (j + 1) * (gp + gq) + 2 * rows
+    return n + gp + gq + 1
 
 
 def _n_blocks(n: int) -> int:
@@ -202,28 +213,34 @@ def project_gram_plain(V, w, vc, j: int):
     return P[:, 0], P[:, 1]
 
 
+def _project_gram_ring(V, w, vc, j: int, grid: int, buf, stream):
+    """The ring launch on `grid` blocks with `buf` (ring_scratch floats,
+    any contents) as its scratch and output; returns (Pw, Pv), views of
+    buf.  Each part's address is buf's plus an integer offset: no view is
+    made for a part."""
+    rows, n = V.shape
+    gp, gq = _sum_layout(grid)
+    pairs = 2 * (j + 1)
+    base, out = buf.data_ptr(), pairs * (gp + gq)
+    err = _fn("project_gram", "ring", V.dtype)(
+        V.device.index, V.data_ptr(), w.data_ptr(), vc.data_ptr(), n, rows,
+        j, base, gp, base + 4 * pairs * gp, gq, base + 4 * out,
+        _tickets(V.device, stream).data_ptr(), grid, stream.cuda_stream)
+    _raise_on(err, "project_gram")
+    project_gram.ring_launches += 1
+    project_gram.launches += 1
+    return buf.narrow(0, out, rows), buf.narrow(0, out + rows, rows)
+
+
 def _project_gram_cuda(V, w, vc, j: int, route: str):
     rows, n = V.shape
     stream = torch.cuda.current_stream(V.device)
     if route == "ring":
         grid = ring_grid(n * V.element_size() // 16,
                          _slots(V.device.index, "project_gram", V.dtype))
-        gp, gq = _sum_layout(grid)
-        pairs = 2 * (j + 1)
-        # the pairs' block and group partials (16-byte aligned rows), then
-        # Pw and Pv
-        buf = torch.empty(pairs * (gp + gq) + 2 * rows, dtype=torch.float32,
-                          device=V.device)
-        P = buf[pairs * (gp + gq):].view(2, rows)
-        err = _fn("project_gram", route, V.dtype)(
-            V.device.index, V.data_ptr(), w.data_ptr(), vc.data_ptr(), n,
-            rows, j, buf.data_ptr(), gp, buf[pairs * gp:].data_ptr(), gq,
-            P.data_ptr(), _tickets(V.device, stream).data_ptr(), grid,
-            stream.cuda_stream)
-        _raise_on(err, "project_gram")
-        project_gram.ring_launches += 1
-        project_gram.launches += 1
-        return P[0], P[1]
+        buf = torch.empty(ring_scratch("project_gram", rows, n, j, grid),
+                          dtype=torch.float32, device=V.device)
+        return _project_gram_ring(V, w, vc, j, grid, buf, stream)
     n_blocks = _n_blocks(n)
     partials = torch.empty((n_blocks, rows, 2), dtype=torch.float32,
                            device=V.device)
@@ -271,27 +288,32 @@ def correct_write_plain(V, w, ht, j: int):
     return vnext, torch.dot(vnext, vnext)
 
 
+def _correct_write_ring(V, w, ht, j: int, grid: int, buf, stream):
+    """The ring launch on `grid` blocks with `buf` (ring_scratch floats,
+    any contents) as its scratch and output; returns (vnext, nrm2), views
+    of buf."""
+    n = V.shape[1]
+    gp, gq = _sum_layout(grid)
+    base, last = buf.data_ptr(), n + gp + gq
+    err = _fn("correct_write", "ring", V.dtype)(
+        V.device.index, V.data_ptr(), w.data_ptr(), ht.data_ptr(), n, j,
+        base, base + 4 * n, gp, base + 4 * (n + gp), gq, base + 4 * last,
+        _tickets(V.device, stream).data_ptr(), grid, stream.cuda_stream)
+    _raise_on(err, "correct_write")
+    correct_write.ring_launches += 1
+    correct_write.launches += 1
+    return buf.narrow(0, 0, n), buf.select(0, last)
+
+
 def _correct_write_cuda(V, w, ht, j: int, route: str):
     rows, n = V.shape
     stream = torch.cuda.current_stream(V.device)
     if route == "ring":
         grid = ring_grid(n * V.element_size() // 16,
                          _slots(V.device.index, "correct_write", V.dtype))
-        gp, gq = _sum_layout(grid)
-        # vnext first (16-byte aligned), then the block and group partials,
-        # then nrm2
-        buf = torch.empty(n + gp + gq + 1, dtype=torch.float32,
-                          device=V.device)
-        vnext, nrm2 = buf[:n], buf[n + gp + gq]
-        err = _fn("correct_write", route, V.dtype)(
-            V.device.index, V.data_ptr(), w.data_ptr(), ht.data_ptr(), n, j,
-            vnext.data_ptr(), buf[n:].data_ptr(), gp,
-            buf[n + gp:].data_ptr(), gq, nrm2.data_ptr(),
-            _tickets(V.device, stream).data_ptr(), grid, stream.cuda_stream)
-        _raise_on(err, "correct_write")
-        correct_write.ring_launches += 1
-        correct_write.launches += 1
-        return vnext, nrm2
+        buf = torch.empty(ring_scratch("correct_write", rows, n, j, grid),
+                          dtype=torch.float32, device=V.device)
+        return _correct_write_ring(V, w, ht, j, grid, buf, stream)
     n_blocks = _n_blocks(n)
     vnext = torch.empty(n, dtype=torch.float32, device=V.device)
     partials = torch.empty(n_blocks, dtype=torch.float32, device=V.device)

@@ -12,7 +12,8 @@ exits non-zero:
   4. the GMRES basis kernels (project_gram, correct_write) at the 128^3
      GMRES(50) shape, both basis dtypes, j = 0, 7, 49: the ring route the
      shape takes and the strided route against their plain versions,
-     device-only and wrapper times, share of the bound, the library's
+     each route's device-only, host-enqueue and wrapper times in turns,
+     the ring route's share of the bound, the library's
      nearest calls; the build prints the kernels' registers, spills and
      resident blocks an SM ([ptxas]);
   5. the same CG solve on the CPU (plain path) and on the card (kernel);
@@ -201,13 +202,16 @@ def _median_ms(fn, torch, reps=20, batch=10):
     return statistics.median(times)
 
 
-def _device_ms(fn, torch, reps=10, batch=10, sleep_cycles=100_000_000):
+def _device_ms(fn, torch, reps=10, batch=10, sleep_cycles=100_000_000,
+               host=None):
     """Median device time per call of `fn`, the host's launch cost hidden:
     each batch is enqueued behind a sleeping kernel (~50 ms), so the events
     around it time the device's work only.  Raises if enqueuing a batch
-    took the host longer than the sleep (the host would then show)."""
+    took the host longer than the sleep (the host would then show).  With
+    a list `host`, appends the median host time per call of enqueuing a
+    batch (the wrapper's cost alone: no call waits for the device)."""
     fn()
-    times = []
+    times, host_times = [], []
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         torch.cuda.synchronize()
@@ -224,6 +228,9 @@ def _device_ms(fn, torch, reps=10, batch=10, sleep_cycles=100_000_000):
             raise RuntimeError(f"enqueuing took {host_ms:.2f} ms, longer "
                                "than the sleep ahead of it")
         times.append(ev[1].elapsed_time(ev[2]) / batch)
+        host_times.append(host_ms / batch)
+    if host is not None:
+        host.append(statistics.median(host_times))
     return statistics.median(times)
 
 
@@ -414,9 +421,11 @@ def phase_basis_vs_plain(torch, gb):
     """project_gram (#6) and correct_write (#7) at the 128^3 GMRES(50)
     shape, both basis dtypes, every j of BASIS_JS: raises unless the shape
     takes the ring route; each route against the plain versions
-    (_basis_check); device-only ms of each route (_device_ms; at j = 49 in
-    turns: ring, strided, strided, ring), the wrapper's ms with the host's
-    enqueue (_median_ms), GB/s and share of the bound of the ring route,
+    (_basis_check); for each route in turns (ring, strided, strided,
+    ring) its device-only ms (_device_ms), the host's ms to enqueue one
+    call behind a sleeping kernel (the route's wrapper code alone) and its
+    wrapper's ms back to back (_median_ms, the host's enqueue included);
+    the public wrapper's ms, GB/s and share of the bound of the ring route,
     and the library's nearest calls on the device in the same run; the
     plain versions timed at j = 49.  Returns the kernel records: bf16 at j = 49
     (the main path's basis), with float32's beside."""
@@ -442,16 +451,17 @@ def phase_basis_vs_plain(torch, gb):
             pg_bytes = (j + 1) * row + 2 * 4 * n
             cw_bytes = (j + 2) * row + 2 * 4 * n
             t = {}
-            turns = (("ring", "strided", "strided", "ring")
-                     if j == BASIS_JS[-1] else ("ring", "strided"))
-            for rt in turns:
+            for rt in ("ring", "strided", "strided", "ring"):
                 for name, fn in (
                         ("pg", lambda: gb._project_gram_cuda(V, w, vc, j,
                                                              rt)),
                         ("cw", lambda: gb._correct_write_cuda(Vk, w, ht, j,
                                                               rt))):
                     t.setdefault(f"{name}_{rt}", []).append(
-                        _device_ms(fn, torch))
+                        _device_ms(fn, torch, host=t.setdefault(
+                            f"{name}_{rt}_enqueue", [])))
+                    t.setdefault(f"{name}_{rt}_wrapper", []).append(
+                        _median_ms(fn, torch))
             t["pg_wrapper"] = _median_ms(
                 lambda: gb.project_gram(V, w, vc, j), torch)
             t["cw_wrapper"] = _median_ms(
@@ -470,6 +480,16 @@ def phase_basis_vs_plain(torch, gb):
             pg_ms, cw_ms = min(t["pg_ring"]), min(t["cw_ring"])
             print(f"[basis] n={n} m={m} {str(dt)[6:]} j={j} "
                   f"{'; '.join(c[0] for c in checks)}")
+            print(f"[basis] n={n} m={m} {str(dt)[6:]} j={j} routes' host "
+                  "cost in turns (ring, strided, strided, ring): "
+                  + "; ".join(
+                      f"{kernel} {rt} enqueue_ms="
+                      f"{[round(x, 5) for x in t[f'{key}_{rt}_enqueue']]} "
+                      f"wrapper_ms="
+                      f"{[round(x, 5) for x in t[f'{key}_{rt}_wrapper']]}"
+                      for kernel, key in (("project_gram", "pg"),
+                                          ("correct_write", "cw"))
+                      for rt in gb.ROUTES))
             print(f"[basis] n={n} m={m} {str(dt)[6:]} j={j} route=ring "
                   f"project_gram device_ms={t['pg_ring']} "
                   f"(strided {t['pg_strided']}) "
@@ -715,8 +735,7 @@ def phase_orthog_share(torch, bt):
     its fused loop re-run under torch.profiler for two restart cycles (100
     iterations + 2 restarts) with its kernels summed by phase bucket
     (utils/profile.py).  Raises unless the orthog bucket holds the route's
-    kernels only.  Run last: the profiler sessions it opens are not to
-    precede the --iter-times check of phase 32."""
+    kernels only."""
     from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
     from basic_iterative_solvers_tpu_torch.solvers import make_method
     from basic_iterative_solvers_tpu_torch.utils.profile import (

@@ -465,6 +465,47 @@ def test_basis_routes_equal_plain(card, n, route, rows, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", [37, 264], ids=["grid37", "grid264"])
+def test_basis_ring_sums_read_only_written_partials(card, grid, dtype):
+    """The ring route's cross-block sums add only the partials its blocks
+    wrote in the launch: with the scratch filled with NaN, at grids whose
+    last group of blocks is part-full (37 = 2 * 16 + 5; 264 = 16 * 16 + 8,
+    #6's grid on an H100), Pw/Pv, vnext and nrm2 are finite and the same
+    bits as with a zeroed scratch, Pw/Pv within BASIS_TOL of plain and
+    zero beyond row j, over two groups of 64 rows."""
+    from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
+    rows, n, j = 70, 512 * 8 * 264, 68
+    V, w, vc, ht = _basis_operands(card, rows, n, dtype, grid)
+    stream = torch.cuda.current_stream(card)
+    out = {}
+    for key, fill in (("zero", 0.0), ("nan", float("nan"))):
+        def scratch(name):
+            return torch.full((gb.ring_scratch(name, rows, n, j, grid),),
+                              fill, device=card)
+        Vk = V.clone()
+        out[key] = (gb._project_gram_ring(V, w, vc, j, grid,
+                                           scratch("project_gram"), stream)
+                     + gb._correct_write_ring(Vk, w, ht, j, grid,
+                                              scratch("correct_write"),
+                                              stream) + (Vk,))
+    torch.cuda.synchronize()
+    Pp = gb.project_gram_plain(V, w, vc, j)
+    Vp = V.clone()
+    vp, np_ = gb.correct_write_plain(Vp, w, ht, j)
+    Pw, Pv, vk, nk, Vk = out["nan"]
+    assert all(torch.equal(a, b) for a, b in zip(out["zero"], out["nan"]))
+    assert all(bool(t.isfinite().all()) for t in (Pw, Pv, vk, nk))
+    Vf = V[:j + 1].float()
+    for k, p, v in zip((Pw, Pv), Pp, (w, vc)):
+        assert bool(((k[:j + 1] - p[:j + 1]).abs()
+                     <= BASIS_TOL * (Vf * v).abs().sum(1)).all())
+        assert not k[j + 1:].any()
+    assert torch.equal(Vk, Vp) and torch.equal(vk, vp)
+    assert abs(float(nk) - float(np_)) <= 1e-5 * float(np_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_basis_wrappers_take_the_shape_route(card, dtype):
     """The public wrappers launch the ring route on aligned rows and the
     strided route on a ragged row or an offset base, counted on each."""

@@ -219,6 +219,26 @@ def test_ring_grid_is_one_wave(n_vec, slots, grid):
     assert tgb.ring_grid(n_vec, slots) == grid
 
 
+@pytest.mark.parametrize("name", ["project_gram", "correct_write"])
+@pytest.mark.parametrize("rows,n,j,grid", [
+    (51, 2 ** 21, 49, 264), (51, 2 ** 21, 0, 264), (130, 8192 * 3, 128, 6),
+    (3, 4 * 1001, 1, 2), (70, 512 * 8 * 264, 68, 37)])
+def test_ring_scratch_holds_every_part_aligned(name, rows, n, j, grid):
+    """A ring launch's one buffer: each part the wrappers hand the kernel
+    starts on a 16-byte boundary (a multiple of 4 floats) and the last
+    ends at the buffer's end."""
+    gp, gq = tgb._sum_layout(grid)
+    size = tgb.ring_scratch(name, rows, n, j, grid)
+    if name == "project_gram":
+        pairs = 2 * (j + 1)
+        starts = (0, pairs * gp, pairs * (gp + gq))
+        assert size == starts[-1] + 2 * rows
+    else:
+        starts = (0, n, n + gp)
+        assert size == n + gp + gq + 1
+    assert all(k % 4 == 0 for k in starts)
+
+
 @pytest.mark.parametrize("n_vec,slots", [
     (2 ** 21 // 8, 264), (2 ** 21 // 4, 264), (8192 * 3 // 8, 264),
     (7, 264), (12345, 3), (10 ** 8, 528)])
