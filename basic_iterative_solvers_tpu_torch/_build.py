@@ -86,6 +86,8 @@ class SuperLevelArgs(ctypes.Structure):
         ("cross_spy", ctypes.c_int * MAX_LEGS),
         ("cross_spz", ctypes.c_int * MAX_LEGS),
         ("mode", ctypes.c_int),
+        ("cross_rx", ctypes.c_int), ("cross_ry", ctypes.c_int),
+        ("cross_rz", ctypes.c_int),
     ]
 
 
@@ -108,8 +110,8 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _library_path(flags=NVCC_FLAGS) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libbis_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -128,17 +130,18 @@ def _run(cmds):
                                f"{' '.join(cmd)}\n{out}")
 
 
-def build() -> Path:
-    """Compile the kernel library unless a build of these sources exists;
-    returns its path.  Raises, naming the command, if the build fails."""
-    lib = _library_path()
+def build(flags=NVCC_FLAGS) -> Path:
+    """Compile the kernel library with `flags` unless a build of these
+    sources and flags exists; returns its path.  Raises, naming the
+    command, if the build fails."""
+    lib = _library_path(flags)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        _run([[nvcc, *flags, "-c", "-o", obj, str(src)]
               for obj, src in zip(objs, SOURCES)])
         out = os.path.join(tmp, lib.name)
         _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs]])
@@ -150,7 +153,12 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argument and result types declared."""
-    lib = ctypes.CDLL(str(build()))
+    return declare(ctypes.CDLL(str(build())))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare every entry point's argument and result types on a loaded
+    kernel library and check its launch-table layouts; returns it."""
     ptr = ctypes.c_void_p
     i64, i32 = ctypes.c_longlong, ctypes.c_int
     # "_bf16": the form that takes bfloat16 matrix data (a stencil's
@@ -208,10 +216,19 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [i32, ctypes.POINTER(DiaArgs), ptr, ptr, ptr, i64, i64,
                        ptr]
         fn.restype = i32
+        # the counted routes: ..., n, plane, S, idx_bytes, len_bytes
         fn = getattr(lib, f"bis_lane_ell_spmv_{dt}")
+        fn.argtypes = [i32] + [ptr] * 5 + [i64, i64] + [i32] * 3 + [ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"bis_lane_ell_spmv_{dt}_padded")
         fn.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
         fn.restype = i32
+        # ..., rows, r0, halo, n, plane, S, wlen, idx_bytes, len_bytes
         fn = getattr(lib, f"bis_lane_ell_spmv_halo_{dt}")
+        fn.argtypes = [i32] + [ptr] * 5 + [i64] * 5 + [i32, i64, i32, i32,
+                                                         ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"bis_lane_ell_spmv_halo_{dt}_padded")
         fn.argtypes = [i32, ptr, ptr, ptr, ptr] + [i64] * 5 + [i32, i32, i64,
                                                               ptr]
         fn.restype = i32
@@ -228,6 +245,11 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"bis_rank_level_{dt}")
         fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr]
         fn.restype = i32
+    level = ctypes.POINTER(SuperLevelArgs)
+    lib.bis_super_level_staged_f32.argtypes = [i32, level] + [ptr] * 5
+    lib.bis_super_level_staged_f32.restype = i32
+    lib.bis_super_level_staged_grid.argtypes = [level]
+    lib.bis_super_level_staged_grid.restype = i32
     lib.bis_super_solve_mega_grid.argtypes = [i32] * 4
     lib.bis_super_solve_mega_grid.restype = i32
     for size_fn, mirror, source in (

@@ -258,7 +258,8 @@ def run(argv=None) -> int:
         if iter_times:
             if config.harness == "fused":
                 from .utils.profile import attach_iteration_times
-                if attach_iteration_times(result, method):
+                why = []
+                if attach_iteration_times(result, method, why):
                     print("[iter-times] measured device walls attached",
                           file=sys.stderr)
                     walls = np.asarray(result.time_per_iteration)
@@ -266,8 +267,9 @@ def run(argv=None) -> int:
                     if walls.size:
                         roofline_secs = float(np.median(walls))
                 else:
-                    print("[iter-times] no device trace available on this "
-                          "device; times unchanged", file=sys.stderr)
+                    print(f"[iter-times] no per-iteration device walls "
+                          f"({'; '.join(why)}); times unchanged",
+                          file=sys.stderr)
             else:
                 print("[iter-times] host harness already records wall "
                       "times per iteration", file=sys.stderr)

@@ -88,6 +88,32 @@
 // rows of x twice (acc, then the solution).  Only 1/sx of a block's
 // threads work in each parity step.
 //
+// Factor-table mode has a second fused route, "staged", in float32
+// (super_level_staged_kernel; ops/block_trisolve.table_route_for picks it
+// where its shared memory fits, the "direct" route above elsewhere and in
+// float64).  At
+// 384^3 the direct route ran at ~10x its bound, and a level with no cross
+// leg took as long as 0.4 of one with 24: the kernel is bound by the
+// instructions it issues, not by HBM.  A runtime leg loop with a six-way
+// bounds test and 64-bit index arithmetic per leg; class_base (three
+// runtime %) per row in every pass, and a runtime % per self leg and row;
+// acc written to x and read back; half the threads idle in each parity
+// pass.  The staged route:
+//   - stages, once per line, the factors of the line's (y, z) class for
+//     every leg and x-class and U's pivots in shared memory (~1.9 KB a
+//     line for HPCG), each x's class once per block; a warp owns a line;
+//   - gives an interior row (every cross leg's source in the grid: the
+//     line inside the cross reach in y and z, x inside it too) a leg loop
+//     unrolled at compile time to the level's bucket of cross legs, with
+//     no bounds test and 32-bit offsets from the row's x, its x loads
+//     issued before the arithmetic; edge rows keep the tested loop;
+//   - keeps acc and the solved x in the block's line buffer in shared
+//     memory: the parity passes read and write it there, every thread on
+//     a row of the parity, the self legs' parity test once per pass; x is
+//     written to global memory once.
+// The differences and products keep the plain version's order, so the
+// level stays bit-equal to it and to the direct route.
+//
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after its launch.
 
@@ -134,6 +160,7 @@ struct BisSuperLevelArgs {
     int cross_spy[BIS_SL_MAX_LEGS];         // plane mode: source phases
     int cross_spz[BIS_SL_MAX_LEGS];
     int mode;                               // BIS_SL_CONST, _TABLE, _PLANE
+    int cross_rx, cross_ry, cross_rz;       // max |d| of the cross legs
 };
 
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
@@ -233,11 +260,10 @@ struct LevelRow {
     long long iy, ix;                       // row - y_row0, row - x_row0
 };
 
-// Line line0 + block * block_y + threadIdx.y of the level's superblock.
-__device__ __forceinline__ LevelRow level_row(const BisSuperLevelArgs& a,
-                                              int block) {
+// Line line0 + k of the level's superblock (k < lines: live).
+__device__ __forceinline__ LevelRow level_line(const BisSuperLevelArgs& a,
+                                               int k) {
     LevelRow r;
-    const int k = block * a.block_y + threadIdx.y;
     const int line = a.line0 + k;
     r.live = k < a.lines;
     r.gy = a.sy * (line % a.my) + a.py;
@@ -247,6 +273,12 @@ __device__ __forceinline__ LevelRow level_row(const BisSuperLevelArgs& a,
     r.iy = r.row - a.y_row0;
     r.ix = r.row - a.x_row0;
     return r;
+}
+
+// Line line0 + block * block_y + threadIdx.y of the level's superblock.
+__device__ __forceinline__ LevelRow level_row(const BisSuperLevelArgs& a,
+                                              int block) {
+    return level_line(a, block * a.block_y + threadIdx.y);
 }
 
 // One block of lines of a fused level: acc into x, then the parities in
@@ -292,6 +324,184 @@ super_level_kernel(const __grid_constant__ BisSuperLevelArgs a, const T* y,
                    T* x, const T* table, const T* tdinv, const T* vc,
                    const T* vs, const T* drows) {
     level_block<T, MODE>(a, blockIdx.x, y, x, table, tdinv, vc, vs, drows);
+}
+
+// Factor-table mode, staged route (see the top of the file).  Its own
+// block shape: bx = min(BIS_SL_STAGED_BX, nx rounded up to a warp)
+// threads along x, 256 / bx lines a block, one line a row of threads (by
+// default a warp a line: 32 wide ran faster than 64 and 128 at 128^3 and
+// 384^3, more rows a thread over the same per-thread set-up).
+// Dynamic shared memory: the block's lines (256 / bx x nx values), the
+// x-class of each x (nx ints, padded to 16 bytes), and, with
+// BIS_SL_STAGE_FACTORS (the default), each line's factors of every leg and
+// x-class and its pivots ((n_legs + 1) x proto_x values a line); with it
+// unset the factors are read from the table through L1.  Both are
+// build-time switches that scripts/kernel_variants.py times against each
+// other.  NCB is the cross-leg bucket: interior rows unroll NCB predicated
+// legs (0, 8, 16, 24 or 27), so a level with few cross legs issues no
+// instructions for the rest.
+#ifndef BIS_SL_STAGE_FACTORS
+#define BIS_SL_STAGE_FACTORS 1
+#endif
+#ifndef BIS_SL_STAGED_BX
+#define BIS_SL_STAGED_BX 32
+#endif
+// Blocks an SM the compiler sizes the kernel's registers for: 4 holds the
+// 24-leg bucket to 64 registers, where it runs fastest (left to itself
+// ptxas gives it 95, 2 blocks an SM; with 5 or more it spills).
+#ifndef BIS_SL_MIN_BLOCKS
+#define BIS_SL_MIN_BLOCKS 4
+#endif
+
+// The most dynamic shared memory a staged launch takes (no opt-in needed).
+#define BIS_SL_STAGED_SMEM_MAX (48 * 1024)
+
+static int staged_bx(const BisSuperLevelArgs& a) {
+    const int warps = (a.nx + 31) / 32 * 32;
+    return warps < BIS_SL_STAGED_BX ? warps : BIS_SL_STAGED_BX;
+}
+
+static size_t staged_smem(const BisSuperLevelArgs& a) {
+    const size_t lines = 256 / staged_bx(a);
+    size_t b = lines * a.nx * sizeof(float)
+               + (size_t)((a.nx + 3) & ~3) * sizeof(int);
+#if BIS_SL_STAGE_FACTORS
+    b += lines * (a.n_cross + a.n_self + 1) * a.proto_x * sizeof(float);
+#endif
+    return b;
+}
+
+// The factor of leg l (table row kd) at x-class cx of the line whose
+// (y, z) classes give table column cyz; l = n_legs: the line's pivot.
+template <typename T>
+struct LineFactors {
+    const T* table;
+    const T* tdinv;
+    const T* fac;
+    int cyz, n_proto, Px;
+    __device__ __forceinline__ T leg(int kd, int l, int cx) const {
+#if BIS_SL_STAGE_FACTORS
+        return fac[l * Px + cx];
+#else
+        return __ldg(table + kd * n_proto + cyz + cx);
+#endif
+    }
+    __device__ __forceinline__ T pivot(int l, int cx) const {
+#if BIS_SL_STAGE_FACTORS
+        return fac[l * Px + cx];
+#else
+        return __ldg(tdinv + cyz + cx);
+#endif
+    }
+};
+
+template <typename T, int NCB>
+__global__ void __launch_bounds__(256, BIS_SL_MIN_BLOCKS)
+super_level_staged_kernel(const __grid_constant__ BisSuperLevelArgs a,
+                          const T* y, T* x, const T* __restrict__ table,
+                          const T* __restrict__ tdinv) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nx = a.nx, Px = a.proto_x, bx = blockDim.x;
+    const int nc = a.n_cross, ns = a.n_self;
+    T* const lines = reinterpret_cast<T*>(smem_raw);
+    int* const cls = reinterpret_cast<int*>(lines + blockDim.y * nx);
+    const int tid = threadIdx.y * bx + threadIdx.x;
+    for (int gx = tid; gx < nx; gx += bx * blockDim.y)
+        cls[gx] = proto_class(gx, nx, Px, a.sx, a.radius);
+    const LevelRow r = level_line(a, blockIdx.x * blockDim.y + threadIdx.y);
+    LineFactors<T> F;
+    F.table = table;
+    F.tdinv = tdinv;
+    F.n_proto = a.n_proto;
+    F.Px = Px;
+    F.cyz = Px * (proto_class(r.gy, a.ny, a.proto_y, a.sy, a.radius)
+                  + a.proto_y * proto_class(r.gz, a.nz, a.proto_z, a.sz,
+                                            a.radius));
+    F.fac = nullptr;
+#if BIS_SL_STAGE_FACTORS
+    {
+        T* const fac = reinterpret_cast<T*>(cls + ((nx + 3) & ~3))
+                       + threadIdx.y * (nc + ns + 1) * Px;
+        if (r.live) {
+            for (int l = 0; l < nc + ns; ++l) {
+                const T* const row = table + (long long)(
+                    l < nc ? a.cross_kd[l] : a.self_kd[l - nc]) * a.n_proto
+                    + F.cyz;
+                for (int c = threadIdx.x; c < Px; c += bx)
+                    fac[l * Px + c] = row[c];
+            }
+            if (tdinv)
+                for (int c = threadIdx.x; c < Px; c += bx)
+                    fac[(nc + ns) * Px + c] = tdinv[F.cyz + c];
+        }
+        F.fac = fac;
+    }
+#endif
+    __syncthreads();
+    T* const line = lines + threadIdx.y * nx;
+    if (r.live) {
+        const bool line_in = r.gy >= a.cross_ry && r.gy < a.ny - a.cross_ry
+                             && r.gz >= a.cross_rz
+                             && r.gz < a.nz - a.cross_rz;
+        for (int gx = threadIdx.x; gx < nx; gx += bx) {
+            T acc = y[r.iy + gx];
+            if (NCB > 0) {
+                const int cx = cls[gx];
+                const T* const xr = x + (r.ix + gx);
+                if (line_in && gx >= a.cross_rx && gx < nx - a.cross_rx) {
+                    T xv[NCB > 0 ? NCB : 1];
+#pragma unroll
+                    for (int l = 0; l < NCB; ++l)
+                        if (l < nc) xv[l] = __ldg(xr + (int)a.cross_off[l]);
+#pragma unroll
+                    for (int l = 0; l < NCB; ++l)
+                        if (l < nc)
+                            acc = sub_rn(acc, mul_rn(
+                                F.leg(a.cross_kd[l], l, cx), xv[l]));
+                } else {
+                    for (int l = 0; l < nc; ++l) {
+                        const int px = gx + a.cross_dx[l],
+                                  py = r.gy + a.cross_dy[l],
+                                  pz = r.gz + a.cross_dz[l];
+                        if (px >= 0 && px < nx && py >= 0 && py < a.ny &&
+                            pz >= 0 && pz < a.nz)
+                            acc = sub_rn(acc, mul_rn(
+                                F.leg(a.cross_kd[l], l, cx),
+                                xr[(int)a.cross_off[l]]));
+                    }
+                }
+            }
+            line[gx] = acc;
+        }
+    }
+    __syncthreads();
+    for (int step = 0; step < a.sx; ++step) {
+        const int p = a.upper ? a.sx - 1 - step : step;
+        // the self legs whose source parity (p + dx) mod sx is solved
+        unsigned solved = 0;
+        for (int l = 0; l < ns; ++l) {
+            int q = (p + a.self_dx[l]) % a.sx;
+            q += q < 0 ? a.sx : 0;
+            if (a.upper ? q > p : q < p) solved |= 1u << l;
+        }
+        if (r.live) {
+            for (int gx = p + a.sx * threadIdx.x; gx < nx; gx += a.sx * bx) {
+                const int cx = cls[gx];
+                T v = line[gx];
+                for (int l = 0; l < ns; ++l) {
+                    const int px = gx + a.self_dx[l];
+                    if ((solved >> l & 1u) && px >= 0 && px < nx)
+                        v = sub_rn(v, mul_rn(F.leg(a.self_kd[l], nc + l, cx),
+                                             line[px]));
+                }
+                line[gx] = tdinv ? mul_rn(v, F.pivot(nc + ns, cx)) : v;
+            }
+        }
+        __syncthreads();
+    }
+    if (r.live)
+        for (int gx = threadIdx.x; gx < nx; gx += bx)
+            x[r.ix + gx] = line[gx];
 }
 
 // A whole const-mode solve: levels[0..n_levels) in order, one grid-wide
@@ -415,6 +625,29 @@ static int launch_level(int device, const BisSuperLevelArgs* a, const T* y,
 }
 
 template <typename T>
+static int launch_level_staged(int device, const BisSuperLevelArgs* a,
+                               const T* y, T* x, const T* table,
+                               const T* tdinv, cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    const size_t smem = staged_smem(*a);
+    if (smem > BIS_SL_STAGED_SMEM_MAX) return (int)cudaErrorInvalidValue;
+    const int bx = staged_bx(*a), by = 256 / bx;
+    const dim3 grid((a->lines + by - 1) / by), block(bx, by);
+    const int nc = a->n_cross;
+#define BIS_SL_STAGED(NCB)                                                   \
+    super_level_staged_kernel<T, NCB><<<grid, block, smem, stream>>>(       \
+        *a, y, x, table, tdinv)
+    if (nc == 0) BIS_SL_STAGED(0);
+    else if (nc <= 8) BIS_SL_STAGED(8);
+    else if (nc <= 16) BIS_SL_STAGED(16);
+    else if (nc <= 24) BIS_SL_STAGED(24);
+    else BIS_SL_STAGED(27);
+#undef BIS_SL_STAGED
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
 static int launch_acc(int device, const BisSuperLevelArgs* a, const T* y,
                       const T* x, T* acc, const T* table, const T* vc,
                       cudaStream_t stream) {
@@ -514,6 +747,25 @@ int bis_super_level_f64(int device, const BisSuperLevelArgs* a,
                         const double* vs, const double* drows, void* stream) {
     return launch_level<double>(device, a, y, x, table, tdinv, vc, vs, drows,
                                 (cudaStream_t)stream);
+}
+
+// The factor-table level's staged route, float32 only (in float64 the
+// direct route is the faster: ops/block_trisolve.table_route_for): table
+// and tdinv (NULL for L) as above.  Refused (cudaErrorInvalidValue) where
+// its shared memory exceeds BIS_SL_STAGED_SMEM_MAX.
+int bis_super_level_staged_f32(int device, const BisSuperLevelArgs* a,
+                               const float* y, float* x, const float* table,
+                               const float* tdinv, void* stream) {
+    return launch_level_staged<float>(device, a, y, x, table, tdinv,
+                                      (cudaStream_t)stream);
+}
+
+// The blocks a staged launch of level a would run, or 0 where its shared
+// memory exceeds BIS_SL_STAGED_SMEM_MAX.
+int bis_super_level_staged_grid(const BisSuperLevelArgs* a) {
+    if (staged_smem(*a) > BIS_SL_STAGED_SMEM_MAX) return 0;
+    const int by = 256 / staged_bx(*a);
+    return (a->lines + by - 1) / by;
 }
 
 int bis_super_acc_f32(int device, const BisSuperLevelArgs* a, const float* y,

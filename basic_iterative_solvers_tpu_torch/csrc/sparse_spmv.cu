@@ -27,9 +27,28 @@
 // padding does, so kernel and plain agree bit for bit.
 //
 // What bounds them: bytes.  DIA reads k*n values plus x and writes y (x
-// from L2 after the first diagonal); lane-ELL reads K*n values and K*n
-// 4-byte indices plus gathered x.  Each thread's loop is a load, a
+// from L2 after the first diagonal).  Each thread's loop is a load, a
 // multiply and an add per term.
+//
+// Lane-ELL pads every row to K slots (the longest row's), and the pad
+// slots are bytes with no work in them: on sband:500000,8,400 the real
+// entries fill 48% of the K*n slots.  So lane_ell_spmv_kernel stops each
+// row at its count of real slots, row_len[i] (one plus the row's last
+// nonzero-valued slot, built once at set-up from the planes): a warp
+// fetches a slot plane's sectors only where one of its 32 rows still
+// needs that slot.  Its indices come from a 16-bit copy of the packed
+// index plane where they fit ((2S + 1)*128 <= 65535, I = unsigned short:
+// half the index bytes), else from the int32 plane (I = int); the counts
+// are bytes where K <= 255 (C = unsigned char), else int32.  A skipped
+// slot holds value 0: its product is +-0, and adding +-0 to an
+// accumulator that starts at +0 changes no bit (a round-to-nearest sum of
+// nonzero terms is never -0), so y stays bit-equal to the plain version
+// for finite x.  Only a NaN or +-Inf in x at a skipped slot's column,
+// which the plain version and the JAX kernel carry into y as 0*Inf, does
+// not reach y here.  lane_ell_spmv_padded_kernel, the first port's loop
+// over all K slots with int32 indices, keeps that behaviour; it is the
+// "padded" route (ops/lane_ell.route_for), the baseline the counted
+// routes are timed against.
 //
 // Matrix data in bfloat16 (the JAX package's --matrix-dtype bfloat16, its
 // products promoting to the vector dtype, ops/pallas_spmv.py:142-143): a
@@ -81,10 +100,57 @@ dia_spmv_kernel(const __grid_constant__ BisDiaArgs a, const M* data,
     y[i] = acc;
 }
 
+// The counted kernels walk a row's slots in chunks of BIS_LE_CHUNK, each
+// chunk unrolled with its slots past the count predicated off.  1, a plain
+// loop, is the fastest on the H100 (chunks of 4 and 8 issue a chunk's
+// loads together but ran 2.1-2.2x slower on sband, and slower on a mesh
+// shard too: scripts/kernel_variants.py); a build-time switch for that
+// script.
+#ifndef BIS_LE_CHUNK
+#define BIS_LE_CHUNK 1
+#endif
+
+// x at packed index p of a row of x2-row r: the column clipped into the
+// planes, 0 past n (the plain version's zero padding).
+template <typename T>
+__device__ __forceinline__ T lane_x(const T* __restrict__ x, long long r,
+                                    int p, int S, long long n,
+                                    long long plane) {
+    long long j = (r + (p >> 7) - S) * 128 + (p & 127);
+    j = j < 0 ? 0 : (j > plane - 1 ? plane - 1 : j);
+    return j < n ? x[j] : T(0);
+}
+
+template <typename T, typename M, typename I, typename C>
+__global__ void __launch_bounds__(256)
+lane_ell_spmv_kernel(const M* __restrict__ vals, const I* __restrict__ idx,
+                     const C* __restrict__ row_len,
+                     const T* __restrict__ x, T* __restrict__ y,
+                     long long n, long long plane, int S) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const long long r = i >> 7;
+    const int len = (int)row_len[i];
+    T acc = T(0);
+    for (int k0 = 0; k0 < len; k0 += BIS_LE_CHUNK) {
+#pragma unroll
+        for (int u = 0; u < BIS_LE_CHUNK; ++u) {
+            const int k = k0 + u;
+            if (k < len) {
+                const long long s = (long long)k * plane + i;
+                acc = add_rn(acc, mul_rn(T(widen(vals[s])),
+                                         lane_x(x, r, (int)idx[s], S, n,
+                                                plane)));
+            }
+        }
+    }
+    y[i] = acc;
+}
+
 template <typename T, typename M>
 __global__ void __launch_bounds__(256)
-lane_ell_spmv_kernel(const M* vals, const int* idx, const T* x, T* y,
-                     long long n, long long plane, int K, int S) {
+lane_ell_spmv_padded_kernel(const M* vals, const int* idx, const T* x, T* y,
+                            long long n, long long plane, int K, int S) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const long long r = i >> 7;
@@ -123,7 +189,9 @@ lane_ell_spmv_kernel(const M* vals, const int* idx, const T* x, T* y,
 // every slot's column lies inside it).  Each slot's global column is
 // clipped into [0, plane - 1] exactly as in the single-device kernel and
 // read as 0 past n, then looked up in the window: every slot reads the
-// value the single-device kernel reads.
+// value the single-device kernel reads.  Its counted form reads the
+// shard's rows of row_len and stops there as the single-device kernel
+// does; its padded form reads all K slots.
 //
 // Bound: bytes, as the single-device forms, plus the window's halo.
 // ---------------------------------------------------------------------------
@@ -143,12 +211,56 @@ dia_spmv_halo_kernel(const __grid_constant__ BisDiaArgs a, const M* data,
     y[t] = acc;
 }
 
+// x at packed index p of a shard row of global x2-row r, from the window
+// whose first entry is global row `base`.
+template <typename T>
+__device__ __forceinline__ T lane_xw(const T* __restrict__ xw, long long r,
+                                     int p, int S, long long n,
+                                     long long plane, long long base,
+                                     long long wlen) {
+    long long j = (r + (p >> 7) - S) * 128 + (p & 127);
+    j = j < 0 ? 0 : (j > plane - 1 ? plane - 1 : j);
+    const long long jw = j - base;
+    return (j < n && jw >= 0 && jw < wlen) ? xw[jw] : T(0);
+}
+
+template <typename T, typename M, typename I, typename C>
+__global__ void __launch_bounds__(256)
+lane_ell_spmv_halo_kernel(const M* __restrict__ vals,
+                          const I* __restrict__ idx,
+                          const C* __restrict__ row_len,
+                          const T* __restrict__ xw, T* __restrict__ y,
+                          long long rows, long long r0, long long halo,
+                          long long n, long long plane, int S,
+                          long long wlen) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= rows) return;
+    const long long r = r0 + (t >> 7);
+    const long long base = (r0 - halo) * 128;
+    const int len = (int)row_len[t];
+    T acc = T(0);
+    for (int k0 = 0; k0 < len; k0 += BIS_LE_CHUNK) {
+#pragma unroll
+        for (int u = 0; u < BIS_LE_CHUNK; ++u) {
+            const int k = k0 + u;
+            if (k < len) {
+                const long long s = (long long)k * rows + t;
+                acc = add_rn(acc, mul_rn(T(widen(vals[s])),
+                                         lane_xw(xw, r, (int)idx[s], S, n,
+                                                 plane, base, wlen)));
+            }
+        }
+    }
+    y[t] = acc;
+}
+
 template <typename T, typename M>
 __global__ void __launch_bounds__(256)
-lane_ell_spmv_halo_kernel(const M* vals, const int* idx, const T* xw, T* y,
-                          long long rows, long long r0, long long halo,
-                          long long n, long long plane, int K, int S,
-                          long long wlen) {
+lane_ell_spmv_halo_padded_kernel(const M* vals, const int* idx, const T* xw,
+                                 T* y, long long rows, long long r0,
+                                 long long halo, long long n,
+                                 long long plane, int K, int S,
+                                 long long wlen) {
     const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= rows) return;
     const long long r = r0 + (t >> 7);
@@ -179,13 +291,39 @@ static int launch_dia(int device, const BisDiaArgs* a, const M* data,
     return (int)cudaGetLastError();
 }
 
+// The counted kernel for the index and count widths the wrapper names
+// (idx_bytes 2 or 4, len_bytes 1 or 4); anything else is refused.
 template <typename T, typename M>
-static int launch_lane_ell(int device, const M* vals, const int* idx,
-                           const T* x, T* y, long long n, long long plane,
-                           int K, int S, cudaStream_t stream) {
+static int launch_lane_ell(int device, const M* vals, const void* idx,
+                           const void* row_len, const T* x, T* y,
+                           long long n, long long plane, int S,
+                           int idx_bytes, int len_bytes,
+                           cudaStream_t stream) {
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return (int)set;
-    lane_ell_spmv_kernel<T, M><<<blocks_for(n), 256, 0, stream>>>(
+    typedef unsigned short I2;
+    typedef unsigned char C1;
+    const unsigned grid = blocks_for(n);
+#define BIS_LE_CASE(I, C)                                                    \
+    lane_ell_spmv_kernel<T, M, I, C><<<grid, 256, 0, stream>>>(              \
+        vals, (const I*)idx, (const C*)row_len, x, y, n, plane, S)
+    if (idx_bytes == 2 && len_bytes == 1) BIS_LE_CASE(I2, C1);
+    else if (idx_bytes == 2 && len_bytes == 4) BIS_LE_CASE(I2, int);
+    else if (idx_bytes == 4 && len_bytes == 1) BIS_LE_CASE(int, C1);
+    else if (idx_bytes == 4 && len_bytes == 4) BIS_LE_CASE(int, int);
+    else return (int)cudaErrorInvalidValue;
+#undef BIS_LE_CASE
+    return (int)cudaGetLastError();
+}
+
+template <typename T, typename M>
+static int launch_lane_ell_padded(int device, const M* vals, const int* idx,
+                                  const T* x, T* y, long long n,
+                                  long long plane, int K, int S,
+                                  cudaStream_t stream) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    lane_ell_spmv_padded_kernel<T, M><<<blocks_for(n), 256, 0, stream>>>(
         vals, idx, x, y, n, plane, K, S);
     return (int)cudaGetLastError();
 }
@@ -202,14 +340,41 @@ static int launch_dia_halo(int device, const BisDiaArgs* a, const M* data,
 }
 
 template <typename T, typename M>
-static int launch_lane_ell_halo(int device, const M* vals, const int* idx,
-                                const T* xw, T* y, long long rows,
-                                long long r0, long long halo, long long n,
-                                long long plane, int K, int S, long long wlen,
+static int launch_lane_ell_halo(int device, const M* vals, const void* idx,
+                                const void* row_len, const T* xw, T* y,
+                                long long rows, long long r0, long long halo,
+                                long long n, long long plane, int S,
+                                long long wlen, int idx_bytes, int len_bytes,
                                 cudaStream_t stream) {
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return (int)set;
-    lane_ell_spmv_halo_kernel<T, M><<<blocks_for(rows), 256, 0, stream>>>(
+    typedef unsigned short I2;
+    typedef unsigned char C1;
+    const unsigned grid = blocks_for(rows);
+#define BIS_LE_CASE(I, C)                                                    \
+    lane_ell_spmv_halo_kernel<T, M, I, C><<<grid, 256, 0, stream>>>(         \
+        vals, (const I*)idx, (const C*)row_len, xw, y, rows, r0, halo, n,    \
+        plane, S, wlen)
+    if (idx_bytes == 2 && len_bytes == 1) BIS_LE_CASE(I2, C1);
+    else if (idx_bytes == 2 && len_bytes == 4) BIS_LE_CASE(I2, int);
+    else if (idx_bytes == 4 && len_bytes == 1) BIS_LE_CASE(int, C1);
+    else if (idx_bytes == 4 && len_bytes == 4) BIS_LE_CASE(int, int);
+    else return (int)cudaErrorInvalidValue;
+#undef BIS_LE_CASE
+    return (int)cudaGetLastError();
+}
+
+template <typename T, typename M>
+static int launch_lane_ell_halo_padded(int device, const M* vals,
+                                       const int* idx, const T* xw, T* y,
+                                       long long rows, long long r0,
+                                       long long halo, long long n,
+                                       long long plane, int K, int S,
+                                       long long wlen, cudaStream_t stream) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    lane_ell_spmv_halo_padded_kernel<T, M><<<blocks_for(rows), 256, 0,
+                                             stream>>>(
         vals, idx, xw, y, rows, r0, halo, n, plane, K, S, wlen);
     return (int)cudaGetLastError();
 }
@@ -227,12 +392,25 @@ BIS_DIA_ENTRY(bis_dia_spmv_f64, double, double)
 BIS_DIA_ENTRY(bis_dia_spmv_f32_bf16, float, __nv_bfloat16)
 BIS_DIA_ENTRY(bis_dia_spmv_f64_bf16, double, __nv_bfloat16)
 
-// plane = R*128, the entries of one slot plane (R padded x2 rows).
+// plane = R*128, the entries of one slot plane (R padded x2 rows); idx the
+// packed index plane of idx_bytes (2: unsigned 16-bit, 4: int32) an
+// entry, row_len the rows' counts of len_bytes (1: unsigned byte, 4:
+// int32) each.  _padded: the loop over all K slots, int32 indices.
 #define BIS_LANE_ELL_ENTRY(NAME, T, M)                                       \
-    int NAME(int device, const M* vals, const int* idx, const T* x, T* y,  \
-             long long n, long long plane, int K, int S, void* stream) {    \
-        return launch_lane_ell<T, M>(device, vals, idx, x, y, n, plane, K,  \
-                                     S, (cudaStream_t)stream);              \
+    int NAME(int device, const M* vals, const void* idx,                    \
+             const void* row_len, const T* x, T* y, long long n,            \
+             long long plane, int S, int idx_bytes, int len_bytes,          \
+             void* stream) {                                                \
+        return launch_lane_ell<T, M>(device, vals, idx, row_len, x, y, n,   \
+                                     plane, S, idx_bytes, len_bytes,        \
+                                     (cudaStream_t)stream);                 \
+    }                                                                       \
+    int NAME##_padded(int device, const M* vals, const int* idx,            \
+                      const T* x, T* y, long long n, long long plane,       \
+                      int K, int S, void* stream) {                         \
+        return launch_lane_ell_padded<T, M>(device, vals, idx, x, y, n,     \
+                                            plane, K, S,                    \
+                                            (cudaStream_t)stream);          \
     }
 BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f32, float, float)
 BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f64, double, double)
@@ -253,14 +431,26 @@ BIS_DIA_HALO_ENTRY(bis_dia_spmv_halo_f32_bf16, float, __nv_bfloat16)
 BIS_DIA_HALO_ENTRY(bis_dia_spmv_halo_f64_bf16, double, __nv_bfloat16)
 
 // rows = the shard's x2-rows * 128, r0 its first x2-row, halo = H x2-rows
-// a side, plane = R*128 of the whole (row-extended) planes.
+// a side, plane = R*128 of the whole (row-extended) planes; idx, row_len
+// the shard's, as in the single-device entries.
 #define BIS_LANE_ELL_HALO_ENTRY(NAME, T, M)                                  \
-    int NAME(int device, const M* vals, const int* idx, const T* xw, T* y, \
-             long long rows, long long r0, long long halo, long long n,     \
-             long long plane, int K, int S, long long wlen, void* stream) { \
-        return launch_lane_ell_halo<T, M>(device, vals, idx, xw, y, rows,   \
-                                          r0, halo, n, plane, K, S, wlen,   \
+    int NAME(int device, const M* vals, const void* idx,                    \
+             const void* row_len, const T* xw, T* y, long long rows,        \
+             long long r0, long long halo, long long n, long long plane,    \
+             int S, long long wlen, int idx_bytes, int len_bytes,           \
+             void* stream) {                                                \
+        return launch_lane_ell_halo<T, M>(device, vals, idx, row_len, xw,   \
+                                          y, rows, r0, halo, n, plane, S,   \
+                                          wlen, idx_bytes, len_bytes,       \
                                           (cudaStream_t)stream);            \
+    }                                                                       \
+    int NAME##_padded(int device, const M* vals, const int* idx,            \
+                      const T* xw, T* y, long long rows, long long r0,      \
+                      long long halo, long long n, long long plane, int K,  \
+                      int S, long long wlen, void* stream) {                \
+        return launch_lane_ell_halo_padded<T, M>(                           \
+            device, vals, idx, xw, y, rows, r0, halo, n, plane, K, S, wlen, \
+            (cudaStream_t)stream);                                          \
     }
 BIS_LANE_ELL_HALO_ENTRY(bis_lane_ell_spmv_halo_f32, float, float)
 BIS_LANE_ELL_HALO_ENTRY(bis_lane_ell_spmv_halo_f64, double, double)

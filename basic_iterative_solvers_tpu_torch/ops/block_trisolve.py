@@ -89,7 +89,14 @@ superblock lines inside its halo rows to both neighbours (Mesh.ppermute).
 CUDA tensor each launches its hand-written kernel (csrc/block_trisolve.cu)
 or raises; on a CPU tensor each runs its plain version
 (`super_level_plain`, `super_level_halo_plain`, `super_acc_plain`,
-`super_parity_plain`, `super_solve_mega_plain`, `rank_level_plain`).
+`super_parity_plain`, `super_solve_mega_plain`, `rank_level_plain`).  A
+factor-table level takes one of two routes of the level kernel, chosen
+by shape and type before the launch (`table_route_for`) and counted
+apart (`.table_staged_launches`, `.table_direct_launches`): "staged"
+(float32) keeps the block's lines, their factors and each x's class in
+shared memory, where they fit in 48 KB and the launch fills the card,
+and unrolls an interior row's cross legs; "direct", the first port's
+kernel, keeps acc in x.
 """
 from __future__ import annotations
 
@@ -1015,6 +1022,9 @@ def _level_args(B: SuperBlockTriSolve, li: int):
             else:
                 a.self_coeff[j] = f
             a.self_dx[j] = dx
+        if cross:
+            a.cross_rx, a.cross_ry, a.cross_rz = (
+                max(abs(leg[k]) for leg in cross) for k in (1, 2, 3))
     a.n_cross, a.n_self = len(cross), len(selfs)
     # const mode with a per-row diagonal reads dinv_rows instead
     a.dinv = B.dinv if B.is_const and B.dinv is not None else 1.0
@@ -1068,6 +1078,61 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def table_route_for(B: SuperBlockTriSolve, li: int, itemsize: int,
+                    args=None, device=None) -> str:
+    """The route of a launch of factor-table level li (launch table `args`,
+    a whole level's by default or a mesh shard's) on `device` for vectors
+    of `itemsize` bytes: "staged" for float32 where the kernel's shared
+    memory takes the level's lines and factors (at most 48 KB), its row
+    offsets fit 32 bits and its grid has a block for every SM
+    (csrc/block_trisolve.cu: bis_super_level_staged_grid; it runs 8 lines
+    a block, so a mesh shard's launch at 128³ has 64 blocks, and there
+    the direct route, 2 lines a block, ran faster); else "direct" (in
+    float64 the staged kernel needs twice the registers and shared memory
+    a row, and the direct route ran faster on the H100 at 128³).  The
+    shape, type and card alone decide."""
+    if itemsize != 4 or B.n_rows >= 2 ** 31:
+        return "direct"
+    from .._build import load_library
+    args = _level_args(B, li) if args is None else args
+    grid = load_library().bis_super_level_staged_grid(ctypes.byref(args))
+    index = torch.cuda.current_device() if device is None else device.index
+    return "staged" if grid >= _sm_count(index) else "direct"
+
+
+def _launch_level(B: SuperBlockTriSolve, li: int, args, y, x, counter,
+                  vc=None, vs=None, drows=None, operands=None):
+    """One level launch with the launch table `args` (a whole level's or
+    a shard's), counted on `counter` (super_level or super_level_halo):
+    factor-table mode on `table_route_for`'s route."""
+    if B.is_table:
+        route = table_route_for(B, li, x.element_size(), args, x.device)
+        if route == "staged":
+            _cuda_call(B, "super_level_staged", x, ctypes.byref(args),
+                       y.data_ptr(), x.data_ptr(), _ptr(B.table),
+                       _ptr(B.table_dinv), operands=())
+        else:
+            _cuda_call(B, "super_level", x, ctypes.byref(args),
+                       y.data_ptr(), x.data_ptr(), _ptr(B.table),
+                       _ptr(B.table_dinv), None, None, None, operands=())
+        counter.table_launches += 1
+        setattr(counter, f"table_{route}_launches",
+                getattr(counter, f"table_{route}_launches") + 1)
+        return
+    _cuda_call(B, "super_level", x, ctypes.byref(args), y.data_ptr(),
+               x.data_ptr(), None, None, _ptr(vc), _ptr(vs), _ptr(drows),
+               operands=operands)
+    if B.is_plane:
+        counter.plane_launches += 1
+    else:
+        counter.launches += 1
+
+
 def _planes(B: SuperBlockTriSolve, li: int):
     """(cross values, self values) of level li in plane mode, else
     (None, None)."""
@@ -1084,22 +1149,15 @@ def super_level(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
 
     A CUDA tensor goes through the hand-written kernel, which counts its
     launches in `super_level.launches` (const mode),
-    `super_level.table_launches` (factor-table mode) or
+    `super_level.table_launches` (factor-table mode; each route's in
+    `.table_staged_launches`, `.table_direct_launches`) or
     `super_level.plane_launches` (plane mode); a CPU tensor takes the plain
     version."""
     _check_level(B, li, y, x)
     if x.device.type == "cuda":
         vc, vs = _planes(B, li)
-        _cuda_call(B, "super_level", x, ctypes.byref(_level_args(B, li)),
-                   y.data_ptr(), x.data_ptr(), _ptr(B.table),
-                   _ptr(B.table_dinv), _ptr(vc), _ptr(vs),
-                   _ptr(B.dinv_rows))
-        if B.is_table:
-            super_level.table_launches += 1
-        elif B.is_plane:
-            super_level.plane_launches += 1
-        else:
-            super_level.launches += 1
+        _launch_level(B, li, _level_args(B, li), y, x, super_level, vc, vs,
+                      B.dinv_rows)
         return x
     if x.device.type == "cpu":
         return super_level_plain(B, li, y, x)
@@ -1108,6 +1166,8 @@ def super_level(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
 
 super_level.launches = 0
 super_level.table_launches = 0
+super_level.table_staged_launches = 0
+super_level.table_direct_launches = 0
 super_level.plane_launches = 0
 
 
@@ -1732,9 +1792,11 @@ def super_level_halo(Bs: SuperBlockShard, li: int, y: torch.Tensor,
     _super_level_pallas with row0): super_level_halo_plain's contract.  A
     CUDA tensor launches the level kernel (csrc/block_trisolve.cu) on the
     shard's window, its planes and diagonal, counted in
-    `super_level_halo.launches` (const mode), `.table_launches` or
-    `.plane_launches`; a shard that owns none of the level's lines
-    launches nothing.  A CPU tensor takes the plain version."""
+    `super_level_halo.launches` (const mode), `.table_launches` (each
+    route's in `.table_staged_launches`, `.table_direct_launches`, as
+    `super_level` chooses them) or `.plane_launches`; a shard that owns
+    none of the level's lines launches nothing.  A CPU tensor takes the
+    plain version."""
     _check_halo(Bs, li, y, x)
     if x.device.type == "cuda":
         l0, l1 = Bs.lines[li]
@@ -1743,16 +1805,8 @@ def super_level_halo(Bs: SuperBlockShard, li: int, y: torch.Tensor,
         B = Bs.B
         vc = Bs.vals_cross[li] if B.is_plane else None
         vs = Bs.vals_self[li] if B.is_plane else None
-        _cuda_call(B, "super_level", x, ctypes.byref(_shard_args(Bs, li)),
-                   y.data_ptr(), x.data_ptr(), _ptr(B.table),
-                   _ptr(B.table_dinv), _ptr(vc), _ptr(vs),
-                   _ptr(Bs.dinv_rows), operands=(vc, vs, Bs.dinv_rows))
-        if B.is_table:
-            super_level_halo.table_launches += 1
-        elif B.is_plane:
-            super_level_halo.plane_launches += 1
-        else:
-            super_level_halo.launches += 1
+        _launch_level(B, li, _shard_args(Bs, li), y, x, super_level_halo,
+                      vc, vs, Bs.dinv_rows, operands=(vc, vs, Bs.dinv_rows))
         return x
     if x.device.type == "cpu":
         return super_level_halo_plain(Bs, li, y, x)
@@ -1761,6 +1815,8 @@ def super_level_halo(Bs: SuperBlockShard, li: int, y: torch.Tensor,
 
 super_level_halo.launches = 0
 super_level_halo.table_launches = 0
+super_level_halo.table_staged_launches = 0
+super_level_halo.table_direct_launches = 0
 super_level_halo.plane_launches = 0
 
 

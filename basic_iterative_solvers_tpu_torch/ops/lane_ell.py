@@ -10,24 +10,44 @@ JAX package's row tile (a TPU tile, kept so the planes match; the kernel
 never reads the pad rows).  The slot planes are column-major ELL:
 neighbouring rows are neighbouring addresses in every plane.
 
+Beside the planes, set-up stores what the kernel reads instead of the pad
+slots (`DeviceLaneELL.__post_init__`): `row_len`, each row's count of
+real slots (one plus its last nonzero-valued slot; uint8 where K ≤ 255,
+else int32), and `idx16`, the packed index plane in 16 bits (the bits of
+an unsigned 16-bit index, stored as int16) where (2S + 1)·128 ≤ 65,535,
+else None.  Both derive from the planes alone, so planes converted from
+the JAX package's (convert.lane_ell_from_numpy) and shard windows carry
+them too.
+
 `lane_ell_spmv` is the entry point: on a CUDA tensor it launches the
 hand-written kernel (csrc/sparse_spmv.cu, the port of the JAX package's
 Pallas `_lane_ell_kernel_call`) or raises, counting launches in
 `lane_ell_spmv.launches`; on a CPU tensor it runs `lane_ell_spmv_plain`,
 the JAX package's XLA form (slot by slot, ascending), which the kernel
-follows bit for bit.  The values may be stored in bfloat16 beside float32
-or float64 vectors (matrix_dtype), widened before each product; that
-form's launches are counted in `lane_ell_spmv.bf16_launches`.
+follows bit for bit for finite x.  The kernel stops each row at its count,
+on one of three routes (`route_for`, chosen by shape before the launch
+and counted apart in `.idx16_launches`, `.idx32_launches` and
+`.padded_launches`): "idx16" reads the 16-bit indices, "idx32" (spans
+too wide for 16 bits) the int32 ones, and "padded", the first port's loop
+over all K slots, is the baseline `chip_smoke.py` times them against.
+Skipping a pad slot adds nothing a finite x could change; a NaN or ±Inf
+of x at a skipped slot's column, which the plain version carries into y
+(0·Inf), does not reach y on the counted routes (a departure by design).
+The values may be stored in bfloat16 beside float32 or float64 vectors
+(matrix_dtype), widened before each product; that form's launches are
+counted in `lane_ell_spmv.bf16_launches`.
 
 `lane_ell_spmv_halo` is one mesh shard's SpMV (the JAX package's
 lane_ell_spmv_halo, parallel/mesh_ops.mesh_lane_ell_spmv): the shard's own
 planes and an x window of S x2-rows a side, with its plain version
-`lane_ell_spmv_halo_plain`; `lane_ell_extend_rows` pads the planes with
-inert rows so that they cut into whole shards.
+`lane_ell_spmv_halo_plain`; it reads the shard's rows of `row_len` and
+takes the routes of `lane_ell_spmv`.  `lane_ell_extend_rows` pads the
+planes with inert rows (count 0) so that they cut into whole shards.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,11 +60,36 @@ from ..stencil_op import resolve_device
 LANES = 128
 #: the JAX package's default row tile, which sets the plane padding
 _TB = 256
+#: the largest packed index the 16-bit plane holds (unsigned 16 bits)
+IDX16_MAX = 65535
+#: kernel routes (`route_for`)
+ROUTES = ("idx16", "idx32", "padded")
+
+
+def lane_ell_row_len(vals: torch.Tensor) -> torch.Tensor:
+    """(R, 128) count of each row's real slots: one plus its last slot
+    whose value is nonzero (0 for a row of pads), uint8 where K ≤ 255,
+    else int32."""
+    K = vals.shape[0]
+    n = torch.zeros(vals.shape[1:], dtype=torch.int32, device=vals.device)
+    for k in range(K):
+        n = torch.where(vals[k] != 0, k + 1, n)
+    return n.to(torch.uint8) if K <= 255 else n
+
+
+def lane_ell_idx16(idx: torch.Tensor, S: int) -> Optional[torch.Tensor]:
+    """The packed index plane in 16 bits (int16 holding an unsigned
+    16-bit index's bits) where every packed index (< (2S + 1)·128) fits,
+    else None."""
+    if (2 * S + 1) * LANES > IDX16_MAX:
+        return None
+    return torch.where(idx > 32767, idx - 65536, idx).to(torch.int16)
 
 
 @dataclasses.dataclass
 class DeviceLaneELL:
-    """Lane-ELL storage (see the module docstring)."""
+    """Lane-ELL storage (see the module docstring); `row_len` and
+    `idx16` are derived from the planes at construction."""
 
     vals: torch.Tensor            # (K, R, 128)
     idx: torch.Tensor             # (K, R, 128) int32, packed (rowoff, lane)
@@ -53,6 +98,12 @@ class DeviceLaneELL:
     K: int
     S: int
     R: int
+    row_len: torch.Tensor = dataclasses.field(init=False, repr=False)
+    idx16: Optional[torch.Tensor] = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.row_len = lane_ell_row_len(self.vals)
+        self.idx16 = lane_ell_idx16(self.idx, self.S)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -161,7 +212,45 @@ def lane_ell_spmv_plain(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(-1)[:M.n_rows]
 
 
-def _lane_ell_spmv_cuda(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
+def route_for(M: DeviceLaneELL) -> str:
+    """The kernel route for M: "idx16" where its packed indices fit 16
+    bits (M.idx16 built), else "idx32"; both stop each row at its count.
+    The planes' shape alone decides."""
+    return "idx16" if M.idx16 is not None else "idx32"
+
+
+def _count(fn, route: str, bf16: bool):
+    if bf16:
+        fn.bf16_launches += 1
+    else:
+        fn.launches += 1
+    setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
+
+
+def _route_args(route: str, idx: torch.Tensor, idx16, row_len):
+    """(index plane, its bytes an entry, counts' bytes) of a counted
+    route."""
+    if route == "idx16":
+        if idx16 is None:
+            raise ValueError("the idx16 route needs the 16-bit index plane")
+        idx = idx16
+    elif route != "idx32":
+        raise ValueError(f"unknown lane-ELL route {route!r}")
+    for t in (idx, row_len):
+        if not t.is_contiguous():
+            raise ValueError("the index plane and the counts must be "
+                             "contiguous")
+    return idx, idx.element_size(), row_len.element_size()
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+def _lane_ell_spmv_cuda(M: DeviceLaneELL, x: torch.Tensor,
+                        route: str) -> torch.Tensor:
     from .._build import load_library
     suffix = kernel_suffix(x.dtype, M.dtype)
     if not (M.vals.is_contiguous() and M.idx.is_contiguous()
@@ -170,27 +259,32 @@ def _lane_ell_spmv_cuda(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
                          "indices int32")
     y = torch.empty_like(x)
     lib = load_library()
-    err = getattr(lib, f"bis_lane_ell_spmv_{suffix}")(x.device.index, M.vals.data_ptr(), M.idx.data_ptr(),
-             x.data_ptr(), y.data_ptr(), M.n_rows, M.R * LANES, M.K, M.S,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lane_ell_spmv kernel launch failed with CUDA "
-                           f"error {err}")
-    if M.dtype == torch.bfloat16:
-        lane_ell_spmv.bf16_launches += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "padded":
+        err = getattr(lib, f"bis_lane_ell_spmv_{suffix}_padded")(
+            x.device.index, M.vals.data_ptr(), M.idx.data_ptr(),
+            x.data_ptr(), y.data_ptr(), M.n_rows, M.R * LANES, M.K, M.S,
+            stream)
     else:
-        lane_ell_spmv.launches += 1
+        idx, ib, lb = _route_args(route, M.idx, M.idx16, M.row_len)
+        err = getattr(lib, f"bis_lane_ell_spmv_{suffix}")(
+            x.device.index, M.vals.data_ptr(), idx.data_ptr(),
+            M.row_len.data_ptr(), x.data_ptr(), y.data_ptr(), M.n_rows,
+            M.R * LANES, M.S, ib, lb, stream)
+    _raise_on(err, "lane_ell_spmv")
+    _count(lane_ell_spmv, route, M.dtype == torch.bfloat16)
     return y
 
 
 def lane_ell_spmv(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
-    """y = M @ x.  A CUDA tensor goes through the hand-written kernel
-    (`lane_ell_spmv.launches` counts its launches, and
-    `lane_ell_spmv.bf16_launches` those of its bfloat16-data form); a CPU
-    tensor takes the plain version."""
+    """y = M @ x.  A CUDA tensor goes through the hand-written kernel on
+    `route_for(M)` (`lane_ell_spmv.launches` counts its launches,
+    `lane_ell_spmv.bf16_launches` those of its bfloat16-data form, and
+    `.idx16_launches`, `.idx32_launches`, `.padded_launches` each
+    route's); a CPU tensor takes the plain version."""
     _check(M, x)
     if x.device.type == "cuda":
-        return _lane_ell_spmv_cuda(M, x)
+        return _lane_ell_spmv_cuda(M, x, route_for(M))
     if x.device.type == "cpu":
         return lane_ell_spmv_plain(M, x)
     raise ValueError(f"no lane-ELL SpMV for device {x.device}")
@@ -198,6 +292,9 @@ def lane_ell_spmv(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
 
 lane_ell_spmv.launches = 0
 lane_ell_spmv.bf16_launches = 0
+lane_ell_spmv.idx16_launches = 0
+lane_ell_spmv.idx32_launches = 0
+lane_ell_spmv.padded_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +303,8 @@ lane_ell_spmv.bf16_launches = 0
 
 def lane_ell_extend_rows(M: DeviceLaneELL, R_new: int) -> DeviceLaneELL:
     """M with its planes padded to R_new x2-rows of inert rows (value 0,
-    each slot's index in range: rowoff 0, lane 0), so that they cut into a
-    mesh's shards; y is 0 on those rows."""
+    each slot's index in range: rowoff 0, lane 0; count 0), so that they
+    cut into a mesh's shards; y is 0 on those rows."""
     if R_new == M.R:
         return M
     if R_new < M.R or R_new % lane_ell_row_tile(M.n_rows, M.S):
@@ -271,15 +368,24 @@ def lane_ell_spmv_halo_plain(M: DeviceLaneELL, vals: torch.Tensor,
 
 def lane_ell_spmv_halo(M: DeviceLaneELL, vals: torch.Tensor,
                        idx: torch.Tensor, xw: torch.Tensor, r0: int,
-                       halo: int, out: torch.Tensor = None) -> torch.Tensor:
+                       halo: int, out: torch.Tensor = None,
+                       idx16: torch.Tensor = None) -> torch.Tensor:
     """One mesh shard's lane-ELL SpMV: `lane_ell_spmv_halo_plain`'s
     contract (M the whole, row-extended operator; vals/idx the shard's
-    (K, rows, 128) planes starting at x2-row r0), y written to `out` when
-    given.  A CUDA tensor launches the shard-local kernel
-    (csrc/sparse_spmv.cu), counted in `lane_ell_spmv_halo.launches`
-    (`.bf16_launches` for bfloat16 values): every slot reads the value the
-    single-device kernel reads, so y is bit-equal to its rows; a CPU
-    tensor takes the plain version."""
+    (K, rows, 128) planes starting at x2-row r0, idx16 the shard's 16-bit
+    index plane where M has one), y written to `out` when given.  A CUDA
+    tensor launches the shard-local kernel (csrc/sparse_spmv.cu) on
+    `route_for(M)`, reading the shard's rows of M.row_len, counted in
+    `lane_ell_spmv_halo.launches` (`.bf16_launches` for bfloat16 values;
+    each route's in `.idx16_launches`, `.idx32_launches`,
+    `.padded_launches`): every slot reads the value the single-device
+    kernel reads, so y is bit-equal to its rows; a CPU tensor takes the
+    plain version."""
+    return _lane_ell_spmv_halo(M, vals, idx, xw, r0, halo, out, idx16,
+                               route_for(M))
+
+
+def _lane_ell_spmv_halo(M, vals, idx, xw, r0, halo, out, idx16, route):
     n = _check_halo(M, vals, idx, xw, r0, halo, out)
     if xw.device.type == "cpu":
         y = lane_ell_spmv_halo_plain(M, vals, idx, xw, r0, halo)
@@ -287,22 +393,35 @@ def lane_ell_spmv_halo(M: DeviceLaneELL, vals: torch.Tensor,
     if xw.device.type != "cuda":
         raise ValueError(f"no lane-ELL SpMV for device {xw.device}")
     from .._build import load_library
+    rows = vals.shape[1]
     y = torch.empty(n, dtype=xw.dtype, device=xw.device) \
         if out is None else out
-    err = getattr(load_library(), "bis_lane_ell_spmv_halo_" + kernel_suffix(
-        xw.dtype, vals.dtype))(
+    name = "bis_lane_ell_spmv_halo_" + kernel_suffix(xw.dtype, vals.dtype)
+    stream = torch.cuda.current_stream(xw.device).cuda_stream
+    if route == "padded":
+        err = getattr(load_library(), name + "_padded")(
             xw.device.index, vals.data_ptr(), idx.data_ptr(), xw.data_ptr(),
             y.data_ptr(), n, r0, halo, M.n_rows, M.R * LANES, M.K, M.S,
-            xw.numel(), torch.cuda.current_stream(xw.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lane_ell_spmv_halo kernel launch failed with "
-                           f"CUDA error {err}")
-    if vals.dtype == torch.bfloat16:
-        lane_ell_spmv_halo.bf16_launches += 1
+            xw.numel(), stream)
     else:
-        lane_ell_spmv_halo.launches += 1
+        lens = M.row_len[r0:r0 + rows]
+        if lens.device != xw.device or (
+                idx16 is not None and (idx16.shape != idx.shape
+                                       or idx16.device != xw.device)):
+            raise ValueError("the counts and the 16-bit plane must be the "
+                             "shard's, on the window's device")
+        plane, ib, lb = _route_args(route, idx, idx16, lens)
+        err = getattr(load_library(), name)(
+            xw.device.index, vals.data_ptr(), plane.data_ptr(),
+            lens.data_ptr(), xw.data_ptr(), y.data_ptr(), n, r0, halo,
+            M.n_rows, M.R * LANES, M.S, xw.numel(), ib, lb, stream)
+    _raise_on(err, "lane_ell_spmv_halo")
+    _count(lane_ell_spmv_halo, route, vals.dtype == torch.bfloat16)
     return y
 
 
 lane_ell_spmv_halo.launches = 0
 lane_ell_spmv_halo.bf16_launches = 0
+lane_ell_spmv_halo.idx16_launches = 0
+lane_ell_spmv_halo.idx32_launches = 0
+lane_ell_spmv_halo.padded_launches = 0

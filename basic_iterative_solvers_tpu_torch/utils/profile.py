@@ -44,8 +44,10 @@ PHASE_BUCKETS = (
               "stencil_gs_color_step_kernel", "dia_spmv_kernel",
               "lane_ell_spmv_kernel", "stencil_spmv_halo_kernel",
               "stencil_gs_color_step_halo_kernel", "dia_spmv_halo_kernel",
-              "lane_ell_spmv_halo_kernel")),
-    ("sptrsv", ("super_level_kernel", "super_acc_kernel",
+              "lane_ell_spmv_halo_kernel", "lane_ell_spmv_padded_kernel",
+              "lane_ell_spmv_halo_padded_kernel")),
+    ("sptrsv", ("super_level_kernel", "super_level_staged_kernel",
+                "super_acc_kernel",
                 "super_parity_kernel", "super_solve_mega_kernel",
                 "rank_level_kernel")),
     ("orthog", ("project_gram_kernel", "correct_write_kernel")),
@@ -66,28 +68,55 @@ def bucket_of(kernel_name: str) -> str:
     return "other"
 
 
+def _events(path: str):
+    with open(path) as f:
+        return [e for e in json.load(f).get("traceEvents", [])
+                if e.get("ph") == "X"]
+
+
 def load_device_events(path: str):
     """The device activities (kernels, copies, fills) of a torch.profiler
     chrome trace, sorted by start: dicts with name, ts and dur in µs."""
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    ops = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in _DEVICE_CATS]
+    ops = [e for e in _events(path) if e.get("cat") in _DEVICE_CATS]
     ops.sort(key=lambda e: e["ts"])
     return ops
 
 
-def iteration_times_from_trace(path: str, n_iters: int):
+def lost_launches(path: str) -> int:
+    """The kernel launches of a trace (the host's cudaLaunch* calls) whose
+    device record is missing: 0 for a complete trace."""
+    events = _events(path)
+    device = {e.get("args", {}).get("correlation") for e in events
+              if e.get("cat") in _DEVICE_CATS}
+    return sum(1 for e in events if e.get("cat") == "cuda_runtime"
+               and "Launch" in e.get("name", "")
+               and e.get("args", {}).get("correlation") not in device)
+
+
+def trace_miss_report(ops, n_iters: int, lost: int = 0) -> str:
+    """Why a trace gave no iteration times: its count of device events,
+    n_iters, the three kernel names whose counts are nearest n_iters, with
+    their counts, and the launches whose device record it lost."""
+    counts = collections.Counter(e["name"] for e in ops)
+    near = sorted(counts.items(), key=lambda kv: (abs(kv[1] - n_iters),
+                                                  kv[0]))[:3]
+    return (f"{len(ops)} device events, n_iters={n_iters}, nearest counts: "
+            + "; ".join(f"{c} x {name[:80]}" for name, c in near)
+            + f"; {lost} launches without a device record")
+
+
+def iteration_times_from_trace(path: str, n_iters: int, why=None):
     """Per-iteration device walls (seconds) of a trace holding exactly
     `n_iters` iterations, or None when no kernel name occurs exactly
-    n_iters times.  Iteration k runs from the k-th start of the marker to
-    the next; the last one to the end of the last device activity."""
+    n_iters times (then, with a list `why`, trace_miss_report's text is
+    appended to it).  Iteration k runs from the k-th start of the marker
+    to the next; the last one to the end of the last device activity."""
     ops = load_device_events(path)
-    if not ops:
-        return None
     counts = collections.Counter(e["name"] for e in ops)
     cands = {n for n, c in counts.items() if c == n_iters}
     if not cands or n_iters < 1:
+        if why is not None:
+            why.append(trace_miss_report(ops, n_iters, lost_launches(path)))
         return None
     marker = next(e["name"] for e in ops if e["name"] in cands)
     starts = np.array([e["ts"] for e in ops if e["name"] == marker])
@@ -130,25 +159,37 @@ def _exact_rerun(method, n_iters: int, restarts: int):
     return make_method(rerun)
 
 
+#: traces of a fused loop taken until one holds every launch's device
+#: record (trace_fused)
+TRACE_ATTEMPTS = 3
+
+
 def trace_fused(method, n_iters: int, restarts: int = 0) -> Optional[str]:
     """Run the method's fused loop again, exactly n_iters iterations, under
     torch.profiler, and write its chrome trace to a temporary file; returns
     its path, or None off the card or where the method has no fused
-    loop."""
+    loop.  The profiler may lose the device records of a trace's first
+    kernels (on an H100, 3 of 42 traces of hpcg:64x64x64 CG lacked those
+    of their first 7 to 195 launches): a trace with any launch lacking
+    its record (lost_launches) is taken again, up to TRACE_ATTEMPTS
+    times, and the last one is returned as it is."""
     setup = getattr(method, "setup", None)
     if (setup is None or not getattr(method, "supports_fused", False)
             or setup.b.device.type != "cuda" or n_iters < 1):
         return None
     from torch.profiler import ProfilerActivity, profile
     m = _exact_rerun(method, n_iters, restarts)
-    torch.cuda.synchronize(setup.b.device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        m.solve_fused()
-        torch.cuda.synchronize(setup.b.device)
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
-    prof.export_chrome_trace(path)
+    for _ in range(TRACE_ATTEMPTS):
+        torch.cuda.synchronize(setup.b.device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            m.solve_fused()
+            torch.cuda.synchronize(setup.b.device)
+        prof.export_chrome_trace(path)
+        if not lost_launches(path):
+            break
     return path
 
 
@@ -162,24 +203,30 @@ def _with_trace(method, n_iters, restarts, parse):
         os.unlink(path)
 
 
-def measure_iteration_times(method, n_iters: int, restarts: int = 0):
+def measure_iteration_times(method, n_iters: int, restarts: int = 0,
+                            why=None):
     """Per-iteration device walls (seconds) of the method's fused loop,
     re-run under the profiler; None off the card or when the trace shows
-    no kernel once an iteration."""
+    no kernel once an iteration (`why` as in iteration_times_from_trace)."""
     return _with_trace(method, n_iters, restarts,
-                       lambda p: iteration_times_from_trace(p, n_iters))
+                       lambda p: iteration_times_from_trace(p, n_iters, why))
 
 
-def attach_iteration_times(result, method) -> bool:
+def attach_iteration_times(result, method, why=None) -> bool:
     """Fill result.time_per_iteration with measured device walls (the
     reference's time_per_iteration[], solver.hpp:166-171); True on
     success.  Only for res_check_len == 1 (one history row an iteration):
-    a restart's history row keeps 0, as in the JAX package."""
+    a restart's history row keeps 0, as in the JAX package.  On a miss, a
+    list `why` gets the reason appended."""
     if result.res_check_len != 1:
+        if why is not None:
+            why.append(f"res_check_len={result.res_check_len}, not 1")
         return False
     times = measure_iteration_times(method, result.iter_count,
-                                    result.gmres_restart_count)
+                                    result.gmres_restart_count, why)
     if times is None or times.size == 0:
+        if why is not None and not why:
+            why.append("no device trace on this device")
         return False
     tpi = np.zeros_like(np.asarray(result.time_per_iteration,
                                    dtype=np.float64))

@@ -6,7 +6,9 @@ NVIDIA card and check it.
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
   1. device: the card's name and power limit;
-  2. build: compile the CUDA kernels from this checkout;
+  2. build: compile the CUDA kernels from this checkout; [ptxas] prints
+     the registers and spills of the basis kernels, the counted lane-ELL
+     kernels and the staged factor-table level;
   3. the stencil SpMV kernel against its plain PyTorch version on the card,
      at the main path's shapes, both timed;
   4. the GMRES basis kernels (project_gram, correct_write) at the 128^3
@@ -41,8 +43,10 @@ exits non-zero:
      fdm:2048 through the GS colour-step kernel;
  14. the superblock level kernel in factor-table mode (exact ILU(0))
      against its plain version on every level of the L and U solves of
-     HPCG 128^3 and on a whole ILU(0) apply, both dtypes, bit for bit; at
-     384^3 one L and one U level and a whole apply; and one whole L solve
+     HPCG 128^3 (both dtypes) and 384^3 (f32) and on a whole ILU(0) apply,
+     bit for bit, on the staged route (the shape's) and the direct route
+     (the first port's kernel), bit-equal to each other, each level and
+     apply timed on both in turns beside its bound; and one whole L solve
      through torch.triangular_solve on the sparse lower triangle, the
      library's nearest call;
  15. the split route's kernels (super_acc, super_parity) against their
@@ -50,15 +54,20 @@ exits non-zero:
      route on whole 384^3 applies, in turns (fused, split, split, fused);
  16. the same CG + ILU(0) solve on the CPU and on the card (HPCG 32^3);
  17. the fourth slice's path: the bench's pcg_ilu0 rows, HPCG 128^3 (1200
-     iterations) and 384^3 (100), fused and, at 384^3, split
-     (BIS_SB_ALIGNED=0), counting every kernel's launches, with set-up
-     seconds and peak memory; then a float64 CG + ILU(0) solve to
-     convergence;
+     iterations) and 384^3 (100), fused (every level on the staged route)
+     and, at 384^3, split (BIS_SB_ALIGNED=0), counting every kernel's
+     launches, with set-up seconds and peak memory; the fused 384^3 row
+     again on the staged and the direct route in turns; then a float64
+     CG + ILU(0) solve to convergence;
  18. the DIA SpMV kernel against its plain version on the DIA operators of
      HPCG 128^3 (f32, f64) and 384^3 (f32) built on the card, with the
      library's CSR SpMV of the same matrix;
  19. the lane-ELL SpMV kernel against its plain version on
-     sband:500000,8,400 (f32, f64), with the library's CSR SpMV;
+     sband:500000,8,400 (f32, f64), on each route (idx16: each row stopped
+     at its count, 16-bit indices; idx32; padded, the first port's loop
+     over all K slots), the routes timed in turns with the padded bound
+     beside the bound of the slots the counted routes read, and the
+     library's CSR SpMV;
  20. the rank-space level kernel against its plain version on every level
      with groups of the SGS pair of band:8388608,2 (f32, f64), whole
      applies against the CPU's, and torch.triangular_solve's whole L
@@ -106,7 +115,8 @@ exits non-zero:
      and #3 with Anderson 128^3's diagonal in bf16, each against its plain
      version and against the same kernel on the data widened to float32
      (bit for bit), timed beside the plain version, the float32-data
-     kernel and the library's CSR SpMV (run after phase 22);
+     kernel and the library's CSR SpMV (run after phase 22); #5's idx16
+     and padded routes timed in turns;
  32. the command line on the CPU and on the card, float64 vectors over
      bf16 data ([cpu-vs-card-slice7]), then on the card ([slice7]) through
      cli.run in process: DIA CG at 128^3 (2500 iterations), 384^3 (150)
@@ -125,7 +135,9 @@ exits non-zero:
      type each takes (#1 at 128^3 with every dot kind, #3 on every colour
      of fdm:2048, #4 at 128^3, #5 on sband:500000,8,400; the bf16 forms);
      the 8 launches of one mesh call timed beside the single-device
-     kernel, the whole mesh call and the library's CSR SpMV;
+     kernel, the whole mesh call and the library's CSR SpMV; #5 on each
+     route (idx16 and padded timed in turns) beside 8 CSR SpMVs over the
+     shards' rows;
  35. slice 8's rows ([slice8]): CG on the 128^3 stencil (2500), DIA CG at
      128^3 (2500), cg@sband (400), SGS on fdm:2048 (200), single-device
      and 8-shard mesh in turns, with ms/iter, launches and the mesh's
@@ -137,7 +149,8 @@ exits non-zero:
      in const (128^3 GS pair), factor-table (128^3 ILU(0) pair) and plane
      mode (the fdm:2048 pair of phase 23), f32 and f64, each shard
      bit-equal to its plain twin and the shards together to the
-     single-device level; the 8 launches timed beside the single-device
+     single-device level (factor-table mode: the staged (f32) and direct
+     routes' shards to the shards' own, both timed in turns); the 8 launches timed beside the single-device
      level, the plain twins, the whole mesh level with its exchange and
      whole L solves;
  37. slice 8b's rows ([slice8b]): pcg, pcg_ilu0, pbicgstab@anderson128 and
@@ -155,6 +168,7 @@ and the bound (the larger of the bytes it must move over the card's
 memory rate and its operations over the float32 rate); the last is
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -249,35 +263,69 @@ def phase_device(torch):
     return name
 
 
+#: kernels whose ptxas lines [ptxas] prints beside the basis kernels'
+PTXAS_KERNELS = ("lane_ell_spmv_kernel", "lane_ell_spmv_halo_kernel",
+                 "super_level_staged_kernel")
+#: Itanium codes of the template arguments those kernels take
+_MANGLED = {"f": "float", "d": "double", "t": "u16", "h": "u8", "i": "int",
+            "13__nv_bfloat16": "bf16"}
+
+
+def _template_args(code):
+    """'ff13__nv_bfloat16th' -> 'float, float, bf16, u16, u8'; 'fLi24E'
+    -> 'float, 24'."""
+    out = []
+    while code:
+        m = re.match(r"\d+__nv_bfloat16|[fdthi]|Li(\d+)E", code)
+        if not m:
+            out.append(code)
+            break
+        out.append(m.group(1) or _MANGLED[m.group(0)])
+        code = code[m.end():]
+    return ", ".join(out)
+
+
 def phase_build(torch):
     """Build and load the kernels; beside the build, compile the basis
-    kernels' source once more with -Xptxas -v and print each kernel's
-    registers, spills and shared memory, then the ring kernels' resident
+    kernels', the lane-ELL SpMV's and the level kernels' sources once more
+    with -Xptxas -v (all started together) and print the registers, spills
+    and shared memory of the basis kernels, the counted lane-ELL kernels
+    and the staged factor-table level, then the ring kernels' resident
     blocks an SM (the occupancy their launches are sized to)."""
     import tempfile
     from basic_iterative_solvers_tpu_torch import _build
     from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
     t0 = time.perf_counter()
-    src = _build._PKG / "csrc" / "gmres_basis.cu"
+    names = ("gmres_basis", "sparse_spmv", "block_trisolve")
     with tempfile.TemporaryDirectory() as tmp:
-        ptxas = subprocess.Popen(
+        procs = [subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-             os.path.join(tmp, "gmres_basis.o"), str(src)],
+             os.path.join(tmp, f"{name}.o"),
+             str(_build._PKG / "csrc" / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name in names]
         _build.load_library()
-        out = ptxas.communicate(timeout=600)[0]
+        outs = [(p.communicate(timeout=600)[0], p.returncode) for p in procs]
     print(f"[build] {', '.join(f.name for f in _build.SOURCES)} built "
           f"and loaded in {time.perf_counter() - t0:.2f} s")
-    if ptxas.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}")
-    kernel = None
-    for line in out.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?kernel_\w+?)I(\w+?)E", line)
-        if m:
-            dt = m.group(2).lstrip("0123456789")
-            kernel = f"{m.group(1)}<{'float' if dt == 'f' else dt}>"
-        elif kernel and re.search(r"spill|registers", line):
-            print(f"[ptxas] {kernel}: {line.strip()}")
+    for name, (out, rc) in zip(names, outs):
+        if rc != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v of {name}.cu failed:\n{out}")
+        kernel = None
+        for line in out.splitlines():
+            m = re.search(r"entry function '_Z\d+(\w+?kernel_\w+?)I(\w+?)E",
+                          line)
+            m2 = re.search(r"entry function '_Z\d+(%s)I(\w+?)Ev" % "|".join(
+                PTXAS_KERNELS), line)
+            if m2:
+                kernel = f"{m2.group(1)}<{_template_args(m2.group(2))}>"
+            elif m and name == "gmres_basis":
+                dt = m.group(2).lstrip("0123456789")
+                kernel = f"{m.group(1)}<{'float' if dt == 'f' else dt}>"
+            elif "entry function" in line:
+                kernel = None
+            elif kernel and re.search(r"spill|registers", line):
+                print(f"[ptxas] {kernel}: {line.strip()}")
     for (name, dt) in gb._RING_KERNELS:
         slots = gb._slots(0, name, dt)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1047,6 +1095,10 @@ def _counters(so, gb, bk, reset=False):
                "correct_write_ring": (gb.correct_write, "ring_launches"),
                "super_level": (bk.super_level, "launches"),
                "super_level_table": (bk.super_level, "table_launches"),
+               "super_level_table_staged": (bk.super_level,
+                                            "table_staged_launches"),
+               "super_level_table_direct": (bk.super_level,
+                                            "table_direct_launches"),
                "super_level_plane": (bk.super_level, "plane_launches"),
                "super_acc": (bk.super_acc, "launches"),
                "super_parity": (bk.super_parity, "launches"),
@@ -1168,11 +1220,33 @@ def _split_pair(L, U):
             dataclasses.replace(U, fused=False, _args={}))
 
 
+@contextlib.contextmanager
+def _table_route(bk, route):
+    """Every factor-table level launched inside the block takes `route`
+    (block_trisolve.table_route_for replaced for it)."""
+    saved = bk.table_route_for
+    bk.table_route_for = lambda *args, **kwargs: route
+    try:
+        yield
+    finally:
+        bk.table_route_for = saved
+
+
+def _direct(bk, fn, *args):
+    """fn(*args) with every factor-table level on the direct route."""
+    with _table_route(bk, "direct"):
+        return fn(*args)
+
+
 def _check_levels(torch, bk, label, B, y, x, levels, timed=True,
-                  tag="ilu0-level"):
+                  tag="ilu0-level", by_level=None):
     """super_level against super_level_plain on the given levels of B, bit
-    for bit, each launch counted in its mode's counter; returns ([kernel
-    ms], [plain ms], worst abs error)."""
+    for bit, each launch counted in its mode's counter; a factor-table
+    level also on the direct route, bit-equal to the staged one, both
+    timed by device time in turns (direct, staged, staged, direct) beside
+    the level's bound.  Returns ([kernel ms], [plain ms], worst abs error);
+    with a list `by_level`, appends each factor-table level's (staged ms,
+    direct ms, bound ms)."""
     attr = ("table_launches" if B.is_table else
             "plane_launches" if B.is_plane else "launches")
     ms, plain_ms, worst = [], [], 0.0
@@ -1189,13 +1263,38 @@ def _check_levels(torch, bk, label, B, y, x, levels, timed=True,
         line = (f"[{tag}] {label} {'U' if B.upper else 'L'} level {li} "
                 f"({_mode(B)}, superblock {B.levels[li][0]}, "
                 f"{len(B.levels[li][1])} cross legs) bit_equal={equal}")
+        if B.is_table:
+            route = bk.table_route_for(B, li, x.element_size())
+            xd = x.clone()
+            _direct(bk, bk.super_level, B, li, y, xd)
+            torch.cuda.synchronize()
+            equal = equal and torch.equal(xd, xk)
+            line += (f" route={route} direct_route_bit_equal="
+                     f"{torch.equal(xd, xk)}")
         if timed:
-            ms.append(_median_ms(lambda: bk.super_level(B, li, y, xk),
-                                 torch))
+            if B.is_table:
+                turns = _in_turns(torch, {
+                    "staged": lambda: bk.super_level(B, li, y, xk),
+                    "direct": lambda: _direct(bk, bk.super_level, B, li, y,
+                                              xd)},
+                    ("direct", "staged", "staged", "direct"))
+                bound = _bound(*_level_work(B, li, x.element_size()))
+                ms.append(min(turns[route]))
+                if by_level is not None:
+                    by_level.append((min(turns["staged"]),
+                                     min(turns["direct"]),
+                                     bound["bound_ms"]))
+                line += (f" device_ms in turns staged={turns['staged']} "
+                         f"direct={turns['direct']} bound_ms="
+                         f"{bound['bound_ms']:.4f} ({bound['bound_by']})")
+            else:
+                ms.append(_median_ms(lambda: bk.super_level(B, li, y, xk),
+                                     torch))
+                line += f" kernel_ms={ms[-1]:.4f}"
             plain_ms.append(_median_ms(
                 lambda: bk.super_level_plain(B, li, y, xp), torch, reps=3,
                 batch=3))
-            line += f" kernel_ms={ms[-1]:.4f} plain_ms={plain_ms[-1]:.4f}"
+            line += f" plain_ms={plain_ms[-1]:.4f}"
         print(line)
         if not equal:
             raise RuntimeError(f"level disagrees with plain: {line}")
@@ -1276,12 +1375,15 @@ def _const_lower_csr(torch, A, L):
 
 def phase_ilu0_level_vs_plain(torch, bt):
     """The factor-table level kernel against its plain version, bit for
-    bit: every level of the L and U solves of HPCG 128^3 and a whole
-    blocked_ilu0, f32 and f64, every level timed; at 384^3 f32 the last L
-    and the last U level (the most cross legs) and a whole apply, timed.
-    Then one whole L solve of 128^3 through torch.triangular_solve (the
-    library's sparse triangular solve) against blocked_trisolve.  Returns
-    the 128^3 f32 record (ms: the mean level) and the two L solves' ms."""
+    bit: every level of the L and U solves of HPCG 128^3 (f32, f64) and
+    384^3 (f32) and a whole blocked_ilu0; each level on both routes
+    (staged, the shape's; direct, the first port's kernel), bit-equal to
+    each other, timed by device time in turns beside its bound
+    (_level_work), and the whole apply on both routes in turns.  Then one
+    whole L solve of 128^3 through torch.triangular_solve (the library's
+    sparse triangular solve) against blocked_trisolve.  Returns the 128^3
+    f32 record (ms: the mean level; the 384^3 means beside it) and the two
+    L solves' ms."""
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
     record = whole_l = None
     for spec, dt in ((MAIN_SPEC, torch.float32), (MAIN_SPEC, torch.float64),
@@ -1294,29 +1396,42 @@ def phase_ilu0_level_vs_plain(torch, bt):
         print(f"[ilu0-level] {label}: pair built in {setup_s:.3f} s "
               f"(prototype {L.proto}, radius {L.radius}, table "
               f"{tuple(L.table.shape)})")
-        ms, plain_ms, worst = [], [], 0.0
+        ms, plain_ms, worst, by_level = [], [], 0.0, []
         for B in (L, U):
-            levels = (range(len(B.levels)) if spec == MAIN_SPEC
-                      else (len(B.levels) - 1,))
-            k, p, e = _check_levels(torch, bk, label, B, y, x, levels)
+            k, p, e = _check_levels(torch, bk, label, B, y, x,
+                                    range(len(B.levels)),
+                                    timed=dt == torch.float32,
+                                    by_level=by_level)
             ms += k
             plain_ms += p
             worst = max(worst, e)
         zk = bk.blocked_ilu0(L, U, y)
         zp = _plain_ilu0(bk, L, U, y)
+        zd = _direct(bk, bk.blocked_ilu0, L, U, y)
         torch.cuda.synchronize()
-        apply_ms = _median_ms(lambda: bk.blocked_ilu0(L, U, y), torch)
+        # float64 takes the direct route (block_trisolve.table_route_for)
+        applies = (_in_turns(torch, {
+            "staged": lambda: bk.blocked_ilu0(L, U, y),
+            "direct": lambda: _direct(bk, bk.blocked_ilu0, L, U, y)},
+            ("staged", "direct", "direct", "staged"))
+            if dt == torch.float32 else
+            {"direct": [_median_ms(lambda: bk.blocked_ilu0(L, U, y),
+                                   torch)]})
         works = [_level_work(B, li, A.coeffs.element_size())
                  for B in (L, U) for li in range(len(B.levels))]
         bound = _bound(sum(b for b, _o in works), sum(o for _b, o in works))
+        equal = torch.equal(zk, zp) and torch.equal(zd, zk)
         print(f"[ilu0-level] {label} blocked_ilu0 (2x{L.S} levels) against "
-              f"the plain levels: bit_equal={torch.equal(zk, zp)} "
-              f"ms={apply_ms:.4f} bound_ms={bound['bound_ms']:.4f} "
-              f"({bound['bound_by']}, at the float32 rate)")
-        if not torch.equal(zk, zp):
+              f"the plain levels: bit_equal={torch.equal(zk, zp)} (direct "
+              f"route {torch.equal(zd, zk)}) device ms {applies} "
+              f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}, at "
+              f"the float32 rate); levels (staged, direct, bound) ms: "
+              f"{[tuple(round(v, 5) for v in t) for t in by_level]}")
+        if not equal:
             raise RuntimeError(f"{label}: whole ILU(0) apply disagrees")
         if spec == MAIN_SPEC and dt == torch.float32:
             record = {"max_abs_err": worst, "ms": statistics.mean(ms),
+                      "direct_ms": statistics.mean(t[1] for t in by_level),
                       "plain_ms": statistics.mean(plain_ms),
                       "library_ms": None,
                       **_mean_bound([_level_work(B, li, 4) for B in (L, U)
@@ -1339,7 +1454,15 @@ def phase_ilu0_level_vs_plain(torch, bt):
             if not rel <= TOL["float32"]:
                 raise RuntimeError("the library's L solve disagrees")
             del M
-        del A, L, U, x, y, zk, zp
+        if spec == ILU_384:
+            record.update(
+                ms_384=statistics.mean(t[0] for t in by_level),
+                direct_ms_384=statistics.mean(t[1] for t in by_level),
+                bound_ms_384=statistics.mean(t[2] for t in by_level),
+                apply_ms_384=min(applies["staged"]),
+                direct_apply_ms_384=min(applies["direct"]),
+                bound_apply_ms_384=bound["bound_ms"])
+        del A, L, U, x, y, zk, zp, zd
         torch.cuda.empty_cache()
     return record, whole_l
 
@@ -1512,11 +1635,34 @@ def phase_slice4_path(torch, bt):
                 n_acc * applies, 2 * L.S * L.sx * applies)
         else:
             ok = ok and counts["super_level_table"] == 2 * L.S * applies and (
-                counts["super_acc"] == counts["super_parity"] == 0)
+                counts["super_acc"] == counts["super_parity"] == 0) and (
+                counts["super_level_table_staged"]
+                == counts["super_level_table"])
         if not ok:
             raise RuntimeError(f"slice-4 {name} run failed its checks")
         launches[name] = {k: counts[k] for k in
-                          ("super_level_table", "super_acc", "super_parity")}
+                          ("super_level_table", "super_acc", "super_parity",
+                           "super_level_table_staged",
+                           "super_level_table_direct")}
+        if spec == ILU_384 and not split:
+            # both factor-table routes in turns, every count set to 0 just
+            # before each solve and read just after
+            turns = {}
+            for route in ("staged", "direct", "direct", "staged"):
+                _counters(so, gb, bk, reset=True)
+                with _table_route(bk, route):
+                    r = bt.solve(setup, method=solver)
+                c = _counters(so, gb, bk)
+                if not (r.iter_count == iters and c["super_level_table"]
+                        == c[f"super_level_table_{route}"]
+                        == 2 * L.S * applies):
+                    raise RuntimeError(f"{name} on the {route} route failed "
+                                       "its checks")
+                turns.setdefault(route, []).append(
+                    1e3 * r.solve_seconds / r.iter_count)
+            print(f"[slice4] {spec} f32 {name}: ms/iter in turns (staged, "
+                  f"direct, direct, staged): staged={turns['staged']} "
+                  f"direct={turns['direct']}")
         del setup, solver, res, L, U
 
     res = bt.solve(_setup(torch, bt, MAIN_SPEC, torch.float64, "cuda",
@@ -1544,18 +1690,48 @@ BAND = "band:8388608,2"
 
 
 def _sparse_counters(bt, reset=False):
-    """The launch counts of the slice-5 kernels (`reset`: set to 0
-    first)."""
+    """The launch counts of the slice-5 kernels, and of each lane-ELL
+    route (`reset`: set to 0 first)."""
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
     from basic_iterative_solvers_tpu_torch.ops import dia_spmv, lane_ell
-    fns = {"dia_spmv": dia_spmv.dia_spmv,
-           "lane_ell_spmv": lane_ell.lane_ell_spmv,
-           "rank_level": bk.rank_level,
-           "stencil_spmv": bt.stencil_op.stencil_spmv}
+    fns = {"dia_spmv": (dia_spmv.dia_spmv, "launches"),
+           "lane_ell_spmv": (lane_ell.lane_ell_spmv, "launches"),
+           "rank_level": (bk.rank_level, "launches"),
+           "stencil_spmv": (bt.stencil_op.stencil_spmv, "launches")}
+    for route in lane_ell.ROUTES:
+        fns[f"lane_ell_spmv_{route}"] = (lane_ell.lane_ell_spmv,
+                                         f"{route}_launches")
     if reset:
-        for fn in fns.values():
-            fn.launches = 0
-    return {name: fn.launches for name, fn in fns.items()}
+        for fn, attr in fns.values():
+            setattr(fn, attr, 0)
+    return {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+
+
+def _in_turns(torch, fns, order):
+    """Each callable of `fns` timed by its device time (_device_ms, behind
+    a ~10 ms sleep: these batches enqueue in well under that) in the order
+    given, names repeating (in turns); returns {name: [ms, ...]}."""
+    out = {}
+    for name in order:
+        out.setdefault(name, []).append(
+            _device_ms(fns[name], torch, sleep_cycles=20_000_000))
+    return out
+
+
+def _lane_ell_bytes(torch, M, item, idx_bytes):
+    """(padded bytes, counted bytes, slots read, slots a warp fetches) of
+    one SpMV of M: the padded route reads every slot's value and int32
+    index; the counted routes the slots before each row's count (value and
+    `idx_bytes` of index), the counts; both x once and y once."""
+    n = M.n_rows
+    lens = M.row_len.reshape(-1)[:n].long()
+    slots = int(lens.sum())
+    warps = 32 * int(torch.nn.functional.pad(lens, (0, -n % 32))
+                     .view(-1, 32).amax(1).sum())
+    xy = 2 * n * item
+    return (M.K * n * (item + 4) + xy,
+            slots * (item + idx_bytes) + n * M.row_len.element_size() + xy,
+            slots, warps)
 
 
 def _csr_on_card(torch, A, dtype):
@@ -1636,10 +1812,42 @@ def phase_dia_vs_plain(torch, bt):
     return record
 
 
+def _lane_ell_route_checks(torch, tag, label, le, M, x, twin=None):
+    """Every route of kernel #5 on M against its plain version, bit for bit
+    (and against `twin`, the float32-value kernel on the widened values,
+    where given), each launch counted in its route's counter.  Returns the
+    largest abs error against plain."""
+    yp = le.lane_ell_spmv_plain(M, x)
+    yt = None if twin is None else twin(x)
+    err = 0.0
+    for route in le.ROUTES:
+        before = getattr(le.lane_ell_spmv, f"{route}_launches")
+        yk = le._lane_ell_spmv_cuda(M, x, route)
+        torch.cuda.synchronize()
+        if getattr(le.lane_ell_spmv, f"{route}_launches") != before + 1:
+            raise RuntimeError(f"{tag} {label}: the {route} count did not "
+                               "grow")
+        err = max(err, float((yk - yp).abs().max()))
+        equal = torch.equal(yk, yp)
+        twin_equal = yt is None or torch.equal(yk, yt)
+        print(f"[{tag}] {label} route {route}: bit_equal_plain={equal}"
+              + ("" if yt is None else
+                 f" bit_equal_widened_twin={twin_equal}"))
+        if not (equal and twin_equal):
+            raise RuntimeError(f"{tag} {label}: route {route} disagrees")
+    return err
+
+
 def phase_lane_ell_vs_plain(torch, bt):
     """Kernel #5 against its plain version, bit for bit, on the lane-ELL
-    planes of sband:500000,8,400 (f32, f64), with the library's CSR SpMV
-    of the same matrix.  Returns the f32 record and the host matrix."""
+    planes of sband:500000,8,400 (f32, f64), on each route: idx16 (the
+    16-bit index plane, the shape's route), idx32 (the int32 plane), both
+    stopping each row at its count, and padded (the first port's loop over
+    all K slots).  The routes' device times in turns (padded, idx16,
+    idx32, idx32, idx16, padded) beside the library's CSR SpMV of the same
+    matrix (f32, device time too), the padded bound and the bound of the
+    slots the counted routes read.  Returns the f32 record and the host
+    matrix."""
     from basic_iterative_solvers_tpu_torch.ops import lane_ell as le
     t0 = time.perf_counter()
     A = bt.generators.from_source(SBAND)
@@ -1650,34 +1858,54 @@ def phase_lane_ell_vs_plain(torch, bt):
         M = bt.from_csr(A, dt, "lane_ell", device="cuda")
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
+        if le.route_for(M) != "idx16":
+            raise RuntimeError(f"{SBAND} did not take the idx16 route")
         x = torch.randn(A.n_rows, dtype=dt, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(7))
         label = (f"{SBAND} {str(dt)[6:]} (nnz {A.nnz}, K={M.K}, S={M.S}, "
                  f"R={M.R}; host CSR {gen_s:.2f} s, planes {build_s:.2f} s)")
-        err, ms, plain_ms = _kernel_vs_plain(
-            torch, "lane-ell", label, lambda v: le.lane_ell_spmv(M, v),
-            lambda v: le.lane_ell_spmv_plain(M, v), le.lane_ell_spmv, x)
+        err = _lane_ell_route_checks(torch, "lane-ell", label, le, M, x)
+        turns = _in_turns(torch, {
+            rt: lambda rt=rt: le._lane_ell_spmv_cuda(M, x, rt)
+            for rt in le.ROUTES}, ("padded", "idx16", "idx32", "idx32",
+                                   "idx16", "padded"))
+        wrapper_ms = _median_ms(lambda: le.lane_ell_spmv(M, x), torch)
+        plain_ms = _median_ms(lambda: le.lane_ell_spmv_plain(M, x), torch)
         n, item = A.n_rows, x.element_size()
-        nbytes = M.K * n * (item + 4) + 2 * n * item
-        bound = _bound(nbytes, 2 * M.K * n)
-        csr_bytes = A.nnz * (item + 4) + 2 * n * item
+        padded, counted, slots, warps = _lane_ell_bytes(torch, M, item, 2)
+        bound = _bound(counted, 2 * slots)
+        pad_bound = _bound(padded, 2 * M.K * n)
+        ms = min(turns["idx16"])
+        print(f"[lane-ell] {SBAND} {str(dt)[6:]} device ms in turns "
+              f"(padded, idx16, idx32, idx32, idx16, padded): {turns}; "
+              f"idx16 through the wrapper (batches of 10) {wrapper_ms:.4f}; "
+              f"plain {plain_ms:.4f}")
         print(f"[lane-ell] {SBAND} {str(dt)[6:]} bound_ms="
-              f"{bound['bound_ms']:.4f} ({bound['bound_by']}: {M.K} slots x "
-              f"{n} rows x {item + 4} B + x + y = {nbytes / 1e6:.1f} MB; the "
-              f"CSR itself {csr_bytes / 1e6:.1f} MB, padding "
-              f"{nbytes / csr_bytes:.2f}x) kernel_GB/s="
-              f"{nbytes / (ms * 1e6):.0f}")
+              f"{bound['bound_ms']:.4f} ({bound['bound_by']}: {slots} slots "
+              f"read x ({item} + 2) B + counts + x + y = {counted / 1e6:.1f} "
+              f"MB; a warp fetches {warps / (M.K * n):.3f} of the K*n slots) "
+              f"against the padded bound {pad_bound['bound_ms']:.4f} "
+              f"({M.K} slots x {n} rows x {item + 4} B + x + y = "
+              f"{padded / 1e6:.1f} MB): idx16 {bound['bound_ms'] / ms:.3f} "
+              f"of its bound ({counted / (ms * 1e6):.0f} GB/s), padded "
+              f"{pad_bound['bound_ms'] / min(turns['padded']):.3f} of its")
         if dt == torch.float32:
             C = _csr_on_card(torch, A, dt)
-            lib_ms = _median_ms(lambda: C @ x, torch)
+            lib_ms = _device_ms(lambda: C @ x, torch)
+            lib_events_ms = _median_ms(lambda: C @ x, torch)
             y = le.lane_ell_spmv(M, x)
             lib_rel = float((C @ x - y).abs().max() / y.abs().max())
             print(f"[library] {SBAND} f32 torch.sparse_csr_tensor @ x: "
-                  f"ms={lib_ms:.4f} max_rel_err={lib_rel:.3e}")
+                  f"device ms={lib_ms:.4f} (batches of 10 "
+                  f"{lib_events_ms:.4f}) max_rel_err={lib_rel:.3e}; idx16 "
+                  f"against it {ms / lib_ms:.3f}x")
             if not lib_rel <= TOL["float32"]:
                 raise RuntimeError("the library SpMV disagrees")
             record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, **bound}
+                      "library_ms": lib_ms, "wrapper_ms": wrapper_ms,
+                      "padded_ms": min(turns["padded"]),
+                      "idx32_ms": min(turns["idx32"]),
+                      "padded_bound_ms": pad_bound["bound_ms"], **bound}
             del C
         del M, x
     torch.cuda.empty_cache()
@@ -1930,10 +2158,14 @@ def phase_slice5_path(torch, bt, sband, band):
             torch, bt, "slice5", f"{SBAND} f32 cg@sband {fmt} ({kind})",
             setup, setup_s,
             lambda r, c: (r.iter_count == iters and (
-                c["lane_ell_spmv"] >= iters if fmt == "lane_ell"
-                else c["lane_ell_spmv"] == 0)))
+                c["lane_ell_spmv"] >= iters
+                and c["lane_ell_spmv_idx16"] == c["lane_ell_spmv"]
+                if fmt == "lane_ell" else c["lane_ell_spmv"] == 0)))
         if fmt == "lane_ell":
             launches["lane_ell_spmv"] = counts["lane_ell_spmv"]
+            launches["lane_ell_spmv_by_route"] = {
+                rt: counts[f"lane_ell_spmv_{rt}"] for rt in ("idx16", "idx32",
+                                                             "padded")}
         del setup
     setup, setup_s = _host_solve(
         torch, bt, band, "cuda", torch.float32, "BICGSTAB",
@@ -2970,17 +3202,35 @@ def phase_bf16_vs_plain(torch, bt, sband):
         le.lane_ell_spmv, lambda v: le.lane_ell_spmv(M, v),
         lambda v: le.lane_ell_spmv_plain(M, v),
         lambda v: le.lane_ell_spmv(M32, v), x)
+    _lane_ell_route_checks(torch, "bf16", f"#5 {SBAND} bf16 values", le, M,
+                           x, twin=lambda v: le.lane_ell_spmv(M32, v))
+    turns = _in_turns(torch, {
+        rt: lambda rt=rt: le._lane_ell_spmv_cuda(M, x, rt)
+        for rt in ("idx16", "padded")}, ("padded", "idx16", "idx16",
+                                         "padded"))
     n = M.n_rows
-    nbytes = M.K * n * (2 + 4) + 2 * 4 * n
-    bound = _bound(nbytes, 2 * M.K * n)
+    padded, counted, slots, _w = _lane_ell_bytes(torch, M, 4, 2)
+    # the values are 2 bytes, not x's 4
+    padded -= 2 * M.K * n
+    counted -= 2 * slots
+    bound = _bound(counted, 2 * slots)
+    pad_bound = _bound(padded, 2 * M.K * n)
     lib_ms, lib = _library_bf16(torch, sband, x)
-    print(f"[bf16] #5 {SBAND} bound_ms={bound['bound_ms']:.4f} "
-          f"({bound['bound_by']}: {M.K} slots x {n} rows x 6 B + x + y = "
-          f"{nbytes / 1e6:.1f} MB) kernel_GB/s={nbytes / (ms * 1e6):.0f}; "
-          f"[library] {lib}: ms={lib_ms:.4f}")
-    records["lane_ell_spmv_bf16"] = {"max_abs_err": err, "ms": ms,
-                                     "plain_ms": plain_ms,
-                                     "library_ms": lib_ms, **bound}
+    dev = min(turns["idx16"])
+    print(f"[bf16] #5 {SBAND} device ms in turns (padded, idx16, idx16, "
+          f"padded): {turns}; bound_ms={bound['bound_ms']:.4f} "
+          f"({bound['bound_by']}: {slots} slots x (2 + 2) B + counts + x + "
+          f"y = {counted / 1e6:.1f} MB; padded {pad_bound['bound_ms']:.4f}: "
+          f"{M.K} slots x {n} rows x 6 B + x + y = {padded / 1e6:.1f} MB) "
+          f"idx16 {bound['bound_ms'] / dev:.3f} of its bound "
+          f"({counted / (dev * 1e6):.0f} GB/s); [library] {lib}: "
+          f"ms={lib_ms:.4f}")
+    records["lane_ell_spmv_bf16"] = {"max_abs_err": err, "ms": dev,
+                                     "wrapper_ms": ms, "plain_ms": plain_ms,
+                                     "library_ms": lib_ms,
+                                     "padded_ms": min(turns["padded"]),
+                                     "padded_bound_ms": pad_bound["bound_ms"],
+                                     **bound}
     del M, M32, x
     A = so.from_source_operator(ANDERSON_128, torch.bfloat16, device="cuda")
     Aw = so.make_stencil(zip(A.legs, A.coeff_values), *A.dims,
@@ -3128,6 +3378,29 @@ SLICE7_ROWS = (
 )
 
 
+def _iter_times_check(torch, bt):
+    """`hpcg:64x64x64 -cg --iter-times --profile DIR` through cli.run:
+    prints the row with the CLI's [iter-times] line (on a miss, its count
+    of device events and the kernel names nearest n_iters); returns
+    whether it ran, wrote its trace and attached per-iteration device
+    walls."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, out, err, secs = _cli(torch, bt, [
+            "hpcg:64x64x64", "-cg", "--iter-times", "--profile", tmp])
+        it = _cli_report(out, err)[0]
+        walls = [float(v) for v in re.findall(
+            r"^\|\|A\*x_\d+ - b\|\|_2 = [^\s]+ +([0-9.]+)\[s\]", out, re.M)]
+        traced = os.path.exists(os.path.join(tmp, "trace.json"))
+    said = re.findall(r"^\[iter-times\].*$", err, re.M)
+    ok = rc == 0 and traced and "measured device walls attached" in err
+    print(f"[slice7] hpcg:64x64x64 -cg --iter-times --profile: rc={rc} "
+          f"iters={it} {said} median wall_ms="
+          f"{1e3 * statistics.median(walls) if walls else None} "
+          f"trace_written={traced} command_s={secs:.2f}")
+    return ok
+
+
 def phase_slice7_cli(torch, bt):
     """The command line on the card through cli.run, in process, each row
     with every counter set to 0 just before it and read just after; the
@@ -3140,7 +3413,6 @@ def phase_slice7_cli(torch, bt):
     stopwatch table), --iter-times and --profile at 64^3.  Returns the
     bf16 forms' launches on their rows and the timed rows."""
     import math
-    import tempfile
     so = bt.stencil_op
     launches, rows, hist384 = {}, {}, {}
     runs = [(row, False) for row in (SLICE7_ROWS[0], SLICE7_ROWS[1],
@@ -3174,6 +3446,14 @@ def phase_slice7_cli(torch, bt):
             ok = ok and math.isfinite(final)
         if not ok:
             raise RuntimeError(f"[slice7] {label} failed its checks")
+        if want == "lane_ell_spmv_bf16":
+            ok = ok and c["lane_ell_spmv_idx16"] == (
+                c[want] + c["lane_ell_spmv"])
+            launches["lane_ell_spmv_bf16_by_route"] = {
+                rt: c[f"lane_ell_spmv_{rt}"] for rt in ("idx16", "idx32",
+                                                        "padded")}
+        if not ok:
+            raise RuntimeError(f"[slice7] {label} left the idx16 route")
         if want is not None:
             launches[want] = c[want]
     f32, bf16 = hist384["cg@384 DIA f32"], hist384["cg@384 DIA bf16"]
@@ -3208,20 +3488,9 @@ def phase_slice7_cli(torch, bt):
     # unpreconditioned CG: its p·Ap dot is fused into the SpMV's call
     if not (rc == 0 and {"spmv", "norm", "sum"} <= set(table)):
         raise RuntimeError("--kernel-timers --harness host: rows missing")
-    with tempfile.TemporaryDirectory() as tmp:
-        rc, out, err, secs = _cli(torch, bt, [
-            "hpcg:64x64x64", "-cg", "--iter-times", "--profile", tmp])
-        it, _c, _f, _h, ms = _cli_report(out, err)
-        walls = [float(v) for v in re.findall(
-            r"^\|\|A\*x_\d+ - b\|\|_2 = [^\s]+ +([0-9.]+)\[s\]", out, re.M)]
-        traced = os.path.exists(os.path.join(tmp, "trace.json"))
-    print(f"[slice7] hpcg:64x64x64 -cg --iter-times --profile: iters={it} "
-          f"device walls attached="
-          f"{'[iter-times] measured device walls attached' in err} median "
-          f"wall_ms={1e3 * statistics.median(walls):.4f} trace_written="
-          f"{traced} command_s={secs:.2f}")
-    if not (rc == 0 and traced and "measured device walls attached" in err):
-        raise RuntimeError("--iter-times/--profile failed:\n" + err[-2000:])
+    if not _iter_times_check(torch, bt):
+        raise RuntimeError("--iter-times/--profile failed (the [slice7] "
+                           "line above says why)")
     return launches, rows
 
 
@@ -3260,18 +3529,26 @@ MESH_SHARDS = 8
 
 
 def _mesh_counters(bt, reset=False):
-    """The launch counts of the four shard-local kernels, f32/f64 forms
-    (`reset`: every count, bf16 forms too, set to 0 first)."""
+    """The launch counts of the four shard-local kernels, f32/f64 forms,
+    and of each lane-ELL route (`reset`: every count, bf16 forms too, set
+    to 0 first)."""
     from basic_iterative_solvers_tpu_torch.ops import dia_spmv, lane_ell
     so = bt.stencil_op
     fns = {"stencil_spmv_halo": so.stencil_spmv_halo,
            "stencil_gs_step_halo": so.stencil_gs_color_step_halo,
            "dia_spmv_halo": dia_spmv.dia_spmv_halo,
            "lane_ell_spmv_halo": lane_ell.lane_ell_spmv_halo}
+    halo = lane_ell.lane_ell_spmv_halo
     if reset:
         for fn in fns.values():
             fn.launches = fn.bf16_launches = 0
-    return {name: fn.launches for name, fn in fns.items()}
+        for route in lane_ell.ROUTES:
+            setattr(halo, f"{route}_launches", 0)
+    out = {name: fn.launches for name, fn in fns.items()}
+    out.update({f"lane_ell_spmv_halo_{route}": getattr(halo,
+                                                       f"{route}_launches")
+                for route in lane_ell.ROUTES})
+    return out
 
 
 def _shards_vs_plain(torch, tag, label, launch, plain, counter, attr, tol,
@@ -3562,37 +3839,90 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
         wins = windows(x, E.R * le.LANES, h, h)
         attr = "bf16_launches" if md == torch.bfloat16 else "launches"
         main = md == torch.float32
+
+        def shard(k, route, E=E, W=W, wins=wins, R=R):
+            return le._lane_ell_spmv_halo(
+                E, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, E.S,
+                None, W.idx16_shards[k], route)
+
+        before = le.lane_ell_spmv_halo.idx16_launches
         outs, err, ms, plain_ms = _shards_vs_plain(
             torch, "mesh-kernel", f"#5 {SBAND} {str(md)[6:]}",
-            lambda k: le.lane_ell_spmv_halo(E, W.vals_shards[k],
-                                            W.idx_shards[k], wins[k], k * R,
-                                            E.S),
-            lambda k: le.lane_ell_spmv_halo_plain(E, W.vals_shards[k],
-                                                  W.idx_shards[k], wins[k],
-                                                  k * R, E.S),
-            le.lane_ell_spmv_halo, attr, 0.0, True, main)
-        if not torch.equal(torch.cat(outs)[:n], le.lane_ell_spmv(M, x)):
+            lambda k, E=E, W=W, wins=wins, R=R: le.lane_ell_spmv_halo(
+                E, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, E.S,
+                idx16=W.idx16_shards[k]),
+            lambda k, E=E, W=W, wins=wins, R=R: le.lane_ell_spmv_halo_plain(
+                E, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, E.S),
+            le.lane_ell_spmv_halo, attr, 0.0, True, False)
+        if le.lane_ell_spmv_halo.idx16_launches != before + MESH_SHARDS:
+            raise RuntimeError("#5 halo: the shards did not take the idx16 "
+                               "route")
+        single = le.lane_ell_spmv(M, x)
+        if not torch.equal(torch.cat(outs)[:n], single):
             raise RuntimeError(f"#5 halo {md}: the shards differ from the "
                                "single-device kernel")
+        for route in ("idx32", "padded"):
+            other = [shard(k, route) for k in range(MESH_SHARDS)]
+            if not all(torch.equal(a, b) for a, b in zip(other, outs)):
+                raise RuntimeError(f"#5 halo {md}: the {route} route's shards "
+                                   "differ from the idx16 route's")
         print(f"[mesh-kernel] #5 {SBAND} {str(md)[6:]} values, "
               f"{str(dt)[6:]} x, K={E.K} S={E.S} x2-rows/shard={R}: "
-              "bit-equal to plain and to the single-device kernel")
+              "bit-equal to plain and to the single-device kernel; the "
+              "idx32 and padded routes' shards bit-equal to the idx16 "
+              "route's")
         if main:
+            turns = _in_turns(torch, {
+                rt: lambda rt=rt: [shard(k, rt) for k in range(MESH_SHARDS)]
+                for rt in ("idx16", "padded")}, ("padded", "idx16", "idx16",
+                                                 "padded"))
+            ms = min(turns["idx16"])
+            plain_ms = _median_ms(lambda: [
+                le.lane_ell_spmv_halo_plain(E, W.vals_shards[k],
+                                            W.idx_shards[k], wins[k], k * R,
+                                            E.S)
+                for k in range(MESH_SHARDS)], torch, reps=5, batch=2)
             single_ms = _device_ms(lambda: le.lane_ell_spmv(M, x), torch)
             call_ms = _median_ms(lambda: mo.mesh_lane_ell_spmv(W, x), torch)
-            lib_ms = _median_ms(lambda: C @ x, torch)
-            rows = E.R * le.LANES
-            bound = _bound(E.K * rows * (item + 4) + window_bytes(wins, item)
-                           + rows * item, 2 * E.K * n)
-            print(f"[mesh-kernel] #5 {SBAND} f32: 8 shard launches "
-                  f"ms={ms:.4f} (plain twins {plain_ms:.4f}; single-device "
-                  f"{single_ms:.4f}; the whole mesh SpMV {call_ms:.4f}; CSR "
+            lib_ms = _device_ms(lambda: C @ x, torch)
+            # like for like: 8 CSR SpMVs, each over one shard's rows
+            rows_k = R * le.LANES
+            parts = []
+            for k in range(MESH_SHARDS):
+                lo, hi = min(k * rows_k, n), min((k + 1) * rows_k, n)
+                if hi > lo:
+                    ptr = sband.row_ptr[lo:hi + 1]
+                    parts.append(torch.sparse_csr_tensor(
+                        torch.from_numpy(ptr - ptr[0]).cuda(),
+                        torch.from_numpy(sband.col[ptr[0]:ptr[-1]]
+                                         .astype("int64")).cuda(),
+                        torch.from_numpy(sband.val[ptr[0]:ptr[-1]]).to(
+                            dtype=dt, device="cuda"), (hi - lo, n)))
+            y8 = torch.cat([P @ x for P in parts])
+            lib_rel = float((y8 - single).abs().max() / single.abs().max())
+            if not lib_rel <= TOL["float32"]:
+                raise RuntimeError("the per-shard CSR SpMVs disagree")
+            lib8_ms = _device_ms(lambda: [P @ x for P in parts], torch)
+            padded, counted, slots, _w = _lane_ell_bytes(torch, E, item, 2)
+            xwin = window_bytes(wins, item) - n * item   # x: the windows
+            bound = _bound(counted + xwin, 2 * slots)
+            pad_bound = _bound(padded + xwin, 2 * E.K * n)
+            print(f"[mesh-kernel] #5 {SBAND} f32: 8 shard launches device "
+                  f"ms in turns (padded, idx16, idx16, padded): {turns} "
+                  f"(plain twins {plain_ms:.4f}; single-device "
+                  f"{single_ms:.4f}; the whole mesh SpMV {call_ms:.4f}; "
+                  f"{len(parts)} CSR SpMVs over the shards' rows "
+                  f"{lib8_ms:.4f}, max_rel_err {lib_rel:.1e}; one whole CSR "
                   f"SpMV {lib_ms:.4f}) bound_ms={bound['bound_ms']:.4f} "
-                  f"({bound['bound_by']})")
+                  f"({bound['bound_by']}: the slots read, the counts, the "
+                  f"windows, y; padded bound {pad_bound['bound_ms']:.4f})")
             records["lane_ell_spmv_halo"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "single_ms": single_ms,
-                "call_ms": call_ms, **bound}
+                "library_ms": lib8_ms, "whole_library_ms": lib_ms,
+                "single_ms": single_ms, "call_ms": call_ms,
+                "padded_ms": min(turns["padded"]),
+                "padded_bound_ms": pad_bound["bound_ms"], **bound}
+            del parts
         del M, W, E, wins, outs
     del C
     torch.cuda.empty_cache()
@@ -3681,6 +4011,12 @@ def phase_slice8(torch, bt, sband):
                 ok = ok and counts[kernel] >= MESH_SHARDS * iters
                 ok = ok and exch["psum_bytes"] <= 8 * 3 * 8 * exch["psum"]
                 launches.setdefault(kernel, counts[kernel])
+                if kernel == "lane_ell_spmv_halo":
+                    ok = ok and counts["lane_ell_spmv_halo_idx16"] == counts[
+                        kernel]
+                    launches.setdefault("lane_ell_spmv_halo_by_route", {
+                        rt: counts[f"lane_ell_spmv_halo_{rt}"]
+                        for rt in ("idx16", "idx32", "padded")})
             else:
                 ok = ok and not any(counts.values())
             per = {k: round(v / it, 3) for k, v in
@@ -3883,9 +4219,18 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                         for k, Bs in enumerate(MB.shards)]
                     owners = sum(1 for Bs in MB.shards
                                  if Bs.lines[li][1] > Bs.lines[li][0])
+                    # float64 has only the direct route
+                    forced = {rt: [w.clone() for w in wins] for rt in (
+                        () if not B.is_table else ("staged", "direct")
+                        if dt == torch.float32 else ("direct",))}
                     before = getattr(counter, attr)
                     for k, Bs in enumerate(MB.shards):
                         bk.super_level_halo(Bs, li, ys[k], wins[k])
+                    for rt, outs in forced.items():
+                        with _table_route(bk, rt):
+                            for k, Bs in enumerate(MB.shards):
+                                bk.super_level_halo(Bs, li, ys[k], outs[k])
+                        before += owners
                     torch.cuda.synchronize()
                     if getattr(counter, attr) != before + owners:
                         raise RuntimeError(f"[mesh-super-level] {mode} "
@@ -3899,6 +4244,12 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                                 f"[mesh-super-level] {mode} {dt} {tri} "
                                 f"level {li} shard {k} differs from its "
                                 "plain twin")
+                        for rt, outs in forced.items():
+                            if not torch.equal(outs[k], wins[k]):
+                                raise RuntimeError(
+                                    f"[mesh-super-level] {dt} {tri} level "
+                                    f"{li} shard {k}: the {rt} route "
+                                    "differs")
                     own = torch.cat([w[H:H + R] for w in wins])[:n]
                     if not torch.equal(own, single):
                         raise RuntimeError(
@@ -3912,6 +4263,22 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                     ms = _device_ms(lambda: [
                         bk.super_level_halo(Bs, li, ys[k], wins[k])
                         for k, Bs in enumerate(MB.shards)], torch)
+                    routes = ""
+                    if B.is_table:
+                        def shards(rt):
+                            def run():
+                                with _table_route(bk, rt):
+                                    return [bk.super_level_halo(
+                                        Bs, li, ys[k], wins[k])
+                                        for k, Bs in enumerate(MB.shards)]
+                            return run
+                        turns = _in_turns(torch, {rt: shards(rt) for rt in
+                                                  ("staged", "direct")},
+                                          ("staged", "direct", "direct",
+                                           "staged"))
+                        routes = (f" (the shards' route "
+                                  f"{bk.table_route_for(B, li, item, bk._shard_args(MB.shards[0], li), y.device)};"
+                                  f" both in turns: {turns})")
                     xs = x.clone()
                     single_ms = _device_ms(
                         lambda: bk.super_level(B, li, y, xs), torch)
@@ -3937,7 +4304,8 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                     print(f"[mesh-super-level] {spec} f32 {mode} L level {li}"
                           f" (superblock {B.levels[li][0]}, "
                           f"{len(B.levels[li][1])} cross groups) rows/shard="
-                          f"{R} halo={H}: 8 shard launches ms={ms:.4f} "
+                          f"{R} halo={H}: 8 shard launches ms={ms:.4f}"
+                          f"{routes} "
                           f"(single-device level {single_ms:.4f}; plain "
                           f"twins {plain_ms:.4f}; the whole mesh level with "
                           f"its exchange {call_ms:.4f}) bound_ms="
@@ -3955,7 +4323,9 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                       f"({_mode(B)}, {len(B.levels)} levels) rows/shard={R} "
                       f"halo={H}: every shard bit-equal to its plain twin "
                       f"(max_abs_err {err:.1e}), the 8 shards bit-equal to "
-                      "the single-device kernel")
+                      "the single-device kernel"
+                      + ("; the staged and direct routes' shards "
+                         "bit-equal to them" if B.is_table else ""))
                 del MB
             del L, U
             torch.cuda.empty_cache()
@@ -4003,6 +4373,8 @@ def phase_slice8b(torch, bt, setup5b):
     halo = bk.super_level_halo
     modes = {"super_level_halo": "launches",
              "super_level_halo_table": "table_launches",
+             "super_level_halo_table_staged": "table_staged_launches",
+             "super_level_halo_table_direct": "table_direct_launches",
              "super_level_halo_plane": "plane_launches"}
 
     def counts(reset=False):
@@ -4071,10 +4443,15 @@ def phase_slice8b(torch, bt, setup5b):
             if which == "mesh":
                 ok = ok and all(got[k] == v * n_applies
                                 for k, v in per_apply.items())
+                ok = ok and (got["super_level_halo_table_staged"]
+                             + got["super_level_halo_table_direct"]
+                             == got["super_level_halo_table"])
                 ok = ok and not any(got[k] for k in ("super_level",
                                                      "super_level_table",
                                                      "super_level_plane"))
-                launches.setdefault(name, {k: got[k] for k in per_apply})
+                launches.setdefault(name, {k: got[k] for k in (
+                    *per_apply, "super_level_halo_table_staged",
+                    "super_level_halo_table_direct") if got[k]})
             else:
                 ok = ok and not any(got[k] for k in modes)
             per = {k: round(v / it, 3) for k, v in got.items() if v}
@@ -4291,6 +4668,18 @@ def main():
     # slice 4's kernels: `launches` is the count of the row that is the
     # kernel's main path (pcg_ilu0 at 128^3; the split 384^3 row for the
     # split pair), and `launches_by_row` each row's own count
+    by_route = {
+        "super_level_table": {row: {
+            rt: slice4_launches[row][f"super_level_table_{rt}"]
+            for rt in ("staged", "direct")} for row in ("pcg_ilu0",
+                                                        "pcg_ilu0@384")},
+        "lane_ell_spmv": slice5_launches["lane_ell_spmv_by_route"],
+        "lane_ell_spmv_bf16": bf16_launches["lane_ell_spmv_bf16_by_route"],
+        "lane_ell_spmv_halo": mesh_launches["lane_ell_spmv_halo_by_route"],
+        "super_level_halo": {rt: sum(
+            c.get(f"super_level_halo_table_{rt}", 0)
+            for c in mesh_super_launches.values())
+            for rt in ("staged", "direct")}}
     for kernel, line, main_row, record in (
             ("super_level_table", 1611, "pcg_ilu0", table_record),
             ("super_acc", 1999, "pcg_ilu0@384 split",
@@ -4305,6 +4694,8 @@ def main():
             "launches": slice4_launches[main_row][kernel],
             "launches_by_row": {row: counts[kernel] for row, counts
                                 in slice4_launches.items() if counts[kernel]},
+            **({"launches_by_route": by_route[kernel]}
+               if kernel in by_route else {}),
             **record})
     for kernel, source, line, record in (
             ("dia_spmv", "sparse_spmv.cu", "ops/pallas_spmv.py:72",
@@ -4316,7 +4707,10 @@ def main():
         kernels.append({
             "name": kernel, "route": "cuda", "source": src + source,
             "replaces": "basic_iterative_solvers_tpu/" + line,
-            "launches": slice5_launches[kernel], **record})
+            "launches": slice5_launches[kernel],
+            **({"launches_by_route": by_route[kernel]}
+               if kernel in by_route else {}),
+            **record})
     for kernel, line, launched, record in (
             ("super_level_plane", 1611, plane_launches, plane_record),
             ("super_solve_mega", 2171, mega_launches, mega_record)):
@@ -4346,6 +4740,8 @@ def main():
             "name": kernel, "route": "cuda", "source": src + source,
             "replaces": "basic_iterative_solvers_tpu/" + line,
             "launches": bf16_launches.get(kernel, 0),
+            **({"launches_by_route": by_route[kernel]}
+               if kernel in by_route else {}),
             **bf16_records[kernel]})
     for kernel, source, line in (
             ("stencil_spmv_halo", "stencil_spmv.cu", "stencil_op.py:538"),
@@ -4356,14 +4752,19 @@ def main():
             "name": kernel, "route": "cuda", "source": src + source,
             "replaces": "basic_iterative_solvers_tpu/" + line,
             "launches": mesh_launches.get(kernel, 0),
+            **({"launches_by_route": by_route[kernel]}
+               if kernel in by_route else {}),
             **mesh_records[kernel]})
     kernels.append({
         "name": "super_level_halo", "route": "cuda",
         "source": src + "block_trisolve.cu",
         "replaces": "basic_iterative_solvers_tpu/ops/block_trisolve.py:1611",
         "launches": mesh_super_launches["pcg"]["super_level_halo"],
-        "launches_by_row": {row: sum(c.values()) for row, c
-                            in mesh_super_launches.items()},
+        "launches_by_row": {row: sum(v for k, v in c.items()
+                                     if not k.endswith(("_staged",
+                                                        "_direct")))
+                            for row, c in mesh_super_launches.items()},
+        "launches_by_route": by_route["super_level_halo"],
         **mesh_level_record})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4381,7 +4782,12 @@ def main():
                                         "strided_ms", "f32_ms",
                                         "f32_library_ms", "f32_bound_ms",
                                         "f32_strided_ms",
-                                        "launches_by_route")
+                                        "launches_by_route", "padded_ms",
+                                        "idx32_ms", "padded_bound_ms",
+                                        "whole_library_ms", "direct_ms",
+                                        "direct_ms_384", "apply_ms_384",
+                                        "direct_apply_ms_384",
+                                        "bound_apply_ms_384")
          if key in k}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -265,7 +265,8 @@ def test_halo_forms_equal_single_device_and_plain(card, kind, spec, dt,
             M = W.inner
             yk = lane_ell.lane_ell_spmv_halo(M, W.vals_shards[k],
                                              W.idx_shards[k], windows[k],
-                                             k * R, M.S)
+                                             k * R, M.S,
+                                             idx16=W.idx16_shards[k])
             assert torch.equal(yk, lane_ell.lane_ell_spmv_halo_plain(
                 M, W.vals_shards[k], W.idx_shards[k], windows[k], k * R,
                 M.S))
@@ -534,3 +535,204 @@ def test_basis_wrappers_take_the_shape_route(card, dtype):
         assert torch.equal(basis, Bp) and torch.equal(vk, vp)
         for k, p in zip(Pk, Pp):
             assert bool(((k - p).abs() <= 1e-3 * p.abs().max()).all())
+
+
+# ---------------------------------------------------------------------------
+# #5's counted routes and #9's staged factor-table route
+# ---------------------------------------------------------------------------
+
+LANE_SPEC = "sband:60000,8,400"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,mat_dt", [(torch.float32, torch.float32),
+                                       (torch.float64, torch.float64),
+                                       (torch.float32, torch.bfloat16),
+                                       (torch.float64, torch.bfloat16)])
+def test_lane_ell_routes_equal_plain(card, dt, mat_dt):
+    """Every route of #5 (idx16, the shape's; idx32; padded) bit-equal to
+    the plain version on finite x, each launch counted in its route's
+    counter; the wrapper takes idx16."""
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell
+    M = bt.from_csr(bt.generators.from_source(LANE_SPEC), mat_dt,
+                    "lane_ell", device=card)
+    assert lane_ell.route_for(M) == "idx16"
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        M.n_rows)).to(card, dt)
+    yp = lane_ell.lane_ell_spmv_plain(M, x)
+    for route in lane_ell.ROUTES:
+        before = getattr(lane_ell.lane_ell_spmv, f"{route}_launches")
+        y = lane_ell._lane_ell_spmv_cuda(M, x, route)
+        torch.cuda.synchronize()
+        assert getattr(lane_ell.lane_ell_spmv,
+                       f"{route}_launches") == before + 1
+        assert torch.equal(y, yp), route
+    before = lane_ell.lane_ell_spmv.idx16_launches
+    assert torch.equal(lane_ell.lane_ell_spmv(M, x), yp)
+    assert lane_ell.lane_ell_spmv.idx16_launches == before + 1
+
+
+@pytest.mark.cuda
+def test_lane_ell_nonfinite_x_at_a_pad_column(card):
+    """The departure by design, on the card: with Inf in x at a column a
+    skipped pad slot points at, the counted routes differ from the plain
+    version only on rows holding such a slot (plain NaN, kernel not), and
+    the padded route keeps the plain version's result."""
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell
+    M = bt.from_csr(bt.generators.from_source(LANE_SPEC), torch.float32,
+                    "lane_ell", device=card)
+    plane = M.R * lane_ell.LANES
+    r = torch.arange(M.R, device=card).view(M.R, 1)
+    cols = ((r + M.idx.long() // lane_ell.LANES - M.S) * lane_ell.LANES
+            + M.idx.long() % lane_ell.LANES).clamp(0, plane - 1)
+    skipped = (torch.arange(M.K, device=card).view(M.K, 1, 1)
+               >= M.row_len.long())
+    j = int(cols[skipped].min())
+    x = torch.randn(M.n_rows, device=card,
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    x[j] = float("inf")
+    yp = lane_ell.lane_ell_spmv_plain(M, x)
+    hit = (skipped & (cols == j)).any(0).reshape(-1)[:M.n_rows]
+    for route in ("idx16", "idx32"):
+        yk = lane_ell._lane_ell_spmv_cuda(M, x, route)
+        differ = ~((yk == yp) | (yk.isnan() & yp.isnan()))
+        assert differ.any() and not (differ & ~hit).any()
+        assert yp[differ].isnan().all() and not yk[differ].isnan().any()
+    yk = lane_ell._lane_ell_spmv_cuda(M, x, "padded")
+    assert bool(((yk == yp) | (yk.isnan() & yp.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat_dt", [torch.float32, torch.bfloat16])
+def test_lane_ell_halo_routes_equal_plain(card, mat_dt):
+    """#5's halo form on an 8-shard mesh: every route's shards bit-equal
+    to their plain twins and to each other, the idx16 route counted."""
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell
+    from basic_iterative_solvers_tpu_torch.parallel import make_mesh
+    from basic_iterative_solvers_tpu_torch.parallel import mesh_ops
+    from basic_iterative_solvers_tpu_torch.parallel.sharded import (
+        _halo_exchange, _split)
+    A = bt.from_csr(bt.generators.from_source(LANE_SPEC), mat_dt,
+                    "lane_ell", device=card)
+    mesh = make_mesh(8, device=card)
+    W = mesh_ops.wrap_lane_ell(A, mesh, "rows")
+    M, R = W.inner, W.rows
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        A.n_rows)).to(card, torch.float32)
+    h = M.S * lane_ell.LANES
+    xs = _split(torch.nn.functional.pad(x, (0, M.R * lane_ell.LANES
+                                            - x.numel())), 8)
+    wins = _halo_exchange(mesh, xs, h, h)
+    for k in range(8):
+        twin = lane_ell.lane_ell_spmv_halo_plain(
+            M, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, M.S)
+        for route in lane_ell.ROUTES:
+            before = getattr(lane_ell.lane_ell_spmv_halo, f"{route}_launches")
+            yk = lane_ell._lane_ell_spmv_halo(
+                M, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, M.S,
+                None, W.idx16_shards[k], route)
+            torch.cuda.synchronize()
+            assert getattr(lane_ell.lane_ell_spmv_halo,
+                           f"{route}_launches") == before + 1
+            assert torch.equal(yk, twin), (k, route)
+    with pytest.raises(ValueError, match="16-bit"):
+        lane_ell._lane_ell_spmv_halo(M, W.vals_shards[0], W.idx_shards[0],
+                                     wins[0], 0, M.S, None, None, "idx16")
+
+
+def _table_pair(card, spec, dt):
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    A = tso.from_source_operator(spec, dt, device=card)
+    return A, bk.build_superblock_ilu0_pair_stencil(A, spec_for_device(A),
+                                                    dtype=dt)
+
+
+def _on_route(bk, route, fn, *args):
+    saved = bk.table_route_for
+    bk.table_route_for = lambda *a, **k: route
+    try:
+        return fn(*args)
+    finally:
+        bk.table_route_for = saved
+
+
+def _direct_level(bk, fn, *args):
+    return _on_route(bk, "direct", fn, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,dt,levels", [
+    ("hpcg:128x128x128", torch.float32, "all"),
+    ("hpcg:128x128x128", torch.float64, "all"),
+    ("hpcg:36x20x16", torch.float64, "all"),
+    ("hpcg:384x384x384", torch.float32, "last")])
+def test_table_level_staged_equals_plain_and_direct(card, spec, dt, levels):
+    """#9's factor-table level on the shape's route (staged in float32,
+    direct in float64), every level (at 384^3 the last L and U levels, the
+    most cross legs) bit-equal to the plain level and to the direct route,
+    each launch counted in its route's counter; a whole apply equal on
+    both routes."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    A, (L, U) = _table_pair(card, spec, dt)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    y = torch.randn(A.n_rows, dtype=dt, device=card, generator=g)
+    x = torch.randn(A.n_rows, dtype=dt, device=card, generator=g)
+    route = "staged" if dt == torch.float32 else "direct"
+    for B in (L, U):
+        lis = (range(len(B.levels)) if levels == "all"
+               else (len(B.levels) - 1,))
+        for li in lis:
+            assert bk.table_route_for(B, li, x.element_size()) == route
+            attr = f"table_{route}_launches"
+            before = getattr(bk.super_level, attr)
+            xs, xd, xp = x.clone(), x.clone(), x.clone()
+            bk.super_level(B, li, y, xs)
+            assert getattr(bk.super_level, attr) == before + 1
+            _direct_level(bk, bk.super_level, B, li, y, xd)
+            bk.super_level_plain(B, li, y, xp)
+            torch.cuda.synchronize()
+            assert torch.equal(xs, xp) and torch.equal(xs, xd), (B.upper, li)
+    if levels == "all":
+        z = bk.blocked_ilu0(L, U, y)
+        assert torch.equal(z, _direct_level(bk, bk.blocked_ilu0, L, U, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_table_level_staged_on_a_mesh(card, dt):
+    """#9's mesh form in factor-table mode on a 4-shard mesh: each shard's
+    launch on the staged route in float32 (forced: these shards' grids are
+    too small for table_route_for to take it; float64 has only the direct
+    route) bit-equal to its plain twin and to the direct route, the launch
+    counted in its route's counter."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.parallel import make_mesh
+    route = "staged" if dt == torch.float32 else "direct"
+    _A, (L, U) = _table_pair(card, "hpcg:32x32x32", dt)
+    mesh = make_mesh(4, device=card)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for B in (L, U):
+        MB = bk.shard_superblock(B, mesh)
+        n, R, H = B.n_rows, MB.rows, MB.halo
+        pad = 4 * R - n
+        for li in range(len(B.levels)):
+            y = torch.randn(n, dtype=dt, device=card, generator=g)
+            x = torch.randn(n, dtype=dt, device=card, generator=g)
+            xw = torch.nn.functional.pad(x, (H, pad + H))
+            ys = torch.nn.functional.pad(y, (0, pad)).split(R)
+            for k, Bs in enumerate(MB.shards):
+                win = xw[k * R:(k + 1) * R + 2 * H]
+                ws, wd = win.clone(), win.clone()
+                twin = bk.super_level_halo_plain(Bs, li, ys[k].clone(),
+                                                 win.clone())
+                attr = f"table_{route}_launches"
+                before = getattr(bk.super_level_halo, attr)
+                _on_route(bk, route, bk.super_level_halo, Bs, li,
+                          ys[k].clone(), ws)
+                owns = Bs.lines[li][1] > Bs.lines[li][0]
+                assert getattr(bk.super_level_halo, attr) == before + owns
+                _direct_level(bk, bk.super_level_halo, Bs, li,
+                              ys[k].clone(), wd)
+                torch.cuda.synchronize()
+                assert torch.equal(ws, twin) and torch.equal(ws, wd)

@@ -113,3 +113,137 @@ def test_ell_gather_spmv_matches_host(rng):
     x = rng.standard_normal(A.n_rows)
     np.testing.assert_allclose(tops.spmv(E, torch.from_numpy(x)).numpy(),
                                A.spmv(x), rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The counted routes' stored arrays (row_len, idx16)
+# ---------------------------------------------------------------------------
+
+def _counted_reading(M, x):
+    """A plain reading of what the counted kernel routes read: slot plane
+    k adds its product only on the rows with k < row_len, the packed index
+    taken from the 16-bit plane (its unsigned bits)."""
+    plane = M.R * tle.LANES
+    xf = torch.nn.functional.pad(x, (0, plane - M.n_rows))
+    r = torch.arange(M.R).view(M.R, 1)
+    p16 = M.idx16.long() & 0xFFFF
+    lens = M.row_len.long()
+    y = torch.zeros((M.R, tle.LANES), dtype=x.dtype)
+    for k in range(M.K):
+        flat = ((r + p16[k] // tle.LANES - M.S) * tle.LANES
+                + p16[k] % tle.LANES).clamp(0, plane - 1)
+        y = torch.where(k < lens, y + M.vals[k].to(x.dtype) * xf[flat], y)
+    return y.reshape(-1)[:M.n_rows]
+
+
+def _last_nonzero_np(vals):
+    """One plus each row's last nonzero slot, from the planes in numpy."""
+    nz = np.asarray(vals) != 0
+    K = nz.shape[0]
+    return np.where(nz.any(0), K - np.argmax(nz[::-1], axis=0), 0)
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_counts_and_idx16_from_planes_and_csr(spec, numpy_branch):  # noqa: F811
+    """row_len (one plus the last nonzero-valued slot) and the 16-bit
+    plane, built from CSR by the port and from the JAX package's planes
+    (convert.lane_ell_from_numpy), are equal; the counts match a numpy
+    reading of the planes, the 16-bit plane's bits the int32 indices."""
+    Mt, Mj = _planes(spec, torch.float32, np.float32)
+    Mc = convert.lane_ell_from_numpy(
+        np.asarray(Mj.vals), np.asarray(Mj.idx), Mj.n_rows, Mj.K, Mj.S,
+        Mj.R, dtype=torch.float32, device=CPU)
+    assert Mt.row_len.dtype == torch.uint8 and Mt.K <= 255
+    assert Mt.row_len.shape == (Mt.R, tle.LANES)
+    np.testing.assert_array_equal(Mt.row_len.numpy(),
+                                  _last_nonzero_np(Mt.vals.numpy()))
+    assert torch.equal(Mt.row_len, Mc.row_len)
+    assert Mt.idx16 is not None and tle.route_for(Mt) == "idx16"
+    assert torch.equal(Mt.idx16, Mc.idx16)
+    assert torch.equal(Mt.idx16.int() & 0xFFFF, Mt.idx)
+    # every real entry lies before its row's count
+    A = tgen.from_source(spec)
+    nnz = np.zeros(Mt.R * tle.LANES, dtype=np.int64)
+    nnz[:A.n_rows] = A.row_nnz()
+    assert (Mt.row_len.numpy().reshape(-1) <= nnz).all()
+    assert int(Mt.row_len.long().sum()) <= A.nnz
+
+
+def test_idx16_only_where_the_span_fits():
+    """The 16-bit plane exists for (2S + 1)·128 ≤ 65,535 (S ≤ 255), and
+    route_for takes idx32 beyond; more than 255 slots widen the counts to
+    int32; extended rows count 0."""
+    for S, fits in ((255, True), (256, False)):
+        idx = torch.full((2, 8, tle.LANES), (2 * S + 1) * tle.LANES - 1,
+                         dtype=torch.int32)
+        M = tle.DeviceLaneELL(vals=torch.ones(2, 8, tle.LANES), idx=idx,
+                              n_rows=1000, n_cols=1000, K=2, S=S, R=8)
+        assert (M.idx16 is not None) == fits
+        assert tle.route_for(M) == ("idx16" if fits else "idx32")
+        if fits:
+            assert int(M.idx16.int()[0, 0, 0]) & 0xFFFF == 65407
+    vals = torch.zeros(300, 8, tle.LANES)
+    vals[299, 3, 5] = 1.0
+    M = tle.DeviceLaneELL(vals=vals, idx=torch.zeros(300, 8, tle.LANES,
+                                                     dtype=torch.int32),
+                          n_rows=1000, n_cols=1000, K=300, S=0, R=8)
+    assert M.row_len.dtype == torch.int32 and int(M.row_len[3, 5]) == 300
+    M = tle.csr_to_lane_ell(tgen.from_source("sband:1500,6,260"),
+                            device=CPU)
+    E = tle.lane_ell_extend_rows(M, M.R + tle.lane_ell_row_tile(M.n_rows,
+                                                                 M.S))
+    assert E.R > M.R and int(E.row_len[M.R:].sum()) == 0
+    assert torch.equal(E.row_len[:M.R], M.row_len)
+
+
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_counted_reading_bit_equal_plain(spec, dtype, rng):
+    """Stopping each row at its count changes no bit of y for finite x:
+    the counted reading equals lane_ell_spmv_plain (x float64 over bf16
+    values)."""
+    M = tle.csr_to_lane_ell(tgen.from_source(spec), dtype, device=CPU)
+    xdt = torch.float64 if dtype == torch.bfloat16 else dtype
+    x = torch.from_numpy(rng.standard_normal(M.n_rows)).to(xdt)
+    assert torch.equal(_counted_reading(M, x), tle.lane_ell_spmv_plain(M, x))
+
+
+@pytest.mark.parametrize("spec", ["sband:1500,6,260", "fdm:16"])
+def test_counted_reading_matches_xla(spec, rng, numpy_branch):  # noqa: F811
+    """The counted reading of the port's planes against the JAX package's
+    lane_ell_spmv_xla on the same numpy x, float64 (rtol 1e-14, as the
+    plain version's test)."""
+    Mt, Mj = _planes(spec, torch.float64, np.float64)
+    x = rng.standard_normal(Mt.n_rows)
+    yj = np.asarray(jle.lane_ell_spmv_xla(Mj, jnp.asarray(x)))
+    yt = _counted_reading(Mt, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(yt, yj, rtol=1e-14,
+                               atol=1e-14 * np.abs(yj).max())
+
+
+def test_nonfinite_x_at_a_pad_column_departs(rng):
+    """The departure by design: a NaN or Inf of x at a column that a
+    skipped (pad) slot points at reaches y in the plain version (0·Inf)
+    and not in the counted reading; only rows with such a skipped slot
+    differ, and every other row is bit-equal."""
+    M = tle.csr_to_lane_ell(tgen.from_source("sband:1500,6,260"),
+                            torch.float64, device=CPU)
+    plane = M.R * tle.LANES
+    r = torch.arange(M.R).view(M.R, 1)
+    cols = ((r + M.idx.long() // tle.LANES - M.S) * tle.LANES
+            + M.idx.long() % tle.LANES).clamp(0, plane - 1)
+    k = torch.arange(M.K).view(M.K, 1, 1)
+    skipped = k >= M.row_len.long()
+    j = int(cols[skipped].min())            # a column some pad points at
+    x = torch.from_numpy(rng.standard_normal(M.n_rows))
+    x[j] = float("inf")
+    yp = tle.lane_ell_spmv_plain(M, x)
+    yc = _counted_reading(M, x)
+    hit = (skipped & (cols == j)).any(0).reshape(-1)[:M.n_rows]
+    differ = ~((yp == yc) | (yp.isnan() & yc.isnan()))
+    assert hit.any() and differ.any()
+    assert not (differ & ~hit).any()
+    # 0·Inf is NaN in the plain version; the counted reading keeps what
+    # the real entries give (finite, or ±Inf where one of them reads x[j])
+    assert torch.isnan(yp[differ]).all() and not yc[differ].isnan().any()

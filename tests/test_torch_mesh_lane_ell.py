@@ -69,3 +69,46 @@ def test_mesh_lane_ell_solves_match_jax(case, numpy_branch):  # noqa: F811
         carr = s8.color_arr if precond == "NONE" else s8.M.color_arr
         assert carr is not None and carr.shape == (At.n_rows,)
     _check(bt.solve(s8), r1)
+
+
+@pytest.mark.parametrize("spec", ["sband:2048,6,200", "sband:3000,8,1400"])
+def test_shards_carry_counts_and_idx16(spec, rng):
+    """Each shard's 16-bit plane is its window of the whole one, the
+    inert extension rows count 0, and a counted reading of each shard
+    (rows [r0, r0 + rows) of row_len, indices from its 16-bit plane,
+    from its x window) is bit-equal to lane_ell_spmv_halo_plain."""
+    import numpy as np
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell as tle
+    from basic_iterative_solvers_tpu_torch.parallel.sharded import (
+        _halo_exchange, _split)
+    M = tle.csr_to_lane_ell(bt.generators.from_source(spec), torch.float64,
+                            device=CPU)
+    mesh = make_mesh(8, device=CPU)
+    W = tmo.wrap_lane_ell(M, mesh, "rows")
+    E, R = W.inner, W.rows
+    assert int(E.row_len[M.R:].sum()) == 0
+    assert torch.equal(E.row_len[:M.R], M.row_len)
+    x = torch.from_numpy(rng.standard_normal(M.n_rows))
+    h = E.S * tle.LANES
+    xp = torch.nn.functional.pad(x, (0, E.R * tle.LANES - M.n_rows))
+    wins = _halo_exchange(mesh, _split(xp, 8), h, h)
+    plane = E.R * tle.LANES
+    for k in range(8):
+        r0 = k * R
+        assert torch.equal(W.idx16_shards[k], E.idx16[:, r0:r0 + R])
+        p = W.idx16_shards[k].long() & 0xFFFF
+        lens = E.row_len[r0:r0 + R].long()
+        r = (r0 + torch.arange(R)).view(R, 1)
+        y = torch.zeros((R, tle.LANES), dtype=x.dtype)
+        for s in range(E.K):
+            flat = ((r + p[s] // tle.LANES - E.S) * tle.LANES
+                    + p[s] % tle.LANES).clamp(0, plane - 1)
+            xv = torch.where(flat < E.n_rows,
+                             wins[k][flat - (r0 - E.S) * tle.LANES], 0.0)
+            y = torch.where(s < lens, y + W.vals_shards[k][s] * xv, y)
+        assert torch.equal(y.reshape(-1), tle.lane_ell_spmv_halo_plain(
+            E, W.vals_shards[k], W.idx_shards[k], wins[k], r0, E.S))
+    assert np.isclose(float(torch.cat([tle.lane_ell_spmv_halo_plain(
+        E, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, E.S)
+        for k in range(8)])[:M.n_rows].sum()), float(
+        tle.lane_ell_spmv_plain(M, x).sum()))

@@ -176,7 +176,11 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "stencil_gs_color_step_halo_kernel": "spmv",
             "dia_spmv_halo_kernel": "spmv",
             "lane_ell_spmv_halo_kernel": "spmv",
-            "super_level_kernel": "sptrsv", "super_acc_kernel": "sptrsv",
+            "lane_ell_spmv_padded_kernel": "spmv",
+            "lane_ell_spmv_halo_padded_kernel": "spmv",
+            "super_level_kernel": "sptrsv",
+            "super_level_staged_kernel": "sptrsv",
+            "super_acc_kernel": "sptrsv",
             "super_parity_kernel": "sptrsv",
             "super_solve_mega_kernel": "sptrsv",
             "rank_level_kernel": "sptrsv",
@@ -250,3 +254,26 @@ def test_profile_functions_return_none_on_the_cpu():
     assert profile.measure_phase_table(method, 5) is None
     assert profile.attach_iteration_times(res, method) is False
     assert res.uniform_iteration_times
+
+
+def test_lost_launches_and_the_miss_report(tmp_path):
+    """lost_launches counts the host's kernel launches whose device record
+    a trace lacks (copies and other runtime calls aside); a trace with no
+    name exactly n_iters times reports its device events, the nearest
+    counts and those lost launches."""
+    events = [{"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+               "ts": i, "dur": 1, "args": {"correlation": i}}
+              for i in range(5)]
+    events += [{"ph": "X", "cat": "kernel", "name": "k", "ts": 10 + i,
+                "dur": 1, "args": {"correlation": i}} for i in (0, 2, 3)]
+    events.append({"ph": "X", "cat": "cuda_runtime",
+                   "name": "cudaMemcpyAsync", "ts": 0, "dur": 1,
+                   "args": {"correlation": 9}})
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert profile.lost_launches(str(path)) == 2
+    why = []
+    assert profile.iteration_times_from_trace(str(path), 4, why) is None
+    assert why == ["3 device events, n_iters=4, nearest counts: 3 x k; "
+                   "2 launches without a device record"]
+    assert profile.iteration_times_from_trace(str(path), 3).size == 3
