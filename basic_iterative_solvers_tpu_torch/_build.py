@@ -110,8 +110,8 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _library_path(flags=NVCC_FLAGS) -> Path:
-    h = hashlib.sha256(" ".join(flags).encode())
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libbis_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -130,18 +130,17 @@ def _run(cmds):
                                f"{' '.join(cmd)}\n{out}")
 
 
-def build(flags=NVCC_FLAGS) -> Path:
-    """Compile the kernel library with `flags` unless a build of these
-    sources and flags exists; returns its path.  Raises, naming the
-    command, if the build fails."""
-    lib = _library_path(flags)
+def build() -> Path:
+    """Compile the kernel library unless a build of these sources exists;
+    returns its path.  Raises, naming the command, if the build fails."""
+    lib = _library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
-        _run([[nvcc, *flags, "-c", "-o", obj, str(src)]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
               for obj, src in zip(objs, SOURCES)])
         out = os.path.join(tmp, lib.name)
         _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs]])
@@ -153,12 +152,7 @@ def build(flags=NVCC_FLAGS) -> Path:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argument and result types declared."""
-    return declare(ctypes.CDLL(str(build())))
-
-
-def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare every entry point's argument and result types on a loaded
-    kernel library and check its launch-table layouts; returns it."""
+    lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
     i64, i32 = ctypes.c_longlong, ctypes.c_int
     # "_bf16": the form that takes bfloat16 matrix data (a stencil's
@@ -220,17 +214,15 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"bis_lane_ell_spmv_{dt}")
         fn.argtypes = [i32] + [ptr] * 5 + [i64, i64] + [i32] * 3 + [ptr]
         fn.restype = i32
-        fn = getattr(lib, f"bis_lane_ell_spmv_{dt}_padded")
-        fn.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
-        fn.restype = i32
         # ..., rows, r0, halo, n, plane, S, wlen, idx_bytes, len_bytes
         fn = getattr(lib, f"bis_lane_ell_spmv_halo_{dt}")
         fn.argtypes = [i32] + [ptr] * 5 + [i64] * 5 + [i32, i64, i32, i32,
                                                          ptr]
         fn.restype = i32
+        # the padded route: ..., plane, K, S, wlen, idx_bytes
         fn = getattr(lib, f"bis_lane_ell_spmv_halo_{dt}_padded")
         fn.argtypes = [i32, ptr, ptr, ptr, ptr] + [i64] * 5 + [i32, i32, i64,
-                                                              ptr]
+                                                              i32, ptr]
         fn.restype = i32
     for dt in ("f32", "f64"):
         level = ctypes.POINTER(SuperLevelArgs)

@@ -327,31 +327,21 @@ super_level_kernel(const __grid_constant__ BisSuperLevelArgs a, const T* y,
 }
 
 // Factor-table mode, staged route (see the top of the file).  Its own
-// block shape: bx = min(BIS_SL_STAGED_BX, nx rounded up to a warp)
-// threads along x, 256 / bx lines a block, one line a row of threads (by
-// default a warp a line: 32 wide ran faster than 64 and 128 at 128^3 and
-// 384^3, more rows a thread over the same per-thread set-up).
-// Dynamic shared memory: the block's lines (256 / bx x nx values), the
-// x-class of each x (nx ints, padded to 16 bytes), and, with
-// BIS_SL_STAGE_FACTORS (the default), each line's factors of every leg and
-// x-class and its pivots ((n_legs + 1) x proto_x values a line); with it
-// unset the factors are read from the table through L1.  Both are
-// build-time switches that scripts/kernel_variants.py times against each
-// other.  NCB is the cross-leg bucket: interior rows unroll NCB predicated
-// legs (0, 8, 16, 24 or 27), so a level with few cross legs issues no
-// instructions for the rest.
-#ifndef BIS_SL_STAGE_FACTORS
-#define BIS_SL_STAGE_FACTORS 1
-#endif
-#ifndef BIS_SL_STAGED_BX
+// block shape: bx = min(32, nx rounded up to a warp) threads along x,
+// 256 / bx lines a block, one line a row of threads: a warp a line (32
+// wide ran faster than 64 at 128^3 and 384^3: more rows a thread over the
+// same per-thread set-up).  Dynamic shared memory: the block's lines
+// (256 / bx x nx values), the x-class of each x (nx ints, padded to 16
+// bytes) and each line's factors of every leg and x-class and its pivots
+// ((n_legs + 1) x proto_x values a line; staged, they ran faster than
+// reads of the table through L1).  NCB is the cross-leg bucket: interior
+// rows unroll NCB predicated legs (0, 8, 16, 24 or 27), so a level with
+// few cross legs issues no instructions for the rest.  Its registers are
+// sized for 4 blocks an SM (__launch_bounds__): that holds the 24-leg
+// bucket to 64 registers, where it runs fastest (left to itself ptxas
+// gives it 95, 2 blocks an SM; sized for 5 or more it spills).
 #define BIS_SL_STAGED_BX 32
-#endif
-// Blocks an SM the compiler sizes the kernel's registers for: 4 holds the
-// 24-leg bucket to 64 registers, where it runs fastest (left to itself
-// ptxas gives it 95, 2 blocks an SM; with 5 or more it spills).
-#ifndef BIS_SL_MIN_BLOCKS
 #define BIS_SL_MIN_BLOCKS 4
-#endif
 
 // The most dynamic shared memory a staged launch takes (no opt-in needed).
 #define BIS_SL_STAGED_SMEM_MAX (48 * 1024)
@@ -363,37 +353,10 @@ static int staged_bx(const BisSuperLevelArgs& a) {
 
 static size_t staged_smem(const BisSuperLevelArgs& a) {
     const size_t lines = 256 / staged_bx(a);
-    size_t b = lines * a.nx * sizeof(float)
-               + (size_t)((a.nx + 3) & ~3) * sizeof(int);
-#if BIS_SL_STAGE_FACTORS
-    b += lines * (a.n_cross + a.n_self + 1) * a.proto_x * sizeof(float);
-#endif
-    return b;
+    return lines * a.nx * sizeof(float)
+           + (size_t)((a.nx + 3) & ~3) * sizeof(int)
+           + lines * (a.n_cross + a.n_self + 1) * a.proto_x * sizeof(float);
 }
-
-// The factor of leg l (table row kd) at x-class cx of the line whose
-// (y, z) classes give table column cyz; l = n_legs: the line's pivot.
-template <typename T>
-struct LineFactors {
-    const T* table;
-    const T* tdinv;
-    const T* fac;
-    int cyz, n_proto, Px;
-    __device__ __forceinline__ T leg(int kd, int l, int cx) const {
-#if BIS_SL_STAGE_FACTORS
-        return fac[l * Px + cx];
-#else
-        return __ldg(table + kd * n_proto + cyz + cx);
-#endif
-    }
-    __device__ __forceinline__ T pivot(int l, int cx) const {
-#if BIS_SL_STAGE_FACTORS
-        return fac[l * Px + cx];
-#else
-        return __ldg(tdinv + cyz + cx);
-#endif
-    }
-};
 
 template <typename T, int NCB>
 __global__ void __launch_bounds__(256, BIS_SL_MIN_BLOCKS)
@@ -409,34 +372,26 @@ super_level_staged_kernel(const __grid_constant__ BisSuperLevelArgs a,
     for (int gx = tid; gx < nx; gx += bx * blockDim.y)
         cls[gx] = proto_class(gx, nx, Px, a.sx, a.radius);
     const LevelRow r = level_line(a, blockIdx.x * blockDim.y + threadIdx.y);
-    LineFactors<T> F;
-    F.table = table;
-    F.tdinv = tdinv;
-    F.n_proto = a.n_proto;
-    F.Px = Px;
-    F.cyz = Px * (proto_class(r.gy, a.ny, a.proto_y, a.sy, a.radius)
-                  + a.proto_y * proto_class(r.gz, a.nz, a.proto_z, a.sz,
-                                            a.radius));
-    F.fac = nullptr;
-#if BIS_SL_STAGE_FACTORS
-    {
-        T* const fac = reinterpret_cast<T*>(cls + ((nx + 3) & ~3))
-                       + threadIdx.y * (nc + ns + 1) * Px;
-        if (r.live) {
-            for (int l = 0; l < nc + ns; ++l) {
-                const T* const row = table + (long long)(
-                    l < nc ? a.cross_kd[l] : a.self_kd[l - nc]) * a.n_proto
-                    + F.cyz;
-                for (int c = threadIdx.x; c < Px; c += bx)
-                    fac[l * Px + c] = row[c];
-            }
-            if (tdinv)
-                for (int c = threadIdx.x; c < Px; c += bx)
-                    fac[(nc + ns) * Px + c] = tdinv[F.cyz + c];
+    // the line's factors: fac[l * Px + cx] of leg l (cross legs, then self
+    // legs) at x-class cx; fac[(nc + ns) * Px + cx] its pivot
+    T* const fac = reinterpret_cast<T*>(cls + ((nx + 3) & ~3))
+                   + threadIdx.y * (nc + ns + 1) * Px;
+    if (r.live) {
+        const int cyz = Px * (proto_class(r.gy, a.ny, a.proto_y, a.sy,
+                                          a.radius)
+                              + a.proto_y * proto_class(r.gz, a.nz, a.proto_z,
+                                                        a.sz, a.radius));
+        for (int l = 0; l < nc + ns; ++l) {
+            const T* const row = table + (long long)(
+                l < nc ? a.cross_kd[l] : a.self_kd[l - nc]) * a.n_proto
+                + cyz;
+            for (int c = threadIdx.x; c < Px; c += bx)
+                fac[l * Px + c] = row[c];
         }
-        F.fac = fac;
+        if (tdinv)
+            for (int c = threadIdx.x; c < Px; c += bx)
+                fac[(nc + ns) * Px + c] = tdinv[cyz + c];
     }
-#endif
     __syncthreads();
     T* const line = lines + threadIdx.y * nx;
     if (r.live) {
@@ -456,8 +411,8 @@ super_level_staged_kernel(const __grid_constant__ BisSuperLevelArgs a,
 #pragma unroll
                     for (int l = 0; l < NCB; ++l)
                         if (l < nc)
-                            acc = sub_rn(acc, mul_rn(
-                                F.leg(a.cross_kd[l], l, cx), xv[l]));
+                            acc = sub_rn(acc, mul_rn(fac[l * Px + cx],
+                                                     xv[l]));
                 } else {
                     for (int l = 0; l < nc; ++l) {
                         const int px = gx + a.cross_dx[l],
@@ -466,8 +421,7 @@ super_level_staged_kernel(const __grid_constant__ BisSuperLevelArgs a,
                         if (px >= 0 && px < nx && py >= 0 && py < a.ny &&
                             pz >= 0 && pz < a.nz)
                             acc = sub_rn(acc, mul_rn(
-                                F.leg(a.cross_kd[l], l, cx),
-                                xr[(int)a.cross_off[l]]));
+                                fac[l * Px + cx], xr[(int)a.cross_off[l]]));
                     }
                 }
             }
@@ -491,10 +445,10 @@ super_level_staged_kernel(const __grid_constant__ BisSuperLevelArgs a,
                 for (int l = 0; l < ns; ++l) {
                     const int px = gx + a.self_dx[l];
                     if ((solved >> l & 1u) && px >= 0 && px < nx)
-                        v = sub_rn(v, mul_rn(F.leg(a.self_kd[l], nc + l, cx),
+                        v = sub_rn(v, mul_rn(fac[(nc + l) * Px + cx],
                                              line[px]));
                 }
-                line[gx] = tdinv ? mul_rn(v, F.pivot(nc + ns, cx)) : v;
+                line[gx] = tdinv ? mul_rn(v, fac[(nc + ns) * Px + cx]) : v;
             }
         }
         __syncthreads();

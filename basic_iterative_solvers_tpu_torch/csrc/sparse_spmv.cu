@@ -45,10 +45,7 @@
 // nonzero terms is never -0), so y stays bit-equal to the plain version
 // for finite x.  Only a NaN or +-Inf in x at a skipped slot's column,
 // which the plain version and the JAX kernel carry into y as 0*Inf, does
-// not reach y here.  lane_ell_spmv_padded_kernel, the first port's loop
-// over all K slots with int32 indices, keeps that behaviour; it is the
-// "padded" route (ops/lane_ell.route_for), the baseline the counted
-// routes are timed against.
+// not reach y here.
 //
 // Matrix data in bfloat16 (the JAX package's --matrix-dtype bfloat16, its
 // products promoting to the vector dtype, ops/pallas_spmv.py:142-143): a
@@ -100,16 +97,6 @@ dia_spmv_kernel(const __grid_constant__ BisDiaArgs a, const M* data,
     y[i] = acc;
 }
 
-// The counted kernels walk a row's slots in chunks of BIS_LE_CHUNK, each
-// chunk unrolled with its slots past the count predicated off.  1, a plain
-// loop, is the fastest on the H100 (chunks of 4 and 8 issue a chunk's
-// loads together but ran 2.1-2.2x slower on sband, and slower on a mesh
-// shard too: scripts/kernel_variants.py); a build-time switch for that
-// script.
-#ifndef BIS_LE_CHUNK
-#define BIS_LE_CHUNK 1
-#endif
-
 // x at packed index p of a row of x2-row r: the column clipped into the
 // planes, 0 past n (the plain version's zero padding).
 template <typename T>
@@ -132,36 +119,10 @@ lane_ell_spmv_kernel(const M* __restrict__ vals, const I* __restrict__ idx,
     const long long r = i >> 7;
     const int len = (int)row_len[i];
     T acc = T(0);
-    for (int k0 = 0; k0 < len; k0 += BIS_LE_CHUNK) {
-#pragma unroll
-        for (int u = 0; u < BIS_LE_CHUNK; ++u) {
-            const int k = k0 + u;
-            if (k < len) {
-                const long long s = (long long)k * plane + i;
-                acc = add_rn(acc, mul_rn(T(widen(vals[s])),
-                                         lane_x(x, r, (int)idx[s], S, n,
-                                                plane)));
-            }
-        }
-    }
-    y[i] = acc;
-}
-
-template <typename T, typename M>
-__global__ void __launch_bounds__(256)
-lane_ell_spmv_padded_kernel(const M* vals, const int* idx, const T* x, T* y,
-                            long long n, long long plane, int K, int S) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long long r = i >> 7;
-    T acc = T(0);
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < len; ++k) {
         const long long s = (long long)k * plane + i;
-        const int p = idx[s];
-        long long j = (r + (p >> 7) - S) * 128 + (p & 127);
-        j = j < 0 ? 0 : (j > plane - 1 ? plane - 1 : j);
-        const T xv = j < n ? x[j] : T(0);
-        acc = add_rn(acc, mul_rn(T(widen(vals[s])), xv));
+        acc = add_rn(acc, mul_rn(T(widen(vals[s])),
+                                 lane_x(x, r, (int)idx[s], S, n, plane)));
     }
     y[i] = acc;
 }
@@ -191,7 +152,11 @@ lane_ell_spmv_padded_kernel(const M* vals, const int* idx, const T* x, T* y,
 // read as 0 past n, then looked up in the window: every slot reads the
 // value the single-device kernel reads.  Its counted form reads the
 // shard's rows of row_len and stops there as the single-device kernel
-// does; its padded form reads all K slots.
+// does; its padded form reads all K slots, and is the route of a launch
+// too small to fill the card (ops/lane_ell.halo_route_for): with a few
+// blocks an SM the counted loop, whose loads wait on the count's, ran
+// slower on the H100 than the padded one.  Both take 16-bit or int32
+// indices.
 //
 // Bound: bytes, as the single-device forms, plus the window's halo.
 // ---------------------------------------------------------------------------
@@ -239,24 +204,18 @@ lane_ell_spmv_halo_kernel(const M* __restrict__ vals,
     const long long base = (r0 - halo) * 128;
     const int len = (int)row_len[t];
     T acc = T(0);
-    for (int k0 = 0; k0 < len; k0 += BIS_LE_CHUNK) {
-#pragma unroll
-        for (int u = 0; u < BIS_LE_CHUNK; ++u) {
-            const int k = k0 + u;
-            if (k < len) {
-                const long long s = (long long)k * rows + t;
-                acc = add_rn(acc, mul_rn(T(widen(vals[s])),
-                                         lane_xw(xw, r, (int)idx[s], S, n,
-                                                 plane, base, wlen)));
-            }
-        }
+    for (int k = 0; k < len; ++k) {
+        const long long s = (long long)k * rows + t;
+        acc = add_rn(acc, mul_rn(T(widen(vals[s])),
+                                 lane_xw(xw, r, (int)idx[s], S, n, plane,
+                                         base, wlen)));
     }
     y[t] = acc;
 }
 
-template <typename T, typename M>
+template <typename T, typename M, typename I>
 __global__ void __launch_bounds__(256)
-lane_ell_spmv_halo_padded_kernel(const M* vals, const int* idx, const T* xw,
+lane_ell_spmv_halo_padded_kernel(const M* vals, const I* idx, const T* xw,
                                  T* y, long long rows, long long r0,
                                  long long halo, long long n,
                                  long long plane, int K, int S,
@@ -268,7 +227,7 @@ lane_ell_spmv_halo_padded_kernel(const M* vals, const int* idx, const T* xw,
     T acc = T(0);
     for (int k = 0; k < K; ++k) {
         const long long s = (long long)k * rows + t;
-        const int p = idx[s];
+        const int p = (int)idx[s];
         long long j = (r + (p >> 7) - S) * 128 + (p & 127);
         j = j < 0 ? 0 : (j > plane - 1 ? plane - 1 : j);
         const long long jw = j - base;
@@ -317,18 +276,6 @@ static int launch_lane_ell(int device, const M* vals, const void* idx,
 }
 
 template <typename T, typename M>
-static int launch_lane_ell_padded(int device, const M* vals, const int* idx,
-                                  const T* x, T* y, long long n,
-                                  long long plane, int K, int S,
-                                  cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
-    lane_ell_spmv_padded_kernel<T, M><<<blocks_for(n), 256, 0, stream>>>(
-        vals, idx, x, y, n, plane, K, S);
-    return (int)cudaGetLastError();
-}
-
-template <typename T, typename M>
 static int launch_dia_halo(int device, const BisDiaArgs* a, const M* data,
                            const T* xw, T* y, long long hneg, long long wlen,
                            cudaStream_t stream) {
@@ -366,16 +313,22 @@ static int launch_lane_ell_halo(int device, const M* vals, const void* idx,
 
 template <typename T, typename M>
 static int launch_lane_ell_halo_padded(int device, const M* vals,
-                                       const int* idx, const T* xw, T* y,
+                                       const void* idx, const T* xw, T* y,
                                        long long rows, long long r0,
                                        long long halo, long long n,
                                        long long plane, int K, int S,
-                                       long long wlen, cudaStream_t stream) {
+                                       long long wlen, int idx_bytes,
+                                       cudaStream_t stream) {
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return (int)set;
-    lane_ell_spmv_halo_padded_kernel<T, M><<<blocks_for(rows), 256, 0,
-                                             stream>>>(
-        vals, idx, xw, y, rows, r0, halo, n, plane, K, S, wlen);
+    const unsigned grid = blocks_for(rows);
+#define BIS_LE_CASE(I)                                                       \
+    lane_ell_spmv_halo_padded_kernel<T, M, I><<<grid, 256, 0, stream>>>(     \
+        vals, (const I*)idx, xw, y, rows, r0, halo, n, plane, K, S, wlen)
+    if (idx_bytes == 2) BIS_LE_CASE(unsigned short);
+    else if (idx_bytes == 4) BIS_LE_CASE(int);
+    else return (int)cudaErrorInvalidValue;
+#undef BIS_LE_CASE
     return (int)cudaGetLastError();
 }
 
@@ -395,7 +348,7 @@ BIS_DIA_ENTRY(bis_dia_spmv_f64_bf16, double, __nv_bfloat16)
 // plane = R*128, the entries of one slot plane (R padded x2 rows); idx the
 // packed index plane of idx_bytes (2: unsigned 16-bit, 4: int32) an
 // entry, row_len the rows' counts of len_bytes (1: unsigned byte, 4:
-// int32) each.  _padded: the loop over all K slots, int32 indices.
+// int32) each.
 #define BIS_LANE_ELL_ENTRY(NAME, T, M)                                       \
     int NAME(int device, const M* vals, const void* idx,                    \
              const void* row_len, const T* x, T* y, long long n,            \
@@ -404,13 +357,6 @@ BIS_DIA_ENTRY(bis_dia_spmv_f64_bf16, double, __nv_bfloat16)
         return launch_lane_ell<T, M>(device, vals, idx, row_len, x, y, n,   \
                                      plane, S, idx_bytes, len_bytes,        \
                                      (cudaStream_t)stream);                 \
-    }                                                                       \
-    int NAME##_padded(int device, const M* vals, const int* idx,            \
-                      const T* x, T* y, long long n, long long plane,       \
-                      int K, int S, void* stream) {                         \
-        return launch_lane_ell_padded<T, M>(device, vals, idx, x, y, n,     \
-                                            plane, K, S,                    \
-                                            (cudaStream_t)stream);          \
     }
 BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f32, float, float)
 BIS_LANE_ELL_ENTRY(bis_lane_ell_spmv_f64, double, double)
@@ -444,13 +390,13 @@ BIS_DIA_HALO_ENTRY(bis_dia_spmv_halo_f64_bf16, double, __nv_bfloat16)
                                           wlen, idx_bytes, len_bytes,       \
                                           (cudaStream_t)stream);            \
     }                                                                       \
-    int NAME##_padded(int device, const M* vals, const int* idx,            \
+    int NAME##_padded(int device, const M* vals, const void* idx,           \
                       const T* xw, T* y, long long rows, long long r0,      \
                       long long halo, long long n, long long plane, int K,  \
-                      int S, long long wlen, void* stream) {                \
+                      int S, long long wlen, int idx_bytes, void* stream) { \
         return launch_lane_ell_halo_padded<T, M>(                           \
             device, vals, idx, xw, y, rows, r0, halo, n, plane, K, S, wlen, \
-            (cudaStream_t)stream);                                          \
+            idx_bytes, (cudaStream_t)stream);                               \
     }
 BIS_LANE_ELL_HALO_ENTRY(bis_lane_ell_spmv_halo_f32, float, float)
 BIS_LANE_ELL_HALO_ENTRY(bis_lane_ell_spmv_halo_f64, double, double)

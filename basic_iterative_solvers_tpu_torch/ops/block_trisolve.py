@@ -112,7 +112,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import torch_dtype
-from ..stencil_op import _rounded, stencil_shard_rows
+from ..stencil_op import _rounded, sm_count, stencil_shard_rows
 
 #: threads per kernel block (csrc/block_trisolve.cu: __launch_bounds__)
 _BLOCK_THREADS = 256
@@ -195,7 +195,8 @@ class SuperBlockTriSolve:
     dinv_rows: Optional[torch.Tensor] = None
     d_rows: Optional[torch.Tensor] = None
     unit: bool = False
-    #: the kernels' launch tables per level, built at first launch
+    #: the kernels' launch tables per level, and each factor-table level's
+    #: route (table_route_for), built at first launch
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -231,7 +232,8 @@ class SuperBlockShard:
     vals_self: Optional[Tuple] = None
     dinv_rows: Optional[torch.Tensor] = None
     d_rows: Optional[torch.Tensor] = None
-    #: the kernel's launch tables per level, built at first launch
+    #: the kernel's launch tables per level, and each factor-table level's
+    #: route (table_route_for), built at first launch
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -1078,40 +1080,44 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def table_route_for(B: SuperBlockTriSolve, li: int, itemsize: int,
-                    args=None, device=None) -> str:
-    """The route of a launch of factor-table level li (launch table `args`,
-    a whole level's by default or a mesh shard's) on `device` for vectors
-    of `itemsize` bytes: "staged" for float32 where the kernel's shared
-    memory takes the level's lines and factors (at most 48 KB), its row
-    offsets fit 32 bits and its grid has a block for every SM
-    (csrc/block_trisolve.cu: bis_super_level_staged_grid; it runs 8 lines
-    a block, so a mesh shard's launch at 128³ has 64 blocks, and there
-    the direct route, 2 lines a block, ran faster); else "direct" (in
-    float64 the staged kernel needs twice the registers and shared memory
-    a row, and the direct route ran faster on the H100 at 128³).  The
-    shape, type and card alone decide."""
-    if itemsize != 4 or B.n_rows >= 2 ** 31:
-        return "direct"
-    from .._build import load_library
-    args = _level_args(B, li) if args is None else args
-    grid = load_library().bis_super_level_staged_grid(ctypes.byref(args))
+                    shard: Optional["SuperBlockShard"] = None,
+                    device=None) -> str:
+    """The route of a launch of factor-table level li (the whole level's,
+    or mesh shard `shard`'s part) on `device` for vectors of `itemsize`
+    bytes: "staged" for float32 where the kernel's shared memory takes the
+    level's lines and factors (at most 48 KB), its row offsets fit 32 bits
+    and its grid has a block for every SM (csrc/block_trisolve.cu:
+    bis_super_level_staged_grid; it runs 8 lines a block, so a mesh
+    shard's launch at 128³ has 64 blocks, and there the direct route, 2
+    lines a block, ran faster); else "direct" (in float64 the staged
+    kernel needs twice the registers and shared memory a row, and the
+    direct route ran faster on the H100 at 128³).  The shape, type and
+    card alone decide: worked out at the first launch and kept with the
+    launch table (B's, or the shard's)."""
     index = torch.cuda.current_device() if device is None else device.index
-    return "staged" if grid >= _sm_count(index) else "direct"
+    cache = B._args if shard is None else shard._args
+    key = ("route", li, itemsize, index)
+    if key not in cache:
+        route = "direct"
+        if itemsize == 4 and B.n_rows < 2 ** 31:
+            from .._build import load_library
+            args = _level_args(B, li) if shard is None else _shard_args(
+                shard, li)
+            grid = load_library().bis_super_level_staged_grid(
+                ctypes.byref(args))
+            route = "staged" if grid >= sm_count(index) else "direct"
+        cache[key] = route
+    return cache[key]
 
 
 def _launch_level(B: SuperBlockTriSolve, li: int, args, y, x, counter,
-                  vc=None, vs=None, drows=None, operands=None):
-    """One level launch with the launch table `args` (a whole level's or
-    a shard's), counted on `counter` (super_level or super_level_halo):
-    factor-table mode on `table_route_for`'s route."""
+                  vc=None, vs=None, drows=None, operands=None, shard=None):
+    """One level launch with the launch table `args` (the whole level's,
+    or mesh shard `shard`'s), counted on `counter` (super_level or
+    super_level_halo): factor-table mode on `table_route_for`'s route."""
     if B.is_table:
-        route = table_route_for(B, li, x.element_size(), args, x.device)
+        route = table_route_for(B, li, x.element_size(), shard, x.device)
         if route == "staged":
             _cuda_call(B, "super_level_staged", x, ctypes.byref(args),
                        y.data_ptr(), x.data_ptr(), _ptr(B.table),
@@ -1806,7 +1812,8 @@ def super_level_halo(Bs: SuperBlockShard, li: int, y: torch.Tensor,
         vc = Bs.vals_cross[li] if B.is_plane else None
         vs = Bs.vals_self[li] if B.is_plane else None
         _launch_level(B, li, _shard_args(Bs, li), y, x, super_level_halo,
-                      vc, vs, Bs.dinv_rows, operands=(vc, vs, Bs.dinv_rows))
+                      vc, vs, Bs.dinv_rows, operands=(vc, vs, Bs.dinv_rows),
+                      shard=Bs)
         return x
     if x.device.type == "cpu":
         return super_level_halo_plain(Bs, li, y, x)

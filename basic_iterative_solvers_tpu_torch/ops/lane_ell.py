@@ -25,24 +25,25 @@ Pallas `_lane_ell_kernel_call`) or raises, counting launches in
 `lane_ell_spmv.launches`; on a CPU tensor it runs `lane_ell_spmv_plain`,
 the JAX package's XLA form (slot by slot, ascending), which the kernel
 follows bit for bit for finite x.  The kernel stops each row at its count,
-on one of three routes (`route_for`, chosen by shape before the launch
-and counted apart in `.idx16_launches`, `.idx32_launches` and
-`.padded_launches`): "idx16" reads the 16-bit indices, "idx32" (spans
-too wide for 16 bits) the int32 ones, and "padded", the first port's loop
-over all K slots, is the baseline `chip_smoke.py` times them against.
+on one of two routes (`route_for`, chosen by shape before the launch and
+counted apart in `.idx16_launches` and `.idx32_launches`): "idx16" reads
+the 16-bit indices, "idx32" (spans too wide for 16 bits) the int32 ones.
 Skipping a pad slot adds nothing a finite x could change; a NaN or ±Inf
 of x at a skipped slot's column, which the plain version carries into y
-(0·Inf), does not reach y on the counted routes (a departure by design).
+(0·Inf), does not reach y (a departure by design).
 The values may be stored in bfloat16 beside float32 or float64 vectors
 (matrix_dtype), widened before each product; that form's launches are
 counted in `lane_ell_spmv.bf16_launches`.
 
 `lane_ell_spmv_halo` is one mesh shard's SpMV (the JAX package's
 lane_ell_spmv_halo, parallel/mesh_ops.mesh_lane_ell_spmv): the shard's own
-planes and an x window of S x2-rows a side, with its plain version
-`lane_ell_spmv_halo_plain`; it reads the shard's rows of `row_len` and
-takes the routes of `lane_ell_spmv`.  `lane_ell_extend_rows` pads the
-planes with inert rows (count 0) so that they cut into whole shards.
+planes (its index plane in 16 bits or int32) and an x window of S x2-rows
+a side, with its plain version `lane_ell_spmv_halo_plain`.  Its route
+(`halo_route_for`, by the launch's shape, counted in `.counted_launches`
+and `.padded_launches`) stops each row at the shard's rows of `row_len`
+where the launch fills the card, and else reads every slot.
+`lane_ell_extend_rows` pads the planes with inert rows (count 0) so that
+they cut into whole shards.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ import torch
 
 from ..config import kernel_suffix, serves_vectors, torch_dtype
 from ..matrix import MatrixCSR
-from ..stencil_op import resolve_device
+from ..stencil_op import resolve_device, sm_count
 
 #: lanes per plane row
 LANES = 128
@@ -62,8 +63,12 @@ LANES = 128
 _TB = 256
 #: the largest packed index the 16-bit plane holds (unsigned 16 bits)
 IDX16_MAX = 65535
-#: kernel routes (`route_for`)
-ROUTES = ("idx16", "idx32", "padded")
+#: the single-device kernel's routes (`route_for`)
+ROUTES = ("idx16", "idx32")
+#: the shard-local kernel's routes (`halo_route_for`)
+HALO_ROUTES = ("counted", "padded")
+#: blocks of 256 threads an SM holds at once (2048 threads)
+_BLOCKS_PER_SM = 8
 
 
 def lane_ell_row_len(vals: torch.Tensor) -> torch.Tensor:
@@ -219,6 +224,19 @@ def route_for(M: DeviceLaneELL) -> str:
     return "idx16" if M.idx16 is not None else "idx32"
 
 
+def halo_route_for(entries: int, sms: int) -> str:
+    """The route of a shard launch over `entries` rows (x2-rows·128) on a
+    card of `sms` multiprocessors: "counted" (each row stopped at its
+    count, as `lane_ell_spmv`) where its blocks of 256 threads fill every
+    SM (8 resident blocks an SM), else "padded" (every slot).  A launch of
+    a few blocks an SM is bound by latency, and there the padded loop,
+    whose loads do not wait on the count's, ran faster on the H100 (an
+    8-shard sband:500000,8,400: 256 blocks a launch).  The launch's shape
+    and the card alone decide."""
+    blocks = -(-entries // 256)
+    return "counted" if blocks >= _BLOCKS_PER_SM * sms else "padded"
+
+
 def _count(fn, route: str, bf16: bool):
     if bf16:
         fn.bf16_launches += 1
@@ -227,20 +245,11 @@ def _count(fn, route: str, bf16: bool):
     setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
 
 
-def _route_args(route: str, idx: torch.Tensor, idx16, row_len):
-    """(index plane, its bytes an entry, counts' bytes) of a counted
-    route."""
-    if route == "idx16":
-        if idx16 is None:
-            raise ValueError("the idx16 route needs the 16-bit index plane")
-        idx = idx16
-    elif route != "idx32":
-        raise ValueError(f"unknown lane-ELL route {route!r}")
-    for t in (idx, row_len):
+def _contiguous(*tensors):
+    for t in tensors:
         if not t.is_contiguous():
-            raise ValueError("the index plane and the counts must be "
+            raise ValueError("the lane-ELL planes and counts must be "
                              "contiguous")
-    return idx, idx.element_size(), row_len.element_size()
 
 
 def _raise_on(err: int, name: str):
@@ -252,25 +261,22 @@ def _raise_on(err: int, name: str):
 def _lane_ell_spmv_cuda(M: DeviceLaneELL, x: torch.Tensor,
                         route: str) -> torch.Tensor:
     from .._build import load_library
-    suffix = kernel_suffix(x.dtype, M.dtype)
-    if not (M.vals.is_contiguous() and M.idx.is_contiguous()
-            and M.idx.dtype == torch.int32):
-        raise ValueError("the lane-ELL planes must be contiguous, the "
-                         "indices int32")
-    y = torch.empty_like(x)
-    lib = load_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if route == "padded":
-        err = getattr(lib, f"bis_lane_ell_spmv_{suffix}_padded")(
-            x.device.index, M.vals.data_ptr(), M.idx.data_ptr(),
-            x.data_ptr(), y.data_ptr(), M.n_rows, M.R * LANES, M.K, M.S,
-            stream)
+    if route == "idx16":
+        if M.idx16 is None:
+            raise ValueError("the idx16 route needs the 16-bit index plane")
+        idx = M.idx16
+    elif route == "idx32":
+        idx = M.idx
     else:
-        idx, ib, lb = _route_args(route, M.idx, M.idx16, M.row_len)
-        err = getattr(lib, f"bis_lane_ell_spmv_{suffix}")(
-            x.device.index, M.vals.data_ptr(), idx.data_ptr(),
-            M.row_len.data_ptr(), x.data_ptr(), y.data_ptr(), M.n_rows,
-            M.R * LANES, M.S, ib, lb, stream)
+        raise ValueError(f"unknown lane-ELL route {route!r}")
+    _contiguous(M.vals, idx, M.row_len)
+    y = torch.empty_like(x)
+    err = getattr(load_library(),
+                  f"bis_lane_ell_spmv_{kernel_suffix(x.dtype, M.dtype)}")(
+        x.device.index, M.vals.data_ptr(), idx.data_ptr(),
+        M.row_len.data_ptr(), x.data_ptr(), y.data_ptr(), M.n_rows,
+        M.R * LANES, M.S, idx.element_size(), M.row_len.element_size(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "lane_ell_spmv")
     _count(lane_ell_spmv, route, M.dtype == torch.bfloat16)
     return y
@@ -280,8 +286,8 @@ def lane_ell_spmv(M: DeviceLaneELL, x: torch.Tensor) -> torch.Tensor:
     """y = M @ x.  A CUDA tensor goes through the hand-written kernel on
     `route_for(M)` (`lane_ell_spmv.launches` counts its launches,
     `lane_ell_spmv.bf16_launches` those of its bfloat16-data form, and
-    `.idx16_launches`, `.idx32_launches`, `.padded_launches` each
-    route's); a CPU tensor takes the plain version."""
+    `.idx16_launches`, `.idx32_launches` each route's); a CPU tensor takes
+    the plain version."""
     _check(M, x)
     if x.device.type == "cuda":
         return _lane_ell_spmv_cuda(M, x, route_for(M))
@@ -294,7 +300,6 @@ lane_ell_spmv.launches = 0
 lane_ell_spmv.bf16_launches = 0
 lane_ell_spmv.idx16_launches = 0
 lane_ell_spmv.idx32_launches = 0
-lane_ell_spmv.padded_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -320,9 +325,10 @@ def _check_halo(M: DeviceLaneELL, vals, idx, xw, r0: int, halo: int,
                 out) -> int:
     """Check a shard's operands; returns its entry count rows·128."""
     if vals.dim() != 3 or vals.shape[0] != M.K or vals.shape[2] != LANES \
-            or idx.shape != vals.shape or idx.dtype != torch.int32:
+            or idx.shape != vals.shape \
+            or idx.dtype not in (torch.int32, torch.int16):
         raise ValueError("the shard's planes must be (K, rows, 128), the "
-                         "indices int32")
+                         "indices int32 or 16-bit (int16)")
     rows = vals.shape[1]
     if halo < M.S or r0 < 0 or r0 + rows > M.R:
         raise ValueError(f"shard rows [{r0}, {r0 + rows}) with halo {halo} "
@@ -356,7 +362,8 @@ def lane_ell_spmv_halo_plain(M: DeviceLaneELL, vals: torch.Tensor,
     rows = vals.shape[1]
     plane = M.R * LANES
     r = (r0 + torch.arange(rows, device=xw.device)).view(rows, 1)
-    p = idx.long()
+    # a 16-bit plane holds an unsigned index's bits
+    p = idx.long() & 0xFFFF if idx.dtype == torch.int16 else idx.long()
     flat = ((r + p // LANES - M.S) * LANES + p % LANES).clamp(0, plane - 1)
     xv = torch.where(flat < M.n_rows, xw[flat - (r0 - halo) * LANES], 0.0)
     prods = vals.to(xw.dtype) * xv            # every slot's product at once
@@ -368,32 +375,33 @@ def lane_ell_spmv_halo_plain(M: DeviceLaneELL, vals: torch.Tensor,
 
 def lane_ell_spmv_halo(M: DeviceLaneELL, vals: torch.Tensor,
                        idx: torch.Tensor, xw: torch.Tensor, r0: int,
-                       halo: int, out: torch.Tensor = None,
-                       idx16: torch.Tensor = None) -> torch.Tensor:
+                       halo: int, out: torch.Tensor = None) -> torch.Tensor:
     """One mesh shard's lane-ELL SpMV: `lane_ell_spmv_halo_plain`'s
     contract (M the whole, row-extended operator; vals/idx the shard's
-    (K, rows, 128) planes starting at x2-row r0, idx16 the shard's 16-bit
-    index plane where M has one), y written to `out` when given.  A CUDA
-    tensor launches the shard-local kernel (csrc/sparse_spmv.cu) on
-    `route_for(M)`, reading the shard's rows of M.row_len, counted in
-    `lane_ell_spmv_halo.launches` (`.bf16_launches` for bfloat16 values;
-    each route's in `.idx16_launches`, `.idx32_launches`,
-    `.padded_launches`): every slot reads the value the single-device
-    kernel reads, so y is bit-equal to its rows; a CPU tensor takes the
-    plain version."""
-    return _lane_ell_spmv_halo(M, vals, idx, xw, r0, halo, out, idx16,
-                               route_for(M))
-
-
-def _lane_ell_spmv_halo(M, vals, idx, xw, r0, halo, out, idx16, route):
-    n = _check_halo(M, vals, idx, xw, r0, halo, out)
-    if xw.device.type == "cpu":
-        y = lane_ell_spmv_halo_plain(M, vals, idx, xw, r0, halo)
-        return y if out is None else out.copy_(y)
-    if xw.device.type != "cuda":
+    (K, rows, 128) planes starting at x2-row r0, idx int32 or M's 16-bit
+    plane's rows), y written to `out` when given.  A CUDA tensor launches
+    the shard-local kernel (csrc/sparse_spmv.cu) on `halo_route_for`'s
+    route, reading the indices at idx's width and, on the counted route,
+    the shard's rows of M.row_len, counted in `lane_ell_spmv_halo.launches`
+    (`.bf16_launches` for bfloat16 values; each route's in
+    `.counted_launches`, `.padded_launches`): every slot reads the value
+    the single-device kernel reads, so y is bit-equal to its rows; a CPU
+    tensor takes the plain version."""
+    if isinstance(xw, torch.Tensor) and xw.device.type == "cuda":
+        return _lane_ell_spmv_halo_cuda(M, vals, idx, xw, r0, halo, out)
+    _check_halo(M, vals, idx, xw, r0, halo, out)
+    if xw.device.type != "cpu":
         raise ValueError(f"no lane-ELL SpMV for device {xw.device}")
+    y = lane_ell_spmv_halo_plain(M, vals, idx, xw, r0, halo)
+    return y if out is None else out.copy_(y)
+
+
+def _lane_ell_spmv_halo_cuda(M, vals, idx, xw, r0, halo, out, route=None):
+    """The kernel on `route` (`halo_route_for`'s where None)."""
     from .._build import load_library
-    rows = vals.shape[1]
+    n = _check_halo(M, vals, idx, xw, r0, halo, out)
+    if route is None:
+        route = halo_route_for(n, sm_count(xw.device.index))
     y = torch.empty(n, dtype=xw.dtype, device=xw.device) \
         if out is None else out
     name = "bis_lane_ell_spmv_halo_" + kernel_suffix(xw.dtype, vals.dtype)
@@ -402,19 +410,19 @@ def _lane_ell_spmv_halo(M, vals, idx, xw, r0, halo, out, idx16, route):
         err = getattr(load_library(), name + "_padded")(
             xw.device.index, vals.data_ptr(), idx.data_ptr(), xw.data_ptr(),
             y.data_ptr(), n, r0, halo, M.n_rows, M.R * LANES, M.K, M.S,
-            xw.numel(), stream)
-    else:
-        lens = M.row_len[r0:r0 + rows]
-        if lens.device != xw.device or (
-                idx16 is not None and (idx16.shape != idx.shape
-                                       or idx16.device != xw.device)):
-            raise ValueError("the counts and the 16-bit plane must be the "
-                             "shard's, on the window's device")
-        plane, ib, lb = _route_args(route, idx, idx16, lens)
+            xw.numel(), idx.element_size(), stream)
+    elif route == "counted":
+        lens = M.row_len[r0:r0 + vals.shape[1]]
+        if lens.device != xw.device:
+            raise ValueError("the counts must be on the window's device")
+        _contiguous(lens)
         err = getattr(load_library(), name)(
-            xw.device.index, vals.data_ptr(), plane.data_ptr(),
+            xw.device.index, vals.data_ptr(), idx.data_ptr(),
             lens.data_ptr(), xw.data_ptr(), y.data_ptr(), n, r0, halo,
-            M.n_rows, M.R * LANES, M.S, xw.numel(), ib, lb, stream)
+            M.n_rows, M.R * LANES, M.S, xw.numel(), idx.element_size(),
+            lens.element_size(), stream)
+    else:
+        raise ValueError(f"unknown lane-ELL halo route {route!r}")
     _raise_on(err, "lane_ell_spmv_halo")
     _count(lane_ell_spmv_halo, route, vals.dtype == torch.bfloat16)
     return y
@@ -422,6 +430,5 @@ def _lane_ell_spmv_halo(M, vals, idx, xw, r0, halo, out, idx16, route):
 
 lane_ell_spmv_halo.launches = 0
 lane_ell_spmv_halo.bf16_launches = 0
-lane_ell_spmv_halo.idx16_launches = 0
-lane_ell_spmv_halo.idx32_launches = 0
+lane_ell_spmv_halo.counted_launches = 0
 lane_ell_spmv_halo.padded_launches = 0

@@ -87,8 +87,8 @@ class MeshDIA:
 class MeshLaneELL:
     """A DeviceLaneELL bound to a 1-D row mesh: its planes' x2-rows padded
     to whole shards of `rows` x2-rows, each shard's (K, rows, 128) planes
-    its own tensors (its 16-bit index plane too, where the operator has
-    one; each shard reads its rows of inner.row_len)."""
+    its own tensors (the index plane in 16 bits where the operator has
+    that plane, else int32; each shard reads its rows of inner.row_len)."""
 
     inner: DeviceLaneELL
     mesh: Mesh
@@ -96,7 +96,6 @@ class MeshLaneELL:
     rows: int
     vals_shards: Tuple[torch.Tensor, ...]
     idx_shards: Tuple[torch.Tensor, ...]
-    idx16_shards: Tuple[Optional[torch.Tensor], ...]
 
     dtype = property(lambda self: self.inner.dtype)
     device = property(lambda self: self.inner.device)
@@ -209,9 +208,8 @@ def wrap_lane_ell(M: DeviceLaneELL, mesh: Mesh, axis: str) -> MeshLaneELL:
     return MeshLaneELL(
         inner=M, mesh=mesh, axis=axis, rows=R,
         vals_shards=tuple(v.contiguous() for v in _split(M.vals, n_dev, 1)),
-        idx_shards=tuple(i.contiguous() for i in _split(M.idx, n_dev, 1)),
-        idx16_shards=((None,) * n_dev if M.idx16 is None else tuple(
-            i.contiguous() for i in _split(M.idx16, n_dev, 1))))
+        idx_shards=tuple(i.contiguous() for i in _split(
+            M.idx if M.idx16 is None else M.idx16, n_dev, 1)))
 
 
 def mesh_lane_ell_spmv(A: MeshLaneELL, x: torch.Tensor) -> torch.Tensor:
@@ -225,5 +223,5 @@ def mesh_lane_ell_spmv(A: MeshLaneELL, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty(npad, dtype=x.dtype, device=x.device)
     for k, yk in enumerate(_split(y, n_dev)):
         lane_ell_spmv_halo(M, A.vals_shards[k], A.idx_shards[k], windows[k],
-                           k * R, M.S, out=yk, idx16=A.idx16_shards[k])
+                           k * R, M.S, out=yk)
     return y[:M.n_rows]

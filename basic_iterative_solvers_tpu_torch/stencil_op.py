@@ -128,6 +128,13 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The multiprocessors of CUDA card `index` (the routes that pick a
+    kernel by how far a launch fills the card read it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def make_stencil(legs_coeffs, nx: int, ny: int, nz: int,
                  dtype=torch.float32, diag=None, *,
                  device="cuda") -> DeviceStencil:

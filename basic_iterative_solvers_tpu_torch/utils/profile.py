@@ -44,7 +44,7 @@ PHASE_BUCKETS = (
               "stencil_gs_color_step_kernel", "dia_spmv_kernel",
               "lane_ell_spmv_kernel", "stencil_spmv_halo_kernel",
               "stencil_gs_color_step_halo_kernel", "dia_spmv_halo_kernel",
-              "lane_ell_spmv_halo_kernel", "lane_ell_spmv_padded_kernel",
+              "lane_ell_spmv_halo_kernel",
               "lane_ell_spmv_halo_padded_kernel")),
     ("sptrsv", ("super_level_kernel", "super_level_staged_kernel",
                 "super_acc_kernel",

@@ -7,8 +7,8 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
   1. device: the card's name and power limit;
   2. build: compile the CUDA kernels from this checkout; [ptxas] prints
-     the registers and spills of the basis kernels, the counted lane-ELL
-     kernels and the staged factor-table level;
+     the registers and spills of the basis kernels, the lane-ELL kernels
+     and the staged factor-table level;
   3. the stencil SpMV kernel against its plain PyTorch version on the card,
      at the main path's shapes, both timed;
   4. the GMRES basis kernels (project_gram, correct_write) at the 128^3
@@ -64,10 +64,10 @@ exits non-zero:
      library's CSR SpMV of the same matrix;
  19. the lane-ELL SpMV kernel against its plain version on
      sband:500000,8,400 (f32, f64), on each route (idx16: each row stopped
-     at its count, 16-bit indices; idx32; padded, the first port's loop
-     over all K slots), the routes timed in turns with the padded bound
-     beside the bound of the slots the counted routes read, and the
-     library's CSR SpMV;
+     at its count, 16-bit indices; idx32), timed in turns with the first
+     port's loop over all K slots (the shard form's padded route over one
+     shard of every row), the padded bound beside the bound of the slots
+     the routes read, and the library's CSR SpMV;
  20. the rank-space level kernel against its plain version on every level
      with groups of the SGS pair of band:8388608,2 (f32, f64), whole
      applies against the CPU's, and torch.triangular_solve's whole L
@@ -116,7 +116,7 @@ exits non-zero:
      version and against the same kernel on the data widened to float32
      (bit for bit), timed beside the plain version, the float32-data
      kernel and the library's CSR SpMV (run after phase 22); #5's idx16
-     and padded routes timed in turns;
+     route and the first port's padded loop timed in turns;
  32. the command line on the CPU and on the card, float64 vectors over
      bf16 data ([cpu-vs-card-slice7]), then on the card ([slice7]) through
      cli.run in process: DIA CG at 128^3 (2500 iterations), 384^3 (150)
@@ -136,10 +136,12 @@ exits non-zero:
      of fdm:2048, #4 at 128^3, #5 on sband:500000,8,400; the bf16 forms);
      the 8 launches of one mesh call timed beside the single-device
      kernel, the whole mesh call and the library's CSR SpMV; #5 on each
-     route (idx16 and padded timed in turns) beside 8 CSR SpMVs over the
-     shards' rows;
+     route (the launch shape's, padded on sband's shards; counted; padded
+     with int32 indices, the first port's kernel; timed in turns) beside
+     8 CSR SpMVs over the shards' rows;
  35. slice 8's rows ([slice8]): CG on the 128^3 stencil (2500), DIA CG at
-     128^3 (2500), cg@sband (400), SGS on fdm:2048 (200), single-device
+     128^3 (2500), cg@sband (400; the mesh also with #5's shard launches
+     forced onto the counted route), SGS on fdm:2048 (200), single-device
      and 8-shard mesh in turns, with ms/iter, launches and the mesh's
      exchanges an iteration; f64 CG + Jacobi to 1e-8 at 128^3 on both,
      equal counts; one step and a solve of the standalone distributed CG
@@ -265,6 +267,7 @@ def phase_device(torch):
 
 #: kernels whose ptxas lines [ptxas] prints beside the basis kernels'
 PTXAS_KERNELS = ("lane_ell_spmv_kernel", "lane_ell_spmv_halo_kernel",
+                 "lane_ell_spmv_halo_padded_kernel",
                  "super_level_staged_kernel")
 #: Itanium codes of the template arguments those kernels take
 _MANGLED = {"f": "float", "d": "double", "t": "u16", "h": "u8", "i": "int",
@@ -289,7 +292,7 @@ def phase_build(torch):
     """Build and load the kernels; beside the build, compile the basis
     kernels', the lane-ELL SpMV's and the level kernels' sources once more
     with -Xptxas -v (all started together) and print the registers, spills
-    and shared memory of the basis kernels, the counted lane-ELL kernels
+    and shared memory of the basis kernels, the lane-ELL kernels
     and the staged factor-table level, then the ring kernels' resident
     blocks an SM (the occupancy their launches are sized to)."""
     import tempfile
@@ -1221,6 +1224,19 @@ def _split_pair(L, U):
 
 
 @contextlib.contextmanager
+def _halo_route(le, route):
+    """Every shard launch of #5 inside the block takes `route`
+    (lane_ell.halo_route_for replaced for it); None: the launch shape's."""
+    saved = le.halo_route_for
+    if route is not None:
+        le.halo_route_for = lambda *args, **kwargs: route
+    try:
+        yield
+    finally:
+        le.halo_route_for = saved
+
+
+@contextlib.contextmanager
 def _table_route(bk, route):
     """Every factor-table level launched inside the block takes `route`
     (block_trisolve.table_route_for replaced for it)."""
@@ -1718,6 +1734,21 @@ def _in_turns(torch, fns, order):
     return out
 
 
+def _padded_whole(torch, le, M, x):
+    """The first port's loop over all K slots with int32 indices, on one
+    device: the padded route of #5's shard form over one shard holding
+    M's rows (the x2-rows up to n, its planes copied once), its window x
+    with S x2-rows of zeros a side.  Returns a callable giving y (n rows),
+    which the turns time beside the counted routes."""
+    R = -(-M.n_rows // le.LANES)
+    vals, idx = (t[:, :R].contiguous() for t in (M.vals, M.idx))
+    h = M.S * le.LANES
+    xw = torch.nn.functional.pad(x, (h, R * le.LANES - M.n_rows + h))
+    out = torch.empty(R * le.LANES, dtype=x.dtype, device=x.device)
+    return lambda: le._lane_ell_spmv_halo_cuda(
+        M, vals, idx, xw, 0, M.S, out, "padded")[:M.n_rows]
+
+
 def _lane_ell_bytes(torch, M, item, idx_bytes):
     """(padded bytes, counted bytes, slots read, slots a warp fetches) of
     one SpMV of M: the padded route reads every slot's value and int32
@@ -1841,12 +1872,12 @@ def _lane_ell_route_checks(torch, tag, label, le, M, x, twin=None):
 def phase_lane_ell_vs_plain(torch, bt):
     """Kernel #5 against its plain version, bit for bit, on the lane-ELL
     planes of sband:500000,8,400 (f32, f64), on each route: idx16 (the
-    16-bit index plane, the shape's route), idx32 (the int32 plane), both
-    stopping each row at its count, and padded (the first port's loop over
-    all K slots).  The routes' device times in turns (padded, idx16,
-    idx32, idx32, idx16, padded) beside the library's CSR SpMV of the same
-    matrix (f32, device time too), the padded bound and the bound of the
-    slots the counted routes read.  Returns the f32 record and the host
+    16-bit index plane, the shape's route) and idx32 (the int32 plane),
+    both stopping each row at its count; and padded, the first port's loop
+    over all K slots (_padded_whole).  The device times in turns (padded,
+    idx16, idx32, idx32, idx16, padded) beside the library's CSR SpMV of
+    the same matrix (f32, device time too), the padded bound and the bound
+    of the slots the counted routes read.  Returns the f32 record and the host
     matrix."""
     from basic_iterative_solvers_tpu_torch.ops import lane_ell as le
     t0 = time.perf_counter()
@@ -1865,10 +1896,14 @@ def phase_lane_ell_vs_plain(torch, bt):
         label = (f"{SBAND} {str(dt)[6:]} (nnz {A.nnz}, K={M.K}, S={M.S}, "
                  f"R={M.R}; host CSR {gen_s:.2f} s, planes {build_s:.2f} s)")
         err = _lane_ell_route_checks(torch, "lane-ell", label, le, M, x)
-        turns = _in_turns(torch, {
-            rt: lambda rt=rt: le._lane_ell_spmv_cuda(M, x, rt)
-            for rt in le.ROUTES}, ("padded", "idx16", "idx32", "idx32",
-                                   "idx16", "padded"))
+        fns = {rt: lambda rt=rt: le._lane_ell_spmv_cuda(M, x, rt)
+               for rt in le.ROUTES}
+        fns["padded"] = _padded_whole(torch, le, M, x)
+        if not torch.equal(fns["padded"](), le.lane_ell_spmv_plain(M, x)):
+            raise RuntimeError(f"[lane-ell] {label}: the padded loop "
+                               "disagrees with plain")
+        turns = _in_turns(torch, fns, ("padded", "idx16", "idx32", "idx32",
+                                       "idx16", "padded"))
         wrapper_ms = _median_ms(lambda: le.lane_ell_spmv(M, x), torch)
         plain_ms = _median_ms(lambda: le.lane_ell_spmv_plain(M, x), torch)
         n, item = A.n_rows, x.element_size()
@@ -2164,8 +2199,8 @@ def phase_slice5_path(torch, bt, sband, band):
         if fmt == "lane_ell":
             launches["lane_ell_spmv"] = counts["lane_ell_spmv"]
             launches["lane_ell_spmv_by_route"] = {
-                rt: counts[f"lane_ell_spmv_{rt}"] for rt in ("idx16", "idx32",
-                                                             "padded")}
+                rt: counts[f"lane_ell_spmv_{rt}"] for rt in ("idx16",
+                                                             "idx32")}
         del setup
     setup, setup_s = _host_solve(
         torch, bt, band, "cuda", torch.float32, "BICGSTAB",
@@ -3204,10 +3239,11 @@ def phase_bf16_vs_plain(torch, bt, sband):
         lambda v: le.lane_ell_spmv(M32, v), x)
     _lane_ell_route_checks(torch, "bf16", f"#5 {SBAND} bf16 values", le, M,
                            x, twin=lambda v: le.lane_ell_spmv(M32, v))
-    turns = _in_turns(torch, {
-        rt: lambda rt=rt: le._lane_ell_spmv_cuda(M, x, rt)
-        for rt in ("idx16", "padded")}, ("padded", "idx16", "idx16",
-                                         "padded"))
+    fns = {"idx16": lambda: le._lane_ell_spmv_cuda(M, x, "idx16"),
+           "padded": _padded_whole(torch, le, M, x)}
+    if not torch.equal(fns["padded"](), le.lane_ell_spmv_plain(M, x)):
+        raise RuntimeError("[bf16] #5: the padded loop disagrees with plain")
+    turns = _in_turns(torch, fns, ("padded", "idx16", "idx16", "padded"))
     n = M.n_rows
     padded, counted, slots, _w = _lane_ell_bytes(torch, M, 4, 2)
     # the values are 2 bytes, not x's 4
@@ -3450,8 +3486,7 @@ def phase_slice7_cli(torch, bt):
             ok = ok and c["lane_ell_spmv_idx16"] == (
                 c[want] + c["lane_ell_spmv"])
             launches["lane_ell_spmv_bf16_by_route"] = {
-                rt: c[f"lane_ell_spmv_{rt}"] for rt in ("idx16", "idx32",
-                                                        "padded")}
+                rt: c[f"lane_ell_spmv_{rt}"] for rt in ("idx16", "idx32")}
         if not ok:
             raise RuntimeError(f"[slice7] {label} left the idx16 route")
         if want is not None:
@@ -3542,12 +3577,12 @@ def _mesh_counters(bt, reset=False):
     if reset:
         for fn in fns.values():
             fn.launches = fn.bf16_launches = 0
-        for route in lane_ell.ROUTES:
+        for route in lane_ell.HALO_ROUTES:
             setattr(halo, f"{route}_launches", 0)
     out = {name: fn.launches for name, fn in fns.items()}
     out.update({f"lane_ell_spmv_halo_{route}": getattr(halo,
                                                        f"{route}_launches")
-                for route in lane_ell.ROUTES})
+                for route in lane_ell.HALO_ROUTES})
     return out
 
 
@@ -3603,12 +3638,16 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
     the single-device kernel by their device time (_device_ms: the host's
     launch cost hidden behind a sleeping kernel), the plain twins, the
     whole mesh call (exchange and host work included) and the library's
-    CSR SpMV by CUDA events; the bound counts the windows' halo rows.
+    CSR SpMV by CUDA events; the bound counts the windows' halo rows.  #5
+    on every route of its shard form (the launch shape's, by
+    lane_ell.halo_route_for; counted; padded with 16-bit and int32
+    indices), timed in turns beside 8 CSR SpMVs over the shards' rows.
     Returns the four records."""
     import dataclasses
     from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
     from basic_iterative_solvers_tpu_torch.ops import dia_spmv as ds
     from basic_iterative_solvers_tpu_torch.ops import lane_ell as le
+    from basic_iterative_solvers_tpu_torch.stencil_op import sm_count
     from basic_iterative_solvers_tpu_torch.parallel import make_mesh
     from basic_iterative_solvers_tpu_torch.parallel import mesh_ops as mo
     from basic_iterative_solvers_tpu_torch.parallel.sharded import (
@@ -3840,43 +3879,54 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
         attr = "bf16_launches" if md == torch.bfloat16 else "launches"
         main = md == torch.float32
 
-        def shard(k, route, E=E, W=W, wins=wins, R=R):
-            return le._lane_ell_spmv_halo(
-                E, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, E.S,
-                None, W.idx16_shards[k], route)
+        # the shards' int32 planes, the first port's index width
+        idx32 = [E.idx[:, k * R:(k + 1) * R].contiguous()
+                 for k in range(MESH_SHARDS)]
+        variants = {"counted": ("counted", W.idx_shards),
+                    "padded": ("padded", W.idx_shards),
+                    "padded32": ("padded", idx32)}
 
-        before = le.lane_ell_spmv_halo.idx16_launches
+        def shard(k, variant, E=E, W=W, wins=wins, R=R, variants=variants):
+            route, planes = variants[variant]
+            return le._lane_ell_spmv_halo_cuda(
+                E, W.vals_shards[k], planes[k], wins[k], k * R, E.S, None,
+                route)
+
+        route = le.halo_route_for(R * le.LANES, sm_count(0))
+        before = getattr(le.lane_ell_spmv_halo, f"{route}_launches")
         outs, err, ms, plain_ms = _shards_vs_plain(
             torch, "mesh-kernel", f"#5 {SBAND} {str(md)[6:]}",
             lambda k, E=E, W=W, wins=wins, R=R: le.lane_ell_spmv_halo(
-                E, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, E.S,
-                idx16=W.idx16_shards[k]),
+                E, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, E.S),
             lambda k, E=E, W=W, wins=wins, R=R: le.lane_ell_spmv_halo_plain(
                 E, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, E.S),
             le.lane_ell_spmv_halo, attr, 0.0, True, False)
-        if le.lane_ell_spmv_halo.idx16_launches != before + MESH_SHARDS:
-            raise RuntimeError("#5 halo: the shards did not take the idx16 "
-                               "route")
+        if getattr(le.lane_ell_spmv_halo,
+                   f"{route}_launches") != before + MESH_SHARDS:
+            raise RuntimeError(f"#5 halo: the shards did not take the shape's "
+                               f"{route} route")
         single = le.lane_ell_spmv(M, x)
         if not torch.equal(torch.cat(outs)[:n], single):
             raise RuntimeError(f"#5 halo {md}: the shards differ from the "
                                "single-device kernel")
-        for route in ("idx32", "padded"):
-            other = [shard(k, route) for k in range(MESH_SHARDS)]
+        for variant in variants:
+            other = [shard(k, variant) for k in range(MESH_SHARDS)]
             if not all(torch.equal(a, b) for a, b in zip(other, outs)):
-                raise RuntimeError(f"#5 halo {md}: the {route} route's shards "
-                                   "differ from the idx16 route's")
+                raise RuntimeError(f"#5 halo {md}: the {variant} shards "
+                                   "differ from the plain twins")
         print(f"[mesh-kernel] #5 {SBAND} {str(md)[6:]} values, "
-              f"{str(dt)[6:]} x, K={E.K} S={E.S} x2-rows/shard={R}: "
-              "bit-equal to plain and to the single-device kernel; the "
-              "idx32 and padded routes' shards bit-equal to the idx16 "
-              "route's")
+              f"{str(dt)[6:]} x, K={E.K} S={E.S} x2-rows/shard={R}, "
+              f"{W.idx_shards[0].dtype} shard indices, the shape's route "
+              f"{route}: bit-equal to plain and to the single-device "
+              "kernel; the counted and padded routes, 16-bit and int32 "
+              "indices, bit-equal to them")
         if main:
+            order = ("padded32", "padded", "counted", "counted", "padded",
+                     "padded32")
             turns = _in_turns(torch, {
-                rt: lambda rt=rt: [shard(k, rt) for k in range(MESH_SHARDS)]
-                for rt in ("idx16", "padded")}, ("padded", "idx16", "idx16",
-                                                 "padded"))
-            ms = min(turns["idx16"])
+                v: lambda v=v: [shard(k, v) for k in range(MESH_SHARDS)]
+                for v in variants}, order)
+            ms = min(turns[route])
             plain_ms = _median_ms(lambda: [
                 le.lane_ell_spmv_halo_plain(E, W.vals_shards[k],
                                             W.idx_shards[k], wins[k], k * R,
@@ -3907,21 +3957,30 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
             xwin = window_bytes(wins, item) - n * item   # x: the windows
             bound = _bound(counted + xwin, 2 * slots)
             pad_bound = _bound(padded + xwin, 2 * E.K * n)
+            pad16_bound = _bound(padded - 2 * E.K * n + xwin, 2 * E.K * n)
             print(f"[mesh-kernel] #5 {SBAND} f32: 8 shard launches device "
-                  f"ms in turns (padded, idx16, idx16, padded): {turns} "
+                  f"ms in turns ({', '.join(order)}; padded32: int32 "
+                  f"indices, the first port's kernel; the shape's route "
+                  f"{route}): "
+                  f"{turns} "
                   f"(plain twins {plain_ms:.4f}; single-device "
                   f"{single_ms:.4f}; the whole mesh SpMV {call_ms:.4f}; "
                   f"{len(parts)} CSR SpMVs over the shards' rows "
                   f"{lib8_ms:.4f}, max_rel_err {lib_rel:.1e}; one whole CSR "
                   f"SpMV {lib_ms:.4f}) bound_ms={bound['bound_ms']:.4f} "
-                  f"({bound['bound_by']}: the slots read, the counts, the "
-                  f"windows, y; padded bound {pad_bound['bound_ms']:.4f})")
+                  f"({bound['bound_by']}: the real slots, the counts, the "
+                  f"windows, y; every slot with 16-bit indices "
+                  f"{pad16_bound['bound_ms']:.4f}, with int32 "
+                  f"{pad_bound['bound_ms']:.4f})")
             records["lane_ell_spmv_halo"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib8_ms, "whole_library_ms": lib_ms,
                 "single_ms": single_ms, "call_ms": call_ms,
+                "counted_ms": min(turns["counted"]),
                 "padded_ms": min(turns["padded"]),
-                "padded_bound_ms": pad_bound["bound_ms"], **bound}
+                "padded32_ms": min(turns["padded32"]),
+                "padded_bound_ms": pad16_bound["bound_ms"],
+                "padded32_bound_ms": pad_bound["bound_ms"], **bound}
             del parts
         del M, W, E, wins, outs
     del C
@@ -3937,7 +3996,10 @@ def phase_slice8(torch, bt, sband):
     the HPCG 128^3 stencil (2500 iterations), DIA CG at 128^3 (2500),
     cg@sband on lane-ELL (400), SGS on fdm:2048 (200, the coloured sweeps
     through #3's shard form); ms/iter, launches and the mesh's exchanges
-    and bytes an iteration.  Then f64 CG + Jacobi to 1e-8·||r0|| at 128^3,
+    and bytes an iteration.  cg@sband also runs the mesh with #5's shard
+    launches forced onto the counted route, in turns with the launch
+    shape's route (single, mesh, mesh_counted, mesh_counted, mesh,
+    single).  Then f64 CG + Jacobi to 1e-8·||r0|| at 128^3,
     mesh against single-device (equal counts, histories within rtol
     1e-8), and one step and a solve of the standalone distributed CG
     (make_sharded_cg, the JAX package's dryrun_multichip's first stage)
@@ -3945,9 +4007,11 @@ def phase_slice8(torch, bt, sband):
     first mesh row and the rows' numbers."""
     import math
     import numpy as np
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell as le
     from basic_iterative_solvers_tpu_torch.parallel import (
         make_mesh, make_sharded_cg, shard_setup)
     from basic_iterative_solvers_tpu_torch.solvers import make_method
+    from basic_iterative_solvers_tpu_torch.stencil_op import sm_count
     S = bt.SolverType
     mesh = make_mesh(MESH_SHARDS, device="cuda")
 
@@ -3989,14 +4053,23 @@ def phase_slice8(torch, bt, sband):
         m1, m8 = make_method(s1), make_method(s8)
         bt.solve(s1, method=m1)                       # warm-up solves
         bt.solve(s8, method=m8)
-        ms = {"single": [], "mesh": []}
-        for which in ("single", "mesh", "mesh", "single"):
-            setup, method = (s8, m8) if which == "mesh" else (s1, m1)
+        lane = kernel == "lane_ell_spmv_halo"
+        # cg@sband: the mesh also with every shard launch on #5's counted
+        # route, in turns with the launch shape's route
+        order = (("single", "mesh", "mesh_counted", "mesh_counted", "mesh",
+                  "single") if lane else ("single", "mesh", "mesh", "single"))
+        shape_route = (le.halo_route_for(s8.A.rows * le.LANES, sm_count(0))
+                       if lane else None)
+        ms = {which: [] for which in order}
+        for which in order:
+            setup, method = (s1, m1) if which == "single" else (s8, m8)
             _mesh_counters(bt, reset=True)
             _sparse_counters(bt, reset=True)
             bt.stencil_op.stencil_gs_color_step.launches = 0
             mesh.reset_counts()
-            res = bt.solve(setup, method=method)
+            with _halo_route(le, "counted" if which == "mesh_counted"
+                             else None):
+                res = bt.solve(setup, method=method)
             counts = _mesh_counters(bt)
             single = _sparse_counters(bt)
             single["stencil_gs_color_step"] = (
@@ -4007,20 +4080,23 @@ def phase_slice8(torch, bt, sband):
             ok = (res.iter_count == iters
                   and math.isfinite(res.final_residual_norm)
                   and bool(torch.isfinite(res.x_star).all()))
-            if which == "mesh":
+            if which != "single":
                 ok = ok and counts[kernel] >= MESH_SHARDS * iters
                 ok = ok and exch["psum_bytes"] <= 8 * 3 * 8 * exch["psum"]
+            if which == "mesh":
                 launches.setdefault(kernel, counts[kernel])
-                if kernel == "lane_ell_spmv_halo":
-                    ok = ok and counts["lane_ell_spmv_halo_idx16"] == counts[
-                        kernel]
+            if lane and which != "single":
+                want = "counted" if which == "mesh_counted" else shape_route
+                ok = ok and counts[f"lane_ell_spmv_halo_{want}"] == counts[
+                    kernel]
+                if which == "mesh":
                     launches.setdefault("lane_ell_spmv_halo_by_route", {
                         rt: counts[f"lane_ell_spmv_halo_{rt}"]
-                        for rt in ("idx16", "idx32", "padded")})
-            else:
+                        for rt in le.HALO_ROUTES})
+            if which == "single":
                 ok = ok and not any(counts.values())
             per = {k: round(v / it, 3) for k, v in
-                   ({**counts, **single} if which == "mesh" else single)
+                   ({**counts, **single} if which != "single" else single)
                    .items() if v}
             print(f"[slice8] {label} {which}: iters={res.iter_count} "
                   f"ms/iter={ms[which][-1]:.5f} r0={res.residual_norms[0]:.6e}"
@@ -4030,7 +4106,9 @@ def phase_slice8(torch, bt, sband):
                      f"{exch['ppermute'] / it:.3f} "
                      f"({exch['ppermute_bytes'] / it / 1e6:.4f} MB) psum="
                      f"{exch['psum'] / it:.3f} ({exch['psum_bytes'] / it:.1f}"
-                     f" B)" if which == "mesh" else ""))
+                     f" B)" if which != "single" else "")
+                  + (f" #5 halo route {shape_route} (the launch shape's)"
+                     if which == "mesh" and lane else ""))
             if not ok:
                 raise RuntimeError(f"[slice8] {label} {which} failed its "
                                    "checks")
@@ -4276,8 +4354,9 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                                                   ("staged", "direct")},
                                           ("staged", "direct", "direct",
                                            "staged"))
-                        routes = (f" (the shards' route "
-                                  f"{bk.table_route_for(B, li, item, bk._shard_args(MB.shards[0], li), y.device)};"
+                        shard_route = bk.table_route_for(
+                            B, li, item, MB.shards[0], y.device)
+                        routes = (f" (the shards' route {shard_route};"
                                   f" both in turns: {turns})")
                     xs = x.clone()
                     single_ms = _device_ms(
@@ -4784,6 +4863,8 @@ def main():
                                         "f32_strided_ms",
                                         "launches_by_route", "padded_ms",
                                         "idx32_ms", "padded_bound_ms",
+                                        "counted_ms", "padded32_ms",
+                                        "padded32_bound_ms",
                                         "whole_library_ms", "direct_ms",
                                         "direct_ms_384", "apply_ms_384",
                                         "direct_apply_ms_384",

@@ -265,8 +265,7 @@ def test_halo_forms_equal_single_device_and_plain(card, kind, spec, dt,
             M = W.inner
             yk = lane_ell.lane_ell_spmv_halo(M, W.vals_shards[k],
                                              W.idx_shards[k], windows[k],
-                                             k * R, M.S,
-                                             idx16=W.idx16_shards[k])
+                                             k * R, M.S)
             assert torch.equal(yk, lane_ell.lane_ell_spmv_halo_plain(
                 M, W.vals_shards[k], W.idx_shards[k], windows[k], k * R,
                 M.S))
@@ -550,9 +549,9 @@ LANE_SPEC = "sband:60000,8,400"
                                        (torch.float32, torch.bfloat16),
                                        (torch.float64, torch.bfloat16)])
 def test_lane_ell_routes_equal_plain(card, dt, mat_dt):
-    """Every route of #5 (idx16, the shape's; idx32; padded) bit-equal to
-    the plain version on finite x, each launch counted in its route's
-    counter; the wrapper takes idx16."""
+    """Both routes of #5 (idx16, the shape's; idx32) bit-equal to the
+    plain version on finite x, each launch counted in its route's counter;
+    the wrapper takes idx16."""
     from basic_iterative_solvers_tpu_torch.ops import lane_ell
     M = bt.from_csr(bt.generators.from_source(LANE_SPEC), mat_dt,
                     "lane_ell", device=card)
@@ -575,9 +574,9 @@ def test_lane_ell_routes_equal_plain(card, dt, mat_dt):
 @pytest.mark.cuda
 def test_lane_ell_nonfinite_x_at_a_pad_column(card):
     """The departure by design, on the card: with Inf in x at a column a
-    skipped pad slot points at, the counted routes differ from the plain
-    version only on rows holding such a slot (plain NaN, kernel not), and
-    the padded route keeps the plain version's result."""
+    skipped pad slot points at, both routes differ from the plain version
+    only on rows holding such a slot (plain NaN, kernel not), and the
+    halo form's padded route keeps the plain version's result there."""
     from basic_iterative_solvers_tpu_torch.ops import lane_ell
     M = bt.from_csr(bt.generators.from_source(LANE_SPEC), torch.float32,
                     "lane_ell", device=card)
@@ -598,15 +597,22 @@ def test_lane_ell_nonfinite_x_at_a_pad_column(card):
         differ = ~((yk == yp) | (yk.isnan() & yp.isnan()))
         assert differ.any() and not (differ & ~hit).any()
         assert yp[differ].isnan().all() and not yk[differ].isnan().any()
-    yk = lane_ell._lane_ell_spmv_cuda(M, x, "padded")
+    # one shard covering every row, its window x with S x2-rows of zeros
+    # a side
+    h = M.S * lane_ell.LANES
+    xw = torch.nn.functional.pad(x, (h, plane - M.n_rows + h))
+    yk = lane_ell._lane_ell_spmv_halo_cuda(M, M.vals, M.idx16, xw, 0, M.S,
+                                           None, "padded")[:M.n_rows]
     assert bool(((yk == yp) | (yk.isnan() & yp.isnan())).all())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mat_dt", [torch.float32, torch.bfloat16])
 def test_lane_ell_halo_routes_equal_plain(card, mat_dt):
-    """#5's halo form on an 8-shard mesh: every route's shards bit-equal
-    to their plain twins and to each other, the idx16 route counted."""
+    """#5's halo form on an 8-shard mesh: both routes' shards, on the
+    16-bit plane the mesh holds and on the int32 one, bit-equal to their
+    plain twins, each launch counted in its route's counter; the wrapper
+    takes the shape's route (padded: these shards are a few blocks)."""
     from basic_iterative_solvers_tpu_torch.ops import lane_ell
     from basic_iterative_solvers_tpu_torch.parallel import make_mesh
     from basic_iterative_solvers_tpu_torch.parallel import mesh_ops
@@ -626,18 +632,23 @@ def test_lane_ell_halo_routes_equal_plain(card, mat_dt):
     for k in range(8):
         twin = lane_ell.lane_ell_spmv_halo_plain(
             M, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, M.S)
-        for route in lane_ell.ROUTES:
-            before = getattr(lane_ell.lane_ell_spmv_halo, f"{route}_launches")
-            yk = lane_ell._lane_ell_spmv_halo(
-                M, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, M.S,
-                None, W.idx16_shards[k], route)
-            torch.cuda.synchronize()
-            assert getattr(lane_ell.lane_ell_spmv_halo,
-                           f"{route}_launches") == before + 1
-            assert torch.equal(yk, twin), (k, route)
-    with pytest.raises(ValueError, match="16-bit"):
-        lane_ell._lane_ell_spmv_halo(M, W.vals_shards[0], W.idx_shards[0],
-                                     wins[0], 0, M.S, None, None, "idx16")
+        idx32 = M.idx[:, k * R:(k + 1) * R].contiguous()
+        assert W.idx_shards[k].dtype == torch.int16
+        for route in lane_ell.HALO_ROUTES:
+            for idx in (W.idx_shards[k], idx32):
+                before = getattr(lane_ell.lane_ell_spmv_halo,
+                                 f"{route}_launches")
+                yk = lane_ell._lane_ell_spmv_halo_cuda(
+                    M, W.vals_shards[k], idx, wins[k], k * R, M.S, None,
+                    route)
+                torch.cuda.synchronize()
+                assert getattr(lane_ell.lane_ell_spmv_halo,
+                               f"{route}_launches") == before + 1
+                assert torch.equal(yk, twin), (k, route, idx.dtype)
+        before = lane_ell.lane_ell_spmv_halo.padded_launches
+        assert torch.equal(lane_ell.lane_ell_spmv_halo(
+            M, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, M.S), twin)
+        assert lane_ell.lane_ell_spmv_halo.padded_launches == before + 1
 
 
 def _table_pair(card, spec, dt):

@@ -283,3 +283,28 @@ def test_launch_table_reproduces_plain_level(spec):
                     B, li, torch.from_numpy(y), torch.from_numpy(x),
                     torch.empty(B.m, dtype=torch.float64)).numpy()
                 np.testing.assert_array_equal(acc, ref_acc)
+
+
+def test_table_route_kept_with_the_launch_table():
+    """table_route_for works each factor-table level's route out once per
+    vector type and card and keeps it with the launch tables, the whole
+    level's on B and a mesh shard's on the shard: a kept route comes back
+    without the kernel library (which this machine cannot build), and
+    float64 takes the direct route without it."""
+    from basic_iterative_solvers_tpu_torch.parallel import make_mesh
+    At = tso.from_source_operator("hpcg:16x16x16", torch.float32,
+                                  device=CPU)
+    L, _U = tbt.build_superblock_ilu0_pair_stencil(
+        At, tcol.spec_for_device(At), dtype=torch.float32)
+    Bs = tbt.shard_superblock(L, make_mesh(2, device=CPU)).shards[1]
+    card = torch.device("cuda", 0)
+    L._args[("route", 1, 4, 0)] = "staged"
+    Bs._args[("route", 1, 4, 0)] = "direct"
+    for _ in range(2):
+        assert tbt.table_route_for(L, 1, 4, device=card) == "staged"
+        assert tbt.table_route_for(L, 1, 4, Bs, card) == "direct"
+    assert tbt.table_route_for(L, 0, 8, device=card) == "direct"
+    assert L._args[("route", 0, 8, 0)] == "direct"
+    assert ("route", 0, 8, 0) not in Bs._args
+    assert tbt.table_route_for(L, 0, 8, Bs, card) == "direct"
+    assert Bs._args[("route", 0, 8, 0)] == "direct"

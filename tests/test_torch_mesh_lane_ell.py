@@ -73,10 +73,12 @@ def test_mesh_lane_ell_solves_match_jax(case, numpy_branch):  # noqa: F811
 
 @pytest.mark.parametrize("spec", ["sband:2048,6,200", "sband:3000,8,1400"])
 def test_shards_carry_counts_and_idx16(spec, rng):
-    """Each shard's 16-bit plane is its window of the whole one, the
-    inert extension rows count 0, and a counted reading of each shard
-    (rows [r0, r0 + rows) of row_len, indices from its 16-bit plane,
-    from its x window) is bit-equal to lane_ell_spmv_halo_plain."""
+    """Each shard's index plane is its window of the whole 16-bit one
+    (the only index plane the shards hold), the inert extension rows count
+    0, and a counted reading of each shard (rows [r0, r0 + rows) of
+    row_len, indices from its 16-bit plane, from its x window) is
+    bit-equal to lane_ell_spmv_halo_plain on that plane and on the int32
+    one."""
     import numpy as np
     from basic_iterative_solvers_tpu_torch.ops import lane_ell as tle
     from basic_iterative_solvers_tpu_torch.parallel.sharded import (
@@ -95,8 +97,9 @@ def test_shards_carry_counts_and_idx16(spec, rng):
     plane = E.R * tle.LANES
     for k in range(8):
         r0 = k * R
-        assert torch.equal(W.idx16_shards[k], E.idx16[:, r0:r0 + R])
-        p = W.idx16_shards[k].long() & 0xFFFF
+        assert W.idx_shards[k].dtype == torch.int16
+        assert torch.equal(W.idx_shards[k], E.idx16[:, r0:r0 + R])
+        p = W.idx_shards[k].long() & 0xFFFF
         lens = E.row_len[r0:r0 + R].long()
         r = (r0 + torch.arange(R)).view(R, 1)
         y = torch.zeros((R, tle.LANES), dtype=x.dtype)
@@ -108,7 +111,37 @@ def test_shards_carry_counts_and_idx16(spec, rng):
             y = torch.where(s < lens, y + W.vals_shards[k][s] * xv, y)
         assert torch.equal(y.reshape(-1), tle.lane_ell_spmv_halo_plain(
             E, W.vals_shards[k], W.idx_shards[k], wins[k], r0, E.S))
+        assert torch.equal(y.reshape(-1), tle.lane_ell_spmv_halo_plain(
+            E, W.vals_shards[k], E.idx[:, r0:r0 + R].contiguous(), wins[k],
+            r0, E.S))
     assert np.isclose(float(torch.cat([tle.lane_ell_spmv_halo_plain(
         E, W.vals_shards[k], W.idx_shards[k], wins[k], k * R, E.S)
         for k in range(8)])[:M.n_rows].sum()), float(
         tle.lane_ell_spmv_plain(M, x).sum()))
+
+
+def test_shards_hold_int32_indices_past_16_bits():
+    """An operator whose packed indices do not fit 16 bits has no 16-bit
+    plane, and its shards hold the int32 one."""
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell as tle
+    S = 256
+    idx = torch.full((2, 64, tle.LANES), S * tle.LANES, dtype=torch.int32)
+    M = tle.DeviceLaneELL(vals=torch.ones(2, 64, tle.LANES), idx=idx,
+                          n_rows=64 * tle.LANES, n_cols=64 * tle.LANES, K=2,
+                          S=S, R=64)
+    assert M.idx16 is None
+    W = tmo.wrap_lane_ell(M, make_mesh(8, device=CPU), "rows")
+    assert all(t.dtype == torch.int32 for t in W.idx_shards)
+    assert torch.equal(torch.cat(W.idx_shards, 1), W.inner.idx)
+
+
+@pytest.mark.parametrize("entries,sms,route", [
+    (256 * 256, 132, "padded"), (8 * 132 * 256, 132, "counted"),
+    (8 * 132 * 256 - 1, 132, "counted"), (8 * 132 * 256 - 256, 132, "padded"),
+    (500_096, 132, "counted"), (4 * 256, 1, "padded")])
+def test_halo_route_by_the_launch_shape(entries, sms, route):
+    """The shard launch stops each row at its count only where its blocks
+    of 256 fill 8 an SM; a sband shard's launch (256 blocks) reads every
+    slot."""
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell as tle
+    assert tle.halo_route_for(entries, sms) == route

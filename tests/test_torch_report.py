@@ -176,7 +176,6 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "stencil_gs_color_step_halo_kernel": "spmv",
             "dia_spmv_halo_kernel": "spmv",
             "lane_ell_spmv_halo_kernel": "spmv",
-            "lane_ell_spmv_padded_kernel": "spmv",
             "lane_ell_spmv_halo_padded_kernel": "spmv",
             "super_level_kernel": "sptrsv",
             "super_level_staged_kernel": "sptrsv",
