@@ -44,6 +44,7 @@ class StencilArgs(ctypes.Structure):
         ("dy", ctypes.c_int * MAX_LEGS),
         ("dz", ctypes.c_int * MAX_LEGS),
         ("group_begin", ctypes.c_int * (MAX_LEGS + 1)),
+        ("box_mask", ctypes.c_int * MAX_LEGS),
         ("n_groups", ctypes.c_int),
         ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
         ("block_x", ctypes.c_int), ("block_y", ctypes.c_int),
@@ -172,8 +173,19 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i64] * 4 + [
             ptr] * 6
         fn.restype = i32
+        # the box routes: #1's vec, zr, grid; #2's zr, grid, slot
+        fn = getattr(lib, name.replace("spmv", "spmv_box"))
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 4 + [
+            ptr] * 6
+        fn.restype = i32
+        fn = getattr(lib, name.replace("spmv", "spmv_stream_box"))
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 4 + [
+            ptr] * 6
+        fn.restype = i32
     lib.bis_stencil_stream_tile.argtypes = [ctypes.POINTER(i32)] * 4
     lib.bis_stencil_stream_tile.restype = i32
+    lib.bis_stencil_box_shape.argtypes = [ctypes.POINTER(i32)] * 4
+    lib.bis_stencil_box_shape.restype = i32
     for suffix in ("f32", "bf16"):
         fn = getattr(lib, f"bis_gmres_project_gram_strided_{suffix}")
         fn.argtypes = [i32, ptr, ptr, ptr, i64, i32, i32, ptr, i32, ptr]
@@ -263,10 +275,17 @@ def load_library() -> ctypes.CDLL:
                                         gb.RING_GROUP_BLOCKS):
         raise RuntimeError("ops/gmres_basis.RING_* do not match BIS_RING_* "
                            "in csrc/gmres_basis.cu")
-    from .stencil_op import STREAM_HALO, STREAM_TILE
+    from .stencil_op import (BOX_RESIDENT, BOX_STAGES, BOX_THREADS,
+                             STREAM_HALO, STREAM_TILE)
     tile = [i32() for _ in range(4)]
     lib.bis_stencil_stream_tile(*[ctypes.byref(v) for v in tile])
     if tuple(v.value for v in tile) != STREAM_TILE + STREAM_HALO[:2]:
         raise RuntimeError("stencil_op.STREAM_TILE/STREAM_HALO do not match "
                            "BIS_STREAM_* in csrc/stencil_spmv.cu")
+    box = [i32() for _ in range(4)]
+    lib.bis_stencil_box_shape(*[ctypes.byref(v) for v in box])
+    if tuple(v.value for v in box) != (BOX_THREADS, BOX_STAGES,
+                                       *BOX_RESIDENT):
+        raise RuntimeError("stencil_op.BOX_THREADS/BOX_STAGES/BOX_RESIDENT "
+                           "do not match BIS_BOX_* in csrc/stencil_spmv.cu")
     return lib

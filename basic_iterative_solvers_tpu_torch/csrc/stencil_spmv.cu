@@ -17,14 +17,18 @@
 // reads x (plus diag and aux when present) and writes y, at 2*|legs| flops
 // per row.  At 128^3 in f32 a vector is 8.4 MB, so CG's working set x, r,
 // p, t (~34 MB) fits in the H100's 50 MB L2; the 384^3 case (226 MB per
-// vector) streams from HBM.  The design is the simple one: threads along x
-// so that neighbouring threads read neighbouring addresses, a grid over
-// (y-tile, z), the neighbour reads served by L1/L2, legs walked in a
-// runtime loop with a bounds check each.  That loop, not the bytes, is
-// what this form is measured to be bound by on an H100 (the same ~27 G
-// rows/s at 128^3 and at 384^3, where HBM would allow ~7x more).
-// Unrolled legs, shared-memory tiles, TMA and a fused CG update are later
-// work.
+// vector) streams from HBM.  Two routes, chosen before the launch by the
+// wrapper (stencil_op.route_for):
+//   * "legs", the first port's simple design: threads along x so that
+//     neighbouring threads read neighbouring addresses, a grid over
+//     (y-tile, z), the neighbour reads served by L1/L2, legs walked in a
+//     runtime loop with a bounds check each.  That loop, not the bytes,
+//     bounds it on an H100 (the same ~27 G rows/s at 128^3 and at 384^3,
+//     where HBM would allow ~15x more).  Any legs.
+//   * "box", for legs within the 3 x 3 x 3 box (every stencil the repo
+//     builds): the legs unrolled over the box, a thread's neighbourhood
+//     kept in registers as it marches along z; see "The box routes"
+//     below.
 //
 // Dot partials go to a (n_blocks, n_dots) buffer that the caller sums, so
 // the result is deterministic without atomics.
@@ -56,6 +60,10 @@
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after its launch.
 
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -73,6 +81,9 @@ struct BisStencilArgs {
     int dy[BIS_MAX_LEGS];
     int dz[BIS_MAX_LEGS];
     int group_begin[BIS_MAX_LEGS + 1];
+    // the box routes: group g's legs as bits (dz+1)*9 + (dy+1)*3 + (dx+1)
+    // of the 3 x 3 x 3 box (0 where a leg lies outside it)
+    int box_mask[BIS_MAX_LEGS];
     int n_groups;
     int nx, ny, nz;
     int block_x, block_y;               // threads per block along x and y
@@ -200,8 +211,10 @@ stencil_spmv_kernel(const __grid_constant__ BisStencilArgs a,
 // aux, over HBM).  The design removes #1's per-leg bounds checks and
 // serves the 27 neighbour reads from shared memory; each x element is
 // read from L2/HBM (TX + 2)(TY + 4)/(TX TY) ~ 1.6 times per tile plus
-// (zc + 2)/zc along z.  A runtime leg loop stays; cp.async/TMA plane
-// loads, a persistent grid and a fused CG update are later work.
+// (zc + 2)/zc along z.  Its runtime leg loop and synchronous plane loads
+// bound it.  This is #2's "legs" route, for any legs within its halo; the
+// operators within the 3 x 3 x 3 box whose lines are whole 16-byte
+// vectors take #2's "box" route below (bulk-copied planes, unrolled legs).
 // ---------------------------------------------------------------------------
 
 #define BIS_STREAM_TX 32
@@ -298,6 +311,477 @@ stencil_spmv_stream_kernel(const __grid_constant__ BisStencilArgs a, int zc,
                                            blockIdx.z)) * a.n_dots);
 }
 
+// ---------------------------------------------------------------------------
+// The box routes of #1 and #2: every leg within |dx|, |dy|, |dz| <= 1.
+//
+// The forms above walk the launch table's legs in a runtime loop, and #1
+// tests six bounds and makes one scalar load a leg: ~27 G rows/s at 128^3
+// and at 384^3 alike, 15x (#1) and 10x (#2) over the byte bound at 384^3.
+// The box routes keep a row's neighbourhood in registers instead:
+//
+//   * A thread owns a chunk of VEC consecutive x (VEC = 16 / sizeof(T)
+//     where a line is a whole number of 16-byte vectors, else 1) and
+//     marches a run of zr planes along z.  It keeps the 3 x (VEC + 2)
+//     neighbourhood of planes z - 1, z and z + 1 in registers (arrays
+//     whose roles rotate, the loop unrolled), so each step loads one
+//     plane's three lines: three VEC-wide loads, their x neighbours from
+//     the next lanes by shuffles (a direct load at a warp's edge).  #1
+//     keeps a fourth window and loads plane z + 2 while it computes plane
+//     z.  A value outside the grid is a zero in the window, set once a
+//     line where it is loaded: no leg tests a bound.
+//   * The legs are unrolled over the 27 positions of the box.  A group's
+//     positions are the bits of box_mask[g], the same for every thread,
+//     so each test is uniform; a group's sum runs over them in z, y, x
+//     order, the order of its legs in the launch table.  Each sum and
+//     product is rounded alone (add_rn/mul_rn) as in the forms above, and
+//     a leg outside the grid adds a zero: a sum that starts at +0 in
+//     round-to-nearest is never -0, so s + 0 is s, and y is bit-equal to
+//     the leg loop's.
+//   * #1 ("resident") loads the lines from L2/HBM through L1.  #2
+//     ("stream") stages them: a producer warp copies each plane's slab,
+//     the contiguous range of the plane that its block's chunks and their
+//     y neighbours cover, with one cp.async.bulk into a ring of
+//     BIS_BOX_STAGES slots (a full and an empty mbarrier each), up to the
+//     ring's depth ahead of the eight consumer warps, which read the
+//     window's new lines from shared memory and release the slot.
+//   * A 2-D operator (nz = 1) comes with its y axis as z (legs (dx, dy, 0)
+//     as (dx, 0, dy): the same flat offsets, masks and leg order), so the
+//     march runs along y.
+//
+// What bounds them: bytes, at the floor.  A row needs ~27 adds and one
+// multiply a group (2 groups on HPCG), ~6x under the byte bound at the
+// card's float32 rate; the route's cost per row is its instructions (the
+// uniform position tests, amortised over VEC rows, and the adds) and the
+// loads in flight per SM: resident blocks an SM (#1 two, at ~110-128
+// registers a thread; #2 three in f32, at most 72, two in f64), and a
+// grid whose z runs are cut to whole waves of them
+// (stencil_op._box_grid).
+// ---------------------------------------------------------------------------
+
+#define BIS_BOX_THREADS 256      // consumer threads a block, a chunk each
+#define BIS_BOX_STAGES 8         // #2's ring of staged planes
+#define BIS_BOX_RING_OFFSET 128  // #2's ring after its mbarriers (bytes)
+#define BIS_BOX_MIN_BLOCKS 2         // #1's resident blocks an SM
+#define BIS_BOX_STREAM_MIN_BLOCKS 3  // #2's in f32 (where its ring fits
+                                     // three times; f64: two)
+
+// #2's box blocks resident an SM: three in f32, two (#1's) in f64
+template <typename T> struct BisStreamBoxBlocks {
+    static constexpr int value = sizeof(T) == 4 ? BIS_BOX_STREAM_MIN_BLOCKS
+                                                : BIS_BOX_MIN_BLOCKS;
+};
+
+template <typename T, int VEC> struct BisVec;
+template <> struct BisVec<float, 1> { using type = float; };
+template <> struct BisVec<double, 1> { using type = double; };
+template <> struct BisVec<float, 4> { using type = float4; };
+template <> struct BisVec<double, 2> { using type = double2; };
+
+// VEC consecutive values at p (16-byte aligned when VEC > 1)
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[VEC]) {
+    const typename BisVec<T, VEC>::type u =
+        *reinterpret_cast<const typename BisVec<T, VEC>::type*>(p);
+    memcpy(v, &u, sizeof(u));
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[VEC]) {
+    typename BisVec<T, VEC>::type u;
+    memcpy(&u, v, sizeof(u));
+    *reinterpret_cast<typename BisVec<T, VEC>::type*>(p) = u;
+}
+
+// a diagonal stored in T is read as vectors; a bf16 one value by value
+template <typename T, int VEC>
+__device__ __forceinline__ void load_diag(const T* p, T (&v)[VEC]) {
+    load_vec<T, VEC>(p, v);
+}
+template <typename T, int VEC>
+__device__ __forceinline__ void load_diag(const __nv_bfloat16* p,
+                                          T (&v)[VEC]) {
+#pragma unroll
+    for (int r = 0; r < VEC; ++r) v[r] = T(widen(p[r]));
+}
+
+// Fetch one line of the window: w[1..VEC] the values at x0 .. x0 + VEC - 1,
+// read from src at element e (the chunk's first value), and, in lanes 0
+// and 31 only, w[0] at x0 - 1 and w[VEC + 1] at x0 + VEC (the other lanes
+// take theirs from the lanes beside them in box_assemble); zeros where the
+// line (`ok`) or the x neighbour (`has_l`, `has_r`) lies outside the
+// grid.  Loads only: the values are used a plane later.
+template <typename T, int VEC>
+__device__ __forceinline__ void box_fetch_line(const T* src, long long e,
+                                               bool ok, bool has_l,
+                                               bool has_r, int lane,
+                                               T (&w)[VEC + 2]) {
+    T v[VEC];
+    if (ok) {
+        load_vec<T, VEC>(src + e, v);
+    } else {
+#pragma unroll
+        for (int r = 0; r < VEC; ++r) v[r] = T(0);
+    }
+#pragma unroll
+    for (int r = 0; r < VEC; ++r) w[r + 1] = v[r];
+    w[0] = (lane == 0 && ok && has_l) ? src[e - 1] : T(0);
+    w[VEC + 1] = (lane == 31 && ok && has_r) ? src[e + VEC] : T(0);
+}
+
+// Complete a fetched plane: the x neighbours of lanes 1..31 (left) and
+// 0..30 (right) from the lanes beside them, which hold the chunks beside
+// this one (a warp's chunks are consecutive; at a line's end the
+// neighbour lies outside the grid and is a zero).  Every lane calls it.
+template <typename T, int VEC>
+__device__ __forceinline__ void box_assemble(bool has_l, bool has_r, int lane,
+                                             T (&P)[3][VEC + 2]) {
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+        const T l = __shfl_up_sync(0xffffffffu, P[dy][VEC], 1);
+        const T r = __shfl_down_sync(0xffffffffu, P[dy][1], 1);
+        if (lane != 0) P[dy][0] = has_l ? l : T(0);
+        if (lane != 31) P[dy][VEC + 1] = has_r ? r : T(0);
+    }
+}
+
+// s[r] += the positions of `m` (bits 3*dy + dx) of one plane's window, in
+// y, x order, for the VEC rows of the chunk
+template <typename T, int VEC>
+__device__ __forceinline__ void box_plane_sum(unsigned m,
+                                              const T (&P)[3][VEC + 2],
+                                              T (&s)[VEC]) {
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+        if (!((m >> (3 * dy)) & 7u)) continue;    // a row of the box unused
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+            if (m & (1u << (3 * dy + dx))) {
+#pragma unroll
+                for (int r = 0; r < VEC; ++r)
+                    s[r] = add_rn(s[r], P[dy][r + dx]);
+            }
+        }
+    }
+}
+
+// A·x (without the dense diagonal) for the VEC rows of a chunk from the
+// windows of planes z - 1, z, z + 1: each group's positions summed in
+// z, y, x order, times its coefficient, the groups in table order
+template <typename T, int VEC>
+__device__ __forceinline__ void box_rows(const BisStencilArgs& a,
+                                         const T (&pm)[3][VEC + 2],
+                                         const T (&p0)[3][VEC + 2],
+                                         const T (&pp)[3][VEC + 2],
+                                         T (&acc)[VEC]) {
+#pragma unroll
+    for (int r = 0; r < VEC; ++r) acc[r] = T(0);
+    for (int g = 0; g < a.n_groups; ++g) {
+        const unsigned m = (unsigned)a.box_mask[g];
+        T s[VEC];
+#pragma unroll
+        for (int r = 0; r < VEC; ++r) s[r] = T(0);
+        box_plane_sum<T, VEC>(m, pm, s);
+        box_plane_sum<T, VEC>(m >> 9, p0, s);
+        box_plane_sum<T, VEC>(m >> 18, pp, s);
+        const T c = T(a.group_coeff[g]);
+#pragma unroll
+        for (int r = 0; r < VEC; ++r) acc[r] = add_rn(acc[r], mul_rn(c, s[r]));
+    }
+}
+
+// The march over planes [z0, z1): fetch(q, P) loads plane q's window into
+// P (zeros for a plane outside [0, nz) or past z1), assemble(P) completes
+// it, out(z, pm, p0, pp) writes plane z's rows.  The windows rotate roles
+// (none is copied).  With PREFETCH (#1: global loads) four windows, and
+// plane z + 2 is fetched before plane z is computed, so its loads are in
+// flight meanwhile; without (#2: the planes wait in shared memory, staged
+// ahead by the producer) three, each fetched just before it is used.
+template <typename T, int VEC, bool PREFETCH, typename Fetch,
+          typename Assemble, typename Out>
+__device__ __forceinline__ void box_march(int z0, int z1, Fetch& fetch,
+                                          Assemble& assemble, Out& out) {
+    if constexpr (PREFETCH) {
+        T W0[3][VEC + 2], W1[3][VEC + 2], W2[3][VEC + 2], W3[3][VEC + 2];
+        fetch(z0 - 1, W0);
+        fetch(z0, W1);
+        fetch(z0 + 1, W2);
+        assemble(W0);
+        assemble(W1);
+        assemble(W2);
+        for (int z = z0; z < z1; z += 4) {
+            fetch(z + 2, W3);
+            out(z, W0, W1, W2);
+            assemble(W3);
+            if (z + 1 >= z1) break;
+            fetch(z + 3, W0);
+            out(z + 1, W1, W2, W3);
+            assemble(W0);
+            if (z + 2 >= z1) break;
+            fetch(z + 4, W1);
+            out(z + 2, W2, W3, W0);
+            assemble(W1);
+            if (z + 3 >= z1) break;
+            fetch(z + 5, W2);
+            out(z + 3, W3, W0, W1);
+            assemble(W2);
+        }
+    } else {
+        T W0[3][VEC + 2], W1[3][VEC + 2], W2[3][VEC + 2];
+        auto load = [&](int q, T (&P)[3][VEC + 2]) {
+            fetch(q, P);
+            assemble(P);
+        };
+        load(z0 - 1, W0);
+        load(z0, W1);
+        for (int z = z0; z < z1; z += 3) {
+            load(z + 1, W2);
+            out(z, W0, W1, W2);
+            if (z + 1 >= z1) break;
+            load(z + 2, W0);
+            out(z + 1, W1, W2, W0);
+            if (z + 2 >= z1) break;
+            load(z + 3, W1);
+            out(z + 2, W2, W0, W1);
+        }
+    }
+}
+
+// A thread's chunk: its place in the plane and which neighbours exist.
+struct BisBoxChunk {
+    long long e0;                         // its first element in a plane
+    int x0;
+    bool live, has_l, has_r, ok_m, ok_p;  // ok_m, ok_p: lines gy - 1, gy + 1
+};
+
+template <int VEC>
+__device__ __forceinline__ BisBoxChunk box_chunk(const BisStencilArgs& a,
+                                                 long long c) {
+    BisBoxChunk k;
+    const long long chunks = (long long)a.nx * a.ny / VEC;
+    const int cpl = a.nx / VEC;
+    k.live = c < chunks;
+    const int gy = k.live ? (int)(c / cpl) : 0;
+    k.x0 = k.live ? (int)(c - (long long)gy * cpl) * VEC : 0;
+    k.e0 = k.live ? c * VEC : 0;
+    k.has_l = k.live && k.x0 > 0;
+    k.has_r = k.live && k.x0 + VEC < a.nx;
+    k.ok_m = k.live && gy > 0;
+    k.ok_p = k.live && gy + 1 < a.ny;
+    return k;
+}
+
+// Store a chunk's rows at flat row i (adding the dense diagonal) and add
+// their dot terms.
+template <typename T, typename D, int VEC>
+__device__ __forceinline__ void box_store(const BisStencilArgs& a,
+                                          const BisBoxChunk& k, long long i,
+                                          T (&acc)[VEC],
+                                          const T (&xc)[VEC + 2],
+                                          const D* __restrict__ diag,
+                                          const T* __restrict__ aux,
+                                          T* __restrict__ y,
+                                          T (&dsum)[BIS_MAX_DOTS]) {
+    if (!k.live) return;
+    if (diag != nullptr) {
+        T d[VEC];
+        load_diag<T, VEC>(diag + i, d);
+#pragma unroll
+        for (int r = 0; r < VEC; ++r)
+            acc[r] = add_rn(acc[r], mul_rn(d[r], xc[r + 1]));
+    }
+    store_vec<T, VEC>(y + i, acc);
+    if (a.n_dots > 0) {
+        T av[VEC];
+        if (aux != nullptr) {
+            load_vec<T, VEC>(aux + i, av);
+        } else {
+#pragma unroll
+            for (int r = 0; r < VEC; ++r) av[r] = T(0);
+        }
+        for (int q = 0; q < a.n_dots; ++q) {
+            const int kind = a.dot_kind[q];
+#pragma unroll
+            for (int r = 0; r < VEC; ++r) {
+                const T v = kind == 0 ? xc[r + 1]
+                                      : (kind == 1 ? acc[r] : av[r]);
+                dsum[q] += acc[r] * v;
+            }
+        }
+    }
+}
+
+// #1 on the box route: grid (tiles of BIS_BOX_THREADS chunks, runs of zr
+// planes); x read from global memory.
+template <typename T, typename D, int VEC>
+__global__ void __launch_bounds__(BIS_BOX_THREADS, BIS_BOX_MIN_BLOCKS)
+stencil_spmv_box_kernel(const __grid_constant__ BisStencilArgs a, int zr,
+                        const T* __restrict__ x, const D* __restrict__ diag,
+                        const T* __restrict__ aux, T* __restrict__ y,
+                        T* __restrict__ partials) {
+    const long long plane = (long long)a.nx * a.ny;
+    const BisBoxChunk k = box_chunk<VEC>(
+        a, (long long)blockIdx.x * BIS_BOX_THREADS + threadIdx.x);
+    const int lane = threadIdx.x & 31;
+    const int z0 = blockIdx.y * zr, z1 = min(z0 + zr, a.nz);
+    T dsum[BIS_MAX_DOTS] = {T(0), T(0), T(0)};
+    auto fetch = [&](int q, T (&P)[3][VEC + 2]) {
+        const bool q_ok = q >= 0 && q < a.nz && q <= z1;
+        const T* src = x + (q_ok ? (long long)q * plane : 0LL);
+        box_fetch_line<T, VEC>(src, k.e0 - a.nx, q_ok && k.ok_m, k.has_l,
+                               k.has_r, lane, P[0]);
+        box_fetch_line<T, VEC>(src, k.e0, q_ok && k.live, k.has_l, k.has_r,
+                               lane, P[1]);
+        box_fetch_line<T, VEC>(src, k.e0 + a.nx, q_ok && k.ok_p, k.has_l,
+                               k.has_r, lane, P[2]);
+    };
+    auto assemble = [&](T (&P)[3][VEC + 2]) {
+        box_assemble<T, VEC>(k.has_l, k.has_r, lane, P);
+    };
+    auto out = [&](int z, const T (&pm)[3][VEC + 2],
+                   const T (&p0)[3][VEC + 2], const T (&pp)[3][VEC + 2]) {
+        T acc[VEC];
+        box_rows<T, VEC>(a, pm, p0, pp, acc);
+        box_store<T, D, VEC>(a, k, (long long)z * plane + k.e0, acc, p0[1],
+                             diag, aux, y, dsum);
+    };
+    box_march<T, VEC, true>(z0, z1, fetch, assemble, out);
+    if (a.n_dots > 0)
+        block_sums(dsum, a.n_dots,
+                   partials + (long long)(blockIdx.x + (long long)gridDim.x *
+                                          blockIdx.y) * a.n_dots);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+// arrive and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+    unsigned done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    }
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned global memory to shared
+// memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// #2 on the box route: #1's grid and march, the window's lines read from a
+// ring of staged slabs.  Block: BIS_BOX_THREADS consumers and one producer
+// warp.  A block's slab is the elements [lo, hi) of a plane: its chunks'
+// range widened by a line and a vector on each side, cut to the plane; a
+// slot holds `slot` elements (the widest slab).  Its planes run from
+// qa = max(z0 - 1, 0) to qb = min(z1, nz - 1); plane q takes slot
+// (q - qa) % BIS_BOX_STAGES on that slot's ((q - qa) / BIS_BOX_STAGES)-th
+// use.
+template <typename T, typename D, int VEC>
+__global__ void __launch_bounds__(BIS_BOX_THREADS + 32,
+                                  BisStreamBoxBlocks<T>::value)
+stencil_spmv_stream_box_kernel(const __grid_constant__ BisStencilArgs a,
+                               int zr, int slot, const T* __restrict__ x,
+                               const D* __restrict__ diag,
+                               const T* __restrict__ aux, T* __restrict__ y,
+                               T* __restrict__ partials) {
+    extern __shared__ __align__(128) unsigned char box_smem[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(box_smem);
+    uint64_t* empty = full + BIS_BOX_STAGES;
+    T* ring = reinterpret_cast<T*>(box_smem + BIS_BOX_RING_OFFSET);
+    const long long plane = (long long)a.nx * a.ny;
+    const long long cb = (long long)blockIdx.x * BIS_BOX_THREADS;
+    const long long ce = min(cb + BIS_BOX_THREADS, plane / VEC);
+    const long long lo = max(0LL, cb * VEC - a.nx - VEC);
+    const long long hi = min(plane, ce * VEC + a.nx + VEC);
+    const int z0 = blockIdx.y * zr, z1 = min(z0 + zr, a.nz);
+    const int qa = max(z0 - 1, 0), qb = min(z1, a.nz - 1);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < BIS_BOX_STAGES; ++s) {
+            bar_init(&full[s], 1);
+            bar_init(&empty[s], BIS_BOX_THREADS / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    T dsum[BIS_MAX_DOTS] = {T(0), T(0), T(0)};
+    if (threadIdx.x >= BIS_BOX_THREADS) {
+        if (threadIdx.x == BIS_BOX_THREADS) {     // the producer lane
+            const unsigned bytes = (unsigned)((hi - lo) * sizeof(T));
+            for (int q = qa; q <= qb; ++q) {
+                const int j = q - qa, s = j % BIS_BOX_STAGES;
+                if (j >= BIS_BOX_STAGES)
+                    bar_wait(&empty[s], ((j / BIS_BOX_STAGES) - 1) & 1);
+                bar_expect(&full[s], bytes);
+                bulk_load(ring + (long long)s * slot,
+                          x + (long long)q * plane + lo, bytes, &full[s]);
+            }
+        }
+    } else {
+        const BisBoxChunk k = box_chunk<VEC>(a, cb + threadIdx.x);
+        const int lane = threadIdx.x & 31;
+        auto fetch = [&](int q, T (&P)[3][VEC + 2]) {
+            const bool q_ok = q >= qa && q <= qb;
+            int s = 0;
+            if (q_ok) {
+                const int j = q - qa;
+                s = j % BIS_BOX_STAGES;
+                bar_wait(&full[s], (j / BIS_BOX_STAGES) & 1);
+            }
+            const T* src = ring + (long long)s * slot - lo;
+            box_fetch_line<T, VEC>(src, k.e0 - a.nx, q_ok && k.ok_m, k.has_l,
+                                   k.has_r, lane, P[0]);
+            box_fetch_line<T, VEC>(src, k.e0, q_ok && k.live, k.has_l,
+                                   k.has_r, lane, P[1]);
+            box_fetch_line<T, VEC>(src, k.e0 + a.nx, q_ok && k.ok_p,
+                                   k.has_l, k.has_r, lane, P[2]);
+            if (q_ok) {                 // the slot's values are in registers
+                __syncwarp();
+                if (lane == 0) bar_arrive(&empty[s]);
+            }
+        };
+        auto assemble = [&](T (&P)[3][VEC + 2]) {
+            box_assemble<T, VEC>(k.has_l, k.has_r, lane, P);
+        };
+        auto out = [&](int z, const T (&pm)[3][VEC + 2],
+                       const T (&p0)[3][VEC + 2], const T (&pp)[3][VEC + 2]) {
+            T acc[VEC];
+            box_rows<T, VEC>(a, pm, p0, pp, acc);
+            box_store<T, D, VEC>(a, k, (long long)z * plane + k.e0, acc,
+                                 p0[1], diag, aux, y, dsum);
+        };
+        box_march<T, VEC, false>(z0, z1, fetch, assemble, out);
+    }
+    if (a.n_dots > 0)
+        block_sums(dsum, a.n_dots,
+                   partials + (long long)(blockIdx.x + (long long)gridDim.x *
+                                          blockIdx.y) * a.n_dots);
+}
+
 // Colouring of the GS step: kind 0 parity, 1 grid (p = sx, sy, sz),
 // 2 mod (p[0] = k); `color` is the colour the step updates.
 struct BisColorStep {
@@ -373,6 +857,88 @@ static int launch_stream(int device, const BisStencilArgs* a, int grid_x,
     const dim3 grid(grid_x, grid_y, grid_z);
     stencil_spmv_stream_kernel<T, D><<<grid, block, 0, stream>>>(
         *a, zc, x, diag, aux, y, partials);
+    return (int)cudaGetLastError();
+}
+
+// The box routes' launch checks: every leg within the box and in its
+// group's mask, a grid that covers the operator, and 16-byte alignment of
+// every vector read or written VEC-wide.
+static bool aligned16(const void* p) {
+    return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, typename D>
+static bool box_ok(const BisStencilArgs* a, int vec, int zr, int grid_x,
+                   int grid_y, const T* x, const D* diag, const T* aux,
+                   const T* y) {
+    if (vec < 1 || a->nx % vec != 0 || zr < 1 || grid_x < 1 || grid_y < 1 ||
+        grid_y > 65535)
+        return false;
+    if ((long long)grid_x * BIS_BOX_THREADS * vec < (long long)a->nx * a->ny ||
+        (long long)grid_y * zr < a->nz)
+        return false;
+    for (int g = 0; g < a->n_groups; ++g)
+        for (int l = a->group_begin[g]; l < a->group_begin[g + 1]; ++l) {
+            if (a->dx[l] < -1 || a->dx[l] > 1 || a->dy[l] < -1 ||
+                a->dy[l] > 1 || a->dz[l] < -1 || a->dz[l] > 1)
+                return false;
+            const int p = (a->dz[l] + 1) * 9 + (a->dy[l] + 1) * 3 + a->dx[l] + 1;
+            if (!((a->box_mask[g] >> p) & 1)) return false;
+        }
+    if (vec > 1 && !(aligned16(x) && aligned16(aux) && aligned16(y) &&
+                     (sizeof(D) != sizeof(T) || aligned16(diag))))
+        return false;
+    return true;
+}
+
+// #1's box route: VEC = 16 / sizeof(T) (vec > 1) or 1.
+template <typename T, typename D>
+static int launch_box(int device, const BisStencilArgs* a, int vec, int zr,
+                      int grid_x, int grid_y, const T* x, const D* diag,
+                      const T* aux, T* y, T* partials, cudaStream_t stream) {
+    constexpr int V = 16 / sizeof(T);
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    if ((vec != 1 && vec != V) ||
+        !box_ok(a, vec, zr, grid_x, grid_y, x, diag, aux, y))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(grid_x, grid_y);
+    if (vec == V)
+        stencil_spmv_box_kernel<T, D, V><<<grid, BIS_BOX_THREADS, 0, stream>>>(
+            *a, zr, x, diag, aux, y, partials);
+    else
+        stencil_spmv_box_kernel<T, D, 1><<<grid, BIS_BOX_THREADS, 0, stream>>>(
+            *a, zr, x, diag, aux, y, partials);
+    return (int)cudaGetLastError();
+}
+
+// #2's box route: VEC = 16 / sizeof(T) only (the slabs are bulk copies);
+// `slot` elements a ring slot, at least the widest slab.
+template <typename T, typename D>
+static int launch_stream_box(int device, const BisStencilArgs* a, int zr,
+                             int grid_x, int grid_y, int slot, const T* x,
+                             const D* diag, const T* aux, T* y, T* partials,
+                             cudaStream_t stream) {
+    constexpr int V = 16 / sizeof(T);
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    const long long plane = (long long)a->nx * a->ny;
+    const long long widest =
+        std::min(plane, (long long)BIS_BOX_THREADS * V + 2LL * a->nx + 2 * V);
+    if (!box_ok(a, V, zr, grid_x, grid_y, x, diag, aux, y) || slot % V != 0 ||
+        slot < widest)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = BIS_BOX_RING_OFFSET +
+                        (size_t)BIS_BOX_STAGES * slot * sizeof(T);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            stencil_spmv_stream_box_kernel<T, D, V>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    stencil_spmv_stream_box_kernel<T, D, V>
+        <<<dim3(grid_x, grid_y), BIS_BOX_THREADS + 32, smem, stream>>>(
+            *a, zr, slot, x, diag, aux, y, partials);
     return (int)cudaGetLastError();
 }
 
@@ -548,6 +1114,44 @@ BIS_STREAM_ENTRY(bis_stencil_spmv_stream_f32, float, float)
 BIS_STREAM_ENTRY(bis_stencil_spmv_stream_f64, double, double)
 BIS_STREAM_ENTRY(bis_stencil_spmv_stream_f32_bf16, float, __nv_bfloat16)
 BIS_STREAM_ENTRY(bis_stencil_spmv_stream_f64_bf16, double, __nv_bfloat16)
+
+// The box routes: bis_stencil_spmv_box_<type>[_bf16] (#1) and
+// bis_stencil_spmv_stream_box_<type>[_bf16] (#2).
+#define BIS_BOX_ENTRY(NAME, T, D)                                            \
+    int NAME(int device, const BisStencilArgs* a, int vec, int zr,          \
+             int grid_x, int grid_y, const T* x, const D* diag,             \
+             const T* aux, T* y, T* partials, void* stream) {               \
+        return launch_box<T, D>(device, a, vec, zr, grid_x, grid_y, x, diag,\
+                                aux, y, partials, (cudaStream_t)stream);    \
+    }
+BIS_BOX_ENTRY(bis_stencil_spmv_box_f32, float, float)
+BIS_BOX_ENTRY(bis_stencil_spmv_box_f64, double, double)
+BIS_BOX_ENTRY(bis_stencil_spmv_box_f32_bf16, float, __nv_bfloat16)
+BIS_BOX_ENTRY(bis_stencil_spmv_box_f64_bf16, double, __nv_bfloat16)
+
+#define BIS_STREAM_BOX_ENTRY(NAME, T, D)                                     \
+    int NAME(int device, const BisStencilArgs* a, int zr, int grid_x,       \
+             int grid_y, int slot, const T* x, const D* diag, const T* aux, \
+             T* y, T* partials, void* stream) {                             \
+        return launch_stream_box<T, D>(device, a, zr, grid_x, grid_y, slot, \
+                                       x, diag, aux, y, partials,           \
+                                       (cudaStream_t)stream);               \
+    }
+BIS_STREAM_BOX_ENTRY(bis_stencil_spmv_stream_box_f32, float, float)
+BIS_STREAM_BOX_ENTRY(bis_stencil_spmv_stream_box_f64, double, double)
+BIS_STREAM_BOX_ENTRY(bis_stencil_spmv_stream_box_f32_bf16, float,
+                     __nv_bfloat16)
+BIS_STREAM_BOX_ENTRY(bis_stencil_spmv_stream_box_f64_bf16, double,
+                     __nv_bfloat16)
+
+int bis_stencil_box_shape(int* threads, int* stages, int* resident,
+                          int* stream_resident) {
+    *threads = BIS_BOX_THREADS;
+    *stages = BIS_BOX_STAGES;
+    *resident = BIS_BOX_MIN_BLOCKS;
+    *stream_resident = BIS_BOX_STREAM_MIN_BLOCKS;
+    return 0;
+}
 
 int bis_stencil_stream_tile(int* tx, int* ty, int* hx, int* hy) {
     *tx = BIS_STREAM_TX;

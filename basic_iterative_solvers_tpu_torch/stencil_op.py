@@ -20,7 +20,11 @@ runs its plain version (`stencil_spmv_plain`,
 (`stencil_spmv_resident` in the JAX package) and #2
 (`stencil_spmv_stream`, x staged in shared memory), taken when `STREAM`
 is set (`BIS_STENCIL_STREAM=1`, as in the JAX package) for every operator
-within #2's reach (`stream_reach`).
+within #2's reach (`stream_reach`).  Each has two routes, picked before
+the launch by `route_for`: "box" (legs within the 3x3x3 box, the
+neighbourhood in registers; #2 also needs lines of whole 16-byte
+vectors) and "legs" (the first ports' leg loops, any legs), counted in
+`box_launches` and `legs_launches`; y is the same on both, bit for bit.
 
 The coefficients and the diagonal may be stored in bfloat16 beside float32
 or float64 vectors (the JAX package's matrix_dtype): the coefficients are
@@ -264,13 +268,24 @@ def _spmv_window_plain(A: DeviceStencil, xw: torch.Tensor, row0: int, dots,
     return (y,) + tuple(torch.dot(y, partner[k]) for k in dots)
 
 
+def _box_bit(leg) -> int:
+    """The bit of a leg (dx, dy, dz) in a box mask: its position in the
+    3 x 3 x 3 box, z, y, x order (-1 outside the box)."""
+    dx, dy, dz = leg
+    if max(abs(dx), abs(dy), abs(dz)) > 1:
+        return -1
+    return (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1)
+
+
 @functools.lru_cache(maxsize=64)
 def _launch_table(legs, coeff_values, dims, use_diag: bool, dots):
     """(StencilArgs, n_blocks) for one operator and dot request.
 
     Legs sharing a coefficient value form one group (one multiply per
     group, groups in ascending value); with `use_diag` the (0,0,0) leg is
-    left out, since the kernel adds diag[i]·x[i] itself."""
+    left out, since the kernel adds diag[i]·x[i] itself.  `box_mask[g]`
+    holds group g's legs as box positions (`_box_bit`), which the box
+    routes read in place of the legs; n_blocks is the leg-loop route's."""
     from ._build import MAX_DOTS, MAX_LEGS, StencilArgs
     if len(legs) > MAX_LEGS or len(dots) > MAX_DOTS:
         raise ValueError(f"the kernel takes at most {MAX_LEGS} legs and "
@@ -289,6 +304,9 @@ def _launch_table(legs, coeff_values, dims, use_diag: bool, dots):
         for (dx, dy, dz) in group:
             a.off[j] = dx + nx * (dy + ny * dz)
             a.dx[j], a.dy[j], a.dz[j] = dx, dy, dz
+            bit = _box_bit((dx, dy, dz))
+            if bit >= 0:
+                a.box_mask[gi] |= 1 << bit
             j += 1
     a.n_groups = len(groups)
     a.group_begin[a.n_groups] = j
@@ -314,31 +332,233 @@ def _kernel_form(A: DeviceStencil, x: torch.Tensor):
                                    A.diag.dtype if use_diag else x.dtype)
 
 
-def _stencil_spmv_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux):
+# ---------------------------------------------------------------------------
+# The box routes (csrc/stencil_spmv.cu: every leg within the 3x3x3 box)
+# ---------------------------------------------------------------------------
+
+def in_box(A: DeviceStencil) -> bool:
+    """Does every leg of A lie within |dx|, |dy|, |dz| <= 1 (HPCG and its
+    Galerkin levels, FDM 2-D and 3-D, Anderson)?"""
+    return _legs_in_box(A.legs)
+
+
+@functools.lru_cache(maxsize=256)
+def _legs_in_box(legs) -> bool:
+    return all(_box_bit(leg) >= 0 for leg in legs)
+
+
+def box_form(A: DeviceStencil):
+    """(legs, dims) of A as the box routes march it: a 2-D grid (nz = 1)
+    with its y axis as z, legs (dx, dy, 0) as (dx, 0, dy), so the march
+    runs along y.  The flat offsets, the boundary masks and the legs'
+    z, y, x order are A's, so the arithmetic is the same."""
+    return _box_form(A.legs, A.dims)
+
+
+@functools.lru_cache(maxsize=64)
+def _box_form(legs, dims):
+    nx, ny, nz = dims
+    if nz != 1:
+        return legs, dims
+    return tuple((dx, dz, dy) for (dx, dy, dz) in legs), (nx, 1, ny)
+
+
+def box_vec(A: DeviceStencil, x: torch.Tensor, aux=None) -> int:
+    """The x values a thread of a box route owns: 16 // itemsize where a
+    line is a whole number of 16-byte vectors and every vector read or
+    written that wide (x, aux, a diagonal of x's dtype) starts on 16
+    bytes, else 1."""
+    vec = 16 // x.element_size()
+    use_diag = A.diag is not None and (0, 0, 0) in A.legs
+    ptrs = [v.data_ptr() for v in (x, aux) if v is not None]
+    if use_diag and A.diag.dtype == x.dtype:
+        ptrs.append(A.diag.data_ptr())
+    if A.dims[0] % vec or any(p % 16 for p in ptrs):
+        return 1
+    return vec
+
+
+def route_for(A: DeviceStencil, x: torch.Tensor, aux=None,
+              stream: bool = None) -> str:
+    """The route of the SpMV kernel that `stencil_spmv` launches for A on a
+    card (`stream`: kernel #2 rather than #1; by default `spmv_route`'s
+    choice): "box" where every leg lies within the 3x3x3 box and, for #2,
+    x's lines are whole 16-byte vectors (its slabs are bulk copies) and
+    its ring fits an SM's shared memory (lines up to ~3,000 wide); else
+    "legs", the leg-loop kernels (#1's first port, #2's synchronous
+    ring).  A rule on the legs, the grid's x extent, the dtype and the
+    vectors' alignment, read at each call."""
+    if stream is None:
+        stream = spmv_route(A) == "stream"
+    if not in_box(A):
+        return "legs"
+    if stream:
+        vec = box_vec(A, x, aux)
+        if vec == 1 or not _box_resident(True, box_form(A)[1], vec,
+                                          x.element_size()):
+            return "legs"
+    return "box"
+
+
+#: consumer threads a block of the box routes, a chunk of x each
+#: (BIS_BOX_THREADS), and #2's ring depth (BIS_BOX_STAGES)
+BOX_THREADS = 256
+BOX_STAGES = 8
+#: blocks of #1's box route and of #2's in float32 resident on a
+#: streaming multiprocessor, as the kernels' __launch_bounds__ ask
+#: (BIS_BOX_MIN_BLOCKS, BIS_BOX_STREAM_MIN_BLOCKS); #2 in float64 takes
+#: #1's count
+BOX_RESIDENT = (2, 3)
+#: shared memory of an H100's SM that blocks may take (227 KB)
+_SMEM_PER_SM = 232448
+
+
+def _box_ring_bytes(dims, vec: int, itemsize: int) -> int:
+    """Shared memory a block of #2's box route takes on an SM: its ring of
+    BOX_STAGES slots, the mbarriers, and the 1 KB the card keeps a
+    block."""
+    return 128 + BOX_STAGES * _box_slot(dims, vec) * itemsize + 1024
+
+
+def _box_resident(stream: bool, dims, vec: int, itemsize: int) -> int:
+    """Blocks of a box launch resident on an SM: BOX_RESIDENT's, and for
+    #2 as far as its ring fits the SM's shared memory (0: not once)."""
+    if not stream:
+        return BOX_RESIDENT[0]
+    return min(BOX_RESIDENT[1] if itemsize == 4 else BOX_RESIDENT[0],
+               _SMEM_PER_SM // _box_ring_bytes(dims, vec, itemsize))
+
+
+@functools.lru_cache(maxsize=64)
+def _box_grid(dims, vec: int, sms: int = 132,
+              resident: int = 2) -> Tuple[int, int, int]:
+    """(grid_x, grid_y, zr) of a box route on `dims` (as `box_form` gives
+    them) on a card of `sms` multiprocessors that holds `resident` blocks
+    each: grid_x tiles of BOX_THREADS chunks of `vec` x values cover a
+    plane, grid_y runs of zr planes cover z.  A block's time grows with
+    zr + 2 (its planes and the two beyond them it loads) and the launch
+    takes as many of those times as it has waves of resident blocks, so
+    zr minimises waves × (zr + 2), the shortest run on a tie."""
+    nx, ny, nz = dims
+    gx = -(-(nx * ny // vec) // BOX_THREADS)
+    wave = resident * sms
+
+    def cost(zr):
+        return -(-(gx * -(-nz // zr)) // wave) * (zr + 2)
+    zr = min(range(1, nz + 1), key=lambda r: (cost(r), r))
+    gy = -(-nz // zr)
+    if gy > 65535 or gx >= 2 ** 31:
+        raise ValueError(f"grid {dims} exceeds the box route's launch "
+                         "limits")
+    return gx, gy, zr
+
+
+def _box_slot(dims, vec: int) -> int:
+    """Elements of one slot of #2's ring on the box route: the widest slab
+    a block stages (its chunks, a line and a vector on each side, cut to
+    the plane)."""
+    nx, ny, _ = dims
+    return min(nx * ny, BOX_THREADS * vec + 2 * nx + 2 * vec)
+
+
+def _box_slab(dims, vec: int, bx: int) -> Tuple[int, int]:
+    """[lo, hi): the elements of a plane that block column bx of #2's box
+    route stages (the kernel's own rule)."""
+    nx, ny, _ = dims
+    plane = nx * ny
+    cb = bx * BOX_THREADS
+    ce = min(cb + BOX_THREADS, plane // vec)
+    return max(0, cb * vec - nx - vec), min(plane, ce * vec + nx + vec)
+
+
+# ---------------------------------------------------------------------------
+# SpMV
+# ---------------------------------------------------------------------------
+
+def _bind_spmv(A: DeviceStencil, x: torch.Tensor, dots, aux, stream: bool,
+               route: str):
+    """(launch, y, partials, bf16): one launch of kernel #2 (`stream`) or
+    #1 on `route` ("box" or "legs") with its operands bound and its
+    outputs allocated; launch() makes the ctypes call and raises on a CUDA
+    error.  The wrappers call it once a call; a timing loop may call
+    launch() many times."""
     from ._build import load_library
     use_diag, suffix = _kernel_form(A, x)
-    args, n_blocks = _launch_table(A.legs, A.coeff_values, A.dims, use_diag,
-                                   tuple(dots))
-    lib = load_library()
-    fn = getattr(lib, f"bis_stencil_spmv_{suffix}")
+    kernel = "stencil_spmv_stream" if stream else "stencil_spmv"
+    if route == "box":
+        if not in_box(A):
+            raise ValueError(f"legs {A.legs} lie outside the box route's "
+                             "3x3x3 box")
+        legs, dims = box_form(A)
+        vec = box_vec(A, x, aux if "aux" in dots else None)
+        if stream and (vec == 1 or not _box_resident(
+                True, dims, vec, x.element_size())):
+            raise ValueError("kernel #2's box route needs x in whole "
+                             "16-byte vectors of a line and its ring in "
+                             "an SM's shared memory")
+        args, _ = _launch_table(legs, A.coeff_values, dims, use_diag,
+                                tuple(dots))
+        gx, gy, zr = _box_grid(dims, vec, sm_count(x.device.index),
+                               _box_resident(stream, dims, vec,
+                                             x.element_size()))
+        grid = ((zr, gx, gy, _box_slot(dims, vec)) if stream
+                else (vec, zr, gx, gy))
+        n_blocks = gx * gy
+        fn = getattr(load_library(), f"bis_{kernel}_box_{suffix}")
+    elif route == "legs":
+        args, n_blocks = _launch_table(A.legs, A.coeff_values, A.dims,
+                                       use_diag, tuple(dots))
+        grid = ()
+        if stream:
+            if not stream_reach(A):
+                raise ValueError(f"legs {A.legs} lie outside kernel #2's "
+                                 f"halo {STREAM_HALO}")
+            grid = _stream_grid(A.dims)
+            n_blocks = grid[0] * grid[1] * grid[2]
+        fn = getattr(load_library(), f"bis_{kernel}_{suffix}")
+    else:
+        raise ValueError(f"unknown stencil SpMV route {route!r}")
     y = torch.empty_like(x)
     partials = (torch.empty((n_blocks, len(dots)), dtype=x.dtype,
                             device=x.device) if dots else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = fn(x.device.index, ctypes.byref(args), ptr(x),
-             ptr(A.diag if use_diag else None),
-             ptr(aux if "aux" in dots else None), ptr(y), ptr(partials),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"stencil_spmv kernel launch failed with CUDA "
-                           f"error {err}")
-    if suffix.endswith("_bf16"):
-        stencil_spmv.bf16_launches += 1
+    argv = (x.device.index, ctypes.byref(args), *grid, ptr(x),
+            ptr(A.diag if use_diag else None),
+            ptr(aux if "aux" in dots else None), ptr(y), ptr(partials),
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+    def launch():
+        err = fn(*argv)
+        if err != 0:
+            raise RuntimeError(f"{kernel} kernel launch ({route} route) "
+                               f"failed with CUDA error {err}")
+    return launch, y, partials, suffix.endswith("_bf16")
+
+
+def _spmv_cuda(counter, A, x, dots, aux, stream, route):
+    """Launch #1 or #2 on `route` (by default `route_for`'s), count the
+    launch in `counter` (by form and by route) and return y, or (y, *dots)
+    with the per-block partials summed."""
+    if route is None:
+        route = route_for(A, x, aux if "aux" in dots else None, stream)
+    launch, y, partials, bf16 = _bind_spmv(A, x, dots, aux, stream, route)
+    launch()
+    if bf16:
+        counter.bf16_launches += 1
     else:
-        stencil_spmv.launches += 1
+        counter.launches += 1
+    if route == "box":
+        counter.box_launches += 1
+    else:
+        counter.legs_launches += 1
     if not dots:
         return y
     return (y,) + tuple(partials.sum(dim=0).unbind())
+
+
+def _stencil_spmv_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux,
+                       route: str = None):
+    return _spmv_cuda(stencil_spmv, A, x, dots, aux, False, route)
 
 
 def stream_reach(A: DeviceStencil) -> bool:
@@ -371,12 +591,13 @@ def stencil_spmv(A: DeviceStencil, x: torch.Tensor, dots=(),
 
     A CUDA tensor goes through a hand-written kernel: #1, counting its
     launches in `stencil_spmv.launches` (`stencil_spmv.bf16_launches` for
-    its bfloat16-diagonal form), or, where `spmv_route` says
-    "stream", #2 (`stencil_spmv_stream`).  With STREAM set, an operator
-    outside #2's reach launches #1, as the JAX package sends it to its
-    non-Pallas path, and is counted in `stencil_spmv_stream.outside_reach`;
-    a failed build or launch of either kernel raises.  A CPU tensor takes
-    the plain version."""
+    its bfloat16-diagonal form) and, by route (`route_for`), in
+    `stencil_spmv.box_launches` or `.legs_launches`; or, where
+    `spmv_route` says "stream", #2 (`stencil_spmv_stream`).  With STREAM
+    set, an operator outside #2's reach launches #1, as the JAX package
+    sends it to its non-Pallas path, and is counted in
+    `stencil_spmv_stream.outside_reach`; a failed build or launch of
+    either kernel raises.  A CPU tensor takes the plain version."""
     dots = tuple(dots)
     _check_operands(A, x, dots, aux)
     if x.device.type == "cuda":
@@ -392,12 +613,14 @@ def stencil_spmv(A: DeviceStencil, x: torch.Tensor, dots=(),
 
 stencil_spmv.launches = 0
 stencil_spmv.bf16_launches = 0
+stencil_spmv.box_launches = 0
+stencil_spmv.legs_launches = 0
 
 
 @functools.lru_cache(maxsize=64)
 def _stream_grid(dims) -> Tuple[int, int, int, int]:
-    """(grid_x, grid_y, grid_z, zc) of kernel #2: a block a tile of
-    STREAM_TILE, marching zc planes of z."""
+    """(grid_x, grid_y, grid_z, zc) of kernel #2 on the legs route: a block
+    a tile of STREAM_TILE, marching zc planes of z."""
     nx, ny, nz = dims
     gx = -(-nx // STREAM_TILE[0])
     gy = -(-ny // STREAM_TILE[1])
@@ -409,35 +632,12 @@ def _stream_grid(dims) -> Tuple[int, int, int, int]:
     return gx, gy, gz, zc
 
 
-def _stencil_spmv_stream_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux):
-    from ._build import load_library
-    use_diag, suffix = _kernel_form(A, x)
+def _stencil_spmv_stream_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux,
+                              route: str = None):
     if not stream_reach(A):
         raise ValueError(f"legs {A.legs} lie outside kernel #2's halo "
                          f"{STREAM_HALO}")
-    args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag,
-                            tuple(dots))
-    gx, gy, gz, zc = _stream_grid(A.dims)
-    lib = load_library()
-    fn = getattr(lib, f"bis_stencil_spmv_stream_{suffix}")
-    y = torch.empty_like(x)
-    partials = (torch.empty((gx * gy * gz, len(dots)), dtype=x.dtype,
-                            device=x.device) if dots else None)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = fn(x.device.index, ctypes.byref(args), gx, gy, gz, zc, ptr(x),
-             ptr(A.diag if use_diag else None),
-             ptr(aux if "aux" in dots else None), ptr(y), ptr(partials),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"stencil_spmv_stream kernel launch failed with "
-                           f"CUDA error {err}")
-    if suffix.endswith("_bf16"):
-        stencil_spmv_stream.bf16_launches += 1
-    else:
-        stencil_spmv_stream.launches += 1
-    if not dots:
-        return y
-    return (y,) + tuple(partials.sum(dim=0).unbind())
+    return _spmv_cuda(stencil_spmv_stream, A, x, dots, aux, True, route)
 
 
 def stencil_spmv_stream(A: DeviceStencil, x: torch.Tensor, dots=(),
@@ -446,12 +646,12 @@ def stencil_spmv_stream(A: DeviceStencil, x: torch.Tensor, dots=(),
     requested dots y·x, y·y, y·aux; the dense diagonal), with x staged in
     shared memory a z-plane at a time (csrc/stencil_spmv.cu).  A CUDA tensor
     launches it, counted in `stencil_spmv_stream.launches`
-    (`stencil_spmv_stream.bf16_launches` for its bfloat16-diagonal form),
-    and raises for
-    an operator outside its reach (`stream_reach`); a CPU tensor takes the
-    plain version.  #2 computes the same function as #1, so its plain
-    version is #1's, `stencil_spmv_plain`: y equals #1's bit for bit, the
-    dots differ only in the order of their sums."""
+    (`stencil_spmv_stream.bf16_launches` for its bfloat16-diagonal form)
+    and, by route (`route_for`), in `.box_launches` or `.legs_launches`,
+    and raises for an operator outside its reach (`stream_reach`); a CPU
+    tensor takes the plain version.  #2 computes the same function as #1,
+    so its plain version is #1's, `stencil_spmv_plain`: y equals #1's bit
+    for bit, the dots differ only in the order of their sums."""
     dots = tuple(dots)
     _check_operands(A, x, dots, aux)
     if x.device.type == "cuda":
@@ -463,6 +663,8 @@ def stencil_spmv_stream(A: DeviceStencil, x: torch.Tensor, dots=(),
 
 stencil_spmv_stream.launches = 0
 stencil_spmv_stream.bf16_launches = 0
+stencil_spmv_stream.box_launches = 0
+stencil_spmv_stream.legs_launches = 0
 stencil_spmv_stream.outside_reach = 0
 
 

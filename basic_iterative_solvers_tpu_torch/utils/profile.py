@@ -41,6 +41,7 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: kernel-name fragments → phase buckets, tried in order
 PHASE_BUCKETS = (
     ("spmv", ("stencil_spmv_kernel", "stencil_spmv_stream_kernel",
+              "stencil_spmv_box_kernel", "stencil_spmv_stream_box_kernel",
               "stencil_gs_color_step_kernel", "dia_spmv_kernel",
               "lane_ell_spmv_kernel", "stencil_spmv_halo_kernel",
               "stencil_gs_color_step_halo_kernel", "dia_spmv_halo_kernel",

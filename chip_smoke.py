@@ -7,10 +7,14 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
   1. device: the card's name and power limit;
   2. build: compile the CUDA kernels from this checkout; [ptxas] prints
-     the registers and spills of the basis kernels, the lane-ELL kernels
-     and the staged factor-table level;
+     the registers and spills of the basis kernels, the lane-ELL kernels,
+     the staged factor-table level and the stencil SpMVs #1 and #2 on
+     both routes;
   3. the stencil SpMV kernel against its plain PyTorch version on the card,
-     at the main path's shapes, both timed;
+     at the main path's shapes, both timed, on the route each shape takes
+     (the box route) and bit for bit against the leg-loop route; then the
+     two routes timed in turns on bound launches (device time) at 128^3
+     and 384^3 f32 beside the byte bound;
   4. the GMRES basis kernels (project_gram, correct_write) at the 128^3
      GMRES(50) shape, both basis dtypes, j = 0, 7, 49: the ring route the
      shape takes and the strided route against their plain versions,
@@ -98,15 +102,22 @@ exits non-zero:
      and torch.triangular_solve's whole const L solve; then the bench's sgs and pcg rows with BIS_SB_MEGA's switch (the
      module attribute MEGA) on and off in turns;
  26. kernel #2 (the SpMV with x staged in shared memory, [stream]) against
-     its plain version and bit for bit against #1 at 128^3 f32 (every dot
-     set) and f64, 384^3 f32, Anderson 128^3, fdm:2048 and the 64^3
-     Galerkin level of the 128^3 multigrid hierarchy, both kernels timed;
+     its plain version and bit for bit against #1 and both kernels'
+     leg-loop routes at 128^3 f32 (every dot set) and f64, 384^3 f32,
+     Anderson 128^3, fdm:2048 and the 64^3 Galerkin level of the 128^3
+     multigrid hierarchy; #2's box and leg-loop routes timed in turns and
+     #1's box route, by device time of bound launches, with the share of
+     the byte bound;
  27. CG + MG, CG + Chebyshev, pipelined CG and CG + MG with refinement on
      HPCG 32^3 in float64 on the CPU and on the card ([cpu-vs-card-slice6]);
- 28. slice 6's rows ([slice6]): pcg_mg at 128^3 (CG + V-cycle, 1200
-     iterations), cg (2500), cg@384 (150) and pcg_mg@384 (100), f32, with
+ 28. slice 6's rows ([slice6]): pcg_mg at 128^3 (CG + V-cycle, 400
+     iterations, the bench's 1200 cut), cg (2500), cg@384 (150) and
+     pcg_mg@384 (100), f32, with
      BIS_STENCIL_STREAM's switch (the module attribute STREAM) off and on in
-     turns, launches of #1 and #2 an iteration, set-up seconds, peak memory;
+     turns, cg@384 and pcg_mg@384 also on the leg-loop route (the four
+     configurations in turns), launches of #1 and #2 an iteration, each
+     counted on its configuration's route only, set-up seconds, peak
+     memory;
  29. cg_mg_refine at 128^3 ([refine]): float32 CG + MG inners, float64
      outers to 1e-11·||r0||, held to the explicit float64 residual;
  30. pipelined against classic CG at 128^3 in turns ([pipelined]);
@@ -139,8 +150,9 @@ exits non-zero:
      route (the launch shape's, padded on sband's shards; counted; padded
      with int32 indices, the first port's kernel; timed in turns) beside
      8 CSR SpMVs over the shards' rows;
- 35. slice 8's rows ([slice8]): CG on the 128^3 stencil (2500), DIA CG at
-     128^3 (2500), cg@sband (400; the mesh also with #5's shard launches
+ 35. slice 8's rows ([slice8]): CG on the 128^3 stencil (500, the
+     bench's 2500 cut), DIA CG at 128^3 (500), cg@sband (400; the mesh
+     also with #5's shard launches
      forced onto the counted route), SGS on fdm:2048 (200), single-device
      and 8-shard mesh in turns, with ms/iter, launches and the mesh's
      exchanges an iteration; f64 CG + Jacobi to 1e-8 at 128^3 on both,
@@ -156,7 +168,8 @@ exits non-zero:
      level, the plain twins, the whole mesh level with its exchange and
      whole L solves;
  37. slice 8b's rows ([slice8b]): pcg, pcg_ilu0, pbicgstab@anderson128 and
-     pcg_ilu0@fdm2048 at full size and the bench's iteration counts,
+     pcg_ilu0@fdm2048 at full size, a quarter of the bench's iteration
+     counts (300, 300, 200, 300),
      single-device and 8-shard mesh in turns, with ms/iter, #9's mesh
      launches, exchanges and peak memory; f64 CG + SGS to 1e-8 at 128^3
      on both, equal counts;
@@ -268,7 +281,9 @@ def phase_device(torch):
 #: kernels whose ptxas lines [ptxas] prints beside the basis kernels'
 PTXAS_KERNELS = ("lane_ell_spmv_kernel", "lane_ell_spmv_halo_kernel",
                  "lane_ell_spmv_halo_padded_kernel",
-                 "super_level_staged_kernel")
+                 "super_level_staged_kernel", "stencil_spmv_kernel",
+                 "stencil_spmv_stream_kernel", "stencil_spmv_box_kernel",
+                 "stencil_spmv_stream_box_kernel")
 #: Itanium codes of the template arguments those kernels take
 _MANGLED = {"f": "float", "d": "double", "t": "u16", "h": "u8", "i": "int",
             "13__nv_bfloat16": "bf16"}
@@ -290,16 +305,17 @@ def _template_args(code):
 
 def phase_build(torch):
     """Build and load the kernels; beside the build, compile the basis
-    kernels', the lane-ELL SpMV's and the level kernels' sources once more
-    with -Xptxas -v (all started together) and print the registers, spills
-    and shared memory of the basis kernels, the lane-ELL kernels
-    and the staged factor-table level, then the ring kernels' resident
+    kernels', the lane-ELL SpMV's, the level kernels' and the stencil
+    SpMVs' sources once more with -Xptxas -v (all started together) and
+    print the registers, spills and shared memory of the basis kernels,
+    the lane-ELL kernels, the staged factor-table level and the stencil
+    SpMVs #1 and #2 on both routes, then the ring kernels' resident
     blocks an SM (the occupancy their launches are sized to)."""
     import tempfile
     from basic_iterative_solvers_tpu_torch import _build
     from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
     t0 = time.perf_counter()
-    names = ("gmres_basis", "sparse_spmv", "block_trisolve")
+    names = ("gmres_basis", "sparse_spmv", "block_trisolve", "stencil_spmv")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
@@ -336,9 +352,36 @@ def phase_build(torch):
               f"{slots // sms} resident blocks an SM x {sms} SMs")
 
 
+def _route_ab(torch, so, A, x, dots, aux, stream):
+    """Kernel #2 (`stream`) or #1 on its box route and its leg-loop route,
+    each with its operands bound once (`stencil_op._bind_spmv`: the ctypes
+    call alone): y of the two routes bit for bit, then device ms of each
+    in turns (box, legs, legs, box).  Returns ((box ms, box ms), (legs ms,
+    legs ms))."""
+    launch_b, y_b, _, _ = so._bind_spmv(A, x, dots, aux, stream, "box")
+    launch_l, y_l, _, _ = so._bind_spmv(A, x, dots, aux, stream, "legs")
+    launch_b()
+    launch_l()
+    torch.cuda.synchronize()
+    if not torch.equal(y_b, y_l):
+        raise RuntimeError(f"{'#2' if stream else '#1'}'s box route is not "
+                           f"bit-equal to its leg loop on {A.dims}")
+    t = [_device_ms(f, torch) for f in (launch_b, launch_l, launch_l,
+                                        launch_b)]
+    return (t[0], t[3]), (t[1], t[2])
+
+
+#: [kernel]'s route A/B: #1 at the main path's and the capacity run's size
+ROUTE_AB_SPECS = (MAIN_SPEC, "hpcg:384x384x384")
+
+
 def phase_kernel_vs_plain(torch, so):
     """Every SpMV form the main path and the explicit residual use, plus
-    the other dot kinds, on the card; returns the main-path record."""
+    the other dot kinds, on the card, on the route each takes (the box
+    route), held to plain and bit for bit to the leg-loop route; then the
+    two routes timed in turns on bound launches (device time) at 128^3
+    and 384^3 f32 with y.x, beside the byte bound.  Returns the main-path
+    record."""
     record = None
     for spec in KERNEL_SPECS:
         for dt in (torch.float32, torch.float64):
@@ -354,7 +397,11 @@ def phase_kernel_vs_plain(torch, so):
                 torch.cuda.synchronize()
                 if so.stencil_spmv.launches != before + 1:
                     raise RuntimeError("the launch count did not grow")
-                k, p = (k, p) if dots else ((k,), (p,))
+                legs = so._stencil_spmv_cuda(A, x, dots, aux, route="legs")
+                k, p, legs = (k, p, legs) if dots else ((k,), (p,), (legs,))
+                if not torch.equal(k[0], legs[0]):
+                    raise RuntimeError(f"the box route is not bit-equal to "
+                                       f"the leg loop: {spec} {dt} {dots}")
                 abs_err = float((k[0] - p[0]).abs().max())
                 rel = abs_err / float(p[0].abs().max())
                 partner = {"x": x, "self": p[0], "aux": aux}
@@ -369,16 +416,38 @@ def phase_kernel_vs_plain(torch, so):
                 n_vec = 2 + (A.diag is not None) + ("aux" in dots)
                 gbs = n_vec * A.n_rows * x.element_size() / (ms * 1e6)
                 print(f"[kernel] {spec} {str(dt)[6:]} "
-                      f"dots={','.join(dots) or '-'} max_rel_err={rel:.3e} "
+                      f"dots={','.join(dots) or '-'} route="
+                      f"{so.route_for(A, x, aux, stream=False)} "
+                      f"max_rel_err={rel:.3e} bit_equal_to_legs=True "
                       f"dot_rel_err={[f'{e:.3e}' for e in dot_rel]} "
-                      f"kernel_ms={ms:.4f} "
-                      f"plain_ms={plain_ms:.4f} kernel_GB/s={gbs:.0f}")
+                      f"call_ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} call_GB/s={gbs:.0f}")
                 if not (rel <= tol and all(e <= tol for e in dot_rel)):
                     raise RuntimeError(f"kernel disagrees with plain beyond "
                                        f"{tol}: {spec} {dt} {dots}")
                 if (spec, dt, dots) == (MAIN_SPEC, torch.float32, ("x",)):
-                    record = {"max_abs_err": abs_err, "ms": ms,
+                    record = {"max_abs_err": abs_err, "call_ms": ms,
                               "plain_ms": plain_ms}
+    for spec in ROUTE_AB_SPECS:
+        A = so.from_source_operator(spec, torch.float32, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(A.n_rows, device="cuda", generator=g)
+        box, legs = _route_ab(torch, so, A, x, ("x",), None, False)
+        bound = _bound(2 * A.n_rows * 4, 2 * len(A.legs) * A.n_rows)
+        b = bound["bound_ms"]
+        print(f"[kernel] route A/B {spec} f32 dots=x, device ms of bound "
+              f"launches in turns (box, legs, legs, box): box="
+              f"{[f'{t:.5f}' for t in box]} legs="
+              f"{[f'{t:.5f}' for t in legs]} bound_ms={b:.5f} "
+              f"({bound['bound_by']}) share_of_bound box={b / min(box):.3f} "
+              f"legs={b / min(legs):.3f}")
+        if spec == MAIN_SPEC:
+            record.update({"ms": min(box), "legs_ms": min(legs)})
+        else:
+            record.update({"ms_384": min(box), "legs_ms_384": min(legs),
+                           "bound_ms_384": b})
+        del A, x
+        torch.cuda.empty_cache()
     # the main path's call: y = A·x and y·x, f32; the library's nearest
     # call is one cuSPARSE SpMV of the assembled matrix (no dot)
     A = so.from_source_operator(MAIN_SPEC, torch.float32, device="cuda")
@@ -633,16 +702,20 @@ def phase_main_path(torch, bt):
                      tolerance=0.0, breakdown_stall=True)
     method = make_method(setup)
     bt.solve(setup, method=method)                 # warm-up solve
-    so.stencil_spmv.launches = 0
+    for attr in ("launches", "box_launches", "legs_launches"):
+        setattr(so.stencil_spmv, attr, 0)
     res = bt.solve(setup, method=method)
     launches = so.stencil_spmv.launches
+    by_route = {"box": so.stencil_spmv.box_launches,
+                "legs": so.stencil_spmv.legs_launches}
     ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
     print(f"[main] {MAIN_SPEC} f32 CG fused: iters={res.iter_count} "
           f"ms/iter={ms:.5f} r0={res.residual_norms[0]:.6e} "
           f"final_explicit_f64={res.final_residual_norm:.6e} "
-          f"spmv_launches={launches}")
+          f"spmv_launches={launches} by_route={by_route}")
     if not (res.iter_count == 2500 and math.isfinite(res.final_residual_norm)
             and launches >= 2500 and res.x_star.shape == (setup.n,)
+            and by_route == {"box": launches, "legs": 0}
             and bool(torch.isfinite(res.x_star).all())):
         raise RuntimeError("main path run failed its checks")
 
@@ -656,7 +729,7 @@ def phase_main_path(torch, bt):
           f"ms/iter={1e3 * res64.solve_seconds / res64.iter_count:.5f}")
     if not (res64.converged and res64.final_residual_norm <= 10 * 1e-8 * r0):
         raise RuntimeError("f64 main-path solve did not converge")
-    return launches, ms
+    return launches, ms, by_route
 
 
 def _check_history(got, ref):
@@ -2748,49 +2821,16 @@ def _galerkin_64(torch, bt, dtype):
     return levels[1].A
 
 
-def _raw_spmv(torch, so, A, x, dots, aux, stream):
-    """One launch of kernel #2 (`stream`) or #1 on A·x with its arguments
-    bound once: the ctypes call alone (no operand checks, no allocation,
-    no sum of the dot partials), so that a batch of launches times the
-    kernel on the card rather than the wrapper's host work."""
-    import ctypes
-    from basic_iterative_solvers_tpu_torch._build import load_library
-    lib = load_library()
-    use_diag = A.diag is not None and (0, 0, 0) in A.legs
-    args, n_blocks = so._launch_table(A.legs, A.coeff_values, A.dims,
-                                      use_diag, tuple(dots))
-    sfx = "f32" if x.dtype == torch.float32 else "f64"
-    grid = ()
-    if stream:
-        grid = so._stream_grid(A.dims)
-        n_blocks = grid[0] * grid[1] * grid[2]
-        fn = getattr(lib, f"bis_stencil_spmv_stream_{sfx}")
-    else:
-        fn = getattr(lib, f"bis_stencil_spmv_{sfx}")
-    y = torch.empty_like(x)
-    partials = torch.empty((n_blocks, max(1, len(dots))), dtype=x.dtype,
-                           device=x.device)
-    argv = (x.device.index, ctypes.byref(args), *grid, x.data_ptr(),
-            A.diag.data_ptr() if use_diag else None,
-            aux.data_ptr() if "aux" in dots else None, y.data_ptr(),
-            partials.data_ptr(), torch.cuda.current_stream().cuda_stream)
-
-    def launch():
-        err = fn(*argv)
-        if err != 0:
-            raise RuntimeError(f"raw launch failed with CUDA error {err}")
-    return launch
-
-
 def phase_stream_vs_plain(torch, bt, library_ms):
     """Kernel #2 against its plain version (#1's) and against #1 on every
-    operator of STREAM_SPECS: y bit-equal to #1's, within TOL of plain,
-    the dots within STREAM_DOT_RTOL of #1's; #2 and #1 timed on the same
-    operands (CUDA-event median of 20 batches of 10 bound launches, in
-    turns, and through the wrappers), with the byte bound (x and y, plus
-    the diagonal and aux).  Returns the record of
-    128^3 f32 with y.x (the CG SpMV), its library time the CSR SpMV's of
-    phase 3 (the same matrix and x)."""
+    operator of STREAM_SPECS: y of #2 on the route it takes (`route_for`),
+    of #2's and #1's leg-loop routes and of #1's box route all bit-equal,
+    within TOL of plain, #2's dots within STREAM_DOT_RTOL of #1's; #2's
+    routes timed in turns (route, legs, legs, route) and #1's box route,
+    by device time on bound launches, and through the wrappers, with the
+    byte bound (x and y, plus the diagonal and aux).  Returns the record
+    of 128^3 f32 with y.x (the CG SpMV), its library time the CSR SpMV's
+    of phase 3 (the same matrix and x)."""
     so = bt.stencil_op
     record = None
     for spec, dt_name, dot_sets in STREAM_SPECS:
@@ -2804,28 +2844,40 @@ def phase_stream_vs_plain(torch, bt, library_ms):
         aux = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
         for dots in dot_sets:
             before = so.stencil_spmv_stream.launches
+            route = so.route_for(A, x, aux if "aux" in dots else None,
+                                 stream=True)
             k2 = so.stencil_spmv_stream(A, x, dots, aux)
             k1 = so._stencil_spmv_cuda(A, x, dots, aux)
             p = so.stencil_spmv_plain(A, x, dots, aux)
+            legs2 = so._stencil_spmv_stream_cuda(A, x, dots, aux,
+                                                 route="legs")
+            legs1 = so._stencil_spmv_cuda(A, x, dots, aux, route="legs")
             torch.cuda.synchronize()
-            if so.stencil_spmv_stream.launches != before + 1:
+            if so.stencil_spmv_stream.launches != before + 2:
                 raise RuntimeError("kernel #2's launch count did not grow")
-            k2, k1, p = (k2, k1, p) if dots else ((k2,), (k1,), (p,))
-            bit_equal = torch.equal(k2[0], k1[0])
+            k2, k1, p, legs2, legs1 = (
+                (k2, k1, p, legs2, legs1) if dots else
+                ((k2,), (k1,), (p,), (legs2,), (legs1,)))
+            bit_equal = all(torch.equal(k2[0], o[0])
+                            for o in (k1, legs2, legs1))
             abs_err = float((k2[0] - p[0]).abs().max())
             rel = abs_err / float(p[0].abs().max())
             partner = {"x": x, "self": k1[0], "aux": aux}
             dot_rel = [abs(float(d2 - d1))
                        / float((k1[0] * partner[kind]).abs().sum())
                        for kind, d2, d1 in zip(dots, k2[1:], k1[1:])]
-            # kernel times from bound launches, in turns (#2, #1, #1, #2);
-            # call times through the wrappers (operand checks, allocation,
-            # the partials' sum: host work that can exceed the kernel's)
-            raw2 = _raw_spmv(torch, so, A, x, dots, aux, True)
-            raw1 = _raw_spmv(torch, so, A, x, dots, aux, False)
-            t2a, t1a, t1b, t2b = (_median_ms(f, torch)
-                                  for f in (raw2, raw1, raw1, raw2))
-            ms2, ms1 = min(t2a, t2b), min(t1a, t1b)
+            # device times of bound launches, #2's routes in turns; call
+            # times through the wrappers (operand checks, allocation, the
+            # partials' sum: host work that can exceed the kernel's)
+            if route == "box":
+                t_box, t_legs = _route_ab(torch, so, A, x, dots, aux, True)
+            else:
+                t_box = ()
+                t_legs = (_device_ms(so._bind_spmv(A, x, dots, aux, True,
+                                                   "legs")[0], torch),)
+            t_res = _device_ms(so._bind_spmv(A, x, dots, aux, False,
+                                             "box")[0], torch)
+            ms2 = min(t_box or t_legs)
             call2 = _median_ms(
                 lambda: so.stencil_spmv_stream(A, x, dots, aux), torch)
             call1 = _median_ms(
@@ -2833,14 +2885,17 @@ def phase_stream_vs_plain(torch, bt, library_ms):
             n_vec = 2 + (A.diag is not None) + ("aux" in dots)
             bound = _bound(n_vec * A.n_rows * x.element_size(),
                            2 * len(A.legs) * A.n_rows)
+            b = bound["bound_ms"]
             print(f"[stream] {spec} {dt_name} dims={A.dims} legs="
-                  f"{len(A.legs)} dots={','.join(dots) or '-'} "
-                  f"bit_equal_to_#1={bit_equal} max_rel_err_vs_plain="
+                  f"{len(A.legs)} dots={','.join(dots) or '-'} route={route} "
+                  f"bit_equal_to_#1_and_legs={bit_equal} max_rel_err_vs_plain="
                   f"{rel:.3e} dot_rel_vs_#1={[f'{e:.3e}' for e in dot_rel]} "
-                  f"kernel_ms #2={[f'{t:.4f}' for t in (t2a, t2b)]} "
-                  f"#1={[f'{t:.4f}' for t in (t1a, t1b)]} call_ms "
-                  f"#2={call2:.4f} #1={call1:.4f} "
-                  f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})")
+                  f"device_ms #2 box={[f'{t:.5f}' for t in t_box]} "
+                  f"legs={[f'{t:.5f}' for t in t_legs]} #1 box={t_res:.5f} "
+                  f"call_ms #2={call2:.4f} #1={call1:.4f} "
+                  f"bound_ms={b:.5f} ({bound['bound_by']}) share_of_bound "
+                  f"#2={b / ms2:.3f} #2_legs={b / min(t_legs):.3f} "
+                  f"#1={b / t_res:.3f}")
             if not (bit_equal and rel <= TOL[dt_name]
                     and all(e <= STREAM_DOT_RTOL[dt_name] for e in dot_rel)):
                 raise RuntimeError(f"kernel #2 disagrees: {spec} {dt_name} "
@@ -2849,29 +2904,56 @@ def phase_stream_vs_plain(torch, bt, library_ms):
                 plain_ms = _median_ms(
                     lambda: so.stencil_spmv_plain(A, x, dots, aux), torch)
                 record = {"max_abs_err": abs_err, "ms": ms2,
-                          "plain_ms": plain_ms, "library_ms": library_ms,
-                          "resident_ms": ms1, "call_ms": call2, **bound}
+                          "legs_ms": min(t_legs), "plain_ms": plain_ms,
+                          "library_ms": library_ms, "resident_ms": t_res,
+                          "call_ms": call2, **bound}
+            if (spec, dt_name) == ("hpcg:384x384x384", "float32"):
+                record.update({"ms_384": ms2, "legs_ms_384": min(t_legs),
+                               "resident_ms_384": t_res,
+                               "bound_ms_384": b})
         del A, x, aux
         torch.cuda.empty_cache()
     return record
 
 
 #: slice 6's rows: (name, spec, preconditioner, iterations), f32 fused,
-#: tolerance 0, b = 2, x0 = 1 (bench.py:164-180, 568)
-SLICE6_ROWS = (("pcg_mg", MAIN_SPEC, "MULTIGRID", 1200),
+#: tolerance 0, b = 2, x0 = 1 (bench.py:164-180, 568; pcg_mg's 1200 cut
+#: to 400 to keep the script inside its time limit)
+SLICE6_ROWS = (("pcg_mg", MAIN_SPEC, "MULTIGRID", 400),
                ("cg", MAIN_SPEC, "NONE", 2500),
                ("cg@384", "hpcg:384x384x384", "NONE", 150),
                ("pcg_mg@384", "hpcg:384x384x384", "MULTIGRID", 100))
 
 
+#: the rows whose STREAM A/B also runs each kernel on its leg-loop route
+ROUTE_AB_ROWS = ("cg@384", "pcg_mg@384")
+
+
+@contextlib.contextmanager
+def _spmv_routes(so, route):
+    """Run #1 and #2 on `route` ("legs"), or on the route each operator's
+    shape takes (None): stencil_op.route_for replaced for the block."""
+    shape_route = so.route_for
+    if route is not None:
+        so.route_for = lambda *args, **kw: route
+    try:
+        yield
+    finally:
+        so.route_for = shape_route
+
+
 def phase_slice6_rows(torch, bt):
     """SLICE6_ROWS with STREAM (kernel #2) off and on in turns (off, on,
-    on, off), after a warm-up solve with each; every counter set to 0
-    just before each timed solve and read just after.  Prints ms/iter,
-    launches of #1 and #2 an iteration, the explicit float64 residual,
-    set-up seconds and peak memory; fails unless the STREAM runs launch #2
-    and no #1, and the others #1 and no #2.  Returns #2's launches over
-    the pcg_mg STREAM runs and each row's launches an iteration."""
+    on, off), after a warm-up solve with each, on the route each operator's
+    shape takes (the box route); the ROUTE_AB_ROWS also on the leg-loop
+    route, the four configurations in turns (route, STREAM: box off, box
+    on, legs off, legs on, then back); every counter set to 0 just before
+    each timed solve and read just after.  Prints ms/iter, launches of #1
+    and #2 an iteration by route, the explicit float64 residual, set-up
+    seconds and peak memory; fails unless the STREAM runs launch #2 and no
+    #1, the others #1 and no #2, each on the route of its configuration
+    only.  Returns #2's launches over the pcg_mg STREAM runs and each
+    row's launches an iteration."""
     import math
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
     from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
@@ -2888,20 +2970,34 @@ def phase_slice6_rows(torch, bt):
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         solver = make_method(setup)
-        ms, per = {False: [], True: []}, {}
+        configs = [("box", False), ("box", True)]
+        if name in ROUTE_AB_ROWS:
+            configs += [("legs", False), ("legs", True)]
+        order = configs + configs[::-1]
+        ms, per = {c: [] for c in configs}, {}
         try:
-            for stream in (False, True):
+            for route, stream in configs:                # warm-up solves
                 so.STREAM = stream
-                bt.solve(setup, method=solver)            # warm-up solve
-            for stream in (False, True, True, False):
+                with _spmv_routes(so, None if route == "box" else route):
+                    bt.solve(setup, method=solver)
+            for route, stream in order:
                 so.STREAM = stream
                 _counters(so, gb, bk, reset=True)
-                res = bt.solve(setup, method=solver)
+                for fn in (so.stencil_spmv, so.stencil_spmv_stream):
+                    fn.box_launches = fn.legs_launches = 0
+                with _spmv_routes(so, None if route == "box" else route):
+                    res = bt.solve(setup, method=solver)
                 c = _counters(so, gb, bk)
-                ms[stream].append(1e3 * res.solve_seconds / res.iter_count)
-                per[stream] = {k: round(c[k] / res.iter_count, 3) for k in
-                               ("stencil_spmv", "stencil_spmv_stream")}
-                if stream and name == "pcg_mg":
+                fn = so.stencil_spmv_stream if stream else so.stencil_spmv
+                on_route = getattr(fn, f"{route}_launches")
+                off_route = getattr(fn, ("legs" if route == "box" else "box")
+                                    + "_launches")
+                ms[route, stream].append(1e3 * res.solve_seconds
+                                         / res.iter_count)
+                per[route, stream] = {k: round(c[k] / res.iter_count, 3)
+                                      for k in ("stencil_spmv",
+                                                "stencil_spmv_stream")}
+                if stream and name == "pcg_mg" and route == "box":
                     stream_launches += c["stencil_spmv_stream"]
                 ok = (res.iter_count == iters
                       and math.isfinite(res.final_residual_norm)
@@ -2910,20 +3006,27 @@ def phase_slice6_rows(torch, bt):
                            and c["stencil_spmv"] == 0) if stream else
                           (c["stencil_spmv"] > 0
                            and c["stencil_spmv_stream"] == 0))
+                routed = routed and off_route == 0 and on_route == (
+                    c["stencil_spmv_stream" if stream else "stencil_spmv"])
                 if not (ok and routed):
-                    raise RuntimeError(f"{name} STREAM={stream} run failed "
-                                       f"its checks: {c}")
+                    raise RuntimeError(f"{name} route={route} STREAM="
+                                       f"{stream} run failed its checks: {c}")
         finally:
             so.STREAM = False
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        by_row[name] = per
-        print(f"[slice6] {spec} f32 {name} fused, {iters} iterations, STREAM "
-              f"in turns (off, on, on, off): ms/iter off="
-              f"{[f'{v:.5f}' for v in ms[False]]} on="
-              f"{[f'{v:.5f}' for v in ms[True]]} launches/iter off="
-              f"{per[False]} on={per[True]} final_explicit_f64="
-              f"{res.final_residual_norm:.6e} setup_s={setup_s:.3f} "
-              f"peak_GB={peak_gb:.3f}")
+        by_row[name] = {stream: per["box", stream] for stream in (False,
+                                                                  True)}
+        times = " ".join(
+            f"{route}/{'on' if stream else 'off'}="
+            f"{[f'{v:.5f}' for v in ms[route, stream]]}"
+            for route, stream in configs)
+        turns = [f"{r}/{int(st)}" for r, st in order]
+        print(f"[slice6] {spec} f32 {name} fused, {iters} iterations, "
+              f"(route/STREAM) in turns {turns}: ms/iter {times} "
+              f"launches/iter off="
+              f"{per['box', False]} on={per['box', True]} "
+              f"final_explicit_f64={res.final_residual_norm:.6e} "
+              f"setup_s={setup_s:.3f} peak_GB={peak_gb:.3f}")
         del setup, solver
         torch.cuda.empty_cache()
     return stream_launches, by_row
@@ -3988,6 +4091,12 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
     return records
 
 
+#: the depth of slice 8's stencil and DIA CG rows at 128^3 (the bench's
+#: 2500 cut: the mesh rows are host work whose ms/iter a few hundred
+#: iterations show)
+SLICE8_CG_ITERS = 500
+
+
 def phase_slice8(torch, bt, sband):
     """[slice8]: the slice's rows on an 8-shard mesh on the card, f32,
     fused, tolerance 0, b = 2, x0 = 1, single-device and mesh in turns
@@ -4021,17 +4130,18 @@ def phase_slice8(torch, bt, sband):
         n = A.n_rows
         return bt.preprocessing_device(
             A, bt.SolverConfig(dtype=torch.float32, harness="fused",
-                               tolerance=0.0, max_iters=2500,
+                               tolerance=0.0, max_iters=SLICE8_CG_ITERS,
                                breakdown_stall=True),
             b=torch.full((n,), 2.0, device="cuda"),
             x0=torch.full((n,), 1.0, device="cuda"))
 
-    rows = (("cg", f"{MAIN_SPEC} f32 CG (stencil)", 2500, "stencil_spmv_halo",
+    rows = (("cg", f"{MAIN_SPEC} f32 CG (stencil)", SLICE8_CG_ITERS,
+             "stencil_spmv_halo",
              lambda: _hpcg_cg(torch, bt, MAIN_SPEC, torch.float32,
-                              max_iters=2500, tolerance=0.0,
+                              max_iters=SLICE8_CG_ITERS, tolerance=0.0,
                               breakdown_stall=True)),
-            ("dia_cg", f"{MAIN_SPEC} f32 DIA CG", 2500, "dia_spmv_halo",
-             dia_cg),
+            ("dia_cg", f"{MAIN_SPEC} f32 DIA CG", SLICE8_CG_ITERS,
+             "dia_spmv_halo", dia_cg),
             ("cg@sband", f"{SBAND} f32 cg@sband lane_ell", 400,
              "lane_ell_spmv_halo",
              lambda: _host_solve(torch, bt, sband, "cuda", torch.float32,
@@ -4420,8 +4530,8 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
 #: and the first two steps' norms), their rtol against one device
 BICG_F64_STEPS, BICG_F64_HELD, BICG_F64_RTOL = 6, 3, 1e-8
 #: [slice8b]: (row, the bench's iterations)
-SLICE8B_ROWS = (("pcg", 1200), ("pcg_ilu0", 1200),
-                ("pbicgstab@anderson128", 800), ("pcg_ilu0@fdm2048", 1200))
+SLICE8B_ROWS = (("pcg", 300), ("pcg_ilu0", 300),
+                ("pbicgstab@anderson128", 200), ("pcg_ilu0@fdm2048", 300))
 
 
 def phase_slice8b(torch, bt, setup5b):
@@ -4429,8 +4539,9 @@ def phase_slice8b(torch, bt, setup5b):
     fused, tolerance 0, b = 2, x0 = 1, at full size: pcg (CG + SGS, const
     mode), pcg_ilu0 (factor table), pbicgstab@anderson128 (const mode with
     a per-row D from host CSR, the stencil injected) and pcg_ilu0@fdm2048
-    (L plane, U const with a per-row D; phase 23's set-up), at the bench's
-    iteration counts.  Single-device and mesh in turns (single, mesh,
+    (L plane, U const with a per-row D; phase 23's set-up), at
+    SLICE8B_ROWS' iteration counts (a quarter of the bench's: the mesh
+    rows are host work).  Single-device and mesh in turns (single, mesh,
     mesh, single), each after a warm-up solve, every count set to 0 just
     before the timed solve and read just after: ms/iter, #9's launches,
     the mesh's exchanges and bytes an iteration, peak memory, and the
@@ -4476,14 +4587,16 @@ def phase_slice8b(torch, bt, setup5b):
             "SYMMETRIC_GAUSS_SEIDEL", stencil=True, max_iters=iters,
             tolerance=0.0, breakdown_stall=True)[0]
 
-    makers = {"pcg": lambda: stencil_row("SYMMETRIC_GAUSS_SEIDEL", 1200),
-              "pcg_ilu0": lambda: stencil_row("ILU0", 1200),
-              "pbicgstab@anderson128": lambda: anderson(800),
-              "pcg_ilu0@fdm2048": lambda: setup5b}
+    makers = {"pcg": lambda it: stencil_row("SYMMETRIC_GAUSS_SEIDEL", it),
+              "pcg_ilu0": lambda it: stencil_row("ILU0", it),
+              "pbicgstab@anderson128": anderson,
+              "pcg_ilu0@fdm2048": lambda it: dataclasses.replace(
+                  setup5b, config=dataclasses.replace(setup5b.config,
+                                                      max_iters=it))}
     launches, numbers = {}, {}
     for name, iters in SLICE8B_ROWS:
         torch.cuda.empty_cache()
-        s1 = makers[name]()
+        s1 = makers[name](iters)
         s8 = shard_setup(s1, mesh, mode="shard_map")
         L8, U8 = s8.M.L_block, s8.M.U_block
         if not (isinstance(L8, bk.MeshSuperBlockTriSolve)
@@ -4629,7 +4742,7 @@ def main():
     lap("cpu_vs_card")
     phase_cpu_vs_card_slice2(torch, bt)
     lap("cpu_vs_card_slice2")
-    launches, _ = phase_main_path(torch, bt)
+    launches, _, main_routes = phase_main_path(torch, bt)
     lap("main_path")
     slice2_launches = phase_slice_path(torch, bt)
     lap("slice_path")
@@ -4723,7 +4836,8 @@ def main():
     kernels = [{"name": "stencil_spmv", "route": "cuda",
                 "source": src + "stencil_spmv.cu",
                 "replaces": "basic_iterative_solvers_tpu/stencil_op.py:538",
-                "launches": launches, **record}]
+                "launches": launches, "launches_by_route": main_routes,
+                **record}]
     for kernel, line in (("project_gram", 135), ("correct_write", 203)):
         kernels.append({
             "name": kernel, "route": "cuda", "source": src + "gmres_basis.cu",
@@ -4804,6 +4918,7 @@ def main():
         "source": src + "stencil_spmv.cu",
         "replaces": "basic_iterative_solvers_tpu/stencil_op.py:422",
         "launches": stream_launches,
+        "launches_by_route": {"box": stream_launches, "legs": 0},
         "launches_per_iter_by_row": {row: per[True]["stencil_spmv_stream"]
                                      for row, per in slice6_per_iter.items()},
         **stream_record})
@@ -4855,6 +4970,8 @@ def main():
         {key: k[key] for key in keys + ("launches_by_row",
                                         "launches_per_iter_by_row",
                                         "resident_ms", "call_ms",
+                                        "legs_ms", "legs_ms_384",
+                                        "resident_ms_384",
                                         "single_ms", "ms_384",
                                         "f32_ms_384", "bound_ms_384",
                                         "by_mode", "wrapper_ms",

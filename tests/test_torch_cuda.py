@@ -99,6 +99,91 @@ def test_stream_refuses_legs_outside_its_reach(card):
         tso.STREAM = old
 
 
+BOX_CASES = ["hpcg:128x128x128", "hpcg:37x21x5", "hpcg:8x40x9", "fdm:2048",
+             "galerkin:64",
+             "bf16:anderson:Lx=32,Ly=24,Lz=16,t=1.0,ranpot=4.0,seed=1"]
+BOX_DOTS = [(), ("x",), ("self",), ("aux",), ("x", "self", "aux")]
+
+
+def _box_operator(card, case, dt):
+    """The operator of a BOX_CASES entry: "galerkin:64" is the 64^3 level
+    of the 128^3 multigrid hierarchy (27 legs, four coefficient groups),
+    "bf16:..." an operator stored in bfloat16 (Anderson's diagonal)."""
+    if case == "galerkin:64":
+        from basic_iterative_solvers_tpu_torch import mg
+        A = tso.from_source_operator("hpcg:128x128x128", dt, device=card)
+        return mg.build_mg_hierarchy(A, bt.SolverConfig(
+            preconditioner=bt.PrecondType.MULTIGRID, dtype=dt))[1].A
+    if case.startswith("bf16:"):
+        return tso.from_source_operator(case[5:], torch.bfloat16, device=card)
+    return tso.from_source_operator(case, dt, device=card)
+
+
+def _routes(counter):
+    return (counter.box_launches, counter.legs_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BOX_CASES)
+@pytest.mark.parametrize("dt,rtol", [(torch.float32, 1e-6),
+                                     (torch.float64, 1e-13)])
+def test_box_routes_equal_the_leg_loop(card, case, dt, rtol):
+    """For every dot set: #1's box route gives y equal (torch.equal) to its
+    leg loop's, #2 on the route route_for names (box on lines of whole
+    16-byte vectors, else its legs route) and #2's legs route equal to
+    #1's; the dots within rtol of the leg loop's (relative to sum|y v|:
+    the partials are summed in another order); each call counted once on
+    its route; the wrappers take route_for's route."""
+    A = _box_operator(card, case, dt)
+    g = np.random.default_rng(13)
+    x = torch.from_numpy(g.standard_normal(A.n_rows)).to(card, dt)
+    aux = torch.from_numpy(g.standard_normal(A.n_rows)).to(card, dt)
+    assert tso.route_for(A, x, stream=False) == "box"
+    r2 = tso.route_for(A, x, aux, stream=True)
+    assert r2 == ("box" if A.dims[0] % (16 // x.element_size()) == 0
+                  else "legs")
+    for dots in BOX_DOTS:
+        c1, c2 = _routes(tso.stencil_spmv), _routes(tso.stencil_spmv_stream)
+        box = tso._stencil_spmv_cuda(A, x, dots, aux, route="box")
+        legs = tso._stencil_spmv_cuda(A, x, dots, aux, route="legs")
+        s2 = tso._stencil_spmv_stream_cuda(A, x, dots, aux)
+        s2_legs = tso._stencil_spmv_stream_cuda(A, x, dots, aux,
+                                                route="legs")
+        default = tso.stencil_spmv(A, x, dots, aux)
+        torch.cuda.synchronize()
+        assert _routes(tso.stencil_spmv) == (c1[0] + 2, c1[1] + 1)
+        assert _routes(tso.stencil_spmv_stream) == (
+            c2[0] + (r2 == "box"), c2[1] + 1 + (r2 == "legs"))
+        outs = [o if dots else (o,) for o in (box, legs, s2, s2_legs,
+                                              default)]
+        for o in outs[:1] + outs[2:]:
+            assert torch.equal(o[0], outs[1][0])
+        partner = {"x": x, "self": outs[1][0], "aux": aux}
+        for j, kind in enumerate(dots, start=1):
+            scale = float((outs[1][0] * partner[kind]).abs().sum())
+            for o in outs:
+                assert abs(float(o[j] - outs[1][j])) <= rtol * scale
+
+
+@pytest.mark.cuda
+def test_box_routes_refuse_what_they_cannot_take(card):
+    """A forced box route raises for a leg outside the box (#1, #2) and,
+    for #2, for lines that are not whole 16-byte vectors; nothing is
+    counted."""
+    far = tso.make_stencil([((0, 0, 0), 4.0), ((0, 2, 0), -1.0)], 8, 6, 5,
+                           dtype=torch.float32, device=card)
+    odd = tso.from_source_operator("hpcg:37x21x5", torch.float32, device=card)
+    before = (_routes(tso.stencil_spmv), _routes(tso.stencil_spmv_stream))
+    for A, fn in ((far, tso._stencil_spmv_cuda),
+                  (far, tso._stencil_spmv_stream_cuda),
+                  (odd, tso._stencil_spmv_stream_cuda)):
+        x = torch.ones(A.n_rows, device=card)
+        with pytest.raises(ValueError, match="box|16-byte"):
+            fn(A, x, (), None, route="box")
+    assert (_routes(tso.stencil_spmv),
+            _routes(tso.stencil_spmv_stream)) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", ["dia", "lane_ell", "stencil", "stream",

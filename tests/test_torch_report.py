@@ -170,6 +170,8 @@ def test_bucket_of_maps_every_kernel_of_the_port():
     kernels in orthog; PyTorch's own kernels in blas1 and layout_glue."""
     want = {"stencil_spmv_kernel": "spmv",
             "stencil_spmv_stream_kernel": "spmv",
+            "stencil_spmv_box_kernel": "spmv",
+            "stencil_spmv_stream_box_kernel": "spmv",
             "stencil_gs_color_step_kernel": "spmv",
             "dia_spmv_kernel": "spmv", "lane_ell_spmv_kernel": "spmv",
             "stencil_spmv_halo_kernel": "spmv",

@@ -265,3 +265,103 @@ def test_staged_zeros_equal_bounds_checks(spec, dtype, rng):
     ref = tso.stencil_spmv_plain(A, torch.from_numpy(x.astype(np.float64)))
     np.testing.assert_allclose(y2, ref.numpy(), rtol=1e-5 if dtype ==
                                np.float32 else 1e-12, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# #2's box route: the staged slabs, the route rule, the arithmetic
+# ---------------------------------------------------------------------------
+
+from tests.test_torch_stencil import (_operator, emulate_box,  # noqa: E402
+                                      emulate_legs)
+
+
+@pytest.mark.parametrize("dims", [(128, 128, 128), (384, 384, 384),
+                                  (64, 33, 17), (4, 3, 3), (2048, 1, 2048),
+                                  (40, 1, 40)])
+@pytest.mark.parametrize("vec", [2, 4])
+def test_box_slabs_cover_each_block_within_a_slot(dims, vec):
+    """Each block's slab [lo, hi) of a plane (one bulk copy) starts and
+    ends on a 16-byte vector, lies in the plane, fits a ring slot, and
+    holds every element its chunks read: their own lines, the lines above
+    and below, and one value beyond each end."""
+    nx, ny, _ = dims
+    gx, _gy, _zr = tso._box_grid(dims, vec)
+    plane, slot = nx * ny, tso._box_slot(dims, vec)
+    assert slot % vec == 0
+    for bx in range(gx):
+        lo, hi = tso._box_slab(dims, vec, bx)
+        assert lo % vec == 0 and hi % vec == 0 and 0 <= lo < hi <= plane
+        assert hi - lo <= slot
+        cb = bx * tso.BOX_THREADS
+        ce = min(cb + tso.BOX_THREADS, plane // vec)
+        first = max(0, cb * vec - nx - 1)
+        last = min(plane - 1, ce * vec - 1 + nx + 1)
+        assert lo <= first and last < hi
+
+
+@pytest.mark.parametrize("case,route", [("hpcg:16x12x10", "box"),
+                                        ("fdm:40", "box"),
+                                        ("galerkin", "box"),
+                                        ("hpcg:37x21x5", "legs"),
+                                        ("dy2", "legs")])
+@pytest.mark.parametrize("stream", [False, True])
+def test_stream_box_route_rule(case, route, stream, monkeypatch):
+    """With STREAM set, route_for names #2's route by default: "box" for
+    legs within the box on lines of whole 16-byte vectors, else "legs"
+    (|dy| = 2 lies in #2's reach, not in the box); unset, #1's route,
+    which is "box" for every operator within the box."""
+    A = _operator(case)
+    x = torch.zeros(A.n_rows, dtype=torch.float32)
+    monkeypatch.setattr(tso, "STREAM", stream)
+    assert tso.spmv_route(A) == ("stream" if stream else "resident")
+    want = route if stream else ("box" if tso.in_box(A) else "legs")
+    assert tso.route_for(A, x) == want
+
+
+@pytest.mark.parametrize("np_dt", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["hpcg:16x12x10", "hpcg:8x40x9", "fdm:40",
+                                  "galerkin",
+                                  "anderson:Lx=8,Ly=7,Lz=6,t=1.0,ranpot=4.0,"
+                                  "seed=1"])
+def test_stream_box_from_staged_slabs_equals_the_leg_loop(case, np_dt):
+    """#2's box route, emulated thread by thread with every line read from
+    its block's staged slab (a read outside the slab fails), gives the leg
+    loop's y bit for bit, with short z runs (an H100's grid) and long ones
+    (a card of one SM)."""
+    A = _operator(case)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal(A.n_rows).astype(np_dt)
+    diag = None if A.diag is None else A.diag.numpy().astype(np_dt)
+    ref = emulate_legs(A, x, diag)
+    vec = 16 // np.dtype(np_dt).itemsize
+    for sms in (132, 1):
+        np.testing.assert_array_equal(
+            emulate_box(A, x, diag, staged=True, vec=vec, sms=sms), ref)
+
+
+def test_box_constants_match_the_source():
+    """BOX_THREADS, BOX_STAGES and BOX_RESIDENT are the BIS_BOX_* of the
+    CUDA source (the library checks the same at load time on a card)."""
+    src = (REPO / "basic_iterative_solvers_tpu_torch" / "csrc"
+           / "stencil_spmv.cu").read_text()
+    got = {k: int(v) for k, v in re.findall(
+        r"#define BIS_BOX_(THREADS|STAGES|MIN_BLOCKS|STREAM_MIN_BLOCKS) "
+        r"(\d+)", src)}
+    assert (got["THREADS"], got["STAGES"]) == (tso.BOX_THREADS,
+                                               tso.BOX_STAGES)
+    assert (got["MIN_BLOCKS"], got["STREAM_MIN_BLOCKS"]) == tso.BOX_RESIDENT
+
+
+@pytest.mark.parametrize("dims,vec,itemsize,want", [
+    ((128, 128, 128), 4, 4, 3), ((384, 384, 384), 4, 4, 3),
+    ((128, 128, 128), 2, 8, 2), ((384, 384, 384), 2, 8, 2),
+    ((2048, 1, 2048), 4, 4, 3),
+    ((3072, 3072, 4), 4, 4, 1), ((4096, 4096, 4), 4, 4, 0)])
+def test_stream_box_resident_blocks_fit_shared_memory(dims, vec, itemsize,
+                                                      want):
+    """#2's box blocks resident on an SM, as the grid planner counts them:
+    in float32 three where the ring fits the SM's 227 KB three times, in
+    float64 two, fewer where it does not (0: not once, and route_for names
+    the leg loop); #1's two."""
+    assert tso._box_resident(True, dims, vec, itemsize) == want
+    assert tso._box_resident(False, dims, vec, itemsize) == 2
