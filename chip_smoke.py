@@ -108,6 +108,8 @@ exits non-zero:
      multigrid hierarchy; #2's box and leg-loop routes timed in turns and
      #1's box route, by device time of bound launches, with the share of
      the byte bound;
+     Then [routes]: #1's and #2's routes on every operator of both lists
+     in f32 and f64, bit for bit;
  27. CG + MG, CG + Chebyshev, pipelined CG and CG + MG with refinement on
      HPCG 32^3 in float64 on the CPU and on the card ([cpu-vs-card-slice6]);
  28. slice 6's rows ([slice6]): pcg_mg at 128^3 (CG + V-cycle, 400
@@ -2916,6 +2918,53 @@ def phase_stream_vs_plain(torch, bt, library_ms):
     return record
 
 
+#: every operator of STREAM_SPECS and KERNEL_SPECS, once each
+ROUTE_SPECS = tuple(dict.fromkeys(
+    [spec for spec, _dt, _dots in STREAM_SPECS] + list(KERNEL_SPECS)))
+
+
+def phase_routes_bit_equal(torch, bt):
+    """[routes]: on every operator of ROUTE_SPECS in float32 and float64,
+    with y.x, #1 on its box and its leg-loop route and #2 on the route
+    route_for names and on its leg-loop route: all four y bit-equal,
+    within TOL of the plain version, #2's dot within STREAM_DOT_RTOL of
+    #1's leg loop's (relative to sum|y x|)."""
+    so = bt.stencil_op
+    for spec in ROUTE_SPECS:
+        for dt_name in ("float32", "float64"):
+            dt = getattr(torch, dt_name)
+            A = (_galerkin_64(torch, bt, dt) if spec == "galerkin:64"
+                 else so.from_source_operator(spec, dt, device="cuda"))
+            g = torch.Generator(device="cuda").manual_seed(1)
+            x = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+            route2 = so.route_for(A, x, stream=True)
+            outs = {"#1 box": so._stencil_spmv_cuda(A, x, ("x",), None,
+                                                     route="box"),
+                    "#1 legs": so._stencil_spmv_cuda(A, x, ("x",), None,
+                                                      route="legs"),
+                    f"#2 {route2}": so._stencil_spmv_stream_cuda(
+                        A, x, ("x",), None),
+                    "#2 legs": so._stencil_spmv_stream_cuda(
+                        A, x, ("x",), None, route="legs")}
+            y_p = so.stencil_spmv_plain(A, x)
+            torch.cuda.synchronize()
+            y_l, d_l = outs["#1 legs"]
+            equal = all(torch.equal(y, y_l) for y, _d in outs.values())
+            rel = float((y_l - y_p).abs().max() / y_p.abs().max())
+            scale = float((y_l * x).abs().sum())
+            dot_rel = max(abs(float(d - d_l)) / scale
+                          for _y, d in outs.values())
+            print(f"[routes] {spec} {dt_name} y.x: {', '.join(outs)} "
+                  f"bit_equal={equal} max_rel_err_vs_plain={rel:.3e} "
+                  f"max_dot_rel_vs_#1_legs={dot_rel:.3e}")
+            if not (equal and rel <= TOL[dt_name]
+                    and dot_rel <= STREAM_DOT_RTOL[dt_name]):
+                raise RuntimeError(f"[routes] {spec} {dt_name}: the routes "
+                                   "disagree")
+            del A, x, outs, y_p, y_l
+            torch.cuda.empty_cache()
+
+
 #: slice 6's rows: (name, spec, preconditioner, iterations), f32 fused,
 #: tolerance 0, b = 2, x0 = 1 (bench.py:164-180, 568; pcg_mg's 1200 cut
 #: to 400 to keep the script inside its time limit)
@@ -4804,6 +4853,8 @@ def main():
     lap("slice8b")
     stream_record = phase_stream_vs_plain(torch, bt, record["library_ms"])
     lap("stream_vs_plain")
+    phase_routes_bit_equal(torch, bt)
+    lap("routes_bit_equal")
     phase_cpu_vs_card_slice6(torch, bt)
     lap("cpu_vs_card_slice6")
     stream_launches, slice6_per_iter = phase_slice6_rows(torch, bt)
