@@ -89,6 +89,8 @@ class SuperLevelArgs(ctypes.Structure):
         ("mode", ctypes.c_int),
         ("cross_rx", ctypes.c_int), ("cross_ry", ctypes.c_int),
         ("cross_rz", ctypes.c_int),
+        ("cross_q", ctypes.c_int * MAX_LEGS),
+        ("cross_r", ctypes.c_int * MAX_LEGS),
     ]
 
 
@@ -254,6 +256,11 @@ def load_library() -> ctypes.CDLL:
     lib.bis_super_level_staged_f32.restype = i32
     lib.bis_super_level_staged_grid.argtypes = [level]
     lib.bis_super_level_staged_grid.restype = i32
+    # the line route: ..., tl, lb, y, x, vc, vs, drows, stream
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"bis_super_level_line_{dt}")
+        fn.argtypes = [i32, level, i32, i32] + [ptr] * 6
+        fn.restype = i32
     lib.bis_super_solve_mega_grid.argtypes = [i32] * 4
     lib.bis_super_solve_mega_grid.restype = i32
     for size_fn, mirror, source in (
@@ -282,6 +289,14 @@ def load_library() -> ctypes.CDLL:
     if tuple(v.value for v in tile) != STREAM_TILE + STREAM_HALO[:2]:
         raise RuntimeError("stencil_op.STREAM_TILE/STREAM_HALO do not match "
                            "BIS_STREAM_* in csrc/stencil_spmv.cu")
+    from .ops.block_trisolve import LINE_SMEM_MAX, LINE_THREADS
+    limits = [i32() for _ in range(2)]
+    lib.bis_super_level_line_limits.argtypes = [ctypes.POINTER(i32)] * 2
+    lib.bis_super_level_line_limits.restype = None
+    lib.bis_super_level_line_limits(*[ctypes.byref(v) for v in limits])
+    if tuple(v.value for v in limits) != (LINE_THREADS, LINE_SMEM_MAX):
+        raise RuntimeError("ops/block_trisolve.LINE_THREADS/LINE_SMEM_MAX do "
+                           "not match BIS_SL_LINE_* in csrc/block_trisolve.cu")
     box = [i32() for _ in range(4)]
     lib.bis_stencil_box_shape(*[ctypes.byref(v) for v in box])
     if tuple(v.value for v in box) != (BOX_THREADS, BOX_STAGES,

@@ -9,9 +9,11 @@
 //
 // Replaces the Pallas kernels of basic_iterative_solvers_tpu/ops/
 // block_trisolve.py: _super_level_pallas in its const, plane, packed and
-// flat-IO modes (super_level_kernel), and its mesh form (row0 on the
-// shards of _solve_super_mesh: the same kernel on one shard's window,
-// below), the split-mode pair _super_acc_pallas (super_acc_kernel) and
+// flat-IO modes (super_level_kernel, the "direct" route; the "staged"
+// route of factor-table mode, super_level_staged_kernel; the "line" route
+// of plane and const modes, super_level_line_kernel), and its mesh form
+// (row0 on the shards of _solve_super_mesh: the same kernels on one
+// shard's window, below), the split-mode pair _super_acc_pallas (super_acc_kernel) and
 // _super_parity_pallas (super_parity_kernel), and _super_solve_pallas_mega
 // (super_solve_mega_kernel).  The plain forms are ops/block_trisolve.py's
 // super_level_plain, super_level_halo_plain, super_acc_plain,
@@ -79,26 +81,28 @@
 // grid.sync() between levels, which also makes each level's writes of x
 // visible to the next.
 //
-// What bounds it on the card: like the SpMV, the per-row leg loop with a
-// bounds check per leg, here over 1/S of the rows per launch, plus in
+// The "direct" route (super_level_kernel, the first port's): a block of
+// 256 threads holds 256 / block_x lines, block_x = min(128, nx rounded
+// up to a warp), whatever the launch.  What bounds it on the card: like
+// the SpMV, the per-row leg loop with a six-way bounds check and 64-bit
+// offsets per leg, here over 1/S of the rows per launch, plus in
 // factor-table mode the class computation and one table load (from L2)
-// per leg, in plane mode one plane value per group and an integer
-// division per cross group; each level reads its rows of y and the solved
-// neighbours of x (from L2 at 128^3, from HBM at 384^3) and writes its
-// rows of x twice (acc, then the solution).  Only 1/sx of a block's
-// threads work in each parity step.
+// per leg, in plane mode one plane value per group and three 64-bit
+// divisions per cross group and row (slot_row); each level reads its rows
+// of y and the solved neighbours of x (from L2 at 128^3, from HBM at
+// 384^3) and writes its rows of x twice (acc, then the solution); only
+// 1/sx of a block's threads work in each parity step, each with a runtime
+// % per self leg.  On the launches of a mesh shard the block shape stays
+// the single device's: a 128-line shard of fdm:2048 runs 64 blocks, each
+// thread 16 rows a pass, and 8 shard launches cost 8 of one level.
 //
 // Factor-table mode has a second fused route, "staged", in float32
-// (super_level_staged_kernel; ops/block_trisolve.table_route_for picks it
-// where its shared memory fits, the "direct" route above elsewhere and in
-// float64).  At
-// 384^3 the direct route ran at ~10x its bound, and a level with no cross
-// leg took as long as 0.4 of one with 24: the kernel is bound by the
-// instructions it issues, not by HBM.  A runtime leg loop with a six-way
-// bounds test and 64-bit index arithmetic per leg; class_base (three
-// runtime %) per row in every pass, and a runtime % per self leg and row;
-// acc written to x and read back; half the threads idle in each parity
-// pass.  The staged route:
+// (super_level_staged_kernel; ops/block_trisolve.level_route_for picks it
+// where its shared memory fits and its grid has a block an SM, the direct
+// route elsewhere and in float64).  At 384^3 the direct route ran at ~10x
+// its bound, and a level with no cross leg took as long as 0.4 of one
+// with 24: the kernel is bound by the instructions it issues, not by HBM.
+// The staged route:
 //   - stages, once per line, the factors of the line's (y, z) class for
 //     every leg and x-class and U's pivots in shared memory (~1.9 KB a
 //     line for HPCG), each x's class once per block; a warp owns a line;
@@ -111,8 +115,40 @@
 //     memory: the parity passes read and write it there, every thread on
 //     a row of the parity, the self legs' parity test once per pass; x is
 //     written to global memory once.
-// The differences and products keep the plain version's order, so the
-// level stays bit-equal to it and to the direct route.
+//
+// Plane and const modes have a second fused route, "line"
+// (super_level_line_kernel), in both types, for single-device and mesh
+// shard launches alike:
+//   - the launch decides the block, not nx (ops/block_trisolve.
+//     line_shape): tl threads a line, the most that keep the launch
+//     within one wave of the card's resident threads (132 SMs x 1,024),
+//     a power of two from a warp up to one a row; lb lines a block,
+//     doubled while the block stays within 256 threads and the grid has
+//     a block an SM.  fdm:2048: 128 threads a line on one device (1,024
+//     lines), 1,024 on a shard's 128 lines; 128^3: 32 threads and 8 lines
+//     a block (scripts/superblock_line_sweep.py timed every block);
+//   - the block's lines live in shared memory (8 KB a 2,048-wide line in
+//     float32): acc goes there, the parity passes read and write it
+//     there, x is written to global memory once;
+//   - every thread works in every parity pass (thread k of a line on rows
+//     p + sx*k, p + sx*(k + tl), ...), the self legs' solved parities one
+//     bitmask a pass: no % in any per-row path;
+//   - plane mode computes no source row per row: the host splits a cross
+//     group's delta = q*nx + r (0 <= r < nx); per line and group the block
+//     works out, from src's (y, z) phases, the offsets of source lines
+//     line + q and line + q + 1, or that one leaves [0, m) (it reads 0);
+//     a row at x reads the first at x + r where x + r < nx, else the
+//     second at x + r - nx: slot_row's map, wraps included;
+//   - const mode unrolls an interior row's cross legs to the level's
+//     bucket with no bounds test (as the staged route does); edge rows
+//     keep the tested loop; the per-row 1/D is read once a row.
+// ops/block_trisolve.level_route_for takes the line route where a
+// launch's rows fill the card's resident threads (lines x nx >= SMs x
+// 1,024) and a line fits 48 KB; the direct route elsewhere (the 8 launches
+// of a 128^3 shard level, 512 lines each, ran 10-13% faster on it).
+// Every route keeps the plain version's order of differences and
+// products, each rounded alone, so each level stays bit-equal to it and
+// to the direct route.
 //
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after its launch.
@@ -161,6 +197,8 @@ struct BisSuperLevelArgs {
     int cross_spz[BIS_SL_MAX_LEGS];
     int mode;                               // BIS_SL_CONST, _TABLE, _PLANE
     int cross_rx, cross_ry, cross_rz;       // max |d| of the cross legs
+    int cross_q[BIS_SL_MAX_LEGS];           // plane mode: delta = q*nx + r,
+    int cross_r[BIS_SL_MAX_LEGS];           // 0 <= r < nx (line route)
 };
 
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
@@ -458,6 +496,129 @@ super_level_staged_kernel(const __grid_constant__ BisSuperLevelArgs a,
             x[r.ix + gx] = line[gx];
 }
 
+// Plane and const modes, line route (see the top of the file).  Block
+// (tl, lb): lb lines, tl threads a line, both chosen by the wrapper
+// (ops/block_trisolve.line_shape).  Dynamic shared memory: the block's
+// lines (lb x nx values) and, in plane mode, each line's two source
+// offsets per cross group (lb x 2 x n_cross ints).  NCB is the cross-leg
+// (group) bucket, as in the staged kernel.
+#define BIS_SL_LINE_SMEM_MAX (48 * 1024)
+#define BIS_SL_LINE_THREADS 1024
+// A plane group's source line outside the superblock: the slot reads 0.
+#define BIS_SL_NO_SOURCE (-2147483647 - 1)
+
+static size_t line_smem(const BisSuperLevelArgs& a, int lb, size_t item) {
+    const size_t groups = a.mode == BIS_SL_PLANE
+        ? (size_t)2 * a.n_cross * sizeof(int) : 0;
+    return (size_t)lb * ((size_t)a.nx * item + groups);
+}
+
+template <typename T, int MODE, int NCB>
+__global__ void __launch_bounds__(BIS_SL_LINE_THREADS)
+super_level_line_kernel(const __grid_constant__ BisSuperLevelArgs a,
+                        const T* y, T* x, const T* __restrict__ vc,
+                        const T* __restrict__ vs,
+                        const T* __restrict__ drows) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nx = a.nx, sx = a.sx, nc = a.n_cross, ns = a.n_self;
+    const int tl = blockDim.x;
+    const int k = blockIdx.x * blockDim.y + threadIdx.y;
+    const LevelRow r = level_line(a, k);
+    T* const line = reinterpret_cast<T*>(smem_raw) + threadIdx.y * nx;
+    // src[2l + h]: the offset from x[ix] of line + q_l + h's row at x = r_l
+    // (h = 1 less nx), for the rows at x < nx - r_l (h = 0) and the rest
+    int* const src = reinterpret_cast<int*>(
+        reinterpret_cast<T*>(smem_raw) + blockDim.y * nx) + threadIdx.y * 2 * nc;
+    if (MODE == BIS_SL_PLANE && r.live) {
+        const long long lines_m = a.m / nx;
+        for (int l = threadIdx.x; l < nc; l += tl) {
+            for (int h = 0; h < 2; ++h) {
+                const long long sl = (long long)a.line0 + k + a.cross_q[l] + h;
+                int e = BIS_SL_NO_SOURCE;
+                if (sl >= 0 && sl < lines_m) {
+                    const long long gy = (long long)a.sy * (sl % a.my)
+                                         + a.cross_spy[l];
+                    const long long gz = (long long)a.sz * (sl / a.my)
+                                         + a.cross_spz[l];
+                    e = (int)(nx * (gy + (long long)a.ny * gz) - r.row)
+                        + a.cross_r[l] - h * nx;
+                }
+                src[2 * l + h] = e;
+            }
+        }
+    }
+    __syncthreads();
+    if (r.live) {
+        const bool line_in = r.gy >= a.cross_ry && r.gy < a.ny - a.cross_ry
+                             && r.gz >= a.cross_rz
+                             && r.gz < a.nz - a.cross_rz;
+        for (int gx = threadIdx.x; gx < nx; gx += tl) {
+            T acc = y[r.iy + gx];
+            const T* const xr = x + (r.ix + gx);
+            if (MODE == BIS_SL_PLANE) {
+                const T* const vr = vc + (r.slot - a.slot0 + gx);
+#pragma unroll
+                for (int l = 0; l < NCB; ++l) {
+                    if (l < nc) {
+                        const int e = src[2 * l + (gx + a.cross_r[l] < nx
+                                                   ? 0 : 1)];
+                        const T xv = e != BIS_SL_NO_SOURCE
+                            ? xr[e != BIS_SL_NO_SOURCE ? e : 0] : T(0);
+                        acc = sub_rn(acc, mul_rn(vr[l * a.plane_m], xv));
+                    }
+                }
+            } else if (line_in && gx >= a.cross_rx && gx < nx - a.cross_rx) {
+#pragma unroll
+                for (int l = 0; l < NCB; ++l)
+                    if (l < nc)
+                        acc = sub_rn(acc, mul_rn(T(a.cross_coeff[l]),
+                                                 xr[(int)a.cross_off[l]]));
+            } else {
+                for (int l = 0; l < nc; ++l) {
+                    const int px = gx + a.cross_dx[l], py = r.gy + a.cross_dy[l],
+                              pz = r.gz + a.cross_dz[l];
+                    if (px >= 0 && px < nx && py >= 0 && py < a.ny && pz >= 0
+                        && pz < a.nz)
+                        acc = sub_rn(acc, mul_rn(T(a.cross_coeff[l]),
+                                                 xr[(int)a.cross_off[l]]));
+                }
+            }
+            line[gx] = acc;
+        }
+    }
+    __syncthreads();
+    for (int step = 0; step < sx; ++step) {
+        const int p = a.upper ? sx - 1 - step : step;
+        // the self legs whose source parity (p + dx) mod sx is solved
+        unsigned solved = 0;
+        for (int l = 0; l < ns; ++l) {
+            int q = (p + a.self_dx[l]) % sx;
+            q += q < 0 ? sx : 0;
+            if (a.upper ? q > p : q < p) solved |= 1u << l;
+        }
+        if (r.live) {
+            for (int gx = p + sx * threadIdx.x; gx < nx; gx += sx * tl) {
+                T v = line[gx];
+                for (int l = 0; l < ns; ++l) {
+                    const int px = gx + a.self_dx[l];
+                    const bool ok = (solved >> l & 1u) && px >= 0 && px < nx;
+                    if (MODE == BIS_SL_PLANE)
+                        v = sub_rn(v, mul_rn(
+                            vs[l * a.plane_m + (r.slot - a.slot0 + gx)],
+                            ok ? line[ok ? px : gx] : T(0)));
+                    else if (ok)
+                        v = sub_rn(v, mul_rn(T(a.self_coeff[l]), line[px]));
+                }
+                line[gx] = mul_rn(v, drows ? drows[r.iy + gx] : T(a.dinv));
+            }
+        }
+        __syncthreads();
+    }
+    if (r.live)
+        for (int gx = threadIdx.x; gx < nx; gx += tl)
+            x[r.ix + gx] = line[gx];
+}
+
 // A whole const-mode solve: levels[0..n_levels) in order, one grid-wide
 // barrier after each, which also makes the level's writes of x visible to
 // every block after it.  Each level's launch table is copied from device
@@ -601,6 +762,44 @@ static int launch_level_staged(int device, const BisSuperLevelArgs* a,
     return (int)cudaGetLastError();
 }
 
+template <typename T, int MODE>
+static void launch_line_mode(const BisSuperLevelArgs* a, dim3 grid,
+                             dim3 block, size_t smem, const T* y, T* x,
+                             const T* vc, const T* vs, const T* drows,
+                             cudaStream_t stream) {
+    const int nc = a->n_cross;
+#define BIS_SL_LINE(NCB)                                                     \
+    super_level_line_kernel<T, MODE, NCB><<<grid, block, smem, stream>>>(   \
+        *a, y, x, vc, vs, drows)
+    if (nc == 0) BIS_SL_LINE(0);
+    else if (nc <= 8) BIS_SL_LINE(8);
+    else if (nc <= 16) BIS_SL_LINE(16);
+    else if (nc <= 24) BIS_SL_LINE(24);
+    else BIS_SL_LINE(27);
+#undef BIS_SL_LINE
+}
+
+template <typename T>
+static int launch_level_line(int device, const BisSuperLevelArgs* a, int tl,
+                             int lb, const T* y, T* x, const T* vc,
+                             const T* vs, const T* drows,
+                             cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    const size_t smem = line_smem(*a, lb, sizeof(T));
+    if (tl < 1 || lb < 1 || tl * lb > BIS_SL_LINE_THREADS
+        || smem > BIS_SL_LINE_SMEM_MAX || a->mode == BIS_SL_TABLE)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((a->lines + lb - 1) / lb), block(tl, lb);
+    if (a->mode == BIS_SL_PLANE)
+        launch_line_mode<T, BIS_SL_PLANE>(a, grid, block, smem, y, x, vc, vs,
+                                          drows, stream);
+    else
+        launch_line_mode<T, BIS_SL_CONST>(a, grid, block, smem, y, x,
+                                          nullptr, nullptr, drows, stream);
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_acc(int device, const BisSuperLevelArgs* a, const T* y,
                       const T* x, T* acc, const T* table, const T* vc,
@@ -704,7 +903,7 @@ int bis_super_level_f64(int device, const BisSuperLevelArgs* a,
 }
 
 // The factor-table level's staged route, float32 only (in float64 the
-// direct route is the faster: ops/block_trisolve.table_route_for): table
+// direct route is the faster: ops/block_trisolve.level_route_for): table
 // and tdinv (NULL for L) as above.  Refused (cudaErrorInvalidValue) where
 // its shared memory exceeds BIS_SL_STAGED_SMEM_MAX.
 int bis_super_level_staged_f32(int device, const BisSuperLevelArgs* a,
@@ -720,6 +919,34 @@ int bis_super_level_staged_grid(const BisSuperLevelArgs* a) {
     if (staged_smem(*a) > BIS_SL_STAGED_SMEM_MAX) return 0;
     const int by = 256 / staged_bx(*a);
     return (a->lines + by - 1) / by;
+}
+
+// The plane or const level's line route on a block of tl threads a line
+// and lb lines (ops/block_trisolve.line_shape); vc, vs, drows as in
+// bis_super_level_*.  Refused (cudaErrorInvalidValue) in factor-table
+// mode, above BIS_SL_LINE_THREADS threads a block, or where its shared
+// memory exceeds BIS_SL_LINE_SMEM_MAX.
+int bis_super_level_line_f32(int device, const BisSuperLevelArgs* a, int tl,
+                             int lb, const float* y, float* x,
+                             const float* vc, const float* vs,
+                             const float* drows, void* stream) {
+    return launch_level_line<float>(device, a, tl, lb, y, x, vc, vs, drows,
+                                    (cudaStream_t)stream);
+}
+
+int bis_super_level_line_f64(int device, const BisSuperLevelArgs* a, int tl,
+                             int lb, const double* y, double* x,
+                             const double* vc, const double* vs,
+                             const double* drows, void* stream) {
+    return launch_level_line<double>(device, a, tl, lb, y, x, vc, vs, drows,
+                                     (cudaStream_t)stream);
+}
+
+// The line route's limits, for ops/block_trisolve to check its rule
+// against: threads a block, shared memory bytes a block.
+void bis_super_level_line_limits(int* threads, int* smem) {
+    *threads = BIS_SL_LINE_THREADS;
+    *smem = BIS_SL_LINE_SMEM_MAX;
 }
 
 int bis_super_acc_f32(int device, const BisSuperLevelArgs* a, const float* y,

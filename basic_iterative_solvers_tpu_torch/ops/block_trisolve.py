@@ -90,13 +90,17 @@ CUDA tensor each launches its hand-written kernel (csrc/block_trisolve.cu)
 or raises; on a CPU tensor each runs its plain version
 (`super_level_plain`, `super_level_halo_plain`, `super_acc_plain`,
 `super_parity_plain`, `super_solve_mega_plain`, `rank_level_plain`).  A
-factor-table level takes one of two routes of the level kernel, chosen
-by shape and type before the launch (`table_route_for`) and counted
-apart (`.table_staged_launches`, `.table_direct_launches`): "staged"
-(float32) keeps the block's lines, their factors and each x's class in
-shared memory, where they fit in 48 KB and the launch fills the card,
-and unrolls an interior row's cross legs; "direct", the first port's
-kernel, keeps acc in x.
+level takes one of two routes of the level kernel, chosen by shape, type
+and card before the launch (`level_route_for`) and counted apart
+(`.table_staged_launches`, `.table_direct_launches`,
+`.plane_line_launches`, ...).  A factor-table level: "staged" (float32)
+keeps the block's lines, their factors and each x's class in shared
+memory, where they fit in 48 KB and the launch fills the card, and
+unrolls an interior row's cross legs.  A plane or const level: "line"
+keeps the block's lines in shared memory on a block shaped to the launch
+(`line_shape`), maps a plane group's slots to source rows with no
+division and unrolls a const level's interior legs.  "direct", the
+first port's kernel, keeps acc in x.
 """
 from __future__ import annotations
 
@@ -116,6 +120,14 @@ from ..stencil_op import _rounded, sm_count, stencil_shard_rows
 
 #: threads per kernel block (csrc/block_trisolve.cu: __launch_bounds__)
 _BLOCK_THREADS = 256
+
+#: the line route's limits (csrc/block_trisolve.cu: BIS_SL_LINE_THREADS,
+#: its __launch_bounds__, so at most 64 registers a thread and 1,024
+#: resident threads an SM; BIS_SL_LINE_SMEM_MAX), and the threads a block
+#: takes where a launch's lines are short enough to pack (line_shape)
+LINE_THREADS = 1024
+LINE_SMEM_MAX = 48 * 1024
+LINE_BLOCK = 256
 
 #: the TPU's lane width: the JAX package's self-reach rule (a self leg
 #: reaches less than min(nx, 128)) and plane group keys use it
@@ -195,8 +207,8 @@ class SuperBlockTriSolve:
     dinv_rows: Optional[torch.Tensor] = None
     d_rows: Optional[torch.Tensor] = None
     unit: bool = False
-    #: the kernels' launch tables per level, and each factor-table level's
-    #: route (table_route_for), built at first launch
+    #: the kernels' launch tables per level, and each level's route
+    #: (level_route_for) and line shape, built at first launch
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -232,8 +244,8 @@ class SuperBlockShard:
     vals_self: Optional[Tuple] = None
     dinv_rows: Optional[torch.Tensor] = None
     d_rows: Optional[torch.Tensor] = None
-    #: the kernel's launch tables per level, and each factor-table level's
-    #: route (table_route_for), built at first launch
+    #: the kernel's launch tables per level, and each level's route
+    #: (level_route_for) and line shape, built at first launch
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -1006,6 +1018,7 @@ def _level_args(B: SuperBlockTriSolve, li: int):
         a.mode = _MODE_PLANE
         for j, (src, delta) in enumerate(cross):
             a.cross_delta[j] = delta
+            a.cross_q[j], a.cross_r[j] = divmod(delta, nx)
             a.cross_spy[j], a.cross_spz[j] = src % sy, src // sy
         for j, dx in enumerate(selfs):
             a.self_dx[j] = dx
@@ -1080,33 +1093,105 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def table_route_for(B: SuperBlockTriSolve, li: int, itemsize: int,
+def line_shape(nx: int, sx: int, lines: int, n_groups: int, itemsize: int,
+               sms: int) -> Optional[Tuple[int, int]]:
+    """(tl, lb): the line route's block for a launch of `lines` x-lines of
+    nx rows (x-parities sx, `n_groups` plane cross groups, 0 in const
+    mode, vectors of `itemsize` bytes) on a card of `sms`
+    multiprocessors; None where one line's buffer exceeds LINE_SMEM_MAX.
+    Threads a line tl: as many as keep the launch within one wave of the
+    card's resident threads (sms × LINE_THREADS), a power of two, at most
+    one a row (at most LINE_THREADS), at least a warp where a line has
+    that many rows.  Lines a block lb: doubled while the block stays
+    within LINE_BLOCK threads and LINE_SMEM_MAX bytes and the grid keeps
+    a block for every SM.  On the H100 (scripts/superblock_line_sweep.py,
+    every block timed) this gives 128 threads a line at fdm:2048 (1–8%
+    above the fastest block on three of its four levels, 32% on the level
+    with no cross group, where 256 was fastest), 1,024 on its 8-shard
+    launches (the fastest) and 32 at 128³ (0–5% above the fastest)."""
+    line_bytes = nx * itemsize + 8 * n_groups
+    if line_bytes > LINE_SMEM_MAX:
+        return None
+    tl_max = min(LINE_THREADS, 1 << (nx - 1).bit_length())
+    tl = 1 << (max(1, sms * LINE_THREADS // max(1, lines)).bit_length() - 1)
+    tl = max(min(32, tl_max), min(tl, tl_max))
+    lb = 1
+    while (2 * lb * tl <= LINE_BLOCK and 2 * lb * line_bytes <= LINE_SMEM_MAX
+           and -(-lines // (2 * lb)) >= sms):
+        lb *= 2
+    return tl, lb
+
+
+def _launch_lines(B: SuperBlockTriSolve, li: int,
+                  shard: Optional["SuperBlockShard"]) -> int:
+    """The superblock lines a launch of level li covers: all of them, or
+    those mesh shard `shard` owns."""
+    l0, l1 = (0, B.m // B.spec_params[0]) if shard is None \
+        else shard.lines[li]
+    return l1 - l0
+
+
+def _line_shape(B: SuperBlockTriSolve, li: int, itemsize: int,
+                shard: Optional["SuperBlockShard"], index: int):
+    """line_shape of level li's launch (the whole level's, or mesh shard
+    `shard`'s part) on card `index`, kept with the launch table."""
+    cache = B._args if shard is None else shard._args
+    key = ("line_shape", li, itemsize, index)
+    if key not in cache:
+        cache[key] = line_shape(
+            B.spec_params[0], B.sx, _launch_lines(B, li, shard),
+            len(B.levels[li][1]) if B.is_plane else 0, itemsize,
+            sm_count(index))
+    return cache[key]
+
+
+def level_route_for(B: SuperBlockTriSolve, li: int, itemsize: int,
                     shard: Optional["SuperBlockShard"] = None,
                     device=None) -> str:
-    """The route of a launch of factor-table level li (the whole level's,
-    or mesh shard `shard`'s part) on `device` for vectors of `itemsize`
-    bytes: "staged" for float32 where the kernel's shared memory takes the
-    level's lines and factors (at most 48 KB), its row offsets fit 32 bits
-    and its grid has a block for every SM (csrc/block_trisolve.cu:
-    bis_super_level_staged_grid; it runs 8 lines a block, so a mesh
-    shard's launch at 128³ has 64 blocks, and there the direct route, 2
-    lines a block, ran faster); else "direct" (in float64 the staged
-    kernel needs twice the registers and shared memory a row, and the
-    direct route ran faster on the H100 at 128³).  The shape, type and
-    card alone decide: worked out at the first launch and kept with the
-    launch table (B's, or the shard's)."""
+    """The route of a launch of level li (the whole level's, or mesh shard
+    `shard`'s part) on `device` for vectors of `itemsize` bytes.
+
+    Factor-table mode: "staged" for float32 where the kernel's shared
+    memory takes the level's lines and factors (at most 48 KB), its row
+    offsets fit 32 bits and its grid has a block for every SM
+    (csrc/block_trisolve.cu: bis_super_level_staged_grid; it runs 8 lines
+    a block, so a mesh shard's launch at 128³ has 64 blocks, and there the
+    direct route, 2 lines a block, ran faster); else "direct" (in float64
+    the staged kernel needs twice the registers and shared memory a row,
+    and the direct route ran faster on the H100 at 128³).
+
+    Plane and const modes: "line" where the launch's rows fill the card's
+    resident threads (lines × nx ≥ sms × LINE_THREADS), one line's buffer
+    fits the line kernel's shared memory (line_shape) and the window's
+    row offsets fit 32 bits; else "direct" (a launch that leaves threads
+    idle gives each row its own thread there: at 128³ the 8 launches of
+    an 8-shard mesh level, 512 lines each, ran 10–13% faster on it than
+    on the line route's fastest block wherever the level has cross legs,
+    2.5% slower on the level with none).
+
+    The shape, type and card alone decide: worked out at the first launch
+    and kept with the launch table (B's, or the shard's)."""
     index = torch.cuda.current_device() if device is None else device.index
     cache = B._args if shard is None else shard._args
     key = ("route", li, itemsize, index)
     if key not in cache:
         route = "direct"
-        if itemsize == 4 and B.n_rows < 2 ** 31:
-            from .._build import load_library
-            args = _level_args(B, li) if shard is None else _shard_args(
-                shard, li)
-            grid = load_library().bis_super_level_staged_grid(
-                ctypes.byref(args))
-            route = "staged" if grid >= sm_count(index) else "direct"
+        if B.is_table:
+            if itemsize == 4 and B.n_rows < 2 ** 31:
+                from .._build import load_library
+                args = _level_args(B, li) if shard is None else _shard_args(
+                    shard, li)
+                grid = load_library().bis_super_level_staged_grid(
+                    ctypes.byref(args))
+                route = "staged" if grid >= sm_count(index) else "direct"
+        else:
+            window = B.n_rows if shard is None else (shard.rows
+                                                     + 2 * shard.halo)
+            fills = (_launch_lines(B, li, shard) * B.spec_params[0]
+                     >= sm_count(index) * LINE_THREADS)
+            if (fills and max(B.n_rows, window) < 2 ** 31 and _line_shape(
+                    B, li, itemsize, shard, index) is not None):
+                route = "line"
         cache[key] = route
     return cache[key]
 
@@ -1114,10 +1199,12 @@ def table_route_for(B: SuperBlockTriSolve, li: int, itemsize: int,
 def _launch_level(B: SuperBlockTriSolve, li: int, args, y, x, counter,
                   vc=None, vs=None, drows=None, operands=None, shard=None):
     """One level launch with the launch table `args` (the whole level's,
-    or mesh shard `shard`'s), counted on `counter` (super_level or
-    super_level_halo): factor-table mode on `table_route_for`'s route."""
+    or mesh shard `shard`'s), on `level_route_for`'s route, counted on
+    `counter` (super_level or super_level_halo): in its mode's count and
+    its mode and route's (`table_staged_launches`, `plane_line_launches`,
+    `const_direct_launches`, ...)."""
+    route = level_route_for(B, li, x.element_size(), shard, x.device)
     if B.is_table:
-        route = table_route_for(B, li, x.element_size(), shard, x.device)
         if route == "staged":
             _cuda_call(B, "super_level_staged", x, ctypes.byref(args),
                        y.data_ptr(), x.data_ptr(), _ptr(B.table),
@@ -1127,16 +1214,29 @@ def _launch_level(B: SuperBlockTriSolve, li: int, args, y, x, counter,
                        y.data_ptr(), x.data_ptr(), _ptr(B.table),
                        _ptr(B.table_dinv), None, None, None, operands=())
         counter.table_launches += 1
-        setattr(counter, f"table_{route}_launches",
-                getattr(counter, f"table_{route}_launches") + 1)
-        return
-    _cuda_call(B, "super_level", x, ctypes.byref(args), y.data_ptr(),
-               x.data_ptr(), None, None, _ptr(vc), _ptr(vs), _ptr(drows),
-               operands=operands)
-    if B.is_plane:
-        counter.plane_launches += 1
+        mode = "table"
     else:
-        counter.launches += 1
+        if route == "line":
+            shape = _line_shape(B, li, x.element_size(), shard,
+                                x.device.index)
+            if shape is None:
+                raise ValueError(f"level {li}'s lines do not fit the line "
+                                 "route's shared memory")
+            _cuda_call(B, "super_level_line", x, ctypes.byref(args), *shape,
+                       y.data_ptr(), x.data_ptr(), _ptr(vc), _ptr(vs),
+                       _ptr(drows), operands=operands)
+        else:
+            _cuda_call(B, "super_level", x, ctypes.byref(args), y.data_ptr(),
+                       x.data_ptr(), None, None, _ptr(vc), _ptr(vs),
+                       _ptr(drows), operands=operands)
+        if B.is_plane:
+            counter.plane_launches += 1
+            mode = "plane"
+        else:
+            counter.launches += 1
+            mode = "const"
+    attr = f"{mode}_{route}_launches"
+    setattr(counter, attr, getattr(counter, attr) + 1)
 
 
 def _planes(B: SuperBlockTriSolve, li: int):
@@ -1153,12 +1253,14 @@ def super_level(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
     y and the superblocks of x already solved; returns x.  y may be x
     itself.
 
-    A CUDA tensor goes through the hand-written kernel, which counts its
-    launches in `super_level.launches` (const mode),
-    `super_level.table_launches` (factor-table mode; each route's in
-    `.table_staged_launches`, `.table_direct_launches`) or
-    `super_level.plane_launches` (plane mode); a CPU tensor takes the plain
-    version."""
+    A CUDA tensor goes through the hand-written kernel on
+    `level_route_for`'s route, which counts its launches in
+    `super_level.launches` (const mode), `super_level.table_launches`
+    (factor-table mode) or `super_level.plane_launches` (plane mode), and
+    each mode's routes apart (`.table_staged_launches`,
+    `.table_direct_launches`, `.plane_line_launches`,
+    `.plane_direct_launches`, `.const_line_launches`,
+    `.const_direct_launches`); a CPU tensor takes the plain version."""
     _check_level(B, li, y, x)
     if x.device.type == "cuda":
         vc, vs = _planes(B, li)
@@ -1170,11 +1272,14 @@ def super_level(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
     raise ValueError(f"no super-level solve for device {x.device}")
 
 
-super_level.launches = 0
-super_level.table_launches = 0
-super_level.table_staged_launches = 0
-super_level.table_direct_launches = 0
-super_level.plane_launches = 0
+def _zero_counts(counter):
+    counter.launches = counter.table_launches = counter.plane_launches = 0
+    for name in ("table_staged", "table_direct", "plane_line",
+                 "plane_direct", "const_line", "const_direct"):
+        setattr(counter, f"{name}_launches", 0)
+
+
+_zero_counts(super_level)
 
 
 def super_solve_mega_plain(B: SuperBlockTriSolve, y: torch.Tensor,
@@ -1797,12 +1902,11 @@ def super_level_halo(Bs: SuperBlockShard, li: int, y: torch.Tensor,
     """One mesh shard's part of level li (the JAX package's
     _super_level_pallas with row0): super_level_halo_plain's contract.  A
     CUDA tensor launches the level kernel (csrc/block_trisolve.cu) on the
-    shard's window, its planes and diagonal, counted in
-    `super_level_halo.launches` (const mode), `.table_launches` (each
-    route's in `.table_staged_launches`, `.table_direct_launches`, as
-    `super_level` chooses them) or `.plane_launches`; a shard that owns
-    none of the level's lines launches nothing.  A CPU tensor takes the
-    plain version."""
+    shard's window, its planes and diagonal, on `level_route_for`'s route
+    for the shard's launch, counted as `super_level` counts (in
+    `super_level_halo.launches`, `.table_launches`, `.plane_launches` and
+    each mode's routes apart); a shard that owns none of the level's lines
+    launches nothing.  A CPU tensor takes the plain version."""
     _check_halo(Bs, li, y, x)
     if x.device.type == "cuda":
         l0, l1 = Bs.lines[li]
@@ -1820,11 +1924,7 @@ def super_level_halo(Bs: SuperBlockShard, li: int, y: torch.Tensor,
     raise ValueError(f"no super-level solve for device {x.device}")
 
 
-super_level_halo.launches = 0
-super_level_halo.table_launches = 0
-super_level_halo.table_staged_launches = 0
-super_level_halo.table_direct_launches = 0
-super_level_halo.plane_launches = 0
+_zero_counts(super_level_halo)
 
 
 def _mesh_exchange(MB: MeshSuperBlockTriSolve, li: int, X) -> None:

@@ -48,7 +48,7 @@ PHASE_BUCKETS = (
               "lane_ell_spmv_halo_kernel",
               "lane_ell_spmv_halo_padded_kernel")),
     ("sptrsv", ("super_level_kernel", "super_level_staged_kernel",
-                "super_acc_kernel",
+                "super_level_line_kernel", "super_acc_kernel",
                 "super_parity_kernel", "super_solve_mega_kernel",
                 "rank_level_kernel")),
     ("orthog", ("project_gram_kernel", "correct_write_kernel")),

@@ -8,8 +8,8 @@ exits non-zero:
   1. device: the card's name and power limit;
   2. build: compile the CUDA kernels from this checkout; [ptxas] prints
      the registers and spills of the basis kernels, the lane-ELL kernels,
-     the staged factor-table level and the stencil SpMVs #1 and #2 on
-     both routes;
+     the staged factor-table level, the line route of the plane and const
+     levels and the stencil SpMVs #1 and #2 on both routes;
   3. the stencil SpMV kernel against its plain PyTorch version on the card,
      at the main path's shapes, both timed, on the route each shape takes
      (the box route) and bit for bit against the leg-loop route; then the
@@ -36,14 +36,16 @@ exits non-zero:
  10. the multicolour GS step kernel against its plain version, every
      colour, on the three operators of phase 3, both dtypes, timed;
  11. the superblock level kernel against its plain version on every level
-     of the L and U solves of HPCG 128^3, and a whole symmetric apply, both
-     dtypes, timed;
+     of the L and U solves of HPCG 128^3 (const mode), bit for bit on the
+     line route (the shape's) and the direct route, each level timed on
+     both in turns beside its bound, and a whole symmetric apply against
+     the CPU's and on both routes in turns, both dtypes;
  12. the same GS-family solves on the CPU and on the card (SGS and CG + SGS
      on HPCG 32^3, the superblock route; SGS on fdm:256, the masked
      colour sweeps);
  13. the third slice's path: the bench's gs, sgs, pcg, pgmres and
      pbicgstab rows on HPCG 128^3 in float32, counting every kernel's
-     launches; then a float64 CG + SGS solve to convergence; and SGS on
+     launches (the const levels on the route the picker names); then a float64 CG + SGS solve to convergence; and SGS on
      fdm:2048 through the GS colour-step kernel;
  14. the superblock level kernel in factor-table mode (exact ILU(0))
      against its plain version on every level of the L and U solves of
@@ -89,12 +91,16 @@ exits non-zero:
      per-row D, the JAX CLI's route: the JAX bench's stencil injection
      takes the factor-table pair here) and pbicgstab@anderson128
      (BiCGSTAB + SGS, 800, the stencil injected: const mode with a per-row
-     D), with every kernel's launches, set-up seconds and peak memory; f64
+     D), with every kernel's launches (the plane and const levels on the
+     route the picker names), set-up seconds and peak memory, and
+     pcg_ilu0@fdm2048 on the line and the direct route in turns; f64
      CG + ILU(0) on fdm:256 on that route on the CPU and on the card;
  24. the plane mode of the superblock level kernel and the per-row D of
      its const mode ([plane-level]) against their plain versions on every
-     level of the fdm:2048 pair, f32 and widened to f64, bit for bit, whole
-     applies, the split route's kernels in plane mode ([plane-split]) and
+     level of the fdm:2048 pair and of the Anderson 128^3 SGS pair, f32
+     and widened to f64, bit for bit on the line and the direct route,
+     each level (f32) and whole fdm:2048 applies timed on both in turns
+     beside the bound, the split route's kernels in plane mode ([plane-split]) and
      the fused/split A/B in turns, torch.triangular_solve's whole L solve,
      and the hpcg:32x32x32 plane pair against its factor-table pair;
  25. the one-launch const solve ([mega]) against the per-level route and
@@ -165,15 +171,18 @@ exits non-zero:
      in const (128^3 GS pair), factor-table (128^3 ILU(0) pair) and plane
      mode (the fdm:2048 pair of phase 23), f32 and f64, each shard
      bit-equal to its plain twin and the shards together to the
-     single-device level (factor-table mode: the staged (f32) and direct
-     routes' shards to the shards' own, both timed in turns); the 8 launches timed beside the single-device
-     level, the plain twins, the whole mesh level with its exchange and
-     whole L solves;
+     single-device level, on each route of the mode (staged (f32) and
+     direct; line and direct); the 8 launches of the last L level of each
+     mode and of the fdm:2048 pair's U levels (const, per-row D) timed on
+     both routes in turns, beside the single-device level, the plain
+     twins, the whole mesh level with its exchange and whole solves;
  37. slice 8b's rows ([slice8b]): pcg, pcg_ilu0, pbicgstab@anderson128 and
      pcg_ilu0@fdm2048 at full size, a quarter of the bench's iteration
      counts (300, 300, 200, 300),
-     single-device and 8-shard mesh in turns, with ms/iter, #9's mesh
-     launches, exchanges and peak memory; f64 CG + SGS to 1e-8 at 128^3
+     single-device and 8-shard mesh in turns (pcg_ilu0@fdm2048 on the
+     line and the direct route too, the four in turns), with ms/iter, #9's
+     mesh launches by mode and route, exchanges and peak memory; f64 CG +
+     SGS to 1e-8 at 128^3
      on both, equal counts;
  38. the basis kernels' device time a GMRES(50) iteration ([orthog], run
      last): the slice-2 GMRES row with the ring and the strided route in
@@ -283,7 +292,8 @@ def phase_device(torch):
 #: kernels whose ptxas lines [ptxas] prints beside the basis kernels'
 PTXAS_KERNELS = ("lane_ell_spmv_kernel", "lane_ell_spmv_halo_kernel",
                  "lane_ell_spmv_halo_padded_kernel",
-                 "super_level_staged_kernel", "stencil_spmv_kernel",
+                 "super_level_staged_kernel", "super_level_line_kernel",
+                 "stencil_spmv_kernel",
                  "stencil_spmv_stream_kernel", "stencil_spmv_box_kernel",
                  "stencil_spmv_stream_box_kernel")
 #: Itanium codes of the template arguments those kernels take
@@ -971,8 +981,11 @@ def phase_gs_step_vs_plain(torch, bt):
 def phase_super_level_vs_plain(torch, bt):
     """super_level against its plain version on every level of the L and U
     solves of HPCG 128^3 (x random, so every source superblock holds
-    values), and blocked_sgs whole, f32 and f64, within TOL; every level
-    timed.  Returns the f32 record (ms: the mean level)."""
+    values), bit for bit on both routes (line, the shape's; direct), each
+    level timed on both in turns by device time beside its bound (f32);
+    blocked_sgs whole against the CPU's plain solve within TOL, and on
+    both routes in turns, f32 and f64.  Returns the f32 record (ms: the
+    mean level on the line route; direct_ms beside it)."""
     from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
     record = None
@@ -984,47 +997,38 @@ def phase_super_level_vs_plain(torch, bt):
         y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
         x = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
         tol = TOL[str(dt).split(".")[1]]
-        worst_rel, worst_abs, ms, plain_ms = 0.0, 0.0, [], []
-        for name, B in (("L", L), ("U", U)):
-            for li in range(len(B.levels)):
-                before = bk.super_level.launches
-                xk, xp = x.clone(), x.clone()
-                bk.super_level(B, li, y, xk)
-                bk.super_level_plain(B, li, y, xp)
-                torch.cuda.synchronize()
-                if bk.super_level.launches != before + 1:
-                    raise RuntimeError("the super-level launch count did "
-                                       "not grow")
-                abs_err = float((xk - xp).abs().max())
-                rel = abs_err / float(xp.abs().max())
-                worst_abs, worst_rel = max(worst_abs, abs_err), max(
-                    worst_rel, rel)
-                ms.append(_median_ms(lambda: bk.super_level(B, li, y, xk),
-                                     torch))
-                plain_ms.append(_median_ms(
-                    lambda: bk.super_level_plain(B, li, y, xp), torch,
-                    reps=5))
-                print(f"[super-level] {MAIN_SPEC} {str(dt)[6:]} {name} "
-                      f"level {li} (superblock {B.levels[li][0]}, "
-                      f"{len(B.const_cross[li])} cross legs) "
-                      f"max_rel_err={rel:.3e} kernel_ms={ms[-1]:.4f} "
-                      f"plain_ms={plain_ms[-1]:.4f}")
+        label = f"{MAIN_SPEC} {str(dt)[6:]}"
+        ms, plain_ms, worst, by_level = [], [], 0.0, []
+        for B in (L, U):
+            k, p, e = _check_levels(torch, bk, label, B, y, x,
+                                    range(len(B.levels)),
+                                    timed=dt == torch.float32,
+                                    tag="super-level", by_level=by_level)
+            ms += k
+            plain_ms += p
+            worst = max(worst, e)
         zk = bk.blocked_sgs(L, U, y)
         before = bk.super_level.launches
         zp = bk.blocked_sgs(L, U, y.cpu()).to("cuda")
         if bk.super_level.launches != before:
             raise RuntimeError("a CPU solve launched a kernel")
+        zd = _direct(bk.blocked_sgs, L, U, y)
         sgs_rel = float((zk - zp).abs().max()) / float(zp.abs().max())
-        sgs_ms = _median_ms(lambda: bk.blocked_sgs(L, U, y), torch)
-        print(f"[super-level] {MAIN_SPEC} {str(dt)[6:]} blocked_sgs "
-              f"(2x{L.S} levels) against the CPU's plain solve: "
-              f"max_rel_err={sgs_rel:.3e} ms={sgs_ms:.4f}")
-        if not (worst_rel <= tol and sgs_rel <= tol):
-            raise RuntimeError(f"super-level kernel disagrees with plain "
-                               f"beyond {tol}: {dt}")
+        sgs_ms = _in_turns(torch, {
+            "line": lambda: bk.blocked_sgs(L, U, y),
+            "direct": lambda: _direct(bk.blocked_sgs, L, U, y)},
+            ("direct", "line", "line", "direct"))
+        print(f"[super-level] {label} blocked_sgs (2x{L.S} levels) against "
+              f"the CPU's plain solve: max_rel_err={sgs_rel:.3e}; the direct "
+              f"route's bit_equal={torch.equal(zd, zk)}; device ms in turns "
+              f"{sgs_ms}")
+        if not (sgs_rel <= tol and torch.equal(zd, zk)):
+            raise RuntimeError(f"blocked_sgs disagrees with plain beyond "
+                               f"{tol} or across routes: {dt}")
         if dt == torch.float32:
-            record = {"max_abs_err": worst_abs,
+            record = {"max_abs_err": worst,
                       "ms": statistics.mean(ms),
+                      "direct_ms": statistics.mean(t[1] for t in by_level),
                       "plain_ms": statistics.mean(plain_ms),
                       "library_ms": None,
                       **_mean_bound([_level_work(B, li, 4) for B in (L, U)
@@ -1178,6 +1182,9 @@ def _counters(so, gb, bk, reset=False):
                "super_level_table_direct": (bk.super_level,
                                             "table_direct_launches"),
                "super_level_plane": (bk.super_level, "plane_launches"),
+               **{f"super_level_{k}_{rt}": (bk.super_level,
+                                            f"{k}_{rt}_launches")
+                  for k in ("const", "plane") for rt in ("line", "direct")},
                "super_acc": (bk.super_acc, "launches"),
                "super_parity": (bk.super_parity, "launches"),
                "super_solve_mega": (bk.super_solve_mega, "launches"),
@@ -1186,6 +1193,37 @@ def _counters(so, gb, bk, reset=False):
         for fn, attr in kernels.values():
             setattr(fn, attr, 0)
     return {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
+
+
+def _picked_routes(bk, item, *solves):
+    """{route: launches} that level_route_for names for one launch of every
+    plane and const level of the solves (None skipped; a mesh solve: each
+    shard that owns lines of the level), vectors of `item` bytes."""
+    import torch
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for s in solves:
+        if s is None:
+            continue
+        if hasattr(s, "shards"):
+            calls = [(s.inner, li, Bs) for Bs in s.shards
+                     for li in range(len(s.inner.levels))
+                     if Bs.lines[li][1] > Bs.lines[li][0]]
+        else:
+            calls = [(s, li, None) for li in range(len(s.levels))]
+        for B, li, Bs in calls:
+            if not B.is_table:
+                rt = bk.level_route_for(B, li, item, Bs, dev)
+                out[rt] = out.get(rt, 0) + 1
+    return out
+
+
+def _all_on_route(counts, route, prefix="super_level"):
+    """Every plane and const launch in `counts` (a _counters dict; prefix
+    super_level_halo for the mesh form's) counted on `route`."""
+    total = counts[prefix] + counts[f"{prefix}_plane"]
+    return total == counts[f"{prefix}_const_{route}"] + counts[
+        f"{prefix}_plane_{route}"]
 
 
 def phase_slice3_path(torch, bt):
@@ -1203,6 +1241,7 @@ def phase_slice3_path(torch, bt):
     so = bt.stencil_op
     S, P = bt.SolverType, bt.PrecondType
     super_launches = 0
+    by_route = {"line": 0, "direct": 0}
     for name, method, precond, iters, kw in SLICE3_ROWS:
         setup = _setup(torch, bt, MAIN_SPEC, torch.float32, "cuda",
                        S[method], preconditioner=P[precond],
@@ -1211,18 +1250,24 @@ def phase_slice3_path(torch, bt):
         if setup.gs_L_block is None and setup.M.L_block is None:
             raise RuntimeError(f"{name} did not take the superblock route")
         solver = make_method(setup)
+        picked = _picked_routes(bk, 4, setup.gs_L_block, setup.gs_U_block,
+                                getattr(setup.M, "L_block", None),
+                                getattr(setup.M, "U_block", None))
         bt.solve(setup, method=solver)                # warm-up solve
         _counters(so, gb, bk, reset=True)
         res = bt.solve(setup, method=solver)
         counts = _counters(so, gb, bk)
         super_launches += counts["super_level"]
+        for rt in ("line", "direct"):
+            by_route[rt] += counts[f"super_level_const_{rt}"]
         ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
         print(f"[slice3] {MAIN_SPEC} f32 {name} fused: "
               f"iters={res.iter_count} restarts={res.gmres_restart_count} "
               f"ms/iter={ms:.5f} r0={res.residual_norms[0]:.6e} "
               f"final_explicit_f64={res.final_residual_norm:.6e} "
-              f"launches={counts}")
+              f"levels by the picker's route {picked} launches={counts}")
         if not (res.iter_count + res.gmres_restart_count == iters
+                and len(picked) == 1 and _all_on_route(counts, *picked)
                 and math.isfinite(res.final_residual_norm)
                 and bool(torch.isfinite(res.x_star).all())
                 and counts["super_level"] >= res.iter_count
@@ -1265,7 +1310,7 @@ def phase_slice3_path(torch, bt):
             and counts["stencil_gs_color_step"] >= 4 * res.iter_count
             and counts["super_level"] == 0):
         raise RuntimeError("fdm:2048 SGS run failed its checks")
-    return super_launches, counts["stencil_gs_color_step"]
+    return super_launches, by_route, counts["stencil_gs_color_step"]
 
 
 def _ilu0_pair(torch, bt, spec, dt):
@@ -1311,77 +1356,120 @@ def _halo_route(le, route):
         le.halo_route_for = saved
 
 
+def _owners(solves):
+    """(route cache owner, levels) of each superblock solve in `solves`:
+    a SuperBlockTriSolve or SuperBlockShard itself, a mesh's
+    MeshSuperBlockTriSolve through its shards; other arguments skipped."""
+    out = []
+    for s in solves:
+        if hasattr(s, "shards"):
+            out += [(Bs, len(s.inner.levels)) for Bs in s.shards]
+        elif hasattr(s, "_args"):
+            out.append((s, len((s.B if hasattr(s, "B") else s).levels)))
+    return out
+
+
 @contextlib.contextmanager
-def _table_route(bk, route):
-    """Every factor-table level launched inside the block takes `route`
-    (block_trisolve.table_route_for replaced for it)."""
-    saved = bk.table_route_for
-    bk.table_route_for = lambda *args, **kwargs: route
+def _on_route(route, *solves):
+    """Every level of `solves` (see _owners) launched inside the block takes
+    `route`: set in the route caches that block_trisolve.level_route_for
+    keeps (each solve's, or each mesh shard's), for both vector types on
+    the current card, and restored after."""
+    import torch
+    idx = torch.cuda.current_device()
+    saved = []
+    for owner, levels in _owners(solves):
+        for li in range(levels):
+            for item in (4, 8):
+                key = ("route", li, item, idx)
+                saved.append((owner._args, key, owner._args.get(key)))
+                owner._args[key] = route
     try:
         yield
     finally:
-        bk.table_route_for = saved
+        for cache, key, old in reversed(saved):
+            if old is None:
+                cache.pop(key, None)
+            else:
+                cache[key] = old
 
 
-def _direct(bk, fn, *args):
-    """fn(*args) with every factor-table level on the direct route."""
-    with _table_route(bk, "direct"):
+def _routes_of(B, itemsize):
+    """The routes of B's level kernel on vectors of `itemsize` bytes,
+    "direct" last (the staged route takes float32 only)."""
+    if B.is_table:
+        return ("staged", "direct") if itemsize == 4 else ("direct",)
+    return ("line", "direct")
+
+
+def _direct(fn, *args):
+    """fn(*args) with every level of the solves among args on the direct
+    route."""
+    with _on_route("direct", *args):
         return fn(*args)
 
 
 def _check_levels(torch, bk, label, B, y, x, levels, timed=True,
                   tag="ilu0-level", by_level=None):
     """super_level against super_level_plain on the given levels of B, bit
-    for bit, each launch counted in its mode's counter; a factor-table
-    level also on the direct route, bit-equal to the staged one, both
-    timed by device time in turns (direct, staged, staged, direct) beside
-    the level's bound.  Returns ([kernel ms], [plain ms], worst abs error);
-    with a list `by_level`, appends each factor-table level's (staged ms,
-    direct ms, bound ms)."""
+    for bit, on both routes of its mode (_routes_of: factor table staged
+    and direct, plane and const line and direct), each launch counted in
+    its mode's counter and in its route's; with `timed`, both routes
+    timed by device time in turns (second, first, first, second) beside
+    the level's bound (_level_work; _plane_level_work where B has a
+    per-row D) and the plain level.  Returns ([ms on the route the shape
+    takes], [plain ms], worst abs error); with a list `by_level`, appends
+    each level's (ms on the first route, ms on direct, bound ms)."""
     attr = ("table_launches" if B.is_table else
             "plane_launches" if B.is_plane else "launches")
+    mode = "table" if B.is_table else "plane" if B.is_plane else "const"
+    routes = _routes_of(B, x.element_size())
+    first = routes[0]
+    work = _plane_level_work if B.dinv_rows is not None else _level_work
     ms, plain_ms, worst = [], [], 0.0
     for li in levels:
-        before = getattr(bk.super_level, attr)
-        xk, xp = x.clone(), x.clone()
-        bk.super_level(B, li, y, xk)
+        route = bk.level_route_for(B, li, x.element_size())
+        outs, counts = {}, {}
+        for rt in routes:
+            before = (getattr(bk.super_level, attr),
+                      getattr(bk.super_level, f"{mode}_{rt}_launches"))
+            outs[rt] = x.clone()
+            with _on_route(rt, B):
+                bk.super_level(B, li, y, outs[rt])
+            counts[rt] = (getattr(bk.super_level, attr) - before[0],
+                          getattr(bk.super_level, f"{mode}_{rt}_launches")
+                          - before[1])
+        xp = x.clone()
         bk.super_level_plain(B, li, y, xp)
         torch.cuda.synchronize()
-        if getattr(bk.super_level, attr) != before + 1:
-            raise RuntimeError(f"the {attr} count did not grow")
-        equal = torch.equal(xk, xp)
+        if any(c != (1, 1) for c in counts.values()):
+            raise RuntimeError(f"the {attr} or a route's count did not grow "
+                               f"by one: {counts}")
+        xk = outs[route]
+        equal = torch.equal(xk, xp) and torch.equal(outs["direct"], xk)
         worst = max(worst, float((xk - xp).abs().max()))
         line = (f"[{tag}] {label} {'U' if B.upper else 'L'} level {li} "
                 f"({_mode(B)}, superblock {B.levels[li][0]}, "
-                f"{len(B.levels[li][1])} cross legs) bit_equal={equal}")
-        if B.is_table:
-            route = bk.table_route_for(B, li, x.element_size())
-            xd = x.clone()
-            _direct(bk, bk.super_level, B, li, y, xd)
-            torch.cuda.synchronize()
-            equal = equal and torch.equal(xd, xk)
-            line += (f" route={route} direct_route_bit_equal="
-                     f"{torch.equal(xd, xk)}")
+                f"{len(B.levels[li][1])} cross legs) bit_equal="
+                f"{torch.equal(xk, xp)} route={route} "
+                f"{'direct' if route == first else first}_route_bit_equal="
+                f"{torch.equal(outs['direct'], outs[first])}")
         if timed:
-            if B.is_table:
-                turns = _in_turns(torch, {
-                    "staged": lambda: bk.super_level(B, li, y, xk),
-                    "direct": lambda: _direct(bk, bk.super_level, B, li, y,
-                                              xd)},
-                    ("direct", "staged", "staged", "direct"))
-                bound = _bound(*_level_work(B, li, x.element_size()))
-                ms.append(min(turns[route]))
-                if by_level is not None:
-                    by_level.append((min(turns["staged"]),
-                                     min(turns["direct"]),
-                                     bound["bound_ms"]))
-                line += (f" device_ms in turns staged={turns['staged']} "
-                         f"direct={turns['direct']} bound_ms="
-                         f"{bound['bound_ms']:.4f} ({bound['bound_by']})")
-            else:
-                ms.append(_median_ms(lambda: bk.super_level(B, li, y, xk),
-                                     torch))
-                line += f" kernel_ms={ms[-1]:.4f}"
+            def launch(rt):
+                def run():
+                    with _on_route(rt, B):
+                        bk.super_level(B, li, y, outs[rt])
+                return run
+            turns = _in_turns(torch, {rt: launch(rt) for rt in routes},
+                              ("direct", first, first, "direct"))
+            bound = _bound(*work(B, li, x.element_size()))
+            ms.append(min(turns[route]))
+            if by_level is not None:
+                by_level.append((min(turns[first]), min(turns["direct"]),
+                                 bound["bound_ms"]))
+            line += (f" device_ms in turns {first}={turns[first]} "
+                     f"direct={turns['direct']} bound_ms="
+                     f"{bound['bound_ms']:.5f} ({bound['bound_by']})")
             plain_ms.append(_median_ms(
                 lambda: bk.super_level_plain(B, li, y, xp), torch, reps=3,
                 batch=3))
@@ -1498,12 +1586,12 @@ def phase_ilu0_level_vs_plain(torch, bt):
             worst = max(worst, e)
         zk = bk.blocked_ilu0(L, U, y)
         zp = _plain_ilu0(bk, L, U, y)
-        zd = _direct(bk, bk.blocked_ilu0, L, U, y)
+        zd = _direct(bk.blocked_ilu0, L, U, y)
         torch.cuda.synchronize()
-        # float64 takes the direct route (block_trisolve.table_route_for)
+        # float64 takes the direct route (block_trisolve.level_route_for)
         applies = (_in_turns(torch, {
             "staged": lambda: bk.blocked_ilu0(L, U, y),
-            "direct": lambda: _direct(bk, bk.blocked_ilu0, L, U, y)},
+            "direct": lambda: _direct(bk.blocked_ilu0, L, U, y)},
             ("staged", "direct", "direct", "staged"))
             if dt == torch.float32 else
             {"direct": [_median_ms(lambda: bk.blocked_ilu0(L, U, y),
@@ -1741,7 +1829,7 @@ def phase_slice4_path(torch, bt):
             turns = {}
             for route in ("staged", "direct", "direct", "staged"):
                 _counters(so, gb, bk, reset=True)
-                with _table_route(bk, route):
+                with _on_route(route, L, U):
                     r = bt.solve(setup, method=solver)
                 c = _counters(so, gb, bk)
                 if not (r.iter_count == iters and c["super_level_table"]
@@ -2494,7 +2582,10 @@ def phase_slice5b_build(torch, bt):
 def phase_plane_level_vs_plain(torch, bt, setup):
     """K1 (plane mode of #9) and the per-row D of const mode against their
     plain versions on every level of the fdm:2048 ILU(0) pair's L and U, f32
-    and (the pair widened) f64, bit for bit; whole applies; the split
+    and (the pair widened) f64, bit for bit on the line and the direct
+    route, each level timed on both in turns beside its bound; whole
+    applies on both routes in turns; the Anderson 128^3 SGS pair's levels
+    the same way (_anderson_levels); the split
     route (the pair in plane form, as BIS_SB_ALIGNED=0 builds it):
     super_acc and super_parity against plain on every level, and whole
     applies fused and split in turns; one whole L solve through
@@ -2512,32 +2603,55 @@ def phase_plane_level_vs_plain(torch, bt, setup):
         y = torch.randn(n, dtype=dt, device="cuda", generator=g)
         x = torch.randn(n, dtype=dt, device="cuda", generator=g)
         label = f"{FDM_5B} {str(dt)[6:]}"
-        res = {}
+        res, by = {}, {}
         for B in (L, U):
+            by[B.upper] = []
             res[B.upper] = _check_levels(torch, bk, label, B, y, x,
                                          range(len(B.levels)),
-                                         tag="plane-level")
+                                         tag="plane-level",
+                                         by_level=by[B.upper])
         zk = bk.blocked_ilu0(L, U, y)
         zp = _plain_ilu0(bk, L, U, y)
+        zd = _direct(bk.blocked_ilu0, L, U, y)
         torch.cuda.synchronize()
-        apply_ms = _median_ms(lambda: bk.blocked_ilu0(L, U, y), torch)
+        apply_ms = _in_turns(torch, {
+            "line": lambda: bk.blocked_ilu0(L, U, y),
+            "direct": lambda: _direct(bk.blocked_ilu0, L, U, y)},
+            ("direct", "line", "line", "direct"))
         works = [_plane_level_work(B, li, x.element_size()) for B in (L, U)
                  for li in range(len(B.levels))]
         bound = _bound(sum(b for b, _o in works), sum(o for _b, o in works))
         print(f"[plane-level] {label} blocked_ilu0 (2x{L.S} levels) against "
-              f"the plain levels: bit_equal={torch.equal(zk, zp)} "
-              f"ms={apply_ms:.4f} bound_ms={bound['bound_ms']:.4f} "
-              f"({bound['bound_by']}, at the float32 rate)")
-        if not torch.equal(zk, zp):
+              f"the plain levels: bit_equal={torch.equal(zk, zp)} (direct "
+              f"route {torch.equal(zd, zk)}) device ms in turns {apply_ms} "
+              f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}, at "
+              f"the float32 rate)")
+        if not (torch.equal(zk, zp) and torch.equal(zd, zk)):
             raise RuntimeError(f"{label}: whole ILU(0) apply disagrees")
         if dt == torch.float32:
             ms, plain_ms, worst = res[False]
+
+            def means(rows):
+                return {k: statistics.mean(t[j] for t in rows)
+                        for j, k in enumerate(("ms", "direct_ms",
+                                               "bound_ms"))}
+
             record = {"max_abs_err": worst, "ms": statistics.mean(ms),
+                      "direct_ms": means(by[False])["direct_ms"],
                       "plain_ms": statistics.mean(plain_ms),
                       "library_ms": None,
                       **_mean_bound([_plane_level_work(L, li, 4)
-                                     for li in range(len(L.levels))])}
-        del zk, zp, x, y
+                                     for li in range(len(L.levels))]),
+                      "by_mode": {
+                          "plane, fdm:2048 L": means(by[False]),
+                          "const per-row D, fdm:2048 U": means(by[True]),
+                          "apply, fdm:2048": {
+                              "ms": min(apply_ms["line"]),
+                              "direct_ms": min(apply_ms["direct"]),
+                              "bound_ms": bound["bound_ms"]}}}
+        del zk, zp, zd, x, y
+    record["by_mode"]["const per-row D, Anderson 128^3"] = _anderson_levels(
+        torch, bt, bk)
     split_records, whole = _plane_split(torch, bk, L32, U32)
     M, perm = _plane_lower_csr(torch, bk, L32)
     y = torch.randn(n, device="cuda",
@@ -2561,6 +2675,39 @@ def phase_plane_level_vs_plain(torch, bt, setup):
     _plane_vs_table(torch, bt, bk)
     whole.update(library_ms=lib_ms, blocked_trisolve_ms=own_ms)
     return record, split_records, whole
+
+
+def _anderson_levels(torch, bt, bk):
+    """[plane-level] on the pbicgstab@anderson128 SGS pair from host CSR
+    (const mode with a per-row D): every level of L and U bit-equal to
+    plain on both routes, f32 (timed in turns) and widened to f64.
+    Returns the f32 means (ms, direct_ms, bound_ms)."""
+    st, gen_s, setup_s = _colored_host_setup(
+        torch, bt, ANDERSON_128, torch.float32, "BICGSTAB",
+        "SYMMETRIC_GAUSS_SEIDEL", stencil=True)
+    L32, U32 = st.M.L_block, st.M.U_block
+    if not (L32.is_const and L32.dinv_rows is not None):
+        raise RuntimeError("the Anderson pair is not const with a per-row D")
+    out = None
+    for dt in (torch.float32, torch.float64):
+        L, U = (L32, U32) if dt == torch.float32 else (
+            _widen(L32, torch), _widen(U32, torch))
+        g = torch.Generator(device="cuda").manual_seed(15)
+        y = torch.randn(L.n_rows, dtype=dt, device="cuda", generator=g)
+        x = torch.randn(L.n_rows, dtype=dt, device="cuda", generator=g)
+        by = []
+        for B in (L, U):
+            _check_levels(torch, bk, f"{ANDERSON_128} {str(dt)[6:]}", B, y,
+                          x, range(len(B.levels)), timed=dt == torch.float32,
+                          tag="plane-level", by_level=by)
+        if dt == torch.float32:
+            out = {k: statistics.mean(t[j] for t in by)
+                   for j, k in enumerate(("ms", "direct_ms", "bound_ms"))}
+    print(f"[plane-level] {ANDERSON_128} (host CSR {gen_s:.2f} s, "
+          f"preprocessing {setup_s:.2f} s) f32 means over the levels: {out}")
+    del st, L32, U32
+    torch.cuda.empty_cache()
+    return out
 
 
 def _plane_split(torch, bk, L32, U32):
@@ -3191,6 +3338,7 @@ def phase_slice5b_rows(torch, bt, setup, setup_s):
     1e-8 on the same route on the CPU and on the card, equal counts.
     Returns the plane level's launches in the fdm:2048 row."""
     import math
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
     from basic_iterative_solvers_tpu_torch.solvers import make_method
     out = {}
     rows = [("pcg_ilu0@fdm2048", FDM_5B, 1200, lambda: (setup, setup_s))]
@@ -3224,6 +3372,7 @@ def phase_slice5b_rows(torch, bt, setup, setup_s):
                 raise RuntimeError(f"{name}: not const mode with a per-row "
                                    "D")
         solver = make_method(st)
+        picked = _picked_routes(bk, 4, L, U)
         bt.solve(st, method=solver)                       # warm-up solve
         _row_counts(bt, reset=True)
         res = bt.solve(st, method=solver)
@@ -3236,16 +3385,36 @@ def phase_slice5b_rows(torch, bt, setup, setup_s):
               f"ms/iter={ms:.5f} setup_s={s_s:.3f} peak_GB={peak_gb:.3f} "
               f"r0={res.residual_norms[0]:.6e} "
               f"final_explicit_f64={res.final_residual_norm:.6e} "
+              f"levels by the picker's route {picked} "
               f"launches={ {k: v for k, v in counts.items() if v} } "
               f"launches/iter={per_iter}")
         if not (res.iter_count == iters
                 and math.isfinite(res.final_residual_norm)
                 and bool(torch.isfinite(res.x_star).all())
                 and all(counts[k] == v for k, v in want.items())
+                and len(picked) == 1 and _all_on_route(counts, *picked)
                 and counts["super_solve_mega"] == 0):
             raise RuntimeError(f"slice-5b {name} failed its checks: "
                                f"{counts} against {want}")
         out[name] = counts
+        if name.startswith("pcg"):
+            # both routes in turns, every count set to 0 just before each
+            # solve and read just after
+            turns = {}
+            for route in ("direct", "line", "line", "direct"):
+                _row_counts(bt, reset=True)
+                with _on_route(route, L, U):
+                    r = bt.solve(st, method=solver)
+                c = _row_counts(bt)
+                if not (r.iter_count == iters and _all_on_route(c, route)
+                        and all(c[k] == v for k, v in want.items())):
+                    raise RuntimeError(f"{name} on the {route} route failed "
+                                       f"its checks: {c}")
+                turns.setdefault(route, []).append(
+                    1e3 * r.solve_seconds / r.iter_count)
+            print(f"[slice5b] {spec} f32 {name}: ms/iter in turns (direct, "
+                  f"line, line, direct): line={turns['line']} "
+                  f"direct={turns['direct']}")
         del st, solver, res, L, U
         torch.cuda.empty_cache()
 
@@ -3268,7 +3437,9 @@ def phase_slice5b_rows(torch, bt, setup, setup_s):
         raise RuntimeError("fdm:256 coloured CG + ILU(0): CPU and card "
                            "differ or did not converge")
     _check_history(g, c)
-    return out["pcg_ilu0@fdm2048"]["super_level_plane"]
+    fdm = out["pcg_ilu0@fdm2048"]
+    return fdm["super_level_plane"], {
+        rt: fdm[f"super_level_plane_{rt}"] for rt in ("line", "direct")}
 
 
 ANDERSON_128 = KERNEL_SPECS[2]
@@ -4402,14 +4573,16 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
     card, every level of L and U in each mode: const (the 128^3 GS pair),
     factor table (the 128^3 ILU(0) pair) and plane (the fdm:2048 ILU(0)
     pair from host CSR: L plane, U const with a per-row D), f32 and f64 (the
-    plane pair widened); each shard's launch bit-equal to its plain twin
-    on the same window, the shards' rows together bit-equal to the
-    single-device kernel's level.  Timed (f32, the last L level of each
-    mode): the 8 launches by device time (_device_ms), the single-device
-    level, the plain twins, the whole mesh level with its exchange, and the
-    whole L solve on the mesh and on one device beside
-    torch.triangular_solve's (`library`, measured earlier in this run).
-    Returns the const mode's record (the table's and plane's beside it)."""
+    plane pair widened); each shard's launch on each route of its mode
+    (_routes_of) bit-equal to its plain twin on the same window, the
+    shards' rows together bit-equal to the single-device kernel's level.
+    Timed (f32; the last L level of each mode and the fdm:2048 pair's U
+    levels): the 8 launches on both routes in turns by device time
+    (_in_turns), the single-device level, the plain twins, the whole mesh
+    level with its exchange, and the whole solve of the triangle on the
+    mesh and on one device, L's beside torch.triangular_solve's
+    (`library`, measured earlier in this run).  Returns the const mode's
+    record (every timed level's in by_mode)."""
     from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
     from basic_iterative_solvers_tpu_torch.parallel import make_mesh
@@ -4456,18 +4629,26 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                         for k, Bs in enumerate(MB.shards)]
                     owners = sum(1 for Bs in MB.shards
                                  if Bs.lines[li][1] > Bs.lines[li][0])
-                    # float64 has only the direct route
-                    forced = {rt: [w.clone() for w in wins] for rt in (
-                        () if not B.is_table else ("staged", "direct")
-                        if dt == torch.float32 else ("direct",))}
+                    # each route of the mode forced in turn (float64
+                    # factor-table levels have only the direct route)
+                    routes = _routes_of(B, item)
+                    forced = {rt: [w.clone() for w in wins] for rt in routes}
+                    kind = ("table" if B.is_table else "plane"
+                            if B.is_plane else "const")
                     before = getattr(counter, attr)
                     for k, Bs in enumerate(MB.shards):
                         bk.super_level_halo(Bs, li, ys[k], wins[k])
                     for rt, outs in forced.items():
-                        with _table_route(bk, rt):
+                        by_rt = getattr(counter, f"{kind}_{rt}_launches")
+                        with _on_route(rt, MB):
                             for k, Bs in enumerate(MB.shards):
                                 bk.super_level_halo(Bs, li, ys[k], outs[k])
                         before += owners
+                        if (getattr(counter, f"{kind}_{rt}_launches")
+                                != by_rt + owners):
+                            raise RuntimeError(f"[mesh-super-level] {mode} "
+                                               f"{rt} count did not grow by "
+                                               "one an owning shard")
                     torch.cuda.synchronize()
                     if getattr(counter, attr) != before + owners:
                         raise RuntimeError(f"[mesh-super-level] {mode} "
@@ -4493,30 +4674,30 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                             f"[mesh-super-level] {mode} {dt} {tri} level "
                             f"{li}: the shards differ from the single-device "
                             "kernel")
-                    timed = (dt == torch.float32 and tri == "L"
-                             and li == len(B.levels) - 1)
+                    # the last L level of each mode; the fdm:2048 pair's
+                    # U levels too (const with a per-row D)
+                    timed = dt == torch.float32 and (
+                        li == len(B.levels) - 1 if tri == "L"
+                        else mode == "plane")
                     if not timed:
                         continue
-                    ms = _device_ms(lambda: [
-                        bk.super_level_halo(Bs, li, ys[k], wins[k])
-                        for k, Bs in enumerate(MB.shards)], torch)
-                    routes = ""
-                    if B.is_table:
-                        def shards(rt):
-                            def run():
-                                with _table_route(bk, rt):
-                                    return [bk.super_level_halo(
-                                        Bs, li, ys[k], wins[k])
-                                        for k, Bs in enumerate(MB.shards)]
-                            return run
-                        turns = _in_turns(torch, {rt: shards(rt) for rt in
-                                                  ("staged", "direct")},
-                                          ("staged", "direct", "direct",
-                                           "staged"))
-                        shard_route = bk.table_route_for(
-                            B, li, item, MB.shards[0], y.device)
-                        routes = (f" (the shards' route {shard_route};"
-                                  f" both in turns: {turns})")
+
+                    def shards(rt):
+                        def run():
+                            with _on_route(rt, MB):
+                                return [bk.super_level_halo(
+                                    Bs, li, ys[k], wins[k])
+                                    for k, Bs in enumerate(MB.shards)]
+                        return run
+                    turns = _in_turns(torch, {rt: shards(rt)
+                                              for rt in routes},
+                                      ("direct", routes[0], routes[0],
+                                       "direct"))
+                    shard_route = bk.level_route_for(
+                        B, li, item, MB.shards[0], y.device)
+                    ms = min(turns[shard_route])
+                    routes_text = (f" (the shards' route {shard_route};"
+                                   f" both in turns: {turns})")
                     xs = x.clone()
                     single_ms = _device_ms(
                         lambda: bk.super_level(B, li, y, xs), torch)
@@ -4539,38 +4720,43 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                     work = (_plane_level_work(B, li, item) if mode == "plane"
                             else _level_work(B, li, item))
                     bound = _bound(*_mesh_level_work(MB, li, item, work))
-                    print(f"[mesh-super-level] {spec} f32 {mode} L level {li}"
-                          f" (superblock {B.levels[li][0]}, "
+                    lib = library[mode] if tri == "L" else None
+                    print(f"[mesh-super-level] {spec} f32 {_mode(B)} {tri} "
+                          f"level {li} (superblock {B.levels[li][0]}, "
                           f"{len(B.levels[li][1])} cross groups) rows/shard="
                           f"{R} halo={H}: 8 shard launches ms={ms:.4f}"
-                          f"{routes} "
+                          f"{routes_text} "
                           f"(single-device level {single_ms:.4f}; plain "
                           f"twins {plain_ms:.4f}; the whole mesh level with "
                           f"its exchange {call_ms:.4f}) bound_ms="
                           f"{bound['bound_ms']:.5f} ({bound['bound_by']}); "
-                          f"whole L solve: mesh {solve_mesh_ms:.4f}, one "
-                          f"device {solve_ms:.4f}, torch.triangular_solve "
-                          f"{library[mode]:.4f} (measured above)")
-                    records[mode] = {
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          f"whole {tri} solve: mesh {solve_mesh_ms:.4f}, one "
+                          f"device {solve_ms:.4f}"
+                          + (f", torch.triangular_solve {lib:.4f} (measured "
+                             "above)" if lib is not None else ""))
+                    key = mode if tri == "L" else f"{_mode(B)} U level {li}"
+                    records[key] = {
+                        "max_abs_err": err, "ms": ms,
+                        "direct_ms": min(turns["direct"]),
+                        "plain_ms": plain_ms,
                         "library_ms": None, "single_ms": single_ms,
                         "call_ms": call_ms, "solve_mesh_ms": solve_mesh_ms,
                         "solve_ms": solve_ms,
-                        "triangular_solve_ms": library[mode], **bound}
+                        "triangular_solve_ms": lib, **bound}
                 print(f"[mesh-super-level] {spec} {str(dt)[6:]} {tri} "
                       f"({_mode(B)}, {len(B.levels)} levels) rows/shard={R} "
                       f"halo={H}: every shard bit-equal to its plain twin "
                       f"(max_abs_err {err:.1e}), the 8 shards bit-equal to "
                       "the single-device kernel"
-                      + ("; the staged and direct routes' shards "
-                         "bit-equal to them" if B.is_table else ""))
+                      + f"; the {' and '.join(routes)} routes' shards "
+                      "bit-equal to them")
                 del MB
             del L, U
             torch.cuda.empty_cache()
     rec = dict(records["const"])
     rec["by_mode"] = {m: {k: records[m][k] for k in
-                          ("ms", "single_ms", "plain_ms", "call_ms",
-                           "bound_ms", "solve_mesh_ms", "solve_ms",
+                          ("ms", "direct_ms", "single_ms", "plain_ms",
+                           "call_ms", "bound_ms", "solve_mesh_ms", "solve_ms",
                            "triangular_solve_ms")} for m in records}
     return rec
 
@@ -4592,8 +4778,12 @@ def phase_slice8b(torch, bt, setup5b):
     SLICE8B_ROWS' iteration counts (a quarter of the bench's: the mesh
     rows are host work).  Single-device and mesh in turns (single, mesh,
     mesh, single), each after a warm-up solve, every count set to 0 just
-    before the timed solve and read just after: ms/iter, #9's launches,
-    the mesh's exchanges and bytes an iteration, peak memory, and the
+    before the timed solve and read just after (pcg_ilu0@fdm2048 also on
+    the direct route: the line route, the picker's, and the direct route
+    on both, in turns): ms/iter, #9's launches by mode and route (the
+    plane and const levels all on the forced route or on the one the
+    picker names), the mesh's exchanges and bytes an iteration, peak
+    memory, and the
     mesh's history against the single-device one (the CG rows' first ten
     residuals within 1e-4: f32, the psum sums the dots per shard).  Then
     f64 CG + SGS at 128^3 to 1e-8·||r0|| on the mesh and on one device:
@@ -4612,9 +4802,12 @@ def phase_slice8b(torch, bt, setup5b):
     halo = bk.super_level_halo
     modes = {"super_level_halo": "launches",
              "super_level_halo_table": "table_launches",
-             "super_level_halo_table_staged": "table_staged_launches",
-             "super_level_halo_table_direct": "table_direct_launches",
-             "super_level_halo_plane": "plane_launches"}
+             "super_level_halo_plane": "plane_launches",
+             **{f"super_level_halo_{k}_{rt}": f"{k}_{rt}_launches"
+                for k, rts in (("table", ("staged", "direct")),
+                               ("plane", ("line", "direct")),
+                               ("const", ("line", "direct")))
+                for rt in rts}}
 
     def counts(reset=False):
         out = _row_counts(bt, reset=reset)
@@ -4660,18 +4853,36 @@ def phase_slice8b(torch, bt, setup5b):
                 1 for Bs in B8.shards for l0, l1 in Bs.lines if l1 > l0)
         applies = 2 if name.startswith("pbicgstab") else 1
         m1, m8 = make_method(s1), make_method(s8)
+        picked = {"single": _picked_routes(bk, 4, s1.M.L_block,
+                                           s1.M.U_block),
+                  "mesh": _picked_routes(bk, 4, L8, U8)}
         bt.solve(s1, method=m1)                              # warm-up solves
         bt.solve(dataclasses.replace(s8, config=dataclasses.replace(
             s8.config, max_iters=10)))
-        ms = {"single": [], "mesh": []}
+        # the fdm:2048 row also on the direct route: the four in turns
+        order = (("single", "mesh", "mesh direct", "single direct",
+                  "single direct", "mesh direct", "mesh", "single")
+                 if name == "pcg_ilu0@fdm2048" else
+                 ("single", "mesh", "mesh", "single"))
+        ms = {which: [] for which in order}
         hist = {}
-        for which in ("single", "mesh", "mesh", "single"):
-            setup, method = (s8, m8) if which == "mesh" else (s1, m1)
+        for which in order:
+            mesh_run = which.startswith("mesh")
+            setup, method = (s8, m8) if mesh_run else (s1, m1)
+            route = "direct" if which.endswith("direct") else None
+            blocks = ((L8, U8) if mesh_run else (s1.M.L_block, s1.M.U_block))
             torch.cuda.reset_peak_memory_stats()
             counts(reset=True)
             mesh.reset_counts()
-            res = bt.solve(setup, method=method)
+            with (_on_route(route, *blocks) if route
+                  else contextlib.nullcontext()):
+                res = bt.solve(setup, method=method)
             got = counts()
+            # plane and const levels all on the forced route, or on the
+            # one the picker names
+            kind = "mesh" if mesh_run else "single"
+            want = route or (next(iter(picked[kind]))
+                             if len(picked[kind]) == 1 else None)
             exch = dict(mesh.counts)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             it = max(1, res.iter_count)
@@ -4681,7 +4892,7 @@ def phase_slice8b(torch, bt, setup5b):
                   and math.isfinite(res.final_residual_norm)
                   and bool(torch.isfinite(res.x_star).all()))
             n_applies = applies * iters + 1
-            if which == "mesh":
+            if mesh_run:
                 ok = ok and all(got[k] == v * n_applies
                                 for k, v in per_apply.items())
                 ok = ok and (got["super_level_halo_table_staged"]
@@ -4690,11 +4901,16 @@ def phase_slice8b(torch, bt, setup5b):
                 ok = ok and not any(got[k] for k in ("super_level",
                                                      "super_level_table",
                                                      "super_level_plane"))
-                launches.setdefault(name, {k: got[k] for k in (
-                    *per_apply, "super_level_halo_table_staged",
-                    "super_level_halo_table_direct") if got[k]})
+                if picked[kind] or route:
+                    ok = ok and want is not None and _all_on_route(
+                        got, want, "super_level_halo")
+                if route is None:
+                    launches.setdefault(name, {
+                        k: got[k] for k in (*per_apply, *modes) if got[k]})
             else:
                 ok = ok and not any(got[k] for k in modes)
+                if picked[kind] or route:
+                    ok = ok and want is not None and _all_on_route(got, want)
             per = {k: round(v / it, 3) for k, v in got.items() if v}
             print(f"[slice8b] {name} f32 {which}: iters={res.iter_count} "
                   f"ms/iter={ms[which][-1]:.5f} r0={res.residual_norms[0]:.6e}"
@@ -4703,7 +4919,8 @@ def phase_slice8b(torch, bt, setup5b):
                   + (f" exchanges/iter: ppermute={exch['ppermute'] / it:.3f}"
                      f" ({exch['ppermute_bytes'] / it / 1e6:.4f} MB) psum="
                      f"{exch['psum'] / it:.3f} ({exch['psum_bytes'] / it:.1f}"
-                     " B)" if which == "mesh" else ""))
+                     " B)" if mesh_run else "")
+                  + f" levels by the picker's route {picked[kind]}")
             if not ok:
                 raise RuntimeError(f"[slice8b] {name} {which} failed its "
                                    f"checks: {got} against {per_apply} x "
@@ -4803,7 +5020,7 @@ def main():
     lap("super_level_vs_plain")
     phase_cpu_vs_card_slice3(torch, bt)
     lap("cpu_vs_card_slice3")
-    super_launches, gs_launches = phase_slice3_path(torch, bt)
+    super_launches, super_routes, gs_launches = phase_slice3_path(torch, bt)
     lap("slice3_path")
     table_record, whole_l = phase_ilu0_level_vs_plain(torch, bt)
     lap("ilu0_level_vs_plain")
@@ -4832,7 +5049,8 @@ def main():
     del sband, band
     setup5b, _gen5b, setup5b_s = phase_slice5b_build(torch, bt)
     lap("slice5b_build")
-    plane_launches = phase_slice5b_rows(torch, bt, setup5b, setup5b_s)
+    plane_launches, plane_routes = phase_slice5b_rows(torch, bt, setup5b,
+                                                      setup5b_s)
     lap("slice5b_rows")
     plane_record, _split5b, whole5b = phase_plane_level_vs_plain(
         torch, bt, setup5b)
@@ -4908,7 +5126,8 @@ def main():
         "name": "super_level", "route": "cuda",
         "source": src + "block_trisolve.cu",
         "replaces": "basic_iterative_solvers_tpu/ops/block_trisolve.py:1611",
-        "launches": super_launches, **level_record})
+        "launches": super_launches, "launches_by_route": super_routes,
+        **level_record})
     # slice 4's kernels: `launches` is the count of the row that is the
     # kernel's main path (pcg_ilu0 at 128^3; the split 384^3 row for the
     # split pair), and `launches_by_row` each row's own count
@@ -4920,10 +5139,12 @@ def main():
         "lane_ell_spmv": slice5_launches["lane_ell_spmv_by_route"],
         "lane_ell_spmv_bf16": bf16_launches["lane_ell_spmv_bf16_by_route"],
         "lane_ell_spmv_halo": mesh_launches["lane_ell_spmv_halo_by_route"],
-        "super_level_halo": {rt: sum(
-            c.get(f"super_level_halo_table_{rt}", 0)
+        "super_level_halo": {f"{k}_{rt}": sum(
+            c.get(f"super_level_halo_{k}_{rt}", 0)
             for c in mesh_super_launches.values())
-            for rt in ("staged", "direct")}}
+            for k, rts in (("table", ("staged", "direct")),
+                           ("plane", ("line", "direct")),
+                           ("const", ("line", "direct"))) for rt in rts}}
     for kernel, line, main_row, record in (
             ("super_level_table", 1611, "pcg_ilu0", table_record),
             ("super_acc", 1999, "pcg_ilu0@384 split",
@@ -4956,7 +5177,8 @@ def main():
                if kernel in by_route else {}),
             **record})
     for kernel, line, launched, record in (
-            ("super_level_plane", 1611, plane_launches, plane_record),
+            ("super_level_plane", 1611, plane_launches,
+             dict(plane_record, launches_by_route=plane_routes)),
             ("super_solve_mega", 2171, mega_launches, mega_record)):
         kernels.append({
             "name": kernel, "route": "cuda",
@@ -5007,7 +5229,7 @@ def main():
         "launches": mesh_super_launches["pcg"]["super_level_halo"],
         "launches_by_row": {row: sum(v for k, v in c.items()
                                      if not k.endswith(("_staged",
-                                                        "_direct")))
+                                                        "_direct", "_line")))
                             for row, c in mesh_super_launches.items()},
         "launches_by_route": by_route["super_level_halo"],
         **mesh_level_record})

@@ -461,6 +461,118 @@ def test_mesh_super_level_equals_twin_and_single_device(card, spec, n_dev,
             assert torch.equal(torch.cat(owned)[:n], single), li
 
 
+def _launch_on(bk, B, Bs, li, route, y, x):
+    """One launch of level li (whole, or shard Bs's part) with `route`
+    forced through the route cache, the cached route restored after."""
+    cache = B._args if Bs is None else Bs._args
+    key = ("route", li, x.element_size(), x.device.index)
+    saved = cache.get(key)
+    cache[key] = route
+    try:
+        if Bs is None:
+            return bk.super_level(B, li, y, x)
+        return bk.super_level_halo(Bs, li, y, x)
+    finally:
+        if saved is None:
+            del cache[key]
+        else:
+            cache[key] = saved
+
+
+LINE_PAIRS = [("fdm:32", "plane"), ("hpcg:16x12x8", "plane"),
+              ("hpcg:16x16x16", "const"),
+              ("anderson:Lx=9,Ly=8,Lz=6,t=1.0,ranpot=4.0,seed=1", "const")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("spec,mode", LINE_PAIRS)
+def test_line_route_equals_direct_and_plain(card, spec, mode, dt):
+    """#9's line route (plane mode, const mode with a constant or a
+    per-row D): every level of L and U, on one device and on every shard
+    of a 4-shard mesh, bit-equal to the direct route and to the plain
+    level (the shard's plain twin), each route forced through the route
+    cache; the picker names the direct route for launches this small;
+    each launch is counted in its mode and route's counter."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.parallel import make_mesh
+    L, U = _mesh_pair(card, spec, mode, dt)
+    assert L.is_plane == (mode == "plane")
+    mesh = make_mesh(4, device=card)
+    g = np.random.default_rng(23)
+    for B in (L, U):
+        kind = "plane" if B.is_plane else "const"
+        MB = bk.shard_superblock(B, mesh)
+        n, R, H = B.n_rows, MB.rows, MB.halo
+        pad = 4 * R - n
+        for li in range(len(B.levels)):
+            y = torch.from_numpy(g.standard_normal(n)).to(card, dt)
+            x = torch.from_numpy(g.standard_normal(n)).to(card, dt)
+            xw = torch.nn.functional.pad(x, (H, pad + H))
+            yw = torch.nn.functional.pad(y, (0, pad))
+            launches = [(None, y, x, bk.super_level,
+                         bk.super_level_plain(B, li, y, x.clone()))]
+            for k, Bs in enumerate(MB.shards):
+                if Bs.lines[li][1] > Bs.lines[li][0]:
+                    yk = yw[k * R:(k + 1) * R].clone()
+                    win = xw[k * R:(k + 1) * R + 2 * H].clone()
+                    launches.append((Bs, yk, win, bk.super_level_halo,
+                                     bk.super_level_halo_plain(
+                                         Bs, li, yk, win.clone())))
+            for Bs, yk, xk, counter, ref in launches:
+                # launches this small leave the card idle: the picker names
+                # the direct route; both run when forced
+                assert bk.level_route_for(B, li, xk.element_size(), Bs,
+                                          card) == "direct"
+                outs = {}
+                for route in ("line", "direct"):
+                    attr = f"{kind}_{route}_launches"
+                    before = getattr(counter, attr)
+                    outs[route] = _launch_on(bk, B, Bs, li, route, yk,
+                                             xk.clone())
+                    assert getattr(counter, attr) == before + 1
+                torch.cuda.synchronize()
+                assert torch.equal(outs["line"], ref), (B.upper, li)
+                assert torch.equal(outs["line"], outs["direct"])
+
+
+@pytest.mark.cuda
+def test_solves_launch_the_line_route(card):
+    """CG + SGS on HPCG 32^3 (const levels) and CG + ILU(0) on fdm:64 from
+    host CSR (L plane, U const with a per-row D), float64, fused: every
+    plane and const level launched on the line route, none on the direct
+    route; the same counts and histories with the direct route forced."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    for spec, precond in (("hpcg:32x32x32", "SYMMETRIC_GAUSS_SEIDEL"),
+                          ("fdm:64", "ILU0")):
+        cfg = bt.SolverConfig(
+            method=bt.SolverType.CONJUGATE_GRADIENT,
+            preconditioner=bt.PrecondType[precond], dtype=torch.float64,
+            gs_mode="colored", tolerance=1e-10, max_iters=500,
+            color_spec=bt.generators.color_spec_for_source(spec))
+        setup = bt.preprocessing(bt.generators.from_source(spec), cfg,
+                                 device=card)
+        res = {}
+        idx = torch.cuda.current_device()
+        for route in ("line", "direct"):
+            for B in (setup.M.L_block, setup.M.U_block):
+                for li in range(len(B.levels)):
+                    B._args[("route", li, 8, idx)] = route
+            for kind in ("const", "plane"):
+                for rt in ("line", "direct"):
+                    setattr(bk.super_level, f"{kind}_{rt}_launches", 0)
+            res[route] = bt.solve(setup)
+            counts = {rt: sum(getattr(bk.super_level, f"{k}_{rt}_launches")
+                              for k in ("const", "plane"))
+                      for rt in ("line", "direct")}
+            other = "direct" if route == "line" else "line"
+            assert counts[route] > 0 and counts[other] == 0, (spec, counts)
+        assert res["line"].converged
+        assert res["line"].iter_count == res["direct"].iter_count
+        np.testing.assert_allclose(res["line"].residual_norms,
+                                   res["direct"].residual_norms, rtol=1e-12)
+
+
 @pytest.mark.cuda
 def test_mesh_superblock_solves_on_the_card(card):
     """CG + SGS (const) and CG + ILU(0) (factor table) on an 8-shard mesh
@@ -745,12 +857,12 @@ def _table_pair(card, spec, dt):
 
 
 def _on_route(bk, route, fn, *args):
-    saved = bk.table_route_for
-    bk.table_route_for = lambda *a, **k: route
+    saved = bk.level_route_for
+    bk.level_route_for = lambda *a, **k: route
     try:
         return fn(*args)
     finally:
-        bk.table_route_for = saved
+        bk.level_route_for = saved
 
 
 def _direct_level(bk, fn, *args):
@@ -779,7 +891,7 @@ def test_table_level_staged_equals_plain_and_direct(card, spec, dt, levels):
         lis = (range(len(B.levels)) if levels == "all"
                else (len(B.levels) - 1,))
         for li in lis:
-            assert bk.table_route_for(B, li, x.element_size()) == route
+            assert bk.level_route_for(B, li, x.element_size()) == route
             attr = f"table_{route}_launches"
             before = getattr(bk.super_level, attr)
             xs, xd, xp = x.clone(), x.clone(), x.clone()
@@ -799,7 +911,7 @@ def test_table_level_staged_equals_plain_and_direct(card, spec, dt, levels):
 def test_table_level_staged_on_a_mesh(card, dt):
     """#9's mesh form in factor-table mode on a 4-shard mesh: each shard's
     launch on the staged route in float32 (forced: these shards' grids are
-    too small for table_route_for to take it; float64 has only the direct
+    too small for level_route_for to take it; float64 has only the direct
     route) bit-equal to its plain twin and to the direct route, the launch
     counted in its route's counter."""
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk

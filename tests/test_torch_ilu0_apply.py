@@ -286,7 +286,7 @@ def test_launch_table_reproduces_plain_level(spec):
 
 
 def test_table_route_kept_with_the_launch_table():
-    """table_route_for works each factor-table level's route out once per
+    """level_route_for works each factor-table level's route out once per
     vector type and card and keeps it with the launch tables, the whole
     level's on B and a mesh shard's on the shard: a kept route comes back
     without the kernel library (which this machine cannot build), and
@@ -301,10 +301,10 @@ def test_table_route_kept_with_the_launch_table():
     L._args[("route", 1, 4, 0)] = "staged"
     Bs._args[("route", 1, 4, 0)] = "direct"
     for _ in range(2):
-        assert tbt.table_route_for(L, 1, 4, device=card) == "staged"
-        assert tbt.table_route_for(L, 1, 4, Bs, card) == "direct"
-    assert tbt.table_route_for(L, 0, 8, device=card) == "direct"
+        assert tbt.level_route_for(L, 1, 4, device=card) == "staged"
+        assert tbt.level_route_for(L, 1, 4, Bs, card) == "direct"
+    assert tbt.level_route_for(L, 0, 8, device=card) == "direct"
     assert L._args[("route", 0, 8, 0)] == "direct"
     assert ("route", 0, 8, 0) not in Bs._args
-    assert tbt.table_route_for(L, 0, 8, Bs, card) == "direct"
+    assert tbt.level_route_for(L, 0, 8, Bs, card) == "direct"
     assert Bs._args[("route", 0, 8, 0)] == "direct"

@@ -181,6 +181,7 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "lane_ell_spmv_halo_padded_kernel": "spmv",
             "super_level_kernel": "sptrsv",
             "super_level_staged_kernel": "sptrsv",
+            "super_level_line_kernel": "sptrsv",
             "super_acc_kernel": "sptrsv",
             "super_parity_kernel": "sptrsv",
             "super_solve_mega_kernel": "sptrsv",
