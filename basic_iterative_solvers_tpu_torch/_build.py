@@ -94,6 +94,27 @@ class SuperLevelArgs(ctypes.Structure):
     ]
 
 
+#: the rank-space level's vec route: its largest group bucket
+#: (BIS_RV_MAX_GROUPS in csrc/block_trisolve.cu)
+RANK_VEC_GROUPS = 8
+
+
+class RankVecArgs(ctypes.Structure):
+    """ctypes mirror of `BisRankVecArgs` in csrc/block_trisolve.cu."""
+
+    _fields_ = [
+        ("M", ctypes.c_longlong),
+        ("c", ctypes.c_int),
+        ("n_groups", ctypes.c_int),
+        ("cpt", ctypes.c_int),
+        ("plane", ctypes.c_int * RANK_VEC_GROUPS),
+        ("src", ctypes.c_int * RANK_VEC_GROUPS),
+        ("base", ctypes.c_int * RANK_VEC_GROUPS),
+        ("nvec", ctypes.c_int * RANK_VEC_GROUPS),
+        ("shift", ctypes.c_int * RANK_VEC_GROUPS),
+    ]
+
+
 class DiaArgs(ctypes.Structure):
     """ctypes mirror of `BisDiaArgs` in csrc/sparse_spmv.cu."""
 
@@ -217,6 +238,16 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 5 + [
             i64] * 4 + [ptr] * 6
         fn.restype = i32
+        # #3's box route: kind, p0-p2, colour, zr, grid_x, grid_y; the
+        # shard form adds row0, rows, hneg, wlen
+        fn = getattr(lib, f"bis_stencil_gs_color_step_box_{dt}")
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 8 + [
+            ptr] * 6
+        fn.restype = i32
+        fn = getattr(lib, f"bis_stencil_gs_color_step_halo_box_{dt}")
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 8 + [
+            i64] * 4 + [ptr] * 6
+        fn.restype = i32
         fn = getattr(lib, f"bis_dia_spmv_{dt}")
         fn.argtypes = [i32, ctypes.POINTER(DiaArgs), ptr, ptr, ptr, ptr]
         fn.restype = i32
@@ -251,6 +282,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"bis_rank_level_{dt}")
         fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, ptr]
         fn.restype = i32
+        # the vec route: table, threads a block, y, x, vals, dinv, stream
+        fn = getattr(lib, f"bis_rank_level_vec_{dt}")
+        fn.argtypes = [i32, ctypes.POINTER(RankVecArgs), i32] + [ptr] * 5
+        fn.restype = i32
     level = ctypes.POINTER(SuperLevelArgs)
     lib.bis_super_level_staged_f32.argtypes = [i32, level] + [ptr] * 5
     lib.bis_super_level_staged_f32.restype = i32
@@ -269,7 +304,9 @@ def load_library() -> ctypes.CDLL:
             (lib.bis_super_level_args_size, SuperLevelArgs,
              "BisSuperLevelArgs in csrc/block_trisolve.cu"),
             (lib.bis_dia_args_size, DiaArgs,
-             "BisDiaArgs in csrc/sparse_spmv.cu")):
+             "BisDiaArgs in csrc/sparse_spmv.cu"),
+            (lib.bis_rank_vec_args_size, RankVecArgs,
+             "BisRankVecArgs in csrc/block_trisolve.cu")):
         size_fn.argtypes = []
         size_fn.restype = ctypes.c_int
         if size_fn() != ctypes.sizeof(mirror):
@@ -297,6 +334,21 @@ def load_library() -> ctypes.CDLL:
     if tuple(v.value for v in limits) != (LINE_THREADS, LINE_SMEM_MAX):
         raise RuntimeError("ops/block_trisolve.LINE_THREADS/LINE_SMEM_MAX do "
                            "not match BIS_SL_LINE_* in csrc/block_trisolve.cu")
+    from .ops.block_trisolve import RANK_VEC_THREADS, RANK_VEC_WIN
+    rv = [i32() for _ in range(3)]
+    lib.bis_rank_vec_limits.argtypes = [ctypes.POINTER(i32)] * 3
+    lib.bis_rank_vec_limits.restype = i32
+    lib.bis_rank_vec_limits(*[ctypes.byref(v) for v in rv])
+    if tuple(v.value for v in rv) != (RANK_VEC_GROUPS, RANK_VEC_WIN,
+                                      RANK_VEC_THREADS):
+        raise RuntimeError("RANK_VEC_GROUPS / ops/block_trisolve.RANK_VEC_* "
+                           "do not match BIS_RV_* in csrc/block_trisolve.cu")
+    from .stencil_op import GS_BOX_FLAT_RESIDENT
+    lib.bis_stencil_gs_box_flat_blocks.argtypes = []
+    lib.bis_stencil_gs_box_flat_blocks.restype = i32
+    if lib.bis_stencil_gs_box_flat_blocks() != GS_BOX_FLAT_RESIDENT:
+        raise RuntimeError("stencil_op.GS_BOX_FLAT_RESIDENT does not match "
+                           "BIS_GS_BOX_FLAT_BLOCKS in csrc/stencil_spmv.cu")
     box = [i32() for _ in range(4)]
     lib.bis_stencil_box_shape(*[ctypes.byref(v) for v in box])
     if tuple(v.value for v in box) != (BOX_THREADS, BOX_STAGES,

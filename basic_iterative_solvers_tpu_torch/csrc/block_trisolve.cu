@@ -5,7 +5,8 @@
 // level or split into an acc step and one step per x-parity; a whole
 // const-mode solve in one cooperative launch (super_solve_mega_kernel);
 // and the rank-space level of host-CSR factors under a mod or grid
-// colouring (rank_level_kernel, below).
+// colouring (rank_level_kernel, the "scalar" route, and
+// rank_level_vec_kernel, the "vec" route, below).
 //
 // Replaces the Pallas kernels of basic_iterative_solvers_tpu/ops/
 // block_trisolve.py: _super_level_pallas in its const, plane, packed and
@@ -152,6 +153,9 @@
 //
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after its launch.
+
+#include <cstdint>
+#include <cstring>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -690,7 +694,9 @@ super_parity_kernel(const __grid_constant__ BisSuperLevelArgs a, int p,
 //               * dinv[c, t]
 //
 // over the level's groups (src, delta, plane), a small int64 table on the
-// card, in the order the builder sorted them.  One thread per slot; a
+// card, in the order the builder sorted them.  The "scalar" route (the
+// first port's, kept for levels the vec route below refuses and for its
+// A/B): one thread per slot; a
 // source slot outside [0, M) reads 0 where the plain version's roll wraps
 // (a wrapped slot always meets a zero value, so for finite x the two
 // agree bit for bit).  The TPU kernel reads three (TB, 128) windows per
@@ -716,6 +722,158 @@ rank_level_kernel(const T* y, T* x, const T* vals, const T* dinv,
         acc = sub_rn(acc, mul_rn(vals[plane * M + t], xv));
     }
     x[row] = mul_rn(acc, dinv[row]);
+}
+
+// ---------------------------------------------------------------------------
+// The rank-space level's "vec" route (rank_level_vec_kernel): the same
+// contract, bit for bit, for levels of at most BIS_RV_MAX_GROUPS groups.
+//
+// The scalar kernel above ran at ~2.4x its byte bound on band:8388608,2:
+// every thread loads its group's (src, delta, plane) triple from global
+// memory before the loads that depend on it, in a loop of runtime length,
+// with one 4- or 8-byte load per value.  Here:
+//   - the group table travels in the launch's __grid_constant__
+//     parameters (BisRankVecArgs): nothing per group is loaded;
+//   - the group loop is unrolled to the level's bucket (2, 4 or 8 groups,
+//     a template parameter; an unused group is a uniform skip);
+//   - a thread owns VEC = 16 / sizeof(T) consecutive slots a chunk (and
+//     `cpt` chunks, a block's chunks consecutive): y, dinv, each value
+//     plane and the x store are 16-byte loads and stores (M and the
+//     pointers 16-byte aligned: the wrapper's picker checks, the launch
+//     refuses otherwise);
+//   - x is read once a window: the host packs a source colour's groups
+//     (sorted by delta, as the JAX kernel's per-source windows) into
+//     windows of at most BIS_RV_WIN aligned vectors covering
+//     [t + delta_min, t + delta_max + VEC); a group reads its VEC values
+//     from lanes shift .. shift + VEC - 1 of the window in registers (the
+//     lane roll of the TPU kernel, one uniform compare a candidate shift).
+//     A vector of the window outside [0, M) is zeros, as the scalar
+//     kernel's masked reads (M is a multiple of VEC, so a vector lies
+//     wholly inside or outside).
+// Groups in the level's order, each product and difference rounded alone:
+// x equals the scalar kernel's bit for bit.
+//
+// Aliasing.  y may be x (blocked_sgs's U solve runs in place).  A level
+// reads y and writes x only at colour c's rows, each slot by the one
+// thread that owns it, y before x; it reads x elsewhere only at source
+// colours, which a proper colouring keeps apart from c (the launch refuses
+// src == c), so no x it reads is written during the launch: those reads,
+// and the value planes and dinv (never written), take the non-coherent
+// path (__ldg).  y and x carry no __restrict__, and y is read with a plain
+// load.
+// ---------------------------------------------------------------------------
+
+#define BIS_RV_MAX_GROUPS 8   // the largest bucket
+#define BIS_RV_WIN 3          // 16-byte vectors a window holds
+#define BIS_RV_THREADS 256    // the most threads a block
+
+// One level's launch table (ops/block_trisolve._rank_vec_args); keep the
+// field order in step with the ctypes mirror in _build.py.
+struct BisRankVecArgs {
+    long long M;                        // slots a colour block
+    int c;                              // the level's colour
+    int n_groups;
+    int cpt;                            // chunks of VEC slots a thread
+    int plane[BIS_RV_MAX_GROUPS];       // group g's value plane
+    int src[BIS_RV_MAX_GROUPS];         // >= 0: g opens a window on this
+                                        // colour; -1: g reads g - 1's
+    int base[BIS_RV_MAX_GROUPS];        // the window's first vector, in
+                                        // vectors from the chunk's slot t
+    int nvec[BIS_RV_MAX_GROUPS];        // its vectors, 1..BIS_RV_WIN
+    int shift[BIS_RV_MAX_GROUPS];       // the window lane of slot t's
+                                        // source: delta - VEC * base
+};
+
+template <typename T> struct BisRv;
+template <> struct BisRv<float> { using vec = float4; };
+template <> struct BisRv<double> { using vec = double2; };
+
+// VEC values at p (16-byte aligned): a plain load, or a non-coherent one
+template <typename T, int VEC>
+__device__ __forceinline__ void rv_load(const T* p, T (&v)[VEC]) {
+    const typename BisRv<T>::vec u =
+        *reinterpret_cast<const typename BisRv<T>::vec*>(p);
+    memcpy(v, &u, sizeof(u));
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void rv_ldg(const T* p, T (&v)[VEC]) {
+    const typename BisRv<T>::vec u =
+        __ldg(reinterpret_cast<const typename BisRv<T>::vec*>(p));
+    memcpy(v, &u, sizeof(u));
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void rv_store(T* p, const T (&v)[VEC]) {
+    typename BisRv<T>::vec u;
+    memcpy(&u, v, sizeof(u));
+    *reinterpret_cast<typename BisRv<T>::vec*>(p) = u;
+}
+
+template <typename T, int NG>
+__global__ void __launch_bounds__(BIS_RV_THREADS)
+rank_level_vec_kernel(const __grid_constant__ BisRankVecArgs a, const T* y,
+                      T* x, const T* __restrict__ vals,
+                      const T* __restrict__ dinv) {
+    constexpr int VEC = 16 / sizeof(T);
+    constexpr int W = BIS_RV_WIN * VEC;
+    const long long chunks = a.M / VEC;
+    const long long row0 = (long long)a.c * a.M;
+    const long long first =
+        (long long)blockIdx.x * a.cpt * blockDim.x + threadIdx.x;
+#pragma unroll 1
+    for (int j = 0; j < a.cpt; ++j) {
+        const long long k = first + (long long)j * blockDim.x;
+        if (k >= chunks) break;
+        const long long t = k * VEC;
+        T acc[VEC];
+        rv_load<T, VEC>(y + row0 + t, acc);     // y may be x: a plain load
+        T v[NG][VEC];
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+            if (g < a.n_groups)
+                rv_ldg<T, VEC>(vals + (long long)a.plane[g] * a.M + t, v[g]);
+        T w[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) w[e] = T(0);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+            if (g >= a.n_groups) continue;
+            if (a.src[g] >= 0) {            // a new window
+                const T* xs = x + (long long)a.src[g] * a.M;
+#pragma unroll
+                for (int q = 0; q < BIS_RV_WIN; ++q) {
+                    const long long s = t + (long long)(a.base[g] + q) * VEC;
+                    T u[VEC];
+                    if (q < a.nvec[g] && s >= 0 && s < a.M) {
+                        rv_ldg<T, VEC>(xs + s, u);
+                    } else {
+#pragma unroll
+                        for (int r = 0; r < VEC; ++r) u[r] = T(0);
+                    }
+#pragma unroll
+                    for (int r = 0; r < VEC; ++r) w[q * VEC + r] = u[r];
+                }
+            }
+            T sh[VEC];
+#pragma unroll
+            for (int r = 0; r < VEC; ++r) sh[r] = w[r];
+#pragma unroll
+            for (int s = 1; s <= W - VEC; ++s)
+                if (a.shift[g] == s) {
+#pragma unroll
+                    for (int r = 0; r < VEC; ++r) sh[r] = w[s + r];
+                }
+#pragma unroll
+            for (int r = 0; r < VEC; ++r)
+                acc[r] = sub_rn(acc[r], mul_rn(v[g][r], sh[r]));
+        }
+        T d[VEC];
+        rv_ldg<T, VEC>(dinv + row0 + t, d);
+#pragma unroll
+        for (int r = 0; r < VEC; ++r) acc[r] = mul_rn(acc[r], d[r]);
+        rv_store<T, VEC>(x + row0 + t, acc);
+    }
 }
 
 static cudaError_t set_device(int device) { return cudaSetDevice(device); }
@@ -881,6 +1039,55 @@ static int launch_rank_level(int device, const T* y, T* x, const T* vals,
     return (int)cudaGetLastError();
 }
 
+static bool rv_aligned(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The vec route's launch: `threads` a block (a multiple of 32, at most
+// BIS_RV_THREADS), a->cpt chunks a thread.  Refuses a table or operands
+// it cannot take: more groups than the largest bucket, M or a pointer not
+// 16-byte aligned, a window longer than BIS_RV_WIN or a shift past its
+// end, a first group that opens no window, a source colour equal to c.
+template <typename T>
+static int launch_rank_level_vec(int device, const BisRankVecArgs* a,
+                                 int threads, const T* y, T* x,
+                                 const T* vals, const T* dinv,
+                                 cudaStream_t stream) {
+    constexpr int VEC = 16 / sizeof(T);
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    const int n = a->n_groups;
+    if (n < 1 || n > BIS_RV_MAX_GROUPS || a->M < VEC || a->M % VEC ||
+        a->cpt < 1 || threads < 32 || threads > BIS_RV_THREADS ||
+        threads % 32 || a->src[0] < 0 || !rv_aligned(y) || !rv_aligned(x) ||
+        !rv_aligned(vals) || !rv_aligned(dinv))
+        return (int)cudaErrorInvalidValue;
+    int nvec = 0;
+    for (int g = 0; g < n; ++g) {
+        if (a->src[g] >= 0) {
+            nvec = a->nvec[g];
+            if (a->src[g] == a->c || nvec < 1 || nvec > BIS_RV_WIN)
+                return (int)cudaErrorInvalidValue;
+        }
+        if (a->plane[g] < 0 || a->shift[g] < 0 ||
+            a->shift[g] > (nvec - 1) * VEC)
+            return (int)cudaErrorInvalidValue;
+    }
+    const long long per_block = (long long)threads * a->cpt;
+    const long long grid = (a->M / VEC + per_block - 1) / per_block;
+    if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
+    if (n <= 2)
+        rank_level_vec_kernel<T, 2><<<(unsigned)grid, threads, 0, stream>>>(
+            *a, y, x, vals, dinv);
+    else if (n <= 4)
+        rank_level_vec_kernel<T, 4><<<(unsigned)grid, threads, 0, stream>>>(
+            *a, y, x, vals, dinv);
+    else
+        rank_level_vec_kernel<T, 8><<<(unsigned)grid, threads, 0, stream>>>(
+            *a, y, x, vals, dinv);
+    return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // The mode (a->mode) picks the pointers read: table and tdinv (NULL for L)
@@ -1023,6 +1230,30 @@ int bis_rank_level_f64(int device, const double* y, double* x,
     return launch_rank_level<double>(device, y, x, vals, dinv, groups,
                                      n_groups, M, c, (cudaStream_t)stream);
 }
+
+// The rank-space level's vec route: bis_rank_level_vec_<type>.
+int bis_rank_level_vec_f32(int device, const BisRankVecArgs* a, int threads,
+                           const float* y, float* x, const float* vals,
+                           const float* dinv, void* stream) {
+    return launch_rank_level_vec<float>(device, a, threads, y, x, vals, dinv,
+                                        (cudaStream_t)stream);
+}
+
+int bis_rank_level_vec_f64(int device, const BisRankVecArgs* a, int threads,
+                           const double* y, double* x, const double* vals,
+                           const double* dinv, void* stream) {
+    return launch_rank_level_vec<double>(device, a, threads, y, x, vals,
+                                         dinv, (cudaStream_t)stream);
+}
+
+int bis_rank_vec_limits(int* max_groups, int* win, int* threads) {
+    *max_groups = BIS_RV_MAX_GROUPS;
+    *win = BIS_RV_WIN;
+    *threads = BIS_RV_THREADS;
+    return 0;
+}
+
+int bis_rank_vec_args_size(void) { return (int)sizeof(BisRankVecArgs); }
 
 int bis_super_level_args_size(void) { return (int)sizeof(BisSuperLevelArgs); }
 

@@ -45,8 +45,11 @@
 // x through, so the step reads x (rhs, dinv on colour c) and writes x'.
 // It is out of place: x' never aliases x.  The epilogue rounds the
 // difference, the product and the sum one at a time, as the plain
-// version's separate PyTorch operations do.  Same bound as the SpMV: the
-// leg loop, at 1/n_colours of the rows.
+// version's separate PyTorch operations do.  Two routes, as the SpMV's
+// (stencil_op.gs_route_for): "legs" (the first port's leg loop, any legs
+// and colourings) and "box" (#1's box pieces with the step's epilogue, for
+// legs within the box under a parity or grid colouring; see "#3 on the
+// box route" below).
 //
 // A dense diagonal stored in bfloat16 (the JAX package's --matrix-dtype
 // bfloat16 on a stencil with one, e.g. Anderson's random potential): every
@@ -364,6 +367,7 @@ stencil_spmv_stream_kernel(const __grid_constant__ BisStencilArgs a, int zc,
 #define BIS_BOX_MIN_BLOCKS 2         // #1's resident blocks an SM
 #define BIS_BOX_STREAM_MIN_BLOCKS 3  // #2's in f32 (where its ring fits
                                      // three times; f64: two)
+#define BIS_GS_BOX_FLAT_BLOCKS 4     // #3's on a flat plane (LINES = 1)
 
 // #2's box blocks resident an SM: three in f32, two (#1's) in f64
 template <typename T> struct BisStreamBoxBlocks {
@@ -432,11 +436,12 @@ __device__ __forceinline__ void box_fetch_line(const T* src, long long e,
 // 0..30 (right) from the lanes beside them, which hold the chunks beside
 // this one (a warp's chunks are consecutive; at a line's end the
 // neighbour lies outside the grid and is a zero).  Every lane calls it.
-template <typename T, int VEC>
+template <typename T, int VEC, int LINES = 3>
 __device__ __forceinline__ void box_assemble(bool has_l, bool has_r, int lane,
                                              T (&P)[3][VEC + 2]) {
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
+        if (LINES == 1 && dy != 1) continue;  // a flat plane: one line
         const T l = __shfl_up_sync(0xffffffffu, P[dy][VEC], 1);
         const T r = __shfl_down_sync(0xffffffffu, P[dy][1], 1);
         if (lane != 0) P[dy][0] = has_l ? l : T(0);
@@ -821,6 +826,179 @@ stencil_gs_color_step_kernel(const __grid_constant__ BisStencilArgs a,
     }
 }
 
+// ---------------------------------------------------------------------------
+// #3 on the box route (stencil_gs_color_step_box_kernel), one kernel for
+// the single-device step and the shard form.
+//
+// The leg-loop kernels above run PR 3's stencil_row: runtime groups and
+// legs, six bounds tests a leg, one scalar row a thread, and color_of per
+// row (three % a row for a grid colouring): 2.9-3.1x the byte bound on
+// fdm:2048.  The box route takes #1's box pieces (box_chunk,
+// box_fetch_line / box_assemble, box_rows, box_march) and adds the step's
+// epilogue:
+//   - a thread owns VEC = 16 / sizeof(T) rows of a line and marches a run
+//     of zr planes with its three planes in registers (a 2-D operator in
+//     box_form: the march runs along y); A x of the VEC rows from
+//     box_rows, the dense diagonal added as box_store adds it;
+//   - the colour is worked out once a chunk and plane, as a bit per row:
+//     parity from (x0 + y + z + c) & 1, the rows alternating; grid from
+//     (y mod sy, z mod sz) against the colour's (y, z) part, and x0 mod sx
+//     taken once a thread (the rows' x colours stepped from it).  The host
+//     passes the grid's strides in box_form's axes ((sx, 1, sy) for a 2-D
+//     operator).  The mod kind, which no stencil uses, stays on the legs
+//     route;
+//   - a chunk with no row of colour c copies x through and reads neither
+//     rhs nor dinv (a grid colouring's other lines); otherwise rhs and dinv
+//     are read as 16-byte vectors (under a parity colouring every 32-byte
+//     sector holds rows of both colours, so the card fetches them whole)
+//     and x' = x + (rhs - A x) * dinv on the colour's rows, each
+//     difference, product and sum rounded alone, as stencil_row's
+//     epilogue: x' equals the leg loop's bit for bit;
+//   - x' is stored as 16-byte vectors (out of place);
+//   - a flat plane (box_form's ny = 1: every 2-D operator, fdm:2048) has
+//     one line: the kernel (LINES = 1) keeps no lines beside it, which
+//     cuts its registers, and runs BIS_GS_BOX_FLAT_BLOCKS blocks an SM
+//     (three lines a plane: #1's two).
+//
+// The shard form is the same kernel on a window.  A launch owns global
+// rows [row0, row0 + rows) (whole lines) and reads x from xw (wlen
+// values, global row i at xw[hneg + i - row0]); rhs, dinv, diag and out
+// are the launch's own rows.  The single-device step is row0 = 0, rows = n,
+// hneg = 0, wlen = n.  The grid's runs cover the box_form planes that
+// hold the launch's rows; a chunk outside them does nothing, a row at or
+// past n (a mesh's inert padding) copies x through.  A line is read only
+// where it lies in the grid and in the window (zeros elsewhere).  The
+// launch needs hneg, hpos = wlen - hneg - rows and row0 in whole vectors:
+// with the halo the operator's largest leg offsets, an in-box leg's line
+// then lies within the window, so every line an owned row reads is there.
+// What bounds it: bytes, at the floor (x read, x' written, rhs and dinv on
+// the lines holding colour c); the register march as #1's box route.
+// ---------------------------------------------------------------------------
+
+// Rows of a chunk (bit r: row x0 + r) with colour c.color, for the
+// chunk's line gy (box_form) at plane z; xm: the rows whose x colour is
+// the target's (grid).
+template <int VEC>
+__device__ __forceinline__ unsigned gs_box_rows(const BisColorStep& c,
+                                                int x0, int gy, int z,
+                                                unsigned xm) {
+    constexpr unsigned full = (1u << VEC) - 1u;
+    if (c.kind == 0)
+        return ((x0 + gy + z + c.color) & 1) ? (0xAAu & full)
+                                             : (0x55u & full);
+    const int cyz = gy % c.p[1] + c.p[1] * (z % c.p[2]);
+    return cyz == c.color / c.p[0] ? xm : 0u;
+}
+
+template <typename T, typename D, int VEC, int LINES>
+__global__ void __launch_bounds__(BIS_BOX_THREADS,
+                                  LINES == 1 ? BIS_GS_BOX_FLAT_BLOCKS
+                                             : BIS_BOX_MIN_BLOCKS)
+stencil_gs_color_step_box_kernel(const __grid_constant__ BisStencilArgs a,
+                                 const BisColorStep c, int zr,
+                                 long long row0, long long rows,
+                                 long long hneg, long long wlen,
+                                 const T* __restrict__ xw,
+                                 const D* __restrict__ diag,
+                                 const T* __restrict__ rhs,
+                                 const T* __restrict__ dinv,
+                                 T* __restrict__ out) {
+    const long long plane = (long long)a.nx * a.ny;
+    const BisBoxChunk k = box_chunk<VEC>(
+        a, (long long)blockIdx.x * BIS_BOX_THREADS + threadIdx.x);
+    const int lane = threadIdx.x & 31;
+    const int gy = k.live ? (int)(k.e0 / a.nx) : 0;
+    const int qa = (int)(row0 / plane);
+    const int qb = (int)((row0 + rows + plane - 1) / plane);
+    const int z0 = qa + blockIdx.y * zr, z1 = min(z0 + zr, qb);
+    unsigned xm = 0;                  // grid: the rows of the x colour
+    if (c.kind == 1) {
+        const int cx = c.color % c.p[0];
+        int xr = k.x0 % c.p[0];
+#pragma unroll
+        for (int r = 0; r < VEC; ++r) {
+            if (xr == cx) xm |= 1u << r;
+            if (++xr == c.p[0]) xr = 0;
+        }
+    }
+    auto fetch = [&](int q, T (&P)[3][VEC + 2]) {
+        const bool q_ok = q >= 0 && q < a.nz && q <= z1;
+        const bool ok[3] = {q_ok && k.ok_m, q_ok && k.live, q_ok && k.ok_p};
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+            if (LINES == 1 && j != 1) {       // no line beside a flat one
+#pragma unroll
+                for (int r = 0; r < VEC + 2; ++r) P[j][r] = T(0);
+                continue;
+            }
+            const long long ew = hneg - row0 + (long long)q * plane + k.e0 +
+                                 (long long)(j - 1) * a.nx;
+            const bool in = ok[j] && ew >= 0 && ew + VEC <= wlen;
+            box_fetch_line<T, VEC>(xw, in ? ew : 0, in, k.has_l && ew > 0,
+                                   k.has_r && ew + VEC < wlen, lane, P[j]);
+        }
+    };
+    auto assemble = [&](T (&P)[3][VEC + 2]) {
+        box_assemble<T, VEC, LINES>(k.has_l, k.has_r, lane, P);
+    };
+    // rhs and dinv of a plane's chunk; load_rd returns the bits of the
+    // chunk's rows of colour c there, 0 where none or not the launch's
+    // (nothing read).  Three-line planes read them a step ahead of their
+    // use (the first plane's beside the march's first x loads), a flat
+    // plane's kernel in the step: each the faster on the H100 (PERF.md,
+    // PR 15; read ahead, the flat kernel outgrows four blocks an SM)
+    T rv_n[VEC], dv_n[VEC];
+    auto load_rd = [&](int z) -> unsigned {
+        const long long t = (long long)z * plane + k.e0 - row0;
+        if (!k.live || t < 0 || t >= rows || z >= a.nz) return 0u;
+        const unsigned m = gs_box_rows<VEC>(c, k.x0, gy, z, xm);
+        if (m != 0) {
+            load_vec<T, VEC>(rhs + t, rv_n);
+            load_vec<T, VEC>(dinv + t, dv_n);
+        }
+        return m;
+    };
+    unsigned m_n = LINES == 3 ? load_rd(z0) : 0u;
+    auto step = [&](int z, const T (&pm)[3][VEC + 2],
+                    const T (&p0)[3][VEC + 2], const T (&pp)[3][VEC + 2]) {
+        const unsigned m = LINES == 3 ? m_n : load_rd(z);
+        T rv[VEC], dv[VEC];
+#pragma unroll
+        for (int r = 0; r < VEC; ++r) {
+            rv[r] = rv_n[r];
+            dv[r] = dv_n[r];
+        }
+        if (LINES == 3 && z + 1 < z1) m_n = load_rd(z + 1);
+        const long long t = (long long)z * plane + k.e0 - row0;
+        if (!k.live || t < 0 || t >= rows) return;
+        T o[VEC];
+        if (z >= a.nz) {              // inert rows: x through
+            load_vec<T, VEC>(xw + hneg + t, o);
+            store_vec<T, VEC>(out + t, o);
+            return;
+        }
+#pragma unroll
+        for (int r = 0; r < VEC; ++r) o[r] = p0[1][r + 1];
+        if (m != 0) {
+            T acc[VEC];
+            box_rows<T, VEC>(a, pm, p0, pp, acc);
+            if (diag != nullptr) {
+                T d[VEC];
+                load_diag<T, VEC>(diag + t, d);
+#pragma unroll
+                for (int r = 0; r < VEC; ++r)
+                    acc[r] = add_rn(acc[r], mul_rn(d[r], p0[1][r + 1]));
+            }
+#pragma unroll
+            for (int r = 0; r < VEC; ++r)
+                if ((m >> r) & 1u)
+                    o[r] = add_rn(o[r], mul_rn(sub_rn(rv[r], acc[r]), dv[r]));
+        }
+        store_vec<T, VEC>(out + t, o);
+    };
+    box_march<T, VEC, true>(z0, z1, fetch, assemble, step);
+}
+
 template <typename T, typename D>
 static int launch(int device, const BisStencilArgs* a, const T* x,
                   const D* diag, const T* aux, T* y, T* partials,
@@ -867,6 +1045,19 @@ static bool aligned16(const void* p) {
     return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// every leg within the box and in its group's mask
+static bool box_legs_ok(const BisStencilArgs* a) {
+    for (int g = 0; g < a->n_groups; ++g)
+        for (int l = a->group_begin[g]; l < a->group_begin[g + 1]; ++l) {
+            if (a->dx[l] < -1 || a->dx[l] > 1 || a->dy[l] < -1 ||
+                a->dy[l] > 1 || a->dz[l] < -1 || a->dz[l] > 1)
+                return false;
+            const int p = (a->dz[l] + 1) * 9 + (a->dy[l] + 1) * 3 + a->dx[l] + 1;
+            if (!((a->box_mask[g] >> p) & 1)) return false;
+        }
+    return true;
+}
+
 template <typename T, typename D>
 static bool box_ok(const BisStencilArgs* a, int vec, int zr, int grid_x,
                    int grid_y, const T* x, const D* diag, const T* aux,
@@ -877,14 +1068,7 @@ static bool box_ok(const BisStencilArgs* a, int vec, int zr, int grid_x,
     if ((long long)grid_x * BIS_BOX_THREADS * vec < (long long)a->nx * a->ny ||
         (long long)grid_y * zr < a->nz)
         return false;
-    for (int g = 0; g < a->n_groups; ++g)
-        for (int l = a->group_begin[g]; l < a->group_begin[g + 1]; ++l) {
-            if (a->dx[l] < -1 || a->dx[l] > 1 || a->dy[l] < -1 ||
-                a->dy[l] > 1 || a->dz[l] < -1 || a->dz[l] > 1)
-                return false;
-            const int p = (a->dz[l] + 1) * 9 + (a->dy[l] + 1) * 3 + a->dx[l] + 1;
-            if (!((a->box_mask[g] >> p) & 1)) return false;
-        }
+    if (!box_legs_ok(a)) return false;
     if (vec > 1 && !(aligned16(x) && aligned16(aux) && aligned16(y) &&
                      (sizeof(D) != sizeof(T) || aligned16(diag))))
         return false;
@@ -954,6 +1138,49 @@ static int launch_gs(int device, const BisStencilArgs* a, int kind, int p0,
     const dim3 grid(a->grid_x, a->grid_y);
     stencil_gs_color_step_kernel<T, D><<<grid, block, 0, stream>>>(
         *a, c, x, diag, rhs, dinv, out);
+    return (int)cudaGetLastError();
+}
+
+// #3's box route (single-device and shard form): VEC = 16 / sizeof(T); a
+// grid of grid_x tiles of BIS_BOX_THREADS chunks over a box_form plane
+// and grid_y runs of zr planes over those holding rows [row0, row0 +
+// rows).  Refuses the mod kind, legs outside the box or their mask, a
+// line not of whole vectors, rows, row0, hneg or hpos not of whole lines
+// or vectors, a grid that does not cover the rows, unaligned operands.
+template <typename T, typename D>
+static int launch_gs_box(int device, const BisStencilArgs* a, int kind,
+                         int p0, int p1, int p2, int color, int zr,
+                         int grid_x, int grid_y, long long row0,
+                         long long rows, long long hneg, long long wlen,
+                         const T* xw, const D* diag, const T* rhs,
+                         const T* dinv, T* out, cudaStream_t stream) {
+    constexpr int V = 16 / sizeof(T);
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+    const long long plane = (long long)a->nx * a->ny;
+    const long long hpos = wlen - hneg - rows;
+    if ((kind != 0 && kind != 1) || p0 < 1 || p1 < 1 || p2 < 1 ||
+        a->nx % V != 0 || rows < a->nx || row0 < 0 || row0 % a->nx ||
+        rows % a->nx || hneg < 0 || hpos < 0 || hneg % V || hpos % V ||
+        zr < 1 || grid_x < 1 || grid_y < 1 || grid_y > 65535)
+        return (int)cudaErrorInvalidValue;
+    const long long qa = row0 / plane, qb = (row0 + rows + plane - 1) / plane;
+    if ((long long)grid_x * BIS_BOX_THREADS * V < plane ||
+        (long long)grid_y * zr < qb - qa || qb > 2147483647LL ||
+        !box_legs_ok(a))
+        return (int)cudaErrorInvalidValue;
+    if (!(aligned16(xw) && aligned16(rhs) && aligned16(dinv) &&
+          aligned16(out) && (sizeof(D) != sizeof(T) || aligned16(diag))))
+        return (int)cudaErrorInvalidValue;
+    const BisColorStep c = {kind, {p0, p1, p2}, color};
+    if (a->ny == 1)
+        stencil_gs_color_step_box_kernel<T, D, V, 1>
+            <<<dim3(grid_x, grid_y), BIS_BOX_THREADS, 0, stream>>>(
+                *a, c, zr, row0, rows, hneg, wlen, xw, diag, rhs, dinv, out);
+    else
+        stencil_gs_color_step_box_kernel<T, D, V, 3>
+            <<<dim3(grid_x, grid_y), BIS_BOX_THREADS, 0, stream>>>(
+                *a, c, zr, row0, rows, hneg, wlen, xw, diag, rhs, dinv, out);
     return (int)cudaGetLastError();
 }
 
@@ -1153,6 +1380,8 @@ int bis_stencil_box_shape(int* threads, int* stages, int* resident,
     return 0;
 }
 
+int bis_stencil_gs_box_flat_blocks(void) { return BIS_GS_BOX_FLAT_BLOCKS; }
+
 int bis_stencil_stream_tile(int* tx, int* ty, int* hx, int* hy) {
     *tx = BIS_STREAM_TX;
     *ty = BIS_STREAM_TY;
@@ -1172,6 +1401,42 @@ BIS_GS_ENTRY(bis_stencil_gs_color_step_f32, float, float)
 BIS_GS_ENTRY(bis_stencil_gs_color_step_f64, double, double)
 BIS_GS_ENTRY(bis_stencil_gs_color_step_f32_bf16, float, __nv_bfloat16)
 BIS_GS_ENTRY(bis_stencil_gs_color_step_f64_bf16, double, __nv_bfloat16)
+
+// #3's box route: bis_stencil_gs_color_step_box_<type>[_bf16] on one
+// device, bis_stencil_gs_color_step_halo_box_<type>[_bf16] on a shard.
+#define BIS_GS_BOX_ENTRY(NAME, T, D)                                         \
+    int NAME(int device, const BisStencilArgs* a, int kind, int p0, int p1, \
+             int p2, int color, int zr, int grid_x, int grid_y, const T* x, \
+             const D* diag, const T* rhs, const T* dinv, T* out,            \
+             void* stream) {                                                \
+        const long long n = (long long)a->nx * a->ny * a->nz;               \
+        return launch_gs_box<T, D>(device, a, kind, p0, p1, p2, color, zr,  \
+                                   grid_x, grid_y, 0, n, 0, n, x, diag,     \
+                                   rhs, dinv, out, (cudaStream_t)stream);   \
+    }
+BIS_GS_BOX_ENTRY(bis_stencil_gs_color_step_box_f32, float, float)
+BIS_GS_BOX_ENTRY(bis_stencil_gs_color_step_box_f64, double, double)
+BIS_GS_BOX_ENTRY(bis_stencil_gs_color_step_box_f32_bf16, float, __nv_bfloat16)
+BIS_GS_BOX_ENTRY(bis_stencil_gs_color_step_box_f64_bf16, double,
+                 __nv_bfloat16)
+
+#define BIS_GS_HALO_BOX_ENTRY(NAME, T, D)                                    \
+    int NAME(int device, const BisStencilArgs* a, int kind, int p0, int p1, \
+             int p2, int color, int zr, int grid_x, int grid_y,             \
+             long long row0, long long rows, long long hneg, long long wlen,\
+             const T* xw, const D* diag, const T* rhs, const T* dinv,       \
+             T* out, void* stream) {                                        \
+        return launch_gs_box<T, D>(device, a, kind, p0, p1, p2, color, zr,  \
+                                   grid_x, grid_y, row0, rows, hneg, wlen,  \
+                                   xw, diag, rhs, dinv, out,                \
+                                   (cudaStream_t)stream);                   \
+    }
+BIS_GS_HALO_BOX_ENTRY(bis_stencil_gs_color_step_halo_box_f32, float, float)
+BIS_GS_HALO_BOX_ENTRY(bis_stencil_gs_color_step_halo_box_f64, double, double)
+BIS_GS_HALO_BOX_ENTRY(bis_stencil_gs_color_step_halo_box_f32_bf16, float,
+                      __nv_bfloat16)
+BIS_GS_HALO_BOX_ENTRY(bis_stencil_gs_color_step_halo_box_f64_bf16, double,
+                      __nv_bfloat16)
 
 // The shard-local forms: bis_<kernel>_halo_<vector type>[_bf16].
 #define BIS_SPMV_HALO_ENTRY(NAME, T, D)                                      \

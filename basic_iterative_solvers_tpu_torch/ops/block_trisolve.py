@@ -70,7 +70,10 @@ and level c solves
 
     x_c = (y_c − Σ_groups vals_g ⊙ shift(x_src(g), Δ_g)) · D_c⁻¹
 
-in one launch (`rank_level`).  A grid colouring of host CSR takes the
+in one launch (`rank_level`), on the "vec" route (the group table in the
+launch's parameters, 16 bytes of slots a thread, one x window a source
+colour) or the "scalar" route (a thread a slot), picked once a level by
+`rank_route_for`.  A grid colouring of host CSR takes the
 superblock form; where that refuses (BlockIneligibleError other than an
 improper colouring), the rank-space form with the grid rank
 (x//sx) + mx·((y//sy) + my·(z//sz)), as the JAX package falls back.
@@ -1680,23 +1683,134 @@ def rank_level_plain(B: BlockedTriSolve, li: int, Y: torch.Tensor,
     return X
 
 
-def _rank_table(B: BlockedTriSolve, li: int, device) -> torch.Tensor:
+#: kernel #8's "vec" route (csrc/block_trisolve.cu): its group buckets
+#: (the template instances; a level of more groups takes the scalar
+#: route), the 16-byte vectors a window holds (BIS_RV_WIN), the most
+#: threads a block (BIS_RV_THREADS)
+RANK_VEC_BUCKETS = (2, 4, 8)
+RANK_VEC_WIN = 3
+RANK_VEC_THREADS = 256
+#: the vec route's resident blocks an SM, which sizes its launch
+#: (rank_vec_shape)
+RANK_VEC_RESIDENT = 8
+
+
+def rank_windows(groups, vec: int):
+    """The vec route's group table for one level's groups (sorted by source
+    colour, then Δ, as the builder and the JAX kernel's per-source windows
+    keep them): per group, in order, [plane, src, base, nvec, shift].  A
+    source's groups share one window, the aligned vectors covering
+    [t + Δmin, t + Δmax + vec) of a chunk's slot t, while it spans at most
+    RANK_VEC_WIN vectors, else they open another; the group that opens a
+    window carries its source colour `src`, first vector `base` (in
+    vectors from t) and length `nvec`, the others src = -1 (they read the
+    window before).  `shift` is the window lane of slot t's source, Δ −
+    vec·base."""
+    out, base, opener = [], None, None
+    for sc, delta, g in groups:
+        lo, hi = delta // vec, (delta + vec - 1) // vec
+        if (opener is not None and out[opener][1] == sc
+                and hi - base + 1 <= RANK_VEC_WIN):
+            out[opener][3] = max(out[opener][3], hi - base + 1)
+            out.append([g, -1, base, 0, delta - vec * base])
+        else:
+            base, opener = lo, len(out)
+            out.append([g, sc, lo, hi - lo + 1, delta - vec * lo])
+    return out
+
+
+def _rank_rule(groups, c: int, M: int, itemsize: int, ptrs=()) -> str:
+    """The route of one rank-space level: "vec" where its groups fit the
+    largest bucket (in float64, the smallest: on band:8388608,2's
+    4-group levels the vec route ran slower than the scalar one, both at
+    86% of the byte bound; PERF.md, PR 15), no group reads its own colour,
+    and M and every pointer the route reads or writes 16-byte-wide
+    (`ptrs`) are 16-byte aligned; else "scalar" (the first port's thread
+    a slot, any level)."""
+    vec = 16 // itemsize
+    most = RANK_VEC_BUCKETS[0 if itemsize == 8 else -1]
+    if (not 1 <= len(groups) <= most or M % vec
+            or any(sc == c for sc, _d, _g in groups)
+            or any(p % 16 for p in ptrs)):
+        return "scalar"
+    return "vec"
+
+
+def rank_vec_shape(M: int, itemsize: int, sms: int) -> Tuple[int, int]:
+    """(threads, cpt): the vec route's block and chunks of 16 bytes a
+    thread for a level of M slots on a card of `sms` multiprocessors.
+    Whole waves of resident blocks (RANK_VEC_RESIDENT an SM) over the
+    M·itemsize/16 chunks: cpt minimises waves × cpt, the smallest on a
+    tie.  On the H100 (scripts/rank_vec_sweep.py, band:8388608,2 f32,
+    blocks of 64, 128 and 256 threads, 1 to 8 chunks a thread) this gives
+    256 × 1, within 1% of the fastest shape on every level; more chunks a
+    thread were 0.4–16% slower."""
+    chunks = -(-M * itemsize // 16)
+    threads = RANK_VEC_THREADS
+    wave = RANK_VEC_RESIDENT * sms
+
+    def cost(cpt):
+        return -(-(-(-chunks // (threads * cpt))) // wave) * cpt
+    cpt = min(range(1, 9), key=lambda k: (cost(k), k))
+    return threads, cpt
+
+
+def _rank_table(B: BlockedTriSolve, li: int, device):
+    """Level li's launch on `device`, built at its first launch and kept:
+    (route, scalar table, vec table): the route by `_rank_rule` on the
+    level and the solve's own tensors, the scalar route's int64 group
+    triples on the card, the vec route's `rank_windows` wherever the vec
+    kernel takes the level (None where it has more groups than the
+    largest bucket or reads its own colour)."""
     key = (li, str(device))
     if key not in B._tables:
-        B._tables[key] = torch.tensor(
-            [list(g) for g in B.levels[li][1]], dtype=torch.int64,
-            device=device).reshape(-1).contiguous()
+        c, groups = B.levels[li]
+        item = B.vals.element_size()
+        route = _rank_rule(groups, c, B.M, item,
+                           (B.vals.data_ptr(), B.dinv.data_ptr()))
+        table = torch.tensor([list(g) for g in groups], dtype=torch.int64,
+                             device=device).reshape(-1).contiguous()
+        takes = (len(groups) <= RANK_VEC_BUCKETS[-1]
+                 and all(sc != c for sc, _d, _g in groups))
+        B._tables[key] = (route, table,
+                          rank_windows(groups, 16 // item) if takes else None)
     return B._tables[key]
 
 
+def rank_route_for(B: BlockedTriSolve, li: int, Y: torch.Tensor = None,
+                   X: torch.Tensor = None) -> str:
+    """The route `rank_level` takes for level li of B: the level's, decided
+    once and kept with its launch table (`_rank_table`), and "scalar" for
+    a call whose Y or X does not start on 16 bytes."""
+    route = _rank_table(B, li, B.dinv.device)[0]
+    if route == "vec" and any(v.data_ptr() % 16 for v in (Y, X)
+                              if v is not None):
+        return "scalar"
+    return route
+
+
+def _rank_vec_args(B: BlockedTriSolve, li: int, windows, cpt: int):
+    from .._build import RankVecArgs
+    a = RankVecArgs()
+    a.M, a.c, a.n_groups, a.cpt = B.M, B.levels[li][0], len(windows), cpt
+    for g, (plane, src, base, nvec, shift) in enumerate(windows):
+        a.plane[g], a.src[g], a.base[g] = plane, src, base
+        a.nvec[g], a.shift[g] = nvec, shift
+    return a
+
+
 def rank_level(B: BlockedTriSolve, li: int, Y: torch.Tensor,
-               X: torch.Tensor) -> torch.Tensor:
+               X: torch.Tensor, route: str = None) -> torch.Tensor:
     """Solve level li of B in place: X[c] for its colour c from Y[c] and
     the colours of X already solved; returns X.  Y may be X itself.
 
     A CUDA tensor goes through the hand-written kernel, one launch per
-    level with groups, counted in `rank_level.launches`; a CPU tensor takes
-    the plain version."""
+    level with groups, on `route` (by default `rank_route_for`'s): "vec"
+    (the group table in the launch's parameters, 16 bytes of slots a
+    thread, one x window a source colour) or "scalar"; counted in
+    `rank_level.launches` and by route in `.vec_launches` /
+    `.scalar_launches`; both give the same X, bit for bit.  A CPU tensor
+    takes the plain version."""
     _check_rank_level(B, li, Y, X)
     if X.device.type == "cpu":
         return rank_level_plain(B, li, Y, X)
@@ -1706,22 +1820,43 @@ def rank_level(B: BlockedTriSolve, li: int, Y: torch.Tensor,
     if X.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the rank-space kernel takes float32 or float64, "
                         f"not {X.dtype}")
+    if route is None:
+        route = rank_route_for(B, li, Y, X)
     c, groups = B.levels[li]
-    table = _rank_table(B, li, X.device)
+    _route, table, windows = _rank_table(B, li, X.device)
     lib = load_library()
-    fn = lib.bis_rank_level_f32 if X.dtype == torch.float32 \
-        else lib.bis_rank_level_f64
-    err = fn(X.device.index, Y.data_ptr(), X.data_ptr(), B.vals.data_ptr(),
-             B.dinv.data_ptr(), table.data_ptr(), len(groups), B.M, c,
-             torch.cuda.current_stream(X.device).cuda_stream)
+    dt = "f32" if X.dtype == torch.float32 else "f64"
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    if route == "vec":
+        if windows is None:
+            raise ValueError(f"level {li} does not take the vec route")
+        key = ("vec_args", li, str(X.device))
+        if key not in B._tables:
+            threads, cpt = rank_vec_shape(B.M, X.element_size(),
+                                          sm_count(X.device.index))
+            B._tables[key] = (threads, _rank_vec_args(B, li, windows, cpt))
+        threads, args = B._tables[key]
+        err = getattr(lib, f"bis_rank_level_vec_{dt}")(
+            X.device.index, ctypes.byref(args), threads, Y.data_ptr(),
+            X.data_ptr(), B.vals.data_ptr(), B.dinv.data_ptr(), stream)
+    elif route == "scalar":
+        err = getattr(lib, f"bis_rank_level_{dt}")(
+            X.device.index, Y.data_ptr(), X.data_ptr(), B.vals.data_ptr(),
+            B.dinv.data_ptr(), table.data_ptr(), len(groups), B.M, c, stream)
+    else:
+        raise ValueError(f"unknown rank-space route {route!r}")
     if err != 0:
-        raise RuntimeError(f"rank_level kernel launch failed with CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"rank_level kernel launch ({route} route) failed "
+                           f"with CUDA error {err}")
     rank_level.launches += 1
+    setattr(rank_level, f"{route}_launches",
+            getattr(rank_level, f"{route}_launches") + 1)
     return X
 
 
 rank_level.launches = 0
+rank_level.vec_launches = 0
+rank_level.scalar_launches = 0
 
 
 def solve_blocks(B: BlockedTriSolve, Y: torch.Tensor,

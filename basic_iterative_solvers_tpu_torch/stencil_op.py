@@ -25,6 +25,9 @@ the launch by `route_for`: "box" (legs within the 3x3x3 box, the
 neighbourhood in registers; #2 also needs lines of whole 16-byte
 vectors) and "legs" (the first ports' leg loops, any legs), counted in
 `box_launches` and `legs_launches`; y is the same on both, bit for bit.
+The GS step (and its shard form) takes the same two routes, picked by
+`gs_route_for` (`gs_halo_route_for`): "box" adds the step's epilogue to
+#1's box route under a parity or grid colouring; x' is the same on both.
 
 The coefficients and the diagonal may be stored in bfloat16 beside float32
 or float64 vectors (the JAX package's matrix_dtype): the coefficients are
@@ -882,29 +885,122 @@ def stencil_gs_color_step_halo_plain(A: DeviceStencil, xw: torch.Tensor,
 _COLOR_KINDS = {"parity": 0, "grid": 1, "mod": 2}
 
 
-def _stencil_gs_color_step_cuda(A: DeviceStencil, x, rhs, dinv, spec, color):
+def _gs_color_params(A: DeviceStencil, spec, box: bool):
+    """(kind, p0, p1, p2) of the GS step's colouring for a launch table in
+    A's axes, or (`box`) in box_form's, where a 2-D grid colouring's
+    (sx, sy) come as (sx, 1, sy)."""
+    if spec.kind == "grid":
+        sx, sy, sz = spec.params[3:6]
+        p = (sx, 1, sy) if box and A.dims[2] == 1 else (sx, sy, sz)
+    else:
+        p = (spec.params[0], 1, 1) if spec.kind == "mod" else (1, 1, 1)
+    return (_COLOR_KINDS[spec.kind],) + tuple(int(v) for v in p)
+
+
+def _gs_box_ok(A: DeviceStencil, spec, itemsize: int, ptrs,
+               halo=(0, 0)) -> bool:
+    """#3's box route takes A: every leg within the 3x3x3 box (as #1's box
+    route), a parity or grid colouring, lines of whole 16-byte vectors,
+    every operand read or written 16 bytes wide (`ptrs`) starting on 16
+    bytes, and a window halo (hneg, hpos) of whole vectors; and float32
+    vectors, or a flat plane (a 2-D operator: box_form's ny = 1).  In
+    float64 on three-line planes (HPCG, Anderson) the box route, at its
+    128-register cap, ran slower than the leg loop on the H100 (PERF.md,
+    PR 15), so the leg loop keeps those."""
+    vec = 16 // itemsize
+    flat = box_form(A)[1][1] == 1
+    return (in_box(A) and spec.kind in ("parity", "grid")
+            and (itemsize == 4 or flat)
+            and A.dims[0] % vec == 0 and not any(h % vec for h in halo)
+            and not any(p % 16 for p in ptrs))
+
+
+def _gs_diag_ptrs(A: DeviceStencil, x, diag):
+    """The diagonal among the operands read 16 bytes wide: where it takes
+    part and is stored in x's dtype (a bfloat16 one is read value by
+    value)."""
+    use_diag = diag is not None and (0, 0, 0) in A.legs
+    return [diag.data_ptr()] if use_diag and diag.dtype == x.dtype else []
+
+
+def gs_route_for(A: DeviceStencil, x: torch.Tensor, rhs: torch.Tensor,
+                 dinv: torch.Tensor, spec) -> str:
+    """The route of the GS colour-step kernel that `stencil_gs_color_step`
+    launches on a card: "box" (#1's box pieces with the step's epilogue)
+    where `_gs_box_ok` holds for x, rhs, dinv and A's diagonal, else
+    "legs" (the first port's leg loop: legs outside the box, the mod
+    colouring, lines not of whole vectors, unaligned operands, float64 on
+    a 3-D grid).  A rule on the legs, the colouring, the grid's extents,
+    the dtype and the operands' alignment, read at each call."""
+    ptrs = [x.data_ptr(), rhs.data_ptr(), dinv.data_ptr(),
+            *_gs_diag_ptrs(A, x, A.diag)]
+    return "box" if _gs_box_ok(A, spec, x.element_size(), ptrs) else "legs"
+
+
+#: blocks of #3's box route resident on an SM where a box_form plane is
+#: one line (ny = 1, every 2-D operator: BIS_GS_BOX_FLAT_BLOCKS, its
+#: __launch_bounds__); three-line planes take #1's BOX_RESIDENT[0]
+GS_BOX_FLAT_RESIDENT = 4
+
+
+def _gs_box_grid(dims, vec: int, row0: int, rows: int,
+                 sms: int) -> Tuple[int, int, int]:
+    """(zr, grid_x, grid_y) of #3's box route on `dims` (box_form's) over
+    rows [row0, row0 + rows): `_box_grid` over the planes holding them,
+    with the blocks an SM the kernel's form holds."""
+    nx, ny, _nz = dims
+    plane = nx * ny
+    qa, qb = row0 // plane, -(-(row0 + rows) // plane)
+    gx, gy, zr = _box_grid((nx, ny, qb - qa), vec, sms,
+                           GS_BOX_FLAT_RESIDENT if ny == 1
+                           else BOX_RESIDENT[0])
+    return zr, gx, gy
+
+
+def _gs_box_launch(A: DeviceStencil, x, spec, row0: int, rows: int,
+                   use_diag: bool):
+    """(args, color params, grid) of #3's box route over rows [row0,
+    row0 + rows) (whole lines): the launch table in box_form's axes, the
+    colouring's parameters there, and `_gs_box_grid`'s grid."""
+    legs, dims = box_form(A)
+    args, _ = _launch_table(legs, A.coeff_values, dims, use_diag, ())
+    grid = _gs_box_grid(dims, 16 // x.element_size(), row0, rows,
+                        sm_count(x.device.index))
+    return args, _gs_color_params(A, spec, box=True), grid
+
+
+def _stencil_gs_color_step_cuda(A: DeviceStencil, x, rhs, dinv, spec, color,
+                                route: str = None):
     from ._build import load_library
     use_diag, suffix = _kernel_form(A, x)
-    args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag, ())
-    kind = _COLOR_KINDS[spec.kind]
-    p = (tuple(spec.params[3:6]) if spec.kind == "grid"
-         else (spec.params[0], 1, 1) if spec.kind == "mod" else (1, 1, 1))
+    if route is None:
+        route = gs_route_for(A, x, rhs, dinv, spec)
     lib = load_library()
-    fn = getattr(lib, f"bis_stencil_gs_color_step_{suffix}")
+    if route == "box":
+        args, p, grid = _gs_box_launch(A, x, spec, 0, A.n_rows, use_diag)
+        fn = getattr(lib, f"bis_stencil_gs_color_step_box_{suffix}")
+    elif route == "legs":
+        args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag, ())
+        p, grid = _gs_color_params(A, spec, box=False), ()
+        fn = getattr(lib, f"bis_stencil_gs_color_step_{suffix}")
+    else:
+        raise ValueError(f"unknown GS step route {route!r}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     diag = A.diag.data_ptr() if use_diag else None
     for c in _colors(color):
         out = torch.empty_like(x)
-        err = fn(x.device.index, ctypes.byref(args), kind, *p, c,
+        err = fn(x.device.index, ctypes.byref(args), *p, c, *grid,
                  x.data_ptr(), diag, rhs.data_ptr(), dinv.data_ptr(),
                  out.data_ptr(), stream)
         if err != 0:
-            raise RuntimeError(f"stencil_gs_color_step kernel launch failed "
-                               f"with CUDA error {err}")
+            raise RuntimeError(f"stencil_gs_color_step kernel launch ({route}"
+                               f" route) failed with CUDA error {err}")
         if suffix.endswith("_bf16"):
             stencil_gs_color_step.bf16_launches += 1
         else:
             stencil_gs_color_step.launches += 1
+        setattr(stencil_gs_color_step, f"{route}_launches",
+                getattr(stencil_gs_color_step, f"{route}_launches") + 1)
         x = out
     return x
 
@@ -919,8 +1015,10 @@ def stencil_gs_color_step(A: DeviceStencil, x: torch.Tensor,
 
     A CUDA tensor goes through the hand-written kernel, one launch per
     colour, counted in `stencil_gs_color_step.launches`
-    (`stencil_gs_color_step.bf16_launches` for its bfloat16-diagonal form);
-    a CPU tensor takes the plain version."""
+    (`stencil_gs_color_step.bf16_launches` for its bfloat16-diagonal form)
+    and, by route (`gs_route_for`), in `.box_launches` or
+    `.legs_launches`: x' is the same on both, bit for bit; a CPU tensor
+    takes the plain version."""
     _check_gs_operands(A, x, rhs, dinv, spec)
     if x.device.type == "cuda":
         return _stencil_gs_color_step_cuda(A, x, rhs, dinv, spec, color)
@@ -931,34 +1029,67 @@ def stencil_gs_color_step(A: DeviceStencil, x: torch.Tensor,
 
 stencil_gs_color_step.launches = 0
 stencil_gs_color_step.bf16_launches = 0
+stencil_gs_color_step.box_launches = 0
+stencil_gs_color_step.legs_launches = 0
+
+
+def gs_halo_route_for(A: DeviceStencil, xw: torch.Tensor,
+                      rhs: torch.Tensor, dinv: torch.Tensor, spec,
+                      diag: torch.Tensor = None,
+                      out: torch.Tensor = None) -> str:
+    """The route of the shard-local GS step that
+    `stencil_gs_color_step_halo` launches: "box" where `_gs_box_ok` holds
+    for the window, the shard's rhs, dinv, diagonal slice and `out`, and
+    the halo (A.halo) is of whole 16-byte vectors (so every line an owned
+    row reads lies inside the window), else "legs"."""
+    ptrs = [xw.data_ptr(), rhs.data_ptr(), dinv.data_ptr(),
+            *_gs_diag_ptrs(A, xw, diag)]
+    if out is not None:
+        ptrs.append(out.data_ptr())
+    return ("box" if _gs_box_ok(A, spec, xw.element_size(), ptrs, A.halo)
+            else "legs")
 
 
 def _stencil_gs_color_step_halo_cuda(A: DeviceStencil, xw, row0, rows,
-                                     rhs, dinv, spec, color, diag, out):
+                                     rhs, dinv, spec, color, diag, out,
+                                     route: str = None):
     from ._build import load_library
     use_diag, suffix = _kernel_form(A, xw)
-    args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag, ())
-    kind = _COLOR_KINDS[spec.kind]
-    p = (tuple(spec.params[3:6]) if spec.kind == "grid"
-         else (spec.params[0], 1, 1) if spec.kind == "mod" else (1, 1, 1))
-    fn = getattr(load_library(), f"bis_stencil_gs_color_step_halo_{suffix}")
+    if route is None:
+        route = gs_halo_route_for(A, xw, rhs, dinv, spec, diag, out)
+    hneg = A.halo[0]
+    if route == "box":
+        args, p, grid = _gs_box_launch(A, xw, spec, row0, rows, use_diag)
+        fn = getattr(load_library(),
+                     f"bis_stencil_gs_color_step_halo_box_{suffix}")
+        shard = (row0, rows, hneg, xw.numel())
+    elif route == "legs":
+        args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag, ())
+        p, grid = _gs_color_params(A, spec, box=False), ()
+        fn = getattr(load_library(),
+                     f"bis_stencil_gs_color_step_halo_{suffix}")
+        shard = (row0, rows // A.dims[0], A.n_rows, hneg)
+    else:
+        raise ValueError(f"unknown GS step route {route!r}")
     stream = torch.cuda.current_stream(xw.device).cuda_stream
     d = diag.data_ptr() if use_diag else None
-    hneg = A.halo[0]
     colors = _colors(color)
     for j, c in enumerate(colors):
         y = out if (out is not None and j + 1 == len(colors)) else \
             torch.empty_like(xw[:rows])
-        err = fn(xw.device.index, ctypes.byref(args), kind, *p, c, row0,
-                 rows // A.dims[0], A.n_rows, hneg, xw.data_ptr(), d,
-                 rhs.data_ptr(), dinv.data_ptr(), y.data_ptr(), stream)
+        err = fn(xw.device.index, ctypes.byref(args), *p, c, *grid, *shard,
+                 xw.data_ptr(), d, rhs.data_ptr(), dinv.data_ptr(),
+                 y.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"stencil_gs_color_step_halo kernel launch "
-                               f"failed with CUDA error {err}")
+                               f"({route} route) failed with CUDA error "
+                               f"{err}")
         if suffix.endswith("_bf16"):
             stencil_gs_color_step_halo.bf16_launches += 1
         else:
             stencil_gs_color_step_halo.launches += 1
+        setattr(stencil_gs_color_step_halo, f"{route}_launches",
+                getattr(stencil_gs_color_step_halo, f"{route}_launches") + 1)
         if j + 1 < len(colors):
             xw = _next_window(xw, y, hneg)
     return y
@@ -976,8 +1107,9 @@ def stencil_gs_color_step_halo(A: DeviceStencil, xw: torch.Tensor,
     one window (the JAX package's superstep: its colours couple only along
     x, inside the shard's lines).  A CUDA tensor launches the shard-local
     kernel once per colour, counted in `stencil_gs_color_step_halo.launches`
-    (`.bf16_launches` for the bfloat16-diagonal form): bit-equal to #3's
-    rows; a CPU tensor takes the plain version."""
+    (`.bf16_launches` for the bfloat16-diagonal form) and, by route
+    (`gs_halo_route_for`), in `.box_launches` or `.legs_launches`:
+    bit-equal to #3's rows; a CPU tensor takes the plain version."""
     rows = _check_gs_window(A, xw, row0, rhs, dinv, spec, diag, out)
     if xw.device.type == "cuda":
         return _stencil_gs_color_step_halo_cuda(A, xw, row0, rows, rhs, dinv,
@@ -991,6 +1123,8 @@ def stencil_gs_color_step_halo(A: DeviceStencil, xw: torch.Tensor,
 
 stencil_gs_color_step_halo.launches = 0
 stencil_gs_color_step_halo.bf16_launches = 0
+stencil_gs_color_step_halo.box_launches = 0
+stencil_gs_color_step_halo.legs_launches = 0
 
 
 def stencil_diag(A: DeviceStencil) -> torch.Tensor:

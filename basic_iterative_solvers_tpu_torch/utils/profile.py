@@ -42,7 +42,8 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PHASE_BUCKETS = (
     ("spmv", ("stencil_spmv_kernel", "stencil_spmv_stream_kernel",
               "stencil_spmv_box_kernel", "stencil_spmv_stream_box_kernel",
-              "stencil_gs_color_step_kernel", "dia_spmv_kernel",
+              "stencil_gs_color_step_kernel",
+              "stencil_gs_color_step_box_kernel", "dia_spmv_kernel",
               "lane_ell_spmv_kernel", "stencil_spmv_halo_kernel",
               "stencil_gs_color_step_halo_kernel", "dia_spmv_halo_kernel",
               "lane_ell_spmv_halo_kernel",
@@ -50,7 +51,7 @@ PHASE_BUCKETS = (
     ("sptrsv", ("super_level_kernel", "super_level_staged_kernel",
                 "super_level_line_kernel", "super_acc_kernel",
                 "super_parity_kernel", "super_solve_mega_kernel",
-                "rank_level_kernel")),
+                "rank_level_kernel", "rank_level_vec_kernel")),
     ("orthog", ("project_gram_kernel", "correct_write_kernel")),
     ("layout_glue", ("Memcpy", "Memset", "copy_kernel", "CatArrayBatchedCopy",
                      "fill_kernel", "FillFunctor")),

@@ -34,7 +34,10 @@ exits non-zero:
      BiCGSTAB solves of the same operator to convergence;
   9. capacity: CG on HPCG 384^3 in float32;
  10. the multicolour GS step kernel against its plain version, every
-     colour, on the three operators of phase 3, both dtypes, timed;
+     colour, on the three operators of phase 3, both dtypes, on its box
+     route (the route its picker names) bit for bit against its leg
+     loop; colour 0 on both routes timed in turns by device time beside
+     the coloured-row and the sector bound;
  11. the superblock level kernel against its plain version on every level
      of the L and U solves of HPCG 128^3 (const mode), bit for bit on the
      line route (the shape's) and the direct route, each level timed on
@@ -46,7 +49,8 @@ exits non-zero:
  13. the third slice's path: the bench's gs, sgs, pcg, pgmres and
      pbicgstab rows on HPCG 128^3 in float32, counting every kernel's
      launches (the const levels on the route the picker names); then a float64 CG + SGS solve to convergence; and SGS on
-     fdm:2048 through the GS colour-step kernel;
+     fdm:2048 through the GS colour-step kernel (its box route, then the
+     leg loop and the box route forced, in turns);
  14. the superblock level kernel in factor-table mode (exact ILU(0))
      against its plain version on every level of the L and U solves of
      HPCG 128^3 (both dtypes) and 384^3 (f32) and on a whole ILU(0) apply,
@@ -75,15 +79,18 @@ exits non-zero:
      shard of every row), the padded bound beside the bound of the slots
      the routes read, and the library's CSR SpMV;
  20. the rank-space level kernel against its plain version on every level
-     with groups of the SGS pair of band:8388608,2 (f32, f64), whole
-     applies against the CPU's, and torch.triangular_solve's whole L
-     solve;
+     with groups of the SGS pair of band:8388608,2 (f32, f64), on its vec
+     route (the picker's) bit for bit against the scalar route (y apart
+     and y aliasing x), each level timed on both in turns by device time
+     beside its bound, whole applies against the CPU's and on both routes
+     in turns, and torch.triangular_solve's whole L solve;
  21. the same DIA, lane-ELL and rank-space solves on the CPU and on the
      card (f64, small sizes);
  22. the fifth slice's paths: DIA CG at 128^3 (2500 iterations) and 384^3
      (150), cg@sband on lane-ELL (400) and the gather ELL (40),
-     pbicgstab@band (800), counting every kernel's launches, with set-up
-     seconds; then natural-order f64 CG + SGS and CG + ILU(0) on fdm:256
+     pbicgstab@band (800; every level on #8's vec route, then the row on
+     the scalar and the vec route forced, in turns), counting every
+     kernel's launches, with set-up seconds; then natural-order f64 CG + SGS and CG + ILU(0) on fdm:256
      on the CPU and on the card, equal iteration counts;
  23. the slice-5b rows ([slice5b]): the coloured host route under the
      source's grid colour spec, pcg_ilu0@fdm2048 (CG + ILU(0), 1200
@@ -157,11 +164,14 @@ exits non-zero:
      kernel, the whole mesh call and the library's CSR SpMV; #5 on each
      route (the launch shape's, padded on sband's shards; counted; padded
      with int32 indices, the first port's kernel; timed in turns) beside
-     8 CSR SpMVs over the shards' rows;
+     8 CSR SpMVs over the shards' rows; #3 on its box route, each shard
+     bit for bit against its leg loop, the 8 launches of both routes
+     timed in turns;
  35. slice 8's rows ([slice8]): CG on the 128^3 stencil (500, the
      bench's 2500 cut), DIA CG at 128^3 (500), cg@sband (400; the mesh
      also with #5's shard launches
-     forced onto the counted route), SGS on fdm:2048 (200), single-device
+     forced onto the counted route), SGS on fdm:2048 (200; the mesh also
+     with #3's shard launches forced onto the leg loop), single-device
      and 8-shard mesh in turns, with ms/iter, launches and the mesh's
      exchanges an iteration; f64 CG + Jacobi to 1e-8 at 128^3 on both,
      equal counts; one step and a solve of the standalone distributed CG
@@ -246,27 +256,33 @@ def _device_ms(fn, torch, reps=10, batch=10, sleep_cycles=100_000_000,
                host=None):
     """Median device time per call of `fn`, the host's launch cost hidden:
     each batch is enqueued behind a sleeping kernel (~50 ms), so the events
-    around it time the device's work only.  Raises if enqueuing a batch
-    took the host longer than the sleep (the host would then show).  With
-    a list `host`, appends the median host time per call of enqueuing a
-    batch (the wrapper's cost alone: no call waits for the device)."""
+    around it time the device's work only.  A batch whose enqueuing took
+    the host longer than the sleep ahead of it (a host stall: the host
+    would then show) is timed again behind a sleep twice as long, up to
+    three times, then raises; only batches the sleep covered are kept.
+    With a list `host`, appends the median host time per call of
+    enqueuing a batch (the wrapper's cost alone: no call waits for the
+    device)."""
     fn()
     times, host_times = [], []
     for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        torch.cuda._sleep(sleep_cycles)
-        ev[1].record()
-        t0 = time.perf_counter()
-        for _ in range(batch):
-            fn()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        ev[2].record()
-        ev[2].synchronize()
-        if host_ms >= ev[0].elapsed_time(ev[1]):
-            raise RuntimeError(f"enqueuing took {host_ms:.2f} ms, longer "
-                               "than the sleep ahead of it")
+        for again in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            torch.cuda._sleep(sleep_cycles << again)
+            ev[1].record()
+            t0 = time.perf_counter()
+            for _ in range(batch):
+                fn()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            ev[2].record()
+            ev[2].synchronize()
+            if host_ms < ev[0].elapsed_time(ev[1]):
+                break
+            if again == 3:
+                raise RuntimeError(f"enqueuing took {host_ms:.2f} ms, "
+                                   "longer than the sleep ahead of it")
         times.append(ev[1].elapsed_time(ev[2]) / batch)
         host_times.append(host_ms / batch)
     if host is not None:
@@ -927,13 +943,50 @@ def phase_capacity(torch, bt):
         raise RuntimeError("capacity run stopped early")
 
 
+@contextlib.contextmanager
+def _route_forced(module, picker, route):
+    """Every call inside the block that asks `module.picker` for its route
+    takes `route` (the picker replaced for it); None: the picker's own."""
+    saved = getattr(module, picker)
+    if route is not None:
+        setattr(module, picker, lambda *args, **kwargs: route)
+    try:
+        yield
+    finally:
+        setattr(module, picker, saved)
+
+
+def _gs_bounds(torch, A, cs, c, item):
+    """(coloured-row bound, sector bound) of one GS colour step: x read and
+    x' written whole, rhs and dinv on colour c's rows only, or on every row
+    whose 32-byte sector of rhs holds a row of colour c (the card fetches
+    those sectors whole); per coloured row its legs' products and sums,
+    then rhs - s, ·dinv and + x."""
+    from basic_iterative_solvers_tpu_torch.coloring import color_ids
+    ids = color_ids(cs, A)
+    n, n_c = A.n_rows, int((ids == c).sum())
+    per = 32 // item
+    hit = (ids[:n - n % per].view(-1, per) == c).any(dim=1)
+    n_s = per * int(hit.sum()) + int((ids[n - n % per:] == c).any()) * (
+        n % per)
+    ops = n_c * (2 * len(A.legs) + 2)
+    return (_bound(item * (2 * n + 2 * n_c), ops),
+            _bound(item * (2 * n + 2 * n_s), ops))
+
+
 def phase_gs_step_vs_plain(torch, bt):
     """stencil_gs_color_step against its plain version on every colour of
-    the three operators, f32 and f64, within TOL of max|x'|; colour 0
-    timed.  Returns the record of fdm:2048 f32 (the masked route that
-    phase 13 drives)."""
+    the three operators, f32 and f64, within TOL of max|x'|, on the route
+    gs_route_for names (the box route; the leg loop for float64 on the
+    3-D grids), the box route bit for bit against the leg loop; colour 0
+    timed on both routes in
+    turns by device time (box, legs, legs, box), beside its two bounds
+    (rhs and dinv on the coloured rows; on the sectors holding them).
+    Returns the record of fdm:2048 f32 (the masked route that phase 13
+    drives)."""
     from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
     so = bt.stencil_op
+    fn = so.stencil_gs_color_step
     record = None
     for spec in KERNEL_SPECS:
         for dt in (torch.float32, torch.float64):
@@ -944,37 +997,59 @@ def phase_gs_step_vs_plain(torch, bt):
             rhs = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
             dinv = 1.0 / so.stencil_diag(A)
             tol = TOL[str(dt).split(".")[1]]
+            # the box route everywhere but float64 on a 3-D grid, where
+            # the picker keeps the leg loop (it measured no slower there)
+            route = ("box" if dt == torch.float32 or A.dims[2] == 1
+                     else "legs")
+            if so.gs_route_for(A, x, rhs, dinv, cs) != route:
+                raise RuntimeError(f"{spec} {dt}: #3 did not pick its "
+                                   f"{route} route")
             worst_rel, worst_abs = 0.0, 0.0
             for c in range(cs.n_colors):
-                before = so.stencil_gs_color_step.launches
-                k = so.stencil_gs_color_step(A, x, rhs, dinv, cs, c)
+                before = (fn.launches, getattr(fn, f"{route}_launches"))
+                k = fn(A, x, rhs, dinv, cs, c)
+                box = so._stencil_gs_color_step_cuda(A, x, rhs, dinv, cs, c,
+                                                     route="box")
+                legs = so._stencil_gs_color_step_cuda(A, x, rhs, dinv, cs, c,
+                                                      route="legs")
                 p = so.stencil_gs_color_step_plain(A, x, rhs, dinv, cs, c)
                 torch.cuda.synchronize()
-                if so.stencil_gs_color_step.launches != before + 1:
-                    raise RuntimeError("the GS step's launch count did not "
-                                       "grow")
+                if (fn.launches, getattr(fn, f"{route}_launches")) != (
+                        before[0] + 3, before[1] + 2):
+                    raise RuntimeError("the GS step's launch counts did not "
+                                       "grow by route")
+                if not (torch.equal(k, legs) and torch.equal(box, legs)):
+                    raise RuntimeError(f"#3's box route differs from its leg "
+                                       f"loop: {spec} {dt} colour {c}")
                 abs_err = float((k - p).abs().max())
                 worst_abs = max(worst_abs, abs_err)
                 worst_rel = max(worst_rel, abs_err / float(p.abs().max()))
-            ms = _median_ms(lambda: so.stencil_gs_color_step(
-                A, x, rhs, dinv, cs, 0), torch)
+            turns = _in_turns(torch, {
+                rt: (lambda rt=rt: so._stencil_gs_color_step_cuda(
+                    A, x, rhs, dinv, cs, 0, route=rt))
+                for rt in ("box", "legs")}, ("box", "legs", "legs", "box"))
             plain_ms = _median_ms(lambda: so.stencil_gs_color_step_plain(
                 A, x, rhs, dinv, cs, 0), torch, reps=5)
+            rows_b, sector_b = _gs_bounds(torch, A, cs, 0, x.element_size())
+            ms = min(turns["box"])
             print(f"[gs-step] {spec} {str(dt)[6:]} {cs.kind} "
-                  f"colors={cs.n_colors} max_rel_err={worst_rel:.3e} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+                  f"colors={cs.n_colors} route={route}; box bit-equal to "
+                  f"legs on every colour, max_rel_err_vs_plain="
+                  f"{worst_rel:.3e}; colour 0 "
+                  f"device ms in turns box={turns['box']} "
+                  f"legs={turns['legs']} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={rows_b['bound_ms']:.5f} (coloured rows, "
+                  f"{100 * rows_b['bound_ms'] / ms:.0f}% on box) "
+                  f"sector_bound_ms={sector_b['bound_ms']:.5f} "
+                  f"({100 * sector_b['bound_ms'] / ms:.0f}%)")
             if not worst_rel <= tol:
                 raise RuntimeError(f"GS step kernel disagrees with plain "
                                    f"beyond {tol}: {spec} {dt}")
             if (spec, dt) == ("fdm:2048", torch.float32):
-                # out of place: x and x' whole, rhs and dinv on colour 0's
-                # rows; per such row its legs' products and sums, then
-                # rhs − s, ·dinv and + x
-                n, n_c = A.n_rows, A.n_rows // cs.n_colors
                 record = {"max_abs_err": worst_abs, "ms": ms,
+                          "legs_ms": min(turns["legs"]),
                           "plain_ms": plain_ms, "library_ms": None,
-                          **_bound(4 * (2 * n + 2 * n_c),
-                                   n_c * (2 * len(A.legs) + 2))}
+                          "sector_bound_ms": sector_b["bound_ms"], **rows_b}
     return record
 
 
@@ -1171,6 +1246,10 @@ def _counters(so, gb, bk, reset=False):
     kernels = {"stencil_spmv": (so.stencil_spmv, "launches"),
                "stencil_gs_color_step": (so.stencil_gs_color_step,
                                          "launches"),
+               "stencil_gs_color_step_box": (so.stencil_gs_color_step,
+                                             "box_launches"),
+               "stencil_gs_color_step_legs": (so.stencil_gs_color_step,
+                                              "legs_launches"),
                "project_gram": (gb.project_gram, "launches"),
                "correct_write": (gb.correct_write, "launches"),
                "project_gram_ring": (gb.project_gram, "ring_launches"),
@@ -1296,21 +1375,38 @@ def phase_slice3_path(torch, bt):
         raise RuntimeError("fdm:2048 SGS took the superblock route")
     solver = make_method(setup)
     bt.solve(setup, method=solver)                    # warm-up solve
-    _counters(so, gb, bk, reset=True)
-    res = bt.solve(setup, method=solver)
-    counts = _counters(so, gb, bk)
-    ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
-    print(f"[slice3] fdm:2048 f32 SGS fused (masked sweeps): "
-          f"iters={res.iter_count} ms/iter={ms:.5f} "
-          f"r0={res.residual_norms[0]:.6e} "
-          f"final_explicit_f64={res.final_residual_norm:.6e} "
-          f"launches={counts}")
-    if not (res.iter_count == 200 and math.isfinite(res.final_residual_norm)
-            and bool(torch.isfinite(res.x_star).all())
-            and counts["stencil_gs_color_step"] >= 4 * res.iter_count
-            and counts["super_level"] == 0):
-        raise RuntimeError("fdm:2048 SGS run failed its checks")
-    return super_launches, by_route, counts["stencil_gs_color_step"]
+    # the main path (#3's route its picker names, box) first, then the
+    # leg loop and the box route forced, in turns
+    runs, main = {}, None
+    for rt in (None, "legs", "legs", "box"):
+        with _route_forced(so, "gs_route_for", rt):
+            if rt == "legs" and "legs" not in runs:
+                bt.solve(setup, method=solver)        # warm-up solve
+            _counters(so, gb, bk, reset=True)
+            res = bt.solve(setup, method=solver)
+        counts = _counters(so, gb, bk)
+        ms = 1e3 * res.solve_seconds / max(1, res.iter_count)
+        runs.setdefault(rt or "box", []).append(ms)
+        print(f"[slice3] fdm:2048 f32 SGS fused (masked sweeps), #3 on "
+              f"{rt or 'the picker'}'s route: iters={res.iter_count} "
+              f"ms/iter={ms:.5f} r0={res.residual_norms[0]:.6e} "
+              f"final_explicit_f64={res.final_residual_norm:.6e} "
+              f"launches={ {k: v for k, v in counts.items() if v} }")
+        route = rt or "box"
+        if not (res.iter_count == 200
+                and math.isfinite(res.final_residual_norm)
+                and bool(torch.isfinite(res.x_star).all())
+                and counts["stencil_gs_color_step"] >= 4 * res.iter_count
+                and counts[f"stencil_gs_color_step_{route}"]
+                == counts["stencil_gs_color_step"]
+                and counts["super_level"] == 0):
+            raise RuntimeError("fdm:2048 SGS run failed its checks")
+        if main is None:
+            main = counts
+    print(f"[slice3] fdm:2048 f32 SGS ms/iter in turns (box, legs, legs, "
+          f"box): box={runs['box']} legs={runs['legs']}")
+    return super_launches, by_route, main["stencil_gs_color_step"], {
+        rt: main[f"stencil_gs_color_step_{rt}"] for rt in ("box", "legs")}
 
 
 def _ilu0_pair(torch, bt, spec, dt):
@@ -1341,19 +1437,6 @@ def _split_pair(L, U):
     128 % nx != 0)."""
     return (dataclasses.replace(L, fused=False, _args={}),
             dataclasses.replace(U, fused=False, _args={}))
-
-
-@contextlib.contextmanager
-def _halo_route(le, route):
-    """Every shard launch of #5 inside the block takes `route`
-    (lane_ell.halo_route_for replaced for it); None: the launch shape's."""
-    saved = le.halo_route_for
-    if route is not None:
-        le.halo_route_for = lambda *args, **kwargs: route
-    try:
-        yield
-    finally:
-        le.halo_route_for = saved
 
 
 def _owners(solves):
@@ -1876,6 +1959,8 @@ def _sparse_counters(bt, reset=False):
     fns = {"dia_spmv": (dia_spmv.dia_spmv, "launches"),
            "lane_ell_spmv": (lane_ell.lane_ell_spmv, "launches"),
            "rank_level": (bk.rank_level, "launches"),
+           "rank_level_vec": (bk.rank_level, "vec_launches"),
+           "rank_level_scalar": (bk.rank_level, "scalar_launches"),
            "stencil_spmv": (bt.stencil_op.stencil_spmv, "launches")}
     for route in lane_ell.ROUTES:
         fns[f"lane_ell_spmv_{route}"] = (lane_ell.lane_ell_spmv,
@@ -1886,14 +1971,15 @@ def _sparse_counters(bt, reset=False):
     return {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
 
 
-def _in_turns(torch, fns, order):
+def _in_turns(torch, fns, order, sleep_cycles=20_000_000):
     """Each callable of `fns` timed by its device time (_device_ms, behind
-    a ~10 ms sleep: these batches enqueue in well under that) in the order
-    given, names repeating (in turns); returns {name: [ms, ...]}."""
+    a sleep of `sleep_cycles`, by default ~10 ms: most batches enqueue in
+    well under that) in the order given, names repeating (in turns);
+    returns {name: [ms, ...]}."""
     out = {}
     for name in order:
         out.setdefault(name, []).append(
-            _device_ms(fns[name], torch, sleep_cycles=20_000_000))
+            _device_ms(fns[name], torch, sleep_cycles=sleep_cycles))
     return out
 
 
@@ -2169,7 +2255,7 @@ def phase_rankspace_vs_plain(torch, bt):
                         generator=g)
         X = torch.randn((L.n_colors, L.M), dtype=dt, device="cuda",
                         generator=g)
-        ms, plain_ms, worst, works = [], [], 0.0, []
+        ms, scalar_ms, plain_ms, worst, works = [], [], [], 0.0, []
         for B in (L, U):
             for li, (c, groups) in enumerate(B.levels):
                 if not groups:
@@ -2177,30 +2263,74 @@ def phase_rankspace_vs_plain(torch, bt):
                 label = (f"{BAND} {str(dt)[6:]} {'U' if B is U else 'L'} "
                          f"level {li} (colour {c}, {len(groups)} groups; "
                          f"host CSR {gen_s:.2f} s, pair {build_s:.2f} s)")
-                e, k, p = _kernel_vs_plain(
+                # vec, but for float64 levels of more than two groups,
+                # which the picker keeps on the scalar route
+                route = ("vec" if dt == torch.float32 or len(groups) <= 2
+                         else "scalar")
+                if bk.rank_route_for(B, li, Y, X) != route:
+                    raise RuntimeError(f"{label}: not on the {route} route")
+                before = getattr(bk.rank_level, f"{route}_launches")
+                e, _k, p = _kernel_vs_plain(
                     torch, "rankspace", label,
                     lambda v: bk.rank_level(B, li, Y, v.clone()),
                     lambda v: bk.rank_level_plain(B, li, Y, v.clone()),
                     bk.rank_level, X, plain_reps=6)
-                worst, ms, plain_ms = max(worst, e), ms + [k], plain_ms + [p]
-                works.append(_rank_level_work(B, li, X.element_size()))
+                xs = bk.rank_level(B, li, Y, X.clone(), route="scalar")
+                xa = X.clone()                   # y aliasing x, in place
+                bk.rank_level(B, li, xa, xa, route="vec")
+                xb = X.clone()
+                bk.rank_level(B, li, xb, xb, route="scalar")
+                xv = bk.rank_level(B, li, Y, X.clone(), route="vec")
+                if not (torch.equal(xs, xv) and torch.equal(xa, xb)
+                        and getattr(bk.rank_level, f"{route}_launches")
+                        > before):
+                    raise RuntimeError(f"{label}: the vec and scalar routes "
+                                       "differ")
+                turns = _in_turns(torch, {
+                    rt: (lambda rt=rt: bk.rank_level(B, li, Y, X, route=rt))
+                    for rt in ("vec", "scalar")},
+                    ("vec", "scalar", "scalar", "vec"))
+                work = _rank_level_work(B, li, X.element_size())
+                bound = _bound(*work)["bound_ms"]
+                k = min(turns["vec"])
+                print(f"[rankspace] {label}: route={route}; vec bit-equal "
+                      f"to scalar (y apart and y = x); device ms in turns "
+                      f"vec={turns['vec']} scalar={turns['scalar']} "
+                      f"bound_ms={bound:.5f} ({100 * bound / k:.0f}% on vec)")
+                worst = max(worst, e)
+                ms, plain_ms = ms + [k], plain_ms + [p]
+                scalar_ms.append(min(turns["scalar"]))
+                works.append(work)
         y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
-        before = bk.rank_level.launches
+        before = (bk.rank_level.launches, bk.rank_level.vec_launches)
         zk = bk.blocked_sgs(L, U, y)
-        launches = bk.rank_level.launches - before
+        launches = bk.rank_level.launches - before[0]
+        vec = bk.rank_level.vec_launches - before[1]
         Lc, Uc = (dataclasses.replace(B, vals=B.vals.cpu(), dinv=B.dinv.cpu(),
                                       d=None if B.d is None else B.d.cpu(),
                                       _tables={}) for B in (L, U))
         zp = bk.blocked_sgs(Lc, Uc, y.cpu()).cuda()
-        apply_ms = _median_ms(lambda: bk.blocked_sgs(L, U, y), torch)
+        def apply(rt):
+            with _route_forced(bk, "rank_route_for", rt):
+                return bk.blocked_sgs(L, U, y)
+        zs = apply("scalar")
+        apply_turns = _in_turns(torch, {rt: (lambda rt=rt: apply(rt))
+                                        for rt in ("vec", "scalar")},
+                                ("scalar", "vec", "vec", "scalar"))
         print(f"[rankspace] {BAND} {str(dt)[6:]} blocked_sgs ({launches} "
-              f"level launches) against the CPU's plain solve: "
-              f"bit_equal={torch.equal(zk, zp)} ms={apply_ms:.4f}")
-        if not torch.equal(zk, zp) or launches != 4:
+              f"level launches, {vec} on vec) against the CPU's plain "
+              f"solve: bit_equal={torch.equal(zk, zp)} (scalar route "
+              f"{torch.equal(zs, zp)}); device ms in turns (scalar, vec, "
+              f"vec, scalar) vec={apply_turns['vec']} "
+              f"scalar={apply_turns['scalar']}")
+        if not (torch.equal(zk, zp) and torch.equal(zs, zp)) \
+                or launches != 4 or vec != (4 if dt == torch.float32 else 2):
             raise RuntimeError(f"{BAND} {dt}: blocked_sgs disagrees or took "
-                               f"{launches} level launches, not 4")
+                               f"{launches} level launches ({vec} vec), not "
+                               "4")
         if dt == torch.float32:
             record = {"max_abs_err": worst, "ms": statistics.mean(ms),
+                      "scalar_ms": statistics.mean(scalar_ms),
                       "plain_ms": statistics.mean(plain_ms),
                       **_mean_bound(works)}
             Mlib, perm = _band_lower_csr(torch, A, colors)
@@ -2378,9 +2508,31 @@ def phase_slice5_path(torch, bt, sband, band):
         f"{type(setup.A).__name__})", setup, setup_s,
         lambda r, c: (r.iter_count == 800
                       and c["rank_level"] == 4 * (2 * 800 + 1)
+                      and c["rank_level_vec"] == c["rank_level"]
                       and c["dia_spmv"] >= 2 * 800))
     launches["rank_level"] = counts["rank_level"]
-    del setup
+    launches["rank_level_by_route"] = {
+        rt: counts[f"rank_level_{rt}"] for rt in ("vec", "scalar")}
+    # the row again with #8 on each route forced, in turns (the main path
+    # above took vec): scalar, scalar, vec
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    solver = make_method(setup)
+    turns = {"vec": [], "scalar": []}
+    for rt in ("scalar", "scalar", "vec"):
+        with _route_forced(bk, "rank_route_for", rt):
+            _sparse_counters(bt, reset=True)
+            res = bt.solve(setup, method=solver)
+        c = _sparse_counters(bt)
+        turns[rt].append(1e3 * res.solve_seconds / max(1, res.iter_count))
+        if not (res.iter_count == 800
+                and c[f"rank_level_{rt}"] == c["rank_level"] == 6404):
+            raise RuntimeError(f"pbicgstab@band on the {rt} route failed "
+                               "its checks")
+    print(f"[slice5] {BAND} f32 pbicgstab@band ms/iter in turns (the main "
+          f"path's vec, scalar, scalar, vec): vec={turns['vec']} "
+          f"scalar={turns['scalar']}")
+    del setup, solver
     torch.cuda.empty_cache()
 
     A = bt.generators.from_source("fdm:256")
@@ -3457,7 +3609,13 @@ def _bf16_counters(bt, reset=False):
     if reset:
         for fn in fns.values():
             fn.bf16_launches = 0
-    return {name: fn.bf16_launches for name, fn in fns.items()}
+        so.stencil_gs_color_step.box_launches = 0
+        so.stencil_gs_color_step.legs_launches = 0
+    out = {name: fn.bf16_launches for name, fn in fns.items()}
+    out.update({f"stencil_gs_step_{rt}": getattr(so.stencil_gs_color_step,
+                                                 f"{rt}_launches")
+                for rt in ("box", "legs")})
+    return out
 
 
 def _library_bf16(torch, A_host_csr, x):
@@ -3617,26 +3775,45 @@ def phase_bf16_vs_plain(torch, bt, sband):
     rhs = torch.randn(n, device="cuda", generator=g)
     dinv = 1.0 / so.stencil_diag(A).float()
     worst = None
+    gs = so.stencil_gs_color_step
+    if so.gs_route_for(A, x, rhs, dinv, cs) != "box":
+        raise RuntimeError("#3's bf16-diagonal form did not pick its box "
+                           "route")
     for c in range(cs.n_colors):
+        box_before = gs.box_launches
         err, ms_c, plain_c = _bf16_form(
             torch, "gs-step", f"#3 {ANDERSON_128} bf16 diagonal, colour {c}",
-            so.stencil_gs_color_step,
-            lambda v: so.stencil_gs_color_step(A, v, rhs, dinv, cs, c),
+            gs, lambda v: gs(A, v, rhs, dinv, cs, c),
             lambda v: so.stencil_gs_color_step_plain(A, v, rhs, dinv, cs, c),
-            lambda v: so.stencil_gs_color_step(Aw, v, rhs, dinv, cs, c), x,
+            lambda v: gs(Aw, v, rhs, dinv, cs, c), x,
             exact_plain=False, plain_reps=5)
+        legs_out = so._stencil_gs_color_step_cuda(A, x, rhs, dinv, cs, c,
+                                                  route="legs")
+        if gs.box_launches <= box_before or not torch.equal(
+                gs(A, x, rhs, dinv, cs, c), legs_out):
+            raise RuntimeError(f"#3 bf16 diagonal colour {c}: the box route "
+                               "was not taken or differs from the leg loop")
         if c == 0:
             worst = (err, ms_c, plain_c)
         else:
             worst = (max(worst[0], err),) + worst[1:]
+    turns = _in_turns(torch, {
+        rt: (lambda rt=rt: so._stencil_gs_color_step_cuda(
+            A, x, rhs, dinv, cs, 0, route=rt)) for rt in ("box", "legs")},
+        ("box", "legs", "legs", "box"))
     n_c = n // cs.n_colors
+    gs_bound = _bound(4 * (2 * n + 2 * n_c) + 2 * n_c, n_c * (2 * legs + 2))
+    sector = _bound(4 * 4 * n + 2 * n, n_c * (2 * legs + 2))
     records["stencil_gs_step_bf16diag"] = {
-        "max_abs_err": worst[0], "ms": worst[1], "plain_ms": worst[2],
-        "library_ms": None,
-        **_bound(4 * (2 * n + 2 * n_c) + 2 * n_c,
-                 n_c * (2 * legs + 2))}
-    print(f"[bf16] #3 {ANDERSON_128} colour 0 bound_ms="
-          f"{records['stencil_gs_step_bf16diag']['bound_ms']:.4f}; #1/#2 "
+        "max_abs_err": worst[0], "ms": min(turns["box"]),
+        "legs_ms": min(turns["legs"]), "wrapper_ms": worst[1],
+        "plain_ms": worst[2], "library_ms": None,
+        "sector_bound_ms": sector["bound_ms"], **gs_bound}
+    print(f"[bf16] #3 {ANDERSON_128} bf16 diagonal colour 0: box bit-equal "
+          f"to the leg loop on every colour; device ms in turns "
+          f"box={turns['box']} legs={turns['legs']} bound_ms="
+          f"{gs_bound['bound_ms']:.4f} (coloured rows) sector_bound_ms="
+          f"{sector['bound_ms']:.4f}; #1/#2 "
           f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}: x + y "
           f"f32 + diag bf16)")
     del A, Aw, x, rhs, dinv
@@ -3805,6 +3982,11 @@ def phase_slice7_cli(torch, bt):
             ok = ok and math.isfinite(final)
         if not ok:
             raise RuntimeError(f"[slice7] {label} failed its checks")
+        if want == "stencil_gs_step_bf16diag":
+            ok = ok and c["stencil_gs_step_box"] == c[want] and c[
+                "stencil_gs_step_legs"] == 0
+            launches["stencil_gs_step_bf16diag_by_route"] = {
+                rt: c[f"stencil_gs_step_{rt}"] for rt in ("box", "legs")}
         if want == "lane_ell_spmv_bf16":
             ok = ok and c["lane_ell_spmv_idx16"] == (
                 c[want] + c["lane_ell_spmv"])
@@ -3902,10 +4084,15 @@ def _mesh_counters(bt, reset=False):
             fn.launches = fn.bf16_launches = 0
         for route in lane_ell.HALO_ROUTES:
             setattr(halo, f"{route}_launches", 0)
+    gs = so.stencil_gs_color_step_halo
+    if reset:
+        gs.box_launches = gs.legs_launches = 0
     out = {name: fn.launches for name, fn in fns.items()}
     out.update({f"lane_ell_spmv_halo_{route}": getattr(halo,
                                                        f"{route}_launches")
                 for route in lane_ell.HALO_ROUTES})
+    out.update({f"stencil_gs_step_halo_{rt}": getattr(gs, f"{rt}_launches")
+                for rt in ("box", "legs")})
     return out
 
 
@@ -4108,21 +4295,42 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
                 return so.stencil_gs_color_step_halo_plain(
                     A, wins[k], k * R, rhss[k], dinvs[k], cs, c, diags[k])
 
+            halo = so.stencil_gs_color_step_halo
+            box_before = halo.box_launches
             outs, err, ms, plain_ms = _shards_vs_plain(
                 torch, "mesh-kernel", f"#3 {spec} {str(dt)[6:]} colour {c}",
-                launch, plain, so.stencil_gs_color_step_halo, attr,
-                TOL[str(dt).split(".")[1]], False, main)
+                launch, plain, halo, attr, TOL[str(dt).split(".")[1]], False,
+                False)
+            if halo.box_launches != box_before + MESH_SHARDS:
+                raise RuntimeError(f"#3 halo {spec} {dt}: a shard launch "
+                                   "left the box route")
+
+            def legs(k, c=c):
+                return so._stencil_gs_color_step_halo_cuda(
+                    A, wins[k], k * R, R, rhss[k], dinvs[k], cs, c, diags[k],
+                    None, route="legs")
             single = so.stencil_gs_color_step(A, x, rhs, dinv, cs, c)
-            if not torch.equal(torch.cat(outs)[:n], single):
+            if not (torch.equal(torch.cat(outs)[:n], single) and all(
+                    torch.equal(outs[k], legs(k))
+                    for k in range(MESH_SHARDS))):
                 raise RuntimeError(f"#3 halo {spec} {dt} colour {c}: the "
                                    "shards differ from the single-device "
-                                   "kernel")
+                                   "kernel or from the leg loop")
             print(f"[mesh-kernel] #3 {spec} {str(dt)[6:]} "
                   f"{'bf16-diag ' if md == torch.bfloat16 else ''}{cs.kind} "
-                  f"colour {c}/{cs.n_colors} rows/shard={R}: x' bit-equal to "
-                  f"the single-device kernel, max_abs_err_vs_plain="
-                  f"{err:.3e}")
+                  f"colour {c}/{cs.n_colors} rows/shard={R}: x' on the box "
+                  f"route bit-equal to the leg loop and to the "
+                  f"single-device kernel, max_abs_err_vs_plain={err:.3e}")
             if main:
+                # a batch enqueues 80 shard launches through the wrapper
+                # (~10 ms of host): behind _device_ms's default ~50 ms sleep
+                turns = _in_turns(torch, {
+                    "box": lambda: [launch(k) for k in range(MESH_SHARDS)],
+                    "legs": lambda: [legs(k) for k in range(MESH_SHARDS)]},
+                    ("box", "legs", "legs", "box"), sleep_cycles=100_000_000)
+                ms = min(turns["box"])
+                plain_ms = _median_ms(lambda: [plain(k) for k in range(
+                    MESH_SHARDS)], torch, reps=5, batch=2)
                 single_ms = _device_ms(lambda: so.stencil_gs_color_step(
                     A, x, rhs, dinv, cs, 0), torch)
                 call_ms = _median_ms(lambda: mo.mesh_gs_color_step(
@@ -4131,15 +4339,21 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
                 bound = _bound(window_bytes(wins, item)
                                + item * (n + 2 * n_c),
                                n_c * (2 * len(A.legs) + 2))
+                sector = _bound(window_bytes(wins, item) + item * 3 * n,
+                                n_c * (2 * len(A.legs) + 2))
                 print(f"[mesh-kernel] #3 {spec} f32 colour 0: 8 shard "
-                      f"launches ms={ms:.4f} (plain twins {plain_ms:.4f}; "
+                      f"launches device ms in turns box={turns['box']} "
+                      f"legs={turns['legs']} (plain twins {plain_ms:.4f}; "
                       f"single-device {single_ms:.4f}; the whole mesh step "
                       f"{call_ms:.4f}) bound_ms={bound['bound_ms']:.5f} "
-                      f"({bound['bound_by']})")
+                      f"({bound['bound_by']}; coloured rows) "
+                      f"sector_bound_ms={sector['bound_ms']:.5f}")
                 records["stencil_gs_step_halo"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err, "ms": ms,
+                    "legs_ms": min(turns["legs"]), "plain_ms": plain_ms,
                     "library_ms": None, "single_ms": single_ms,
-                    "call_ms": call_ms, **bound}
+                    "call_ms": call_ms,
+                    "sector_bound_ms": sector["bound_ms"], **bound}
         del A, W, wins, rhss, dinvs, x, rhs, dinv
     torch.cuda.empty_cache()
     # #4: the DIA SpMV's shard form
@@ -4384,10 +4598,14 @@ def phase_slice8(torch, bt, sband):
         bt.solve(s1, method=m1)                       # warm-up solves
         bt.solve(s8, method=m8)
         lane = kernel == "lane_ell_spmv_halo"
+        gs = kernel == "stencil_gs_step_halo"
         # cg@sband: the mesh also with every shard launch on #5's counted
-        # route, in turns with the launch shape's route
+        # route, in turns with the launch shape's route; sgs@fdm2048: with
+        # #3's shard launches on the leg loop, in turns with its box route
         order = (("single", "mesh", "mesh_counted", "mesh_counted", "mesh",
-                  "single") if lane else ("single", "mesh", "mesh", "single"))
+                  "single") if lane else
+                 ("single", "mesh", "mesh_legs", "mesh_legs", "mesh",
+                  "single") if gs else ("single", "mesh", "mesh", "single"))
         shape_route = (le.halo_route_for(s8.A.rows * le.LANES, sm_count(0))
                        if lane else None)
         ms = {which: [] for which in order}
@@ -4397,8 +4615,11 @@ def phase_slice8(torch, bt, sband):
             _sparse_counters(bt, reset=True)
             bt.stencil_op.stencil_gs_color_step.launches = 0
             mesh.reset_counts()
-            with _halo_route(le, "counted" if which == "mesh_counted"
-                             else None):
+            with _route_forced(le, "halo_route_for",
+                               "counted" if which == "mesh_counted"
+                               else None), \
+                    _route_forced(bt.stencil_op, "gs_halo_route_for",
+                                  "legs" if which == "mesh_legs" else None):
                 res = bt.solve(setup, method=method)
             counts = _mesh_counters(bt)
             single = _sparse_counters(bt)
@@ -4415,6 +4636,14 @@ def phase_slice8(torch, bt, sband):
                 ok = ok and exch["psum_bytes"] <= 8 * 3 * 8 * exch["psum"]
             if which == "mesh":
                 launches.setdefault(kernel, counts[kernel])
+            if gs and which != "single":
+                want = "legs" if which == "mesh_legs" else "box"
+                ok = ok and counts[f"stencil_gs_step_halo_{want}"] == counts[
+                    kernel]
+                if which == "mesh":
+                    launches.setdefault("stencil_gs_step_halo_by_route", {
+                        rt: counts[f"stencil_gs_step_halo_{rt}"]
+                        for rt in ("box", "legs")})
             if lane and which != "single":
                 want = "counted" if which == "mesh_counted" else shape_route
                 ok = ok and counts[f"lane_ell_spmv_halo_{want}"] == counts[
@@ -4425,6 +4654,8 @@ def phase_slice8(torch, bt, sband):
                         for rt in le.HALO_ROUTES})
             if which == "single":
                 ok = ok and not any(counts.values())
+                if gs:
+                    ok = ok and single["stencil_gs_color_step"] >= 4 * iters
             per = {k: round(v / it, 3) for k, v in
                    ({**counts, **single} if which != "single" else single)
                    .items() if v}
@@ -5020,7 +5251,8 @@ def main():
     lap("super_level_vs_plain")
     phase_cpu_vs_card_slice3(torch, bt)
     lap("cpu_vs_card_slice3")
-    super_launches, super_routes, gs_launches = phase_slice3_path(torch, bt)
+    super_launches, super_routes, gs_launches, gs_routes = \
+        phase_slice3_path(torch, bt)
     lap("slice3_path")
     table_record, whole_l = phase_ilu0_level_vs_plain(torch, bt)
     lap("ilu0_level_vs_plain")
@@ -5121,7 +5353,8 @@ def main():
         "name": "stencil_gs_color_step", "route": "cuda",
         "source": src + "stencil_spmv.cu",
         "replaces": "basic_iterative_solvers_tpu/stencil_op.py:660",
-        "launches": gs_launches, **gs_record})
+        "launches": gs_launches, "launches_by_route": gs_routes,
+        **gs_record})
     kernels.append({
         "name": "super_level", "route": "cuda",
         "source": src + "block_trisolve.cu",
@@ -5137,8 +5370,13 @@ def main():
             for rt in ("staged", "direct")} for row in ("pcg_ilu0",
                                                         "pcg_ilu0@384")},
         "lane_ell_spmv": slice5_launches["lane_ell_spmv_by_route"],
+        "rank_level": slice5_launches["rank_level_by_route"],
         "lane_ell_spmv_bf16": bf16_launches["lane_ell_spmv_bf16_by_route"],
+        "stencil_gs_step_bf16diag": bf16_launches[
+            "stencil_gs_step_bf16diag_by_route"],
         "lane_ell_spmv_halo": mesh_launches["lane_ell_spmv_halo_by_route"],
+        "stencil_gs_step_halo": mesh_launches[
+            "stencil_gs_step_halo_by_route"],
         "super_level_halo": {f"{k}_{rt}": sum(
             c.get(f"super_level_halo_{k}_{rt}", 0)
             for c in mesh_super_launches.values())
@@ -5257,6 +5495,7 @@ def main():
                                         "padded32_bound_ms",
                                         "whole_library_ms", "direct_ms",
                                         "direct_ms_384", "apply_ms_384",
+                                        "scalar_ms", "sector_bound_ms",
                                         "direct_apply_ms_384",
                                         "bound_apply_ms_384")
          if key in k}

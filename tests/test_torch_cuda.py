@@ -8,6 +8,8 @@ conftest:
 
 This file imports torch and numpy only.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -944,3 +946,192 @@ def test_table_level_staged_on_a_mesh(card, dt):
                               ys[k].clone(), wd)
                 torch.cuda.synchronize()
                 assert torch.equal(ws, twin) and torch.equal(ws, wd)
+
+
+RANK_CASES = [("band:30000,2", None), ("band:5000,3", None),
+              ("fdm:64", 3), ("band:2000,8", None)]
+
+
+def _rank_pair(card, spec, mod, dt):
+    from basic_iterative_solvers_tpu_torch import coloring as tcol
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    A = bt.generators.from_source(spec)
+    cs = (bt.generators.color_spec_for_source(spec) if mod is None
+          else tcol.ColorSpec("mod", mod, (mod,)))
+    colors = tcol.spec_colors_np(cs, A.n_rows)
+    return bk.build_best_trisolve_pair(A, A.diagonal(), A.diagonal(), colors,
+                                       cs, dtype=dt, need_d=True, device=card)
+
+
+def _rank_routes(bk):
+    return (bk.rank_level.vec_launches, bk.rank_level.scalar_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("spec,mod", RANK_CASES)
+def test_rank_level_routes_equal_plain(card, spec, mod, dt):
+    """Kernel #8 on every level with groups: the vec and the scalar route
+    bit-equal to each other and to the plain level (on the CPU), with y a
+    separate tensor and with y aliasing x (the U solve in place); the
+    level's launch counted on its route; rank_route_for names "vec" where
+    the level has at most 8 groups, 2 in float64 (band:2000,8's longest
+    levels: scalar, and the vec route refuses them)."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for B in _rank_pair(card, spec, mod, dt):
+        Bc = dataclasses.replace(B, vals=B.vals.cpu(), dinv=B.dinv.cpu(),
+                                 d=None, _tables={})
+        for li, (c, groups) in enumerate(B.levels):
+            if not groups:
+                continue
+            want = ("vec" if len(groups) <= (
+                2 if dt == torch.float64 else 8) else "scalar")
+            assert bk.rank_route_for(B, li) == want
+            X = torch.randn((B.n_colors, B.M), dtype=dt, device=card,
+                            generator=g)
+            Y = torch.randn_like(X)
+            for alias in (False, True):
+                outs = {}
+                for route in ("vec", "scalar"):
+                    if route == "vec" and len(groups) > 8:
+                        with pytest.raises(ValueError, match="vec route"):
+                            bk.rank_level(B, li, Y, X.clone(), route=route)
+                        continue
+                    count = f"{route}_launches"
+                    before = getattr(bk.rank_level, count)
+                    x = X.clone()
+                    bk.rank_level(B, li, x if alias else Y, x, route=route)
+                    assert getattr(bk.rank_level, count) == before + 1
+                    outs[route] = x
+                xp = X.cpu()
+                bk.rank_level_plain(Bc, li, xp if alias else Y.cpu(), xp)
+                torch.cuda.synchronize()
+                for route, x in outs.items():
+                    assert torch.equal(x.cpu(), xp), (route, li, alias)
+                before = getattr(bk.rank_level, f"{want}_launches")
+                bk.rank_level(B, li, Y, X.clone())
+                assert getattr(bk.rank_level, f"{want}_launches") == \
+                    before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_blocked_sgs_takes_the_vec_route(card, dt):
+    """A whole blocked_sgs apply on band:30000,2 launches its 4 levels on
+    the picker's routes (all vec in float32; the 2-group ones in float64)
+    and equals the CPU's plain apply bit for bit."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    L, U = _rank_pair(card, "band:30000,2", None, dt)
+    y = torch.randn(L.n_rows, dtype=dt, device=card)
+    before = _rank_routes(bk)
+    z = bk.blocked_sgs(L, U, y)
+    vec = 4 if dt == torch.float32 else 2
+    assert _rank_routes(bk) == (before[0] + vec, before[1] + 4 - vec)
+    Lc, Uc = (dataclasses.replace(B, vals=B.vals.cpu(), dinv=B.dinv.cpu(),
+                                  d=None if B.d is None else B.d.cpu(),
+                                  _tables={}) for B in (L, U))
+    assert torch.equal(z.cpu(), bk.blocked_sgs(Lc, Uc, y.cpu()))
+
+
+GS_BOX_CASES = ["hpcg:128x128x128", "hpcg:37x21x5", "fdm:2048", "fdm:70",
+                "anderson:Lx=32,Ly=24,Lz=16,t=1.0,ranpot=4.0,seed=1",
+                "bf16:anderson:Lx=32,Ly=24,Lz=16,t=1.0,ranpot=4.0,seed=1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GS_BOX_CASES)
+@pytest.mark.parametrize("dt,rtol", [(torch.float32, 1e-5),
+                                     (torch.float64, 1e-12)])
+def test_gs_step_routes_equal_plain(card, case, dt, rtol):
+    """#3 on every colour: the box route (forced wherever lines are whole
+    16-byte vectors) and the leg loop bit-equal, within rtol of plain
+    (which sums leg by leg); each launch counted on its route, the
+    default call on gs_route_for's (box there, but for float64 on a 3-D
+    grid); a forced box route on lines it cannot take raises."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    A = _box_operator(card, case, dt)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(A.n_rows, dtype=dt, device=card, generator=g)
+    rhs = torch.randn(A.n_rows, dtype=dt, device=card, generator=g)
+    dinv = 1.0 / tso.stencil_diag(A).to(dt)
+    cs = spec_for_device(A)
+    route = tso.gs_route_for(A, x, rhs, dinv, cs)
+    fits = A.dims[0] % (16 // x.element_size()) == 0
+    flat = A.dims[2] == 1
+    assert route == ("box" if fits and (dt == torch.float32 or flat)
+                     else "legs")
+    fn = tso.stencil_gs_color_step
+    for c in range(cs.n_colors):
+        before = _routes(fn)
+        box = (tso._stencil_gs_color_step_cuda(A, x, rhs, dinv, cs, c,
+                                               route="box")
+               if fits else None)
+        legs = tso._stencil_gs_color_step_cuda(A, x, rhs, dinv, cs, c,
+                                               route="legs")
+        default = fn(A, x, rhs, dinv, cs, c)
+        torch.cuda.synchronize()
+        assert _routes(fn) == (before[0] + fits + (route == "box"),
+                               before[1] + 1 + (route == "legs"))
+        assert torch.equal(default, legs)
+        if box is not None:
+            assert torch.equal(box, legs), c
+        p = tso.stencil_gs_color_step_plain(A, x, rhs, dinv, cs, c)
+        assert float((legs - p).abs().max()) <= rtol * float(p.abs().max())
+    if not fits:
+        with pytest.raises(RuntimeError, match="box route"):
+            tso._stencil_gs_color_step_cuda(A, x, rhs, dinv, cs, 0,
+                                            route="box")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,mat_dt", [
+    ("fdm:2048", torch.float32), ("fdm:2048", torch.float64),
+    ("anderson:Lx=32,Ly=24,Lz=16,t=1.0,ranpot=4.0,seed=1", torch.float32),
+    ("anderson:Lx=32,Ly=24,Lz=16,t=1.0,ranpot=4.0,seed=1", torch.bfloat16)])
+def test_gs_halo_routes_equal_single_device(card, spec, mat_dt):
+    """#3's shard form on an 8-shard mesh: every shard on the box route
+    (gs_halo_route_for's) and on the leg loop bit-equal, the shards
+    together bit-equal to the single-device step, every colour; each
+    shard launch counted on its route; shards of 5 lines of an Anderson
+    grid (not starting on a plane) too."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.parallel import mesh_ops
+    dt = torch.float64 if mat_dt == torch.float64 else torch.float32
+    A, W, x = _mesh_operands(card, "gs_step", spec, dt, mat_dt)
+    cs = spec_for_device(A)
+    rhs = torch.randn_like(x)
+    dinv = 1.0 / tso.stencil_diag(A).to(dt)
+    n, hneg, hpos = A.n_rows, *A.halo
+    fn = tso.stencil_gs_color_step_halo
+    for R in (W.rows, 5 * A.dims[0]):
+        n_dev = -(-n // R)
+        pad = lambda v: torch.nn.functional.pad(v, (0, n_dev * R - n))  # noqa: E731
+        xw = torch.nn.functional.pad(pad(x), (hneg, hpos))
+        rs, ds = pad(rhs).split(R), pad(dinv).split(R)
+        dg = None if A.diag is None else pad(A.diag).split(R)
+        for c in range(cs.n_colors):
+            single = tso.stencil_gs_color_step(A, x, rhs, dinv, cs, c)
+            outs = {"box": [], "legs": []}
+            for k in range(n_dev):
+                win = xw[k * R:k * R + hneg + R + hpos].contiguous()
+                d = None if dg is None else dg[k].contiguous()
+                r, dv = rs[k].contiguous(), ds[k].contiguous()
+                assert tso.gs_halo_route_for(A, win, r, dv, cs, d) == "box"
+                for route in ("box", "legs"):
+                    before = _routes(fn)
+                    outs[route].append(tso._stencil_gs_color_step_halo_cuda(
+                        A, win, k * R, R, r, dv, cs, c, d, None,
+                        route=route))
+                    assert _routes(fn) == (before[0] + (route == "box"),
+                                           before[1] + (route == "legs"))
+            torch.cuda.synchronize()
+            box, legs = torch.cat(outs["box"]), torch.cat(outs["legs"])
+            assert torch.equal(box, legs), (R, c)
+            assert torch.equal(box[:n], single), (R, c)
+            assert not bool(box[n:].any())
+        before = _routes(fn)
+        y8 = mesh_ops.mesh_gs_color_step(W, x, rhs, dinv, cs, 0)
+        assert _routes(fn) == (before[0] + W.n_devices, before[1])
+        assert torch.equal(y8, tso.stencil_gs_color_step(A, x, rhs, dinv, cs,
+                                                         0))

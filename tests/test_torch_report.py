@@ -173,6 +173,7 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "stencil_spmv_box_kernel": "spmv",
             "stencil_spmv_stream_box_kernel": "spmv",
             "stencil_gs_color_step_kernel": "spmv",
+            "stencil_gs_color_step_box_kernel": "spmv",
             "dia_spmv_kernel": "spmv", "lane_ell_spmv_kernel": "spmv",
             "stencil_spmv_halo_kernel": "spmv",
             "stencil_gs_color_step_halo_kernel": "spmv",
@@ -186,6 +187,7 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "super_parity_kernel": "sptrsv",
             "super_solve_mega_kernel": "sptrsv",
             "rank_level_kernel": "sptrsv",
+            "rank_level_vec_kernel": "sptrsv",
             "project_gram_kernel_strided": "orthog",
             "project_gram_kernel_ring": "orthog",
             "correct_write_kernel_strided": "orthog",
