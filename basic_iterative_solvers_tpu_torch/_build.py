@@ -296,6 +296,17 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"bis_super_level_line_{dt}")
         fn.argtypes = [i32, level, i32, i32] + [ptr] * 6
         fn.restype = i32
+        # the split route's staged and line kernels: acc staged (y, x,
+        # acc, table), acc line (tl, lb, y, x, acc, vc), parity staged (p,
+        # tl, lb, y, acc, x, table, tdinv), parity line (p, tl, lb, y, acc,
+        # x, vs, drows); the stream last
+        for name, args in (("super_acc_staged", [ptr] * 5),
+                           ("super_acc_line", [i32] * 2 + [ptr] * 5),
+                           ("super_parity_staged", [i32] * 3 + [ptr] * 6),
+                           ("super_parity_line", [i32] * 3 + [ptr] * 6)):
+            fn = getattr(lib, f"bis_{name}_{dt}")
+            fn.argtypes = [i32, level] + args
+            fn.restype = i32
     lib.bis_super_solve_mega_grid.argtypes = [i32] * 4
     lib.bis_super_solve_mega_grid.restype = i32
     for size_fn, mirror, source in (

@@ -14,9 +14,11 @@
 // route of factor-table mode, super_level_staged_kernel; the "line" route
 // of plane and const modes, super_level_line_kernel), and its mesh form
 // (row0 on the shards of _solve_super_mesh: the same kernels on one
-// shard's window, below), the split-mode pair _super_acc_pallas (super_acc_kernel) and
-// _super_parity_pallas (super_parity_kernel), and _super_solve_pallas_mega
-// (super_solve_mega_kernel).  The plain forms are ops/block_trisolve.py's
+// shard's window, below), the split-mode pair _super_acc_pallas
+// (super_acc_kernel, the "direct" route; super_acc_staged_kernel and
+// super_acc_line_kernel) and _super_parity_pallas (super_parity_kernel;
+// super_parity_staged_kernel and super_parity_line_kernel), and
+// _super_solve_pallas_mega (super_solve_mega_kernel).  The plain forms are ops/block_trisolve.py's
 // super_level_plain, super_level_halo_plain, super_acc_plain,
 // super_parity_plain and super_solve_mega_plain.
 //
@@ -147,6 +149,47 @@
 // launch's rows fill the card's resident threads (lines x nx >= SMs x
 // 1,024) and a line fits 48 KB; the direct route elsewhere (the 8 launches
 // of a 128^3 shard level, 512 lines each, ran 10-13% faster on it).
+//
+// The split route's acc and parity steps (super_acc_kernel and
+// super_parity_kernel are their "direct" route, the first port's) have a
+// route of their own in each mode, taken where the fused level takes its
+// staged or line route (ops/block_trisolve.split_route_for: the fused
+// level's route, but a factor table's parity step in float64 takes the
+// staged route where the float32 level does, and its acc step stays
+// direct, as the fused float64 levels do):
+//   - "staged" (factor-table mode): super_acc_staged_kernel runs the
+//     staged fused kernel's cross half (staged_cross_line: a warp a line,
+//     the line's cross-leg factors and each x's class in shared memory,
+//     interior rows unrolled to the bucket with 32-bit offsets, edge rows
+//     tested) and writes acc once, coalesced, in slot order;
+//     super_parity_staged_kernel stages each line's self-leg factors and
+//     pivots and runs the staged parity pass (staged_parity_rows).  Both
+//     walk the lines persistently (a grid of the blocks resident at once)
+//     and restage a line slot only where the (y, z) class changes;
+//   - "line" (plane mode): super_acc_line_kernel runs the line kernel's
+//     cross half (line_sources, line_cross_rows: no division a row) on
+//     line_shape's block; super_parity_line_kernel the line parity pass
+//     (line_parity_rows), the self planes read at the row's slot;
+//   - both parity kernels take the block of ops/block_trisolve.
+//     parity_shape (the line route's rule on the nx/sx rows of a parity):
+//     every thread works, thread k of a line on rows p + sx*k, p + sx*(k
+//     + tl), ..., the self legs' solved parities one bitmask a launch, no
+//     % in a per-row path; only parity p's rows are written.
+// The fused line kernel calls the same bodies as the split line kernels,
+// with the block's line buffer in shared memory as acc and x; the fused
+// staged kernel keeps its own (calling the staged bodies slowed its 6-leg
+// levels, see there).  Measured on the H100 at 384^3, float32
+// (scripts/split_route_ab.py, device time in turns): the staged acc step
+// 0.30 ms a level (mean) against the direct route's 0.40 (its bound
+// 0.068), the staged parity step 0.066-0.069 against 0.153 (62-65% of its
+// sector bound); in float64 the staged acc step lost (0.60 against 0.41)
+// and the staged parity step won (0.128 against 0.158).  The staged acc
+// step takes time in step with the source lines a row reads (0.13, 0.34,
+// 0.41 ms for 2, 6, 8), not with its load instructions: forms that read
+// each source line once a warp (the dx = +-1 legs by warp shuffles from
+// the dx = 0 load) or a thread (16 bytes of rows a thread, the two
+// neighbours loaded or shuffled in) tied or lost (0.306-0.361 against
+// 0.300-0.314 in the same runs), so none is kept.
 // Every route keeps the plain version's order of differences and
 // products, each rounded alone, so each level stays bit-equal to it and
 // to the direct route.
@@ -209,6 +252,7 @@ __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, 
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
 
 // Prototype coordinate of grid coordinate i on an axis of n points.
 __device__ __forceinline__ int proto_class(int i, int n, int P, int s, int R) {
@@ -400,6 +444,145 @@ static size_t staged_smem(const BisSuperLevelArgs& a) {
            + lines * (a.n_cross + a.n_self + 1) * a.proto_x * sizeof(float);
 }
 
+// The bodies of the staged and line routes.  The fused line kernel calls
+// line_sources, line_cross_rows and line_parity_rows with the block's
+// line buffer in shared memory as acc and x, the split line kernels with
+// acc and x in global memory.  The staged bodies are the fused staged
+// kernel's cross half and parity pass (that kernel keeps its own copy:
+// see there), called by the split staged kernels.  Each keeps the plain
+// version's order of differences and products.
+
+// The block's x-classes: cls[gx] for every x of a line.
+__device__ __forceinline__ void stage_classes(const BisSuperLevelArgs& a,
+                                              int* cls) {
+    const int nt = blockDim.x * blockDim.y;
+    for (int gx = threadIdx.y * blockDim.x + threadIdx.x; gx < a.nx;
+         gx += nt)
+        cls[gx] = proto_class(gx, a.nx, a.proto_x, a.sx, a.radius);
+}
+
+// A line's (y, z) class: the offset of its x-class 0 in a table row.
+__device__ __forceinline__ int line_class(const BisSuperLevelArgs& a,
+                                          const LevelRow& r) {
+    return a.proto_x * (proto_class(r.gy, a.ny, a.proto_y, a.sy, a.radius)
+                        + a.proto_y * proto_class(r.gz, a.nz, a.proto_z,
+                                                  a.sz, a.radius));
+}
+
+// The line's factors of legs [l0, l1) of (cross legs, then self legs):
+// fac[(l - l0) * Px + cx] at x-class cx; then, where tdinv, U's pivots at
+// fac[(l1 - l0) * Px + cx].  By the line's threads (lane of nlanes).
+template <typename T>
+__device__ __forceinline__ void stage_factors(const BisSuperLevelArgs& a,
+                                              int cyz, const T* table,
+                                              const T* tdinv, T* fac, int l0,
+                                              int l1, int lane, int nlanes) {
+    const int Px = a.proto_x;
+    for (int l = l0; l < l1; ++l) {
+        const T* const row = table + (long long)(
+            l < a.n_cross ? a.cross_kd[l] : a.self_kd[l - a.n_cross])
+            * a.n_proto + cyz;
+        for (int c = lane; c < Px; c += nlanes)
+            fac[(l - l0) * Px + c] = row[c];
+    }
+    if (tdinv)
+        for (int c = lane; c < Px; c += nlanes)
+            fac[(l1 - l0) * Px + c] = tdinv[cyz + c];
+}
+
+// The self legs whose source parity (p + dx) mod sx is solved: one bit a
+// leg, worked out once a pass, so no row takes a %.
+__device__ __forceinline__ unsigned solved_mask(const BisSuperLevelArgs& a,
+                                                int p) {
+    unsigned solved = 0;
+    for (int l = 0; l < a.n_self; ++l) {
+        int q = (p + a.self_dx[l]) % a.sx;
+        q += q < 0 ? a.sx : 0;
+        if (a.upper ? q > p : q < p) solved |= 1u << l;
+    }
+    return solved;
+}
+
+__device__ __forceinline__ bool line_inside(const BisSuperLevelArgs& a,
+                                            const LevelRow& r) {
+    return r.gy >= a.cross_ry && r.gy < a.ny - a.cross_ry
+           && r.gz >= a.cross_rz && r.gz < a.nz - a.cross_rz;
+}
+
+// Staged cross half of the row at x = gx: y - sum_cross f * x, factors
+// from the line's staged ones.  Interior rows: the bucket's legs
+// unrolled, no bounds test, 32-bit offsets, loads before the arithmetic;
+// edge rows: the tested loop.
+template <typename T, int NCB>
+__device__ __forceinline__ T staged_cross_row(const BisSuperLevelArgs& a,
+                                              const LevelRow& r, bool line_in,
+                                              const int* cls, const T* fac,
+                                              const T* y, const T* x,
+                                              int gx) {
+    const int nx = a.nx, Px = a.proto_x, nc = a.n_cross;
+    T acc = y[r.iy + gx];
+    if (NCB > 0) {
+        const int cx = cls[gx];
+        const T* const xr = x + (r.ix + gx);
+        if (line_in && gx >= a.cross_rx && gx < nx - a.cross_rx) {
+            T xv[NCB > 0 ? NCB : 1];
+#pragma unroll
+            for (int l = 0; l < NCB; ++l)
+                if (l < nc) xv[l] = __ldg(xr + (int)a.cross_off[l]);
+#pragma unroll
+            for (int l = 0; l < NCB; ++l)
+                if (l < nc)
+                    acc = sub_rn(acc, mul_rn(fac[l * Px + cx], xv[l]));
+        } else {
+            for (int l = 0; l < nc; ++l) {
+                const int px = gx + a.cross_dx[l], py = r.gy + a.cross_dy[l],
+                          pz = r.gz + a.cross_dz[l];
+                if (px >= 0 && px < nx && py >= 0 && py < a.ny && pz >= 0 &&
+                    pz < a.nz)
+                    acc = sub_rn(acc, mul_rn(fac[l * Px + cx],
+                                             xr[(int)a.cross_off[l]]));
+            }
+        }
+    }
+    return acc;
+}
+
+// The staged cross half of a line into out[gx] (lane of nlanes).
+template <typename T, int NCB>
+__device__ __forceinline__ void staged_cross_line(
+        const BisSuperLevelArgs& a, const LevelRow& r, const int* cls,
+        const T* fac, const T* y, const T* x, T* out, int lane, int nlanes) {
+    const bool line_in = line_inside(a, r);
+    for (int gx = lane; gx < a.nx; gx += nlanes)
+        out[gx] = staged_cross_row<T, NCB>(a, r, line_in, cls, fac, y, x, gx);
+}
+
+// Staged parity pass: parity p's rows of a line, thread k of tl on rows
+// p + sx*k, p + sx*(k + tl), ...: out[gx] = (v[gx] - sum_self f *
+// xs[gx + dx]) (times the pivot where `pivot`), fsel the line's staged
+// self-leg factors, then its pivots.
+template <typename T>
+__device__ __forceinline__ void staged_parity_rows(
+        const BisSuperLevelArgs& a, int p, unsigned solved, const int* cls,
+        const T* fsel, bool pivot, const T* v_in, const T* xs, T* out, int k,
+        int tl) {
+    const int nx = a.nx, sx = a.sx, Px = a.proto_x, ns = a.n_self;
+    for (int gx = p + sx * k; gx < nx; gx += sx * tl) {
+        const int cx = cls[gx];
+        T v = v_in[gx];
+        for (int l = 0; l < ns; ++l) {
+            const int px = gx + a.self_dx[l];
+            if ((solved >> l & 1u) && px >= 0 && px < nx)
+                v = sub_rn(v, mul_rn(fsel[l * Px + cx], xs[px]));
+        }
+        out[gx] = pivot ? mul_rn(v, fsel[ns * Px + cx]) : v;
+    }
+}
+
+// The fused staged kernel keeps a body of its own: built from the staged
+// bodies above, its 6-leg levels at 384^3 ran 7.5-11% slower (the fused
+// levels of this file and of its parent commit timed in turns, scripts/
+// split_route_ab.py --fused), beyond that run's 1% spread.
 template <typename T, int NCB>
 __global__ void __launch_bounds__(256, BIS_SL_MIN_BLOCKS)
 super_level_staged_kernel(const __grid_constant__ BisSuperLevelArgs a,
@@ -517,6 +700,103 @@ static size_t line_smem(const BisSuperLevelArgs& a, int lb, size_t item) {
     return (size_t)lb * ((size_t)a.nx * item + groups);
 }
 
+// Plane mode: src[2l + h], the offset from x[ix] of line k + q_l + h's
+// row at x = r_l (h = 1 less nx), for the rows at x < nx - r_l (h = 0)
+// and the rest; BIS_SL_NO_SOURCE where that line leaves the superblock.
+// Line k of the launch, by its threads (lane of nlanes).
+__device__ __forceinline__ void line_sources(const BisSuperLevelArgs& a,
+                                             const LevelRow& r, int k,
+                                             int* src, int lane, int nlanes) {
+    const int nx = a.nx;
+    const long long lines_m = a.m / nx;
+    for (int l = lane; l < a.n_cross; l += nlanes) {
+        for (int h = 0; h < 2; ++h) {
+            const long long sl = (long long)a.line0 + k + a.cross_q[l] + h;
+            int e = BIS_SL_NO_SOURCE;
+            if (sl >= 0 && sl < lines_m) {
+                const long long gy = (long long)a.sy * (sl % a.my)
+                                     + a.cross_spy[l];
+                const long long gz = (long long)a.sz * (sl / a.my)
+                                     + a.cross_spz[l];
+                e = (int)(nx * (gy + (long long)a.ny * gz) - r.row)
+                    + a.cross_r[l] - h * nx;
+            }
+            src[2 * l + h] = e;
+        }
+    }
+}
+
+// The line route's cross half of a line into out[gx] (lane of nlanes):
+// plane mode through the line's source offsets (no division a row), const
+// mode with interior rows unrolled to the bucket and edge rows tested.
+template <typename T, int MODE, int NCB>
+__device__ __forceinline__ void line_cross_rows(
+        const BisSuperLevelArgs& a, const LevelRow& r, const int* src,
+        const T* y, const T* x, const T* vc, T* out, int lane, int nlanes) {
+    const int nx = a.nx, nc = a.n_cross;
+    const bool line_in = line_inside(a, r);
+    for (int gx = lane; gx < nx; gx += nlanes) {
+        T acc = y[r.iy + gx];
+        const T* const xr = x + (r.ix + gx);
+        if (MODE == BIS_SL_PLANE) {
+            const T* const vr = vc + (r.slot - a.slot0 + gx);
+#pragma unroll
+            for (int l = 0; l < NCB; ++l) {
+                if (l < nc) {
+                    const int e = src[2 * l + (gx + a.cross_r[l] < nx
+                                               ? 0 : 1)];
+                    const T xv = e != BIS_SL_NO_SOURCE
+                        ? xr[e != BIS_SL_NO_SOURCE ? e : 0] : T(0);
+                    acc = sub_rn(acc, mul_rn(vr[l * a.plane_m], xv));
+                }
+            }
+        } else if (line_in && gx >= a.cross_rx && gx < nx - a.cross_rx) {
+#pragma unroll
+            for (int l = 0; l < NCB; ++l)
+                if (l < nc)
+                    acc = sub_rn(acc, mul_rn(T(a.cross_coeff[l]),
+                                             xr[(int)a.cross_off[l]]));
+        } else {
+            for (int l = 0; l < nc; ++l) {
+                const int px = gx + a.cross_dx[l], py = r.gy + a.cross_dy[l],
+                          pz = r.gz + a.cross_dz[l];
+                if (px >= 0 && px < nx && py >= 0 && py < a.ny && pz >= 0
+                    && pz < a.nz)
+                    acc = sub_rn(acc, mul_rn(T(a.cross_coeff[l]),
+                                             xr[(int)a.cross_off[l]]));
+            }
+        }
+        out[gx] = acc;
+    }
+}
+
+// The line route's parity pass: parity p's rows of a line, thread k of tl
+// on rows p + sx*k, p + sx*(k + tl), ...: out[gx] = (v[gx] - sum_self f *
+// xs[gx + dx]) * dinv, plane mode's f from the self planes at the row's
+// slot (every plane's value multiplied, 0 where its source is unsolved),
+// const mode's the leg's coefficient; dinv the per-row 1/D or the scalar.
+template <typename T, int MODE>
+__device__ __forceinline__ void line_parity_rows(
+        const BisSuperLevelArgs& a, int p, unsigned solved, const LevelRow& r,
+        const T* v_in, const T* xs, T* out, const T* vs, const T* drows,
+        int k, int tl) {
+    const int nx = a.nx, sx = a.sx, ns = a.n_self;
+    for (int gx = p + sx * k; gx < nx; gx += sx * tl) {
+        T v = v_in[gx];
+        for (int l = 0; l < ns; ++l) {
+            const int px = gx + a.self_dx[l];
+            const bool ok = (solved >> l & 1u) && px >= 0 && px < nx;
+            if (MODE == BIS_SL_PLANE)
+                v = sub_rn(v, mul_rn(
+                    vs[l * a.plane_m + (r.slot - a.slot0 + gx)],
+                    ok ? xs[ok ? px : gx] : T(0)));
+            else if (ok)
+                v = sub_rn(v, mul_rn(T(a.self_coeff[l]), xs[px]));
+        }
+        out[gx] = mul_rn(v, drows ? drows[r.iy + gx] : T(a.dinv));
+    }
+}
+
 template <typename T, int MODE, int NCB>
 __global__ void __launch_bounds__(BIS_SL_LINE_THREADS)
 super_level_line_kernel(const __grid_constant__ BisSuperLevelArgs a,
@@ -524,98 +804,26 @@ super_level_line_kernel(const __grid_constant__ BisSuperLevelArgs a,
                         const T* __restrict__ vs,
                         const T* __restrict__ drows) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int nx = a.nx, sx = a.sx, nc = a.n_cross, ns = a.n_self;
-    const int tl = blockDim.x;
+    const int nx = a.nx, tl = blockDim.x;
     const int k = blockIdx.x * blockDim.y + threadIdx.y;
     const LevelRow r = level_line(a, k);
     T* const line = reinterpret_cast<T*>(smem_raw) + threadIdx.y * nx;
-    // src[2l + h]: the offset from x[ix] of line + q_l + h's row at x = r_l
-    // (h = 1 less nx), for the rows at x < nx - r_l (h = 0) and the rest
     int* const src = reinterpret_cast<int*>(
-        reinterpret_cast<T*>(smem_raw) + blockDim.y * nx) + threadIdx.y * 2 * nc;
-    if (MODE == BIS_SL_PLANE && r.live) {
-        const long long lines_m = a.m / nx;
-        for (int l = threadIdx.x; l < nc; l += tl) {
-            for (int h = 0; h < 2; ++h) {
-                const long long sl = (long long)a.line0 + k + a.cross_q[l] + h;
-                int e = BIS_SL_NO_SOURCE;
-                if (sl >= 0 && sl < lines_m) {
-                    const long long gy = (long long)a.sy * (sl % a.my)
-                                         + a.cross_spy[l];
-                    const long long gz = (long long)a.sz * (sl / a.my)
-                                         + a.cross_spz[l];
-                    e = (int)(nx * (gy + (long long)a.ny * gz) - r.row)
-                        + a.cross_r[l] - h * nx;
-                }
-                src[2 * l + h] = e;
-            }
-        }
-    }
+        reinterpret_cast<T*>(smem_raw) + blockDim.y * nx)
+        + threadIdx.y * 2 * a.n_cross;
+    if (MODE == BIS_SL_PLANE && r.live)
+        line_sources(a, r, k, src, threadIdx.x, tl);
     __syncthreads();
-    if (r.live) {
-        const bool line_in = r.gy >= a.cross_ry && r.gy < a.ny - a.cross_ry
-                             && r.gz >= a.cross_rz
-                             && r.gz < a.nz - a.cross_rz;
-        for (int gx = threadIdx.x; gx < nx; gx += tl) {
-            T acc = y[r.iy + gx];
-            const T* const xr = x + (r.ix + gx);
-            if (MODE == BIS_SL_PLANE) {
-                const T* const vr = vc + (r.slot - a.slot0 + gx);
-#pragma unroll
-                for (int l = 0; l < NCB; ++l) {
-                    if (l < nc) {
-                        const int e = src[2 * l + (gx + a.cross_r[l] < nx
-                                                   ? 0 : 1)];
-                        const T xv = e != BIS_SL_NO_SOURCE
-                            ? xr[e != BIS_SL_NO_SOURCE ? e : 0] : T(0);
-                        acc = sub_rn(acc, mul_rn(vr[l * a.plane_m], xv));
-                    }
-                }
-            } else if (line_in && gx >= a.cross_rx && gx < nx - a.cross_rx) {
-#pragma unroll
-                for (int l = 0; l < NCB; ++l)
-                    if (l < nc)
-                        acc = sub_rn(acc, mul_rn(T(a.cross_coeff[l]),
-                                                 xr[(int)a.cross_off[l]]));
-            } else {
-                for (int l = 0; l < nc; ++l) {
-                    const int px = gx + a.cross_dx[l], py = r.gy + a.cross_dy[l],
-                              pz = r.gz + a.cross_dz[l];
-                    if (px >= 0 && px < nx && py >= 0 && py < a.ny && pz >= 0
-                        && pz < a.nz)
-                        acc = sub_rn(acc, mul_rn(T(a.cross_coeff[l]),
-                                                 xr[(int)a.cross_off[l]]));
-                }
-            }
-            line[gx] = acc;
-        }
-    }
+    if (r.live)
+        line_cross_rows<T, MODE, NCB>(a, r, src, y, x, vc, line, threadIdx.x,
+                                      tl);
     __syncthreads();
-    for (int step = 0; step < sx; ++step) {
-        const int p = a.upper ? sx - 1 - step : step;
-        // the self legs whose source parity (p + dx) mod sx is solved
-        unsigned solved = 0;
-        for (int l = 0; l < ns; ++l) {
-            int q = (p + a.self_dx[l]) % sx;
-            q += q < 0 ? sx : 0;
-            if (a.upper ? q > p : q < p) solved |= 1u << l;
-        }
-        if (r.live) {
-            for (int gx = p + sx * threadIdx.x; gx < nx; gx += sx * tl) {
-                T v = line[gx];
-                for (int l = 0; l < ns; ++l) {
-                    const int px = gx + a.self_dx[l];
-                    const bool ok = (solved >> l & 1u) && px >= 0 && px < nx;
-                    if (MODE == BIS_SL_PLANE)
-                        v = sub_rn(v, mul_rn(
-                            vs[l * a.plane_m + (r.slot - a.slot0 + gx)],
-                            ok ? line[ok ? px : gx] : T(0)));
-                    else if (ok)
-                        v = sub_rn(v, mul_rn(T(a.self_coeff[l]), line[px]));
-                }
-                line[gx] = mul_rn(v, drows ? drows[r.iy + gx] : T(a.dinv));
-            }
-        }
+    for (int step = 0; step < a.sx; ++step) {
+        const int p = a.upper ? a.sx - 1 - step : step;
+        const unsigned solved = solved_mask(a, p);
+        if (r.live)
+            line_parity_rows<T, MODE>(a, p, solved, r, line, line, line, vs,
+                                      drows, threadIdx.x, tl);
         __syncthreads();
     }
     if (r.live)
@@ -650,7 +858,8 @@ super_solve_mega_kernel(const BisSuperLevelArgs* levels, int n_levels,
     }
 }
 
-// Split route, step 1: acc[line * nx + x] = y - sum_cross f * x.
+// Split route, step 1, "direct" (the first port's): acc[line * nx + x] =
+// y - sum_cross f * x.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(256)
 super_acc_kernel(const __grid_constant__ BisSuperLevelArgs a, const T* y,
@@ -666,7 +875,8 @@ super_acc_kernel(const __grid_constant__ BisSuperLevelArgs a, const T* y,
     }
 }
 
-// Split route, step 2: parity p's rows from acc (or y) and the self legs.
+// Split route, step 2, "direct": parity p's rows from acc (or y) and the
+// self legs.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(256)
 super_parity_kernel(const __grid_constant__ BisSuperLevelArgs a, int p,
@@ -683,6 +893,130 @@ super_parity_kernel(const __grid_constant__ BisSuperLevelArgs a, int p,
                                               drows, r.iy + gx, r.ix + gx,
                                               r.slot + gx, gx, base);
     }
+}
+
+// The staged split kernels walk the launch's lines persistently: the
+// grid holds the blocks resident on the card at once (launch_acc_staged,
+// launch_parity_staged), and block b takes the line groups b, b + grid,
+// ..., line k = group * lb + threadIdx.y of each.  A line's factors stay
+// staged while the next line of its slot has the same (y, z) class (every
+// interior line of a superblock does): the block restages only the slots
+// whose class changed, meeting at __syncthreads_or / __syncthreads (every
+// thread walks the same groups).  At 384^3 a block staged per line spent
+// most of its launch waiting on those table loads.
+
+// Split route, step 1, "staged" (factor-table mode): the staged fused
+// kernel's cross half, acc written once, coalesced, in slot order.  A warp
+// a line, 256 / 32 lines a block (64, 128 or 256 threads a line ran up to
+// 1.9x slower at 384^3: scripts/split_route_ab.py --sweep of a tree that
+// took the block as a parameter); shared memory: the x-classes and each
+// line slot's cross-leg factors (n_cross x proto_x values).  x is not
+// written during the launch, so every read of it on the unrolled path is
+// non-coherent (__ldg); y may be x and is read with plain loads.  Its
+// float64 form loses to the direct route (0.59 against 0.41 ms a 384^3
+// level; sized for 2 blocks an SM, 128 registers and no spills, 0.53).
+template <typename T, int NCB>
+__global__ void __launch_bounds__(256, BIS_SL_MIN_BLOCKS)
+super_acc_staged_kernel(const __grid_constant__ BisSuperLevelArgs a,
+                        const T* y, const T* x, T* acc,
+                        const T* __restrict__ table) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nx = a.nx, nc = a.n_cross, lb = blockDim.y;
+    int* const cls = reinterpret_cast<int*>(smem_raw);
+    stage_classes(a, cls);
+    T* const fac = reinterpret_cast<T*>(cls + ((nx + 3) & ~3))
+                   + threadIdx.y * nc * a.proto_x;
+    int staged = -1;
+    for (int g = blockIdx.x; g * lb < a.lines; g += gridDim.x) {
+        const LevelRow r = level_line(a, g * lb + threadIdx.y);
+        const int cyz = r.live ? line_class(a, r) : staged;
+        if (__syncthreads_or(cyz != staged)) {
+            if (cyz != staged)
+                stage_factors<T>(a, cyz, table, nullptr, fac, 0, nc,
+                                 threadIdx.x, blockDim.x);
+            __syncthreads();
+            staged = cyz;
+        }
+        if (r.live)
+            staged_cross_line<T, NCB>(a, r, cls, fac, y, x,
+                                      acc + (r.slot - a.slot0), threadIdx.x,
+                                      blockDim.x);
+    }
+}
+
+// Split route, step 2, "staged" (factor-table mode): block (tl, lb) from
+// the wrapper (ops/block_trisolve.parity_shape); shared memory: the
+// x-classes and each line slot's self-leg factors and pivots ((n_self +
+// 1) x proto_x values).  Every thread works: thread k of a line on rows
+// p + sx*k, p + sx*(k + tl), ...; parity p's rows written, nothing else.
+template <typename T>
+__global__ void __launch_bounds__(BIS_SL_LINE_THREADS)
+super_parity_staged_kernel(const __grid_constant__ BisSuperLevelArgs a, int p,
+                           const T* y, const T* acc, T* x,
+                           const T* __restrict__ table,
+                           const T* __restrict__ tdinv) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nx = a.nx, nc = a.n_cross, ns = a.n_self, lb = blockDim.y;
+    int* const cls = reinterpret_cast<int*>(smem_raw);
+    stage_classes(a, cls);
+    T* const fsel = reinterpret_cast<T*>(cls + ((nx + 3) & ~3))
+                    + threadIdx.y * (ns + 1) * a.proto_x;
+    const unsigned solved = solved_mask(a, p);
+    int staged = -1;
+    for (int g = blockIdx.x; g * lb < a.lines; g += gridDim.x) {
+        const LevelRow r = level_line(a, g * lb + threadIdx.y);
+        const int cyz = r.live ? line_class(a, r) : staged;
+        if (__syncthreads_or(cyz != staged)) {
+            if (cyz != staged)
+                stage_factors(a, cyz, table, tdinv, fsel, nc, nc + ns,
+                              threadIdx.x, blockDim.x);
+            __syncthreads();
+            staged = cyz;
+        }
+        if (r.live)
+            staged_parity_rows(a, p, solved, cls, fsel, tdinv != nullptr,
+                               acc ? acc + (r.slot - a.slot0) : y + r.iy,
+                               x + r.ix, x + r.ix, threadIdx.x, blockDim.x);
+    }
+}
+
+// Split route, step 1, "line" (plane mode): the line kernel's cross half
+// on a block shaped to the launch (ops/block_trisolve.line_shape), each
+// line's source offsets in shared memory (lb x 2 x n_cross ints), acc
+// written once, coalesced, in slot order.
+template <typename T, int NCB>
+__global__ void __launch_bounds__(BIS_SL_LINE_THREADS)
+super_acc_line_kernel(const __grid_constant__ BisSuperLevelArgs a,
+                      const T* y, const T* x, T* acc,
+                      const T* __restrict__ vc) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int k = blockIdx.x * blockDim.y + threadIdx.y;
+    const LevelRow r = level_line(a, k);
+    int* const src = reinterpret_cast<int*>(smem_raw)
+                     + threadIdx.y * 2 * a.n_cross;
+    if (r.live) line_sources(a, r, k, src, threadIdx.x, blockDim.x);
+    __syncthreads();
+    if (r.live)
+        line_cross_rows<T, BIS_SL_PLANE, NCB>(a, r, src, y, x, vc,
+                                              acc + (r.slot - a.slot0),
+                                              threadIdx.x, blockDim.x);
+}
+
+// Split route, step 2, "line" (plane mode): block (tl, lb) from the
+// wrapper (parity_shape), every thread on rows p + sx*k, ...; the self
+// planes read at the row's slot, parity p's rows written, nothing else.
+template <typename T>
+__global__ void __launch_bounds__(BIS_SL_LINE_THREADS)
+super_parity_line_kernel(const __grid_constant__ BisSuperLevelArgs a, int p,
+                         const T* y, const T* acc, T* x,
+                         const T* __restrict__ vs,
+                         const T* __restrict__ drows) {
+    const LevelRow r = level_line(a, blockIdx.x * blockDim.y + threadIdx.y);
+    if (!r.live) return;
+    line_parity_rows<T, BIS_SL_PLANE>(
+        a, p, solved_mask(a, p), r,
+        acc ? acc + (r.slot - a.slot0) : y + r.iy, x + r.ix, x + r.ix, vs,
+        drows, threadIdx.x, blockDim.x);
 }
 
 // Rank-space level (replaces _level_pallas of basic_iterative_solvers_tpu/
@@ -991,6 +1325,118 @@ static int launch_parity(int device, const BisSuperLevelArgs* a, int p,
     return (int)cudaGetLastError();
 }
 
+// The blocks of a persistent launch of `kernel` (threads a block, dynamic
+// shared memory smem): those resident on the card at once, at most
+// `groups`; 0 where the card cannot say.
+template <typename K>
+static int resident_grid(int device, K kernel, int threads, size_t smem,
+                         int groups) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)
+            != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, threads, smem) != cudaSuccess)
+        return 0;
+    const long long fit = (long long)per_sm * sms;
+    return (int)(fit < groups ? fit : groups);
+}
+
+// The split staged kernels' shared memory: the x-classes (padded to 16
+// bytes) and `lines` lines of `rows` x proto_x factors.
+static size_t split_staged_smem(const BisSuperLevelArgs& a, int lines,
+                                int rows, size_t item) {
+    return (size_t)((a.nx + 3) & ~3) * sizeof(int)
+           + (size_t)lines * rows * a.proto_x * item;
+}
+
+template <typename T>
+static int launch_acc_staged(int device, const BisSuperLevelArgs* a,
+                             const T* y, const T* x, T* acc, const T* table,
+                             cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    const int by = 256 / BIS_SL_STAGED_BX;
+    const size_t smem = split_staged_smem(*a, by, a->n_cross, sizeof(T));
+    if (a->mode != BIS_SL_TABLE || a->n_cross > 27
+        || smem > BIS_SL_STAGED_SMEM_MAX)
+        return (int)cudaErrorInvalidValue;
+    const dim3 block(BIS_SL_STAGED_BX, by);
+    const int groups = (a->lines + by - 1) / by, nc = a->n_cross;
+    int grid = 0;
+#define BIS_SL_ACC(NCB)                                                      \
+    do {                                                                     \
+        grid = resident_grid(device, super_acc_staged_kernel<T, NCB>, 256,   \
+                             smem, groups);                                  \
+        if (grid > 0)                                                        \
+            super_acc_staged_kernel<T, NCB><<<grid, block, smem, stream>>>(  \
+                *a, y, x, acc, table);                                       \
+    } while (0)
+    if (nc <= 8) BIS_SL_ACC(8);
+    else if (nc <= 16) BIS_SL_ACC(16);
+    else if (nc <= 24) BIS_SL_ACC(24);
+    else BIS_SL_ACC(27);
+#undef BIS_SL_ACC
+    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_acc_line(int device, const BisSuperLevelArgs* a, int tl,
+                           int lb, const T* y, const T* x, T* acc,
+                           const T* vc, cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    const size_t smem = (size_t)lb * 2 * a->n_cross * sizeof(int);
+    if (a->mode != BIS_SL_PLANE || a->n_cross > 27 || tl < 1 || lb < 1 || tl * lb > BIS_SL_LINE_THREADS
+        || smem > BIS_SL_LINE_SMEM_MAX)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((a->lines + lb - 1) / lb), block(tl, lb);
+    const int nc = a->n_cross;
+#define BIS_SL_ACC(NCB)                                                      \
+    super_acc_line_kernel<T, NCB><<<grid, block, smem, stream>>>(            \
+        *a, y, x, acc, vc)
+    if (nc <= 8) BIS_SL_ACC(8);
+    else if (nc <= 16) BIS_SL_ACC(16);
+    else if (nc <= 24) BIS_SL_ACC(24);
+    else BIS_SL_ACC(27);
+#undef BIS_SL_ACC
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_parity_staged(int device, const BisSuperLevelArgs* a, int p,
+                                int tl, int lb, const T* y, const T* acc,
+                                T* x, const T* table, const T* tdinv,
+                                cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    const size_t smem = split_staged_smem(*a, lb, a->n_self + 1, sizeof(T));
+    if (a->mode != BIS_SL_TABLE || p < 0 || p >= a->sx || tl < 1 || lb < 1
+        || tl * lb > BIS_SL_LINE_THREADS || smem > BIS_SL_STAGED_SMEM_MAX)
+        return (int)cudaErrorInvalidValue;
+    const int grid = resident_grid(device, super_parity_staged_kernel<T>,
+                                   tl * lb, smem, (a->lines + lb - 1) / lb);
+    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+    super_parity_staged_kernel<T><<<grid, dim3(tl, lb), smem, stream>>>(
+        *a, p, y, acc, x, table, tdinv);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_parity_line(int device, const BisSuperLevelArgs* a, int p,
+                              int tl, int lb, const T* y, const T* acc, T* x,
+                              const T* vs, const T* drows,
+                              cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    if (a->mode != BIS_SL_PLANE || p < 0 || p >= a->sx || tl < 1 || lb < 1
+        || tl * lb > BIS_SL_LINE_THREADS)
+        return (int)cudaErrorInvalidValue;
+    super_parity_line_kernel<T><<<(a->lines + lb - 1) / lb, dim3(tl, lb), 0,
+                                  stream>>>(*a, p, y, acc, x, vs, drows);
+    return (int)cudaGetLastError();
+}
+
 // The blocks of the one-launch solve: as many as fit on the card at once
 // (a cooperative launch of more fails), and no more than the most line
 // blocks a level has.  0 when the card cannot run it.
@@ -1186,6 +1632,76 @@ int bis_super_parity_f64(int device, const BisSuperLevelArgs* a, int p,
                          void* stream) {
     return launch_parity<double>(device, a, p, y, acc, x, table, tdinv, vs,
                                  drows, (cudaStream_t)stream);
+}
+
+// The split route's staged kernels (factor-table mode), float32 and
+// float64: acc, on a warp a line and 8 lines a block, and parity p, on a
+// block of tl threads a line and lb lines (ops/block_trisolve.
+// parity_shape); tdinv NULL for L, acc NULL where the level has no cross
+// legs.  The line kernels (plane mode): acc on line_shape's block, parity
+// p on parity_shape's.  Each refuses (cudaErrorInvalidValue) another
+// mode, a block above BIS_SL_LINE_THREADS threads or shared memory above
+// 48 KB.
+int bis_super_acc_staged_f32(int device, const BisSuperLevelArgs* a,
+                             const float* y, const float* x, float* acc,
+                             const float* table, void* stream) {
+    return launch_acc_staged<float>(device, a, y, x, acc, table,
+                                    (cudaStream_t)stream);
+}
+
+int bis_super_acc_staged_f64(int device, const BisSuperLevelArgs* a,
+                             const double* y, const double* x, double* acc,
+                             const double* table, void* stream) {
+    return launch_acc_staged<double>(device, a, y, x, acc, table,
+                                     (cudaStream_t)stream);
+}
+
+int bis_super_parity_staged_f32(int device, const BisSuperLevelArgs* a, int p,
+                                int tl, int lb, const float* y,
+                                const float* acc, float* x,
+                                const float* table, const float* tdinv,
+                                void* stream) {
+    return launch_parity_staged<float>(device, a, p, tl, lb, y, acc, x, table,
+                                       tdinv, (cudaStream_t)stream);
+}
+
+int bis_super_parity_staged_f64(int device, const BisSuperLevelArgs* a, int p,
+                                int tl, int lb, const double* y,
+                                const double* acc, double* x,
+                                const double* table, const double* tdinv,
+                                void* stream) {
+    return launch_parity_staged<double>(device, a, p, tl, lb, y, acc, x,
+                                        table, tdinv, (cudaStream_t)stream);
+}
+
+int bis_super_acc_line_f32(int device, const BisSuperLevelArgs* a, int tl,
+                           int lb, const float* y, const float* x, float* acc,
+                           const float* vc, void* stream) {
+    return launch_acc_line<float>(device, a, tl, lb, y, x, acc, vc,
+                                  (cudaStream_t)stream);
+}
+
+int bis_super_acc_line_f64(int device, const BisSuperLevelArgs* a, int tl,
+                           int lb, const double* y, const double* x,
+                           double* acc, const double* vc, void* stream) {
+    return launch_acc_line<double>(device, a, tl, lb, y, x, acc, vc,
+                                   (cudaStream_t)stream);
+}
+
+int bis_super_parity_line_f32(int device, const BisSuperLevelArgs* a, int p,
+                              int tl, int lb, const float* y,
+                              const float* acc, float* x, const float* vs,
+                              const float* drows, void* stream) {
+    return launch_parity_line<float>(device, a, p, tl, lb, y, acc, x, vs,
+                                     drows, (cudaStream_t)stream);
+}
+
+int bis_super_parity_line_f64(int device, const BisSuperLevelArgs* a, int p,
+                              int tl, int lb, const double* y,
+                              const double* acc, double* x, const double* vs,
+                              const double* drows, void* stream) {
+    return launch_parity_line<double>(device, a, p, tl, lb, y, acc, x, vs,
+                                      drows, (cudaStream_t)stream);
 }
 
 // levels: n_levels launch tables in device memory, in solve order, all of

@@ -103,7 +103,12 @@ unrolls an interior row's cross legs.  A plane or const level: "line"
 keeps the block's lines in shared memory on a block shaped to the launch
 (`line_shape`), maps a plane group's slots to source rows with no
 division and unrolls a const level's interior legs.  "direct", the
-first port's kernel, keeps acc in x.
+first port's kernel, keeps acc in x.  The split route's steps take the
+route the fused level would take, each with kernels of its own that share
+the fused kernels' bodies: `super_acc` the staged or line kernel's cross
+half (counted in `.staged_launches`, `.line_launches`,
+`.direct_launches`), `super_parity` their parity pass on a block shaped to
+one parity's rows (`parity_shape`), picked by `split_route_for`.
 """
 from __future__ import annotations
 
@@ -131,6 +136,10 @@ _BLOCK_THREADS = 256
 LINE_THREADS = 1024
 LINE_SMEM_MAX = 48 * 1024
 LINE_BLOCK = 256
+
+#: the split parity kernels' resident threads an SM: they take 32
+#: registers a thread (ptxas, chip_smoke's [ptxas]), so an SM holds 2,048
+PARITY_RESIDENT = 2048
 
 #: the TPU's lane width: the JAX package's self-reach rule (a self leg
 #: reaches less than min(nx, 128)) and plane group keys use it
@@ -1115,14 +1124,50 @@ def line_shape(nx: int, sx: int, lines: int, n_groups: int, itemsize: int,
     line_bytes = nx * itemsize + 8 * n_groups
     if line_bytes > LINE_SMEM_MAX:
         return None
-    tl_max = min(LINE_THREADS, 1 << (nx - 1).bit_length())
-    tl = 1 << (max(1, sms * LINE_THREADS // max(1, lines)).bit_length() - 1)
+    return _block_shape(nx, lines, line_bytes, 0, sms)
+
+
+def _block_shape(rows: int, lines: int, line_bytes: int, fixed_bytes: int,
+                 sms: int, resident: int = LINE_THREADS) -> Tuple[int, int]:
+    """(tl, lb) for a launch of `lines` lines of `rows` rows a thread
+    pass, `line_bytes` of shared memory a line and `fixed_bytes` a block:
+    tl the power of two that keeps the launch within one wave of the
+    card's resident threads (`resident` an SM), at least a warp where a
+    line has that many rows, at most one a row; lb doubled while the block
+    stays within LINE_BLOCK threads and LINE_SMEM_MAX bytes and the grid
+    has a block an SM."""
+    tl_max = min(LINE_THREADS, 1 << (rows - 1).bit_length())
+    tl = 1 << (max(1, sms * resident // max(1, lines)).bit_length() - 1)
     tl = max(min(32, tl_max), min(tl, tl_max))
     lb = 1
-    while (2 * lb * tl <= LINE_BLOCK and 2 * lb * line_bytes <= LINE_SMEM_MAX
+    while (2 * lb * tl <= LINE_BLOCK
+           and fixed_bytes + 2 * lb * line_bytes <= LINE_SMEM_MAX
            and -(-lines // (2 * lb)) >= sms):
         lb *= 2
     return tl, lb
+
+
+def parity_shape(nx: int, sx: int, lines: int, line_bytes: int,
+                 sms: int) -> Tuple[int, int]:
+    """(tl, lb): the block of a split parity launch (the staged and line
+    routes of `super_parity`) of `lines` x-lines of nx rows under sx
+    x-parities on a card of `sms` multiprocessors, `line_bytes` of shared
+    memory a line (factor-table mode: the line's self-leg factors and
+    pivots; plane mode: 0).  A parity launch updates ⌈nx/sx⌉ rows a line,
+    so the line route's rule (`_block_shape`) runs on that many rows, with
+    a rule of its own for the card's resident threads: the parity kernels
+    take 32 registers, an SM holds PARITY_RESIDENT (2,048) of them, and a
+    row does far less work than in a fused level, so thread k of a line
+    takes rows p + sx·k, p + sx·(k + tl), … with one parity's rows of the
+    launch spread over those 2,048 an SM.  On the H100 (scripts/
+    split_route_ab.py --sweep, every block timed): at fdm:2048, 256 × 1
+    (four rows a thread), the fastest block on the L levels and 5–15%
+    above it on the U levels, where the line route's 1,024 an SM gave
+    128 × 2, 27–33% above the fastest; at 384³, 32 × 8 (six rows a
+    thread), within 1% of the fastest block on every level."""
+    return _block_shape(-(-nx // sx), lines, line_bytes,
+                        4 * ((nx + 3) & ~3) if line_bytes else 0, sms,
+                        PARITY_RESIDENT)
 
 
 def _launch_lines(B: SuperBlockTriSolve, li: int,
@@ -1370,29 +1415,79 @@ def _check_parity_args(B, li, p, y, acc, x):
         raise IndexError(f"parity {p} of {B.sx}")
 
 
+def split_route_for(B: SuperBlockTriSolve, li: int, itemsize: int,
+                    step: str, device=None) -> str:
+    """The route of a split step ("acc" or "parity") of level li: the
+    route the fused level takes (`level_route_for`, kept with the launch
+    table), but for a factor table's parity step in float64, which takes
+    "staged" where the float32 level would.  On the H100 at 384³ (scripts/
+    split_route_ab.py) the staged parity step ran 0.128–0.129 ms against
+    the direct route's 0.158–0.159 in float64, and the staged acc step
+    0.594–0.606 against 0.405–0.409, so float64 acc steps stay direct, as
+    the fused float64 levels do."""
+    route = level_route_for(B, li, itemsize, device=device)
+    if B.is_table and step == "parity" and itemsize == 8:
+        route = level_route_for(B, li, 4, device=device)
+    return route
+
+
+def _parity_shape(B: SuperBlockTriSolve, li: int, itemsize: int,
+                  index: int) -> Tuple[int, int]:
+    """parity_shape of level li's parity launches on card `index`, kept
+    with the launch table."""
+    key = ("parity_shape", li, itemsize, index)
+    if key not in B._args:
+        nx = B.spec_params[0]
+        line_bytes = ((len(B.levels[li][2]) + 1) * B.proto[0] * itemsize
+                      if B.is_table else 0)
+        B._args[key] = parity_shape(nx, B.sx, B.m // nx, line_bytes,
+                                    sm_count(index))
+    return B._args[key]
+
+
+def _count_route(counter, route: str) -> None:
+    counter.launches += 1
+    attr = f"{route}_launches"
+    setattr(counter, attr, getattr(counter, attr) + 1)
+
+
 def super_acc(B: SuperBlockTriSolve, li: int, y: torch.Tensor,
               x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     """Split route, step 1 of level li (factor-table or plane mode): acc
     (m,) gets y − Σ_cross f·x on the level's rows, in slot order; returns
     acc.
 
-    A CUDA tensor goes through the hand-written kernel, which counts its
-    launches in `super_acc.launches`, either mode; a CPU tensor takes the
-    plain version."""
+    A CUDA tensor goes through a hand-written kernel on the route the
+    fused level would take (`split_route_for`): "staged" (factor table,
+    float32: the staged kernel's cross half, the line's factors in shared
+    memory), "line" (plane mode: the line kernel's cross half on
+    `line_shape`'s block) or "direct" (the first port's kernel).  Counted
+    in `super_acc.launches` and by route in `.staged_launches`,
+    `.line_launches`, `.direct_launches`.  A CPU tensor takes the plain
+    version."""
     device = _check_split(B, li, y=(y, B.n_rows), x=(x, B.n_rows),
                           acc=(acc, B.m))
     if device.type == "cuda":
-        _cuda_call(B, "super_acc", x, ctypes.byref(_level_args(B, li)),
-                   y.data_ptr(), x.data_ptr(), acc.data_ptr(),
-                   _ptr(B.table), _ptr(_planes(B, li)[0]))
-        super_acc.launches += 1
+        item = x.element_size()
+        route = split_route_for(B, li, item, "acc", device)
+        args = ctypes.byref(_level_args(B, li))
+        vc = _planes(B, li)[0]
+        if route == "staged":
+            _cuda_call(B, "super_acc_staged", x, args, y.data_ptr(),
+                       x.data_ptr(), acc.data_ptr(), _ptr(B.table),
+                       operands=())
+        elif route == "line":
+            _cuda_call(B, "super_acc_line", x, args,
+                       *_line_shape(B, li, item, None, device.index),
+                       y.data_ptr(), x.data_ptr(), acc.data_ptr(), _ptr(vc))
+        else:
+            _cuda_call(B, "super_acc", x, args, y.data_ptr(), x.data_ptr(),
+                       acc.data_ptr(), _ptr(B.table), _ptr(vc))
+        _count_route(super_acc, route)
         return acc
     if device.type == "cpu":
         return super_acc_plain(B, li, y, x, acc)
     raise ValueError(f"no super-acc step for device {device}")
-
-
-super_acc.launches = 0
 
 
 def super_parity(B: SuperBlockTriSolve, li: int, p: int, y: torch.Tensor,
@@ -1403,23 +1498,47 @@ def super_parity(B: SuperBlockTriSolve, li: int, p: int, y: torch.Tensor,
     level has no cross legs and acc is None) and the self legs, in place;
     returns x.
 
-    A CUDA tensor goes through the hand-written kernel, which counts its
-    launches in `super_parity.launches`, either mode; a CPU tensor takes
-    the plain version."""
+    A CUDA tensor goes through a hand-written kernel on the route the
+    fused level would take (`split_route_for`; a factor table's parity
+    step takes "staged" in float64 too): "staged" (factor table: each
+    line's self-leg factors and pivots in shared memory) or "line"
+    (plane mode), both on `parity_shape`'s block with every thread on a
+    row of the parity, or "direct" (the first port's kernel).  Counted in
+    `super_parity.launches` and by route in `.staged_launches`,
+    `.line_launches`, `.direct_launches`.  A CPU tensor takes the plain
+    version."""
     _check_parity_args(B, li, p, y, acc, x)
     if x.device.type == "cuda":
-        _cuda_call(B, "super_parity", x, ctypes.byref(_level_args(B, li)),
-                   p, y.data_ptr(), _ptr(acc), x.data_ptr(),
-                   _ptr(B.table), _ptr(B.table_dinv),
-                   _ptr(_planes(B, li)[1]), _ptr(B.dinv_rows))
-        super_parity.launches += 1
+        item = x.element_size()
+        route = split_route_for(B, li, item, "parity", x.device)
+        args = ctypes.byref(_level_args(B, li))
+        if route == "direct":
+            _cuda_call(B, "super_parity", x, args, p, y.data_ptr(),
+                       _ptr(acc), x.data_ptr(), _ptr(B.table),
+                       _ptr(B.table_dinv), _ptr(_planes(B, li)[1]),
+                       _ptr(B.dinv_rows))
+        else:
+            shape = _parity_shape(B, li, item, x.device.index)
+            tail = ((_ptr(B.table), _ptr(B.table_dinv)) if route == "staged"
+                    else (_ptr(_planes(B, li)[1]), _ptr(B.dinv_rows)))
+            _cuda_call(B, f"super_parity_{route}", x, args, p, *shape,
+                       y.data_ptr(), _ptr(acc), x.data_ptr(), *tail,
+                       operands=() if route == "staged" else None)
+        _count_route(super_parity, route)
         return x
     if x.device.type == "cpu":
         return super_parity_plain(B, li, p, y, acc, x)
     raise ValueError(f"no super-parity step for device {x.device}")
 
 
-super_parity.launches = 0
+def _zero_split_counts():
+    for counter in (super_acc, super_parity):
+        counter.launches = 0
+        for route in ("staged", "line", "direct"):
+            setattr(counter, f"{route}_launches", 0)
+
+
+_zero_split_counts()
 
 
 

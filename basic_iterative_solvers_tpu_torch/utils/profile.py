@@ -50,7 +50,9 @@ PHASE_BUCKETS = (
               "lane_ell_spmv_halo_padded_kernel")),
     ("sptrsv", ("super_level_kernel", "super_level_staged_kernel",
                 "super_level_line_kernel", "super_acc_kernel",
-                "super_parity_kernel", "super_solve_mega_kernel",
+                "super_acc_staged_kernel", "super_acc_line_kernel",
+                "super_parity_kernel", "super_parity_staged_kernel",
+                "super_parity_line_kernel", "super_solve_mega_kernel",
                 "rank_level_kernel", "rank_level_vec_kernel")),
     ("orthog", ("project_gram_kernel", "correct_write_kernel")),
     ("layout_glue", ("Memcpy", "Memset", "copy_kernel", "CatArrayBatchedCopy",

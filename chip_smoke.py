@@ -60,8 +60,11 @@ exits non-zero:
      through torch.triangular_solve on the sparse lower triangle, the
      library's nearest call;
  15. the split route's kernels (super_acc, super_parity) against their
-     plain versions on every level at 384^3, then the split and the fused
-     route on whole 384^3 applies, in turns (fused, split, split, fused);
+     plain versions on every level of the 384^3 pair, f32 and f64, bit for
+     bit on the staged and the direct route, each step timed in turns by
+     device time beside its byte bound and, for a parity step, its sector
+     bound ([ilu0-split]); then whole 384^3 applies in turns: fused, and
+     split on both routes;
  16. the same CG + ILU(0) solve on the CPU and on the card (HPCG 32^3);
  17. the fourth slice's path: the bench's pcg_ilu0 rows, HPCG 128^3 (1200
      iterations) and 384^3 (100), fused (every level on the staged route)
@@ -107,8 +110,11 @@ exits non-zero:
      level of the fdm:2048 pair and of the Anderson 128^3 SGS pair, f32
      and widened to f64, bit for bit on the line and the direct route,
      each level (f32) and whole fdm:2048 applies timed on both in turns
-     beside the bound, the split route's kernels in plane mode ([plane-split]) and
-     the fused/split A/B in turns, torch.triangular_solve's whole L solve,
+     beside the bound, the split route's kernels in plane mode
+     ([plane-split], f32 and f64: the line and the direct route bit for
+     bit, each step timed in turns beside its bounds) and whole applies
+     in turns (fused, split on both routes), torch.triangular_solve's
+     whole L solve,
      and the hpcg:32x32x32 plane pair against its factor-table pair;
  25. the one-launch const solve ([mega]) against the per-level route and
      the plain loop on the HPCG 128^3 SGS pair, f32 and f64, bit for bit,
@@ -309,6 +315,8 @@ def phase_device(torch):
 PTXAS_KERNELS = ("lane_ell_spmv_kernel", "lane_ell_spmv_halo_kernel",
                  "lane_ell_spmv_halo_padded_kernel",
                  "super_level_staged_kernel", "super_level_line_kernel",
+                 "super_acc_staged_kernel", "super_parity_staged_kernel",
+                 "super_acc_line_kernel", "super_parity_line_kernel",
                  "stencil_spmv_kernel",
                  "stencil_spmv_stream_kernel", "stencil_spmv_box_kernel",
                  "stencil_spmv_stream_box_kernel")
@@ -319,10 +327,10 @@ _MANGLED = {"f": "float", "d": "double", "t": "u16", "h": "u8", "i": "int",
 
 def _template_args(code):
     """'ff13__nv_bfloat16th' -> 'float, float, bf16, u16, u8'; 'fLi24E'
-    -> 'float, 24'."""
+    -> 'float, 24'; 'fLi24ELb1E' -> 'float, 24, 1'."""
     out = []
     while code:
-        m = re.match(r"\d+__nv_bfloat16|[fdthi]|Li(\d+)E", code)
+        m = re.match(r"\d+__nv_bfloat16|[fdthi]|L[ib](\d+)E", code)
         if not m:
             out.append(code)
             break
@@ -1266,6 +1274,9 @@ def _counters(so, gb, bk, reset=False):
                   for k in ("const", "plane") for rt in ("line", "direct")},
                "super_acc": (bk.super_acc, "launches"),
                "super_parity": (bk.super_parity, "launches"),
+               **{f"{k}_{rt}": (getattr(bk, k), f"{rt}_launches")
+                  for k in ("super_acc", "super_parity")
+                  for rt in ("staged", "line", "direct")},
                "super_solve_mega": (bk.super_solve_mega, "launches"),
                "stencil_spmv_stream": (so.stencil_spmv_stream, "launches")}
     if reset:
@@ -1729,86 +1740,238 @@ def phase_ilu0_level_vs_plain(torch, bt):
     return record, whole_l
 
 
+def _split_routes(B):
+    """The routes of a split step of B: its mode's new route ("staged" for
+    a factor table, "line" in plane mode), then "direct"."""
+    return ("staged" if B.is_table else "line", "direct")
+
+
+def _sectors(starts, cols, item):
+    """The 32-byte sectors holding elements s + c, s of `starts` (an array
+    of offsets in elements from a 32-byte aligned base), c of `cols`."""
+    import numpy as np
+    per = 32 // item
+    cols = np.asarray(sorted(cols), dtype=np.int64)
+    if not cols.size:
+        return 0
+    phase, count = np.unique(np.asarray(starts) % per, return_counts=True)
+    return int(sum(int(c) * np.unique((ph + cols) // per).size
+                   for ph, c in zip(phase, count)))
+
+
+def _parity_sector_bytes(B, li, p, itemsize, has_acc):
+    """The bytes of the 32-byte sectors one parity step must move: those
+    holding parity p's rows of acc (or of y) read, of x written, and of
+    each plane (vs) and the per-row 1/D read; those holding the solved
+    source rows of x read; the factor-table values as _level_work counts
+    them."""
+    import numpy as np
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    sb, _cross, selfs = B.levels[li]
+    line = np.arange(B.m // nx)
+    my = ny // sy
+    rows = nx * (sy * (line % my) + sb % sy + ny * (sz * (line // my)
+                                                    + sb // sy))
+    slots = line * nx
+    own = range(p, nx, sx)
+    src = {x + dx for x in own for dx in selfs if 0 <= x + dx < nx
+           and (((x + dx) % sx > p) if B.upper else ((x + dx) % sx < p))}
+    sectors = (_sectors(slots if has_acc else rows, own, itemsize)
+               + _sectors(rows, src, itemsize) + _sectors(rows, own, itemsize))
+    table = 0
+    if B.is_plane:
+        sectors += sum(_sectors(l * B.m + slots, own, itemsize)
+                       for l in range(len(selfs)))
+        sectors += _sectors(rows, own, itemsize)
+    elif B.is_table:
+        self_rows = {dx: [x for x in own if 0 <= x + dx < nx and (
+            ((x + dx) % sx > p) if B.upper else ((x + dx) % sx < p))]
+            for dx in selfs}
+        table = _table_values(B, li, self_rows, (p,), False) * itemsize
+    return 32 * sectors + table
+
+
+def _split_steps(torch, bk, tag, label, B, y, x, work):
+    """super_acc and super_parity against their plain versions on every
+    level of the split solve B, bit for bit on both routes of its mode
+    (_split_routes), each launch counted on its route; each step timed by
+    device time in turns (direct, new, new, direct) beside its byte bound
+    (`work`: _level_work or _plane_level_work) and, for a parity step,
+    its sector bound.  Returns {step: {route: [ms a launch],
+    "bound": [(bytes, ops)], "sector_bound_ms": [...], "plain": [ms]}}."""
+    item = x.element_size()
+    out = {step: {"bound": [], "sector_bound_ms": [], "plain": []}
+           for step in ("acc", "par")}
+    acc_k = torch.empty(B.m, dtype=x.dtype, device=x.device)
+    acc_p = torch.empty_like(acc_k)
+    nap = 2_000_000           # ~1 ms of sleep ahead of each timed batch
+    routes = _split_routes(B)
+
+    def launches(fn, route, *args):
+        counter = bk.super_acc if fn is bk.super_acc else bk.super_parity
+        before = (counter.launches, getattr(counter, f"{route}_launches"))
+        with _on_route(route, B):
+            fn(B, *args)
+        grew = (counter.launches - before[0],
+                getattr(counter, f"{route}_launches") - before[1])
+        if grew != (1, 1):
+            raise RuntimeError(f"{counter.__name__} on {route} did not count "
+                               f"one launch on its route: {grew}")
+
+    def timed(fn, *args):
+        def run(route):
+            def call():
+                with _on_route(route, B):
+                    fn(B, *args)
+            return call
+        return _in_turns(torch, {rt: run(rt) for rt in routes},
+                         ("direct", routes[0], routes[0], "direct"),
+                         sleep_cycles=nap)
+
+    for li, (_sb, cross, _s) in enumerate(B.levels):
+        line = (f"[{tag}] {label} {'U' if B.upper else 'L'} level {li} "
+                f"({len(cross)} cross legs):")
+        if cross:
+            bk.super_acc_plain(B, li, y, x, acc_p)
+            for route in routes:
+                acc_k.fill_(float("nan"))
+                launches(bk.super_acc, route, li, y, x, acc_k)
+                torch.cuda.synchronize()
+                if not torch.equal(acc_k, acc_p):
+                    raise RuntimeError(f"{line} super_acc on {route} "
+                                       "disagrees with plain")
+            turns = timed(bk.super_acc, li, y, x, acc_k)
+            for route in routes:
+                out["acc"].setdefault(route, []).append(min(turns[route]))
+            out["acc"]["bound"].append(work(B, li, item, "acc"))
+            out["acc"]["plain"].append(_median_ms(
+                lambda: bk.super_acc_plain(B, li, y, x, acc_p), torch,
+                reps=3, batch=3))
+            bound = _bound(*out["acc"]["bound"][-1])
+            line += (f" super_acc bit_equal=True on {','.join(routes)}, "
+                     f"device_ms in turns {turns} bound_ms="
+                     f"{bound['bound_ms']:.5f} ({bound['bound_by']});")
+        a = acc_p if cross else None
+        for p in bk._parity_order(B):
+            xp = x.clone()
+            bk.super_parity_plain(B, li, p, y, a, xp)
+            outs = {}
+            for route in routes:
+                outs[route] = x.clone()
+                launches(bk.super_parity, route, li, p, y, a, outs[route])
+            torch.cuda.synchronize()
+            if not all(torch.equal(xk, xp) for xk in outs.values()):
+                raise RuntimeError(f"{line} super_parity disagrees with "
+                                   f"plain at parity {p}")
+            xk = outs[routes[0]]
+            turns = timed(bk.super_parity, li, p, y, a, xk)
+            for route in routes:
+                out["par"].setdefault(route, []).append(min(turns[route]))
+            out["par"]["bound"].append(work(B, li, item, "parity", p))
+            out["par"]["plain"].append(_median_ms(
+                lambda: bk.super_parity_plain(B, li, p, y, a, xp), torch,
+                reps=3, batch=3))
+            bound = _bound(*out["par"]["bound"][-1])
+            sector = 1e3 * _parity_sector_bytes(
+                B, li, p, item, cross != ()) / PEAK_BYTES_S
+            out["par"]["sector_bound_ms"].append(sector)
+            line += (f" super_parity p={p} bit_equal=True on "
+                     f"{','.join(routes)}, device_ms in turns {turns} "
+                     f"bound_ms={bound['bound_ms']:.5f} ({bound['bound_by']})"
+                     f" sector_bound_ms={sector:.5f};")
+            x = xp              # the next parity reads this one's rows
+        print(line)
+        # the plain steps' plan of this level (tens of GB over a 384^3
+        # pair's levels if kept)
+        bk._whole(B)._args.pop(("plain", li, str(x.device)), None)
+    return out
+
+
+def _split_record(steps, step):
+    """A #10 or #11 record from _split_steps' results: the new route's
+    mean device time as ms, the direct route's as direct_ms, the plain
+    version's, the mean byte bound and, for parity, the mean sector
+    bound."""
+    s = steps[step]
+    new = next(k for k in s if k in ("staged", "line"))
+    rec = {"max_abs_err": 0.0, "ms": statistics.mean(s[new]),
+           "direct_ms": statistics.mean(s["direct"]),
+           "plain_ms": statistics.mean(s["plain"]), "library_ms": None,
+           **_mean_bound(s["bound"])}
+    if s["sector_bound_ms"]:
+        rec["sector_bound_ms"] = statistics.mean(s["sector_bound_ms"])
+    return rec
+
+
+def _release(torch, *solves):
+    """Drop the launch tables and plain plans cached on `solves` (a solve
+    and its one-shard view refer to each other, so they wait for the
+    cycle collector otherwise: the 384^3 levels' plans take tens of GB),
+    then return the freed blocks to the card."""
+    import gc
+    for B in solves:
+        B._args.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _split_applies(torch, bk, tag, label, fused, split, y):
+    """Whole ILU(0) applies in turns by device time: the fused pair, the
+    split pair on the routes the picker names and on the direct route;
+    all bit-equal.  Returns {name: [ms, ...]}."""
+    fns = {"fused": lambda: bk.blocked_ilu0(*fused, y),
+           "split": lambda: bk.blocked_ilu0(*split, y),
+           "split_direct": lambda: _direct(bk.blocked_ilu0, *split, y)}
+    outs = {k: fn() for k, fn in fns.items()}
+    torch.cuda.synchronize()
+    equal = all(torch.equal(o, outs["fused"]) for o in outs.values())
+    turns = _in_turns(torch, fns, ("fused", "split", "split_direct",
+                                   "split_direct", "split", "fused"))
+    print(f"[{tag}] {label} whole apply, device ms in turns: {turns} "
+          f"bit_equal={equal}")
+    if not equal:
+        raise RuntimeError(f"{label}: split and fused applies differ")
+    return turns
+
+
 def phase_split_vs_plain(torch, bt):
     """super_acc and super_parity against their plain versions on every
-    level of the 384^3 f32 pair, bit for bit, each timed; then whole
-    applies on the fused and the split route in turns (fused, split,
-    split, fused), equal bit for bit.  Returns the two records and the
-    A/B times."""
+    level of the 384^3 pair in float32 and float64, bit for bit on the
+    staged and the direct route, each step timed in turns beside its bounds
+    (_split_steps); then whole applies: the fused pair and the split pair
+    on both routes, in turns, bit-equal.  Returns the #10 and #11 records
+    and the applies' times."""
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
-    dt = torch.float32
-    A, L, U, _s = _ilu0_pair(torch, bt, ILU_384, dt)
-    Ls, Us = _split_pair(L, U)
-    g = torch.Generator(device="cuda").manual_seed(5)
-    y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
-    x = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
-    acc_k = torch.empty(L.m, dtype=dt, device="cuda")
-    acc_p = torch.empty_like(acc_k)
-    t = {"acc": [], "acc_plain": [], "par": [], "par_plain": []}
-    work = {"acc": [], "par": []}
-    worst = {"acc": 0.0, "par": 0.0}
-    for B in (Ls, Us):
-        for li, (_sb, cross, _s2) in enumerate(B.levels):
-            if cross:
-                before = bk.super_acc.launches
-                bk.super_acc(B, li, y, x, acc_k)
-                bk.super_acc_plain(B, li, y, x, acc_p)
-                torch.cuda.synchronize()
-                if bk.super_acc.launches != before + 1:
-                    raise RuntimeError("the acc launch count did not grow")
-                if not torch.equal(acc_k, acc_p):
-                    raise RuntimeError(f"super_acc disagrees with plain on "
-                                       f"level {li}")
-                t["acc"].append(_median_ms(
-                    lambda: bk.super_acc(B, li, y, x, acc_k), torch))
-                t["acc_plain"].append(_median_ms(
-                    lambda: bk.super_acc_plain(B, li, y, x, acc_p), torch,
-                    reps=3, batch=3))
-                work["acc"].append(_level_work(B, li, 4, "acc"))
-            a = acc_k if cross else None
-            for p in bk._parity_order(B):
-                xk, xp = x.clone(), x.clone()
-                before = bk.super_parity.launches
-                bk.super_parity(B, li, p, y, a, xk)
-                bk.super_parity_plain(B, li, p, y, a, xp)
-                torch.cuda.synchronize()
-                if bk.super_parity.launches != before + 1:
-                    raise RuntimeError("the parity launch count did not "
-                                       "grow")
-                if not torch.equal(xk, xp):
-                    raise RuntimeError(f"super_parity disagrees with plain "
-                                       f"on level {li} parity {p}")
-                t["par"].append(_median_ms(
-                    lambda: bk.super_parity(B, li, p, y, a, xk), torch))
-                t["par_plain"].append(_median_ms(
-                    lambda: bk.super_parity_plain(B, li, p, y, a, xp),
-                    torch, reps=3, batch=3))
-                work["par"].append(_level_work(B, li, 4, "parity", p))
-            print(f"[ilu0-split] {ILU_384} f32 {'U' if B.upper else 'L'} "
-                  f"level {li}: super_acc and super_parity bit_equal=True "
-                  f"acc_ms={t['acc'][-1] if cross else 0:.4f} "
-                  f"parity_ms={t['par'][-2]:.4f},{t['par'][-1]:.4f}")
-    ab = {"fused": [], "split": []}
-    out = {}
-    for route in ("fused", "split", "split", "fused"):
-        pair = (L, U) if route == "fused" else (Ls, Us)
-        out[route] = bk.blocked_ilu0(*pair, y)
-        ab[route].append(_median_ms(lambda: bk.blocked_ilu0(*pair, y),
-                                    torch))
-    equal = torch.equal(out["fused"], out["split"])
-    print(f"[ilu0-split] {ILU_384} f32 whole apply A/B in turns: fused_ms="
-          f"{ab['fused']} split_ms={ab['split']} bit_equal={equal}")
-    if not equal:
-        raise RuntimeError("split and fused 384^3 applies differ")
-    records = {}
-    for name, key in (("super_acc", "acc"), ("super_parity", "par")):
-        records[name] = {"max_abs_err": 0.0,
-                         "ms": statistics.mean(t[key]),
-                         "plain_ms": statistics.mean(t[key + "_plain"]),
-                         "library_ms": None, **_mean_bound(work[key])}
-    del A, L, U, Ls, Us, x, y, acc_k, acc_p, out
-    torch.cuda.empty_cache()
-    return records, ab
+    records, applies = {}, {}
+    for dt in (torch.float32, torch.float64):
+        A, L, U, _s = _ilu0_pair(torch, bt, ILU_384, dt)
+        Ls, Us = _split_pair(L, U)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        x = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
+        label = f"{ILU_384} {str(dt)[6:]}"
+        steps = {}
+        for B in (Ls, Us):
+            for step, res in _split_steps(torch, bk, "ilu0-split", label, B,
+                                          y, x, _level_work).items():
+                for k, v in res.items():
+                    steps.setdefault(step, {}).setdefault(k, []).extend(v)
+        applies[label] = _split_applies(torch, bk, "ilu0-split", label,
+                                        (L, U), (Ls, Us), y)
+        recs = {name: _split_record(steps, step) for name, step in
+                (("super_acc", "acc"), ("super_parity", "par"))}
+        print(f"[ilu0-split] {label} means over the levels: " + "; ".join(
+            f"{name} " + " ".join(f"{k}={v:.5f}" for k, v in r.items()
+                                  if isinstance(v, float))
+            for name, r in recs.items()))
+        if dt == torch.float32:
+            records = recs
+        else:
+            for name, r in recs.items():
+                records[name]["by_mode"] = {f"table, {label}": r}
+        _release(torch, L, U, Ls, Us)
+        del A, L, U, Ls, Us, B, x, y
+    return records, applies
 
 
 def phase_cpu_vs_card_ilu0(torch, bt):
@@ -1841,7 +2004,9 @@ def phase_slice4_path(torch, bt):
     before the timed solve and read just after: 8 factor-table level
     launches per preconditioner apply (one per iteration and the initial
     one); the 384^3 row again on the split route (BIS_SB_ALIGNED=0, which
-    the package reads at import: set here on the module).  Set-up seconds
+    the package reads at import: set here on the module), every acc and
+    parity launch on the staged route, then on the staged and the direct
+    route in turns.  Set-up seconds
     and peak memory per row.  Then float64 CG + ILU(0) on 128^3 to 1e-8.
     Returns each row's launches of the factor-table level and of the split
     pair, by row name."""
@@ -1851,7 +2016,7 @@ def phase_slice4_path(torch, bt):
     from basic_iterative_solvers_tpu_torch.solvers import make_method
     so = bt.stencil_op
     S, P = bt.SolverType, bt.PrecondType
-    launches = {}
+    launches, row_ms = {}, {}
     rows = [(name, spec, iters, False) for name, spec, iters in SLICE4_ROWS]
     rows.append(("pcg_ilu0@384 split", ILU_384, 100, True))
     for name, spec, iters, split in rows:
@@ -1890,11 +2055,14 @@ def phase_slice4_path(torch, bt):
               and bool(torch.isfinite(res.x_star).all())
               and counts["stencil_spmv"] >= res.iter_count
               and counts["super_level"] == 0)
+        n_acc = sum(1 for B in (L, U) for lv in B.levels if lv[1])
+        split_counts = (n_acc * applies, 2 * L.S * L.sx * applies)
         if split:
-            n_acc = sum(1 for B in (L, U) for lv in B.levels if lv[1])
+            # every split launch on the picker's route: staged (f32)
             ok = ok and counts["super_level_table"] == 0 and (
                 counts["super_acc"], counts["super_parity"]) == (
-                n_acc * applies, 2 * L.S * L.sx * applies)
+                counts["super_acc_staged"], counts["super_parity_staged"]) \
+                == split_counts
         else:
             ok = ok and counts["super_level_table"] == 2 * L.S * applies and (
                 counts["super_acc"] == counts["super_parity"] == 0) and (
@@ -1902,10 +2070,33 @@ def phase_slice4_path(torch, bt):
                 == counts["super_level_table"])
         if not ok:
             raise RuntimeError(f"slice-4 {name} run failed its checks")
-        launches[name] = {k: counts[k] for k in
-                          ("super_level_table", "super_acc", "super_parity",
-                           "super_level_table_staged",
-                           "super_level_table_direct")}
+        launches[name] = {k: counts[k] for k in counts
+                          if k.startswith(("super_level_table", "super_acc",
+                                           "super_parity"))}
+        row_ms[name] = ms
+        if split:
+            # both split routes in turns, every count set to 0 just before
+            # each solve and read just after, beside the fused row
+            turns = {}
+            for route in ("staged", "direct", "direct", "staged"):
+                _counters(so, gb, bk, reset=True)
+                with _on_route(route, L, U):
+                    r = bt.solve(setup, method=solver)
+                c = _counters(so, gb, bk)
+                if not (r.iter_count == iters and (
+                        c["super_acc"], c["super_parity"]) == (
+                        c[f"super_acc_{route}"], c[f"super_parity_{route}"])
+                        == split_counts and c["super_level_table"] == 0):
+                    raise RuntimeError(f"{name} on the {route} route failed "
+                                       f"its checks: {c}")
+                turns.setdefault(route, []).append(
+                    1e3 * r.solve_seconds / r.iter_count)
+            print(f"[slice4] {spec} f32 {name}: ms/iter in turns (staged, "
+                  f"direct, direct, staged): staged={turns['staged']} "
+                  f"direct={turns['direct']}; the fused row in this run "
+                  f"{row_ms['pcg_ilu0@384']:.5f}; launches a solve by "
+                  f"route: super_acc {split_counts[0]}, super_parity "
+                  f"{split_counts[1]}")
         if spec == ILU_384 and not split:
             # both factor-table routes in turns, every count set to 0 just
             # before each solve and read just after
@@ -2804,7 +2995,8 @@ def phase_plane_level_vs_plain(torch, bt, setup):
         del zk, zp, zd, x, y
     record["by_mode"]["const per-row D, Anderson 128^3"] = _anderson_levels(
         torch, bt, bk)
-    split_records, whole = _plane_split(torch, bk, L32, U32)
+    split_records, applies = _plane_split(torch, bk, L32, U32)
+    whole = dict(applies[f"{FDM_5B} float32"])
     M, perm = _plane_lower_csr(torch, bk, L32)
     y = torch.randn(n, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(12))
@@ -2864,79 +3056,41 @@ def _anderson_levels(torch, bt, bk):
 
 def _plane_split(torch, bk, L32, U32):
     """The split route's kernels in plane mode against plain on every level
-    of the pair in plane form, bit for bit, each timed; then whole applies
-    on the fused and the split route in turns (fused, split, split,
-    fused), equal bit for bit."""
-    Ls, Us = _as_planes(L32, torch), _as_planes(U32, torch)
-    n, m = L32.n_rows, L32.m
-    g = torch.Generator(device="cuda").manual_seed(13)
-    y = torch.randn(n, device="cuda", generator=g)
-    x = torch.randn(n, device="cuda", generator=g)
-    acc_k, acc_p = (torch.empty(m, device="cuda") for _ in range(2))
-    t = {"acc": [], "acc_plain": [], "par": [], "par_plain": []}
-    work = {"acc": [], "par": []}
-    for B in (Ls, Us):
-        for li, (_sb, cross, _s) in enumerate(B.levels):
-            if cross:
-                before = bk.super_acc.launches
-                bk.super_acc(B, li, y, x, acc_k)
-                bk.super_acc_plain(B, li, y, x, acc_p)
-                torch.cuda.synchronize()
-                if (bk.super_acc.launches != before + 1
-                        or not torch.equal(acc_k, acc_p)):
-                    raise RuntimeError(f"plane super_acc disagrees or was "
-                                       f"not counted on level {li}")
-                t["acc"].append(_median_ms(
-                    lambda: bk.super_acc(B, li, y, x, acc_k), torch))
-                t["acc_plain"].append(_median_ms(
-                    lambda: bk.super_acc_plain(B, li, y, x, acc_p), torch,
-                    reps=3, batch=3))
-                work["acc"].append(_plane_level_work(B, li, 4, "acc"))
-            a = acc_k if cross else None
-            for p in bk._parity_order(B):
-                xk, xp = x.clone(), x.clone()
-                before = bk.super_parity.launches
-                bk.super_parity(B, li, p, y, a, xk)
-                bk.super_parity_plain(B, li, p, y, a, xp)
-                torch.cuda.synchronize()
-                if (bk.super_parity.launches != before + 1
-                        or not torch.equal(xk, xp)):
-                    raise RuntimeError(f"plane super_parity disagrees or was "
-                                       f"not counted: level {li} parity {p}")
-                t["par"].append(_median_ms(
-                    lambda: bk.super_parity(B, li, p, y, a, xk), torch))
-                t["par_plain"].append(_median_ms(
-                    lambda: bk.super_parity_plain(B, li, p, y, a, xp), torch,
-                    reps=3, batch=3))
-                work["par"].append(_plane_level_work(B, li, 4, "parity"))
-            print(f"[plane-split] {FDM_5B} f32 {'U' if B.upper else 'L'} "
-                  f"level {li}: plane super_acc and super_parity "
-                  f"bit_equal=True acc_ms="
-                  f"{t['acc'][-1] if cross else 0:.4f} parity_ms="
-                  f"{t['par'][-2]:.4f},{t['par'][-1]:.4f}")
-    ab = {"fused": [], "split": []}
-    out = {}
-    for route in ("fused", "split", "split", "fused"):
-        pair = (L32, U32) if route == "fused" else (Ls, Us)
-        out[route] = bk.blocked_ilu0(*pair, y)
-        ab[route].append(_median_ms(lambda: bk.blocked_ilu0(*pair, y), torch))
-    equal = torch.equal(out["fused"], out["split"])
-    print(f"[plane-split] {FDM_5B} f32 whole apply A/B in turns: fused_ms="
-          f"{ab['fused']} split_ms={ab['split']} bit_equal={equal}")
-    if not equal:
-        raise RuntimeError("split and fused fdm:2048 applies differ")
-    records = {name: {"max_abs_err": 0.0, "ms": statistics.mean(t[key]),
-                      "plain_ms": statistics.mean(t[key + "_plain"]),
-                      "library_ms": None, **_mean_bound(work[key])}
-               for name, key in (("super_acc", "acc"),
-                                 ("super_parity", "par"))}
-    print(f"[plane-split] {FDM_5B} f32 plane mode, means over the levels: "
-          + "; ".join(f"{name} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                      f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
-                      for name, r in records.items()))
-    del Ls, Us, x, y, acc_k, acc_p, out
-    torch.cuda.empty_cache()
-    return records, {"fused_ms": ab["fused"], "split_ms": ab["split"]}
+    of the pair in plane form, f32 and widened to f64, bit for bit on the
+    line and the direct route, each step timed in turns beside its bounds
+    (_split_steps); then whole applies: the fused pair and the split pair
+    on both routes, in turns, bit-equal.  Returns the #10 and #11 plane
+    records ({dtype label: record}) and the f32 applies' times."""
+    n = L32.n_rows
+    work = lambda B, li, item, part, p=None: _plane_level_work(  # noqa: E731
+        B, li, item, part)
+    records, applies = {}, {}
+    for dt in (torch.float32, torch.float64):
+        L, U = (L32, U32) if dt == torch.float32 else (
+            _widen(L32, torch), _widen(U32, torch))
+        Ls, Us = _as_planes(L, torch), _as_planes(U, torch)
+        g = torch.Generator(device="cuda").manual_seed(13)
+        y = torch.randn(n, dtype=dt, device="cuda", generator=g)
+        x = torch.randn(n, dtype=dt, device="cuda", generator=g)
+        label = f"{FDM_5B} {str(dt)[6:]}"
+        steps = {}
+        for B in (Ls, Us):
+            for step, res in _split_steps(torch, bk, "plane-split", label, B,
+                                          y, x, work).items():
+                for k, v in res.items():
+                    steps.setdefault(step, {}).setdefault(k, []).extend(v)
+        applies[label] = _split_applies(torch, bk, "plane-split", label,
+                                        (L, U), (Ls, Us), y)
+        records[label] = {name: _split_record(steps, step) for name, step in
+                          (("super_acc", "acc"), ("super_parity", "par"))}
+        print(f"[plane-split] {label} plane mode, means over the levels: "
+              + "; ".join(f"{name} " + " ".join(
+                  f"{k}={v:.5f}" for k, v in r.items()
+                  if isinstance(v, float))
+                  for name, r in records[label].items()))
+        _release(torch, Ls, Us)
+        del Ls, Us, B, x, y
+    return records, applies
 
 
 #: the plane pair of hpcg:32x32x32 from CSR against its factor-table
@@ -5257,6 +5411,7 @@ def main():
     table_record, whole_l = phase_ilu0_level_vs_plain(torch, bt)
     lap("ilu0_level_vs_plain")
     split_records, ab = phase_split_vs_plain(torch, bt)
+    ab384 = ab[f"{ILU_384} float32"]
     lap("split_vs_plain")
     phase_cpu_vs_card_ilu0(torch, bt)
     lap("cpu_vs_card_ilu0")
@@ -5284,7 +5439,7 @@ def main():
     plane_launches, plane_routes = phase_slice5b_rows(torch, bt, setup5b,
                                                       setup5b_s)
     lap("slice5b_rows")
-    plane_record, _split5b, whole5b = phase_plane_level_vs_plain(
+    plane_record, split5b, whole5b = phase_plane_level_vs_plain(
         torch, bt, setup5b)
     torch.cuda.empty_cache()
     lap("plane_level_vs_plain")
@@ -5324,15 +5479,17 @@ def main():
     print(f"[summary] {FDM_5B} f32 ILU(0): whole L solve "
           f"torch.triangular_solve {whole5b['library_ms']:.4f} ms, "
           f"blocked_trisolve {whole5b['blocked_trisolve_ms']:.4f} ms; "
-          f"apply fused {whole5b['fused_ms']} ms, split "
-          f"{whole5b['split_ms']} ms (in turns); {MAIN_SPEC} f32 const L "
+          f"apply fused {whole5b['fused']} ms, split {whole5b['split']} "
+          f"ms, split direct {whole5b['split_direct']} ms (device, in "
+          f"turns); {MAIN_SPEC} f32 const L "
           f"solve: one launch {mega_record['ms']:.4f} ms, per level "
           f"{mega_record['per_level_ms']:.4f} ms")
     print(f"[summary] whole L solve at {MAIN_SPEC} f32: "
           f"torch.triangular_solve {whole_l['library_ms']:.4f} ms, "
           f"blocked_trisolve {whole_l['blocked_trisolve_ms']:.4f} ms; "
-          f"{ILU_384} f32 ILU(0) apply: fused {ab['fused']} ms, split "
-          f"{ab['split']} ms (in turns)")
+          f"{ILU_384} f32 ILU(0) apply: fused {ab384['fused']} ms, split "
+          f"{ab384['split']} ms, split direct {ab384['split_direct']} ms "
+          f"(device, in turns)")
     src = "basic_iterative_solvers_tpu_torch/csrc/"
     kernels = [{"name": "stencil_spmv", "route": "cuda",
                 "source": src + "stencil_spmv.cu",
@@ -5383,6 +5540,13 @@ def main():
             for k, rts in (("table", ("staged", "direct")),
                            ("plane", ("line", "direct")),
                            ("const", ("line", "direct"))) for rt in rts}}
+    for kernel in ("super_acc", "super_parity"):
+        split_records[kernel].setdefault("by_mode", {}).update(
+            {f"plane, {label}": recs[kernel]
+             for label, recs in split5b.items()})
+        by_route[kernel] = {
+            rt: slice4_launches["pcg_ilu0@384 split"][f"{kernel}_{rt}"]
+            for rt in ("staged", "line", "direct")}
     for kernel, line, main_row, record in (
             ("super_level_table", 1611, "pcg_ilu0", table_record),
             ("super_acc", 1999, "pcg_ilu0@384 split",

@@ -1135,3 +1135,132 @@ def test_gs_halo_routes_equal_single_device(card, spec, mat_dt):
         assert _routes(fn) == (before[0] + W.n_devices, before[1])
         assert torch.equal(y8, tso.stencil_gs_color_step(A, x, rhs, dinv, cs,
                                                          0))
+
+
+def _split_pair(card, spec, mode, dt, monkeypatch):
+    """(L, U) on the split route: the factor-table ILU(0) pair of a stencil
+    (split by hand), or the ILU(0) pair from host CSR built with
+    BIS_SB_ALIGNED=0 (both triangles in plane mode)."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    if mode == "table":
+        _A, pair = _table_pair(card, spec, dt)
+        return tuple(dataclasses.replace(B, fused=False, _args={})
+                     for B in pair)
+    monkeypatch.setattr(bk, "NO_ALIGNED", True)
+    pair = _mesh_pair(card, spec, "plane", dt)
+    assert all(B.is_plane and not B.fused for B in pair)
+    return pair
+
+
+def _split_counts(bk):
+    return {(c.__name__, rt): getattr(c, f"{rt}_launches")
+            for c in (bk.super_acc, bk.super_parity)
+            for rt in ("staged", "line", "direct")}
+
+
+def _split_plain(bk, B, y, x):
+    """A whole split solve of B through the plain acc and parity steps."""
+    acc = torch.empty(B.m, dtype=x.dtype, device=x.device)
+    for li, (_sb, cross, _s) in enumerate(B.levels):
+        if cross:
+            bk.super_acc_plain(B, li, y, x, acc)
+        for p in bk._parity_order(B):
+            bk.super_parity_plain(B, li, p, y, acc if cross else None, x)
+    return x
+
+
+SPLIT_PAIRS = [("hpcg:12x8x6", "table"), ("hpcg:72x20x16", "table"),
+               ("fdm:24", "plane"), ("hpcg:12x8x6", "plane")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("spec,mode", SPLIT_PAIRS)
+def test_split_routes_equal_direct_and_plain(card, spec, mode, dt,
+                                             monkeypatch):
+    """#10 and #11 on their mode's new route (staged: factor table;
+    line: plane) and on the direct route, forced through the route
+    cache, float32 and float64: every level and
+    parity of L and U bit-equal to each other and to the plain steps,
+    each launch counted in its route's counter."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    new = "staged" if mode == "table" else "line"
+    g = torch.Generator(device="cuda").manual_seed(29)
+    for B in _split_pair(card, spec, mode, dt, monkeypatch):
+        n = B.n_rows
+        for li, (_sb, cross, _s) in enumerate(B.levels):
+            y = torch.randn(n, dtype=dt, device=card, generator=g)
+            x = torch.randn(n, dtype=dt, device=card, generator=g)
+            acc = None
+            if cross:
+                acc = bk.super_acc_plain(B, li, y, x, torch.empty(
+                    B.m, dtype=dt, device=card))
+                for route in (new, "direct"):
+                    before = _split_counts(bk)
+                    got = _launch_split(bk, B, li, route, bk.super_acc, y, x,
+                                        torch.full_like(acc, float("nan")))
+                    after = _split_counts(bk)
+                    assert after[("super_acc", route)] == \
+                        before[("super_acc", route)] + 1
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, acc), (B.upper, li, route)
+            for p in bk._parity_order(B):
+                ref = bk.super_parity_plain(B, li, p, y, acc, x.clone())
+                for route in (new, "direct"):
+                    before = _split_counts(bk)
+                    got = _launch_split(bk, B, li, route, bk.super_parity, p,
+                                        y, acc, x.clone())
+                    assert _split_counts(bk)[("super_parity", route)] == \
+                        before[("super_parity", route)] + 1
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, ref), (B.upper, li, p, route)
+                x = ref
+
+
+def _launch_split(bk, B, li, route, fn, *args):
+    """fn(B, li, *args) with level li's route forced through the route
+    cache for both vector types (a float64 parity step reads the float32
+    level's), the cached routes restored after."""
+    keys = [("route", li, item, args[-1].device.index) for item in (4, 8)]
+    saved = {k: B._args.get(k) for k in keys}
+    B._args.update(dict.fromkeys(keys, route))
+    try:
+        return fn(B, li, *args)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del B._args[k]
+            else:
+                B._args[k] = v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,mode,route", [
+    ("hpcg:128x128x128", "table", "staged"), ("fdm:520", "plane", "line")])
+def test_split_apply_takes_the_picked_route(card, spec, mode, route,
+                                            monkeypatch):
+    """A whole split ILU(0) apply, float32, on shapes that fill the card:
+    every acc and parity launch on the route the picker names for the
+    fused level, counted there, none on the others; the result bit-equal
+    to the plain split apply (and, for the factor table, to the fused
+    apply)."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    dt = torch.float32
+    L, U = _split_pair(card, spec, mode, dt, monkeypatch)
+    for B in (L, U):
+        for li in range(len(B.levels)):
+            assert bk.level_route_for(B, li, 4) == route
+    y = torch.randn(L.n_rows, dtype=dt, device=card)
+    before = _split_counts(bk)
+    z = bk.blocked_ilu0(L, U, y)
+    after = _split_counts(bk)
+    n_acc = sum(1 for B in (L, U) for lv in B.levels if lv[1])
+    grew = {k: after[k] - before[k] for k in after}
+    assert grew == {**{k: 0 for k in grew},
+                    ("super_acc", route): n_acc,
+                    ("super_parity", route): 2 * L.S * L.sx}
+    xl = _split_plain(bk, L, y, torch.empty_like(y))
+    assert torch.equal(z, _split_plain(bk, U, xl, xl))
+    if mode == "table":
+        _A, fused = _table_pair(card, spec, dt)
+        assert torch.equal(z, bk.blocked_ilu0(*fused, y))

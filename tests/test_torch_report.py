@@ -184,7 +184,11 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "super_level_staged_kernel": "sptrsv",
             "super_level_line_kernel": "sptrsv",
             "super_acc_kernel": "sptrsv",
+            "super_acc_staged_kernel": "sptrsv",
+            "super_acc_line_kernel": "sptrsv",
             "super_parity_kernel": "sptrsv",
+            "super_parity_staged_kernel": "sptrsv",
+            "super_parity_line_kernel": "sptrsv",
             "super_solve_mega_kernel": "sptrsv",
             "rank_level_kernel": "sptrsv",
             "rank_level_vec_kernel": "sptrsv",
