@@ -309,6 +309,24 @@ def load_library() -> ctypes.CDLL:
             fn.restype = i32
     lib.bis_super_solve_mega_grid.argtypes = [i32] * 4
     lib.bis_super_solve_mega_grid.restype = i32
+    # the brick route and its barrier floor: tables, n_levels, nx, ny, nz,
+    # sy, sz, rx, ry, rz, by, bz, tl, lb, y, x, drows, stream
+    for name in ("super_solve_brick", "super_solve_brick_floor"):
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"bis_{name}_{dt}")
+            fn.argtypes = [i32, ptr] + [i32] * 13 + [ptr] * 4
+            fn.restype = i32
+    lib.bis_super_solve_brick_resident.argtypes = [i32, i32, i32, i64]
+    lib.bis_super_solve_brick_resident.restype = i32
+    lib.bis_super_solve_brick_smem_optin.argtypes = [i32]
+    lib.bis_super_solve_brick_smem_optin.restype = i32
+    lib.bis_super_solve_brick_smem.argtypes = [i32] * 11
+    lib.bis_super_solve_brick_smem.restype = i64
+    lib.bis_super_solve_brick_threads.argtypes = []
+    lib.bis_super_solve_brick_threads.restype = i32
+    lib.bis_super_solve_brick_parts.argtypes = [i32] * 7 + [
+        ctypes.POINTER(i32)] * 2
+    lib.bis_super_solve_brick_parts.restype = i32
     for size_fn, mirror, source in (
             (lib.bis_stencil_args_size, StencilArgs,
              "BisStencilArgs in csrc/stencil_spmv.cu"),
@@ -345,6 +363,20 @@ def load_library() -> ctypes.CDLL:
     if tuple(v.value for v in limits) != (LINE_THREADS, LINE_SMEM_MAX):
         raise RuntimeError("ops/block_trisolve.LINE_THREADS/LINE_SMEM_MAX do "
                            "not match BIS_SL_LINE_* in csrc/block_trisolve.cu")
+    from .ops.block_trisolve import BRICK_THREADS, brick_parts, brick_smem
+    parts = [i32() for _ in range(2)]
+    lib.bis_super_solve_brick_parts(8, 16, 8, 1, 1, 2, 2,
+                                    *[ctypes.byref(v) for v in parts])
+    parts = tuple(v.value for v in parts)
+    if lib.bis_super_solve_brick_threads() != BRICK_THREADS or parts != \
+            brick_parts(8, 16, 8, 1, 1, 2, 2) or any(
+            lib.bis_super_solve_brick_smem(4, 16, 8, 1, 1, 1, 2, 2, 128, item,
+                                           d)
+            != brick_smem(4, 16, 8, 1, 1, 1, 2, 2, 128, item, bool(d))
+            for item in (4, 8) for d in (0, 1)):
+        raise RuntimeError("ops/block_trisolve.BRICK_THREADS, brick_parts "
+                           "or brick_smem do not match csrc/block_trisolve."
+                           "cu")
     from .ops.block_trisolve import RANK_VEC_THREADS, RANK_VEC_WIN
     rv = [i32() for _ in range(3)]
     lib.bis_rank_vec_limits.argtypes = [ctypes.POINTER(i32)] * 3

@@ -3,7 +3,9 @@
 // whose legs are constant), factor-table mode (exact ILU(0) on a stencil)
 // and plane mode (factors built from host CSR), fused in one launch a
 // level or split into an acc step and one step per x-parity; a whole
-// const-mode solve in one cooperative launch (super_solve_mega_kernel);
+// const-mode solve in one cooperative launch (super_solve_mega_kernel, the
+// "direct" route, and super_solve_brick_kernel, the "brick" route, which
+// keeps x in shared memory for the whole solve);
 // and the rank-space level of host-CSR factors under a mod or grid
 // colouring (rank_level_kernel, the "scalar" route, and
 // rank_level_vec_kernel, the "vec" route, below).
@@ -18,7 +20,8 @@
 // (super_acc_kernel, the "direct" route; super_acc_staged_kernel and
 // super_acc_line_kernel) and _super_parity_pallas (super_parity_kernel;
 // super_parity_staged_kernel and super_parity_line_kernel), and
-// _super_solve_pallas_mega (super_solve_mega_kernel).  The plain forms are ops/block_trisolve.py's
+// _super_solve_pallas_mega (super_solve_mega_kernel; super_solve_brick_
+// kernel).  The plain forms are ops/block_trisolve.py's
 // super_level_plain, super_level_halo_plain, super_acc_plain,
 // super_parity_plain and super_solve_mega_plain.
 //
@@ -82,7 +85,8 @@
 // cooperative grid, sized to the blocks that fit on the card at once,
 // walks every level's line blocks with a grid-stride loop and meets at
 // grid.sync() between levels, which also makes each level's writes of x
-// visible to the next.
+// visible to the next; its "brick" route keeps each block's brick of x in
+// shared memory from the first level to the last (see there).
 //
 // The "direct" route (super_level_kernel, the first port's): a block of
 // 256 threads holds 256 / block_x lines, block_x = min(128, nx rounded
@@ -201,6 +205,7 @@
 #include <cstring>
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -858,6 +863,379 @@ super_solve_mega_kernel(const BisSuperLevelArgs* levels, int n_levels,
     }
 }
 
+// The one-launch const solve's "brick" route (super_solve_brick_kernel;
+// ops/block_trisolve.mega_route_for picks it, brick_shape sizes it).  The
+// TPU kernel keeps the whole solve's x in VMEM across its (levels, row
+// tiles) grid; here each block of a persistent, co-resident grid (at most
+// one wave, a block an SM) owns a brick: a fixed box of by x bz (y, z)
+// x-lines, every x of each, by and bz multiples of sy and sz so that
+// every superblock owns the same number of a brick's lines.  The brick's
+// x lives in dynamic shared memory for the whole solve, framed by the
+// legs' reach: (by + 2ry) x (bz + 2rz) lines of nx + 2rx values (at
+// 128^3: 128 bricks of 16 x 8 lines, a frame of 52 lines, 91 KB in
+// float32 and 183 KB in float64 a brick).  The same block solves the same
+// brick at every level:
+//   - set-up: the block's part of the brick tables (built by the wrapper
+//     once a solve: each level's scalars, coefficients and 1/D in the
+//     vectors' type, each cross leg's offset in the framed brick, the same
+//     from every row, and for this brick each level line's place and row
+//     and the frame lines the level reads) and the brick's y, into its
+//     place, come in by asynchronous copies (cp.async), all in flight at
+//     once, while the frame and the lines' x margins are zeroed; a level's
+//     acc starts from the y there;
+//   - per level, the listed frame lines are copied from global x (their
+//     owners wrote them at an earlier level, before the last grid
+//     barrier); then every row runs the cross legs unrolled to the level's
+//     bucket (0, 8, 16, 24, 27), offsets and coefficients in registers,
+//     loads issued eight legs at a time, with no bounds test: a source
+//     outside the grid reads a 0 of the frame or of a line's x margin,
+//     never written, so the row subtracts f * 0 there as the plain version
+//     does for its masked legs (the other routes skip the leg; the two can
+//     differ only in the sign of a zero);
+//   - the parity passes update the rows in place, every thread on rows of
+//     each parity, the solved self legs one bitmask a pass, their sources
+//     read with no bounds test (the x margin again); a row's solution is
+//     written to global x once, in its parity's pass; a per-row 1/D is
+//     read once, into a stage in shared memory, by asynchronous copies in
+//     flight across the barrier before its level;
+//   - levels meet at grid.sync(), none after the last.
+// y may alias x (the U solves of SGS and ILU(0) run in place): each block
+// reads its brick's y before it writes any row, and the bricks are
+// disjoint; a frame line is copied only once its superblock is solved.
+// What bounds it: the y read and x written once over the whole solve
+// (HBM), the barriers (a launch with WORK false runs the set-up's table
+// copy and the barriers alone: the floor), and, at one block of 512
+// threads an SM, the latency of each thread's chains of shared-memory
+// loads and rounded differences.  On the H100 a first form that kept acc
+// in the brick but read the halo through per-(line, leg) pointers (global
+// or shared) and sent edge rows down a tested loop ran no faster than the
+// per-level launches: a warp holding x = 0 or nx - 1 ran the tested loop
+// too.  The frame, the zero margins (every row unrolled), cp.async and
+// the tables built by the wrapper are what brought it to about 0.4 of
+// them at 128^3 (PERF.md).  Per-brick level flags in place of grid.sync()
+// (a brick waiting only for the owners of its frame lines) did not win in
+// turns and are not kept.  Every difference and product is rounded
+// alone, cross legs in order, then self legs: bit-equal to the plain loop
+// and to the other routes.
+#define BIS_SB_BRICK_THREADS 512
+
+// The brick tables (ops/block_trisolve.brick_tables builds them once a
+// solve): first, for each level, BIS_SB_BRICK_HDR ints of scalars (cross
+// legs, self legs, sx, upper), BIS_SB_BRICK_COEF coefficients in the
+// vectors' type (cross legs from 0, self legs from BIS_SB_BRICK_COEF / 2,
+// 1/D in the last) and BIS_SB_BRICK_OFFS ints (each cross leg's offset in
+// the framed brick, (dz (by + 2ry) + dy) (nx + 2rx) + dx, from 0, each
+// self leg's dx from BIS_SB_BRICK_OFFS / 2); then, for each brick and
+// level, brick_part ints: a (place, row) pair for each of the level's
+// lines of the brick (its x = 0 in the framed brick, its global row), the
+// count of frame lines to copy, a pad, and a (place, row) pair for each.
+#define BIS_SB_BRICK_HDR 16
+#define BIS_SB_BRICK_COEF 64
+#define BIS_SB_BRICK_OFFS 64
+
+// Lines of a brick's frame window.
+__host__ __device__ static size_t brick_window(int by, int bz, int ry,
+                                                int rz) {
+    return (size_t)(by + 2 * ry) * (bz + 2 * rz);
+}
+
+// Ints of a level's shared part and of its part for one brick (the frame
+// lines of a whole brick at most: a short brick has fewer), each a
+// multiple of 4.
+__host__ __device__ static int brick_shared(size_t item) {
+    return BIS_SB_BRICK_HDR + BIS_SB_BRICK_COEF * (int)(item / 4)
+           + BIS_SB_BRICK_OFFS;
+}
+
+__host__ __device__ static int brick_part(int by, int bz, int ry, int rz,
+                                          int sy, int sz) {
+    const int frame = (int)brick_window(by, bz, ry, rz) - by * bz;
+    return (2 * (by / sy) * (bz / sz) + 2 + 2 * frame + 3) & ~3;
+}
+
+// Bytes of the 1/D stage (padded to 16).
+__host__ __device__ static size_t brick_stage(int by, int bz, int sy, int sz,
+                                               int nx, size_t item,
+                                               bool drows) {
+    return drows ? ((size_t)(by / sy) * (bz / sz) * nx * item + 15)
+                   & ~(size_t)15 : 0;
+}
+
+// Dynamic shared memory of a brick launch: the block's tables (every
+// level's shared part and its brick's part), with a per-row D (drows) a
+// stage of a level's 1/D, and the framed brick.
+static size_t brick_smem(int n_levels, int by, int bz, int rx, int ry,
+                         int rz, int sy, int sz, int nx, size_t item,
+                         bool drows) {
+    return (size_t)n_levels * (brick_shared(item)
+                               + brick_part(by, bz, ry, rz, sy, sz))
+               * sizeof(int)
+           + brick_stage(by, bz, sy, sz, nx, item, drows)
+           + brick_window(by, bz, ry, rz) * (nx + 2 * rx) * item;
+}
+
+// The cross half of a level's lines of the brick: acc (the brick holds y
+// there) into the row's place, a thread a row of x, lines k =
+// threadIdx.y, + blockDim.y, ... (line k at lines[k].x in xs); leg l
+// reads the framed brick at offs[l] from the row (a 0 outside the grid).
+// (Four rows a thread at once, four chains of differences in flight, ran
+// slower on the H100: it takes all 128 registers.)
+template <typename T, int NCB>
+__device__ __forceinline__ void brick_cross(int nx, int nc, int K,
+                                            const T* coef, const int* offs,
+                                            const int2* lines, T* xs) {
+    // offsets in registers up to the 24-leg bucket, coefficients too in
+    // float32 and up to the 16-leg bucket in float64 (more spill); the
+    // rest read from shared memory
+    constexpr bool HO = NCB <= 24;
+    constexpr bool HC = NCB <= (sizeof(T) == 8 ? 16 : 24);
+    T c[HC && NCB > 0 ? NCB : 1];
+    int o[HO && NCB > 0 ? NCB : 1];
+#pragma unroll
+    for (int l = 0; l < NCB; ++l)
+        if (l < nc) {
+            if (HC) c[HC ? l : 0] = coef[l];
+            if (HO) o[HO ? l : 0] = offs[l];
+        }
+    for (int k = threadIdx.y; k < K; k += blockDim.y) {
+        T* const line = xs + lines[k].x;
+        for (int gx = threadIdx.x; gx < nx; gx += blockDim.x) {
+            const T* const xr = line + gx;
+            T acc = *xr;
+#pragma unroll
+            for (int c0 = 0; c0 < NCB; c0 += 8) {
+                T xv[8];
+#pragma unroll
+                for (int l = c0; l < c0 + 8 && l < NCB; ++l)
+                    if (l < nc) xv[l - c0] = xr[HO ? o[HO ? l : 0] : offs[l]];
+#pragma unroll
+                for (int l = c0; l < c0 + 8 && l < NCB; ++l)
+                    if (l < nc)
+                        acc = sub_rn(acc, mul_rn(HC ? c[HC ? l : 0] : coef[l],
+                                                 xv[l - c0]));
+            }
+            line[gx] = acc;
+        }
+    }
+}
+
+// Parity p's pass over a level's lines of the brick: thread x-lane k on
+// rows p + sx*k, p + sx*(k + tl), ..., U at a time (their loads first);
+// the self legs (dx sdx[l]) whose source parity is solved (`solved`),
+// with HOIST (two legs or fewer) their dx and coefficients in registers,
+// else read from shared memory, with no bounds test (a source outside the
+// line reads the 0 of its x margin); the row's solution goes to its place
+// and to global x (line k's row lines[k].y).
+template <typename T, bool HOIST, int U>
+__device__ __forceinline__ void brick_parity(int nx, int sx, int ns, int p,
+                                             unsigned solved, const T* coef,
+                                             const int* sdx, int K,
+                                             const int2* lines, T* xs, T* x,
+                                             const T* dstage) {
+    const int step = sx * blockDim.x;
+    const T* const cs = coef + BIS_SB_BRICK_COEF / 2;
+    const T dinv = coef[BIS_SB_BRICK_COEF - 1];
+    T c[2];
+    int dx[2];
+    if (HOIST)
+#pragma unroll
+        for (int l = 0; l < 2; ++l) {
+            c[l] = cs[l];
+            dx[l] = sdx[l];
+        }
+    for (int k = threadIdx.y; k < K; k += blockDim.y) {
+        const int2 lk = lines[k];
+        T* const line = xs + lk.x;
+        for (int g0 = p + sx * threadIdx.x; g0 < nx; g0 += U * step) {
+            T v[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+                if (g0 + u * step < nx) v[u] = line[g0 + u * step];
+            if (HOIST) {
+#pragma unroll
+                for (int l = 0; l < 2; ++l)
+                    if (l < ns && (solved >> l & 1u))
+#pragma unroll
+                        for (int u = 0; u < U; ++u)
+                            if (g0 + u * step < nx)
+                                v[u] = sub_rn(v[u], mul_rn(
+                                    c[l], line[g0 + u * step + dx[l]]));
+            } else {
+                for (int l = 0; l < ns; ++l)
+                    if (solved >> l & 1u)
+#pragma unroll
+                        for (int u = 0; u < U; ++u)
+                            if (g0 + u * step < nx)
+                                v[u] = sub_rn(v[u], mul_rn(
+                                    cs[l], line[g0 + u * step + sdx[l]]));
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int gx = g0 + u * step;
+                if (gx < nx) {
+                    const T w = mul_rn(v[u], dstage ? dstage[k * nx + gx]
+                                                    : dinv);
+                    line[gx] = w;
+                    x[lk.y + gx] = w;
+                }
+            }
+        }
+    }
+}
+
+// nx values of global memory into shared memory by the threads of a line
+// (threadIdx.x), asynchronously (cp.async: no registers, every copy in
+// flight at once); the caller commits and waits.
+template <typename T>
+__device__ __forceinline__ void brick_copy_line(const T* from, T* to,
+                                                int nx) {
+    for (int gx = threadIdx.x; gx < nx; gx += blockDim.x)
+        __pipeline_memcpy_async(to + gx, from + gx, sizeof(T));
+}
+
+// A level's per-row 1/D into the stage (line k at dstage[k * nx]),
+// asynchronously.
+template <typename T>
+__device__ __forceinline__ void brick_stage_d(int nx, int K,
+                                              const int2* lines,
+                                              const T* drows, T* dstage) {
+    for (int k = threadIdx.y; k < K; k += blockDim.y)
+        brick_copy_line(drows + lines[k].y, dstage + k * nx, nx);
+}
+
+// Block b solves brick (b mod nby, b / nby) of by x bz lines at every
+// level, framed (rx, ry, rz) deep; block (tl, lb) from
+// ops/block_trisolve.brick_shape; `tables` the brick tables.  WORK false:
+// the tables and the grid barriers alone (the barrier floor).
+template <typename T, bool WORK>
+__global__ void __launch_bounds__(BIS_SB_BRICK_THREADS, 1)
+super_solve_brick_kernel(const int* tables, int n_levels, int nx, int ny,
+                         int nz, int sy, int sz, int by, int bz, int rx,
+                         int ry, int rz, const T* y, T* x, const T* drows) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    cg::grid_group grid = cg::this_grid();
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int nt = blockDim.x * blockDim.y;
+    const int nby = (ny + by - 1) / by;
+    const int y0 = (blockIdx.x % nby) * by, z0 = (blockIdx.x / nby) * bz;
+    const int ey = min(by, ny - y0), ez = min(bz, nz - z0);
+    const int K = (ey / sy) * (ez / sz), kmax = (by / sy) * (bz / sz);
+    const int fy = by + 2 * ry, ls = nx + 2 * rx;
+    const int shared = brick_shared(sizeof(T));
+    const int part = brick_part(by, bz, ry, rz, sy, sz);
+    // shared memory: every level's shared part, then its brick's part,
+    // the 1/D stage, the framed brick
+    int* const tab = reinterpret_cast<int*>(smem_raw);
+    int* const own = tab + n_levels * shared;
+    T* const dstage = reinterpret_cast<T*>(own + n_levels * part);
+    T* const xs = reinterpret_cast<T*>(
+        reinterpret_cast<unsigned char*>(dstage)
+        + brick_stage(by, bz, sy, sz, nx, sizeof(T), drows != nullptr));
+    // every copy of the set-up in flight at once: the tables and the
+    // brick's y into its place (cp.async), while the frame lines and the
+    // lines' x margins are zeroed (the places y does not fill)
+    for (int k = tid; k < n_levels * shared / 4; k += nt)
+        __pipeline_memcpy_async(tab + 4 * k, tables + 4 * k, 16);
+    {
+        const int* const mine = tables + n_levels * shared
+                                + blockIdx.x * n_levels * part;
+        for (int k = tid; k < n_levels * part / 4; k += nt)
+            __pipeline_memcpy_async(own + 4 * k, mine + 4 * k, 16);
+    }
+    if (WORK) {
+        for (int L = threadIdx.y; L < ey * ez; L += blockDim.y) {
+            const int gy = y0 + L % ey, gz = z0 + L / ey;
+            brick_copy_line(y + nx * (gy + ny * gz),
+                            xs + ((gz - z0 + rz) * fy + gy - y0 + ry) * ls
+                               + rx, nx);
+        }
+        const int win = (int)brick_window(by, bz, ry, rz);
+        for (int f = threadIdx.y; f < win; f += blockDim.y) {
+            const int wy = f % fy - ry, wz = f / fy - rz;
+            T* const line = xs + f * ls;
+            if (wy >= 0 && wy < ey && wz >= 0 && wz < ez)
+                for (int i = threadIdx.x; i < 2 * rx; i += blockDim.x)
+                    line[i < rx ? i : nx + i] = T(0);
+            else
+                for (int i = threadIdx.x; i < ls; i += blockDim.x)
+                    line[i] = T(0);
+        }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (WORK && drows) {
+        // the first level's 1/D, in flight until its frame lines are in
+        brick_stage_d(nx, K, reinterpret_cast<const int2*>(own), drows,
+                      dstage);
+        __pipeline_commit();
+    }
+    for (int li = 0; li < n_levels; ++li) {
+        const int* const lt = tab + li * shared;
+        const int nc = lt[0], ns = lt[1], sx = lt[2], upper = lt[3];
+        const T* const cf = reinterpret_cast<const T*>(lt + BIS_SB_BRICK_HDR);
+        const int* const lo = lt + shared - BIS_SB_BRICK_OFFS;
+        const int* const bt = own + li * part;
+        const int2* const lines = reinterpret_cast<const int2*>(bt);
+        if (WORK) {
+            // the level's frame lines, beside its 1/D already in flight
+            __syncthreads();
+            const int* const fr = bt + 2 * kmax;
+            const int2* const frame = reinterpret_cast<const int2*>(fr + 2);
+            for (int j = threadIdx.y; j < fr[0]; j += blockDim.y)
+                brick_copy_line(x + frame[j].y, xs + frame[j].x, nx);
+            __pipeline_commit();
+            __pipeline_wait_prior(0);
+            __syncthreads();
+            if (nc == 0)
+                brick_cross<T, 0>(nx, 0, K, cf, lo, lines, xs);
+            else if (nc <= 8)
+                brick_cross<T, 8>(nx, nc, K, cf, lo, lines, xs);
+            else if (nc <= 16)
+                brick_cross<T, 16>(nx, nc, K, cf, lo, lines, xs);
+            else if (nc <= 24)
+                brick_cross<T, 24>(nx, nc, K, cf, lo, lines, xs);
+            else
+                brick_cross<T, 27>(nx, nc, K, cf, lo, lines, xs);
+            __syncthreads();
+            T* const ds = drows ? dstage : nullptr;
+            const int* const sdx = lo + BIS_SB_BRICK_OFFS / 2;
+            for (int step = 0; step < sx; ++step) {
+                const int p = upper ? sx - 1 - step : step;
+                // the self legs whose source parity (p + dx) mod sx is
+                // solved
+                unsigned solved = 0;
+                for (int l = 0; l < ns; ++l) {
+                    int q = p + sdx[l];
+                    while (q < 0) q += sx;
+                    while (q >= sx) q -= sx;
+                    if (upper ? q > p : q < p) solved |= 1u << l;
+                }
+                // two rows a thread a line at most: U = 2
+                const bool two = nx <= 2 * sx * (int)blockDim.x;
+#define BIS_SB_PARITY(HOIST, U)                                              \
+    brick_parity<T, HOIST, U>(nx, sx, ns, p, solved, cf, sdx, K, lines, xs, \
+                              x, ds)
+                if (ns <= 2 && two) BIS_SB_PARITY(true, 2);
+                else if (ns <= 2) BIS_SB_PARITY(true, 4);
+                else if (two) BIS_SB_PARITY(false, 2);
+                else BIS_SB_PARITY(false, 4);
+#undef BIS_SB_PARITY
+                if (step + 1 < sx) __syncthreads();
+            }
+            if (drows && li + 1 < n_levels) {
+                // the next level's 1/D, in flight across the barrier
+                __syncthreads();
+                brick_stage_d(nx, K,
+                              reinterpret_cast<const int2*>(bt + part),
+                              drows, dstage);
+                __pipeline_commit();
+            }
+        }
+        if (li + 1 < n_levels) grid.sync();
+    }
+}
+
 // Split route, step 1, "direct" (the first port's): acc[line * nx + x] =
 // y - sum_cross f * x.
 template <typename T, int MODE>
@@ -1473,6 +1851,74 @@ static int launch_mega(int device, const BisSuperLevelArgs* levels,
     return (int)cudaGetLastError();
 }
 
+// The blocks of a brick launch (threads a block, dynamic shared memory
+// smem) the card holds at once, its shared memory limit set first; 0
+// where it has no cooperative launch or cannot give smem to a block (the
+// query's error cleared).
+template <typename T, bool WORK>
+static int brick_resident(int device, int threads, size_t smem) {
+    const void* kernel = (const void*)super_solve_brick_kernel<T, WORK>;
+    int coop = 0, sms = 0, optin = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)
+            == cudaSuccess && coop
+        && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  device) == cudaSuccess
+        && cudaDeviceGetAttribute(&optin,
+                                  cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                  device) == cudaSuccess
+        && smem <= (size_t)optin
+        && cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem) == cudaSuccess
+        && cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared)
+               == cudaSuccess
+        && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, super_solve_brick_kernel<T, WORK>, threads, smem)
+               == cudaSuccess)
+        return per_sm * sms;
+    (void)cudaGetLastError();
+    return 0;
+}
+
+// A brick launch: bricks of by x bz lines of the nx x ny x nz grid under
+// (y, z) strides (sy, sz), framed (rx, ry, rz) deep (the cross legs'
+// reach), block (tl, lb).  Refused (cudaErrorInvalidValue) for extents
+// that are not multiples of the strides, a block above
+// BIS_SB_BRICK_THREADS or rows past 32-bit offsets; and
+// (cudaErrorCooperativeLaunchTooLarge) where the bricks do not fit on the
+// card at once.
+template <typename T, bool WORK>
+static int launch_brick(int device, const int* tables, int n_levels, int nx,
+                        int ny, int nz, int sy, int sz, int rx, int ry,
+                        int rz, int by, int bz, int tl, int lb, const T* y,
+                        T* x, const T* drows, cudaStream_t stream) {
+    const cudaError_t set = set_device(device);
+    if (set != cudaSuccess) return (int)set;
+    if (n_levels < 1 || nx < 1 || sy < 1 || sz < 1 || ny % sy || nz % sz
+        || by < sy || bz < sz || by % sy || bz % sz || rx < 0 || ry < 0
+        || rz < 0 || tl < 1 || lb < 1 || tl * lb > BIS_SB_BRICK_THREADS
+        || (long long)nx * ny * nz >= 2147483647LL
+        || (reinterpret_cast<uintptr_t>(tables) & 15))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = brick_smem(n_levels, by, bz, rx, ry, rz, sy, sz, nx,
+                                   sizeof(T), drows != nullptr);
+    const long long bricks = (long long)((ny + by - 1) / by)
+                             * ((nz + bz - 1) / bz);
+    if (bricks > brick_resident<T, WORK>(device, tl * lb, smem))
+        return (int)cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {(void*)&tables, (void*)&n_levels, (void*)&nx, (void*)&ny,
+                    (void*)&nz, (void*)&sy, (void*)&sz, (void*)&by,
+                    (void*)&bz, (void*)&rx, (void*)&ry, (void*)&rz,
+                    (void*)&y, (void*)&x, (void*)&drows};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        (const void*)super_solve_brick_kernel<T, WORK>, dim3((unsigned)bricks),
+        dim3(tl, lb), args, smem, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_rank_level(int device, const T* y, T* x, const T* vals,
                              const T* dinv, const long long* groups,
@@ -1729,6 +2175,66 @@ int bis_super_solve_mega_grid(int device, int threads, int max_blocks,
     if (set_device(device) != cudaSuccess) return 0;
     return itemsize == 8 ? mega_grid<double>(device, threads, max_blocks)
                          : mega_grid<float>(device, threads, max_blocks);
+}
+
+// The one-launch solve's brick route: `tables` the brick tables in
+// device memory (16-byte aligned), n_levels levels, the grid (nx, ny,
+// nz), its (y, z) strides, the frame (rx, ry, rz), the brick extents (by,
+// bz) and block (tl, lb) of ops/block_trisolve.brick_shape.  _floor_: the
+// same launch with no rows (the tables and the grid barriers).
+#define BIS_SB_BRICK_ENTRY(NAME, T, WORK)                                    \
+    int NAME(int device, const int* tables, int n_levels, int nx, int ny,   \
+             int nz, int sy, int sz, int rx, int ry, int rz, int by, int bz, \
+             int tl, int lb, const T* y, T* x, const T* drows,               \
+             void* stream) {                                                 \
+        return launch_brick<T, WORK>(device, tables, n_levels, nx, ny, nz,  \
+                                     sy, sz, rx, ry, rz, by, bz, tl, lb, y,  \
+                                     x, drows, (cudaStream_t)stream);        \
+    }
+BIS_SB_BRICK_ENTRY(bis_super_solve_brick_f32, float, true)
+BIS_SB_BRICK_ENTRY(bis_super_solve_brick_f64, double, true)
+BIS_SB_BRICK_ENTRY(bis_super_solve_brick_floor_f32, float, false)
+BIS_SB_BRICK_ENTRY(bis_super_solve_brick_floor_f64, double, false)
+#undef BIS_SB_BRICK_ENTRY
+
+// The brick kernel's co-resident blocks on the card for vectors of
+// itemsize bytes (4 or 8), `threads` a block and smem bytes of dynamic
+// shared memory: 0 where it cannot run them cooperatively.
+int bis_super_solve_brick_resident(int device, int itemsize, int threads,
+                                   long long smem) {
+    if (set_device(device) != cudaSuccess || smem < 0) return 0;
+    return itemsize == 8
+        ? brick_resident<double, true>(device, threads, (size_t)smem)
+        : brick_resident<float, true>(device, threads, (size_t)smem);
+}
+
+// The most dynamic shared memory a block of the card may take.
+int bis_super_solve_brick_smem_optin(int device) {
+    int optin = 0;
+    if (set_device(device) != cudaSuccess
+        || cudaDeviceGetAttribute(&optin,
+                                  cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                  device) != cudaSuccess)
+        return 0;
+    return optin;
+}
+
+// brick_smem, brick_shared, brick_part and BIS_SB_BRICK_THREADS, for
+// ops/block_trisolve to check its mirror against.
+long long bis_super_solve_brick_smem(int n_levels, int by, int bz, int rx,
+                                     int ry, int rz, int sy, int sz, int nx,
+                                     int itemsize, int drows) {
+    return (long long)brick_smem(n_levels, by, bz, rx, ry, rz, sy, sz, nx,
+                                 (size_t)itemsize, drows != 0);
+}
+
+int bis_super_solve_brick_threads(void) { return BIS_SB_BRICK_THREADS; }
+
+int bis_super_solve_brick_parts(int itemsize, int by, int bz, int ry, int rz,
+                                int sy, int sz, int* shared, int* part) {
+    *shared = brick_shared((size_t)itemsize);
+    *part = brick_part(by, bz, ry, rz, sy, sz);
+    return 0;
 }
 
 int bis_rank_level_f32(int device, const float* y, float* x,

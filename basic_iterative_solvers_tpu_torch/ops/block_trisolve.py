@@ -55,7 +55,11 @@ solve whose x-lines do not tile the TPU's 128 lanes (128 % nx != 0) runs
 the split route, each level as `super_acc` (acc for the whole level) and
 one `super_parity` per x-parity.  `BIS_SB_MEGA=1` (the module attribute
 `MEGA`, which may be set in process): a fused const-mode solve runs as one
-launch (`super_solve_mega`).  The TPU's lane rule stays too: a self leg
+launch (`super_solve_mega`), on the "brick" route where the solve's x fits
+the card's shared memory in one wave of bricks (each block keeps its
+brick of x there for the whole solve, as the TPU kernel keeps x in VMEM)
+or the "direct" route, picked by `mega_route_for` and its bricks by
+`brick_shape`.  The TPU's lane rule stays too: a self leg
 with |dx| ≥ min(nx, 128) refuses the superblock form, as the JAX package
 refuses it, so both packages take the same route.
 
@@ -1352,27 +1356,277 @@ def _mega_levels(B: SuperBlockTriSolve, device) -> torch.Tensor:
     return B._args[key]
 
 
+#: threads a block of the brick route (csrc/block_trisolve.cu:
+#: BIS_SB_BRICK_THREADS, its __launch_bounds__ with one block an SM: 128
+#: registers a thread, room for a level's leg offsets and coefficients)
+BRICK_THREADS = 512
+#: the brick tables' layout (csrc/block_trisolve.cu: BIS_SB_BRICK_HDR,
+#: BIS_SB_BRICK_COEF, BIS_SB_BRICK_OFFS): a level's shared part holds
+#: BRICK_HDR ints of scalars, BRICK_COEF coefficients in the vectors'
+#: type and BRICK_OFFS ints of leg offsets
+BRICK_HDR, BRICK_COEF, BRICK_OFFS = 16, 64, 64
+
+
+def brick_parts(itemsize: int, by: int, bz: int, ry: int, rz: int, sy: int,
+                sz: int) -> Tuple[int, int]:
+    """(shared, part): the ints of a level's shared part of the brick
+    tables and of its part for one brick (csrc/block_trisolve.cu:
+    brick_shared, brick_part), each a multiple of 4."""
+    shared = BRICK_HDR + BRICK_COEF * itemsize // 4 + BRICK_OFFS
+    frame = (by + 2 * ry) * (bz + 2 * rz) - by * bz
+    return shared, -(-(2 * (by // sy) * (bz // sz) + 2 + 2 * frame) // 4) * 4
+
+
+def brick_smem(n_levels: int, by: int, bz: int, rx: int, ry: int, rz: int,
+               sy: int, sz: int, nx: int, itemsize: int, drows: bool) -> int:
+    """Dynamic shared memory of a brick launch (csrc/block_trisolve.cu:
+    brick_smem): the block's part of the brick tables (brick_tables), with
+    a per-row D (`drows`) a stage of a level's 1/D on the brick's lines,
+    and the brick framed by the cross legs' reach (rx, ry, rz): (by + 2ry)
+    × (bz + 2rz) lines of nx + 2rx values."""
+    shared, part = brick_parts(itemsize, by, bz, ry, rz, sy, sz)
+    window = (by + 2 * ry) * (bz + 2 * rz)
+    lines = (by // sy) * (bz // sz)
+    return (n_levels * (shared + part) * 4
+            + (-(-lines * nx * itemsize // 16) * 16 if drows else 0)
+            + window * (nx + 2 * rx) * itemsize)
+
+
+def _brick_frame(B: SuperBlockTriSolve) -> Tuple[int, int, int]:
+    """(rx, ry, rz): the frame of B's bricks, the largest |dx| of its legs
+    (cross and self: a line's x margin) and |dy|, |dz| of its cross
+    legs."""
+    legs = [leg[1:] for lv in B.const_cross for leg in lv]
+    legs += [(leg[1], 0, 0) for lv in B.const_self for leg in lv]
+    return tuple(max([0] + [abs(leg[k]) for leg in legs]) for k in range(3))
+
+
+def _brick_smem_of(B: SuperBlockTriSolve, by: int, bz: int,
+                   itemsize: int) -> int:
+    nx, _ny, _nz, _sx, sy, sz = B.spec_params
+    return brick_smem(len(B.levels), by, bz, *_brick_frame(B), sy, sz, nx,
+                      itemsize, B.dinv_rows is not None)
+
+
+def brick_tables(B: SuperBlockTriSolve, shape, itemsize: int) -> np.ndarray:
+    """The brick route's tables for B on bricks `shape` (brick_shape), as
+    int32 (csrc/block_trisolve.cu: the brick tables): first each level's
+    shared part (cross legs, self legs, sx, upper; the coefficients and 1/D
+    in the vectors' type; each cross leg's offset in the framed brick and
+    each self leg's dx), then for each brick (b mod nby, b / nby) and level
+    its part: a (place, row) pair for each of the level's lines of the
+    brick, line k = iy + (ey/sy)·iz at (y0 + py + sy·iy, z0 + pz + sz·iz)
+    (place: the line's x = 0 in the framed brick; row: its global row),
+    the count of frame lines the level's cross legs read (their source
+    lines outside the brick, inside the grid), a pad, and a (place, row)
+    pair for each, from its shape alone."""
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    by, bz = shape[:2]
+    rx, ry, rz = _brick_frame(B)
+    fy, ls = by + 2 * ry, nx + 2 * rx
+    n_lv = len(B.levels)
+    shared, part = brick_parts(itemsize, by, bz, ry, rz, sy, sz)
+    kmax = (by // sy) * (bz // sz)
+    np_dt = np.float32 if itemsize == 4 else np.float64
+    head = np.zeros((n_lv, shared), np.int32)
+    for li in range(n_lv):
+        cross, selfs = B.const_cross[li], B.const_self[li]
+        head[li, :4] = (len(cross), len(selfs), sx, int(B.upper))
+        coef = np.zeros(BRICK_COEF, np_dt)
+        coef[:len(cross)] = [leg[0] for leg in cross]
+        coef[BRICK_COEF // 2:BRICK_COEF // 2 + len(selfs)] = [
+            leg[0] for leg in selfs]
+        coef[-1] = B.dinv if B.dinv is not None else 1.0
+        head[li, BRICK_HDR:shared - BRICK_OFFS] = coef.view(np.int32)
+        offs = head[li, shared - BRICK_OFFS:]
+        offs[:len(cross)] = [(dz * fy + dy) * ls + dx
+                             for _c, dx, dy, dz in cross]
+        offs[BRICK_OFFS // 2:BRICK_OFFS // 2 + len(selfs)] = [
+            dx for _c, dx in selfs]
+    nby, nbz = -(-ny // by), -(-nz // bz)
+    parts = np.zeros((nby * nbz, n_lv, part), np.int64)
+    for b in range(nby * nbz):
+        y0, z0 = (b % nby) * by, (b // nby) * bz
+        ey, ez = min(by, ny - y0), min(bz, nz - z0)
+        for li, (sb, _groups, _selfs) in enumerate(B.levels):
+            iy, iz = np.meshgrid(np.arange(ey // sy), np.arange(ez // sz))
+            gy = (y0 + sb % sy + sy * iy).reshape(-1)
+            gz = (z0 + sb // sy + sz * iz).reshape(-1)
+            K = gy.size
+            parts[b, li, 0:2 * K:2] = ((gz - z0 + rz) * fy + gy - y0 + ry) \
+                * ls + rx
+            parts[b, li, 1:2 * K:2] = nx * (gy + ny * gz)
+            legs = np.array([leg[2:] for leg in B.const_cross[li]],
+                            np.int64).reshape(-1, 2)
+            qy = (gy[:, None] + legs[None, :, 0]).reshape(-1)
+            qz = (gz[:, None] + legs[None, :, 1]).reshape(-1)
+            out = ~((qy >= y0) & (qy < y0 + ey) & (qz >= z0) & (qz < z0 + ez))
+            ok = out & (qy >= 0) & (qy < ny) & (qz >= 0) & (qz < nz)
+            src = np.unique(np.stack([qz[ok], qy[ok]], 1), axis=0)
+            n_fr = len(src)
+            parts[b, li, 2 * kmax] = n_fr
+            fr = parts[b, li, 2 * kmax + 2:2 * kmax + 2 + 2 * n_fr]
+            fr[0::2] = ((src[:, 0] - z0 + rz) * fy + src[:, 1] - y0 + ry) \
+                * ls + rx
+            fr[1::2] = nx * (src[:, 1] + ny * src[:, 0])
+    if parts.size and parts.max() >= 2 ** 31:
+        raise ValueError("the brick tables exceed 32-bit offsets")
+    return np.concatenate([head.reshape(-1),
+                           parts.astype(np.int32).reshape(-1)])
+
+
+def _brick_tables_on(B: SuperBlockTriSolve, x: torch.Tensor) -> torch.Tensor:
+    """brick_tables for B's cached brick shape on x's card, as int32 on
+    that card (cached with the launch tables, by shape)."""
+    item, index = x.element_size(), x.device.index
+    shape = B._args[("brick_shape", item, index)]
+    if shape is None:
+        raise ValueError("the solve has no brick shape on this card")
+    key = ("brick_tables", item, index, shape)
+    if key not in B._args:
+        B._args[key] = torch.from_numpy(brick_tables(B, shape, item)).to(
+            x.device)
+    return B._args[key]
+
+
+def brick_shape(B: SuperBlockTriSolve, itemsize: int, sms: int,
+                smem_per_block: int) -> Optional[Tuple[int, int, int, int]]:
+    """(by, bz, tl, lb): the brick route's bricks and block for the const
+    solve B with vectors of `itemsize` bytes on a card of `sms`
+    multiprocessors giving a block `smem_per_block` bytes of shared
+    memory; None where the solve's x does not fit the card's shared
+    memory in one wave of bricks.
+
+    A brick is by × bz (y, z) x-lines, by and bz multiples of sy and sz
+    (the last brick of an axis may be shorter, still a multiple), a block
+    a brick, at most `sms` bricks (one wave, one block an SM).  Among the
+    extents whose shared memory (brick_smem: the framed brick, with the
+    stage of a per-row D where B has one) fits, the fewest lines a brick,
+    then the squarest, then the longest along y (whose lines lie next to
+    each other in memory): 16 × 8 lines at 128³ (128 bricks), 16 × 1 on
+    fdm:2048 (128).  The block: BRICK_THREADS threads, tl along x (a
+    power of two, at least a warp where a line has that many rows, at most
+    one a row) and lb of the K = (by/sy)·(bz/sz) lines a level has in a
+    brick: 32 × 16 at 128³, 64 × 8 on fdm:2048."""
+    nx, ny, nz, sx, sy, sz = B.spec_params
+    if B.n_rows * itemsize > sms * smem_per_block:
+        return None
+    best = None
+    for by in range(sy, ny + 1, sy):
+        nbz = sms // -(-ny // by)
+        if nbz < 1:
+            continue
+        bz = -(-nz // nbz)
+        bz = -(-bz // sz) * sz
+        if _brick_smem_of(B, by, bz, itemsize) > smem_per_block:
+            continue
+        key = (by * bz, by + bz, -by)
+        if best is None or key < best[0]:
+            best = (key, by, bz)
+    if best is None:
+        return None
+    _key, by, bz = best
+    K = (by // sy) * (bz // sz)
+    tl_max = min(BRICK_THREADS, 1 << (nx - 1).bit_length())
+    tl = max(min(32, tl_max),
+             min(BRICK_THREADS >> (K - 1).bit_length(), tl_max))
+    return by, bz, tl, min(K, BRICK_THREADS // tl)
+
+
+def brick_count(B: SuperBlockTriSolve, shape) -> int:
+    """The bricks (blocks) of a brick launch of B with `shape`."""
+    _nx, ny, nz = B.spec_params[:3]
+    return -(-ny // shape[0]) * -(-nz // shape[1])
+
+
+def _brick_card(index: int) -> Tuple[int, int]:
+    """(multiprocessors, shared memory a block may take) of card `index`."""
+    from .._build import load_library
+    return sm_count(index), load_library().bis_super_solve_brick_smem_optin(
+        index)
+
+
+def _brick_resident(index: int, itemsize: int, threads: int,
+                    smem: int) -> int:
+    """The brick kernel's blocks that card `index` holds at once with
+    `threads` a block and `smem` bytes of dynamic shared memory; 0 where
+    it cannot launch them cooperatively."""
+    from .._build import load_library
+    return load_library().bis_super_solve_brick_resident(index, itemsize,
+                                                         threads, smem)
+
+
+def mega_route_for(B: SuperBlockTriSolve, itemsize: int,
+                   device=None) -> str:
+    """The route of the one-launch solve of B on `device` for vectors of
+    `itemsize` bytes: "brick" where the card launches cooperatively, the
+    bricks of brick_shape (the solve's x in the card's shared memory) fit
+    on it at once at the brick's shared memory (csrc/block_trisolve.cu:
+    bis_super_solve_brick_resident) and the rows fit 32-bit offsets;
+    "direct" (the first port's kernel, x in global memory) elsewhere, e.g.
+    384³ (226 MB of x) or fdm:2048 in float64 (33.6 MB, more than 132 ×
+    227 KB).  Worked out at the first launch and kept with the launch
+    tables, with the brick shape."""
+    index = None if device is None else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = ("mega_route", itemsize, index)
+    if key not in B._args:
+        route, shape = "direct", None
+        if B.is_const and B.fused and B.n_rows < 2 ** 31:
+            sms, smem_max = _brick_card(index)
+            shape = brick_shape(B, itemsize, sms, smem_max)
+            if shape is not None and brick_count(B, shape) <= _brick_resident(
+                    index, itemsize, shape[2] * shape[3],
+                    _brick_smem_of(B, *shape[:2], itemsize)):
+                route = "brick"
+        B._args[("brick_shape", itemsize, index)] = shape
+        B._args[key] = route
+    return B._args[key]
+
+
+def _brick_args(B: SuperBlockTriSolve, x: torch.Tensor):
+    """The brick launch's arguments after its launch tables: the grid, its
+    (y, z) strides, the frame and the cached brick shape."""
+    nx, ny, nz, _sx, sy, sz = B.spec_params
+    shape = B._args[("brick_shape", x.element_size(), x.device.index)]
+    if shape is None:
+        raise ValueError("the solve has no brick shape on this card")
+    return (nx, ny, nz, sy, sz, *_brick_frame(B), *shape)
+
+
 def super_solve_mega(B: SuperBlockTriSolve, y: torch.Tensor,
                      x: torch.Tensor) -> torch.Tensor:
     """A whole fused const-mode solve of B into x (which may be y), every
     level in order; returns x.
 
-    A CUDA tensor goes through the hand-written cooperative kernel, one
-    launch for the whole solve, counted in `super_solve_mega.launches`; a
-    launch the card refuses raises.  A CPU tensor takes the plain version,
-    the per-level loop."""
+    A CUDA tensor goes through a hand-written cooperative kernel, one
+    launch for the whole solve, on `mega_route_for`'s route: "brick"
+    (each block keeps its brick of x in shared memory from the first level
+    to the last) or "direct" (the first port's kernel); counted in
+    `super_solve_mega.launches` and by route in `.brick_launches` and
+    `.direct_launches`.  A launch the card refuses raises.  A CPU tensor
+    takes the plain version, the per-level loop."""
     _check_vectors(B, 0, y=(y, B.n_rows), x=(x, B.n_rows))
     if not (B.is_const and B.fused):
         raise ValueError("the one-launch solve runs fused const-mode solves "
                          "only")
     if x.device.type == "cuda":
-        levels = _mega_levels(B, x.device)
-        a = _level_args(B, 0)
-        max_blocks = max(_level_args(B, li).grid_x
-                         for li in range(len(B.levels)))
-        _cuda_call(B, "super_solve_mega", x, levels.data_ptr(),
-                   len(B.levels), a.block_x, a.block_y, max_blocks,
-                   y.data_ptr(), x.data_ptr(), _ptr(B.dinv_rows))
+        if mega_route_for(B, x.element_size(), x.device) == "brick":
+            _cuda_call(B, "super_solve_brick", x,
+                       _brick_tables_on(B, x).data_ptr(), len(B.levels),
+                       *_brick_args(B, x), y.data_ptr(), x.data_ptr(),
+                       _ptr(B.dinv_rows))
+            super_solve_mega.brick_launches += 1
+        else:
+            levels = _mega_levels(B, x.device)
+            a = _level_args(B, 0)
+            max_blocks = max(_level_args(B, li).grid_x
+                             for li in range(len(B.levels)))
+            _cuda_call(B, "super_solve_mega", x, levels.data_ptr(),
+                       len(B.levels), a.block_x, a.block_y, max_blocks,
+                       y.data_ptr(), x.data_ptr(), _ptr(B.dinv_rows))
+            super_solve_mega.direct_launches += 1
         super_solve_mega.launches += 1
         return x
     if x.device.type == "cpu":
@@ -1381,19 +1635,38 @@ def super_solve_mega(B: SuperBlockTriSolve, y: torch.Tensor,
 
 
 super_solve_mega.launches = 0
+super_solve_mega.brick_launches = 0
+super_solve_mega.direct_launches = 0
+
+
+def brick_barrier_floor(B: SuperBlockTriSolve, y: torch.Tensor,
+                        x: torch.Tensor) -> None:
+    """The brick launch of B with no rows and no legs on CUDA tensors: its
+    launch tables copied and its grid barriers met, nothing written (the
+    barrier floor a brick solve's time is read against; not counted)."""
+    if mega_route_for(B, x.element_size(), x.device) != "brick":
+        raise ValueError("the solve does not take the brick route")
+    _cuda_call(B, "super_solve_brick_floor", x,
+               _brick_tables_on(B, x).data_ptr(), len(B.levels),
+               *_brick_args(B, x), y.data_ptr(), x.data_ptr(),
+               _ptr(B.dinv_rows))
 
 
 def mega_grid(B: SuperBlockTriSolve, device) -> int:
     """The blocks of super_solve_mega's grid for B on the CUDA `device`:
-    those that fit on the card at once, at most the most line blocks a
-    level has."""
+    on the brick route its bricks; on the direct route those that fit on
+    the card at once, at most the most line blocks a level has."""
     from .._build import load_library
     device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    item = torch.empty(0, dtype=B.dtype).element_size()
+    if mega_route_for(B, item, device) == "brick":
+        return brick_count(B, B._args[("brick_shape", item, device.index)])
     a = _level_args(B, 0)
     return load_library().bis_super_solve_mega_grid(
-        device.index or 0, a.block_x * a.block_y,
-        max(_level_args(B, li).grid_x for li in range(len(B.levels))),
-        torch.empty(0, dtype=B.dtype).element_size())
+        device.index, a.block_x * a.block_y,
+        max(_level_args(B, li).grid_x for li in range(len(B.levels))), item)
 
 
 def _check_split(B: SuperBlockTriSolve, li: int, **vecs):

@@ -53,7 +53,8 @@ PHASE_BUCKETS = (
                 "super_acc_staged_kernel", "super_acc_line_kernel",
                 "super_parity_kernel", "super_parity_staged_kernel",
                 "super_parity_line_kernel", "super_solve_mega_kernel",
-                "rank_level_kernel", "rank_level_vec_kernel")),
+                "super_solve_brick_kernel", "rank_level_kernel",
+                "rank_level_vec_kernel")),
     ("orthog", ("project_gram_kernel", "correct_write_kernel")),
     ("layout_glue", ("Memcpy", "Memset", "copy_kernel", "CatArrayBatchedCopy",
                      "fill_kernel", "FillFunctor")),

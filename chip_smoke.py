@@ -116,10 +116,18 @@ exits non-zero:
      in turns (fused, split on both routes), torch.triangular_solve's
      whole L solve,
      and the hpcg:32x32x32 plane pair against its factor-table pair;
- 25. the one-launch const solve ([mega]) against the per-level route and
-     the plain loop on the HPCG 128^3 SGS pair, f32 and f64, bit for bit,
-     and torch.triangular_solve's whole const L solve; then the bench's sgs and pcg rows with BIS_SB_MEGA's switch (the
-     module attribute MEGA) on and off in turns;
+ 25. the one-launch const solve ([mega]) on its brick route (the
+     picker's: each block keeps its brick of x in shared memory for the
+     whole solve) and its direct route against the per-level route and
+     the plain loop, bit for bit, on the HPCG 128^3 SGS pair (L, U, U in
+     place, f32 and f64), the Anderson 128^3 SGS pair and the fdm:2048
+     ILU(0) pair's U (const, per-row D, f32): the direct route re-timed
+     alone by device time, then brick, direct, per-level and the brick
+     launch with no rows (the barrier floor) in turns, beside the
+     per-level byte bound and the on-chip solve bound;
+     torch.triangular_solve's whole const L solve; then the bench's sgs
+     and pcg rows with BIS_SB_MEGA's switch (the module attribute MEGA) on
+     and off in turns, the one-launch solves counted by route;
  26. kernel #2 (the SpMV with x staged in shared memory, [stream]) against
      its plain version and bit for bit against #1 and both kernels'
      leg-loop routes at 128^3 f32 (every dot set) and f64, 384^3 f32,
@@ -319,7 +327,8 @@ PTXAS_KERNELS = ("lane_ell_spmv_kernel", "lane_ell_spmv_halo_kernel",
                  "super_acc_line_kernel", "super_parity_line_kernel",
                  "stencil_spmv_kernel",
                  "stencil_spmv_stream_kernel", "stencil_spmv_box_kernel",
-                 "stencil_spmv_stream_box_kernel")
+                 "stencil_spmv_stream_box_kernel",
+                 "super_solve_brick_kernel")
 #: Itanium codes of the template arguments those kernels take
 _MANGLED = {"f": "float", "d": "double", "t": "u16", "h": "u8", "i": "int",
             "13__nv_bfloat16": "bf16"}
@@ -1278,6 +1287,9 @@ def _counters(so, gb, bk, reset=False):
                   for k in ("super_acc", "super_parity")
                   for rt in ("staged", "line", "direct")},
                "super_solve_mega": (bk.super_solve_mega, "launches"),
+               **{f"super_solve_mega_{rt}": (bk.super_solve_mega,
+                                             f"{rt}_launches")
+                  for rt in ("brick", "direct")},
                "stencil_spmv_stream": (so.stencil_spmv_stream, "launches")}
     if reset:
         for fn, attr in kernels.values():
@@ -3123,16 +3135,133 @@ def _plane_vs_table(torch, bt, bk):
                            "factor-table pair")
 
 
-def phase_mega_vs_per_level(torch, bt):
-    """K2 (#12, the one-launch const solve) against the per-level route and
-    the plain per-level loop on the const SGS pair of HPCG 128^3, f32 and
-    f64, bit for bit: the L solve, the U solve and the U solve in place;
-    each route timed; and the f32 L solve through torch.triangular_solve on
-    the colour-sorted sparse triangle, the library's nearest call.  Returns
-    the f32 record (ms: one whole L solve)."""
+def _mega_on(bk, B, route, y, x):
+    """super_solve_mega of B on `route`, forced through the route cache
+    (mega_route_for's key), the picked route restored after."""
+    key = ("mega_route", x.element_size(), x.device.index)
+    picked = bk.mega_route_for(B, x.element_size(), x.device)
+    B._args[key] = route
+    try:
+        return bk.super_solve_mega(B, y, x)
+    finally:
+        B._args[key] = picked
+
+
+def _mega_counts(bk):
+    m = bk.super_solve_mega
+    return m.launches, m.brick_launches, m.direct_launches
+
+
+def _mega_solve(torch, bk, label, B, y, timed=True):
+    """#12 on one solve B: the brick route (the picker's, checked) and the
+    direct route forced, apart and in place, against the per-level route
+    and the plain loop, bit for bit, each launch counted once in
+    `.launches` and in its route's count; with `timed`, the direct route
+    re-timed alone by device time, then the brick, direct and per-level
+    routes and the brick launch with no rows (the barrier floor) in turns
+    (direct, brick, level, floor, floor, level, brick, direct), and the
+    brick route in place, beside the per-level byte bound, the on-chip
+    solve bound (y read and x written once) and the floor.  Returns the
+    record: each route's best device ms, the bounds, the brick grid."""
+    item = y.element_size()
+    route = bk.mega_route_for(B, item, y.device)
+    if route != "brick":
+        raise RuntimeError(f"{label}: the picker names {route!r}, not the "
+                           "brick route")
+
+    def per_level(yy, xx):
+        for li in range(len(B.levels)):
+            bk.super_level(B, li, yy, xx)
+        return xx
+
+    outs, grew = {}, {}
+    for rt in ("brick", "direct"):
+        before = _mega_counts(bk)
+        outs[rt] = _mega_on(bk, B, rt, y, torch.empty_like(y))
+        inplace = y.clone()
+        _mega_on(bk, B, rt, inplace, inplace)
+        torch.cuda.synchronize()
+        outs[rt + " in place"] = inplace
+        grew[rt] = tuple(a - b for a, b in zip(_mega_counts(bk), before))
+    if grew != {"brick": (2, 2, 0), "direct": (2, 0, 2)}:
+        raise RuntimeError(f"{label}: the route counts grew by {grew}")
+    xl = per_level(y, torch.empty_like(y))
+    tl = y.clone()
+    per_level(tl, tl)
+    xp = bk.super_solve_mega_plain(B, y, torch.empty_like(y))
+    torch.cuda.synchronize()
+    equal = {"plain": torch.equal(outs["brick"], xp),
+             "direct": torch.equal(outs["brick"], outs["direct"]),
+             "per_level": torch.equal(outs["brick"], xl),
+             "in_place": all(torch.equal(outs[k], xl) for k in
+                             ("brick in place", "direct in place"))
+             and torch.equal(tl, xl)}
+    shape = B._args[("brick_shape", item, y.device.index)]
+    work = _plane_level_work if B.dinv_rows is not None else _level_work
+    works = [work(B, li, item) for li in range(len(B.levels))]
+    level_bound = _bound(sum(b for b, _o in works), sum(o for _b, o in works))
+    # the whole solve with its state on chip: y (and a per-row 1/D) read
+    # once, x written once
+    solve_bytes = B.n_rows * item * (3 if B.dinv_rows is not None else 2)
+    solve_bound = _bound(solve_bytes, sum(o for _b, o in works))
+    rec = {"max_abs_err": float((outs["brick"] - xp).abs().max()),
+           "bound_ms": solve_bound["bound_ms"],
+           "bound_by": solve_bound["bound_by"],
+           "level_bound_ms": level_bound["bound_ms"],
+           "grid": bk.mega_grid(B, y.device), "brick": shape}
+    line = (f"[mega] {label} {'U' if B.upper else 'L'} solve ({len(B.levels)} "
+            f"const levels, {[len(lv[1]) for lv in B.levels]} cross legs; "
+            f"brick {shape[0]}x{shape[1]} lines, block {shape[2]}x{shape[3]}"
+            f", grid {rec['grid']} bricks): bit_equal={equal}")
+    if timed:
+        out = torch.empty_like(y)
+        rec["direct_first_ms"] = _device_ms(
+            lambda: _mega_on(bk, B, "direct", y, out), torch)
+        turns = _in_turns(torch, {
+            "brick": lambda: _mega_on(bk, B, "brick", y, out),
+            "direct": lambda: _mega_on(bk, B, "direct", y, out),
+            "level": lambda: per_level(y, out),
+            "floor": lambda: bk.brick_barrier_floor(B, y, out)},
+            ("direct", "brick", "level", "floor", "floor", "level", "brick",
+             "direct"))
+        inplace = y.clone()
+        rec["in_place_ms"] = _device_ms(
+            lambda: _mega_on(bk, B, "brick", inplace, inplace), torch)
+        rec.update(ms=min(turns["brick"]), direct_ms=min(turns["direct"]),
+                   per_level_ms=min(turns["level"]),
+                   floor_ms=min(turns["floor"]))
+        line += (f" device ms: direct re-timed alone "
+                 f"{rec['direct_first_ms']:.5f}; in turns brick="
+                 f"{turns['brick']} direct={turns['direct']} per_level="
+                 f"{turns['level']} floor={turns['floor']}; brick in place "
+                 f"{rec['in_place_ms']:.5f}; brick/per_level="
+                 f"{rec['ms'] / rec['per_level_ms']:.3f}; bounds: per-level "
+                 f"{level_bound['bound_ms']:.5f}, on-chip solve "
+                 f"{solve_bound['bound_ms']:.5f} ({solve_bound['bound_by']})"
+                 f", barrier floor {rec['floor_ms']:.5f}")
+    print(line)
+    if not all(equal.values()):
+        raise RuntimeError(f"{label}: the one-launch routes disagree: "
+                           f"{equal}")
+    return rec
+
+
+def phase_mega_vs_per_level(torch, bt, setup5b):
+    """#12 (the one-launch const solve) on its brick route (the picker's)
+    and its direct route against the per-level route and the plain
+    per-level loop, bit for bit (_mega_solve): the const SGS pair of HPCG
+    128^3, L, U and U in place, f32 and f64, each route timed by device
+    time in turns beside the per-level byte bound, the on-chip solve bound
+    and the barrier floor; the f32 L solve through torch.triangular_solve
+    on the colour-sorted sparse triangle, the library's nearest call; the
+    Anderson 128^3 SGS pair from host CSR (const, per-row D) and the
+    fdm:2048 ILU(0) pair's U (const, per-row D) in f32 the same way (in
+    float64 fdm:2048's x exceeds the card's shared memory: the picker
+    names the direct route).  Returns the f32 record (ms: one whole L
+    solve on the brick route)."""
     from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
-    record = None
+    record, by_mode = None, {}
     for dt in (torch.float32, torch.float64):
         A = bt.stencil_op.from_source_operator(MAIN_SPEC, dt, device="cuda")
         L, U = bk.build_superblock_gs_pair_stencil(A, spec_for_device(A),
@@ -3140,44 +3269,14 @@ def phase_mega_vs_per_level(torch, bt):
         g = torch.Generator(device="cuda").manual_seed(15)
         y = torch.randn(A.n_rows, dtype=dt, device="cuda", generator=g)
         label = f"{MAIN_SPEC} {str(dt)[6:]}"
-
-        def per_level(B, yy, xx):
-            for li in range(len(B.levels)):
-                bk.super_level(B, li, yy, xx)
-            return xx
-
         for B in (L, U):
-            before = bk.super_solve_mega.launches
-            xk = bk.super_solve_mega(B, y, torch.empty_like(y))
-            xl = per_level(B, y, torch.empty_like(y))
-            xp = bk.super_solve_mega_plain(B, y, torch.empty_like(y))
-            tk, tl = y.clone(), y.clone()
-            bk.super_solve_mega(B, tk, tk)
-            per_level(B, tl, tl)
-            torch.cuda.synchronize()
-            if bk.super_solve_mega.launches != before + 2:
-                raise RuntimeError("the one-launch count did not grow by 2")
-            equal = (torch.equal(xk, xl) and torch.equal(xk, xp)
-                     and torch.equal(tk, tl))
-            out = torch.empty_like(y)
-            ms = _median_ms(lambda: bk.super_solve_mega(B, y, out), torch)
-            lvl_ms = _median_ms(lambda: per_level(B, y, out), torch)
-            plain_ms = _median_ms(
-                lambda: bk.super_solve_mega_plain(B, y, out), torch, reps=5,
-                batch=2)
-            works = [_level_work(B, li, y.element_size())
-                     for li in range(len(B.levels))]
-            bound = _bound(sum(b for b, _o in works),
-                           sum(o for _b, o in works))
-            print(f"[mega] {label} {'U' if B.upper else 'L'} solve "
-                  f"({len(B.levels)} const levels, grid "
-                  f"{bk.mega_grid(B, 'cuda')} blocks): bit_equal={equal} "
-                  f"(per-level route, plain, in place) one_launch_ms={ms:.4f} "
-                  f"per_level_ms={lvl_ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})")
-            if not equal:
-                raise RuntimeError(f"{label}: the one-launch solve disagrees")
+            rec = _mega_solve(torch, bk, label, B, y)
+            by_mode[f"{label} {'U' if B.upper else 'L'}"] = {
+                k: rec[k] for k in ("ms", "direct_ms", "per_level_ms",
+                                    "in_place_ms", "floor_ms", "bound_ms",
+                                    "level_bound_ms")}
             if dt == torch.float32 and not B.upper:
+                xk = bk.super_solve_mega(B, y, torch.empty_like(y))
                 M, perm = _const_lower_csr(torch, A, B)
                 yp = y[perm].unsqueeze(1).contiguous()
                 sol = torch.triangular_solve(yp, M, upper=False).solution
@@ -3194,13 +3293,50 @@ def phase_mega_vs_per_level(torch, bt):
                 if not rel <= TOL["float32"]:
                     raise RuntimeError("the library's const L solve "
                                        "disagrees")
-                del M, yp, sol, ref
-                record = {"max_abs_err": float((xk - xl).abs().max()),
-                          "ms": ms, "plain_ms": plain_ms,
-                          "per_level_ms": lvl_ms, "library_ms": lib_ms,
-                          **bound}
+                out = torch.empty_like(y)
+                plain_ms = _median_ms(
+                    lambda: bk.super_solve_mega_plain(B, y, out), torch,
+                    reps=5, batch=2)
+                del M, yp, sol, ref, xk
+                record = {**rec, "plain_ms": plain_ms, "library_ms": lib_ms}
         del A, L, U, y
         torch.cuda.empty_cache()
+    st, gen_s, setup_s = _colored_host_setup(
+        torch, bt, ANDERSON_128, torch.float32, "BICGSTAB",
+        "SYMMETRIC_GAUSS_SEIDEL", stencil=True)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    y = torch.randn(st.M.L_block.n_rows, device="cuda", generator=g)
+    for B in (st.M.L_block, st.M.U_block):
+        if not (B.is_const and B.dinv_rows is not None):
+            raise RuntimeError("the Anderson pair is not const with a "
+                               "per-row D")
+        rec = _mega_solve(torch, bk, f"{ANDERSON_128} f32 (host CSR "
+                          f"{gen_s:.2f} s, preprocessing {setup_s:.2f} s)",
+                          B, y)
+        by_mode[f"Anderson 128^3 f32 {'U' if B.upper else 'L'}"] = {
+            k: rec[k] for k in ("ms", "direct_ms", "per_level_ms",
+                                "in_place_ms", "floor_ms", "bound_ms",
+                                "level_bound_ms")}
+    del st, y
+    U32 = setup5b.M.U_block
+    if not (U32.is_const and U32.dinv_rows is not None):
+        raise RuntimeError(f"{FDM_5B}'s U is not const with a per-row D")
+    y = torch.randn(U32.n_rows, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(17))
+    rec = _mega_solve(torch, bk, f"{FDM_5B} f32", U32, y)
+    by_mode["fdm:2048 f32 U"] = {
+        k: rec[k] for k in ("ms", "direct_ms", "per_level_ms", "in_place_ms",
+                            "floor_ms", "bound_ms", "level_bound_ms")}
+    U64 = _widen(U32, torch)
+    route64 = bk.mega_route_for(U64, 8, y.device)
+    print(f"[mega] {FDM_5B} f64 U solve: the picker names {route64!r} "
+          f"(x {8 * U64.n_rows / 2 ** 20:.1f} MiB; brick shape "
+          f"{U64._args[('brick_shape', 8, y.device.index)]})")
+    if route64 != "direct":
+        raise RuntimeError(f"{FDM_5B} f64 should take the direct route")
+    del y, U64
+    torch.cuda.empty_cache()
+    record["by_mode"] = by_mode
     return record
 
 
@@ -3208,9 +3344,10 @@ def phase_mega_rows(torch, bt):
     """The bench's sgs and pcg rows on HPCG 128^3 (1200 iterations, f32,
     tolerance 0) with MEGA on and off in turns (on, off, off, on), each
     after a warm-up solve with every counter set to 0 just before the timed
-    solve and read just after: 2 one-launch solves an apply with MEGA, 8
-    level launches without.  Returns the one-launch solve's launches over
-    the MEGA runs."""
+    solve and read just after: 2 one-launch solves an apply with MEGA, all
+    on the brick route (the picker's at 128^3), 8 level launches without.
+    Returns the one-launch solve's launches over the MEGA runs, in all and
+    by route."""
     import math
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
     from basic_iterative_solvers_tpu_torch.ops import gmres_basis as gb
@@ -3218,6 +3355,7 @@ def phase_mega_rows(torch, bt):
     so = bt.stencil_op
     S, P = bt.SolverType, bt.PrecondType
     mega_launches = 0
+    by_route = {"brick": 0, "direct": 0}
     rows = [r for r in SLICE3_ROWS if r[0] in ("sgs", "pcg")]
     for name, method, precond, iters, kw in rows:
         setup = _setup(torch, bt, MAIN_SPEC, torch.float32, "cuda",
@@ -3236,24 +3374,29 @@ def phase_mega_rows(torch, bt):
                 ms[mega].append(1e3 * res.solve_seconds / res.iter_count)
                 if mega:
                     mega_launches += counts[mega]["super_solve_mega"]
+                    for rt in by_route:
+                        by_route[rt] += counts[mega][
+                            f"super_solve_mega_{rt}"]
                 if not (res.iter_count == iters
                         and math.isfinite(res.final_residual_norm)):
                     raise RuntimeError(f"{name} MEGA={mega} run failed")
         finally:
             bk.MEGA = False
         on, off = counts[True], counts[False]
-        per = {k: {key: round(c[key] / iters, 3) for key in
-                   ("super_level", "super_solve_mega")}
+        keys = ("super_level", "super_solve_mega", "super_solve_mega_brick",
+                "super_solve_mega_direct")
+        per = {k: {key: round(c[key] / iters, 3) for key in keys}
                for k, c in (("on", on), ("off", off))}
         print(f"[mega] {MAIN_SPEC} f32 {name} fused, MEGA in turns (on, "
               f"off, off, on): ms/iter on={[f'{v:.5f}' for v in ms[True]]} "
               f"off={[f'{v:.5f}' for v in ms[False]]} launches/iter={per}")
         if not (on["super_level"] == 0 and off["super_solve_mega"] == 0
                 and on["super_solve_mega"] > 0
+                and on["super_solve_mega_brick"] == on["super_solve_mega"]
                 and off["super_level"] == 4 * on["super_solve_mega"]):
             raise RuntimeError(f"{name}: the routes' launch counts do not "
                                f"match: {per}")
-    return mega_launches
+    return mega_launches, by_route
 
 
 STREAM_SPECS = ((MAIN_SPEC, "float32", ((), ("x",), ("self",), ("aux",))),
@@ -5443,9 +5586,9 @@ def main():
         torch, bt, setup5b)
     torch.cuda.empty_cache()
     lap("plane_level_vs_plain")
-    mega_record = phase_mega_vs_per_level(torch, bt)
+    mega_record = phase_mega_vs_per_level(torch, bt, setup5b)
     lap("mega_vs_per_level")
-    mega_launches = phase_mega_rows(torch, bt)
+    mega_launches, mega_routes = phase_mega_rows(torch, bt)
     lap("mega_rows")
     mesh_level_record = phase_mesh_super_level(
         torch, bt, setup5b, {"const": mega_record["library_ms"],
@@ -5482,8 +5625,9 @@ def main():
           f"apply fused {whole5b['fused']} ms, split {whole5b['split']} "
           f"ms, split direct {whole5b['split_direct']} ms (device, in "
           f"turns); {MAIN_SPEC} f32 const L "
-          f"solve: one launch {mega_record['ms']:.4f} ms, per level "
-          f"{mega_record['per_level_ms']:.4f} ms")
+          f"solve: one launch, brick route {mega_record['ms']:.4f} ms, "
+          f"direct route {mega_record['direct_ms']:.4f} ms, per level "
+          f"{mega_record['per_level_ms']:.4f} ms (device, in turns)")
     print(f"[summary] whole L solve at {MAIN_SPEC} f32: "
           f"torch.triangular_solve {whole_l['library_ms']:.4f} ms, "
           f"blocked_trisolve {whole_l['blocked_trisolve_ms']:.4f} ms; "
@@ -5581,7 +5725,9 @@ def main():
     for kernel, line, launched, record in (
             ("super_level_plane", 1611, plane_launches,
              dict(plane_record, launches_by_route=plane_routes)),
-            ("super_solve_mega", 2171, mega_launches, mega_record)):
+            ("super_solve_mega", 2171, mega_launches,
+             dict(mega_record, launches_by_route=mega_routes,
+                  routes=["brick", "direct"]))):
         kernels.append({
             "name": kernel, "route": "cuda",
             "source": src + "block_trisolve.cu",
@@ -5661,7 +5807,10 @@ def main():
                                         "direct_ms_384", "apply_ms_384",
                                         "scalar_ms", "sector_bound_ms",
                                         "direct_apply_ms_384",
-                                        "bound_apply_ms_384")
+                                        "bound_apply_ms_384", "routes",
+                                        "per_level_ms", "level_bound_ms",
+                                        "floor_ms", "direct_first_ms",
+                                        "in_place_ms", "grid", "brick")
          if key in k}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

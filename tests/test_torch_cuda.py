@@ -1264,3 +1264,111 @@ def test_split_apply_takes_the_picked_route(card, spec, mode, route,
     if mode == "table":
         _A, fused = _table_pair(card, spec, dt)
         assert torch.equal(z, bk.blocked_ilu0(*fused, y))
+
+
+MEGA_PAIRS = [("hpcg:128x128x128", "const"),
+              ("anderson:Lx=32,Ly=32,Lz=32,t=1.0,ranpot=4.0,seed=1",
+               "host")]
+
+
+def _mega_counts(bk):
+    m = bk.super_solve_mega
+    return m.launches, m.brick_launches, m.direct_launches
+
+
+def _mega_on(bk, B, route, y, x):
+    """super_solve_mega of B with `route` forced through the route cache,
+    the cached route restored after."""
+    key = ("mega_route", x.element_size(), x.device.index)
+    bk.mega_route_for(B, x.element_size(), x.device)
+    saved = B._args[key]
+    B._args[key] = route
+    try:
+        return bk.super_solve_mega(B, y, x)
+    finally:
+        B._args[key] = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("spec,kind", MEGA_PAIRS)
+def test_mega_brick_route_equals_direct_per_level_and_plain(card, spec, kind,
+                                                            dt):
+    """#12's brick route (the picker's on these pairs) on L and U, apart
+    and in place: bit-equal to the direct route, the per-level route and
+    the plain loop; each launch counted once in `.launches` and once in
+    its route's count."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    L, U = _mesh_pair(card, spec, "const" if kind == "const" else "sgs", dt)
+    assert L.is_const and (L.dinv_rows is not None) == (kind == "host")
+    g = np.random.default_rng(31)
+    for B in (L, U):
+        y = torch.from_numpy(g.standard_normal(B.n_rows)).to(card, dt)
+        assert bk.mega_route_for(B, y.element_size(), card) == "brick"
+        ref = bk.super_solve_mega_plain(B, y, torch.empty_like(y))
+        lvl = torch.empty_like(y)
+        for li in range(len(B.levels)):
+            bk.super_level(B, li, y, lvl)
+        outs = {}
+        for route, grew in (("brick", (1, 1, 0)), ("direct", (1, 0, 1))):
+            before = _mega_counts(bk)
+            outs[route] = _mega_on(bk, B, route, y, torch.empty_like(y))
+            inplace = y.clone()
+            _mega_on(bk, B, route, inplace, inplace)
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(_mega_counts(bk), before)) \
+                == tuple(2 * v for v in grew)
+            assert torch.equal(inplace, outs[route]), (route, B.upper)
+        assert torch.equal(outs["brick"], ref), B.upper
+        assert torch.equal(outs["brick"], outs["direct"])
+        assert torch.equal(outs["brick"], lvl)
+
+
+@pytest.mark.cuda
+def test_mega_switch_counts_the_brick_route(card, monkeypatch):
+    """blocked_sgs at 128^3 with MEGA on: two one-launch solves, both on
+    the brick route, no level launch; bit-equal to MEGA off.  384^3 and
+    fdm:2048 in float64 do not fit the card's shared memory: direct."""
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    L, U = _mesh_pair(card, "hpcg:128x128x128", "const", torch.float32)
+    y = torch.randn(L.n_rows, device=card)
+    off = bk.blocked_sgs(L, U, y)
+    monkeypatch.setattr(bk, "MEGA", True)
+    before, levels = _mega_counts(bk), bk.super_level.launches
+    on = bk.blocked_sgs(L, U, y)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_mega_counts(bk), before)) == (2, 2, 0)
+    assert bk.super_level.launches == levels
+    assert torch.equal(on, off)
+    A = tso.from_source_operator("hpcg:384x384x384", torch.float32,
+                                 device=card)
+    L384, _U = bk.build_superblock_gs_pair_stencil(A, spec_for_device(A),
+                                                   dtype=torch.float32)
+    assert bk.mega_route_for(L384, 4, card) == "direct"
+    assert bk.mega_grid(L384, card) > 0
+
+
+@pytest.mark.cuda
+def test_mega_brick_launch_the_card_refuses_raises(card):
+    """A brick shape whose bricks do not fit on the card at once is
+    refused by the launch: it raises, counts nothing and falls back to
+    nothing."""
+    from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
+    L, _U = _mesh_pair(card, "hpcg:128x128x128", "const", torch.float32)
+    idx = torch.cuda.current_device()
+    assert bk.mega_route_for(L, 4, card) == "brick"
+    shape = L._args[("brick_shape", 4, idx)]
+    assert bk.mega_grid(L, card) == bk.brick_count(L, shape) == 128
+    L._args[("brick_shape", 4, idx)] = (2, 2, 32, 1)    # 4,096 bricks
+    y = torch.randn(L.n_rows, device=card)
+    x = torch.full_like(y, 7.0)
+    before = _mega_counts(bk)
+    try:
+        with pytest.raises(RuntimeError, match="super_solve_brick"):
+            bk.super_solve_mega(L, y, x)
+    finally:
+        L._args[("brick_shape", 4, idx)] = shape
+    torch.cuda.synchronize()
+    assert _mega_counts(bk) == before
+    assert bool((x == 7.0).all())

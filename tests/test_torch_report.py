@@ -190,6 +190,7 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "super_parity_staged_kernel": "sptrsv",
             "super_parity_line_kernel": "sptrsv",
             "super_solve_mega_kernel": "sptrsv",
+            "super_solve_brick_kernel": "sptrsv",
             "rank_level_kernel": "sptrsv",
             "rank_level_vec_kernel": "sptrsv",
             "project_gram_kernel_strided": "orthog",
