@@ -140,7 +140,11 @@ def spec_colors_np(spec: ColorSpec, n: int) -> np.ndarray:
 def greedy_coloring(A, balanced: bool = False) -> np.ndarray:
     """Sequential greedy colouring of the (structurally symmetric) host CSR
     graph, int32 ids; `balanced` picks the least-loaded admissible colour
-    instead of the first."""
+    instead of the first.  Native unless BIS_TPU_NO_NATIVE is set."""
+    from . import _native
+    colors = _native.greedy_color(A, balanced)
+    if colors is not None:
+        return colors
     n = A.n_rows
     row_ptr, col = A.row_ptr, A.col
     colors = np.full(n, -1, dtype=np.int32)

@@ -12,7 +12,9 @@
 
 `from_csr` picks the format (`auto_format_choice`) or takes the one asked
 for.  Operators live on `device`, the card unless the caller asks for the
-CPU.
+CPU.  The pattern statistics and the DIA and ELL packs are one sweep of the
+native host library each (_native.py) unless BIS_TPU_NO_NATIVE is set;
+the NumPy branches are their plain versions, bit for bit.
 """
 from __future__ import annotations
 
@@ -81,12 +83,27 @@ class DeviceELL:
         return self.data.numel()
 
 
-def analyze_diagonals(A: MatrixCSR):
-    """(distinct diagonal offsets, ascending int64; DIA fill ratio)."""
+def analyze_diagonals(A: MatrixCSR, cap: int = 1 << 20):
+    """(distinct diagonal offsets, ascending int64; DIA fill ratio).  The
+    native sweep counts at most `cap` distinct diagonals; past it the NumPy
+    branch finds them all."""
     if A.nnz == 0:
         return np.zeros(0, dtype=np.int64), 1.0
+    from . import _native
+    stats = _native.csr_pattern_stats(A, cap=min(cap, A.n_rows + A.n_cols))
+    if stats is not None and stats[0] is not None:
+        uniq = stats[0]
+        return uniq, A.nnz / float(max(1, uniq.size * A.n_rows))
     uniq = np.unique(A.col.astype(np.int64) - A.rows())
     return uniq, A.nnz / float(max(1, uniq.size * A.n_rows))
+
+
+def pack_dtype(dtype):
+    """The host dtype a native pack writes for a `dtype` operator: float32
+    for float32 (the cast the NumPy branch leaves to torch, round to nearest
+    even either way), else float64, which torch then rounds as it does the
+    NumPy branch's."""
+    return np.float32 if torch_dtype(dtype) == torch.float32 else np.float64
 
 
 def csr_to_dia(A: MatrixCSR, dtype=torch.float32, *,
@@ -94,10 +111,15 @@ def csr_to_dia(A: MatrixCSR, dtype=torch.float32, *,
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
     offsets, _ = analyze_diagonals(A)
-    rows = A.rows()
-    d_idx = np.searchsorted(offsets, A.col.astype(np.int64) - rows)
-    data = np.zeros((offsets.size, A.n_rows), dtype=np.float64)
-    data[d_idx, rows] = A.val
+    from . import _native
+    data = _native.csr_to_dia_pack(A, offsets, A.n_rows, pack_dtype(dtype))
+    if data is not None:
+        data = data[:offsets.size]
+    else:
+        rows = A.rows()
+        d_idx = np.searchsorted(offsets, A.col.astype(np.int64) - rows)
+        data = np.zeros((offsets.size, A.n_rows), dtype=np.float64)
+        data[d_idx, rows] = A.val
     return DeviceDIA(data=torch.from_numpy(data).to(dtype=dtype,
                                                     device=device),
                      offsets=tuple(int(o) for o in offsets),
@@ -110,12 +132,17 @@ def csr_to_ell(A: MatrixCSR, dtype=torch.float32, *,
     row_nnz = A.row_nnz()
     K = int(row_nnz.max()) if A.n_rows else 0
     K = max(_ELL_PAD, -(-K // _ELL_PAD) * _ELL_PAD)
-    rows = A.rows()
-    lane = np.arange(A.nnz, dtype=np.int64) - A.row_ptr[:-1][rows]
-    cols = np.zeros((A.n_rows, K), dtype=np.int32)
-    data = np.zeros((A.n_rows, K), dtype=np.float64)
-    cols[rows, lane] = A.col
-    data[rows, lane] = A.val
+    from . import _native
+    packed = _native.csr_to_ell_pack(A, K, pack_dtype(dtype))
+    if packed is not None:
+        data, cols = packed
+    else:
+        rows = A.rows()
+        lane = np.arange(A.nnz, dtype=np.int64) - A.row_ptr[:-1][rows]
+        cols = np.zeros((A.n_rows, K), dtype=np.int32)
+        data = np.zeros((A.n_rows, K), dtype=np.float64)
+        cols[rows, lane] = A.col
+        data[rows, lane] = A.val
     return DeviceELL(data=torch.from_numpy(data).to(dtype=torch_dtype(dtype),
                                                     device=device),
                      cols=torch.from_numpy(cols).to(device),

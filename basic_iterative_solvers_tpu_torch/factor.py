@@ -1,7 +1,10 @@
 """Preconditioner set-up on the host: L/U splitting, the diagonal, scaling,
-ILU(0) (natural and colour-sorted ordering) and level sets.  The NumPy
-branch of the JAX package's factor.py, step for step, so both packages
-produce the same factors bit for bit.
+ILU(0) (natural and colour-sorted ordering) and level sets.  The JAX
+package's factor.py, step for step: each pass takes the native host
+library (_native.py) unless BIS_TPU_NO_NATIVE is set, and its NumPy branch
+is the plain version.  Both packages produce the same factors bit for bit
+on either branch.  The native ILU(0) loops contract to fused multiply-adds,
+so native and NumPy ILU(0) values may differ in the last bit.
 """
 from __future__ import annotations
 
@@ -35,6 +38,10 @@ def split_LU(A: MatrixCSR) -> Tuple[MatrixCSR, MatrixCSR, MatrixCSR,
                                     MatrixCSR]:
     """(L, L_strict, U, U_strict): L = strictly lower + diagonal, U =
     strictly upper + diagonal."""
+    from . import _native
+    native = _native.split_lu(A)
+    if native is not None:
+        return native
     rows = A.rows()
     cols = A.col.astype(np.int64)
     return (_csr_of(A, rows, cols <= rows), _csr_of(A, rows, cols < rows),
@@ -45,6 +52,10 @@ def peel_diag(A: MatrixCSR, need_inv: bool = True,
               check: bool = True) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """(D, 1/D) of the main diagonal; a missing or zero diagonal entry
     raises when `check`."""
+    from . import _native
+    if _native.available():
+        D = _native.peel_diag(A, ZERO_DIAG_TOL, check, check)
+        return D, (_inverse(D) if need_inv else None)
     rows = A.rows()
     is_diag = A.col == rows
     diag_rows = rows[is_diag]
@@ -57,11 +68,13 @@ def peel_diag(A: MatrixCSR, need_inv: bool = True,
     if check and np.any(np.abs(D[diag_rows]) < ZERO_DIAG_TOL):
         bad = diag_rows[np.abs(D[diag_rows]) < ZERO_DIAG_TOL][0]
         raise ZeroDiagonalError(f"ERROR: Zero diagonal element in row {bad}")
-    D_inv = None
-    if need_inv:
-        with np.errstate(divide="ignore"):
-            D_inv = np.where(D != 0.0, 1.0 / np.where(D == 0.0, 1.0, D), 0.0)
-    return D, D_inv
+    return D, (_inverse(D) if need_inv else None)
+
+
+def _inverse(D: np.ndarray) -> np.ndarray:
+    """1/D, 0 where D is 0."""
+    with np.errstate(divide="ignore"):
+        return np.where(D != 0.0, 1.0 / np.where(D == 0.0, 1.0, D), 0.0)
 
 
 def extract_scale(A: MatrixCSR) -> np.ndarray:
@@ -144,19 +157,53 @@ def factor_LU(A: MatrixCSR, ilu0: bool = False,
     return LUFactors(L, L_strict, U, U_strict, A_D, A_D_inv, L_D, U_D)
 
 
+def factor_ilu0_colored(A: MatrixCSR, colors: np.ndarray,
+                        pivot_tolerance: float = 1e-8,
+                        pivot_replacement: float = 1e-4):
+    """Exact ILU(0) in the colour-sorted ordering, returned in the original
+    ordering as (L_strict, U_strict, U_D): L_strict the entries with
+    colour(j) < colour(i) (unit diagonal implicit), U_strict those with
+    colour(j) > colour(i), U_D U's diagonal.  Both keep A's positions, so a
+    stencil's factors stay DIA-able and apply as masked colour sweeps."""
+    from .matrix import MatrixCOO, convert_coo_to_csr
+    rows_o, cols_o, lu_val_p, U_D = factor_ilu0_colored_triplets(
+        A, colors, pivot_tolerance=pivot_tolerance,
+        pivot_replacement=pivot_replacement)
+    n = A.n_rows
+    ci, cj = colors[rows_o], colors[cols_o]
+
+    def build(mask):
+        return convert_coo_to_csr(MatrixCOO.from_arrays(
+            rows_o[mask], cols_o[mask], lu_val_p[mask], n_rows=n, n_cols=n))
+
+    return build(cj < ci), build(cj > ci), U_D
+
+
 def factor_ilu0_colored_triplets(A: MatrixCSR, colors: np.ndarray,
                                  pivot_tolerance: float = 1e-8,
                                  pivot_replacement: float = 1e-4):
     """Coloured ILU(0) factor values as raw triplets in the original
     ordering: (rows, cols, vals, U_D).  A is factored in the colour-sorted
     ordering; the triplets carry every factor entry (L, U and the
-    diagonal), and U_D is the U diagonal per original row."""
+    diagonal), and U_D is the U diagonal per original row.  The native
+    branch permutes and factors in one sweep and returns int32 rows and
+    columns; the NumPy branch int64."""
+    from . import _native
     from .coloring import colors_to_perm
     from .permute import permute_csr
     perm, inv = colors_to_perm(colors)
-    Ap = permute_csr(A, perm, inv)
-    lu_val_p = _ilu0_values(Ap, pivot_tolerance, pivot_replacement)
+    fused = _native.permute_factor_csr(A, perm, inv, pivot_tolerance,
+                                       pivot_replacement)
+    if fused is not None:
+        Ap, lu_val_p = fused
+    else:
+        Ap = permute_csr(A, perm, inv)
+        lu_val_p = _ilu0_values(Ap, pivot_tolerance, pivot_replacement)
     n = A.n_rows
+    if _native.available() and n < 2**31:
+        rows_o, cols_o, U_D = _native.expand_perm_triplets(Ap, lu_val_p,
+                                                           perm)
+        return rows_o, cols_o, lu_val_p, U_D
     rows_o = perm[Ap.rows()].astype(np.int64)
     cols_o = perm[Ap.col].astype(np.int64)
     diag_mask = rows_o == cols_o
@@ -170,6 +217,10 @@ def _ilu0_values(A: MatrixCSR, pivot_tolerance: float,
     """In-pattern ILU(0) values of A: row-wise IKJ elimination with the
     reference's pivot guards (a pivot below 1e-16 skips its column; a final
     diagonal below `pivot_tolerance` becomes ±`pivot_replacement`)."""
+    from . import _native
+    lu_val = _native.ilu0(A, pivot_tolerance, pivot_replacement)
+    if lu_val is not None:
+        return lu_val
     n = A.n_rows
     row_ptr, col = A.row_ptr, A.col
     lu_val = A.val.astype(np.float64).copy()
@@ -213,6 +264,10 @@ def _ilu0_values(A: MatrixCSR, pivot_tolerance: float,
 def level_sets_lower(L_strict: MatrixCSR) -> np.ndarray:
     """level[i] = 1 + max(level[j]: j in the strictly lower pattern of row
     i); rows of one level are independent in the forward substitution."""
+    from . import _native
+    levels = _native.level_sets(L_strict)
+    if levels is not None:
+        return levels
     n = L_strict.n_rows
     level = np.zeros(n, dtype=np.int32)
     row_ptr, col = L_strict.row_ptr, L_strict.col
@@ -225,6 +280,10 @@ def level_sets_lower(L_strict: MatrixCSR) -> np.ndarray:
 
 def level_sets_upper(U_strict: MatrixCSR) -> np.ndarray:
     """Level sets of the backward substitution (rows n-1 → 0)."""
+    from . import _native
+    levels = _native.level_sets_upper(U_strict)
+    if levels is not None:
+        return levels
     n = U_strict.n_rows
     level = np.zeros(n, dtype=np.int32)
     row_ptr, col = U_strict.row_ptr, U_strict.col

@@ -1,7 +1,9 @@
 """Matrix generators and matrix sources, on the host.
 
-The NumPy branches of the JAX package's generators.py (the JAX package's
-native fast paths are bit-equal to them): `stencil_27pt` (HPCG), `anderson`,
+The JAX package's generators.py, its native passes (the HPCG CSR and the
+duplicate-summing COO → CSR of `scattered_band`, _native.py) taken unless
+BIS_TPU_NO_NATIVE is set, the NumPy branches bit-equal to them:
+`stencil_27pt` (HPCG), `anderson`,
 `fdm_2d`, `banded`, `scattered_band` and the SCAMAC models
 `free_fermion_chain`, `hubbard` and `spin_chain_xxz`, each as a
 column-sorted `MatrixCSR`.  `from_source` resolves a generator spec or a
@@ -26,6 +28,12 @@ def stencil_27pt(nx: int, ny: int = None, nz: int = None,
     ny = nx if ny is None else ny
     nz = nx if nz is None else nz
     n = nx * ny * nz
+    from . import _native
+    if _native.available() and n < 2**31:
+        built = _native.hpcg_csr(nx, ny, nz, diag, off)
+        if built is not None:
+            row_ptr, col, val = built
+            return MatrixCSR(n, n, int(row_ptr[-1]), row_ptr, col, val)
     Zg, Yg, Xg = np.meshgrid(np.arange(nz, dtype=np.int32),
                              np.arange(ny, dtype=np.int32),
                              np.arange(nx, dtype=np.int32), indexing="ij")
@@ -153,6 +161,14 @@ def scattered_band(n: int, nnz_per_row: int = 8, spread: int = 400,
     I = np.concatenate([rows, cols, np.arange(n, dtype=np.int64)])
     J = np.concatenate([cols, rows, np.arange(n, dtype=np.int64)])
     V = np.concatenate([vals, vals, np.full(n, 4.0 * nnz_per_row)])
+    # duplicates summed in input order: the native stable LSD sort, or the
+    # stable argsort + add.at below (bit-equal)
+    if n < 2**31:
+        from . import _native
+        ded = _native.coo_dedup_csr(I.size, n, n, I, J, V)
+        if ded is not None:
+            row_ptr, col, val = ded
+            return MatrixCSR(n, n, len(col), row_ptr, col, val)
     key = I * n + J
     order = np.argsort(key, kind="stable")
     key, I, J, V = key[order], I[order], J[order], V[order]

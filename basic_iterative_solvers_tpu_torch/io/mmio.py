@@ -1,4 +1,6 @@
-"""Matrix Market I/O: the NumPy branch of the JAX package's io/mmio.py.
+"""Matrix Market I/O: the JAX package's io/mmio.py.  The data lines go
+through the native parser (_native.parse_triplets) unless
+BIS_TPU_NO_NATIVE is set; np.loadtxt is the NumPy branch.
 
 * only ``matrix coordinate {real|integer|pattern} {general|symmetric}`` is
   accepted;
@@ -72,7 +74,36 @@ def read_mtx_coo(path_or_file, require_square: bool = False) -> MatrixCOO:
     if require_square and n_rows != n_cols:
         raise MatrixMarketError("Matrix must be square.")
 
-    data = _io.StringIO(text[data_start:])
+    data_text = text[data_start:]
+    from .. import _native
+    parsed = None
+    if nnz_stored and _native.available():
+        try:
+            parsed = _native.parse_triplets(data_text, nnz_stored,
+                                            with_value=(field != "pattern"),
+                                            pattern_value=_PATTERN_VALUE)
+        except ValueError as e:
+            raise MatrixMarketError(str(e))
+    if parsed is not None:
+        I, J = parsed[0].astype(np.int64), parsed[1].astype(np.int64)
+        V = parsed[2]
+    else:
+        I, J, V = _loadtxt_triplets(data_text, field, nnz_stored)
+    if I.shape[0] != nnz_stored:
+        raise MatrixMarketError(
+            f"expected {nnz_stored} entries, found {I.shape[0]}")
+    if symmetry == "symmetric":
+        off = I != J
+        I, J, V = (np.concatenate([I, J[off]]), np.concatenate([J, I[off]]),
+                   np.concatenate([V, V[off]]))
+    return MatrixCOO.from_arrays(I, J, V, n_rows=n_rows, n_cols=n_cols,
+                                 is_symmetric=(symmetry == "symmetric")
+                                 ).sort()
+
+
+def _loadtxt_triplets(data_text: str, field: str, nnz_stored: int):
+    """(I, J, V) 0-based through np.loadtxt: the NumPy branch."""
+    data = _io.StringIO(data_text)
     if field == "pattern":
         arr = (np.loadtxt(data, dtype=np.int64, ndmin=2, comments="%")
                if nnz_stored else np.zeros((0, 2), np.int64))
@@ -85,18 +116,8 @@ def read_mtx_coo(path_or_file, require_square: bool = False) -> MatrixCOO:
         if arr.size and arr.shape[1] != 3:
             raise MatrixMarketError("coordinate entries must have 3 fields")
         V = arr[:, 2].astype(np.float64)
-    I = arr[:, 0].astype(np.int64) - 1
-    J = arr[:, 1].astype(np.int64) - 1
-    if I.shape[0] != nnz_stored:
-        raise MatrixMarketError(
-            f"expected {nnz_stored} entries, found {I.shape[0]}")
-    if symmetry == "symmetric":
-        off = I != J
-        I, J, V = (np.concatenate([I, J[off]]), np.concatenate([J, I[off]]),
-                   np.concatenate([V, V[off]]))
-    return MatrixCOO.from_arrays(I, J, V, n_rows=n_rows, n_cols=n_cols,
-                                 is_symmetric=(symmetry == "symmetric")
-                                 ).sort()
+    return (arr[:, 0].astype(np.int64) - 1, arr[:, 1].astype(np.int64) - 1,
+            V)
 
 
 def read_mtx(path_or_file, require_square: bool = True) -> MatrixCSR:

@@ -1,7 +1,9 @@
 """Host-side sparse matrices: the JAX package's matrix.py (COO triplets,
 column-sorted CSR and the conversions between them, the dense and scipy
-adapters), NumPy only.  Everything here is set-up work; the device formats
-are built from `MatrixCSR` in device_matrix.py.
+adapters).  Everything here is set-up work; the device formats are built
+from `MatrixCSR` in device_matrix.py.  The host SpMV and COO → CSR take
+the native host library (_native.py) unless BIS_TPU_NO_NATIVE is set; the
+NumPy branches are their plain versions.
 """
 from __future__ import annotations
 
@@ -84,10 +86,13 @@ class MatrixCSR:
         return d
 
     def spmv(self, x: np.ndarray) -> np.ndarray:
-        """Host SpMV in float64 (the test oracle): add.reduceat over the
-        non-empty row segments, the JAX package's NumPy branch."""
+        """Host SpMV in float64 (the test oracle): the native row loop, or
+        add.reduceat over the non-empty row segments (the NumPy branch)."""
         if self.nnz == 0:
             return np.zeros(self.n_rows, dtype=np.result_type(self.val, x))
+        from . import _native
+        if _native.available():
+            return _native.spmv_csr(self, x)
         prod = self.val * x[self.col]
         starts = self.row_ptr[:-1]
         nonempty = self.row_ptr[1:] > starts
@@ -119,6 +124,12 @@ class MatrixCSR:
 def convert_coo_to_csr(coo: MatrixCOO,
                        n_cols: Optional[int] = None) -> MatrixCSR:
     """COO → CSR with column-sorted rows; duplicate entries raise."""
+    from . import _native
+    if _native.available():
+        n_cols = coo.n_cols if n_cols is None else n_cols
+        row_ptr, col, val = _native.coo_to_csr(
+            coo.nnz, coo.n_rows, n_cols, coo.I, coo.J, coo.values)
+        return MatrixCSR(coo.n_rows, n_cols, coo.nnz, row_ptr, col, val)
     coo = coo.sort()
     if coo.nnz and coo.n_rows:
         dup = (np.diff(coo.I) == 0) & (np.diff(coo.J) == 0)

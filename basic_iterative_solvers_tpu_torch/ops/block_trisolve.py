@@ -33,8 +33,11 @@ is stored for a stencil: the JAX package's plane mode of its translation
 tables (per-row values in (R_b, 128) planes) and packed mode (x-classes
 folded into 16 lane slots, bit-checked) are both this one mode here.
 
-Plane mode (`build_superblock_trisolve`, from host CSR; the JAX
-package's NumPy branch): f is a plane of per-row values over the
+Plane mode (`build_superblock_trisolve`, from host CSR, and the pairs
+packed straight off the CSR, `build_superblock_gs_pair_from_csr` and
+`build_superblock_ilu0_pair`; the JAX package's builders, their group
+analysis and plane scatter native unless BIS_TPU_NO_NATIVE is set, the
+NumPy branch the plain version): f is a plane of per-row values over the
 superblock's m slots, slot line·nx + x with line = y//sy + my·(z//sz).  A
 cross group is keyed (src, Δ) in slot space: target slot t reads slot
 t + Δ of superblock src (0 outside [0, m)); D⁻¹ is per row (`dinv_rows`).
@@ -159,6 +162,10 @@ NO_ALIGNED = os.environ.get("BIS_SB_ALIGNED", "1") == "0"
 #: _super_solve_pallas_mega, read the same way, at import; set the
 #: attribute to switch in process
 MEGA = os.environ.get("BIS_SB_MEGA", "0") == "1"
+
+#: test hook: skip the native builders (csrc/bis_host.cpp's bis_sb_*) so
+#: that the NumPy branch runs with the host library on
+FORCE_NUMPY = False
 
 
 class BlockIneligibleError(ValueError):
@@ -638,8 +645,8 @@ def _pack_levels(raw, spec_params, m: int, fused: bool, upper: bool):
 
 def build_superblock_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
                               spec, *, upper: bool, dtype=torch.float32,
-                              need_d: bool = False,
-                              device="cuda") -> SuperBlockTriSolve:
+                              need_d: bool = False, device="cuda",
+                              _analysis=None) -> SuperBlockTriSolve:
     """The colour-lower (colour-upper) part of T, the entries with
     colour(j) < colour(i) (>), in superblock form on `device`; D is the
     diagonal to divide by (None: unit).  T is a MatrixCSR or (rows, cols,
@@ -650,7 +657,14 @@ def build_superblock_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
     or more, more than _MAX_GROUPS groups (BlockIneligibleError).  The
     planes are filled at `dtype`, and const detection runs on those values,
     so a float32 and a float64 build may choose different modes, as they do
-    in the JAX package."""
+    in the JAX package.
+
+    Under a spec's own colouring the groups come from one native pass and
+    the planes from a second (csrc/bis_host.cpp's bis_sb_analyze and
+    bis_sb_scatter) unless BIS_TPU_NO_NATIVE is set; `_analysis` carries
+    the pair builder's one analysis of both triangles.  A structural
+    refusal of the native analysis falls to the NumPy branch, which raises
+    in its order."""
     from ..coloring import _grid_coords
     from ..stencil_op import resolve_device
     device = resolve_device(device)
@@ -664,10 +678,24 @@ def build_superblock_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
         raise BlockIneligibleError("grid strides must divide the dims")
     dtype = torch_dtype(dtype)
     np_dt = _np_dtype(dtype)
-    fused = not (NO_ALIGNED and not (nx <= LANES and LANES % nx == 0))
+    fused = _fused(nx)
     S = sy * sz
     my, mz = ny // sy, nz // sz
     m = nx * my * mz
+    analysis = (_analysis if _analysis is not None
+                else _native_analysis_for((rows, cols, vals, n), colors,
+                                          spec))
+    if analysis is not None:
+        from .. import _native
+        plan = _sb_plan(analysis, upper, spec)
+        vc = np.zeros((max(plan.Gc, 1), m), dtype=np_dt)
+        vs = np.zeros((max(plan.Gs, 1), m), dtype=np_dt)
+        if not _native.sb_scatter(rows, cols, vals, nx, ny, nz, sx, sy, sz,
+                                  upper, plan.ukc, plan.uks, m, vc, vs):
+            raise RuntimeError("native host library switched off "
+                               "mid-build")
+        return _sb_assemble(plan, vc, vs, D, n, spec, upper=upper,
+                            dtype=dtype, need_d=need_d, device=device)
     X, Y, Z = _grid_coords(np.arange(n, dtype=np.int64), nx, ny)
     SB = (Y % sy) + sy * (Z % sz)
     SLOT = X + nx * ((Y // sy) + my * (Z // sz))
@@ -709,10 +737,6 @@ def build_superblock_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
     vc[ginvc, SLOT[rows[~is_self]]] = v[~is_self].astype(np_dt)
     vs = np.zeros((Gs, m), dtype=np_dt)
     vs[ginvs, SLOT[rows[is_self]]] = v[is_self].astype(np_dt)
-    dv = np.ones(n) if D is None else np.asarray(D, dtype=np.float64)
-    if np.any(dv == 0):
-        raise ValueError("zero diagonal in blocked trisolve")
-
     raw = []
     for sb in (range(S - 1, -1, -1) if upper else range(S)):
         selc = np.nonzero(gc_tb == sb)[0]
@@ -722,7 +746,29 @@ def build_superblock_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
         raw.append((sb, tuple((int(gc_sb[g]), int(gc_dl[g])) for g in cidx),
                     tuple(int(gs_dx[g]) for g in sidx),
                     vc[cidx] if cidx else None, vs[sidx] if sidx else None))
-    spec_params = (nx, ny, nz, sx, sy, sz)
+    return _sb_finish(raw, D, n, (nx, ny, nz, sx, sy, sz), upper=upper,
+                      dtype=dtype, need_d=need_d, fused=fused,
+                      device=device)
+
+
+def _fused(nx: int) -> bool:
+    """False where the solve takes the split route: BIS_SB_ALIGNED=0 and
+    x-lines that do not tile 128 lanes."""
+    return not (NO_ALIGNED and not (nx <= LANES and LANES % nx == 0))
+
+
+def _sb_finish(raw, D, n: int, spec_params, *, upper: bool, dtype,
+               need_d: bool, fused: bool, device) -> SuperBlockTriSolve:
+    """The SuperBlockTriSolve of the levels `raw` [(sb, cross, selfs, vc,
+    vs)] in solve order: const mode where every plane is coeff × leg mask,
+    else plane mode; the per-row diagonal D (None: unit) rounded to
+    `dtype`."""
+    nx, ny, nz, sx, sy, sz = spec_params
+    S, m = sy * sz, nx * (ny // sy) * (nz // sz)
+    np_dt = _np_dtype(dtype)
+    dv = np.ones(n) if D is None else np.asarray(D, dtype=np.float64)
+    if np.any(dv == 0):
+        raise ValueError("zero diagonal in blocked trisolve")
     levels, cc, cs = _pack_levels(raw, spec_params, m, fused, upper)
     as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     common = dict(
@@ -738,6 +784,143 @@ def build_superblock_trisolve(T, D: Optional[np.ndarray], colors: np.ndarray,
         vals_cross=tuple(None if r[3] is None else as_t(r[3]) for r in raw),
         vals_self=tuple(None if r[4] is None else as_t(r[4]) for r in raw),
         **common)
+
+
+def spec_colors_valid(colors, spec, n: int) -> bool:
+    """True iff `colors` is the spec's own colouring (the native builders
+    derive colours from the grid coordinates)."""
+    from ..coloring import spec_colors_np
+    try:
+        return np.array_equal(np.asarray(colors), spec_colors_np(spec, n))
+    except ValueError:
+        return False
+
+
+def _native_analysis_for(trip, colors, spec):
+    """The native one-pass group discovery of both triangles, or None where
+    it does not apply (FORCE_NUMPY, BIS_TPU_NO_NATIVE, no grid spec, dims
+    or strides that do not fit, colours other than the spec's, or a
+    structural refusal, which the NumPy branch then raises in its order).
+    An improper colouring raises ImproperColoringError."""
+    rows, cols, vals, n = trip
+    if FORCE_NUMPY or spec.kind != "grid":
+        return None
+    nx, ny, nz, sx, sy, sz = (int(p) for p in spec.params)
+    if nx * ny * nz != n or ny % sy or nz % sz or n == 0:
+        return None
+    if not spec_colors_valid(colors, spec, n):
+        return None
+    from .. import _native
+    return _native.sb_analyze(rows, cols, nx, ny, nz, sx, sy, sz,
+                              _MAX_GROUPS + 1)
+
+
+def _sb_plan(analysis, upper: bool, spec):
+    """One triangle's groups decoded from its ascending keys, whose order
+    is the level order and, within a level, the sorted group order."""
+    nx, ny, nz, sx, sy, sz = (int(p) for p in spec.params)
+    S = sy * sz
+    m = nx * (ny // sy) * (nz // sz)
+    span = 2 * m + 1
+    ukc = analysis["cross_up" if upper else "cross_lo"]
+    uks = analysis["self_up" if upper else "self_lo"]
+    Gc, Gs = len(ukc), len(uks)
+    if Gc + Gs > _MAX_GROUPS:
+        raise BlockIneligibleError(
+            f"{Gc + Gs} superblock groups — pattern too irregular")
+    return types.SimpleNamespace(
+        ukc=ukc, uks=uks, Gc=Gc, Gs=Gs, gc_tb=(ukc // span) // S,
+        gc_sb=(ukc // span) % S, gc_dl=(ukc % span) - m,
+        gs_tb=uks // (2 * LANES + 1), gs_dx=(uks % (2 * LANES + 1)) - LANES,
+        S=S, m=m)
+
+
+def _sb_assemble(plan, vc_big, vs_big, D, n: int, spec, *, upper: bool,
+                 dtype, need_d: bool, device) -> SuperBlockTriSolve:
+    """The SuperBlockTriSolve of one triangle from its plan and the planes
+    the native scatter filled in key order: each level's groups are a
+    contiguous run of rows."""
+    raw = []
+    for sb in (range(plan.S - 1, -1, -1) if upper else range(plan.S)):
+        c_lo, c_hi = np.searchsorted(plan.gc_tb, [sb, sb + 1])
+        s_lo, s_hi = np.searchsorted(plan.gs_tb, [sb, sb + 1])
+        raw.append((sb,
+                    tuple((int(plan.gc_sb[g]), int(plan.gc_dl[g]))
+                          for g in range(c_lo, c_hi)),
+                    tuple(int(plan.gs_dx[g]) for g in range(s_lo, s_hi)),
+                    vc_big[c_lo:c_hi] if c_hi > c_lo else None,
+                    vs_big[s_lo:s_hi] if s_hi > s_lo else None))
+    spec_params = tuple(int(p) for p in spec.params)
+    return _sb_finish(raw, D, n, spec_params, upper=upper, dtype=dtype,
+                      need_d=need_d, fused=_fused(spec_params[0]),
+                      device=device)
+
+
+def _sb_pack_pair_from_csr(Ap, vals, perm, spec, *, D_L, D_U,
+                           need_d_L: bool, dtype, device):
+    """(L, U, U_D): both triangles of the (colour-permuted) CSR Ap, row i
+    being original row perm[i], analysed and scattered in two native
+    passes (bis_sb_analyze_csr, bis_sb_scatter_csr) with no triplets; U_D
+    the diagonal the scatter peels.  D_L None: unit L; D_U None: U divides
+    by U_D.  BlockIneligibleError where the path does not apply."""
+    from .. import _native
+    from ..stencil_op import resolve_device
+    if FORCE_NUMPY or spec.kind != "grid":
+        raise BlockIneligibleError("the CSR-direct path needs a grid "
+                                   "coloring")
+    device = resolve_device(device)
+    dtype = torch_dtype(dtype)
+    np_dt = _np_dtype(dtype)
+    nx, ny, nz, sx, sy, sz = (int(p) for p in spec.params)
+    n = Ap.n_rows
+    if nx * ny * nz != n or n == 0:
+        raise BlockIneligibleError("grid spec dims do not match n_rows")
+    if ny % sy or nz % sz:
+        raise BlockIneligibleError("grid strides must divide the dims")
+    analysis = _native.sb_analyze_csr(Ap, perm, nx, ny, nz, sx, sy, sz,
+                                      _MAX_GROUPS + 1)
+    if analysis is None:
+        raise BlockIneligibleError(
+            "native CSR analysis switched off or structurally ineligible")
+    plan_L = _sb_plan(analysis, False, spec)
+    plan_U = _sb_plan(analysis, True, spec)
+    m = plan_L.m
+    planes = [np.zeros((max(G, 1), m), dtype=np_dt)
+              for G in (plan_L.Gc, plan_L.Gs, plan_U.Gc, plan_U.Gs)]
+    U_D = _native.sb_scatter_csr(Ap, vals, perm, nx, ny, nz, sx, sy, sz,
+                                 analysis, m, m, *planes)
+    if U_D is None:
+        raise RuntimeError("native host library switched off mid-build")
+    L = _sb_assemble(plan_L, planes[0], planes[1], D_L, n, spec,
+                     upper=False, dtype=dtype, need_d=need_d_L,
+                     device=device)
+    U = _sb_assemble(plan_U, planes[2], planes[3],
+                     U_D if D_U is None else D_U, n, spec, upper=True,
+                     dtype=dtype, need_d=False, device=device)
+    return L, U, U_D
+
+
+def build_superblock_gs_pair_from_csr(A, D, spec, *, dtype=torch.float32,
+                                      need_d: bool = False, device="cuda"):
+    """(L, U) of the GS family straight off the natural-order CSR, both
+    dividing by the matrix diagonal D (`need_d`: D stored on L for the
+    symmetric apply).  BlockIneligibleError where it does not apply."""
+    perm = np.arange(A.n_rows, dtype=np.int32)
+    L, U, _ = _sb_pack_pair_from_csr(A, A.val, perm, spec, D_L=D, D_U=D,
+                                     need_d_L=need_d, dtype=dtype,
+                                     device=device)
+    return L, U
+
+
+def build_superblock_ilu0_pair(Ap, lu_val, perm, spec, *,
+                               dtype=torch.float32, device="cuda"):
+    """(L, U, U_D) of coloured ILU(0) straight off the colour-permuted CSR
+    Ap and its factor values: L solves with a unit diagonal, U with the
+    peeled factor diagonal U_D.  BlockIneligibleError where it does not
+    apply (callers take the triplet pipeline)."""
+    return _sb_pack_pair_from_csr(Ap, lu_val, perm, spec, D_L=None,
+                                  D_U=None, need_d_L=False, dtype=dtype,
+                                  device=device)
 
 
 def _reach_of(levels, const_cross) -> Tuple[int, int, int]:
@@ -2001,12 +2184,16 @@ def build_best_trisolve_pair(T, D_L, D_U, colors, spec, *,
     trip = _entries_of(T)
     if spec.kind == "grid":
         try:
+            # one native analysis of both triangles
+            analysis = _native_analysis_for(trip, colors, spec)
             return (build_superblock_trisolve(trip, D_L, colors, spec,
                                               upper=False, dtype=dtype,
-                                              need_d=need_d, device=device),
+                                              need_d=need_d, device=device,
+                                              _analysis=analysis),
                     build_superblock_trisolve(trip, D_U, colors, spec,
                                               upper=True, dtype=dtype,
-                                              device=device))
+                                              device=device,
+                                              _analysis=analysis))
         except ImproperColoringError:
             raise
         except BlockIneligibleError:

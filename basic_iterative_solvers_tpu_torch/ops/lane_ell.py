@@ -134,15 +134,21 @@ def lane_ell_span(A: MatrixCSR) -> int:
     """Max |j//128 − i//128| over the nonzeros: the shift radius S."""
     if A.nnz == 0:
         return 0
+    from .. import _native
+    stats = _native.csr_pattern_stats(A, cap=1)     # only the span
+    if stats is not None:
+        return stats[1]
     return int(np.abs(A.col.astype(np.int64) // LANES
                       - A.rows() // LANES).max())
 
 
 def csr_to_lane_ell(A: MatrixCSR, dtype=torch.float32, *,
                     device="cuda") -> DeviceLaneELL:
-    """The lane-ELL planes of A on `device` (the JAX package's NumPy
-    branch: each row's entries sorted by (rowoff, lane), pad slots pointing
-    at their slot's lowest rowoff)."""
+    """The lane-ELL planes of A on `device`: each row's entries sorted by
+    (rowoff, lane), pad slots pointing at their slot's lowest rowoff.  Two
+    sweeps of the native host library where A's columns ascend strictly
+    (the CSR order is then the slot order) unless BIS_TPU_NO_NATIVE is set,
+    else the NumPy branch (a global lexsort and scatters), bit for bit."""
     if A.n_rows != A.n_cols:
         raise ValueError("lane-ELL requires a square matrix")
     device = resolve_device(device)
@@ -153,6 +159,24 @@ def csr_to_lane_ell(A: MatrixCSR, dtype=torch.float32, *,
     R_pad = -(-R // TB) * TB
     row_nnz = A.row_nnz()
     K = max(1, int(row_nnz.max()) if n else 1)
+    from .. import _native
+    from ..device_matrix import pack_dtype
+    dtype = torch_dtype(dtype)
+    built = _native.lane_ell_build(A, K, S, R_pad, pack_dtype(dtype))
+    if built is not None:
+        vals_np, idx, ranges = built
+        vals = torch.from_numpy(vals_np).to(dtype)
+        # the pad test reads the values rounded to the storage dtype, as
+        # the NumPy branch's does; the pack tested the float64 value
+        zero_idx = idx == 0
+        if zero_idx.any():
+            lo = np.array([r[0] for r in ranges], dtype=np.int64)
+            idx = np.where((vals == 0).numpy() & zero_idx,
+                           ((lo + S) * LANES).astype(np.int32)[:, None, None],
+                           idx)
+        return DeviceLaneELL(vals=vals.to(device),
+                             idx=torch.from_numpy(idx).to(device), n_rows=n,
+                             n_cols=n, K=K, S=S, R=R_pad)
     rows = A.rows()
     cols = A.col.astype(np.int64)
     rowoff = cols // LANES - rows // LANES
@@ -168,7 +192,7 @@ def csr_to_lane_ell(A: MatrixCSR, dtype=torch.float32, *,
     idx[slot, r2, l2] = ((rowoff + S) * LANES + lane).astype(np.int32)
     # rounded to the storage dtype (round to nearest even, as numpy's cast
     # in the JAX package) before the pad test reads it
-    vals = torch.from_numpy(vals64).to(torch_dtype(dtype))
+    vals = torch.from_numpy(vals64).to(dtype)
     del vals64
     # pad slots point at their slot's lowest rowoff (0 for an empty slot)
     none = np.iinfo(np.int64).max

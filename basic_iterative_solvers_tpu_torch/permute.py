@@ -1,6 +1,7 @@
-"""Matrix reordering on the host: the NumPy branch of the JAX package's
-permute.py.  perm[new] = old; the solve runs in the permuted ordering and
-x* is mapped back (solvers/base.finalize_x).
+"""Matrix reordering on the host: the JAX package's permute.py, the BFS
+orders and the permutation native (_native.py) unless BIS_TPU_NO_NATIVE is
+set, the NumPy branches bit-equal to them.  perm[new] = old; the solve runs
+in the permuted ordering and x* is mapped back (solvers/base.finalize_x).
 
 * ``none``               — identity;
 * ``bfs`` / ``rcm``      — breadth-first order / reverse Cuthill-McKee
@@ -61,9 +62,14 @@ def compute_permutation(A: MatrixCSR,
         from .coloring import colors_to_perm, greedy_coloring
         return colors_to_perm(greedy_coloring(A,
                                               balanced=(mode == "color_bal")))
-    perm = _bfs_order(A, sort_by_degree=(mode == "rcm"))
-    if mode == "rcm":
-        perm = perm[::-1].copy()
+    from . import _native
+    if _native.available():
+        perm = _native.bfs_perm(A, reverse=(mode == "rcm"),
+                                sort_by_degree=(mode == "rcm"))
+    else:
+        perm = _bfs_order(A, sort_by_degree=(mode == "rcm"))
+        if mode == "rcm":
+            perm = perm[::-1].copy()
     inv = np.empty(n, dtype=np.int32)
     inv[perm] = np.arange(n, dtype=np.int32)
     return perm, inv
@@ -72,6 +78,10 @@ def compute_permutation(A: MatrixCSR,
 def permute_csr(A: MatrixCSR, perm: np.ndarray,
                 inv_perm: np.ndarray) -> MatrixCSR:
     """A' = P A Pᵀ with column-sorted rows (perm[new] = old)."""
+    from . import _native
+    native = _native.permute_csr(A, perm, inv_perm)
+    if native is not None:
+        return native
     counts = A.row_nnz()[perm]
     row_ptr = np.zeros(A.n_rows + 1, dtype=np.int64)
     np.cumsum(counts, out=row_ptr[1:])

@@ -265,12 +265,13 @@ def _masked_ilu0(A: MatrixCSR, colors, rows_o, cols_o, lu_vals, U_D, kw,
 
 def _colored_ilu0(A: MatrixCSR, config: SolverConfig, kw, dtype, device,
                   A_dev) -> Preconditioner:
-    """Exact coloured ILU(0) on host CSR (precond.py:145-267, its NumPy
-    branch), factored in the colour-sorted ordering.  Under a grid
-    colouring the translation-table pair where A_dev is a stencil; then the
-    triplet pipeline (superblock, or rank-space as a pair, under a grid or
-    mod colouring); an improper colouring recolours greedily, and greedy
-    colours take masked sweeps."""
+    """Exact coloured ILU(0) on host CSR (precond.py:145-267), factored in
+    the colour-sorted ordering.  Under a grid colouring the
+    translation-table pair where A_dev is a stencil, else, with the native
+    host library, the pair packed straight off the permuted CSR
+    (`_ilu0_pair_from_csr`); then the triplet pipeline (superblock, or
+    rank-space as a pair, under a grid or mod colouring); an improper
+    colouring recolours greedily, and greedy colours take masked sweeps."""
     from .factor import factor_ilu0_colored_triplets
     from .ops.block_trisolve import (BlockIneligibleError,
                                      ImproperColoringError,
@@ -290,6 +291,12 @@ def _colored_ilu0(A: MatrixCSR, config: SolverConfig, kw, dtype, device,
                 pivot_replacement=repl))
         except BlockIneligibleError:
             pass
+    if spec is not None and spec.kind == "grid":
+        try:
+            return done(*_ilu0_pair_from_csr(A, colors, spec, tol, repl,
+                                             dtype, device))
+        except BlockIneligibleError:    # an improper colouring too
+            pass
     factor = lambda c: factor_ilu0_colored_triplets(  # noqa: E731
         A, c, pivot_tolerance=tol, pivot_replacement=repl)
     rows_o, cols_o, lu_vals, U_D = factor(colors)
@@ -308,12 +315,65 @@ def _colored_ilu0(A: MatrixCSR, config: SolverConfig, kw, dtype, device,
                         dtype, device)
 
 
+def _ilu0_pair_from_csr(A: MatrixCSR, colors, spec, tol, repl, dtype,
+                        device):
+    """The (L, U) superblock pair of coloured ILU(0) packed straight off
+    the colour-permuted CSR (JAX precond.py:176-215): one native sweep
+    permutes and factors, two more analyse and scatter both triangles.
+    BlockIneligibleError, before any factoring, where the host library is
+    off, A is not square or has 2**31 rows, or the colours are not the
+    spec's."""
+    from . import _native
+    from .coloring import colors_to_perm
+    from .ops.block_trisolve import (BlockIneligibleError,
+                                     build_superblock_ilu0_pair,
+                                     spec_colors_valid)
+    if (not _native.available() or A.n_rows >= 2**31
+            or A.n_rows != A.n_cols):
+        raise BlockIneligibleError("native host library switched off, or "
+                                   "A not square")
+    if not spec_colors_valid(colors, spec, A.n_rows):
+        raise BlockIneligibleError("colours other than the spec's")
+    perm, inv = colors_to_perm(colors)
+    Ap, lu_p = _native.permute_factor_csr(A, perm, inv, tol, repl)
+    L, U, _ = build_superblock_ilu0_pair(Ap, lu_p, perm, spec, dtype=dtype,
+                                         device=device)
+    return L, U
+
+
+def _gs_pair_from_csr(A: MatrixCSR, D, colors, spec, pt, dtype, device):
+    """(L, U) of the GS family packed straight off the CSR (JAX
+    precond.py:283-305), the triangle GS or BGS does not run as None; None
+    where the path does not apply (no grid spec or not its colours, the
+    host library off, a structural refusal or an improper colouring: the
+    builders below then decide)."""
+    from .ops.block_trisolve import (BlockIneligibleError,
+                                     build_superblock_gs_pair_from_csr,
+                                     spec_colors_valid)
+    if spec.kind != "grid" or not spec_colors_valid(colors, spec, A.n_rows):
+        return None
+    try:
+        L, U = build_superblock_gs_pair_from_csr(
+            A, D, spec, dtype=dtype,
+            need_d=pt == PrecondType.SYMMETRIC_GAUSS_SEIDEL, device=device)
+    except BlockIneligibleError:        # an improper colouring too
+        return None
+    if pt == PrecondType.GAUSS_SEIDEL:
+        return L, None
+    if pt == PrecondType.BACKWARDS_GAUSS_SEIDEL:
+        return None, U
+    return L, U
+
+
 def _colored_gs(A: MatrixCSR, config: SolverConfig, factors, kw, dtype,
                 device, A_dev) -> Preconditioner:
-    """The coloured GS family on host CSR (precond.py:268-337, its NumPy
-    branch): the best layout (superblock, or rank-space, under a grid or
-    mod colouring) of the triangles it needs, one layout for SGS's pair;
-    masked sweeps with the full device operator under greedy colours."""
+    """The coloured GS family on host CSR (precond.py:268-337): under a
+    grid spec's own colouring the superblock pair packed straight off the
+    CSR by the native host library (one analysis and one scatter of both
+    triangles; GS and BGS keep the one they need), else the best layout
+    (superblock, or rank-space, under a grid or mod colouring) of the
+    triangles it needs, one layout for SGS's pair; masked sweeps with the
+    full device operator under greedy colours."""
     from .factor import peel_diag
     from .ops.block_trisolve import (BlockIneligibleError,
                                      ImproperColoringError,
@@ -329,7 +389,11 @@ def _colored_gs(A: MatrixCSR, config: SolverConfig, factors, kw, dtype,
     if spec is not None:
         try:
             L = U = None
-            if pt == PrecondType.SYMMETRIC_GAUSS_SEIDEL:
+            pair = _gs_pair_from_csr(A, A_D_np, colors, spec, pt, dtype,
+                                     device)
+            if pair is not None:
+                L, U = pair
+            elif pt == PrecondType.SYMMETRIC_GAUSS_SEIDEL:
                 L, U = build_best_trisolve_pair(
                     A, A_D_np, A_D_np, colors, spec, dtype=dtype,
                     need_d=True, device=device)

@@ -1167,6 +1167,19 @@ def stencil_split(A: DeviceStencil):
     return L, U, D, 1.0 / D
 
 
+def stencil_to_dia(A: DeviceStencil):
+    """A as an explicit DeviceDIA on its own device (format comparisons,
+    paths that need matrix data): the legs' diagonals as dia.py builds
+    them, a dense diagonal written into offset 0."""
+    from .dia import _stencil_dia
+    nx, ny, nz = A.dims
+    M = _stencil_dia(nx, ny, nz, list(zip(A.legs, A.coeff_values)), A.dtype,
+                     A.device)
+    if A.diag is not None:
+        M.data[M.offsets.index(0)] = stencil_diag(A)
+    return M
+
+
 # ---------------------------------------------------------------------------
 # Builders / source dispatch
 # ---------------------------------------------------------------------------

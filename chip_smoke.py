@@ -10,6 +10,13 @@ exits non-zero:
      the registers and spills of the basis kernels, the lane-ELL kernels,
      the staged factor-table level, the line route of the plane and const
      levels and the stencil SpMVs #1 and #2 on both routes;
+  2b. native ([native], before every host row): build and load the
+     port's host library (csrc/bis_host.cpp, g++) from this checkout, its
+     path and build seconds; hold its passes against the NumPy branches
+     (BIS_TPU_NO_NATIVE=1) bit for bit, each timed on the card's host:
+     the hpcg:32x32x32 SGS pair from CSR, the fdm:256 coloured ILU(0) pair
+     from CSR and the sband:500000,8,400 lane-ELL planes, each from its
+     generator on;
   3. the stencil SpMV kernel against its plain PyTorch version on the card,
      at the main path's shapes, both timed, on the route each shape takes
      (the box route) and bit for bit against the leg-loop route; then the
@@ -93,7 +100,8 @@ exits non-zero:
      (150), cg@sband on lane-ELL (400) and the gather ELL (40),
      pbicgstab@band (800; every level on #8's vec route, then the row on
      the scalar and the vec route forced, in turns), counting every
-     kernel's launches, with set-up seconds; then natural-order f64 CG + SGS and CG + ILU(0) on fdm:256
+     kernel's launches, with set-up seconds (host=native: the native host
+     passes); then natural-order f64 CG + SGS and CG + ILU(0) on fdm:256
      on the CPU and on the card, equal iteration counts;
  23. the slice-5b rows ([slice5b]): the coloured host route under the
      source's grid colour spec, pcg_ilu0@fdm2048 (CG + ILU(0), 1200
@@ -102,7 +110,8 @@ exits non-zero:
      takes the factor-table pair here) and pbicgstab@anderson128
      (BiCGSTAB + SGS, 800, the stencil injected: const mode with a per-row
      D), with every kernel's launches (the plane and const levels on the
-     route the picker names), set-up seconds and peak memory, and
+     route the picker names), set-up seconds (host=native) and peak
+     memory, and
      pcg_ilu0@fdm2048 on the line and the direct route in turns; f64
      CG + ILU(0) on fdm:256 on that route on the CPU and on the card;
  24. the plane mode of the superblock level kernel and the per-row D of
@@ -395,6 +404,100 @@ def phase_build(torch):
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         print(f"[ptxas] {name}_kernel_ring<{str(dt)[6:]}>: "
               f"{slots // sms} resident blocks an SM x {sms} SMs")
+
+
+NATIVE_SGS, NATIVE_ILU0 = "hpcg:32x32x32", "fdm:256"
+
+
+def _host_branch(bt):
+    """"native" or "numpy": the branch the host passes take now."""
+    from basic_iterative_solvers_tpu_torch import _native
+    return "native" if _native.available() else "numpy"
+
+
+@contextlib.contextmanager
+def _numpy_branch():
+    """The NumPy branches of the host passes (BIS_TPU_NO_NATIVE=1)."""
+    os.environ["BIS_TPU_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["BIS_TPU_NO_NATIVE"]
+
+
+def _same_superblock(a, b):
+    """True when two superblock solves agree bit for bit: levels, mode,
+    const coefficients, planes and per-row diagonals."""
+    import torch
+    fields = ("levels", "m", "S", "fused", "unit", "dtype", "const_cross",
+              "const_self", "reach")
+    if any(getattr(a, f) != getattr(b, f) for f in fields):
+        return False
+    tensors = lambda B: ([B.dinv_rows, B.d_rows] + list(  # noqa: E731
+        B.vals_cross or ()) + list(B.vals_self or ()))
+    ta, tb = tensors(a), tensors(b)
+    return len(ta) == len(tb) and all(
+        (x is None) == (y is None) and (x is None or (
+            x.dtype == y.dtype and torch.equal(x, y))) for x, y in zip(ta, tb))
+
+
+def phase_native(torch, bt, device="cuda", sgs=NATIVE_SGS, ilu0=NATIVE_ILU0,
+                 sband=None):
+    """Build and load the host library, then hold each native pass against
+    the NumPy branch bit for bit, from the generator on: the SGS pair from
+    CSR (hpcg:32x32x32), the coloured ILU(0) pair from CSR (fdm:256; the
+    native pair packed off the permuted CSR, the NumPy one through the
+    triplets), the lane-ELL planes of sband:500000,8,400.  Prints each
+    branch's host seconds."""
+    from basic_iterative_solvers_tpu_torch import _native
+    from basic_iterative_solvers_tpu_torch.ops import lane_ell
+    sband = SBAND if sband is None else sband
+    t0 = time.perf_counter()
+    _native._library()
+    print(f"[native] host library {_native.build()} built in "
+          f"{_native.build_seconds:.3f} s (0: found built); built and "
+          f"loaded in {time.perf_counter() - t0:.3f} s")
+    if not _native.available():
+        raise RuntimeError("the host library is switched off "
+                           "(BIS_TPU_NO_NATIVE is set)")
+    P = bt.PrecondType
+
+    def pair(spec, precond):
+        A = bt.generators.from_source(spec)
+        cfg = bt.SolverConfig(
+            preconditioner=precond, dtype=torch.float32, gs_mode="colored",
+            color_spec=bt.generators.color_spec_for_source(spec))
+        M = bt.setup_preconditioner(A, cfg, device=device)
+        return M.L_block, M.U_block
+
+    def planes():
+        M = lane_ell.csr_to_lane_ell(bt.generators.from_source(sband),
+                                     torch.float32, device=device)
+        return M.vals, M.idx, M.row_len, M.idx16
+
+    same_pair = lambda a, b: all(map(_same_superblock, a, b))  # noqa: E731
+    for label, build, same in (
+            (f"{sgs} f32 SGS pair from CSR",
+             lambda: pair(sgs, P.SYMMETRIC_GAUSS_SEIDEL), same_pair),
+            (f"{ilu0} f32 coloured ILU(0) pair from CSR",
+             lambda: pair(ilu0, P.ILU0), same_pair),
+            (f"{sband} f32 lane-ELL planes", planes,
+             lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))):
+        t0 = time.perf_counter()
+        got = build()
+        native_s = time.perf_counter() - t0
+        with _numpy_branch():
+            t0 = time.perf_counter()
+            ref = build()
+            numpy_s = time.perf_counter() - t0
+        ok = same(got, ref)
+        print(f"[native] {label}: native {native_s:.3f} s, numpy "
+              f"{numpy_s:.3f} s (host, from the generator on), bit-equal "
+              f"{ok}")
+        if not ok:
+            raise RuntimeError(f"[native] {label}: the native and NumPy "
+                               "branches differ")
+        del got, ref
 
 
 def _route_ab(torch, so, A, x, dots, aux, stream):
@@ -2634,7 +2737,8 @@ def _timed_row(torch, bt, tag, label, setup, setup_s, expect):
     per_iter = {k: round(v / max(1, res.iter_count), 3)
                 for k, v in counts.items() if v}
     print(f"[{tag}] {label}: iters={res.iter_count} ms/iter={ms:.5f} "
-          f"setup_s={setup_s:.3f} r0={res.residual_norms[0]:.6e} "
+          f"setup_s={setup_s:.3f} host={_host_branch(bt)} "
+          f"r0={res.residual_norms[0]:.6e} "
           f"final_explicit_f64={res.final_residual_norm:.6e} "
           f"launches={counts} launches/iter={per_iter}")
     if not (math.isfinite(res.final_residual_norm)
@@ -2754,7 +2858,7 @@ def phase_slice5_path(torch, bt, sband, band):
               f"final_explicit/r0 card={g.final_residual_norm / r0:.3e} "
               f"ms/iter cpu={1e3 * c.solve_seconds / c.iter_count:.3f} "
               f"card={1e3 * g.solve_seconds / g.iter_count:.3f} setup_s "
-              f"cpu={cs:.2f} card={gs:.2f}")
+              f"cpu={cs:.2f} card={gs:.2f} host={_host_branch(bt)}")
         if (c.iter_count != g.iter_count
                 or not (c.converged and g.converged)
                 or g.final_residual_norm > 10 * 1e-8 * r0):
@@ -2928,7 +3032,7 @@ def phase_slice5b_build(torch, bt):
     print(f"[slice5b] {FDM_5B} f32 CG + ILU(0) pair from host CSR: L "
           f"{_mode(L)}, U {_mode(U)}, {L.S} levels a triangle, "
           f"{type(setup.A).__name__} operator; host CSR {gen_s:.3f} s, "
-          f"preprocessing {setup_s:.3f} s")
+          f"preprocessing {setup_s:.3f} s, host={_host_branch(bt)}")
     if not (L.is_plane and type(L).__name__ == "SuperBlockTriSolve"):
         raise RuntimeError(f"{FDM_5B} ILU(0) did not build a plane pair")
     return setup, gen_s, setup_s
@@ -3801,7 +3905,8 @@ def phase_slice5b_rows(torch, bt, setup, setup_s):
             tolerance=0.0, breakdown_stall=True)
         print(f"[slice5b] {ANDERSON_128} f32 BiCGSTAB + SGS pair from host "
               f"CSR: L {_mode(st.M.L_block)}, U {_mode(st.M.U_block)}; host "
-              f"CSR {gen_s:.3f} s, preprocessing {s_s:.3f} s")
+              f"CSR {gen_s:.3f} s, preprocessing {s_s:.3f} s, "
+              f"host={_host_branch(bt)}")
         return st, s_s
 
     rows.append(("pbicgstab@anderson128", ANDERSON_128, 800, anderson))
@@ -3831,7 +3936,8 @@ def phase_slice5b_rows(torch, bt, setup, setup_s):
         per_iter = {k: round(v / res.iter_count, 3)
                     for k, v in counts.items() if v}
         print(f"[slice5b] {spec} f32 {name} fused: iters={res.iter_count} "
-              f"ms/iter={ms:.5f} setup_s={s_s:.3f} peak_GB={peak_gb:.3f} "
+              f"ms/iter={ms:.5f} setup_s={s_s:.3f} host={_host_branch(bt)} "
+              f"peak_GB={peak_gb:.3f} "
               f"r0={res.residual_norms[0]:.6e} "
               f"final_explicit_f64={res.final_residual_norm:.6e} "
               f"levels by the picker's route {picked} "
@@ -3880,7 +3986,7 @@ def phase_slice5b_rows(torch, bt, setup, setup_s):
           f"final_explicit/r0 card={g.final_residual_norm / r0:.3e} "
           f"ms/iter cpu={1e3 * c.solve_seconds / c.iter_count:.3f} "
           f"card={1e3 * g.solve_seconds / g.iter_count:.3f} setup_s "
-          f"cpu={cs:.2f} card={gs:.2f}")
+          f"cpu={cs:.2f} card={gs:.2f} host={_host_branch(bt)}")
     if (c.iter_count != g.iter_count or not (c.converged and g.converged)
             or g.final_residual_norm > 10 * 1e-8 * r0):
         raise RuntimeError("fdm:256 coloured CG + ILU(0): CPU and card "
@@ -5527,6 +5633,8 @@ def main():
     import basic_iterative_solvers_tpu_torch as bt
     phase_build(torch)
     lap("build")
+    phase_native(torch, bt)
+    lap("native")
     from basic_iterative_solvers_tpu_torch.ops import gmres_basis
     record = phase_kernel_vs_plain(torch, bt.stencil_op)
     lap("kernel_vs_plain")
