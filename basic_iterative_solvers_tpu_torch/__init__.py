@@ -30,8 +30,10 @@ coefficients and diagonal, each widened before its product.
 The row-sharded mesh (parallel/: `make_mesh`, `shard_setup`, the JAX
 package's shard_map mode) runs every SpMV and GS colour step as one
 shard-local kernel a shard (the halo forms of the stencil, GS-step, DIA
-and lane-ELL kernels) after a halo exchange; this slice binds all the
-shards to one device.
+and lane-ELL kernels) after a halo exchange, every shard on one device;
+its GSPMD mode (`make_device_mesh`, one process a shard over a
+torch.distributed DeviceMesh) runs the same kernels a rank on row-sharded
+DTensors, and `parallel/census.py` counts what it communicates.
 
 The command line (cli.py) runs as `python -m
 basic_iterative_solvers_tpu_torch <matrix> <method-flag> [options]`, on

@@ -110,7 +110,13 @@ def color_ids_of(spec: ColorSpec, i: torch.Tensor) -> torch.Tensor:
 def color_ids(spec: ColorSpec, A) -> torch.Tensor:
     """int64 colour id per row of A, in its flat vector layout (cached per
     spec, size and device); a mesh operator's are its whole operator's."""
-    from .parallel.mesh_ops import unwrap
+    from .parallel.mesh_ops import DIST_TYPES, unwrap
+    if isinstance(A, DIST_TYPES):
+        # a GSPMD operator's: the rank's rows, a Shard(0) DTensor
+        from .parallel.gspmd import from_rows
+        lay = A.layout
+        return from_rows(color_ids(spec, A.inner)[
+            lay.start:lay.start + lay.rows], lay)
     A = unwrap(A)
     return _color_ids_cached(spec, A.n_rows, str(A.device))
 
@@ -215,10 +221,12 @@ def colored_sweep(A, D_inv, y: torch.Tensor, x: Optional[torch.Tensor],
     D_inv may be the number 1.0 (the unit-diagonal L of coloured ILU(0)).
     """
     from .ops.spmv import spmv
-    from .parallel.mesh_ops import MeshStencil
+    from .parallel import mesh_ops as mo
     from .stencil_op import DeviceStencil, stencil_gs_color_step
-    if isinstance(A, MeshStencil) and color_arr is None:
-        return _mesh_sweep(A, D_inv, y, x, spec, n_colors, reverse)
+    if isinstance(A, (mo.MeshStencil, mo.DistStencil)) and color_arr is None:
+        step = (mo.mesh_gs_color_step if isinstance(A, mo.MeshStencil)
+                else mo.dist_gs_color_step)
+        return _mesh_sweep(A, D_inv, y, x, spec, n_colors, reverse, step)
     step_kernel = isinstance(A, DeviceStencil) and color_arr is None
     ids = color_arr if color_arr is not None else color_ids(spec, A)
     order = range(n_colors - 1, -1, -1) if reverse else range(n_colors)
@@ -233,13 +241,13 @@ def colored_sweep(A, D_inv, y: torch.Tensor, x: Optional[torch.Tensor],
 
 
 def _mesh_sweep(A, D_inv, y, x, spec: ColorSpec, n_colors: int,
-                reverse: bool) -> torch.Tensor:
-    """`colored_sweep` on a mesh stencil (the JAX package's mesh branch,
-    coloring.py:242-262): every colour step is one shard-local GS step
-    with one halo exchange; under a grid colouring with sx > 1 the sx
-    colours sharing (cy, cz) go as one superstep (they couple only along
-    x, inside a shard's lines), so a sweep exchanges once per group."""
-    from .parallel.mesh_ops import mesh_gs_color_step as step
+                reverse: bool, step) -> torch.Tensor:
+    """`colored_sweep` on a mesh or GSPMD stencil (the JAX package's mesh
+    branch, coloring.py:242-262): every colour step is one shard-local GS
+    step (`step`) with one halo exchange; under a grid colouring with
+    sx > 1 the sx colours sharing (cy, cz) go as one superstep (they
+    couple only along x, inside a shard's lines), so a sweep exchanges
+    once per group."""
     groups = [(c,) for c in range(n_colors)]
     if spec.kind == "grid" and spec.params[3] > 1:
         sx = spec.params[3]

@@ -3,6 +3,10 @@
 Analogs of the reference's kernels.hpp:119-220, as plain torch ops on 1-D
 tensors (the JAX package leaves them to XLA, outside any Pallas kernel).
 `scale_` may be a Python number or a 0-d tensor on the vectors' device.
+On the GSPMD mode's row-sharded DTensors (parallel/gspmd.py) the same ops
+run per rank; `dot` and `euclidean_vec_norm` return Replicate scalars
+(one all-reduce of the ranks' partial sums), and `full_value` is the one
+way a solver reads a device quantity on the host.
 The scaled sums are one fused multiply-add per entry (`addcmul`, or `add`
 with `alpha`), rounded once as XLA's fused loops round them, and one
 launch each on a card.  Each is TIME'd in the host harness's
@@ -11,6 +15,7 @@ kernel-timing mode (utils/ktimers.py): "sum", "dot" and "norm".
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -41,14 +46,57 @@ def elemwise_div_vectors(v1, v2, scale_=1.0):
     return v1 / (scale_ * v2)
 
 
+@functools.lru_cache(maxsize=None)
+def _dtensor_type():
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:          # a torch built without torch.distributed
+        return ()
+    return DTensor
+
+
+def is_dtensor(t) -> bool:
+    """Is t a torch.distributed DTensor (a GSPMD-mode vector or scalar)?"""
+    return isinstance(t, _dtensor_type())
+
+
+def full_value(t):
+    """t's global value as a plain tensor on its device: a DTensor's
+    `full_tensor()` (an all-reduce of a Partial sum, an all-gather of a
+    sharded vector, nothing for a Replicate one), any other tensor itself.
+    Every host read of a solver quantity goes through it
+    (`float(full_value(rn))`, `full_value(x).cpu()`): `.item()` of a
+    Partial DTensor returns the rank's own partial sum."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def replicated(s):
+    """A reduction's result as every rank's whole value: a Partial DTensor
+    reduced to Replicate by one all-reduce of its local partials; anything
+    else as it is."""
+    if is_dtensor(s) and any(p.is_partial() for p in s.placements):
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = s.device_mesh
+        t = s.to_local().clone()
+        dist.all_reduce(t, group=mesh.get_group())
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return s
+
+
+def _dot(a, b):
+    return replicated(torch.dot(a, b))
+
+
 def dot(v1, v2):
     """(v1, v2)  (kernels.hpp:205-212)."""
-    return ktime("dot", torch.dot, v1, v2)
+    return ktime("dot", _dot, v1, v2)
 
 
 def euclidean_vec_norm(v):
     """||v||_2  (kernels.hpp:194-203), as sqrt((v, v)) like the JAX package."""
-    return ktime("norm", lambda a: torch.sqrt(torch.dot(a, a)), v)
+    return ktime("norm", lambda a: torch.sqrt(_dot(a, a)), v)
 
 
 def infty_vec_norm(v):

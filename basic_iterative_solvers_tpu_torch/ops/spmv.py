@@ -11,11 +11,16 @@ ops/spmv.py.
 * mesh operators (parallel/mesh_ops.py) — the shard-local forms of the
              stencil, DIA and lane-ELL kernels, one launch a shard after a
              halo exchange; a mesh stencil's dots fused per shard and
-             summed by psum.
+             summed by psum;
+* DTensor operators (the GSPMD mode, parallel/mesh_ops.py `Dist*`) — the
+             same shard-local kernels, one launch a rank on its rows of a
+             Shard(0) DTensor after a point-to-point halo exchange; a
+             stencil's dots fused per rank and summed by one all-reduce.
 
 Each kernel or its plain version is chosen by the vector's device.  Fused
 dots stay stencil-only, as in the JAX package; elsewhere the dots follow
-the SpMV as `torch.dot`s.  `spmv`, `spmv_dot` and `spmv_dots` are TIME'd
+the SpMV as `torch.dot`s, reduced to every rank's whole value on DTensors
+(ops/blas1.replicated).  `spmv`, `spmv_dot` and `spmv_dots` are TIME'd
 as "spmv" in the host harness's kernel-timing mode (utils/ktimers.py).
 """
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from ..stencil_op import DeviceStencil, stencil_spmv
 from ..utils.ktimers import ktime
+from .blas1 import replicated
 
 
 def spmv_ell(A, x: torch.Tensor) -> torch.Tensor:
@@ -49,26 +55,32 @@ def _spmv(A, x: torch.Tensor) -> torch.Tensor:
         return lane_ell_spmv(A, x)
     if isinstance(A, DeviceELL):
         return spmv_ell(A, x)
-    from ..parallel.mesh_ops import (MeshDIA, MeshLaneELL, MeshStencil,
-                                     mesh_dia_spmv, mesh_lane_ell_spmv,
-                                     mesh_stencil_spmv)
-    if isinstance(A, MeshStencil):
-        return mesh_stencil_spmv(A, x)
-    if isinstance(A, MeshDIA):
-        return mesh_dia_spmv(A, x)
-    if isinstance(A, MeshLaneELL):
-        return mesh_lane_ell_spmv(A, x)
+    from ..parallel import mesh_ops as mo
+    if isinstance(A, mo.MeshStencil):
+        return mo.mesh_stencil_spmv(A, x)
+    if isinstance(A, mo.MeshDIA):
+        return mo.mesh_dia_spmv(A, x)
+    if isinstance(A, mo.MeshLaneELL):
+        return mo.mesh_lane_ell_spmv(A, x)
+    if isinstance(A, mo.DistStencil):
+        return mo.dist_stencil_spmv(A, x)
+    if isinstance(A, mo.DistDIA):
+        return mo.dist_dia_spmv(A, x)
+    if isinstance(A, mo.DistLaneELL):
+        return mo.dist_lane_ell_spmv(A, x)
     raise TypeError(f"unsupported device matrix type: {type(A).__name__}")
 
 
 def _fused_dots(A, x, dots, aux):
-    """y and its dots from the kernel itself (a stencil, one-device or
-    mesh), else None."""
-    from ..parallel.mesh_ops import MeshStencil, mesh_stencil_spmv
+    """y and its dots from the kernel itself (a stencil, one-device, mesh
+    or DTensor), else None."""
+    from ..parallel import mesh_ops as mo
     if isinstance(A, DeviceStencil):
         return stencil_spmv(A, x, dots=dots, aux=aux)
-    if isinstance(A, MeshStencil):
-        return mesh_stencil_spmv(A, x, dots=dots, aux=aux)
+    if isinstance(A, mo.MeshStencil):
+        return mo.mesh_stencil_spmv(A, x, dots=dots, aux=aux)
+    if isinstance(A, mo.DistStencil):
+        return mo.dist_stencil_spmv(A, x, dots=dots, aux=aux)
     return None
 
 
@@ -83,7 +95,7 @@ def _spmv_dot(A, x: torch.Tensor):
     if fused is not None:
         return fused
     y = _spmv(A, x)
-    return y, torch.dot(y, x)
+    return y, replicated(torch.dot(y, x))
 
 
 def spmv_dots(A, x: torch.Tensor, aux: torch.Tensor = None,
@@ -101,7 +113,8 @@ def _spmv_dots(A, x: torch.Tensor, aux, with_self: bool):
         return fused
     y = _spmv(A, x)
     partner = {"aux": aux, "self": y}
-    return (y,) + tuple(torch.dot(y, partner[k]) for k in dots)
+    return (y,) + tuple(replicated(torch.dot(y, partner[k]))
+                        for k in dots)
 
 
 def compute_residual(A, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,15 @@ padded to n_dev·R_local with inert rows, R_local at least the halo width:
 Solver vectors stay n rows long: each SpMV pads x to the padded count
 (no copy where n already fills it, as at 128^3 on 8 shards) and returns
 the first n rows of y.
+
+The GSPMD mode's operators (`DistStencil`, `DistDIA`, `DistLaneELL`,
+parallel/gspmd.py) run the same halo-form kernels once a process on a
+torch.distributed DeviceMesh: x is a Shard(0) DTensor of n / world rows a
+rank, the rank's window comes from `gspmd.halo_window` (point-to-point
+with the neighbours that own its halo rows), each rank holds its slice of
+the DIA data, of the lane-ELL planes and of a stencil's diagonal (a
+stencil's coefficients whole), and y goes back as a Shard(0) DTensor; a
+stencil's fused dots come back as one all-reduce of the stacked partials.
 """
 from __future__ import annotations
 
@@ -39,6 +48,8 @@ from ..ops.lane_ell import (LANES, DeviceLaneELL, lane_ell_extend_rows,
                             lane_ell_row_tile, lane_ell_spmv_halo)
 from ..stencil_op import (DeviceStencil, stencil_gs_color_step_halo,
                           stencil_shard_rows, stencil_spmv_halo)
+from .gspmd import (RowLayout, halo_window, row_layout, rows_like,
+                    sum_partials)
 from .sharded import Mesh, _halo, _halo_exchange, _split
 
 
@@ -105,9 +116,10 @@ class MeshLaneELL:
 
 
 def unwrap(A):
-    """The single-device operator under a mesh wrapper (A itself for a
-    plain operator)."""
-    if isinstance(A, (MeshStencil, MeshDIA, MeshLaneELL)):
+    """The single-device operator under a mesh or DTensor wrapper (A
+    itself for a plain operator)."""
+    if isinstance(A, (MeshStencil, MeshDIA, MeshLaneELL, DistStencil,
+                      DistDIA, DistLaneELL)):
         return A.inner
     return A
 
@@ -225,3 +237,170 @@ def mesh_lane_ell_spmv(A: MeshLaneELL, x: torch.Tensor) -> torch.Tensor:
         lane_ell_spmv_halo(M, A.vals_shards[k], A.idx_shards[k], windows[k],
                            k * R, M.S, out=yk)
     return y[:M.n_rows]
+
+
+# ---------------------------------------------------------------------------
+# The GSPMD mode: DTensor operators on a torch.distributed DeviceMesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DistStencil:
+    """A DeviceStencil on a DeviceMesh: the rank's rows are whole x-lines
+    from a line start, its slice of the diagonal its own tensor."""
+
+    inner: DeviceStencil
+    layout: RowLayout
+    diag_local: Optional[torch.Tensor] = None
+
+    dtype = property(lambda self: self.inner.dtype)
+    device = property(lambda self: self.inner.device)
+    n_rows = property(lambda self: self.inner.n_rows)
+    n_cols = property(lambda self: self.inner.n_cols)
+
+
+@dataclasses.dataclass
+class DistDIA:
+    """A DeviceDIA on a DeviceMesh: the rank's (k, R) columns of the data
+    its own tensor."""
+
+    inner: DeviceDIA
+    layout: RowLayout
+    data_local: torch.Tensor
+
+    dtype = property(lambda self: self.inner.dtype)
+    device = property(lambda self: self.inner.device)
+    n_rows = property(lambda self: self.inner.n_rows)
+    n_cols = property(lambda self: self.inner.n_cols)
+
+
+@dataclasses.dataclass
+class DistLaneELL:
+    """A DeviceLaneELL on a DeviceMesh.  Where every rank's rows are whole
+    x2-rows (n / world a multiple of 128), the rank's (K, rows, 128)
+    planes are its own tensors and x comes by halo exchange of S x2-rows a
+    side; else (`gather`) x is gathered whole, as the JAX package's GSPMD
+    mode gathers it for its flat-gather SpMV, and every rank runs the
+    whole kernel and keeps its rows."""
+
+    inner: DeviceLaneELL
+    layout: RowLayout
+    vals_local: Optional[torch.Tensor] = None
+    idx_local: Optional[torch.Tensor] = None
+
+    dtype = property(lambda self: self.inner.dtype)
+    device = property(lambda self: self.inner.device)
+    n_rows = property(lambda self: self.inner.n_rows)
+    n_cols = property(lambda self: self.inner.n_cols)
+
+    @property
+    def gather(self) -> bool:
+        return self.vals_local is None
+
+
+DIST_TYPES = (DistStencil, DistDIA, DistLaneELL)
+
+
+def _local(lay: RowLayout, v: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    return v.narrow(dim, lay.start, lay.rows).contiguous()
+
+
+def dist_stencil(St: DeviceStencil, mesh) -> DistStencil:
+    """Bind a stencil to the DeviceMesh; raises where a rank's rows are not
+    whole x-lines (the halo kernels' windows start at a line start)."""
+    lay = row_layout(mesh, St.n_rows)
+    nx = St.dims[0]
+    if lay.rows % nx:
+        raise ValueError(f"stencil rows per rank {lay.rows} are not whole "
+                         f"x-lines of {nx}")
+    diag = None if St.diag is None else _local(lay, St.diag)
+    return DistStencil(inner=St, layout=lay, diag_local=diag)
+
+
+def dist_dia(D: DeviceDIA, mesh) -> DistDIA:
+    """Bind a DIA matrix to the DeviceMesh: the rank's data columns."""
+    lay = row_layout(mesh, D.n_rows)
+    return DistDIA(inner=D, layout=lay,
+                   data_local=_local(lay, D.data[:, :D.n_rows], 1))
+
+
+def dist_lane_ell(M: DeviceLaneELL, mesh) -> DistLaneELL:
+    """Bind a lane-ELL matrix to the DeviceMesh: the rank's x2-rows of the
+    planes where its rows are whole x2-rows, else the gather form."""
+    lay = row_layout(mesh, M.n_rows)
+    if lay.rows % LANES:
+        return DistLaneELL(inner=M, layout=lay)
+    rx, r0 = lay.rows // LANES, lay.start // LANES
+    idx = M.idx if M.idx16 is None else M.idx16
+    return DistLaneELL(
+        inner=M, layout=lay, vals_local=M.vals[:, r0:r0 + rx].contiguous(),
+        idx_local=idx[:, r0:r0 + rx].contiguous())
+
+
+def rewrap(A, inner):
+    """A's wrapper of the same kind around another single-device operator
+    of the same matrix (e.g. its float64 copy)."""
+    wrap = {DistStencil: dist_stencil, DistDIA: dist_dia,
+            DistLaneELL: dist_lane_ell}.get(type(A))
+    if wrap is None:
+        raise TypeError(f"not a DTensor operator: {type(A).__name__}")
+    return wrap(inner, A.layout.mesh)
+
+
+def _reduce_dots(lay: RowLayout, parts) -> tuple:
+    """The ranks' partial dots summed by one all-reduce: Replicate 0-d
+    DTensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    s = DTensor.from_local(torch.stack(sum_partials(parts, lay.mesh)),
+                           lay.mesh, [Replicate()], run_check=False)
+    return tuple(s[i] for i in range(len(parts)))
+
+
+def dist_stencil_spmv(A: DistStencil, x, dots=(), aux=None):
+    """y = A @ x on the rank's rows: the halo exchange, then the
+    shard-local #1 on the window; `dots` as in stencil_spmv, the ranks'
+    partials summed by one all-reduce.  Returns y, or (y, *dots)."""
+    dots = tuple(dots)
+    St, lay = A.inner, A.layout
+    xw = halo_window(lay, x.to_local().contiguous(), *St.halo)
+    aux_l = aux.to_local().contiguous() if "aux" in dots else None
+    out = stencil_spmv_halo(St, xw, lay.start, dots, aux_l, A.diag_local)
+    if not dots:
+        return rows_like(out, x)
+    return (rows_like(out[0], x),) + _reduce_dots(lay, list(out[1:]))
+
+
+def dist_gs_color_step(A: DistStencil, x, rhs, dinv, spec, color):
+    """The shard-local multicolour GS step (#3's halo form) after one halo
+    exchange; a tuple of colours is a superstep, as on the mesh."""
+    St, lay = A.inner, A.layout
+    xw = halo_window(lay, x.to_local().contiguous(), *St.halo)
+    y = stencil_gs_color_step_halo(
+        St, xw, lay.start, rhs.to_local().contiguous(),
+        dinv.to_local().contiguous(), spec, color, A.diag_local)
+    return rows_like(y, x)
+
+
+def dist_dia_spmv(A: DistDIA, x):
+    """y = A @ x: the shard-local DIA kernel (#4's halo form) on the
+    rank's window."""
+    D = A.inner
+    if not D.offsets:
+        return torch.zeros_like(x)
+    hneg, hpos = _halo(D.offsets)
+    xw = halo_window(A.layout, x.to_local().contiguous(), hneg, hpos)
+    return rows_like(dia_spmv_halo(A.data_local, D.offsets, xw, hneg), x)
+
+
+def dist_lane_ell_spmv(A: DistLaneELL, x):
+    """y = A @ x: the shard-local lane-ELL kernel (#5's halo form) on the
+    rank's window of S x2-rows a side; in the gather form the whole
+    kernel (#5) on x gathered whole, the rank keeping its rows."""
+    M, lay = A.inner, A.layout
+    if A.gather:
+        from ..ops.lane_ell import lane_ell_spmv
+        y = lane_ell_spmv(M, x.full_tensor())
+        return rows_like(y[lay.start:lay.start + lay.rows].contiguous(), x)
+    h = M.S * LANES
+    xw = halo_window(lay, x.to_local().contiguous(), h, h)
+    return rows_like(lane_ell_spmv_halo(M, A.vals_local, A.idx_local, xw,
+                                        lay.start // LANES, M.S), x)

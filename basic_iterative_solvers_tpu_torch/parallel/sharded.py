@@ -5,35 +5,33 @@ parallelism is a row-parallel loop; the mesh shards the same axis:
 
 * matrix rows (DIA data, lane-ELL slot planes, a stencil's diagonal) are
   cut into contiguous row blocks, one per shard;
-* SpMV's off-shard x entries come by a halo exchange: each shard sends
-  its boundary slabs to its mesh neighbours (`Mesh.ppermute`), then runs
-  the same kernel on its window (its own rows and the two slabs);
-* dots are per-shard partials summed by `Mesh.psum`.
+* SpMV's off-shard x entries come by a halo exchange: each shard receives
+  the boundary rows of the neighbours that own its halo, then runs the
+  same kernel on its window (its own rows and the halo rows);
+* dots are per-shard partials summed across the shards.
 
-The JAX package is single-controller (one process, a Mesh over
-jax.devices()), and so is this one: a `Mesh` holds one torch device per
-shard and one process drives them all.  `make_mesh(n, device=...)` binds
-all n shards to one device, the counterpart of XLA's virtual host
-devices: each shard still sees only its own rows, the halo slabs copied
-from its neighbours and its global row offset.  A solver vector stays one
-tensor, the whole operator's rows: elementwise operations and BLAS-1 run
-on it whole, as GSPMD partitions them in the JAX package, and only the
-SpMVs and GS steps run per shard, each mesh operator padding the row count
-to n_dev·R_local with inert rows where its layout needs it (shard k owns
-rows [k·R_local, (k+1)·R_local)).  This slice keeps every shard on one
-device: `shard_setup` refuses a mesh over several cards (slice 8c).
-A superblock preconditioner's L and U solves are cut into the shards too
-(ops/block_trisolve.shard_superblock): each level runs once a shard with
-one halo exchange after it.
+Two modes, as in the JAX package's `shard_setup`:
 
-Two modes in the JAX package's `shard_setup`; the port has the first:
-
-* "shard_map": the operators are wrapped as mesh operators whose SpMV and
-  GS-step kernels run shard-locally (parallel/mesh_ops.py);
-* "gspmd" (XLA's partitioner over annotated shardings) has no counterpart
-  yet: it would be torch.distributed.tensor's DTensor over one process a
-  card (slice 8c), and "auto", which falls back to it in the JAX package,
-  raises where the JAX package would fall back.
+* "shard_map" on the single-controller `Mesh`: one process drives every
+  shard, as the JAX package's Mesh over jax.devices() does.  `make_mesh(n,
+  device=...)` binds all n shards to one device, the counterpart of XLA's
+  virtual host devices: each shard still sees only its own rows, the halo
+  slabs copied from its neighbours (`Mesh.ppermute`) and its global row
+  offset, and its dots are summed by `Mesh.psum`.  A solver vector stays
+  one tensor, the whole operator's rows: elementwise operations and BLAS-1
+  run on it whole, and only the SpMVs and GS steps run per shard, each
+  mesh operator padding the row count to n_dev·R_local with inert rows
+  where its layout needs it (shard k owns rows [k·R_local, (k+1)·R_local);
+  parallel/mesh_ops.py).  A superblock preconditioner's L and U solves are
+  cut into the shards too (ops/block_trisolve.shard_superblock).  The
+  shards of this mesh share one device: a Mesh over several cards would
+  need per-card vector storage, which is not ported.
+* "gspmd" on a torch.distributed `DeviceMesh` (`make_device_mesh`), one
+  process a shard: solver vectors are DTensors sharded by rows, and the
+  operators run their halo-form kernels per rank after a point-to-point
+  halo exchange (parallel/gspmd.py).  The JAX package falls back to this
+  mode on its one mesh; here it needs the DeviceMesh, so on a `Mesh`
+  "gspmd", and "auto" where shard_map refuses, raise naming the refusal.
 
 `make_sharded_cg` is the standalone distributed CG of the JAX package
 (DIA, Jacobi or the symmetric two-stage preconditioner), plain torch per
@@ -353,25 +351,39 @@ class _MeshIneligible(Exception):
     """This setup cannot take the shard_map (mesh-kernel) path."""
 
 
-def shard_setup(setup, mesh: Mesh, axis: str = AXIS, mode: str = "auto"):
-    """Re-home a SolverSetup onto a device mesh: the shard_map mode of the
-    JAX package, the operators wrapped as mesh operators whose kernels run
-    per shard with halo exchange (parallel/mesh_ops.py); `solve` then
-    takes the setup as it is.  Vectors stay whole on the mesh's device.
+def shard_setup(setup, mesh, axis: str = AXIS, mode: str = "auto"):
+    """Re-home a SolverSetup onto a device mesh; `solve` then takes the
+    setup as it is.
 
-    "gspmd" has no counterpart yet (slice 8c), and "auto" raises where the
-    JAX package falls back to it, naming why the shard_map mode refused."""
+    * On the single-controller `Mesh`: the shard_map mode of the JAX
+      package, the operators wrapped as mesh operators whose kernels run
+      per shard with halo exchange (parallel/mesh_ops.py); vectors stay
+      whole on the mesh's device.  "gspmd", and "auto" where the shard_map
+      mode refuses, raise naming the refusal: the GSPMD mode needs a
+      DeviceMesh, one process a shard.
+    * On a torch.distributed `DeviceMesh` (`make_device_mesh`): "gspmd"
+      and "auto" give the GSPMD form (parallel/gspmd.py); "shard_map"
+      raises, that mode being single-controller."""
+    from .gspmd import is_device_mesh, shard_setup_gspmd
     if mode not in ("auto", "shard_map", "gspmd"):
         raise ValueError(f"unknown shard_setup mode: {mode}")
+    if is_device_mesh(mesh):
+        if mode == "shard_map":
+            raise ValueError(
+                "shard_map mode runs on the single-controller Mesh "
+                "(make_mesh); a DeviceMesh takes mode 'gspmd' or 'auto'")
+        return shard_setup_gspmd(setup, mesh)
     if mode == "gspmd":
         raise ValueError(
-            "shard_setup mode 'gspmd' is not ported yet (slice 8c: "
-            "torch.distributed.tensor over one process a card)")
+            "gspmd mode needs a torch.distributed DeviceMesh, one process "
+            "a shard (make_device_mesh); the single-controller Mesh runs "
+            "mode 'shard_map'")
     if len(set(mesh.devices)) != 1:
         raise ValueError(
-            "this slice runs a mesh whose shards share one device; a mesh "
-            f"over the devices {sorted(set(map(str, mesh.devices)))} needs "
-            "per-device storage (slice 8c)")
+            "this Mesh's shards must share one device; a Mesh over the "
+            f"devices {sorted(set(map(str, mesh.devices)))} needs per-device "
+            "vector storage, which is not ported (a DeviceMesh runs one "
+            "process a card: mode 'gspmd')")
     if setup.b.device != mesh.devices[0]:
         raise ValueError(f"the setup lies on {setup.b.device}, the mesh on "
                          f"{mesh.devices[0]}")
@@ -382,8 +394,9 @@ def shard_setup(setup, mesh: Mesh, axis: str = AXIS, mode: str = "auto"):
             raise ValueError(f"shard_map mode unavailable: {e}") from e
         raise ValueError(
             f"shard_map mode unavailable: {e}; the JAX package's 'auto' "
-            "falls back to its GSPMD mode here, which is not ported yet "
-            "(slice 8c)") from e
+            "falls back to its GSPMD mode here, which needs a "
+            "torch.distributed DeviceMesh, one process a shard "
+            "(make_device_mesh)") from e
 
 
 def _shard_setup_mesh(setup, mesh: Mesh, axis: str = AXIS):
@@ -413,7 +426,7 @@ def _shard_setup_mesh(setup, mesh: Mesh, axis: str = AXIS):
         if M.mg_data is not None:
             raise _MeshIneligible(
                 "multigrid hierarchy is not mesh-wrapped; use mode='gspmd' "
-                "(not ported yet: slice 8c)")
+                "on a DeviceMesh")
         if setup.color_arr is not None or M.color_arr is not None:
             raise _MeshIneligible(
                 "greedy color arrays don't shard with spec kernels")
@@ -456,7 +469,7 @@ def _shard_setup_mesh(setup, mesh: Mesh, axis: str = AXIS):
     # the GS methods' own superblock solves (setup.gs_L_block, gs_U_block)
     # stay whole, as in the JAX package: they run on the whole solver
     # vector, which works because every shard of this mesh lies on one
-    # device (shard_setup refuses a mesh over several cards: slice 8c)
+    # device (shard_setup refuses a Mesh over several cards)
     return dataclasses.replace(setup, A=A_new, M=M_sh)
 
 

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..config import SolverConfig
-from ..ops.blas1 import euclidean_vec_norm
+from ..ops.blas1 import euclidean_vec_norm, full_value, is_dtensor
 from ..precond import (COLORED_PRECONDS, Preconditioner, resolve_gs_mode,
                        setup_preconditioner)
 from ..stencil_op import (DeviceStencil, resolve_device, stencil_astype,
@@ -86,7 +86,7 @@ def _host_vector(v, n: int, fill: float) -> np.ndarray:
     if v is None:
         return np.full(n, fill, dtype=np.float64)
     if isinstance(v, torch.Tensor):
-        v = v.detach().cpu().numpy()
+        v = full_value(v.detach()).cpu().numpy()
     v = np.asarray(v, dtype=np.float64)
     if v.shape != (n,):
         raise ValueError(f"vector has shape {v.shape}, expected ({n},)")
@@ -315,12 +315,14 @@ def _f64_operands(setup: SolverSetup):
     is upcast; a host-CSR setup's operator is rebuilt from the float64
     host matrix in the same format, so the residual sees the exact
     values.  A mesh setup's oracle is its single-device operator (the
-    refinement forms reach the operator only through here)."""
+    refinement forms reach the operator only through here); a GSPMD
+    setup's is its DTensor operator around the float64 copy, on the
+    ranks' rows of the sharded vectors."""
     cached = getattr(setup, "_f64_ops_cache", None)
     if cached is not None:
         return cached
     from ..device_matrix import DeviceDIA, DeviceELL, from_csr
-    from ..parallel.mesh_ops import unwrap
+    from ..parallel.mesh_ops import DIST_TYPES, rewrap, unwrap
     A = unwrap(setup.A)
     if isinstance(A, DeviceStencil):
         A64 = stencil_astype(A, torch.float64)
@@ -330,6 +332,8 @@ def _f64_operands(setup: SolverSetup):
         A64 = from_csr(setup.A_host, torch.float64, fmt, device=A.device)
     else:
         A64 = dataclasses.replace(A, data=A.data.to(torch.float64))
+    if isinstance(setup.A, DIST_TYPES):
+        A64 = rewrap(setup.A, A64)
     setup._f64_ops_cache = (A64, setup.b.to(torch.float64))
     return setup._f64_ops_cache
 
@@ -361,12 +365,17 @@ def residual_f64(setup: SolverSetup, x: torch.Tensor) -> torch.Tensor:
 def explicit_residual_norm(setup: SolverSetup, x_star: torch.Tensor) -> float:
     """||b − A·x*||₂ in float64 for the final report (the reference's
     save_x_star, solver.hpp:153-159), whatever the solve dtype."""
-    return float(euclidean_vec_norm(residual_f64(setup, x_star)))
+    return float(full_value(euclidean_vec_norm(residual_f64(setup, x_star))))
 
 
 def finalize_x(setup: SolverSetup, x_star: torch.Tensor) -> torch.Tensor:
     """Map the solution back to user coordinates (vector-layout decode,
-    then the inverse permutation), where the setup has them."""
+    then the inverse permutation), where the setup has them; a GSPMD
+    solution is mapped whole and keeps its row sharding."""
+    if is_dtensor(x_star) and (setup.x_decode is not None
+                               or setup.inv_perm is not None):
+        from ..parallel.gspmd import whole
+        return whole(lambda x: finalize_x(setup, x))(x_star)
     if setup.x_decode is not None:
         x_star = setup.x_decode(x_star)
     if setup.inv_perm is not None:
@@ -501,7 +510,7 @@ def _gated_steps(method, state, rn, stop, count: int, finite: bool):
             if finite:
                 active = active & torch.isfinite(rn)
         done += chunk
-        if not bool(active):
+        if not bool(full_value(active)):
             break
     return state, rn, n
 
@@ -520,17 +529,19 @@ def _inner_fused(method, inner_tol: float, inner_max: int):
     if restart_fn is None:
         state, rn, it = _gated_steps(method, state, rn, stop, inner_max,
                                      finite=False)
-        return method.final_x(state), int(it)
+        return method.final_x(state), int(full_value(it))
     it = restarts = 0
     while True:
         budget = inner_max - restarts - it
-        if budget <= 0 or not bool((rn > stop) & torch.isfinite(rn)):
+        if budget <= 0 or not bool(full_value((rn > stop)
+                                              & torch.isfinite(rn))):
             break
         state, rn, j = _gated_steps(method, state, rn, stop,
                                     min(method.m, budget), finite=True)
-        j = int(j)
+        j = int(full_value(j))
         it += j
-        if not (j == method.m and bool((rn > stop) & torch.isfinite(rn))):
+        if not (j == method.m and bool(full_value((rn > stop)
+                                                  & torch.isfinite(rn)))):
             break
         state = restart_fn(state)
         rn = state["residual_norm"]
@@ -565,20 +576,21 @@ def _solve_refined_fused(setup: SolverSetup) -> SolveResult:
     r, rn = resid(x)
     stopping = cfg.tolerance * rn
     hist = np.zeros(K + 1)
-    hist[0] = float(rn)
+    hist[0] = float(full_value(rn))
     b_unit, r_scale = (r / rn).to(dtype), rn
     k, n_hist, it_tot = 0, 1, 0
-    go = bool(rn > stopping)
+    go = bool(full_value(rn > stopping))
     while go and k < K:
         method = make_method(dataclasses.replace(
             setup, config=inner_cfg, b=b_unit, x0=x0_inner))
         xi, it = _inner_fused(method, cfg.refine_inner_tol, cfg.max_iters)
         x_next = torch.addcmul(x, xi.to(torch.float64), r_scale)
         r2, rn2 = resid(x_next)
-        improved = bool(rn2 <= rn)         # NaN compares False
+        improved = bool(full_value(rn2 <= rn))     # NaN compares False
         k += 1
-        hist[n_hist if improved else K] = float(rn2)
-        go = improved and bool(rn2 > stopping) and bool(rn2 <= 0.5 * rn)
+        hist[n_hist if improved else K] = float(full_value(rn2))
+        go = (improved and bool(full_value(rn2 > stopping))
+              and bool(full_value(rn2 <= 0.5 * rn)))
         if improved:
             x, rn = x_next, rn2
             n_hist += 1
@@ -587,11 +599,12 @@ def _solve_refined_fused(setup: SolverSetup) -> SolveResult:
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
     dt = time.perf_counter() - t0
-    final_norm = float(rn)
+    final_norm = float(full_value(rn))
+    stopping = float(full_value(stopping))
     return SolveResult(
         x_star=x, iter_count=it_tot,
-        converged=final_norm <= float(stopping),
-        stopping_criteria=float(stopping),
+        converged=final_norm <= stopping,
+        stopping_criteria=stopping,
         residual_norms=hist[:n_hist],
         time_per_iteration=np.full(n_hist, dt / max(1, n_hist)),
         final_residual_norm=final_norm,
@@ -606,26 +619,29 @@ def _host_refine_runner(setup: SolverSetup):
     """(start, step) of the per-outer form on the host-CSR oracle: the
     float64 residual b − A·x by the host matrix's NumPy SpMV, x and ‖r‖ on
     the host, the next right-hand side r/‖r‖ on the setup's device (None
-    when ‖r‖ = 0)."""
+    when ‖r‖ = 0), row-sharded like b in the GSPMD mode."""
     dtype, device = setup.config.spec_dtype(), setup.b.device
-    b64 = setup.b.detach().cpu().numpy().astype(np.float64)
+    b64 = _host_vector(setup.b, setup.n, 0.0)
 
     def _norm_rhs(x64):
         r = b64 - setup.A_host.spmv(x64)
         rn = float(np.linalg.norm(r))
-        rhs = None if rn == 0.0 else torch.from_numpy(r / rn).to(
-            dtype=dtype, device=device)
+        if rn == 0.0:
+            return rn, None
+        rhs = torch.from_numpy(r / rn).to(dtype=dtype, device=device)
+        if is_dtensor(setup.b):
+            from ..parallel.gspmd import shard_rows
+            rhs = shard_rows(rhs, setup.b.device_mesh)
         return rn, rhs
 
     def start(x0):
         if setup.x_decode is not None:
             x0 = setup.x_decode(x0)
-        x64 = x0.detach().cpu().numpy().astype(np.float64)
+        x64 = _host_vector(x0, setup.n, 0.0)
         return (x64,) + _norm_rhs(x64)
 
     def step(x64, x_inner, r_scale):
-        x_next = x64 + float(r_scale) * x_inner.detach().cpu().numpy(
-        ).astype(np.float64)
+        x_next = x64 + float(r_scale) * _host_vector(x_inner, setup.n, 0.0)
         return (x_next,) + _norm_rhs(x_next)
 
     return start, step
@@ -649,7 +665,7 @@ def _solve_refined(setup: SolverSetup) -> SolveResult:
     start, step = (_refine_device_runner(setup) if setup.A_host is None
                    else _host_refine_runner(setup))
     x, rn0, b_next = start(setup.x0)
-    r0_norm = float(rn0)
+    r0_norm = float(full_value(rn0))
     stopping = _stopping(cfg, r0_norm)
     inner_cfg = dataclasses.replace(cfg, refine_outer=0,
                                     tolerance=cfg.refine_inner_tol)
@@ -673,7 +689,7 @@ def _solve_refined(setup: SolverSetup) -> SolveResult:
         x_inner = inner(inner_cfg)
         outers += 1
         x_try, rn_dev, b_try = step(x, x_inner, r_scale)
-        rn = float(rn_dev)
+        rn = float(full_value(rn_dev))
         while not math.isfinite(rn):
             tol_now = float(inner_cfg.tolerance)
             if tol_now >= 1e-2:
@@ -682,7 +698,7 @@ def _solve_refined(setup: SolverSetup) -> SolveResult:
             inner_cfg = dataclasses.replace(
                 inner_cfg, tolerance=min(1e-2, tol_now * 100.0))
             x_try, rn_dev, b_try = step(x, inner(inner_cfg), r_scale)
-            rn = float(rn_dev)
+            rn = float(full_value(rn_dev))
         if rn is None or rn > prev_rn:
             break
         x, b_next, r_scale = x_try, b_try, rn_dev
@@ -693,6 +709,9 @@ def _solve_refined(setup: SolverSetup) -> SolveResult:
         prev_rn = rn
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x).to(setup.b.device)
+        if is_dtensor(setup.b):
+            from ..parallel.gspmd import shard_rows
+            x = shard_rows(x, setup.b.device_mesh)
     elif x.is_cuda:
         torch.cuda.synchronize(x.device)
     dt = time.perf_counter() - t0
@@ -718,7 +737,7 @@ def _solve_host(setup: SolverSetup, method, timers: Timers,
     their synchronized wall times to `timers` (utils/ktimers.py)."""
     config = setup.config
     state = method.init_state()
-    r0_norm = float(method.initial_residual_norm(state))
+    r0_norm = float(full_value(method.initial_residual_norm(state)))
     stopping = _stopping(config, r0_norm)
 
     max_hist = config.max_iters * 2 + 2
@@ -747,7 +766,7 @@ def _solve_host(setup: SolverSetup, method, timers: Timers,
             if debug_check is not None:
                 debug_check(state, iter_count)
             if iter_count % config.res_check_len == 0:
-                residual_norm = float(method.sample_norm(state))
+                residual_norm = float(full_value(method.sample_norm(state)))
                 norms[hist_count] = residual_norm
                 times[hist_count] = time.perf_counter() - t0
                 hist_count += 1

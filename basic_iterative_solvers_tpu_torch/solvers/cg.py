@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.blas1 import dot, euclidean_vec_norm, subtract_vectors, sum_vectors
+from ..ops.blas1 import (dot, euclidean_vec_norm, full_value,
+                         subtract_vectors, sum_vectors)
 from ..ops.spmv import spmv, spmv_dot
 from ..precond import apply_preconditioner
 from ..types import PrecondType
@@ -204,7 +205,8 @@ class PipelinedCGMethod:
             k_rep = k_rep + 1
             trigger = ((rn_new < self.rr_theta * rn_max)
                        | (k_rep >= self.rr_period))
-            if bool(trigger if active is None else trigger & active):
+            if bool(full_value(trigger if active is None
+                               else trigger & active)):
                 r, u2, w, s, q2, z = self._replace(x, p)
                 if not self._identity_M:
                     u, q = u2, q2

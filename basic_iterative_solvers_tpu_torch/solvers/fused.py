@@ -15,6 +15,10 @@ solver.hpp:166-191): history entry 0 is ||r0||, the norm is sampled every
 the loop stops at |last| < tol·||r0||, at max_iters or on a non-finite
 norm, and the explicit float64 final residual is appended.  GMRES runs in
 restart cycles (`fused_solve`'s restart_state_fn).
+
+In the GSPMD mode the method's vectors are row-sharded DTensors; the loop's
+own scalars (the sampled norm, the counters, the condition) are taken as
+every rank's whole value (`full_value`), plain tensors on the device.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..ops.blas1 import full_value
 from .base import (SolveResult, SolverSetup, _stopping,
                    explicit_residual_norm, finalize_x)
 
@@ -93,7 +98,7 @@ def fused_solve(setup: SolverSetup, init_state: Callable, iterate: Callable,
     max_hist = max_iters * 2 + 2       # index max_hist is a discard slot
 
     state = init_state()
-    r0 = state["residual_norm"]
+    r0 = full_value(state["residual_norm"])
     device = r0.device
     stopping = _stopping(config, r0)
     norms = torch.zeros(max_hist + 1, dtype=r0.dtype, device=device)
@@ -116,7 +121,7 @@ def fused_solve(setup: SolverSetup, init_state: Callable, iterate: Callable,
                 state = iterate(state, active)
                 it = it + active
                 do = active if k == 1 else active & (it % k == 0)
-                rn = sample_norm(state)
+                rn = full_value(sample_norm(state))
                 last = torch.where(do, rn, last)
                 slot = torch.where(do, hist, max_hist)
                 norms.scatter_(0, slot.view(1), rn.view(1))
@@ -144,7 +149,7 @@ def fused_solve(setup: SolverSetup, init_state: Callable, iterate: Callable,
             # a completed cycle, still above the stop and finite: restart
             state = restart_state_fn(state)
             restarts += 1
-            last = state["residual_norm"]
+            last = full_value(state["residual_norm"])
             norms.scatter_(0, hist.view(1), last.view(1))
             hist = hist + 1
             active = (last.abs() >= stopping) & torch.isfinite(last)
@@ -152,7 +157,7 @@ def fused_solve(setup: SolverSetup, init_state: Callable, iterate: Callable,
 
     it = int(it)
     hist = int(hist)
-    hist_norms = norms[:hist + 1].cpu().numpy()
+    hist_norms = full_value(norms[:hist + 1]).cpu().numpy()
     residual_norm = float(last)
     x_star = final_x(state)
     final_norm = explicit_residual_norm(setup, x_star)

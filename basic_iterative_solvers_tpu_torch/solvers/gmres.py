@@ -35,6 +35,12 @@ rounded values, so s_i·V[i] is exactly unit in storage.  The raw products
 of `project_gram` map back through s: h1_i = s_i·⟨V_i, w·s_j⟩, the Gram
 column s_i·s_j·⟨V_i, V_j⟩, the correction weights h̃_i = h_i·s_i; the new
 row's norm comes out of `correct_write`.
+
+In the GSPMD mode (parallel/gspmd.py) the vectors are Shard(0) DTensors
+and V a Shard(1) DTensor: every rank runs the basis passes (#6, #7 in
+fused mode, the matrix products otherwise) on its own columns, and one
+all-reduce sums each pass's partial products.  H, Q, g, G and s stay
+plain tensors, the same on every rank.
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ import torch
 
 from ..config import torch_dtype
 from ..ops import gmres_basis
-from ..ops.blas1 import dot, euclidean_vec_norm, subtract_vectors
+from ..ops.blas1 import (dot, euclidean_vec_norm, full_value, is_dtensor,
+                         replicated, subtract_vectors)
 from ..ops.spmv import spmv
 from ..precond import apply_preconditioner
 from ..utils.ktimers import ktime
@@ -53,6 +60,43 @@ from .base import SolverSetup
 from .fused import fused_solve, gate, keep_if_stopped
 
 ORTHOG_MODES = ("mgs", "cgs2", "lowsync", "fused")
+
+
+def _loc(t):
+    """t's rank-local part: a DTensor's own rows or columns, else t."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _like(local, x):
+    """A vector laid out like x from its rank-local rows."""
+    if not is_dtensor(x):
+        return local
+    from ..parallel.gspmd import rows_like
+    return rows_like(local, x)
+
+
+def _summed(parts, x):
+    """The ranks' partial products `parts` summed by one all-reduce where
+    x is a DTensor (plain tensors, every rank's whole value); as they are
+    otherwise."""
+    if not is_dtensor(x):
+        return parts
+    from ..parallel.gspmd import sum_partials
+    return sum_partials(parts, x.device_mesh)
+
+
+def _new_basis(rows: int, dtype, x):
+    """A zero (rows, n) basis: a Shard(1) DTensor of the ranks' columns
+    where x is a DTensor."""
+    if not is_dtensor(x):
+        return torch.zeros((rows, x.numel()), dtype=dtype, device=x.device)
+    from torch.distributed.tensor import DTensor, Shard
+    n = x.shape[0]
+    local = torch.zeros((rows, x.to_local().numel()), dtype=dtype,
+                        device=x.device)
+    return DTensor.from_local(local, x.device_mesh, [Shard(1)],
+                              run_check=False, shape=torch.Size([rows, n]),
+                              stride=(n, 1))
 
 
 class GMRESMethod:
@@ -87,7 +131,9 @@ class GMRESMethod:
 
     def _fused_unavailable(self) -> str:
         """Why the fused basis kernels cannot take this solve ("" when
-        they can): a mesh operator, or the solve and basis dtypes."""
+        they can): a mesh operator, or the solve and basis dtypes.  The
+        GSPMD mode's DTensor operators take them, on each rank's columns
+        of V."""
         from ..parallel.mesh_ops import MeshDIA, MeshLaneELL, MeshStencil
         if isinstance(self.A, (MeshDIA, MeshLaneELL, MeshStencil)):
             # the JAX package's mesh GMRES orthogonalises with the plain
@@ -110,7 +156,8 @@ class GMRESMethod:
         m, dtype = self.m, x.dtype
         vdt = self.basis_dtype or dtype
         if V is None:
-            V = torch.zeros((m + 1, x.numel()), dtype=vdt, device=x.device)
+            V = _new_basis(m + 1, vdt, x)
+        beta = full_value(beta)
         state = {"x_old": x, "V": V, "beta": beta, "jh": 0,
                  "j": torch.zeros((), dtype=torch.int64, device=x.device),
                  "H": torch.zeros((m + 1, m), dtype=dtype, device=x.device),
@@ -125,15 +172,15 @@ class GMRESMethod:
         if self.orthog == "fused":
             v0 = r_prec.to(vdt)
             v0f = v0.to(torch.float32)
-            c0sq = torch.dot(v0f, v0f)
+            c0sq = full_value(replicated(torch.dot(v0f, v0f)))
             s = torch.zeros(m + 1, dtype=torch.float32, device=x.device)
             s[0] = torch.where(c0sq > 0, torch.rsqrt(c0sq), 0.0)
-            V[0] = v0
+            _loc(V)[0] = _loc(v0)
             state.update(s=s, v_cur=v0f)
             return state
         # v_cur carries the stored (basis-dtype-rounded) current row
         v0 = (r_prec / beta).to(vdt)
-        V[0] = v0
+        _loc(V)[0] = _loc(v0)
         state["v_cur"] = v0
         return state
 
@@ -156,6 +203,7 @@ class GMRESMethod:
         quantities `explicit_x` reads."""
         j = state["jh"]
         V, H, Q, beta = state["V"], state["H"], state["Q"], state["beta"]
+        Vl = _loc(V)
         # w = M⁻¹ A v_j (gmres.hpp:168-176), the stored row upcast
         vj = state["v_cur"]
         w = apply_preconditioner(self.M, spmv(self.A, vj.to(self.b.dtype)))
@@ -170,7 +218,8 @@ class GMRESMethod:
                 s, G = state["s"], state["G"].clone()
                 sj = s[j]
                 wf = w * sj
-                Pw, Pv = gmres_basis.project_gram(V, wf, vj, j)
+                Pw, Pv = _summed(gmres_basis.project_gram(
+                    Vl, _loc(wf), _loc(vj), j), w)
                 h1 = s * Pw
                 gc = s * (sj * Pv)
                 G[:, j] = gc
@@ -178,7 +227,9 @@ class GMRESMethod:
                 h2 = h1 - G @ h1
                 h = h1 + h2
                 v_next, nrm2 = gmres_basis.correct_write(
-                    V, wf, gate(h * s, active), j)
+                    Vl, _loc(wf), gate(h * s, active), j)
+                v_next = _like(v_next, w)
+                (nrm2,) = _summed((nrm2,), w)
                 H_new[:, j] = h
                 H_new[j + 1, j] = torch.sqrt(nrm2)
                 s_new = s.clone()
@@ -190,27 +241,29 @@ class GMRESMethod:
             else:
                 if self.orthog == "lowsync":
                     G = state["G"].clone()
-                    Vb = V[:j + 1].to(sdtype)
-                    rhs = torch.stack([w.to(V.dtype), vj], dim=1).to(sdtype)
+                    Vb = Vl[:j + 1].to(sdtype)
+                    rhs = torch.stack([_loc(w).to(V.dtype), _loc(vj)],
+                                      dim=1).to(sdtype)
                     P = torch.zeros((self.m + 1, 2), dtype=sdtype,
                                     device=w.device)
-                    P[:j + 1] = Vb @ rhs
+                    (P[:j + 1],) = _summed((Vb @ rhs,), w)
                     h1, gc = P[:, 0], P[:, 1]
                     G[:, j] = gc               # the exact V·v_j column
                     G[j, :] = gc
                     h2 = h1 - G @ h1           # = V·(w − h1ᵀV), G-corrected
                     h = h1 + h2
-                    w = w - h[:j + 1].to(V.dtype).to(sdtype) @ Vb
+                    w = w - _like(h[:j + 1].to(V.dtype).to(sdtype) @ Vb, w)
                     H_new[:, j] = h
                     extra = {"G": keep_if_stopped(G, state["G"], active)}
                 elif self.orthog == "cgs2":
-                    Vb = V[:j + 1].to(sdtype)
+                    Vb = Vl[:j + 1].to(sdtype)
 
                     def proj(v):
-                        return Vb @ v.to(V.dtype).to(sdtype)
+                        return _summed(
+                            (Vb @ _loc(v).to(V.dtype).to(sdtype),), w)[0]
 
                     def expand(c):
-                        return c.to(V.dtype).to(sdtype) @ Vb
+                        return _like(c.to(V.dtype).to(sdtype) @ Vb, w)
 
                     h1 = proj(w)
                     w1 = w - expand(h1)
@@ -220,17 +273,17 @@ class GMRESMethod:
                 else:
                     # modified Gram-Schmidt against v_0..v_j (gmres.hpp:6-30)
                     for i in range(j + 1):
-                        vi = V[i].to(sdtype)
+                        vi = _like(Vl[i], w).to(sdtype)
                         hi = dot(w, vi)
-                        H_new[i, j] = hi
+                        H_new[i, j] = full_value(hi)
                         w = w - hi * vi
                 h_next = euclidean_vec_norm(w)  # H[j+1, j], gmres.hpp:36-38
-                H_new[j + 1, j] = h_next
+                H_new[j + 1, j] = full_value(h_next)
                 # happy breakdown (h_next == 0): a zero row instead of w/0
                 v_next = torch.where(
                     h_next > 0, w / torch.where(h_next > 0, h_next, 1.0),
                     0.0).to(V.dtype)
-                V[j + 1] = v_next              # gmres.hpp:43-46
+                Vl[j + 1] = _loc(v_next)       # gmres.hpp:43-46
             return v_next, extra
 
         v_next, extra = ktime("orthog", orthog, w)
@@ -271,8 +324,8 @@ class GMRESMethod:
             R[:n_it, :n_it], g[:n_it, None], upper=True)[:, 0]
         if self.orthog == "fused":
             y = y * state["s"][:n_it].to(y.dtype)   # v_k = s_k·Vraw_k
-        dx = y.to(V.dtype).to(y.dtype) @ V[:n_it].to(y.dtype)
-        return state["x_old"] + dx
+        dx = y.to(V.dtype).to(y.dtype) @ _loc(V)[:n_it].to(y.dtype)
+        return state["x_old"] + _like(dx, state["x_old"])
 
     def _restart_state(self, state):
         """The reference's restart: recover x, recompute and re-precondition
@@ -294,7 +347,7 @@ class GMRESMethod:
         cycle = iter_count % self.m == 0 and iter_count != 0
         if not norm_conv and not over_max and cycle:
             state = self._restart_state(state)
-            return state, True, float(state["residual_norm"])
+            return state, True, float(full_value(state["residual_norm"]))
         return state, False, residual_norm
 
     def debug_check(self, state, iter_count):
@@ -306,7 +359,7 @@ class GMRESMethod:
             return
         # rows 0..j-1 are the established basis; row j is meaningless at
         # (happy) breakdown
-        V = state["V"][:j]
+        V = full_value(state["V"])[:j]
         if self.orthog == "fused":
             V = V.to(torch.float32) * state["s"][:j, None]
         # the bound scales with the basis dtype: MGS drift grows like

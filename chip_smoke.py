@@ -199,6 +199,16 @@ exits non-zero:
      exchanges an iteration; f64 CG + Jacobi to 1e-8 at 128^3 on both,
      equal counts; one step and a solve of the standalone distributed CG
      (make_sharded_cg) on the DIA 128^3 matrix;
+ 35b. the GSPMD mode ([gspmd], after [slice8]): NCCL in this process at
+     world size 1, `make_device_mesh()`; CG on the 128^3 stencil (300),
+     single-device, 8-shard mesh and GSPMD in turns, with ms/iter, equal
+     counts, #1's halo form launched every GSPMD iteration and the
+     single-device kernels never; f64 CG + Jacobi to 1e-8 at 128^3, GSPMD
+     against single-device (equal counts, histories within 1e-8); GSPMD
+     rows of #4's, #3's and #5's halo forms (DIA CG at 128^3, SGS on
+     fdm:2048, CG on sband:524288,8,400); the census on the card (no full
+     gather); the group destroyed after.  World size 1 moves no halo: the
+     numbers are host and DTensor dispatch;
  36. slice 8b's kernel ([mesh-super-level], run after phase 25): kernel
      #9's mesh form on an 8-shard mesh on the card, every level of L and U
      in const (128^3 GS pair), factor-table (128^3 ILU(0) pair) and plane
@@ -5148,6 +5158,195 @@ def phase_slice8(torch, bt, sband):
     return launches, numbers
 
 
+GSPMD_CG_ITERS = 300
+#: a lane-ELL matrix whose rows fill whole x2-rows on one rank (#5's halo
+#: form; sband:500000 takes the gather form)
+GSPMD_SBAND = "sband:524288,8,400"
+
+
+def _history_dev(got, ref, floor=0.0):
+    """max relative difference of two residual histories over the entries
+    where ref's norm is above floor·ref[0] (the final explicit norm left
+    out); inf when their lengths differ."""
+    got, ref = got[:-1], ref[:-1]
+    if len(got) != len(ref):
+        return float("inf")
+    keep = ref > floor * ref[0]
+    return float((abs(got[keep] - ref[keep]) / ref[keep]).max())
+
+
+def phase_gspmd(torch, bt):
+    """[gspmd]: the GSPMD mode on one card: NCCL initialised in this
+    process at world size 1 (a HashStore), `make_device_mesh()` on cuda:0.
+    CG on the HPCG 128^3 stencil, f32, fused, tolerance 0, b = 2, x0 = 1
+    (GSPMD_CG_ITERS), single-device, 8-shard shard_map mesh and GSPMD in
+    turns (single, mesh, gspmd, gspmd, mesh, single), every count set to 0
+    just before each timed solve and read just after: ms/iter, equal
+    counts, the f32 histories where above 1e-3·||r0||, #1's halo form
+    launched on every GSPMD iteration and the single-device kernels never.
+    f64 CG + Jacobi to 1e-8·||r0|| at 128^3, GSPMD against single-device
+    (equal counts, histories within [slice8]'s 1e-8).  GSPMD rows of the
+    other halo forms: DIA CG at 128^3 (#4), SGS on fdm:2048 (#3's, the
+    masked sweeps), CG on GSPMD_SBAND in lane-ELL (#5).  The census of the
+    GSPMD CG on the card.  One card measures no communication: every
+    number here is host and DTensor dispatch at world size 1.  Returns
+    each halo form's launches in its GSPMD row and the CG row's ms/iter."""
+    import math
+    import numpy as np
+    import torch.distributed as dist
+    from basic_iterative_solvers_tpu_torch.ops.blas1 import full_value
+    from basic_iterative_solvers_tpu_torch.parallel import (
+        fused_collective_census, make_device_mesh, make_mesh, shard_setup)
+    from basic_iterative_solvers_tpu_torch.parallel.gspmd import HALO_COUNTS
+    from basic_iterative_solvers_tpu_torch.solvers import make_method
+    S = bt.SolverType
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        dmesh = make_device_mesh()
+        mesh8 = make_mesh(MESH_SHARDS, device="cuda")
+        print(f"[gspmd] DeviceMesh {dmesh.device_type} x{dmesh.size()} "
+              f"({dist.get_backend()}, world size {dist.get_world_size()})")
+        iters = GSPMD_CG_ITERS
+        s1 = _hpcg_cg(torch, bt, MAIN_SPEC, torch.float32, max_iters=iters,
+                      tolerance=0.0, breakdown_stall=True)
+        setups = {"single": s1,
+                  "mesh": shard_setup(s1, mesh8, mode="shard_map"),
+                  "gspmd": shard_setup(s1, dmesh, mode="gspmd")}
+        if type(setups["gspmd"].A).__name__ != "DistStencil":
+            raise RuntimeError("[gspmd] the setup took no DTensor operator")
+        methods = {k: make_method(v) for k, v in setups.items()}
+        for k in setups:                          # warm-up solves
+            bt.solve(setups[k], method=methods[k])
+        ms, hist, launches = {k: [] for k in setups}, {}, {}
+        for which in ("single", "mesh", "gspmd", "gspmd", "mesh",
+                      "single"):
+            _mesh_counters(bt, reset=True)
+            _sparse_counters(bt, reset=True)
+            HALO_COUNTS["collective-permute"] = 0
+            res = bt.solve(setups[which], method=methods[which])
+            counts = _mesh_counters(bt)
+            single = _sparse_counters(bt)
+            it = max(1, res.iter_count)
+            ms[which].append(1e3 * res.solve_seconds / it)
+            hist[which] = res.residual_norms
+            x = full_value(res.x_star)
+            ok = (res.iter_count == iters
+                  and math.isfinite(res.final_residual_norm)
+                  and bool(torch.isfinite(x).all()))
+            if which == "gspmd":
+                ok = ok and counts["stencil_spmv_halo"] >= iters
+                ok = ok and single["stencil_spmv"] == 0
+                launches.setdefault("stencil_spmv_halo",
+                                    counts["stencil_spmv_halo"])
+            per = {k: round(v / it, 3) for k, v in {**counts, **single}
+                   .items() if v}
+            print(f"[gspmd] {MAIN_SPEC} f32 CG {which}: iters="
+                  f"{res.iter_count} ms/iter={ms[which][-1]:.5f} "
+                  f"r0={res.residual_norms[0]:.6e} final_explicit_f64="
+                  f"{res.final_residual_norm:.6e} launches/iter={per}")
+            if not ok:
+                raise RuntimeError(f"[gspmd] {MAIN_SPEC} f32 CG {which} "
+                                   "failed its checks")
+        dev = _history_dev(hist["gspmd"], hist["single"], 1e-3)
+        print(f"[gspmd] {MAIN_SPEC} f32 CG: ms/iter in turns single="
+              f"{ms['single']} mesh={ms['mesh']} gspmd={ms['gspmd']}; max "
+              f"rel history difference gspmd vs single above 1e-3·||r0|| "
+              f"{dev:.3e}")
+        if not dev <= 1e-3:
+            raise RuntimeError("[gspmd] the f32 GSPMD history differs from "
+                               "the single-device one")
+        c = fused_collective_census(setups["gspmd"])
+        print(f"[gspmd] census of the GSPMD CG on the card (world size 1): "
+              f"{json.dumps(c)}")
+        if c["full_gathers"] or c["in_while"]["all-gather"] \
+                or c["in_while"]["all-to-all"]:
+            raise RuntimeError("[gspmd] the GSPMD CG gathers a full vector")
+        del setups, methods, s1
+
+        # f64 CG + Jacobi to 1e-8 on the DeviceMesh and on one device
+        res = {}
+        for which in ("single", "gspmd"):
+            setup = _hpcg_cg(torch, bt, MAIN_SPEC, torch.float64,
+                             preconditioner=bt.PrecondType.JACOBI,
+                             tolerance=1e-8, max_iters=2000)
+            if which == "gspmd":
+                setup = shard_setup(setup, dmesh, mode="gspmd")
+            res[which] = bt.solve(setup)
+        r1, rg = res["single"], res["gspmd"]
+        dev = _history_dev(rg.residual_norms, r1.residual_norms)
+        print(f"[gspmd] {MAIN_SPEC} f64 CG + Jacobi to 1e-8: iters "
+              f"single={r1.iter_count} gspmd={rg.iter_count} max rel history "
+              f"difference {dev:.3e}; final explicit single="
+              f"{r1.final_residual_norm:.6e} gspmd="
+              f"{rg.final_residual_norm:.6e}")
+        if not (r1.converged and rg.converged
+                and r1.iter_count == rg.iter_count and dev <= 1e-8):
+            raise RuntimeError("[gspmd] the f64 GSPMD solve differs from "
+                               "the single-device solve")
+        del res, r1, rg, setup
+
+        # the other halo forms' GSPMD rows
+        def dia_cg():
+            A = bt.dia.from_source_device(MAIN_SPEC, torch.float32,
+                                          device="cuda")
+            n = A.n_rows
+            return bt.preprocessing_device(
+                A, bt.SolverConfig(dtype=torch.float32, harness="fused",
+                                   tolerance=0.0, max_iters=100,
+                                   breakdown_stall=True),
+                b=torch.full((n,), 2.0, device="cuda"),
+                x0=torch.full((n,), 1.0, device="cuda"))
+
+        def sband_cg():
+            A = bt.generators.from_source(GSPMD_SBAND)
+            return _host_solve(torch, bt, A, "cuda", torch.float32,
+                               "CONJUGATE_GRADIENT",
+                               matrix_format="lane_ell", tolerance=0.0,
+                               max_iters=100, breakdown_stall=True)[0]
+
+        rows = (("dia_spmv_halo", f"{MAIN_SPEC} f32 DIA CG", 100, dia_cg),
+                ("stencil_gs_step_halo", "fdm:2048 f32 SGS (masked sweeps)",
+                 20, lambda: _setup(torch, bt, "fdm:2048", torch.float32,
+                                    "cuda", S.SYMMETRIC_GAUSS_SEIDEL,
+                                    max_iters=20, tolerance=0.0)),
+                ("lane_ell_spmv_halo", f"{GSPMD_SBAND} f32 CG lane_ell", 100,
+                 sband_cg))
+        for kernel, label, n_it, make in rows:
+            torch.cuda.empty_cache()
+            sg = shard_setup(make(), dmesh, mode="gspmd")
+            if sg.gs_L_block is not None:
+                raise RuntimeError(f"[gspmd] {label} took the superblock "
+                                   "route")
+            m = make_method(sg)
+            bt.solve(sg, method=m)                # warm-up solve
+            _mesh_counters(bt, reset=True)
+            _sparse_counters(bt, reset=True)
+            bt.stencil_op.stencil_gs_color_step.launches = 0
+            r = bt.solve(sg, method=m)
+            counts = _mesh_counters(bt)
+            single = _sparse_counters(bt)
+            single["stencil_gs_color_step"] = (
+                bt.stencil_op.stencil_gs_color_step.launches)
+            it = max(1, r.iter_count)
+            per = {k: round(v / it, 3) for k, v in {**counts, **single}
+                   .items() if v}
+            print(f"[gspmd] {label} gspmd: iters={r.iter_count} ms/iter="
+                  f"{1e3 * r.solve_seconds / it:.5f} final_explicit_f64="
+                  f"{r.final_residual_norm:.6e} launches/iter={per}")
+            if not (r.iter_count == n_it and counts[kernel] >= n_it
+                    and math.isfinite(r.final_residual_norm)
+                    and not any(single.values())):
+                raise RuntimeError(f"[gspmd] {label} failed its checks")
+            launches[kernel] = counts[kernel]
+            del sg, m, r
+        torch.cuda.empty_cache()
+        return launches, ms
+    finally:
+        dist.destroy_process_group()
+
+
 def _mesh_level_work(MB, li, itemsize, single_work):
     """(bytes, operations) of one level on the mesh, each shard counted as
     _level_work and _plane_level_work count one device: y read and x
@@ -5684,6 +5883,8 @@ def main():
     lap("mesh-kernel")
     mesh_launches, _slice8 = phase_slice8(torch, bt, sband)
     lap("slice8")
+    gspmd_launches, _gspmd = phase_gspmd(torch, bt)
+    lap("gspmd")
     del sband, band
     setup5b, _gen5b, setup5b_s = phase_slice5b_build(torch, bt)
     lap("slice5b_build")
@@ -5875,6 +6076,8 @@ def main():
             "name": kernel, "route": "cuda", "source": src + source,
             "replaces": "basic_iterative_solvers_tpu/" + line,
             "launches": mesh_launches.get(kernel, 0),
+            "launches_by_row": {"slice8 mesh": mesh_launches.get(kernel, 0),
+                                "gspmd": gspmd_launches.get(kernel, 0)},
             **({"launches_by_route": by_route[kernel]}
                if kernel in by_route else {}),
             **mesh_records[kernel]})

@@ -2,8 +2,8 @@
 standalone shard_map CG) against the JAX package's, the halo guard, the
 mesh itself (`make_mesh`, `ppermute`, `psum`) and `shard_setup`'s
 refusals: the JAX package's, in its order and with its messages, and the
-port's own (the GSPMD mode and meshes over several devices: slice 8c);
-superblock solves shard (slice 8b).  8 shards on the CPU; the JAX side on its 8
+port's own (the GSPMD mode, which needs a DeviceMesh, and a Mesh over
+several devices); superblock solves shard (slice 8b).  8 shards on the CPU; the JAX side on its 8
 virtual devices.
 """
 import warnings
@@ -183,7 +183,8 @@ def test_shard_setup_refusals(mesh8):
     method's own), multigrid (`multigrid.*gspmd`, as its
     test_mesh_multigrid expects), greedy colour arrays on a stencil,
     mixed matrix families, a vector length the DIA shards do not divide;
-    "auto" raises where the JAX package falls back to GSPMD."""
+    "auto" raises where the JAX package falls back to GSPMD, naming the
+    refusal and the DeviceMesh its GSPMD mode needs."""
     dev = lambda A, cfg: bt.preprocessing_device(A, cfg)  # noqa: E731
     host = lambda spec, cfg, **kw: bt.preprocessing(  # noqa: E731
         bt.generators.from_source(spec), cfg, device=CPU, **kw)
@@ -212,7 +213,9 @@ def test_shard_setup_refusals(mesh8):
         with pytest.raises(ValueError, match="shard_map mode unavailable: "
                                              + msg):
             shard_setup(setup, mesh8, mode="shard_map")
-        with pytest.raises(ValueError, match=msg + ".*slice 8c"):
+        with pytest.raises(ValueError, match=msg + ".*falls back to its "
+                           "GSPMD mode.*needs a torch.distributed "
+                           "DeviceMesh"):
             shard_setup(setup, mesh8)
     with pytest.raises(ValueError, match="unknown shard_setup mode"):
         shard_setup(cases[0][0], mesh8, mode="spmd")
@@ -223,8 +226,9 @@ def test_shard_setup_refuses_what_later_slices_port(mesh8):
     (CG + SGS on a stencil, CG + ILU(0) from host CSR with the stencil
     injected) are cut into the mesh's shards, the GS method's stay whole,
     as in the JAX package.  The port's own refusals remain: the GSPMD
-    mode and a mesh over several devices (slice 8c); a setup on another
-    device than the mesh's."""
+    mode on this single-controller Mesh (it needs a DeviceMesh, one process
+    a shard), a Mesh over several devices (per-device storage is not
+    ported); a setup on another device than the mesh's."""
     from basic_iterative_solvers_tpu_torch.ops.block_trisolve import (
         MeshSuperBlockTriSolve, SuperBlockTriSolve)
     A = _stencil()
@@ -248,9 +252,10 @@ def test_shard_setup_refuses_what_later_slices_port(mesh8):
         assert setup.gs_L_block is None or isinstance(setup.gs_L_block,
                                                       SuperBlockTriSolve)
     setup = bt.preprocessing_device(A, _cfg())
-    with pytest.raises(ValueError, match="'gspmd' is not ported.*slice 8c"):
+    with pytest.raises(ValueError, match="gspmd mode needs a "
+                       "torch.distributed DeviceMesh"):
         shard_setup(setup, mesh8, mode="gspmd")
-    with pytest.raises(ValueError, match="several|slice 8c"):
+    with pytest.raises(ValueError, match="needs per-device vector storage"):
         shard_setup(setup, Mesh(["cpu", "meta"]), mode="shard_map")
     with pytest.raises(ValueError, match="the setup lies on cpu"):
         shard_setup(setup, Mesh(["meta"] * 8), mode="shard_map")
