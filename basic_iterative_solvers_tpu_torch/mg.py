@@ -33,7 +33,6 @@ import torch
 
 from .ops.spmv import spmv
 from .stencil_op import DeviceStencil, make_stencil, stencil_diag_vec
-from .parallel.gspmd import whole
 
 
 @dataclasses.dataclass
@@ -334,7 +333,6 @@ def _cheby_smooth(lev: MGLevel, y, z0, degree: int, ratio: float):
         lev._schedules, lev.lmax, ratio, degree, y))
 
 
-@whole
 def mg_vcycle(levels: Tuple[MGLevel, ...], y: torch.Tensor,
               smooth_degree: int, coarse_degree: int, ratio: float,
               coarse_ratio: float, transfer: str, _l: int = 0

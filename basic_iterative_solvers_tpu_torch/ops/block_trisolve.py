@@ -132,7 +132,6 @@ import torch.nn.functional as F
 
 from ..config import torch_dtype
 from ..stencil_op import _rounded, sm_count, stencil_shard_rows
-from ..parallel.gspmd import whole
 
 #: threads per kernel block (csrc/block_trisolve.cu: __launch_bounds__)
 _BLOCK_THREADS = 256
@@ -2722,7 +2721,6 @@ def _solve_super(B: SuperBlockTriSolve, y: torch.Tensor,
     return x
 
 
-@whole
 def blocked_trisolve(B, y: torch.Tensor) -> torch.Tensor:
     """x = (T_c + D)⁻¹y: the exact GS solve of the colour-sorted ordering,
     the same action as coloring.colored_sweep from zero.  The three applies
@@ -2740,7 +2738,6 @@ def _blocked_trisolve(B, y: torch.Tensor) -> torch.Tensor:
     return _solve_super(B, y, torch.empty_like(y))
 
 
-@whole
 def blocked_sgs(L, U, y: torch.Tensor) -> torch.Tensor:
     """(U_c+D)⁻¹ D (L_c+D)⁻¹ y, the exact coloured symmetric GS apply: the
     levels of L, the multiply by D, the levels of U in place (L must be
@@ -2764,7 +2761,6 @@ def _blocked_sgs(L, U, y: torch.Tensor) -> torch.Tensor:
     return _solve_super(U, t, t)
 
 
-@whole
 def blocked_ilu0(L, U, y: torch.Tensor) -> torch.Tensor:
     """U⁻¹L⁻¹y with unit-diagonal L, the coloured ILU(0) apply: the levels
     of L, then the levels of U in place on the same state."""

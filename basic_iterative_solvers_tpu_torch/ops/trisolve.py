@@ -22,7 +22,6 @@ import torch
 from ..config import torch_dtype
 from ..matrix import MatrixCSR
 from .spmv import spmv
-from ..parallel.gspmd import whole
 
 
 @dataclasses.dataclass
@@ -91,7 +90,6 @@ def build_trisolve(T_strict: MatrixCSR, D: np.ndarray, *, upper: bool,
                           n_rows=n, n_levels=n_levels, max_width=W)
 
 
-@whole
 def trisolve(ts: TriSolveLevels, b: torch.Tensor) -> torch.Tensor:
     """x with (T_strict + D) x = b, level by level: per level the gather
     x[cols], the row sum of vals·x, then x[rows] = (b[rows] − s)·dinv,

@@ -47,6 +47,12 @@ _KIND_NAMES = {
 _KIND_OF = {name: kind for kind, names in _KIND_NAMES.items()
             for name in names}
 
+#: calls of the loop body `collective_census` makes (the census is the last)
+_BODY_CALLS = 2
+#: iterations of the fused solve `fused_collective_census` runs (the census
+#: is the one from the second-last `iterate` call to the last)
+_SOLVE_ITERS = 3
+
 
 def _elems(out) -> int:
     """Elements of every tensor in a collective's result."""
@@ -103,7 +109,6 @@ def _tracker():
                 (kind, "while" if lo <= i < hi else "setup", elems)
                 for i, (kind, elems) in enumerate(self.events)
                 if kind in ("all-gather", "all-to-all")
-                and full_vector_len is not None
                 and elems >= full_vector_len]
             return totals
 
@@ -118,10 +123,10 @@ def _counts(events, permutes: int) -> dict:
     return c
 
 
-def collective_census(fn, full_vector_len=None, iters: int = 2) -> dict:
+def collective_census(fn, full_vector_len: int) -> dict:
     """Count the collectives `fn()` issues, `fn` being one iteration of a
-    loop body: it runs `iters` times.  Returns ``{kind: total}`` for every
-    kind in COLLECTIVES plus
+    loop body: it runs _BODY_CALLS times.  Returns ``{kind: total}`` for
+    every kind in COLLECTIVES plus
 
     * ``in_while`` — the same counts for one iteration (the last call);
     * ``full_gathers`` — ``(kind, where, elems)`` for every all-gather /
@@ -133,16 +138,16 @@ def collective_census(fn, full_vector_len=None, iters: int = 2) -> dict:
     tr = _tracker()
     begin = tr._snap()
     with tr:
-        for _ in range(iters):
+        for _ in range(_BODY_CALLS):
             tr.start()
             fn()
             tr.end()
     return tr.census(full_vector_len, (tr.starts[-1], tr.ends[-1]), begin)
 
 
-def fused_collective_census(setup, method=None, iters: int = 3) -> dict:
+def fused_collective_census(setup, method=None) -> dict:
     """The census of the fused solve of `setup` (already shard_setup'd in
-    the GSPMD mode): `iters` iterations at tolerance 0 in the fused
+    the GSPMD mode): _SOLVE_ITERS iterations at tolerance 0 in the fused
     harness under the tracker, the method's `iterate` hooked.
     ``in_while`` is one loop iteration, from the start of the second-last
     `iterate` call to the start of the last: the step, its sampled norm
@@ -152,7 +157,7 @@ def fused_collective_census(setup, method=None, iters: int = 3) -> dict:
     from ..solvers.factory import make_method
     if method is None:
         cfg = dataclasses.replace(setup.config, tolerance=0.0,
-                                  max_iters=iters, harness="fused",
+                                  max_iters=_SOLVE_ITERS, harness="fused",
                                   refine_outer=0)
         method = make_method(dataclasses.replace(setup, config=cfg))
     tr = _tracker()

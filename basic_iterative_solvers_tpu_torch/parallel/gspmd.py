@@ -22,7 +22,8 @@ torch.distributed.tensor:
 * superblock and rank-space solves, level scans and the multigrid
   hierarchy run replicated, as the JAX mode places them replicated: the
   vector is gathered whole (`full_tensor()`), the whole apply runs with
-  its kernels on every rank, and each rank keeps its rows (`whole`).
+  its kernels on every rank, and each rank keeps its rows
+  (`whole`, called from precond.run_whole).
 
 The kernels stay on in this mode: the JAX package turns Pallas off here
 because Mosaic kernels are not auto-partitionable, a TPU limit.
@@ -30,7 +31,6 @@ because Mosaic kernels are not auto-partitionable, a TPU limit.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 
 import torch
@@ -42,11 +42,6 @@ from .sharded import AXIS
 #: a direction with rows to fetch (the XLA op of one halo shift, issued by
 #: every rank; none on a one-rank mesh), and the bytes this rank sent
 HALO_COUNTS = {"collective-permute": 0, "bytes": 0}
-
-
-def reset_halo_counts() -> None:
-    """Zero HALO_COUNTS."""
-    HALO_COUNTS.update({"collective-permute": 0, "bytes": 0})
 
 
 def make_device_mesh(axis: str = AXIS):
@@ -140,22 +135,16 @@ def sum_partials(parts, mesh) -> tuple:
     return tuple(out)
 
 
-def whole(fn):
-    """Run `fn` replicated where its vector arguments are DTensors (the
-    JAX mode's place_rep): each DTensor argument gathered whole
-    (`full_tensor()`), `fn` on every rank with its kernels, the result
-    back as the rows of the first one's sharding.  Plain tensors pass
-    through unchanged."""
-    @functools.wraps(fn)
-    def run(*args, **kw):
-        like = next((a for a in args if is_dtensor(a)), None)
-        if like is None:
-            return fn(*args, **kw)
-        out = fn(*(full_value(a) for a in args), **kw)
-        lay = row_layout(like.device_mesh, like.shape[0])
-        return rows_like(out.narrow(0, lay.start, lay.rows).contiguous(),
-                         like)
-    return run
+def whole(fn, *args, **kw):
+    """`fn(*args, **kw)` run replicated (the JAX mode's place_rep): each
+    DTensor argument gathered whole (`full_tensor()`), `fn` on every rank
+    with its kernels, the result back as the rows of the first one's
+    sharding.  Its callers (precond.run_whole, solvers/base.finalize_x)
+    call it only where an argument is a DTensor."""
+    like = next(a for a in args if is_dtensor(a))
+    out = fn(*(full_value(a) for a in args), **kw)
+    lay = row_layout(like.device_mesh, like.shape[0])
+    return rows_like(out.narrow(0, lay.start, lay.rows).contiguous(), like)
 
 
 def halo_window(lay: RowLayout, x_local: torch.Tensor, hneg: int,

@@ -35,6 +35,7 @@ import torch
 
 from .config import SolverConfig
 from .matrix import MatrixCSR
+from .ops.blas1 import is_dtensor
 from .stencil_op import DeviceStencil, stencil_diag_vec, stencil_split
 from .types import PrecondType
 
@@ -534,6 +535,18 @@ def _colored_solve(M: Preconditioner, y: torch.Tensor,
                          M.n_colors, reverse=reverse, color_arr=M.color_arr)
 
 
+def run_whole(fn, *args):
+    """fn(*args) for an apply that the GSPMD mode runs replicated on every
+    rank (superblock and rank-space solves, level scans, the multigrid
+    hierarchy; the JAX mode places them replicated): where an argument is
+    a row-sharded DTensor, parallel/gspmd.whole gathers it, runs fn whole
+    and keeps the rank's rows; on plain tensors fn itself."""
+    if any(is_dtensor(a) for a in args):
+        from .parallel.gspmd import whole
+        return whole(fn, *args)
+    return fn(*args)
+
+
 def _apply_once(M: Preconditioner, y: torch.Tensor) -> torch.Tensor:
     from .ops.trisolve import trisolve, two_stage_solve
     pt = M.ptype
@@ -546,32 +559,32 @@ def _apply_once(M: Preconditioner, y: torch.Tensor) -> torch.Tensor:
         return _cheby_apply(M, y)
     if pt == PrecondType.MULTIGRID:
         from .mg import mg_vcycle
-        return mg_vcycle(M.mg_data, y, M.mg_smooth_degree,
-                         M.mg_coarse_degree, M.mg_ratio, M.mg_coarse_ratio,
-                         M.mg_transfer)
+        return run_whole(mg_vcycle, M.mg_data, y, M.mg_smooth_degree,
+                         M.mg_coarse_degree, M.mg_ratio,
+                         M.mg_coarse_ratio, M.mg_transfer)
     if M.L_block is not None or M.U_block is not None:
         from .ops.block_trisolve import (blocked_ilu0, blocked_sgs,
                                          blocked_trisolve)
         if pt == PrecondType.ILU0:
-            return blocked_ilu0(M.L_block, M.U_block, y)
+            return run_whole(blocked_ilu0, M.L_block, M.U_block, y)
         if pt == PrecondType.GAUSS_SEIDEL:
-            return blocked_trisolve(M.L_block, y)
+            return run_whole(blocked_trisolve, M.L_block, y)
         if pt == PrecondType.BACKWARDS_GAUSS_SEIDEL:
-            return blocked_trisolve(M.U_block, y)
-        return blocked_sgs(M.L_block, M.U_block, y)
+            return run_whole(blocked_trisolve, M.U_block, y)
+        return run_whole(blocked_sgs, M.L_block, M.U_block, y)
     colored = M.n_colors > 0
     if pt == PrecondType.GAUSS_SEIDEL:
         return (_colored_solve(M, y, reverse=False) if colored
-                else trisolve(M.L_solve, y))
+                else run_whole(trisolve, M.L_solve, y))
     if pt == PrecondType.BACKWARDS_GAUSS_SEIDEL:
         return (_colored_solve(M, y, reverse=True) if colored
-                else trisolve(M.U_solve, y))
+                else run_whole(trisolve, M.U_solve, y))
     if pt == PrecondType.SYMMETRIC_GAUSS_SEIDEL:
         if colored:
             tmp = _colored_solve(M, y, reverse=False)   # (L_c+D)⁻¹ y
             return _colored_solve(M, tmp * M.A_D, reverse=True)
-        tmp = trisolve(M.L_solve, y)                    # (L+D)⁻¹ y
-        return trisolve(M.U_solve, tmp * M.A_D)         # (U+D)⁻¹ D …
+        tmp = run_whole(trisolve, M.L_solve, y)         # (L+D)⁻¹ y
+        return run_whole(trisolve, M.U_solve, tmp * M.A_D)  # (U+D)⁻¹ D …
     if pt == PrecondType.TWO_STAGE_GS:
         return two_stage_solve(M.L_strict_dev, M.A_D_inv, y, M.inner_iters)
     if pt == PrecondType.SYMMETRIC_TWO_STAGE_GS:
@@ -589,7 +602,8 @@ def _apply_once(M: Preconditioner, y: torch.Tensor) -> torch.Tensor:
             return colored_sweep(M.U_strict_dev, M.A_D_inv, tmp, None, None,
                                  M.n_colors, reverse=True,
                                  color_arr=M.color_arr)
-        return trisolve(M.U_solve, trisolve(M.L_solve, y))
+        return run_whole(trisolve, M.U_solve,
+                         run_whole(trisolve, M.L_solve, y))
     raise ValueError(f"unsupported preconditioner: {pt}")
 
 

@@ -375,7 +375,7 @@ def finalize_x(setup: SolverSetup, x_star: torch.Tensor) -> torch.Tensor:
     if is_dtensor(x_star) and (setup.x_decode is not None
                                or setup.inv_perm is not None):
         from ..parallel.gspmd import whole
-        return whole(lambda x: finalize_x(setup, x))(x_star)
+        return whole(lambda x: finalize_x(setup, x), x_star)
     if setup.x_decode is not None:
         x_star = setup.x_decode(x_star)
     if setup.inv_perm is not None:

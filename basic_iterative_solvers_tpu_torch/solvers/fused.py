@@ -157,7 +157,7 @@ def fused_solve(setup: SolverSetup, init_state: Callable, iterate: Callable,
 
     it = int(it)
     hist = int(hist)
-    hist_norms = full_value(norms[:hist + 1]).cpu().numpy()
+    hist_norms = norms[:hist + 1].cpu().numpy()
     residual_norm = float(last)
     x_star = final_x(state)
     final_norm = explicit_residual_norm(setup, x_star)

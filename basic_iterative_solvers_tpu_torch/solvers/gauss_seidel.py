@@ -24,6 +24,7 @@ from __future__ import annotations
 from ..ops.blas1 import euclidean_vec_norm, subtract_vectors
 from ..ops.spmv import spmv
 from ..ops.trisolve import trisolve
+from ..precond import run_whole
 from .base import SolverSetup
 from .fused import fused_solve, keep_if_stopped
 
@@ -76,10 +77,10 @@ class GaussSeidelMethod:
             from ..ops.block_trisolve import blocked_sgs, blocked_trisolve
             r = state["r"]
             if self.symmetric:
-                dx = blocked_sgs(self.setup.gs_L_block,
-                                 self.setup.gs_U_block, r)
+                dx = run_whole(blocked_sgs, self.setup.gs_L_block,
+                               self.setup.gs_U_block, r)
             else:
-                dx = blocked_trisolve(self.setup.gs_L_block, r)
+                dx = run_whole(blocked_trisolve, self.setup.gs_L_block, r)
             x = keep_if_stopped(x + dx, x, active)
             r_new = subtract_vectors(self.b, spmv(self.A, x))
             return {"x": x, "r": r_new,
@@ -90,10 +91,11 @@ class GaussSeidelMethod:
                 x_new = self._sweep(x_new, reverse=True)
         else:
             s = self.setup
-            x_new = trisolve(s.L_solve, self.b - spmv(s.U_strict_dev, x))
+            x_new = run_whole(trisolve, s.L_solve,
+                              self.b - spmv(s.U_strict_dev, x))
             if self.symmetric:
-                x_new = trisolve(s.U_solve,
-                                 self.b - spmv(s.L_strict_dev, x_new))
+                x_new = run_whole(trisolve, s.U_solve,
+                                  self.b - spmv(s.L_strict_dev, x_new))
         return dict(state, x=keep_if_stopped(x_new, x, active))
 
     def sample_norm(self, state):

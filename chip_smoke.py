@@ -5187,7 +5187,9 @@ def phase_gspmd(torch, bt):
     f64 CG + Jacobi to 1e-8·||r0|| at 128^3, GSPMD against single-device
     (equal counts, histories within [slice8]'s 1e-8).  GSPMD rows of the
     other halo forms: DIA CG at 128^3 (#4), SGS on fdm:2048 (#3's, the
-    masked sweeps), CG on GSPMD_SBAND in lane-ELL (#5).  The census of the
+    masked sweeps), CG on GSPMD_SBAND in lane-ELL (#5), each against the
+    same setup's single-device solve (equal counts, histories within 1e-3
+    where above 1e-3·||r0||, the final x's difference).  The census of the
     GSPMD CG on the card.  One card measures no communication: every
     number here is host and DTensor dispatch at world size 1.  Returns
     each halo form's launches in its GSPMD row and the CG row's ms/iter."""
@@ -5197,7 +5199,6 @@ def phase_gspmd(torch, bt):
     from basic_iterative_solvers_tpu_torch.ops.blas1 import full_value
     from basic_iterative_solvers_tpu_torch.parallel import (
         fused_collective_census, make_device_mesh, make_mesh, shard_setup)
-    from basic_iterative_solvers_tpu_torch.parallel.gspmd import HALO_COUNTS
     from basic_iterative_solvers_tpu_torch.solvers import make_method
     S = bt.SolverType
     torch.cuda.set_device(0)
@@ -5224,7 +5225,6 @@ def phase_gspmd(torch, bt):
                       "single"):
             _mesh_counters(bt, reset=True)
             _sparse_counters(bt, reset=True)
-            HALO_COUNTS["collective-permute"] = 0
             res = bt.solve(setups[which], method=methods[which])
             counts = _mesh_counters(bt)
             single = _sparse_counters(bt)
@@ -5315,7 +5315,9 @@ def phase_gspmd(torch, bt):
                  sband_cg))
         for kernel, label, n_it, make in rows:
             torch.cuda.empty_cache()
-            sg = shard_setup(make(), dmesh, mode="gspmd")
+            s1 = make()
+            r1 = bt.solve(s1)                     # the single-device solve
+            sg = shard_setup(s1, dmesh, mode="gspmd")
             if sg.gs_L_block is not None:
                 raise RuntimeError(f"[gspmd] {label} took the superblock "
                                    "route")
@@ -5332,15 +5334,24 @@ def phase_gspmd(torch, bt):
             it = max(1, r.iter_count)
             per = {k: round(v / it, 3) for k, v in {**counts, **single}
                    .items() if v}
+            dev = _history_dev(r.residual_norms, r1.residual_norms, 1e-3)
+            x1 = r1.x_star.double()
+            dx = float((full_value(r.x_star).double() - x1).abs().max()
+                       / x1.abs().max())
             print(f"[gspmd] {label} gspmd: iters={r.iter_count} ms/iter="
                   f"{1e3 * r.solve_seconds / it:.5f} final_explicit_f64="
-                  f"{r.final_residual_norm:.6e} launches/iter={per}")
+                  f"{r.final_residual_norm:.6e} launches/iter={per}; "
+                  f"single-device iters={r1.iter_count} final_explicit_f64="
+                  f"{r1.final_residual_norm:.6e}, max rel history difference "
+                  f"above 1e-3·||r0|| {dev:.3e}, max |x - x_single| / "
+                  f"max |x_single| {dx:.3e}")
             if not (r.iter_count == n_it and counts[kernel] >= n_it
                     and math.isfinite(r.final_residual_norm)
-                    and not any(single.values())):
+                    and not any(single.values())
+                    and r1.iter_count == r.iter_count and dev <= 1e-3):
                 raise RuntimeError(f"[gspmd] {label} failed its checks")
             launches[kernel] = counts[kernel]
-            del sg, m, r
+            del s1, r1, sg, m, r
         torch.cuda.empty_cache()
         return launches, ms
     finally:
