@@ -23,6 +23,8 @@ _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("stencil_spmv.cu", "gmres_basis.cu",
                              "block_trisolve.cu", "sparse_spmv.cu"))
+#: the header every source includes (the launchers' device check)
+HEADERS = (_PKG / "csrc" / "bis_device.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -136,7 +138,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libbis_torch_kernels_{h.hexdigest()[:16]}.so"
 
@@ -170,6 +172,28 @@ def build() -> Path:
         _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs]])
         os.replace(out, lib)      # atomic: concurrent builders both succeed
     return lib
+
+
+def launch(fn, device, *args) -> int:
+    """Call the library's launcher `fn(device index, *args, stream)` on
+    `device`: under torch.cuda.device(device), on that device's current
+    stream.  Every hand-kernel launch goes through here, so a mesh shard's
+    launch runs on its own card and the process's current device is the
+    same afterwards; the launchers check that they run on the device they
+    are given and never switch it.  Returns the launcher's CUDA error."""
+    import torch
+    with torch.cuda.device(device):
+        return fn(device.index, *args,
+                  torch.cuda.current_stream(device).cuda_stream)
+
+
+def query(fn, index: int, *args):
+    """Call the library's card query `fn(index, *args)` under
+    torch.cuda.device(index), as `launch` calls a launcher: the queries
+    check the card as the launchers do."""
+    import torch
+    with torch.cuda.device(index):
+        return fn(index, *args)
 
 
 @functools.lru_cache(maxsize=None)

@@ -109,8 +109,16 @@ def color_ids_of(spec: ColorSpec, i: torch.Tensor) -> torch.Tensor:
 
 def color_ids(spec: ColorSpec, A) -> torch.Tensor:
     """int64 colour id per row of A, in its flat vector layout (cached per
-    spec, size and device); a mesh operator's are its whole operator's."""
-    from .parallel.mesh_ops import DIST_TYPES, unwrap
+    spec, size and device); a mesh operator's a MeshVector of its layout,
+    each shard's ids made on its device (cached on the operator)."""
+    from .parallel.mesh_ops import DIST_TYPES, MESH_TYPES, unwrap
+    if isinstance(A, MESH_TYPES):
+        key = (spec, A.rows)
+        cache = A.__dict__.setdefault("_color_ids", {})
+        if key not in cache:
+            cache[key] = A.blocks.from_rows(lambda lo, hi, dev: color_ids_of(
+                spec, torch.arange(lo, hi, dtype=torch.int64, device=dev)))
+        return cache[key]
     if isinstance(A, DIST_TYPES):
         # a GSPMD operator's: the rank's rows, a Shard(0) DTensor
         from .parallel.gspmd import from_rows

@@ -208,6 +208,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "bis_device.cuh"
+
 namespace cg = cooperative_groups;
 
 #define BIS_SL_MAX_LEGS 27
@@ -1588,14 +1590,12 @@ rank_level_vec_kernel(const __grid_constant__ BisRankVecArgs a, const T* y,
     }
 }
 
-static cudaError_t set_device(int device) { return cudaSetDevice(device); }
-
 template <typename T>
 static int launch_level(int device, const BisSuperLevelArgs* a, const T* y,
                         T* x, const T* table, const T* tdinv, const T* vc,
                         const T* vs, const T* drows, cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const dim3 block(a->block_x, a->block_y);
     if (a->mode == BIS_SL_TABLE)
         super_level_kernel<T, BIS_SL_TABLE><<<a->grid_x, block, 0, stream>>>(
@@ -1613,8 +1613,8 @@ template <typename T>
 static int launch_level_staged(int device, const BisSuperLevelArgs* a,
                                const T* y, T* x, const T* table,
                                const T* tdinv, cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const size_t smem = staged_smem(*a);
     if (smem > BIS_SL_STAGED_SMEM_MAX) return (int)cudaErrorInvalidValue;
     const int bx = staged_bx(*a), by = 256 / bx;
@@ -1654,8 +1654,8 @@ static int launch_level_line(int device, const BisSuperLevelArgs* a, int tl,
                              int lb, const T* y, T* x, const T* vc,
                              const T* vs, const T* drows,
                              cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const size_t smem = line_smem(*a, lb, sizeof(T));
     if (tl < 1 || lb < 1 || tl * lb > BIS_SL_LINE_THREADS
         || smem > BIS_SL_LINE_SMEM_MAX || a->mode == BIS_SL_TABLE)
@@ -1674,8 +1674,8 @@ template <typename T>
 static int launch_acc(int device, const BisSuperLevelArgs* a, const T* y,
                       const T* x, T* acc, const T* table, const T* vc,
                       cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const dim3 block(a->block_x, a->block_y);
     if (a->mode == BIS_SL_PLANE)
         super_acc_kernel<T, BIS_SL_PLANE><<<a->grid_x, block, 0, stream>>>(
@@ -1691,8 +1691,8 @@ static int launch_parity(int device, const BisSuperLevelArgs* a, int p,
                          const T* y, const T* acc, T* x, const T* table,
                          const T* tdinv, const T* vs, const T* drows,
                          cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const dim3 block(a->block_x, a->block_y);
     if (a->mode == BIS_SL_PLANE)
         super_parity_kernel<T, BIS_SL_PLANE><<<a->grid_x, block, 0, stream>>>(
@@ -1731,8 +1731,8 @@ template <typename T>
 static int launch_acc_staged(int device, const BisSuperLevelArgs* a,
                              const T* y, const T* x, T* acc, const T* table,
                              cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const int by = 256 / BIS_SL_STAGED_BX;
     const size_t smem = split_staged_smem(*a, by, a->n_cross, sizeof(T));
     if (a->mode != BIS_SL_TABLE || a->n_cross > 27
@@ -1762,8 +1762,8 @@ template <typename T>
 static int launch_acc_line(int device, const BisSuperLevelArgs* a, int tl,
                            int lb, const T* y, const T* x, T* acc,
                            const T* vc, cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const size_t smem = (size_t)lb * 2 * a->n_cross * sizeof(int);
     if (a->mode != BIS_SL_PLANE || a->n_cross > 27 || tl < 1 || lb < 1 || tl * lb > BIS_SL_LINE_THREADS
         || smem > BIS_SL_LINE_SMEM_MAX)
@@ -1786,8 +1786,8 @@ static int launch_parity_staged(int device, const BisSuperLevelArgs* a, int p,
                                 int tl, int lb, const T* y, const T* acc,
                                 T* x, const T* table, const T* tdinv,
                                 cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const size_t smem = split_staged_smem(*a, lb, a->n_self + 1, sizeof(T));
     if (a->mode != BIS_SL_TABLE || p < 0 || p >= a->sx || tl < 1 || lb < 1
         || tl * lb > BIS_SL_LINE_THREADS || smem > BIS_SL_STAGED_SMEM_MAX)
@@ -1805,8 +1805,8 @@ static int launch_parity_line(int device, const BisSuperLevelArgs* a, int p,
                               int tl, int lb, const T* y, const T* acc, T* x,
                               const T* vs, const T* drows,
                               cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     if (a->mode != BIS_SL_PLANE || p < 0 || p >= a->sx || tl < 1 || lb < 1
         || tl * lb > BIS_SL_LINE_THREADS)
         return (int)cudaErrorInvalidValue;
@@ -1838,8 +1838,8 @@ template <typename T>
 static int launch_mega(int device, const BisSuperLevelArgs* levels,
                        int n_levels, int block_x, int block_y, int max_blocks,
                        const T* y, T* x, const T* drows, cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const int grid = mega_grid<T>(device, block_x * block_y, max_blocks);
     if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
     void* args[] = {(void*)&levels, (void*)&n_levels, (void*)&y, (void*)&x,
@@ -1894,8 +1894,8 @@ static int launch_brick(int device, const int* tables, int n_levels, int nx,
                         int ny, int nz, int sy, int sz, int rx, int ry,
                         int rz, int by, int bz, int tl, int lb, const T* y,
                         T* x, const T* drows, cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     if (n_levels < 1 || nx < 1 || sy < 1 || sz < 1 || ny % sy || nz % sz
         || by < sy || bz < sz || by % sy || bz % sz || rx < 0 || ry < 0
         || rz < 0 || tl < 1 || lb < 1 || tl * lb > BIS_SB_BRICK_THREADS
@@ -1924,8 +1924,8 @@ static int launch_rank_level(int device, const T* y, T* x, const T* vals,
                              const T* dinv, const long long* groups,
                              int n_groups, long long M, int c,
                              cudaStream_t stream) {
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     rank_level_kernel<T><<<(unsigned)((M + 255) / 256), 256, 0, stream>>>(
         y, x, vals, dinv, groups, n_groups, M, c);
     return (int)cudaGetLastError();
@@ -1946,8 +1946,8 @@ static int launch_rank_level_vec(int device, const BisRankVecArgs* a,
                                  const T* vals, const T* dinv,
                                  cudaStream_t stream) {
     constexpr int VEC = 16 / sizeof(T);
-    const cudaError_t set = set_device(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const int n = a->n_groups;
     if (n < 1 || n > BIS_RV_MAX_GROUPS || a->M < VEC || a->M % VEC ||
         a->cpt < 1 || threads < 32 || threads > BIS_RV_THREADS ||
@@ -2172,7 +2172,8 @@ int bis_super_solve_mega_f64(int device, const BisSuperLevelArgs* levels,
 // bytes): blocks co-resident on the card, capped at max_blocks.
 int bis_super_solve_mega_grid(int device, int threads, int max_blocks,
                               int itemsize) {
-    if (set_device(device) != cudaSuccess) return 0;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return 0;
     return itemsize == 8 ? mega_grid<double>(device, threads, max_blocks)
                          : mega_grid<float>(device, threads, max_blocks);
 }
@@ -2202,7 +2203,8 @@ BIS_SB_BRICK_ENTRY(bis_super_solve_brick_floor_f64, double, false)
 // shared memory: 0 where it cannot run them cooperatively.
 int bis_super_solve_brick_resident(int device, int itemsize, int threads,
                                    long long smem) {
-    if (set_device(device) != cudaSuccess || smem < 0) return 0;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess || smem < 0) return 0;
     return itemsize == 8
         ? brick_resident<double, true>(device, threads, (size_t)smem)
         : brick_resident<float, true>(device, threads, (size_t)smem);
@@ -2211,7 +2213,8 @@ int bis_super_solve_brick_resident(int device, int itemsize, int threads,
 // The most dynamic shared memory a block of the card may take.
 int bis_super_solve_brick_smem_optin(int device) {
     int optin = 0;
-    if (set_device(device) != cudaSuccess
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess
         || cudaDeviceGetAttribute(&optin,
                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                   device) != cudaSuccess)

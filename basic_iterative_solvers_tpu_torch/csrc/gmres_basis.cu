@@ -65,6 +65,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "bis_device.cuh"
 #include <stdint.h>
 
 #define BIS_GB_THREADS 256
@@ -635,8 +637,8 @@ static int launch_project_strided(int device, const T* V, const float* w,
                                   const float* vc, long long n, int rows,
                                   int j, float* partials, int n_blocks,
                                   cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     project_gram_kernel_strided<T><<<n_blocks, BIS_GB_THREADS, 0, stream>>>(
         V, w, vc, n, rows, j, partials);
     return (int)cudaGetLastError();
@@ -647,8 +649,8 @@ static int launch_correct_strided(int device, T* V, const float* w,
                                   const float* ht, long long n, int j,
                                   float* vnext, float* partials, int n_blocks,
                                   cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const size_t shmem = (size_t)(j + 1) * sizeof(float);
     correct_write_kernel_strided<T><<<n_blocks, BIS_GB_THREADS, shmem,
                                       stream>>>(V, w, ht, n, j, vnext,
@@ -670,7 +672,8 @@ static int launch_project_ring(int device, const T* V, const float* w,
                                float* partials, int gp, float* gpart, int gq,
                                float* out, unsigned* tickets, int grid,
                                cudaStream_t stream) {
-    cudaError_t err = cudaSetDevice(device);
+    const BisOnDevice check(device);
+    cudaError_t err = check.err;
     if (err == cudaSuccess) err = allow_ring_smem(project_gram_kernel_ring<T>);
     if (err != cudaSuccess) return (int)err;
     project_gram_kernel_ring<T><<<grid, BIS_RING_THREADS, BIS_RING_SMEM,
@@ -687,7 +690,8 @@ static int launch_correct_ring(int device, T* V, const float* w,
                                float* gpart, int gq, float* nrm2,
                                unsigned* tickets, int grid,
                                cudaStream_t stream) {
-    cudaError_t err = cudaSetDevice(device);
+    const BisOnDevice check(device);
+    cudaError_t err = check.err;
     if (err == cudaSuccess) err = allow_ring_smem(correct_write_kernel_ring<T>);
     if (err != cudaSuccess) return (int)err;
     correct_write_kernel_ring<T><<<grid, BIS_RING_THREADS, BIS_RING_SMEM,
@@ -699,7 +703,8 @@ static int launch_correct_ring(int device, T* V, const float* w,
 
 template <typename K>
 static int ring_blocks(int device, K kernel, int* blocks) {
-    cudaError_t err = cudaSetDevice(device);
+    const BisOnDevice check(device);
+    cudaError_t err = check.err;
     if (err == cudaSuccess) err = allow_ring_smem(kernel);
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -61,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bis_device.cuh"
+
 #define BIS_DIA_MAX_DIAGS 96
 
 // The DIA offsets go by value (at most the JAX package's dia_max_diags).
@@ -244,8 +246,8 @@ static unsigned blocks_for(long long n) {
 template <typename T, typename M>
 static int launch_dia(int device, const BisDiaArgs* a, const M* data,
                       const T* x, T* y, cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     dia_spmv_kernel<T, M><<<blocks_for(a->n), 256, 0, stream>>>(*a, data, x, y);
     return (int)cudaGetLastError();
 }
@@ -258,8 +260,8 @@ static int launch_lane_ell(int device, const M* vals, const void* idx,
                            long long n, long long plane, int S,
                            int idx_bytes, int len_bytes,
                            cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     typedef unsigned short I2;
     typedef unsigned char C1;
     const unsigned grid = blocks_for(n);
@@ -279,8 +281,8 @@ template <typename T, typename M>
 static int launch_dia_halo(int device, const BisDiaArgs* a, const M* data,
                            const T* xw, T* y, long long hneg, long long wlen,
                            cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     dia_spmv_halo_kernel<T, M><<<blocks_for(a->n), 256, 0, stream>>>(
         *a, data, xw, y, hneg, wlen);
     return (int)cudaGetLastError();
@@ -293,8 +295,8 @@ static int launch_lane_ell_halo(int device, const M* vals, const void* idx,
                                 long long n, long long plane, int S,
                                 long long wlen, int idx_bytes, int len_bytes,
                                 cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     typedef unsigned short I2;
     typedef unsigned char C1;
     const unsigned grid = blocks_for(rows);
@@ -319,8 +321,8 @@ static int launch_lane_ell_halo_padded(int device, const M* vals,
                                        long long plane, int K, int S,
                                        long long wlen, int idx_bytes,
                                        cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const unsigned grid = blocks_for(rows);
 #define BIS_LE_CASE(I)                                                       \
     lane_ell_spmv_halo_padded_kernel<T, M, I><<<grid, 256, 0, stream>>>(     \

@@ -70,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bis_device.cuh"
+
 #define BIS_MAX_LEGS 27
 #define BIS_MAX_DOTS 3
 
@@ -1003,8 +1005,8 @@ template <typename T, typename D>
 static int launch(int device, const BisStencilArgs* a, const T* x,
                   const D* diag, const T* aux, T* y, T* partials,
                   cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const dim3 block(a->block_x, a->block_y);
     const dim3 grid(a->grid_x, a->grid_y);
     stencil_spmv_kernel<T, D><<<grid, block, 0, stream>>>(*a, x, diag, aux, y,
@@ -1020,8 +1022,8 @@ static int launch_stream(int device, const BisStencilArgs* a, int grid_x,
                          int grid_y, int grid_z, int zc, const T* x,
                          const D* diag, const T* aux, T* y, T* partials,
                          cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     if ((long long)grid_x * BIS_STREAM_TX < a->nx ||
         (long long)grid_y * BIS_STREAM_TY < a->ny ||
         (long long)grid_z * zc < a->nz || zc < 1)
@@ -1081,8 +1083,8 @@ static int launch_box(int device, const BisStencilArgs* a, int vec, int zr,
                       int grid_x, int grid_y, const T* x, const D* diag,
                       const T* aux, T* y, T* partials, cudaStream_t stream) {
     constexpr int V = 16 / sizeof(T);
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     if ((vec != 1 && vec != V) ||
         !box_ok(a, vec, zr, grid_x, grid_y, x, diag, aux, y))
         return (int)cudaErrorInvalidValue;
@@ -1104,8 +1106,8 @@ static int launch_stream_box(int device, const BisStencilArgs* a, int zr,
                              const D* diag, const T* aux, T* y, T* partials,
                              cudaStream_t stream) {
     constexpr int V = 16 / sizeof(T);
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const long long plane = (long long)a->nx * a->ny;
     const long long widest =
         std::min(plane, (long long)BIS_BOX_THREADS * V + 2LL * a->nx + 2 * V);
@@ -1131,8 +1133,8 @@ static int launch_gs(int device, const BisStencilArgs* a, int kind, int p0,
                      int p1, int p2, int color, const T* x, const D* diag,
                      const T* rhs, const T* dinv, T* out,
                      cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const BisColorStep c = {kind, {p0, p1, p2}, color};
     const dim3 block(a->block_x, a->block_y);
     const dim3 grid(a->grid_x, a->grid_y);
@@ -1155,8 +1157,8 @@ static int launch_gs_box(int device, const BisStencilArgs* a, int kind,
                          const T* xw, const D* diag, const T* rhs,
                          const T* dinv, T* out, cudaStream_t stream) {
     constexpr int V = 16 / sizeof(T);
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     const long long plane = (long long)a->nx * a->ny;
     const long long hpos = wlen - hneg - rows;
     if ((kind != 0 && kind != 1) || p0 < 1 || p1 < 1 || p2 < 1 ||
@@ -1287,8 +1289,8 @@ static int launch_halo(int device, const BisStencilArgs* a, long long row0,
                        long long lines, long long n, long long hneg,
                        const T* xw, const D* diag, const T* aux, T* y,
                        T* partials, cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     dim3 grid;
     if (!halo_grid(a, row0, lines, &grid)) return (int)cudaErrorInvalidValue;
     const dim3 block(a->block_x, a->block_y);
@@ -1303,8 +1305,8 @@ static int launch_gs_halo(int device, const BisStencilArgs* a, int kind,
                           long long lines, long long n, long long hneg,
                           const T* xw, const D* diag, const T* rhs,
                           const T* dinv, T* out, cudaStream_t stream) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
     dim3 grid;
     if (!halo_grid(a, row0, lines, &grid)) return (int)cudaErrorInvalidValue;
     const BisColorStep c = {kind, {p0, p1, p2}, color};

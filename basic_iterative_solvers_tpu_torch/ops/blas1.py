@@ -5,8 +5,12 @@ tensors (the JAX package leaves them to XLA, outside any Pallas kernel).
 `scale_` may be a Python number or a 0-d tensor on the vectors' device.
 On the GSPMD mode's row-sharded DTensors (parallel/gspmd.py) the same ops
 run per rank; `dot` and `euclidean_vec_norm` return Replicate scalars
-(one all-reduce of the ranks' partial sums), and `full_value` is the one
-way a solver reads a device quantity on the host.
+(one all-reduce of the ranks' partial sums).  On the shard_map mode's
+MeshVectors (parallel/mesh_vector.py) they run shard by shard, a dot
+being the shards' partials summed by Mesh.psum.  Float32 dots sum their
+products in float64 (`whole_dot`), so that a dot's value does not hang on
+how the rows are sharded.  `full_value` is the one way a solver reads a
+device quantity on the host.
 The scaled sums are one fused multiply-add per entry (`addcmul`, or `add`
 with `alpha`), rounded once as XLA's fused loops round them, and one
 launch each on a card.  Each is TIME'd in the host harness's
@@ -60,14 +64,32 @@ def is_dtensor(t) -> bool:
     return isinstance(t, _dtensor_type())
 
 
+def is_mesh_vector(t) -> bool:
+    """Is t a MeshVector (a shard_map-mode vector of the single-controller
+    Mesh)?"""
+    from ..parallel.mesh_vector import MeshVector
+    return isinstance(t, MeshVector)
+
+
+def is_sharded(t) -> bool:
+    """Is t a row-sharded vector of either mode (a DTensor or a
+    MeshVector), for callers that do not care which?"""
+    return is_dtensor(t) or is_mesh_vector(t)
+
+
 def full_value(t):
     """t's global value as a plain tensor on its device: a DTensor's
     `full_tensor()` (an all-reduce of a Partial sum, an all-gather of a
-    sharded vector, nothing for a Replicate one), any other tensor itself.
-    Every host read of a solver quantity goes through it
+    sharded vector, nothing for a Replicate one), a MeshVector gathered to
+    its mesh's first device (`Mesh.gather`, counted), any other tensor
+    itself.  Every host read of a solver quantity goes through it
     (`float(full_value(rn))`, `full_value(x).cpu()`): `.item()` of a
     Partial DTensor returns the rank's own partial sum."""
-    return t.full_tensor() if is_dtensor(t) else t
+    if is_dtensor(t):
+        return t.full_tensor()
+    if is_mesh_vector(t):
+        return t.mesh.gather(t)
+    return t
 
 
 def replicated(s):
@@ -85,18 +107,26 @@ def replicated(s):
     return s
 
 
-def _dot(a, b):
+def whole_dot(a, b):
+    """(a, b) as every rank's whole value.  Float32 vectors' products are
+    summed in float64 and the sum rounded once to float32: the value then
+    does not hang on how the rows are cut (one device, a Mesh's shards, the
+    GSPMD mode's ranks), as a float32 sum's rounding does, so the f32
+    histories of a sharded solve and of one device agree where the rest of
+    the step does."""
+    if a.dtype == torch.float32:
+        return replicated(torch.sum(a * b, dtype=torch.float64)).to(a.dtype)
     return replicated(torch.dot(a, b))
 
 
 def dot(v1, v2):
     """(v1, v2)  (kernels.hpp:205-212)."""
-    return ktime("dot", _dot, v1, v2)
+    return ktime("dot", whole_dot, v1, v2)
 
 
 def euclidean_vec_norm(v):
     """||v||_2  (kernels.hpp:194-203), as sqrt((v, v)) like the JAX package."""
-    return ktime("norm", lambda a: torch.sqrt(_dot(a, a)), v)
+    return ktime("norm", lambda a: torch.sqrt(whole_dot(a, a)), v)
 
 
 def infty_vec_norm(v):

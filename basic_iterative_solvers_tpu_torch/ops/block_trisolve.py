@@ -256,7 +256,9 @@ class SuperBlockShard:
     of the superblock's line index ((0, 0) where it owns none).  Its own
     tensors: in plane mode the level's planes on its slots [l0·nx, l1·nx)
     (vals_cross[li] (Gc, (l1 − l0)·nx), vals_self[li]); the per-row 1/D
-    (`dinv_rows`) and D (`d_rows`) on its rows, zero past n."""
+    (`dinv_rows`) and D (`d_rows`) on its rows, zero past n; in factor-
+    table mode the table and its pivots (`table`, `table_dinv`).  All on
+    the shard's device."""
 
     B: SuperBlockTriSolve
     row0: int
@@ -267,6 +269,8 @@ class SuperBlockShard:
     vals_self: Optional[Tuple] = None
     dinv_rows: Optional[torch.Tensor] = None
     d_rows: Optional[torch.Tensor] = None
+    table: Optional[torch.Tensor] = None
+    table_dinv: Optional[torch.Tensor] = None
     #: the kernel's launch tables per level, and each level's route
     #: (level_route_for) and line shape, built at first launch
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -1262,18 +1266,20 @@ def _level_args(B: SuperBlockTriSolve, li: int):
 
 
 def _cuda_call(B: SuperBlockTriSolve, name: str, x: torch.Tensor, *args,
-               operands=None):
+               operands=None, table=None):
     """Launch `bis_<name>_<dtype>` with level args `args` on x's device and
-    stream; raises on a CUDA error.  `operands`: the planes and per-row
-    diagonal the launch reads (B's own when None)."""
-    from .._build import load_library
+    stream (_build.launch); raises on a CUDA error.  `operands`: the
+    planes and per-row diagonal the launch reads (B's own when None);
+    `table`: the factor table it reads (B's own when None)."""
+    from .._build import launch, load_library
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the superblock kernels take float32 or float64, "
                         f"not {x.dtype}")
     if operands is None:
         operands = (B.vals_cross or ()) + (B.vals_self or ()) + (
             B.dinv_rows,)
-    for what, t in [("factor table", B.table)] + [
+    table = B.table if table is None else table
+    for what, t in [("factor table", table)] + [
             ("planes or diagonal", t) for t in operands]:
         if t is not None and t.device != x.device:
             raise ValueError(f"the {what} is on {t.device}, the vectors on "
@@ -1281,8 +1287,7 @@ def _cuda_call(B: SuperBlockTriSolve, name: str, x: torch.Tensor, *args,
     lib = load_library()
     dt = "f32" if x.dtype == torch.float32 else "f64"
     fn = getattr(lib, f"bis_{name}_{dt}")
-    err = fn(x.device.index, *args,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = launch(fn, x.device, *args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{err}")
@@ -1366,6 +1371,18 @@ def _launch_lines(B: SuperBlockTriSolve, li: int,
     return l1 - l0
 
 
+def _card_index(device) -> int:
+    """The index of the card `device` names ("cuda" alone: the current
+    one): routes and shapes are kept per card, keyed on the launch's
+    device, which the caller must give."""
+    if device is None:
+        raise ValueError("a route is picked for the launch's device: pass "
+                         "it")
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else \
+        device.index
+
+
 def _line_shape(B: SuperBlockTriSolve, li: int, itemsize: int,
                 shard: Optional["SuperBlockShard"], index: int):
     """line_shape of level li's launch (the whole level's, or mesh shard
@@ -1406,7 +1423,7 @@ def level_route_for(B: SuperBlockTriSolve, li: int, itemsize: int,
 
     The shape, type and card alone decide: worked out at the first launch
     and kept with the launch table (B's, or the shard's)."""
-    index = torch.cuda.current_device() if device is None else device.index
+    index = _card_index(device)
     cache = B._args if shard is None else shard._args
     key = ("route", li, itemsize, index)
     if key not in cache:
@@ -1440,14 +1457,16 @@ def _launch_level(B: SuperBlockTriSolve, li: int, args, y, x, counter,
     `const_direct_launches`, ...)."""
     route = level_route_for(B, li, x.element_size(), shard, x.device)
     if B.is_table:
+        table, tdinv = ((B.table, B.table_dinv) if shard is None
+                        else (shard.table, shard.table_dinv))
         if route == "staged":
             _cuda_call(B, "super_level_staged", x, ctypes.byref(args),
-                       y.data_ptr(), x.data_ptr(), _ptr(B.table),
-                       _ptr(B.table_dinv), operands=())
+                       y.data_ptr(), x.data_ptr(), _ptr(table), _ptr(tdinv),
+                       operands=(), table=table)
         else:
             _cuda_call(B, "super_level", x, ctypes.byref(args),
-                       y.data_ptr(), x.data_ptr(), _ptr(B.table),
-                       _ptr(B.table_dinv), None, None, None, operands=())
+                       y.data_ptr(), x.data_ptr(), _ptr(table), _ptr(tdinv),
+                       None, None, None, operands=(), table=table)
         counter.table_launches += 1
         mode = "table"
     else:
@@ -1724,9 +1743,9 @@ def brick_count(B: SuperBlockTriSolve, shape) -> int:
 
 def _brick_card(index: int) -> Tuple[int, int]:
     """(multiprocessors, shared memory a block may take) of card `index`."""
-    from .._build import load_library
-    return sm_count(index), load_library().bis_super_solve_brick_smem_optin(
-        index)
+    from .._build import load_library, query
+    return sm_count(index), query(
+        load_library().bis_super_solve_brick_smem_optin, index)
 
 
 def _brick_resident(index: int, itemsize: int, threads: int,
@@ -1734,9 +1753,9 @@ def _brick_resident(index: int, itemsize: int, threads: int,
     """The brick kernel's blocks that card `index` holds at once with
     `threads` a block and `smem` bytes of dynamic shared memory; 0 where
     it cannot launch them cooperatively."""
-    from .._build import load_library
-    return load_library().bis_super_solve_brick_resident(index, itemsize,
-                                                         threads, smem)
+    from .._build import load_library, query
+    return query(load_library().bis_super_solve_brick_resident, index,
+                 itemsize, threads, smem)
 
 
 def mega_route_for(B: SuperBlockTriSolve, itemsize: int,
@@ -1750,9 +1769,7 @@ def mega_route_for(B: SuperBlockTriSolve, itemsize: int,
     384³ (226 MB of x) or fdm:2048 in float64 (33.6 MB, more than 132 ×
     227 KB).  Worked out at the first launch and kept with the launch
     tables, with the brick shape."""
-    index = None if device is None else torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
+    index = _card_index(device)
     key = ("mega_route", itemsize, index)
     if key not in B._args:
         route, shape = "direct", None
@@ -1839,7 +1856,7 @@ def mega_grid(B: SuperBlockTriSolve, device) -> int:
     """The blocks of super_solve_mega's grid for B on the CUDA `device`:
     on the brick route its bricks; on the direct route those that fit on
     the card at once, at most the most line blocks a level has."""
-    from .._build import load_library
+    from .._build import load_library, query
     device = torch.device(device)
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
@@ -1847,8 +1864,9 @@ def mega_grid(B: SuperBlockTriSolve, device) -> int:
     if mega_route_for(B, item, device) == "brick":
         return brick_count(B, B._args[("brick_shape", item, device.index)])
     a = _level_args(B, 0)
-    return load_library().bis_super_solve_mega_grid(
-        device.index, a.block_x * a.block_y,
+    return query(
+        load_library().bis_super_solve_mega_grid, device.index,
+        a.block_x * a.block_y,
         max(_level_args(B, li).grid_x for li in range(len(B.levels))), item)
 
 
@@ -2395,7 +2413,7 @@ def rank_level(B: BlockedTriSolve, li: int, Y: torch.Tensor,
         return rank_level_plain(B, li, Y, X)
     if X.device.type != "cuda":
         raise ValueError(f"no rank-space level for device {X.device}")
-    from .._build import load_library
+    from .._build import launch, load_library
     if X.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the rank-space kernel takes float32 or float64, "
                         f"not {X.dtype}")
@@ -2405,7 +2423,6 @@ def rank_level(B: BlockedTriSolve, li: int, Y: torch.Tensor,
     _route, table, windows = _rank_table(B, li, X.device)
     lib = load_library()
     dt = "f32" if X.dtype == torch.float32 else "f64"
-    stream = torch.cuda.current_stream(X.device).cuda_stream
     if route == "vec":
         if windows is None:
             raise ValueError(f"level {li} does not take the vec route")
@@ -2415,13 +2432,13 @@ def rank_level(B: BlockedTriSolve, li: int, Y: torch.Tensor,
                                           sm_count(X.device.index))
             B._tables[key] = (threads, _rank_vec_args(B, li, windows, cpt))
         threads, args = B._tables[key]
-        err = getattr(lib, f"bis_rank_level_vec_{dt}")(
-            X.device.index, ctypes.byref(args), threads, Y.data_ptr(),
-            X.data_ptr(), B.vals.data_ptr(), B.dinv.data_ptr(), stream)
+        err = launch(getattr(lib, f"bis_rank_level_vec_{dt}"), X.device,
+                     ctypes.byref(args), threads, Y.data_ptr(), X.data_ptr(),
+                     B.vals.data_ptr(), B.dinv.data_ptr())
     elif route == "scalar":
-        err = getattr(lib, f"bis_rank_level_{dt}")(
-            X.device.index, Y.data_ptr(), X.data_ptr(), B.vals.data_ptr(),
-            B.dinv.data_ptr(), table.data_ptr(), len(groups), B.M, c, stream)
+        err = launch(getattr(lib, f"bis_rank_level_{dt}"), X.device,
+                     Y.data_ptr(), X.data_ptr(), B.vals.data_ptr(),
+                     B.dinv.data_ptr(), table.data_ptr(), len(groups), B.M, c)
     else:
         raise ValueError(f"unknown rank-space route {route!r}")
     if err != 0:
@@ -2486,6 +2503,15 @@ class MeshSuperBlockTriSolve:
     def n_devices(self) -> int:
         return self.mesh.size
 
+    @property
+    def n_rows(self) -> int:
+        return self.inner.n_rows
+
+    @property
+    def blocks(self):
+        """The row blocks of the vectors it takes (MeshVectors)."""
+        return self.mesh.blocks(self.inner.n_rows, self.rows)
+
 
 def _halo_lines(B: SuperBlockTriSolve) -> int:
     """The deepest cross read of B, in whole x-lines: in const and
@@ -2515,17 +2541,28 @@ def _halo_lines(B: SuperBlockTriSolve) -> int:
     return h
 
 
-def shard_superblock(B, mesh, axis: str = "rows") -> MeshSuperBlockTriSolve:
+def superblock_rows(B, n_dev: int) -> Tuple[int, int]:
+    """(the least rows a shard, the unit its rows come in) of B cut into
+    n_dev shards: whole z-planes where nz ≥ n_dev, else whole x-lines, at
+    least its halo, B's deepest cross read (_halo_lines)."""
+    nx, ny, nz = B.spec_params[:3]
+    H = _halo_lines(B) * nx
+    return (stencil_shard_rows((nx, ny, nz), (H, H), n_dev),
+            nx * ny if nz >= n_dev else nx)
+
+
+def shard_superblock(B, mesh, axis: str = "rows",
+                     rows: Optional[int] = None) -> MeshSuperBlockTriSolve:
     """Cut a superblock solve into the mesh's row shards (the JAX package's
     shard_superblock), refusing as it does, with its messages, a
     rank-space solve and the split route.  Its two other refusals, the
     packed layout and an aligned-fused shard width that breaks x
     alignment, come from its TPU tiles, which the port does not have: the
     port shards those solves.  Shards are contiguous natural-order row
-    ranges of whole z-planes where nz ≥ n_dev, else whole x-lines (the
-    mesh stencil's rows, stencil_op.stencil_shard_rows), at least the
-    halo: B's deepest cross read (_halo_lines).  Each shard's planes and
-    per-row diagonals are copied out as its own tensors."""
+    ranges of `rows` rows (`superblock_rows`' least where None: the mesh
+    stencil's rows, stencil_op.stencil_shard_rows, at least the halo).
+    Each shard's planes, per-row diagonals, factor table and exchange
+    indices are copied out to its device as its own tensors."""
     if not isinstance(B, SuperBlockTriSolve):
         raise BlockIneligibleError(
             "only superblock trisolves shard (rank-space layout "
@@ -2536,10 +2573,13 @@ def shard_superblock(B, mesh, axis: str = "rows") -> MeshSuperBlockTriSolve:
     n_dev = mesh.size
     nx, ny, nz, sx, sy, sz = B.spec_params
     H = _halo_lines(B) * nx
-    R = stencil_shard_rows((nx, ny, nz), (H, H), n_dev)
+    least, unit = superblock_rows(B, n_dev)
+    R = least if rows is None else rows
+    if R < least or R % unit:
+        raise ValueError(f"{R} rows a shard do not serve this superblock "
+                         f"solve: at least {least}, a multiple of {unit}")
     my = ny // sy
     n_lines = ny * nz
-    device = mesh.devices[0]
     # each level's superblock lines, as global line indices (increasing)
     g_of = []
     for sb, _c, _s in B.levels:
@@ -2547,31 +2587,36 @@ def shard_superblock(B, mesh, axis: str = "rows") -> MeshSuperBlockTriSolve:
         g_of.append(sy * (t % my) + sb % sy + ny * (sz * (t // my)
                                                     + sb // sy))
 
-    def rows_of(v, k):
+    def rows_of(v, k, device):
         if v is None:
             return None
-        v = v.to(device)
         lo, hi = min(k * R, v.numel()), min((k + 1) * R, v.numel())
-        return F.pad(v[lo:hi], (0, R - (hi - lo))).contiguous()
+        return F.pad(v[lo:hi], (0, R - (hi - lo))).to(device, copy=True)
 
+    tables = {dev: (None if B.table is None else B.table.to(dev),
+                    None if B.table_dinv is None else B.table_dinv.to(dev))
+              for dev in set(mesh.devices)}
     shards, exchange = [], []
-    for k in range(n_dev):
+    for k, device in enumerate(mesh.devices):
         lines = []
         for g in g_of:
             l0, l1 = np.searchsorted(g, [k * R // nx, (k + 1) * R // nx])
             lines.append((int(l0), int(l1)))
 
-        def planes(vals, lines=lines):
+        def planes(vals, lines=lines, device=device):
             if vals is None:
                 return None
             return tuple(None if v is None else
-                         v.to(device)[:, l0 * nx:l1 * nx].contiguous()
+                         v[:, l0 * nx:l1 * nx].to(device, copy=True)
+                         .contiguous()
                          for v, (l0, l1) in zip(vals, lines))
 
         shards.append(SuperBlockShard(
             B=B, row0=k * R, rows=R, halo=H, lines=tuple(lines),
             vals_cross=planes(B.vals_cross), vals_self=planes(B.vals_self),
-            dinv_rows=rows_of(B.dinv_rows, k), d_rows=rows_of(B.d_rows, k)))
+            dinv_rows=rows_of(B.dinv_rows, k, device),
+            d_rows=rows_of(B.d_rows, k, device),
+            table=tables[device][0], table_dinv=tables[device][1]))
     h, Rl = H // nx, R // nx
     for li, (sb, _c, _s) in enumerate(B.levels):
         def ids(k, lo, hi, sb=sb):
@@ -2582,10 +2627,9 @@ def shard_superblock(B, mesh, axis: str = "rows") -> MeshSuperBlockTriSolve:
             return g - (k * Rl - h)
 
         per = []
-        for k in range(n_dev):
+        for k, device in enumerate(mesh.devices):
             g0 = k * Rl
-            as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-            per.append(tuple(as_t(a) for a in (
+            per.append(tuple(torch.from_numpy(a).to(device) for a in (
                 ids(k, g0, g0 + h), ids(k, g0 + Rl - h, g0 + Rl),
                 ids(k, g0 - h, g0), ids(k, g0 + Rl, g0 + Rl + h))))
         exchange.append(tuple(per))
@@ -2663,36 +2707,54 @@ def _mesh_exchange(MB: MeshSuperBlockTriSolve, li: int, X) -> None:
             v.index_copy_(0, e[3], to_left[k])
 
 
-def _solve_super_mesh(MB: MeshSuperBlockTriSolve,
-                      y: torch.Tensor) -> torch.Tensor:
+def _mesh_rows(MB: MeshSuperBlockTriSolve, v):
+    """v's shards, checked to be a MeshVector in MB's layout."""
+    from ..parallel.mesh_vector import MeshVector
+    if not isinstance(v, MeshVector) or v.blocks != MB.blocks:
+        raise ValueError(
+            "a mesh superblock solve takes a MeshVector of its layout "
+            f"({MB.rows} rows a shard; Mesh.scatter), not "
+            f"{type(v).__name__}")
+    return v.shards
+
+
+def _mesh_like(MB: MeshSuperBlockTriSolve, parts):
+    """The shards' R-row parts cut to their own rows, as a MeshVector."""
+    from ..parallel.mesh_vector import MeshVector
+    blocks = MB.blocks
+    return MeshVector([p[:hi - lo] for p, (lo, hi) in zip(parts,
+                                                          blocks.bounds)],
+                      blocks, check=False)
+
+
+def _solve_super_mesh(MB: MeshSuperBlockTriSolve, y):
     """All levels in order on the mesh: each shard's part of a level
-    (super_level_halo) on its own rows of y and its window of x, then the
-    level's halo exchange; x starts at zero on every window (the JAX
-    package's _solve_super_mesh).  Returns x, n rows.  MEGA is not read:
-    the mesh route takes no one-launch solve."""
-    n_dev, R, H = MB.n_devices, MB.rows, MB.halo
-    ys = [v.contiguous() for v in
-          F.pad(y, (0, n_dev * R - y.numel())).split(R)]
-    X = [torch.zeros(R + 2 * H, dtype=y.dtype, device=y.device)
-         for _ in range(n_dev)]
+    (super_level_halo) on its own rows of y and its window of x, on its
+    device, then the level's halo exchange; x starts at zero on every
+    window (the JAX package's _solve_super_mesh).  y and x are MeshVectors
+    of MB's layout.  MEGA is not read: the mesh route takes no one-launch
+    solve."""
+    R, H = MB.rows, MB.halo
+    ys = [F.pad(v, (0, R - v.numel())) if v.numel() != R else v
+          for v in _mesh_rows(MB, y)]
+    X = [torch.zeros(R + 2 * H, dtype=y.dtype, device=dev)
+         for dev in MB.mesh.devices]
     for li in range(len(MB.inner.levels)):
         for Bs, yk, Xk in zip(MB.shards, ys, X):
             super_level_halo(Bs, li, yk, Xk)
         _mesh_exchange(MB, li, X)
-    return torch.cat([Xk[H:H + R] for Xk in X])[:y.numel()]
+    return _mesh_like(MB, [Xk[H:H + R] for Xk in X])
 
 
-def _mesh_times_d(MB: MeshSuperBlockTriSolve, t: torch.Tensor):
+def _mesh_times_d(MB: MeshSuperBlockTriSolve, t):
     """t·D for the symmetric apply's middle multiply, each shard's rows by
     its own slice of the per-row D (or the constant D)."""
     if MB.inner.d_rows is None:
         if MB.inner.d is None:
             raise ValueError("blocked_sgs needs L built with need_d=True")
         return t * MB.inner.d
-    R = MB.rows
-    parts = F.pad(t, (0, MB.n_devices * R - t.numel())).split(R)
-    return torch.cat([p * Bs.d_rows for p, Bs in zip(parts, MB.shards)]
-                     )[:t.numel()]
+    return _mesh_like(MB, [p * Bs.d_rows[:p.numel()] for p, Bs in
+                           zip(_mesh_rows(MB, t), MB.shards)])
 
 
 # ---------------------------------------------------------------------------

@@ -70,7 +70,7 @@ def _dia_args(offsets, n: int):
 
 
 def _dia_spmv_cuda(A, x: torch.Tensor) -> torch.Tensor:
-    from .._build import MAX_DIAGS, load_library
+    from .._build import MAX_DIAGS, launch, load_library
     suffix = kernel_suffix(x.dtype, A.dtype)
     if len(A.offsets) > MAX_DIAGS:
         raise ValueError(f"the DIA kernel takes at most {MAX_DIAGS} "
@@ -80,9 +80,9 @@ def _dia_spmv_cuda(A, x: torch.Tensor) -> torch.Tensor:
     args = _dia_args(A.offsets, A.n_rows)
     y = torch.empty_like(x)
     lib = load_library()
-    err = getattr(lib, f"bis_dia_spmv_{suffix}")(x.device.index, ctypes.byref(args), A.data.data_ptr(),
-             x.data_ptr(), y.data_ptr(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = launch(getattr(lib, f"bis_dia_spmv_{suffix}"), x.device,
+                 ctypes.byref(args), A.data.data_ptr(), x.data_ptr(),
+                 y.data_ptr())
     if err != 0:
         raise RuntimeError(f"dia_spmv kernel launch failed with CUDA error "
                            f"{err}")
@@ -165,24 +165,24 @@ def dia_spmv_halo(data: torch.Tensor, offsets, xw: torch.Tensor, hneg: int,
     launches the shard-local kernel (csrc/sparse_spmv.cu), counted in
     `dia_spmv_halo.launches` (`.bf16_launches` for bfloat16 data): y
     bit-equal to the single-device kernel's rows; a CPU tensor takes the
-    plain version."""
+    plain version (a meta tensor its shapes)."""
     rows = _check_halo(data, offsets, xw, hneg, out)
-    if xw.device.type == "cpu":
+    if xw.device.type in ("cpu", "meta"):
         y = dia_spmv_halo_plain(data, offsets, xw, hneg)
         return y if out is None else out.copy_(y)
     if xw.device.type != "cuda":
         raise ValueError(f"no DIA SpMV for device {xw.device}")
-    from .._build import MAX_DIAGS, load_library
+    from .._build import MAX_DIAGS, launch, load_library
     if len(offsets) > MAX_DIAGS:
         raise ValueError(f"the DIA kernel takes at most {MAX_DIAGS} "
                          f"diagonals, the matrix has {len(offsets)}")
     y = torch.empty(rows, dtype=xw.dtype, device=xw.device) \
         if out is None else out
-    err = getattr(load_library(), "bis_dia_spmv_halo_" + kernel_suffix(
-        xw.dtype, data.dtype))(
-            xw.device.index, ctypes.byref(_dia_args(tuple(offsets), rows)),
-            data.data_ptr(), xw.data_ptr(), y.data_ptr(), hneg, xw.numel(),
-            torch.cuda.current_stream(xw.device).cuda_stream)
+    err = launch(getattr(load_library(), "bis_dia_spmv_halo_"
+                         + kernel_suffix(xw.dtype, data.dtype)), xw.device,
+                 ctypes.byref(_dia_args(tuple(offsets), rows)),
+                 data.data_ptr(), xw.data_ptr(), y.data_ptr(), hneg,
+                 xw.numel())
     if err != 0:
         raise RuntimeError(f"dia_spmv_halo kernel launch failed with CUDA "
                            f"error {err}")

@@ -163,8 +163,9 @@ def _slots(device_index: int, name: str, dtype: torch.dtype) -> int:
     """The card's resident blocks of a ring kernel: its blocks an SM (the
     occupancy the compiled kernel reaches) times the SMs."""
     blocks = ctypes.c_int()
-    _raise_on(_library().bis_gmres_ring_blocks_per_sm(
-        device_index, _RING_KERNELS[name, dtype], ctypes.byref(blocks)),
+    from .._build import query
+    _raise_on(query(_library().bis_gmres_ring_blocks_per_sm, device_index,
+                    _RING_KERNELS[name, dtype], ctypes.byref(blocks)),
         f"{name} occupancy query")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return blocks.value * sms
@@ -218,14 +219,16 @@ def _project_gram_ring(V, w, vc, j: int, grid: int, buf, stream):
     any contents) as its scratch and output; returns (Pw, Pv), views of
     buf.  Each part's address is buf's plus an integer offset: no view is
     made for a part."""
+    from .._build import launch
     rows, n = V.shape
     gp, gq = _sum_layout(grid)
     pairs = 2 * (j + 1)
     base, out = buf.data_ptr(), pairs * (gp + gq)
-    err = _fn("project_gram", "ring", V.dtype)(
-        V.device.index, V.data_ptr(), w.data_ptr(), vc.data_ptr(), n, rows,
-        j, base, gp, base + 4 * pairs * gp, gq, base + 4 * out,
-        _tickets(V.device, stream).data_ptr(), grid, stream.cuda_stream)
+    err = launch(
+        _fn("project_gram", "ring", V.dtype), V.device, V.data_ptr(),
+        w.data_ptr(), vc.data_ptr(), n, rows, j, base, gp,
+        base + 4 * pairs * gp, gq, base + 4 * out,
+        _tickets(V.device, stream).data_ptr(), grid)
     _raise_on(err, "project_gram")
     project_gram.ring_launches += 1
     project_gram.launches += 1
@@ -233,6 +236,7 @@ def _project_gram_ring(V, w, vc, j: int, grid: int, buf, stream):
 
 
 def _project_gram_cuda(V, w, vc, j: int, route: str):
+    from .._build import launch
     rows, n = V.shape
     stream = torch.cuda.current_stream(V.device)
     if route == "ring":
@@ -244,9 +248,9 @@ def _project_gram_cuda(V, w, vc, j: int, route: str):
     n_blocks = _n_blocks(n)
     partials = torch.empty((n_blocks, rows, 2), dtype=torch.float32,
                            device=V.device)
-    err = _fn("project_gram", route, V.dtype)(
-        V.device.index, V.data_ptr(), w.data_ptr(), vc.data_ptr(), n, rows,
-        j, partials.data_ptr(), n_blocks, stream.cuda_stream)
+    err = launch(_fn("project_gram", route, V.dtype), V.device,
+                 V.data_ptr(), w.data_ptr(), vc.data_ptr(), n, rows, j,
+                 partials.data_ptr(), n_blocks)
     _raise_on(err, "project_gram")
     project_gram.strided_launches += 1
     project_gram.launches += 1
@@ -292,13 +296,15 @@ def _correct_write_ring(V, w, ht, j: int, grid: int, buf, stream):
     """The ring launch on `grid` blocks with `buf` (ring_scratch floats,
     any contents) as its scratch and output; returns (vnext, nrm2), views
     of buf."""
+    from .._build import launch
     n = V.shape[1]
     gp, gq = _sum_layout(grid)
     base, last = buf.data_ptr(), n + gp + gq
-    err = _fn("correct_write", "ring", V.dtype)(
-        V.device.index, V.data_ptr(), w.data_ptr(), ht.data_ptr(), n, j,
-        base, base + 4 * n, gp, base + 4 * (n + gp), gq, base + 4 * last,
-        _tickets(V.device, stream).data_ptr(), grid, stream.cuda_stream)
+    err = launch(
+        _fn("correct_write", "ring", V.dtype), V.device, V.data_ptr(),
+        w.data_ptr(), ht.data_ptr(), n, j, base, base + 4 * n, gp,
+        base + 4 * (n + gp), gq, base + 4 * last,
+        _tickets(V.device, stream).data_ptr(), grid)
     _raise_on(err, "correct_write")
     correct_write.ring_launches += 1
     correct_write.launches += 1
@@ -306,6 +312,7 @@ def _correct_write_ring(V, w, ht, j: int, grid: int, buf, stream):
 
 
 def _correct_write_cuda(V, w, ht, j: int, route: str):
+    from .._build import launch
     rows, n = V.shape
     stream = torch.cuda.current_stream(V.device)
     if route == "ring":
@@ -317,9 +324,9 @@ def _correct_write_cuda(V, w, ht, j: int, route: str):
     n_blocks = _n_blocks(n)
     vnext = torch.empty(n, dtype=torch.float32, device=V.device)
     partials = torch.empty(n_blocks, dtype=torch.float32, device=V.device)
-    err = _fn("correct_write", route, V.dtype)(
-        V.device.index, V.data_ptr(), w.data_ptr(), ht.data_ptr(), n, j,
-        vnext.data_ptr(), partials.data_ptr(), n_blocks, stream.cuda_stream)
+    err = launch(_fn("correct_write", route, V.dtype), V.device,
+                 V.data_ptr(), w.data_ptr(), ht.data_ptr(), n, j,
+                 vnext.data_ptr(), partials.data_ptr(), n_blocks)
     _raise_on(err, "correct_write")
     correct_write.strided_launches += 1
     correct_write.launches += 1

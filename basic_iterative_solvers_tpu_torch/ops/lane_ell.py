@@ -284,7 +284,7 @@ def _raise_on(err: int, name: str):
 
 def _lane_ell_spmv_cuda(M: DeviceLaneELL, x: torch.Tensor,
                         route: str) -> torch.Tensor:
-    from .._build import load_library
+    from .._build import launch, load_library
     if route == "idx16":
         if M.idx16 is None:
             raise ValueError("the idx16 route needs the 16-bit index plane")
@@ -295,12 +295,12 @@ def _lane_ell_spmv_cuda(M: DeviceLaneELL, x: torch.Tensor,
         raise ValueError(f"unknown lane-ELL route {route!r}")
     _contiguous(M.vals, idx, M.row_len)
     y = torch.empty_like(x)
-    err = getattr(load_library(),
-                  f"bis_lane_ell_spmv_{kernel_suffix(x.dtype, M.dtype)}")(
-        x.device.index, M.vals.data_ptr(), idx.data_ptr(),
-        M.row_len.data_ptr(), x.data_ptr(), y.data_ptr(), M.n_rows,
-        M.R * LANES, M.S, idx.element_size(), M.row_len.element_size(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    fn = getattr(load_library(),
+                 f"bis_lane_ell_spmv_{kernel_suffix(x.dtype, M.dtype)}")
+    err = launch(fn, x.device, M.vals.data_ptr(), idx.data_ptr(),
+                 M.row_len.data_ptr(), x.data_ptr(), y.data_ptr(), M.n_rows,
+                 M.R * LANES, M.S, idx.element_size(),
+                 M.row_len.element_size())
     _raise_on(err, "lane_ell_spmv")
     _count(lane_ell_spmv, route, M.dtype == torch.bfloat16)
     return y
@@ -399,52 +399,57 @@ def lane_ell_spmv_halo_plain(M: DeviceLaneELL, vals: torch.Tensor,
 
 def lane_ell_spmv_halo(M: DeviceLaneELL, vals: torch.Tensor,
                        idx: torch.Tensor, xw: torch.Tensor, r0: int,
-                       halo: int, out: torch.Tensor = None) -> torch.Tensor:
+                       halo: int, out: torch.Tensor = None,
+                       lens: torch.Tensor = None) -> torch.Tensor:
     """One mesh shard's lane-ELL SpMV: `lane_ell_spmv_halo_plain`'s
     contract (M the whole, row-extended operator; vals/idx the shard's
     (K, rows, 128) planes starting at x2-row r0, idx int32 or M's 16-bit
     plane's rows), y written to `out` when given.  A CUDA tensor launches
     the shard-local kernel (csrc/sparse_spmv.cu) on `halo_route_for`'s
     route, reading the indices at idx's width and, on the counted route,
-    the shard's rows of M.row_len, counted in `lane_ell_spmv_halo.launches`
+    the shard's rows of M.row_len (`lens`, a copy on the shard's device,
+    where given), counted in `lane_ell_spmv_halo.launches`
     (`.bf16_launches` for bfloat16 values; each route's in
     `.counted_launches`, `.padded_launches`): every slot reads the value
     the single-device kernel reads, so y is bit-equal to its rows; a CPU
-    tensor takes the plain version."""
+    tensor takes the plain version (a meta tensor its shapes)."""
     if isinstance(xw, torch.Tensor) and xw.device.type == "cuda":
-        return _lane_ell_spmv_halo_cuda(M, vals, idx, xw, r0, halo, out)
+        return _lane_ell_spmv_halo_cuda(M, vals, idx, xw, r0, halo, out,
+                                        lens=lens)
     _check_halo(M, vals, idx, xw, r0, halo, out)
-    if xw.device.type != "cpu":
+    if xw.device.type not in ("cpu", "meta"):
         raise ValueError(f"no lane-ELL SpMV for device {xw.device}")
     y = lane_ell_spmv_halo_plain(M, vals, idx, xw, r0, halo)
     return y if out is None else out.copy_(y)
 
 
-def _lane_ell_spmv_halo_cuda(M, vals, idx, xw, r0, halo, out, route=None):
+def _lane_ell_spmv_halo_cuda(M, vals, idx, xw, r0, halo, out, route=None,
+                             lens=None):
     """The kernel on `route` (`halo_route_for`'s where None)."""
-    from .._build import load_library
+    from .._build import launch, load_library
     n = _check_halo(M, vals, idx, xw, r0, halo, out)
     if route is None:
         route = halo_route_for(n, sm_count(xw.device.index))
     y = torch.empty(n, dtype=xw.dtype, device=xw.device) \
         if out is None else out
     name = "bis_lane_ell_spmv_halo_" + kernel_suffix(xw.dtype, vals.dtype)
-    stream = torch.cuda.current_stream(xw.device).cuda_stream
     if route == "padded":
-        err = getattr(load_library(), name + "_padded")(
-            xw.device.index, vals.data_ptr(), idx.data_ptr(), xw.data_ptr(),
-            y.data_ptr(), n, r0, halo, M.n_rows, M.R * LANES, M.K, M.S,
-            xw.numel(), idx.element_size(), stream)
+        err = launch(
+            getattr(load_library(), name + "_padded"), xw.device,
+            vals.data_ptr(), idx.data_ptr(), xw.data_ptr(), y.data_ptr(), n,
+            r0, halo, M.n_rows, M.R * LANES, M.K, M.S, xw.numel(),
+            idx.element_size())
     elif route == "counted":
-        lens = M.row_len[r0:r0 + vals.shape[1]]
+        if lens is None:
+            lens = M.row_len[r0:r0 + vals.shape[1]]
         if lens.device != xw.device:
             raise ValueError("the counts must be on the window's device")
         _contiguous(lens)
-        err = getattr(load_library(), name)(
-            xw.device.index, vals.data_ptr(), idx.data_ptr(),
-            lens.data_ptr(), xw.data_ptr(), y.data_ptr(), n, r0, halo,
-            M.n_rows, M.R * LANES, M.S, xw.numel(), idx.element_size(),
-            lens.element_size(), stream)
+        err = launch(
+            getattr(load_library(), name), xw.device, vals.data_ptr(),
+            idx.data_ptr(), lens.data_ptr(), xw.data_ptr(), y.data_ptr(), n,
+            r0, halo, M.n_rows, M.R * LANES, M.S, xw.numel(),
+            idx.element_size(), lens.element_size())
     else:
         raise ValueError(f"unknown lane-ELL halo route {route!r}")
     _raise_on(err, "lane_ell_spmv_halo")

@@ -19,9 +19,10 @@ ops/spmv.py.
 
 Each kernel or its plain version is chosen by the vector's device.  Fused
 dots stay stencil-only, as in the JAX package; elsewhere the dots follow
-the SpMV as `torch.dot`s, reduced to every rank's whole value on DTensors
-(ops/blas1.replicated).  `spmv`, `spmv_dot` and `spmv_dots` are TIME'd
-as "spmv" in the host harness's kernel-timing mode (utils/ktimers.py).
+the SpMV as the solvers' own dots (ops/blas1.whole_dot: float32 products
+summed in float64, reduced to every rank's whole value on DTensors).
+`spmv`, `spmv_dot` and `spmv_dots` are TIME'd as "spmv" in the host
+harness's kernel-timing mode (utils/ktimers.py).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch
 
 from ..stencil_op import DeviceStencil, stencil_spmv
 from ..utils.ktimers import ktime
-from .blas1 import replicated
+from .blas1 import whole_dot
 
 
 def spmv_ell(A, x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +96,7 @@ def _spmv_dot(A, x: torch.Tensor):
     if fused is not None:
         return fused
     y = _spmv(A, x)
-    return y, replicated(torch.dot(y, x))
+    return y, whole_dot(y, x)
 
 
 def spmv_dots(A, x: torch.Tensor, aux: torch.Tensor = None,
@@ -113,8 +114,7 @@ def _spmv_dots(A, x: torch.Tensor, aux, with_self: bool):
         return fused
     y = _spmv(A, x)
     partner = {"aux": aux, "self": y}
-    return (y,) + tuple(replicated(torch.dot(y, partner[k]))
-                        for k in dots)
+    return (y,) + tuple(whole_dot(y, partner[k]) for k in dots)
 
 
 def compute_residual(A, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

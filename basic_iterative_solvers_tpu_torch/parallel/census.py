@@ -1,5 +1,5 @@
-"""Structural communication-layout checks for the GSPMD mode (the JAX
-package's parallel/census.py).
+"""Structural communication-layout checks for the GSPMD mode and the
+single-controller Mesh (the JAX package's parallel/census.py).
 
 Parity with the single-device solve cannot see a communication-layout
 regression: a CG whose SpMV all-gathers the whole row-sharded vector every
@@ -20,6 +20,13 @@ The invariants the tests hold: the loop body carries scalar all-reduces
 (the dots) and collective-permutes (the halos), and no all-gather or
 all-to-all of a full-length vector; the pad-and-slice SpMV on a DTensor,
 which DTensor partitions by gathering x, is the negative control.
+
+`mesh_census` gives the same result for the shard_map mode on the
+single-controller Mesh, read from the mesh's own counts (`Mesh.counts`)
+around each iteration: `psum` an all-reduce, `ppermute` a
+collective-permute, `Mesh.gather` an all-gather and `Mesh.scatter` a
+"scatter" (the only ways between a MeshVector and one tensor), so a whole
+vector gathered or scattered inside the loop is what it flags.
 """
 from __future__ import annotations
 
@@ -123,6 +130,21 @@ def _counts(events, permutes: int) -> dict:
     return c
 
 
+def _hook_iterate(method, before, after):
+    """Make method.iterate call before() and after() around each step;
+    returns the function that undoes it."""
+    step = method.iterate
+
+    def hooked(state, active=None):
+        before()
+        out = step(state, active)
+        after()
+        return out
+
+    method.iterate = hooked
+    return lambda: delattr(method, "iterate")
+
+
 def collective_census(fn, full_vector_len: int) -> dict:
     """Count the collectives `fn()` issues, `fn` being one iteration of a
     loop body: it runs _BODY_CALLS times.  Returns ``{kind: total}`` for
@@ -161,22 +183,72 @@ def fused_collective_census(setup, method=None) -> dict:
                                   refine_outer=0)
         method = make_method(dataclasses.replace(setup, config=cfg))
     tr = _tracker()
-    step = method.iterate
-
-    def hooked(state, active=None):
-        tr.start()
-        out = step(state, active)
-        tr.end()
-        return out
-
-    method.iterate = hooked
+    unhook = _hook_iterate(method, tr.start, tr.end)
     begin = tr._snap()
     try:
         with tr:
             method.solve_fused()
     finally:
-        del method.iterate
+        unhook()
     if len(tr.starts) < 2:
         raise ValueError("the census needs at least two iterations")
     return tr.census(int(setup.b.shape[0]), (tr.starts[-2], tr.starts[-1]),
                      begin)
+
+
+#: mesh_census's kinds: the census's name of each Mesh.counts entry
+_MESH_KINDS = {"all-reduce": "psum", "collective-permute": "ppermute",
+               "all-gather": "gather", "scatter": "scatter"}
+
+
+def mesh_census(setup, method=None) -> dict:
+    """The census of the fused solve of `setup` (shard_setup'd in the
+    shard_map mode on a Mesh), in fused_collective_census's shape and over
+    the same iterations: ``{kind: total}`` for every kind in COLLECTIVES
+    and "scatter", ``in_while`` one loop iteration (from the start of the
+    second-last `iterate` call to the start of the last), and
+    ``full_gathers`` ``(kind, where, elems)`` ("all-gather" or "scatter")
+    for every stretch of the run whose gathers, or scatters, moved at
+    least one whole vector's bytes (the setup's rows at its dtype):
+    each iteration (from the start of one `iterate` call to the next's,
+    the last to its end), "while", and the set-up before and after the
+    loop, "setup"; ``elems`` the elements they moved.  Read from the deltas of
+    `Mesh.counts` at the start and end of each `iterate` call."""
+    from ..solvers.factory import make_method
+    mesh = setup.b.mesh
+    if method is None:
+        cfg = dataclasses.replace(setup.config, tolerance=0.0,
+                                  max_iters=_SOLVE_ITERS, harness="fused",
+                                  refine_outer=0)
+        method = make_method(dataclasses.replace(setup, config=cfg))
+    starts, ends = [], []
+    unhook = _hook_iterate(method, lambda: starts.append(dict(mesh.counts)),
+                           lambda: ends.append(dict(mesh.counts)))
+    begin = dict(mesh.counts)
+    try:
+        method.solve_fused()
+    finally:
+        unhook()
+    end = dict(mesh.counts)
+    if len(starts) < 2:
+        raise ValueError("the census needs at least two iterations")
+
+    def counts(a, b):
+        c = {k: 0 for k in COLLECTIVES}
+        c.update({kind: b[key] - a[key] for kind, key in _MESH_KINDS.items()})
+        return c
+
+    totals = counts(begin, end)
+    totals["in_while"] = counts(starts[-2], starts[-1])
+    whole = int(setup.b.shape[0]) * setup.b.element_size()
+    stretches = ([(begin, starts[0], "setup")]
+                 + [(a, b, "while")
+                    for a, b in zip(starts, starts[1:] + ends[-1:])]
+                 + [(ends[-1], end, "setup")])
+    totals["full_gathers"] = [
+        (kind, where, moved // setup.b.element_size())
+        for a, b, where in stretches
+        for kind, key in (("all-gather", "gather"), ("scatter", "scatter"))
+        for moved in [b[f"{key}_bytes"] - a[f"{key}_bytes"]]
+        if b[key] > a[key] and moved >= whole]
+    return totals

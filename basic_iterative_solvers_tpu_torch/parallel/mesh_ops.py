@@ -10,21 +10,25 @@ reads only its own window (its left neighbour's last rows, its own rows,
 its right neighbour's first rows, a tensor of its own), its own slice of
 the matrix data and its global row offset, and writes only its own rows.
 
-Layouts: shard k owns rows [k·R_local, (k+1)·R_local) of the row count
-padded to n_dev·R_local with inert rows, R_local at least the halo width:
+Layouts: shard k owns rows [k·R, (k+1)·R) of the vectors, R at least
+the halo width (`row_block`; a setup's operators share one R,
+parallel/sharded.setup_rows):
 * stencil: whole z-planes (nx·ny rows) when nz ≥ n_dev, else whole
   x-lines (fdm:2048 has nz = 1); the kernels' (line, x) grid then covers
   the shard's own lines, and masks and colours come from global
-  coordinates;
-* DIA: R_local = max(⌈n/n_dev⌉, hneg, hpos), each shard's data rows copied
-  out as its own (k, R_local) tensor;
-* lane-ELL: the slot planes' x2-rows padded to a multiple of the JAX
-  package's row tile times n_dev (ops/lane_ell.lane_ell_extend_rows), each
-  shard's planes its own tensors, a halo of S x2-rows (every slot's column
-  lies within S x2-rows of its row's).
-Solver vectors stay n rows long: each SpMV pads x to the padded count
-(no copy where n already fills it, as at 128^3 on 8 shards) and returns
-the first n rows of y.
+  coordinates; each shard holds its own copy of the coefficients and its
+  slice of the diagonal;
+* DIA: R ≥ ⌈n/n_dev⌉, each shard's data rows its own (k, R) tensor;
+* lane-ELL: R a whole number of the JAX package's row tiles of 128-row
+  x2-rows (ops/lane_ell.lane_ell_row_tile), the planes padded with inert
+  x2-rows to n_dev·R (ops/lane_ell.lane_ell_extend_rows), each shard's
+  planes and row counts its own tensors, a halo of S x2-rows (every
+  slot's column lies within S x2-rows of its row's).
+Every shard's data lies on its own device.  Vectors are MeshVectors
+(parallel/mesh_vector.py) of n rows in that layout: the last shard holding
+rows is short where R does not divide n, and the shards past n hold none;
+an operator pads such a shard's window with the inert rows its layout
+needs, launches on its R rows and keeps the shard's own.
 
 The GSPMD mode's operators (`DistStencil`, `DistDIA`, `DistLaneELL`,
 parallel/gspmd.py) run the same halo-form kernels once a process on a
@@ -50,6 +54,7 @@ from ..stencil_op import (DeviceStencil, stencil_gs_color_step_halo,
                           stencil_shard_rows, stencil_spmv_halo)
 from .gspmd import (RowLayout, halo_window, row_layout, rows_like,
                     sum_partials)
+from .mesh_vector import MeshVector
 from .sharded import Mesh, _halo, _halo_exchange, _split
 
 
@@ -61,12 +66,14 @@ def _pad(v: torch.Tensor, npad: int) -> torch.Tensor:
 @dataclasses.dataclass
 class MeshStencil:
     """A DeviceStencil bound to a 1-D row mesh (inner.shards == the mesh
-    size): R_local rows a shard, the diagonal cut into the shards' slices."""
+    size): R_local rows a shard; `ops[k]` the stencil on shard k's device
+    (its coefficients, and as diagonal its slice `diag_shards[k]`)."""
 
     inner: DeviceStencil
     mesh: Mesh
     axis: str
     rows: int
+    ops: Tuple[DeviceStencil, ...]
     diag_shards: Optional[Tuple[torch.Tensor, ...]] = None
 
     dtype = property(lambda self: self.inner.dtype)
@@ -74,12 +81,13 @@ class MeshStencil:
     n_rows = property(lambda self: self.inner.n_rows)
     n_cols = property(lambda self: self.inner.n_cols)
     n_devices = property(lambda self: self.mesh.size)
+    blocks = property(lambda self: self.mesh.blocks(self.n_rows, self.rows))
 
 
 @dataclasses.dataclass
 class MeshDIA:
     """A DeviceDIA bound to a 1-D row mesh: R_local rows a shard, each
-    shard's (k, R_local) data its own tensor."""
+    shard's (k, R_local) data its own tensor on its device."""
 
     inner: DeviceDIA
     mesh: Mesh
@@ -92,14 +100,15 @@ class MeshDIA:
     n_rows = property(lambda self: self.inner.n_rows)
     n_cols = property(lambda self: self.inner.n_cols)
     n_devices = property(lambda self: self.mesh.size)
+    blocks = property(lambda self: self.mesh.blocks(self.n_rows, self.rows))
 
 
 @dataclasses.dataclass
 class MeshLaneELL:
     """A DeviceLaneELL bound to a 1-D row mesh: its planes' x2-rows padded
     to whole shards of `rows` x2-rows, each shard's (K, rows, 128) planes
-    its own tensors (the index plane in 16 bits where the operator has
-    that plane, else int32; each shard reads its rows of inner.row_len)."""
+    and its rows of inner.row_len its own tensors on its device (the index
+    plane in 16 bits where the operator has that plane, else int32)."""
 
     inner: DeviceLaneELL
     mesh: Mesh
@@ -107,136 +116,202 @@ class MeshLaneELL:
     rows: int
     vals_shards: Tuple[torch.Tensor, ...]
     idx_shards: Tuple[torch.Tensor, ...]
+    len_shards: Tuple[torch.Tensor, ...]
 
     dtype = property(lambda self: self.inner.dtype)
     device = property(lambda self: self.inner.device)
     n_rows = property(lambda self: self.inner.n_rows)
     n_cols = property(lambda self: self.inner.n_cols)
     n_devices = property(lambda self: self.mesh.size)
+    blocks = property(lambda self: self.mesh.blocks(self.n_rows,
+                                                    self.rows * LANES))
+
+
+MESH_TYPES = (MeshStencil, MeshDIA, MeshLaneELL)
 
 
 def unwrap(A):
     """The single-device operator under a mesh or DTensor wrapper (A
     itself for a plain operator)."""
-    if isinstance(A, (MeshStencil, MeshDIA, MeshLaneELL, DistStencil,
-                      DistDIA, DistLaneELL)):
+    if isinstance(A, MESH_TYPES + DIST_TYPES):
         return A.inner
     return A
 
 
-def wrap_stencil(St: DeviceStencil, mesh: Mesh, axis: str) -> MeshStencil:
-    """Bind a stencil laid out for the mesh (St.shards == the mesh size)."""
+def row_block(Mt, n_dev: int) -> Tuple[int, int]:
+    """(the least rows a shard, the unit its rows come in) of an operator
+    on n_dev shards."""
+    if isinstance(Mt, DeviceStencil):
+        nx, ny, nz = Mt.dims
+        return (stencil_shard_rows(Mt.dims, Mt.halo, n_dev),
+                nx * ny if nz >= n_dev else nx)
+    if isinstance(Mt, DeviceDIA):
+        return max(-(-Mt.n_rows // n_dev), *_halo(Mt.offsets), 1), 1
+    if isinstance(Mt, DeviceLaneELL):
+        tile = lane_ell_row_tile(Mt.n_rows, Mt.S)
+        return -(-Mt.R // (tile * n_dev)) * tile * LANES, tile * LANES
+    raise TypeError(f"no mesh layout for {type(Mt).__name__}")
+
+
+def _rows_for(Mt, n_dev: int, rows: Optional[int]) -> int:
+    """`rows` checked against the operator's row_block (its least count
+    where None)."""
+    least, unit = row_block(Mt, n_dev)
+    if rows is None:
+        return least
+    if rows < least or rows % unit:
+        raise ValueError(f"{rows} rows a shard do not serve this "
+                         f"{type(Mt).__name__}: at least {least}, a "
+                         f"multiple of {unit}")
+    return rows
+
+
+def _place(parts, mesh: Mesh) -> Tuple[torch.Tensor, ...]:
+    """Each part copied out to its shard's device as its own tensor."""
+    return tuple(p.to(dev, copy=True).contiguous()
+                 for p, dev in zip(parts, mesh.devices))
+
+
+def wrap_stencil(St: DeviceStencil, mesh: Mesh, axis: str,
+                 rows: Optional[int] = None) -> MeshStencil:
+    """Bind a stencil laid out for the mesh (St.shards == the mesh size),
+    `rows` a shard (its least where None)."""
     n_dev = mesh.size
     if St.shards != n_dev:
         raise ValueError(f"stencil shards={St.shards} != mesh size {n_dev}")
-    R = stencil_shard_rows(St.dims, St.halo, n_dev)
+    R = _rows_for(St, n_dev, rows)
     diag = (None if St.diag is None
-            else tuple(_split(_pad(St.diag, R * n_dev), n_dev)))
-    return MeshStencil(inner=St, mesh=mesh, axis=axis, rows=R,
+            else _place(_split(_pad(St.diag, R * n_dev), n_dev), mesh))
+    coeffs = {dev: St.coeffs.to(dev) for dev in set(mesh.devices)}
+    ops = tuple(dataclasses.replace(
+        St, coeffs=coeffs[dev], diag=None if diag is None else diag[k])
+        for k, dev in enumerate(mesh.devices))
+    return MeshStencil(inner=St, mesh=mesh, axis=axis, rows=R, ops=ops,
                        diag_shards=diag)
 
 
-def _shards(A, v: Optional[torch.Tensor], npad: int):
-    return ([None] * A.n_devices if v is None
-            else _split(_pad(v, npad), A.n_devices))
+def _check_vector(A, v, what: str = "x"):
+    """v's shards, checked to be a MeshVector in A's layout."""
+    if not isinstance(v, MeshVector) or v.blocks != A.blocks:
+        raise ValueError(
+            f"a mesh operator takes {what} as a MeshVector of its layout "
+            f"({A.blocks.rows} rows a shard; Mesh.scatter), not "
+            f"{type(v).__name__}")
+    return v.shards
 
 
-def mesh_stencil_spmv(A: MeshStencil, x: torch.Tensor, dots=(),
-                      aux: Optional[torch.Tensor] = None):
+def _padded(A, v, rows: int, what: str = "x"):
+    """v's shards, each padded with inert rows to `rows`."""
+    return [_pad(s, rows) for s in _check_vector(A, v, what)]
+
+
+def _outs(A, x, rows: int):
+    """An uninitialised `rows` buffer a shard, on its device."""
+    return [torch.empty(rows, dtype=x.dtype, device=dev)
+            for dev in A.mesh.devices]
+
+
+def _own(A, ys):
+    """The shards' buffers cut to their own rows, as a MeshVector."""
+    blocks = A.blocks
+    return MeshVector([y[:hi - lo] for y, (lo, hi) in zip(ys, blocks.bounds)],
+                      blocks, check=False)
+
+
+def mesh_stencil_spmv(A: MeshStencil, x, dots=(), aux=None):
     """y = A @ x, one shard-local kernel a shard after one halo exchange;
     `dots` as in stencil_spmv, each shard's partials summed by psum.
     Returns y, or (y, *dots)."""
     dots = tuple(dots)
-    St = A.inner
-    n_dev, R = A.n_devices, A.rows
-    npad = n_dev * R
-    windows = _halo_exchange(A.mesh, _shards(A, x, npad), *St.halo)
-    auxs = _shards(A, aux if "aux" in dots else None, npad)
-    diags = A.diag_shards or (None,) * n_dev
-    y = torch.empty(npad, dtype=x.dtype, device=x.device)
+    R = A.rows
+    windows = _halo_exchange(A.mesh, _padded(A, x, R), *A.inner.halo)
+    auxs = (_padded(A, aux, R, "aux") if "aux" in dots
+            else [None] * A.n_devices)
+    diags = A.diag_shards or (None,) * A.n_devices
+    ys = _outs(A, x, R)
     parts = []
-    for k, yk in enumerate(_split(y, n_dev)):
-        out = stencil_spmv_halo(St, windows[k], k * R, dots, auxs[k],
+    for k, yk in enumerate(ys):
+        out = stencil_spmv_halo(A.ops[k], windows[k], k * R, dots, auxs[k],
                                 diags[k], out=yk)
         if dots:
             parts.append(torch.stack(out[1:]))
-    y = y[:St.n_rows]
+    y = _own(A, ys)
     if not dots:
         return y
     return (y,) + tuple(A.mesh.psum(parts).unbind())
 
 
-def mesh_gs_color_step(A: MeshStencil, x: torch.Tensor, rhs: torch.Tensor,
-                       dinv: torch.Tensor, spec, color) -> torch.Tensor:
+def mesh_gs_color_step(A: MeshStencil, x, rhs, dinv, spec, color):
     """The shard-local multicolour GS step after one halo exchange; a
     tuple of colours is a superstep (its colours couple only along x,
     inside each shard's lines), so it needs no further exchange."""
-    St = A.inner
-    n_dev, R = A.n_devices, A.rows
-    npad = n_dev * R
-    windows = _halo_exchange(A.mesh, _shards(A, x, npad), *St.halo)
-    rhss, dinvs = _shards(A, rhs, npad), _shards(A, dinv, npad)
-    diags = A.diag_shards or (None,) * n_dev
-    y = torch.empty(npad, dtype=x.dtype, device=x.device)
-    for k, yk in enumerate(_split(y, n_dev)):
-        stencil_gs_color_step_halo(St, windows[k], k * R, rhss[k], dinvs[k],
-                                   spec, color, diags[k], out=yk)
-    return y[:St.n_rows]
+    R = A.rows
+    windows = _halo_exchange(A.mesh, _padded(A, x, R), *A.inner.halo)
+    rhss, dinvs = _padded(A, rhs, R, "rhs"), _padded(A, dinv, R, "dinv")
+    diags = A.diag_shards or (None,) * A.n_devices
+    ys = _outs(A, x, R)
+    for k, yk in enumerate(ys):
+        stencil_gs_color_step_halo(A.ops[k], windows[k], k * R, rhss[k],
+                                   dinvs[k], spec, color, diags[k], out=yk)
+    return _own(A, ys)
 
 
-def wrap_dia(D: DeviceDIA, mesh: Mesh, axis: str) -> MeshDIA:
+def wrap_dia(D: DeviceDIA, mesh: Mesh, axis: str,
+             rows: Optional[int] = None) -> MeshDIA:
     """Bind a DIA matrix to the mesh: rows padded to n_dev·R_local with
-    inert (zero) rows, R_local ≥ the halo, each shard's data copied out."""
+    inert (zero) rows, R_local ≥ the halo (`rows` where given), each
+    shard's data copied out to its device."""
     n_dev = mesh.size
-    R = max(-(-D.n_rows // n_dev), *_halo(D.offsets), 1)
-    data = torch.nn.functional.pad(D.data, (0, R * n_dev - D.n_rows))
+    R = _rows_for(D, n_dev, rows)
+    data = torch.nn.functional.pad(D.data[:, :D.n_rows],
+                                   (0, R * n_dev - D.n_rows))
     return MeshDIA(inner=D, mesh=mesh, axis=axis, rows=R,
-                   data_shards=tuple(d.contiguous()
-                                     for d in _split(data, n_dev, 1)))
+                   data_shards=_place(_split(data, n_dev, 1), mesh))
 
 
-def mesh_dia_spmv(A: MeshDIA, x: torch.Tensor) -> torch.Tensor:
+def mesh_dia_spmv(A: MeshDIA, x):
     """y = A @ x: the shard-local DIA kernel on each shard's window."""
     D = A.inner
     if not D.offsets:
         return torch.zeros_like(x)
-    n_dev, R = A.n_devices, A.rows
+    R = A.rows
     hneg, hpos = _halo(D.offsets)
-    windows = _halo_exchange(A.mesh, _shards(A, x, n_dev * R), hneg, hpos)
-    y = torch.empty(n_dev * R, dtype=x.dtype, device=x.device)
-    for k, yk in enumerate(_split(y, n_dev)):
+    windows = _halo_exchange(A.mesh, _padded(A, x, R), hneg, hpos)
+    ys = _outs(A, x, R)
+    for k, yk in enumerate(ys):
         dia_spmv_halo(A.data_shards[k], D.offsets, windows[k], hneg, out=yk)
-    return y[:D.n_rows]
+    return _own(A, ys)
 
 
-def wrap_lane_ell(M: DeviceLaneELL, mesh: Mesh, axis: str) -> MeshLaneELL:
-    """Pad the slot planes' x2-rows to the JAX package's row tile times
-    n_dev (inert rows) and bind them to the mesh, each shard's planes
-    copied out."""
+def wrap_lane_ell(M: DeviceLaneELL, mesh: Mesh, axis: str,
+                  rows: Optional[int] = None) -> MeshLaneELL:
+    """Pad the slot planes' x2-rows to n_dev shards of whole row tiles
+    (inert rows; `rows` vector rows a shard where given) and bind them to
+    the mesh, each shard's planes and row counts copied out to its
+    device."""
     n_dev = mesh.size
-    chunk = lane_ell_row_tile(M.n_rows, M.S) * n_dev
-    M = lane_ell_extend_rows(M, -(-M.R // chunk) * chunk)
-    R = M.R // n_dev
+    R = _rows_for(M, n_dev, rows) // LANES
+    M = lane_ell_extend_rows(M, R * n_dev)
     return MeshLaneELL(
         inner=M, mesh=mesh, axis=axis, rows=R,
-        vals_shards=tuple(v.contiguous() for v in _split(M.vals, n_dev, 1)),
-        idx_shards=tuple(i.contiguous() for i in _split(
-            M.idx if M.idx16 is None else M.idx16, n_dev, 1)))
+        vals_shards=_place(_split(M.vals, n_dev, 1), mesh),
+        idx_shards=_place(_split(M.idx if M.idx16 is None else M.idx16,
+                                 n_dev, 1), mesh),
+        len_shards=_place(_split(M.row_len, n_dev), mesh))
 
 
-def mesh_lane_ell_spmv(A: MeshLaneELL, x: torch.Tensor) -> torch.Tensor:
+def mesh_lane_ell_spmv(A: MeshLaneELL, x):
     """y = A @ x: the shard-local lane-ELL kernel on each shard's window of
     S x2-rows a side."""
     M = A.inner
-    n_dev, R = A.n_devices, A.rows
-    npad = M.R * LANES
+    R = A.rows * LANES
     h = M.S * LANES
-    windows = _halo_exchange(A.mesh, _shards(A, x, npad), h, h)
-    y = torch.empty(npad, dtype=x.dtype, device=x.device)
-    for k, yk in enumerate(_split(y, n_dev)):
+    windows = _halo_exchange(A.mesh, _padded(A, x, R), h, h)
+    ys = _outs(A, x, R)
+    for k, yk in enumerate(ys):
         lane_ell_spmv_halo(M, A.vals_shards[k], A.idx_shards[k], windows[k],
-                           k * R, M.S, out=yk)
-    return y[:M.n_rows]
+                           k * A.rows, M.S, out=yk, lens=A.len_shards[k])
+    return _own(A, ys)
 
 
 # ---------------------------------------------------------------------------
@@ -337,12 +412,21 @@ def dist_lane_ell(M: DeviceLaneELL, mesh) -> DistLaneELL:
 
 
 def rewrap(A, inner):
-    """A's wrapper of the same kind around another single-device operator
-    of the same matrix (e.g. its float64 copy)."""
+    """A's wrapper of the same kind, on the same mesh (a Mesh operator
+    with its rows), around another single-device operator of the same
+    matrix (e.g. its float64 copy)."""
+    if isinstance(A, MeshStencil):
+        return wrap_stencil(dataclasses.replace(inner, shards=A.n_devices),
+                            A.mesh, A.axis, A.rows)
+    if isinstance(A, MeshDIA):
+        return wrap_dia(inner, A.mesh, A.axis, A.rows)
+    if isinstance(A, MeshLaneELL):
+        return wrap_lane_ell(inner, A.mesh, A.axis, A.rows * LANES)
     wrap = {DistStencil: dist_stencil, DistDIA: dist_dia,
             DistLaneELL: dist_lane_ell}.get(type(A))
     if wrap is None:
-        raise TypeError(f"not a DTensor operator: {type(A).__name__}")
+        raise TypeError(f"not a mesh or DTensor operator: "
+                        f"{type(A).__name__}")
     return wrap(inner, A.layout.mesh)
 
 

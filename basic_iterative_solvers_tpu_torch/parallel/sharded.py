@@ -13,19 +13,21 @@ parallelism is a row-parallel loop; the mesh shards the same axis:
 Two modes, as in the JAX package's `shard_setup`:
 
 * "shard_map" on the single-controller `Mesh`: one process drives every
-  shard, as the JAX package's Mesh over jax.devices() does.  `make_mesh(n,
-  device=...)` binds all n shards to one device, the counterpart of XLA's
-  virtual host devices: each shard still sees only its own rows, the halo
-  slabs copied from its neighbours (`Mesh.ppermute`) and its global row
-  offset, and its dots are summed by `Mesh.psum`.  A solver vector stays
-  one tensor, the whole operator's rows: elementwise operations and BLAS-1
-  run on it whole, and only the SpMVs and GS steps run per shard, each
-  mesh operator padding the row count to n_dev·R_local with inert rows
-  where its layout needs it (shard k owns rows [k·R_local, (k+1)·R_local);
-  parallel/mesh_ops.py).  A superblock preconditioner's L and U solves are
-  cut into the shards too (ops/block_trisolve.shard_superblock).  The
-  shards of this mesh share one device: a Mesh over several cards would
-  need per-card vector storage, which is not ported.
+  shard, as the JAX package's Mesh over jax.devices() does.  `make_mesh()`
+  spans every CUDA card; `make_mesh(n, device=...)` binds n shards to one
+  device, the counterpart of XLA's virtual host devices.  Every solver
+  vector is a `MeshVector` (parallel/mesh_vector.py): shard k's rows on
+  mesh.devices[k], on every Mesh, one card or several.  Elementwise
+  operations run shard by shard, dots are shard partials summed by
+  `Mesh.psum`, the SpMVs and GS steps run per shard on the shard's window
+  (its rows and the halo slabs `Mesh.ppermute` copies from its
+  neighbours, parallel/mesh_ops.py), and a superblock preconditioner's L
+  and U solves are cut into the shards too
+  (ops/block_trisolve.shard_superblock).  All the operators of a setup
+  share one row block (`setup_rows`), so its vectors share one layout.
+  `Mesh.gather` and `Mesh.scatter`, counted, are the only ways between a
+  MeshVector and one tensor on one device: the GS methods' own superblock
+  solves run whole through them, as the JAX package runs them replicated.
 * "gspmd" on a torch.distributed `DeviceMesh` (`make_device_mesh`), one
   process a shard: solver vectors are DTensors sharded by rows, and the
   operators run their halo-form kernels per rank after a point-to-point
@@ -35,7 +37,7 @@ Two modes, as in the JAX package's `shard_setup`:
 
 `make_sharded_cg` is the standalone distributed CG of the JAX package
 (DIA, Jacobi or the symmetric two-stage preconditioner), plain torch per
-shard, as it is plain jnp there.
+shard, as it is plain jnp there, on MeshVectors of the padded rows.
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from .mesh_vector import MeshVector, RowBlocks
 
 AXIS = "rows"
 
@@ -77,15 +81,20 @@ class Mesh:
 
     def reset_counts(self) -> None:
         """Zero `counts`: the calls of each collective and the bytes they
-        move (ppermute: the slabs sent; psum: the partials summed)."""
+        move (ppermute: the slabs sent; psum: the partials summed;
+        gather: the shards copied to the first device; scatter: the rows
+        copied out to the shards)."""
         self.counts = {"ppermute": 0, "ppermute_bytes": 0, "psum": 0,
-                       "psum_bytes": 0}
+                       "psum_bytes": 0, "gather": 0, "gather_bytes": 0,
+                       "scatter": 0, "scatter_bytes": 0}
 
     def ppermute(self, slabs: Sequence[torch.Tensor],
                  shift: int) -> List[torch.Tensor]:
-        """Shard k receives slabs[k − shift] on its device, and zeros where
-        k − shift is off the mesh (lax.ppermute over the pairs
-        (i, i + shift): a shard no one sends to receives zeros)."""
+        """Shard k receives a copy of slabs[k − shift] on its device, and
+        zeros where k − shift is off the mesh (lax.ppermute over the pairs
+        (i, i + shift): a shard no one sends to receives zeros).  Always a
+        copy, also between shards of one device: no received slab aliases
+        its sender's rows."""
         n = self.size
         if len(slabs) != n:
             raise ValueError(f"{len(slabs)} slabs for {n} shards")
@@ -94,7 +103,7 @@ class Mesh:
             src = k - shift
             if 0 <= src < n:
                 s = slabs[src]
-                out.append(s.to(self.devices[k]))
+                out.append(s.to(self.devices[k], copy=True))
                 self.counts["ppermute_bytes"] += s.numel() * s.element_size()
             else:
                 out.append(torch.zeros_like(slabs[k],
@@ -113,6 +122,32 @@ class Mesh:
         self.counts["psum_bytes"] += sum(p.numel() * p.element_size()
                                          for p in partials)
         return torch.stack([p.to(self.devices[0]) for p in partials]).sum(0)
+
+    def blocks(self, n: int, rows: int):
+        """The row blocks of an n-row vector, `rows` a shard
+        (parallel/mesh_vector.RowBlocks)."""
+        return RowBlocks(self, n, rows)
+
+    def scatter(self, v: torch.Tensor, rows: int):
+        """v (one tensor, rows along its last dimension) as a MeshVector
+        of `rows` rows a shard, each shard's rows copied to its device;
+        counted.  The inverse of `gather`."""
+        blocks = self.blocks(v.shape[-1], rows)
+        shards = [v[..., lo:hi].to(dev, copy=True).contiguous()
+                  for (lo, hi), dev in zip(blocks.bounds, self.devices)]
+        self.counts["scatter"] += 1
+        self.counts["scatter_bytes"] += v.numel() * v.element_size()
+        return MeshVector(shards, blocks)
+
+    def gather(self, v) -> torch.Tensor:
+        """A MeshVector of this mesh as one tensor on the first device:
+        its shards joined along the sharded dimension; counted."""
+        if not isinstance(v, MeshVector) or v.mesh is not self:
+            raise ValueError("gather takes a MeshVector of this mesh")
+        self.counts["gather"] += 1
+        self.counts["gather_bytes"] += v.numel() * v.element_size()
+        return torch.cat([s.to(self.devices[0]) for s in v.shards],
+                         dim=v.sdim)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
@@ -140,13 +175,12 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS,
     return Mesh(devs, axis)
 
 
-def shard_vector(v: torch.Tensor, npad: int, mesh: Mesh) -> torch.Tensor:
-    """v zero-padded to the padded row count, on the mesh's device."""
-    v = v.to(mesh.devices[0])
-    n = v.shape[0]
-    if n == npad:
-        return v.contiguous()
-    return torch.nn.functional.pad(v, (0, npad - n))
+def shard_vector(v: torch.Tensor, npad: int, mesh: Mesh):
+    """v zero-padded to the padded row count and cut into the mesh's
+    shards, npad / size rows each on its device (`Mesh.scatter`)."""
+    if v.shape[0] != npad:
+        v = torch.nn.functional.pad(v, (0, npad - v.shape[0]))
+    return mesh.scatter(v, npad // mesh.size)
 
 
 def _split(v: torch.Tensor, n_dev: int, dim: int = 0) -> List[torch.Tensor]:
@@ -187,22 +221,23 @@ def _dia_padded_rows(n: int, offsets) -> int:
 
 @dataclasses.dataclass
 class ShardedDIA:
-    """A DIA matrix cut for the mesh: data (k, npad), zero past n_rows,
-    whose column blocks are the shards' rows."""
+    """A DIA matrix cut for the mesh: shard k's (k, npad / size) columns
+    of the data, zero past n_rows, on mesh.devices[k]."""
 
-    data: torch.Tensor
+    data_shards: Tuple[torch.Tensor, ...]
     offsets: Tuple[int, ...]
     n_rows: int
     n_cols: int
 
     @property
     def npad(self) -> int:
-        return self.data.shape[1]
+        return sum(d.shape[1] for d in self.data_shards)
 
 
 def shard_dia(A, mesh: Mesh, axis: str = AXIS) -> ShardedDIA:
     """A DeviceDIA padded to the JAX package's row count and cut into the
-    mesh's row blocks; raises where a halo exceeds a shard."""
+    mesh's row blocks, each on its shard's device; raises where a halo
+    exceeds a shard."""
     npad = _dia_padded_rows(A.n_rows, A.offsets)
     n_dev = mesh.size
     if npad % n_dev:
@@ -214,10 +249,11 @@ def shard_dia(A, mesh: Mesh, axis: str = AXIS) -> ShardedDIA:
         raise ValueError(
             f"halo ({hneg},{hpos}) exceeds local shard length {local}; "
             "use fewer devices or a larger matrix")
-    data = torch.nn.functional.pad(A.data.to(mesh.devices[0]),
-                                   (0, npad - A.data.shape[1]))
-    return ShardedDIA(data=data, offsets=tuple(A.offsets), n_rows=A.n_rows,
-                      n_cols=A.n_cols)
+    data = torch.nn.functional.pad(A.data, (0, npad - A.data.shape[1]))
+    return ShardedDIA(
+        data_shards=tuple(d.to(dev, copy=True).contiguous() for d, dev in
+                          zip(_split(data, n_dev, 1), mesh.devices)),
+        offsets=tuple(A.offsets), n_rows=A.n_rows, n_cols=A.n_cols)
 
 
 def sharded_spmv_dia(mesh: Mesh, data_shards: Sequence[torch.Tensor],
@@ -257,7 +293,7 @@ class ShardedCG:
     cg.hpp:6-54) with per-shard dots summed by psum and the halo-exchanged
     SpMV.  Preconditioners: none, Jacobi (D_inv), or the symmetric
     two-stage form (L_strict, U_strict, D): each inner sweep one more
-    exchange.  Vectors are padded to npad rows."""
+    exchange.  Vectors are MeshVectors of npad rows (`shard_vector`)."""
 
     mesh: Mesh
     A: ShardedDIA
@@ -270,21 +306,17 @@ class ShardedCG:
     D: Optional[torch.Tensor] = None
     inner_iters: int = 1
 
-    def _shards(self, v, dim=0):
-        return _split(v, self.mesh.size, dim)
+    def _like(self, shards):
+        return MeshVector(shards, self.b.blocks)
 
-    def _spmv(self, M: ShardedDIA, v: torch.Tensor) -> torch.Tensor:
-        return torch.cat(sharded_spmv_dia(self.mesh, self._shards(M.data, 1),
-                                          M.offsets, self._shards(v)))
-
-    def _pdot(self, a, b):
-        return self.mesh.psum([torch.dot(u, v) for u, v in
-                               zip(self._shards(a), self._shards(b))])
+    def _spmv(self, M: ShardedDIA, v) -> torch.Tensor:
+        return self._like(sharded_spmv_dia(self.mesh, M.data_shards,
+                                           M.offsets, v.shards))
 
     def _two_stage(self, T: ShardedDIA, y):
-        return torch.cat(sharded_two_stage(
-            self.mesh, self._shards(T.data, 1), T.offsets,
-            self._shards(self.D_inv), self._shards(y), self.inner_iters))
+        return self._like(sharded_two_stage(
+            self.mesh, T.data_shards, T.offsets, self.D_inv.shards,
+            y.shards, self.inner_iters))
 
     def _apply_M(self, y):
         if self.L_strict is not None:
@@ -294,10 +326,14 @@ class ShardedCG:
             return y * self.D_inv
         return y
 
-    def init_state(self, x0: torch.Tensor) -> dict:
+    def init_state(self, x0) -> dict:
+        """The state from x0: a MeshVector like b, or one tensor of npad
+        rows, placed on the mesh (Mesh.scatter)."""
+        if not isinstance(x0, MeshVector):
+            x0 = shard_vector(x0, self.npad, self.mesh)
         r = self.b - self._spmv(self.A, x0)
         z = self._apply_M(r)
-        rn = torch.sqrt(self._pdot(r, r))
+        rn = torch.sqrt(torch.dot(r, r))
         return {"x": x0, "r": r, "z": z, "p": z, "residual_norm": rn}
 
     def step_fn(self):
@@ -305,14 +341,14 @@ class ShardedCG:
         def step(state):
             x, r, z, p = state["x"], state["r"], state["z"], state["p"]
             t = self._spmv(self.A, p)
-            rz = self._pdot(r, z)
-            alpha = rz / self._pdot(t, p)
+            rz = torch.dot(r, z)
+            alpha = rz / torch.dot(t, p)
             x = x + alpha * p
             r_new = r - alpha * t
             z_new = self._apply_M(r_new)
-            beta = self._pdot(r_new, z_new) / rz
+            beta = torch.dot(r_new, z_new) / rz
             p_new = z_new + beta * p
-            rn = torch.sqrt(self._pdot(r_new, r_new))
+            rn = torch.sqrt(torch.dot(r_new, r_new))
             return {"x": x, "r": r_new, "z": z_new, "p": p_new,
                     "residual_norm": rn}
         return step
@@ -357,10 +393,10 @@ def shard_setup(setup, mesh, axis: str = AXIS, mode: str = "auto"):
 
     * On the single-controller `Mesh`: the shard_map mode of the JAX
       package, the operators wrapped as mesh operators whose kernels run
-      per shard with halo exchange (parallel/mesh_ops.py); vectors stay
-      whole on the mesh's device.  "gspmd", and "auto" where the shard_map
-      mode refuses, raise naming the refusal: the GSPMD mode needs a
-      DeviceMesh, one process a shard.
+      per shard with halo exchange (parallel/mesh_ops.py), every row
+      vector a MeshVector, shard k's rows on mesh.devices[k].  "gspmd",
+      and "auto" where the shard_map mode refuses, raise naming the
+      refusal: the GSPMD mode needs a DeviceMesh, one process a shard.
     * On a torch.distributed `DeviceMesh` (`make_device_mesh`): "gspmd"
       and "auto" give the GSPMD form (parallel/gspmd.py); "shard_map"
       raises, that mode being single-controller."""
@@ -378,15 +414,9 @@ def shard_setup(setup, mesh, axis: str = AXIS, mode: str = "auto"):
             "gspmd mode needs a torch.distributed DeviceMesh, one process "
             "a shard (make_device_mesh); the single-controller Mesh runs "
             "mode 'shard_map'")
-    if len(set(mesh.devices)) != 1:
-        raise ValueError(
-            "this Mesh's shards must share one device; a Mesh over the "
-            f"devices {sorted(set(map(str, mesh.devices)))} needs per-device "
-            "vector storage, which is not ported (a DeviceMesh runs one "
-            "process a card: mode 'gspmd')")
-    if setup.b.device != mesh.devices[0]:
+    if setup.b.device not in mesh.devices:
         raise ValueError(f"the setup lies on {setup.b.device}, the mesh on "
-                         f"{mesh.devices[0]}")
+                         f"{sorted(set(map(str, mesh.devices)))}")
     try:
         return _shard_setup_mesh(setup, mesh, axis)
     except _MeshIneligible as e:
@@ -400,14 +430,16 @@ def shard_setup(setup, mesh, axis: str = AXIS, mode: str = "auto"):
 
 
 def _shard_setup_mesh(setup, mesh: Mesh, axis: str = AXIS):
-    """The shard_map mode: wrap every operator of the setup for the mesh;
+    """The shard_map mode: wrap every operator of the setup for the mesh,
+    all on one row block (`setup_rows`), and place every row vector of
+    the setup and its preconditioner as a MeshVector of that layout;
     raises _MeshIneligible, in the JAX package's order, for what cannot
     take the path."""
     from ..device_matrix import DeviceDIA
-    from ..ops.block_trisolve import SuperBlockTriSolve
+    from ..ops.block_trisolve import SuperBlockTriSolve, superblock_rows
     from ..ops.lane_ell import DeviceLaneELL
     from ..stencil_op import DeviceStencil
-    from .mesh_ops import wrap_dia, wrap_lane_ell, wrap_stencil
+    from .mesh_ops import row_block, wrap_dia, wrap_lane_ell, wrap_stencil
 
     M = setup.M
     if not all(B is None or isinstance(B, SuperBlockTriSolve)
@@ -431,56 +463,78 @@ def _shard_setup_mesh(setup, mesh: Mesh, axis: str = AXIS):
             raise _MeshIneligible(
                 "greedy color arrays don't shard with spec kernels")
 
-        def wrap(Mt):
+        def wrap(Mt, rows):
             if not isinstance(Mt, DeviceStencil):
                 raise _MeshIneligible("mixed matrix families in setup")
             return wrap_stencil(dataclasses.replace(Mt, shards=n_dev), mesh,
-                                axis)
+                                axis, rows)
     elif isinstance(A, DeviceDIA):
-        def wrap(Mt):
+        def wrap(Mt, rows):
             if not isinstance(Mt, DeviceDIA):
                 raise _MeshIneligible("mixed matrix families in setup")
-            return wrap_dia(Mt, mesh, axis)
+            return wrap_dia(Mt, mesh, axis, rows)
     elif isinstance(A, DeviceLaneELL):
         # greedy colour arrays (exact coloured GS/SGS on general CSR) are
         # row vectors like any other: each sweep step is one mesh SpMV and
         # a masked update, so the masks partition with the rows
-        def wrap(Mt):
+        def wrap(Mt, rows):
             if isinstance(Mt, DeviceLaneELL):
-                return wrap_lane_ell(Mt, mesh, axis)
+                return wrap_lane_ell(Mt, mesh, axis, rows)
             if isinstance(Mt, DeviceDIA):
-                return wrap_dia(Mt, mesh, axis)
+                return wrap_dia(Mt, mesh, axis, rows)
             raise _MeshIneligible("mixed matrix families in setup")
     else:
         raise _MeshIneligible(f"no mesh kernels for {type(A).__name__}")
-    if not isinstance(A, DeviceStencil) and setup.b.shape[0] % n_dev:
+    n = setup.b.shape[0]
+    if not isinstance(A, DeviceStencil) and n % n_dev:
         # the JAX package shards these vectors unpadded
-        raise _MeshIneligible(f"vector length {setup.b.shape[0]} not "
-                              f"divisible by {n_dev} devices")
-    A_new = wrap(A)
-    re_mat = lambda Mt: None if Mt is None else (  # noqa: E731
-        A_new if Mt is A else wrap(Mt))
+        raise _MeshIneligible(f"vector length {n} not divisible by "
+                              f"{n_dev} devices")
+    mats = {id(Mt): Mt for Mt in (A, M.L_strict_dev, M.U_strict_dev,
+                                  M.A_full_dev) if Mt is not None}
+    blocks = [B for B in (M.L_block, M.U_block) if B is not None]
+    try:
+        rows = setup_rows([row_block(Mt, n_dev) for Mt in mats.values()]
+                          + [superblock_rows(B, n_dev) for B in blocks])
+    except TypeError as e:
+        raise _MeshIneligible("mixed matrix families in setup") from e
+    wrapped = {k: wrap(Mt, rows) for k, Mt in mats.items()}
+    re_mat = lambda Mt: None if Mt is None else wrapped[id(Mt)]  # noqa: E731
+    vec = lambda v: None if v is None else mesh.scatter(v, rows)  # noqa: E731
     M_sh = dataclasses.replace(
-        M, L_strict_dev=re_mat(M.L_strict_dev),
+        M, A_D=vec(M.A_D), A_D_inv=vec(M.A_D_inv),
+        color_arr=vec(M.color_arr),
+        L_strict_dev=re_mat(M.L_strict_dev),
         U_strict_dev=re_mat(M.U_strict_dev),
         A_full_dev=re_mat(M.A_full_dev),
-        L_block=_mesh_blocks(M.L_block, mesh, axis),
-        U_block=_mesh_blocks(M.U_block, mesh, axis))
+        L_block=_mesh_blocks(M.L_block, mesh, axis, rows),
+        U_block=_mesh_blocks(M.U_block, mesh, axis, rows))
     # the GS methods' own superblock solves (setup.gs_L_block, gs_U_block)
-    # stay whole, as in the JAX package: they run on the whole solver
-    # vector, which works because every shard of this mesh lies on one
-    # device (shard_setup refuses a Mesh over several cards)
-    return dataclasses.replace(setup, A=A_new, M=M_sh)
+    # stay whole, as the JAX package places them replicated: the solver
+    # runs them through a counted gather and scatter (precond.run_whole)
+    return dataclasses.replace(
+        setup, A=wrapped[id(A)], M=M_sh, b=vec(setup.b), x0=vec(setup.x0),
+        A_D=vec(setup.A_D), color_arr=vec(setup.color_arr))
 
 
-def _mesh_blocks(B, mesh: Mesh, axis: str):
-    """A superblock solve cut into the mesh's shards
+def setup_rows(needs) -> int:
+    """The rows a shard of a setup whose operators need (least rows, unit)
+    each: the largest least row count, rounded up to a whole number of
+    every unit, so that one row block serves them all."""
+    import math
+    least = max(r for r, _u in needs)
+    unit = math.lcm(*(u for _r, u in needs))
+    return -(-least // unit) * unit
+
+
+def _mesh_blocks(B, mesh: Mesh, axis: str, rows: int):
+    """A superblock solve cut into the mesh's shards of `rows` rows
     (ops/block_trisolve.shard_superblock); a layout it refuses makes the
     whole setup ineligible for the shard_map mode."""
     if B is None:
         return None
     from ..ops.block_trisolve import BlockIneligibleError, shard_superblock
     try:
-        return shard_superblock(B, mesh, axis)
+        return shard_superblock(B, mesh, axis, rows)
     except BlockIneligibleError as e:
         raise _MeshIneligible(str(e)) from e

@@ -35,7 +35,7 @@ import torch
 
 from .config import SolverConfig
 from .matrix import MatrixCSR
-from .ops.blas1 import is_dtensor
+from .ops.blas1 import is_dtensor, is_mesh_vector
 from .stencil_op import DeviceStencil, stencil_diag_vec, stencil_split
 from .types import PrecondType
 
@@ -536,14 +536,26 @@ def _colored_solve(M: Preconditioner, y: torch.Tensor,
 
 
 def run_whole(fn, *args):
-    """fn(*args) for an apply that the GSPMD mode runs replicated on every
-    rank (superblock and rank-space solves, level scans, the multigrid
-    hierarchy; the JAX mode places them replicated): where an argument is
-    a row-sharded DTensor, parallel/gspmd.whole gathers it, runs fn whole
-    and keeps the rank's rows; on plain tensors fn itself."""
+    """fn(*args) for an apply that the JAX package's mesh modes run
+    replicated (superblock and rank-space solves, level scans, the
+    multigrid hierarchy): where an argument is a row-sharded DTensor,
+    parallel/gspmd.whole gathers it, runs fn whole and keeps the rank's
+    rows; where one is a MeshVector and the apply is not itself cut into
+    the mesh's shards (a MeshSuperBlockTriSolve takes the MeshVector as it
+    is), the vector is gathered to the mesh's first device (Mesh.gather),
+    fn runs whole there and its result goes back in the vector's layout
+    (Mesh.scatter), both counted; on plain tensors fn itself."""
     if any(is_dtensor(a) for a in args):
         from .parallel.gspmd import whole
         return whole(fn, *args)
+    like = next((a for a in args if is_mesh_vector(a)), None)
+    if like is not None:
+        from .ops.block_trisolve import MeshSuperBlockTriSolve
+        if not any(isinstance(a, MeshSuperBlockTriSolve) for a in args):
+            mesh = like.mesh
+            out = fn(*(mesh.gather(a) if is_mesh_vector(a) else a
+                       for a in args))
+            return mesh.scatter(out, like.blocks.rows)
     return fn(*args)
 
 

@@ -23,9 +23,10 @@ import numpy as np
 import torch
 
 from ..config import SolverConfig
-from ..ops.blas1 import euclidean_vec_norm, full_value, is_dtensor
+from ..ops.blas1 import (euclidean_vec_norm, full_value, is_dtensor,
+                         is_mesh_vector, is_sharded)
 from ..precond import (COLORED_PRECONDS, Preconditioner, resolve_gs_mode,
-                       setup_preconditioner)
+                       run_whole, setup_preconditioner)
 from ..stencil_op import (DeviceStencil, resolve_device, stencil_astype,
                           stencil_diag_vec)
 from ..types import PrecondType, SolverType
@@ -77,6 +78,19 @@ def _vector(v, n: int, fill: float, dtype, device) -> torch.Tensor:
     v = torch.as_tensor(v, dtype=dtype, device=device).contiguous()
     if v.shape != (n,):
         raise ValueError(f"vector has shape {tuple(v.shape)}, expected ({n},)")
+    return v
+
+
+def laid_out_like_b(setup, v: torch.Tensor):
+    """v, one tensor of the setup's rows on its first device, laid out as
+    the setup's b: row-sharded in the GSPMD mode, a MeshVector of b's
+    layout in the shard_map mode (Mesh.scatter), v itself otherwise."""
+    b = setup.b
+    if is_dtensor(b):
+        from ..parallel.gspmd import shard_rows
+        return shard_rows(v, b.device_mesh)
+    if is_mesh_vector(b):
+        return b.mesh.scatter(v, b.blocks.rows)
     return v
 
 
@@ -314,15 +328,16 @@ def _f64_operands(setup: SolverSetup):
     device, cached on the setup (one-time work).  A stencil or DIA matrix
     is upcast; a host-CSR setup's operator is rebuilt from the float64
     host matrix in the same format, so the residual sees the exact
-    values.  A mesh setup's oracle is its single-device operator (the
-    refinement forms reach the operator only through here); a GSPMD
-    setup's is its DTensor operator around the float64 copy, on the
-    ranks' rows of the sharded vectors."""
+    values.  A mesh setup's oracle is its mesh operator around the
+    float64 copy, on the shards' rows of its MeshVectors; a GSPMD setup's
+    is its DTensor operator around the float64 copy, on the ranks' rows
+    of the sharded vectors (the refinement forms reach the operator only
+    through here)."""
     cached = getattr(setup, "_f64_ops_cache", None)
     if cached is not None:
         return cached
     from ..device_matrix import DeviceDIA, DeviceELL, from_csr
-    from ..parallel.mesh_ops import DIST_TYPES, rewrap, unwrap
+    from ..parallel.mesh_ops import DIST_TYPES, MESH_TYPES, rewrap, unwrap
     A = unwrap(setup.A)
     if isinstance(A, DeviceStencil):
         A64 = stencil_astype(A, torch.float64)
@@ -332,7 +347,7 @@ def _f64_operands(setup: SolverSetup):
         A64 = from_csr(setup.A_host, torch.float64, fmt, device=A.device)
     else:
         A64 = dataclasses.replace(A, data=A.data.to(torch.float64))
-    if isinstance(setup.A, DIST_TYPES):
+    if isinstance(setup.A, DIST_TYPES + MESH_TYPES):
         A64 = rewrap(setup.A, A64)
     setup._f64_ops_cache = (A64, setup.b.to(torch.float64))
     return setup._f64_ops_cache
@@ -370,12 +385,12 @@ def explicit_residual_norm(setup: SolverSetup, x_star: torch.Tensor) -> float:
 
 def finalize_x(setup: SolverSetup, x_star: torch.Tensor) -> torch.Tensor:
     """Map the solution back to user coordinates (vector-layout decode,
-    then the inverse permutation), where the setup has them; a GSPMD
-    solution is mapped whole and keeps its row sharding."""
-    if is_dtensor(x_star) and (setup.x_decode is not None
+    then the inverse permutation), where the setup has them; a sharded
+    solution (either mode) is mapped whole and keeps its layout
+    (precond.run_whole)."""
+    if is_sharded(x_star) and (setup.x_decode is not None
                                or setup.inv_perm is not None):
-        from ..parallel.gspmd import whole
-        return whole(lambda x: finalize_x(setup, x), x_star)
+        return run_whole(lambda x: finalize_x(setup, x), x_star)
     if setup.x_decode is not None:
         x_star = setup.x_decode(x_star)
     if setup.inv_perm is not None:
@@ -619,7 +634,7 @@ def _host_refine_runner(setup: SolverSetup):
     """(start, step) of the per-outer form on the host-CSR oracle: the
     float64 residual b − A·x by the host matrix's NumPy SpMV, x and ‖r‖ on
     the host, the next right-hand side r/‖r‖ on the setup's device (None
-    when ‖r‖ = 0), row-sharded like b in the GSPMD mode."""
+    when ‖r‖ = 0), laid out like b (`laid_out_like_b`)."""
     dtype, device = setup.config.spec_dtype(), setup.b.device
     b64 = _host_vector(setup.b, setup.n, 0.0)
 
@@ -629,10 +644,7 @@ def _host_refine_runner(setup: SolverSetup):
         if rn == 0.0:
             return rn, None
         rhs = torch.from_numpy(r / rn).to(dtype=dtype, device=device)
-        if is_dtensor(setup.b):
-            from ..parallel.gspmd import shard_rows
-            rhs = shard_rows(rhs, setup.b.device_mesh)
-        return rn, rhs
+        return rn, laid_out_like_b(setup, rhs)
 
     def start(x0):
         if setup.x_decode is not None:
@@ -708,10 +720,7 @@ def _solve_refined(setup: SolverSetup) -> SolveResult:
             break
         prev_rn = rn
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(x).to(setup.b.device)
-        if is_dtensor(setup.b):
-            from ..parallel.gspmd import shard_rows
-            x = shard_rows(x, setup.b.device_mesh)
+        x = laid_out_like_b(setup, torch.from_numpy(x).to(setup.b.device))
     elif x.is_cuda:
         torch.cuda.synchronize(x.device)
     dt = time.perf_counter() - t0

@@ -39,8 +39,11 @@ row's norm comes out of `correct_write`.
 In the GSPMD mode (parallel/gspmd.py) the vectors are Shard(0) DTensors
 and V a Shard(1) DTensor: every rank runs the basis passes (#6, #7 in
 fused mode, the matrix products otherwise) on its own columns, and one
-all-reduce sums each pass's partial products.  H, Q, g, G and s stay
-plain tensors, the same on every rank.
+all-reduce sums each pass's partial products.  In the shard_map mode the
+vectors are MeshVectors and V one too, rows per shard (parallel/
+mesh_vector.py): the passes run on each shard's columns on its device,
+and Mesh.psum sums their partial products.  H, Q, g, G and s stay plain
+tensors (every rank's, or on the mesh's first device).
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ import torch
 from ..config import torch_dtype
 from ..ops import gmres_basis
 from ..ops.blas1 import (dot, euclidean_vec_norm, full_value, is_dtensor,
-                         replicated, subtract_vectors)
+                         is_mesh_vector, replicated, subtract_vectors)
 from ..ops.spmv import spmv
 from ..precond import apply_preconditioner
 from ..utils.ktimers import ktime
@@ -62,32 +65,51 @@ from .fused import fused_solve, gate, keep_if_stopped
 ORTHOG_MODES = ("mgs", "cgs2", "lowsync", "fused")
 
 
-def _loc(t):
-    """t's rank-local part: a DTensor's own rows or columns, else t."""
-    return t.to_local() if is_dtensor(t) else t
+def _parts(t):
+    """t's local parts: a DTensor's rank-local rows or columns, a
+    MeshVector's shards, else [t]."""
+    if is_dtensor(t):
+        return [t.to_local()]
+    if is_mesh_vector(t):
+        return list(t.shards)
+    return [t]
 
 
-def _like(local, x):
-    """A vector laid out like x from its rank-local rows."""
-    if not is_dtensor(x):
-        return local
-    from ..parallel.gspmd import rows_like
-    return rows_like(local, x)
+def _like(parts, x):
+    """A vector laid out like x from its local parts (`_parts`)."""
+    if is_dtensor(x):
+        from ..parallel.gspmd import rows_like
+        return rows_like(parts[0], x)
+    if is_mesh_vector(x):
+        from ..parallel.mesh_vector import MeshVector
+        return MeshVector(parts, x.blocks, check=False)
+    return parts[0]
 
 
-def _summed(parts, x):
-    """The ranks' partial products `parts` summed by one all-reduce where
-    x is a DTensor (plain tensors, every rank's whole value); as they are
-    otherwise."""
-    if not is_dtensor(x):
-        return parts
-    from ..parallel.gspmd import sum_partials
-    return sum_partials(parts, x.device_mesh)
+def _summed(per_part, x):
+    """Partial products summed across the parts, `per_part` one tuple of
+    plain tensors a local part: one all-reduce of the ranks' where x is a
+    DTensor, Mesh.psum of the shards' where x is a MeshVector (every
+    rank's whole value, or on the mesh's first device); the one part's
+    tuple otherwise."""
+    if is_dtensor(x):
+        from ..parallel.gspmd import sum_partials
+        return sum_partials(per_part[0], x.device_mesh)
+    if is_mesh_vector(x):
+        return tuple(x.mesh.psum(list(p)) for p in zip(*per_part))
+    return per_part[0]
+
+
+def _on(t, like):
+    """A small plain tensor (coefficients) on the device of `like`."""
+    return t.to(like.device)
 
 
 def _new_basis(rows: int, dtype, x):
-    """A zero (rows, n) basis: a Shard(1) DTensor of the ranks' columns
-    where x is a DTensor."""
+    """A zero (rows, n) basis laid out like x: a Shard(1) DTensor of the
+    ranks' columns, or a MeshVector of the shards' columns."""
+    if is_mesh_vector(x):
+        return x.blocks.zeros(dtype, lead=(rows,))
     if not is_dtensor(x):
         return torch.zeros((rows, x.numel()), dtype=dtype, device=x.device)
     from torch.distributed.tensor import DTensor, Shard
@@ -131,14 +153,10 @@ class GMRESMethod:
 
     def _fused_unavailable(self) -> str:
         """Why the fused basis kernels cannot take this solve ("" when
-        they can): a mesh operator, or the solve and basis dtypes.  The
-        GSPMD mode's DTensor operators take them, on each rank's columns
-        of V."""
-        from ..parallel.mesh_ops import MeshDIA, MeshLaneELL, MeshStencil
-        if isinstance(self.A, (MeshDIA, MeshLaneELL, MeshStencil)):
-            # the JAX package's mesh GMRES orthogonalises with the plain
-            # global operations (gmres.py:99-104)
-            return "mesh operators run orthogonalization as plain ops"
+        they can): the solve and basis dtypes.  Both modes of the mesh
+        take them, on each rank's or shard's columns of V (the JAX
+        package's mesh GMRES runs lowsync instead, gmres.py:99-104: its
+        Pallas kernels do not partition)."""
         if self.b.dtype != torch.float32:
             return f"needs a float32 solve dtype (got {self.b.dtype})"
         vdt = self.basis_dtype or torch.float32
@@ -175,12 +193,14 @@ class GMRESMethod:
             c0sq = full_value(replicated(torch.dot(v0f, v0f)))
             s = torch.zeros(m + 1, dtype=torch.float32, device=x.device)
             s[0] = torch.where(c0sq > 0, torch.rsqrt(c0sq), 0.0)
-            _loc(V)[0] = _loc(v0)
+            for Vk, vk in zip(_parts(V), _parts(v0)):
+                Vk[0] = vk
             state.update(s=s, v_cur=v0f)
             return state
         # v_cur carries the stored (basis-dtype-rounded) current row
         v0 = (r_prec / beta).to(vdt)
-        _loc(V)[0] = _loc(v0)
+        for Vk, vk in zip(_parts(V), _parts(v0)):
+            Vk[0] = vk
         state["v_cur"] = v0
         return state
 
@@ -203,7 +223,7 @@ class GMRESMethod:
         quantities `explicit_x` reads."""
         j = state["jh"]
         V, H, Q, beta = state["V"], state["H"], state["Q"], state["beta"]
-        Vl = _loc(V)
+        Vp = _parts(V)
         # w = M⁻¹ A v_j (gmres.hpp:168-176), the stored row upcast
         vj = state["v_cur"]
         w = apply_preconditioner(self.M, spmv(self.A, vj.to(self.b.dtype)))
@@ -218,18 +238,20 @@ class GMRESMethod:
                 s, G = state["s"], state["G"].clone()
                 sj = s[j]
                 wf = w * sj
-                Pw, Pv = _summed(gmres_basis.project_gram(
-                    Vl, _loc(wf), _loc(vj), j), w)
+                Pw, Pv = _summed([gmres_basis.project_gram(Vk, wk, vk, j)
+                                  for Vk, wk, vk in zip(Vp, _parts(wf),
+                                                        _parts(vj))], w)
                 h1 = s * Pw
                 gc = s * (sj * Pv)
                 G[:, j] = gc
                 G[j, :] = gc
                 h2 = h1 - G @ h1
                 h = h1 + h2
-                v_next, nrm2 = gmres_basis.correct_write(
-                    Vl, _loc(wf), gate(h * s, active), j)
-                v_next = _like(v_next, w)
-                (nrm2,) = _summed((nrm2,), w)
+                ht = gate(h * s, active)
+                outs = [gmres_basis.correct_write(Vk, wk, _on(ht, Vk), j)
+                        for Vk, wk in zip(Vp, _parts(wf))]
+                v_next = _like([o[0] for o in outs], w)
+                (nrm2,) = _summed([(o[1],) for o in outs], w)
                 H_new[:, j] = h
                 H_new[j + 1, j] = torch.sqrt(nrm2)
                 s_new = s.clone()
@@ -241,29 +263,34 @@ class GMRESMethod:
             else:
                 if self.orthog == "lowsync":
                     G = state["G"].clone()
-                    Vb = Vl[:j + 1].to(sdtype)
-                    rhs = torch.stack([_loc(w).to(V.dtype), _loc(vj)],
-                                      dim=1).to(sdtype)
+                    Vb = [Vk[:j + 1].to(sdtype) for Vk in Vp]
                     P = torch.zeros((self.m + 1, 2), dtype=sdtype,
                                     device=w.device)
-                    (P[:j + 1],) = _summed((Vb @ rhs,), w)
+                    (P[:j + 1],) = _summed([(
+                        Vbk @ torch.stack([wk.to(V.dtype), vk],
+                                          dim=1).to(sdtype),)
+                        for Vbk, wk, vk in zip(Vb, _parts(w), _parts(vj))],
+                        w)
                     h1, gc = P[:, 0], P[:, 1]
                     G[:, j] = gc               # the exact V·v_j column
                     G[j, :] = gc
                     h2 = h1 - G @ h1           # = V·(w − h1ᵀV), G-corrected
                     h = h1 + h2
-                    w = w - _like(h[:j + 1].to(V.dtype).to(sdtype) @ Vb, w)
+                    hc = h[:j + 1].to(V.dtype).to(sdtype)
+                    w = w - _like([_on(hc, Vbk) @ Vbk for Vbk in Vb], w)
                     H_new[:, j] = h
                     extra = {"G": keep_if_stopped(G, state["G"], active)}
                 elif self.orthog == "cgs2":
-                    Vb = Vl[:j + 1].to(sdtype)
+                    Vb = [Vk[:j + 1].to(sdtype) for Vk in Vp]
 
                     def proj(v):
-                        return _summed(
-                            (Vb @ _loc(v).to(V.dtype).to(sdtype),), w)[0]
+                        return _summed([
+                            (Vbk @ vk.to(V.dtype).to(sdtype),)
+                            for Vbk, vk in zip(Vb, _parts(v))], w)[0]
 
                     def expand(c):
-                        return _like(c.to(V.dtype).to(sdtype) @ Vb, w)
+                        c = c.to(V.dtype).to(sdtype)
+                        return _like([_on(c, Vbk) @ Vbk for Vbk in Vb], w)
 
                     h1 = proj(w)
                     w1 = w - expand(h1)
@@ -273,7 +300,7 @@ class GMRESMethod:
                 else:
                     # modified Gram-Schmidt against v_0..v_j (gmres.hpp:6-30)
                     for i in range(j + 1):
-                        vi = _like(Vl[i], w).to(sdtype)
+                        vi = _like([Vk[i] for Vk in Vp], w).to(sdtype)
                         hi = dot(w, vi)
                         H_new[i, j] = full_value(hi)
                         w = w - hi * vi
@@ -283,7 +310,8 @@ class GMRESMethod:
                 v_next = torch.where(
                     h_next > 0, w / torch.where(h_next > 0, h_next, 1.0),
                     0.0).to(V.dtype)
-                Vl[j + 1] = _loc(v_next)       # gmres.hpp:43-46
+                for Vk, vk in zip(Vp, _parts(v_next)):
+                    Vk[j + 1] = vk             # gmres.hpp:43-46
             return v_next, extra
 
         v_next, extra = ktime("orthog", orthog, w)
@@ -324,7 +352,8 @@ class GMRESMethod:
             R[:n_it, :n_it], g[:n_it, None], upper=True)[:, 0]
         if self.orthog == "fused":
             y = y * state["s"][:n_it].to(y.dtype)   # v_k = s_k·Vraw_k
-        dx = y.to(V.dtype).to(y.dtype) @ _loc(V)[:n_it].to(y.dtype)
+        c = y.to(V.dtype).to(y.dtype)
+        dx = [_on(c, Vk) @ Vk[:n_it].to(y.dtype) for Vk in _parts(V)]
         return state["x_old"] + _like(dx, state["x_old"])
 
     def _restart_state(self, state):

@@ -485,7 +485,7 @@ def _bind_spmv(A: DeviceStencil, x: torch.Tensor, dots, aux, stream: bool,
     outputs allocated; launch() makes the ctypes call and raises on a CUDA
     error.  The wrappers call it once a call; a timing loop may call
     launch() many times."""
-    from ._build import load_library
+    from ._build import launch as _launch, load_library
     use_diag, suffix = _kernel_form(A, x)
     kernel = "stencil_spmv_stream" if stream else "stencil_spmv"
     if route == "box":
@@ -525,13 +525,12 @@ def _bind_spmv(A: DeviceStencil, x: torch.Tensor, dots, aux, stream: bool,
     partials = (torch.empty((n_blocks, len(dots)), dtype=x.dtype,
                             device=x.device) if dots else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    argv = (x.device.index, ctypes.byref(args), *grid, ptr(x),
+    argv = (ctypes.byref(args), *grid, ptr(x),
             ptr(A.diag if use_diag else None),
-            ptr(aux if "aux" in dots else None), ptr(y), ptr(partials),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            ptr(aux if "aux" in dots else None), ptr(y), ptr(partials))
 
     def launch():
-        err = fn(*argv)
+        err = _launch(fn, x.device, *argv)
         if err != 0:
             raise RuntimeError(f"{kernel} kernel launch ({route} route) "
                                f"failed with CUDA error {err}")
@@ -739,7 +738,7 @@ def stencil_spmv_halo_plain(A: DeviceStencil, xw: torch.Tensor, row0: int,
 
 def _stencil_spmv_halo_cuda(A: DeviceStencil, xw, row0, rows, dots, aux,
                             diag, out):
-    from ._build import load_library
+    from ._build import launch as _launch, load_library
     use_diag, suffix = _kernel_form(A, xw)
     args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag,
                             tuple(dots))
@@ -751,10 +750,9 @@ def _stencil_spmv_halo_cuda(A: DeviceStencil, xw, row0, rows, dots, aux,
                             device=xw.device) if dots else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = getattr(load_library(), f"bis_stencil_spmv_halo_{suffix}")
-    err = fn(xw.device.index, ctypes.byref(args), row0, lines, A.n_rows,
-             A.halo[0], ptr(xw), ptr(diag if use_diag else None),
-             ptr(aux if "aux" in dots else None), ptr(y), ptr(partials),
-             torch.cuda.current_stream(xw.device).cuda_stream)
+    err = _launch(fn, xw.device, ctypes.byref(args), row0, lines, A.n_rows,
+                  A.halo[0], ptr(xw), ptr(diag if use_diag else None),
+                  ptr(aux if "aux" in dots else None), ptr(y), ptr(partials))
     if err != 0:
         raise RuntimeError(f"stencil_spmv_halo kernel launch failed with "
                            f"CUDA error {err}")
@@ -776,13 +774,14 @@ def stencil_spmv_halo(A: DeviceStencil, xw: torch.Tensor, row0: int,
     `out` when given.  A CUDA tensor launches the shard-local kernel
     (csrc/stencil_spmv.cu), counted in `stencil_spmv_halo.launches`
     (`.bf16_launches` for the bfloat16-diagonal form): y bit-equal to #1's
-    rows; a CPU tensor takes the plain version."""
+    rows; a CPU tensor takes the plain version (a meta tensor its
+    shapes)."""
     dots = tuple(dots)
     rows = _check_window(A, xw, row0, diag, out, dots, aux)
     if xw.device.type == "cuda":
         return _stencil_spmv_halo_cuda(A, xw, row0, rows, dots, aux, diag,
                                        out)
-    if xw.device.type != "cpu":
+    if xw.device.type not in ("cpu", "meta"):
         raise ValueError(f"no stencil SpMV for device {xw.device}")
     res = _spmv_window_plain(A, xw, row0, dots, aux, diag)
     if out is None:
@@ -971,7 +970,7 @@ def _gs_box_launch(A: DeviceStencil, x, spec, row0: int, rows: int,
 
 def _stencil_gs_color_step_cuda(A: DeviceStencil, x, rhs, dinv, spec, color,
                                 route: str = None):
-    from ._build import load_library
+    from ._build import launch as _launch, load_library
     use_diag, suffix = _kernel_form(A, x)
     if route is None:
         route = gs_route_for(A, x, rhs, dinv, spec)
@@ -985,13 +984,12 @@ def _stencil_gs_color_step_cuda(A: DeviceStencil, x, rhs, dinv, spec, color,
         fn = getattr(lib, f"bis_stencil_gs_color_step_{suffix}")
     else:
         raise ValueError(f"unknown GS step route {route!r}")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     diag = A.diag.data_ptr() if use_diag else None
     for c in _colors(color):
         out = torch.empty_like(x)
-        err = fn(x.device.index, ctypes.byref(args), *p, c, *grid,
-                 x.data_ptr(), diag, rhs.data_ptr(), dinv.data_ptr(),
-                 out.data_ptr(), stream)
+        err = _launch(fn, x.device, ctypes.byref(args), *p, c, *grid,
+                      x.data_ptr(), diag, rhs.data_ptr(), dinv.data_ptr(),
+                      out.data_ptr())
         if err != 0:
             raise RuntimeError(f"stencil_gs_color_step kernel launch ({route}"
                                f" route) failed with CUDA error {err}")
@@ -1053,7 +1051,7 @@ def gs_halo_route_for(A: DeviceStencil, xw: torch.Tensor,
 def _stencil_gs_color_step_halo_cuda(A: DeviceStencil, xw, row0, rows,
                                      rhs, dinv, spec, color, diag, out,
                                      route: str = None):
-    from ._build import load_library
+    from ._build import launch as _launch, load_library
     use_diag, suffix = _kernel_form(A, xw)
     if route is None:
         route = gs_halo_route_for(A, xw, rhs, dinv, spec, diag, out)
@@ -1071,15 +1069,14 @@ def _stencil_gs_color_step_halo_cuda(A: DeviceStencil, xw, row0, rows,
         shard = (row0, rows // A.dims[0], A.n_rows, hneg)
     else:
         raise ValueError(f"unknown GS step route {route!r}")
-    stream = torch.cuda.current_stream(xw.device).cuda_stream
     d = diag.data_ptr() if use_diag else None
     colors = _colors(color)
     for j, c in enumerate(colors):
         y = out if (out is not None and j + 1 == len(colors)) else \
             torch.empty_like(xw[:rows])
-        err = fn(xw.device.index, ctypes.byref(args), *p, c, *grid, *shard,
-                 xw.data_ptr(), d, rhs.data_ptr(), dinv.data_ptr(),
-                 y.data_ptr(), stream)
+        err = _launch(fn, xw.device, ctypes.byref(args), *p, c, *grid,
+                      *shard, xw.data_ptr(), d, rhs.data_ptr(),
+                      dinv.data_ptr(), y.data_ptr())
         if err != 0:
             raise RuntimeError(f"stencil_gs_color_step_halo kernel launch "
                                f"({route} route) failed with CUDA error "

@@ -196,9 +196,11 @@ exits non-zero:
      forced onto the counted route), SGS on fdm:2048 (200; the mesh also
      with #3's shard launches forced onto the leg loop), single-device
      and 8-shard mesh in turns, with ms/iter, launches and the mesh's
-     exchanges an iteration; f64 CG + Jacobi to 1e-8 at 128^3 on both,
-     equal counts; one step and a solve of the standalone distributed CG
-     (make_sharded_cg) on the DIA 128^3 matrix;
+     exchanges an iteration, the mesh's vectors row-sharded MeshVectors
+     (a shard's rows its own tensor) and the mesh census of each row (no
+     vector gathered whole in the loop); f64 CG + Jacobi to 1e-8 at 128^3
+     on both, equal counts; one step and a solve of the standalone
+     distributed CG (make_sharded_cg) on the DIA 128^3 matrix;
  35b. the GSPMD mode ([gspmd], after [slice8]): NCCL in this process at
      world size 1, `make_device_mesh()`; CG on the 128^3 stencil (300),
      single-device, 8-shard mesh and GSPMD in turns, with ms/iter, equal
@@ -224,9 +226,16 @@ exits non-zero:
      counts (300, 300, 200, 300),
      single-device and 8-shard mesh in turns (pcg_ilu0@fdm2048 on the
      line and the direct route too, the four in turns), with ms/iter, #9's
-     mesh launches by mode and route, exchanges and peak memory; f64 CG +
-     SGS to 1e-8 at 128^3
-     on both, equal counts;
+     mesh launches by mode and route, exchanges and peak memory, and the
+     mesh census of each row (no vector gathered whole in the loop); f64
+     CG + SGS to 1e-8 at 128^3 on both, equal counts;
+ 37b. the mesh over every card ([mesh-cards], after [slice8b]): with two
+     or more cards, CG and DIA CG at 128^3, SGS on fdm:2048 and pcg_ilu0
+     at 128^3 on make_mesh() against one device (equal counts, histories
+     within 1e-3, every shard's data on its card, no gather in the loop),
+     f64 CG + Jacobi to 1e-8 within 1e-8; with one card it prints that it
+     did not run.  After every mesh phase the process's current card is
+     checked to be the one it was before;
  38. the basis kernels' device time a GMRES(50) iteration ([orthog], run
      last): the slice-2 GMRES row with the ring and the strided route in
      turns, ms/iter and the profiler's phase table of two restart cycles.
@@ -1647,7 +1656,7 @@ def _check_levels(torch, bk, label, B, y, x, levels, timed=True,
     work = _plane_level_work if B.dinv_rows is not None else _level_work
     ms, plain_ms, worst = [], [], 0.0
     for li in levels:
-        route = bk.level_route_for(B, li, x.element_size())
+        route = bk.level_route_for(B, li, x.element_size(), device=x.device)
         outs, counts = {}, {}
         for rt in routes:
             before = (getattr(bk.super_level, attr),
@@ -4659,7 +4668,8 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
             if main:
                 single_ms = _device_ms(
                     lambda: so._stencil_spmv_cuda(A, x, dots, aux), torch)
-                call_ms = _median_ms(lambda: mo.mesh_stencil_spmv(W, x, dots),
+                x8 = mesh.scatter(x, R)
+                call_ms = _median_ms(lambda: mo.mesh_stencil_spmv(W, x8, dots),
                                      torch)
                 M_csr = _stencil_csr(torch, A)
                 lib_ms = _median_ms(lambda: M_csr @ x, torch)
@@ -4746,8 +4756,9 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
                     MESH_SHARDS)], torch, reps=5, batch=2)
                 single_ms = _device_ms(lambda: so.stencil_gs_color_step(
                     A, x, rhs, dinv, cs, 0), torch)
+                x8, rhs8, dinv8 = (mesh.scatter(v, R) for v in (x, rhs, dinv))
                 call_ms = _median_ms(lambda: mo.mesh_gs_color_step(
-                    W, x, rhs, dinv, cs, 0), torch)
+                    W, x8, rhs8, dinv8, cs, 0), torch)
                 n_c = n // cs.n_colors
                 bound = _bound(window_bytes(wins, item)
                                + item * (n + 2 * n_c),
@@ -4797,7 +4808,8 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
               f"the single-device kernel")
         if main:
             single_ms = _device_ms(lambda: ds.dia_spmv(A, x), torch)
-            call_ms = _median_ms(lambda: mo.mesh_dia_spmv(W, x), torch)
+            x8 = mesh.scatter(x, R)
+            call_ms = _median_ms(lambda: mo.mesh_dia_spmv(W, x8), torch)
             lib_ms = _median_ms(lambda: M_csr @ x, torch)
             k = len(A.offsets)
             bound = _bound(k * MESH_SHARDS * R * item
@@ -4883,7 +4895,8 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
                                             E.S)
                 for k in range(MESH_SHARDS)], torch, reps=5, batch=2)
             single_ms = _device_ms(lambda: le.lane_ell_spmv(M, x), torch)
-            call_ms = _median_ms(lambda: mo.mesh_lane_ell_spmv(W, x), torch)
+            x8 = mesh.scatter(x, W.blocks.rows)
+            call_ms = _median_ms(lambda: mo.mesh_lane_ell_spmv(W, x8), torch)
             lib_ms = _device_ms(lambda: C @ x, torch)
             # like for like: 8 CSR SpMVs, each over one shard's rows
             rows_k = R * le.LANES
@@ -4964,8 +4977,9 @@ def phase_slice8(torch, bt, sband):
     import math
     import numpy as np
     from basic_iterative_solvers_tpu_torch.ops import lane_ell as le
+    from basic_iterative_solvers_tpu_torch.ops.blas1 import full_value
     from basic_iterative_solvers_tpu_torch.parallel import (
-        make_mesh, make_sharded_cg, shard_setup)
+        make_mesh, make_sharded_cg, mesh_census, shard_setup)
     from basic_iterative_solvers_tpu_torch.solvers import make_method
     from basic_iterative_solvers_tpu_torch.stencil_op import sm_count
     S = bt.SolverType
@@ -5047,6 +5061,7 @@ def phase_slice8(torch, bt, sband):
             if which != "single":
                 ok = ok and counts[kernel] >= MESH_SHARDS * iters
                 ok = ok and exch["psum_bytes"] <= 8 * 3 * 8 * exch["psum"]
+                ok = ok and exch["gather"] == 0
             if which == "mesh":
                 launches.setdefault(kernel, counts[kernel])
             if gs and which != "single":
@@ -5080,12 +5095,17 @@ def phase_slice8(torch, bt, sband):
                      f"{exch['ppermute'] / it:.3f} "
                      f"({exch['ppermute_bytes'] / it / 1e6:.4f} MB) psum="
                      f"{exch['psum'] / it:.3f} ({exch['psum_bytes'] / it:.1f}"
-                     f" B)" if which != "single" else "")
+                     f" B) gather={exch['gather'] / it:.3f}"
+                     if which != "single" else "")
                   + (f" #5 halo route {shape_route} (the launch shape's)"
                      if which == "mesh" and lane else ""))
             if not ok:
                 raise RuntimeError(f"[slice8] {label} {which} failed its "
                                    "checks")
+        _print_census("slice8", label, mesh_census(s8))
+        print(f"[slice8] {label}: ms/iter in turns single={ms['single']} "
+              f"mesh={ms['mesh']} (per-card vector storage, "
+              f"{MESH_SHARDS} shards on one card)")
         numbers[name] = ms
         del s1, s8, m1, m8
 
@@ -5145,7 +5165,7 @@ def phase_slice8(torch, bt, sband):
                                preconditioner=bt.PrecondType.JACOBI,
                                max_iters=2000),
             b=b, x0=torch.zeros(n, dtype=dt, device="cuda")))
-        err = float((state["x"][:n] - x_star).abs().max())
+        err = float((full_value(state["x"])[:n] - x_star).abs().max())
         print(f"[slice8] make_sharded_cg {MAIN_SPEC} f64 DIA + Jacobi to "
               f"1e-8: iters={it} (single-device CG + Jacobi "
               f"{ref.iter_count}) ms/iter={1e3 * secs / it:.3f} "
@@ -5173,6 +5193,17 @@ def _history_dev(got, ref, floor=0.0):
         return float("inf")
     keep = ref > floor * ref[0]
     return float((abs(got[keep] - ref[keep]) / ref[keep]).max())
+
+
+def _print_census(phase, label, c):
+    """Print a mesh census (parallel/census.mesh_census) and raise where
+    its loop gathers or scatters a vector whole."""
+    print(f"[{phase}] {label}: mesh census an iteration {c['in_while']}, "
+          f"full gathers and scatters {c['full_gathers']}")
+    if (c["in_while"]["all-gather"] or c["in_while"]["scatter"]
+            or c["full_gathers"]):
+        raise RuntimeError(f"[{phase}] {label}: the mesh loop gathers or "
+                           "scatters a vector whole")
 
 
 def phase_gspmd(torch, bt):
@@ -5556,8 +5587,9 @@ def phase_mesh_super_level(torch, bt, setup5b, library):
                         bk._mesh_exchange(MB, li, wins)
 
                     call_ms = _median_ms(mesh_level, torch)
+                    y8 = mesh.scatter(y, R)
                     solve_mesh_ms = _median_ms(
-                        lambda: bk._solve_super_mesh(MB, y), torch, reps=5)
+                        lambda: bk._solve_super_mesh(MB, y8), torch, reps=5)
                     out = torch.empty_like(y)
                     solve_ms = _median_ms(
                         lambda: bk._solve_super(B, y, out), torch, reps=5)
@@ -5613,6 +5645,29 @@ SLICE8B_ROWS = (("pcg", 300), ("pcg_ilu0", 300),
                 ("pbicgstab@anderson128", 200), ("pcg_ilu0@fdm2048", 300))
 
 
+def _slice8b_f64_prefix(torch, bt, mesh, name):
+    """`name`'s first ten residuals in float64, the mesh against one
+    device, within 1e-8 (the f64 mesh checks' tolerance), equal counts."""
+    import numpy as np
+    from basic_iterative_solvers_tpu_torch.parallel import shard_setup
+    s1 = _colored_host_setup(torch, bt, FDM_5B, torch.float64,
+                             "CONJUGATE_GRADIENT", "ILU0", max_iters=9,
+                             tolerance=0.0, breakdown_stall=True)[0]
+    r1 = bt.solve(s1)
+    r8 = bt.solve(shard_setup(s1, mesh, mode="shard_map"))
+    h1, h8 = (np.asarray(r.residual_norms[:10]) for r in (r1, r8))
+    dev = (float(np.max(np.abs(h8 - h1) / h1)) if h1.shape == h8.shape
+           else float("inf"))
+    print(f"[slice8b] {name} f64: the mesh's first ten residuals against "
+          f"the single-device solve's: max rel difference {dev:.3e} "
+          f"(iters {r1.iter_count}, {r8.iter_count})")
+    if not (r1.iter_count == r8.iter_count and dev <= 1e-8):
+        raise RuntimeError(f"[slice8b] {name}: the f64 mesh history "
+                           "departs from the single-device one")
+    del s1, r1, r8
+    torch.cuda.empty_cache()
+
+
 def phase_slice8b(torch, bt, setup5b):
     """[slice8b]: the superblock rows on the 8-shard mesh on the card, f32,
     fused, tolerance 0, b = 2, x0 = 1, at full size: pcg (CG + SGS, const
@@ -5629,7 +5684,9 @@ def phase_slice8b(torch, bt, setup5b):
     picker names), the mesh's exchanges and bytes an iteration, peak
     memory, and the
     mesh's history against the single-device one (the CG rows' first ten
-    residuals within 1e-4: f32, the psum sums the dots per shard).  Then
+    residuals within 1e-4: f32, the psum sums the dots per shard; and
+    pcg_ilu0@fdm2048's also in f64 within 1e-8), and the mesh census.
+    Then
     f64 CG + SGS at 128^3 to 1e-8·||r0|| on the mesh and on one device:
     equal counts, histories within rtol 1e-8; and f64 BiCGSTAB + SGS on
     anderson128, six steps on each, its first three residuals within rtol
@@ -5639,6 +5696,7 @@ def phase_slice8b(torch, bt, setup5b):
     import numpy as np
     from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
     from basic_iterative_solvers_tpu_torch.parallel import (make_mesh,
+                                                            mesh_census,
                                                             shard_setup)
     from basic_iterative_solvers_tpu_torch.solvers import make_method
     S, P = bt.SolverType, bt.PrecondType
@@ -5776,6 +5834,12 @@ def phase_slice8b(torch, bt, setup5b):
         if name.startswith("pcg") and not dev <= 1e-4:
             raise RuntimeError(f"[slice8b] {name}: the mesh's history "
                                "departs from the single-device one")
+        if name == "pcg_ilu0@fdm2048":
+            _slice8b_f64_prefix(torch, bt, mesh, name)
+        _print_census("slice8b", name, mesh_census(s8))
+        print(f"[slice8b] {name}: ms/iter in turns single={ms['single']} "
+              f"mesh={ms['mesh']} (per-card vector storage, "
+              f"{MESH_SHARDS} shards on one card)")
         numbers[name] = ms
         del s1, s8, m1, m8, L8, U8
     torch.cuda.empty_cache()
@@ -5827,6 +5891,161 @@ def phase_slice8b(torch, bt, setup5b):
     del s1
     torch.cuda.empty_cache()
     return launches, numbers
+
+
+#: [mesh-cards]' f32 rows: iterations of each (tolerance 0)
+MESH_CARDS_ITERS = 100
+
+
+def _on_cards(mesh, vectors=(), operators=()) -> int:
+    """Check that every per-shard tensor of the MeshVectors `vectors` and
+    of the mesh operators and superblock solves `operators` (their shard
+    tuples, the superblock shards' tensors and exchange indices) lies on
+    its shard's card; returns how many it checked."""
+    import dataclasses
+    import torch
+    count = 0
+
+    def check(t, k):
+        nonlocal count
+        if isinstance(t, torch.Tensor):
+            if t.device != mesh.devices[k]:
+                raise RuntimeError(f"[mesh-cards] shard {k}'s data lies on "
+                                   f"{t.device}, not {mesh.devices[k]}")
+            count += 1
+        elif isinstance(t, (tuple, list)):
+            for u in t:
+                check(u, k)
+        elif dataclasses.is_dataclass(t) and not isinstance(t, type):
+            for f in dataclasses.fields(t):
+                if f.name not in ("B", "inner", "_args"):
+                    check(getattr(t, f.name), k)
+
+    def per_shard(parts):
+        if len(parts) != mesh.size:
+            raise RuntimeError(f"[mesh-cards] {len(parts)} shard parts for "
+                               f"{mesh.size} cards")
+        for k, part in enumerate(parts):
+            check(part, k)
+
+    for v in vectors:
+        if v is not None:
+            per_shard(v.shards)
+    for op in operators:
+        if op is None:
+            continue
+        for name in ("ops", "diag_shards", "data_shards", "vals_shards",
+                     "idx_shards", "len_shards", "shards"):
+            if getattr(op, name, None):
+                per_shard(getattr(op, name))
+        for level in getattr(op, "exchange", ()):
+            per_shard(level)
+    return count
+
+
+def _setup_on_cards(setup, mesh) -> int:
+    """_on_cards over a mesh setup's vectors, operators and blocks."""
+    M = setup.M
+    return _on_cards(
+        mesh, (setup.b, setup.x0, setup.A_D, setup.color_arr, M.A_D,
+               M.A_D_inv, M.color_arr),
+        (setup.A, M.L_strict_dev, M.U_strict_dev, M.A_full_dev, M.L_block,
+         M.U_block))
+
+
+def phase_mesh_cards(torch, bt):
+    """[mesh-cards]: the shard_map mode on make_mesh() over every card,
+    where there are two or more: CG on the 128^3 stencil, DIA CG at 128^3,
+    SGS on fdm:2048 and pcg_ilu0 at 128^3 (f32, fused, tolerance 0,
+    MESH_CARDS_ITERS iterations, b = 2, x0 = 1) against one device: equal
+    counts, histories within [slice8]'s f32 1e-3 above 1e-3·||r0||, every
+    shard's vectors and operator data on its card, x back on the cards, no
+    vector gathered whole in the loop (the mesh census); then f64 CG +
+    Jacobi at 128^3 to 1e-8 within [slice8]'s 1e-8 of one device.  With
+    one card it says that it did not run."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"[mesh-cards] not run: {count} card")
+        return None
+    from basic_iterative_solvers_tpu_torch.parallel import (
+        make_mesh, mesh_census, shard_setup)
+    S, P = bt.SolverType, bt.PrecondType
+    mesh = make_mesh()
+    iters = MESH_CARDS_ITERS
+    kw = dict(max_iters=iters, tolerance=0.0, breakdown_stall=True)
+
+    def dia_cg():
+        A = bt.dia.from_source_device(MAIN_SPEC, torch.float32,
+                                      device="cuda")
+        n = A.n_rows
+        return bt.preprocessing_device(
+            A, bt.SolverConfig(dtype=torch.float32, harness="fused", **kw),
+            b=torch.full((n,), 2.0, device="cuda"),
+            x0=torch.full((n,), 1.0, device="cuda"))
+
+    rows = (("cg", lambda: _hpcg_cg(torch, bt, MAIN_SPEC, torch.float32,
+                                    **kw)),
+            ("dia_cg", dia_cg),
+            ("sgs@fdm2048", lambda: _setup(
+                torch, bt, "fdm:2048", torch.float32, "cuda",
+                S.SYMMETRIC_GAUSS_SEIDEL, max_iters=iters, tolerance=0.0)),
+            ("pcg_ilu0", lambda: _hpcg_cg(torch, bt, MAIN_SPEC, torch.float32,
+                                          preconditioner=P.ILU0, **kw)))
+    out = {}
+    for name, make in rows:
+        torch.cuda.empty_cache()
+        s1 = make()
+        sm = shard_setup(s1, mesh, mode="shard_map")
+        placed = _setup_on_cards(sm, mesh)
+        res = {}
+        for which, setup in (("single", s1), ("cards", sm), ("cards", sm),
+                             ("single", s1)):
+            r = bt.solve(setup)
+            res.setdefault(which, []).append(r)
+        r1, rm = res["single"][-1], res["cards"][-1]
+        dev = _history_dev(rm.residual_norms, r1.residual_norms, 1e-3)
+        _on_cards(mesh, (rm.x_star,))
+        ms = {w: [round(1e3 * r.solve_seconds / max(1, r.iter_count), 5)
+                  for r in rs] for w, rs in res.items()}
+        print(f"[mesh-cards] {name} f32 on {mesh.size} cards: iters "
+              f"single={r1.iter_count} cards={rm.iter_count}, max rel "
+              f"history difference above 1e-3·||r0|| {dev:.3e}, "
+              f"{placed} shard tensors each on its card, ms/iter in turns "
+              f"{ms}")
+        if not (r1.iter_count == rm.iter_count == iters and dev <= 1e-3):
+            raise RuntimeError(f"[mesh-cards] {name} differs from one "
+                               "device")
+        _print_census("mesh-cards", name, mesh_census(sm))
+        out[name] = ms
+        del s1, sm, res, r1, rm
+    res = {}
+    for which in ("single", "cards"):
+        setup = _hpcg_cg(torch, bt, MAIN_SPEC, torch.float64,
+                         preconditioner=P.JACOBI, tolerance=1e-8,
+                         max_iters=2000)
+        if which == "cards":
+            setup = shard_setup(setup, mesh, mode="shard_map")
+        res[which] = bt.solve(setup)
+    r1, rm = res["single"], res["cards"]
+    dev = _history_dev(rm.residual_norms, r1.residual_norms)
+    print(f"[mesh-cards] {MAIN_SPEC} f64 CG + Jacobi to 1e-8 on "
+          f"{mesh.size} cards: iters single={r1.iter_count} "
+          f"cards={rm.iter_count} max rel history difference {dev:.3e}")
+    if not (r1.converged and rm.converged
+            and r1.iter_count == rm.iter_count and dev <= 1e-8):
+        raise RuntimeError("[mesh-cards] the f64 solve on the cards differs "
+                           "from one device")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_card(torch, phase, before):
+    """Raise where a phase left the process on another current card."""
+    now = torch.cuda.current_device()
+    print(f"[{phase}] current device {now} (before the phase {before})")
+    if now != before:
+        raise RuntimeError(f"[{phase}] the phase left the process on card "
+                           f"{now}, not {before}")
 
 
 def main():
@@ -5890,11 +6109,15 @@ def main():
     lap("slice5_path")
     bf16_records = phase_bf16_vs_plain(torch, bt, sband)
     lap("bf16")
+    card = torch.cuda.current_device()
     mesh_records = phase_mesh_kernel_vs_plain(torch, bt, sband)
+    _same_card(torch, "mesh-kernel", card)
     lap("mesh-kernel")
     mesh_launches, _slice8 = phase_slice8(torch, bt, sband)
+    _same_card(torch, "slice8", card)
     lap("slice8")
     gspmd_launches, _gspmd = phase_gspmd(torch, bt)
+    _same_card(torch, "gspmd", card)
     lap("gspmd")
     del sband, band
     setup5b, _gen5b, setup5b_s = phase_slice5b_build(torch, bt)
@@ -5914,11 +6137,16 @@ def main():
         torch, bt, setup5b, {"const": mega_record["library_ms"],
                              "table": whole_l["library_ms"],
                              "plane": whole5b["library_ms"]})
+    _same_card(torch, "mesh-super-level", card)
     lap("mesh_super_level")
     mesh_super_launches, _slice8b = phase_slice8b(torch, bt, setup5b)
     del setup5b
     torch.cuda.empty_cache()
+    _same_card(torch, "slice8b", card)
     lap("slice8b")
+    phase_mesh_cards(torch, bt)
+    _same_card(torch, "mesh-cards", card)
+    lap("mesh_cards")
     stream_record = phase_stream_vs_plain(torch, bt, record["library_ms"])
     lap("stream_vs_plain")
     phase_routes_bit_equal(torch, bt)

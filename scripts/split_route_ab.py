@@ -121,7 +121,8 @@ def _fused(torch, bk, name, pair, dt, tree):
         for li in range(len(B.levels)):
             rows.append({
                 "upper": B.upper, "level": li,
-                "route": bk.level_route_for(B, li, x.element_size()),
+                "route": bk.level_route_for(B, li, x.element_size(),
+                                            device=x.device),
                 "ms": chip_smoke._device_ms(
                     lambda: bk.super_level(B, li, y, x), torch,
                     sleep_cycles=SLEEP)})

@@ -232,6 +232,18 @@ MESH_SPECS = ["hpcg:16x12x10", "hpcg:8x8x8", "fdm:70",
               "anderson:Lx=9,Ly=7,Lz=6,t=1.0,ranpot=4.0,seed=1"]
 
 
+def _rows(W, v):
+    """v placed on mesh operator W's shards in its layout."""
+    return W.mesh.scatter(v, W.blocks.rows)
+
+
+def _whole(W, v):
+    """A MeshVector of W's layout, each shard on its device, gathered."""
+    assert v.blocks == W.blocks
+    assert [s.device for s in v.shards] == list(W.mesh.devices)
+    return W.mesh.gather(v)
+
+
 def _mesh_operands(card, kind, spec, dt, mat_dt):
     """(single-device operator, mesh operator, x) on an 8-shard mesh on
     the card."""
@@ -293,7 +305,8 @@ def test_halo_forms_equal_single_device_and_plain(card, kind, spec, dt,
         for c in colors:
             y1 = tso.stencil_gs_color_step(A, x, rhs, dinv, cs, c)
             before = getattr(counter, attr)
-            y8 = mesh_ops.mesh_gs_color_step(W, x, rhs, dinv, cs, c)
+            y8 = _whole(W, mesh_ops.mesh_gs_color_step(
+                W, _rows(W, x), _rows(W, rhs), _rows(W, dinv), cs, c))
             assert getattr(counter, attr) == before + n_dev * len(c)
             assert torch.equal(y1, y8), c
             p1 = tso.stencil_gs_color_step_plain(A, x, rhs, dinv, cs, c)
@@ -303,15 +316,15 @@ def test_halo_forms_equal_single_device_and_plain(card, kind, spec, dt,
     if kind == "stencil":
         y1 = tso._stencil_spmv_cuda(A, x, (), None)
         counter = tso.stencil_spmv_halo
-        y8 = mesh_ops.mesh_stencil_spmv(W, x)
+        y8 = _whole(W, mesh_ops.mesh_stencil_spmv(W, _rows(W, x)))
     elif kind == "dia":
         y1 = dia_spmv.dia_spmv(A, x)
         counter = dia_spmv.dia_spmv_halo
-        y8 = mesh_ops.mesh_dia_spmv(W, x)
+        y8 = _whole(W, mesh_ops.mesh_dia_spmv(W, _rows(W, x)))
     else:
         y1 = lane_ell.lane_ell_spmv(A, x)
         counter = lane_ell.lane_ell_spmv_halo
-        y8 = mesh_ops.mesh_lane_ell_spmv(W, x)
+        y8 = _whole(W, mesh_ops.mesh_lane_ell_spmv(W, _rows(W, x)))
     assert torch.equal(y1, y8)
     # each shard against its plain twin, on the same window
     attr = "bf16_launches" if mat_dt == torch.bfloat16 else "launches"
@@ -893,7 +906,8 @@ def test_table_level_staged_equals_plain_and_direct(card, spec, dt, levels):
         lis = (range(len(B.levels)) if levels == "all"
                else (len(B.levels) - 1,))
         for li in lis:
-            assert bk.level_route_for(B, li, x.element_size()) == route
+            assert bk.level_route_for(B, li, x.element_size(),
+                                      device=x.device) == route
             attr = f"table_{route}_launches"
             before = getattr(bk.super_level, attr)
             xs, xd, xp = x.clone(), x.clone(), x.clone()
@@ -1131,7 +1145,8 @@ def test_gs_halo_routes_equal_single_device(card, spec, mat_dt):
             assert torch.equal(box[:n], single), (R, c)
             assert not bool(box[n:].any())
         before = _routes(fn)
-        y8 = mesh_ops.mesh_gs_color_step(W, x, rhs, dinv, cs, 0)
+        y8 = _whole(W, mesh_ops.mesh_gs_color_step(
+            W, _rows(W, x), _rows(W, rhs), _rows(W, dinv), cs, 0))
         assert _routes(fn) == (before[0] + W.n_devices, before[1])
         assert torch.equal(y8, tso.stencil_gs_color_step(A, x, rhs, dinv, cs,
                                                          0))
@@ -1249,7 +1264,7 @@ def test_split_apply_takes_the_picked_route(card, spec, mode, route,
     L, U = _split_pair(card, spec, mode, dt, monkeypatch)
     for B in (L, U):
         for li in range(len(B.levels)):
-            assert bk.level_route_for(B, li, 4) == route
+            assert bk.level_route_for(B, li, 4, device=card) == route
     y = torch.randn(L.n_rows, dtype=dt, device=card)
     before = _split_counts(bk)
     z = bk.blocked_ilu0(L, U, y)

@@ -31,6 +31,7 @@ from basic_iterative_solvers_tpu_torch.parallel import mesh_ops as tmo
 from basic_iterative_solvers_tpu_torch.parallel.sharded import (
     _halo, _halo_exchange, _split)
 from tests.test_torch_ilu0_factor import numpy_branch  # noqa: F401
+from tests.test_torch_mesh_solve import mesh_x
 
 CPU = "cpu"
 STENCILS = ["hpcg:8x6x4", "hpcg:8x8x8", "fdm:16",
@@ -49,6 +50,11 @@ def interpret():
 @pytest.fixture(scope="module")
 def mesh8():
     return make_mesh(8, device=CPU)
+
+
+def _on(M, v):
+    """v placed on M's mesh in M's layout (a MeshVector)."""
+    return M.mesh.scatter(v, M.blocks.rows)
 
 
 def _mesh_stencil(spec, dtype, mesh):
@@ -87,7 +93,7 @@ def test_mesh_stencil_spmv_matches_jax_mesh(interpret, rng):
     A, M = _mesh_stencil("hpcg:8x6x4", torch.float32, make_mesh(8,
                                                                 device=CPU))
     xt = torch.from_numpy(x)
-    yt = spmv(M, xt)
+    yt = mesh_x(spmv(M, _on(M, xt)))
     np.testing.assert_allclose(yt.numpy(), yj, rtol=2e-6, atol=1e-5)
     assert torch.equal(yt, tso.stencil_spmv(A, xt))
 
@@ -104,10 +110,11 @@ def test_mesh_stencil_spmv_equals_single_device(spec, dtype, mesh8):
     x = torch.from_numpy(g.standard_normal(A.n_rows)).to(dtype)
     aux = torch.from_numpy(g.standard_normal(A.n_rows)).to(dtype)
     dots = ("x", "self", "aux")
+    x8, aux8 = _on(M, x), _on(M, aux)
     mesh8.reset_counts()
-    y8 = tmo.mesh_stencil_spmv(M, x, dots, aux)
+    y8 = tmo.mesh_stencil_spmv(M, x8, dots, aux8)
     y1 = tso.stencil_spmv(A, x, dots, aux)
-    assert torch.equal(y8[0], y1[0])
+    assert torch.equal(mesh_x(y8[0]), y1[0])
     rtol = 1e-12 if dtype == torch.float64 else 1e-5
     for kind, d8, d1 in zip(dots, y8[1:], y1[1:]):
         partner = {"x": x, "self": y1[0], "aux": aux}[kind]
@@ -117,7 +124,8 @@ def test_mesh_stencil_spmv_equals_single_device(spec, dtype, mesh8):
     assert mesh8.counts["ppermute"] == 2 and mesh8.counts["psum"] == 1
     assert mesh8.counts["psum_bytes"] == 8 * len(dots) * itemsize
     assert mesh8.counts["ppermute_bytes"] == 2 * 7 * A.halo[0] * itemsize
-    assert torch.equal(spmv_dots(M, x, aux=aux, with_self=True)[0], y1[0])
+    assert torch.equal(mesh_x(spmv_dots(M, x8, aux=aux8,
+                                        with_self=True)[0]), y1[0])
 
 
 @pytest.mark.parametrize("spec", STENCILS)
@@ -182,7 +190,8 @@ def test_mesh_gs_step_matches_jax_mesh(spec, interpret, rng):
     for c in colors:
         yj = np.asarray(from_planar_vec(A8, jmo.mesh_gs_color_step(
             Mj, enc(x), enc(rhs), enc(dinv), csj, c)))
-        yt = tmo.mesh_gs_color_step(M, xt, rt, dt, cs, c)
+        yt = mesh_x(tmo.mesh_gs_color_step(M, _on(M, xt), _on(M, rt),
+                                           _on(M, dt), cs, c))
         np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-13, atol=1e-13)
         assert torch.equal(yt, tso.stencil_gs_color_step(A, xt, rt, dt, cs,
                                                          c))
@@ -203,7 +212,7 @@ def test_mesh_dia_spmv_matches_jax_mesh(interpret, rng):
     assert M.rows == 73 and len(M.data_shards) == 8
     assert all(d.shape == (27, 73) for d in M.data_shards)
     xt = torch.from_numpy(x)
-    yt = spmv(M, xt)
+    yt = mesh_x(spmv(M, _on(M, xt)))
     np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-13, atol=1e-12)
     assert torch.equal(yt, tdia.dia_spmv(A, xt))
     hneg, hpos = _halo(A.offsets)
@@ -242,7 +251,7 @@ def test_mesh_lane_ell_spmv_matches_jax_mesh(dtype, np_dtype, rtol,
                                   np.asarray(Wj.inner.vals))
     assert all(v.shape == (M.K, W.rows, tle.LANES) for v in W.vals_shards)
     xt = torch.from_numpy(x)
-    yt = spmv(W, xt)
+    yt = mesh_x(spmv(W, _on(W, xt)))
     np.testing.assert_allclose(yt.numpy(), yj, rtol=rtol,
                                atol=rtol * np.abs(yj).max())
     assert torch.equal(yt, tle.lane_ell_spmv(M, xt))

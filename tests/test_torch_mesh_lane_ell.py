@@ -17,6 +17,7 @@ from basic_iterative_solvers_tpu_torch.parallel import make_mesh, shard_setup
 from basic_iterative_solvers_tpu_torch.parallel import mesh_ops as tmo
 from tests.test_torch_ilu0_factor import numpy_branch  # noqa: F401
 from tests.test_torch_mesh_solve import (CPU, _cfgs, _check,  # noqa: F401
+                                         no_gathers,
                                          interpret)
 
 
@@ -36,6 +37,7 @@ def test_mesh_lane_ell_cg_jacobi(interpret, numpy_branch):  # noqa: F811
                      make_mesh(8, device=CPU), mode="shard_map")
     assert isinstance(s8.A, tmo.MeshLaneELL)
     _check(bt.solve(s8), rj)
+    no_gathers(s8)
 
 
 LANE_CASES = {

@@ -2,9 +2,9 @@
 standalone shard_map CG) against the JAX package's, the halo guard, the
 mesh itself (`make_mesh`, `ppermute`, `psum`) and `shard_setup`'s
 refusals: the JAX package's, in its order and with its messages, and the
-port's own (the GSPMD mode, which needs a DeviceMesh, and a Mesh over
-several devices); superblock solves shard (slice 8b).  8 shards on the CPU; the JAX side on its 8
-virtual devices.
+port's own (the GSPMD mode, which needs a DeviceMesh); a Mesh over
+several devices places each shard on its own; superblock solves shard
+(slice 8b).  8 shards on the CPU; the JAX side on its 8 virtual devices.
 """
 import warnings
 
@@ -29,6 +29,7 @@ from basic_iterative_solvers_tpu_torch.parallel import (Mesh, make_mesh,
                                                         shard_setup)
 from basic_iterative_solvers_tpu_torch.parallel import mesh_ops as tmo
 from tests.test_torch_ilu0_factor import numpy_branch  # noqa: F401
+from tests.test_torch_mesh_solve import mesh_x
 
 CPU = "cpu"
 
@@ -75,7 +76,8 @@ def test_sharded_cg_matches_jax(mesh8):
     assert cg.npad == cgj.npad == 8192
     state, nt = _run(cg, 60)
     np.testing.assert_allclose(nt, nj, rtol=1e-9, atol=1e-15)
-    np.testing.assert_allclose(state["x"][:256].numpy(), x_star, atol=1e-6)
+    np.testing.assert_allclose(mesh_x(state["x"])[:256].numpy(), x_star,
+                               atol=1e-6)
 
 
 def test_sharded_spmv_matches_host(mesh8):
@@ -88,8 +90,8 @@ def test_sharded_spmv_matches_host(mesh8):
                          torch.zeros(A.n_rows, dtype=torch.float64), mesh8)
     state = cg.init_state(torch.nn.functional.pad(
         torch.from_numpy(x), (0, cg.npad - A.n_rows)))
-    np.testing.assert_allclose(-state["r"][:A.n_rows].numpy(), A.spmv(x),
-                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(-mesh_x(state["r"])[:A.n_rows].numpy(),
+                               A.spmv(x), rtol=1e-12, atol=1e-12)
 
 
 def test_sharded_cg_two_stage_matches_jax(mesh8, numpy_branch):  # noqa: F811
@@ -115,7 +117,8 @@ def test_sharded_cg_two_stage_matches_jax(mesh8, numpy_branch):  # noqa: F811
     np.testing.assert_allclose(nt[:len(r1.residual_norms) - 1],
                                r1.residual_norms[:41], rtol=1e-9,
                                atol=1e-15)
-    np.testing.assert_allclose(state["x"][:256].numpy(), x_star, atol=1e-6)
+    np.testing.assert_allclose(mesh_x(state["x"])[:256].numpy(), x_star,
+                               atol=1e-6)
     with pytest.raises(ValueError, match="two_stage needs D_inv"):
         make_sharded_cg(from_csr(A, torch.float64, "dia", device=CPU),
                         torch.from_numpy(b), mesh8, two_stage=True)
@@ -144,7 +147,8 @@ def test_mesh_and_collectives():
     """make_mesh binds n shards to one device when asked, takes the cards
     otherwise and raises when there are too few (none here); ppermute
     sends slab k to shard k + shift with zeros off the mesh; psum adds in
-    a fixed order; both are counted."""
+    a fixed order; scatter and gather move a vector between one device and
+    the shards; all are counted."""
     mesh = make_mesh(4, device=CPU)
     assert mesh.size == 4 and mesh.axis == "rows"
     assert set(mesh.devices) == {torch.device("cpu")}
@@ -160,8 +164,14 @@ def test_mesh_and_collectives():
     assert [float(s[0]) for s in left] == [1.0, 2.0, 3.0, 0.0]
     total = mesh.psum([torch.tensor([1.0, 2.0])] * 4)
     assert total.tolist() == [4.0, 8.0]
+    v = mesh.scatter(torch.arange(10.0), 3)
+    assert [tuple(s.tolist()) for s in v.shards] == [
+        (0.0, 1.0, 2.0), (3.0, 4.0, 5.0), (6.0, 7.0, 8.0), (9.0,)]
+    assert torch.equal(mesh.gather(v), torch.arange(10.0))
     assert mesh.counts == {"ppermute": 2, "ppermute_bytes": 2 * 3 * 3 * 4,
-                           "psum": 1, "psum_bytes": 4 * 2 * 4}
+                           "psum": 1, "psum_bytes": 4 * 2 * 4,
+                           "gather": 1, "gather_bytes": 40,
+                           "scatter": 1, "scatter_bytes": 40}
     mesh.reset_counts()
     assert not any(mesh.counts.values())
 
@@ -227,8 +237,9 @@ def test_shard_setup_refuses_what_later_slices_port(mesh8):
     injected) are cut into the mesh's shards, the GS method's stay whole,
     as in the JAX package.  The port's own refusals remain: the GSPMD
     mode on this single-controller Mesh (it needs a DeviceMesh, one process
-    a shard), a Mesh over several devices (per-device storage is not
-    ported); a setup on another device than the mesh's."""
+    a shard); a setup on a device the mesh does not hold.  A Mesh over
+    several devices is accepted, each shard's vectors and operator data on
+    its own device."""
     from basic_iterative_solvers_tpu_torch.ops.block_trisolve import (
         MeshSuperBlockTriSolve, SuperBlockTriSolve)
     A = _stencil()
@@ -255,8 +266,11 @@ def test_shard_setup_refuses_what_later_slices_port(mesh8):
     with pytest.raises(ValueError, match="gspmd mode needs a "
                        "torch.distributed DeviceMesh"):
         shard_setup(setup, mesh8, mode="gspmd")
-    with pytest.raises(ValueError, match="needs per-device vector storage"):
-        shard_setup(setup, Mesh(["cpu", "meta"]), mode="shard_map")
+    s2 = shard_setup(setup, Mesh(["cpu", "meta"]), mode="shard_map")
+    devs = [torch.device("cpu"), torch.device("meta")]
+    for v in (s2.b, s2.x0, s2.A_D):
+        assert [t.device for t in v.shards] == devs
+    assert [op.coeffs.device for op in s2.A.ops] == devs
     with pytest.raises(ValueError, match="the setup lies on cpu"):
         shard_setup(setup, Mesh(["meta"] * 8), mode="shard_map")
     assert isinstance(shard_setup(setup, mesh8).A, tmo.MeshStencil)
@@ -265,8 +279,10 @@ def test_shard_setup_refuses_what_later_slices_port(mesh8):
 def test_mesh_hooks(mesh8):
     """The hooks of the JAX package's mesh path: multigrid refuses a
     stencil laid out for shards, the splits keep the parent's shards,
-    fused-mode GMRES on a mesh operator warns and runs lowsync, the
-    float64 oracle unwraps the mesh operator."""
+    fused-mode GMRES on a mesh operator runs fused (the basis kernels on
+    each shard's columns; the JAX package warns and runs lowsync), the
+    float64 oracle is the mesh operator around the float64 stencil, the
+    colour ids a MeshVector of the operator's layout."""
     import dataclasses
     A8 = dataclasses.replace(_stencil(), shards=8)
     with pytest.raises(ValueError, match="not yet mesh-shardable"):
@@ -282,10 +298,12 @@ def test_mesh_hooks(mesh8):
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         method = GMRESMethod(s8)
-    assert method.orthog == "lowsync"
-    assert any("mesh operators" in str(x.message) for x in w)
+    assert method.orthog == "fused"
+    assert not any("fused" in str(x.message) for x in w)
     from basic_iterative_solvers_tpu_torch.solvers.base import _f64_operands
     A64, _ = _f64_operands(s8)
-    assert isinstance(A64, bt.DeviceStencil) and A64.dtype == torch.float64
-    assert bt.coloring.color_ids(bt.coloring.spec_for_device(
-        s8.A.inner), s8.A).shape == (512,)
+    assert isinstance(A64, tmo.MeshStencil) and A64.rows == s8.A.rows
+    assert A64.inner.dtype == torch.float64
+    ids = bt.coloring.color_ids(bt.coloring.spec_for_device(s8.A.inner),
+                                s8.A)
+    assert ids.shape == (512,) and ids.blocks == s8.b.blocks

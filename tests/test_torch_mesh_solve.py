@@ -18,8 +18,11 @@ from basic_iterative_solvers_tpu.parallel import make_mesh as jmake_mesh
 from basic_iterative_solvers_tpu.parallel import shard_setup as jshard_setup
 
 import basic_iterative_solvers_tpu_torch as bt
-from basic_iterative_solvers_tpu_torch.parallel import make_mesh, shard_setup
+from basic_iterative_solvers_tpu_torch.parallel import (make_mesh,
+                                                        mesh_census,
+                                                        shard_setup)
 from basic_iterative_solvers_tpu_torch.parallel import mesh_ops as tmo
+from basic_iterative_solvers_tpu_torch.parallel.mesh_vector import MeshVector
 
 CPU = "cpu"
 
@@ -45,10 +48,27 @@ def _cfgs(method, precond, **kw):
     return cj, ct
 
 
+def mesh_x(x):
+    """A mesh solve's x as one tensor (Mesh.gather), after checking that it
+    came back as a MeshVector with each shard on its device of the mesh."""
+    assert isinstance(x, MeshVector)
+    assert [s.device for s in x.shards] == list(x.mesh.devices)
+    return x.mesh.gather(x)
+
+
+def no_gathers(s8):
+    """The mesh census of a few fused iterations of s8: no vector gathered
+    or scattered whole, in the loop or out of it."""
+    c = mesh_census(s8)
+    assert c["in_while"]["all-gather"] == 0 and c["full_gathers"] == [], c
+    assert c["in_while"]["scatter"] == 0, c
+    assert c["in_while"]["all-reduce"] >= 1, c
+
+
 def _check(res8, res1):
     assert res8.converged == res1.converged
     assert res8.iter_count == res1.iter_count
-    np.testing.assert_allclose(np.asarray(res8.x_star), np.asarray(
+    np.testing.assert_allclose(np.asarray(mesh_x(res8.x_star)), np.asarray(
         res1.x_star), rtol=1e-8, atol=1e-10)
 
 
@@ -68,6 +88,7 @@ def test_mesh_stencil_cg_jacobi(interpret):
     s8 = _stencil_setups(ct)
     assert isinstance(s8.A, tmo.MeshStencil) and s8.A.inner.shards == 8
     _check(bt.solve(s8), rj)
+    no_gathers(s8)
 
 
 def test_mesh_dia_cg(interpret):
@@ -83,6 +104,7 @@ def test_mesh_dia_cg(interpret):
     assert isinstance(s8.A, tmo.MeshDIA)
     assert [d.shape[1] for d in s8.A.data_shards] == [s8.A.rows] * 8
     _check(bt.solve(s8), rj)
+    no_gathers(s8)
 
 
 # the JAX file's slow cases: the port's mesh against the JAX package's
@@ -130,18 +152,21 @@ def test_mesh_stencil_solves_match_jax(case):
 def test_mesh_counts_per_cg_iteration():
     """The mesh's record of what it moves, this slice's stand-in for the
     JAX package's census invariants: a classic CG iteration on the mesh
-    stencil issues one halo pair (its one SpMV) and one psum of 8 scalars
-    (the fused p·Ap), and no exchange carries more than the halo."""
+    stencil issues one halo pair (its one SpMV) and two psums of 8 scalars
+    (the fused p·Ap and ‖r‖), no exchange carries more than the halo, and
+    no vector is gathered whole: the explicit float64 residual at the end
+    runs on the mesh too (one more SpMV and psum, as r₀ takes)."""
     ct = bt.SolverConfig(dtype=torch.float64, harness="host", max_iters=7,
                          tolerance=0.0)
     s8 = _stencil_setups(ct, "hpcg:16x16x16")
     mesh = s8.A.mesh
     mesh.reset_counts()
     res = bt.solve(s8)
-    n_spmv = 1 + res.iter_count          # r0, then one an iteration
+    n_spmv = 2 + res.iter_count          # r0, one an iteration, the last
     assert mesh.counts["ppermute"] == 2 * n_spmv
-    assert mesh.counts["psum"] == res.iter_count
-    assert mesh.counts["psum_bytes"] == 8 * 8 * res.iter_count
+    assert mesh.counts["psum"] == 2 * res.iter_count + 2
+    assert mesh.counts["psum_bytes"] == 8 * 8 * mesh.counts["psum"]
+    assert mesh.counts["gather"] == mesh.counts["scatter"] == 0
     halo = s8.A.inner.halo[0]
     assert mesh.counts["ppermute_bytes"] == 2 * n_spmv * 7 * halo * 8
     assert halo < s8.A.n_rows // 8

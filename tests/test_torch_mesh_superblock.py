@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import basic_iterative_solvers_tpu as bis
+import basic_iterative_solvers_tpu.coloring  # noqa: F401 (bis.coloring)
 from basic_iterative_solvers_tpu.ops import block_trisolve as jbk
 from basic_iterative_solvers_tpu.ops import pallas_env
 from basic_iterative_solvers_tpu.parallel import make_mesh as jmake_mesh
@@ -33,6 +34,8 @@ import basic_iterative_solvers_tpu_torch as bt
 from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
 from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
 from basic_iterative_solvers_tpu_torch.parallel import make_mesh, shard_setup
+from basic_iterative_solvers_tpu_torch.parallel import mesh_census
+from tests.test_torch_mesh_solve import mesh_x
 
 CPU = "cpu"
 
@@ -120,8 +123,9 @@ def test_shard_twin_bit_equal_to_single_level(spec, n_dev, mode, dtype):
         # the whole solve, each level's lines passed to the neighbours'
         # windows, bit-equal to the single-device solve
         y = torch.from_numpy(g.standard_normal(n)).to(dtype)
-        assert torch.equal(bk._solve_super_mesh(MB, y),
-                           bk._solve_super(B, y, torch.empty_like(y)))
+        assert torch.equal(mesh_x(bk._solve_super_mesh(
+            MB, mesh.scatter(y, MB.rows))),
+            bk._solve_super(B, y, torch.empty_like(y)))
     if spec == "hpcg:8x8x8" and mode != "plane":
         # a 72-row halo over 64-row planes: two planes a shard
         assert MB.rows == 128 and sum(1 for Bs in MB.shards
@@ -157,8 +161,9 @@ def test_mesh_solve_matches_jax_mesh_solve(interpret):
     assert L.is_const and L.dinv_rows is not None
     mesh = make_mesh(4, device=CPU)
     ML = bk.shard_superblock(L, mesh)
+    y8 = mesh.scatter(torch.from_numpy(y), ML.rows)
     mesh.reset_counts()
-    x = bk.blocked_trisolve(ML, torch.from_numpy(y))
+    x = mesh_x(bk.blocked_trisolve(ML, y8))
     assert mesh.counts["ppermute"] == 2 * len(L.levels)
     np.testing.assert_allclose(x.numpy(), xj, rtol=1e-6, atol=1e-6)
     assert torch.equal(x, bk.blocked_trisolve(L, torch.from_numpy(y)))
@@ -179,14 +184,16 @@ def _cfgs(method, precond, **kw):
 def _check(res8, res1):
     assert res8.converged == res1.converged
     assert res8.iter_count == res1.iter_count
-    np.testing.assert_allclose(np.asarray(res8.x_star), np.asarray(
+    np.testing.assert_allclose(np.asarray(mesh_x(res8.x_star)), np.asarray(
         res1.x_star), rtol=1e-8, atol=1e-10)
 
 
 def test_gs_method_keeps_whole_blocks_as_jax(interpret):
     """SGS as the method on the hpcg:8x8x8 stencil: its superblock solves
     (gs_L_block, gs_U_block) stay whole on the mesh, as in the JAX
-    package, whose shard_map solve of the same setup it matches."""
+    package, whose shard_map solve of the same setup it matches: each
+    apply gathers the residual to one device and scatters the update back
+    (one whole-vector gather an iteration in the mesh census)."""
     cj, ct = _cfgs("SYMMETRIC_GAUSS_SEIDEL", "NONE", tolerance=1e-8)
     spec = "hpcg:8x8x8"
     rj = bis.solve(jshard_setup(bis.preprocessing_device(
@@ -199,6 +206,14 @@ def test_gs_method_keeps_whole_blocks_as_jax(interpret):
     assert isinstance(s8.gs_U_block, bk.SuperBlockTriSolve)
     assert s8.M.L_block is None
     _check(bt.solve(s8), rj)
+    mesh = s8.b.mesh
+    mesh.reset_counts()
+    c = mesh_census(s8)
+    assert c["in_while"]["all-gather"] == c["in_while"]["scatter"] == 1, c
+    assert {w for _k, w, _e in c["full_gathers"]} == {"while"}
+    assert {k for k, _w, _e in c["full_gathers"]} == {"all-gather",
+                                                      "scatter"}
+    assert mesh.counts["gather"] == mesh.counts["scatter"] >= 3
 
 
 def _refusal_pair(pkg, case):
@@ -275,8 +290,9 @@ def test_shard_superblock_refusals_match_jax(case, monkeypatch):
         assert len(MB.shards) == 8
         y = torch.from_numpy(np.random.default_rng(5).standard_normal(
             B.n_rows)).to(B.dtype)
-        assert torch.equal(bk._solve_super_mesh(MB, y),
-                           bk._solve_super(B, y, torch.empty_like(y)))
+        assert torch.equal(mesh_x(bk._solve_super_mesh(
+            MB, mesh.scatter(y, MB.rows))),
+            bk._solve_super(B, y, torch.empty_like(y)))
         return
     with pytest.raises(bk.BlockIneligibleError, match=msg):
         bk.shard_superblock(B, mesh, "rows")

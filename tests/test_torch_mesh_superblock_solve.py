@@ -17,6 +17,7 @@ import basic_iterative_solvers_tpu as bis
 import basic_iterative_solvers_tpu_torch as bt
 from basic_iterative_solvers_tpu_torch.ops import block_trisolve as bk
 from basic_iterative_solvers_tpu_torch.parallel import make_mesh, shard_setup
+from tests.test_torch_mesh_solve import no_gathers
 from tests.test_torch_mesh_superblock import _cfgs, _check, _mode
 
 CPU = "cpu"
@@ -84,6 +85,7 @@ def test_mesh_superblock_solves_match_jax(case):
     res8 = bt.solve(s8)
     assert mesh.counts["ppermute"] > 0
     _check(res8, r1)
+    no_gathers(s8)
 
 
 def test_mesh_exchanges_per_iteration():
@@ -91,7 +93,9 @@ def test_mesh_exchanges_per_iteration():
     two z-planes a shard, host harness): one halo pair for the SpMV and
     one a level of each triangle (2·(1 + 2·4) ppermute calls); the
     triangles' pairs carry only the level's superblock lines inside the
-    halo rows, a quarter of a halo slab, never a whole vector."""
+    halo rows, a quarter of a halo slab, never a whole vector, and no
+    vector is gathered whole.  The explicit float64 residual at the end
+    is one more mesh SpMV."""
     ct = bt.SolverConfig(method=bt.SolverType.CONJUGATE_GRADIENT,
                          preconditioner=bt.PrecondType.SYMMETRIC_GAUSS_SEIDEL,
                          dtype=torch.float64, harness="host", max_iters=3,
@@ -105,8 +109,10 @@ def test_mesh_exchanges_per_iteration():
     mesh = s8.A.mesh
     mesh.reset_counts()
     res = bt.solve(s8)
-    applies = n_spmv = 1 + res.iter_count
+    applies = 1 + res.iter_count
+    n_spmv = applies + 1
     levels = 2 * len(L8.inner.levels)
+    assert mesh.counts["gather"] == mesh.counts["scatter"] == 0
     assert mesh.counts["ppermute"] == 2 * (n_spmv + levels * applies)
     spmv_bytes = 2 * n_spmv * 7 * s8.A.inner.halo[0] * 8
     sent = mesh.counts["ppermute_bytes"] - spmv_bytes
