@@ -220,6 +220,12 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i64] * 4 + [
             ptr] * 6
         fn.restype = i32
+        # the shard-local form's box route: zr, grid, then row0, rows,
+        # hneg, wlen
+        fn = getattr(lib, name.replace("spmv", "spmv_halo_box"))
+        fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 3 + [
+            i64] * 4 + [ptr] * 6
+        fn.restype = i32
         # the box routes: #1's vec, zr, grid; #2's zr, grid, slot
         fn = getattr(lib, name.replace("spmv", "spmv_box"))
         fn.argtypes = [i32, ctypes.POINTER(StencilArgs)] + [i32] * 4 + [

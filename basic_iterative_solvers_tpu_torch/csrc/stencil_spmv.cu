@@ -31,7 +31,11 @@
 //     below.
 //
 // Dot partials go to a (n_blocks, n_dots) buffer that the caller sums, so
-// the result is deterministic without atomics.
+// the result is deterministic without atomics.  They are float64 for every
+// vector type: a float32 row's product is rounded in float32 and summed in
+// float64 (ops/blas1.whole_dot's rule), and the caller rounds the whole
+// sum once, so a float32 dot does not hang on how the rows are cut into
+// blocks or mesh shards.
 //
 // The multicolour Gauss-Seidel step (replaces the Pallas kernel
 // basic_iterative_solvers_tpu/stencil_op.py: stencil_gs_color_step, which
@@ -170,10 +174,10 @@ __global__ void __launch_bounds__(256)
 stencil_spmv_kernel(const __grid_constant__ BisStencilArgs a,
                     const T* __restrict__ x,
                     const D* __restrict__ diag, const T* __restrict__ aux,
-                    T* __restrict__ y, T* __restrict__ partials) {
+                    T* __restrict__ y, double* __restrict__ partials) {
     const int gy = blockIdx.x * a.block_y + threadIdx.y;
     const int gz = blockIdx.y;
-    T dsum[BIS_MAX_DOTS] = {T(0), T(0), T(0)};
+    double dsum[BIS_MAX_DOTS] = {0.0, 0.0, 0.0};
     if (gy < a.ny) {
         const long long row = (long long)a.nx * (gy + (long long)a.ny * gz);
         for (int gx = threadIdx.x; gx < a.nx; gx += a.block_x) {
@@ -183,7 +187,7 @@ stencil_spmv_kernel(const __grid_constant__ BisStencilArgs a,
             for (int k = 0; k < a.n_dots; ++k) {
                 const int kind = a.dot_kind[k];
                 const T v = kind == 0 ? x[i] : (kind == 1 ? acc : aux[i]);
-                dsum[k] += acc * v;
+                dsum[k] += (double)(acc * v);
             }
         }
     }
@@ -255,7 +259,7 @@ stencil_spmv_stream_kernel(const __grid_constant__ BisStencilArgs a, int zc,
                            const T* __restrict__ x,
                            const D* __restrict__ diag,
                            const T* __restrict__ aux, T* __restrict__ y,
-                           T* __restrict__ partials) {
+                           double* __restrict__ partials) {
     __shared__ T ring[3 * BIS_STREAM_PLANE];
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int x0 = blockIdx.x * BIS_STREAM_TX, y0 = blockIdx.y * BIS_STREAM_TY;
@@ -275,7 +279,7 @@ stencil_spmv_stream_kernel(const __grid_constant__ BisStencilArgs a, int zc,
     int om = 0, o0 = BIS_STREAM_PLANE, op = 2 * BIS_STREAM_PLANE;
     if (need_m) stream_load_plane(a, x, x0, y0, z0 - 1, ring + om);
     stream_load_plane(a, x, x0, y0, z0, ring + o0);
-    T dsum[BIS_MAX_DOTS] = {T(0), T(0), T(0)};
+    double dsum[BIS_MAX_DOTS] = {0.0, 0.0, 0.0};
     for (int z = z0; z < z1; ++z) {
         if (need_p || z + 1 < z1)
             stream_load_plane(a, x, x0, y0, z + 1, ring + op);
@@ -300,7 +304,7 @@ stencil_spmv_stream_kernel(const __grid_constant__ BisStencilArgs a, int zc,
             for (int k = 0; k < a.n_dots; ++k) {
                 const int kind = a.dot_kind[k];
                 const T v = kind == 0 ? xi : (kind == 1 ? acc : aux[i]);
-                dsum[k] += acc * v;
+                dsum[k] += (double)(acc * v);
             }
         }
         __syncthreads();          // plane z - 1's slot is loaded next step
@@ -587,7 +591,7 @@ __device__ __forceinline__ void box_store(const BisStencilArgs& a,
                                           const D* __restrict__ diag,
                                           const T* __restrict__ aux,
                                           T* __restrict__ y,
-                                          T (&dsum)[BIS_MAX_DOTS]) {
+                                          double (&dsum)[BIS_MAX_DOTS]) {
     if (!k.live) return;
     if (diag != nullptr) {
         T d[VEC];
@@ -611,7 +615,7 @@ __device__ __forceinline__ void box_store(const BisStencilArgs& a,
             for (int r = 0; r < VEC; ++r) {
                 const T v = kind == 0 ? xc[r + 1]
                                       : (kind == 1 ? acc[r] : av[r]);
-                dsum[q] += acc[r] * v;
+                dsum[q] += (double)(acc[r] * v);
             }
         }
     }
@@ -624,13 +628,13 @@ __global__ void __launch_bounds__(BIS_BOX_THREADS, BIS_BOX_MIN_BLOCKS)
 stencil_spmv_box_kernel(const __grid_constant__ BisStencilArgs a, int zr,
                         const T* __restrict__ x, const D* __restrict__ diag,
                         const T* __restrict__ aux, T* __restrict__ y,
-                        T* __restrict__ partials) {
+                        double* __restrict__ partials) {
     const long long plane = (long long)a.nx * a.ny;
     const BisBoxChunk k = box_chunk<VEC>(
         a, (long long)blockIdx.x * BIS_BOX_THREADS + threadIdx.x);
     const int lane = threadIdx.x & 31;
     const int z0 = blockIdx.y * zr, z1 = min(z0 + zr, a.nz);
-    T dsum[BIS_MAX_DOTS] = {T(0), T(0), T(0)};
+    double dsum[BIS_MAX_DOTS] = {0.0, 0.0, 0.0};
     auto fetch = [&](int q, T (&P)[3][VEC + 2]) {
         const bool q_ok = q >= 0 && q < a.nz && q <= z1;
         const T* src = x + (q_ok ? (long long)q * plane : 0LL);
@@ -715,7 +719,7 @@ stencil_spmv_stream_box_kernel(const __grid_constant__ BisStencilArgs a,
                                int zr, int slot, const T* __restrict__ x,
                                const D* __restrict__ diag,
                                const T* __restrict__ aux, T* __restrict__ y,
-                               T* __restrict__ partials) {
+                               double* __restrict__ partials) {
     extern __shared__ __align__(128) unsigned char box_smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(box_smem);
     uint64_t* empty = full + BIS_BOX_STAGES;
@@ -735,7 +739,7 @@ stencil_spmv_stream_box_kernel(const __grid_constant__ BisStencilArgs a,
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncthreads();
-    T dsum[BIS_MAX_DOTS] = {T(0), T(0), T(0)};
+    double dsum[BIS_MAX_DOTS] = {0.0, 0.0, 0.0};
     if (threadIdx.x >= BIS_BOX_THREADS) {
         if (threadIdx.x == BIS_BOX_THREADS) {     // the producer lane
             const unsigned bytes = (unsigned)((hi - lo) * sizeof(T));
@@ -877,6 +881,38 @@ stencil_gs_color_step_kernel(const __grid_constant__ BisStencilArgs a,
 // the lines holding colour c); the register march as #1's box route.
 // ---------------------------------------------------------------------------
 
+// Fetch plane q's three lines of a chunk from a shard's window: global
+// row i at xw[base + i] (base = hneg - row0), a line read only where it lies
+// in the grid, in planes [0, min(nz, z1 + 1)) and inside the window's wlen
+// values (zeros elsewhere); LINES = 1 (a flat plane) keeps only the
+// chunk's own line.
+template <typename T, int VEC, int LINES>
+__device__ __forceinline__ void box_fetch_window(const BisStencilArgs& a,
+                                                 const BisBoxChunk& k,
+                                                 int lane,
+                                                 const T* __restrict__ xw,
+                                                 long long base,
+                                                 long long wlen, int q,
+                                                 int z1,
+                                                 T (&P)[3][VEC + 2]) {
+    const long long plane = (long long)a.nx * a.ny;
+    const bool q_ok = q >= 0 && q < a.nz && q <= z1;
+    const bool ok[3] = {q_ok && k.ok_m, q_ok && k.live, q_ok && k.ok_p};
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+        if (LINES == 1 && j != 1) {           // no line beside a flat one
+#pragma unroll
+            for (int r = 0; r < VEC + 2; ++r) P[j][r] = T(0);
+            continue;
+        }
+        const long long ew = base + (long long)q * plane + k.e0 +
+                             (long long)(j - 1) * a.nx;
+        const bool in = ok[j] && ew >= 0 && ew + VEC <= wlen;
+        box_fetch_line<T, VEC>(xw, in ? ew : 0, in, k.has_l && ew > 0,
+                               k.has_r && ew + VEC < wlen, lane, P[j]);
+    }
+}
+
 // Rows of a chunk (bit r: row x0 + r) with colour c.color, for the
 // chunk's line gy (box_form) at plane z; xm: the rows whose x colour is
 // the target's (grid).
@@ -924,21 +960,8 @@ stencil_gs_color_step_box_kernel(const __grid_constant__ BisStencilArgs a,
         }
     }
     auto fetch = [&](int q, T (&P)[3][VEC + 2]) {
-        const bool q_ok = q >= 0 && q < a.nz && q <= z1;
-        const bool ok[3] = {q_ok && k.ok_m, q_ok && k.live, q_ok && k.ok_p};
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-            if (LINES == 1 && j != 1) {       // no line beside a flat one
-#pragma unroll
-                for (int r = 0; r < VEC + 2; ++r) P[j][r] = T(0);
-                continue;
-            }
-            const long long ew = hneg - row0 + (long long)q * plane + k.e0 +
-                                 (long long)(j - 1) * a.nx;
-            const bool in = ok[j] && ew >= 0 && ew + VEC <= wlen;
-            box_fetch_line<T, VEC>(xw, in ? ew : 0, in, k.has_l && ew > 0,
-                                   k.has_r && ew + VEC < wlen, lane, P[j]);
-        }
+        box_fetch_window<T, VEC, LINES>(a, k, lane, xw, hneg - row0, wlen, q,
+                                        z1, P);
     };
     auto assemble = [&](T (&P)[3][VEC + 2]) {
         box_assemble<T, VEC, LINES>(k.has_l, k.has_r, lane, P);
@@ -1003,7 +1026,7 @@ stencil_gs_color_step_box_kernel(const __grid_constant__ BisStencilArgs a,
 
 template <typename T, typename D>
 static int launch(int device, const BisStencilArgs* a, const T* x,
-                  const D* diag, const T* aux, T* y, T* partials,
+                  const D* diag, const T* aux, T* y, double* partials,
                   cudaStream_t stream) {
     const BisOnDevice check(device);
     if (check.err != cudaSuccess) return (int)check.err;
@@ -1020,7 +1043,7 @@ static int launch(int device, const BisStencilArgs* a, const T* x,
 template <typename T, typename D>
 static int launch_stream(int device, const BisStencilArgs* a, int grid_x,
                          int grid_y, int grid_z, int zc, const T* x,
-                         const D* diag, const T* aux, T* y, T* partials,
+                         const D* diag, const T* aux, T* y, double* partials,
                          cudaStream_t stream) {
     const BisOnDevice check(device);
     if (check.err != cudaSuccess) return (int)check.err;
@@ -1081,7 +1104,7 @@ static bool box_ok(const BisStencilArgs* a, int vec, int zr, int grid_x,
 template <typename T, typename D>
 static int launch_box(int device, const BisStencilArgs* a, int vec, int zr,
                       int grid_x, int grid_y, const T* x, const D* diag,
-                      const T* aux, T* y, T* partials, cudaStream_t stream) {
+                      const T* aux, T* y, double* partials, cudaStream_t stream) {
     constexpr int V = 16 / sizeof(T);
     const BisOnDevice check(device);
     if (check.err != cudaSuccess) return (int)check.err;
@@ -1103,7 +1126,7 @@ static int launch_box(int device, const BisStencilArgs* a, int vec, int zr,
 template <typename T, typename D>
 static int launch_stream_box(int device, const BisStencilArgs* a, int zr,
                              int grid_x, int grid_y, int slot, const T* x,
-                             const D* diag, const T* aux, T* y, T* partials,
+                             const D* diag, const T* aux, T* y, double* partials,
                              cudaStream_t stream) {
     constexpr int V = 16 / sizeof(T);
     const BisOnDevice check(device);
@@ -1209,7 +1232,10 @@ static int launch_gs_box(int device, const BisStencilArgs* a, int kind,
 //
 // Grid: (line blocks of block_y lines, x blocks of block_x), one thread a
 // row, so a shard of few long lines (fdm:2048 on 8 shards: 256 lines of
-// 2048) still fills the card.  Bound: as #1 and #3, the leg loop.
+// 2048) still fills the card.  Bound: as #1 and #3, the leg loop.  Each
+// has a box route beside these leg loops, for legs within the box:
+// stencil_spmv_halo_box_kernel below (#1's) and
+// stencil_gs_color_step_box_kernel above (#3's).
 // ---------------------------------------------------------------------------
 
 template <typename T, typename D>
@@ -1219,10 +1245,10 @@ stencil_spmv_halo_kernel(const __grid_constant__ BisStencilArgs a,
                          long long hneg, const T* __restrict__ xw,
                          const D* __restrict__ diag,
                          const T* __restrict__ aux, T* __restrict__ y,
-                         T* __restrict__ partials) {
+                         double* __restrict__ partials) {
     const long long line = (long long)blockIdx.x * a.block_y + threadIdx.y;
     const int gx = blockIdx.y * a.block_x + threadIdx.x;
-    T dsum[BIS_MAX_DOTS] = {T(0), T(0), T(0)};
+    double dsum[BIS_MAX_DOTS] = {0.0, 0.0, 0.0};
     if (line < lines && gx < a.nx) {
         const long long t = line * a.nx + gx;
         const long long i = row0 + t;
@@ -1235,11 +1261,85 @@ stencil_spmv_halo_kernel(const __grid_constant__ BisStencilArgs a,
                 const int kind = a.dot_kind[k];
                 const T v = kind == 0 ? xw[hneg + t]
                                       : (kind == 1 ? acc : aux[t]);
-                dsum[k] += acc * v;
+                dsum[k] += (double)(acc * v);
             }
         }
         y[t] = acc;
     }
+    if (a.n_dots > 0)
+        block_sums(dsum, a.n_dots,
+                   partials + (long long)(blockIdx.x + (long long)gridDim.x *
+                                          blockIdx.y) * a.n_dots);
+}
+
+// #1's shard form on the box route (stencil_spmv_halo_box_kernel).
+//
+// The leg loop above is the shard form's first port: one scalar row a
+// thread, the legs in a runtime loop, six bounds tests and one load a leg.
+// On an H100 its 8 launches of a 128^3 mesh of 8 shards took ~0.13 ms
+// against a ~0.005 ms byte bound, where #1's box route over the whole grid
+// took ~0.016 ms (PERF.md).  This kernel is #1's box route on a window, as
+// #3's box kernel is #3's:
+//   - a thread owns VEC = 16 / sizeof(T) rows of a line and marches a run
+//     of zr planes (box_form's: a 2-D operator marches along y) with four
+//     windows of three lines in registers, the next plane's loads in
+//     flight while it computes (box_march); the legs unrolled over the
+//     box (box_rows); each sum and product rounded alone, so y equals the
+//     leg loop's and #1's on the same rows bit for bit;
+//   - the launch owns the global rows [row0, row0 + rows) (whole lines)
+//     and reads x from xw (wlen values, global row i at
+//     xw[hneg + i - row0]) through box_fetch_window; diag, aux and y are
+//     its own rows.  The grid's runs cover the planes that hold its rows
+//     (a shard of part of a plane: chunks outside its lines do nothing);
+//     rows at or past n (a mesh's inert padding) are 0 and add no dot
+//     term;
+//   - the window's halo must be whole vectors (the mesh and GSPMD modes
+//     round it up to whole x-lines, stencil_op.window_halo): a line an
+//     owned row's legs read then lies inside the window, every 16-byte
+//     load of it aligned;
+//   - dot partials one a block, as #1's box kernel writes them.
+// What bounds it: bytes, as #1's box route (x read once from the window
+// with its reuse across z in registers, y written, diag and aux read);
+// on a 128^3 shard of 16 planes a launch is a single wave of blocks, so
+// the launch's latency counts beside the bytes.
+template <typename T, typename D, int VEC>
+__global__ void __launch_bounds__(BIS_BOX_THREADS, BIS_BOX_MIN_BLOCKS)
+stencil_spmv_halo_box_kernel(const __grid_constant__ BisStencilArgs a, int zr,
+                             long long row0, long long rows, long long hneg,
+                             long long wlen, const T* __restrict__ xw,
+                             const D* __restrict__ diag,
+                             const T* __restrict__ aux, T* __restrict__ y,
+                             double* __restrict__ partials) {
+    const long long plane = (long long)a.nx * a.ny;
+    const BisBoxChunk k = box_chunk<VEC>(
+        a, (long long)blockIdx.x * BIS_BOX_THREADS + threadIdx.x);
+    const int lane = threadIdx.x & 31;
+    const int qa = (int)(row0 / plane);
+    const int qb = (int)((row0 + rows + plane - 1) / plane);
+    const int z0 = qa + blockIdx.y * zr, z1 = min(z0 + zr, qb);
+    double dsum[BIS_MAX_DOTS] = {0.0, 0.0, 0.0};
+    auto fetch = [&](int q, T (&P)[3][VEC + 2]) {
+        box_fetch_window<T, VEC, 3>(a, k, lane, xw, hneg - row0, wlen, q, z1,
+                                    P);
+    };
+    auto assemble = [&](T (&P)[3][VEC + 2]) {
+        box_assemble<T, VEC>(k.has_l, k.has_r, lane, P);
+    };
+    auto out = [&](int z, const T (&pm)[3][VEC + 2],
+                   const T (&p0)[3][VEC + 2], const T (&pp)[3][VEC + 2]) {
+        const long long t = (long long)z * plane + k.e0 - row0;
+        if (!k.live || t < 0 || t >= rows) return;
+        T acc[VEC];
+        if (z >= a.nz) {              // inert rows: y = 0
+#pragma unroll
+            for (int r = 0; r < VEC; ++r) acc[r] = T(0);
+            store_vec<T, VEC>(y + t, acc);
+            return;
+        }
+        box_rows<T, VEC>(a, pm, p0, pp, acc);
+        box_store<T, D, VEC>(a, k, t, acc, p0[1], diag, aux, y, dsum);
+    };
+    box_march<T, VEC, true>(z0, z1, fetch, assemble, out);
     if (a.n_dots > 0)
         block_sums(dsum, a.n_dots,
                    partials + (long long)(blockIdx.x + (long long)gridDim.x *
@@ -1288,7 +1388,7 @@ template <typename T, typename D>
 static int launch_halo(int device, const BisStencilArgs* a, long long row0,
                        long long lines, long long n, long long hneg,
                        const T* xw, const D* diag, const T* aux, T* y,
-                       T* partials, cudaStream_t stream) {
+                       double* partials, cudaStream_t stream) {
     const BisOnDevice check(device);
     if (check.err != cudaSuccess) return (int)check.err;
     dim3 grid;
@@ -1296,6 +1396,41 @@ static int launch_halo(int device, const BisStencilArgs* a, long long row0,
     const dim3 block(a->block_x, a->block_y);
     stencil_spmv_halo_kernel<T, D><<<grid, block, 0, stream>>>(
         *a, row0, lines, n, hneg, xw, diag, aux, y, partials);
+    return (int)cudaGetLastError();
+}
+
+// #1's shard form on the box route: VEC = 16 / sizeof(T); a grid of
+// grid_x tiles of BIS_BOX_THREADS chunks over a box_form plane and grid_y
+// runs of zr planes over those holding rows [row0, row0 + rows).  Refuses
+// legs outside the box or their mask, a line not of whole vectors, rows or
+// row0 not of whole lines, hneg or hpos (= wlen - hneg - rows) not of whole
+// vectors, a grid that does not cover the rows, unaligned operands.
+template <typename T, typename D>
+static int launch_halo_box(int device, const BisStencilArgs* a, int zr,
+                           int grid_x, int grid_y, long long row0,
+                           long long rows, long long hneg, long long wlen,
+                           const T* xw, const D* diag, const T* aux, T* y,
+                           double* partials, cudaStream_t stream) {
+    constexpr int V = 16 / sizeof(T);
+    const BisOnDevice check(device);
+    if (check.err != cudaSuccess) return (int)check.err;
+    const long long plane = (long long)a->nx * a->ny;
+    const long long hpos = wlen - hneg - rows;
+    if (a->nx % V != 0 || rows < a->nx || row0 < 0 || row0 % a->nx ||
+        rows % a->nx || hneg < 0 || hpos < 0 || hneg % V || hpos % V ||
+        zr < 1 || grid_x < 1 || grid_y < 1 || grid_y > 65535)
+        return (int)cudaErrorInvalidValue;
+    const long long qa = row0 / plane, qb = (row0 + rows + plane - 1) / plane;
+    if ((long long)grid_x * BIS_BOX_THREADS * V < plane ||
+        (long long)grid_y * zr < qb - qa || qb > 2147483647LL ||
+        !box_legs_ok(a))
+        return (int)cudaErrorInvalidValue;
+    if (!(aligned16(xw) && aligned16(aux) && aligned16(y) &&
+          (sizeof(D) != sizeof(T) || aligned16(diag))))
+        return (int)cudaErrorInvalidValue;
+    stencil_spmv_halo_box_kernel<T, D, V>
+        <<<dim3(grid_x, grid_y), BIS_BOX_THREADS, 0, stream>>>(
+            *a, zr, row0, rows, hneg, wlen, xw, diag, aux, y, partials);
     return (int)cudaGetLastError();
 }
 
@@ -1322,7 +1457,7 @@ extern "C" {
 // bf16 diagonal.
 #define BIS_SPMV_ENTRY(NAME, T, D)                                           \
     int NAME(int device, const BisStencilArgs* a, const T* x, const D* diag,\
-             const T* aux, T* y, T* partials, void* stream) {               \
+             const T* aux, T* y, double* partials, void* stream) {               \
         return launch<T, D>(device, a, x, diag, aux, y, partials,           \
                             (cudaStream_t)stream);                          \
     }
@@ -1334,7 +1469,7 @@ BIS_SPMV_ENTRY(bis_stencil_spmv_f64_bf16, double, __nv_bfloat16)
 #define BIS_STREAM_ENTRY(NAME, T, D)                                         \
     int NAME(int device, const BisStencilArgs* a, int grid_x, int grid_y,   \
              int grid_z, int zc, const T* x, const D* diag, const T* aux,   \
-             T* y, T* partials, void* stream) {                             \
+             T* y, double* partials, void* stream) {                             \
         return launch_stream<T, D>(device, a, grid_x, grid_y, grid_z, zc, x,\
                                    diag, aux, y, partials,                  \
                                    (cudaStream_t)stream);                   \
@@ -1349,7 +1484,7 @@ BIS_STREAM_ENTRY(bis_stencil_spmv_stream_f64_bf16, double, __nv_bfloat16)
 #define BIS_BOX_ENTRY(NAME, T, D)                                            \
     int NAME(int device, const BisStencilArgs* a, int vec, int zr,          \
              int grid_x, int grid_y, const T* x, const D* diag,             \
-             const T* aux, T* y, T* partials, void* stream) {               \
+             const T* aux, T* y, double* partials, void* stream) {               \
         return launch_box<T, D>(device, a, vec, zr, grid_x, grid_y, x, diag,\
                                 aux, y, partials, (cudaStream_t)stream);    \
     }
@@ -1361,7 +1496,7 @@ BIS_BOX_ENTRY(bis_stencil_spmv_box_f64_bf16, double, __nv_bfloat16)
 #define BIS_STREAM_BOX_ENTRY(NAME, T, D)                                     \
     int NAME(int device, const BisStencilArgs* a, int zr, int grid_x,       \
              int grid_y, int slot, const T* x, const D* diag, const T* aux, \
-             T* y, T* partials, void* stream) {                             \
+             T* y, double* partials, void* stream) {                             \
         return launch_stream_box<T, D>(device, a, zr, grid_x, grid_y, slot, \
                                        x, diag, aux, y, partials,           \
                                        (cudaStream_t)stream);               \
@@ -1444,7 +1579,7 @@ BIS_GS_HALO_BOX_ENTRY(bis_stencil_gs_color_step_halo_box_f64_bf16, double,
 #define BIS_SPMV_HALO_ENTRY(NAME, T, D)                                      \
     int NAME(int device, const BisStencilArgs* a, long long row0,           \
              long long lines, long long n, long long hneg, const T* xw,     \
-             const D* diag, const T* aux, T* y, T* partials, void* stream) {\
+             const D* diag, const T* aux, T* y, double* partials, void* stream) {\
         return launch_halo<T, D>(device, a, row0, lines, n, hneg, xw, diag, \
                                  aux, y, partials, (cudaStream_t)stream);   \
     }
@@ -1452,6 +1587,23 @@ BIS_SPMV_HALO_ENTRY(bis_stencil_spmv_halo_f32, float, float)
 BIS_SPMV_HALO_ENTRY(bis_stencil_spmv_halo_f64, double, double)
 BIS_SPMV_HALO_ENTRY(bis_stencil_spmv_halo_f32_bf16, float, __nv_bfloat16)
 BIS_SPMV_HALO_ENTRY(bis_stencil_spmv_halo_f64_bf16, double, __nv_bfloat16)
+
+// #1's shard form on the box route: bis_stencil_spmv_halo_box_<type>[_bf16]
+#define BIS_SPMV_HALO_BOX_ENTRY(NAME, T, D)                                  \
+    int NAME(int device, const BisStencilArgs* a, int zr, int grid_x,       \
+             int grid_y, long long row0, long long rows, long long hneg,    \
+             long long wlen, const T* xw, const D* diag, const T* aux,      \
+             T* y, double* partials, void* stream) {                             \
+        return launch_halo_box<T, D>(device, a, zr, grid_x, grid_y, row0,   \
+                                     rows, hneg, wlen, xw, diag, aux, y,    \
+                                     partials, (cudaStream_t)stream);       \
+    }
+BIS_SPMV_HALO_BOX_ENTRY(bis_stencil_spmv_halo_box_f32, float, float)
+BIS_SPMV_HALO_BOX_ENTRY(bis_stencil_spmv_halo_box_f64, double, double)
+BIS_SPMV_HALO_BOX_ENTRY(bis_stencil_spmv_halo_box_f32_bf16, float,
+                        __nv_bfloat16)
+BIS_SPMV_HALO_BOX_ENTRY(bis_stencil_spmv_halo_box_f64_bf16, double,
+                        __nv_bfloat16)
 
 #define BIS_GS_HALO_ENTRY(NAME, T, D)                                        \
     int NAME(int device, const BisStencilArgs* a, int kind, int p0, int p1, \

@@ -14,10 +14,12 @@ Layouts: shard k owns rows [k·R, (k+1)·R) of the vectors, R at least
 the halo width (`row_block`; a setup's operators share one R,
 parallel/sharded.setup_rows):
 * stencil: whole z-planes (nx·ny rows) when nz ≥ n_dev, else whole
-  x-lines (fdm:2048 has nz = 1); the kernels' (line, x) grid then covers
-  the shard's own lines, and masks and colours come from global
-  coordinates; each shard holds its own copy of the coefficients and its
-  slice of the diagonal;
+  x-lines (fdm:2048 has nz = 1); the kernels' grid then covers the
+  shard's own lines, and masks and colours come from global coordinates;
+  a window's halo is the operator's rounded up to whole x-lines
+  (`DeviceStencil.window_halo`), so the shard's rows start on a line of
+  it and the box routes read it in aligned 16-byte vectors; each shard
+  holds its own copy of the coefficients and its slice of the diagonal;
 * DIA: R ≥ ⌈n/n_dev⌉, each shard's data rows its own (k, R) tensor;
 * lane-ELL: R a whole number of the JAX package's row tiles of 128-row
   x2-rows (ops/lane_ell.lane_ell_row_tile), the planes padded with inert
@@ -220,11 +222,12 @@ def _own(A, ys):
 
 def mesh_stencil_spmv(A: MeshStencil, x, dots=(), aux=None):
     """y = A @ x, one shard-local kernel a shard after one halo exchange;
-    `dots` as in stencil_spmv, each shard's partials summed by psum.
-    Returns y, or (y, *dots)."""
+    `dots` as in stencil_spmv, each shard's partials (float64 for float32
+    vectors) summed by psum and rounded once to y's dtype.  Returns y, or
+    (y, *dots)."""
     dots = tuple(dots)
     R = A.rows
-    windows = _halo_exchange(A.mesh, _padded(A, x, R), *A.inner.halo)
+    windows = _halo_exchange(A.mesh, _padded(A, x, R), *A.inner.window_halo)
     auxs = (_padded(A, aux, R, "aux") if "aux" in dots
             else [None] * A.n_devices)
     diags = A.diag_shards or (None,) * A.n_devices
@@ -238,7 +241,7 @@ def mesh_stencil_spmv(A: MeshStencil, x, dots=(), aux=None):
     y = _own(A, ys)
     if not dots:
         return y
-    return (y,) + tuple(A.mesh.psum(parts).unbind())
+    return (y,) + tuple(A.mesh.psum(parts).to(ys[0].dtype).unbind())
 
 
 def mesh_gs_color_step(A: MeshStencil, x, rhs, dinv, spec, color):
@@ -246,7 +249,7 @@ def mesh_gs_color_step(A: MeshStencil, x, rhs, dinv, spec, color):
     tuple of colours is a superstep (its colours couple only along x,
     inside each shard's lines), so it needs no further exchange."""
     R = A.rows
-    windows = _halo_exchange(A.mesh, _padded(A, x, R), *A.inner.halo)
+    windows = _halo_exchange(A.mesh, _padded(A, x, R), *A.inner.window_halo)
     rhss, dinvs = _padded(A, rhs, R, "rhs"), _padded(A, dinv, R, "dinv")
     diags = A.diag_shards or (None,) * A.n_devices
     ys = _outs(A, x, R)
@@ -430,34 +433,37 @@ def rewrap(A, inner):
     return wrap(inner, A.layout.mesh)
 
 
-def _reduce_dots(lay: RowLayout, parts) -> tuple:
-    """The ranks' partial dots summed by one all-reduce: Replicate 0-d
-    DTensors."""
+def _reduce_dots(lay: RowLayout, parts, dtype) -> tuple:
+    """The ranks' partial dots summed by one all-reduce and rounded once
+    to `dtype`: Replicate 0-d DTensors."""
     from torch.distributed.tensor import DTensor, Replicate
-    s = DTensor.from_local(torch.stack(sum_partials(parts, lay.mesh)),
-                           lay.mesh, [Replicate()], run_check=False)
+    s = DTensor.from_local(
+        torch.stack(sum_partials(parts, lay.mesh)).to(dtype), lay.mesh,
+        [Replicate()], run_check=False)
     return tuple(s[i] for i in range(len(parts)))
 
 
 def dist_stencil_spmv(A: DistStencil, x, dots=(), aux=None):
     """y = A @ x on the rank's rows: the halo exchange, then the
     shard-local #1 on the window; `dots` as in stencil_spmv, the ranks'
-    partials summed by one all-reduce.  Returns y, or (y, *dots)."""
+    partials (float64 for float32 vectors) summed by one all-reduce and
+    rounded once.  Returns y, or (y, *dots)."""
     dots = tuple(dots)
     St, lay = A.inner, A.layout
-    xw = halo_window(lay, x.to_local().contiguous(), *St.halo)
+    xw = halo_window(lay, x.to_local().contiguous(), *St.window_halo)
     aux_l = aux.to_local().contiguous() if "aux" in dots else None
     out = stencil_spmv_halo(St, xw, lay.start, dots, aux_l, A.diag_local)
     if not dots:
         return rows_like(out, x)
-    return (rows_like(out[0], x),) + _reduce_dots(lay, list(out[1:]))
+    return (rows_like(out[0], x),) + _reduce_dots(lay, list(out[1:]),
+                                                  out[0].dtype)
 
 
 def dist_gs_color_step(A: DistStencil, x, rhs, dinv, spec, color):
     """The shard-local multicolour GS step (#3's halo form) after one halo
     exchange; a tuple of colours is a superstep, as on the mesh."""
     St, lay = A.inner, A.layout
-    xw = halo_window(lay, x.to_local().contiguous(), *St.halo)
+    xw = halo_window(lay, x.to_local().contiguous(), *St.window_halo)
     y = stencil_gs_color_step_halo(
         St, xw, lay.start, rhs.to_local().contiguous(),
         dinv.to_local().contiguous(), spec, color, A.diag_local)

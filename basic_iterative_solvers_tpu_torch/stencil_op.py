@@ -28,6 +28,13 @@ vectors) and "legs" (the first ports' leg loops, any legs), counted in
 The GS step (and its shard form) takes the same two routes, picked by
 `gs_route_for` (`gs_halo_route_for`): "box" adds the step's epilogue to
 #1's box route under a parity or grid colouring; x' is the same on both.
+#1's shard form (`stencil_spmv_halo`) takes them too, picked by
+`halo_route_for`: "box" runs #1's box route on the shard's window, whose
+halo is the operator's rounded up to whole x-lines
+(`DeviceStencil.window_halo`, the one layout the shard-local forms
+read).  Every fused dot sums float32 products in float64
+and is rounded once (`partial_dot`), so it does not hang on the cut into
+blocks or shards.
 
 The coefficients and the diagonal may be stored in bfloat16 beside float32
 or float64 vectors (the JAX package's matrix_dtype): the coefficients are
@@ -111,6 +118,17 @@ class DeviceStencil:
         offs = self.offsets
         return ((max(0, -min(offs)), max(0, max(offs))) if offs
                 else (0, 0))
+
+    @property
+    def window_halo(self) -> Tuple[int, int]:
+        """(hneg, hpos) of a shard's window, the one layout the shard-local
+        forms read (the mesh and GSPMD modes build it): the halo rounded up
+        to whole x-lines, so a shard's own rows start on a line of its
+        window and the box routes' 16-byte loads stay aligned (the extra
+        rows are real neighbour rows, or zeros past the grid's ends; no leg
+        reads them)."""
+        nx = self.dims[0]
+        return tuple(-(-h // nx) * nx for h in self.halo)
 
 
 def _legs_sorted(legs_coeffs):
@@ -237,23 +255,28 @@ def _leg_masks(g, legs, nx, ny, nz, n):
 def stencil_spmv_plain(A: DeviceStencil, x: torch.Tensor, dots=(),
                        aux: torch.Tensor = None):
     """Plain PyTorch version of the kernel: one masked, shifted
-    multiply-add per leg in leg order, then one `torch.dot` per requested
-    dot, the coefficients and the diagonal widened to x's dtype.  Returns
+    multiply-add per leg in leg order, then each requested dot
+    (`partial_dot`, rounded once to x's dtype), the coefficients and the
+    diagonal widened to x's dtype.  Returns
     y, or (y, *dots) when dots are requested.  It is the shard-local plain
-    version on the whole grid: one shard, x zero-padded by the halo."""
+    version on the whole grid: one shard, x zero-padded by the window's
+    halo."""
     _check_operands(A, x, dots, aux)
-    return _spmv_window_plain(A, torch.nn.functional.pad(x, A.halo), 0,
-                              dots, aux, A.diag)
+    out = _spmv_window_plain(A, torch.nn.functional.pad(x, A.window_halo),
+                             0, dots, aux, A.diag)
+    if not dots:
+        return out
+    return (out[0],) + tuple(d.to(x.dtype) for d in out[1:])
 
 
 def _spmv_window_plain(A: DeviceStencil, xw: torch.Tensor, row0: int, dots,
                        aux, diag):
     """The rows [row0, row0 + rows) of A·x from the window xw of x (hneg
-    rows below them, hpos above), masked by their global coordinates;
-    rows at or past n are inert (0)."""
+    rows below them, hpos above: A.window_halo), masked by their global
+    coordinates; rows at or past n are inert (0)."""
     n = A.n_rows
     nx, ny, nz = A.dims
-    hneg, hpos = A.halo
+    hneg, hpos = A.window_halo
     rows = xw.numel() - hneg - hpos
     g = row0 + torch.arange(rows, device=xw.device)
     masks = _leg_masks(g, A.legs, nx, ny, nz, n)
@@ -268,7 +291,18 @@ def _spmv_window_plain(A: DeviceStencil, xw: torch.Tensor, row0: int, dots,
     if not dots:
         return y
     partner = {"x": xw[hneg:hneg + rows], "self": y, "aux": aux}
-    return (y,) + tuple(torch.dot(y, partner[k]) for k in dots)
+    return (y,) + tuple(partial_dot(y, partner[k]) for k in dots)
+
+
+def partial_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A fused dot's unrounded sum over some rows (one device's or a
+    shard's): float32 products summed in float64, as the kernels' float64
+    partials sum them (ops/blas1.whole_dot's rule); the caller rounds the
+    whole dot once, so it does not hang on how the rows are cut.  Other
+    dtypes: torch.dot."""
+    if a.dtype == torch.float32:
+        return torch.sum(a * b, dtype=torch.float64)
+    return torch.dot(a, b)
 
 
 def _box_bit(leg) -> int:
@@ -522,7 +556,7 @@ def _bind_spmv(A: DeviceStencil, x: torch.Tensor, dots, aux, stream: bool,
     else:
         raise ValueError(f"unknown stencil SpMV route {route!r}")
     y = torch.empty_like(x)
-    partials = (torch.empty((n_blocks, len(dots)), dtype=x.dtype,
+    partials = (torch.empty((n_blocks, len(dots)), dtype=torch.float64,
                             device=x.device) if dots else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     argv = (ctypes.byref(args), *grid, ptr(x),
@@ -555,7 +589,7 @@ def _spmv_cuda(counter, A, x, dots, aux, stream, route):
         counter.legs_launches += 1
     if not dots:
         return y
-    return (y,) + tuple(partials.sum(dim=0).unbind())
+    return (y,) + tuple(partials.sum(dim=0).to(x.dtype).unbind())
 
 
 def _stencil_spmv_cuda(A: DeviceStencil, x: torch.Tensor, dots, aux,
@@ -688,15 +722,17 @@ def stencil_shard_rows(dims, halo, n_dev: int) -> int:
 def _check_window(A: DeviceStencil, xw: torch.Tensor, row0: int, diag,
                   out, dots=(), aux=None) -> int:
     """Check a shard's window and return its own row count: whole x-lines
-    from a line start, the diagonal slice (rows,) in A's dtype where A has
-    a diagonal, `out` and, for an "aux" dot, `aux` (rows,) like xw."""
+    from a line start between a halo of A.window_halo (whole lines), the
+    diagonal slice (rows,) in A's dtype where A has a diagonal, `out`
+    and, for an "aux" dot, `aux` (rows,) like xw."""
     for kind in dots:
         if kind not in DOT_KINDS:
             raise ValueError(f"unknown fused-dot kind: {kind!r}")
     if "aux" in dots and aux is None:
         raise ValueError("dots containing 'aux' require the aux vector")
-    hneg, hpos = A.halo
+    hneg, hpos = A.window_halo
     nx = A.dims[0]
+    assert hneg % nx == 0 and hpos % nx == 0
     if not isinstance(xw, torch.Tensor) or xw.dim() != 1:
         raise TypeError("the window must be a 1-D torch.Tensor")
     rows = xw.numel() - hneg - hpos
@@ -728,38 +764,114 @@ def stencil_spmv_halo_plain(A: DeviceStencil, xw: torch.Tensor, row0: int,
     """Plain PyTorch version of the shard-local kernel: the shard's rows
     [row0, row0 + rows) of A·x, read from its window xw (its left
     neighbour's last hneg rows, its own rows, its right neighbour's first
-    hpos rows, `A.halo`), masked by global coordinates, inert past n;
-    `diag` is the shard's slice of A's diagonal, the dots are the shard's
-    partial sums.  Returns y, or (y, *dots)."""
+    hpos rows: (hneg, hpos) = A.window_halo), masked by global
+    coordinates, inert past n; `diag`
+    is the shard's slice of A's diagonal, the dots are the shard's partial
+    sums (`partial_dot`: float64 for float32 vectors, which the mesh
+    rounds once after summing the shards).  Returns y, or (y, *dots)."""
     dots = tuple(dots)
     _check_window(A, xw, row0, diag, None, dots, aux)
     return _spmv_window_plain(A, xw, row0, dots, aux, diag)
 
 
-def _stencil_spmv_halo_cuda(A: DeviceStencil, xw, row0, rows, dots, aux,
-                            diag, out):
+def halo_route_for(A: DeviceStencil, xw: torch.Tensor,
+                   aux: torch.Tensor = None, diag: torch.Tensor = None,
+                   out: torch.Tensor = None) -> str:
+    """The route of the shard-local SpMV that `stencil_spmv_halo`
+    launches on a card: "box" (#1's box route on the window) where every
+    leg lies within the 3x3x3 box, a line is whole 16-byte vectors and
+    every operand read or written 16 bytes wide (the window, aux when an
+    "aux" dot is asked, a diagonal of x's dtype, `out`) starts on 16
+    bytes; else "legs" (the first port's leg loop: legs outside the box,
+    37-wide lines, an operand off 16 bytes).  The window's halo is whole
+    lines (A.window_halo), so the shard's rows start on a vector.  A rule
+    on the legs, the grid's x extent and the operands' alignment, read at
+    each call."""
+    ptrs = [v.data_ptr() for v in (xw, aux, out) if v is not None]
+    ptrs += _gs_diag_ptrs(A, xw, diag)
+    ok = (in_box(A) and A.dims[0] % (16 // xw.element_size()) == 0
+          and not any(p % 16 for p in ptrs))
+    return "box" if ok else "legs"
+
+
+def _shard_box_grid(dims, vec: int, row0: int, rows: int, sms: int,
+                    resident: int) -> Tuple[int, int, int]:
+    """(zr, grid_x, grid_y) of a box route over rows [row0, row0 + rows)
+    of `dims` (box_form's): `_box_grid` over the planes holding them,
+    with `resident` blocks an SM."""
+    nx, ny, _nz = dims
+    plane = nx * ny
+    qa, qb = row0 // plane, -(-(row0 + rows) // plane)
+    gx, gy, zr = _box_grid((nx, ny, qb - qa), vec, sms, resident)
+    return zr, gx, gy
+
+
+def _bind_spmv_halo(A: DeviceStencil, xw, row0, rows, dots, aux, diag, out,
+                    route: str):
+    """(launch, y, partials, bf16): one launch of the shard-local SpMV on
+    `route` ("box" or "legs") with its operands bound and its outputs
+    allocated (y is `out` where given); launch() makes the ctypes call and
+    raises on a CUDA error.  The wrapper calls it once a call; a timing
+    loop may call launch() many times."""
     from ._build import launch as _launch, load_library
     use_diag, suffix = _kernel_form(A, xw)
-    args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag,
-                            tuple(dots))
-    nx = A.dims[0]
-    lines = rows // nx
-    n_blocks = -(-lines // args.block_y) * -(-nx // args.block_x)
+    if route == "box":
+        if not in_box(A):
+            raise ValueError(f"legs {A.legs} lie outside the box route's "
+                             "3x3x3 box")
+        legs, dims = box_form(A)
+        args, _ = _launch_table(legs, A.coeff_values, dims, use_diag,
+                                tuple(dots))
+        zr, gx, gy = _shard_box_grid(dims, 16 // xw.element_size(), row0,
+                                     rows, sm_count(xw.device.index),
+                                     BOX_RESIDENT[0])
+        n_blocks = gx * gy
+        fn = getattr(load_library(), f"bis_stencil_spmv_halo_box_{suffix}")
+        shard = (zr, gx, gy, row0, rows, A.window_halo[0], xw.numel())
+    elif route == "legs":
+        args, _ = _launch_table(A.legs, A.coeff_values, A.dims, use_diag,
+                                tuple(dots))
+        nx = A.dims[0]
+        lines = rows // nx
+        n_blocks = -(-lines // args.block_y) * -(-nx // args.block_x)
+        fn = getattr(load_library(), f"bis_stencil_spmv_halo_{suffix}")
+        shard = (row0, lines, A.n_rows, A.window_halo[0])
+    else:
+        raise ValueError(f"unknown shard SpMV route {route!r}")
     y = torch.empty_like(xw[:rows]) if out is None else out
-    partials = (torch.empty((n_blocks, len(dots)), dtype=xw.dtype,
+    partials = (torch.empty((n_blocks, len(dots)), dtype=torch.float64,
                             device=xw.device) if dots else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    fn = getattr(load_library(), f"bis_stencil_spmv_halo_{suffix}")
-    err = _launch(fn, xw.device, ctypes.byref(args), row0, lines, A.n_rows,
-                  A.halo[0], ptr(xw), ptr(diag if use_diag else None),
-                  ptr(aux if "aux" in dots else None), ptr(y), ptr(partials))
-    if err != 0:
-        raise RuntimeError(f"stencil_spmv_halo kernel launch failed with "
-                           f"CUDA error {err}")
-    if suffix.endswith("_bf16"):
+    argv = (ctypes.byref(args), *shard, ptr(xw),
+            ptr(diag if use_diag else None),
+            ptr(aux if "aux" in dots else None), ptr(y), ptr(partials))
+
+    def launch():
+        err = _launch(fn, xw.device, *argv)
+        if err != 0:
+            raise RuntimeError(f"stencil_spmv_halo kernel launch ({route} "
+                               f"route) failed with CUDA error {err}")
+    return launch, y, partials, suffix.endswith("_bf16")
+
+
+def _stencil_spmv_halo_cuda(A: DeviceStencil, xw, row0, rows, dots, aux,
+                            diag, out, route: str = None):
+    """Launch the shard-local SpMV on `route` (by default
+    `halo_route_for`'s), count the launch (by form and by route) and
+    return y, or (y, *dots) with the per-block partials summed (the
+    shard's float64 partial dots: `partial_dot`'s)."""
+    if route is None:
+        route = halo_route_for(A, xw, aux if "aux" in dots else None, diag,
+                               out)
+    launch, y, partials, bf16 = _bind_spmv_halo(A, xw, row0, rows, dots, aux,
+                                                diag, out, route)
+    launch()
+    if bf16:
         stencil_spmv_halo.bf16_launches += 1
     else:
         stencil_spmv_halo.launches += 1
+    setattr(stencil_spmv_halo, f"{route}_launches",
+            getattr(stencil_spmv_halo, f"{route}_launches") + 1)
     if not dots:
         return y
     return (y,) + tuple(partials.sum(dim=0).unbind())
@@ -770,11 +882,13 @@ def stencil_spmv_halo(A: DeviceStencil, xw: torch.Tensor, row0: int,
                       diag: torch.Tensor = None,
                       out: torch.Tensor = None):
     """One mesh shard's SpMV (the JAX package's stencil_spmv_resident with
-    halo= and row0=): `stencil_spmv_halo_plain`'s contract, y written to
-    `out` when given.  A CUDA tensor launches the shard-local kernel
-    (csrc/stencil_spmv.cu), counted in `stencil_spmv_halo.launches`
-    (`.bf16_launches` for the bfloat16-diagonal form): y bit-equal to #1's
-    rows; a CPU tensor takes the plain version (a meta tensor its
+    halo= and row0=): `stencil_spmv_halo_plain`'s contract (the window's
+    halo A.window_halo), y written to `out` when given.  A
+    CUDA tensor launches the shard-local kernel (csrc/stencil_spmv.cu),
+    counted in `stencil_spmv_halo.launches` (`.bf16_launches` for the
+    bfloat16-diagonal form) and, by route (`halo_route_for`), in
+    `.box_launches` or `.legs_launches`: y bit-equal to #1's rows on
+    both; a CPU tensor takes the plain version (a meta tensor its
     shapes)."""
     dots = tuple(dots)
     rows = _check_window(A, xw, row0, diag, out, dots, aux)
@@ -792,6 +906,8 @@ def stencil_spmv_halo(A: DeviceStencil, xw: torch.Tensor, row0: int,
 
 stencil_spmv_halo.launches = 0
 stencil_spmv_halo.bf16_launches = 0
+stencil_spmv_halo.box_launches = 0
+stencil_spmv_halo.legs_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -862,13 +978,14 @@ def stencil_gs_color_step_halo_plain(A: DeviceStencil, xw: torch.Tensor,
                                      diag: torch.Tensor = None
                                      ) -> torch.Tensor:
     """Plain PyTorch version of the shard-local GS step: per colour c, the
-    shard's plain SpMV from its window, then its own rows
-    x = where(colour == c, x + (rhs − A·x)·dinv, x), colours and masks
-    from global coordinates, inert rows (at or past n) copied through.
-    rhs and dinv are the shard's slices; returns its own rows."""
+    shard's plain SpMV from its window (its halo A.window_halo), then its
+    own rows x = where(colour == c, x + (rhs − A·x)·dinv,
+    x), colours and masks from global coordinates, inert rows (at or past
+    n) copied through.  rhs and dinv are the shard's slices; returns its
+    own rows."""
     from .coloring import color_ids_of
     rows = _check_gs_window(A, xw, row0, rhs, dinv, spec, diag, None)
-    hneg = A.halo[0]
+    hneg = A.window_halo[0]
     g = row0 + torch.arange(rows, device=xw.device)
     ids = torch.where(g < A.n_rows, color_ids_of(spec, g), -1)
     colors = _colors(color)
@@ -896,12 +1013,11 @@ def _gs_color_params(A: DeviceStencil, spec, box: bool):
     return (_COLOR_KINDS[spec.kind],) + tuple(int(v) for v in p)
 
 
-def _gs_box_ok(A: DeviceStencil, spec, itemsize: int, ptrs,
-               halo=(0, 0)) -> bool:
+def _gs_box_ok(A: DeviceStencil, spec, itemsize: int, ptrs) -> bool:
     """#3's box route takes A: every leg within the 3x3x3 box (as #1's box
     route), a parity or grid colouring, lines of whole 16-byte vectors,
     every operand read or written 16 bytes wide (`ptrs`) starting on 16
-    bytes, and a window halo (hneg, hpos) of whole vectors; and float32
+    bytes; and float32
     vectors, or a flat plane (a 2-D operator: box_form's ny = 1).  In
     float64 on three-line planes (HPCG, Anderson) the box route, at its
     128-register cap, ran slower than the leg loop on the H100 (PERF.md,
@@ -910,8 +1026,7 @@ def _gs_box_ok(A: DeviceStencil, spec, itemsize: int, ptrs,
     flat = box_form(A)[1][1] == 1
     return (in_box(A) and spec.kind in ("parity", "grid")
             and (itemsize == 4 or flat)
-            and A.dims[0] % vec == 0 and not any(h % vec for h in halo)
-            and not any(p % 16 for p in ptrs))
+            and A.dims[0] % vec == 0 and not any(p % 16 for p in ptrs))
 
 
 def _gs_diag_ptrs(A: DeviceStencil, x, diag):
@@ -945,15 +1060,11 @@ GS_BOX_FLAT_RESIDENT = 4
 def _gs_box_grid(dims, vec: int, row0: int, rows: int,
                  sms: int) -> Tuple[int, int, int]:
     """(zr, grid_x, grid_y) of #3's box route on `dims` (box_form's) over
-    rows [row0, row0 + rows): `_box_grid` over the planes holding them,
-    with the blocks an SM the kernel's form holds."""
-    nx, ny, _nz = dims
-    plane = nx * ny
-    qa, qb = row0 // plane, -(-(row0 + rows) // plane)
-    gx, gy, zr = _box_grid((nx, ny, qb - qa), vec, sms,
-                           GS_BOX_FLAT_RESIDENT if ny == 1
+    rows [row0, row0 + rows): `_shard_box_grid` with the blocks an SM the
+    kernel's form holds."""
+    return _shard_box_grid(dims, vec, row0, rows, sms,
+                           GS_BOX_FLAT_RESIDENT if dims[1] == 1
                            else BOX_RESIDENT[0])
-    return zr, gx, gy
 
 
 def _gs_box_launch(A: DeviceStencil, x, spec, row0: int, rows: int,
@@ -1037,15 +1148,14 @@ def gs_halo_route_for(A: DeviceStencil, xw: torch.Tensor,
                       out: torch.Tensor = None) -> str:
     """The route of the shard-local GS step that
     `stencil_gs_color_step_halo` launches: "box" where `_gs_box_ok` holds
-    for the window, the shard's rhs, dinv, diagonal slice and `out`, and
-    the halo (A.halo) is of whole 16-byte vectors (so every line an owned
+    for the window, the shard's rhs, dinv, diagonal slice and `out` (the
+    window's halo, A.window_halo, is whole lines, so every line an owned
     row reads lies inside the window), else "legs"."""
     ptrs = [xw.data_ptr(), rhs.data_ptr(), dinv.data_ptr(),
             *_gs_diag_ptrs(A, xw, diag)]
     if out is not None:
         ptrs.append(out.data_ptr())
-    return ("box" if _gs_box_ok(A, spec, xw.element_size(), ptrs, A.halo)
-            else "legs")
+    return "box" if _gs_box_ok(A, spec, xw.element_size(), ptrs) else "legs"
 
 
 def _stencil_gs_color_step_halo_cuda(A: DeviceStencil, xw, row0, rows,
@@ -1055,7 +1165,7 @@ def _stencil_gs_color_step_halo_cuda(A: DeviceStencil, xw, row0, rows,
     use_diag, suffix = _kernel_form(A, xw)
     if route is None:
         route = gs_halo_route_for(A, xw, rhs, dinv, spec, diag, out)
-    hneg = A.halo[0]
+    hneg = A.window_halo[0]
     if route == "box":
         args, p, grid = _gs_box_launch(A, xw, spec, row0, rows, use_diag)
         fn = getattr(load_library(),
@@ -1099,8 +1209,8 @@ def stencil_gs_color_step_halo(A: DeviceStencil, xw: torch.Tensor,
                                out: torch.Tensor = None) -> torch.Tensor:
     """One mesh shard's GS colour step (the JAX package's
     stencil_gs_color_step with halo= and row0=):
-    `stencil_gs_color_step_halo_plain`'s contract, the shard's new rows
-    written to `out` when given.  A tuple of colours runs in order from
+    `stencil_gs_color_step_halo_plain`'s contract (the window's halo
+    A.window_halo), the shard's new rows written to `out` when given.  A tuple of colours runs in order from
     one window (the JAX package's superstep: its colours couple only along
     x, inside the shard's lines).  A CUDA tensor launches the shard-local
     kernel once per colour, counted in `stencil_gs_color_step_halo.launches`

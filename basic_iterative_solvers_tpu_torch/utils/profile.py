@@ -45,6 +45,7 @@ PHASE_BUCKETS = (
               "stencil_gs_color_step_kernel",
               "stencil_gs_color_step_box_kernel", "dia_spmv_kernel",
               "lane_ell_spmv_kernel", "stencil_spmv_halo_kernel",
+              "stencil_spmv_halo_box_kernel",
               "stencil_gs_color_step_halo_kernel", "dia_spmv_halo_kernel",
               "lane_ell_spmv_halo_kernel",
               "lane_ell_spmv_halo_padded_kernel")),

@@ -184,7 +184,13 @@ exits non-zero:
      type each takes (#1 at 128^3 with every dot kind, #3 on every colour
      of fdm:2048, #4 at 128^3, #5 on sband:500000,8,400; the bf16 forms);
      the 8 launches of one mesh call timed beside the single-device
-     kernel, the whole mesh call and the library's CSR SpMV; #5 on each
+     kernel, the whole mesh call and the library's CSR SpMV; #1 on the
+     mesh's line-aligned windows on the route its picker names and on
+     both routes forced (box, legs), y bit-equal across them, every dot
+     within TOL of plain, each type's 8 launches timed in turns (legs,
+     box, box, legs: the kernels alone, then through the wrapper), and
+     one launch over the whole grid's window (the GSPMD mode at world
+     size 1) on both routes in turns; #5 on each
      route (the launch shape's, padded on sband's shards; counted; padded
      with int32 indices, the first port's kernel; timed in turns) beside
      8 CSR SpMVs over the shards' rows; #3 on its box route, each shard
@@ -195,7 +201,9 @@ exits non-zero:
      also with #5's shard launches
      forced onto the counted route), SGS on fdm:2048 (200; the mesh also
      with #3's shard launches forced onto the leg loop), single-device
-     and 8-shard mesh in turns, with ms/iter, launches and the mesh's
+     and 8-shard mesh in turns, with ms/iter, launches (#1's shard
+     launches by route, every one on the route its picker named) and the
+     mesh's
      exchanges an iteration, the mesh's vectors row-sharded MeshVectors
      (a shard's rows its own tensor) and the mesh census of each row (no
      vector gathered whole in the loop); f64 CG + Jacobi to 1e-8 at 128^3
@@ -204,8 +212,9 @@ exits non-zero:
  35b. the GSPMD mode ([gspmd], after [slice8]): NCCL in this process at
      world size 1, `make_device_mesh()`; CG on the 128^3 stencil (300),
      single-device, 8-shard mesh and GSPMD in turns, with ms/iter, equal
-     counts, #1's halo form launched every GSPMD iteration and the
-     single-device kernels never; f64 CG + Jacobi to 1e-8 at 128^3, GSPMD
+     counts, #1's halo form launched every GSPMD iteration (by route,
+     every launch on the route its picker named) and the single-device
+     kernels never; f64 CG + Jacobi to 1e-8 at 128^3, GSPMD
      against single-device (equal counts, histories within 1e-8); GSPMD
      rows of #4's, #3's and #5's halo forms (DIA CG at 128^3, SGS on
      fdm:2048, CG on sband:524288,8,400); the census on the card (no full
@@ -356,6 +365,7 @@ PTXAS_KERNELS = ("lane_ell_spmv_kernel", "lane_ell_spmv_halo_kernel",
                  "stencil_spmv_kernel",
                  "stencil_spmv_stream_kernel", "stencil_spmv_box_kernel",
                  "stencil_spmv_stream_box_kernel",
+                 "stencil_spmv_halo_kernel", "stencil_spmv_halo_box_kernel",
                  "super_solve_brick_kernel")
 #: Itanium codes of the template arguments those kernels take
 _MANGLED = {"f": "float", "d": "double", "t": "u16", "h": "u8", "i": "int",
@@ -4506,16 +4516,35 @@ def _mesh_counters(bt, reset=False):
             fn.launches = fn.bf16_launches = 0
         for route in lane_ell.HALO_ROUTES:
             setattr(halo, f"{route}_launches", 0)
-    gs = so.stencil_gs_color_step_halo
+    gs, sp = so.stencil_gs_color_step_halo, so.stencil_spmv_halo
     if reset:
         gs.box_launches = gs.legs_launches = 0
+        sp.box_launches = sp.legs_launches = 0
     out = {name: fn.launches for name, fn in fns.items()}
     out.update({f"lane_ell_spmv_halo_{route}": getattr(halo,
                                                        f"{route}_launches")
                 for route in lane_ell.HALO_ROUTES})
-    out.update({f"stencil_gs_step_halo_{rt}": getattr(gs, f"{rt}_launches")
-                for rt in ("box", "legs")})
+    for name, fn in (("stencil_gs_step_halo", gs), ("stencil_spmv_halo", sp)):
+        out.update({f"{name}_{rt}": getattr(fn, f"{rt}_launches")
+                    for rt in ("box", "legs")})
     return out
+
+
+@contextlib.contextmanager
+def _route_recorded(module, picker, picked):
+    """Inside the block every call of `module.picker` adds the route it
+    returns to the Counter `picked` (the picker itself decides)."""
+    saved = getattr(module, picker)
+
+    def recorded(*args, **kwargs):
+        route = saved(*args, **kwargs)
+        picked[route] += 1
+        return route
+    setattr(module, picker, recorded)
+    try:
+        yield
+    finally:
+        setattr(module, picker, saved)
 
 
 def _shards_vs_plain(torch, tag, label, launch, plain, counter, attr, tol,
@@ -4557,6 +4586,24 @@ def _shards_vs_plain(torch, tag, label, launch, plain, counter, attr, tol,
     return outs, err, ms, plain_ms
 
 
+#: the order #1's shard form is timed in: its kernels alone (bound
+#: launches) on the legs and box routes, then through the wrapper
+HALO_TURNS = ("legs", "box", "box", "legs", "legs_wrapper", "box_wrapper",
+              "box_wrapper", "legs_wrapper")
+
+
+def _route_fns(bound, wrapped):
+    """{route: fn} for HALO_TURNS: bound(rt) the launch() callables of a
+    route's launches, made once; wrapped(rt) a call through the
+    wrapper."""
+    fns = {}
+    for rt in ("box", "legs"):
+        launches = bound(rt)
+        fns[rt] = lambda launches=launches: [f() for f in launches]
+        fns[f"{rt}_wrapper"] = lambda rt=rt: wrapped(rt)
+    return fns
+
+
 def phase_mesh_kernel_vs_plain(torch, bt, sband):
     """[mesh-kernel]: the four shard-local kernels on an 8-shard mesh on
     the card, each shard against its plain twin on its own window (#4 and
@@ -4564,13 +4611,21 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
     leg), and the shards' y concatenated against the single-device kernel
     on the whole vector, bit for bit, in every type each takes: #1 at
     128^3 with every dot kind (f32, f64; Anderson 128^3's bf16
-    diagonal), #3 on every colour of fdm:2048 (f32, f64; Anderson bf16),
+    diagonal and f64), #3 on every colour of fdm:2048 (f32, f64; Anderson
+    bf16) and of HPCG 128^3 (f32, on the 27-point windows' box route),
     #4 at 128^3 (f32, f64, bf16 data), #5 on sband:500000,8,400 (f32,
-    f64, bf16 values).  Timed (f32): the 8 launches of one mesh call and
-    the single-device kernel by their device time (_device_ms: the host's
-    launch cost hidden behind a sleeping kernel), the plain twins, the
-    whole mesh call (exchange and host work included) and the library's
-    CSR SpMV by CUDA events; the bound counts the windows' halo rows.  #5
+    f64, bf16 values).  #1 runs on the mesh's line-aligned windows, on the
+    route `halo_route_for` names (every launch counted there) and on both
+    routes forced, y bit-equal across them, each type's 8 launches timed
+    on both in turns (HALO_TURNS), and (f32, f64) one launch over the
+    whole grid's window (the GSPMD mode at world size 1) on both in
+    turns; the bound counts the rounded windows.  #3 at HPCG 128^3 f32 on
+    both routes in turns.  Timed (f32): the 8 launches of one mesh
+    call and the single-device kernel by their device time (_device_ms:
+    the host's launch cost hidden behind a sleeping kernel), the plain
+    twins, the whole mesh call (exchange and host work included) and the
+    library's CSR SpMV by CUDA events; the bound counts the windows' halo
+    rows.  #5
     on every route of its shard form (the launch shape's, by
     lane_ell.halo_route_for; counted; padded with 16-bit and int32
     indices), timed in turns beside 8 CSR SpMVs over the shards' rows.
@@ -4603,22 +4658,28 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
     def window_bytes(wins, item):
         return sum(w.numel() for w in wins) * item
 
-    # #1: the stencil SpMV's shard form
+    # #1: the stencil SpMV's shard form, on the mesh's line-aligned
+    # windows: the picker's route and both routes forced
     M_csr, lib_x = None, None
+    by_type = {}
     for spec, dt, md in ((MAIN_SPEC, torch.float32, torch.float32),
                          (MAIN_SPEC, torch.float64, torch.float64),
-                         (ANDERSON_128, torch.float32, torch.bfloat16)):
+                         (ANDERSON_128, torch.float32, torch.bfloat16),
+                         (ANDERSON_128, torch.float64, torch.float64)):
         A = so.from_source_operator(spec, md, device="cuda")
         W = mo.wrap_stencil(dataclasses.replace(A, shards=MESH_SHARDS), mesh,
                             "rows")
         R, n, item = W.rows, A.n_rows, torch.empty((), dtype=dt
                                                     ).element_size()
+        hw = A.window_halo
         x, aux = rnd(n, dt, 21), rnd(n, dt, 22)
-        wins = windows(x, MESH_SHARDS * R, *A.halo)
+        wins = windows(x, MESH_SHARDS * R, *hw)
         auxs = _split(pad(aux, MESH_SHARDS * R), MESH_SHARDS)
         diags = W.diag_shards or (None,) * MESH_SHARDS
         attr = "bf16_launches" if md == torch.bfloat16 else "launches"
         tol = TOL[str(dt).split(".")[1]]
+        label = (f"#1 {spec} {str(dt)[6:]}"
+                 f"{' bf16-diag' if md == torch.bfloat16 else ''}")
         dot_sets = (((), ("x",), ("self",), ("aux",)) if spec == MAIN_SPEC
                     else ((), ("x",)))
         for dots in dot_sets:
@@ -4630,25 +4691,50 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
                 return so.stencil_spmv_halo(A, wins[k], k * R, dots, auxs[k],
                                             diags[k], out=ys[k])
 
+            def on_route(route, dots=dots):
+                return [so._stencil_spmv_halo_cuda(
+                    A, wins[k], k * R, R, dots, auxs[k], diags[k], None,
+                    route=route) for k in range(MESH_SHARDS)]
+
             def plain(k, dots=dots):
                 out = so.stencil_spmv_halo_plain(A, wins[k], k * R, dots,
                                                  auxs[k], diags[k])
                 if not dots:
                     return out
-                partner = {"x": wins[k][A.halo[0]:A.halo[0] + R],
+                partner = {"x": wins[k][hw[0]:hw[0] + R],
                            "self": out[0], "aux": auxs[k]}
                 return (out[0], out[1:],
                         [float((out[0] * partner[d]).abs().sum())
                          for d in dots])
 
-            outs, err, ms, plain_ms = _shards_vs_plain(
-                torch, "mesh-kernel", f"#1 {spec} {str(dt)[6:]}"
-                f"{' bf16 diag' if md == torch.bfloat16 else ''} "
-                f"dots={','.join(dots) or '-'}", launch, plain,
-                so.stencil_spmv_halo, attr, tol, False, main)
+            picked = so.halo_route_for(
+                A, wins[0], auxs[0] if "aux" in dots else None, diags[0],
+                ys[0])
+            before = so.stencil_spmv_halo.box_launches
+            outs, err, _ms, _pms = _shards_vs_plain(
+                torch, "mesh-kernel", f"{label} dots={','.join(dots) or '-'}",
+                launch, plain, so.stencil_spmv_halo, attr, tol, False, False)
+            on_box = so.stencil_spmv_halo.box_launches - before
+            if on_box != (MESH_SHARDS if picked == "box" else 0):
+                raise RuntimeError(f"{label}: a shard launch left the "
+                                   f"picker's {picked} route")
+            ys_of = lambda o: [t[0] if dots else t for t in o]  # noqa: E731
+            routes = {rt: on_route(rt) for rt in ("box", "legs")}
             single = so._stencil_spmv_cuda(A, x, dots, aux)
             single = single if dots else (single,)
-            y8 = torch.cat([o[0] if dots else o for o in outs])[:n]
+            for rt, r_outs in routes.items():
+                if not all(torch.equal(a, b) for a, b in
+                           zip(ys_of(r_outs), ys_of(outs))):
+                    raise RuntimeError(f"{label} {dots}: the {rt} route's y "
+                                       "differs from the picker's route's")
+                for k, o in enumerate(r_outs if dots else ()):
+                    _y, dot_p, scale = plain(k)
+                    for d_k, d_p, sc in zip(o[1:], dot_p, scale):
+                        if abs(float(d_k - d_p)) > tol * (sc or 1.0):
+                            raise RuntimeError(f"{label} {dots}: a dot of "
+                                               f"the {rt} route disagrees "
+                                               "with its plain twin")
+            y8 = torch.cat(ys_of(outs))[:n]
             if not torch.equal(y8, single[0]):
                 raise RuntimeError(f"#1 halo {spec} {dt} {dots}: the shards' "
                                    "y differs from the single-device "
@@ -4660,12 +4746,52 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
                 if abs(tot - float(single[1 + j])) > tol * sc:
                     raise RuntimeError(f"#1 halo dot {kind} disagrees with "
                                        "the single-device kernel's")
-            print(f"[mesh-kernel] #1 {spec} {str(dt)[6:]} "
-                  f"{'bf16-diag ' if md == torch.bfloat16 else ''}dots="
-                  f"{','.join(dots) or '-'} rows/shard={R} halo={A.halo}: "
-                  f"y bit-equal to the single-device kernel, "
-                  f"max_abs_err_vs_plain={err:.3e}")
+            print(f"[mesh-kernel] {label} dots={','.join(dots) or '-'} "
+                  f"rows/shard={R} halo={A.halo} window halo={hw}: the "
+                  f"picker's route {picked}; y on the box and legs routes "
+                  f"bit-equal to each other and to the single-device "
+                  f"kernel, max_abs_err_vs_plain={err:.3e}")
+            if dots != ("x",):
+                continue
+            # each type's 8 shard launches on both routes, in turns: the
+            # kernels alone (bound launches), then through the wrapper
+            # (each shard's partials summed by one more launch)
+            turns = _in_turns(torch, _route_fns(
+                lambda rt, dots=dots: [so._bind_spmv_halo(
+                    A, wins[k], k * R, R, dots, auxs[k], diags[k], None,
+                    rt)[0] for k in range(MESH_SHARDS)], on_route),
+                HALO_TURNS, sleep_cycles=100_000_000)
+            by_type[label[3:]] = {"picked": picked, **{
+                f"{name}_ms": t for name, t in turns.items()}}
+            print(f"[mesh-kernel] {label} y·x: 8 shard launches device ms "
+                  f"in turns ({', '.join(HALO_TURNS)}; the kernels alone, "
+                  f"then through the wrapper with each shard's partials "
+                  f"summed) {turns}; the picker's route {picked}")
+            if spec == MAIN_SPEC:
+                # the GSPMD mode at world size 1: one launch over the whole
+                # grid from its window
+                xw1 = torch.nn.functional.pad(x, hw)
+
+                def whole(rt, dots=dots, xw1=xw1):
+                    return so._stencil_spmv_halo_cuda(
+                        A, xw1, 0, n, dots, None, None, None, route=rt)
+                if not all(torch.equal(whole(rt)[0], single[0])
+                           for rt in ("box", "legs")):
+                    raise RuntimeError("#1 halo: the one-window launch "
+                                       "differs from the single-device "
+                                       "kernel")
+                one = _in_turns(torch, _route_fns(
+                    lambda rt, dots=dots, xw1=xw1: [so._bind_spmv_halo(
+                        A, xw1, 0, n, dots, None, None, None, rt)[0]],
+                    whole), HALO_TURNS)
+                by_type[label[3:]]["gspmd1"] = one
+                print(f"[mesh-kernel] {label} y·x: one launch over the whole "
+                      f"grid's window (GSPMD, world size 1) device ms in "
+                      f"turns {one}; the picker's route "
+                      f"{so.halo_route_for(A, xw1)}")
             if main:
+                plain_ms = _median_ms(lambda: [plain(k) for k in range(
+                    MESH_SHARDS)], torch, reps=5, batch=2)
                 single_ms = _device_ms(
                     lambda: so._stencil_spmv_cuda(A, x, dots, aux), torch)
                 x8 = mesh.scatter(x, R)
@@ -4677,22 +4803,41 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
                 nnz = int(M_csr.values().numel())
                 bound = _bound(window_bytes(wins, item) + n * item,
                                2 * nnz - n + 2 * n)
+                bound1 = _bound((xw1.numel() + n) * item,
+                                2 * nnz - n + 2 * n)
+                ms = min(turns[picked])
                 print(f"[mesh-kernel] #1 {spec} f32 y·x: 8 shard launches "
-                      f"ms={ms:.4f} (plain twins {plain_ms:.4f}; the "
-                      f"single-device kernel {single_ms:.4f}; the whole mesh "
-                      f"SpMV with its exchange {call_ms:.4f}; CSR SpMV "
-                      f"{lib_ms:.4f}) bound_ms={bound['bound_ms']:.5f} "
-                      f"({bound['bound_by']}, windows "
-                      f"{window_bytes(wins, item) / 1e6:.2f} MB)")
+                      f"ms={ms:.5f} on the {picked} route, the kernels "
+                      f"alone (through the wrapper "
+                      f"{min(turns[picked + '_wrapper']):.5f}; legs "
+                      f"{min(turns['legs']):.5f}, through the wrapper "
+                      f"{min(turns['legs_wrapper']):.5f}; plain twins "
+                      f"{plain_ms:.4f}; the single-device kernel "
+                      f"{single_ms:.5f}; the whole mesh SpMV with its "
+                      f"exchange {call_ms:.4f}; CSR SpMV {lib_ms:.4f}) "
+                      f"bound_ms={bound['bound_ms']:.5f} "
+                      f"({bound['bound_by']}, line-aligned windows "
+                      f"{window_bytes(wins, item) / 1e6:.2f} MB); one "
+                      f"launch over the whole grid's window (GSPMD, world "
+                      f"size 1) bound_ms={bound1['bound_ms']:.5f}")
                 records["stencil_spmv_halo"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err, "ms": ms,
+                    "legs_ms": min(turns["legs"]),
+                    "wrapper_ms": min(turns[picked + "_wrapper"]),
+                    "wrapper_legs_ms": min(turns["legs_wrapper"]),
+                    "plain_ms": plain_ms,
                     "library_ms": lib_ms, "single_ms": single_ms,
-                    "call_ms": call_ms, **bound}
+                    "call_ms": call_ms,
+                    "gspmd1_ms": min(one[so.halo_route_for(A, xw1)]),
+                    "gspmd1_legs_ms": min(one["legs"]),
+                    "gspmd1_bound_ms": bound1["bound_ms"], **bound}
         del A, W, wins, auxs, x, aux
+    records["stencil_spmv_halo"]["by_type"] = by_type
     # #3: the GS colour step's shard form
     for spec, dt, md in (("fdm:2048", torch.float32, torch.float32),
                          ("fdm:2048", torch.float64, torch.float64),
-                         (ANDERSON_128, torch.float32, torch.bfloat16)):
+                         (ANDERSON_128, torch.float32, torch.bfloat16),
+                         (MAIN_SPEC, torch.float32, torch.float32)):
         A = so.from_source_operator(spec, md, device="cuda")
         W = mo.wrap_stencil(dataclasses.replace(A, shards=MESH_SHARDS), mesh,
                             "rows")
@@ -4701,7 +4846,7 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
         cs = spec_for_device(A)
         x, rhs = rnd(n, dt, 23), rnd(n, dt, 24)
         dinv = (1.0 / so.stencil_diag(A)).to(dt)
-        wins = windows(x, MESH_SHARDS * R, *A.halo)
+        wins = windows(x, MESH_SHARDS * R, *A.window_halo)
         rhss = _split(pad(rhs, MESH_SHARDS * R), MESH_SHARDS)
         dinvs = _split(pad(dinv, MESH_SHARDS * R), MESH_SHARDS)
         diags = W.diag_shards or (None,) * MESH_SHARDS
@@ -4778,6 +4923,17 @@ def phase_mesh_kernel_vs_plain(torch, bt, sband):
                     "library_ms": None, "single_ms": single_ms,
                     "call_ms": call_ms,
                     "sector_bound_ms": sector["bound_ms"], **bound}
+            elif spec == MAIN_SPEC and c == 0:
+                # the 27-point windows, line-aligned: #3's box route
+                turns = _in_turns(torch, {
+                    "box": lambda: [launch(k) for k in range(MESH_SHARDS)],
+                    "legs": lambda: [legs(k) for k in range(MESH_SHARDS)]},
+                    ("box", "legs", "legs", "box"), sleep_cycles=100_000_000)
+                records["stencil_gs_step_halo"]["hpcg"] = {
+                    f"{rt}_ms": min(t) for rt, t in turns.items()}
+                print(f"[mesh-kernel] #3 {spec} f32 colour 0 (window halo "
+                      f"{A.window_halo}): 8 shard launches device ms in "
+                      f"turns box={turns['box']} legs={turns['legs']}")
         del A, W, wins, rhss, dinvs, x, rhs, dinv
     torch.cuda.empty_cache()
     # #4: the DIA SpMV's shard form
@@ -4974,6 +5130,7 @@ def phase_slice8(torch, bt, sband):
     (make_sharded_cg, the JAX package's dryrun_multichip's first stage)
     on the DIA 128^3 matrix.  Returns each halo kernel's launches in its
     first mesh row and the rows' numbers."""
+    import collections
     import math
     import numpy as np
     from basic_iterative_solvers_tpu_torch.ops import lane_ell as le
@@ -5026,6 +5183,7 @@ def phase_slice8(torch, bt, sband):
         bt.solve(s8, method=m8)
         lane = kernel == "lane_ell_spmv_halo"
         gs = kernel == "stencil_gs_step_halo"
+        spmv = kernel == "stencil_spmv_halo"
         # cg@sband: the mesh also with every shard launch on #5's counted
         # route, in turns with the launch shape's route; sgs@fdm2048: with
         # #3's shard launches on the leg loop, in turns with its box route
@@ -5042,11 +5200,13 @@ def phase_slice8(torch, bt, sband):
             _sparse_counters(bt, reset=True)
             bt.stencil_op.stencil_gs_color_step.launches = 0
             mesh.reset_counts()
+            picked = collections.Counter()
             with _route_forced(le, "halo_route_for",
                                "counted" if which == "mesh_counted"
                                else None), \
                     _route_forced(bt.stencil_op, "gs_halo_route_for",
-                                  "legs" if which == "mesh_legs" else None):
+                                  "legs" if which == "mesh_legs" else None), \
+                    _route_recorded(bt.stencil_op, "halo_route_for", picked):
                 res = bt.solve(setup, method=method)
             counts = _mesh_counters(bt)
             single = _sparse_counters(bt)
@@ -5071,6 +5231,17 @@ def phase_slice8(torch, bt, sband):
                 if which == "mesh":
                     launches.setdefault("stencil_gs_step_halo_by_route", {
                         rt: counts[f"stencil_gs_step_halo_{rt}"]
+                        for rt in ("box", "legs")})
+            if spmv and which != "single":
+                # every #1 shard launch on the route its picker named, and
+                # that the box route: 128^3 f32 on aligned windows
+                ok = ok and all(counts[f"stencil_spmv_halo_{rt}"] ==
+                                picked[rt] for rt in ("box", "legs"))
+                ok = ok and sum(picked.values()) == counts[kernel]
+                ok = ok and counts["stencil_spmv_halo_legs"] == 0
+                if which == "mesh":
+                    launches.setdefault("stencil_spmv_halo_by_route", {
+                        rt: counts[f"stencil_spmv_halo_{rt}"]
                         for rt in ("box", "legs")})
             if lane and which != "single":
                 want = "counted" if which == "mesh_counted" else shape_route
@@ -5098,7 +5269,11 @@ def phase_slice8(torch, bt, sband):
                      f" B) gather={exch['gather'] / it:.3f}"
                      if which != "single" else "")
                   + (f" #5 halo route {shape_route} (the launch shape's)"
-                     if which == "mesh" and lane else ""))
+                     if which == "mesh" and lane else "")
+                  + (f" #1 halo launches by route (the picker's: "
+                     f"{dict(picked)}) box={counts['stencil_spmv_halo_box']}"
+                     f" legs={counts['stencil_spmv_halo_legs']}"
+                     if which != "single" and spmv else ""))
             if not ok:
                 raise RuntimeError(f"[slice8] {label} {which} failed its "
                                    "checks")
@@ -5224,6 +5399,7 @@ def phase_gspmd(torch, bt):
     GSPMD CG on the card.  One card measures no communication: every
     number here is host and DTensor dispatch at world size 1.  Returns
     each halo form's launches in its GSPMD row and the CG row's ms/iter."""
+    import collections
     import math
     import numpy as np
     import torch.distributed as dist
@@ -5256,7 +5432,9 @@ def phase_gspmd(torch, bt):
                       "single"):
             _mesh_counters(bt, reset=True)
             _sparse_counters(bt, reset=True)
-            res = bt.solve(setups[which], method=methods[which])
+            picked = collections.Counter()
+            with _route_recorded(bt.stencil_op, "halo_route_for", picked):
+                res = bt.solve(setups[which], method=methods[which])
             counts = _mesh_counters(bt)
             single = _sparse_counters(bt)
             it = max(1, res.iter_count)
@@ -5271,12 +5449,24 @@ def phase_gspmd(torch, bt):
                 ok = ok and single["stencil_spmv"] == 0
                 launches.setdefault("stencil_spmv_halo",
                                     counts["stencil_spmv_halo"])
+            if which != "single":
+                # every #1 shard launch on the route its picker named, and
+                # that the box route: 128^3 f32 on aligned windows
+                ok = ok and sum(picked.values()) == counts[
+                    "stencil_spmv_halo"] and all(
+                    counts[f"stencil_spmv_halo_{rt}"] == picked[rt]
+                    for rt in ("box", "legs"))
+                ok = ok and counts["stencil_spmv_halo_legs"] == 0
             per = {k: round(v / it, 3) for k, v in {**counts, **single}
                    .items() if v}
             print(f"[gspmd] {MAIN_SPEC} f32 CG {which}: iters="
                   f"{res.iter_count} ms/iter={ms[which][-1]:.5f} "
                   f"r0={res.residual_norms[0]:.6e} final_explicit_f64="
-                  f"{res.final_residual_norm:.6e} launches/iter={per}")
+                  f"{res.final_residual_norm:.6e} launches/iter={per}"
+                  + (f" #1 halo launches by route (the picker's: "
+                     f"{dict(picked)}) box={counts['stencil_spmv_halo_box']}"
+                     f" legs={counts['stencil_spmv_halo_legs']}"
+                     if which != "single" else ""))
             if not ok:
                 raise RuntimeError(f"[gspmd] {MAIN_SPEC} f32 CG {which} "
                                    "failed its checks")
@@ -5683,9 +5873,10 @@ def phase_slice8b(torch, bt, setup5b):
     plane and const levels all on the forced route or on the one the
     picker names), the mesh's exchanges and bytes an iteration, peak
     memory, and the
-    mesh's history against the single-device one (the CG rows' first ten
-    residuals within 1e-4: f32, the psum sums the dots per shard; and
-    pcg_ilu0@fdm2048's also in f64 within 1e-8), and the mesh census.
+    mesh's history against the single-device one (every row's first ten
+    residuals within 1e-4: f32, the psum sums the dots per shard, the
+    stencil's fused dots too, in float64 partials; and pcg_ilu0@fdm2048's
+    also in f64 within 1e-8), and the mesh census.
     Then
     f64 CG + SGS at 128^3 to 1e-8·||r0|| on the mesh and on one device:
     equal counts, histories within rtol 1e-8; and f64 BiCGSTAB + SGS on
@@ -5831,7 +6022,7 @@ def phase_slice8b(torch, bt, setup5b):
         dev = float(np.max(np.abs(h8 - h1) / h1))
         print(f"[slice8b] {name}: the mesh's first ten residuals against "
               f"the single-device solve's: max rel difference {dev:.3e}")
-        if name.startswith("pcg") and not dev <= 1e-4:
+        if not dev <= 1e-4:
             raise RuntimeError(f"[slice8b] {name}: the mesh's history "
                                "departs from the single-device one")
         if name == "pcg_ilu0@fdm2048":
@@ -6226,6 +6417,7 @@ def main():
         "lane_ell_spmv_halo": mesh_launches["lane_ell_spmv_halo_by_route"],
         "stencil_gs_step_halo": mesh_launches[
             "stencil_gs_step_halo_by_route"],
+        "stencil_spmv_halo": mesh_launches["stencil_spmv_halo_by_route"],
         "super_level_halo": {f"{k}_{rt}": sum(
             c.get(f"super_level_halo_{k}_{rt}", 0)
             for c in mesh_super_launches.values())
@@ -6360,7 +6552,10 @@ def main():
                                         "bound_apply_ms_384", "routes",
                                         "per_level_ms", "level_bound_ms",
                                         "floor_ms", "direct_first_ms",
-                                        "in_place_ms", "grid", "brick")
+                                        "in_place_ms", "grid", "brick",
+                                        "gspmd1_ms", "gspmd1_legs_ms",
+                                        "gspmd1_bound_ms", "by_type",
+                                        "wrapper_legs_ms")
          if key in k}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

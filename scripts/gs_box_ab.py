@@ -62,10 +62,13 @@ def main():
             ("box", "legs", "legs", "box"))
         line = (f"[gs-box-ab] {spec} {md_name} colour 0, device ms in turns: "
                 f"one device box={single['box']} legs={single['legs']}")
-        if A.halo[0] % (16 // x.element_size()) == 0:
+        # the shard form's windows: line-aligned (window_halo) where the
+        # checkout has them, else the exact halo, timed where whole vectors
+        hw = getattr(A, "window_halo", A.halo)
+        if hw[0] % (16 // x.element_size()) == 0:
             npad = chip_smoke.MESH_SHARDS * R
             pad = lambda v: torch.nn.functional.pad(v, (0, npad - n))  # noqa: E731
-            wins = _halo_exchange(mesh, _split(pad(x), len(k_all)), *A.halo)
+            wins = _halo_exchange(mesh, _split(pad(x), len(k_all)), *hw)
             rs, ds = _split(pad(rhs), len(k_all)), _split(pad(dinv),
                                                           len(k_all))
             dg = W.diag_shards or (None,) * len(k_all)

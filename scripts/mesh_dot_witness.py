@@ -28,6 +28,7 @@ Prints one JSON line.
 """
 import argparse
 import contextlib
+import importlib
 import json
 import pathlib
 import sys
@@ -48,7 +49,10 @@ def main() -> None:
     import torch
 
     import basic_iterative_solvers_tpu_torch as bt
-    from basic_iterative_solvers_tpu_torch.ops import blas1, spmv
+    from basic_iterative_solvers_tpu_torch.ops import blas1
+    # the module (ops/__init__.py exports its function under the same name)
+    spmv = importlib.import_module(
+        "basic_iterative_solvers_tpu_torch.ops.spmv")
     from basic_iterative_solvers_tpu_torch.parallel import (make_mesh,
                                                             shard_setup)
 

@@ -7,11 +7,15 @@ Prints the card's name and power limit, then one JSON line per row.
     python3 scripts/row_times.py --rows pcg_ilu0 --repeats 3
 
 Rows (f32, fused, tolerance 0, b = 2, x0 = 1, the bench's iteration
-counts): `pcg_ilu0` (CG + ILU(0) on HPCG 128^3, 1200 iterations, the
-factor-table levels), `mesh_pcg_ilu0` (the same on an 8-shard mesh bound
-to the one card) and `mesh_cg_sband` (CG on sband:500000,8,400 in lane-ELL
-on that mesh, 400 iterations).  Each row runs one warm-up solve, then
-`--repeats` timed ones: ms/iter from the solve's own clock.  Run the
+counts): `cg` (CG on HPCG 128^3, 2500 iterations), `pcg_mg` (CG + the
+multigrid V-cycle on HPCG 128^3, 1200), `pcg_ilu0` (CG + ILU(0) on HPCG
+128^3, 1200 iterations, the factor-table levels), `mesh_pcg_ilu0` (the
+same on an 8-shard mesh bound to the one card) and `mesh_cg_sband` (CG on
+sband:500000,8,400 in lane-ELL on that mesh, 400 iterations).  Each row
+runs one warm-up solve, then `--repeats` timed ones: ms/iter from the
+solve's own clock.  `spmv_x` is one call of `stencil_spmv(A, x, ("x",))`
+at HPCG 128^3 f32 (the fused SpMV with its dot, host and card): ms a call
+by CUDA events over 1000 calls, `--repeats` times.  Run the
 checkouts in turns within one machine (A, B, B, A): a card may be set
 below its power maximum, and the mesh rows are bound by the host.
 """
@@ -21,7 +25,8 @@ import pathlib
 import subprocess
 import sys
 
-ROWS = ("pcg_ilu0", "mesh_pcg_ilu0", "mesh_cg_sband")
+ROWS = ("cg", "pcg_mg", "pcg_ilu0", "mesh_pcg_ilu0", "mesh_cg_sband",
+        "spmv_x")
 
 
 def _setups(torch, bt, name):
@@ -37,8 +42,11 @@ def _setups(torch, bt, name):
             x0=torch.full((A.n_rows,), 1.0, device=dev), device=dev)
     A = bt.stencil_op.from_source_operator("hpcg:128x128x128", dt,
                                            device=dev)
-    cfg = bt.SolverConfig(preconditioner=bt.PrecondType.ILU0, dtype=dt,
-                          harness="fused", tolerance=0.0, max_iters=1200,
+    precond, iters = {"cg": (bt.PrecondType.NONE, 2500),
+                      "pcg_mg": (bt.PrecondType.MULTIGRID, 1200)}.get(
+        name, (bt.PrecondType.ILU0, 1200))
+    cfg = bt.SolverConfig(preconditioner=precond, dtype=dt,
+                          harness="fused", tolerance=0.0, max_iters=iters,
                           breakdown_stall=True)
     return bt.preprocessing_device(
         A, cfg, b=torch.full((A.n_rows,), 2.0, device=dev),
@@ -68,6 +76,23 @@ def main():
     for name in args.rows.split(","):
         if name not in ROWS:
             raise SystemExit(f"row_times: unknown row {name!r}")
+        if name == "spmv_x":
+            A = bt.stencil_op.from_source_operator(
+                "hpcg:128x128x128", torch.float32, device="cuda")
+            x = torch.randn(A.n_rows, device="cuda")
+            ms = []
+            for _ in range(1 + args.repeats):         # one warm-up batch
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                for _ in range(1000):
+                    bt.stencil_op.stencil_spmv(A, x, ("x",))
+                t1.record()
+                t1.synchronize()
+                ms.append(t0.elapsed_time(t1) / 1000)
+            print(json.dumps({"tree": str(tree), "row": name,
+                              "ms_per_call": ms[1:]}))
+            continue
         setup = _setups(torch, bt, name)
         if name.startswith("mesh_"):
             setup = shard_setup(setup, make_mesh(8, device="cuda"),

@@ -336,7 +336,7 @@ def test_halo_forms_equal_single_device_and_plain(card, kind, spec, dt,
         h = None
     xs = _split(torch.nn.functional.pad(x, (0, npad - x.numel())), n_dev)
     if kind == "stencil":
-        windows = _halo_exchange(W.mesh, xs, *A.halo)
+        windows = _halo_exchange(W.mesh, xs, *A.window_halo)
     elif kind == "dia":
         from basic_iterative_solvers_tpu_torch.parallel.sharded import _halo
         hneg, hpos = _halo(A.offsets)
@@ -353,7 +353,8 @@ def test_halo_forms_equal_single_device_and_plain(card, kind, spec, dt,
                                              diag=d)
             scale = float(pk[0].abs().max()) or 1.0
             assert float((yk[0] - pk[0]).abs().max()) <= tol * scale
-            dscale = float((pk[0] * windows[k][A.halo[0]:A.halo[0] + R])
+            hneg = A.window_halo[0]
+            dscale = float((pk[0] * windows[k][hneg:hneg + R])
                            .abs().sum()) or 1.0
             assert abs(float(yk[1] - pk[1])) <= tol * dscale
         elif kind == "dia":
@@ -1116,7 +1117,7 @@ def test_gs_halo_routes_equal_single_device(card, spec, mat_dt):
     cs = spec_for_device(A)
     rhs = torch.randn_like(x)
     dinv = 1.0 / tso.stencil_diag(A).to(dt)
-    n, hneg, hpos = A.n_rows, *A.halo
+    n, hneg, hpos = A.n_rows, *A.window_halo
     fn = tso.stencil_gs_color_step_halo
     for R in (W.rows, 5 * A.dims[0]):
         n_dev = -(-n // R)
@@ -1387,3 +1388,137 @@ def test_mega_brick_launch_the_card_refuses_raises(card):
     torch.cuda.synchronize()
     assert _mega_counts(bk) == before
     assert bool((x == 7.0).all())
+
+
+HALO_BOX = [("hpcg:16x12x10", torch.float32, torch.float32),
+            ("hpcg:16x12x10", torch.float64, torch.float64),
+            ("fdm:72", torch.float32, torch.float32),
+            ("anderson:Lx=32,Ly=24,Lz=16,t=1.0,ranpot=4.0,seed=1",
+             torch.float32, torch.bfloat16),
+            ("anderson:Lx=32,Ly=24,Lz=16,t=1.0,ranpot=4.0,seed=1",
+             torch.float64, torch.float64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,dt,mat_dt", HALO_BOX)
+def test_halo_box_route_equals_legs_and_single_device(card, spec, dt,
+                                                      mat_dt):
+    """#1's shard form on the mesh's line-aligned windows: every shard on
+    the box route (halo_route_for's) and on the leg loop bit-equal in y,
+    the shards together bit-equal to the single-device #1, every dot kind
+    within TOL of the plain version's, each launch counted on its route;
+    8 shards as the mesh cuts them and shards of 5 lines (not on a plane),
+    and one window over the whole grid (the GSPMD mode at world size 1).
+    The mesh SpMV then takes the box route in every launch."""
+    from basic_iterative_solvers_tpu_torch.parallel import mesh_ops
+    A, W, x = _mesh_operands(card, "stencil", spec, dt, mat_dt)
+    aux = torch.randn_like(x)
+    n, (hneg, hpos) = A.n_rows, A.window_halo
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    fn = tso.stencil_spmv_halo
+    dots = ("x", "self", "aux")
+    single = tso._stencil_spmv_cuda(A, x, dots, aux)
+    for R in (W.rows, 5 * A.dims[0], n):
+        n_dev = -(-n // R)
+        pad = lambda v: torch.nn.functional.pad(v, (0, n_dev * R - n))  # noqa: E731
+        xw = torch.nn.functional.pad(pad(x), (hneg, hpos))
+        auxs = pad(aux).split(R)
+        dg = None if A.diag is None else pad(A.diag).split(R)
+        ys = {"box": [], "legs": []}
+        for k in range(n_dev):
+            win = xw[k * R:k * R + hneg + R + hpos].contiguous()
+            d = None if dg is None else dg[k].contiguous()
+            a = auxs[k].contiguous()
+            assert tso.halo_route_for(A, win, a, d) == "box"
+            plain = tso.stencil_spmv_halo_plain(A, win, k * R, dots, a, d)
+            for route in ("box", "legs"):
+                before = _routes(fn)
+                out = tso._stencil_spmv_halo_cuda(
+                    A, win, k * R, R, dots, a, d, None, route=route)
+                assert _routes(fn) == (before[0] + (route == "box"),
+                                       before[1] + (route == "legs"))
+                ys[route].append(out[0])
+                for j, kind in enumerate(dots):
+                    partner = {"x": win[hneg:hneg + R], "self": plain[0],
+                               "aux": a}[kind]
+                    scale = float((plain[0] * partner).abs().sum()) or 1.0
+                    assert abs(float(out[1 + j] - plain[1 + j])) \
+                        <= tol * scale, (R, k, route, kind)
+        torch.cuda.synchronize()
+        box, legs = torch.cat(ys["box"]), torch.cat(ys["legs"])
+        assert torch.equal(box, legs), R
+        assert torch.equal(box[:n], single[0]), R
+        assert not bool(box[n:].any())
+    before = _routes(fn)
+    y8 = mesh_ops.mesh_stencil_spmv(W, _rows(W, x), ("x",))
+    assert _routes(fn) == (before[0] + W.n_devices, before[1])
+    assert torch.equal(_whole(W, y8[0]), single[0])
+
+
+@pytest.mark.cuda
+def test_halo_box_launch_refuses_a_misaligned_window(card):
+    """A box launch on a window that starts off 16 bytes raises (the
+    launcher refuses it) and counts nothing: nothing falls back to the
+    leg loop."""
+    A = tso.from_source_operator("hpcg:16x12x10", torch.float32, device=card)
+    hneg, hpos = A.window_halo
+    R = 16 * 12 * 2
+    xw = torch.zeros(hneg + R + hpos + 1, device=card)[1:]
+    before = _routes(tso.stencil_spmv_halo)
+    with pytest.raises(RuntimeError, match="box route"):
+        tso._stencil_spmv_halo_cuda(A, xw, 0, R, (), None, None, None,
+                                    route="box")
+    assert _routes(tso.stencil_spmv_halo) == before
+
+
+@pytest.mark.cuda
+def test_mesh_and_gspmd_cg_take_the_box_route(card):
+    """CG on HPCG 32^3 (f32 and f64) on an 8-shard mesh and in the GSPMD
+    mode at world size 1 (NCCL) keeps one device's iteration count and
+    history, every #1 shard launch on the box route; #3's shard form
+    takes its box route on the 27-point mesh's windows in f32."""
+    import torch.distributed as dist
+    from basic_iterative_solvers_tpu_torch.coloring import spec_for_device
+    from basic_iterative_solvers_tpu_torch.parallel import (
+        make_device_mesh, make_mesh, mesh_ops, shard_setup)
+    from basic_iterative_solvers_tpu_torch.ops.blas1 import full_value
+    fn = tso.stencil_spmv_halo
+    torch.cuda.set_device(card.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        dmesh = make_device_mesh()
+        for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-10)):
+            A = tso.from_source_operator("hpcg:32x32x32", dt, device=card)
+            cfg = bt.SolverConfig(dtype=dt, harness="fused", tolerance=tol,
+                                  max_iters=500)
+            r1 = bt.solve(bt.preprocessing_device(A, cfg))
+            for mesh, mode in ((make_mesh(8, device=card), "shard_map"),
+                               (dmesh, "gspmd")):
+                before = _routes(fn)
+                r = bt.solve(shard_setup(bt.preprocessing_device(A, cfg),
+                                         mesh, mode=mode))
+                box, legs = (a - b for a, b in zip(_routes(fn), before))
+                assert r.converged and r.iter_count == r1.iter_count, mode
+                assert box >= r.iter_count and legs == 0, mode
+                np.testing.assert_allclose(r.residual_norms[:-1],
+                                           r1.residual_norms[:-1],
+                                           rtol=1e-3 if dt == torch.float32
+                                           else 1e-8)
+                assert bool(torch.isfinite(full_value(r.x_star)).all())
+        A = tso.from_source_operator("hpcg:32x32x32", torch.float32,
+                                     device=card)
+        W = mesh_ops.wrap_stencil(dataclasses.replace(A, shards=8),
+                                  make_mesh(8, device=card), "rows")
+        x = torch.randn(A.n_rows, device=card)
+        cs = spec_for_device(A)
+        dinv = 1.0 / tso.stencil_diag(A)
+        before = _routes(tso.stencil_gs_color_step_halo)
+        y8 = mesh_ops.mesh_gs_color_step(W, _rows(W, x), _rows(W, x),
+                                         _rows(W, dinv), cs, 0)
+        assert _routes(tso.stencil_gs_color_step_halo) == (before[0] + 8,
+                                                           before[1])
+        assert torch.equal(_whole(W, y8), tso.stencil_gs_color_step(
+            A, x, x, dinv, cs, 0))
+    finally:
+        dist.destroy_process_group()

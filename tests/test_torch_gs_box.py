@@ -212,7 +212,8 @@ def _windows(v, R, n_dev, hneg, hpos):
 
 
 SHARDS = [("five:40x37", 2, None), ("five:40x37", 4, None),
-          ("fdm:40", 4, None), (ANDERSON, 4, 9), ("bf16:" + ANDERSON, 2, 13)]
+          ("fdm:40", 4, None), ("hpcg:16x12x10", 4, None), (ANDERSON, 4, 9),
+          ("bf16:" + ANDERSON, 2, 13)]
 
 
 @pytest.mark.parametrize("np_dt", [np.float32, np.float64])
@@ -221,12 +222,13 @@ def test_box_shard_step_equals_the_leg_loop(case, n_dev, lines, np_dt):
     """The shard form on windows: each shard's x' bit-equal to the leg
     loop's rows of the whole grid, its inert padded rows (at or past n)
     x copied through.  Shards as the mesh cuts them (2-D: lines, which
-    box_form marches as planes; 2 and 4 shards; rows padded past n), and
+    box_form marches as planes; 2 and 4 shards; rows padded past n; HPCG
+    in planes, its 27-point halo rounded up to whole lines), and
     shards of `lines` x-lines that do not start on a plane (Anderson:
     whole-plane halo, a 3-D window cut mid-plane)."""
     bf16 = case.startswith("bf16:")
     A = _operator(case.removeprefix("bf16:"), bf16)
-    hneg, hpos = A.halo
+    hneg, hpos = A.window_halo
     nx, n = A.dims[0], A.n_rows
     R = (tso.stencil_shard_rows(A.dims, A.halo, n_dev) if lines is None
          else lines * nx)
@@ -254,10 +256,9 @@ def test_box_shard_step_equals_the_leg_loop(case, n_dev, lines, np_dt):
 def test_gs_route_rules():
     """The pickers: "box" for legs within the box under a parity or grid
     colouring, lines of whole 16-byte vectors, aligned operands and (the
-    shard form) a halo of whole vectors, in float32 or on a flat plane;
+    shard form) its line-aligned window, in float32 or on a flat plane;
     "legs" for the mod colouring, legs outside the box, 37-wide lines,
-    an operand off 16 bytes, float64 on a 3-D grid, and HPCG's shard
-    windows (halo plane + line + 1)."""
+    an operand off 16 bytes and float64 on a 3-D grid."""
     cases = {"hpcg:16x12x10": ("box", "legs"), "fdm:40": "box",
              ANDERSON: ("box", "legs"), "hpcg:37x21x5": "legs",
              "fdm:42": ("legs", "box")}
@@ -281,16 +282,16 @@ def test_gs_route_rules():
                           ((-2, 0, 0), -1.0)], 8, 7, 6, device=CPU)
     xb = torch.zeros(B.n_rows)
     assert tso.gs_route_for(B, xb, xb, xb, tcol.spec_for_device(B)) == "legs"
-    # the shard form: fdm's halo is a line (whole vectors), HPCG's a plane,
-    # a line and a row
+    # the shard form on its window (the halo rounded up to whole lines)
     for spec_s, dt, want in (("fdm:40", torch.float32, "box"),
                              ("fdm:40", torch.float64, "box"),
-                             ("hpcg:16x12x10", torch.float32, "legs"),
+                             ("hpcg:16x12x10", torch.float32, "box"),
+                             ("hpcg:16x12x10", torch.float64, "legs"),
                              (ANDERSON, torch.float32, "box"),
                              (ANDERSON, torch.float64, "legs")):
         A = tso.from_source_operator(spec_s, dt, device=CPU)
         R = A.dims[0] * A.dims[1]
-        xw = torch.zeros(sum(A.halo) + R, dtype=dt)
+        xw = torch.zeros(sum(A.window_halo) + R, dtype=dt)
         v = torch.zeros(R, dtype=dt)
         d = None if A.diag is None else A.diag[:R].contiguous()
         assert tso.gs_halo_route_for(A, xw, v, v, tcol.spec_for_device(A),

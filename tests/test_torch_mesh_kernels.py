@@ -122,8 +122,9 @@ def test_mesh_stencil_spmv_equals_single_device(spec, dtype, mesh8):
                                                    .sum())
     itemsize = x.element_size()
     assert mesh8.counts["ppermute"] == 2 and mesh8.counts["psum"] == 1
-    assert mesh8.counts["psum_bytes"] == 8 * len(dots) * itemsize
-    assert mesh8.counts["ppermute_bytes"] == 2 * 7 * A.halo[0] * itemsize
+    assert mesh8.counts["psum_bytes"] == 8 * len(dots) * 8   # f64 partials
+    assert mesh8.counts["ppermute_bytes"] == (2 * 7 * A.window_halo[0]
+                                             * itemsize)
     assert torch.equal(mesh_x(spmv_dots(M, x8, aux=aux8,
                                         with_self=True)[0]), y1[0])
 
@@ -141,7 +142,7 @@ def test_halo_plain_equals_single_device_plain(spec, mesh8):
     R = M.rows
     npad = 8 * R
     pad = lambda v: torch.nn.functional.pad(v, (0, npad - A.n_rows))  # noqa
-    windows = _halo_exchange(mesh8, _split(pad(x), 8), *A.halo)
+    windows = _halo_exchange(mesh8, _split(pad(x), 8), *A.window_halo)
     y1 = tso.stencil_spmv_plain(A, x)
     diags = M.diag_shards or (None,) * 8
     ys = [tso.stencil_spmv_halo_plain(A, windows[k], k * R, diag=diags[k])
@@ -278,15 +279,15 @@ def test_halo_wrappers_refuse_bad_windows(mesh8):
     slice missing where the operator has one, a lane-ELL halo below the
     span."""
     A, M = _mesh_stencil("hpcg:8x6x4", torch.float64, mesh8)
-    xw = torch.zeros(M.rows + sum(A.halo), dtype=torch.float64)
+    xw = torch.zeros(M.rows + sum(A.window_halo), dtype=torch.float64)
     with pytest.raises(ValueError, match="whole x-lines"):
         tso.stencil_spmv_halo(A, xw, 3)
     with pytest.raises(ValueError, match="whole x-lines"):
         tso.stencil_spmv_halo(A, xw[1:], 0)
     An, Mn = _mesh_stencil(STENCILS[3], torch.float64, mesh8)
     with pytest.raises(ValueError, match="diagonal slice"):
-        tso.stencil_spmv_halo(An, torch.zeros(Mn.rows + sum(An.halo),
-                                              dtype=torch.float64), 0)
+        tso.stencil_spmv_halo(An, torch.zeros(
+            Mn.rows + sum(An.window_halo), dtype=torch.float64), 0)
     L = tle.csr_to_lane_ell(bt.generators.from_source("sband:1500,6,260"),
                             torch.float64, device=CPU)
     with pytest.raises(ValueError, match="halo"):

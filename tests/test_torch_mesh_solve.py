@@ -167,7 +167,7 @@ def test_mesh_counts_per_cg_iteration():
     assert mesh.counts["psum"] == 2 * res.iter_count + 2
     assert mesh.counts["psum_bytes"] == 8 * 8 * mesh.counts["psum"]
     assert mesh.counts["gather"] == mesh.counts["scatter"] == 0
-    halo = s8.A.inner.halo[0]
+    halo = s8.A.inner.window_halo[0]
     assert mesh.counts["ppermute_bytes"] == 2 * n_spmv * 7 * halo * 8
     assert halo < s8.A.n_rows // 8
 

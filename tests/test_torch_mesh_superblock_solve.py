@@ -114,7 +114,7 @@ def test_mesh_exchanges_per_iteration():
     levels = 2 * len(L8.inner.levels)
     assert mesh.counts["gather"] == mesh.counts["scatter"] == 0
     assert mesh.counts["ppermute"] == 2 * (n_spmv + levels * applies)
-    spmv_bytes = 2 * n_spmv * 7 * s8.A.inner.halo[0] * 8
+    spmv_bytes = 2 * n_spmv * 7 * s8.A.inner.window_halo[0] * 8
     sent = mesh.counts["ppermute_bytes"] - spmv_bytes
     # per level a shard sends its superblock's lines among 17 halo lines a
     # side: 8 or 9 of them (one plane's worth of y-phase, one line)

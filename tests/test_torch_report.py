@@ -176,6 +176,7 @@ def test_bucket_of_maps_every_kernel_of_the_port():
             "stencil_gs_color_step_box_kernel": "spmv",
             "dia_spmv_kernel": "spmv", "lane_ell_spmv_kernel": "spmv",
             "stencil_spmv_halo_kernel": "spmv",
+            "stencil_spmv_halo_box_kernel": "spmv",
             "stencil_gs_color_step_halo_kernel": "spmv",
             "dia_spmv_halo_kernel": "spmv",
             "lane_ell_spmv_halo_kernel": "spmv",
